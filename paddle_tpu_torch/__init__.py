@@ -10,6 +10,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the CPU tests do).  Asking for ``cuda`` on a machine without a card
 raises :class:`RuntimeError`; nothing carries on on the CPU.
 
+Ported slices: serving (``inference.GenerationServer`` over
+``text.models.LlamaForCausalLM``) and training (``optimizer.AdamW`` and
+``distributed.fleet.DistributedTrainStep`` over the same model); the
+subpackages are imported on use, as in ``paddle_tpu``.
+
 This package never imports ``jax`` or any module of ``paddle_tpu``.
 """
 from __future__ import annotations

@@ -3,10 +3,10 @@
 
 Inputs in paddle layout (B, S, H, D).  The causal mask is aligned to the
 bottom-right corner (``tril(ones(Sq, Sk), Sk - Sq)``) as the reference
-has it; masked logits are -1e30, not -inf.  The serving slice's prefill
-goes through :func:`..ops.kernels.flash_attention.flash_attention`
-instead; this is the short-sequence attention the training slice's
-Llama forward uses below its chunking threshold.
+has it; masked logits are -1e30, not -inf.  The Llama prefill and
+training forward go through
+:func:`..ops.kernels.flash_attention.flash_attention` at flash-eligible
+shapes; this is the attention of the others.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ __all__ = ["_sdpa_ref"]
 def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
     if dropout_p > 0.0:
         raise NotImplementedError(
-            "attention dropout arrives with the training slice "
-            "(ROADMAP queue 1, item 2)")
+            "attention dropout arrives with the BERT slice (ROADMAP queue "
+            "item 7)")
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     s = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * s

@@ -1,25 +1,45 @@
-"""Flash attention forward: the Hopper kernel and its plain version.
+"""Flash attention, forward and backward: the Hopper kernels and their
+plain versions.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` (kernel 1,
-``_fwd_kernel``).  The CUDA kernel (``csrc/flash_attention_fwd.cu``) is
-a blockwise online-softmax forward, one thread block per (batch, head,
-64-row query tile), causal or not, bf16 or f32, head_dim 64/128/256,
-any sequence length.  Grouped-query attention indexes kv head
-``h // (H // Hkv)`` instead of materialising the repeat.  It can also
-emit the per-row logsumexp (LSE) [B, H, Sq] f32 for a backward pass.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
+(``_fwd_kernel``) and kernels 2 and 3 (``_bwd_dkv_kernel``,
+``_bwd_dq_kernel``).
 
-Numerics follow the Pallas kernel: scores ``(q . k) * scale`` in f32,
-masked scores -1e30, online max/denominator in f32, the denominator
-clamped at 1e-30, bf16 probabilities into the P.V product.  The causal
-mask is top-left aligned (query i sees keys 0..i), as the Pallas kernel
-has it.
+- The forward (``csrc/flash_attention_fwd.cu``) is a blockwise
+  online-softmax kernel, one thread block per (batch, head, 64-row query
+  tile), causal or not, bf16 or f32, head_dim 64/128/256, any sequence
+  length.  Grouped-query attention indexes kv head ``h // (H // Hkv)``
+  instead of materialising the repeat.  It can also emit the per-row
+  logsumexp (LSE) [B, H, Sq] f32 for the backward.
+- The backward (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's:
+  a dK/dV kernel, one block per (batch, kv head, key tile) looping over
+  the query tiles of every head of its group, and a dQ kernel, one block
+  per (batch, head, query tile) looping over key tiles.  Both recompute
+  P from the saved LSE; ``delta = rowsum(dO * O)`` is plain PyTorch, as
+  the reference computes it in plain XLA.  No atomics: bitwise the same
+  gradients from run to run.
 
-The plain version :func:`flash_attention_ref` is the counterpart of
-``_ref_chunked``: query chunks against all keys, a full softmax per
-chunk, in f32, cast back to the input dtype.
+Numerics follow the Pallas kernels: scores ``(q . k) * scale`` in f32,
+masked scores -1e30 (probability 0), online max/denominator in f32, the
+denominator clamped at 1e-30; on the bf16 path the probabilities P (and
+in the backward dS) are rounded to bf16 before their products.  The
+causal mask is top-left aligned (query i sees keys 0..i), as the Pallas
+kernels have it.
 
-Bias and dropout are not ported yet (they come with the training slice);
-the backward kernels likewise.
+The plain versions :func:`flash_attention_ref` and
+:func:`flash_attention_bwd_dkv_ref` / :func:`flash_attention_bwd_dq_ref`
+are chunked f32 PyTorch (the counterpart of ``_ref_chunked`` and of its
+autodiff); the ``*_blockwise_ref`` versions round P (and dS) to the
+input dtype as the kernels do, and the bf16 kernels are held to them on
+the card.
+
+:class:`_FlashAttention` (a ``torch.autograd.Function``) makes
+:func:`flash_attention` / :func:`flash_attention_bhsd` differentiable:
+its forward dispatches the forward with the LSE, its backward the two
+backward kernels, all through the registry (kernels for CUDA tensors,
+plain versions for CPU tensors or where ``mode`` says so).
+
+Bias and dropout are not ported (no Llama path uses them).
 """
 from __future__ import annotations
 
@@ -27,15 +47,23 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
-           "flash_attention_blockwise_ref", "CARD_TOL", "NEG_INF"]
+           "flash_attention_blockwise_ref", "flash_attention_bwd_dkv_ref",
+           "flash_attention_bwd_dq_ref", "flash_attention_bwd_blockwise_ref",
+           "attention_delta", "flash_eligible", "CARD_TOL", "CARD_TOL_BWD",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 _HEAD_DIMS = (64, 128, 256)
+# sequence length from which the Llama attention takes the flash kernels
+# (the reference's flash_eligible floor)
+FLASH_MIN_SEQ = 1024
 # The kernel against its plain version on the card, as (atol, rtol, row):
 # |kernel - plain| <= atol + rtol * |plain| + row * (RMS of the plain
 # output's row over head_dim).  f32, against flash_attention_ref: the
@@ -46,6 +74,30 @@ _HEAD_DIMS = (64, 128, 256)
 # another order), which moves an output by up to 2**-8 * |v| / l.
 CARD_TOL = {torch.float32: (1e-4, 0.0, 0.0),
             torch.bfloat16: (0.0, 8e-3, 0.02)}
+# The backward kernels' dQ, dK and dV against the plain versions, in the
+# same form; the row term is per query row (dQ) or per key row (dK, dV).
+# f32, against the chunked f32 version: the registered atol, plus 1e-4 of
+# |plain| for sums over up to S query or key terms.  bf16, against
+# flash_attention_bwd_blockwise_ref (P and dS rounded to bf16 as in the
+# kernels): rtol is one rounding of the bf16 output (2**-7); the row term
+# covers P or dS elements whose bf16 rounding flips on a last-bit
+# difference of a score or of dO.v (summed in another order on the tensor
+# cores).  One flip moves a dK/dV/dQ row by 2**-8 of one of its terms, at
+# most 2**-8 of the row's scale, so 0.02 leaves room for several.  The
+# fourth term, 1e-3 of the whole output's RMS, covers rows that cancel to
+# rounding noise: query 0 under the causal mask sees only key 0, so its
+# dS = P * (dO.v - dO.o) is zero up to rounding and both versions give
+# dQ row 0 as noise of ~1e-7 in their own summation orders.
+CARD_TOL_BWD = {torch.float32: (1e-4, 1e-4, 0.0),
+                torch.bfloat16: (0.0, 8e-3, 0.02, 1e-3)}
+
+
+def flash_eligible(seq_len: int, head_dim: int) -> bool:
+    """Whether the Llama attention takes the flash kernels: head_dim 64,
+    128 or 256 and at least ``FLASH_MIN_SEQ`` positions (the reference's
+    rule without its TPU-backend test -- the registry routes by device --
+    and without its environment override)."""
+    return head_dim in _HEAD_DIMS and seq_len >= FLASH_MIN_SEQ
 
 
 def flash_attention_ref(q, k, v, causal=False, scale=None, return_lse=False,
@@ -174,12 +226,15 @@ def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     return (o, lse) if return_lse else o
 
 
+# copied from the reference's registration (its one flash entry covers
+# the forward and the custom-vjp backward)
+_TOLERANCE = ("atol ~1e-4 vs the chunked XLA reference (blockwise "
+              "online softmax vs full softmax; measured in BENCH_r04); "
+              "fwd+bwd self-parity pinned by tests/test_flash_attention")
+
 _SPEC = registry.register(
     "flash_attention", _flash_fwd_cuda, flash_attention_ref,
-    # copied from the reference's registration
-    tolerance="atol ~1e-4 vs the chunked XLA reference (blockwise "
-              "online softmax vs full softmax; measured in BENCH_r04); "
-              "fwd+bwd self-parity pinned by tests/test_flash_attention",
+    tolerance=_TOLERANCE,
     eligible=_eligible,
     source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
     replaces="paddle_tpu/ops/pallas/flash_attention.py:72",
@@ -188,10 +243,235 @@ _SPEC = registry.register(
 )
 
 
+# ---------------------------------------------------------------------
+# backward: plain versions
+# ---------------------------------------------------------------------
+
+def attention_delta(o, do):
+    """``rowsum(dO * O)`` in f32, [B, H, Sq]: the backward's per-row
+    correction (plain PyTorch, as the reference computes it in XLA)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
+                 chunk=512):
+    """FlashAttention-2's backward from the saved LSE, queries in chunks
+    of ``chunk`` rows against all keys, in f32.  ``round_p`` rounds P and
+    dS to the input dtype before their products, as the kernels do (the
+    rounding is per element against the final LSE, so the chunking does
+    not change what is rounded).  Returns the f32 gradients named in
+    ``want`` ("dq", "dk", "dv"), dk/dv summed over each kv head's group
+    of query heads."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    R = H // Hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    kf, vf = k.float(), v.float()
+    if R != 1:
+        kf = kf.repeat_interleave(R, dim=1)
+        vf = vf.repeat_interleave(R, dim=1)
+    dev = q.device
+
+    def rnd(x):
+        return x.to(q.dtype).float() if round_p else x
+
+    kpos = torch.arange(Sk, device=dev)
+    dqs = []
+    dk = torch.zeros((B, H, Sk, D), device=dev) if "dk" in want else None
+    dv = torch.zeros((B, H, Sk, D), device=dev) if "dv" in want else None
+    for q0 in range(0, Sq, chunk):
+        qc = q[:, :, q0:q0 + chunk].float()
+        doc = do[:, :, q0:q0 + chunk].float()
+        s = torch.matmul(qc, kf.transpose(-1, -2)) * sc
+        if causal:
+            qpos = torch.arange(q0, q0 + qc.shape[2], device=dev)
+            s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:q0 + chunk, None])
+        del s
+        if dv is not None:
+            dv += torch.matmul(rnd(p).transpose(-1, -2), doc)
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        ds = rnd(p * (dp - delta[:, :, q0:q0 + chunk, None]) * sc)
+        del p, dp
+        if "dq" in want:
+            dqs.append(torch.matmul(ds, kf))
+        if dk is not None:
+            dk += torch.matmul(ds.transpose(-1, -2), qc)
+    out = {}
+    if dqs:
+        out["dq"] = torch.cat(dqs, dim=2)
+    for name, g in (("dk", dk), ("dv", dv)):
+        if g is not None:
+            out[name] = g.view(B, Hkv, R, Sk, D).sum(dim=2) if R != 1 else g
+    return out
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False,
+                                scale=None):
+    """Plain dK, dV (input dtype) from the saved LSE and ``delta``:
+    chunked f32, P and dS unrounded."""
+    g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dk", "dv"),
+                     round_p=False)
+    return g["dk"].to(k.dtype), g["dv"].to(v.dtype)
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=False,
+                               scale=None):
+    """Plain dQ (input dtype) from the saved LSE and ``delta``: chunked
+    f32, P and dS unrounded."""
+    g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dq",),
+                     round_p=False)
+    return g["dq"].to(q.dtype)
+
+
+def flash_attention_bwd_blockwise_ref(q, k, v, do, lse, delta, causal=False,
+                                      scale=None):
+    """The Pallas backward kernels' arithmetic in plain PyTorch: P and dS
+    rounded to the input dtype before their products, f32 sums.  With
+    bf16 inputs the bf16 kernels are held to this version; with f32
+    inputs it equals the chunked plain versions.  Returns (dq, dk, dv)."""
+    g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale,
+                     ("dq", "dk", "dv"), round_p=True)
+    return g["dq"].to(q.dtype), g["dk"].to(k.dtype), g["dv"].to(v.dtype)
+
+
+# ---------------------------------------------------------------------
+# backward: kernels
+# ---------------------------------------------------------------------
+
+def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None):
+    reason = _eligible(q, k, v)
+    if reason:
+        return reason
+    if not do.is_cuda or do.shape != q.shape or do.dtype != q.dtype:
+        return (f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                f"{tuple(q.shape)} {q.dtype}")
+    want = tuple(q.shape[:3])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (not t.is_cuda or t.dtype != torch.float32
+                or tuple(t.shape) != want):
+            return (f"{name} must be a CUDA float32 {want} tensor, got "
+                    f"{tuple(t.shape)} {t.dtype}")
+    return None
+
+
+def _bwd_launch(entry, spec, q, k, v, do, lse, delta, outs, causal, scale):
+    """Launch ``entry`` of the backward library.  ``outs``: (dq, dk, dv)
+    with None where the kernel does not write."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    strides = []
+    for t in (q, k, v, do) + tuple(outs):
+        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    lib = _build.load(_BWD_SOURCE)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk, D;
+        # strides; causal, scale, is_bf16, stream
+        n_ptr = 6 + sum(o is not None for o in outs)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                *[o.data_ptr() for o in outs if o is not None],
+                B, H, Hkv, Sq, Sk, D, (ctypes.c_longlong * 21)(*strides),
+                int(bool(causal)), float(sc), int(q.dtype == torch.bfloat16),
+                stream)
+    _build.check(lib, rc, f"{entry} q={tuple(q.shape)} k={tuple(k.shape)} "
+                          f"{q.dtype}")
+    spec.launches += 1
+
+
+def _like_bshd(t):
+    """An empty (B, H, S, D) tensor laid out as (B, S, H, D) memory, so
+    that the gradient of a transposed (B, S, H, D) input is contiguous
+    once transposed back."""
+    B, H, S, D = t.shape
+    return torch.empty((B, S, H, D), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
+    q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
+    dk, dv = _like_bshd(k), _like_bshd(v)
+    _bwd_launch("flash_attention_bwd_dkv", _DKV_SPEC, q, k, v, do,
+                lse.contiguous(), delta.contiguous(), (None, dk, dv),
+                causal, scale)
+    return dk, dv
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
+    q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
+    dq = _like_bshd(q)
+    _bwd_launch("flash_attention_bwd_dq", _DQ_SPEC, q, k, v, do,
+                lse.contiguous(), delta.contiguous(), (dq, None, None),
+                causal, scale)
+    return dq
+
+
+_DKV_SPEC = registry.register(
+    "flash_attention_bwd_dkv", _bwd_dkv_cuda, flash_attention_bwd_dkv_ref,
+    tolerance=_TOLERANCE,
+    eligible=_bwd_eligible,
+    source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+    replaces="paddle_tpu/ops/pallas/flash_attention.py:208",
+    doc="flash attention backward dK, dV from the saved LSE and delta; "
+        "GQA sums the group's query heads in the kernel",
+)
+
+_DQ_SPEC = registry.register(
+    "flash_attention_bwd_dq", _bwd_dq_cuda, flash_attention_bwd_dq_ref,
+    tolerance=_TOLERANCE,
+    eligible=_bwd_eligible,
+    source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+    replaces="paddle_tpu/ops/pallas/flash_attention.py:258",
+    doc="flash attention backward dQ from the saved LSE and delta",
+)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the FlashAttention-2 backward (counterpart of
+    the reference's ``_fa_impl`` custom vjp).  The forward keeps q, k,
+    v, o and the LSE; under activation checkpointing the recompute's
+    forward saves them anew, and the backward reads those."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, mode):
+        o, lse = registry.dispatch("flash_attention", q, k, v,
+                                   causal=causal, scale=scale,
+                                   return_lse=True, mode=mode)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.mode = causal, scale, mode
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = attention_delta(o, do)
+        kw = dict(causal=ctx.causal, scale=ctx.scale, mode=ctx.mode)
+        dk, dv = registry.dispatch("flash_attention_bwd_dkv", q, k, v, do,
+                                   lse, delta, **kw)
+        dq = registry.dispatch("flash_attention_bwd_dq", q, k, v, do, lse,
+                               delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_bhsd(q, k, v, causal=False, scale=None,
                          return_lse=False, mode=None):
     """Flash attention on (B, H, S, D) tensors (k/v may have fewer heads:
-    grouped-query attention).  Returns ``o`` or ``(o, lse)``."""
+    grouped-query attention).  Returns ``o`` or ``(o, lse)``.
+    Differentiable in q, k and v (through :class:`_FlashAttention`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o, lse = _FlashAttention.apply(q, k, v, causal, scale, mode)
+        return (o, lse) if return_lse else o
     return registry.dispatch("flash_attention", q, k, v, causal=causal,
                              scale=scale, return_lse=return_lse, mode=mode)
 

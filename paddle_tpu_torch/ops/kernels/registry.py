@@ -107,16 +107,20 @@ def dispatch(name: str, *args, mode: Optional[str] = None, **kwargs):
 
 def card_error(got: torch.Tensor, ref: torch.Tensor, tol) -> tuple:
     """A kernel's output ``got`` against its plain version ``ref`` under
-    a kernel module's ``CARD_TOL`` entry ``(atol, rtol, row)``: the limit
-    per element is ``atol + rtol * |ref| + row * RMS(ref's last axis)``.
-    Returns (largest |got - ref|, largest share of its limit an element
-    uses): every element is within iff that share is at most 1."""
-    atol, rtol, row = tol
+    a kernel module's ``CARD_TOL`` entry ``(atol, rtol, row[, whole])``:
+    the limit per element is ``atol + rtol * |ref| + row * RMS(ref's last
+    axis) + whole * RMS(ref)``.  Returns (largest |got - ref|, largest
+    share of its limit an element uses): every element is within iff that
+    share is at most 1."""
+    atol, rtol, row, *rest = tol
+    whole = rest[0] if rest else 0.0
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     lim = atol + rtol * r.abs()
     if row:
         lim = lim + row * r.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    if whole:
+        lim = lim + whole * r.pow(2).mean().sqrt()
     share = torch.where(err > 0, err / lim, torch.zeros_like(err))
     return err.max().item(), share.max().item()
 

@@ -1,25 +1,35 @@
-"""Llama decoder-only LM: the serving parts of the reference's
-``text/models/llama.py``.
+"""Llama decoder-only LM: the serving and training parts of the
+reference's ``text/models/llama.py``.
 
 Ported: ``LlamaConfig`` and the named configs, ``RMSNorm``, the
-interleaved-pair rotary embedding ``_rope``, and the block-paged KV
-cache path (``init_paged_cache`` / ``forward_paged``) that
-``GenerationServer`` drives.  Each function keeps the reference's dtype
-steps, so the same weights give the same numbers:
+interleaved-pair rotary embedding ``_rope``, the block-paged KV cache
+path (``init_paged_cache`` / ``forward_paged``) that ``GenerationServer``
+drives, and the training forward: full-sequence attention, per-layer
+remat, the layer-stacked decoder (``scan_layers=True``) and the causal
+LM loss.  Each function keeps the reference's dtype steps, so the same
+weights give the same numbers:
 
 - the embedding is cast to ``compute_dtype`` (layer 0 sees bf16 even
   with f32 weights);
 - ``linear`` promotes like ``jnp.matmul`` (bf16 x f32 -> f32), so the
-  residual stream turns f32 after the first f32 projection;
+  residual stream turns f32 after the first f32 projection (the stacked
+  decoder folds each layer's output back to the compute dtype, as the
+  reference's ``lax.scan`` carry does);
 - RMSNorm computes in f32 and casts back to its input dtype;
-- the LM head runs on f32 hidden states.
+- the LM head runs on f32 hidden states, and the loss is an f32
+  log-softmax.
 
-Prefill (S > 1, not verify) runs the hand-written flash-attention
-kernel; decode/verify over int8 pools runs the int8 paged-attention
-kernel; both route CPU tensors to their plain versions.
+Prefill (S > 1, not verify) and training attention at flash-eligible
+shapes run the hand-written flash-attention kernels (the training path
+through their autograd Function, so the backward runs the two backward
+kernels); decode/verify over int8 pools runs the int8 paged-attention
+kernel; all route CPU tensors to their plain versions.
 
-The training forward (full-sequence attention, remat, chunked loss) and
-the dense ``[B, Smax]`` cache path come with later slices.
+Not ported yet: the chunked LM loss (``_chunked_causal_lm_loss``, which
+the reference engages only above 1.5 GiB of f32 logits), the chunked
+attention for flash-ineligible long sequences (``_sdpa_ref`` runs
+there), pipeline / sequence / context parallelism and the dense
+``[B, Smax]`` cache path.
 """
 from __future__ import annotations
 
@@ -28,18 +38,24 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ... import make_generator, resolve_device
 from ...framework.dtype import to_torch
-from ...nn.functional import silu
+from ...nn.functional import _sdpa_ref, silu
 from ...nn.layer import (ColumnParallelLinear, Normal, RowParallelLinear,
                          VocabParallelEmbedding)
-from ...ops.kernels.flash_attention import flash_attention
+from ...ops.kernels.flash_attention import flash_attention, flash_eligible
 from ...ops.kernels.kv_attention import (int8_paged_attention,
                                          paged_attention_ref)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "RMSNorm",
-           "llama_tiny", "llama_7b", "llama_13b"]
+           "StackedLlamaDecoder", "llama_tiny", "llama_7b", "llama_13b"]
+
+_SCAN_LAYERS_KV_MSG = (
+    "KV-cache decoding is not supported with scan_layers=True (stacked "
+    "decoder); build the model with scan_layers=False for incremental "
+    "generation")
 
 
 @dataclasses.dataclass
@@ -55,7 +71,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    remat: bool = True            # per-layer activation checkpointing
     compute_dtype: str = "bfloat16"
+    scan_layers: bool = False     # layer-stacked parameters
     # paged-KV pool dtype: None -> compute_dtype; "int8" -> int8 pools
     # with [num_blocks, block_size] f32 scale tensors (symmetric
     # per-token scales, quantised on write); any other value is a plain
@@ -75,7 +93,8 @@ def llama_tiny(**kw) -> LlamaConfig:
     """Small config for tests."""
     d = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
              num_hidden_layers=2, num_attention_heads=4,
-             num_key_value_heads=2, max_position_embeddings=128)
+             num_key_value_heads=2, max_position_embeddings=128,
+             remat=False)
     d.update(kw)
     return LlamaConfig(**d)
 
@@ -144,6 +163,30 @@ class LlamaAttention(nn.Module):
         self.o_proj = RowParallelLinear(
             c.num_attention_heads * c.head_dim, c.hidden_size,
             weight_attr=init, has_bias=False, **kw)
+
+    def forward(self, hidden, positions, mode=None):
+        """Causal self-attention over the whole sequence (training and
+        full-recompute forward).  Grouped-query K/V are repeated to every
+        query head first, as the reference does; flash-eligible shapes
+        take the flash kernels (``mode`` forwards to their dispatch),
+        others the plain attention."""
+        c = self.config
+        q = self.q_proj(hidden)
+        k = self.k_proj(hidden)
+        v = self.v_proj(hidden)
+        B, S = q.shape[0], q.shape[1]
+        H, KH, D = c.num_attention_heads, c.kv_heads, c.head_dim
+        qh = _rope(q.reshape(B, S, H, D), positions, c.rope_theta)
+        kh = _rope(k.reshape(B, S, KH, D), positions, c.rope_theta)
+        vh = v.reshape(B, S, KH, D)
+        if KH != H:
+            kh = kh.repeat_interleave(H // KH, dim=2)
+            vh = vh.repeat_interleave(H // KH, dim=2)
+        if flash_eligible(S, D):
+            o = flash_attention(qh, kh, vh, causal=True, mode=mode)
+        else:
+            o = _sdpa_ref(qh, kh, vh, None, 0.0, True, None)
+        return self.o_proj(o.reshape(B, S, H * D))
 
     def forward_paged(self, hidden, positions, cache, block_tables,
                       write_mask, verify_mode: bool = False, mode=None):
@@ -245,6 +288,11 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **nkw)
         self.mlp = LlamaMLP(config, **kw)
 
+    def forward(self, hidden, positions, mode=None):
+        h = hidden + self.self_attn(self.input_layernorm(hidden), positions,
+                                    mode=mode)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
     def forward_paged(self, hidden, positions, cache, block_tables,
                       write_mask, verify_mode: bool = False, mode=None):
         attn_out, cache = self.self_attn.forward_paged(
@@ -252,6 +300,59 @@ class LlamaDecoderLayer(nn.Module):
             write_mask, verify_mode=verify_mode, mode=mode)
         h = hidden + attn_out
         return h + self.mlp(self.post_attention_layernorm(h)), cache
+
+
+class StackedLlamaDecoder(nn.Module):
+    """The decoder stack with layer-STACKED parameters: every parameter of
+    a decoder layer has a leading layer dim, under the reference's names
+    (``input_layernorm__weight``, ``self_attn__q_proj__weight``, ...), so
+    a ``scan_layers=True`` JAX model's state dict loads unchanged.
+
+    The forward splits each stacked tensor once with ``torch.unbind`` and
+    runs a prototype layer (on the ``meta`` device, never holding data)
+    with one layer's slices through ``torch.func.functional_call``; a
+    Python loop takes the place of ``lax.scan``.  ``unbind``'s backward
+    stacks the L per-layer gradients into one [L, ...] tensor, where L
+    ``select``s would each materialise a full-size zero gradient.
+    """
+
+    def __init__(self, config: LlamaConfig, *, device=None,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        layers = [LlamaDecoderLayer(config, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        self._names = [n for n, _ in layers[0].named_parameters()]
+        for n in self._names:
+            stacked = torch.stack([dict(l.named_parameters())[n].detach()
+                                   for l in layers])
+            self.register_parameter(n.replace(".", "__"),
+                                    nn.Parameter(stacked))
+        del layers
+        # not a registered child: its own parameters are placeholders
+        object.__setattr__(self, "_proto", LlamaDecoderLayer(
+            config, device="meta", dtype=dtype, generator=None))
+
+    def _layer(self, hidden, positions, mode, *params):
+        return torch.func.functional_call(
+            self._proto, dict(zip(self._names, params)), (hidden, positions),
+            {"mode": mode})
+
+    def forward(self, hidden, positions, mode=None):
+        per_layer = [torch.unbind(getattr(self, n.replace(".", "__")))
+                     for n in self._names]
+        for i in range(self.config.num_hidden_layers):
+            params = [p[i] for p in per_layer]
+            if self.config.remat:
+                out = checkpoint(self._layer, hidden, positions, mode,
+                                 *params, use_reentrant=False)
+            else:
+                out = self._layer(hidden, positions, mode, *params)
+            # f32 params promote a bf16 carry; fold the layer output back
+            # to the carry dtype, as the reference's scan does
+            hidden = out.to(hidden.dtype)
+        return hidden
 
 
 class LlamaModel(nn.Module):
@@ -263,17 +364,47 @@ class LlamaModel(nn.Module):
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size,
             weight_attr=Normal(0.0, config.initializer_range), **kw)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, **kw)
-             for _ in range(config.num_hidden_layers)])
+        if config.scan_layers:
+            self.decoder = StackedLlamaDecoder(config, **kw)
+            self.layers = nn.ModuleList()
+        else:
+            self.decoder = None
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config, **kw)
+                 for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
+
+    def forward(self, input_ids, positions=None, mode=None):
+        """Final hidden states [B, S, hidden] of a full-sequence causal
+        forward.  ``positions`` default to ``arange(S)`` per row."""
+        c = self.config
+        if positions is None:
+            S = input_ids.shape[1]
+            positions = torch.arange(
+                S, dtype=torch.int32,
+                device=input_ids.device)[None, :].expand(input_ids.shape)
+        hidden = self.embed_tokens(input_ids)
+        if c.compute_dtype:
+            hidden = hidden.to(to_torch(c.compute_dtype))
+        if self.decoder is not None:
+            hidden = self.decoder(hidden, positions, mode=mode)
+        else:
+            for layer in self.layers:
+                if c.remat:
+                    hidden = checkpoint(layer, hidden, positions, mode=mode,
+                                        use_reentrant=False)
+                else:
+                    hidden = layer(hidden, positions, mode=mode)
+        return self.norm(hidden)
 
     def forward_paged(self, input_ids, positions, pools, block_tables,
                       write_mask, verify_mode: bool = False, mode=None):
         """``pools``: one {"k", "v"} dict per layer (plus ``k_scale`` /
         ``v_scale`` for int8 pools), updated in place.  Returns
         (hidden, pools)."""
+        if self.decoder is not None:
+            raise NotImplementedError(_SCAN_LAYERS_KV_MSG)
         c = self.config
         hidden = self.embed_tokens(input_ids)
         if c.compute_dtype:
@@ -319,14 +450,27 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(h)
         return h @ self.model.embed_tokens.weight.float().T
 
+    def forward(self, input_ids, labels=None, positions=None, mode=None):
+        """Logits [B, S, V] (f32), or ``(loss, logits)`` when ``labels``
+        are given: next-token cross entropy (the shift is done here,
+        label -100 is ignored, the mean is over valid tokens).  ``mode``
+        forwards to the attention kernels' dispatch."""
+        hidden = self.model(input_ids, positions, mode=mode)
+        logits = self._logits(hidden)
+        if labels is None:
+            return logits
+        return _causal_lm_loss(logits, labels), logits
+
     def supports_kv_cache(self) -> bool:
-        return True
+        return self.model.decoder is None
 
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Per-layer K/V pools ``[num_blocks, block_size, KH, D]`` on the
         model's device (block 0 is the trash block: never hand it out).
         ``kv_cache_dtype="int8"`` adds per-(block, slot) f32 scales
         ``k_scale`` / ``v_scale`` [num_blocks, block_size]."""
+        if not self.supports_kv_cache():
+            raise NotImplementedError(_SCAN_LAYERS_KV_MSG)
         c = self.config
         quant = c.kv_cache_dtype == "int8"
         if quant:
@@ -367,3 +511,16 @@ class LlamaForCausalLM(nn.Module):
                 -1, 1, hidden.shape[-1])
             hidden = torch.gather(hidden, 1, idx)
         return self._logits(hidden), pools
+
+
+def _causal_lm_loss(logits, labels):
+    """Mean next-token negative log-likelihood: f32 log-softmax of
+    ``logits[:, :-1]`` against ``labels[:, 1:]``, label < 0 ignored, the
+    sum divided by the number of valid labels (at least 1)."""
+    lg = logits[:, :-1, :]
+    lb = labels[:, 1:].long()
+    valid = lb >= 0
+    logp = torch.log_softmax(lg.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, lb, 0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp_min(1)

@@ -9,6 +9,9 @@ these tests hold the plain versions to the reference at the registered
 tolerances:
 
 - flash attention forward: atol 1e-4;
+- flash attention backward (dq, dk, dv through the autograd Function,
+  against ``jax.grad`` of the Pallas kernels in interpret mode): f32
+  atol 1e-4; bf16 as stated at each test;
 - int8 paged attention: atol 2e-5 / rtol 1e-4.
 
 The hand-written CUDA kernels themselves run only on the card
@@ -25,6 +28,7 @@ import sys
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 import torch
@@ -35,8 +39,10 @@ from paddle_tpu.ops.pallas import registry as jreg
 from paddle_tpu_torch.nn.functional import _sdpa_ref
 from paddle_tpu_torch.ops.kernels import _build, registry
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bhsd, flash_attention_blockwise_ref,
-    flash_attention_ref)
+    CARD_TOL_BWD, attention_delta, flash_attention, flash_attention_bhsd,
+    flash_attention_blockwise_ref, flash_attention_bwd_blockwise_ref,
+    flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
+    flash_attention_ref, flash_eligible)
 from paddle_tpu_torch.ops.kernels.kv_attention import (
     int8_paged_attention, paged_attention_ref)
 
@@ -162,6 +168,140 @@ def test_flash_paddle_layout_entry():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 
 
+# ---------------------------------------------------------------------
+# kernels 2 and 3: flash attention backward (dK/dV and dQ)
+# ---------------------------------------------------------------------
+
+def _jax_grads(q, k, v, g, causal, dtype):
+    """dq, dk, dv of the Pallas kernels in interpret mode (64-row blocks:
+    ``_pallas_backward`` runs both backward kernels), as f32 numpy."""
+    def loss(q_, k_, v_):
+        o = jfa.flash_attention_bhsd(q_, k_, v_, causal=causal,
+                                     interpret=True, block_q=64, block_k=64)
+        return (o.astype(jnp.float32) * jnp.asarray(g)).sum()
+    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    return [np.array(x.astype(jnp.float32))
+            for x in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+def _port_grads(q, k, v, g, causal, dtype, mode=None):
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    o = flash_attention_bhsd(*ts, causal=causal, mode=mode)
+    return [x.float().numpy() for x in torch.autograd.grad(
+        o, ts, torch.from_numpy(g).to(dtype))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_grads_plain_match_jax_kernels_interpret_f32(causal):
+    q, k, v = _qkv(20, H=2, S=256)
+    g = _qkv(21, H=2, S=256)[0]
+    ref = _jax_grads(q, k, v, g, causal, jnp.float32)
+    got = _port_grads(q, k, v, g, causal, torch.float32)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        # both are exact f32 FlashAttention-2 math in another order
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=name)
+    assert registry.spec("flash_attention_bwd_dkv").torch_ref_calls == 1
+    assert registry.spec("flash_attention_bwd_dq").torch_ref_calls == 1
+    assert registry.launch_counts()["flash_attention_bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_grads_plain_match_jax_kernels_interpret_bf16(causal):
+    """The registered plain versions keep P and dS in f32 where the
+    Pallas kernels round them to bf16 (and round P in the forward that
+    makes o and delta): the two differ by those roundings, a few bf16
+    steps of a gradient's row scale.  They are held to the bf16 backward
+    kernels' card limit ``CARD_TOL_BWD`` (one output rounding, 2 % of the
+    row's RMS, 1e-3 of the whole output's RMS); measured, the worst
+    element uses about half of it."""
+    q, k, v = _qkv(22, H=2, S=256)
+    g = _qkv(23, H=2, S=256)[0]
+    ref = _jax_grads(q, k, v, g, causal, jnp.bfloat16)
+    got = _port_grads(q, k, v, g, causal, torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err, share = registry.card_error(torch.from_numpy(a),
+                                         torch.from_numpy(b),
+                                         CARD_TOL_BWD[torch.bfloat16])
+        assert share <= 1.0, (name, err, share)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_blockwise_plain_matches_jax_kernels_in_bf16(causal):
+    """The plain version the bf16 backward kernels are held to on the card
+    rounds P and dS to bf16 as the Pallas kernels do: fed the same q, k,
+    v, o, lse and dO it matches ``_pallas_backward`` (interpret mode)
+    within the bf16 card limit, and much closer than the unrounded plain
+    versions do."""
+    q, k, v = _qkv(24, H=2, S=256)
+    g = _qkv(25, H=2, S=256)[0]
+    sc = 1.0 / math.sqrt(q.shape[-1])
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    o, lse = jfa._pallas_forward(jq, jk, jv, None, causal, sc, 64, 64, True,
+                                 with_lse=True)
+    ref = jfa._pallas_backward(jq, jk, jv, o, lse, jg, causal, sc, 64, 64,
+                               True)
+    T = lambda x: torch.from_numpy(  # noqa: E731
+        np.asarray(x.astype(jnp.float32)))
+    tq, tk, tv, tg, to = (T(x).bfloat16() for x in (jq, jk, jv, jg, o))
+    tl = T(lse)[..., 0]
+    delta = attention_delta(to, tg)
+    got = flash_attention_bwd_blockwise_ref(tq, tk, tv, tg, tl, delta,
+                                            causal=causal)
+    unrounded = (flash_attention_bwd_dq_ref(tq, tk, tv, tg, tl, delta,
+                                            causal=causal),
+                 *flash_attention_bwd_dkv_ref(tq, tk, tv, tg, tl, delta,
+                                              causal=causal))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, unrounded):
+        assert a.dtype == torch.bfloat16
+        r = T(b)
+        err, share = registry.card_error(a, r, CARD_TOL_BWD[torch.bfloat16])
+        assert share <= 1.0, (name, err, share)
+        far, _ = registry.card_error(c, r, CARD_TOL_BWD[torch.bfloat16])
+        assert far >= err, (name, far, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_grads_plain_match_autograd_of_plain_forward(causal):
+    """GQA and a ragged length: the Function's gradients against torch
+    autograd through the chunked plain forward (f32, atol 1e-5)."""
+    q, k, v = _qkv(26, H=4, Hkv=2, S=200)
+    g = _qkv(27, H=4, S=200)[0]
+    got = _port_grads(q, k, v, g, causal, torch.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = flash_attention_ref(*ts, causal=causal)
+    want = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_flash_grads_torch_ref_mode_is_the_cpu_route():
+    q, k, v = _qkv(28, S=128)
+    g = _qkv(29, S=128)[0]
+    a = _port_grads(q, k, v, g, True, torch.float32)
+    b = _port_grads(q, k, v, g, True, torch.float32, mode="torch_ref")
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert registry.launch_counts() == dict.fromkeys(registry.kernels(), 0)
+
+
+def test_flash_no_grad_call_skips_the_function():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(30, S=64))
+    with torch.no_grad():
+        flash_attention_bhsd(q.requires_grad_(), k, v)
+    o = flash_attention_bhsd(q.detach(), k, v)
+    assert o.grad_fn is None
+    assert registry.spec("flash_attention").torch_ref_calls == 2
+
+
+@pytest.mark.parametrize("seq,head_dim,want", [
+    (1024, 64, True), (2048, 128, True), (4096, 256, True),
+    (1023, 128, False), (2048, 96, False), (64, 64, False)])
+def test_flash_eligible_follows_reference_rule(seq, head_dim, want):
+    assert flash_eligible(seq, head_dim) is want
+
+
 @pytest.mark.parametrize("sq,sk", [(32, 32), (8, 32)])
 def test_sdpa_ref_matches_jax(sq, sk):
     rng = np.random.default_rng(5)
@@ -248,9 +388,13 @@ def test_paged_plain_fp_pools_matches_jax():
 
 def test_registry_names_and_tolerances_match_reference():
     ours, theirs = registry.kernels(), jreg.kernels()
-    assert sorted(ours) == ["flash_attention", "int8_kv_attention"]
+    assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq", "int8_kv_attention"]
     for name, s in ours.items():
-        assert s.tolerance == theirs[name].tolerance, name
+        # the reference registers its flash forward and custom-vjp
+        # backward as one entry
+        their = "flash_attention" if name.startswith("flash") else name
+        assert s.tolerance == theirs[their].tolerance, name
 
 
 def test_cpu_tensors_never_reach_the_kernel():
@@ -267,8 +411,11 @@ def test_cpu_tensors_never_reach_the_kernel():
         flash_attention_bhsd(q, q, q, mode="cuda")
     with pytest.raises(ValueError, match="mode must be one of"):
         flash_attention_bhsd(q, q, q, mode="interpret")
-    assert registry.launch_counts() == {"flash_attention": 0,
-                                        "int8_kv_attention": 0}
+    lse = torch.zeros(1, 2, 8)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            registry.dispatch(name, q, q, q, q, lse, lse, mode="cuda")
+    assert registry.launch_counts() == dict.fromkeys(registry.kernels(), 0)
 
 
 def test_missing_nvcc_raises_only_when_building(monkeypatch, tmp_path):
@@ -299,7 +446,8 @@ def test_kernel_sources_carry_their_note():
 
 def test_import_pulls_in_no_jax_and_no_reference_module():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.text.models\n"
+            "paddle_tpu_torch.text.models, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.distributed.fleet\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.'))\n"

@@ -239,7 +239,6 @@ def test_serving_on_cpu_never_launches_a_kernel(models):
     registry.reset_counts()
     with GenerationServer(tm, **SERVE) as srv:
         srv.submit(_prompts()[0], max_new_tokens=3).result(timeout=60)
-    assert registry.launch_counts() == {"flash_attention": 0,
-                                        "int8_kv_attention": 0}
+    assert registry.launch_counts() == dict.fromkeys(registry.kernels(), 0)
     assert registry.spec("flash_attention").torch_ref_calls > 0
     assert registry.spec("int8_kv_attention").torch_ref_calls > 0
