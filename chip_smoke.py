@@ -47,14 +47,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    may be at most ``E2E_RATIO_BOUND`` times further from the f32 result
    than the plain path;
 9. ``torch.profiler`` over 2 training steps: device busy time against
-   wall time, the top device kernels and the largest allocations.
+   wall time, the top device kernels and the largest allocations;
+10. serve ``resnet50(num_classes=1000)`` at 224x224 (f32 weights drawn
+    from a seed) converted with ``convert_to_int8_inference`` and cast as
+    the reference's inference bench casts it (every float tensor but
+    ``w_scale`` to bf16), on bf16 NCHW images at batch 1, 32 and 128:
+    per-forward ms (median of 20 CUDA-event timings), images/s and peak
+    memory, the same for the bf16 model (cuDNN convolutions) and their
+    ratio (the bench's ``int8_speedup``); the launch counts prove every
+    int8 forward went through ``int8_matmul`` exactly 54 times (53
+    convolutions and the classifier);
+11. the int8 model's batch-32 logits with the kernel and with its plain
+    version (``set_kernel_mode(model, "torch_ref")``) must be bitwise
+    equal (integer sums are order-free); for information, the top-1
+    agreement of the int8 and the bf16 model;
+12. ``torch.profiler`` over 3 batch-32 int8 forwards: device busy time
+    against wall time, and the top device kernels.
 
-The 7B serving model is freed before phase 7, and the peak-memory
-counter reset, so each workload reports its own peak.  Before the last
-line it prints one JSON object ``{"kernels": [...]}`` (launches summed
-over the serving run of phase 4 and the training run of phase 7); the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero,
-printing no result, without a CUDA device or without the package.
+Phase 3 also holds ``int8_matmul`` against its plain version at the
+ResNet-50 GEMMs of batch 32 (and at batch 1) with the int8 model's bf16
+output (the stem also with f32 output): dynamic mode bitwise,
+weight-only within the module's ``CARD_TOL``; each is timed beside its
+bound and beside ``torch._int_mm`` plus its scale pass, which compute
+the same function and which the port never calls.
+
+The 7B serving model is freed before phase 7, and the training model
+before phase 10, and the peak-memory counter reset, so each workload
+reports its own peak.  Before the last line it prints one JSON object
+``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
+the training run of phase 7 and the ResNet run of phase 10); the last
+line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, without a CUDA device or without the package.
 """
 from __future__ import annotations
 
@@ -74,6 +97,7 @@ SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside the tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # end to end (phases 5 and 8): the bf16 logits (serving) or loss and
@@ -87,6 +111,8 @@ E2E_RATIO_BOUND = 2.0
 E2E_LOSS_FLOOR = 1e-3
 TRAIN_STEPS = 10
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # the proxy bench's batch and length
+RESNET_BATCHES = (1, 32, 128)        # of the reference bench's 1, 8, 32, 128
+RESNET_GEMMS = 54                    # 53 convolutions and the classifier
 
 
 def log(msg: str) -> None:
@@ -111,6 +137,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the calls are queued behind a
+    spinning kernel, so the CUDA events around them time the device and
+    not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()                                     # the host's time per call
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # spin (at most ~2 GHz) for twice the time the host needs to queue
+    torch.cuda._sleep(int(2e9 * max(0.05, 2 * iters * host_s)))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bound_ms(flops: float, peak_flops: float, nbytes: float):
@@ -392,6 +441,100 @@ def kv_cases(dev):
     return row
 
 
+def _int_mm_library(x, w_nk, scale, cdt):
+    """``torch._int_mm`` (cuBLASLt's int8 GEMM) and the same scale pass:
+    the yardstick, never called by the port.  It takes K padded to a
+    multiple of 8 and M > 16."""
+    k = x.shape[1]
+    if k % 8:
+        pad = 8 - k % 8
+        x = torch.nn.functional.pad(x, (0, pad))
+        w_nk = torch.nn.functional.pad(w_nk, (0, pad))
+    wt = w_nk.t()
+    return lambda: (torch._int_mm(x, wt).float() * scale).to(cdt)
+
+
+def int8_cases(dev):
+    """``int8_matmul`` at the ResNet-50 GEMMs of batch 32 (M = batch x
+    output pixels, K = C_in x kh x kw, N = C_out) with bf16 output, as
+    the int8 model calls it (the stem also with f32 output, as the
+    reference's convolution calls its kernel), the batch-1 ones that
+    stress small M, and weight-only at the classifier's shape."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    row = None
+    cases = [  # (label, M, K, N, compute dtype, dynamic); first = stem
+        ("conv1 7x7/2 b32", 401408, 147, 64, torch.bfloat16, True),
+        ("conv1 7x7/2 b32", 401408, 147, 64, torch.float32, True),
+        ("layer1 3x3 b32", 100352, 576, 64, torch.bfloat16, True),
+        ("layer3 3x3 b32", 6272, 2304, 256, torch.bfloat16, True),
+        ("layer4 3x3 b32", 1568, 4608, 512, torch.bfloat16, True),
+        ("fc b32", 32, 2048, 1000, torch.bfloat16, True),
+        ("layer4 3x3 b1", 49, 4608, 512, torch.bfloat16, True),
+        ("fc b1", 1, 2048, 1000, torch.bfloat16, True),
+        ("fc b32 weight-only", 32, 2048, 1000, torch.bfloat16, False),
+        ("fc b32 weight-only", 32, 2048, 1000, torch.float32, False),
+    ]
+    for i, (label, M, K, N, cdt, dyn) in enumerate(cases):
+        w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                          generator=g)
+        ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
+        if dyn:
+            x = torch.randint(-127, 128, (M, K), device=dev,
+                              dtype=torch.int8, generator=g)
+            xs = torch.tensor(0.0123, device=dev)
+        else:
+            x = torch.randn(M, K, device=dev, dtype=cdt, generator=g)
+            xs = None
+
+        def run(mode=None):
+            return im.int8_matmul(x, w, ws, x_scale=xs, compute_dtype=cdt,
+                                  mode=mode)
+
+        got, ref = run(), run("torch_ref")
+        torch.cuda.synchronize()
+        dname = str(cdt).replace("torch.", "")
+        shape = f"{label} M={M} K={K} N={N} {dname}"
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"int8_matmul {shape}: non-finite kernel output")
+        if dyn:
+            if not torch.equal(got, ref):
+                d = (got.float() - ref.float()).abs().max().item()
+                fail(f"int8_matmul {shape}: not bitwise equal to the plain "
+                     f"version (max |diff| {d:.3g})")
+            err, verdict = 0.0, "bitwise equal"
+        else:
+            err, share = check_close(f"int8_matmul {shape}", got, ref,
+                                     im.CARD_TOL[cdt])
+            verdict = f"max_err {err:.3g}, {share:.3g} of its limit"
+        ms = queued_ms(run)
+        wall = cuda_ms(run)
+        plain = queued_ms(lambda: run("torch_ref"))
+        out_b = M * N * got.element_size()
+        nbytes = M * K * x.element_size() + N * K + 4 * N + out_b
+        bms, by = bound_ms(2.0 * M * N * K,
+                           PEAK_INT8_OPS if dyn else PEAK_BF16_FLOPS
+                           if cdt == torch.bfloat16 else PEAK_F32_FLOPS,
+                           nbytes)
+        lib = None
+        if dyn and M > 16:
+            scale = (xs * ws).contiguous()
+            lib_fn = _int_mm_library(x, w, scale, cdt)
+            if not torch.equal(lib_fn(), ref):
+                fail(f"int8_matmul {shape}: torch._int_mm's product differs "
+                     "from the plain version")
+            lib = queued_ms(lib_fn)
+        log(f"int8_matmul {shape} {'dynamic' if dyn else 'weight-only'}: "
+            f"{verdict}; kernel_ms {ms:.4f} (one call between events "
+            f"{wall:.4f}) plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}) "
+            "library_ms(_int_mm + scale) "
+            + ("n/a" if lib is None else f"{lib:.4f}"))
+        if i == 0:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, library_ms=lib)
+    return row
+
+
 # ---------------------------------------------------------------------
 # phases 4 and 5: the serving slice at 7B width
 # ---------------------------------------------------------------------
@@ -632,7 +775,7 @@ def train(dev):
     want = {"flash_attention": 2 * cfg.num_hidden_layers,
             "flash_attention_bwd_dkv": cfg.num_hidden_layers,
             "flash_attention_bwd_dq": cfg.num_hidden_layers,
-            "int8_kv_attention": 0}
+            "int8_kv_attention": 0, "int8_matmul": 0}
     per_step = {n: c / TRAIN_STEPS for n, c in counts.items()}
     log(f"train: launches per step {per_step} (want {want})")
     if per_step != want:
@@ -746,6 +889,161 @@ def profile_train(dev, step, ids, steps: int = 2):
                 f"GB/step  x{e.count // steps}")
 
 
+# ---------------------------------------------------------------------
+# phases 10, 11 and 12: int8 ResNet-50 inference
+# ---------------------------------------------------------------------
+
+def _cast_bf16(model):
+    """The reference inference bench's cast: every float parameter and
+    buffer to bf16 but the int8 layers' ``w_scale`` (int8 codes stay)."""
+    for mod in model.modules():
+        for p in mod.parameters(recurse=False):
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+        for name, b in mod.named_buffers(recurse=False):
+            if b.dtype == torch.float32 and name != "w_scale":
+                mod._buffers[name] = b.to(torch.bfloat16)
+    return model
+
+
+def resnet_models(dev):
+    """The bf16 ResNet-50 and its int8 conversion, both from the same f32
+    weights drawn from the seed (the bench draws both from one seed)."""
+    from paddle_tpu_torch.quantization import convert_to_int8_inference
+    from paddle_tpu_torch.vision.models import resnet50
+
+    def make():
+        return resnet50(num_classes=1000, device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(SEED))
+
+    return (_cast_bf16(make().eval()),
+            _cast_bf16(convert_to_int8_inference(make())))
+
+
+def _images(dev, b):
+    g = torch.Generator(device=dev).manual_seed(SEED + 5 + b)
+    return torch.randn(b, 3, 224, 224, device=dev, generator=g).to(
+        torch.bfloat16)
+
+
+def resnet_serve(dev, bf16_model, int8_model):
+    """Phase 10: per-forward latency, images/s and peak memory of both
+    models at each batch; every int8 forward must launch the kernel
+    exactly RESNET_GEMMS times."""
+    from paddle_tpu_torch.ops.kernels import registry
+    torch.backends.cudnn.benchmark = True     # the bf16 yardstick's best
+    forwards = 0
+
+    def int8_fwd(x):
+        nonlocal forwards
+        forwards += 1
+        return int8_model(x)
+
+    res = []
+    registry.reset_counts()                  # the main path starts here
+    with torch.no_grad():
+        for b in RESNET_BATCHES:
+            x = _images(dev, b)
+            row = dict(batch=b)
+            for name, fn in (("int8", int8_fwd), ("bf16", bf16_model)):
+                y = fn(x)
+                torch.cuda.synchronize()
+                if y.shape != (b, 1000) or not bool(
+                        torch.isfinite(y.float()).all()):
+                    fail(f"resnet50 {name} batch {b}: logits "
+                         f"{tuple(y.shape)}, finite "
+                         f"{bool(torch.isfinite(y.float()).all())}")
+                del y
+                torch.cuda.reset_peak_memory_stats(dev)
+                ms = cuda_ms(lambda: fn(x))
+                row[f"{name}_ms"] = ms
+                row[f"{name}_images_per_s"] = b / (ms / 1e3)
+                row[f"{name}_max_memory_allocated_gb"] = (
+                    torch.cuda.max_memory_allocated(dev) / 1e9)
+                row[f"{name}_device_busy_ms"] = profile_calls(
+                    lambda: fn(x))[1]
+            row["int8_speedup"] = row["bf16_ms"] / row["int8_ms"]
+            res.append(row)
+            log("resnet50 serve: " + json.dumps(row))
+    counts = registry.launch_counts()        # ... and ends here
+    want = dict.fromkeys(counts, 0)
+    want["int8_matmul"] = RESNET_GEMMS * forwards
+    log(f"resnet50 serve: {forwards} int8 forwards, launches {counts} "
+        f"(want {want})")
+    if counts != want:
+        fail(f"resnet50 serve: launches {counts}, want {want}")
+    torch.backends.cudnn.benchmark = False
+    return counts, res
+
+
+def resnet_end_to_end(dev, bf16_model, int8_model):
+    """Phase 11: the int8 logits with the kernel and with its plain
+    version must be bitwise equal; top-1 agreement with the bf16 model
+    for information."""
+    from paddle_tpu_torch.quantization import set_kernel_mode
+    x = _images(dev, 32)
+    with torch.no_grad():
+        ker = int8_model(x)
+        set_kernel_mode(int8_model, "torch_ref")
+        try:
+            plain = int8_model(x)
+        finally:
+            set_kernel_mode(int8_model, None)
+        ref = bf16_model(x)
+    torch.cuda.synchronize()
+    equal = torch.equal(ker, plain)
+    agree = (ker.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    dist = ((ker.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+    log(f"resnet50 end to end (batch 32): int8 logits with the kernel "
+        f"{'bitwise equal to' if equal else 'DIFFER from'} those with its "
+        f"plain version; top-1 agreement with the bf16 model {agree:.4f}; "
+        f"max|int8 - bf16| / max|bf16| {dist:.4g}")
+    if not equal:
+        d = (ker.float() - plain.float()).abs().max().item()
+        fail(f"resnet50 end to end: int8 logits with the kernel differ "
+             f"from the plain version's by up to {d:.4g}")
+    return dict(bitwise_equal=equal, top1_agreement=agree,
+                rel_dist_to_bf16=dist)
+
+
+def profile_calls(fn, calls: int = 3):
+    """torch.profiler over ``calls`` calls of ``fn`` after one warm-up:
+    (wall ms per call, device busy ms per call, the device kernels'
+    averages)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
+    return wall_ms, busy_ms, kern
+
+
+def profile_resnet(dev, int8_model, forwards: int = 3):
+    """Phase 12: torch.profiler over batch-32 int8 forwards."""
+    x = _images(dev, 32)
+    with torch.no_grad():
+        wall_ms, busy_ms, kern = profile_calls(lambda: int8_model(x),
+                                               forwards)
+    n_kern = sum(e.count for e in kern) // forwards
+    log(f"profile resnet50 int8 batch 32: wall {wall_ms:.2f} ms/forward, "
+        f"device busy {busy_ms:.2f} ms/forward, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/forward")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / forwards:8.3f}"
+            f" ms/forward  x{e.count // forwards}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -791,7 +1089,8 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rows = {"flash_attention": flash_cases(dev),
-            "int8_kv_attention": kv_cases(dev)}
+            "int8_kv_attention": kv_cases(dev),
+            "int8_matmul": int8_cases(dev)}
     rows.update(bwd_cases(dev))
 
     # 4. serve the 7B slice
@@ -824,12 +1123,26 @@ def main() -> int:
 
     # 9. where a training step's time goes
     profile_train(dev, step, ids)
+    del model, step, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. serve int8 ResNet-50
+    bf16_model, int8_model = resnet_models(dev)
+    resnet_counts, _ = resnet_serve(dev, bf16_model, int8_model)
+
+    # 11. the int8 logits against the plain version's
+    resnet_end_to_end(dev, bf16_model, int8_model)
+
+    # 12. where an int8 forward's time goes
+    profile_resnet(dev, int8_model)
 
     kernels = []
     for name, s in registry.kernels().items():
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces,
-                            launches=counts[name] + train_counts[name],
+                            launches=(counts[name] + train_counts[name]
+                                      + resnet_counts[name]),
                             **rows[name]))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,9 +11,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 raises :class:`RuntimeError`; nothing carries on on the CPU.
 
 Ported slices: serving (``inference.GenerationServer`` over
-``text.models.LlamaForCausalLM``) and training (``optimizer.AdamW`` and
-``distributed.fleet.DistributedTrainStep`` over the same model); the
-subpackages are imported on use, as in ``paddle_tpu``.
+``text.models.LlamaForCausalLM``), training (``optimizer.AdamW`` and
+``distributed.fleet.DistributedTrainStep`` over the same model) and
+int8 inference (``quantization.convert_to_int8_inference`` over
+``vision.models.resnet50`` and its family); the subpackages are imported
+on use, as in ``paddle_tpu``.
 
 This package never imports ``jax`` or any module of ``paddle_tpu``.
 """

@@ -1,10 +1,13 @@
 """Carry weights across from a ``paddle_tpu`` model.
 
 ``arrays`` is ``{name: np.ndarray}`` as the JAX model's ``state_dict()``
-gives it.  Linear weights are [in, out] on both sides (the port computes
-``x @ w``), so no transposes are needed.  bf16 arrays arrive as float32
-numpy (this package cannot import ``ml_dtypes``) and are cast to the
-model's parameter dtype here.
+gives it: parameters and persistent buffers (batch norm's ``_mean`` and
+``_variance``, an int8 layer's ``qweight``, ``w_scale`` and ``bias``).
+Linear weights are [in, out] on both sides (the port computes ``x @ w``),
+so no transposes are needed.  Each array is cast to the dtype of the
+tensor it lands in: bf16 arrays arrive as float32 numpy (this package
+cannot import ``ml_dtypes``), int8 stays int8, and an f32 ``w_scale``
+stays f32 in a bf16 model.
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ __all__ = ["load_jax_state_dict"]
 
 def load_jax_state_dict(model: torch.nn.Module,
                         arrays: Mapping[str, np.ndarray]) -> None:
-    """Copy ``arrays`` into ``model``'s parameters in place.  Raises on
-    any missing, extra or mis-shaped key, before anything is copied."""
-    own = dict(model.named_parameters())
+    """Copy ``arrays`` into ``model``'s parameters and persistent buffers
+    in place.  Raises on any missing, extra or mis-shaped key, before
+    anything is copied."""
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if missing or extra:
@@ -29,7 +33,7 @@ def load_jax_state_dict(model: torch.nn.Module,
     for name, p in own.items():
         shape = tuple(np.shape(arrays[name]))
         if shape != tuple(p.shape):
-            raise ValueError(f"{name}: array shape {shape} != parameter "
+            raise ValueError(f"{name}: array shape {shape} != model "
                              f"shape {tuple(p.shape)}")
     with torch.no_grad():
         for name, p in own.items():

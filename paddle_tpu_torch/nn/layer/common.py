@@ -1,12 +1,17 @@
-"""Single-device linear and embedding layers.
+"""Single-device linear and embedding layers, and the initializers.
 
 Counterparts of ``distributed/meta_parallel.py``'s
 ``ColumnParallelLinear``, ``RowParallelLinear`` and
-``VocabParallelEmbedding`` at tensor-parallel world 1: the same
-parameter names (``weight``, ``bias``) and the same [in, out] weight
-layout, so a JAX ``state_dict`` loads without transposes.  Weights are
-created directly on ``device`` in ``dtype`` and drawn from an explicit
-``torch.Generator``.
+``VocabParallelEmbedding`` at tensor-parallel world 1, and of
+``nn/layer/common.py``'s plain ``Linear``: the same parameter names
+(``weight``, ``bias``) and the same [in, out] weight layout, so a JAX
+``state_dict`` loads without transposes.  Weights are created directly on
+``device`` in ``dtype`` and drawn from an explicit ``torch.Generator``
+(``None``: PyTorch's default generator).
+
+``Linear`` is not a base of the parallel layers:
+``quantization.convert_to_int8_inference`` swaps every ``Linear`` and,
+as in the reference, leaves the parallel layers alone.
 """
 from __future__ import annotations
 
@@ -16,10 +21,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ... import resolve_device
 from ..functional import common as F
 
-__all__ = ["Normal", "Constant", "XavierNormal", "ColumnParallelLinear",
-           "RowParallelLinear", "VocabParallelEmbedding"]
+__all__ = ["Normal", "Constant", "XavierNormal", "KaimingNormal", "Linear",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding"]
 
 
 class Normal:
@@ -45,6 +52,19 @@ class XavierNormal:
                   generator=generator)
 
 
+class KaimingNormal:
+    """N(0, gain / sqrt(fan_in)) with the ReLU gain sqrt(2); ``fan_in``
+    defaults to the weight's (in * kh * kw for OIHW)."""
+
+    def __init__(self, fan_in: Optional[int] = None):
+        self.fan_in = fan_in
+
+    def __call__(self, t: torch.Tensor, generator):
+        fan_in = self.fan_in or t.shape[1] * math.prod(t.shape[2:])
+        t.normal_(0.0, math.sqrt(2.0) / math.sqrt(fan_in),
+                  generator=generator)
+
+
 def _param(shape, init, device, dtype, generator) -> nn.Parameter:
     t = torch.empty(shape, device=device, dtype=dtype)
     with torch.no_grad():
@@ -67,6 +87,20 @@ class _Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Linear(_Linear):
+    """The reference's ``nn.Linear``: y = x @ W + b, W [in, out]
+    XavierNormal, b zeros (``bias_attr=False`` drops it)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, bias_attr=None, *, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features, weight_attr,
+                         bias_attr is not False,
+                         device=resolve_device(device), dtype=dtype,
+                         generator=generator)
 
 
 class ColumnParallelLinear(_Linear):

@@ -1,0 +1,54 @@
+"""Batch normalisation over 2-D feature maps (inference).
+
+Counterpart of ``paddle_tpu/nn/layer/norm.py`` (``_BatchNormBase``,
+``BatchNorm2D``): ``weight`` ones and ``bias`` zeros as parameters, the
+running statistics as persistent buffers under the reference's names
+``_mean`` (zeros) and ``_variance`` (ones), so a JAX ``state_dict``
+carries across.  Only inference is ported: in training mode the forward
+raises (see ``functional.batch_norm``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ... import resolve_device
+from ..functional import common as F
+from .common import Constant, _param
+
+__all__ = ["BatchNorm2D"]
+
+
+class BatchNorm2D(nn.Module):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = (None if weight_attr is False else
+                       _param((num_features,), weight_attr or Constant(1.0),
+                              device, dtype, None))
+        self.bias = (None if bias_attr is False else
+                     _param((num_features,), bias_attr or Constant(0.0),
+                            device, dtype, None))
+        self.register_buffer("_mean", torch.zeros(num_features,
+                                                  device=device, dtype=dtype))
+        self.register_buffer("_variance", torch.ones(num_features,
+                                                     device=device,
+                                                     dtype=dtype))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}"

@@ -3,4 +3,4 @@
 Importing a kernel module registers it; nothing is compiled until a CUDA
 tensor first needs the kernel.
 """
-from . import flash_attention, kv_attention, registry  # noqa: F401
+from . import flash_attention, int8_matmul, kv_attention, registry  # noqa: F401

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build", "load", "check",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "int8_kv_attention.cu")
+           "int8_kv_attention.cu", "int8_matmul.cu")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # the toolkit's default
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -122,3 +122,65 @@ def test_backward_kernels_match_plain_on_card():
     counts = registry.launch_counts()
     assert counts["flash_attention_bwd_dkv"] == 24
     assert counts["flash_attention_bwd_dq"] == 24
+
+
+# (M, K, N, compute dtype): ResNet-50 GEMMs (stem K = 147, the classifier
+# N = 1000 at batch 1 and 32, layer4 at batch 1) and odd sizes
+_INT8_MM_CASES = [(1, 2048, 1000, torch.bfloat16), (32, 2048, 1000, torch.bfloat16),
+                  (49, 4608, 512, torch.float32), (3000, 147, 64, torch.float32),
+                  (1000, 576, 64, torch.bfloat16), (300, 2304, 256, torch.float32),
+                  (130, 100, 70, torch.float32), (5, 147, 33, torch.bfloat16),
+                  (1, 147, 64, torch.float32)]
+
+
+def _int8_mm_case(seed, M, K, N, dev):
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (N, K)).astype(np.int8))
+    ws = torch.from_numpy((rng.random(N) * 0.01 + 1e-4).astype(np.float32))
+    xf = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    return xq.to(dev), w.to(dev), ws.to(dev), xf.to(dev)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_matches_plain_on_card():
+    """Dynamic mode bitwise equal to the plain version (integer sums are
+    order-free); weight-only within CARD_TOL (the registered rtol)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the ResNet-50 shapes")
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    for i, (M, K, N, cdt) in enumerate(_INT8_MM_CASES):
+        xq, w, ws, xf = _int8_mm_case(20 + i, M, K, N, dev)
+        xs = torch.tensor(0.0123, device=dev)
+        got = im.int8_matmul(xq, w, ws, x_scale=xs, compute_dtype=cdt)
+        ref = im.int8_matmul(xq, w, ws, x_scale=xs, compute_dtype=cdt,
+                             mode="torch_ref")
+        torch.cuda.synchronize()
+        assert got.dtype == cdt and got.shape == (M, N)
+        assert torch.equal(got, ref), (M, K, N, cdt)
+        for wdt in (torch.float32, torch.bfloat16):
+            got = im.int8_matmul(xf, w, ws, compute_dtype=wdt)
+            ref = im.int8_matmul(xf, w, ws, compute_dtype=wdt,
+                                 mode="torch_ref")
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got.float()).all())
+            _assert_within(got, ref, im.CARD_TOL[wdt])
+    # rows that do not start on 16 bytes and leading batch dims
+    xq, w, ws, _ = _int8_mm_case(40, 6 * 7, 147, 64, dev)
+    x3 = xq.reshape(6, 7, 147)
+    got = im.int8_matmul(x3, w, ws, x_scale=0.5, compute_dtype=torch.float32)
+    ref = im.int8_matmul(x3, w, ws, x_scale=0.5, compute_dtype=torch.float32,
+                         mode="torch_ref")
+    assert got.shape == (6, 7, 64) and torch.equal(got, ref)
+    # weight-only on a transposed (column-major) x
+    xt = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        (147, 6 * 7)).astype(np.float32)).to(dev).t()
+    for wdt in (torch.float32, torch.bfloat16):
+        got = im.int8_matmul(xt, w, ws, compute_dtype=wdt)
+        ref = im.int8_matmul(xt, w, ws, compute_dtype=wdt, mode="torch_ref")
+        torch.cuda.synchronize()
+        _assert_within(got, ref, im.CARD_TOL[wdt])
+    assert registry.launch_counts()["int8_matmul"] == 3 * len(_INT8_MM_CASES) + 3

@@ -389,7 +389,8 @@ def test_paged_plain_fp_pools_matches_jax():
 def test_registry_names_and_tolerances_match_reference():
     ours, theirs = registry.kernels(), jreg.kernels()
     assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
-                            "flash_attention_bwd_dq", "int8_kv_attention"]
+                            "flash_attention_bwd_dq", "int8_kv_attention",
+                            "int8_matmul"]
     for name, s in ours.items():
         # the reference registers its flash forward and custom-vjp
         # backward as one entry
@@ -447,7 +448,8 @@ def test_kernel_sources_carry_their_note():
 def test_import_pulls_in_no_jax_and_no_reference_module():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.text.models, paddle_tpu_torch.optimizer, "
-            "paddle_tpu_torch.distributed.fleet\n"
+            "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.vision.models, paddle_tpu_torch.quantization\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.'))\n"
