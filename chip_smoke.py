@@ -62,20 +62,49 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     equal (integer sums are order-free); for information, the top-1
     agreement of the int8 and the bf16 model;
 12. ``torch.profiler`` over 3 batch-32 int8 forwards: device busy time
-    against wall time, and the top device kernels.
+    against wall time, and the top device kernels;
+13. train the reference bench's wide&deep (``bench.py:618-624``, nothing
+    cut: 26 fields of 16-wide embeddings over 20,000 Zipf(1.3) ids each,
+    13 dense features, hidden 256, batch 1,024; ``RandomState(0)`` draws
+    in the bench's order) through ``HeterTrainer(sync_mode=False,
+    push_lag=1)``, 2 warm-up and 20 timed batches, on (a) a host
+    ``SparseTable`` and (b) a primed ``DeviceCachedTable`` of 79,872
+    rows whose dense step leaves its gradients on the card: examples/s,
+    ms/step, the first and last timed loss (the last must be lower) and
+    (b)'s hit rate; the launch counts prove every push of (b) merged
+    through ``segment_sum`` (22 launches) and (a) launched nothing;
+14. 8 sync batches through a 16,384-row cache (evictions from the third
+    batch on) on the f32 and the q8 wire, each with the kernels and with
+    their plain versions (``kernel_mode="torch_ref"``): per wire the
+    losses and the host rows of every id seen must be bitwise equal;
+15. serve (b)'s trained table through a q8-wire cache over 20 fresh
+    batches (pull and the tower's forward): examples/s, the
+    ``pull_dequant`` launches, the first batch's rows bitwise the numpy
+    dequant of the table's q8 pull, and for information the largest
+    logit distance from an f32-wire cache;
+16. ``torch.profiler`` over 3 async steps of (b): device busy time against
+    wall time, the top device kernels, and the ``segment_sum`` kernels
+    that the trainer's pool threads launch.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at the
 ResNet-50 GEMMs of batch 32 (and at batch 1) with the int8 model's bf16
 output (the stem also with f32 output): dynamic mode bitwise,
 weight-only within the module's ``CARD_TOL``; each is timed beside its
 bound and beside ``torch._int_mm`` plus its scale pass, which compute
-the same function and which the port never calls.
+the same function and which the port never calls.  It holds
+``segment_sum`` (at the wide&deep push: 26,624 rows of dim 16 into
+8,192 segments; integer gradients; n = 1; dim 13; each run twice) and
+``pull_dequant`` (6,242 x 16, 1 x 16, 4,097 x 13, 1,000 x 4,096, zero
+rows) bitwise against their plain versions, times each kernel queued
+behind a spinning kernel beside its byte bound and beside
+``index_add_`` and ``torch.mul`` as yardsticks the port never calls.
 
 The 7B serving model is freed before phase 7, and the training model
 before phase 10, and the peak-memory counter reset, so each workload
 reports its own peak.  Before the last line it prints one JSON object
 ``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
-the training run of phase 7 and the ResNet run of phase 10); the last
+the training run of phase 7, the ResNet run of phase 10, the wide&deep
+run (b) of phase 13 and the q8 serving run of phase 15); the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or without the package.
 """
@@ -89,6 +118,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -113,6 +143,14 @@ TRAIN_STEPS = 10
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # the proxy bench's batch and length
 RESNET_BATCHES = (1, 32, 128)        # of the reference bench's 1, 8, 32, 128
 RESNET_GEMMS = 54                    # 53 convolutions and the classifier
+# the reference bench's wide&deep (bench.py:618-624, non-smoke): 26
+# sparse fields of 16-wide embeddings over 20,000 ids each, 13 dense
+# features, hidden 256, batch 1,024, 20 timed steps
+WIDE_DEEP = dict(n_slots=26, dim=16, vocab=20_000, n_dense=13, hidden=256,
+                 batch=1024, steps=20)
+# phase 14's cache: below the ~27,400 ids of its 8 batches, so rows are
+# evicted and written back from the third batch on
+WIDE_DEEP_E2E_CAPACITY = 16_384
 
 
 def log(msg: str) -> None:
@@ -772,10 +810,10 @@ def train(dev):
     if abs(losses[0] - first) > 0.1:
         fail(f"train: first loss {losses[0]:.4f} is not near ln(vocab) + "
              f"hidden * init^2 / 2 = {first:.4f}")
-    want = {"flash_attention": 2 * cfg.num_hidden_layers,
-            "flash_attention_bwd_dkv": cfg.num_hidden_layers,
-            "flash_attention_bwd_dq": cfg.num_hidden_layers,
-            "int8_kv_attention": 0, "int8_matmul": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": 2 * cfg.num_hidden_layers,
+                 "flash_attention_bwd_dkv": cfg.num_hidden_layers,
+                 "flash_attention_bwd_dq": cfg.num_hidden_layers})
     per_step = {n: c / TRAIN_STEPS for n, c in counts.items()}
     log(f"train: launches per step {per_step} (want {want})")
     if per_step != want:
@@ -1044,6 +1082,419 @@ def profile_resnet(dev, int8_model, forwards: int = 3):
             f" ms/forward  x{e.count // forwards}")
 
 
+# ---------------------------------------------------------------------
+# phase 3 (PS kernels) and phases 13-16: wide&deep through the PS path
+# ---------------------------------------------------------------------
+
+def _bucket(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def wide_deep_data(extra_batches: int = 0):
+    """The reference bench's wide&deep draws (``bench.py:662-714``, full
+    size) with ``RandomState(0)`` in its order: w1, w2, wide_w, the Zipf
+    ids of every batch, then each batch's dense features and labels.
+    ``extra_batches`` more batches of the same distribution follow from
+    the same generator (the serving phase's fresh traffic).  Returns
+    (params as numpy [w1, b1, w2, wide_w], batches, extra batches)."""
+    W = WIDE_DEEP
+    rng = np.random.RandomState(0)
+    w1 = (rng.randn(W["n_slots"] * W["dim"] + W["n_dense"], W["hidden"])
+          * 0.05).astype(np.float32)
+    w2 = (rng.randn(W["hidden"], 1) * 0.05).astype(np.float32)
+    wide_w = (rng.randn(W["n_dense"], 1) * 0.05).astype(np.float32)
+    params = [w1, np.zeros(W["hidden"], np.float32), w2, wide_w]
+
+    def draw(steps):
+        zipf = np.clip(rng.zipf(1.3, size=(steps, W["batch"],
+                                           W["n_slots"])), 1, W["vocab"])
+        out = []
+        for i in range(steps):
+            ids = ((zipf[i] - 1) + np.arange(W["n_slots"]) * W["vocab"]
+                   ).astype(np.int64)
+            dense = rng.rand(W["batch"], W["n_dense"]).astype(np.float32)
+            out.append((ids, dense, (dense[:, 0] > 0.5).astype(np.float32)))
+        return out
+
+    batches = draw(W["steps"])
+    return params, batches, draw(extra_batches) if extra_batches else []
+
+
+class WideDeepTower:
+    """The dense tower of ``bench.py:671-684`` in torch autograd: a deep
+    MLP over the concatenated embeddings and dense features plus a wide
+    linear term, logits clipped to +-15, BCE with logits as
+    ``logaddexp(0, l) - l * y``, SGD 0.05 on the dense weights.  Losses
+    stay on the card until :meth:`fetch`."""
+
+    def __init__(self, params, dev):
+        self.dev = dev
+        self.p = [torch.from_numpy(a).to(dev) for a in params]
+        self.losses = []
+
+    def logits(self, emb, dense, p=None):
+        w1, b1, w2, wide_w = p or self.p
+        x = torch.cat([emb.reshape(dense.shape[0], -1), dense], 1)
+        h = torch.relu(x @ w1 + b1)
+        return torch.clamp((h @ w2 + dense @ wide_w)[:, 0], -15, 15)
+
+    def step(self, embs, batch):
+        """``HeterTrainer``'s dense step: (loss, {"slots": d loss / d rows})
+        with the gradient left on the card."""
+        emb = torch.as_tensor(embs["slots"]).to(self.dev).requires_grad_()
+        p = [t.requires_grad_() for t in self.p]
+        dense = torch.from_numpy(batch[1]).to(self.dev)
+        label = torch.from_numpy(batch[2]).to(self.dev)
+        logit = self.logits(emb, dense, p)
+        loss = torch.mean(torch.logaddexp(torch.zeros_like(logit), logit)
+                          - logit * label)
+        *gp, ge = torch.autograd.grad(loss, p + [emb])
+        self.p = [t.detach() - 0.05 * g for t, g in zip(p, gp)]
+        self.losses.append(loss.detach())
+        return self.losses[-1], {"slots": ge.reshape(-1, emb.shape[-1])}
+
+    def fetch(self):
+        return torch.stack(self.losses).cpu().numpy()
+
+
+def ps_cases(dev, batches):
+    """Phase 3 for the PS kernels: ``segment_sum`` and ``pull_dequant``
+    against their plain versions, bitwise, at the wide&deep shapes and
+    odd ones; returns their kernels-line rows."""
+    from paddle_tpu_torch.distributed.fleet.ps import (dequantize_rows_q8,
+                                                       quantize_rows_q8)
+    from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
+    from paddle_tpu_torch.ops.kernels.segment_sum import (
+        segment_plan, segment_sum, segment_sum_planned)
+    g0 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    _, push_inv = np.unique(batches[0][0].reshape(-1), return_inverse=True)
+    push_nseg = _bucket(int(push_inv.max()) + 1)
+    dim = WIDE_DEEP["dim"]
+    cases = [  # (label, inverse, dim, nseg, integer gradients)
+        ("wide&deep push", push_inv, dim, push_nseg, False),
+        ("integer grads", rng.integers(0, 7, 64), 5, 8, True),
+        ("n=1", np.zeros(1, np.int64), dim, 1, False),
+        ("dim 13", np.minimum(rng.zipf(1.3, 5000) - 1, 999), 13, 1024,
+         False)]
+    for i, (label, inv, d, nseg, integer) in enumerate(cases):
+        n = inv.size
+        g = (torch.randint(-50, 50, (n, d), device=dev, generator=g0).float()
+             if integer else torch.randn(n, d, device=dev, generator=g0))
+        ref = segment_sum(g, inv, nseg, mode="torch_ref")
+        got = [segment_sum(g, inv, nseg) for _ in range(2)]
+        torch.cuda.synchronize()
+        shape = f"{label} n={n} dim={d} nseg={nseg}"
+        err = (got[0] - ref).abs().max().item()
+        if not (torch.equal(got[0], got[1]) and torch.equal(got[0], ref)):
+            fail(f"segment_sum {shape}: not bitwise equal to the plain "
+                 f"version or to its rerun (max |diff| {err:.3g})")
+        msg = (f"segment_sum {shape}: bitwise equal to the plain version "
+               "and on a rerun")
+        if i:
+            log(msg)
+            continue
+        per_seg = np.bincount(inv, minlength=nseg)
+        order, offsets = segment_plan(inv, nseg, dev)
+        inv_t = torch.from_numpy(inv).to(dev)
+        ms = queued_ms(lambda: segment_sum_planned(g, order, offsets))
+        wrapper_ms = cuda_ms(lambda: segment_sum(g, inv, nseg))
+        plain = cuda_ms(lambda: segment_sum(g, inv, nseg, mode="torch_ref"))
+
+        def lib_fn():
+            return torch.zeros(nseg, d, device=dev).index_add_(0, inv_t, g)
+
+        lib_err = (lib_fn() - ref).abs().max().item()
+        lib = queued_ms(lib_fn)
+        # what the kernel reads once (f32 rows, int32 order [n] and
+        # offsets [nseg + 1]) and writes once (the f32 output)
+        nbytes = n * d * 4 + n * 4 + (nseg + 1) * 4 + nseg * d * 4
+        bms, by = bound_ms(n * d, PEAK_F32_FLOPS, nbytes)
+        rows["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                   bound_ms=bms, bound_by=by,
+                                   library_ms=lib)
+        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, the "
+            f"longest {int(per_seg.max())} rows; kernel_ms {ms:.4f} "
+            f"(wrapper with the host plan and its copy, one call between "
+            f"events {wrapper_ms:.4f}) plain_ms {plain:.4f} bound_ms "
+            f"{bms:.6f} ({by}) library_ms(index_add_) {lib:.4f} (max "
+            f"|index_add_ - plain| {lib_err:.3g})")
+    for i, (m, d, zero) in enumerate(((6242, 16, 5), (1, 16, 0),
+                                      (4097, 13, 3), (1000, 4096, 7),
+                                      (512, 16, 1))):
+        x = rng.standard_normal((m, d)).astype(np.float32) * 3
+        if zero:
+            x[::zero] = 0.0              # all-zero rows ship scale 0
+        codes, scales = quantize_rows_q8(x)
+        c = torch.from_numpy(codes).to(dev)
+        s = torch.from_numpy(scales).to(dev)
+        got = pull_dequant(c, s)
+        ref = pull_dequant(c, s, mode="torch_ref")
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        shape = f"m={m} dim={d} zero rows every {zero or 'none'}"
+        if not torch.equal(got, ref):
+            fail(f"pull_dequant {shape}: not bitwise equal to the plain "
+                 "version")
+        if not np.array_equal(got.cpu().numpy(),
+                              dequantize_rows_q8(codes, scales)):
+            fail(f"pull_dequant {shape}: not bitwise the numpy dequant")
+        msg = (f"pull_dequant {shape}: bitwise equal to the plain version "
+               "and to numpy dequantize_rows_q8")
+        if i:
+            log(msg)
+            continue
+        ms = queued_ms(lambda: pull_dequant(c, s))
+        plain = queued_ms(lambda: pull_dequant(c, s, mode="torch_ref"))
+        lib = queued_ms(lambda: torch.mul(c, s[:, None]))
+        # int8 codes and f32 scales read once, f32 rows written once
+        bms, by = bound_ms(m * d, PEAK_F32_FLOPS, m * d * 5 + m * 4)
+        rows["pull_dequant"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=bms, bound_by=by,
+                                    library_ms=lib)
+        log(f"{msg}; kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+            f"{bms:.6f} ({by}) library_ms(torch.mul) {lib:.4f}")
+    return rows
+
+
+def _wide_deep_ids(b):
+    return {"slots": b[0].reshape(-1)}
+
+
+def wide_deep_train(dev, params, batches):
+    """Phase 13: the bench's wide&deep through ``HeterTrainer(sync_mode=
+    False, push_lag=1)`` on (a) a host ``SparseTable`` and (b) a
+    ``DeviceCachedTable``: 2 warm-up and 20 timed batches each.  Returns
+    (the launch counts of (b)'s run, (b)'s host table, tower and cache,
+    results)."""
+    from paddle_tpu_torch.distributed.fleet import (DeviceCachedTable,
+                                                    HeterTrainer,
+                                                    SparseTable)
+    from paddle_tpu_torch.ops.kernels import registry
+    W = WIDE_DEEP
+    n_ids = W["batch"] * W["n_slots"]
+    res = {}
+    for backend in ("host_table", "device_cache"):
+        cache = None
+        if backend == "host_table":
+            table = sparse = SparseTable(W["dim"], optimizer="sgd", lr=0.05)
+        else:
+            table = SparseTable(W["dim"], optimizer="sgd", lr=1.0)
+            cache = sparse = DeviceCachedTable(table, capacity=n_ids * 3,
+                                               optimizer="sgd", lr=0.05)
+            t0 = time.perf_counter()
+            cache.prime(n_ids)
+            log(f"wide&deep device_cache: primed in "
+                f"{time.perf_counter() - t0:.2f} s")
+        tower = WideDeepTower(params, dev)
+        tr = HeterTrainer({"slots": sparse}, tower.step, sync_mode=False,
+                          push_lag=1)
+        registry.reset_counts()              # the main path starts here
+        tr.run(batches[:2], _wide_deep_ids)
+        n_warm = len(tower.losses)
+        if cache is not None:
+            cache.hits = cache.misses = 0    # steady-state hit rate only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = tr.run(batches, _wide_deep_ids)
+        losses = tower.fetch()               # every loss fetched here
+        dt = time.perf_counter() - t0
+        counts = registry.launch_counts()    # ... and ends here
+        tr.shutdown()
+        timed = losses[n_warm:]
+        row = dict(examples_per_s=W["batch"] * n / dt,
+                   ms_per_step=dt * 1e3 / n, first_loss=float(timed[0]),
+                   last_loss=float(timed[-1]), launches=counts)
+        if cache is not None:
+            cache.flush()
+            row.update(hit_rate=cache.hits / (cache.hits + cache.misses),
+                       evictions=cache.evictions)
+        row["rows_in_table"] = len(table)
+        log(f"wide&deep {backend}: " + json.dumps(row))
+        if not np.isfinite(losses).all() or not timed[-1] < timed[0]:
+            fail(f"wide&deep {backend}: losses {losses.tolist()} (finite, "
+                 "the last timed below the first)")
+        want = dict.fromkeys(counts, 0)
+        if cache is not None:
+            want["segment_sum"] = n_warm + n     # one merge per push
+        if counts != want:
+            fail(f"wide&deep {backend}: launches {counts}, want {want}")
+        res[backend] = row
+    return counts, table, tower, cache, res
+
+
+def wide_deep_end_to_end(dev, params, batches):
+    """Phase 14: 8 sync batches through a 16,384-row cache (evictions and
+    write-backs from the third batch on), on each wire with the kernels
+    and with their plain versions: per wire, the losses and the host
+    rows of every id seen must be bitwise equal."""
+    from paddle_tpu_torch.distributed.fleet import (DeviceCachedTable,
+                                                    HeterTrainer,
+                                                    SparseTable)
+    from paddle_tpu_torch.ops.kernels import registry
+    W = WIDE_DEEP
+    batches = batches[:8]
+    seen = np.unique(np.concatenate([b[0].reshape(-1) for b in batches]))
+    known, missed = set(), 0
+    for b in batches:                     # batches bringing a new id
+        new = set(np.unique(b[0]).tolist()) - known
+        missed += bool(new)
+        known |= new
+    res = {}
+    for wire in ("f32", "q8"):
+        out = {}
+        for mode in (None, "torch_ref"):
+            table = SparseTable(W["dim"], optimizer="sgd", lr=1.0)
+            cache = DeviceCachedTable(
+                table, capacity=WIDE_DEEP_E2E_CAPACITY, optimizer="sgd",
+                lr=0.05, wire=wire, kernel_mode=mode)
+            tower = WideDeepTower(params, dev)
+            tr = HeterTrainer({"slots": cache}, tower.step, sync_mode=True)
+            registry.reset_counts()
+            tr.run(batches, _wide_deep_ids)
+            tr.shutdown()
+            cache.flush()
+            counts = registry.launch_counts()
+            calls = {k: s.torch_ref_calls
+                     for k, s in registry.kernels().items()}
+            out[mode] = (tower.fetch(), table.pull(seen))
+            route = "kernels" if mode is None else "plain"
+            log(f"wide&deep end to end {wire} wire, {route}: losses "
+                + " ".join(f"{x:.7f}" for x in out[mode][0])
+                + f"; evictions {cache.evictions}; launches segment_sum "
+                f"{counts['segment_sum']} pull_dequant "
+                f"{counts['pull_dequant']}; plain calls segment_sum "
+                f"{calls['segment_sum']} pull_dequant "
+                f"{calls['pull_dequant']}")
+            if cache.evictions == 0:
+                fail(f"wide&deep end to end {wire}: no eviction")
+            if mode is None:
+                if counts["segment_sum"] != len(batches):
+                    fail(f"wide&deep end to end {wire}: segment_sum "
+                         f"launches {counts['segment_sum']}, want "
+                         f"{len(batches)}")
+                if wire == "q8" and counts["pull_dequant"] < missed:
+                    fail(f"wide&deep end to end q8: pull_dequant launches "
+                         f"{counts['pull_dequant']} < {missed} batches "
+                         "that missed")
+            elif any(counts.values()):
+                fail(f"wide&deep end to end {wire} plain: launches {counts}")
+        (lk, rk), (lp, rp) = out[None], out["torch_ref"]
+        equal = np.array_equal(lk, lp) and np.array_equal(rk, rp)
+        res[wire] = dict(bitwise_equal=equal, rows=int(seen.size),
+                         evictions=cache.evictions)
+        log(f"wide&deep end to end {wire} wire: the 8 losses and "
+            f"{seen.size} host rows {'bitwise equal' if equal else 'DIFFER'}"
+            " between the kernels and their plain versions")
+        if not equal:
+            fail(f"wide&deep end to end {wire}: max |loss diff| "
+                 f"{np.abs(lk - lp).max():.3g}, max |row diff| "
+                 f"{np.abs(rk - rp).max():.3g}")
+    return res
+
+
+def wide_deep_serve(dev, table, tower, serve_batches):
+    """Phase 15: the trained table served through a q8 cache, pull and
+    the tower's forward only, over fresh batches; the first batch's rows
+    must be bitwise the numpy dequant of the host table's q8 pull.  An
+    f32-wire cache over the same batches gives the logits' distance, for
+    information.  Returns (the launch counts of the q8 run, results)."""
+    from paddle_tpu_torch.distributed.fleet import DeviceCachedTable
+    from paddle_tpu_torch.distributed.fleet.ps import dequantize_rows_q8
+    from paddle_tpu_torch.ops.kernels import registry
+    W = WIDE_DEEP
+    n_ids = W["batch"] * W["n_slots"]
+    dense = [torch.from_numpy(b[1]).to(dev) for b in serve_batches]
+    out = {}
+    for wire in ("q8", "f32"):
+        cache = DeviceCachedTable(table, capacity=n_ids * 3, wire=wire)
+        cache.prime(n_ids)
+        registry.reset_counts()              # the main path starts here
+        t0 = time.perf_counter()
+        logits, first = [], None
+        with torch.no_grad():
+            for b, x in zip(serve_batches, dense):
+                rows = cache.pull(b[0].reshape(-1))
+                first = rows if first is None else first
+                logits.append(tower.logits(rows, x))
+            logits = torch.stack(logits).cpu().numpy()
+        dt = time.perf_counter() - t0
+        counts = registry.launch_counts()    # ... and ends here
+        row = dict(examples_per_s=W["batch"] * len(serve_batches) / dt,
+                   ms_per_batch=dt * 1e3 / len(serve_batches),
+                   hit_rate=cache.hits / (cache.hits + cache.misses),
+                   launches=counts)
+        out[wire] = (logits, counts, row, first)
+        log(f"wide&deep serve {wire} wire: " + json.dumps(row))
+        if not np.isfinite(logits).all():
+            fail(f"wide&deep serve {wire}: non-finite logits")
+    logits, counts, row, first = out["q8"]
+    if counts["pull_dequant"] < 1:
+        fail("wide&deep serve q8: pull_dequant never launched")
+    # a fresh cache: every row of the first batch was a miss
+    want = dequantize_rows_q8(*table.pull_q8(serve_batches[0][0]))
+    if not np.array_equal(first.cpu().numpy(), want):
+        fail("wide&deep serve q8: the first batch's rows are not the numpy "
+             "dequant of the host table's q8 pull")
+    diff = float(np.abs(logits - out["f32"][0]).max())
+    row["max_logit_diff_vs_f32"] = diff
+    log(f"wide&deep serve: the first batch's rows are bitwise the numpy "
+        f"dequant of the q8 pull; pull_dequant launches "
+        f"{counts['pull_dequant']}; max |logit(q8) - logit(f32)| "
+        f"{diff:.4g} (max |logit(f32)| "
+        f"{float(np.abs(out['f32'][0]).max()):.4g})")
+    return counts, row
+
+
+def profile_wide_deep(dev, cache, tower, batches):
+    """Phase 16: torch.profiler over 3 async steps of the device-cache
+    backend: device busy time against wall time, the idle share and the
+    top device kernels; the pushes run on the trainer's pool threads, so
+    their segment_sum kernels must show in the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.distributed.fleet import HeterTrainer
+    tr = HeterTrainer({"slots": cache}, tower.step, sync_mode=False,
+                      push_lag=1)
+    tr.run(batches[:1], _wide_deep_ids)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(batches[1:1 + steps], _wide_deep_ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    tr.shutdown()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    n_kern = sum(e.count for e in kern) // steps
+    log(f"profile wide&deep device_cache: wall {wall_ms:.2f} ms/step, "
+        f"device busy {busy_ms:.3f} ms/step, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/step  x{e.count // steps}")
+    seg = sum(e.count for e in kern if "segment_sum" in e.key)
+    if seg != steps:
+        fail(f"profile wide&deep: {seg} segment_sum kernels in the trace, "
+             f"want {steps} (one per push, from the pool threads)")
+    log(f"profile wide&deep: the {seg} segment_sum kernels of the pool "
+        "threads' pushes are in the trace")
+
+
+def _build_host_libs() -> float:
+    """Build (or load) the port's host C++ and return the seconds taken."""
+    from paddle_tpu_torch.native import load_library, ps_core
+    t0 = time.perf_counter()
+    ps_core()
+    load_library("cache_dir")
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1073,11 +1524,15 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: the CUDA sources and, meanwhile, the PS path's host C++
     t0 = time.perf_counter()
-    _build.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(_build_host_libs)
+        _build.build()
+        host_s = host.result()
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
-        f"{len(_build.SOURCES)} sources in parallel")
+        f"{len(_build.SOURCES)} sources in parallel; host C++ (ps_core.cc, "
+        f"cache_dir.cc) {host_s:.1f} s beside them")
     for src in _build.SOURCES:
         secs = _build.build_seconds.get(src)
         log(f"build {src}: " + ("cached" if secs is None else
@@ -1092,6 +1547,8 @@ def main() -> int:
             "int8_kv_attention": kv_cases(dev),
             "int8_matmul": int8_cases(dev)}
     rows.update(bwd_cases(dev))
+    wd_params, wd_batches, wd_serve = wide_deep_data(extra_batches=20)
+    rows.update(ps_cases(dev, wd_batches))
 
     # 4. serve the 7B slice
     t0 = time.perf_counter()
@@ -1136,13 +1593,29 @@ def main() -> int:
 
     # 12. where an int8 forward's time goes
     profile_resnet(dev, int8_model)
+    del bf16_model, int8_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. train wide&deep through the PS path, host table and device cache
+    wd_counts, wd_table, wd_tower, wd_cache, _ = wide_deep_train(
+        dev, wd_params, wd_batches)
+
+    # 14. end to end against the plain versions, with evictions
+    wide_deep_end_to_end(dev, wd_params, wd_batches)
+
+    # 15. serve the trained table through a q8 cache
+    q8_counts, _ = wide_deep_serve(dev, wd_table, wd_tower, wd_serve)
+
+    # 16. where a device-cache step's time goes
+    profile_wide_deep(dev, wd_cache, wd_tower, wd_batches)
 
     kernels = []
     for name, s in registry.kernels().items():
+        launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
+                                         wd_counts, q8_counts))
         kernels.append(dict(name=name, route="cuda", source=s.source,
-                            replaces=s.replaces,
-                            launches=(counts[name] + train_counts[name]
-                                      + resnet_counts[name]),
+                            replaces=s.replaces, launches=launches,
                             **rows[name]))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

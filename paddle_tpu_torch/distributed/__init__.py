@@ -1,5 +1,5 @@
 """Distributed training (counterpart of ``paddle_tpu.distributed``): so
-far the one-device train step of ``fleet``."""
+far ``fleet``'s one-device train step and its parameter-server path."""
 from . import fleet
 
 __all__ = ["fleet"]

@@ -184,3 +184,57 @@ def test_int8_matmul_matches_plain_on_card():
         torch.cuda.synchronize()
         _assert_within(got, ref, im.CARD_TOL[wdt])
     assert registry.launch_counts()["int8_matmul"] == 3 * len(_INT8_MM_CASES) + 3
+
+
+def _zipf_inverse(seed, n, vocab=20_000):
+    """An embedding push's inverse: Zipf(1.3) ids deduplicated; returns
+    (inverse, number of unique ids)."""
+    rng = np.random.RandomState(seed)
+    ids = np.clip(rng.zipf(1.3, n), 1, vocab)
+    uniq, inv = np.unique(ids, return_inverse=True)
+    return inv.astype(np.int64), uniq.size
+
+
+@pytest.mark.cuda
+def test_ps_kernels_match_plain_on_card():
+    """segment_sum and pull_dequant bitwise equal to their plain versions
+    at the wide&deep shapes and at odd ones; segment_sum reruns bitwise
+    equal; an inverse on the card is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the wide&deep shapes")
+    from paddle_tpu_torch.distributed.fleet.ps import (dequantize_rows_q8,
+                                                       quantize_rows_q8)
+    from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
+    from paddle_tpu_torch.ops.kernels.segment_sum import segment_sum
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(30)
+    inv, u = _zipf_inverse(0, 26_624)
+    cases = [(inv, 16, 1 << (u - 1).bit_length(), False),
+             (rng.integers(0, 7, 64), 5, 8, True),
+             (np.zeros(1, np.int64), 16, 1, False),
+             (rng.integers(0, 40, 500), 13, 64, False)]
+    for inv, dim, nseg, integer in cases:
+        g = (rng.integers(-50, 50, (inv.size, dim)) if integer
+             else rng.standard_normal((inv.size, dim)))
+        g = torch.from_numpy(g.astype(np.float32)).to(dev)
+        ref = segment_sum(g, inv, nseg, mode="torch_ref")
+        a, b = segment_sum(g, inv, nseg), segment_sum(g, inv, nseg)
+        torch.cuda.synchronize()
+        assert torch.equal(a, ref) and torch.equal(a, b), (inv.size, dim)
+        with pytest.raises(ValueError, match="host"):
+            segment_sum(g, torch.from_numpy(inv).to(dev), nseg)
+    for m, dim in ((6242, 16), (1, 16), (4097, 13), (1000, 4096), (9, 8)):
+        rows = (rng.standard_normal((m, dim)) * 3).astype(np.float32)
+        rows[::3] = 0.0                      # all-zero rows: scale 0
+        codes, scales = quantize_rows_q8(rows)
+        c, s = torch.from_numpy(codes).to(dev), torch.from_numpy(scales).to(dev)
+        got = pull_dequant(c, s)
+        ref = pull_dequant(c, s, mode="torch_ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (m, dim)
+        assert np.array_equal(got.cpu().numpy(),
+                              dequantize_rows_q8(codes, scales))
+    counts = registry.launch_counts()
+    assert counts["segment_sum"] == 8 and counts["pull_dequant"] == 5

@@ -12,7 +12,9 @@ tolerances:
 - flash attention backward (dq, dk, dv through the autograd Function,
   against ``jax.grad`` of the Pallas kernels in interpret mode): f32
   atol 1e-4; bf16 as stated at each test;
-- int8 paged attention: atol 2e-5 / rtol 1e-4.
+- int8 paged attention: atol 2e-5 / rtol 1e-4;
+- segment sum: atol 1e-6 for float gradients, bitwise for integer ones;
+- int8 row dequantisation: bitwise.
 
 The hand-written CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, marked ``cuda``; ``chip_smoke.py`` runs
@@ -34,6 +36,7 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu.nn.functional.attention import _sdpa_ref as jax_sdpa_ref
+from paddle_tpu.distributed.fleet import ps as jps
 from paddle_tpu.ops.pallas import registry as jreg
 
 from paddle_tpu_torch.nn.functional import _sdpa_ref
@@ -45,10 +48,14 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_ref, flash_eligible)
 from paddle_tpu_torch.ops.kernels.kv_attention import (
     int8_paged_attention, paged_attention_ref)
+from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
+from paddle_tpu_torch.ops.kernels.segment_sum import segment_plan, segment_sum
 
 # the package re-exports functions under the module names
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 jkv = importlib.import_module("paddle_tpu.ops.pallas.kv_attention")
+jss = importlib.import_module("paddle_tpu.ops.pallas.segment_sum")
+jpd = importlib.import_module("paddle_tpu.ops.pallas.pull_dequant")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"
@@ -383,6 +390,107 @@ def test_paged_plain_fp_pools_matches_jax():
 
 
 # ---------------------------------------------------------------------
+# kernel 7: segment sum of embedding-gradient rows
+# ---------------------------------------------------------------------
+
+def test_segment_sum_plain_matches_jax_float(record_property):
+    """The reference's documented bound, atol 1e-6, against both its XLA
+    reference and its Pallas kernel in interpret mode; whether the result
+    is bitwise is recorded beside the test."""
+    rng = np.random.default_rng(14)
+    g = _rand(rng, 37, 9)
+    inv = rng.integers(0, 13, 37).astype(np.int32)
+    got = segment_sum(torch.from_numpy(g), inv, 16).numpy()
+    for name, fn in (("ref", jss.segment_sum_ref),
+                     ("interpret", lambda *a: jss.segment_sum_pallas(
+                         *a, interpret=True))):
+        want = np.asarray(fn(jnp.asarray(g), jnp.asarray(inv), 16))
+        np.testing.assert_allclose(got, want, atol=1e-6)
+        record_property(f"bitwise_vs_jax_{name}", np.array_equal(got, want))
+    assert not got[13:].any()
+    assert registry.spec("segment_sum").torch_ref_calls == 1
+
+
+@pytest.mark.parametrize("inv_type", ["int32", "int64", "tensor"])
+def test_segment_sum_plain_integer_grads_bitwise_jax(inv_type):
+    rng = np.random.default_rng(15)
+    g = rng.integers(-50, 50, (64, 5)).astype(np.float32)
+    inv = rng.integers(0, 7, 64).astype(np.int32)
+    want = np.asarray(jss.segment_sum_pallas(jnp.asarray(g), jnp.asarray(inv),
+                                             8, interpret=True))
+    arg = (torch.from_numpy(inv) if inv_type == "tensor"
+           else inv.astype(inv_type))
+    got = segment_sum(torch.from_numpy(g), arg, 8).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(
+        want, np.asarray(jss.segment_sum_ref(jnp.asarray(g), jnp.asarray(inv),
+                                             8)))
+
+
+@pytest.mark.parametrize("n,dim,nseg", [(1, 16, 1), (50, 13, 64), (0, 4, 3),
+                                        (300, 16, 8)])
+def test_segment_sum_plain_adds_in_row_order(n, dim, nseg):
+    """Bitwise the sequential row-order sum (what the kernel and the
+    native host merge compute), with Zipf-like repeats on segment 0."""
+    rng = np.random.default_rng(n + dim)
+    g = (_rand(rng, n, dim) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(
+        np.float32)
+    inv = np.minimum(rng.zipf(1.3, n) - 1, nseg - 1)
+    want = np.zeros((nseg, dim), np.float32)
+    for i in range(n):
+        want[inv[i]] += g[i]
+    got = segment_sum(torch.from_numpy(g), inv, nseg)
+    assert got.shape == (nseg, dim) and got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_segment_plan_orders_rows_stably_by_segment():
+    rng = np.random.default_rng(16)
+    inv = rng.integers(0, 9, 200)
+    order, offsets = segment_plan(inv, 12, "cpu")
+    assert order.dtype == offsets.dtype == torch.int32
+    assert np.array_equal(order.numpy(), np.argsort(inv, kind="stable"))
+    counts = np.bincount(inv, minlength=12)
+    assert np.array_equal(offsets.numpy(),
+                          np.concatenate([[0], np.cumsum(counts)]))
+    assert torch.equal(offsets[-3:], torch.full((3,), 200, dtype=torch.int32))
+    with pytest.raises(ValueError, match="outside"):
+        segment_plan(np.array([0, 12]), 12, "cpu")
+
+
+# ---------------------------------------------------------------------
+# kernel 9: dequantisation of int8 PS rows
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,dim", [(37, 24), (1, 1), (5, 13), (0, 16)])
+def test_pull_dequant_plain_bitwise_jax(m, dim):
+    rng = np.random.default_rng(m * 31 + dim)
+    rows = (rng.standard_normal((m, dim)) * 3).astype(np.float32)
+    if m > 5:
+        rows[5] = 0.0        # an all-zero row ships scale 0
+    codes, scales = jps.quantize_rows_q8(rows)
+    got = pull_dequant(torch.from_numpy(codes), torch.from_numpy(scales))
+    assert got.shape == (m, dim) and got.dtype == torch.float32
+    got = got.numpy()
+    assert np.array_equal(got, jps.dequantize_rows_q8(codes, scales))
+    if m:
+        want = np.asarray(jpd.pull_dequant_pallas(
+            jnp.asarray(codes), jnp.asarray(scales), interpret=True))
+        assert np.array_equal(got, want)
+    if m > 5:
+        assert not got[5].any() and np.isfinite(got).all()
+
+
+def test_ps_kernels_raise_on_cpu_tensors_in_cuda_mode():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        segment_sum(torch.zeros(4, 2), np.zeros(4, np.int64), 2, mode="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pull_dequant(torch.zeros(4, 2, dtype=torch.int8), torch.zeros(4),
+                     mode="cuda")
+    assert registry.launch_counts() == dict.fromkeys(registry.kernels(), 0)
+
+
+# ---------------------------------------------------------------------
 # registry, build, kernel sources
 # ---------------------------------------------------------------------
 
@@ -390,7 +498,7 @@ def test_registry_names_and_tolerances_match_reference():
     ours, theirs = registry.kernels(), jreg.kernels()
     assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq", "int8_kv_attention",
-                            "int8_matmul"]
+                            "int8_matmul", "pull_dequant", "segment_sum"]
     for name, s in ours.items():
         # the reference registers its flash forward and custom-vjp
         # backward as one entry
