@@ -84,7 +84,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     logit distance from an f32-wire cache;
 16. ``torch.profiler`` over 3 async steps of (b): device busy time against
     wall time, the top device kernels, and the ``segment_sum`` kernels
-    that the trainer's pool threads launch.
+    that the trainer's pool threads launch;
+17. the reference bench's elastic A/B (``bench.py:1372-1468``, nothing
+    cut: a linear model of 200,000 f32 parameters, 64 seeded samples,
+    batch 8, Adam at lr 0.01, 2 micro-batches, 30 steps, one checkpoint)
+    through ``ElasticTrainer`` at world 1 with an in-process coordinator,
+    once on the host engine and once on the device engine: steps/s, the
+    restore and rebuild ms and reshard bytes off the flight ring, the
+    staging peak; the engines' final params, optimizer state and last
+    checkpoint must be bitwise equal, the device engine must launch
+    ``opt_apply`` once per step plus its rebuild's warm-up, the host
+    engine nothing;
+18. the same at world 2 (two trainer threads on the card, one
+    coordinator) and a world-2 run whose rank 1 leaves after step 10:
+    both must end bitwise at phase 17's params, the survivor resharding
+    from the pinned step at world 1 and rebuilding at the new shard
+    length;
+19. 5 device-engine steps at 2^25 + 1 parameters with ``torch.profiler``
+    over three of them: device busy time against wall time, the
+    ``opt_apply`` kernel, the reduce's adds, the host<->device copies the
+    numpy contract of ``fused_optimizer_apply`` forces, and the host ms
+    of each stage of a step and of the checkpoint round.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at the
 ResNet-50 GEMMs of batch 32 (and at batch 1) with the int8 model's bf16
@@ -98,14 +118,22 @@ the same function and which the port never calls.  It holds
 rows) bitwise against their plain versions, times each kernel queued
 behind a spinning kernel beside its byte bound and beside
 ``index_add_`` and ``torch.mul`` as yardsticks the port never calls.
+It holds ``opt_apply`` (sgd, momentum, adam) bitwise against its plain
+version at the elastic bench's 200,000-element shard, its world-2
+halves, odd lengths, an unaligned view, a late step and a scheduled lr,
+each run twice, and counts the elements that differ from the host numpy
+engine (expected 0); Adam also at the Llama proxy's 535.9 M parameters,
+compared slice by slice; timed beside its byte bound and beside
+``torch._fused_adam_``, ``torch._fused_sgd_`` with momentum and
+``torch.add`` (SGD), which round differently and are timed only.
 
 The 7B serving model is freed before phase 7, and the training model
 before phase 10, and the peak-memory counter reset, so each workload
 reports its own peak.  Before the last line it prints one JSON object
 ``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
 the training run of phase 7, the ResNet run of phase 10, the wide&deep
-run (b) of phase 13 and the q8 serving run of phase 15); the last
-line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+run (b) of phase 13, the q8 serving run of phase 15 and the elastic runs
+of phases 17 and 18); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or without the package.
 """
 from __future__ import annotations
@@ -114,9 +142,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -151,6 +182,14 @@ WIDE_DEEP = dict(n_slots=26, dim=16, vocab=20_000, n_dense=13, hidden=256,
 # phase 14's cache: below the ~27,400 ids of its 8 batches, so rows are
 # evicted and written back from the third batch on
 WIDE_DEEP_E2E_CAPACITY = 16_384
+# the reference bench's elastic A/B (bench.py:1372-1468, non-smoke): a
+# linear model of 200,000 f32 parameters (w [199,999] and a scalar b),
+# 64 seeded samples, batch 8, shuffle seed 3, drop_last, Adam at lr 0.01,
+# 2 micro-batches, 30 steps, one checkpoint at the end
+ELASTIC = dict(numel=200_000, samples=64, batch=8, shuffle_seed=3, lr=0.01,
+               micro=2, steps=30, ckpt_every=30)
+# phase 19's shard: 2^25 + 1 f32 parameters (134 MB a vector)
+ELASTIC_PROFILE_NUMEL = (1 << 25) + 1
 
 
 def log(msg: str) -> None:
@@ -1486,6 +1525,515 @@ def profile_wide_deep(dev, cache, tower, batches):
         "threads' pushes are in the trace")
 
 
+# ---------------------------------------------------------------------
+# phase 3 (opt_apply) and phases 17-19: the elastic data plane
+# ---------------------------------------------------------------------
+
+def proxy_numel() -> int:
+    """The Llama proxy's flat parameter count (the model phase 7
+    trains): embeddings and LM head, 8 layers of q/k/v/o and the gated
+    MLP with two norms each, the final norm."""
+    c = proxy_config()
+    h, i, L = c.hidden_size, c.intermediate_size, c.num_hidden_layers
+    kv = h // c.num_attention_heads * c.num_key_value_heads
+    layer = h * h * 2 + h * kv * 2 + 3 * h * i + 2 * h
+    return 2 * c.vocab_size * h + L * layer + h
+
+
+def _host_engine(kind, p, g, slots, lr, t, betas=(0.9, 0.999), eps=1e-8,
+                 mu=0.9):
+    """The reference's host numpy engine (``_FlatSGD/_FlatMomentum/
+    _FlatAdam.update``): f32 numpy operations in its order."""
+    lr = np.float32(lr)
+    if kind == "sgd":
+        return [(p - lr * g).astype(np.float32)]
+    if kind == "momentum":
+        u = (np.float32(mu) * slots[0] + g).astype(np.float32)
+        return [(p - lr * u).astype(np.float32), u]
+    b1, b2 = np.float32(betas[0]), np.float32(betas[1])
+    m = (b1 * slots[0] + (np.float32(1) - b1) * g).astype(np.float32)
+    v = (b2 * slots[1] + (np.float32(1) - b2) * g * g).astype(np.float32)
+    c1 = np.float32(1.0 - betas[0] ** t)
+    c2 = np.float32(1.0 - betas[1] ** t)
+    return [(p - lr * (m / c1) / (np.sqrt(v / c2) + np.float32(eps)))
+            .astype(np.float32), m, v]
+
+
+def _opt_state(n, gen, dev):
+    p = torch.randn(n, device=dev, generator=gen)
+    g = torch.randn(n, device=dev, generator=gen)
+    m = torch.randn(n, device=dev, generator=gen) * 0.1
+    v = torch.randn(n, device=dev, generator=gen).square_() * 0.01
+    return p, g, [m, v]
+
+
+def _opt_check(label, kind, p, g, slots, hyper):
+    """opt_apply twice and its plain version once: fail unless all three
+    are bitwise equal.  Returns the kernel's outputs and the largest
+    |kernel - plain| over them."""
+    from paddle_tpu_torch.ops.kernels.opt_apply import SLOTS, opt_apply
+    slots = slots[:len(SLOTS[kind])]
+    ref = opt_apply(kind, p, g, slots, hyper, mode="torch_ref")
+    a = opt_apply(kind, p, g, slots, hyper)
+    b = opt_apply(kind, p, g, slots, hyper)
+    torch.cuda.synchronize()
+    err = max((x - z).abs().max().item() for x, z in zip(a, ref))
+    for x, y, z in zip(a, b, ref):
+        if not (torch.equal(x, z) and torch.equal(x, y)):
+            fail(f"opt_apply {kind} {label}: not bitwise equal to the plain "
+                 f"version or to its rerun (max |diff| {err:.3g})")
+    return a, err
+
+
+def opt_cases(dev):
+    """Phase 3 for ``opt_apply``: every kind at the elastic bench's shard
+    (200,000 elements), at its two world-2 halves (each bitwise the half
+    of the full update), at odd lengths, an unaligned view, a late step
+    and a schedule-driven lr, each run twice and bitwise equal to the
+    plain version; the host numpy engine's expression recomputed on the
+    host for the 200,000 case (differing elements counted, expected 0);
+    Adam at the Llama proxy's flat parameter count, compared with the
+    plain version slice by slice.  Returns the kernels-line row (the
+    200,000 Adam shard the main path runs)."""
+    from paddle_tpu_torch.distributed.fleet.dist_step import (
+        make_lr_schedule, zero_shard_ranges)
+    from paddle_tpu_torch.ops.kernels.opt_apply import (KINDS, SLOTS,
+                                                        opt_apply,
+                                                        pack_hyper)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n, lr = ELASTIC["numel"], ELASTIC["lr"]
+    sched = make_lr_schedule("cosine", lr, warmup_steps=2,
+                             total_steps=ELASTIC["steps"], min_lr=lr / 10)
+    row = {}
+    for kind in KINDS:
+        p, g, slots = _opt_state(n, gen, dev)
+        hyper = pack_hyper(kind, lr=lr, t=1)
+        full, err = _opt_check(f"n={n}", kind, p, g, slots, hyper)
+        for lo, hi in zero_shard_ranges(n, 2):
+            half, _ = _opt_check(f"[{lo}, {hi})", kind, p[lo:hi],
+                                 g[lo:hi], [s[lo:hi] for s in slots], hyper)
+            for x, y in zip(half, full):
+                if not torch.equal(x, y[lo:hi]):
+                    fail(f"opt_apply {kind}: the update of [{lo}, {hi}) is "
+                         "not bitwise that slice of the full update")
+        host = _host_engine(kind, p.cpu().numpy(), g.cpu().numpy(),
+                            [s.cpu().numpy() for s in slots], lr, 1)
+        diff = sum(int((x.cpu().numpy() != y).sum())
+                   for x, y in zip(full, host))
+        for m in (1, 4097, (1 << 20) + 3):
+            q, h, s = _opt_state(m, gen, dev)
+            _opt_check(f"n={m}", kind, q, h, s, hyper)
+        _opt_check(f"unaligned n={n - 1}", kind, p[1:], g[1:],
+                   [s[1:] for s in slots], hyper)
+        _opt_check("t=10000", kind, p, g, slots,
+                   pack_hyper(kind, lr=lr, t=10_000))
+        _opt_check("scheduled lr at t=17", kind, p, g, slots,
+                   pack_hyper(kind, lr=sched(17), t=17))
+        log(f"opt_apply {kind}: bitwise equal to the plain version and on a "
+            f"rerun at n={n}, its world-2 halves (each the slice of the full "
+            "update), n=1, 4097, 2^20+3, an unaligned view, t=10000 and a "
+            f"scheduled lr; elements differing from the host numpy engine "
+            f"at n={n}: {diff}")
+        if diff:
+            fail(f"opt_apply {kind}: {diff} elements differ from the host "
+                 "numpy engine's expression")
+        ns = len(SLOTS[kind])
+        sl = slots[:ns]
+        ms = queued_ms(lambda: opt_apply(kind, p, g, sl, hyper))
+        plain = cuda_ms(lambda: opt_apply(kind, p, g, sl, hyper,
+                                          mode="torch_ref"))
+        flops = {"sgd": 2, "momentum": 4, "adam": 14}[kind] * n
+        bms, by = bound_ms(flops, PEAK_F32_FLOPS, (3 + 2 * ns) * 4 * n)
+        if kind == "adam":
+            steps_t = torch.full((), 3.0, device=dev)
+            lib_name = "torch._fused_adam_"
+            lib = queued_ms(lambda: _fused_adam(p, g, sl, lr, steps_t))
+        elif kind == "momentum":
+            lib_name = "torch._fused_sgd_ with momentum"
+            lib = queued_ms(lambda: _fused_momentum(p, g, sl, lr))
+        else:
+            lib_name = "torch.add"
+            lib = queued_ms(lambda: torch.add(p, g, alpha=-lr))
+        log(f"opt_apply {kind} n={n}: max_abs_err {err} kernel_ms {ms:.4f} "
+            f"plain_ms {plain:.4f} bound_ms {bms:.6f} ({by}) library_ms "
+            f"{lib:.4f} ({lib_name}, rounds differently; time only)")
+        if kind == "adam":
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, library_ms=lib)
+    del p, g, slots, full, half
+    # Adam at the Llama proxy's flat parameter count
+    N = proxy_numel()
+    p, g, slots = _opt_state(N, gen, dev)
+    hyper = pack_hyper("adam", lr=lr, t=3)
+    a = opt_apply("adam", p, g, slots, hyper)
+    b = opt_apply("adam", p, g, slots, hyper)
+    torch.cuda.synchronize()
+    step, big_err = 1 << 26, 0.0
+    for lo in range(0, N, step):
+        hi = min(N, lo + step)
+        ref = opt_apply("adam", p[lo:hi], g[lo:hi],
+                        [s[lo:hi] for s in slots], hyper, mode="torch_ref")
+        for x, y, z in zip(a, b, ref):
+            big_err = max(big_err, (x[lo:hi] - z).abs().max().item())
+            if not (torch.equal(x[lo:hi], z) and torch.equal(x[lo:hi],
+                                                              y[lo:hi])):
+                fail(f"opt_apply adam n={N}: [{lo}, {hi}) not bitwise equal "
+                     "to the plain version or to its rerun")
+        del ref
+    del a, b
+    ms = cuda_ms(lambda: opt_apply("adam", p, g, slots, hyper), iters=10)
+    steps_t = torch.full((), 3.0, device=dev)
+    lib = cuda_ms(lambda: _fused_adam(p, g, slots, lr, steps_t), iters=10)
+    bms, by = bound_ms(14 * N, PEAK_F32_FLOPS, 28 * N)
+    log(f"opt_apply adam n={N} (the Llama proxy's parameters): bitwise equal "
+        f"to the plain version (in slices of {step}, max_abs_err {big_err}) "
+        f"and on a rerun; kernel_ms {ms:.4f} bound_ms {bms:.4f} ({by}, {28 * N / 1e9:.2f} GB) "
+        f"= {bms / ms:.3f} of the bound; library_ms(torch._fused_adam_) "
+        f"{lib:.4f}")
+    del p, g, slots
+    torch.cuda.empty_cache()
+    return {"opt_apply": row}
+
+
+def _fused_momentum(p, g, slots, lr):
+    """PyTorch's own fused SGD with momentum (dampening 0, not Nesterov,
+    past the first step: ``u = 0.9 u + g; p -= lr u``) over one flat
+    tensor, in place: a yardstick for time only, which the port never
+    calls."""
+    torch._fused_sgd_([p], [g], [slots[0]], weight_decay=0.0,
+                      momentum=0.9, lr=lr, dampening=0.0, nesterov=False,
+                      maximize=False, is_first_step=False)
+
+
+def _fused_adam(p, g, slots, lr, step):
+    """PyTorch's own fused Adam over one flat tensor (in place; ``step``
+    a float tensor on the card): a yardstick for time only, which the
+    port never calls."""
+    torch._fused_adam_([p], [g], [slots[0]], [slots[1]], [], [step], lr=lr,
+                       beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                       amsgrad=False, maximize=False)
+
+
+class _ElasticData:
+    """The elastic bench's 64 seeded samples (``bench.py:1399-1407``)."""
+
+    def __init__(self, n=64):
+        self.x = np.random.default_rng(5).standard_normal(n).astype(
+            np.float32)
+
+    def __len__(self):
+        return self.x.size
+
+    def __getitem__(self, i):
+        return self.x[i]
+
+
+def _elastic_grad(params, batch):
+    """The elastic bench's gradient (``bench.py:1409-1413``)."""
+    s = np.float32(np.mean(batch))
+    return {"w": (params["w"] * np.float32(1e-3)
+                  + s * np.float32(1e-2)).astype(np.float32),
+            "b": np.asarray(s, np.float32).reshape(())}
+
+
+def _elastic_trainer(dev, ck, port, world, engine="device", numel=None,
+                     grad=_elastic_grad, **kw):
+    from paddle_tpu_torch.distributed.fleet import ElasticTrainer
+    from paddle_tpu_torch.io import DataLoader
+    E = ELASTIC
+    cfg = dict(optimizer="adam", lr=E["lr"], micro_batches=E["micro"],
+               ckpt_every=E["ckpt_every"])
+    cfg.update(kw)
+    numel = numel or E["numel"]
+    loader = DataLoader(_ElasticData(E["samples"]), batch_size=E["batch"],
+                        shuffle=True, seed=E["shuffle_seed"], drop_last=True)
+    return ElasticTrainer(
+        {"w": np.zeros(numel - 1, np.float32), "b": np.zeros((), np.float32)},
+        grad, loader, ckpt_dir=ck, coordinator=f"127.0.0.1:{port}",
+        expected_world=world, client_timeout=120.0, engine=engine,
+        device=dev, **cfg)
+
+
+def _ckpt_bytes(d):
+    return {f: (pathlib.Path(d) / f).read_bytes()
+            for f in sorted(os.listdir(d))}
+
+
+def elastic_bench(dev):
+    """Phase 17: the reference bench's elastic configuration
+    (``bench.py:1372-1468``, nothing cut) on the host and the device
+    engine: steps/s, the reshard window off the flight ring, the staging
+    peak; the engines' final params, optimizer state and last checkpoint
+    must be bitwise equal, the device engine launch ``opt_apply`` once
+    per step plus its rebuild's warm-up, the host engine nothing.
+    Returns (the device run's launch counts, its final params)."""
+    from paddle_tpu_torch.distributed.fleet import ElasticCoordinator
+    from paddle_tpu_torch.observability import flight_recorder as flight
+    from paddle_tpu_torch.ops.kernels import registry
+    E = ELASTIC
+    res = {}
+    for engine in ("host", "device"):
+        coord = ElasticCoordinator(expected_world=1).start()
+        with tempfile.TemporaryDirectory() as ck:
+            tr = _elastic_trainer(dev, ck, coord.port, 1, engine=engine)
+            flight.clear()
+            registry.reset_counts()          # the main path starts here
+            t0 = time.perf_counter()
+            params = tr.run(E["steps"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = registry.launch_counts()  # ... and ends here
+            evs = flight.events()
+            files = _ckpt_bytes(os.path.join(ck, f"step_{E['steps']}"))
+        coord.stop()
+
+        def total(kind, key):
+            return sum(e.get(key, 0) for e in evs if e.get("kind") == kind)
+
+        row = dict(steps_per_s=E["steps"] / wall, wall_s=wall,
+                   restore_ms=total("elastic.reshard", "ms"),
+                   rebuild_ms=total("elastic.reshard.compile", "ms"),
+                   reshard_bytes=total("elastic.reshard", "bytes"),
+                   meter_peak_bytes=tr.reshard_meter.peak_bytes)
+        log(f"elastic {engine} engine: " + json.dumps(row))
+        want = dict.fromkeys(counts, 0)
+        if engine == "device":
+            want["opt_apply"] = E["steps"] + 1       # + the rebuild warm-up
+        if counts != want:
+            fail(f"elastic {engine} engine: launches {counts}, want {want}")
+        res[engine] = (params, tr.opt_shard(), files, counts)
+    (hp, hs, hf, _), (dp, ds, df, counts) = res["host"], res["device"]
+    for k in hp:
+        if not np.array_equal(hp[k], dp[k]):
+            fail(f"elastic: the engines' final {k} differ")
+    for k in hs:
+        if not np.array_equal(hs[k], ds[k]):
+            fail(f"elastic: the engines' optimizer state {k} differs")
+    if hf != df:
+        fail("elastic: the engines' last checkpoints differ in bytes")
+    if not all(np.isfinite(v).all() for v in dp.values()):
+        fail("elastic: non-finite parameters")
+    log(f"elastic: host and device engines bitwise equal after "
+        f"{E['steps']} steps (params, optimizer state at opt_t "
+        f"{int(ds['t'])}, and the step-{E['steps']} checkpoint's "
+        f"{len(df)} files)")
+    return counts, dp
+
+
+class _Left(Exception):
+    """Raised by the leaving rank's gradient to end its thread."""
+
+
+def elastic_worlds(dev, want):
+    """Phase 18: the same configuration at world 2 (two trainer threads
+    on one card, one coordinator) must end bitwise at phase 17's params
+    ``want``; then a world-2 run whose rank 1 leaves after step 10
+    (``client.leave()``): the survivor reshards from the pinned step at
+    world 1, rebuilds at the new shard length and must end bitwise at
+    ``want`` too.  Returns the launch counts of both runs."""
+    import threading
+
+    from paddle_tpu_torch.distributed.fleet import ElasticCoordinator
+    from paddle_tpu_torch.observability import flight_recorder as flight
+    from paddle_tpu_torch.ops.kernels import registry
+    E = ELASTIC
+    leave_after = 10
+
+    def run_world(ck, coord, leave):
+        trainers, out, errs = [], {}, []
+
+        def grad_of(i):
+            calls = [0]
+
+            def grad(params, batch):
+                tr = trainers[i]
+                rm = tr.role_maker
+                if leave and rm.worker_num() == 2 and rm.worker_index() == 1:
+                    calls[0] += 1
+                    if calls[0] > leave_after:
+                        # leave once step 10's checkpoint is pinned
+                        deadline = time.monotonic() + 120
+                        while (coord.status()["ckpt_step"] or 0) < \
+                                leave_after:
+                            if time.monotonic() > deadline:
+                                fail("elastic leave: step 10 never pinned")
+                            time.sleep(0.005)
+                        tr._client.leave()
+                        raise _Left()
+                return _elastic_grad(params, batch)
+            return grad
+
+        for i in range(2):
+            trainers.append(_elastic_trainer(
+                dev, ck, coord.port, 2, grad=grad_of(i),
+                ckpt_every=leave_after if leave else E["ckpt_every"]))
+
+        def go(i):
+            try:
+                out[i] = trainers[i].run(E["steps"])
+            except _Left:
+                out[i] = None
+            except BaseException as e:      # re-raised in the main thread
+                errs.append(e)
+
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in ts):
+            fail("elastic world-2 run hung")
+        if errs:
+            raise errs[0]
+        return trainers, out
+
+    registry.reset_counts()                  # the main path starts here
+    for leave in (False, True):
+        coord = ElasticCoordinator(expected_world=2).start()
+        flight.clear()
+        with tempfile.TemporaryDirectory() as ck:
+            t0 = time.perf_counter()
+            trainers, out = run_world(ck, coord, leave)
+            wall = time.perf_counter() - t0
+        coord.stop()
+        label = "rank 1 leaves after step 10" if leave else "world 2"
+        finals = [r for r in out.values() if r is not None]
+        if len(finals) != (1 if leave else 2):
+            fail(f"elastic {label}: {len(finals)} trainers finished")
+        for r in finals:
+            for k in want:
+                if not np.array_equal(r[k], want[k]):
+                    fail(f"elastic {label}: final {k} not bitwise phase 17's")
+        for i, tr in enumerate(trainers):
+            log(f"elastic {label}: trainer {i} transitions "
+                f"{json.dumps(tr.transitions)} rebuilds {tr._engine.compiles}")
+        if leave:
+            (surv,) = [tr for i, tr in enumerate(trainers)
+                       if out[i] is not None]
+            last = surv.transitions[-1]
+            rebuilt = [e["shard_len"] for e in flight.events()
+                       if e.get("kind") == "elastic.reshard.compile"]
+            if (last["world"], last["resume_step"]) != (1, leave_after) \
+                    or surv._engine.compiles != 2 \
+                    or rebuilt[-1] != E["numel"]:
+                fail(f"elastic leave: survivor transitions "
+                     f"{surv.transitions}, rebuild shard lengths {rebuilt}")
+            log(f"elastic {label}: the survivor resharded from pinned step "
+                f"{leave_after} at world 1, rebuilt at shard length "
+                f"{rebuilt[-1]} (rebuild shard lengths {rebuilt})")
+        log(f"elastic {label}: bitwise phase 17's final params, "
+            f"{E['steps'] / wall:.2f} steps/s")
+    counts = registry.launch_counts()        # ... and ends here
+    return counts
+
+
+def profile_elastic(dev):
+    """Phase 19: 5 device-engine steps at numel 2^25 + 1 (134 MB per f32
+    vector), checkpointing at the end, with ``torch.profiler`` over
+    the 2nd to the 4th step: device busy time against wall time, the ``opt_apply``
+    kernel, the reduce's adds and the host<->device copies; and the host
+    ms of each stage of a step (gradient, exchange, reduce, update) and
+    of the checkpoint round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.distributed.fleet import ElasticCoordinator
+    numel, steps = ELASTIC_PROFILE_NUMEL, 5
+    coord = ElasticCoordinator(expected_world=1).start()
+    host_ms = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_ms[name] = host_ms.get(name, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as ck:
+        tr = _elastic_trainer(dev, ck, coord.port, 1, numel=numel,
+                              ckpt_every=steps)
+        batches = [0]
+        next_batch = tr._next_batch
+
+        def step_boundary():
+            # the 2nd, 3rd and 4th steps run under the profiler
+            if batches[0] == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            elif batches[0] == 4:
+                torch.cuda.synchronize()
+                window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+                prof.stop()
+            batches[0] += 1
+            return next_batch()
+
+        exchange = tr._exchange
+
+        def tagged_exchange(gen, step, tag, arrays):
+            name = "exchange " + tag.split(":")[0]
+            return timed(name, exchange)(gen, step, tag, arrays)
+
+        tr._next_batch = step_boundary
+        tr._exchange = tagged_exchange
+        tr._slot_grad = timed("gradient", tr._slot_grad)
+        tr._checkpoint_round = timed("checkpoint round", tr._checkpoint_round)
+        tr._opt.update = timed("update (opt_apply + copies)", tr._opt.update)
+        tr._engine.reduce = timed("reduce (copies + adds)", tr._engine.reduce)
+        t0 = time.perf_counter()
+        params = tr.run(steps)
+        run_s = time.perf_counter() - t0
+    coord.stop()
+    if not all(np.isfinite(v).all() for v in params.values()):
+        fail("profile elastic: non-finite parameters")
+    n = 3
+    wall_ms = window["wall_ms"] / n
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
+
+    def part(pred):
+        sel = [e for e in kern if pred(e.key)]
+        return (sum(e.self_device_time_total for e in sel) / 1e3 / n,
+                sum(e.count for e in sel) // n)
+
+    opt_ms, opt_n = part(lambda k: "opt_apply" in k)
+    add_ms, add_n = part(lambda k: "add" in k.lower() and "Memcpy" not in k)
+    h2d_ms, h2d_n = part(lambda k: "HtoD" in k)
+    d2h_ms, d2h_n = part(lambda k: "DtoH" in k)
+    vec = numel * 4
+    log(f"profile elastic numel={numel}: {run_s:.2f} s for {steps} steps "
+        f"with a checkpoint at the end; profiled the 2nd to the 4th step: "
+        f"wall {wall_ms:.2f} ms/step, device busy {busy_ms:.3f} ms/step, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}")
+    log(f"  opt_apply {opt_ms:.3f} ms/step x{opt_n}; reduce adds "
+        f"{add_ms:.3f} ms/step x{add_n}; host-to-device copies {h2d_ms:.3f} "
+        f"ms/step x{h2d_n} ({6 * vec / 1e6:.0f} MB: p, g, m, v and 2 slot "
+        f"gradients); device-to-host {d2h_ms:.3f} ms/step x{d2h_n} "
+        f"({4 * vec / 1e6:.0f} MB: p, m, v and the gradient sum)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / n:8.3f}"
+            f" ms/step  x{e.count // n}")
+    per_step = ("gradient", "exchange grads", "exchange params",
+                "reduce (copies + adds)", "update (opt_apply + copies)")
+    for name, ms in sorted(host_ms.items(), key=lambda kv: -kv[1]):
+        if name in per_step:
+            log(f"  host {name}: {ms / steps:.2f} ms/step")
+        else:
+            log(f"  host {name}: {ms:.2f} ms in the run")
+    if opt_n != 1:
+        fail(f"profile elastic: {opt_n} opt_apply kernels per step, want 1")
+    if busy_ms > wall_ms:
+        fail(f"profile elastic: device busy {busy_ms:.3f} ms/step exceeds "
+             f"the wall {wall_ms:.3f} ms/step (kernels counted twice?)")
+
+
+
 def _build_host_libs() -> float:
     """Build (or load) the port's host C++ and return the seconds taken."""
     from paddle_tpu_torch.native import load_library, ps_core
@@ -1549,6 +2097,7 @@ def main() -> int:
     rows.update(bwd_cases(dev))
     wd_params, wd_batches, wd_serve = wide_deep_data(extra_batches=20)
     rows.update(ps_cases(dev, wd_batches))
+    rows.update(opt_cases(dev))
 
     # 4. serve the 7B slice
     t0 = time.perf_counter()
@@ -1609,11 +2158,24 @@ def main() -> int:
 
     # 16. where a device-cache step's time goes
     profile_wide_deep(dev, wd_cache, wd_tower, wd_batches)
+    del wd_table, wd_tower, wd_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the elastic bench on the host and the device engine
+    el_counts, el_params = elastic_bench(dev)
+
+    # 18. world 2, and a rank leaving mid-run, against phase 17
+    el2_counts = elastic_worlds(dev, el_params)
+
+    # 19. where an elastic step's time goes
+    profile_elastic(dev)
 
     kernels = []
     for name, s in registry.kernels().items():
         launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
-                                         wd_counts, q8_counts))
+                                         wd_counts, q8_counts, el_counts,
+                                         el2_counts))
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name]))

@@ -1,5 +1,7 @@
 """DistributedTrainStep: the one-device plain training step of the
-reference's ``distributed/fleet/dist_step.py``.
+reference's ``distributed/fleet/dist_step.py``, and the elastic data
+plane's deterministic ZeRO shard math, learning-rate schedules and fused
+optimizer apply (the module's second half).
 
 One call is one optimizer step: the forward and backward of
 ``loss_fn(*batch)``, then the optimizer's update of every parameter it
@@ -18,13 +20,21 @@ than one device.
 """
 from __future__ import annotations
 
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ... import resolve_device
 from .strategy import IMPLEMENTED_TOGGLES, DistributedStrategy
 
-__all__ = ["DistributedTrainStep"]
+__all__ = ["DistributedTrainStep", "LRSchedule", "make_lr_schedule",
+           "zero_shard_ranges", "flatten_zero_state", "unflatten_zero_state",
+           "zero_shard", "zero_unshard", "zero_reshard",
+           "fused_optimizer_apply"]
 
 _LATER = "is not ported yet (ROADMAP queue item 4)"
 
@@ -132,3 +142,209 @@ class DistributedTrainStep:
                 states[i] = new_s
         opt.load_opt_state(states)
         return loss
+
+
+# -- deterministic ZeRO host-shard math (the elastic data plane) --------
+#
+# The elastic membership controller (fleet/elastic.py) partitions the
+# GLOBAL flattened parameter / optimizer-state vector over the live
+# worker set.  These helpers are the single source of truth for that
+# partition: a reshard after a membership change is a PURE function of
+# (global state, new world size), so an N->M transition loads exactly
+# the shards a fresh M-worker run would load from the same checkpoint.
+# The partition rule (contiguous ranges, remainder spread over the
+# leading ranks) matches the reference's UtilBase.get_file_shard.
+
+class LRSchedule:
+    """t-indexed learning-rate schedule for the flat elastic optimizers.
+
+    The value is a PURE function of the 1-based global step count
+    ``t`` and the construction config -- no internal state, nothing to
+    checkpoint beyond ``t`` itself (which the elastic checkpoints
+    already carry as ``opt_t``).  That makes the schedule
+    world-invariant BY CONSTRUCTION: every worker of every generation
+    evaluates the identical f32 lr for step t, so an N->M reshard
+    mid-schedule stays bit-exact with the fault-free run.
+
+    Kinds (``warmup_steps`` prepends a linear ramp to all of them):
+
+    ``constant``  ``base_lr``
+    ``step``      ``base_lr * gamma ** ((t - warmup) // step_size)``
+    ``cosine``    ``min_lr + (base_lr - min_lr) * (1 + cos(pi*p)) / 2``
+                  with progress ``p = (t - warmup) / (total - warmup)``
+                  clipped to [0, 1] (requires ``total_steps``)
+    ``linear``    ``base_lr + (min_lr - base_lr) * p`` (same ``p``)
+
+    Math runs in float64 and rounds ONCE to f32 at the end -- the same
+    value on every host, every world size.
+    """
+
+    KINDS = ("constant", "step", "cosine", "linear")
+
+    def __init__(self, kind: str, base_lr: float,
+                 warmup_steps: int = 0,
+                 total_steps: Optional[int] = None,
+                 min_lr: float = 0.0, step_size: int = 1000,
+                 gamma: float = 0.5):
+        if kind not in self.KINDS:
+            raise ValueError(f"lr schedule kind must be one of "
+                             f"{self.KINDS}, got {kind!r}")
+        if kind in ("cosine", "linear") and not total_steps:
+            raise ValueError(f"{kind!r} schedule needs total_steps")
+        if step_size < 1:
+            raise ValueError("step_size must be >= 1")
+        self.kind = kind
+        self.base_lr = float(base_lr)
+        self.warmup_steps = int(warmup_steps)
+        self.total_steps = None if total_steps is None else \
+            int(total_steps)
+        self.min_lr = float(min_lr)
+        self.step_size = int(step_size)
+        self.gamma = float(gamma)
+
+    def __call__(self, t: int) -> np.float32:
+        t = int(t)
+        w = self.warmup_steps
+        if w > 0 and t <= w:
+            return np.float32(self.base_lr * t / w)
+        if self.kind == "constant":
+            return np.float32(self.base_lr)
+        if self.kind == "step":
+            return np.float32(
+                self.base_lr * self.gamma ** ((t - w - 1)
+                                              // self.step_size))
+        span = max(1, self.total_steps - w)
+        p = min(1.0, max(0.0, (t - w) / span))
+        if self.kind == "cosine":
+            return np.float32(
+                self.min_lr + (self.base_lr - self.min_lr)
+                * 0.5 * (1.0 + math.cos(math.pi * p)))
+        # linear
+        return np.float32(
+            self.base_lr + (self.min_lr - self.base_lr) * p)
+
+    def __repr__(self):
+        return (f"LRSchedule({self.kind!r}, base_lr={self.base_lr}, "
+                f"warmup_steps={self.warmup_steps}, "
+                f"total_steps={self.total_steps}, "
+                f"min_lr={self.min_lr}, step_size={self.step_size}, "
+                f"gamma={self.gamma})")
+
+
+def make_lr_schedule(kind: str, base_lr: float, **kw) -> LRSchedule:
+    """Build an :class:`LRSchedule`; accepts a plain config dict via
+    ``make_lr_schedule(**cfg)`` (the launcher/worker-config spelling)."""
+    return LRSchedule(kind, base_lr, **kw)
+
+
+def zero_shard_ranges(total: int, world: int):
+    """Contiguous ``[start, stop)`` ranges partitioning a flat
+    length-``total`` vector over ``world`` ranks.  Covers every element
+    exactly once for ANY (total, world) -- world need not divide total;
+    ranks beyond ``total`` get empty ranges."""
+    total, world = int(total), int(world)
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    base, rem = divmod(total, world)
+    out, start = [], 0
+    for r in range(world):
+        size = base + (1 if r < rem else 0)
+        out.append((start, start + size))
+        start += size
+    return out
+
+
+def flatten_zero_state(tree: Dict[str, Any]):
+    """``{name: ndarray}`` -> ``(flat vector, meta)`` with a
+    deterministic (sorted-name) layout.  ``meta`` is
+    ``[(name, shape), ...]`` -- feed it back to
+    :func:`unflatten_zero_state`.  All leaves must share one dtype (the
+    elastic data plane is f32): mixing dtypes in one flat vector would
+    silently upcast shards."""
+    meta, parts, dtype = [], [], None
+    for name in sorted(tree):
+        v = np.asarray(tree[name])
+        if dtype is None:
+            dtype = v.dtype
+        elif v.dtype != dtype:
+            raise ValueError(
+                f"flatten_zero_state needs one dtype; {name!r} is "
+                f"{v.dtype}, expected {dtype}")
+        meta.append((name, tuple(v.shape)))
+        parts.append(v.reshape(-1))
+    flat = (np.concatenate(parts) if parts
+            else np.zeros(0, dtype or np.float32))
+    return flat, meta
+
+
+def unflatten_zero_state(flat: np.ndarray, meta) -> Dict[str, Any]:
+    """Inverse of :func:`flatten_zero_state` (views into ``flat``)."""
+    out, ofs = {}, 0
+    for name, shape in meta:
+        n = int(np.prod(shape)) if shape else 1
+        out[name] = flat[ofs:ofs + n].reshape(shape)
+        ofs += n
+    if ofs != flat.size:
+        raise ValueError(
+            f"flat vector has {flat.size} elements, meta describes {ofs}")
+    return out
+
+
+def zero_shard(flat: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """Rank ``rank``'s contiguous shard of the global flat vector."""
+    lo, hi = zero_shard_ranges(flat.size, world)[rank]
+    return flat[lo:hi]
+
+
+def zero_unshard(shards) -> np.ndarray:
+    """Reassemble the global flat vector from rank-ordered shards."""
+    shards = list(shards)
+    return (np.concatenate([np.asarray(s).reshape(-1) for s in shards])
+            if shards else np.zeros(0, np.float32))
+
+
+def zero_reshard(shards, new_world: int):
+    """Reshard rank-ordered shards from their current world size to
+    ``new_world``: merge to the global vector, re-partition.  Pure --
+    bit-exact round trips (N->M->N) and identical to what a fresh
+    ``new_world`` run would shard from the same global vector."""
+    flat = zero_unshard(shards)
+    return [zero_shard(flat, r, new_world) for r in range(new_world)]
+
+
+def _to_device(x, dev) -> torch.Tensor:
+    a = np.ascontiguousarray(x, dtype=np.float32)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(dev)
+
+
+def fused_optimizer_apply(kind: str, p: np.ndarray, g: np.ndarray,
+                          slots: Dict[str, np.ndarray], *, t: int,
+                          lr, betas=(0.9, 0.999), eps=1e-8,
+                          momentum=0.9, device=None):
+    """Fused one-pass optimizer apply over a flat ZeRO shard.
+
+    Device analog of the flat elastic sgd/momentum/adam: the shard goes
+    to ``device`` (default ``cuda``), one ``opt_apply`` call reads
+    grad+param+moments and writes param+moments in one pass (the CUDA
+    kernel on the card, its plain version on the CPU), and the results
+    come back.  Strictly elementwise with every constant pinned to f32,
+    so the update of a shard equals the same slice of the full-vector
+    update, for any world size, and it is bitwise the numpy engine's.
+    Adam's bias corrections are computed on the host from the global
+    step exactly like the numpy engine.
+
+    Takes and returns numpy, as the reference does:
+    ``(new_param, new_slots_dict)`` as f32 arrays.
+    """
+    from ...ops.kernels.opt_apply import SLOTS, opt_apply, pack_hyper
+    slot_names = SLOTS[kind]          # raises KeyError on unknown kind
+    hyper = pack_hyper(kind, lr=lr, betas=betas, eps=eps,
+                       momentum=momentum, t=t)
+    dev = resolve_device(device)
+    out = opt_apply(kind, _to_device(p, dev), _to_device(g, dev),
+                    tuple(_to_device(slots[n], dev) for n in slot_names),
+                    hyper)
+    host = [o.cpu().numpy() for o in out]
+    return host[0], dict(zip(slot_names, host[1:]))

@@ -4,4 +4,4 @@ Importing a kernel module registers it; nothing is compiled until a CUDA
 tensor first needs the kernel.
 """
 from . import (flash_attention, int8_matmul, kv_attention,  # noqa: F401
-               pull_dequant, registry, segment_sum)
+               opt_apply, pull_dequant, registry, segment_sum)

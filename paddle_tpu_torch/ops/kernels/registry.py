@@ -28,7 +28,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 __all__ = ["KernelSpec", "register", "kernels", "spec", "dispatch",
-           "card_error", "launch_counts", "reset_counts", "MODES"]
+           "card_error", "launch_counts", "note_launch", "reset_counts",
+           "MODES"]
 
 MODES = ("cuda", "torch_ref")
 
@@ -95,7 +96,8 @@ def dispatch(name: str, *args, mode: Optional[str] = None, **kwargs):
     elif mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "torch_ref":
-        s.torch_ref_calls += 1
+        with _lock:
+            s.torch_ref_calls += 1
         return s.torch_ref_fn(*args, **kwargs)
     if s.eligible_fn is not None:
         reason = s.eligible_fn(*args, **kwargs)
@@ -123,6 +125,13 @@ def card_error(got: torch.Tensor, ref: torch.Tensor, tol) -> tuple:
         lim = lim + whole * r.pow(2).mean().sqrt()
     share = torch.where(err > 0, err / lim, torch.zeros_like(err))
     return err.max().item(), share.max().item()
+
+
+def note_launch(s: KernelSpec) -> None:
+    """Count one launch of ``s``'s kernel; safe when several threads
+    launch the same kernel (the elastic trainers of one process)."""
+    with _lock:
+        s.launches += 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -238,3 +238,68 @@ def test_ps_kernels_match_plain_on_card():
                               dequantize_rows_q8(codes, scales))
     counts = registry.launch_counts()
     assert counts["segment_sum"] == 8 and counts["pull_dequant"] == 5
+
+
+def _numpy_adam(p, g, m, v, lr, b1, b2, eps, t):
+    """The host numpy engine's Adam step (``_FlatAdam.update`` of the
+    reference), written out: f32 operations in its order."""
+    B1, B2, lr, eps = (np.float32(b1), np.float32(b2), np.float32(lr),
+                       np.float32(eps))
+    m = (B1 * m + (np.float32(1) - B1) * g).astype(np.float32)
+    v = (B2 * v + (np.float32(1) - B2) * g * g).astype(np.float32)
+    c1 = np.float32(1.0 - b1 ** t)
+    c2 = np.float32(1.0 - b2 ** t)
+    p = (p - lr * (m / c1) / (np.sqrt(v / c2) + eps)).astype(np.float32)
+    return p, m, v
+
+
+@pytest.mark.cuda
+def test_opt_apply_matches_plain_on_card():
+    """opt_apply bitwise equal to its plain version for every kind, at
+    odd lengths and an unaligned view (the scalar path), on a rerun too;
+    Adam bitwise equal to the host numpy engine's expression."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the elastic shapes")
+    from paddle_tpu_torch.ops.kernels.opt_apply import (KINDS, SLOTS,
+                                                        opt_apply,
+                                                        pack_hyper)
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(40)
+    calls = 0
+    for n in (1, 3, 4097, 100_000, (1 << 20) + 3):
+        arrs = [rng.standard_normal(n + 1).astype(np.float32)
+                for _ in range(3)]
+        arrs.append(np.square(rng.standard_normal(n + 1)).astype(np.float32)
+                    * np.float32(0.01))
+        full = [torch.from_numpy(a).to(dev) for a in arrs]
+        for view in ("aligned", "unaligned"):
+            p, g, s0, s1 = ([t[:n] for t in full] if view == "aligned"
+                            else [t[1:] for t in full])
+            for kind in KINDS:
+                for t in (1, 7, 10_000):
+                    hyper = pack_hyper(kind, lr=0.01, t=t)
+                    slots = [s0, s1][:len(SLOTS[kind])]
+                    ref = opt_apply(kind, p, g, slots, hyper,
+                                    mode="torch_ref")
+                    a = opt_apply(kind, p, g, slots, hyper)
+                    b = opt_apply(kind, p, g, slots, hyper)
+                    calls += 2
+                    torch.cuda.synchronize()
+                    for x, y, z in zip(a, b, ref):
+                        assert torch.equal(x, z) and torch.equal(x, y), (
+                            n, view, kind, t)
+                    if kind == "adam" and view == "aligned" and n < 5000:
+                        want = _numpy_adam(*(x.cpu().numpy() for x in
+                                             (p, g, s0, s1)),
+                                           0.01, 0.9, 0.999, 1e-8, t)
+                        for x, y in zip(a, want):
+                            assert np.array_equal(x.cpu().numpy(), y), t
+    with pytest.raises(ValueError, match="contiguous"):
+        opt_apply("sgd", full[0][::2], full[1][::2], [],
+                  pack_hyper("sgd", lr=0.1))
+    with pytest.raises(ValueError, match="float32"):
+        opt_apply("sgd", full[0].double(), full[1].double(), [],
+                  pack_hyper("sgd", lr=0.1))
+    assert registry.launch_counts()["opt_apply"] == calls

@@ -14,7 +14,11 @@ tolerances:
   atol 1e-4; bf16 as stated at each test;
 - int8 paged attention: atol 2e-5 / rtol 1e-4;
 - segment sum: atol 1e-6 for float gradients, bitwise for integer ones;
-- int8 row dequantisation: bitwise.
+- int8 row dequantisation: bitwise;
+- fused optimizer apply: bitwise against the reference's numpy host
+  engine; against the JAX ``opt_apply_ref`` and the Pallas kernel in
+  interpret mode within the error of one FMA contraction per
+  multiply-add (XLA on the CPU contracts them; see ``_fma_bounds``).
 
 The hand-written CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, marked ``cuda``; ``chip_smoke.py`` runs
@@ -36,6 +40,7 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu.nn.functional.attention import _sdpa_ref as jax_sdpa_ref
+from paddle_tpu.distributed.fleet import elastic as jelastic
 from paddle_tpu.distributed.fleet import ps as jps
 from paddle_tpu.ops.pallas import registry as jreg
 
@@ -48,6 +53,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_ref, flash_eligible)
 from paddle_tpu_torch.ops.kernels.kv_attention import (
     int8_paged_attention, paged_attention_ref)
+from paddle_tpu_torch.ops.kernels.opt_apply import (
+    KINDS, SLOTS, opt_apply, opt_apply_ref, pack_hyper)
 from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
 from paddle_tpu_torch.ops.kernels.segment_sum import segment_plan, segment_sum
 
@@ -56,6 +63,7 @@ jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 jkv = importlib.import_module("paddle_tpu.ops.pallas.kv_attention")
 jss = importlib.import_module("paddle_tpu.ops.pallas.segment_sum")
 jpd = importlib.import_module("paddle_tpu.ops.pallas.pull_dequant")
+jopt = importlib.import_module("paddle_tpu.ops.pallas.opt_apply")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"
@@ -491,6 +499,164 @@ def test_ps_kernels_raise_on_cpu_tensors_in_cuda_mode():
 
 
 # ---------------------------------------------------------------------
+# kernel 5: fused optimizer apply over a flat ZeRO shard
+# ---------------------------------------------------------------------
+
+_HYPER = dict(lr=0.01, betas=(0.9, 0.999), eps=1e-8, momentum=0.9)
+
+
+def _opt_state(seed, n, kind):
+    """p, g and the kind's slots (adam's v non-negative), f32 numpy."""
+    rng = np.random.default_rng(seed)
+    p, g = _rand(rng, n), _rand(rng, n)
+    slots = {"u": _rand(rng, n) * np.float32(0.1),
+             "m": _rand(rng, n) * np.float32(0.1),
+             "v": np.square(_rand(rng, n)) * np.float32(0.01)}
+    return p, g, [slots[k] for k in SLOTS[kind]]
+
+
+def _numpy_engine(kind, p, g, slots, t):
+    """The reference's host numpy engine: its flat optimizer with
+    ``fused=False``, loaded at step t - 1 and stepped once."""
+    cls = {"sgd": jelastic._FlatSGD, "momentum": jelastic._FlatMomentum,
+           "adam": jelastic._FlatAdam}[kind]
+    o = cls(_HYPER["lr"], betas=_HYPER["betas"], eps=_HYPER["eps"],
+            momentum=_HYPER["momentum"], fused=False)
+    o.load(dict(zip(SLOTS[kind], slots)), t=t - 1)
+    p_n = o.update(p, g)
+    return [p_n] + [getattr(o, k) for k in SLOTS[kind]]
+
+
+def _port(kind, p, g, slots, t):
+    hyper = pack_hyper(kind, t=t, **_HYPER)
+    out = opt_apply(kind, torch.from_numpy(p), torch.from_numpy(g),
+                    [torch.from_numpy(s) for s in slots], hyper)
+    return [o.numpy() for o in out]
+
+
+@pytest.mark.parametrize("t", [1, 7, 10_000])
+@pytest.mark.parametrize("kind", KINDS)
+def test_opt_apply_plain_bitwise_numpy_host_engine(kind, t):
+    """The plain version (what the CPU runs, and what the kernel is held
+    to bitwise on the card) is bitwise the reference's numpy engine."""
+    p, g, slots = _opt_state(50 + t, 4097, kind)
+    got = _port(kind, p, g, slots, t)
+    want = _numpy_engine(kind, p, g, slots, t)
+    assert len(got) == 1 + len(SLOTS[kind])
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    assert registry.spec("opt_apply").torch_ref_calls == 1
+
+
+def _fma_bounds(kind, p, g, slots, t):
+    """Per-output limits on |port - JAX| from one FMA contraction per
+    multiply-add (XLA contracts them on the CPU; the port rounds every
+    operation).  Contracting ``a*b + c*d`` skips one product's rounding
+    and may move the sum's rounding: at most 2^-24 |a*b| + 2^-23 |sum|
+    <= 2^-22 (|a*b| + |c*d|).  So
+
+    - sgd:      |dp| <= 2^-22 (|p| + |lr g|)
+    - momentum: |du| <= 2^-22 (|mu u| + |g|);
+                |dp| <= 2^-22 (|p| + 2 lr (|mu u| + |g|))
+    - adam:     |dm| <= 2^-22 (|b1 m| + |(1-b1) g|);
+                |dv| <= 2^-22 (|b2 v| + |(1-b2) g^2|);
+                |dp| <= 2^-22 (|p| + 4 U), U = lr (|b1 m| + |(1-b1) g|)
+                / (c1 (sqrt(v'/c2) + eps)): m' may cancel, so its error
+                reaches p' through the update's m term at full size;
+                v' adds non-negative terms (no cancellation) and the
+                update's own roundings stay below 2^-21 |update|.
+    """
+    f64 = [np.asarray(a, np.float64) for a in (p, g, *slots)]
+    p, g, slots = f64[0], f64[1], f64[2:]
+    lr = float(np.float32(_HYPER["lr"]))
+    e = 2.0 ** -22
+    if kind == "sgd":
+        return [e * (abs(p) + abs(lr * g))]
+    if kind == "momentum":
+        (u,) = slots
+        mu = float(np.float32(_HYPER["momentum"]))
+        su = abs(mu * u) + abs(g)
+        return [e * (abs(p) + 2 * lr * su), e * su]
+    m, v = slots
+    h = pack_hyper("adam", t=t, **_HYPER)[0].astype(np.float64)
+    b1, b2, eps, c1, c2, omb1, omb2 = h[[1, 2, 3, 4, 5, 7, 8]]
+    sm = abs(b1 * m) + abs(omb1 * g)
+    sv = abs(b2 * v) + abs(omb2 * g * g)
+    v_n = b2 * v + omb2 * g * g
+    U = lr * sm / (c1 * (np.sqrt(v_n / c2) + eps))
+    return [e * (abs(p) + 4 * U), e * sm, e * sv]
+
+
+@pytest.mark.parametrize("t", [1, 7, 10_000])
+@pytest.mark.parametrize("kind", KINDS)
+def test_opt_apply_plain_matches_jax_ref_and_interpret(kind, t,
+                                                       record_property):
+    p, g, slots = _opt_state(60 + t, 4097, kind)
+    got = _port(kind, p, g, slots, t)
+    bounds = _fma_bounds(kind, p, g, slots, t)
+    hyper = pack_hyper(kind, t=t, **_HYPER)
+    args = (kind, jnp.asarray(p), jnp.asarray(g),
+            tuple(jnp.asarray(s) for s in slots), hyper)
+    for name, fn in (("ref", jax.jit(jopt.opt_apply_ref, static_argnums=0)),
+                     ("interpret", lambda *a: jopt.opt_apply_pallas(
+                         *a, interpret=True))):
+        want = [np.asarray(w) for w in fn(*args)]
+        share = 0.0
+        for i, (a, b, lim) in enumerate(zip(got, want, bounds)):
+            err = np.abs(a.astype(np.float64) - b)
+            assert (err <= lim).all(), (name, i, float(err.max()),
+                                        float((err / lim).max()))
+            share = max(share, float((err / lim).max()))
+        record_property(f"max_share_of_limit_vs_jax_{name}", share)
+        record_property(f"bitwise_vs_jax_{name}",
+                        all(np.array_equal(a, b) for a, b in zip(got, want)))
+
+
+def test_pack_hyper_bitwise_reference():
+    for kind, kw in (("adam", dict(lr=0.01, t=1)),
+                     ("adam", dict(lr=3e-4, betas=(0.8, 0.95), eps=1e-6,
+                                   t=10_000)),
+                     ("momentum", dict(lr=0.5, momentum=0.95, t=3)),
+                     ("sgd", dict(lr=np.float32(0.1), t=7))):
+        got, want = pack_hyper(kind, **kw), jopt.pack_hyper(kind, **kw)
+        assert got.dtype == want.dtype == np.float32
+        assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_opt_apply_shard_update_is_the_slice_of_the_full_update(kind):
+    """The ZeRO invariant: the update of [lo, hi) is bitwise the same
+    slice of the full vector's update."""
+    n = 1000
+    p, g, slots = _opt_state(70, n, kind)
+    full = _port(kind, p, g, slots, 5)
+    for lo, hi in ((0, 1), (0, 500), (500, 1000), (3, 4), (333, 777),
+                   (999, 1000), (1, 1000)):
+        part = _port(kind, p[lo:hi], g[lo:hi], [s[lo:hi] for s in slots], 5)
+        for a, b in zip(part, full):
+            assert np.array_equal(a, b[lo:hi]), (lo, hi)
+
+
+def test_opt_apply_rejects_what_it_does_not_take():
+    p = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        opt_apply("adam", p, p, [p, p], pack_hyper("adam", lr=0.1),
+                  mode="cuda")
+    with pytest.raises(ValueError, match="takes slots"):
+        opt_apply("adam", p, p, [p], pack_hyper("adam", lr=0.1))
+    with pytest.raises(ValueError, match="unknown optimizer kind"):
+        opt_apply("lamb", p, p, [], pack_hyper("sgd", lr=0.1))
+    with pytest.raises(ValueError, match="hyper has"):
+        opt_apply_ref("sgd", p, p, [], np.zeros(3, np.float32))
+    # what the kernel's eligibility check names on a card
+    spec = registry.spec("opt_apply")
+    assert "unknown optimizer kind" in spec.eligible_fn(
+        "lamb", p, p, (), None)
+    assert "CUDA tensors" in spec.eligible_fn("sgd", p, p, (), None)
+    assert registry.launch_counts() == dict.fromkeys(registry.kernels(), 0)
+
+
+# ---------------------------------------------------------------------
 # registry, build, kernel sources
 # ---------------------------------------------------------------------
 
@@ -498,7 +664,8 @@ def test_registry_names_and_tolerances_match_reference():
     ours, theirs = registry.kernels(), jreg.kernels()
     assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq", "int8_kv_attention",
-                            "int8_matmul", "pull_dequant", "segment_sum"]
+                            "int8_matmul", "opt_apply", "pull_dequant",
+                            "segment_sum"]
     for name, s in ours.items():
         # the reference registers its flash forward and custom-vjp
         # backward as one entry
@@ -557,6 +724,9 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.text.models, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.distributed.launch, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.framework.monitor, "
             "paddle_tpu_torch.vision.models, paddle_tpu_torch.quantization\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' "
