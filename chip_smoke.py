@@ -104,7 +104,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     over three of them: device busy time against wall time, the
     ``opt_apply`` kernel, the reduce's adds, the host<->device copies the
     numpy contract of ``fused_optimizer_apply`` forces, and the host ms
-    of each stage of a step and of the checkpoint round.
+    of each stage of a step and of the checkpoint round;
+20. the online loop at full width: a primary ``PSServer`` with one
+    ``SparseTable(dim=16, sgd, lr=0.05)``, a read replica and a
+    ``FeatureLifecycle`` sweeper; ``StreamingTrainer(device_merge=True)``
+    on the card over phase 13's 22 wide&deep batches (2 warm-up, 20
+    timed; ~6,250 unique of 26,624 ids a batch), each step pulling its
+    rows through the client and running phase 13's dense tower on the
+    card: events/s, ms per batch, the first and last timed loss (the last
+    must be lower), ``ps_freshness_ms`` p50/p99, the replica's watermark
+    (it must reach the trainer's seq, and its table the primary's); the
+    launch counts prove every batch merged through ``segment_sum_sorted``
+    (22 launches, no plain call); after the run a sweep past the TTL
+    evicts every id but the last batch's on both, the replica still
+    bitwise the primary;
+21. the same stream with the plain versions (``kernel_mode="torch_ref"``)
+    and with the numpy merge (``device_merge=False``): both primary tables
+    bitwise phase 20's;
+22. the stream under the ``lost_ack`` and ``dup`` chaos plans, and a
+    trainer that dies three pushes past its cursor checkpoint, restarted
+    in-process from it: both end bitwise at phase 20's table, with
+    duplicate acks;
+23. ``torch.profiler`` over 3 streaming batches: device busy time
+    against wall time, the ``segment_sum_sorted`` kernels in the trace,
+    and the host ms of the pull RPC, the dense step, the merge and the
+    push RPC.
+
+Every profiled phase (6, 9, 12, 16, 19, 23) prints the idle share
+``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at the
 ResNet-50 GEMMs of batch 32 (and at batch 1) with the int8 model's bf16
@@ -112,6 +139,12 @@ output (the stem also with f32 output): dynamic mode bitwise,
 weight-only within the module's ``CARD_TOL``; each is timed beside its
 bound and beside ``torch._int_mm`` plus its scale pass, which compute
 the same function and which the port never calls.  It holds
+``segment_sum_sorted`` bitwise against its plain version (the first
+wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
+200,000; integer gradients; n = 1; dim 13; each run twice) and, through
+``merge_segments``, against ``segment_sum`` on the same unsorted merge,
+timed at the first two shapes beside ``torch.segment_reduce`` and
+``index_add_``.  It holds
 ``segment_sum`` (at the wide&deep push: 26,624 rows of dim 16 into
 8,192 segments; integer gradients; n = 1; dim 13; each run twice) and
 ``pull_dequant`` (6,242 x 16, 1 x 16, 4,097 x 13, 1,000 x 4,096, zero
@@ -132,8 +165,8 @@ before phase 10, and the peak-memory counter reset, so each workload
 reports its own peak.  Before the last line it prints one JSON object
 ``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
 the training run of phase 7, the ResNet run of phase 10, the wide&deep
-run (b) of phase 13, the q8 serving run of phase 15 and the elastic runs
-of phases 17 and 18); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
+of phases 17 and 18 and the online run of phase 20); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or without the package.
 """
 from __future__ import annotations
@@ -244,6 +277,15 @@ def bound_ms(flops: float, peak_flops: float, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_busy(label, busy_ms, wall_ms):
+    """A profiled window's device busy time cannot exceed its wall time;
+    if it does, kernels were counted twice and the idle share is
+    wrong."""
+    if busy_ms > wall_ms:
+        fail(f"{label}: device busy {busy_ms:.3f} ms exceeds the wall "
+             f"{wall_ms:.3f} ms (kernels counted twice?)")
 
 
 def check_close(label, got, ref, tol):
@@ -770,10 +812,11 @@ def profile_decode(dev, model, steps: int = 5):
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile decode: wall {wall_ms:.2f} ms/step, device busy "
         f"{busy_ms:.2f} ms/step, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/step")
+        f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
+    check_busy("profile decode (phase 6)", busy_ms, wall_ms)
 
 
 # ---------------------------------------------------------------------
@@ -940,7 +983,8 @@ def profile_train(dev, step, ids, steps: int = 2):
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile train: wall {wall_ms:.2f} ms/step, device busy "
         f"{busy_ms:.2f} ms/step, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/step")
+        f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
+    check_busy("profile train (phase 9)", busy_ms, wall_ms)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -1115,7 +1159,8 @@ def profile_resnet(dev, int8_model, forwards: int = 3):
     n_kern = sum(e.count for e in kern) // forwards
     log(f"profile resnet50 int8 batch 32: wall {wall_ms:.2f} ms/forward, "
         f"device busy {busy_ms:.2f} ms/forward, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/forward")
+        f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/forward")
+    check_busy("profile resnet50 (phase 12)", busy_ms, wall_ms)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / forwards:8.3f}"
             f" ms/forward  x{e.count // forwards}")
@@ -1513,7 +1558,8 @@ def profile_wide_deep(dev, cache, tower, batches):
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile wide&deep device_cache: wall {wall_ms:.2f} ms/step, "
         f"device busy {busy_ms:.3f} ms/step, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, {n_kern} kernels/step")
+        f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
+    check_busy("profile wide&deep (phase 16)", busy_ms, wall_ms)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -2028,10 +2074,490 @@ def profile_elastic(dev):
             log(f"  host {name}: {ms:.2f} ms in the run")
     if opt_n != 1:
         fail(f"profile elastic: {opt_n} opt_apply kernels per step, want 1")
-    if busy_ms > wall_ms:
-        fail(f"profile elastic: device busy {busy_ms:.3f} ms/step exceeds "
-             f"the wall {wall_ms:.3f} ms/step (kernels counted twice?)")
+    check_busy("profile elastic (phase 19)", busy_ms, wall_ms)
 
+
+# ---------------------------------------------------------------------
+# phase 3 (segment_sum_sorted) and phases 20-23: the online loop
+# ---------------------------------------------------------------------
+
+def sorted_cases(dev, batches):
+    """Phase 3 for kernel 8: ``segment_sum_sorted`` bitwise against its
+    plain version (each case run twice, the rerun bitwise too) at the
+    first wide&deep batch's merge, at vocab scale, with integer gradients,
+    n = 1 and dim 13; ``merge_segments`` bitwise against ``segment_sum``
+    (kernel 7) on the same unsorted merge; the first two shapes timed
+    beside the byte bound, ``torch.segment_reduce`` and ``index_add_``.
+    Returns its kernels-line row."""
+    from paddle_tpu_torch.ops.kernels.segment_sum import (
+        merge_segments, segment_sum, segment_sum_sorted,
+        segment_sum_sorted_planned)
+    g0 = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    _, inv0 = np.unique(batches[0][0].reshape(-1), return_inverse=True)
+    inv0 = inv0.reshape(-1)
+    nseg0 = int(inv0.max()) + 1
+    dim = WIDE_DEEP["dim"]
+    cases = [  # (label, ascending ids, dim, nseg, integer gradients)
+        ("wide&deep merge", np.sort(inv0), dim, nseg0, False),
+        ("vocab scale", np.sort(rng.integers(0, 200_000, 256)), dim,
+         200_000, False)]
+    cases += [("integer grads", np.sort(rng.integers(0, ns, n)), 5, ns,
+               True)
+              for ns, n in ((6000, 64), (513, 9), (4096, 8))]
+    cases += [("n=1", np.zeros(1, np.int64), dim, 4096, False),
+              ("dim 13", np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 4999)),
+               13, 5000, False)]
+    row = {}
+    for i, (label, seg, d, nseg, integer) in enumerate(cases):
+        n = seg.size
+        g = (torch.randint(-50, 50, (n, d), device=dev, generator=g0).float()
+             if integer else torch.randn(n, d, device=dev, generator=g0))
+        ref = segment_sum_sorted(g, seg, nseg, mode="torch_ref")
+        got = [segment_sum_sorted(g, seg, nseg) for _ in range(2)]
+        torch.cuda.synchronize()
+        shape = f"{label} n={n} dim={d} nseg={nseg}"
+        err = (got[0] - ref).abs().max().item()
+        if not (torch.equal(got[0], got[1]) and torch.equal(got[0], ref)):
+            fail(f"segment_sum_sorted {shape}: not bitwise equal to the "
+                 f"plain version or to its rerun (max |diff| {err:.3g})")
+        msg = (f"segment_sum_sorted {shape}: bitwise equal to the plain "
+               "version and on a rerun")
+        if i >= 2:
+            log(msg)
+            continue
+        seg_t = torch.from_numpy(seg).to(dev)
+        seg32 = seg_t.to(torch.int32)
+        ms = queued_ms(lambda: segment_sum_sorted_planned(g, seg32, nseg))
+        wrapper_ms = cuda_ms(lambda: segment_sum_sorted(g, seg, nseg))
+        plain = cuda_ms(lambda: segment_sum_sorted(g, seg, nseg,
+                                                   mode="torch_ref"))
+        lengths = torch.bincount(seg_t, minlength=nseg)
+
+        def reduce_fn():
+            return torch.segment_reduce(g, "sum", lengths=lengths)
+
+        def add_fn():
+            return torch.zeros(nseg, d, device=dev).index_add_(0, seg_t, g)
+
+        red_err = (reduce_fn() - ref).abs().max().item()
+        add_err = (add_fn() - ref).abs().max().item()
+        red, add = queued_ms(reduce_fn), queued_ms(add_fn)
+        # f32 rows and int32 ids read once, the f32 output written once
+        bms, by = bound_ms(n * d, PEAK_F32_FLOPS,
+                           n * d * 4 + n * 4 + nseg * d * 4)
+        per_seg = np.bincount(seg, minlength=nseg)
+        if i == 0:   # the faster of the two library calls, as row 7
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=bms, bound_by=by, library_ms=min(red, add))
+        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, the "
+            f"longest {int(per_seg.max())} rows; kernel_ms {ms:.4f} "
+            f"(wrapper with the host check and the id copy, one call "
+            f"between events {wrapper_ms:.4f}) plain_ms {plain:.4f} "
+            f"bound_ms {bms:.6f} ({by}) library_ms {min(red, add):.4f} "
+            f"(the faster of segment_reduce {red:.4f}, max |diff| to "
+            f"plain {red_err:.3g}, and index_add_ {add:.4f}, max |diff| "
+            f"{add_err:.3g})")
+    # the same unsorted merge through both kernels: the stable sort keeps
+    # each segment's rows in order, so kernel 8 adds as kernel 7 does
+    g = torch.randn(inv0.size, dim, device=dev, generator=g0)
+    k8 = merge_segments(g, inv0, nseg0)
+    k7 = segment_sum(g, inv0, nseg0)
+    torch.cuda.synchronize()
+    if not torch.equal(k8, k7):
+        fail(f"merge_segments (kernel 8) not bitwise segment_sum (kernel "
+             f"7) on the wide&deep merge: max |diff| "
+             f"{(k8 - k7).abs().max().item():.3g}")
+    log(f"merge_segments n={inv0.size} nseg={nseg0}: kernel 8 after the "
+        "stable sort bitwise equal to kernel 7 on the unsorted merge")
+    return {"segment_sum_sorted": row}
+
+
+def _online_stream(batches):
+    """The online phases' event stream: phase 13's 2 warm-up and 20 timed
+    wide&deep batches, as dicts stamped with their ingest time."""
+    from paddle_tpu_torch.io import IterableDataset
+    stream = list(batches[:2]) + list(batches)
+
+    class Stream(IterableDataset):
+        def __iter__(self):
+            for ids, dense, label in stream:
+                yield {"ids": ids, "dense": dense, "label": label,
+                       "ingest_ts": time.time()}
+    return Stream(), len(stream)
+
+
+def _online_loader(batches):
+    from paddle_tpu_torch.io import DataLoader
+    ds, n = _online_stream(batches)
+    return DataLoader(ds, batch_size=1, collate_fn=lambda items: items[0]), n
+
+
+def _online_step(tower, timers=None, dry=lambda: False):
+    """``step_fn`` of the online phases: pull the batch's rows through the
+    client, run the wide&deep tower's dense step on the card, and return
+    the row gradients as a CUDA tensor.  ``dry()`` true steps a copy of
+    the tower (a replayed batch, whose push the server drops)."""
+    def step(batch, pull):
+        ids = np.asarray(batch["ids"]).reshape(-1).astype(np.int64)
+        t0 = time.perf_counter()
+        rows = pull(ids)
+        t1 = time.perf_counter()
+        b = (ids, np.asarray(batch["dense"]), np.asarray(batch["label"]))
+        if dry():
+            p, losses = tower.p, list(tower.losses)
+            _, grads = tower.step({"slots": rows}, b)
+            tower.p, tower.losses = p, losses
+        else:
+            _, grads = tower.step({"slots": rows}, b)
+        if timers is not None:
+            torch.cuda.synchronize()
+            timers["pull RPC"] += (t1 - t0) * 1e3
+            timers["dense step"] += (time.perf_counter() - t1) * 1e3
+        return ids, grads["slots"]
+    return step
+
+
+def _online_primary(replica=False):
+    from paddle_tpu_torch.distributed.fleet import (PSClient, PSServer,
+                                                    SparseTable)
+    W = WIDE_DEEP
+    prim = PSServer({"emb": SparseTable(W["dim"], optimizer="sgd",
+                                        lr=0.05)}, host="127.0.0.1")
+    prim.start()
+    pep = f"127.0.0.1:{prim.port}"
+    rep = None
+    if replica:
+        rep = PSServer({"emb": SparseTable(W["dim"], optimizer="sgd",
+                                           lr=0.05)}, host="127.0.0.1",
+                       replica_of=pep, replica_mode="read",
+                       wm_interval_s=0.05)
+        rep.start()
+        if not rep.replica_ready.wait(30.0):
+            fail("online: the read replica never attached")
+    return prim, rep, PSClient([pep])
+
+
+def _table_state(t):
+    d = t._snapshot_arrays(full_state=True)
+    o = np.argsort(d["ids"])
+    return [d["ids"][o], d["vals"][o], d["opt_state"][o], int(d["version"])]
+
+
+def _same_table(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _wait_for(pred, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return pred()
+
+
+def _online_ttl(prim, rep, cli, sweeper, batches, state):
+    """Phase 20's sweep at full width, after the run: advance the clock
+    half a TTL past the run (nothing expires), touch the last batch's ids
+    there with a pull, then sweep with a cutoff between the run and that
+    touch.  Every other id expires on the primary and, through the
+    forwarded ``evict`` record, on the read replica, whose table must
+    stay bitwise the primary's."""
+    ttl = sweeper._ttl
+    t_a = time.time() + ttl / 2
+    if sweeper.sweep_once(now=t_a)["emb"]:
+        fail("online TTL: a sweep inside the TTL evicted rows")
+    keep = np.unique(np.asarray(batches[-1][0]).reshape(-1).astype(np.int64))
+    cli.pull("emb", keep)
+    evicted = sweeper.sweep_once(now=t_a + ttl * 0.9)["emb"]
+    if not _wait_for(lambda: rep._stats()["watermark"] >= prim.applied):
+        fail(f"online TTL: replica watermark {rep._stats()['watermark']} "
+             f"never reached the primary's {prim.applied} commits")
+    after = _table_state(prim._tables["emb"])
+    rep_after = _table_state(rep._tables["emb"])
+    if evicted != state[0].size - keep.size or \
+            not np.array_equal(after[0], keep):
+        fail(f"online TTL: evicted {evicted} of {state[0].size} rows, "
+             f"{after[0].size} left; want {keep.size} left, the last "
+             "batch's ids")
+    if not np.array_equal(rep_after[0], keep) or \
+            not _same_table(rep_after, after):
+        fail("online TTL: after the sweep the read replica's table is not "
+             "the primary's")
+    log(f"online TTL: the sweep evicted {evicted} of {state[0].size} rows "
+        f"on the primary and the read replica; the {keep.size} ids touched "
+        "after the run survive, and the replica's table is bitwise the "
+        "primary's")
+    return dict(ttl_evicted=int(evicted), ttl_kept=int(keep.size))
+
+
+def online_loop(dev, params, batches):
+    """Phase 20: the online loop at full width.  A primary ``PSServer``
+    with one ``SparseTable(dim=16, sgd, lr=0.05)``, a read replica and a
+    ``FeatureLifecycle`` sweeper (a TTL far beyond the run: it sweeps and
+    evicts nothing while the stream runs); ``StreamingTrainer(device_merge
+    =True)`` on the card over the 22-batch wide&deep stream, each step
+    pulling its rows, running the dense tower and returning its row
+    gradients on the card.  2 warm-up and 20 timed batches.  After the
+    run a sweep past the TTL evicts every id but the last batch's, on the
+    primary and the replica (``_online_ttl``).  Returns (the launch counts of the
+    run, the primary's table state, results)."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.online import FeatureLifecycle, StreamingTrainer
+    from paddle_tpu_torch.ops.kernels import registry
+    W = WIDE_DEEP
+    monitor.enable_metrics(True)
+    monitor.metrics_reset()
+    prim, rep, cli = _online_primary(replica=True)
+    sweeper = FeatureLifecycle(prim, ttl_s=3600.0, interval_s=0.25).start()
+    tower = WideDeepTower(params, dev)
+    loader, n = _online_loader(batches)
+    calls, window = [0], {}
+    inner = _online_step(tower)
+
+    def step(batch, pull):
+        calls[0] += 1
+        if calls[0] == 3:                    # the first timed batch
+            torch.cuda.synchronize()
+            window["t0"] = time.perf_counter()
+        return inner(batch, pull)
+
+    tr = StreamingTrainer(loader, cli, "emb", step, device_merge=True,
+                          device=dev)
+    registry.reset_counts()                  # the main path starts here
+    tr.run()
+    torch.cuda.synchronize()
+    losses = tower.fetch()                   # every loss fetched here
+    dt = time.perf_counter() - window["t0"]
+    counts = registry.launch_counts()        # ... and ends here
+    plain = {k: s.torch_ref_calls for k, s in registry.kernels().items()}
+    if not _wait_for(lambda: rep._stats()["watermark"] >= prim.applied):
+        fail(f"online: replica watermark {rep._stats()['watermark']} never "
+             f"reached the primary's {prim.applied} commits")
+    sweeper.stop()
+    state = _table_state(prim._tables["emb"])
+    rep_state = _table_state(rep._tables["emb"])
+    hist = monitor.get_histogram("ps_freshness_ms")
+    timed = losses[2:]
+    res = dict(events_per_s=20 * W["batch"] * W["n_slots"] / dt,
+               ms_per_batch=dt * 1e3 / 20, batches=tr.batches,
+               first_loss=float(timed[0]), last_loss=float(timed[-1]),
+               freshness_p50_ms=hist.percentile(50) if hist else None,
+               freshness_p99_ms=hist.percentile(99) if hist else None,
+               freshness_count=hist.count if hist else 0,
+               replica_watermark=rep._stats()["watermark"],
+               trainer_seq=tr.seq, sweeps=sweeper.sweeps,
+               evicted=sweeper.evicted, rows=len(prim._tables["emb"]),
+               launches=counts)
+    res.update(_online_ttl(prim, rep, cli, sweeper, batches, state))
+    cli.close()
+    rep.stop()
+    prim.stop()
+    log("online loop: " + json.dumps(res))
+    if tr.batches != n or tr.seq != n:
+        fail(f"online: {tr.batches} batches, seq {tr.seq}, want {n}")
+    if not np.isfinite(losses).all() or not timed[-1] < timed[0]:
+        fail(f"online: losses {losses.tolist()} (finite, the last timed "
+             "below the first)")
+    if res["replica_watermark"] < tr.seq:
+        fail(f"online: replica watermark {res['replica_watermark']} < "
+             f"trainer seq {tr.seq}")
+    if not _same_table(rep_state, state):
+        fail("online: the read replica's table is not the primary's")
+    if res["freshness_count"] < n:
+        fail(f"online: ps_freshness_ms counted {res['freshness_count']} "
+             f"of {n} batches")
+    want = dict.fromkeys(counts, 0)
+    want["segment_sum_sorted"] = n            # one merge per batch
+    if counts != want or plain["segment_sum_sorted"] or \
+            plain["segment_sum"]:
+        fail(f"online: launches {counts} (want {want}), plain calls "
+             f"{plain}")
+    log(f"online loop: segment_sum_sorted launched {n} times, once per "
+        "batch, no plain call; the replica's table is bitwise the "
+        "primary's")
+    return counts, state, res
+
+
+def _online_run(dev, params, batches, **kw):
+    """The stream through a fresh primary (no replica): returns (table
+    state, server, trainer)."""
+    from paddle_tpu_torch.online import StreamingTrainer
+    prim, _, cli = _online_primary()
+    tower = WideDeepTower(params, dev)
+    loader, _ = _online_loader(batches)
+    tr = StreamingTrainer(loader, cli, "emb", _online_step(tower),
+                          device=dev, **kw)
+    tr.run()
+    torch.cuda.synchronize()
+    state = _table_state(prim._tables["emb"])
+    cli.close()
+    prim.stop()
+    return state, prim, tr
+
+
+def online_parity(dev, params, batches, state):
+    """Phase 21: the stream with the plain versions (``kernel_mode=
+    "torch_ref"``) and with the numpy merge (``device_merge=False``): both
+    primary tables must be bitwise phase 20's (kernels)."""
+    from paddle_tpu_torch.ops.kernels import registry
+    for label, kw in (("plain versions", dict(device_merge=True,
+                                               kernel_mode="torch_ref")),
+                      ("numpy merge", dict(device_merge=False))):
+        registry.reset_counts()
+        got, _, _ = _online_run(dev, params, batches, **kw)
+        counts = registry.launch_counts()
+        if any(counts.values()):
+            fail(f"online parity ({label}): launches {counts}")
+        if not _same_table(got, state):
+            fail(f"online parity ({label}): the primary's table is not "
+                 "bitwise the kernels' run")
+        log(f"online parity: {label}: the primary's table "
+            f"({got[0].size} rows, version {got[3]}) bitwise equal to the "
+            "kernels' run")
+
+
+class _Crash(Exception):
+    pass
+
+
+def online_exactly_once(dev, params, batches, state):
+    """Phase 22: (a) the stream under the ``lost_ack`` and ``dup`` chaos
+    plans together; (b) a trainer that dies in batch 11's step, three
+    pushes past its cursor checkpoint (seq 7), restarted in-process from
+    that checkpoint: the dense tower carries over and the replayed batches
+    step a copy of it (their pushes are acked as duplicates).  Both must
+    end bitwise at phase 20's table with duplicate acks."""
+    from paddle_tpu_torch.distributed.fleet import chaos
+    from paddle_tpu_torch.online import StreamingTrainer
+    plan = chaos.FaultPlan(chaos.named_plan("lost_ack").faults
+                           + chaos.named_plan("dup").faults, seed=SEED,
+                           name="lost_ack+dup")
+    chaos.install(plan)
+    try:
+        got, prim, tr = _online_run(dev, params, batches, device_merge=True)
+    finally:
+        chaos.uninstall()
+    log(f"online exactly-once under chaos: faults {plan.stats_dict()}, "
+        f"server dup_acks {prim.dup_acks}, applied {prim.applied}")
+    if prim.dup_acks == 0 or prim.applied != tr.seq:
+        fail(f"online chaos: dup_acks {prim.dup_acks}, applied "
+             f"{prim.applied} of {tr.seq}")
+    if not _same_table(got, state):
+        fail("online chaos: the table is not bitwise phase 20's")
+    with tempfile.TemporaryDirectory() as d:
+        cursor = os.path.join(d, "cursor.json")
+        prim, _, cli = _online_primary()
+        tower = WideDeepTower(params, dev)
+        inner = _online_step(tower)
+        calls = [0]
+
+        def dying(batch, pull):
+            calls[0] += 1
+            if calls[0] == 11:
+                raise _Crash()
+            return inner(batch, pull)
+
+        loader, n = _online_loader(batches)
+        a = StreamingTrainer(loader, cli, "emb", dying, device_merge=True,
+                             device=dev, state_path=cursor, ckpt_every=7)
+        try:
+            a.run()
+            fail("online restart: the first trainer did not die")
+        except _Crash:
+            pass
+        with open(cursor) as f:
+            ckpt_seq = json.load(f)["seq"]
+        pushed = prim.applied
+        loader, _ = _online_loader(batches)
+        b = StreamingTrainer(
+            loader, cli, "emb",
+            _online_step(tower, dry=lambda: b.seq < pushed),
+            device_merge=True, device=dev, state_path=cursor, ckpt_every=7)
+        b.run()
+        torch.cuda.synchronize()
+        got = _table_state(prim._tables["emb"])
+        cli.close()
+        prim.stop()
+    log(f"online restart: died after push {pushed} with the cursor at "
+        f"{ckpt_seq}; resumed to seq {b.seq}: {b.dup_acks} duplicate "
+        f"acks, server applied {prim.applied}")
+    if (ckpt_seq, pushed) != (7, 10) or b.dup_acks != 3 or \
+            prim.applied != n or b.seq != n:
+        fail(f"online restart: cursor {ckpt_seq}, pushed {pushed}, dup "
+             f"acks {b.dup_acks}, applied {prim.applied}, seq {b.seq}")
+    if not _same_table(got, state):
+        fail("online restart: the table is not bitwise phase 20's")
+    log("online exactly-once: the chaos run and the restarted trainer end "
+        "bitwise at phase 20's table")
+
+
+def profile_online(dev, params, batches, steps: int = 3):
+    """Phase 23: ``torch.profiler`` over 3 streaming batches after one
+    warm-up: device busy time against wall time, the idle share, the
+    ``segment_sum_sorted`` kernels in the trace, and the host ms of the
+    pull RPC, the dense step, the merge and the push RPC."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.online import StreamingTrainer
+    prim, _, cli = _online_primary()
+    tower = WideDeepTower(params, dev)
+    timers = dict.fromkeys(("pull RPC", "dense step", "merge", "push RPC"),
+                           0.0)
+    loader, _ = _online_loader(batches)
+    tr = StreamingTrainer(loader, cli, "emb", _online_step(tower, timers),
+                          device_merge=True, device=dev)
+    merge, push = tr._merge_batch, cli.push_stamped
+
+    def timed_merge(ids, grads):
+        t0 = time.perf_counter()
+        out = merge(ids, grads)
+        torch.cuda.synchronize()
+        timers["merge"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_push(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return push(*a, **kw)
+        finally:
+            timers["push RPC"] += (time.perf_counter() - t0) * 1e3
+
+    tr._merge_batch, cli.push_stamped = timed_merge, timed_push
+    tr.run(max_batches=1)
+    torch.cuda.synchronize()
+    timers.update(dict.fromkeys(timers, 0.0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(max_batches=1 + steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    cli.close()
+    prim.stop()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    n_kern = sum(e.count for e in kern) // steps
+    log(f"profile online: wall {wall_ms:.2f} ms/batch, device busy "
+        f"{busy_ms:.3f} ms/batch, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{n_kern} kernels/batch")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/batch  x{e.count // steps}")
+    for name, ms in timers.items():
+        log(f"  host {name}: {ms / steps:.2f} ms/batch")
+    check_busy("profile online (phase 23)", busy_ms, wall_ms)
+    srt = [e for e in kern if "segment_sum_sorted" in e.key]
+    n_srt = sum(e.count for e in srt)
+    if n_srt != steps:
+        fail(f"profile online: {n_srt} segment_sum_sorted kernels in the "
+             f"trace, want {steps} (one per batch)")
+    log(f"profile online: the {n_srt} segment_sum_sorted kernels are in "
+        f"the trace, {sum(e.self_device_time_total for e in srt) / 1e3 / steps:.4f}"
+        " ms/batch")
 
 
 def _build_host_libs() -> float:
@@ -2097,6 +2623,7 @@ def main() -> int:
     rows.update(bwd_cases(dev))
     wd_params, wd_batches, wd_serve = wide_deep_data(extra_batches=20)
     rows.update(ps_cases(dev, wd_batches))
+    rows.update(sorted_cases(dev, wd_batches))
     rows.update(opt_cases(dev))
 
     # 4. serve the 7B slice
@@ -2171,11 +2698,23 @@ def main() -> int:
     # 19. where an elastic step's time goes
     profile_elastic(dev)
 
+    # 20. the online loop: primary, read replica, sweeper, trainer
+    online_counts, online_state, _ = online_loop(dev, wd_params, wd_batches)
+
+    # 21. the same stream with the plain versions and the numpy merge
+    online_parity(dev, wd_params, wd_batches, online_state)
+
+    # 22. exactly-once under chaos and across a restart
+    online_exactly_once(dev, wd_params, wd_batches, online_state)
+
+    # 23. where a streaming batch's time goes
+    profile_online(dev, wd_params, wd_batches)
+
     kernels = []
     for name, s in registry.kernels().items():
         launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
                                          wd_counts, q8_counts, el_counts,
-                                         el2_counts))
+                                         el2_counts, online_counts))
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name]))

@@ -12,10 +12,13 @@ raises :class:`RuntimeError`; nothing carries on on the CPU.
 
 Ported slices: serving (``inference.GenerationServer`` over
 ``text.models.LlamaForCausalLM``), training (``optimizer.AdamW`` and
-``distributed.fleet.DistributedTrainStep`` over the same model) and
-int8 inference (``quantization.convert_to_int8_inference`` over
-``vision.models.resnet50`` and its family); the subpackages are imported
-on use, as in ``paddle_tpu``.
+``distributed.fleet.DistributedTrainStep`` over the same model), int8
+inference (``quantization.convert_to_int8_inference`` over
+``vision.models.resnet50`` and its family), parameter-server training
+(``distributed.fleet.HeterTrainer``), the elastic data plane
+(``distributed.fleet.ElasticTrainer``) and the online loop
+(``online.StreamingTrainer`` over ``distributed.fleet.PSServer``); the
+subpackages are imported on use, as in ``paddle_tpu``.
 
 This package never imports ``jax`` or any module of ``paddle_tpu``.
 """

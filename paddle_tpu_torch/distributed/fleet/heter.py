@@ -26,8 +26,10 @@ operations pad their index vectors to power-of-2 buckets aimed at a
 scratch row (index ``capacity``), which takes duplicate writes and is
 never read as data, as in the reference.
 
-Not ported: ``RemoteTable`` (it needs the PS service; ROADMAP.md item 6),
-the Python directory fallback and its environment switch.
+:class:`RemoteTable` puts a table behind the PS service
+(:class:`~.ps_service.PSClient`) under either piece.
+
+Not ported: the Python directory fallback and its environment switch.
 """
 from __future__ import annotations
 
@@ -49,12 +51,34 @@ __all__ = ["HeterTrainer", "DeviceCachedTable", "RemoteTable"]
 
 
 class RemoteTable:
-    """A table behind the PS service: needs ``PSClient``, not ported."""
+    """A table behind the PS service with the local ``SparseTable``
+    surface (pull, q8 pull, push, push_delta), so :class:`HeterTrainer`
+    and :class:`DeviceCachedTable` train against a remote PS cluster.
+    The wrapped :class:`~.ps_service.PSClient` owns retries, idempotent
+    seq numbers and replica failover; this adapter pins the table name
+    and dim."""
 
     def __init__(self, client, name: str, dim: int):
-        raise NotImplementedError(
-            "RemoteTable needs the PS service (PSClient / PSServer), not "
-            "ported yet (ROADMAP.md item 6: PS, recsys, online tier)")
+        self._client = client
+        self.name = name
+        self.dim = dim
+
+    def pull(self, ids: np.ndarray) -> np.ndarray:
+        return self._client.pull(self.name, ids)
+
+    def pull_q8(self, ids: np.ndarray):
+        """Rows on the int8 wire: ``(codes int8 [n, dim], scales f32
+        [n])`` in ``ids`` order, for a q8 cache's miss fill."""
+        return self._client.pull_q8(self.name, ids)
+
+    def push(self, ids: np.ndarray, grads: np.ndarray):
+        ids = np.asarray(ids).reshape(-1)
+        self._client.push(self.name, ids,
+                          np.asarray(grads, np.float32).reshape(
+                              ids.size, self.dim))
+
+    def push_delta(self, ids: np.ndarray, deltas: np.ndarray):
+        self._client.push_delta(self.name, ids, deltas)
 
 
 class _NativeCacheDir:

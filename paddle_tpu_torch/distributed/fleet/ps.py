@@ -7,11 +7,14 @@ first touch with a deterministic per-id initialisation (seed, init_std),
 so a table with the same config gives the reference's rows bit for bit;
 a push is one fused C pass (dedup + segment-sum + optimizer apply, once
 per unique id); the checkpoint format is the reference's npz layout, so
-either package loads the other's ``save()`` / ``state_bytes()``.
+either package loads the other's ``save()`` / ``state_bytes()``.  The
+feature lifecycle (``set_clock`` / ``touch_all`` / ``ttl_sweep`` /
+``evict_ids``) and the zero-copy pull wire's hooks (``pin_read`` /
+``pull_plan`` / :func:`sendv_addrs`) run on the same native core.
 
 Not ported (each raises ``NotImplementedError`` naming ROADMAP.md item
 6): feature admission (``entry=``), a custom ``initializer``, the Python
-backend, spill tiers, TTL / lifecycle and the geo stamp directory.
+backend, spill tiers and the geo stamp directory.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["SparseTable", "quantize_rows_q8", "dequantize_rows_q8"]
+__all__ = ["SparseTable", "quantize_rows_q8", "dequantize_rows_q8",
+           "sendv_addrs"]
 
 _OPT_CODES = {"sgd": 0, "adagrad": 1, "adam": 2}
 _ITEM6 = "not ported yet (ROADMAP.md item 6: PS, recsys, online tier)"
@@ -53,6 +57,23 @@ def dequantize_rows_q8(codes: np.ndarray, scales: np.ndarray):
 
 def _ptr(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def sendv_addrs(fd: int, addrs: np.ndarray, row_bytes: int, hdr: bytes,
+                inv: np.ndarray, timeout_ms: int = -1) -> int:
+    """Native scatter-gather send of a zero-copy pull reply: ``hdr`` and
+    the ``inv`` bytes, then one iovec per contiguous run of the
+    address-sorted rows (address 0 ships a zeros row), looping
+    ``sendmsg`` in IOV_MAX windows with EINTR retry, partial-send advance
+    and poll on EAGAIN.  Returns the bytes sent, or ``-errno``."""
+    from ...native import ps_core
+    lib = ps_core()
+    addrs = np.ascontiguousarray(addrs, np.uint64)
+    inv = np.ascontiguousarray(inv, np.int32)
+    return int(lib.pts_sendv_addrs(
+        int(fd), _ptr(addrs, ctypes.c_uint64), addrs.size, int(row_bytes),
+        hdr, len(hdr), inv.ctypes.data_as(ctypes.c_void_p), inv.nbytes,
+        int(timeout_ms)))
 
 
 class SparseTable:
@@ -154,6 +175,89 @@ class SparseTable:
     def version(self) -> int:
         """Count of applied mutating batches (push / push_delta calls)."""
         return int(self._lib.pts_version(self._native))
+
+    # -- feature lifecycle ---------------------------------------------
+    def set_clock(self, now: int):
+        """Advance the lifecycle clock (milliseconds): every later touch of
+        an id (pull, push, push_delta) stamps it as the id's last
+        sighting."""
+        self._lib.pts_set_clock(self._native, int(now))
+
+    def touch_all(self, now: int):
+        """Stamp every known id (and the clock) with ``now``: rows of
+        unknown age start ageing from here."""
+        self._lib.pts_touch_all(self._native, int(now))
+
+    def ttl_sweep(self, cutoff: int) -> np.ndarray:
+        """Evict every id last sighted before ``cutoff``; survivors keep
+        their bits.  Returns the evicted ids, sorted; one applied batch
+        (``version`` + 1) iff anything was evicted."""
+        cap = int(self._lib.pts_slots(self._native))
+        out = np.empty(max(cap, 1), np.int64)
+        n = int(self._lib.pts_ttl_sweep(self._native, int(cutoff),
+                                        _ptr(out, ctypes.c_int64), cap))
+        return np.sort(out[:n])
+
+    def evict_ids(self, ids) -> int:
+        """Evict exactly ``ids`` (a replica's replay of the primary's
+        sweep); always one applied batch.  Returns how many were
+        present."""
+        ids = self._ids(ids)
+        return int(self._lib.pts_evict(self._native,
+                                       _ptr(ids, ctypes.c_int64), ids.size))
+
+    @property
+    def admitted_total(self) -> int:
+        """Ids materialised since construction (restores excluded)."""
+        return int(self._lib.pts_admitted_total(self._native))
+
+    @property
+    def evicted_total(self) -> int:
+        """Ids removed by sweeps and evict replays."""
+        return int(self._lib.pts_evicted_total(self._native))
+
+    # -- the zero-copy pull wire ---------------------------------------
+    def pin_read(self) -> bool:
+        """Take the shared read pin: until :meth:`unpin_read` (on the same
+        thread) no mutator moves or rewrites row bytes, so the addresses
+        of :meth:`pull_plan` stay valid for a scatter-gather send."""
+        self._lib.pts_pin_read(self._native)
+        return True
+
+    def unpin_read(self):
+        self._lib.pts_unpin_read(self._native)
+
+    def pull_plan(self, ids: np.ndarray):
+        """Dedup ``ids``, resolve the unique ids' arena addresses (pull
+        semantics: new ids materialise) and sort them by address.  Returns
+        ``(inv int32[n], addrs uint64[m])``, ``inv`` mapping each input
+        position to its row's rank in ``addrs``.  The caller holds the
+        read pin."""
+        ids = self._ids(ids)
+        inv = np.empty(ids.size, np.int32)
+        addrs = np.empty(ids.size, np.uint64)
+        m = self._lib.pts_pull_plan(self._native, _ptr(ids, ctypes.c_int64),
+                                    ids.size, _ptr(inv, ctypes.c_int32),
+                                    _ptr(addrs, ctypes.c_uint64))
+        return inv, addrs[:m]
+
+    @staticmethod
+    def from_config(d) -> "SparseTable":
+        """A table built from a snapshot's npz dict: its dim (``vals`` is
+        always ``(n, dim)``) and, when saved, its optimizer and init
+        config, so a replica recreates a table it was not configured
+        with."""
+        vals = d["vals"]
+        dim = int(vals.shape[1]) if getattr(vals, "ndim", 0) == 2 else 1
+        kw = {}
+        if "opt" in d:
+            kw = dict(optimizer=str(d["opt"]), lr=float(d["lr"]),
+                      beta1=float(d["beta1"]), beta2=float(d["beta2"]),
+                      epsilon=float(d["eps"]),
+                      init_std=float(d["init_std"]), seed=int(d["seed"]))
+            if "policy" in d:
+                kw["geo_policy"] = str(d["policy"])
+        return SparseTable(dim, **kw)
 
     def config_arrays(self) -> dict:
         """The construction config as npz-storable scalars, as the
@@ -260,9 +364,8 @@ def _not_ported(name: str):
     return method
 
 
-# spill tiers, TTL / lifecycle and the geo stamp directory
-for _name in ("enable_spill", "recover_spill", "spill_sweep", "set_clock",
-              "touch_all", "ttl_sweep", "evict_ids", "geo_get", "geo_put",
-              "geo_export"):
+# spill tiers and the geo stamp directory
+for _name in ("enable_spill", "recover_spill", "spill_sweep", "geo_get",
+              "geo_put", "geo_export"):
     setattr(SparseTable, _name, _not_ported(_name))
 del _name

@@ -1,7 +1,8 @@
 """Host C++ runtime of the port, built at first use with ``g++``.
 
 The counterpart of ``paddle_tpu/native``: ``ps_core.cc`` (the sparse
-table: sharded directory, pull, fused push, q8 pull, checkpoint export)
+table: sharded directory, pull, fused push, q8 pull, checkpoint export,
+TTL lifecycle, the zero-copy pull wire)
 and ``cache_dir.cc`` (the device cache's directory: id -> slot, LRU, pins,
 admission planning) are copies of the reference's sources, the same code
 line for line (only comments differ), compiled with the same flags
@@ -108,5 +109,29 @@ def ps_core() -> ctypes.CDLL:
     lib.pts_import_full.argtypes = [c.c_void_p, i64p, c.c_int64, f32p]
     lib.pts_clear.argtypes = [c.c_void_p]
     lib.ps_segsum_inv.argtypes = [i64p, c.c_int64, c.c_int, f32p, f32p]
+    # feature lifecycle
+    lib.pts_set_clock.argtypes = [c.c_void_p, c.c_uint64]
+    lib.pts_touch_all.argtypes = [c.c_void_p, c.c_uint64]
+    lib.pts_admitted_total.restype = c.c_uint64
+    lib.pts_admitted_total.argtypes = [c.c_void_p]
+    lib.pts_evicted_total.restype = c.c_uint64
+    lib.pts_evicted_total.argtypes = [c.c_void_p]
+    lib.pts_slots.restype = c.c_int64
+    lib.pts_slots.argtypes = [c.c_void_p]
+    lib.pts_ttl_sweep.restype = c.c_int64
+    lib.pts_ttl_sweep.argtypes = [c.c_void_p, c.c_uint64, i64p, c.c_int64]
+    lib.pts_evict.restype = c.c_int64
+    lib.pts_evict.argtypes = [c.c_void_p, i64p, c.c_int64]
+    # the zero-copy pull wire
+    u64p = c.POINTER(c.c_uint64)
+    i32p = c.POINTER(c.c_int32)
+    lib.pts_pin_read.argtypes = [c.c_void_p]
+    lib.pts_unpin_read.argtypes = [c.c_void_p]
+    lib.pts_pull_plan.restype = c.c_int64
+    lib.pts_pull_plan.argtypes = [c.c_void_p, i64p, c.c_int64, i32p, u64p]
+    lib.pts_sendv_addrs.restype = c.c_int64
+    lib.pts_sendv_addrs.argtypes = [
+        c.c_int, u64p, c.c_int64, c.c_int64, c.c_void_p, c.c_int64,
+        c.c_void_p, c.c_int64, c.c_int64]
     lib._pts_ready = True
     return lib

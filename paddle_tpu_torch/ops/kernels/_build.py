@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "int8_kv_attention.cu", "int8_matmul.cu", "segment_sum.cu",
-           "pull_dequant.cu", "opt_apply.cu")
+           "segment_sum_sorted.cu", "pull_dequant.cu", "opt_apply.cu")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # the toolkit's default
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

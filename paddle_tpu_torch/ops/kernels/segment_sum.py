@@ -1,10 +1,18 @@
-"""Segment sum of embedding-gradient rows: the Hopper kernel and its plain
-version.
+"""Segment sums of embedding-gradient rows: the Hopper kernels and their
+plain versions.
 
-Counterpart of ``paddle_tpu/ops/pallas/segment_sum.py`` (kernel 7,
-``_segment_sum_kernel``): ``out[inverse[i]] += grads[i]`` for the rows in
-ascending order, ``out`` [num_segments, dim] f32 starting at zero.  The
-device cache merges a batch's duplicate-id gradients with it.
+Counterpart of ``paddle_tpu/ops/pallas/segment_sum.py``, two kernels:
+
+- ``segment_sum`` (kernel 7, ``_segment_sum_kernel``): ``out[inverse[i]]
+  += grads[i]`` for the rows in ascending order, ``out`` [num_segments,
+  dim] f32 starting at zero.  The device cache merges a batch's
+  duplicate-id gradients with it.
+- ``segment_sum_sorted`` (kernel 8, ``_segment_sum_sorted_kernel``): the
+  same sum for rows that arrive sorted by segment id, for vocab-scale
+  segment counts.  :func:`merge_segments` (the streaming trainer's
+  pre-merge) picks it at ``SORTED_NSEG_MIN`` segments or more, after a
+  stable host argsort of the inverse and a gather of the rows into that
+  order on the card.
 
 Both versions add each segment's rows in ascending row order, from 0.0,
 so they are bitwise equal to each other and to the native host merge
@@ -14,11 +22,15 @@ so they are bitwise equal to each other and to the native host merge
   rows by segment and each segment's range in it, both built on the host
   from the host ``inverse`` (numpy, as the cache's plan gives it), and
   one thread sums one (segment, column);
-- the plain version adds by occurrence rank: round k adds the k-th row of
+- the sorted CUDA kernel (``csrc/segment_sum_sorted.cu``) gets the sorted
+  ids, and one thread finds its segment's rows by binary search and sums
+  one (segment, column);
+- the plain versions add by occurrence rank: round k adds the k-th row of
   every segment with one ``index_add_`` whose indices are unique.
 
-``inverse`` is a host array of ints in ``[0, num_segments)``; a CUDA
-``inverse`` is refused (no caller has device-side ids yet).
+So with the same rows in the same order, kernel 8 is bitwise kernel 7.
+Segment ids are host arrays of ints in ``[0, num_segments)``; CUDA ids are
+refused (no caller has device-side ids yet).
 """
 from __future__ import annotations
 
@@ -30,9 +42,16 @@ import torch
 from . import _build, registry
 
 __all__ = ["segment_sum", "segment_sum_ref", "segment_plan",
-           "segment_sum_planned"]
+           "segment_sum_planned", "segment_sum_sorted",
+           "segment_sum_sorted_ref", "segment_sum_sorted_planned",
+           "merge_segments", "SORTED_NSEG_MIN"]
 
 _SOURCE = "segment_sum.cu"
+_SORTED_SOURCE = "segment_sum_sorted.cu"
+
+# segment count at which merge_segments takes the sorted kernel (the
+# reference's threshold)
+SORTED_NSEG_MIN = 4096
 
 
 def segment_sum_ref(grads: torch.Tensor, inverse, num_segments: int):
@@ -149,3 +168,114 @@ def segment_sum(grads: torch.Tensor, inverse, num_segments: int, *,
     ``[0, num_segments)``; returns [num_segments, dim] f32."""
     return registry.dispatch("segment_sum", grads, inverse,
                              int(num_segments), mode=mode)
+
+
+# -- kernel 8: rows sorted by segment ------------------------------------
+
+def segment_sum_sorted_ref(grads: torch.Tensor, seg_sorted,
+                           num_segments: int):
+    """The plain version: :func:`segment_sum_ref` with the sorted ids as
+    the inverse, so each segment's rows add in row order from 0.0, the
+    kernel's order."""
+    return segment_sum_ref(grads, seg_sorted, num_segments)
+
+
+def _sorted_eligible(grads, seg_sorted, num_segments):
+    if grads.dtype != torch.float32:
+        return f"grads dtype {grads.dtype} (needs float32)"
+    if grads.dim() != 2:
+        return f"grads of shape {tuple(grads.shape)} (needs 2-D [n, dim])"
+    n = grads.shape[0]
+    if isinstance(seg_sorted, torch.Tensor):
+        return "segment ids must be a host (numpy) array"
+    seg = np.asarray(seg_sorted)
+    if not np.issubdtype(seg.dtype, np.integer):
+        return f"segment ids of dtype {seg.dtype} (needs an integer type)"
+    if seg.ndim != 1 or seg.size != n:
+        return f"segment ids of shape {seg.shape} for {n} rows"
+    if not 0 <= num_segments < 2 ** 31 or n >= 2 ** 31 \
+            or grads.shape[1] >= 2 ** 31:
+        return (f"num_segments {num_segments}, n {n}, dim "
+                f"{grads.shape[1]} (each below 2**31)")
+    if n and (seg[0] < 0 or seg[-1] >= num_segments):
+        return f"segment ids outside [0, {num_segments})"
+    if n > 1 and not bool(np.all(seg[1:] >= seg[:-1])):
+        return "segment ids are not sorted ascending"
+    if not grads.is_cuda:
+        return "grads must be a CUDA tensor"
+    return None
+
+
+def _segment_sum_sorted_cuda(grads, seg_sorted, num_segments):
+    if num_segments == 0 or grads.shape[1] == 0:
+        return torch.zeros((num_segments, grads.shape[1]),
+                           dtype=torch.float32, device=grads.device)
+    seg = torch.from_numpy(
+        np.ascontiguousarray(seg_sorted, np.int32)).to(grads.device)
+    return segment_sum_sorted_planned(grads.contiguous(), seg,
+                                      int(num_segments))
+
+
+def segment_sum_sorted_planned(grads: torch.Tensor, seg: torch.Tensor,
+                               num_segments: int) -> torch.Tensor:
+    """Launch kernel 8 on ``grads`` [n, dim] contiguous f32 and ``seg``
+    [n] ascending int32 ids, both on one card.  No host work, so a caller
+    can time the kernel alone."""
+    n, dim = grads.shape
+    out = torch.empty((num_segments, dim), dtype=torch.float32,
+                      device=grads.device)
+    lib = _build.load(_SORTED_SOURCE)
+    fn = lib.segment_sum_sorted_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(grads.device):
+        stream = torch.cuda.current_stream(grads.device).cuda_stream
+        rc = fn(grads.data_ptr(), seg.data_ptr(), out.data_ptr(), n,
+                num_segments, dim, stream)
+    _build.check(lib, rc, f"segment_sum_sorted n={n} dim={dim} "
+                          f"nseg={num_segments}")
+    registry.note_launch(_SORTED_SPEC)
+    return out
+
+
+_SORTED_SPEC = registry.register(
+    "segment_sum_sorted", _segment_sum_sorted_cuda, segment_sum_sorted_ref,
+    # copied from the reference's registration
+    tolerance="measured exact vs xla_ref on this backend; documented "
+              "atol 1e-6 (per-segment accumulation order equals row "
+              "order in both); bit-exact for integer-valued grads",
+    eligible=_sorted_eligible,
+    source="paddle_tpu_torch/ops/kernels/csrc/segment_sum_sorted.cu",
+    replaces="paddle_tpu/ops/pallas/segment_sum.py:126",
+    doc="per-segment sum of rows sorted by segment id, one thread per "
+        "(segment, column) finding its rows by binary search: bitwise "
+        "segment_sum on the same merge, no atomics",
+)
+
+
+def segment_sum_sorted(grads: torch.Tensor, seg_sorted, num_segments: int,
+                       *, mode=None) -> torch.Tensor:
+    """``grads`` [n, dim] f32 in segment order, ``seg_sorted`` [n]
+    ascending host ints in ``[0, num_segments)``; returns [num_segments,
+    dim] f32, zero where no row lands."""
+    return registry.dispatch("segment_sum_sorted", grads, seg_sorted,
+                             int(num_segments), mode=mode)
+
+
+def merge_segments(grads: torch.Tensor, inverse, num_segments: int, *,
+                   mode=None) -> torch.Tensor:
+    """Sum the rows of ``grads`` [n, dim] by ``inverse`` (host ints in
+    ``[0, num_segments)``), dispatching on the segment count as the
+    reference does: below ``SORTED_NSEG_MIN`` :func:`segment_sum`, else a
+    stable host argsort of ``inverse`` (within a segment the rows keep
+    their order, so the sums keep theirs), the rows gathered into that
+    order on their device, and :func:`segment_sum_sorted`."""
+    num_segments = int(num_segments)
+    if num_segments < SORTED_NSEG_MIN:
+        return segment_sum(grads, inverse, num_segments, mode=mode)
+    inv = np.asarray(inverse).reshape(-1)
+    order = np.argsort(inv, kind="stable")
+    g = grads.index_select(0, torch.from_numpy(order).to(grads.device))
+    return segment_sum_sorted(g, inv[order], num_segments, mode=mode)

@@ -240,6 +240,98 @@ def test_ps_kernels_match_plain_on_card():
     assert counts["segment_sum"] == 8 and counts["pull_dequant"] == 5
 
 
+@pytest.mark.cuda
+def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
+    """segment_sum_sorted bitwise equal to its plain version and to a
+    rerun at the stream's merge, at vocab scale, with integer gradients,
+    n = 1 and dim 13; and, through merge_segments on an unsorted merge,
+    bitwise equal to segment_sum (kernel 7).  What it refuses on the
+    card raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the stream's shapes")
+    from paddle_tpu_torch.ops.kernels.segment_sum import (
+        merge_segments, segment_sum, segment_sum_sorted)
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    # a wide&deep batch: 26 fields of Zipf(1.3) ids, offset per field
+    z = np.clip(np.random.RandomState(0).zipf(1.3, (1024, 26)), 1, 20_000)
+    uniq, inv = np.unique((z - 1) + np.arange(26) * 20_000,
+                          return_inverse=True)
+    inv, u = inv.reshape(-1), uniq.size
+    assert u >= 4096                  # merge_segments takes kernel 8
+    cases = [(np.sort(inv), 16, u, False),
+             (np.sort(rng.integers(0, 200_000, 256)), 16, 200_000, False),
+             (np.sort(rng.integers(0, 6000, 64)), 5, 6000, True),
+             (np.zeros(1, np.int64), 16, 4096, False),
+             (np.sort(rng.integers(0, 4096, 5000)), 13, 4096, False)]
+    for seg, dim, nseg, integer in cases:
+        g = (rng.integers(-50, 50, (seg.size, dim)) if integer
+             else rng.standard_normal((seg.size, dim)))
+        g = torch.from_numpy(g.astype(np.float32)).to(dev)
+        ref = segment_sum_sorted(g, seg, nseg, mode="torch_ref")
+        a, b = segment_sum_sorted(g, seg, nseg), segment_sum_sorted(g, seg,
+                                                                    nseg)
+        torch.cuda.synchronize()
+        assert torch.equal(a, ref) and torch.equal(a, b), (seg.size, dim)
+    g = torch.from_numpy(rng.standard_normal((inv.size, 16)).astype(
+        np.float32)).to(dev)
+    k8, k7 = merge_segments(g, inv, u), segment_sum(g, inv, u)
+    torch.cuda.synchronize()
+    assert torch.equal(k8, k7)
+    for args, msg in (((g.double(), np.sort(inv), u), "float32"),
+                      ((g, inv, u), "ascending"),
+                      ((g, torch.from_numpy(np.sort(inv)).to(dev), u),
+                       "host")):
+        with pytest.raises(ValueError, match=msg):
+            segment_sum_sorted(*args)
+    counts = registry.launch_counts()
+    assert counts["segment_sum_sorted"] == 11 and counts["segment_sum"] == 1
+
+
+class _Sink:
+    """A client that records every stamped push."""
+
+    def __init__(self):
+        self.pushes = []
+
+    def push_stamped(self, table, ids, grads, seq, src=None, wm=None):
+        self.pushes.append((np.array(ids), np.array(grads), int(seq)))
+        return True
+
+
+@pytest.mark.cuda
+def test_small_card_batch_merges_on_card():
+    """A batch of fewer than 4,096 rows whose ``step_fn`` returns CUDA
+    gradients merges on the card (one segment_sum launch, no plain call)
+    and pushes host sums bitwise equal to ``np.add.at``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py streams full batches through the card")
+    from paddle_tpu_torch.online import StreamingTrainer
+    rng = np.random.default_rng(32)
+    ids = rng.integers(0, 300, 1000).astype(np.int64)
+    g = rng.standard_normal((ids.size, 16)).astype(np.float32)
+
+    def step(batch, pull):
+        return ids, torch.from_numpy(g).cuda()
+
+    registry.reset_counts()
+    sink = _Sink()
+    StreamingTrainer([{"i": 0}], sink, "emb", step, device_merge=True,
+                     device="cuda").run()
+    counts = registry.launch_counts()
+    assert counts["segment_sum"] == 1 and counts["segment_sum_sorted"] == 0
+    assert not any(s.torch_ref_calls for s in registry.kernels().values())
+    uniq, inv = np.unique(ids, return_inverse=True)
+    want = np.zeros((uniq.size, 16), np.float32)
+    np.add.at(want, inv.reshape(-1), g)
+    (pi, pg, seq), = sink.pushes
+    assert seq == 1 and np.array_equal(pi, uniq)
+    assert pg.dtype == np.float32 and np.array_equal(pg, want)
+
+
 def _numpy_adam(p, g, m, v, lr, b1, b2, eps, t):
     """The host numpy engine's Adam step (``_FlatAdam.update`` of the
     reference), written out: f32 operations in its order."""

@@ -899,6 +899,9 @@ def test_kill_worker_chaos_plan():
         .every == 5
     p3 = chaos.plan_from_spec("kill:worker:first=2:every=4")
     assert (p3.faults[0].kind, p3.faults[0].first) == ("kill", 2)
+    # the PS wire kinds are ported: a delay spec parses
+    (d,) = chaos.plan_from_spec("delay:pull:every=2").faults
+    assert (d.kind, d.op, d.every) == ("delay", "pull", 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chaos.plan_from_spec("delay:pull:every=2")
+        chaos.plan_from_spec("nan:grad:step=3")
     chaos.maybe_kill_worker()       # no active plan: a no-op

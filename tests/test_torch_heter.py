@@ -24,7 +24,8 @@ from paddle_tpu.distributed.fleet import heter as jheter
 from paddle_tpu.distributed.fleet import ps as jps
 
 from paddle_tpu_torch.distributed.fleet import (DeviceCachedTable,
-                                                HeterTrainer, SparseTable)
+                                                HeterTrainer, PSClient,
+                                                PSServer, SparseTable)
 from paddle_tpu_torch.distributed.fleet.heter import RemoteTable
 from paddle_tpu_torch.distributed.fleet.ps import dequantize_rows_q8
 from paddle_tpu_torch.ops.kernels import registry
@@ -142,8 +143,9 @@ def test_bad_arguments_and_remote_table():
         _mk(optimizer="adam")
     with pytest.raises(ValueError, match="wire"):
         _mk(wire="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        RemoteTable(None, "emb", 4)
+    # RemoteTable is ported: it wraps a client without touching it
+    rt = RemoteTable(None, "emb", 4)
+    assert (rt.name, rt.dim) == ("emb", 4)
 
 
 def test_prime_changes_no_real_row():
@@ -530,3 +532,63 @@ def test_heter_trainer_sync_matches_jax_trainer_on_disjoint_batches(cached):
     np.testing.assert_allclose(tt.pull(seen), jt.pull(seen), rtol=RTOL,
                                atol=ATOL)
     assert len(tt) == len(jt) == seen.size
+
+
+@pytest.mark.parametrize("wire", ["f32", "q8"])
+def test_remote_table_trains_like_the_local_table(wire):
+    """``HeterTrainer`` over a cache whose host table is a ``RemoteTable``
+    behind a port ``PSServer`` (misses pulled over the RPC on the cache's
+    ``wire``, write-backs as ``push_delta``) ends bitwise where the same
+    run over a local table ends: the server applies the same native
+    calls."""
+    params, batches = _wide_deep_data()
+
+    def run(remote):
+        table = SparseTable(DIM, optimizer="sgd", lr=1.0)
+        srv = cli = None
+        host = table
+        if remote:
+            srv = PSServer({"slots": table}, host="127.0.0.1")
+            srv.start()
+            cli = PSClient([f"127.0.0.1:{srv.port}"], rpc_timeout=10.0)
+            host = RemoteTable(cli, "slots", DIM)
+        try:
+            # the flush writes every touched row back through push_delta
+            cache = DeviceCachedTable(host, BATCH * N_SLOTS * 2, lr=0.05,
+                                      wire=wire, device="cpu")
+            state = {"p": [torch.from_numpy(p) for p in params],
+                     "losses": []}
+
+            def dense_step(embs, b):
+                emb = torch.as_tensor(embs["slots"]).requires_grad_()
+                p = [t.detach().requires_grad_() for t in state["p"]]
+                w1, b1, w2, wide_w = p
+                dense, label = torch.from_numpy(b[1]), torch.from_numpy(b[2])
+                x = torch.cat([emb.reshape(BATCH, N_SLOTS * DIM), dense], 1)
+                h = torch.relu(x @ w1 + b1)
+                logit = torch.clamp((h @ w2 + dense @ wide_w)[:, 0], -15, 15)
+                loss = torch.mean(torch.logaddexp(torch.zeros_like(logit),
+                                                  logit) - logit * label)
+                *gp, ge = torch.autograd.grad(loss, p + [emb])
+                state["p"] = [t.detach() - 0.05 * g for t, g in zip(p, gp)]
+                state["losses"].append(loss.item())
+                return loss.detach(), {"slots": ge.reshape(-1, DIM)}
+
+            tr = HeterTrainer({"slots": cache}, dense_step, sync_mode=True)
+            tr.run(batches, lambda b: {"slots": b[0].reshape(-1)})
+            tr.shutdown()
+            cache.flush()
+            seen = np.unique(np.concatenate([b[0].reshape(-1)
+                                             for b in batches]))
+            return state["losses"], table.pull(seen), cache.evictions, \
+                (srv.applied if srv is not None else None)
+        finally:
+            if cli is not None:
+                cli.close()
+            if srv is not None:
+                srv.stop()
+
+    ll, rl, _, _ = run(False)
+    lr_, rr, _, applied = run(True)
+    assert lr_ == ll and np.array_equal(rr, rl)
+    assert applied >= 1                  # write-backs rode the RPC

@@ -665,7 +665,7 @@ def test_registry_names_and_tolerances_match_reference():
     assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq", "int8_kv_attention",
                             "int8_matmul", "opt_apply", "pull_dequant",
-                            "segment_sum"]
+                            "segment_sum", "segment_sum_sorted"]
     for name, s in ours.items():
         # the reference registers its flash forward and custom-vjp
         # backward as one entry

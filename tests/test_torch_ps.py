@@ -158,11 +158,47 @@ def test_unported_options_raise_naming_the_roadmap(kw):
         SparseTable(4, **kw)
 
 
-@pytest.mark.parametrize("method", ["enable_spill", "set_clock", "ttl_sweep",
-                                    "geo_get", "evict_ids"])
+@pytest.mark.parametrize("method", ["enable_spill", "geo_get"])
 def test_unported_methods_raise_naming_the_roadmap(method):
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
         getattr(SparseTable(4), method)(0)
+
+
+def _lifecycle(t, method):
+    """One lifecycle scenario on table ``t``: rows sighted at 1 s and at
+    5 s, then ``method``; returns what a caller can observe."""
+    t.set_clock(1000)
+    t.pull(np.arange(10, dtype=np.int64))
+    t.set_clock(5000)
+    t.push(np.arange(4, dtype=np.int64), np.ones((4, 8), np.float32))
+    if method == "set_clock":      # a later touch restamps the sighting
+        t.set_clock(9000)
+        t.pull(np.array([8], np.int64))
+        out = t.ttl_sweep(6000)
+    elif method == "touch_all":    # grandfathers every row to 7 s
+        t.touch_all(7000)
+        out = t.ttl_sweep(6000)
+    elif method == "ttl_sweep":
+        out = t.ttl_sweep(3000)
+    else:                          # evict_ids: exact ids, absent ones too
+        out = np.asarray([t.evict_ids(np.array([2, 7, 99], np.int64))])
+    every = np.arange(12, dtype=np.int64)
+    d = t._snapshot_arrays(full_state=True)
+    o = np.argsort(d["ids"])
+    return (out, d["ids"][o], d["vals"][o], d["opt_state"][o], t.version,
+            t.admitted_total, t.evicted_total, t.pull(every))
+
+
+@pytest.mark.parametrize("method", ["set_clock", "touch_all", "ttl_sweep",
+                                    "evict_ids"])
+def test_lifecycle_bitwise_jax(method):
+    """The TTL lifecycle on the native core: the same sightings, sweeps and
+    evictions leave the same rows (optimizer state and version
+    included) and the same churn counters as the reference's table."""
+    j, t = _pair(optimizer="adam", lr=0.05, seed=4, init_std=0.1)
+    got, want = _lifecycle(t, method), _lifecycle(j, method)
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), method
 
 
 def test_bad_optimizer_is_a_value_error():
