@@ -128,9 +128,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 23. ``torch.profiler`` over 3 streaming batches: device busy time
     against wall time, the ``segment_sum_sorted`` kernels in the trace,
     and the host ms of the pull RPC, the dense step, the merge and the
-    push RPC.
+    push RPC;
+24. train the reference bench's ResNet-50 (``bench.py:320-364``, nothing
+    cut: ``resnet50(num_classes=1000)``, NCHW, f32 weights from a seed,
+    one fixed batch of 256 224x224 images and labels drawn by
+    ``RandomState(0)`` as the bench draws them) through the bf16-AMP
+    ``DistributedTrainStep`` with ``Momentum(0.1, 0.9)`` and
+    ``cross_entropy``: 12 steps, every loss finite; ms/step (median of
+    steps 3-12), images/s, model TFLOP/s and MFU from the bench's
+    analytic count, peak memory; the launch counts of this run are 0 for
+    every registered kernel, by design (the reference's ResNet training
+    runs no Pallas kernel);
+25. at batch 64, one bf16-AMP step against the same step from the f32
+    weights in f32: the loss within 2 %, the running statistics' move
+    within 2 % relative RMS, the gradients' cosine printed beside a
+    control (the f32 step on bf16-rounded weights and images) and
+    required positive;
+26. forward hooks on the 32 bottleneck 1x1 convolutions of one training
+    step of phase 24's model: kernel 10 on each conv's input as [M, K]
+    with its weight as [K, N] must match the conv output within
+    ``CARD_TOL`` and ``s1 / M`` the batch mean the port's batch norm
+    takes; the one-pass variance ``s2 / M - (s1 / M)^2`` is printed
+    against the two-pass one;
+27. the A/B entry point (``paddle_tpu_torch.tools.exp_conv_bn_kernel``):
+    kernel 10 against ``torch.matmul`` followed by the two reductions at
+    the eight bottleneck shapes, and the "fused wins" verdict;
+28. ``torch.profiler`` over 2 ResNet-50 training steps: device busy time
+    against wall time, the top device kernels, device time by kernel
+    class and under the batch-norm, convolution, loss, pooling and
+    optimizer ranges, and the largest allocations.
 
-Every profiled phase (6, 9, 12, 16, 19, 23) prints the idle share
+Every profiled phase (6, 9, 12, 16, 19, 23, 28) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at the
@@ -158,7 +186,11 @@ each run twice, and counts the elements that differ from the host numpy
 engine (expected 0); Adam also at the Llama proxy's 535.9 M parameters,
 compared slice by slice; timed beside its byte bound and beside
 ``torch._fused_adam_``, ``torch._fused_sgd_`` with momentum and
-``torch.add`` (SGD), which round differently and are timed only.
+``torch.add`` (SGD), which round differently and are timed only.  It
+holds ``conv_bn_stats`` (kernel 10) within its ``CARD_TOL`` at the eight
+ResNet-50 batch-256 bottleneck 1x1 shapes and two tails, bitwise over
+two runs, timed beside its bound, ``matmul_then_stats`` (its library
+yardstick) and ``torch.matmul`` alone.
 
 The 7B serving model is freed before phase 7, and the training model
 before phase 10, and the peak-memory counter reset, so each workload
@@ -166,7 +198,8 @@ reports its own peak.  Before the last line it prints one JSON object
 ``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
 the training run of phase 7, the ResNet run of phase 10, the wide&deep
 run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
-of phases 17 and 18 and the online run of phase 20); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+of phases 17 and 18, the online run of phase 20, the ResNet training
+of phase 24 and the A/B of phase 27); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or without the package.
 """
 from __future__ import annotations
@@ -223,6 +256,20 @@ ELASTIC = dict(numel=200_000, samples=64, batch=8, shuffle_seed=3, lr=0.01,
                micro=2, steps=30, ckpt_every=30)
 # phase 19's shard: 2^25 + 1 f32 parameters (134 MB a vector)
 ELASTIC_PROFILE_NUMEL = (1 << 25) + 1
+# the reference bench's ResNet-50 training (bench.py:320-364, non-smoke):
+# batch 256 of 224x224 NCHW images, 1000 classes, Momentum(0.1, 0.9),
+# bf16 AMP; 12 steps here, timed over steps 3-12
+RESNET_TRAIN = dict(batch=256, hw=224, classes=1000, steps=12, lr=0.1,
+                    momentum=0.9)
+# the bench's analytic count: ~4.1 GFLOP a 224x224 image forward, and a
+# training step ~3x the forward
+RESNET_TRAIN_FLOPS = 3 * 4.1e9
+# phase 25: the bf16-AMP step against f32 at this batch (memory), with
+# the loss within E2E_AMP_LOSS_REL and the running statistics' move
+# within E2E_AMP_STATS_RRMS relative RMS of the f32 step's
+RESNET_TRAIN_F32_BATCH = 64
+E2E_AMP_LOSS_REL = 0.02
+E2E_AMP_STATS_RRMS = 0.02
 
 
 def log(msg: str) -> None:
@@ -277,6 +324,22 @@ def bound_ms(flops: float, peak_flops: float, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# the port's ``record_function`` ranges (batch norm in training, the
+# step's optimizer update); the profiler also lists their device-side
+# spans, which cover kernels and must not be counted as kernels
+ANNOTATIONS = ("batch_norm", "optimizer")
+
+
+def device_kernels(avgs):
+    """The device kernels among a profile's ``key_averages()``: CUDA
+    events that are not the device side of a ``record_function``
+    range."""
+    from torch.autograd import DeviceType
+    return [e for e in avgs if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in ANNOTATIONS]
 
 
 def check_busy(label, busy_ms, wall_ms):
@@ -805,9 +868,7 @@ def profile_decode(dev, model, steps: int = 5):
             step(3 + j)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    from torch.autograd import DeviceType
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile decode: wall {wall_ms:.2f} ms/step, device busy "
@@ -966,7 +1027,6 @@ def profile_train(dev, step, ids, steps: int = 2):
     """Phase 9: torch.profiler over training steps: device busy time
     against wall time, the top device kernels and the ops that allocate
     the most device memory per step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step(ids, ids)
     torch.cuda.synchronize()
@@ -978,7 +1038,7 @@ def profile_train(dev, step, ids, steps: int = 2):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     avgs = prof.key_averages()
-    kern = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(avgs)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile train: wall {wall_ms:.2f} ms/step, device busy "
@@ -1133,7 +1193,6 @@ def profile_calls(fn, calls: int = 3):
     """torch.profiler over ``calls`` calls of ``fn`` after one warm-up:
     (wall ms per call, device busy ms per call, the device kernels'
     averages)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1144,8 +1203,7 @@ def profile_calls(fn, calls: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / calls
     return wall_ms, busy_ms, kern
 
@@ -1536,7 +1594,6 @@ def profile_wide_deep(dev, cache, tower, batches):
     backend: device busy time against wall time, the idle share and the
     top device kernels; the pushes run on the trainer's pool threads, so
     their segment_sum kernels must show in the trace."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.distributed.fleet import HeterTrainer
@@ -1552,8 +1609,7 @@ def profile_wide_deep(dev, cache, tower, batches):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     tr.shutdown()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile wide&deep device_cache: wall {wall_ms:.2f} ms/step, "
@@ -1980,7 +2036,6 @@ def profile_elastic(dev):
     kernel, the reduce's adds and the host<->device copies; and the host
     ms of each stage of a step (gradient, exchange, reduce, update) and
     of the checkpoint round."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.distributed.fleet import ElasticCoordinator
@@ -2039,8 +2094,7 @@ def profile_elastic(dev):
         fail("profile elastic: non-finite parameters")
     n = 3
     wall_ms = window["wall_ms"] / n
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
 
     def part(pred):
@@ -2498,7 +2552,6 @@ def profile_online(dev, params, batches, steps: int = 3):
     warm-up: device busy time against wall time, the idle share, the
     ``segment_sum_sorted`` kernels in the trace, and the host ms of the
     pull RPC, the dense step, the merge and the push RPC."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.online import StreamingTrainer
@@ -2537,8 +2590,7 @@ def profile_online(dev, params, batches, steps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     cli.close()
     prim.stop()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) // steps
     log(f"profile online: wall {wall_ms:.2f} ms/batch, device busy "
@@ -2558,6 +2610,398 @@ def profile_online(dev, params, batches, steps: int = 3):
     log(f"profile online: the {n_srt} segment_sum_sorted kernels are in "
         f"the trace, {sum(e.self_device_time_total for e in srt) / 1e3 / steps:.4f}"
         " ms/batch")
+
+
+# ---------------------------------------------------------------------
+# phase 3 (kernel 10) and phases 24-28: ResNet-50 training
+# ---------------------------------------------------------------------
+
+def conv_bn_cases(dev):
+    """``fused_matmul_bn_stats`` at the eight ResNet-50 batch-256
+    bottleneck 1x1 shapes and two tails (M off the 128-row tile; N 8)
+    within ``CARD_TOL`` of its plain version, bitwise equal over two
+    runs; timed beside its bound, its plain version, ``matmul_then_stats``
+    (the A/B's yardstick, the library time) and ``torch.matmul`` alone."""
+    from paddle_tpu_torch.ops.kernels import conv_bn_stats as cbs
+    from paddle_tpu_torch.tools.exp_conv_bn_kernel import (SHAPES,
+                                                           matmul_then_stats)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    row = None
+    cases = [("bottleneck", *s) for s in SHAPES] + [
+        ("tail M", 1000, 72, 136), ("tail N 8", 12_545, 64, 8)]
+    for i, (label, M, K, N) in enumerate(cases):
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn(K, N, device=dev, generator=g) * 0.05).to(
+            torch.bfloat16)
+
+        def run(mode=None):
+            return cbs.fused_matmul_bn_stats(x, w, mode=mode)
+
+        a, b, ref = run(), run(), run("torch_ref")
+        torch.cuda.synchronize()
+        shape = f"{label} M={M} K={K} N={N}"
+        if not all(bool(torch.isfinite(t.float()).all()) for t in a):
+            fail(f"conv_bn_stats {shape}: non-finite kernel output")
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            fail(f"conv_bn_stats {shape}: two runs differ")
+        errs = cbs.card_check(x, w, a, ref)
+        for name, (err, share) in errs.items():
+            if not share <= 1.0:
+                fail(f"conv_bn_stats {shape}: {name} max |err| {err:.3g} "
+                     f"uses {share:.3g} of its limit ({cbs.CARD_TOL})")
+        del a, b, ref
+        ms = queued_ms(run)
+        plain = queued_ms(lambda: run("torch_ref"))
+        lib = queued_ms(lambda: matmul_then_stats(x, w))
+        mm = queued_ms(lambda: torch.matmul(x, w))
+        bms, by = bound_ms(2.0 * M * K * N, PEAK_BF16_FLOPS,
+                           2.0 * (M * K + K * N + M * N) + 8.0 * N)
+        log(f"conv_bn_stats {shape}: bitwise over two runs; "
+            + ", ".join(f"{k} max_err {e:.3g} ({s:.3g} of its limit)"
+                        for k, (e, s) in errs.items())
+            + f"; kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+            f"{bms:.4f} ({by}) library_ms(matmul_then_stats) {lib:.4f} "
+            f"torch.matmul alone {mm:.4f}")
+        if i == 0:
+            row = dict(max_abs_err=errs["y"][0], ms=ms, plain_ms=plain,
+                       bound_ms=bms, bound_by=by, library_ms=lib)
+    return row
+
+
+def _resnet_batch(dev, batch):
+    """The bench's fixed batch (``bench.py:347-352``): ``RandomState(0)``
+    draws the NCHW images, then the labels."""
+    rng = np.random.RandomState(0)
+    shape = (batch, 3, RESNET_TRAIN["hw"], RESNET_TRAIN["hw"])
+    img = rng.standard_normal(shape).astype(np.float32)
+    label = rng.randint(0, RESNET_TRAIN["classes"], (batch,)).astype(
+        np.int64)
+    return torch.from_numpy(img).to(dev), torch.from_numpy(label).to(dev)
+
+
+def _resnet_train_step(dev, amp=True, bf16_weights=False):
+    """``resnet50(num_classes=1000)`` with f32 weights from the seed, and
+    the bench's step over it: ``Momentum(0.1, 0.9)``, ``cross_entropy``,
+    bf16 AMP unless ``amp`` is False.  ``bf16_weights`` rounds the f32
+    weights to bf16 values first."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=RESNET_TRAIN["classes"], device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    if bf16_weights:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+    strategy = DistributedStrategy()
+    if amp:
+        strategy.amp = True
+        strategy.amp_configs = {"dtype": "bfloat16"}
+    opt = pt.optimizer.Momentum(learning_rate=RESNET_TRAIN["lr"],
+                                momentum=RESNET_TRAIN["momentum"],
+                                parameters=list(model.parameters()))
+
+    def loss_fn(img, label):
+        return pt.nn.functional.cross_entropy(model(img), label).mean()
+
+    return model, DistributedTrainStep(model, loss_fn, opt, strategy)
+
+
+def resnet_train(dev):
+    """Phase 24: the bench's ResNet-50 training at batch 256, 224x224,
+    nothing cut: every loss finite; ms/step (median of steps 3-12),
+    images/s, model TFLOP/s and MFU from the bench's analytic count, peak
+    memory; every registered kernel's launch count 0."""
+    from paddle_tpu_torch.ops.kernels import registry
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, step = _resnet_train_step(dev)
+    img, label = _resnet_batch(dev, RESNET_TRAIN["batch"])
+    torch.cuda.synchronize()
+    log(f"resnet50 train: model and batch built in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params"
+        f"), cudnn.benchmark {torch.backends.cudnn.benchmark}")
+    registry.reset_counts()                  # the main path starts here
+    losses, times = [], []
+    for _ in range(RESNET_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(img, label)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = registry.launch_counts()        # ... and ends here
+    plain = {k: s.torch_ref_calls for k, s in registry.kernels().items()}
+    log("resnet50 train: losses " + " ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"resnet50 train: non-finite loss in {losses}")
+    ms = statistics.median(times[2:])
+    b = RESNET_TRAIN["batch"]
+    tflops = RESNET_TRAIN_FLOPS * b / (ms / 1e3) / 1e12
+    row = dict(batch=b, steps=len(losses), ms_per_step=ms,
+               first_step_ms=times[0], images_per_s=b / (ms / 1e3),
+               model_tflops=tflops, mfu=tflops * 1e12 / PEAK_BF16_FLOPS,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                   dev) / 1e9, first_loss=losses[0], last_loss=losses[-1])
+    log("resnet50 train: " + json.dumps(row))
+    log(f"resnet50 train: launches {counts}, plain-version calls {plain} "
+        "(all 0 by design: the reference's ResNet training runs no Pallas "
+        "kernel, and its batch norm's two-pass moments are not kernel "
+        "10's one-pass sums)")
+    if any(counts.values()) or any(plain.values()):
+        fail(f"resnet50 train: kernels ran on the training path: "
+             f"{counts} {plain}")
+    return model, step, img, label, counts
+
+
+def resnet_train_vs_f32(dev, img, label):
+    """Phase 25: one bf16-AMP step against the same step from the f32
+    weights in f32 (TF32 off), at batch ``RESNET_TRAIN_F32_BATCH``: the
+    loss within ``E2E_AMP_LOSS_REL``, the step's move of the running
+    statistics (after - momentum * before) within ``E2E_AMP_STATS_RRMS``
+    relative RMS.  The gradients' cosine is printed beside a control: the
+    same f32 step on the bf16-rounded weights and images, which shows how
+    far bf16 rounding of the inputs alone turns the gradient of this
+    network at initialisation."""
+    n = RESNET_TRAIN_F32_BATCH
+    x, y = img[:n].contiguous(), label[:n].contiguous()
+    mom = RESNET_TRAIN["momentum"]
+    res = {}
+    for name, amp, rnd in (("amp", True, False), ("f32", False, False),
+                           ("f32 on bf16 inputs", False, True)):
+        model, step = _resnet_train_step(dev, amp=amp, bf16_weights=rnd)
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        loss, grads = step.loss_and_grads(
+            x.to(torch.bfloat16).float() if rnd else x, y)
+        moved = {k: (v - mom * before[k]).double()
+                 for k, v in model.named_buffers()}
+        res[name] = (float(loss), torch.cat([g.flatten().double()
+                                             for g in grads]), moved)
+        del model, step, grads
+        torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    f32 = res["f32"]
+    out = {}
+    for name in ("amp", "f32 on bf16 inputs"):
+        r = res[name]
+        stats = {}
+        for kind in ("_mean", "_variance"):
+            keys = [k for k in f32[2] if k.endswith(kind)]
+            a = torch.cat([r[2][k] for k in keys])
+            b = torch.cat([f32[2][k] for k in keys])
+            stats[kind] = float((a - b).norm() / b.norm())
+        out[name] = dict(loss=r[0], loss_f32=f32[0],
+                         loss_rel=abs(r[0] - f32[0]) / abs(f32[0]),
+                         grad_cos=cos(r[1], f32[1]),
+                         grad_norm_ratio=float(r[1].norm() / f32[1].norm()),
+                         mean_rel_rms=stats["_mean"],
+                         var_rel_rms=stats["_variance"])
+        log(f"resnet50 train vs f32 (batch {n}), {name}: "
+            + json.dumps(out[name]))
+    a = out["amp"]
+    if not a["loss_rel"] <= E2E_AMP_LOSS_REL:
+        fail(f"resnet50 train vs f32: loss {a['loss']} against "
+             f"{a['loss_f32']} (relative {a['loss_rel']:.4g} > "
+             f"{E2E_AMP_LOSS_REL})")
+    for kind in ("mean_rel_rms", "var_rel_rms"):
+        if not a[kind] <= E2E_AMP_STATS_RRMS:
+            fail(f"resnet50 train vs f32: running statistics {kind} "
+                 f"{a[kind]:.4g} > {E2E_AMP_STATS_RRMS}")
+    if not a["grad_cos"] > 0:
+        fail(f"resnet50 train vs f32: the bf16 gradient is not a descent "
+             f"direction of the f32 loss (cosine {a['grad_cos']:.4g})")
+    return out
+
+
+def conv_bn_on_activations(dev, model, step, img, label):
+    """Phase 26: forward hooks on every bottleneck's conv1 and conv3 (1x1,
+    stride 1) capture, in one training step of phase 24's model, each
+    conv's bf16 input and output; kernel 10 runs on the input as [M, K]
+    (NHWC rows) with the conv's weight as [K, N].  ``y`` must match the
+    conv output within ``CARD_TOL``, and ``s1 / M`` the batch mean the
+    port's batch norm takes of that output (``_moments``) within 1e-5 of
+    the column's sum of |acc| over M plus half a bf16 step (at most 2^-8
+    of |y|) of its mean |y|: batch norm reads the rounded y.  Prints, per shape,
+    ``s2 / M - (s1 / M)^2`` against the two-pass variance."""
+    from paddle_tpu_torch.nn.functional.common import _moments
+    from paddle_tpu_torch.ops.kernels import conv_bn_stats as cbs
+    from paddle_tpu_torch.ops.kernels.registry import card_error
+    from paddle_tpu_torch.vision.models.resnet import BottleneckBlock
+    rows = []
+
+    def hook(name):
+        def fn(mod, inputs, output):
+            with torch.no_grad():
+                x = inputs[0]
+                b, k, h, w_ = x.shape
+                n = output.shape[1]
+                xm = x.permute(0, 2, 3, 1).reshape(-1, k).contiguous()
+                wk = mod.weight.detach().to(x.dtype).reshape(n, k).t() \
+                    .contiguous()
+                yc = output.permute(0, 2, 3, 1).reshape(-1, n)
+                M = xm.shape[0]
+                yk, s1, s2 = cbs.fused_matmul_bn_stats(xm, wk)
+                err_y, share_y = card_error(yk, yc, cbs.CARD_TOL["y"])
+                m, var, _ = _moments(output.float(), (0, 2, 3))
+                acc_abs = (xm.float() @ wk.float()).abs().sum(0)
+                lim = (cbs.CARD_TOL["s1"] * acc_abs
+                       + 2.0 ** -8 * yc.float().abs().sum(0)) / M
+                err_m = (s1 / M - m).abs()
+                share_m = float((err_m / lim).max())
+                one_pass = s2 / M - (s1 / M) ** 2
+                rows.append(dict(
+                    conv=name, M=M, K=k, N=n, y_max_err=err_y,
+                    y_share=share_y, mean_max_err=float(err_m.max()),
+                    mean_share=share_m,
+                    one_pass_var_max_rel_err=float(
+                        ((one_pass - var).abs() / var.abs()).max()),
+                    var_over_mean_sq_min=float(
+                        (var / (m * m).clamp_min(1e-30)).min())))
+        return fn
+
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, BottleneckBlock):
+            for c in ("conv1", "conv3"):
+                handles.append(getattr(mod, c).register_forward_hook(
+                    hook(f"{name}.{c}")))
+    try:
+        step(img, label)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    if len(rows) != 32:
+        fail(f"conv_bn on activations: {len(rows)} convolutions captured, "
+             "want 32 (conv1 and conv3 of 16 bottlenecks)")
+    for r in rows:
+        log("conv_bn on activations: " + json.dumps(r))
+        if not (r["y_share"] <= 1.0 and r["mean_share"] <= 1.0):
+            fail(f"conv_bn on activations: {r['conv']} y uses "
+                 f"{r['y_share']:.3g}, s1 / M {r['mean_share']:.3g} of "
+                 "their limits")
+    worst = max(rows, key=lambda r: r["one_pass_var_max_rel_err"])
+    log(f"conv_bn on activations: 32 convolutions match; the one-pass "
+        f"variance s2/M - (s1/M)^2 is off the two-pass one by up to "
+        f"{worst['one_pass_var_max_rel_err']:.4g} relative "
+        f"({worst['conv']}, M={worst['M']} N={worst['N']})")
+    return rows
+
+
+def conv_bn_ab():
+    """Phase 27: the A/B entry point, ``python -m
+    paddle_tpu_torch.tools.exp_conv_bn_kernel``'s ``main()``: the fused
+    kernel against ``matmul_then_stats`` at the eight shapes.  Its
+    launches are kernel 10's main path."""
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.tools import exp_conv_bn_kernel as ab
+    registry.reset_counts()                  # the main path starts here
+    res = ab.main()
+    counts = registry.launch_counts()        # ... and ends here
+    if counts["conv_bn_stats"] < len(ab.SHAPES) or any(
+            v for k, v in counts.items() if k != "conv_bn_stats"):
+        fail(f"conv_bn A/B: launches {counts}")
+    log(f"conv_bn A/B: launches {counts}")
+    return counts, res
+
+
+def _train_class(name: str) -> str:
+    n = name.lower()
+    if "dgrad" in n:
+        return "conv dgrad"
+    if "wgrad" in n:
+        return "conv wgrad"
+    if "fprop" in n or "conv" in n or "implicit" in n or "winograd" in n:
+        return "conv fprop"
+    if "gemm" in n or "cutlass" in n:
+        return "gemm"
+    if "reduce" in n:
+        return "reductions"
+    if "pool" in n:
+        return "pooling"
+    if "nchw" in n or "nhwc" in n or "transpose" in n:
+        return "layout"
+    if "elementwise" in n or "unrolled" in n or "vectorized" in n:
+        return "elementwise"
+    return "other"
+
+
+def profile_resnet_train(dev, step, img, label, steps: int = 2):
+    """Phase 28: ``torch.profiler`` over 2 training steps of phase 24's
+    model: device busy time against wall time, the top device kernels,
+    device time by kernel class and by range (batch norm forward and
+    backward, the convolutions, the optimizer), and the largest
+    allocations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(img, label)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(img, label)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    avgs = prof.key_averages()
+    kern = device_kernels(avgs)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    n_kern = sum(e.count for e in kern) // steps
+    log(f"profile resnet50 train: wall {wall_ms:.2f} ms/step, device busy "
+        f"{busy_ms:.2f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{n_kern} kernels/step")
+    check_busy("profile resnet50 train (phase 28)", busy_ms, wall_ms)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/step  x{e.count // steps}")
+    by_class = {}
+    for e in kern:
+        c = _train_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total
+    log("profile resnet50 train: device ms/step by kernel class:")
+    for c, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"  {c:14s} {t / 1e3 / steps:8.3f} ms/step "
+            f"({t / 1e3 / steps / busy_ms:.3f} of busy)")
+    cpu = {e.key: e for e in avgs if e.device_type == DeviceType.CPU}
+    ranges = {
+        "batch norm forward": ["batch_norm"],
+        "batch norm backward": [k for k in cpu
+                                if k.endswith("BatchNormTrainBackward")
+                                and "evaluate_function" not in k][:1],
+        "conv forward": ["aten::cudnn_convolution"],
+        "conv backward": ["aten::convolution_backward"],
+        "optimizer": ["optimizer"],
+        "loss": ["aten::_log_softmax", "aten::_log_softmax_backward_data"],
+        "max pool": ["aten::max_pool2d_with_indices",
+                     "aten::max_pool2d_with_indices_backward"],
+    }
+    log("profile resnet50 train: device ms/step under each range "
+        "(inclusive):")
+    shares = {}
+    for label_, keys in ranges.items():
+        t = sum(cpu[k].device_time_total for k in keys if k in cpu)
+        shares[label_] = t / 1e3 / steps
+        log(f"  {label_:20s} {t / 1e3 / steps:8.3f} ms/step "
+            f"({t / 1e3 / steps / busy_ms:.3f} of busy)")
+    bn = shares["batch norm forward"] + shares["batch norm backward"]
+    log(f"profile resnet50 train: batch norm (forward and backward) takes "
+        f"{bn:.3f} ms/step, {bn / busy_ms:.3f} of device busy time")
+
+    def mem(e):
+        return getattr(e, "self_device_memory_usage", 0) or 0
+
+    log("profile resnet50 train: device memory allocated by op itself "
+        "(GB/step):")
+    for e in sorted(avgs, key=lambda e: -mem(e))[:8]:
+        log(f"  {e.key[:60]:60s} {mem(e) / 1e9 / steps:8.3f} GB/step"
+            f"  x{e.count // steps}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_class=by_class,
+                ranges=shares)
 
 
 def _build_host_libs() -> float:
@@ -2625,6 +3069,7 @@ def main() -> int:
     rows.update(ps_cases(dev, wd_batches))
     rows.update(sorted_cases(dev, wd_batches))
     rows.update(opt_cases(dev))
+    rows["conv_bn_stats"] = conv_bn_cases(dev)
 
     # 4. serve the 7B slice
     t0 = time.perf_counter()
@@ -2709,12 +3154,31 @@ def main() -> int:
 
     # 23. where a streaming batch's time goes
     profile_online(dev, wd_params, wd_batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24. train ResNet-50 at the bench's configuration
+    rn_model, rn_step, rn_img, rn_label, rn_counts = resnet_train(dev)
+
+    # 25. the bf16-AMP step against f32
+    resnet_train_vs_f32(dev, rn_img, rn_label)
+
+    # 26. kernel 10 on the real 1x1-conv activations of a training step
+    conv_bn_on_activations(dev, rn_model, rn_step, rn_img, rn_label)
+
+    # 27. the A/B: kernel 10 against matmul_then_stats
+    ab_counts, _ = conv_bn_ab()
+
+    # 28. where a ResNet-50 training step's time goes
+    profile_resnet_train(dev, rn_step, rn_img, rn_label)
+    del rn_model, rn_step, rn_img, rn_label
 
     kernels = []
     for name, s in registry.kernels().items():
         launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
                                          wd_counts, q8_counts, el_counts,
-                                         el2_counts, online_counts))
+                                         el2_counts, online_counts,
+                                         rn_counts, ab_counts))
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name]))

@@ -16,14 +16,19 @@ Ported slices: serving (``inference.GenerationServer`` over
 inference (``quantization.convert_to_int8_inference`` over
 ``vision.models.resnet50`` and its family), parameter-server training
 (``distributed.fleet.HeterTrainer``), the elastic data plane
-(``distributed.fleet.ElasticTrainer``) and the online loop
-(``online.StreamingTrainer`` over ``distributed.fleet.PSServer``); the
-subpackages are imported on use, as in ``paddle_tpu``.
+(``distributed.fleet.ElasticTrainer``), the online loop
+(``online.StreamingTrainer`` over ``distributed.fleet.PSServer``) and
+ResNet training (``optimizer.Momentum``, ``nn.functional.cross_entropy``
+and batch norm with batch statistics under the same step).  The
+subpackages are imported on first attribute access, so
+``paddle_tpu_torch.optimizer.Momentum`` reads as ``paddle.optimizer.
+Momentum`` does.
 
 This package never imports ``jax`` or any module of ``paddle_tpu``.
 """
 from __future__ import annotations
 
+import importlib
 import threading
 
 import torch
@@ -66,6 +71,17 @@ def resolve_device(device=None) -> torch.device:
     if d.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {d}")
     return d
+
+
+_SUBPACKAGES = ("distributed", "framework", "inference", "io", "nn",
+                "observability", "online", "ops", "optimizer",
+                "quantization", "text", "tools", "vision")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def make_generator(device, offset: int = 0) -> torch.Generator:

@@ -13,6 +13,14 @@ the whole forward during the backward (activation checkpointing of the
 step).  The update writes into the parameters and the optimizer state in
 place, one parameter at a time.
 
+The model's buffers (batch norm's running statistics) are never cast:
+they stay f32 under AMP, as the reference threads its non-parameter
+state through the step uncast.  A layer that updates a buffer in its
+forward does so once per step: the recomputation under
+``strategy.recompute`` runs with every buffer restored afterwards to the
+value the step's forward left, as the reference's functional
+``jax.checkpoint`` updates it once.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
 queue item 4): float16 loss scaling, ZeRO sharding, DGC, gradient
 merge, the other parallel toggles, ``guard_health`` and a mesh of more
@@ -21,6 +29,7 @@ than one device.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -108,9 +117,25 @@ class DistributedTrainStep:
             return t.to(torch.bfloat16)
         return t
 
+    @contextmanager
+    def _buffers_kept(self):
+        """Restore every buffer on exit to its value on entry: the
+        recomputed forward must not move the running statistics again."""
+        bufs = list(self._wrapper.buffers())
+        saved = [b.clone() for b in bufs]
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, v in zip(bufs, saved):
+                    b.copy_(v)
+
     def loss_and_grads(self, *args):
         """The f32 loss of ``loss_fn(*args)`` and the gradients of the
-        optimizer's parameters (f32 for f32 masters), without an update."""
+        optimizer's parameters (f32 for f32 masters), without a parameter
+        update.  The forward does update the model's buffers (batch
+        norm's running statistics) once, exactly as ``__call__`` does:
+        one call of either moves them by one step."""
         cast = [self._amp_cast(p) for p in self._params]
         args = tuple(self._amp_cast(a) for a in args)
         names = ["model." + n for n in self._names]
@@ -120,7 +145,9 @@ class DistributedTrainStep:
                 self._wrapper, dict(zip(names, params)), args)
 
         if self._recompute:
-            loss = checkpoint(run, *cast, use_reentrant=False)
+            loss = checkpoint(run, *cast, use_reentrant=False,
+                              context_fn=lambda: (nullcontext(),
+                                                  self._buffers_kept()))
         else:
             loss = run(*cast)
         loss = loss.float()
@@ -133,7 +160,7 @@ class DistributedTrainStep:
         opt = self._opt
         lr = opt.get_lr()
         states = opt.opt_state()
-        with torch.no_grad():
+        with torch.no_grad(), torch.profiler.record_function("optimizer"):
             for i, p in enumerate(self._params):
                 (new_p,), (new_s,) = opt.functional_update(
                     [p], [grads[i]], [states[i]], lr)

@@ -1,4 +1,5 @@
-"""Carry weights across from a ``paddle_tpu`` model.
+"""Carry weights and optimizer state across from a ``paddle_tpu`` model,
+and read the port's back as numpy under the reference's names.
 
 ``arrays`` is ``{name: np.ndarray}`` as the JAX model's ``state_dict()``
 gives it: parameters and persistent buffers (batch norm's ``_mean`` and
@@ -8,6 +9,10 @@ so no transposes are needed.  Each array is cast to the dtype of the
 tensor it lands in: bf16 arrays arrive as float32 numpy (this package
 cannot import ``ml_dtypes``), int8 stays int8, and an f32 ``w_scale``
 stays f32 in a bf16 model.
+
+Optimizer state is keyed by the parameter's name in the model
+(``{name: {slot: array}}``, e.g. ``{"conv1.weight": {"velocity": ...}}``
+for ``Momentum``), since both packages key it by parameter object.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_state_dict"]
+__all__ = ["load_jax_state_dict", "state_arrays", "opt_state_arrays",
+           "load_jax_opt_state"]
 
 
 def load_jax_state_dict(model: torch.nn.Module,
@@ -39,3 +45,64 @@ def load_jax_state_dict(model: torch.nn.Module,
         for name, p in own.items():
             a = np.ascontiguousarray(np.asarray(arrays[name]))
             p.copy_(torch.from_numpy(a).to(device=p.device, dtype=p.dtype))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy: a CPU tensor's ``numpy()`` shares its memory, which the
+    next in-place update would change."""
+    t = t.detach()
+    if t.is_floating_point() and t.dtype != torch.float64:
+        t = t.float()
+    return np.array(t.cpu().numpy())
+
+
+def state_arrays(model: torch.nn.Module):
+    """``model``'s parameters and persistent buffers as ``{name: array}``
+    (floats as f32), the names being the reference's."""
+    return {k: _numpy(v) for k, v in model.state_dict().items()}
+
+
+def _param_names(optimizer, model):
+    id2name = {id(p): n for n, p in model.named_parameters()}
+    names = []
+    for p in optimizer._parameter_list:
+        if id(p) not in id2name:
+            raise ValueError("optimizer holds a parameter that is not part "
+                             "of the model")
+        names.append(id2name[id(p)])
+    return names
+
+
+def opt_state_arrays(optimizer, model: torch.nn.Module):
+    """The optimizer's per-parameter state as ``{param name: {slot:
+    array}}`` (floats as f32)."""
+    return {n: {k: _numpy(v) for k, v in st.items()}
+            for n, st in zip(_param_names(optimizer, model),
+                             optimizer.opt_state())}
+
+
+def load_jax_opt_state(optimizer, model: torch.nn.Module, states) -> None:
+    """Load ``{param name: {slot: array}}`` (the JAX optimizer's state
+    under the parameters' names) into ``optimizer``, each slot cast to
+    the dtype and device of the slot it replaces.  Raises on a missing
+    or extra parameter or slot, or a shape mismatch, before anything is
+    loaded."""
+    names = _param_names(optimizer, model)
+    own = optimizer.opt_state()
+    if sorted(states) != sorted(names):
+        raise KeyError(f"optimizer state mismatch: missing "
+                       f"{sorted(set(names) - set(states))} extra "
+                       f"{sorted(set(states) - set(names))}")
+    new = []
+    for n, st in zip(names, own):
+        src = states[n]
+        if sorted(src) != sorted(st):
+            raise KeyError(f"{n}: slots {sorted(src)} != {sorted(st)}")
+        for k, t in st.items():
+            if tuple(np.shape(src[k])) != tuple(t.shape):
+                raise ValueError(f"{n}.{k}: array shape "
+                                 f"{tuple(np.shape(src[k]))} != "
+                                 f"{tuple(t.shape)}")
+        new.append({k: torch.from_numpy(np.array(src[k])).to(
+            device=t.device, dtype=t.dtype) for k, t in st.items()})
+    optimizer.load_opt_state(new)

@@ -1,11 +1,12 @@
-"""Batch normalisation over 2-D feature maps (inference).
+"""Batch normalisation over 2-D feature maps.
 
 Counterpart of ``paddle_tpu/nn/layer/norm.py`` (``_BatchNormBase``,
 ``BatchNorm2D``): ``weight`` ones and ``bias`` zeros as parameters, the
 running statistics as persistent buffers under the reference's names
 ``_mean`` (zeros) and ``_variance`` (ones), so a JAX ``state_dict``
-carries across.  Only inference is ported: in training mode the forward
-raises (see ``functional.batch_norm``).
+carries across.  In training mode the forward normalises with the batch
+statistics and updates the running statistics in place (see
+``functional.batch_norm``); in eval mode it applies them.
 """
 from __future__ import annotations
 

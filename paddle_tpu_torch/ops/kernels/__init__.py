@@ -3,5 +3,5 @@
 Importing a kernel module registers it; nothing is compiled until a CUDA
 tensor first needs the kernel.
 """
-from . import (flash_attention, int8_matmul, kv_attention,  # noqa: F401
-               opt_apply, pull_dequant, registry, segment_sum)
+from . import (conv_bn_stats, flash_attention, int8_matmul,  # noqa: F401
+               kv_attention, opt_apply, pull_dequant, registry, segment_sum)

@@ -1,6 +1,6 @@
 """Optimizers (counterpart of ``paddle_tpu.optimizer``): the base class,
-Adam and AdamW."""
+Momentum, Adam and AdamW."""
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import Adam, AdamW, Momentum
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

@@ -1,19 +1,52 @@
-"""Adam and AdamW (counterparts of the reference's ``optimizers.py``).
+"""Momentum, Adam and AdamW (counterparts of the reference's
+``optimizers.py``).
 
-The same f32 arithmetic, in the same order, as the reference's update
-rules: f32 moments ``m`` / ``v``, the running ``beta1_pow`` /
-``beta2_pow`` as 0-dim f32 tensors, bias-corrected step
-``lr * m_hat / (sqrt(v_hat) + eps)``, and for AdamW the decoupled decay
-``p * (1 - lr * coeff * decay)`` before the step.  The other optimizers
-of the reference's zoo are not ported yet.
+The same arithmetic, in the same order and dtypes, as the reference's
+update rules.  Momentum keeps its velocity in the parameter's dtype,
+casts the gradient and ``lr`` to it, and steps by ``v`` (or by
+``g + momentum * v`` with ``use_nesterov``).  Adam keeps f32 moments
+``m`` / ``v`` and the running ``beta1_pow`` / ``beta2_pow`` as 0-dim f32
+tensors and steps by ``lr * m_hat / (sqrt(v_hat) + eps)``; AdamW applies
+the decoupled decay ``p * (1 - lr * coeff * decay)`` before the step.
+The other optimizers of the reference's zoo are not ported yet.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .optimizer import _LATER, Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Momentum", "Adam", "AdamW"]
+
+
+@functools.lru_cache(maxsize=64)
+def _scalar(x, dtype):
+    """``x`` as a 0-dim CPU tensor of ``dtype``: the constant is rounded
+    to the parameter's dtype first, as JAX rounds a weakly typed scalar
+    (and as the reference casts ``lr``).  Cached: the update reads it and
+    never writes it."""
+    return torch.tensor(float(x), dtype=torch.float32).to(dtype)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _create_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, p, g, lr, state):
+        g = g.to(p.dtype)
+        mu = _scalar(self._momentum, p.dtype)
+        v = mu * state["velocity"] + g
+        step = g + mu * v if self._nesterov else v
+        return p - _scalar(lr, p.dtype) * step, {"velocity": v}
 
 
 class Adam(Optimizer):

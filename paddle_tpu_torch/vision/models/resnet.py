@@ -11,8 +11,10 @@ NCHW (the default) and NHWC are supported.
 ``device`` defaults to ``cuda`` (raises without a card); ``dtype`` is the
 parameter dtype (float32 unless asked); ``generator`` draws the initial
 weights (default: the global seed, see :func:`paddle_tpu_torch.seed`).
-The model is inference only: batch norm raises in training mode, so call
-``.eval()`` (``quantization.convert_to_int8_inference`` does).
+In training mode batch norm takes the batch statistics and updates its
+running statistics; the convolutions' backward is autograd over
+``torch.nn.functional.conv2d`` (cuDNN on the card), as the reference
+left it to XLA.
 """
 from __future__ import annotations
 

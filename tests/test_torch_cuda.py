@@ -395,3 +395,65 @@ def test_opt_apply_matches_plain_on_card():
         opt_apply("sgd", full[0].double(), full[1].double(), [],
                   pack_hyper("sgd", lr=0.1))
     assert registry.launch_counts()["opt_apply"] == calls
+
+
+@pytest.mark.cuda
+def test_conv_bn_stats_matches_plain_on_card():
+    """The fused 1x1-conv + BN-statistics kernel within its CARD_TOL of the
+    plain version at a small and a tail shape (M off the 128-row tile, N
+    8), bitwise equal over two runs; ineligible calls raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the bottleneck shapes")
+    from paddle_tpu_torch.ops.kernels import conv_bn_stats as cbs
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(50)
+    for M, K, N in ((256, 64, 128), (1000, 72, 8)):
+        x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+        w = (torch.randn(K, N, device=dev, generator=g) * 0.05).bfloat16()
+        a = cbs.fused_matmul_bn_stats(x, w)
+        b = cbs.fused_matmul_bn_stats(x, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), (M, K, N)
+        for name, (err, share) in cbs.card_check(x, w, a).items():
+            assert share <= 1.0, (M, K, N, name, err, share)
+    assert registry.launch_counts()["conv_bn_stats"] == 4
+    with pytest.raises(ValueError, match="bfloat16"):
+        cbs.fused_matmul_bn_stats(x.float(), w.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cbs.fused_matmul_bn_stats(x[:, :60].contiguous(), w[:60])
+
+
+@pytest.mark.cuda
+def test_resnet50_training_step_on_card():
+    """One bf16-AMP Momentum step of resnet50 at batch 2 on the card:
+    finite f32 loss, f32 masters and running statistics that moved, and
+    no kernel launched (the reference's ResNet training runs none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py phase 24 trains at "
+                    "batch 256")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.vision.models import resnet50
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = resnet50(num_classes=1000, device=dev, generator=gen)
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "bfloat16"}
+    opt = pt.optimizer.Momentum(0.1, 0.9, parameters=list(m.parameters()))
+    step = DistributedTrainStep(
+        m, lambda a, b: pt.nn.functional.cross_entropy(m(a), b).mean(),
+        opt, s)
+    img = torch.randn(2, 3, 224, 224, device=dev, generator=gen)
+    lab = torch.randint(0, 1000, (2,), device=dev, generator=gen)
+    loss = step(img, lab)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    assert m.bn1._mean.dtype == torch.float32
+    assert bool(m.bn1._mean.abs().sum() > 0)
+    assert all(v == 0 for v in registry.launch_counts().values())

@@ -662,11 +662,18 @@ def test_opt_apply_rejects_what_it_does_not_take():
 
 def test_registry_names_and_tolerances_match_reference():
     ours, theirs = registry.kernels(), jreg.kernels()
-    assert sorted(ours) == ["flash_attention", "flash_attention_bwd_dkv",
+    assert sorted(ours) == ["conv_bn_stats", "flash_attention",
+                            "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq", "int8_kv_attention",
                             "int8_matmul", "opt_apply", "pull_dequant",
                             "segment_sum", "segment_sum_sorted"]
     for name, s in ours.items():
+        if name == "conv_bn_stats":
+            # kernel 10 is an experiment under tools/ in the reference,
+            # never registered there: the port states its own tolerance
+            assert "conv_bn_stats" not in theirs
+            assert s.replaces == "tools/exp_conv_bn_kernel.py:30"
+            continue
         # the reference registers its flash forward and custom-vjp
         # backward as one entry
         their = "flash_attention" if name.startswith("flash") else name

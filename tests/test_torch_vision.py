@@ -129,8 +129,15 @@ def test_batch_norm_inference_matches_jax(fmt):
     x = rng.standard_normal(shape).astype(np.float32)
     np.testing.assert_allclose(_run(tb, x), _run_jax(jb, x), atol=1e-6,
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ResNet training"):
-        tb.train()(torch.from_numpy(x))
+    # training mode runs with the batch statistics and moves the running
+    # ones as the reference does (f32 in another order: 1e-5)
+    jb.train()
+    np.testing.assert_allclose(_run(tb.train(), x), _run_jax(jb, x),
+                               atol=1e-5, rtol=1e-5)
+    for k in ("_mean", "_variance"):
+        np.testing.assert_allclose(getattr(tb, k).numpy(),
+                                   np.asarray(getattr(jb, k)._value),
+                                   atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
