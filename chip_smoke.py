@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    CUDA versions;
 2. build every CUDA kernel from ``paddle_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, started together) and print the seconds
-   and the registers/shared memory ptxas reports;
+   and the registers/shared memory ptxas reports (and the dynamic shared
+   memory, tiles and stages of the Hopper flash forward);
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -20,8 +21,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    time the card could take (``bound_ms``) and, for flash attention,
    PyTorch's ``scaled_dot_product_attention`` (forward, and backward for
    the two backward kernels) as a yardstick the port never calls; the
-   backward kernels also run twice on the same inputs and must agree
-   bitwise;
+   bf16 flash forward is held to the blockwise plain version at its own
+   key tile (``flash_fwd_plan(...).block_k``), and at its two main-path
+   shapes (the 7B prefill, the proxy's forward with the LSE) it, its
+   plain version and SDPA are timed queued behind a spinning kernel
+   (device time), with the kernel / SDPA ratio beside that of the first
+   (``mma.sync``) kernel; the backward kernels also run twice on the
+   same inputs and must agree bitwise;
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
    mixed prompt lengths, 32 new tokens each; the kernel launch counts of
@@ -31,7 +37,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and with their plain versions (``mode="torch_ref"``): the logits must
    agree within the bf16 bound stated below;
 6. ``torch.profiler`` over 5 steady decode steps of the same model:
-   device busy time against wall time, and the top device kernels;
+   device busy time against wall time, the top device kernels, and
+   kernel 1's device ms per step (0: decode runs no flash forward);
 7. train the Llama proxy of the reference's headline training bench
    (hidden 2048, 8 layers, 16 heads, head_dim 128, vocab 32000, seq
    2048, batch 4, stacked layers with per-layer remat; f32 weights from
@@ -47,7 +54,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    may be at most ``E2E_RATIO_BOUND`` times further from the f32 result
    than the plain path;
 9. ``torch.profiler`` over 2 training steps: device busy time against
-   wall time, the top device kernels and the largest allocations;
+   wall time, the top device kernels, kernel 1's device ms per step and
+   the largest allocations;
 10. serve ``resnet50(num_classes=1000)`` at 224x224 (f32 weights drawn
     from a seed) converted with ``convert_to_int8_inference`` and cast as
     the reference's inference bench casts it (every float tensor but
@@ -342,6 +350,16 @@ def device_kernels(avgs):
             and e.key not in ANNOTATIONS]
 
 
+def log_flash_fwd(label, kern, steps):
+    """Kernel 1's device ms and launches per step in a profile (its
+    kernels' names start with ``flash_fwd``)."""
+    mine = [e for e in kern if "flash_fwd" in e.key]
+    ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+    n = sum(e.count for e in mine) / steps
+    log(f"{label}: kernel 1 (flash forward) {ms:.3f} device ms/step over "
+        f"{n:g} launches/step " + ", ".join(e.key[:40] for e in mine))
+
+
 def check_busy(label, busy_ms, wall_ms):
     """A profiled window's device busy time cannot exceed its wall time;
     if it does, kernels were counted twice and the idle share is
@@ -370,21 +388,72 @@ def check_close(label, got, ref, tol):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def flash_cases(dev):
+# kernel 1's time over SDPA's at its two main-path shapes in the first
+# (mma.sync) kernel, CUDA events around one call (PERF.md section 6)
+FLASH_MMA_SYNC_SDPA_RATIO = {"7B prefill": 4.63, "proxy with lse": 4.74}
+
+
+def flash_timing(label, q, k, v, return_lse):
+    """Kernel 1, its plain version and SDPA at one main-path shape, each
+    queued behind a spinning kernel (device time, not the wrapper's host
+    time); the kernel and SDPA twice, in turns, the lower of each kept.
+    Returns the kernels-line numbers."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bhsd, flash_fwd_plan)
+    B, H, S, D = q.shape
+    plan = flash_fwd_plan(q, k, v)
+
+    def kern():
+        return flash_attention_bhsd(q, k, v, causal=True,
+                                    return_lse=return_lse)
+
+    def lib():
+        return tF.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    with torch.no_grad():
+        runs = [(queued_ms(kern), queued_ms(lib)) for _ in range(2)]
+        plain = queued_ms(lambda: flash_attention_bhsd(
+            q, k, v, causal=True, return_lse=return_lse, mode="torch_ref"),
+            iters=5, warmup=1)
+    ms, lib_ms = (min(r[i] for r in runs) for i in (0, 1))
+    pairs = B * H * S * (S + 1) / 2          # causal (q, k) pairs
+    nbytes = 4 * B * H * S * D * q.element_size() + (
+        B * H * S * 4 if return_lse else 0)
+    bms, by = bound_ms(4 * D * pairs, PEAK_BF16_FLOPS, nbytes)
+    log(f"flash_attention {label} (B={B} H={H} S={S} D={D} bf16 causal"
+        f"{', lse' if return_lse else ''}): route {plan.route}, tiles "
+        f"{plan.block_q} query rows x {plan.block_k} keys, {plan.stages} "
+        f"K/V stages, {plan.threads} threads, {plan.smem_bytes} B shared "
+        f"memory, grid {plan.grid}; device ms (queued): kernel {ms:.4f} "
+        f"plain {plain:.4f} bound {bms:.4f} ({by}) library(sdpa) "
+        f"{lib_ms:.4f}; kernel / sdpa {ms / lib_ms:.3f} (the mma.sync "
+        f"kernel's {FLASH_MMA_SYNC_SDPA_RATIO[label]}); "
+        f"{4 * D * pairs / ms / 1e9:.1f} "
+        f"TFLOP/s")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def flash_cases(dev):
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
         CARD_TOL, flash_attention, flash_attention_bhsd,
-        flash_attention_blockwise_ref)
+        flash_attention_blockwise_ref, flash_fwd_plan)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     row = None
+    bf = torch.bfloat16
     cases = [  # (B, H, Hkv, S, D, dtype, causal, layout)
-        (1, 32, 32, 2048, 128, torch.bfloat16, True, "bhsd"),  # 7B prefill
-        (4, 32, 32, 1024, 128, torch.bfloat16, True, "bshd"),  # as served
+        (1, 32, 32, 2048, 128, bf, True, "bhsd"),  # 7B prefill
+        (4, 32, 32, 1024, 128, bf, True, "bshd"),  # as served
+        (2, 8, 2, 1000, 128, bf, False, "bhsd"),   # GQA, ragged
+        (1, 8, 2, 777, 128, bf, True, "bshd"),     # GQA, ragged, served
+        (1, 4, 1, 130, 128, bf, True, "bhsd"),     # one key past a tile
+        (2, 4, 4, 300, 128, bf, False, "bshd"),
         (1, 8, 8, 512, 128, torch.float32, True, "bhsd"),
-        (2, 8, 8, 1000, 64, torch.bfloat16, False, "bhsd"),
-        (1, 8, 2, 777, 256, torch.bfloat16, True, "bhsd"),
+        (2, 8, 8, 1000, 64, bf, False, "bhsd"),
+        (1, 8, 2, 777, 256, bf, True, "bhsd"),
         (1, 4, 4, 300, 64, torch.float32, False, "bhsd"),
         (1, 4, 2, 130, 256, torch.float32, True, "bhsd"),
     ]
@@ -405,9 +474,11 @@ def flash_cases(dev):
         ro, rl = flash_attention_bhsd(q, k, v, causal=causal,
                                       return_lse=True, mode="torch_ref")
         # bf16: the kernel rounds P to bf16 before P.V against the running
-        # max of 64-key tiles; the blockwise plain version does the same,
-        # and the kernel is held to it
-        rp = (flash_attention_blockwise_ref(q, k, v, causal=causal)
+        # max of its key tiles; the blockwise plain version does the same
+        # at the kernel's key tile, and the kernel is held to it
+        plan = flash_fwd_plan(q, k, v)
+        rp = (flash_attention_blockwise_ref(q, k, v, causal=causal,
+                                            block_k=plan.block_k)
               if dt == torch.bfloat16 else ro)
         torch.cuda.synchronize()
         dname = str(dt).replace("torch.", "")
@@ -417,10 +488,10 @@ def flash_cases(dev):
         late = (o.float() - rp.float())[:, :, S // 2:].abs().max().item()
         late_o = rp[:, :, S // 2:].float().abs().median().item()
         full = (o.float() - ro.float()).abs().max().item()
-        msg = (f"flash_attention {shape} {layout}: max_err {err:.3g}, "
-               f"{share:.3g} of its limit; rows >= S/2 {late:.3g} at a "
-               f"median |o| {late_o:.3g}; vs the chunked f32 plain version "
-               f"{full:.3g}")
+        msg = (f"flash_attention {shape} {layout} ({plan.route}, block_k "
+               f"{plan.block_k}): max_err {err:.3g}, {share:.3g} of its "
+               f"limit; rows >= S/2 {late:.3g} at a median |o| "
+               f"{late_o:.3g}; vs the chunked f32 plain version {full:.3g}")
         if lse is not None:
             lerr = (lse - rl).abs().max().item()
             if lerr > 1e-3:
@@ -428,19 +499,8 @@ def flash_cases(dev):
             msg += f" lse_err {lerr:.3g}"
         log(msg)
         if i == 0:
-            ms = cuda_ms(lambda: flash_attention_bhsd(q, k, v, causal=True))
-            plain = cuda_ms(lambda: flash_attention_bhsd(
-                q, k, v, causal=True, mode="torch_ref"))
-            lib = cuda_ms(lambda: tF.scaled_dot_product_attention(
-                q, k, v, is_causal=True))
-            pairs = B * H * S * (S + 1) / 2          # causal (q, k) pairs
-            nbytes = 4 * B * H * S * D * q.element_size()
-            bms, by = bound_ms(4 * D * pairs, PEAK_BF16_FLOPS, nbytes)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, library_ms=lib)
-            log(f"flash_attention 7B prefill shape: kernel_ms {ms:.4f} "
-                f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}) "
-                f"library_ms(sdpa) {lib:.4f}")
+            row = dict(max_abs_err=err,
+                       **flash_timing("7B prefill", q, k, v, False))
     return row
 
 
@@ -538,18 +598,10 @@ def bwd_cases(dev):
             log(f"{name} training shape: kernel_ms {ms[name]:.4f} plain_ms "
                 f"{plain[name]:.4f} bound_ms {bms:.4f} ({by}) "
                 f"library_ms(sdpa backward, dq+dk+dv) {lib:.4f}")
-        f_ms = cuda_ms(lambda: fa.flash_attention_bhsd(
-            qh, kh, vh, causal=True, return_lse=True))
-        f_plain = cuda_ms(lambda: fa.flash_attention_bhsd(
-            qh, kh, vh, causal=True, return_lse=True, mode="torch_ref"))
-        with torch.no_grad():
-            f_lib = cuda_ms(lambda: tF.scaled_dot_product_attention(
-                q2, k2, v2, is_causal=True))
-        f_bms, f_by = bound_ms(4 * D * pairs, PEAK_BF16_FLOPS,
-                               4 * row_bytes + B * H * S * 4)
-        log(f"flash_attention training shape (with lse): kernel_ms "
-            f"{f_ms:.4f} plain_ms {f_plain:.4f} bound_ms {f_bms:.4f} "
-            f"({f_by}) library_ms(sdpa) {f_lib:.4f}")
+        # the forward at the training shape, on contiguous copies so that
+        # SDPA times its own layout (the kernel takes both)
+        flash_timing("proxy with lse", *(t.detach().contiguous()
+                                         for t in (qh, kh, vh)), True)
         del out, q2, k2, v2
     return rows
 
@@ -874,6 +926,9 @@ def profile_decode(dev, model, steps: int = 5):
     log(f"profile decode: wall {wall_ms:.2f} ms/step, device busy "
         f"{busy_ms:.2f} ms/step, idle share "
         f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
+    # a decode step attends through the int8 kernel; prefill alone runs
+    # kernel 1, so this reads 0
+    log_flash_fwd("profile decode", kern, steps)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -1045,6 +1100,7 @@ def profile_train(dev, step, ids, steps: int = 2):
         f"{busy_ms:.2f} ms/step, idle share "
         f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
     check_busy("profile train (phase 9)", busy_ms, wall_ms)
+    log_flash_fwd("profile train", kern, steps)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -3057,8 +3113,18 @@ def main() -> int:
                                 f"{secs:.1f} s"))
         for line in _build.build_logs.get(src, "").splitlines():
             if "Compiling entry" in line or "Used" in line \
-                    or "spill" in line:
+                    or "spill" in line or "warning" in line:
                 log("  " + line.strip())
+    # the sm90 flash forward's shared memory is dynamic (ptxas does not
+    # see it) and its consumers run at the register count setmaxnreg
+    # gives them, not at the count ptxas prints for the launch
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
+    meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
+    plan = flash_fwd_plan(meta, meta, meta)
+    log(f"  flash_fwd_sm90: {plan.threads} threads (a producer warpgroup "
+        f"at 40 registers, two consumer warpgroups at 232), "
+        f"{plan.smem_bytes} B dynamic shared memory, {plan.block_q} query "
+        f"rows x {plan.block_k} keys, {plan.stages} K/V stages")
 
     # 3. kernels against their plain versions
     rows = {"flash_attention": flash_cases(dev),

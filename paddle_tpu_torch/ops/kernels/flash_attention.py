@@ -6,11 +6,18 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
 ``_bwd_dq_kernel``).
 
 - The forward (``csrc/flash_attention_fwd.cu``) is a blockwise
-  online-softmax kernel, one thread block per (batch, head, 64-row query
-  tile), causal or not, bf16 or f32, head_dim 64/128/256, any sequence
-  length.  Grouped-query attention indexes kv head ``h // (H // Hkv)``
-  instead of materialising the repeat.  It can also emit the per-row
-  logsumexp (LSE) [B, H, Sq] f32 for the backward.
+  online-softmax kernel, causal or not, bf16 or f32, head_dim 64/128/256,
+  any sequence length.  Grouped-query attention indexes kv head
+  ``h // (H // Hkv)`` instead of materialising the repeat.  It can also
+  emit the per-row logsumexp (LSE) [B, H, Sq] f32 for the backward.
+  bf16 at head_dim 128 -- the route of the serving prefill and of
+  training -- takes the Hopper kernel (TMA loads into a 2-stage ring,
+  ``wgmma`` for both products, a producer warp and two consumer
+  warpgroups, 128-row query and 128-key tiles); the other dtypes and
+  head dims take the first kernel (``mma.sync`` or FMA, 64- or 32-row
+  tiles).  :func:`flash_fwd_plan` computes the route, tiles, grid and
+  TMA strides in Python, and the wrapper passes them to the C entry
+  point.
 - The backward (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's:
   a dK/dV kernel, one block per (batch, kv head, key tile) looping over
   the query tiles of every head of its group, and a dQ kernel, one block
@@ -44,6 +51,7 @@ Bias and dropout are not ported (no Llama path uses them).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -52,10 +60,10 @@ from torch.autograd.function import once_differentiable
 from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
-           "flash_attention_blockwise_ref", "flash_attention_bwd_dkv_ref",
-           "flash_attention_bwd_dq_ref", "flash_attention_bwd_blockwise_ref",
-           "attention_delta", "flash_eligible", "CARD_TOL", "CARD_TOL_BWD",
-           "NEG_INF"]
+           "flash_attention_blockwise_ref", "flash_fwd_plan", "FwdPlan",
+           "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq_ref",
+           "flash_attention_bwd_blockwise_ref", "attention_delta",
+           "flash_eligible", "CARD_TOL", "CARD_TOL_BWD", "NEG_INF"]
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd.cu"
@@ -132,9 +140,11 @@ def flash_attention_blockwise_ref(q, k, v, causal=False, scale=None,
     tensors: keys in blocks of ``block_k``, scores ``(q . k) * scale`` in
     f32, running max and denominator in f32, and the probabilities cast to
     the value dtype against the running max before P.V.  With bf16 inputs
-    that cast rounds P as the kernel does (64-key tiles), so the bf16
-    kernel is held to this version; with f32 inputs it equals
-    :func:`flash_attention_ref` up to summation order."""
+    that cast rounds P as the kernel does when ``block_k`` is the
+    kernel's key tile (``flash_fwd_plan(q, k, v).block_k``: 128 at
+    head_dim 128, 64 otherwise), so the bf16 kernel is held to this
+    version; with f32 inputs it equals :func:`flash_attention_ref` up to
+    summation order."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -182,18 +192,107 @@ def _eligible(q, k, v, causal=False, scale=None, return_lse=False):
     return None
 
 
-def _rowmajor(t):
-    """The kernel reads rows of D contiguous elements at 16-byte aligned
-    addresses; anything else is copied into that layout first."""
+def _takes_as_is(t):
+    """Whether the kernels read ``t`` where it lies: unit stride on D, a
+    16-byte aligned start, and 16-byte multiples as the strides of every
+    dimension longer than one (what TMA's tensor maps need; the first
+    kernel needs no more)."""
     vec = 16 // t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in t.stride()[:-1])):
-        return t
-    return t.contiguous()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st % vec == 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                    if n > 1))
+
+
+def _rowmajor(t):
+    """``t`` itself if the kernels take it as is, else a contiguous
+    copy."""
+    return t if _takes_as_is(t) else t.contiguous()
+
+
+# the Hopper route's tiles, as compiled in csrc/flash_attention_fwd.cu
+# (namespace sm90): 128 query rows (two consumer warpgroups of 64) and
+# 128-key K/V tiles in a 2-stage ring, 384 threads; shared memory is
+# 1024 bytes of alignment slack, Q, both stages of K and V and the O
+# staging tile (32 KB each) and 10 mbarriers.  The grid is one block per
+# SM at most; each block loops over its share of the (query tile, head,
+# batch) work items.
+_SM90 = dict(block_q=128, block_k=128, stages=2, threads=384,
+             smem_bytes=1024 + 32768 * (2 + 2 * 2) + 8 * (2 + 4 * 2))
+# SMs of an H100 SXM: the grid's bound where no card is at hand to ask
+H100_SMS = 132
+
+
+def _sm_count(device):
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel runs on given q, k, v (B, H, S, D)."""
+
+    route: str          # "tma_wgmma" (bf16, D=128), "mma_sync" or "fma"
+    block_q: int        # query rows per block
+    block_k: int        # keys per tile: the rounding tile of P
+    stages: int         # K/V tiles in flight (1: loaded synchronously)
+    threads: int        # per block
+    smem_bytes: int     # dynamic shared memory per block
+    grid: tuple         # (x, y, z) as launched
+    # tma_wgmma only: the byte strides (seq, head, batch) of q, k, v and
+    # the output, as their 4-D (D, S, H, B) tensor maps take them
+    tma_strides: tuple
+    # per tensor: taken where it lies (else _rowmajor copies it first)
+    as_is: dict
+
+
+def _tma_strides(t):
+    """(seq, head, batch) byte strides of a (B, H, S, D) tensor for its
+    tensor map; a dimension of length one is never stepped, so it gets
+    the (valid) stride of the whole tensor's span instead of whatever
+    PyTorch left there."""
+    elt = t.element_size()
+    span = -(-t.numel() * elt // 16) * 16
+    return tuple(t.stride(i) * elt if t.shape[i] > 1 else span
+                 for i in (2, 1, 0))
+
+
+def flash_fwd_plan(q, k, v):
+    """The launch plan of the forward kernel for (B, H, S, D) q, k, v:
+    the route, tiles, grid and, on the Hopper route, the TMA strides.
+    bf16 at head_dim 128 always takes the Hopper route; a tensor it
+    cannot take as is (``as_is`` False) is made row-major by
+    :func:`_rowmajor` first, never sent to the other kernel.  Pure shape
+    arithmetic: it runs on CPU tensors too."""
+    B, H, Sq, D = q.shape
+    as_is = {n: _takes_as_is(t) for n, t in (("q", q), ("k", k), ("v", v))}
+    if q.dtype == torch.bfloat16 and D == 128:
+        route, bq, bk, stages, threads, smem = (
+            "tma_wgmma", _SM90["block_q"], _SM90["block_k"],
+            _SM90["stages"], _SM90["threads"], _SM90["smem_bytes"])
+        # q, k, v as given; o as the wrapper allocates it, (B, Sq, H, D)
+        tma = tuple(x for t in (q, k, v) for x in _tma_strides(t)) + (
+            H * D * 2, D * 2, Sq * H * D * 2)
+    elif q.dtype == torch.bfloat16:
+        route, bq, bk, stages, threads = "mma_sync", 64, 64, 1, 128
+        smem = (bq + 2 * bk) * (D + 8) * 2
+        tma = ()
+    else:
+        route, bq, bk, stages, threads = "fma", 32, 32, 1, 128
+        smem = (bq * D + bk * (D + 1) + bk * D + 4 * 8 * bk) * 4
+        tma = ()
+    n_qt = -(-Sq // bq)
+    if route == "tma_wgmma":
+        grid = (min(n_qt * H * B, _sm_count(q.device)), 1, 1)
+    else:
+        grid = (n_qt, H, B)
+    return FwdPlan(route, bq, bk, stages, threads, smem, grid, tma, as_is)
 
 
 def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     q, k, v = _rowmajor(q), _rowmajor(k), _rowmajor(v)
+    plan = flash_fwd_plan(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -202,26 +301,41 @@ def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lib = _build.load(_SOURCE)
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                B, H, Hkv, Sq, Sk, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                o.stride(0), o.stride(1), o.stride(2),
-                int(bool(causal)), float(sc),
-                int(q.dtype == torch.bfloat16), stream)
-    _build.check(lib, rc, f"flash_attention_fwd q={tuple(q.shape)} "
-                          f"k={tuple(k.shape)} {q.dtype}")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if lse is not None else None)
+        if plan.route == "tma_wgmma":
+            fn = lib.flash_attention_fwd_sm90
+            if fn.argtypes is None:
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.POINTER(ctypes.c_longlong),
+                                  ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            launch = (plan.block_q, plan.block_k, plan.stages, plan.threads,
+                      plan.smem_bytes, *plan.grid)
+            rc = fn(*ptrs, B, H, Hkv, Sq, Sk,
+                    (ctypes.c_longlong * 12)(*plan.tma_strides),
+                    (ctypes.c_int * 8)(*launch), int(bool(causal)),
+                    float(sc), stream)
+        else:
+            fn = lib.flash_attention_fwd
+            if fn.argtypes is None:
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                               + [ctypes.c_longlong] * 12
+                               + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            rc = fn(*ptrs, B, H, Hkv, Sq, Sk, D,
+                    q.stride(0), q.stride(1), q.stride(2),
+                    k.stride(0), k.stride(1), k.stride(2),
+                    v.stride(0), v.stride(1), v.stride(2),
+                    o.stride(0), o.stride(1), o.stride(2),
+                    int(bool(causal)), float(sc),
+                    int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, rc, f"flash_attention_fwd ({plan.route}) "
+                          f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
     _SPEC.launches += 1
     return (o, lse) if return_lse else o
 

@@ -63,11 +63,40 @@ def test_kernels_match_plain_on_card():
                 _, rl = fa.flash_attention_bhsd(q, k, v, causal=causal,
                                                 return_lse=True,
                                                 mode="torch_ref")
-                ro = fa.flash_attention_blockwise_ref(q, k, v,
-                                                      causal=causal)
+                # held at the kernel's own key tile (P is rounded to bf16
+                # against the running max of each tile)
+                ro = fa.flash_attention_blockwise_ref(
+                    q, k, v, causal=causal,
+                    block_k=fa.flash_fwd_plan(q, k, v).block_k)
                 torch.cuda.synchronize()
                 _assert_within(o, ro, fa.CARD_TOL[dt])
                 assert (lse - rl).abs().max() <= 1e-4
+    # bf16 at head_dim 128, the Hopper route: the served (B, S, H, D)
+    # views, GQA, ragged lengths (none a multiple of 128 but 256)
+    for S, H, Hkv, layout in ((130, 4, 1, "bhsd"), (777, 8, 2, "bshd"),
+                              (1000, 4, 4, "bshd"), (256, 2, 2, "bhsd")):
+        arrays = _qkv(14, B=2, H=H, Hkv=Hkv, S=S, D=128)
+        if layout == "bshd":
+            q, k, v = (torch.from_numpy(a.transpose(0, 2, 1, 3).copy())
+                       .to(dev, torch.bfloat16).transpose(1, 2)
+                       for a in arrays)
+        else:
+            q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                       for a in arrays)
+        plan = fa.flash_fwd_plan(q, k, v)
+        assert plan.route == "tma_wgmma" and all(plan.as_is.values())
+        for causal in (True, False):
+            o, lse = fa.flash_attention_bhsd(q, k, v, causal=causal,
+                                             return_lse=True)
+            _, rl = fa.flash_attention_bhsd(q, k, v, causal=causal,
+                                            return_lse=True,
+                                            mode="torch_ref")
+            ro = fa.flash_attention_blockwise_ref(q, k, v, causal=causal,
+                                                  block_k=plan.block_k)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(o.float()).all())
+            _assert_within(o, ro, fa.CARD_TOL[torch.bfloat16])
+            assert (lse - rl).abs().max() <= 1e-3
     for case in (dict(S=1, D=128, bs=16), dict(S=3, D=64, bs=8, M=6)):
         args, G = _kv_case(11, **case)
         for dt in (torch.float32, torch.bfloat16):

@@ -25,11 +25,13 @@ The hand-written CUDA kernels themselves run only on the card
 the same comparison at the serving shapes).
 """
 import ast
+import contextlib
 import importlib
 import math
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -47,10 +49,11 @@ from paddle_tpu.ops.pallas import registry as jreg
 from paddle_tpu_torch.nn.functional import _sdpa_ref
 from paddle_tpu_torch.ops.kernels import _build, registry
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    CARD_TOL_BWD, attention_delta, flash_attention, flash_attention_bhsd,
-    flash_attention_blockwise_ref, flash_attention_bwd_blockwise_ref,
-    flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
-    flash_attention_ref, flash_eligible)
+    CARD_TOL_BWD, _flash_fwd_cuda, _rowmajor, attention_delta,
+    flash_attention, flash_attention_bhsd, flash_attention_blockwise_ref,
+    flash_attention_bwd_blockwise_ref, flash_attention_bwd_dkv_ref,
+    flash_attention_bwd_dq_ref, flash_attention_ref, flash_eligible,
+    flash_fwd_plan)
 from paddle_tpu_torch.ops.kernels.kv_attention import (
     int8_paged_attention, paged_attention_ref)
 from paddle_tpu_torch.ops.kernels.opt_apply import (
@@ -140,16 +143,20 @@ def test_flash_blockwise_plain_matches_chunked_in_f32(causal):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("block_k", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_blockwise_plain_matches_jax_kernel_in_bf16(causal):
+def test_flash_blockwise_plain_matches_jax_kernel_in_bf16(causal, block_k):
     """The plain version the bf16 kernel is held to on the card rounds P
-    to bf16 as the Pallas kernel does (64-key blocks, running max)."""
+    to bf16 as the Pallas kernel does (``block_k``-key blocks, running
+    max): 64 keys for the mma.sync kernel, 128 for the Hopper kernel of
+    head_dim 128."""
     q, k, v = _qkv(7, S=256)
     ref = jfa.flash_attention_bhsd(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
-        interpret=True, block_q=64, block_k=64)
+        interpret=True, block_q=64, block_k=block_k)
     got = flash_attention_blockwise_ref(
-        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=causal)
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=causal,
+        block_k=block_k)
     assert got.dtype == torch.bfloat16
     ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
     # one rounding of the bf16 output apart
@@ -159,6 +166,153 @@ def test_flash_blockwise_plain_matches_jax_kernel_in_bf16(causal):
     chunked = flash_attention_ref(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal=causal)
     assert (chunked.float() - ref).abs().max() > 2 * err
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_flash_plan_bhsd_takes_the_hopper_route():
+    q = _bf16(2, 8, 2048, 128)
+    plan = flash_fwd_plan(q, q, q)
+    assert plan.route == "tma_wgmma"
+    assert (plan.block_q, plan.block_k, plan.stages, plan.threads) == \
+        (128, 128, 2, 384)
+    # Q, two stages of K and V, the O staging tile, alignment slack and
+    # 10 mbarriers fit a block's 227 KB
+    assert plan.smem_bytes == 1024 + 6 * 32768 + 80 <= 232448
+    # 256 work items over at most one block per SM (132 on an H100)
+    assert plan.grid == (132, 1, 1)
+    # (seq, head, batch) byte strides of q, k and v, then of the output
+    # the wrapper allocates as (B, S, H, D)
+    assert plan.tma_strides == (256, 2048 * 256, 8 * 2048 * 256) * 3 + (
+        8 * 256, 256, 2048 * 8 * 256)
+    assert plan.as_is == {"q": True, "k": True, "v": True}
+
+
+def test_flash_plan_server_bshd_views_need_no_copy():
+    """The server's batched prefill passes (B, S, H, D) tensors through
+    ``flash_attention``: the kernel gets strided head views, and the
+    tensor maps take their strides as they are."""
+    B, S, H, D = 4, 1024, 32, 128
+    q = _bf16(B, S, H, D).transpose(1, 2)
+    plan = flash_fwd_plan(q, q, q)
+    assert plan.route == "tma_wgmma"
+    assert plan.tma_strides[:3] == (H * D * 2, D * 2, S * H * D * 2)
+    assert all(plan.as_is.values())
+    assert _rowmajor(q) is q
+    assert plan.grid == (132, 1, 1)
+
+
+def test_flash_plan_gqa_and_ragged():
+    q, kv = _bf16(1, 8, 777, 128), _bf16(1, 2, 777, 128)
+    plan = flash_fwd_plan(q, kv, kv)
+    assert plan.route == "tma_wgmma"
+    # 7 query tiles (ceil(777 / 128)) x 8 heads: a block each
+    assert plan.grid == (56, 1, 1)
+    # k and v have their own head count and strides; a batch of one
+    # gets the span of the whole tensor as its (never stepped) stride
+    assert plan.tma_strides[3:6] == (256, 777 * 256, 2 * 777 * 256)
+
+
+@pytest.mark.parametrize("dtype,D,route,tile", [
+    (torch.bfloat16, 64, "mma_sync", 64),
+    (torch.bfloat16, 256, "mma_sync", 64),
+    (torch.float32, 128, "fma", 32)])
+def test_flash_plan_other_routes_keep_the_first_kernel(dtype, D, route,
+                                                       tile):
+    q = torch.zeros(1, 2, 300, D, dtype=dtype)
+    plan = flash_fwd_plan(q, q, q)
+    assert (plan.route, plan.block_q, plan.block_k) == (route, tile, tile)
+    assert plan.grid == (-(-300 // tile), 2, 1) and plan.tma_strides == ()
+
+
+class _FakeFn:
+    def __init__(self, calls, name):
+        self.calls, self.name, self.argtypes = calls, name, None
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return 0
+
+
+class _FakeLib:
+    def __init__(self):
+        self.calls = []
+        self.flash_attention_fwd = _FakeFn(self.calls, "flash_attention_fwd")
+        self.flash_attention_fwd_sm90 = _FakeFn(self.calls,
+                                                "flash_attention_fwd_sm90")
+
+
+@pytest.fixture
+def fake_flash_lib(monkeypatch):
+    """The wrapper's launch with the CUDA library replaced by a recorder:
+    which C entry point it calls, and with what."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda source: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd", "sliced", "gqa"])
+def test_flash_bf16_d128_never_routes_to_the_first_kernel(fake_flash_lib,
+                                                          layout, causal):
+    B, H, S, D = 2, 4, 300, 128
+    if layout == "bshd":
+        q = k = v = _bf16(B, S, H, D).transpose(1, 2)
+    elif layout == "sliced":
+        # a sequence window one row in: rows start 256 bytes in, fine
+        q = k = v = _bf16(B, H, S + 1, D)[:, :, 1:]
+    elif layout == "gqa":
+        q, k, v = _bf16(B, H, S, D), _bf16(B, 2, S, D), _bf16(B, 2, S, D)
+    else:
+        q = k = v = _bf16(B, H, S, D)
+    o, lse = _flash_fwd_cuda(q, k, v, causal=causal, return_lse=True)
+    ((name, args),) = fake_flash_lib.calls
+    assert name == "flash_attention_fwd_sm90"
+    plan = flash_fwd_plan(q, k, v)
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[5:10] == (B, H, k.shape[1], S, S)
+    assert tuple(args[10]) == plan.tma_strides
+    # the output's tensor-map strides are those of the tensor returned
+    elt = o.element_size()
+    assert plan.tma_strides[9:] == (o.stride(2) * elt, o.stride(1) * elt,
+                                    o.stride(0) * elt)
+    assert tuple(args[11]) == (128, 128, 2, 384, plan.smem_bytes) + plan.grid
+    assert args[12] == int(causal)
+    assert o.shape == (B, H, S, D) and lse.shape == (B, H, S)
+    assert registry.launch_counts()["flash_attention"] == 1
+
+
+def test_flash_stride_tma_cannot_take_is_copied_not_rerouted(fake_flash_lib):
+    """A head view whose rows are 8 bytes off 16-byte alignment, and a
+    tensor strided on D: both are made row-major by ``_rowmajor`` and
+    still launch the Hopper kernel."""
+    base = _bf16(1, 2, 200, 132)
+    odd = base[..., 4:]                 # rows start 8 bytes in
+    strided = _bf16(1, 2, 200, 256)[..., ::2]
+    for t in (odd, strided):
+        assert not flash_fwd_plan(t, t, t).as_is["q"]
+        fixed = _rowmajor(t)
+        assert fixed is not t and fixed.is_contiguous()
+        assert flash_fwd_plan(fixed, fixed, fixed).as_is["q"]
+        fake_flash_lib.calls.clear()
+        _flash_fwd_cuda(t, t, t, causal=False)
+        ((name, args),) = fake_flash_lib.calls
+        assert name == "flash_attention_fwd_sm90"
+        assert args[0] != t.data_ptr()          # the row-major copy
+        assert tuple(args[10])[:3] == (256, 200 * 256, 2 * 200 * 256)
+
+
+def test_flash_first_kernel_takes_bf16_d64(fake_flash_lib):
+    q = _bf16(1, 2, 300, 64)
+    _flash_fwd_cuda(q, q, q, causal=True)
+    ((name, args),) = fake_flash_lib.calls
+    assert name == "flash_attention_fwd" and args[10] == 64
 
 
 def test_flash_gqa_indexes_kv_head_like_repeat():
