@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. build every CUDA kernel from ``paddle_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, started together) and print the seconds
    and the registers/shared memory ptxas reports (and the dynamic shared
-   memory, tiles and stages of the Hopper flash forward);
+   memory, tiles and stages of the Hopper flash forward); a spill in
+   ``segment_sum.cu`` (kernels 7 and 8) fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -177,12 +178,17 @@ bound and beside ``torch._int_mm`` plus its scale pass, which compute
 the same function and which the port never calls.  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
-200,000; integer gradients; n = 1; dim 13; each run twice) and, through
-``merge_segments``, against ``segment_sum`` on the same unsorted merge,
+200,000; integer gradients; n = 1; dim 13; the hard cases of
+``hard_segment_cases``: a 5,000-row segment at dim 16 and 13, all rows
+on one segment, every other segment empty, long segments on both sides
+of a tile's edge, many tiles a block, unaligned rows; each run twice)
+and, through ``merge_segments``, against ``segment_sum`` on the same
+unsorted merge,
 timed at the first two shapes beside ``torch.segment_reduce`` and
 ``index_add_``.  It holds
 ``segment_sum`` (at the wide&deep push: 26,624 rows of dim 16 into
-8,192 segments; integer gradients; n = 1; dim 13; each run twice) and
+8,192 segments; integer gradients; n = 1; dim 13; the same hard cases
+with their rows shuffled; each run twice) and
 ``pull_dequant`` (6,242 x 16, 1 x 16, 4,097 x 13, 1,000 x 4,096, zero
 rows) bitwise against their plain versions, times each kernel queued
 behind a spinning kernel beside its byte bound and beside
@@ -218,6 +224,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1355,31 +1362,79 @@ class WideDeepTower:
         return torch.stack(self.losses).cpu().numpy()
 
 
+def hard_segment_cases(rng):
+    """Phase 3's hard cases for kernels 7 and 8, as (label, ascending
+    segment ids, dim, nseg, rows 16-byte aligned): a 5,000-row segment
+    (longer than any ring of staged rows) at dim 16 and 13, all rows on
+    one segment, every other segment empty, long segments on both sides
+    of a tile's edge (segments 15 and 16: a tile holds 16 at dim 16),
+    many tiles a block (200,000 segments: a block takes 8 tiles in turn
+    through 32-row ring stages) with two long segments in a later tile,
+    and rows one float off 16-byte alignment (4-byte copies)."""
+    long = np.sort(np.concatenate([rng.integers(0, 40, 300),
+                                   np.full(5000, 40),
+                                   rng.integers(41, 128, 300)]))
+    edge = np.sort(np.concatenate([np.full(700, 15), np.full(700, 16),
+                                   rng.integers(0, 96, 500)]))
+    zipf = np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 2047))
+    return [("5,000-row segment", long, 16, 128, True),
+            ("5,000-row segment", long, 13, 128, True),
+            ("all rows on one segment", np.full(26_624, 3), 16, 8, True),
+            ("every other segment empty",
+             np.sort(2 * rng.integers(0, 4096, 26_624)), 16, 8192, True),
+            ("tile edge in long segments", edge, 16, 96, True),
+            ("many tiles a block", np.sort(np.concatenate([
+                rng.integers(0, 200_000, 20_000), np.full(700, 33),
+                np.full(700, 34)])), 16, 200_000, True),
+            ("unaligned rows", zipf, 16, 2048, False)]
+
+
+def _segment_grads(n, d, integer, aligned, dev, gen):
+    """Seeded [n, d] f32 gradients on the card; not ``aligned``: a view
+    one float into its buffer."""
+    if integer:
+        return torch.randint(-50, 50, (n, d), device=dev,
+                             generator=gen).float()
+    if aligned:
+        return torch.randn(n, d, device=dev, generator=gen)
+    return torch.randn(n * d + 1, device=dev, generator=gen)[1:].view(n, d)
+
+
+def _tile_note(plan, per_seg):
+    return (f"longest segment {int(per_seg.max())} rows; plan: {plan.tile} "
+            f"segments a block, {plan.grid[0] * plan.grid[1]} blocks, "
+            f"{plan.chunk}-row ring stages, {4 * plan.vec}-byte copies")
+
+
 def ps_cases(dev, batches):
     """Phase 3 for the PS kernels: ``segment_sum`` and ``pull_dequant``
-    against their plain versions, bitwise, at the wide&deep shapes and
-    odd ones; returns their kernels-line rows."""
+    against their plain versions, bitwise, at the wide&deep shapes, odd
+    ones and (``segment_sum``) the hard cases, rows shuffled; the timed
+    push logs its longest segment and launch plan; returns their
+    kernels-line rows."""
     from paddle_tpu_torch.distributed.fleet.ps import (dequantize_rows_q8,
                                                        quantize_rows_q8)
     from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
     from paddle_tpu_torch.ops.kernels.segment_sum import (
-        segment_plan, segment_sum, segment_sum_planned)
+        segment_plan, segment_sum, segment_sum_planned, segment_tile_plan)
     g0 = torch.Generator(device=dev).manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED)
     rows = {}
     _, push_inv = np.unique(batches[0][0].reshape(-1), return_inverse=True)
     push_nseg = _bucket(int(push_inv.max()) + 1)
     dim = WIDE_DEEP["dim"]
-    cases = [  # (label, inverse, dim, nseg, integer gradients)
-        ("wide&deep push", push_inv, dim, push_nseg, False),
-        ("integer grads", rng.integers(0, 7, 64), 5, 8, True),
-        ("n=1", np.zeros(1, np.int64), dim, 1, False),
+    cases = [  # (label, inverse, dim, nseg, integer gradients, aligned)
+        ("wide&deep push", push_inv, dim, push_nseg, False, True),
+        ("integer grads", rng.integers(0, 7, 64), 5, 8, True, True),
+        ("n=1", np.zeros(1, np.int64), dim, 1, False, True),
         ("dim 13", np.minimum(rng.zipf(1.3, 5000) - 1, 999), 13, 1024,
-         False)]
-    for i, (label, inv, d, nseg, integer) in enumerate(cases):
+         False, True)]
+    # the hard cases with their rows in shuffled order
+    cases += [(label, seg[rng.permutation(seg.size)], d, nseg, False, al)
+              for label, seg, d, nseg, al in hard_segment_cases(rng)]
+    for i, (label, inv, d, nseg, integer, aligned) in enumerate(cases):
         n = inv.size
-        g = (torch.randint(-50, 50, (n, d), device=dev, generator=g0).float()
-             if integer else torch.randn(n, d, device=dev, generator=g0))
+        g = _segment_grads(n, d, integer, aligned, dev, g0)
         ref = segment_sum(g, inv, nseg, mode="torch_ref")
         got = [segment_sum(g, inv, nseg) for _ in range(2)]
         torch.cuda.synchronize()
@@ -1412,8 +1467,9 @@ def ps_cases(dev, batches):
         rows["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                    bound_ms=bms, bound_by=by,
                                    library_ms=lib)
-        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, the "
-            f"longest {int(per_seg.max())} rows; kernel_ms {ms:.4f} "
+        plan = segment_tile_plan(n, nseg, d)
+        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, "
+            f"{_tile_note(plan, per_seg)}; kernel_ms {ms:.4f} "
             f"(wrapper with the host plan and its copy, one call between "
             f"events {wrapper_ms:.4f}) plain_ms {plain:.4f} bound_ms "
             f"{bms:.6f} ({by}) library_ms(index_add_) {lib:.4f} (max "
@@ -2195,34 +2251,36 @@ def sorted_cases(dev, batches):
     """Phase 3 for kernel 8: ``segment_sum_sorted`` bitwise against its
     plain version (each case run twice, the rerun bitwise too) at the
     first wide&deep batch's merge, at vocab scale, with integer gradients,
-    n = 1 and dim 13; ``merge_segments`` bitwise against ``segment_sum``
-    (kernel 7) on the same unsorted merge; the first two shapes timed
-    beside the byte bound, ``torch.segment_reduce`` and ``index_add_``.
-    Returns its kernels-line row."""
+    n = 1, dim 13 and the hard cases; ``merge_segments`` bitwise against
+    ``segment_sum`` (kernel 7) on the same unsorted merge; the first two
+    shapes timed beside the byte bound, ``torch.segment_reduce`` and
+    ``index_add_``, with their longest segment and launch plan.  Returns
+    its kernels-line row."""
     from paddle_tpu_torch.ops.kernels.segment_sum import (
         merge_segments, segment_sum, segment_sum_sorted,
-        segment_sum_sorted_planned)
+        segment_sum_sorted_planned, segment_tile_plan)
     g0 = torch.Generator(device=dev).manual_seed(SEED + 8)
     rng = np.random.default_rng(SEED + 8)
     _, inv0 = np.unique(batches[0][0].reshape(-1), return_inverse=True)
     inv0 = inv0.reshape(-1)
     nseg0 = int(inv0.max()) + 1
     dim = WIDE_DEEP["dim"]
-    cases = [  # (label, ascending ids, dim, nseg, integer gradients)
-        ("wide&deep merge", np.sort(inv0), dim, nseg0, False),
+    cases = [  # (label, ascending ids, dim, nseg, integer grads, aligned)
+        ("wide&deep merge", np.sort(inv0), dim, nseg0, False, True),
         ("vocab scale", np.sort(rng.integers(0, 200_000, 256)), dim,
-         200_000, False)]
+         200_000, False, True)]
     cases += [("integer grads", np.sort(rng.integers(0, ns, n)), 5, ns,
-               True)
+               True, True)
               for ns, n in ((6000, 64), (513, 9), (4096, 8))]
-    cases += [("n=1", np.zeros(1, np.int64), dim, 4096, False),
+    cases += [("n=1", np.zeros(1, np.int64), dim, 4096, False, True),
               ("dim 13", np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 4999)),
-               13, 5000, False)]
+               13, 5000, False, True)]
+    cases += [(label, seg, d, nseg, False, al)
+              for label, seg, d, nseg, al in hard_segment_cases(rng)]
     row = {}
-    for i, (label, seg, d, nseg, integer) in enumerate(cases):
+    for i, (label, seg, d, nseg, integer, aligned) in enumerate(cases):
         n = seg.size
-        g = (torch.randint(-50, 50, (n, d), device=dev, generator=g0).float()
-             if integer else torch.randn(n, d, device=dev, generator=g0))
+        g = _segment_grads(n, d, integer, aligned, dev, g0)
         ref = segment_sum_sorted(g, seg, nseg, mode="torch_ref")
         got = [segment_sum_sorted(g, seg, nseg) for _ in range(2)]
         torch.cuda.synchronize()
@@ -2260,8 +2318,9 @@ def sorted_cases(dev, batches):
         if i == 0:   # the faster of the two library calls, as row 7
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                        bound_ms=bms, bound_by=by, library_ms=min(red, add))
-        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, the "
-            f"longest {int(per_seg.max())} rows; kernel_ms {ms:.4f} "
+        plan = segment_tile_plan(n, nseg, d)
+        log(f"{msg}; {int((per_seg > 0).sum())} segments in use, "
+            f"{_tile_note(plan, per_seg)}; kernel_ms {ms:.4f} "
             f"(wrapper with the host check and the id copy, one call "
             f"between events {wrapper_ms:.4f}) plain_ms {plain:.4f} "
             f"bound_ms {bms:.6f} ({by}) library_ms {min(red, add):.4f} "
@@ -3115,6 +3174,12 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line or "warning" in line:
                 log("  " + line.strip())
+    # kernels 7 and 8 fold from registers and shared memory: a spill would
+    # put their accumulators back in memory
+    spills = re.findall(r"([1-9][0-9]*) bytes spill",
+                        _build.build_logs.get("segment_sum.cu", ""))
+    if spills:
+        fail(f"build segment_sum.cu: ptxas reports spills ({spills} bytes)")
     # the sm90 flash forward's shared memory is dynamic (ptxas does not
     # see it) and its consumers run at the register count setmaxnreg
     # gives them, not at the count ptxas prints for the launch

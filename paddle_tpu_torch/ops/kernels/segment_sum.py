@@ -18,13 +18,14 @@ Both versions add each segment's rows in ascending row order, from 0.0,
 so they are bitwise equal to each other and to the native host merge
 (``ps_segsum_inv``):
 
-- the CUDA kernel (``csrc/segment_sum.cu``) gets a stable order of the
-  rows by segment and each segment's range in it, both built on the host
-  from the host ``inverse`` (numpy, as the cache's plan gives it), and
-  one thread sums one (segment, column);
-- the sorted CUDA kernel (``csrc/segment_sum_sorted.cu``) gets the sorted
-  ids, and one thread finds its segment's rows by binary search and sums
-  one (segment, column);
+- the CUDA kernels (one source, ``csrc/segment_sum.cu``) give a block
+  tiles of consecutive segments: kernel 7 reads their ranges from a
+  stable order of the rows by segment and each segment's range in it,
+  both built on the host from the host ``inverse`` (numpy, as the
+  cache's plan gives it); kernel 8 finds them in the sorted ids once per
+  block.  The block streams its rows into shared memory with independent
+  loads, and one thread per column of a segment adds them in row order;
+  :func:`segment_tile_plan` is the launch plan;
 - the plain versions add by occurrence rank: round k adds the k-th row of
   every segment with one ``index_add_`` whose indices are unique.
 
@@ -35,6 +36,7 @@ refused (no caller has device-side ids yet).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,12 +44,12 @@ import torch
 from . import _build, registry
 
 __all__ = ["segment_sum", "segment_sum_ref", "segment_plan",
-           "segment_sum_planned", "segment_sum_sorted",
+           "segment_sum_planned", "segment_tile_plan", "TilePlan",
+           "segment_sum_sorted",
            "segment_sum_sorted_ref", "segment_sum_sorted_planned",
            "merge_segments", "SORTED_NSEG_MIN"]
 
-_SOURCE = "segment_sum.cu"
-_SORTED_SOURCE = "segment_sum_sorted.cu"
+_SOURCE = "segment_sum.cu"          # kernels 7 and 8
 
 # segment count at which merge_segments takes the sorted kernel (the
 # reference's threshold)
@@ -96,6 +98,85 @@ def segment_plan(inverse, num_segments: int, device) -> tuple:
     return both[:inv.size], both[inv.size:]
 
 
+# the kernels' block (csrc/segment_sum.cu): 256 threads, a slice of at
+# most 128 columns, up to 16 tiles in turn, ring stages of 768 copies.
+# Past 1,584 blocks (three waves of the 528 an H100 holds at 4 an SM) a
+# block takes tiles in turn: at vocab scale 8 tiles a block (1,563
+# blocks) ran fastest of 1 to 16 on the card
+_THREADS, _MAX_WIDTH, _MAX_REPS, _STAGE_GROUPS = 256, 128, 16, 768
+_MAX_BLOCKS = 1584
+
+
+class TilePlan(NamedTuple):
+    """A launch of the segment-sum kernels: ``grid`` = (blocks of
+    ``reps`` tiles, column slices), 256 threads each."""
+
+    vec: int      # floats a copy moves (4: 16 bytes)
+    width: int    # columns of a block's slice
+    tile: int     # consecutive segments a block folds at once
+    reps: int     # tiles a block takes in turn
+    chunk: int    # rows a ring stage holds
+    grid: tuple
+
+
+def segment_tile_plan(n: int, nseg: int, dim: int,
+                      aligned: bool = True) -> TilePlan:
+    """The launch plan of kernels 7 and 8 for ``n`` rows of ``dim`` into
+    ``nseg`` segments (``aligned``: the rows start on 16 bytes).
+
+    - A block gives each of its threads one column of one segment, so a
+      tile holds ``256 // width`` segments (16 at dim 16: the 6,242- and
+      8,192-segment merges give 391 and 512 blocks for the card's 132
+      SMs).
+    - Past 1,584 blocks, a block takes up to 16 tiles in turn (8 at
+      vocab scale, 200,000 segments: 1,563 blocks), so almost-empty tiles
+      do not each pay a block's fixed latency.
+    - Rows are copied ``vec`` floats at a time (16 bytes on 16-byte rows
+      of a dim divisible by 4).  A ring stage holds about four average
+      tiles' rows: at least 32 and at most 768 copies (192 rows at dim
+      16, so with 3 stages in flight a ~550-row hot tile of a Zipf merge
+      is one round of loads and few stages to fold, and 4 blocks fit an
+      SM), and few at vocab scale.
+
+    Pure arithmetic: it runs without a card."""
+    if n < 0 or nseg < 1 or dim < 1:
+        raise ValueError(f"segment_tile_plan: n {n}, nseg {nseg}, dim {dim}"
+                         " (needs n >= 0, nseg >= 1, dim >= 1)")
+    vec = 4 if aligned and dim % 4 == 0 else 1
+    width = min(dim, _MAX_WIDTH)
+    tile = _THREADS // width
+    reps = min(_MAX_REPS, -(-nseg // tile // _MAX_BLOCKS))
+    want = -(-4 * n * tile // nseg)
+    chunk = min(_STAGE_GROUPS * vec // width,
+                max(32, -(-want // 32) * 32))
+    return TilePlan(vec, width, tile, reps, chunk,
+                    (-(-nseg // (tile * reps)), -(-dim // width)))
+
+
+def _launch(spec, entry: str, grads, index, nseg: int) -> torch.Tensor:
+    """Launch ``entry`` of ``csrc/segment_sum.cu`` on ``grads`` [n, dim]
+    contiguous f32 and the int32 tensors ``index`` (kernel 7: order and
+    offsets; kernel 8: the sorted ids) under :func:`segment_tile_plan`;
+    count the launch on ``spec`` and return the [nseg, dim] output."""
+    n, dim = grads.shape
+    out = torch.empty((nseg, dim), dtype=torch.float32, device=grads.device)
+    plan = segment_tile_plan(n, nseg, dim, grads.data_ptr() % 16 == 0)
+    lib = _build.load(_SOURCE)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * (2 + len(index)) + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(grads.device):
+        stream = torch.cuda.current_stream(grads.device).cuda_stream
+        rc = fn(grads.data_ptr(), *(t.data_ptr() for t in index),
+                out.data_ptr(), n, nseg, dim, plan.tile, plan.reps,
+                plan.width, plan.chunk, plan.vec, stream)
+    _build.check(lib, rc, f"{spec.name} n={n} dim={dim} nseg={nseg}")
+    registry.note_launch(spec)
+    return out
+
+
 def _eligible(grads, inverse, num_segments):
     if not grads.is_cuda:
         return "grads must be a CUDA tensor"
@@ -129,22 +210,8 @@ def segment_sum_planned(grads: torch.Tensor, order: torch.Tensor,
     [n, dim] contiguous f32, ``order`` [n] and ``offsets`` [nseg + 1]
     int32, all on one card.  No host work, so a caller can time the
     kernel alone."""
-    n, dim = grads.shape
-    nseg = offsets.numel() - 1
-    out = torch.empty((nseg, dim), dtype=torch.float32, device=grads.device)
-    lib = _build.load(_SOURCE)
-    fn = lib.segment_sum_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(grads.device):
-        stream = torch.cuda.current_stream(grads.device).cuda_stream
-        rc = fn(grads.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                out.data_ptr(), nseg, dim, stream)
-    _build.check(lib, rc, f"segment_sum n={n} dim={dim} nseg={nseg}")
-    _SPEC.launches += 1
-    return out
+    return _launch(_SPEC, "segment_sum_f32", grads, (order, offsets),
+                   offsets.numel() - 1)
 
 
 _SPEC = registry.register(
@@ -156,9 +223,10 @@ _SPEC = registry.register(
     eligible=_eligible,
     source="paddle_tpu_torch/ops/kernels/csrc/segment_sum.cu",
     replaces="paddle_tpu/ops/pallas/segment_sum.py:58",
-    doc="ordered per-segment sum of embedding-gradient rows, one thread "
-        "per (segment, column) over a host-built row order: "
-        "bitwise the reference's row-order accumulation, no atomics",
+    doc="ordered per-segment sum of embedding-gradient rows over a "
+        "host-built row order: a block stages a tile of segments' rows in "
+        "shared memory and folds each segment in row order, bitwise the "
+        "reference's row-order accumulation, no atomics",
 )
 
 
@@ -221,23 +289,8 @@ def segment_sum_sorted_planned(grads: torch.Tensor, seg: torch.Tensor,
     """Launch kernel 8 on ``grads`` [n, dim] contiguous f32 and ``seg``
     [n] ascending int32 ids, both on one card.  No host work, so a caller
     can time the kernel alone."""
-    n, dim = grads.shape
-    out = torch.empty((num_segments, dim), dtype=torch.float32,
-                      device=grads.device)
-    lib = _build.load(_SORTED_SOURCE)
-    fn = lib.segment_sum_sorted_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(grads.device):
-        stream = torch.cuda.current_stream(grads.device).cuda_stream
-        rc = fn(grads.data_ptr(), seg.data_ptr(), out.data_ptr(), n,
-                num_segments, dim, stream)
-    _build.check(lib, rc, f"segment_sum_sorted n={n} dim={dim} "
-                          f"nseg={num_segments}")
-    registry.note_launch(_SORTED_SPEC)
-    return out
+    return _launch(_SORTED_SPEC, "segment_sum_sorted_f32", grads, (seg,),
+                   num_segments)
 
 
 _SORTED_SPEC = registry.register(
@@ -247,11 +300,12 @@ _SORTED_SPEC = registry.register(
               "atol 1e-6 (per-segment accumulation order equals row "
               "order in both); bit-exact for integer-valued grads",
     eligible=_sorted_eligible,
-    source="paddle_tpu_torch/ops/kernels/csrc/segment_sum_sorted.cu",
+    source="paddle_tpu_torch/ops/kernels/csrc/segment_sum.cu",
     replaces="paddle_tpu/ops/pallas/segment_sum.py:126",
-    doc="per-segment sum of rows sorted by segment id, one thread per "
-        "(segment, column) finding its rows by binary search: bitwise "
-        "segment_sum on the same merge, no atomics",
+    doc="per-segment sum of rows sorted by segment id: a block finds its "
+        "tile of segments' rows once, stages them in shared memory and "
+        "folds each segment in row order, bitwise segment_sum on the same "
+        "merge, no atomics",
 )
 
 

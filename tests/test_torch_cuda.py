@@ -224,11 +224,47 @@ def _zipf_inverse(seed, n, vocab=20_000):
     return inv.astype(np.int64), uniq.size
 
 
+def _hard_segment_cases(rng):
+    """(ascending ids, dim, nseg, rows 16-byte aligned): a 5,000-row
+    segment (longer than any ring of staged rows) at dim 16 and 13, all
+    rows on one segment, every other segment empty, long segments on both
+    sides of a tile's edge (segments 15 and 16: a tile holds 16 at dim
+    16), many tiles a block (200,000 segments) with two long segments in
+    a later tile, rows one float off 16-byte alignment (4-byte
+    copies)."""
+    long = np.sort(np.concatenate([rng.integers(0, 40, 300),
+                                   np.full(5000, 40),
+                                   rng.integers(41, 128, 300)]))
+    edge = np.sort(np.concatenate([np.full(700, 15), np.full(700, 16),
+                                   rng.integers(0, 96, 500)]))
+    return [(long, 16, 128, True), (long, 13, 128, True),
+            (np.full(26_624, 3), 16, 8, True),
+            (np.sort(2 * rng.integers(0, 4096, 26_624)), 16, 8192, True),
+            (edge, 16, 96, True),
+            (np.sort(np.concatenate([rng.integers(0, 200_000, 20_000),
+                                     np.full(700, 33), np.full(700, 34)])),
+             16, 200_000, True),
+            (np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 2047)), 16, 2048,
+             False)]
+
+
+def _card_grads(rng, n, dim, integer, aligned, dev):
+    g = (rng.integers(-50, 50, (n, dim)) if integer
+         else rng.standard_normal((n, dim))).astype(np.float32)
+    if aligned:
+        return torch.from_numpy(g).to(dev)
+    # a view one float into its buffer
+    buf = torch.empty(n * dim + 1, device=dev)
+    buf[1:] = torch.from_numpy(g.reshape(-1)).to(dev)
+    return buf[1:].view(n, dim)
+
+
 @pytest.mark.cuda
 def test_ps_kernels_match_plain_on_card():
     """segment_sum and pull_dequant bitwise equal to their plain versions
-    at the wide&deep shapes and at odd ones; segment_sum reruns bitwise
-    equal; an inverse on the card is refused."""
+    at the wide&deep shapes and at odd ones, segment_sum also on the hard
+    cases with their rows shuffled; segment_sum reruns bitwise equal; an
+    inverse on the card is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the wide&deep shapes")
@@ -240,14 +276,14 @@ def test_ps_kernels_match_plain_on_card():
     dev = torch.device("cuda")
     rng = np.random.default_rng(30)
     inv, u = _zipf_inverse(0, 26_624)
-    cases = [(inv, 16, 1 << (u - 1).bit_length(), False),
-             (rng.integers(0, 7, 64), 5, 8, True),
-             (np.zeros(1, np.int64), 16, 1, False),
-             (rng.integers(0, 40, 500), 13, 64, False)]
-    for inv, dim, nseg, integer in cases:
-        g = (rng.integers(-50, 50, (inv.size, dim)) if integer
-             else rng.standard_normal((inv.size, dim)))
-        g = torch.from_numpy(g.astype(np.float32)).to(dev)
+    cases = [(inv, 16, 1 << (u - 1).bit_length(), False, True),
+             (rng.integers(0, 7, 64), 5, 8, True, True),
+             (np.zeros(1, np.int64), 16, 1, False, True),
+             (rng.integers(0, 40, 500), 13, 64, False, True)]
+    cases += [(seg[rng.permutation(seg.size)], dim, nseg, False, aligned)
+              for seg, dim, nseg, aligned in _hard_segment_cases(rng)]
+    for inv, dim, nseg, integer, aligned in cases:
+        g = _card_grads(rng, inv.size, dim, integer, aligned, dev)
         ref = segment_sum(g, inv, nseg, mode="torch_ref")
         a, b = segment_sum(g, inv, nseg), segment_sum(g, inv, nseg)
         torch.cuda.synchronize()
@@ -266,16 +302,16 @@ def test_ps_kernels_match_plain_on_card():
         assert np.array_equal(got.cpu().numpy(),
                               dequantize_rows_q8(codes, scales))
     counts = registry.launch_counts()
-    assert counts["segment_sum"] == 8 and counts["pull_dequant"] == 5
+    assert counts["segment_sum"] == 22 and counts["pull_dequant"] == 5
 
 
 @pytest.mark.cuda
 def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
     """segment_sum_sorted bitwise equal to its plain version and to a
     rerun at the stream's merge, at vocab scale, with integer gradients,
-    n = 1 and dim 13; and, through merge_segments on an unsorted merge,
-    bitwise equal to segment_sum (kernel 7).  What it refuses on the
-    card raises."""
+    n = 1, dim 13 and the hard cases; and, through merge_segments on an
+    unsorted merge, bitwise equal to segment_sum (kernel 7).  What it
+    refuses on the card raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the stream's shapes")
@@ -295,10 +331,11 @@ def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
              (np.sort(rng.integers(0, 6000, 64)), 5, 6000, True),
              (np.zeros(1, np.int64), 16, 4096, False),
              (np.sort(rng.integers(0, 4096, 5000)), 13, 4096, False)]
-    for seg, dim, nseg, integer in cases:
-        g = (rng.integers(-50, 50, (seg.size, dim)) if integer
-             else rng.standard_normal((seg.size, dim)))
-        g = torch.from_numpy(g.astype(np.float32)).to(dev)
+    cases = [c + (True,) for c in cases]
+    cases += [(seg, dim, nseg, False, aligned)
+              for seg, dim, nseg, aligned in _hard_segment_cases(rng)]
+    for seg, dim, nseg, integer, aligned in cases:
+        g = _card_grads(rng, seg.size, dim, integer, aligned, dev)
         ref = segment_sum_sorted(g, seg, nseg, mode="torch_ref")
         a, b = segment_sum_sorted(g, seg, nseg), segment_sum_sorted(g, seg,
                                                                     nseg)
@@ -316,7 +353,7 @@ def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
         with pytest.raises(ValueError, match=msg):
             segment_sum_sorted(*args)
     counts = registry.launch_counts()
-    assert counts["segment_sum_sorted"] == 11 and counts["segment_sum"] == 1
+    assert counts["segment_sum_sorted"] == 25 and counts["segment_sum"] == 1
 
 
 class _Sink:

@@ -27,6 +27,7 @@ the same comparison at the serving shapes).
 import ast
 import contextlib
 import importlib
+import itertools
 import math
 import pathlib
 import subprocess
@@ -59,7 +60,9 @@ from paddle_tpu_torch.ops.kernels.kv_attention import (
 from paddle_tpu_torch.ops.kernels.opt_apply import (
     KINDS, SLOTS, opt_apply, opt_apply_ref, pack_hyper)
 from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
-from paddle_tpu_torch.ops.kernels.segment_sum import segment_plan, segment_sum
+from paddle_tpu_torch.ops.kernels.segment_sum import (
+    segment_plan, segment_sum, segment_sum_planned, segment_sum_sorted,
+    segment_sum_sorted_planned, segment_tile_plan)
 
 # the package re-exports functions under the module names
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -242,6 +245,9 @@ class _FakeLib:
         self.flash_attention_fwd = _FakeFn(self.calls, "flash_attention_fwd")
         self.flash_attention_fwd_sm90 = _FakeFn(self.calls,
                                                 "flash_attention_fwd_sm90")
+        self.segment_sum_f32 = _FakeFn(self.calls, "segment_sum_f32")
+        self.segment_sum_sorted_f32 = _FakeFn(self.calls,
+                                              "segment_sum_sorted_f32")
 
 
 @pytest.fixture
@@ -618,6 +624,224 @@ def test_segment_plan_orders_rows_stably_by_segment():
     assert torch.equal(offsets[-3:], torch.full((3,), 200, dtype=torch.int32))
     with pytest.raises(ValueError, match="outside"):
         segment_plan(np.array([0, 12]), 12, "cpu")
+
+
+@pytest.mark.parametrize("n,nseg,dim,aligned,want", [
+    # the wide&deep push, the online merge and vocab scale (dim 16)
+    (26_624, 8_192, 16, True, (4, 16, 16, 1, 192, (512, 1))),
+    (26_624, 6_242, 16, True, (4, 16, 16, 1, 192, (391, 1))),
+    (256, 200_000, 16, True, (4, 16, 16, 8, 32, (1_563, 1))),
+    (26_624, 8_192, 16, False, (1, 16, 16, 1, 48, (512, 1))),
+    (5_000, 5_000, 13, True, (1, 13, 19, 1, 59, (264, 1))),
+    (300, 50, 5, True, (1, 5, 51, 1, 153, (1, 1))),
+    (20, 3, 4_096, True, (4, 128, 2, 1, 24, (2, 32))),
+    (0, 7, 16, True, (4, 16, 16, 1, 32, (1, 1))),
+    (10 ** 6, 10 ** 6, 16, True, (4, 16, 16, 16, 64, (3_907, 1)))])
+def test_segment_tile_plan_at_the_main_path_shapes(n, nseg, dim, aligned,
+                                                   want):
+    """16 segments a tile at dim 16 (a thread a column), so the 6,242-
+    and 8,192-segment merges give 391 and 512 blocks for the card's 132
+    SMs; at vocab scale a block takes 8 tiles in turn; a stage of about
+    four average tiles' rows (a full 192-row stage at the merges, the
+    least, 32 rows, at vocab scale); 4-byte copies off 16-byte rows."""
+    p = segment_tile_plan(n, nseg, dim, aligned)
+    assert (p.vec, p.width, p.tile, p.reps, p.chunk, p.grid) == want
+
+
+def test_segment_tile_plan_fits_the_block():
+    """What ``csrc/segment_sum.cu``'s ``plan_ok`` checks, over a sweep:
+    a tile's (segment, column) pairs fit 256 threads, at most 16 tiles a
+    block, a stage's copies fit 768, 16-byte copies only on dims
+    divisible by 4, and the grid covers every segment and column."""
+    for n, nseg, dim, aligned in itertools.product(
+            (0, 1, 999, 26_624, 10 ** 6), (1, 5, 4_096, 200_000, 10 ** 7),
+            (1, 3, 4, 13, 16, 64, 100, 128, 129, 4_096), (True, False)):
+        p = segment_tile_plan(n, nseg, dim, aligned)
+        assert p.vec in (1, 4) and (p.vec == 1 or dim % 4 == 0 and aligned)
+        assert 1 <= p.width <= min(dim, 128) and p.width % p.vec == 0
+        assert 1 <= p.tile and p.tile * p.width <= 256
+        assert 1 <= p.reps <= 16
+        assert 1 <= p.chunk and p.chunk * (p.width // p.vec) <= 768
+        assert p.grid == (-(-nseg // (p.tile * p.reps)), -(-dim // p.width))
+    with pytest.raises(ValueError, match="nseg"):
+        segment_tile_plan(4, 0, 16)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_launchers_pass_the_tile_plan(fake_flash_lib, offset):
+    """Both launchers call their entry point of ``csrc/segment_sum.cu``
+    with the pointers in its order and :func:`segment_tile_plan`'s plan;
+    rows one float off 16-byte alignment take 4-byte copies."""
+    g = torch.zeros(100 * 16 + 1)[offset:offset + 100 * 16].view(100, 16)
+    inv = np.random.default_rng(18).integers(0, 40, 100)
+    order, offsets = segment_plan(inv, 40, "cpu")
+    seg = torch.from_numpy(np.sort(inv).astype(np.int32))
+    out7 = segment_sum_planned(g, order, offsets)
+    out8 = segment_sum_sorted_planned(g, seg, 40)
+    plan = segment_tile_plan(100, 40, 16, offset == 0)
+    assert plan.vec == (1 if offset else 4)
+    tail = (100, 40, 16, plan.tile, plan.reps, plan.width, plan.chunk,
+            plan.vec, 0)
+    assert fake_flash_lib.calls == [
+        ("segment_sum_f32", (g.data_ptr(), order.data_ptr(),
+                             offsets.data_ptr(), out7.data_ptr()) + tail),
+        ("segment_sum_sorted_f32", (g.data_ptr(), seg.data_ptr(),
+                                    out8.data_ptr()) + tail)]
+    for name, args in fake_flash_lib.calls:
+        assert len(getattr(fake_flash_lib, name).argtypes) == len(args)
+    assert out7.shape == out8.shape == (40, 16)
+    counts = registry.launch_counts()
+    assert counts["segment_sum"] == counts["segment_sum_sorted"] == 1
+
+
+def _warp_lower_bound(seg, n, key):
+    """``warp_lower_bound`` of ``csrc/segment_sum.cu``: 128 probes a round
+    (4 a lane), then the last <= 128 ids one by one."""
+    lo, hi = 0, n
+    while hi - lo > 128:
+        probes = [lo + (i + 1) * (hi - lo) // 129 for i in range(128)]
+        below = sum(int(seg[p] < key) for p in probes)
+        new_lo = probes[below - 1] + 1 if below else lo
+        hi = probes[below] if below < 128 else hi
+        lo = new_lo
+    return lo + sum(int(p < hi and seg[p] < key)
+                    for p in range(lo, lo + 128))
+
+
+def _emulate_tiles(g, nseg, plan, seg=None, order=None, offsets=None):
+    """The blocks of ``csrc/segment_sum.cu`` run one after another in
+    numpy: zeros over the block's output, its ranges (kernel 7:
+    ``offsets``; kernel 8: two warp searches of the sorted ``seg`` and
+    the mark pass), then its rows [P0, P1) chunk by chunk, each of the 256
+    threads folding its column of segment j of one tile after another in
+    row order from 0.0 and storing each sum once its segment ends.
+    Returns the output and how many sums each element got; asserts that
+    the zeros cover the output once."""
+    n, dim = g.shape
+    out = np.full((nseg, dim), np.nan, np.float32)
+    zeros = np.zeros((nseg, dim), np.int64)
+    sums = np.zeros((nseg, dim), np.int64)
+    tile = plan.tile
+    for bx, by in itertools.product(*map(range, plan.grid)):
+        s0, col0 = bx * tile * plan.reps, by * plan.width
+        ns = min(tile * plan.reps, nseg - s0)
+        w = min(plan.width, dim - col0)
+        out[s0:s0 + ns, col0:col0 + w] = 0.0
+        zeros[s0:s0 + ns, col0:col0 + w] += 1
+        if seg is None:
+            starts, rowidx = offsets[s0:s0 + ns + 1].tolist(), order
+            p0, p1 = starts[0], starts[ns]
+        else:
+            p0 = _warp_lower_bound(seg, n, s0)
+            p1 = n if s0 + ns >= nseg else _warp_lower_bound(seg, n, s0 + ns)
+            starts, rowidx = [p1] * (ns + 1), np.arange(n)
+            for p in range(p0, p1):
+                for k in range(s0 if p == p0 else seg[p - 1] + 1,
+                               seg[p] + 1):
+                    starts[k - s0] = p
+        chunks = [(c0, g[rowidx[c0:min(c0 + plan.chunk, p1)],
+                         col0:col0 + w])
+                  for c0 in range(p0, p1, plan.chunk)]
+        for tid in range(256):
+            j, c = divmod(tid, plan.width)
+            if j >= tile or c >= w:
+                continue
+            t, acc = 0, np.float32(0.0)
+            for c0, buf in chunks:
+                c1 = c0 + buf.shape[0]
+                while t * tile + j < ns:
+                    i = t * tile + j
+                    a, b = starts[i], starts[i + 1]
+                    if a >= c1:
+                        break
+                    for r in range(max(a, c0), min(b, c1)):
+                        acc = np.float32(acc + buf[r - c0, c])
+                    if b > c1:
+                        break
+                    if b > a:
+                        out[s0 + i, col0 + c] = acc
+                        sums[s0 + i, col0 + c] += 1
+                    t, acc = t + 1, np.float32(0.0)
+    assert (zeros == 1).all()
+    return out, sums
+
+
+_TILE_CASES = ("zipf", "long segment dim 16", "long segment dim 13",
+               "all rows on one segment", "every other segment empty",
+               "tile edge in long segments", "n=1", "vocab scale",
+               "two tiles a block", "unaligned rows", "dim 5", "dim 4096")
+
+
+def _tile_case(label):
+    """(ascending ids, dim, nseg, rows 16-byte aligned): small forms of
+    the card's cases; the long segments outrun the plan's 3-stage ring
+    (or, for two tiles a block, the 32-row stages)."""
+    rng = np.random.default_rng(_TILE_CASES.index(label) + 40)
+    zipf = np.sort(np.minimum(rng.zipf(1.3, 600) - 1, 63))
+    long = np.sort(np.concatenate([rng.integers(0, 40, 150),
+                                   np.full(1000, 40),
+                                   rng.integers(41, 100, 150)]))
+    # segments 15 and 16 on either side of the first tile's edge
+    edge = np.sort(np.concatenate([np.full(300, 15), np.full(300, 16),
+                                   rng.integers(0, 96, 100)]))
+    return {"zipf": (zipf, 16, 64, True),
+            "long segment dim 16": (long, 16, 100, True),
+            "long segment dim 13": (long, 13, 100, True),
+            "all rows on one segment": (np.full(700, 5), 16, 40, True),
+            "every other segment empty": (
+                np.sort(2 * rng.integers(0, 150, 400)), 16, 300, True),
+            "tile edge in long segments": (edge, 16, 96, True),
+            "n=1": (np.zeros(1, np.int64), 16, 1, True),
+            # 4 tiles a block
+            "vocab scale": (np.sort(rng.integers(0, 100_000, 64)), 16,
+                            100_000, True),
+            # 2 tiles a block, 32-row stages: block 0's second tile (the
+            # long segments 17 and 18) streams through the ring after its
+            # first
+            "two tiles a block": (np.sort(np.concatenate([
+                rng.integers(0, 40_000, 2000), np.full(600, 17),
+                np.full(600, 18)])), 16, 40_000, True),
+            "unaligned rows": (zipf, 16, 64, False),
+            "dim 5": (np.sort(rng.integers(0, 50, 300)), 5, 50, True),
+            "dim 4096": (np.sort(rng.integers(0, 3, 20)), 4096, 3, True),
+            }[label]
+
+
+@pytest.mark.parametrize("kernel", [7, 8])
+@pytest.mark.parametrize("label", _TILE_CASES)
+def test_tile_algorithm_adds_in_row_order_and_matches_jax(kernel, label):
+    """The kernels' block algorithm, emulated in numpy under the real
+    launch plan: on float gradients bitwise the sequential row-order sum
+    and the plain version; on integer ones bitwise the reference's
+    ``segment_sum_ref`` (kernel 7, rows in shuffled order) or
+    ``segment_sum_sorted_ref`` (kernel 8)."""
+    seg, dim, nseg, aligned = _tile_case(label)
+    n = seg.size
+    rng = np.random.default_rng(kernel)
+    inv = seg if kernel == 8 else seg[rng.permutation(n)]
+    plan = segment_tile_plan(n, nseg, dim, aligned)
+    if kernel == 8:
+        emulate = lambda x: _emulate_tiles(x, nseg, plan, seg=inv)  # noqa
+        plain, jref = segment_sum_sorted, jss.segment_sum_sorted_ref
+    else:
+        order, offsets = (t.numpy() for t in segment_plan(inv, nseg, "cpu"))
+        emulate = lambda x: _emulate_tiles(  # noqa: E731
+            x, nseg, plan, order=order, offsets=offsets)
+        plain, jref = segment_sum, jss.segment_sum_ref
+    g = (_rand(rng, n, dim) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(
+        np.float32)
+    want = np.zeros((nseg, dim), np.float32)
+    for i in range(n):
+        want[inv[i]] += g[i]
+    got, sums = emulate(g)
+    # one sum for every element of a segment with rows, none elsewhere
+    has_rows = np.bincount(inv, minlength=nseg) > 0
+    assert np.array_equal(sums, np.repeat(has_rows[:, None], dim, 1))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, plain(torch.from_numpy(g), inv, nseg).numpy())
+    gi = rng.integers(-50, 50, (n, dim)).astype(np.float32)
+    ref = jref(jnp.asarray(gi), jnp.asarray(inv.astype(np.int32)), nseg)
+    assert np.array_equal(emulate(gi)[0], np.asarray(ref))
 
 
 # ---------------------------------------------------------------------
