@@ -178,8 +178,8 @@ bound and beside ``torch._int_mm`` plus its scale pass, which compute
 the same function and which the port never calls.  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
-200,000; integer gradients; n = 1; dim 13; the hard cases of
-``hard_segment_cases``: a 5,000-row segment at dim 16 and 13, all rows
+200,000; integer gradients; n = 1; dim 13; the hard cases of the
+port's ``hard_segment_cases``: a 5,000-row segment at dim 16 and 13, all rows
 on one segment, every other segment empty, long segments on both sides
 of a tile's edge, many tiles a block, unaligned rows; each run twice)
 and, through ``merge_segments``, against ``segment_sum`` on the same
@@ -1362,33 +1362,6 @@ class WideDeepTower:
         return torch.stack(self.losses).cpu().numpy()
 
 
-def hard_segment_cases(rng):
-    """Phase 3's hard cases for kernels 7 and 8, as (label, ascending
-    segment ids, dim, nseg, rows 16-byte aligned): a 5,000-row segment
-    (longer than any ring of staged rows) at dim 16 and 13, all rows on
-    one segment, every other segment empty, long segments on both sides
-    of a tile's edge (segments 15 and 16: a tile holds 16 at dim 16),
-    many tiles a block (200,000 segments: a block takes 8 tiles in turn
-    through 32-row ring stages) with two long segments in a later tile,
-    and rows one float off 16-byte alignment (4-byte copies)."""
-    long = np.sort(np.concatenate([rng.integers(0, 40, 300),
-                                   np.full(5000, 40),
-                                   rng.integers(41, 128, 300)]))
-    edge = np.sort(np.concatenate([np.full(700, 15), np.full(700, 16),
-                                   rng.integers(0, 96, 500)]))
-    zipf = np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 2047))
-    return [("5,000-row segment", long, 16, 128, True),
-            ("5,000-row segment", long, 13, 128, True),
-            ("all rows on one segment", np.full(26_624, 3), 16, 8, True),
-            ("every other segment empty",
-             np.sort(2 * rng.integers(0, 4096, 26_624)), 16, 8192, True),
-            ("tile edge in long segments", edge, 16, 96, True),
-            ("many tiles a block", np.sort(np.concatenate([
-                rng.integers(0, 200_000, 20_000), np.full(700, 33),
-                np.full(700, 34)])), 16, 200_000, True),
-            ("unaligned rows", zipf, 16, 2048, False)]
-
-
 def _segment_grads(n, d, integer, aligned, dev, gen):
     """Seeded [n, d] f32 gradients on the card; not ``aligned``: a view
     one float into its buffer."""
@@ -1402,7 +1375,8 @@ def _segment_grads(n, d, integer, aligned, dev, gen):
 
 def _tile_note(plan, per_seg):
     return (f"longest segment {int(per_seg.max())} rows; plan: {plan.tile} "
-            f"segments a block, {plan.grid[0] * plan.grid[1]} blocks, "
+            f"segments a tile, {plan.reps} tiles a block, "
+            f"{plan.grid[0] * plan.grid[1]} blocks, "
             f"{plan.chunk}-row ring stages, {4 * plan.vec}-byte copies")
 
 
@@ -1416,7 +1390,8 @@ def ps_cases(dev, batches):
                                                        quantize_rows_q8)
     from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
     from paddle_tpu_torch.ops.kernels.segment_sum import (
-        segment_plan, segment_sum, segment_sum_planned, segment_tile_plan)
+        hard_segment_cases, segment_plan, segment_sum, segment_sum_planned,
+        segment_tile_plan)
     g0 = torch.Generator(device=dev).manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -1467,7 +1442,9 @@ def ps_cases(dev, batches):
         rows["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                    bound_ms=bms, bound_by=by,
                                    library_ms=lib)
-        plan = segment_tile_plan(n, nseg, d)
+        plan = segment_tile_plan(
+            n, nseg, d, sms=torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
         log(f"{msg}; {int((per_seg > 0).sum())} segments in use, "
             f"{_tile_note(plan, per_seg)}; kernel_ms {ms:.4f} "
             f"(wrapper with the host plan and its copy, one call between "
@@ -2257,7 +2234,7 @@ def sorted_cases(dev, batches):
     ``index_add_``, with their longest segment and launch plan.  Returns
     its kernels-line row."""
     from paddle_tpu_torch.ops.kernels.segment_sum import (
-        merge_segments, segment_sum, segment_sum_sorted,
+        hard_segment_cases, merge_segments, segment_sum, segment_sum_sorted,
         segment_sum_sorted_planned, segment_tile_plan)
     g0 = torch.Generator(device=dev).manual_seed(SEED + 8)
     rng = np.random.default_rng(SEED + 8)
@@ -2318,7 +2295,9 @@ def sorted_cases(dev, batches):
         if i == 0:   # the faster of the two library calls, as row 7
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                        bound_ms=bms, bound_by=by, library_ms=min(red, add))
-        plan = segment_tile_plan(n, nseg, d)
+        plan = segment_tile_plan(
+            n, nseg, d, sms=torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
         log(f"{msg}; {int((per_seg > 0).sum())} segments in use, "
             f"{_tile_note(plan, per_seg)}; kernel_ms {ms:.4f} "
             f"(wrapper with the host check and the id copy, one call "
@@ -3168,16 +3147,21 @@ def main() -> int:
         f"cache_dir.cc) {host_s:.1f} s beside them")
     for src in _build.SOURCES:
         secs = _build.build_seconds.get(src)
-        log(f"build {src}: " + ("cached" if secs is None else
-                                f"{secs:.1f} s"))
+        log(f"build {src}: " + ("cached (its kept log below)" if secs is None
+                                else f"{secs:.1f} s"))
         for line in _build.build_logs.get(src, "").splitlines():
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line or "warning" in line:
                 log("  " + line.strip())
     # kernels 7 and 8 fold from registers and shared memory: a spill would
-    # put their accumulators back in memory
-    spills = re.findall(r"([1-9][0-9]*) bytes spill",
-                        _build.build_logs.get("segment_sum.cu", ""))
+    # put their accumulators back in memory.  A cached library is checked
+    # on the log kept beside it
+    seg_log = _build.build_logs.get("segment_sum.cu")
+    if not seg_log or "Compiling entry" not in seg_log:
+        fail("build segment_sum.cu: no ptxas -v log to check for spills "
+             "(a library cached without its log: empty "
+             f"{_build.BUILD_DIR} and rerun)")
+    spills = re.findall(r"([1-9][0-9]*) bytes spill", seg_log)
     if spills:
         fail(f"build segment_sum.cu: ptxas reports spills ({spills} bytes)")
     # the sm90 flash forward's shared memory is dynamic (ptxas does not

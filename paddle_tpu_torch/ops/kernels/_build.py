@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers the
 source and the flags, so an edited source rebuilds), then loaded with
-``ctypes``.  No PyTorch header is included: a build takes seconds, not
-the minutes a ``torch.utils.cpp_extension`` build takes.
+``ctypes``.  ``nvcc``'s output (``ptxas -v``: registers, shared memory,
+spills) is kept beside the library as ``<name>-<hash>.log`` and read
+back into :data:`build_logs` when the library is already built.  No
+PyTorch header is included: a build takes seconds, not the minutes a
+``torch.utils.cpp_extension`` build takes.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code with the CUDA error string.
@@ -39,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}       # source -> nvcc's stderr (ptxas -v)
+build_logs: Dict[str, str] = {}       # source -> nvcc's output (ptxas -v)
 build_seconds: Dict[str, float] = {}  # source -> wall seconds of its nvcc
 
 
@@ -71,6 +74,9 @@ def build(sources: Iterable[str] = SOURCES) -> List[Path]:
     sources = list(sources)
     targets = [_target(s) for s in sources]
     todo = [(s, t) for s, t in zip(sources, targets) if not t.is_file()]
+    for s, t in zip(sources, targets):
+        if t.is_file() and t.with_suffix(".log").is_file():
+            build_logs.setdefault(s, t.with_suffix(".log").read_text())
     if todo:
         nvcc = nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,6 +95,10 @@ def build(sources: Iterable[str] = SOURCES) -> List[Path]:
             if p.returncode != 0:
                 failed.append(f"{s} (rc {p.returncode}):\n{build_logs[s]}")
             else:
+                # the log first: a library on disk has its log beside it
+                log = tmp.with_suffix(".log")
+                log.write_text(build_logs[s])
+                os.replace(log, t.with_suffix(".log"))
                 os.replace(tmp, t)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

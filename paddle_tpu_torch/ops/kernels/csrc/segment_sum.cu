@@ -32,14 +32,14 @@
 // - a block of 256 threads owns tiles of 256 / width consecutive segments
 //   (16 at dim 16: the 6,242- and 8,192-segment merges give 391 and 512
 //   blocks for 132 SMs), several of them in turn where the tiles
-//   outnumber three waves of blocks (8 at vocab scale), and a slice of at
-//   most 128 columns.  It first stores zeros over all its output, so a
-//   segment with no row needs nothing more;
+//   outnumber the blocks the card holds at once (4 an SM; at most 16
+//   tiles, which bounds the ranges a block keeps in shared memory), and
+//   a slice of at most 128 columns.  It first stores zeros over all its
+//   output, so a segment with no row needs nothing more;
 // - the block's row ranges are found once, into shared memory: kernel 7
 //   reads its offsets; kernel 8 finds its row range [lo, hi) by two
 //   warp-wide searches (128 probes a round: 3 rounds of loads over 26,624
-//   ids), or in one round over all the ids when they are few (vocab
-//   scale: 256), then a thread per row in [lo, hi), 1,024 rows a round,
+//   ids), then a thread per row in [lo, hi), 1,024 rows a round,
 //   marks where its segment starts, empty segments getting empty ranges.
 //   No thread searches for its own (segment, column);
 // - all threads stream the block's rows through a 4-stage ring of
@@ -247,27 +247,11 @@ __device__ __forceinline__ void segment_block(
   // 1. the block's rows [P0, P1): kernel 7 reads its offsets (all of them,
   // into `starts`), kernel 8 searches the ids
   if constexpr (kSorted) {
-    if (n <= 4 * kThreads) {
-      // few ids (vocab scale): one round over all of them, the thread at
-      // each key's first row at or above it writes the bound
-      if (tid < 2) bounds[tid] = n;
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = tid + i * kThreads;
-        if (p < n) {
-          const int cur = idx[p], prev = p ? idx[p - 1] : -1;
-          if (prev < s0 && cur >= s0) bounds[0] = p;
-          if (prev < s0 + ns && cur >= s0 + ns) bounds[1] = p;
-        }
-      }
-    } else {
-      const int warp = tid >> 5;
-      if (warp < 2) {
-        const int key = s0 + warp * ns;
-        const int b = key >= nseg ? n : warp_lower_bound(idx, n, key);
-        if ((tid & 31) == 0) bounds[warp] = b;
-      }
+    const int warp = tid >> 5;
+    if (warp < 2) {
+      const int key = s0 + warp * ns;
+      const int b = key >= nseg ? n : warp_lower_bound(idx, n, key);
+      if ((tid & 31) == 0) bounds[warp] = b;
     }
   } else {
     for (int j = tid; j <= ns; j += kThreads) starts[j] = offsets[s0 + j];

@@ -42,9 +42,11 @@ import numpy as np
 import torch
 
 from . import _build, registry
+from .flash_attention import H100_SMS, _sm_count
 
 __all__ = ["segment_sum", "segment_sum_ref", "segment_plan",
            "segment_sum_planned", "segment_tile_plan", "TilePlan",
+           "hard_segment_cases",
            "segment_sum_sorted",
            "segment_sum_sorted_ref", "segment_sum_sorted_planned",
            "merge_segments", "SORTED_NSEG_MIN"]
@@ -98,13 +100,11 @@ def segment_plan(inverse, num_segments: int, device) -> tuple:
     return both[:inv.size], both[inv.size:]
 
 
-# the kernels' block (csrc/segment_sum.cu): 256 threads, a slice of at
-# most 128 columns, up to 16 tiles in turn, ring stages of 768 copies.
-# Past 1,584 blocks (three waves of the 528 an H100 holds at 4 an SM) a
-# block takes tiles in turn: at vocab scale 8 tiles a block (1,563
-# blocks) ran fastest of 1 to 16 on the card
-_THREADS, _MAX_WIDTH, _MAX_REPS, _STAGE_GROUPS = 256, 128, 16, 768
-_MAX_BLOCKS = 1584
+# the kernels' block (csrc/segment_sum.cu): 256 threads, 4 blocks an SM
+# (its launch bounds), a slice of at most 128 columns, up to 16 tiles in
+# turn, ring stages of 768 copies
+_THREADS, _BLOCKS_PER_SM, _MAX_WIDTH = 256, 4, 128
+_MAX_REPS, _STAGE_GROUPS = 16, 768
 
 
 class TilePlan(NamedTuple):
@@ -119,18 +119,20 @@ class TilePlan(NamedTuple):
     grid: tuple
 
 
-def segment_tile_plan(n: int, nseg: int, dim: int,
-                      aligned: bool = True) -> TilePlan:
+def segment_tile_plan(n: int, nseg: int, dim: int, aligned: bool = True,
+                      sms: int = H100_SMS) -> TilePlan:
     """The launch plan of kernels 7 and 8 for ``n`` rows of ``dim`` into
-    ``nseg`` segments (``aligned``: the rows start on 16 bytes).
+    ``nseg`` segments (``aligned``: the rows start on 16 bytes) on a card
+    of ``sms`` SMs.
 
     - A block gives each of its threads one column of one segment, so a
       tile holds ``256 // width`` segments (16 at dim 16: the 6,242- and
       8,192-segment merges give 391 and 512 blocks for the card's 132
       SMs).
-    - Past 1,584 blocks, a block takes up to 16 tiles in turn (8 at
-      vocab scale, 200,000 segments: 1,563 blocks), so almost-empty tiles
-      do not each pay a block's fixed latency.
+    - Where the tiles outnumber the blocks the card holds at once (4 an
+      SM: 528 on an H100), a block takes up to 16 tiles in turn, so the
+      surplus blocks do not queue behind the first wave, each paying a
+      block's fixed latency for an almost-empty tile.
     - Rows are copied ``vec`` floats at a time (16 bytes on 16-byte rows
       of a dim divisible by 4).  A ring stage holds about four average
       tiles' rows: at least 32 and at most 768 copies (192 rows at dim
@@ -145,12 +147,42 @@ def segment_tile_plan(n: int, nseg: int, dim: int,
     vec = 4 if aligned and dim % 4 == 0 else 1
     width = min(dim, _MAX_WIDTH)
     tile = _THREADS // width
-    reps = min(_MAX_REPS, -(-nseg // tile // _MAX_BLOCKS))
+    tiles = -(-nseg // tile)
+    reps = min(_MAX_REPS, -(-tiles // (_BLOCKS_PER_SM * sms)))
     want = -(-4 * n * tile // nseg)
     chunk = min(_STAGE_GROUPS * vec // width,
                 max(32, -(-want // 32) * 32))
     return TilePlan(vec, width, tile, reps, chunk,
                     (-(-nseg // (tile * reps)), -(-dim // width)))
+
+
+def hard_segment_cases(rng):
+    """The cases that stress the tile design of kernels 7 and 8, for the
+    card's checks against the plain versions, as (label, ascending
+    segment ids, dim, nseg, rows 16-byte aligned): a 5,000-row segment
+    (longer than any ring of staged rows) at dim 16 and 13, all rows on
+    one segment, every other segment empty, long segments on both sides
+    of a tile's edge (segments 15 and 16: a tile holds 16 at dim 16),
+    many tiles a block (200,000 segments: on an H100 a block takes 16
+    tiles in turn through 32-row ring stages) with two long segments in
+    a later tile, and rows one float off 16-byte alignment (4-byte
+    copies).  ``rng`` is a numpy ``Generator``."""
+    long = np.sort(np.concatenate([rng.integers(0, 40, 300),
+                                   np.full(5000, 40),
+                                   rng.integers(41, 128, 300)]))
+    edge = np.sort(np.concatenate([np.full(700, 15), np.full(700, 16),
+                                   rng.integers(0, 96, 500)]))
+    zipf = np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 2047))
+    return [("5,000-row segment", long, 16, 128, True),
+            ("5,000-row segment", long, 13, 128, True),
+            ("all rows on one segment", np.full(26_624, 3), 16, 8, True),
+            ("every other segment empty",
+             np.sort(2 * rng.integers(0, 4096, 26_624)), 16, 8192, True),
+            ("tile edge in long segments", edge, 16, 96, True),
+            ("many tiles a block", np.sort(np.concatenate([
+                rng.integers(0, 200_000, 20_000), np.full(700, 33),
+                np.full(700, 34)])), 16, 200_000, True),
+            ("unaligned rows", zipf, 16, 2048, False)]
 
 
 def _launch(spec, entry: str, grads, index, nseg: int) -> torch.Tensor:
@@ -160,7 +192,8 @@ def _launch(spec, entry: str, grads, index, nseg: int) -> torch.Tensor:
     count the launch on ``spec`` and return the [nseg, dim] output."""
     n, dim = grads.shape
     out = torch.empty((nseg, dim), dtype=torch.float32, device=grads.device)
-    plan = segment_tile_plan(n, nseg, dim, grads.data_ptr() % 16 == 0)
+    plan = segment_tile_plan(n, nseg, dim, grads.data_ptr() % 16 == 0,
+                             _sm_count(grads.device))
     lib = _build.load(_SOURCE)
     fn = getattr(lib, entry)
     if fn.argtypes is None:

@@ -224,30 +224,6 @@ def _zipf_inverse(seed, n, vocab=20_000):
     return inv.astype(np.int64), uniq.size
 
 
-def _hard_segment_cases(rng):
-    """(ascending ids, dim, nseg, rows 16-byte aligned): a 5,000-row
-    segment (longer than any ring of staged rows) at dim 16 and 13, all
-    rows on one segment, every other segment empty, long segments on both
-    sides of a tile's edge (segments 15 and 16: a tile holds 16 at dim
-    16), many tiles a block (200,000 segments) with two long segments in
-    a later tile, rows one float off 16-byte alignment (4-byte
-    copies)."""
-    long = np.sort(np.concatenate([rng.integers(0, 40, 300),
-                                   np.full(5000, 40),
-                                   rng.integers(41, 128, 300)]))
-    edge = np.sort(np.concatenate([np.full(700, 15), np.full(700, 16),
-                                   rng.integers(0, 96, 500)]))
-    return [(long, 16, 128, True), (long, 13, 128, True),
-            (np.full(26_624, 3), 16, 8, True),
-            (np.sort(2 * rng.integers(0, 4096, 26_624)), 16, 8192, True),
-            (edge, 16, 96, True),
-            (np.sort(np.concatenate([rng.integers(0, 200_000, 20_000),
-                                     np.full(700, 33), np.full(700, 34)])),
-             16, 200_000, True),
-            (np.sort(np.minimum(rng.zipf(1.3, 5000) - 1, 2047)), 16, 2048,
-             False)]
-
-
 def _card_grads(rng, n, dim, integer, aligned, dev):
     g = (rng.integers(-50, 50, (n, dim)) if integer
          else rng.standard_normal((n, dim))).astype(np.float32)
@@ -271,7 +247,8 @@ def test_ps_kernels_match_plain_on_card():
     from paddle_tpu_torch.distributed.fleet.ps import (dequantize_rows_q8,
                                                        quantize_rows_q8)
     from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
-    from paddle_tpu_torch.ops.kernels.segment_sum import segment_sum
+    from paddle_tpu_torch.ops.kernels.segment_sum import (hard_segment_cases,
+                                                          segment_sum)
     registry.reset_counts()
     dev = torch.device("cuda")
     rng = np.random.default_rng(30)
@@ -281,7 +258,7 @@ def test_ps_kernels_match_plain_on_card():
              (np.zeros(1, np.int64), 16, 1, False, True),
              (rng.integers(0, 40, 500), 13, 64, False, True)]
     cases += [(seg[rng.permutation(seg.size)], dim, nseg, False, aligned)
-              for seg, dim, nseg, aligned in _hard_segment_cases(rng)]
+              for _, seg, dim, nseg, aligned in hard_segment_cases(rng)]
     for inv, dim, nseg, integer, aligned in cases:
         g = _card_grads(rng, inv.size, dim, integer, aligned, dev)
         ref = segment_sum(g, inv, nseg, mode="torch_ref")
@@ -316,7 +293,7 @@ def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the stream's shapes")
     from paddle_tpu_torch.ops.kernels.segment_sum import (
-        merge_segments, segment_sum, segment_sum_sorted)
+        hard_segment_cases, merge_segments, segment_sum, segment_sum_sorted)
     registry.reset_counts()
     dev = torch.device("cuda")
     rng = np.random.default_rng(31)
@@ -333,7 +310,7 @@ def test_segment_sum_sorted_matches_plain_and_kernel7_on_card():
              (np.sort(rng.integers(0, 4096, 5000)), 13, 4096, False)]
     cases = [c + (True,) for c in cases]
     cases += [(seg, dim, nseg, False, aligned)
-              for seg, dim, nseg, aligned in _hard_segment_cases(rng)]
+              for _, seg, dim, nseg, aligned in hard_segment_cases(rng)]
     for seg, dim, nseg, integer, aligned in cases:
         g = _card_grads(rng, seg.size, dim, integer, aligned, dev)
         ref = segment_sum_sorted(g, seg, nseg, mode="torch_ref")

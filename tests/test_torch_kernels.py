@@ -61,8 +61,8 @@ from paddle_tpu_torch.ops.kernels.opt_apply import (
     KINDS, SLOTS, opt_apply, opt_apply_ref, pack_hyper)
 from paddle_tpu_torch.ops.kernels.pull_dequant import pull_dequant
 from paddle_tpu_torch.ops.kernels.segment_sum import (
-    segment_plan, segment_sum, segment_sum_planned, segment_sum_sorted,
-    segment_sum_sorted_planned, segment_tile_plan)
+    hard_segment_cases, segment_plan, segment_sum, segment_sum_planned,
+    segment_sum_sorted, segment_sum_sorted_planned, segment_tile_plan)
 
 # the package re-exports functions under the module names
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -630,7 +630,7 @@ def test_segment_plan_orders_rows_stably_by_segment():
     # the wide&deep push, the online merge and vocab scale (dim 16)
     (26_624, 8_192, 16, True, (4, 16, 16, 1, 192, (512, 1))),
     (26_624, 6_242, 16, True, (4, 16, 16, 1, 192, (391, 1))),
-    (256, 200_000, 16, True, (4, 16, 16, 8, 32, (1_563, 1))),
+    (256, 200_000, 16, True, (4, 16, 16, 16, 32, (782, 1))),
     (26_624, 8_192, 16, False, (1, 16, 16, 1, 48, (512, 1))),
     (5_000, 5_000, 13, True, (1, 13, 19, 1, 59, (264, 1))),
     (300, 50, 5, True, (1, 5, 51, 1, 153, (1, 1))),
@@ -641,11 +641,24 @@ def test_segment_tile_plan_at_the_main_path_shapes(n, nseg, dim, aligned,
                                                    want):
     """16 segments a tile at dim 16 (a thread a column), so the 6,242-
     and 8,192-segment merges give 391 and 512 blocks for the card's 132
-    SMs; at vocab scale a block takes 8 tiles in turn; a stage of about
+    SMs; at vocab scale a block takes 16 tiles in turn; a stage of about
     four average tiles' rows (a full 192-row stage at the merges, the
     least, 32 rows, at vocab scale); 4-byte copies off 16-byte rows."""
     p = segment_tile_plan(n, nseg, dim, aligned)
     assert (p.vec, p.width, p.tile, p.reps, p.chunk, p.grid) == want
+
+
+@pytest.mark.parametrize("nseg,sms,reps", [
+    (8_192, 132, 1), (8_448, 132, 1), (8_449, 132, 2), (200_000, 132, 16),
+    (200_000, 66, 16), (50_000, 132, 6), (50_000, 66, 12), (8_192, 4, 16)])
+def test_segment_tile_plan_takes_tiles_in_turn_past_one_wave(nseg, sms,
+                                                             reps):
+    """A block takes tiles in turn only where the 16-segment tiles
+    outnumber the blocks the card holds at once (4 an SM: 528 on 132
+    SMs), at most 16, so the grid stays within one wave where it can."""
+    p = segment_tile_plan(1000, nseg, 16, sms=sms)
+    assert p.reps == reps
+    assert p.grid[0] <= 4 * sms or p.reps == 16
 
 
 def test_segment_tile_plan_fits_the_block():
@@ -694,154 +707,53 @@ def test_segment_launchers_pass_the_tile_plan(fake_flash_lib, offset):
     assert counts["segment_sum"] == counts["segment_sum_sorted"] == 1
 
 
-def _warp_lower_bound(seg, n, key):
-    """``warp_lower_bound`` of ``csrc/segment_sum.cu``: 128 probes a round
-    (4 a lane), then the last <= 128 ids one by one."""
-    lo, hi = 0, n
-    while hi - lo > 128:
-        probes = [lo + (i + 1) * (hi - lo) // 129 for i in range(128)]
-        below = sum(int(seg[p] < key) for p in probes)
-        new_lo = probes[below - 1] + 1 if below else lo
-        hi = probes[below] if below < 128 else hi
-        lo = new_lo
-    return lo + sum(int(p < hi and seg[p] < key)
-                    for p in range(lo, lo + 128))
+def _plain_cases():
+    """(label, ascending ids, dim, nseg): the card's hard cases for
+    kernels 7 and 8 (``hard_segment_cases``, rows aligned or not alike on
+    the CPU) and the main path's odd shapes at a small size."""
+    rng = np.random.default_rng(40)
+    cases = [(f"{label} dim {dim}", seg, dim, nseg)
+             for label, seg, dim, nseg, _ in hard_segment_cases(rng)]
+    return cases + [
+        ("zipf merge", np.sort(np.minimum(rng.zipf(1.3, 600) - 1, 63)), 16,
+         64),
+        ("n=1", np.zeros(1, np.int64), 16, 1),
+        ("vocab scale", np.sort(rng.integers(0, 200_000, 256)), 16, 200_000),
+        ("dim 5", np.sort(rng.integers(0, 50, 300)), 5, 50),
+        ("dim 4096", np.sort(rng.integers(0, 3, 20)), 4096, 3)]
 
 
-def _emulate_tiles(g, nseg, plan, seg=None, order=None, offsets=None):
-    """The blocks of ``csrc/segment_sum.cu`` run one after another in
-    numpy: zeros over the block's output, its ranges (kernel 7:
-    ``offsets``; kernel 8: two warp searches of the sorted ``seg`` and
-    the mark pass), then its rows [P0, P1) chunk by chunk, each of the 256
-    threads folding its column of segment j of one tile after another in
-    row order from 0.0 and storing each sum once its segment ends.
-    Returns the output and how many sums each element got; asserts that
-    the zeros cover the output once."""
-    n, dim = g.shape
-    out = np.full((nseg, dim), np.nan, np.float32)
-    zeros = np.zeros((nseg, dim), np.int64)
-    sums = np.zeros((nseg, dim), np.int64)
-    tile = plan.tile
-    for bx, by in itertools.product(*map(range, plan.grid)):
-        s0, col0 = bx * tile * plan.reps, by * plan.width
-        ns = min(tile * plan.reps, nseg - s0)
-        w = min(plan.width, dim - col0)
-        out[s0:s0 + ns, col0:col0 + w] = 0.0
-        zeros[s0:s0 + ns, col0:col0 + w] += 1
-        if seg is None:
-            starts, rowidx = offsets[s0:s0 + ns + 1].tolist(), order
-            p0, p1 = starts[0], starts[ns]
-        else:
-            p0 = _warp_lower_bound(seg, n, s0)
-            p1 = n if s0 + ns >= nseg else _warp_lower_bound(seg, n, s0 + ns)
-            starts, rowidx = [p1] * (ns + 1), np.arange(n)
-            for p in range(p0, p1):
-                for k in range(s0 if p == p0 else seg[p - 1] + 1,
-                               seg[p] + 1):
-                    starts[k - s0] = p
-        chunks = [(c0, g[rowidx[c0:min(c0 + plan.chunk, p1)],
-                         col0:col0 + w])
-                  for c0 in range(p0, p1, plan.chunk)]
-        for tid in range(256):
-            j, c = divmod(tid, plan.width)
-            if j >= tile or c >= w:
-                continue
-            t, acc = 0, np.float32(0.0)
-            for c0, buf in chunks:
-                c1 = c0 + buf.shape[0]
-                while t * tile + j < ns:
-                    i = t * tile + j
-                    a, b = starts[i], starts[i + 1]
-                    if a >= c1:
-                        break
-                    for r in range(max(a, c0), min(b, c1)):
-                        acc = np.float32(acc + buf[r - c0, c])
-                    if b > c1:
-                        break
-                    if b > a:
-                        out[s0 + i, col0 + c] = acc
-                        sums[s0 + i, col0 + c] += 1
-                    t, acc = t + 1, np.float32(0.0)
-    assert (zeros == 1).all()
-    return out, sums
-
-
-_TILE_CASES = ("zipf", "long segment dim 16", "long segment dim 13",
-               "all rows on one segment", "every other segment empty",
-               "tile edge in long segments", "n=1", "vocab scale",
-               "two tiles a block", "unaligned rows", "dim 5", "dim 4096")
-
-
-def _tile_case(label):
-    """(ascending ids, dim, nseg, rows 16-byte aligned): small forms of
-    the card's cases; the long segments outrun the plan's 3-stage ring
-    (or, for two tiles a block, the 32-row stages)."""
-    rng = np.random.default_rng(_TILE_CASES.index(label) + 40)
-    zipf = np.sort(np.minimum(rng.zipf(1.3, 600) - 1, 63))
-    long = np.sort(np.concatenate([rng.integers(0, 40, 150),
-                                   np.full(1000, 40),
-                                   rng.integers(41, 100, 150)]))
-    # segments 15 and 16 on either side of the first tile's edge
-    edge = np.sort(np.concatenate([np.full(300, 15), np.full(300, 16),
-                                   rng.integers(0, 96, 100)]))
-    return {"zipf": (zipf, 16, 64, True),
-            "long segment dim 16": (long, 16, 100, True),
-            "long segment dim 13": (long, 13, 100, True),
-            "all rows on one segment": (np.full(700, 5), 16, 40, True),
-            "every other segment empty": (
-                np.sort(2 * rng.integers(0, 150, 400)), 16, 300, True),
-            "tile edge in long segments": (edge, 16, 96, True),
-            "n=1": (np.zeros(1, np.int64), 16, 1, True),
-            # 4 tiles a block
-            "vocab scale": (np.sort(rng.integers(0, 100_000, 64)), 16,
-                            100_000, True),
-            # 2 tiles a block, 32-row stages: block 0's second tile (the
-            # long segments 17 and 18) streams through the ring after its
-            # first
-            "two tiles a block": (np.sort(np.concatenate([
-                rng.integers(0, 40_000, 2000), np.full(600, 17),
-                np.full(600, 18)])), 16, 40_000, True),
-            "unaligned rows": (zipf, 16, 64, False),
-            "dim 5": (np.sort(rng.integers(0, 50, 300)), 5, 50, True),
-            "dim 4096": (np.sort(rng.integers(0, 3, 20)), 4096, 3, True),
-            }[label]
+_PLAIN_CASES = _plain_cases()
 
 
 @pytest.mark.parametrize("kernel", [7, 8])
-@pytest.mark.parametrize("label", _TILE_CASES)
-def test_tile_algorithm_adds_in_row_order_and_matches_jax(kernel, label):
-    """The kernels' block algorithm, emulated in numpy under the real
-    launch plan: on float gradients bitwise the sequential row-order sum
-    and the plain version; on integer ones bitwise the reference's
+@pytest.mark.parametrize("case", range(len(_PLAIN_CASES)),
+                         ids=[c[0] for c in _PLAIN_CASES])
+def test_plain_versions_on_the_hard_cases_match_jax(kernel, case):
+    """The plain versions the card holds kernels 7 and 8 to, bitwise, on
+    the card's hard cases: on float gradients bitwise the sequential
+    row-order sum; on integer ones bitwise the reference's
     ``segment_sum_ref`` (kernel 7, rows in shuffled order) or
     ``segment_sum_sorted_ref`` (kernel 8)."""
-    seg, dim, nseg, aligned = _tile_case(label)
+    _, seg, dim, nseg = _PLAIN_CASES[case]
     n = seg.size
     rng = np.random.default_rng(kernel)
-    inv = seg if kernel == 8 else seg[rng.permutation(n)]
-    plan = segment_tile_plan(n, nseg, dim, aligned)
     if kernel == 8:
-        emulate = lambda x: _emulate_tiles(x, nseg, plan, seg=inv)  # noqa
-        plain, jref = segment_sum_sorted, jss.segment_sum_sorted_ref
+        inv, plain, jref = seg, segment_sum_sorted, jss.segment_sum_sorted_ref
     else:
-        order, offsets = (t.numpy() for t in segment_plan(inv, nseg, "cpu"))
-        emulate = lambda x: _emulate_tiles(  # noqa: E731
-            x, nseg, plan, order=order, offsets=offsets)
-        plain, jref = segment_sum, jss.segment_sum_ref
+        inv, plain, jref = (seg[rng.permutation(n)], segment_sum,
+                            jss.segment_sum_ref)
     g = (_rand(rng, n, dim) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(
         np.float32)
     want = np.zeros((nseg, dim), np.float32)
     for i in range(n):
         want[inv[i]] += g[i]
-    got, sums = emulate(g)
-    # one sum for every element of a segment with rows, none elsewhere
-    has_rows = np.bincount(inv, minlength=nseg) > 0
-    assert np.array_equal(sums, np.repeat(has_rows[:, None], dim, 1))
-    assert np.array_equal(got, want)
-    assert np.array_equal(got, plain(torch.from_numpy(g), inv, nseg).numpy())
+    assert np.array_equal(plain(torch.from_numpy(g), inv, nseg).numpy(),
+                          want)
     gi = rng.integers(-50, 50, (n, dim)).astype(np.float32)
     ref = jref(jnp.asarray(gi), jnp.asarray(inv.astype(np.int32)), nseg)
-    assert np.array_equal(emulate(gi)[0], np.asarray(ref))
+    assert np.array_equal(plain(torch.from_numpy(gi), inv, nseg).numpy(),
+                          np.asarray(ref))
 
 
 # ---------------------------------------------------------------------
@@ -1086,6 +998,39 @@ def test_missing_nvcc_raises_only_when_building(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_build_keeps_the_ptxas_log_beside_a_cached_library(monkeypatch,
+                                                          tmp_path):
+    """A build writes nvcc's output beside the library; a later build
+    that finds the library reads that log back into ``build_logs``, so a
+    check of ptxas's report (spills) also sees a cached library."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=\"$2\"; shift; done\n"
+        "echo \"ptxas info : Compiling entry function 'k'\" >&2\n"
+        "echo \"ptxas info : Used 40 registers, 0 bytes spill stores\" >&2\n"
+        ": > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "build_seconds", {})
+    (lib,) = _build.build(["segment_sum.cu"])
+    log = _build.build_logs["segment_sum.cu"]
+    assert "Used 40 registers" in log
+    assert "segment_sum.cu" in _build.build_seconds
+    assert lib.with_suffix(".log").read_text() == log
+    assert sorted(p.name for p in lib.parent.iterdir()) == [
+        lib.with_suffix(".log").name, lib.name]
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "build_seconds", {})
+    nvcc.unlink()                      # cached: nvcc is not run again
+    assert _build.build(["segment_sum.cu"]) == [lib]
+    assert _build.build_logs == {"segment_sum.cu": log}
+    assert _build.build_seconds == {}
 
 
 def test_kernel_sources_carry_their_note():
