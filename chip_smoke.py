@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. build every CUDA kernel from ``paddle_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, started together) and print the seconds
    and the registers/shared memory ptxas reports (and the dynamic shared
-   memory, tiles and stages of the Hopper flash forward); a spill in
-   ``segment_sum.cu`` (kernels 7 and 8) fails;
+   memory, tiles and stages of the Hopper flash forward and backward); a
+   spill in ``segment_sum.cu`` (kernels 7 and 8) or in the two sm90
+   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3), or a wgmma
+   that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -28,7 +30,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    plain version and SDPA are timed queued behind a spinning kernel
    (device time), with the kernel / SDPA ratio beside that of the first
    (``mma.sync``) kernel; the backward kernels also run twice on the
-   same inputs and must agree bitwise;
+   same inputs and must agree bitwise, and at the proxy they,
+   ``attention_delta`` and SDPA's backward are timed the same way;
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
    mixed prompt lengths, 32 new tokens each; the kernel launch counts of
@@ -55,8 +58,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    may be at most ``E2E_RATIO_BOUND`` times further from the f32 result
    than the plain path;
 9. ``torch.profiler`` over 2 training steps: device busy time against
-   wall time, the top device kernels, kernel 1's device ms per step and
-   the largest allocations;
+   wall time, the top device kernels, kernels 1, 2 and 3's device ms per
+   step and the largest allocations;
 10. serve ``resnet50(num_classes=1000)`` at 224x224 (f32 weights drawn
     from a seed) converted with ``convert_to_int8_inference`` and cast as
     the reference's inference bench casts it (every float tensor but
@@ -367,6 +370,21 @@ def log_flash_fwd(label, kern, steps):
         f"{n:g} launches/step " + ", ".join(e.key[:40] for e in mine))
 
 
+def log_flash_bwd(label, kern, steps):
+    """Kernels 2 and 3's device ms and launches per step in a profile
+    (the Hopper route's ``flash_bwd_sm90<true>`` / ``<false>``, the first
+    kernels' ``flash_bwd_dkv_*`` / ``flash_bwd_dq_*``)."""
+    for which, keys in (("kernel 2 (dK/dV)", ("flash_bwd_sm90<true>",
+                                                "flash_bwd_dkv")),
+                        ("kernel 3 (dQ)", ("flash_bwd_sm90<false>",
+                                           "flash_bwd_dq"))):
+        mine = [e for e in kern if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+        n = sum(e.count for e in mine) / steps
+        log(f"{label}: {which} {ms:.3f} device ms/step over {n:g} "
+            f"launches/step")
+
+
 def check_busy(label, busy_ms, wall_ms):
     """A profiled window's device busy time cannot exceed its wall time;
     if it does, kernels were counted twice and the idle share is
@@ -520,23 +538,92 @@ def _flash_grads(q, k, v, g, causal, mode=None):
     return torch.autograd.grad(o, (qq, kk, vv), g)
 
 
-def bwd_cases(dev):
-    """Both backward kernels against their plain versions: the training
-    shape (first case) and more dtypes, head dims, GQA, ragged lengths,
-    all as (B, S, H, D) tensors through the autograd Function.  Returns
-    the kernels-line rows of both kernels; also prints the flash
-    forward's time at the training shape."""
+def bwd_timing(label, args, o, gh):
+    """Kernels 2 and 3, ``attention_delta`` and SDPA's backward at the
+    proxy, each queued behind a spinning kernel (device time), twice in
+    turns, the lower of each kept; the plain versions between CUDA
+    events.  Returns the kernels-line rows of both kernels."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import registry
+    qh, kh, vh, do = args[:4]
+    B, H, S, D = qh.shape
+    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    plan = fa.flash_bwd_plan(qh, kh, vh, do, causal=True)
+    kw = dict(causal=True)
+    # SDPA's backward on contiguous copies (its own layout)
+    q2, k2, v2 = (t.detach().contiguous().requires_grad_()
+                  for t in (qh, kh, vh))
+    out = tF.scaled_dot_product_attention(q2, k2, v2, is_causal=True)
+    do2 = gh.contiguous()
+    calls = {
+        names[0]: lambda: registry.dispatch(names[0], *args, **kw),
+        names[1]: lambda: registry.dispatch(names[1], *args, **kw),
+        "attention_delta": lambda: fa.attention_delta(o, gh),
+        "sdpa backward": lambda: torch.autograd.grad(
+            out, (q2, k2, v2), do2, retain_graph=True)}
+    runs = [{n: queued_ms(f) for n, f in calls.items()} for _ in range(2)]
+    ms = {n: min(r[n] for r in runs) for n in calls}
+    plain = {n: cuda_ms(lambda n=n: registry.dispatch(
+        n, *args, mode="torch_ref", **kw), iters=5, warmup=1)
+        for n in names}
+    total = ms[names[0]] + ms[names[1]] + ms["attention_delta"]
+    lib = ms["sdpa backward"]
+    pairs = B * H * S * (S + 1) / 2          # causal (q, k) pairs
+    elt = qh.element_size()
+    row_bytes = B * H * S * D * elt
+    stats_bytes = 2 * B * H * S * 4           # lse and delta
+    rows = {}
+    for name, kp, flop_per_pair, n_rows in (
+            (names[0], plan.dkv, 8 * D, 6), (names[1], plan.dq, 6 * D, 5)):
+        bms, by = bound_ms(flop_per_pair * pairs, PEAK_BF16_FLOPS,
+                           n_rows * row_bytes + stats_bytes)
+        rows[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=bms,
+                          bound_by=by, library_ms=lib)
+        log(f"{name} {label} (B={B} H={H} S={S} D={D} bf16 causal): route "
+            f"{plan.route}, {kp.block_res} resident rows x {kp.block_str}"
+            f"-row streamed tiles, {kp.stages} stages, {kp.threads} "
+            f"threads, {kp.smem_bytes} B shared memory, grid {kp.grid} "
+            f"over {kp.items} items ({kp.tiles} streamed tiles); device ms "
+            f"(queued): kernel {ms[name]:.4f} plain {plain[name]:.4f} bound "
+            f"{bms:.4f} ({by}); {flop_per_pair * pairs / ms[name] / 1e9:.1f}"
+            f" TFLOP/s; runs {[round(r[name], 4) for r in runs]}")
+    log(f"flash backward {label}: device ms (queued, the lower of two "
+        f"turns): dK/dV {ms[names[0]]:.4f} + dQ {ms[names[1]]:.4f} + "
+        f"attention_delta {ms['attention_delta']:.4f} = {total:.4f}; "
+        f"library(sdpa backward, dq+dk+dv) {lib:.4f}; kernels / sdpa "
+        f"{(ms[names[0]] + ms[names[1]]) / lib:.3f}, with delta "
+        f"{total / lib:.3f}")
+    del out, q2, k2, v2
+    return rows
+
+
+def bwd_cases(dev):
+    """Both backward kernels against their plain versions: the training
+    shape (first case) and more dtypes, head dims, GQA, ragged lengths,
+    all as (B, S, H, D) tensors through the autograd Function, so the
+    kernels read the views the model passes.  Returns the kernels-line
+    rows of both kernels; also prints the flash forward's time at the
+    training shape."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     g0 = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = {}
+    bf = torch.bfloat16
     cases = [  # (B, H, Hkv, S, D, dtype, causal); first = the proxy
-        (4, 16, 16, 2048, 128, torch.bfloat16, True),
+        (4, 16, 16, 2048, 128, bf, True),
+        # the Hopper route (bf16, head_dim 128): GQA and ragged, one key
+        # past a tile, not causal, a single work item, more items than
+        # SMs
+        (1, 8, 2, 777, 128, bf, True),
+        (1, 4, 4, 130, 128, bf, True),
+        (2, 4, 4, 1000, 128, bf, False),
+        (1, 1, 1, 100, 128, bf, True),
+        (1, 8, 8, 4096, 128, bf, True),
+        # the first kernels
         (1, 8, 8, 512, 64, torch.float32, True),
-        (2, 8, 2, 1000, 64, torch.bfloat16, False),
-        (1, 4, 4, 777, 256, torch.bfloat16, True),
+        (2, 8, 2, 1000, 64, bf, False),
+        (1, 4, 4, 777, 256, bf, True),
         (1, 4, 2, 300, 256, torch.float32, False),
         (2, 4, 4, 130, 128, torch.float32, True),
     ]
@@ -552,6 +639,7 @@ def bwd_cases(dev):
             fail(f"flash backward {shape}: a rerun on the same inputs is "
                  "not bitwise equal")
         qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, g))
+        plan = fa.flash_bwd_plan(qh, kh, vh, gh, causal=causal)
         o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=causal,
                                          return_lse=True)
         delta = fa.attention_delta(o, gh)
@@ -565,7 +653,10 @@ def bwd_cases(dev):
                if dt == torch.bfloat16 else chunked)
         torch.cuda.synchronize()
         errs = {}
-        msg = f"flash backward {shape} (B, S, H, D):"
+        msg = (f"flash backward {shape} (B, S, H, D) views, taken as they "
+               f"lie: {all(plan.as_is.values())}; route {plan.route}, grid "
+               f"{plan.dkv.grid} / {plan.dq.grid} over {plan.dkv.items} / "
+               f"{plan.dq.items} items:")
         for name, a, r, c in zip(("dq", "dk", "dv"), got, ref, chunked):
             a = a.transpose(1, 2)
             err, share = check_close(f"flash backward {name} {shape}", a, r,
@@ -578,38 +669,15 @@ def bwd_cases(dev):
         log(msg + " rerun bitwise equal")
         if i:
             continue
-        kw = dict(causal=True)
-        ms = {n: cuda_ms(lambda n=n: registry.dispatch(n, *args, **kw))
-              for n in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
-        plain = {n: cuda_ms(lambda n=n: registry.dispatch(
-            n, *args, mode="torch_ref", **kw))
-            for n in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
-        q2, k2, v2 = (t.detach().contiguous().requires_grad_()
-                      for t in (qh, kh, vh))
-        out = tF.scaled_dot_product_attention(q2, k2, v2, is_causal=True)
-        do2 = gh.contiguous()
-        lib = cuda_ms(lambda: torch.autograd.grad(out, (q2, k2, v2), do2,
-                                                  retain_graph=True))
-        pairs = B * H * S * (S + 1) / 2          # causal (q, k) pairs
-        elt = q.element_size()
-        row_bytes = B * H * S * D * elt
-        stats_bytes = 2 * B * H * S * 4           # lse and delta
-        for name, flop_per_pair, n_rows, grads in (
-                ("flash_attention_bwd_dkv", 8 * D, 6, ("dk", "dv")),
-                ("flash_attention_bwd_dq", 6 * D, 5, ("dq",))):
-            bms, by = bound_ms(flop_per_pair * pairs, PEAK_BF16_FLOPS,
-                               n_rows * row_bytes + stats_bytes)
+        timed = bwd_timing("training shape", args, o, gh)
+        for name, grads in (("flash_attention_bwd_dkv", ("dk", "dv")),
+                            ("flash_attention_bwd_dq", ("dq",))):
             rows[name] = dict(max_abs_err=max(errs[x] for x in grads),
-                              ms=ms[name], plain_ms=plain[name],
-                              bound_ms=bms, bound_by=by, library_ms=lib)
-            log(f"{name} training shape: kernel_ms {ms[name]:.4f} plain_ms "
-                f"{plain[name]:.4f} bound_ms {bms:.4f} ({by}) "
-                f"library_ms(sdpa backward, dq+dk+dv) {lib:.4f}")
+                              **timed[name])
         # the forward at the training shape, on contiguous copies so that
         # SDPA times its own layout (the kernel takes both)
         flash_timing("proxy with lse", *(t.detach().contiguous()
                                          for t in (qh, kh, vh)), True)
-        del out, q2, k2, v2
     return rows
 
 
@@ -1108,6 +1176,7 @@ def profile_train(dev, step, ids, steps: int = 2):
         f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/step")
     check_busy("profile train (phase 9)", busy_ms, wall_ms)
     log_flash_fwd("profile train", kern, steps)
+    log_flash_bwd("profile train", kern, steps)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -3098,6 +3167,59 @@ def profile_resnet_train(dev, step, img, label, steps: int = 2):
                 ranges=shares)
 
 
+def ptxas_entries(text):
+    """Per entry function of a ``ptxas -v`` log: [registers, spill-store
+    bytes, spill-load bytes]."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), [0, 0, 0])
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[0] = int(m.group(1))
+    return out
+
+
+def check_bwd_build(text):
+    """Phase 2 for kernels 2 and 3: the two sm90 entries of
+    ``flash_attention_bwd.cu`` (``flash_bwd_sm90<true>``, dK/dV;
+    ``<false>``, dQ) must show no spill and no wgmma that ptxas
+    serialised."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
+    entries = {n: e for n, e in ptxas_entries(text or "").items()
+               if "flash_bwd_sm90" in n}
+    if len(entries) != 2:
+        fail("build flash_attention_bwd.cu: no ptxas -v log of its two sm90 "
+             "entries to check (a library cached without its log: empty "
+             "the build directory and rerun)")
+    meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
+    plan = flash_bwd_plan(meta, meta, meta, meta, causal=True).dkv
+    for name, (regs, stores, loads) in sorted(entries.items()):
+        which = "dK/dV" if "ILb1E" in name else "dQ"
+        log(f"  flash_bwd_sm90 ({which}): {regs} registers at launch (a "
+            f"producer warpgroup at 40 by setmaxnreg, two consumer "
+            f"warpgroups at 232), spill stores {stores} B, spill loads "
+            f"{loads} B; {plan.threads} threads, {plan.smem_bytes} B "
+            f"dynamic shared memory, {plan.block_res} resident rows, "
+            f"{plan.block_str}-row streamed tiles, {plan.stages} stages")
+        if stores or loads:
+            fail(f"build flash_attention_bwd.cu: {which} sm90 entry spills "
+                 f"({stores} B stored, {loads} B loaded)")
+    serial = [ln.strip() for ln in text.splitlines()
+              if "wgmma" in ln and "serializ" in ln]
+    if serial:
+        fail("build flash_attention_bwd.cu: ptxas serialised wgmmas: "
+             + " | ".join(serial))
+
+
 def _build_host_libs() -> float:
     """Build (or load) the port's host C++ and return the seconds taken."""
     from paddle_tpu_torch.native import load_library, ps_core
@@ -3164,6 +3286,10 @@ def main() -> int:
     spills = re.findall(r"([1-9][0-9]*) bytes spill", seg_log)
     if spills:
         fail(f"build segment_sum.cu: ptxas reports spills ({spills} bytes)")
+    # kernels 2 and 3 on the Hopper route keep dK and dV (or dQ) in the
+    # consumers' registers: a spill in their sm90 entries, or ptxas
+    # serialising their wgmmas, fails (a cached library: its kept log)
+    check_bwd_build(_build.build_logs.get("flash_attention_bwd.cu"))
     # the sm90 flash forward's shared memory is dynamic (ptxas does not
     # see it) and its consumers run at the register count setmaxnreg
     # gives them, not at the count ptxas prints for the launch

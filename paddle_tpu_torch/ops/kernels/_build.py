@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds), then loaded with
-``ctypes``.  ``nvcc``'s output (``ptxas -v``: registers, shared memory,
+source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header rebuilds), then loaded with ``ctypes``.  ``nvcc``'s output (``ptxas -v``: registers, shared memory,
 spills) is kept beside the library as ``<name>-<hash>.log`` and read
 back into :data:`build_logs` when the library is already built.  No
 PyTorch header is included: a build takes seconds, not the minutes a
@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,8 +63,25 @@ def nvcc_path() -> str:
         "CUDA install): the port's CUDA kernels cannot be built")
 
 
-def _target(source: str) -> Path:
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _source_bytes(source: str, seen=None) -> bytes:
+    """The bytes of ``csrc/<source>`` followed by those of every
+    ``csrc/`` header it includes (``#include "..."``), each once."""
+    seen = set() if seen is None else seen
+    seen.add(source)
     text = (CSRC / source).read_bytes()
+    out = [text]
+    for name in _INCLUDE.findall(text):
+        name = name.decode()
+        if name not in seen:
+            out.append(_source_bytes(name, seen))
+    return b"".join(out)
+
+
+def _target(source: str) -> Path:
+    text = _source_bytes(source)
     h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{h[:16]}.so"
 

@@ -19,12 +19,18 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
   TMA strides in Python, and the wrapper passes them to the C entry
   point.
 - The backward (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's:
-  a dK/dV kernel, one block per (batch, kv head, key tile) looping over
-  the query tiles of every head of its group, and a dQ kernel, one block
-  per (batch, head, query tile) looping over key tiles.  Both recompute
-  P from the saved LSE; ``delta = rowsum(dO * O)`` is plain PyTorch, as
-  the reference computes it in plain XLA.  No atomics: bitwise the same
-  gradients from run to run.
+  a dK/dV kernel, whose work item is (key tile, kv head, batch) looping
+  over the query tiles of every head of its group, and a dQ kernel,
+  whose work item is (query tile, head, batch) looping over key tiles.
+  Both recompute P from the saved LSE; ``delta = rowsum(dO * O)`` is
+  plain PyTorch, as the reference computes it in plain XLA.  No atomics:
+  bitwise the same gradients from run to run.  bf16 at head_dim 128
+  takes the Hopper kernels (128 resident keys or query rows an item in
+  two consumer warpgroups, 64-row tiles streamed by TMA through a
+  2-stage ring, every product a ``wgmma``, persistent blocks); the
+  other dtypes and head dims take the first kernels (one block per
+  item).  :func:`flash_bwd_plan` computes both kernels' plans in
+  Python.
 
 Numerics follow the Pallas kernels: scores ``(q . k) * scale`` in f32,
 masked scores -1e30 (probability 0), online max/denominator in f32, the
@@ -61,6 +67,7 @@ from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
            "flash_attention_blockwise_ref", "flash_fwd_plan", "FwdPlan",
+           "flash_bwd_plan", "BwdPlan", "BwdKernelPlan",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq_ref",
            "flash_attention_bwd_blockwise_ref", "attention_delta",
            "flash_eligible", "CARD_TOL", "CARD_TOL_BWD", "NEG_INF"]
@@ -469,33 +476,166 @@ def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None):
     return None
 
 
-def _bwd_launch(entry, spec, q, k, v, do, lse, delta, outs, causal, scale):
-    """Launch ``entry`` of the backward library.  ``outs``: (dq, dk, dv)
-    with None where the kernel does not write."""
+# the backward's Hopper route, as compiled in csrc/flash_attention_bwd.cu
+# (namespace sm90): a work item holds 128 resident rows (keys for dK/dV,
+# query rows for dQ) in two consumer warpgroups of 64 and streams 64-row
+# tiles of the other pair through a 2-stage ring, 384 threads; shared
+# memory is 1024 bytes of alignment slack, two buffers of the resident
+# pair (32 KB a tile), both stages of the streamed pair (16 KB a tile),
+# 2 KB of LSE and delta rows and 8 mbarriers.
+_SM90_BWD = dict(block_res=128, block_str=64, stages=2, threads=384,
+                 smem_bytes=1024 + 4 * 32768 + 2 * 2 * 16384 + 2048
+                 + 8 * (4 + 2 * 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdKernelPlan:
+    """How one backward kernel (dK/dV or dQ) runs."""
+
+    block_res: int      # rows an item keeps: keys (dK/dV), queries (dQ)
+    block_str: int      # rows a streamed tile holds: queries, keys
+    stages: int         # streamed tiles in flight (1: loaded synchronously)
+    threads: int        # per block
+    smem_bytes: int     # dynamic shared memory per block
+    grid: tuple         # (x, y, z) as launched
+    items: int          # work items: (resident tile, head, batch)
+    tiles: int          # streamed tiles over all items (the causal skip)
+    # tma_wgmma only: the byte strides (seq, head, batch) of q, k, v, dO
+    # and the outputs (dK, dV or dQ), as their tensor maps take them
+    tma_strides: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernels run on given q, k, v, dO (B, H, S, D)."""
+
+    route: str          # "tma_wgmma" (bf16, D=128), "mma_sync" or "fma"
+    dkv: BwdKernelPlan
+    dq: BwdKernelPlan
+    # per tensor: taken where it lies (else _rowmajor copies it first)
+    as_is: dict
+
+
+def _bwd_tiles(n_res, block_res, block_str, n_other, causal, dkv, heads,
+               R, B):
+    """Streamed tiles summed over the work items: dK/dV walks the query
+    tiles from its diagonal (of each of the R heads of its group), dQ the
+    key tiles up to its diagonal."""
+    tiles = 0
+    for rt in range(n_res):
+        r0 = rt * block_res
+        if dkv:
+            n_qt = -(-n_other // block_str)
+            first = min(r0 // block_str, n_qt) if causal else 0
+            tiles += R * (n_qt - first)
+        else:
+            end = min(n_other, r0 + block_res) if causal else n_other
+            tiles += -(-end // block_str)
+    return tiles * heads * B
+
+
+def flash_bwd_plan(q, k, v, do, causal=False):
+    """The launch plans of both backward kernels for (B, H, S, D) q, k,
+    v, dO: the route, tiles, stages, grid, work and, on the Hopper route,
+    the TMA strides.  bf16 at head_dim 128 always takes the Hopper route;
+    a tensor it cannot take as is (``as_is`` False) is made row-major by
+    :func:`_rowmajor` first, never sent to the other kernels.  Pure shape
+    arithmetic: it runs on CPU tensors too."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    R = H // Hkv
+    as_is = {n: _takes_as_is(t)
+             for n, t in (("q", q), ("k", k), ("v", v), ("do", do))}
+    elt = q.element_size()
+    plans = {}
+    for name, n_res, heads, n_other in (("dkv", Sk, Hkv, Sq),
+                                         ("dq", Sq, H, Sk)):
+        dkv = name == "dkv"
+        if q.dtype == torch.bfloat16 and D == 128:
+            route = "tma_wgmma"
+            br, bs, stages, threads, smem = (
+                _SM90_BWD["block_res"], _SM90_BWD["block_str"],
+                _SM90_BWD["stages"], _SM90_BWD["threads"],
+                _SM90_BWD["smem_bytes"])
+            # q, k, v, dO as given; the outputs as the wrappers allocate
+            # them, (B, S, heads, D)
+            outs = ((Sk, Hkv), (Sk, Hkv)) if dkv else ((Sq, H),)
+            tma = tuple(x for t in (q, k, v, do) for x in _tma_strides(t))
+            for s, h in outs:
+                tma += (h * D * elt, D * elt, s * h * D * elt)
+        elif q.dtype == torch.bfloat16:
+            route, bs, stages, threads, tma = "mma_sync", 64, 1, 128, ()
+            if dkv:
+                br = 64 if D <= 128 else 32
+                smem = (2 * br + 2 * bs) * (D + 8) * 2 + 2 * bs * 4
+            else:
+                br = 64
+                smem = (2 * br + 2 * bs) * (D + 8) * 2
+        else:
+            route, br, bs, stages, threads, tma = "fma", 32, 32, 1, 128, ()
+            smem = (2 * br * D + 2 * bs * (D + 1) + (2 if dkv else 1)
+                    * 4 * 8 * bs + (2 * bs if dkv else 0)) * 4
+        n_rt = -(-n_res // br)
+        items = n_rt * heads * B
+        grid = ((min(items, _sm_count(q.device)), 1, 1)
+                if route == "tma_wgmma" else (n_rt, heads, B))
+        tiles = _bwd_tiles(n_rt, br, bs, n_other, causal, dkv, heads,
+                           R if dkv else 1, B)
+        plans[name] = BwdKernelPlan(br, bs, stages, threads, smem, grid,
+                                    items, tiles, tma)
+    return BwdPlan(route, plans["dkv"], plans["dq"], as_is)
+
+
+def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale):
+    """Launch backward ``kernel`` ("dkv" or "dq") on row-major q, k, v,
+    dO (:func:`_rowmajor`) and contiguous lse, delta, into ``outs``:
+    (dk, dv) or (dq,)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
-    strides = []
-    for t in (q, k, v, do) + tuple(outs):
-        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    plan = flash_bwd_plan(q, k, v, do, causal)
+    kplan = getattr(plan, kernel)
     lib = _build.load(_BWD_SOURCE)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk, D;
-        # strides; causal, scale, is_bf16, stream
-        n_ptr = 6 + sum(o is not None for o in outs)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta) + tuple(outs)]
+    if plan.route == "tma_wgmma":
+        entry = f"flash_attention_bwd_{kernel}_sm90"
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk;
+            # TMA strides; plan; causal, scale, stream
+            fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                           + [ctypes.c_int] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                              ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        launch = (kplan.block_res, kplan.block_str, kplan.stages,
+                  kplan.threads, kplan.smem_bytes, *kplan.grid)
+        args = (B, H, Hkv, Sq, Sk,
+                (ctypes.c_longlong * len(kplan.tma_strides))(
+                    *kplan.tma_strides),
+                (ctypes.c_int * 8)(*launch), int(bool(causal)), float(sc))
+    else:
+        entry = f"flash_attention_bwd_{kernel}"
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk, D;
+            # strides; causal, scale, is_bf16, stream
+            fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                           + [ctypes.c_int] * 6
+                           + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                              ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        # element strides (batch, head, seq) of q, k, v, dO, dq, dk, dv
+        full = (None, *outs) if kernel == "dkv" else (*outs, None, None)
+        strides = []
+        for t in (q, k, v, do) + full:
+            strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+        args = (B, H, Hkv, Sq, Sk, D, (ctypes.c_longlong * 21)(*strides),
+                int(bool(causal)), float(sc), int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(),
-                *[o.data_ptr() for o in outs if o is not None],
-                B, H, Hkv, Sq, Sk, D, (ctypes.c_longlong * 21)(*strides),
-                int(bool(causal)), float(sc), int(q.dtype == torch.bfloat16),
-                stream)
+        rc = fn(*ptrs, *args, stream)
     _build.check(lib, rc, f"{entry} q={tuple(q.shape)} k={tuple(k.shape)} "
                           f"{q.dtype}")
     spec.launches += 1
@@ -513,18 +653,16 @@ def _like_bshd(t):
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dk, dv = _like_bshd(k), _like_bshd(v)
-    _bwd_launch("flash_attention_bwd_dkv", _DKV_SPEC, q, k, v, do,
-                lse.contiguous(), delta.contiguous(), (None, dk, dv),
-                causal, scale)
+    _bwd_launch("dkv", _DKV_SPEC, q, k, v, do, lse.contiguous(),
+                delta.contiguous(), (dk, dv), causal, scale)
     return dk, dv
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dq = _like_bshd(q)
-    _bwd_launch("flash_attention_bwd_dq", _DQ_SPEC, q, k, v, do,
-                lse.contiguous(), delta.contiguous(), (dq, None, None),
-                causal, scale)
+    _bwd_launch("dq", _DQ_SPEC, q, k, v, do, lse.contiguous(),
+                delta.contiguous(), (dq,), causal, scale)
     return dq
 
 

@@ -111,46 +111,64 @@ def test_kernels_match_plain_on_card():
     assert counts["flash_attention"] > 0 and counts["int8_kv_attention"] > 0
 
 
+# (dtype, B, H, Hkv, S, D): every head dim in f32 and bf16, then the
+# Hopper route's own cases (bf16, head_dim 128): GQA and ragged, one key
+# past a tile, not causal over two batches, a single work item, and more
+# work items than SMs.  Each runs causal and not unless it names one.
+_BWD_CARD_CASES = [
+    *[(dt, 1, H, Hkv, S, D, None) for dt in (torch.float32, torch.bfloat16)
+      for D, (H, Hkv, S) in ((64, (4, 2, 300)), (128, (2, 2, 256)),
+                             (256, (4, 1, 130)))],
+    (torch.bfloat16, 1, 8, 2, 777, 128, True),
+    (torch.bfloat16, 1, 4, 4, 130, 128, True),
+    (torch.bfloat16, 2, 4, 4, 1000, 128, False),
+    (torch.bfloat16, 1, 1, 1, 100, 128, True),
+    (torch.bfloat16, 1, 8, 8, 4096, 128, True),
+]
+
+
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_card():
     """Both backward kernels through the autograd Function on (B, S, H, D)
     views, as the model passes them: every head dim, f32 and bf16, causal
-    or not, GQA and a ragged length; rerun bitwise equal."""
+    or not, GQA and ragged lengths, and the Hopper route's cases; rerun
+    bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the training shape")
     registry.reset_counts()
     dev = torch.device("cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        for D, (H, Hkv, S) in ((64, (4, 2, 300)), (128, (2, 2, 256)),
-                               (256, (4, 1, 130))):
-            q, k, v = (torch.from_numpy(a).to(dev, dt).transpose(1, 2)
-                       .contiguous() for a in _qkv(12, H=H, Hkv=Hkv, S=S,
-                                                   D=D))
-            g = torch.from_numpy(_qkv(13, H=H, S=S, D=D)[0]).to(dev, dt)
-            for causal in (True, False):
-                grads = []
-                for _ in range(2):
-                    qq, kk, vv = (t.detach().requires_grad_()
-                                  for t in (q, k, v))
-                    o = fa.flash_attention(qq, kk, vv, causal=causal)
-                    grads.append(torch.autograd.grad(
-                        o, (qq, kk, vv), g.transpose(1, 2)))
-                assert all(torch.equal(a, b) for a, b in zip(*grads))
-                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=causal,
-                                                 return_lse=True)
-                delta = fa.attention_delta(o, g)
-                ref = fa.flash_attention_bwd_blockwise_ref(
-                    qh, kh, vh, g, lse, delta, causal=causal)
-                torch.cuda.synchronize()
-                for got, want in zip(grads[0], ref):
-                    assert bool(torch.isfinite(got.float()).all())
-                    _assert_within(got.transpose(1, 2), want,
-                                   fa.CARD_TOL_BWD[dt])
+    runs = 0
+    for dt, B, H, Hkv, S, D, only in _BWD_CARD_CASES:
+        q, k, v = (torch.from_numpy(a).to(dev, dt).transpose(1, 2)
+                   .contiguous() for a in _qkv(12, B=B, H=H, Hkv=Hkv, S=S,
+                                               D=D))
+        g = torch.from_numpy(_qkv(13, B=B, H=H, S=S, D=D)[0]).to(dev, dt)
+        for causal in ((True, False) if only is None else (only,)):
+            grads = []
+            for _ in range(2):
+                qq, kk, vv = (t.detach().requires_grad_()
+                              for t in (q, k, v))
+                o = fa.flash_attention(qq, kk, vv, causal=causal)
+                grads.append(torch.autograd.grad(
+                    o, (qq, kk, vv), g.transpose(1, 2)))
+            runs += 1
+            assert all(torch.equal(a, b) for a, b in zip(*grads))
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=causal,
+                                             return_lse=True)
+            delta = fa.attention_delta(o, g)
+            ref = fa.flash_attention_bwd_blockwise_ref(
+                qh, kh, vh, g, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            for got, want in zip(grads[0], ref):
+                assert bool(torch.isfinite(got.float()).all())
+                _assert_within(got.transpose(1, 2), want,
+                               fa.CARD_TOL_BWD[dt])
     counts = registry.launch_counts()
-    assert counts["flash_attention_bwd_dkv"] == 24
-    assert counts["flash_attention_bwd_dq"] == 24
+    assert runs == 17
+    assert counts["flash_attention_bwd_dkv"] == 2 * runs
+    assert counts["flash_attention_bwd_dq"] == 2 * runs
 
 
 # (M, K, N, compute dtype): ResNet-50 GEMMs (stem K = 147, the classifier

@@ -50,11 +50,11 @@ from paddle_tpu.ops.pallas import registry as jreg
 from paddle_tpu_torch.nn.functional import _sdpa_ref
 from paddle_tpu_torch.ops.kernels import _build, registry
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    CARD_TOL_BWD, _flash_fwd_cuda, _rowmajor, attention_delta,
-    flash_attention, flash_attention_bhsd, flash_attention_blockwise_ref,
-    flash_attention_bwd_blockwise_ref, flash_attention_bwd_dkv_ref,
-    flash_attention_bwd_dq_ref, flash_attention_ref, flash_eligible,
-    flash_fwd_plan)
+    CARD_TOL_BWD, _bwd_dkv_cuda, _bwd_dq_cuda, _flash_fwd_cuda, _rowmajor,
+    attention_delta, flash_attention, flash_attention_bhsd,
+    flash_attention_blockwise_ref, flash_attention_bwd_blockwise_ref,
+    flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
+    flash_attention_ref, flash_bwd_plan, flash_eligible, flash_fwd_plan)
 from paddle_tpu_torch.ops.kernels.kv_attention import (
     int8_paged_attention, paged_attention_ref)
 from paddle_tpu_torch.ops.kernels.opt_apply import (
@@ -245,6 +245,10 @@ class _FakeLib:
         self.flash_attention_fwd = _FakeFn(self.calls, "flash_attention_fwd")
         self.flash_attention_fwd_sm90 = _FakeFn(self.calls,
                                                 "flash_attention_fwd_sm90")
+        for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv_sm90",
+                     "flash_attention_bwd_dq_sm90"):
+            setattr(self, name, _FakeFn(self.calls, name))
         self.segment_sum_f32 = _FakeFn(self.calls, "segment_sum_f32")
         self.segment_sum_sorted_f32 = _FakeFn(self.calls,
                                               "segment_sum_sorted_f32")
@@ -319,6 +323,153 @@ def test_flash_first_kernel_takes_bf16_d64(fake_flash_lib):
     _flash_fwd_cuda(q, q, q, causal=True)
     ((name, args),) = fake_flash_lib.calls
     assert name == "flash_attention_fwd" and args[10] == 64
+
+
+# ---------------------------------------------------------------------
+# kernels 2 and 3: the backward's launch plan and launchers
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,D,route,dkv_rows,dq_rows,streamed", [
+    (torch.bfloat16, 128, "tma_wgmma", 128, 128, 64),
+    (torch.bfloat16, 64, "mma_sync", 64, 64, 64),
+    (torch.bfloat16, 256, "mma_sync", 32, 64, 64),
+    (torch.float32, 128, "fma", 32, 32, 32)])
+def test_flash_bwd_plan_route_by_dtype_and_head_dim(dtype, D, route,
+                                                    dkv_rows, dq_rows,
+                                                    streamed):
+    """bf16 at head_dim 128 takes the Hopper kernels (128 resident rows
+    an item, 64-row streamed tiles, persistent blocks); the other dtypes
+    and head dims keep the first kernels' tiles and one block an item."""
+    q = torch.zeros(1, 2, 300, D, dtype=dtype)
+    plan = flash_bwd_plan(q, q, q, q, causal=True)
+    assert plan.route == route
+    assert (plan.dkv.block_res, plan.dq.block_res) == (dkv_rows, dq_rows)
+    assert plan.dkv.block_str == plan.dq.block_str == streamed
+    if route == "tma_wgmma":
+        for kp in (plan.dkv, plan.dq):
+            assert (kp.stages, kp.threads) == (2, 384)
+            # two buffers of the resident pair, two stages of the streamed
+            # pair, LSE/delta rows, 8 mbarriers, alignment slack: within a
+            # block's 227 KB
+            assert kp.smem_bytes == (1024 + 4 * 32768 + 4 * 16384 + 2048
+                                     + 64) <= 232448
+            assert kp.grid == (kp.items, 1, 1) == (3 * 2, 1, 1)
+    else:
+        assert plan.dkv.tma_strides == plan.dq.tma_strides == ()
+        assert plan.dkv.grid == (-(-300 // dkv_rows), 2, 1)
+        assert plan.dq.grid == (-(-300 // dq_rows), 2, 1)
+
+
+@pytest.mark.parametrize("B,H,S,grid", [(4, 16, 2048, 132), (1, 1, 100, 1),
+                                        (1, 8, 4096, 132), (2, 4, 1000, 64)])
+def test_flash_bwd_plan_grid_is_at_most_the_sm_count(B, H, S, grid):
+    """One persistent block per SM at most (132 on an H100, the count
+    used where no card is at hand); fewer only where the items are
+    fewer."""
+    q = _bf16(B, H, S, 128)
+    plan = flash_bwd_plan(q, q, q, q, causal=True)
+    items = -(-S // 128) * H * B
+    for kp in (plan.dkv, plan.dq):
+        assert kp.items == items
+        assert kp.grid == (min(items, 132), 1, 1) == (grid, 1, 1)
+
+
+@pytest.mark.parametrize("H,Hkv,S,causal,dkv_tiles,dq_tiles", [
+    # the proxy: 16 key (query) tiles of 128 a head; causal, key tile t
+    # streams query tiles 2t..31, query tile t key tiles 0..2t+1
+    (16, 16, 2048, True, 272 * 64, 272 * 64),
+    (16, 16, 2048, False, 16 * 32 * 64, 16 * 32 * 64),
+    # GQA 8 / 2, ragged: dK/dV streams the 4 query heads of its group
+    (8, 2, 777, True, (13 + 11 + 9 + 7 + 5 + 3 + 1) * 4 * 2,
+     (2 + 4 + 6 + 8 + 10 + 12 + 13) * 8),
+    (8, 2, 777, False, 7 * 13 * 4 * 2, 7 * 13 * 8)])
+def test_flash_bwd_plan_counts_items_and_streamed_tiles(H, Hkv, S, causal,
+                                                        dkv_tiles,
+                                                        dq_tiles):
+    B = 4 if S == 2048 else 1
+    q, kv = _bf16(B, H, S, 128), _bf16(B, Hkv, S, 128)
+    plan = flash_bwd_plan(q, kv, kv, q, causal=causal)
+    n_rt = -(-S // 128)
+    assert plan.dkv.items == n_rt * Hkv * B
+    assert plan.dq.items == n_rt * H * B
+    assert (plan.dkv.tiles, plan.dq.tiles) == (dkv_tiles, dq_tiles)
+
+
+def test_flash_bwd_plan_takes_bshd_views_and_names_the_outputs():
+    """The model's (B, S, H, D) tensors reach the backward as head views:
+    the tensor maps take their strides as they are, and the outputs'
+    strides are those of the (B, S, heads, D) tensors the wrappers
+    allocate."""
+    B, S, H, Hkv, D = 2, 1000, 8, 2, 128
+    q = _bf16(B, S, H, D).transpose(1, 2)
+    kv = _bf16(B, S, Hkv, D).transpose(1, 2)
+    plan = flash_bwd_plan(q, kv, kv, q)
+    assert plan.as_is == {"q": True, "k": True, "v": True, "do": True}
+    qs = (H * D * 2, D * 2, S * H * D * 2)
+    ks = (Hkv * D * 2, D * 2, S * Hkv * D * 2)
+    assert plan.dkv.tma_strides == qs + ks + ks + qs + ks + ks
+    assert plan.dq.tma_strides == qs + ks + ks + qs + qs
+    odd = _bf16(B, H, S, 132)[..., 4:]          # rows 8 bytes off
+    assert not flash_bwd_plan(odd, kv, kv, q).as_is["q"]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bshd", "gqa", "odd"])
+def test_flash_bwd_bf16_d128_launches_the_sm90_entries(fake_flash_lib,
+                                                      layout, causal):
+    B, H, S, D = 2, 4, 300, 128
+    if layout == "bshd":
+        q = k = v = do = _bf16(B, S, H, D).transpose(1, 2)
+    elif layout == "gqa":
+        q, do = _bf16(B, H, S, D), _bf16(B, H, S, D)
+        k = v = _bf16(B, 2, S, D)
+    else:
+        # a view TMA cannot take: copied row-major, still the sm90 entry
+        q = k = v = do = _bf16(B, H, S, 132)[..., 4:]
+    lse = delta = torch.zeros(B, H, S)
+    dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal)
+    (n1, a1), (n2, a2) = fake_flash_lib.calls
+    assert (n1, n2) == ("flash_attention_bwd_dkv_sm90",
+                        "flash_attention_bwd_dq_sm90")
+    rm = [_rowmajor(t) for t in (q, k, v, do)]
+    plan = flash_bwd_plan(*rm, causal=causal)
+    for args, kp, outs in ((a1, plan.dkv, (dk, dv)), (a2, plan.dq, (dq,))):
+        n = 6 + len(outs)
+        assert args[4:n] == tuple(t.data_ptr() for t in
+                                  (lse, delta, *outs))
+        if layout == "odd":             # the wrapper's own row-major copy
+            assert args[0] != q.data_ptr()
+        else:
+            assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, do))
+        assert args[n:n + 5] == (B, H, k.shape[1], S, S)
+        assert tuple(args[n + 5]) == kp.tma_strides
+        assert tuple(args[n + 6]) == (128, 64, 2, 384, kp.smem_bytes,
+                                      *kp.grid)
+        assert args[n + 7] == int(causal)
+        # the outputs' tensor-map strides are those of the tensors
+        # returned
+        for i, o in enumerate(outs):
+            assert kp.tma_strides[12 + 3 * i:15 + 3 * i] == tuple(
+                o.stride(j) * 2 for j in (2, 1, 0))
+    assert dk.shape == k.shape and dq.shape == q.shape
+    assert registry.launch_counts()["flash_attention_bwd_dkv"] == 1
+    assert registry.launch_counts()["flash_attention_bwd_dq"] == 1
+
+
+def test_flash_bwd_other_routes_launch_the_first_kernels(fake_flash_lib):
+    for dtype, D in ((torch.bfloat16, 64), (torch.float32, 128)):
+        fake_flash_lib.calls.clear()
+        q = torch.zeros(1, 2, 300, D, dtype=dtype)
+        lse = torch.zeros(1, 2, 300)
+        _bwd_dkv_cuda(q, q, q, q, lse, lse, causal=True)
+        _bwd_dq_cuda(q, q, q, q, lse, lse, causal=True)
+        (n1, a1), (n2, a2) = fake_flash_lib.calls
+        assert (n1, n2) == ("flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq")
+        # B, H, Hkv, Sq, Sk, D after the 8 (dK/dV) or 7 (dQ) pointers
+        assert a1[8:14] == a2[7:13] == (1, 2, 2, 300, 300, D)
+        assert a1[-2] == a2[-2] == int(dtype == torch.bfloat16)
 
 
 def test_flash_gqa_indexes_kv_head_like_repeat():
@@ -1031,6 +1182,29 @@ def test_build_keeps_the_ptxas_log_beside_a_cached_library(monkeypatch,
     assert _build.build(["segment_sum.cu"]) == [lib]
     assert _build.build_logs == {"segment_sum.cu": log}
     assert _build.build_seconds == {}
+
+
+def test_build_target_follows_the_included_header(monkeypatch, tmp_path):
+    """A library's name hashes the source and every ``csrc/`` header it
+    includes, so an edit to the shared sm90 header rebuilds both flash
+    sources; system headers are not followed."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include <stdint.h>\n#include "h.cuh"\n'
+                               "int x;\n")
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build._target("a.cu")
+    assert _build._target("a.cu") == first
+    (csrc / "h.cuh").write_text("// two\n")
+    assert _build._target("a.cu") != first
+    assert _build._target("a.cu").name.startswith("a-")
+    monkeypatch.undo()
+    for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        assert '#include "sm90.cuh"' in (_build.CSRC / src).read_text()
+        assert (_build._source_bytes(src)
+                == (_build.CSRC / src).read_bytes()
+                + (_build.CSRC / "sm90.cuh").read_bytes())
 
 
 def test_kernel_sources_carry_their_note():
