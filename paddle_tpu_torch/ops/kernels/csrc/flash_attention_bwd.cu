@@ -42,6 +42,9 @@
 //   accumulator layout is the A layout) and the streamed tile read
 //   MN-major (the transpose bit).  P is one FFMA and one ex2 a score
 //   with scale * log2(e) folded in, against the saved LSE;
+// - the two consumer warpgroups ping-pong (named barriers): they take
+//   turns to issue their products, so one warpgroup's exponentials and
+//   dS run under the other's products;
 // - persistent blocks, at most one per SM, walk the items in a snake
 //   order, heaviest causal items first (low key tiles for dK/dV, high
 //   query tiles for dQ);
@@ -979,6 +982,26 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
+    // Ping-pong: the tensor cores alternate between the two warpgroups,
+    // a turn for each batch of products (S and dP; then the
+    // accumulators), so that one warpgroup's exponentials and dS run
+    // under the other's products.  A warpgroup waits for its turn (named
+    // barrier 3 + cw) and hands it over (3 + other) once its products
+    // are issued.  Warpgroup 1 gives warpgroup 0 the first turn and
+    // skips its own last hand-over, so every barrier sees as many
+    // arrivals as waits.  (A last turn taken by warpgroup 0 after its
+    // loop instead makes ptxas spill hundreds of bytes.)
+    auto turn_wait = [&]() { named_sync<256>(3 + cw); };
+    auto turn_pass = [&]() { named_arrive<256>(3 + (cw ^ 1)); };
+    if (cw == 1) turn_pass();
+    // whether an item after `round` streams a tile (both warpgroups walk
+    // the same items)
+    auto more_after = [&](int round) {
+      Item nx;
+      for (int r = round + 1; item_of<kDKV>(p, r, nx); ++r)
+        if (nx.n > 0) return true;
+      return false;
+    };
 
     int str_it = 0;
     Item it;
@@ -1013,6 +1036,7 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         float x[32], y[32];
         uint32_t pa[16], pd[16];
         mbar_wait(bar_sf + 8 * s, (str_it / kStages) & 1);
+        turn_wait();
         wgmma_fence();
         issue_x(x, da0, sw128_desc(sb0, 16, 1024));
         wgmma_commit();
@@ -1020,6 +1044,7 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         wgmma_commit();
         fence_regs(x);
         fence_regs(y);
+        turn_pass();
         wgmma_wait<1>();
         fence_regs(x);
 
@@ -1079,6 +1104,7 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         if constexpr (kDKV) pack16(x, pa);
         pack16(y, pd);
         // dK += bf16(dS^T) Q and dV += bf16(P^T) dO, or dQ += bf16(dS) K
+        turn_wait();
         wgmma_fence();
         issue_acc(acc0, pd, sw128_desc(sb0, kStrPanel, 1024));
         if constexpr (kDKV)
@@ -1090,6 +1116,7 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
           fence_regs(acc1);
           fence_regs(pa);
         }
+        if (cw == 0 || j + 1 < it.n || more_after(round)) turn_pass();
         wgmma_wait<0>();
         fence_regs(acc0);
         fence_regs(pd);
