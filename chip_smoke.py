@@ -3167,57 +3167,42 @@ def profile_resnet_train(dev, step, img, label, steps: int = 2):
                 ranges=shares)
 
 
-def ptxas_entries(text):
-    """Per entry function of a ``ptxas -v`` log: [registers, spill-store
-    bytes, spill-load bytes]."""
-    out, cur = {}, None
+def check_ptxas(source, match, entries=None):
+    """Phase 2's check of one source's ``ptxas -v`` log (kept beside a
+    cached library): fails without a log, on a spill in an entry whose
+    name contains ``match``, or on a wgmma that ptxas serialised; with
+    ``entries``, unless that many entries match.  Returns the matching
+    entries' [registers, spill-store bytes, spill-load bytes]."""
+    from paddle_tpu_torch.ops.kernels import _build
+    text = _build.build_logs.get(source) or ""
+    found, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = out.setdefault(m.group(1), [0, 0, 0])
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur[1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur[0] = int(m.group(1))
-    return out
-
-
-def check_bwd_build(text):
-    """Phase 2 for kernels 2 and 3: the two sm90 entries of
-    ``flash_attention_bwd.cu`` (``flash_bwd_sm90<true>``, dK/dV;
-    ``<false>``, dQ) must show no spill and no wgmma that ptxas
-    serialised."""
-    from paddle_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
-    entries = {n: e for n, e in ptxas_entries(text or "").items()
-               if "flash_bwd_sm90" in n}
-    if len(entries) != 2:
-        fail("build flash_attention_bwd.cu: no ptxas -v log of its two sm90 "
-             "entries to check (a library cached without its log: empty "
-             "the build directory and rerun)")
-    meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
-    plan = flash_bwd_plan(meta, meta, meta, meta, causal=True).dkv
-    for name, (regs, stores, loads) in sorted(entries.items()):
-        which = "dK/dV" if "ILb1E" in name else "dQ"
-        log(f"  flash_bwd_sm90 ({which}): {regs} registers at launch (a "
-            f"producer warpgroup at 40 by setmaxnreg, two consumer "
-            f"warpgroups at 232), spill stores {stores} B, spill loads "
-            f"{loads} B; {plan.threads} threads, {plan.smem_bytes} B "
-            f"dynamic shared memory, {plan.block_res} resident rows, "
-            f"{plan.block_str}-row streamed tiles, {plan.stages} stages")
-        if stores or loads:
-            fail(f"build flash_attention_bwd.cu: {which} sm90 entry spills "
-                 f"({stores} B stored, {loads} B loaded)")
+            cur = (found.setdefault(m.group(1), [0, 0, 0])
+                   if match in m.group(1) else None)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur[1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur[0] = int(m.group(1))
+    if not found or (entries is not None and len(found) != entries):
+        fail(f"build {source}: no ptxas -v log of its entries to check for "
+             "spills (a library cached without its log: empty the build "
+             "directory and rerun)")
+    spills = {n: e[1:] for n, e in found.items() if e[1] or e[2]}
+    if spills:
+        fail(f"build {source}: ptxas reports spills (stores, loads bytes): "
+             f"{spills}")
     serial = [ln.strip() for ln in text.splitlines()
               if "wgmma" in ln and "serializ" in ln]
     if serial:
-        fail("build flash_attention_bwd.cu: ptxas serialised wgmmas: "
+        fail(f"build {source}: ptxas serialised wgmmas: "
              + " | ".join(serial))
+    return found
 
 
 def _build_host_libs() -> float:
@@ -3275,26 +3260,26 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line or "warning" in line:
                 log("  " + line.strip())
-    # kernels 7 and 8 fold from registers and shared memory: a spill would
-    # put their accumulators back in memory.  A cached library is checked
-    # on the log kept beside it
-    seg_log = _build.build_logs.get("segment_sum.cu")
-    if not seg_log or "Compiling entry" not in seg_log:
-        fail("build segment_sum.cu: no ptxas -v log to check for spills "
-             "(a library cached without its log: empty "
-             f"{_build.BUILD_DIR} and rerun)")
-    spills = re.findall(r"([1-9][0-9]*) bytes spill", seg_log)
-    if spills:
-        fail(f"build segment_sum.cu: ptxas reports spills ({spills} bytes)")
-    # kernels 2 and 3 on the Hopper route keep dK and dV (or dQ) in the
-    # consumers' registers: a spill in their sm90 entries, or ptxas
-    # serialising their wgmmas, fails (a cached library: its kept log)
-    check_bwd_build(_build.build_logs.get("flash_attention_bwd.cu"))
-    # the sm90 flash forward's shared memory is dynamic (ptxas does not
-    # see it) and its consumers run at the register count setmaxnreg
-    # gives them, not at the count ptxas prints for the launch
-    from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
+    # kernels 7 and 8 fold from registers and shared memory, and kernels
+    # 2 and 3 on the Hopper route keep dK and dV (or dQ) in the consumers'
+    # registers: a spill would put them back in memory.  A cached library
+    # is checked on the log kept beside it
+    check_ptxas("segment_sum.cu", "")
+    bwd = check_ptxas("flash_attention_bwd.cu", "flash_bwd_sm90", entries=2)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd_plan, flash_fwd_plan)
     meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
+    bplan = flash_bwd_plan(meta, meta, meta, meta, causal=True).dkv
+    # the sm90 flash kernels' shared memory is dynamic (ptxas does not
+    # see it) and their consumers run at the register count setmaxnreg
+    # gives them, not at the count ptxas prints for the launch
+    for name, (regs, _, _) in sorted(bwd.items()):
+        log(f"  flash_bwd_sm90 ({'dK/dV' if 'ILb1E' in name else 'dQ'}): "
+            f"{regs} registers at launch (a producer warpgroup at 40 by "
+            f"setmaxnreg, two consumer warpgroups at 232), no spill; "
+            f"{bplan.threads} threads, {bplan.smem_bytes} B dynamic shared "
+            f"memory, {bplan.block_res} resident rows, {bplan.block_str}-row "
+            f"streamed tiles, {bplan.stages} stages")
     plan = flash_fwd_plan(meta, meta, meta)
     log(f"  flash_fwd_sm90: {plan.threads} threads (a producer warpgroup "
         f"at 40 registers, two consumer warpgroups at 232), "

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers the
 source, the ``csrc/`` headers it includes and the flags, so an edited
-source or header rebuilds), then loaded with ``ctypes``.  ``nvcc``'s output (``ptxas -v``: registers, shared memory,
-spills) is kept beside the library as ``<name>-<hash>.log`` and read
+source or header rebuilds), then loaded with ``ctypes``.  ``nvcc``'s
+output (``ptxas -v``: registers, shared memory, spills) is kept beside
+the library as ``<name>-<hash>.log`` and read
 back into :data:`build_logs` when the library is already built.  No
 PyTorch header is included: a build takes seconds, not the minutes a
 ``torch.utils.cpp_extension`` build takes.

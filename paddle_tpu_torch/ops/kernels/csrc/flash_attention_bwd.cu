@@ -55,11 +55,11 @@
 // in a fixed order, so a rerun is bitwise equal.
 // ptxas -v (nvcc 12.9, sm_90a), both entries: 168 registers (the count
 // at entry, 65,536 / 384), 0 bytes of spills; 199,744 bytes of dynamic
-// shared memory.  The split of registers is tight: at 24 for the
-// producer and 240 for the consumers the producer spills, at 40 and 232
-// dK/dV's consumer spilled one register until P and dS were packed only
-// after both were formed (no packed operand in flight while dS is
-// computed), and every register-A wgmma needs its own wgmma.fence.
+// shared memory.  The split of registers is tight (128 x producer +
+// 256 x consumer <= 168 x 384): at 24 / 240 the producer spills; at
+// 40 / 232 dK/dV's consumer fits only if P and dS are packed after both
+// are formed (no packed operand in flight while dS is computed); every
+// register-A wgmma needs its own wgmma.fence (else ptxas injects one).
 //
 // The other routes keep the first design: bf16 at head_dim 64 and 256 on
 // mma.sync m16n8k16 (operands staged synchronously through padded
