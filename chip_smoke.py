@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (one ``nvcc`` per source, started together) and print the seconds
    and the registers/shared memory ptxas reports (and the dynamic shared
    memory, tiles and stages of the Hopper flash forward and backward); a
-   spill in ``segment_sum.cu`` (kernels 7 and 8) or in the two sm90
-   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3), or a wgmma
-   that ptxas serialised there, fails;
+   spill in ``segment_sum.cu`` (kernels 7 and 8), in the two sm90
+   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3) or in the
+   four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6), or a
+   wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -74,7 +75,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     equal (integer sums are order-free); for information, the top-1
     agreement of the int8 and the bf16 model;
 12. ``torch.profiler`` over 3 batch-32 int8 forwards: device busy time
-    against wall time, and the top device kernels;
+    against wall time, the top device kernels, and the int8 GEMMs'
+    device ms a forward beside the first (``mma.sync``) kernel's;
 13. train the reference bench's wide&deep (``bench.py:618-624``, nothing
     cut: 26 fields of 16-wide embeddings over 20,000 Zipf(1.3) ids each,
     13 dense features, hidden 256, batch 1,024; ``RandomState(0)`` draws
@@ -173,12 +175,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 Every profiled phase (6, 9, 12, 16, 19, 23, 28) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
-Phase 3 also holds ``int8_matmul`` against its plain version at the
-ResNet-50 GEMMs of batch 32 (and at batch 1) with the int8 model's bf16
-output (the stem also with f32 output): dynamic mode bitwise,
-weight-only within the module's ``CARD_TOL``; each is timed beside its
-bound and beside ``torch._int_mm`` plus its scale pass, which compute
-the same function and which the port never calls.  It holds
+Phase 3 also holds ``int8_matmul`` against its plain version at every
+GEMM shape the int8 ResNet-50 sends at batch 1 and at batch 32 (recorded
+from the model by ``recorded_shapes``: 21 shapes each, 54 launches a
+forward) with the model's bf16 output (the stem also with f32 output):
+dynamic mode bitwise and bitwise on a rerun, weight-only (at the
+classifier's shape) within the module's ``CARD_TOL``; each is timed
+queued beside its bound, its plain version and ``torch._int_mm`` plus
+its scale pass, which compute the same function and which the port
+never calls, with the launch-weighted sums a forward; the kernel's
+launch plan (``int8_mm_plan``) is printed beside each shape, and the
+split-K trade is timed at two shapes (every split bitwise).  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
 200,000; integer gradients; n = 1; dim 13; the hard cases of the
@@ -752,95 +759,200 @@ def kv_cases(dev):
 
 def _int_mm_library(x, w_nk, scale, cdt):
     """``torch._int_mm`` (cuBLASLt's int8 GEMM) and the same scale pass:
-    the yardstick, never called by the port.  It takes K padded to a
-    multiple of 8 and M > 16."""
+    the yardstick, never called by the port.  It takes M > 16 and K a
+    multiple of 8: the operands are zero-padded to it here, once, outside
+    what is timed."""
     k = x.shape[1]
     if k % 8:
         pad = 8 - k % 8
         x = torch.nn.functional.pad(x, (0, pad))
         w_nk = torch.nn.functional.pad(w_nk, (0, pad))
-    wt = w_nk.t()
+    x, wt = x.contiguous(), w_nk.contiguous().t()
     return lambda: (torch._int_mm(x, wt).float() * scale).to(cdt)
 
 
-def int8_cases(dev):
-    """``int8_matmul`` at the ResNet-50 GEMMs of batch 32 (M = batch x
-    output pixels, K = C_in x kh x kw, N = C_out) with bf16 output, as
-    the int8 model calls it (the stem also with f32 output, as the
-    reference's convolution calls its kernel), the batch-1 ones that
-    stress small M, and weight-only at the classifier's shape."""
+def resnet_int8_gemms(dev):
+    """Every distinct ``(M, K, N, compute dtype, dynamic)`` that one
+    forward of phase 10's int8 ResNet-50 (224x224) sends to
+    ``int8_matmul`` at batch 1 and at batch 32, with its calls a forward:
+    recorded from the model (``recorded_shapes``), nothing typed here."""
+    from paddle_tpu_torch.ops.kernels.int8_matmul import recorded_shapes
+    from paddle_tpu_torch.quantization import convert_to_int8_inference
+    from paddle_tpu_torch.vision.models import resnet50
+    model = _cast_bf16(convert_to_int8_inference(resnet50(
+        num_classes=1000, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED))))
+    shapes = {}
+    with torch.no_grad():
+        for b in (1, 32):
+            with recorded_shapes() as got:
+                model(_images(dev, b))
+            if sum(got.values()) != RESNET_GEMMS:
+                fail(f"int8 resnet50 batch {b}: {sum(got.values())} "
+                     f"int8_matmul calls a forward, want {RESNET_GEMMS}")
+            shapes[b] = got
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
+# the int8 GEMMs' device ms a batch-32 int8 ResNet-50 forward (phase 12)
+# in the first (mma.sync) kernel of int8_matmul (PERF.md section 6)
+INT8_MMA_SYNC_GEMM_MS = 2.05
+
+
+def _int8_case(dev, g, label, M, K, N, cdt, dyn):
+    """One ``int8_matmul`` shape on the card: dynamic mode bitwise equal
+    to the plain version and to itself on a rerun, weight-only within
+    ``CARD_TOL``; the kernel, the plain version and (dynamic, M > 16)
+    ``torch._int_mm`` + scale timed queued.  Returns the numbers."""
     from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    from paddle_tpu_torch.ops.kernels.flash_attention import _sm_count
+    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                      generator=g)
+    ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
+    if dyn:
+        # in rows of a 16-byte pitch, as the int8 convolutions gather them
+        x = im.aligned_rows(M, K, dev)
+        x.copy_(torch.randint(-127, 128, (M, K), device=dev,
+                              dtype=torch.int8, generator=g))
+        xs = torch.tensor(0.0123, device=dev)
+    else:
+        x = torch.randn(M, K, device=dev, dtype=cdt, generator=g)
+        xs = None
+
+    def run(mode=None):
+        return im.int8_matmul(x, w, ws, x_scale=xs, compute_dtype=cdt,
+                              mode=mode)
+
+    got, again, ref = run(), run(), run("torch_ref")
+    torch.cuda.synchronize()
+    dname = str(cdt).replace("torch.", "")
+    shape = f"{label} M={M} K={K} N={N} {dname}"
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"int8_matmul {shape}: non-finite kernel output")
+    if dyn:
+        if not torch.equal(got, ref):
+            d = (got.float() - ref.float()).abs().max().item()
+            fail(f"int8_matmul {shape}: not bitwise equal to the plain "
+                 f"version (max |diff| {d:.3g})")
+        if not torch.equal(again, got):
+            fail(f"int8_matmul {shape}: a rerun is not bitwise equal")
+        err, verdict = 0.0, "bitwise equal to the plain version and on a rerun"
+        plan = im.int8_mm_plan(M, N, K, _sm_count(x.device),
+                               got.element_size())
+        verdict += (f"; plan {plan.block_m}x{plan.block_n} tiles, split "
+                    f"{plan.split}, grid {plan.grid}, {plan.stages} stages, "
+                    + ("TMA" if plan.tma_store else "plain") + " stores")
+    else:
+        err, share = check_close(f"int8_matmul {shape}", got, ref,
+                                 im.CARD_TOL[cdt])
+        verdict = f"max_err {err:.3g}, {share:.3g} of its limit"
+    ms = queued_ms(run)
+    plain = queued_ms(lambda: run("torch_ref"))
+    out_b = M * N * got.element_size()
+    nbytes = M * K * x.element_size() + N * K + 4 * N + out_b
+    bms, by = bound_ms(2.0 * M * N * K,
+                       PEAK_INT8_OPS if dyn else PEAK_BF16_FLOPS
+                       if cdt == torch.bfloat16 else PEAK_F32_FLOPS,
+                       nbytes)
+    lib = None
+    if dyn and M > 16:
+        lib_fn = _int_mm_library(x, w, (xs * ws).contiguous(), cdt)
+        if not torch.equal(lib_fn(), ref):
+            fail(f"int8_matmul {shape}: torch._int_mm's product differs "
+                 "from the plain version")
+        lib = queued_ms(lib_fn)
+    log(f"int8_matmul {shape} {'dynamic' if dyn else 'weight-only'}: "
+        f"{verdict}; kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+        f"{bms:.4f} ({by}) library_ms(_int_mm + scale) "
+        + ("n/a" if lib is None else
+           f"{lib:.4f} (kernel / library {ms / lib:.3f})"))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def _split_trade(dev, g, M, K, N, splits):
+    """The dynamic kernel at one shape with K split each of ``splits``
+    ways (a forced plan), bitwise against the plain version on two runs
+    (the workspace is left zero between launches), timed queued: the
+    measurement behind ``int8_mm_plan``'s split rule."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    from paddle_tpu_torch.ops.kernels.flash_attention import _sm_count
+    x = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8,
+                      generator=g)
+    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                      generator=g)
+    ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
+    ref = im.int8_matmul(x, w, ws, x_scale=0.0123, mode="torch_ref")
+    scale = torch.as_tensor(0.0123, dtype=torch.float32, device=dev) * ws
+    x2, wk = im.kernel_rows(x), im.kernel_rows(w)
+    sms = _sm_count(dev)
+    parts = []
+    for split in splits:
+        plan = im.int8_mm_plan(M, N, K, sms, 2, split=split)
+        out = torch.empty_like(ref)
+
+        def run():
+            im._launch_dynamic(x2, wk, scale, out, plan)
+
+        for _ in range(2):
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"int8_matmul M={M} K={K} N={N} split {split}: not "
+                     "bitwise equal to the plain version")
+        parts.append(f"{split}: {queued_ms(run):.4f}")
+    log(f"int8_matmul split trade M={M} K={K} N={N} bfloat16 (the plan "
+        f"splits {im.int8_mm_plan(M, N, K, sms).split}): kernel_ms by "
+        f"splits {'; '.join(parts)}; every split bitwise equal to the plain "
+        "version on two runs")
+
+
+def int8_cases(dev):
+    """``int8_matmul`` at every GEMM an int8 ResNet-50 forward sends at
+    batch 1 and at batch 32 (``resnet_int8_gemms``), with each shape's
+    calls a forward and the launch-weighted sums a forward of the
+    kernel's, the library's and the bound's times; the stem also with f32
+    output (as the reference's convolution calls its kernel) and
+    weight-only mode at the classifier's shape."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     row = None
-    cases = [  # (label, M, K, N, compute dtype, dynamic); first = stem
-        ("conv1 7x7/2 b32", 401408, 147, 64, torch.bfloat16, True),
-        ("conv1 7x7/2 b32", 401408, 147, 64, torch.float32, True),
-        ("layer1 3x3 b32", 100352, 576, 64, torch.bfloat16, True),
-        ("layer3 3x3 b32", 6272, 2304, 256, torch.bfloat16, True),
-        ("layer4 3x3 b32", 1568, 4608, 512, torch.bfloat16, True),
-        ("fc b32", 32, 2048, 1000, torch.bfloat16, True),
-        ("layer4 3x3 b1", 49, 4608, 512, torch.bfloat16, True),
-        ("fc b1", 1, 2048, 1000, torch.bfloat16, True),
-        ("fc b32 weight-only", 32, 2048, 1000, torch.bfloat16, False),
-        ("fc b32 weight-only", 32, 2048, 1000, torch.float32, False),
-    ]
-    for i, (label, M, K, N, cdt, dyn) in enumerate(cases):
-        w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
-                          generator=g)
-        ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
-        if dyn:
-            x = torch.randint(-127, 128, (M, K), device=dev,
-                              dtype=torch.int8, generator=g)
-            xs = torch.tensor(0.0123, device=dev)
-        else:
-            x = torch.randn(M, K, device=dev, dtype=cdt, generator=g)
-            xs = None
-
-        def run(mode=None):
-            return im.int8_matmul(x, w, ws, x_scale=xs, compute_dtype=cdt,
-                                  mode=mode)
-
-        got, ref = run(), run("torch_ref")
-        torch.cuda.synchronize()
-        dname = str(cdt).replace("torch.", "")
-        shape = f"{label} M={M} K={K} N={N} {dname}"
-        if not bool(torch.isfinite(got.float()).all()):
-            fail(f"int8_matmul {shape}: non-finite kernel output")
-        if dyn:
-            if not torch.equal(got, ref):
-                d = (got.float() - ref.float()).abs().max().item()
-                fail(f"int8_matmul {shape}: not bitwise equal to the plain "
-                     f"version (max |diff| {d:.3g})")
-            err, verdict = 0.0, "bitwise equal"
-        else:
-            err, share = check_close(f"int8_matmul {shape}", got, ref,
-                                     im.CARD_TOL[cdt])
-            verdict = f"max_err {err:.3g}, {share:.3g} of its limit"
-        ms = queued_ms(run)
-        wall = cuda_ms(run)
-        plain = queued_ms(lambda: run("torch_ref"))
-        out_b = M * N * got.element_size()
-        nbytes = M * K * x.element_size() + N * K + 4 * N + out_b
-        bms, by = bound_ms(2.0 * M * N * K,
-                           PEAK_INT8_OPS if dyn else PEAK_BF16_FLOPS
-                           if cdt == torch.bfloat16 else PEAK_F32_FLOPS,
-                           nbytes)
-        lib = None
-        if dyn and M > 16:
-            scale = (xs * ws).contiguous()
-            lib_fn = _int_mm_library(x, w, scale, cdt)
-            if not torch.equal(lib_fn(), ref):
-                fail(f"int8_matmul {shape}: torch._int_mm's product differs "
-                     "from the plain version")
-            lib = queued_ms(lib_fn)
-        log(f"int8_matmul {shape} {'dynamic' if dyn else 'weight-only'}: "
-            f"{verdict}; kernel_ms {ms:.4f} (one call between events "
-            f"{wall:.4f}) plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}) "
-            "library_ms(_int_mm + scale) "
-            + ("n/a" if lib is None else f"{lib:.4f}"))
-        if i == 0:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, library_ms=lib)
+    for b, shapes in resnet_int8_gemms(dev).items():
+        kern = bound = lib = kern_lib = 0.0
+        no_lib = 0
+        # the largest products first
+        for (M, K, N, cdt, dyn), calls in sorted(
+                shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]
+                * kv[0][2]):
+            r = _int8_case(dev, g, f"resnet50 b{b} ({calls} a forward)",
+                           M, K, N, cdt, dyn)
+            kern += calls * r["ms"]
+            bound += calls * r["bound_ms"]
+            if r["library_ms"] is None:
+                no_lib += calls
+            else:
+                lib += calls * r["library_ms"]
+                kern_lib += calls * r["ms"]
+            if b == 32 and K == 147:
+                row = r
+        log(f"int8_matmul resnet50 batch {b}, a forward ({RESNET_GEMMS} "
+            f"launches, {len(shapes)} shapes): kernel {kern:.4f} ms, bound "
+            f"{bound:.4f} ms (kernel / bound {kern / bound:.2f}); "
+            f"_int_mm + scale {lib:.4f} ms over the {RESNET_GEMMS - no_lib} "
+            f"launches where it runs (M > 16), the kernel {kern_lib:.4f} "
+            f"on those (kernel / library {kern_lib / lib:.3f})")
+    # K split across blocks: layer4's 3x3 at batch 1 (the plan walks its
+    # 36 k-tiles unsplit) and a K of 64 k-tiles (the plan splits 8 ways)
+    _split_trade(dev, g, 49, 4608, 512, (1, 2, 4, 8, 9))
+    _split_trade(dev, g, 8, 8192, 1024, (1, 2, 4, 8))
+    for label, M, K, N, cdt, dyn in (
+            ("conv1 7x7/2 b32", 401408, 147, 64, torch.float32, True),
+            ("fc b32 weight-only", 32, 2048, 1000, torch.bfloat16, False),
+            ("fc b32 weight-only", 32, 2048, 1000, torch.float32, False)):
+        _int8_case(dev, g, label, M, K, N, cdt, dyn)
     return row
 
 
@@ -1350,6 +1462,13 @@ def profile_resnet(dev, int8_model, forwards: int = 3):
     log(f"profile resnet50 int8 batch 32: wall {wall_ms:.2f} ms/forward, "
         f"device busy {busy_ms:.2f} ms/forward, idle share "
         f"{1 - busy_ms / wall_ms:.4f}, {n_kern} kernels/forward")
+    gemm = [e for e in kern if "int8_mm" in e.key]
+    gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / forwards
+    log(f"profile resnet50 int8 batch 32: the int8 GEMMs (int8_matmul) "
+        f"{gemm_ms:.3f} device ms/forward in "
+        f"{sum(e.count for e in gemm) // forwards} launches "
+        f"({gemm_ms / busy_ms:.3f} of busy; the first mma.sync kernel's: "
+        f"{INT8_MMA_SYNC_GEMM_MS})")
     check_busy("profile resnet50 (phase 12)", busy_ms, wall_ms)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / forwards:8.3f}"
@@ -3266,6 +3385,11 @@ def main() -> int:
     # is checked on the log kept beside it
     check_ptxas("segment_sum.cu", "")
     bwd = check_ptxas("flash_attention_bwd.cu", "flash_bwd_sm90", entries=2)
+    # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
+    # item: four instantiations (64 or 128 columns, bf16 or f32 output)
+    mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
+    for name, (regs, _, _) in sorted(mm.items()):
+        log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_bwd_plan, flash_fwd_plan)
     meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")

@@ -7,32 +7,56 @@
 // w are int8 and the sum is int32 (dynamic mode), or out = x @ (w dequantised
 // to the compute dtype) with f32 sums (weight-only mode).
 //
-// What bounds it on this card: bytes for every GEMM of an int8 ResNet-50
-// forward up to batch 32.  A conv's GEMM does 2*K operations per output
-// element against about K bytes of int8 input rows and 2-4 bytes of output;
-// at K <= 4608 and N <= 512 that is at most ~2*N operations per byte, below
-// the ~590 int8 operations per byte the H100 needs before its 1,979 TOPS
-// int8 tensor cores are the limit.  The least time is the int8 rows, the
-// int8 weights and the output over 3.35 TB/s.
+// What bounds it on this card: bytes for most GEMMs of an int8 ResNet-50
+// forward.  A conv's GEMM does 2*K operations per output element against
+// about K bytes of int8 input row and 2-4 bytes of output, so below
+// N ~ 300 it stays under the ~590 int8 operations per byte the H100 needs
+// before its 1,979 TOP/s int8 tensor cores are the limit.  The 3x3
+// convolutions of layer3 and layer4 at batch 32 (K 2,304 and 4,608) are
+// near that line or above it (operations), and at batch 1 every GEMM past
+// layer2 is a few weight bytes read by too few tiles to fill the card.
 //
-// What the design does about it: operands stay int8 all the way into the
-// tensor cores (mma.sync m16n8k32 s8.s8 -> s32), so x and w are read at one
-// byte an element and nothing is dequantised into memory.  A block computes
-// a BM x BN output tile (128 or 64 by 128 or 64, chosen from M and N so the
-// grid fills the 132 SMs where it can) over a K loop of 64-byte tiles
-// streamed through a three-stage cp.async ring: two tiles are in flight
-// while one is multiplied.  Rows are padded to 80 bytes in shared memory so
-// the 32-bit fragment loads of a warp hit 32 different banks.  The K tail
-// (K = 147 for the 7x7 stem) is loaded with cp.async's source size: the
-// bytes past K are zero-filled, and zeros add nothing to an integer sum, so
-// any K works as long as rows start on 16 bytes.  The epilogue converts the
-// int32 sum with round-to-nearest (|sum| exceeds 2^24 from K ~ 1040 on),
-// multiplies by the folded x_scale * w_scale of its column (one f32
-// rounding, as the reference) and stores f32 or bf16 (round to nearest
-// even).  Integer sums do not depend on their order, so the result is
-// bitwise equal to the plain version.  What this simple form does not do:
-// ldmatrix, wgmma on s8, TMA, split-K for grids smaller than the card, or a
-// persistent tile loop.
+// What the design does about it, in dynamic mode (`int8_mm_sm90`, entry
+// `int8_matmul_dynamic`):
+// - a launch plan from Python (`int8_mm_plan`, from the card's SM count)
+//   gives the tile (64 or 128 rows: one or two consumer warpgroups; 64 or
+//   128 columns), the number of K splits, the ring depth and the grid;
+// - x [M, K] and w [N, K] (both K-major, the only layout 8-bit wgmma
+//   takes) are loaded by TMA through 2-D tensor maps in 128-byte k-tiles
+//   (one 128-byte swizzle row), into a ring in shared memory with full
+//   and empty mbarriers; one producer warp issues every load.  TMA's zero
+//   fill past the ends replaces the tail handling at the M and N edges
+//   and past K; both maps end K at a multiple of 16 (a box that crosses
+//   a row's end elsewhere loads several times slower: the stem's K = 147
+//   in rows of pitch 160), and w is zero there, so whatever x holds in
+//   its pad bytes adds nothing.  Zeros add nothing to integer sums;
+// - each consumer warpgroup multiplies its 64 rows by wgmma m64n64k32 or
+//   m64n128k32 s8.s8 -> s32 (four steps a k-tile), both operands from
+//   shared memory, one commit group in flight, and releases a stage as
+//   soon as the group that read it has retired;
+// - persistent: at most one block an SM walks its items (i, i + grid,
+//   ...), N tiles fastest so that neighbouring blocks share x's rows in
+//   L2; the next item's loads run under the current item's products and
+//   epilogue;
+// - split-K where few tiles would each walk a long K: each split takes
+//   a run of k-tiles, adds its int32 sums with atomics into a zero
+//   [M, N] workspace, then takes a ticket (one acq_rel atomic a
+//   warpgroup, after a barrier over its adds); the last split
+//   of a warpgroup's 64-row half reads the sums back, leaves zeros and
+//   resets the ticket (the workspace stays zero between launches, so no
+//   launch needs a memset first), and runs the epilogue.  Integer
+//   addition is exact and does not depend on its order, so the result
+//   is bitwise the plain version's at any split;
+// - epilogue: __int2float_rn(acc) * scale[n] (one f32 rounding, as the
+//   reference's f32 product), rounded to nearest even to bf16 or f32,
+//   staged in shared memory in the 128-byte swizzle (conflict-free) and
+//   written by TMA stores, which clip rows and columns past the ends; an
+//   output whose row pitch is not a multiple of 16 bytes (TMA's rule; N =
+//   33 at bf16) is copied out of the staging tile row by row with
+//   coalesced stores instead.
+// ptxas -v (nvcc 12.9, sm_90a): 168 registers with 128 columns a tile,
+// 124 (f32) and 111 (bf16) with 64, no spill; up to 230,656 bytes of
+// dynamic shared memory.
 //
 // Weight-only mode dequantises the int8 weight tile into shared memory as
 // the reference's compute dtype holds it and never writes it to device
@@ -44,39 +68,16 @@
 // pipelining: this mode is not on the int8 ResNet path; it serves
 // Int8InferenceLinear(act_quant=None).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "sm90.cuh"
 
 namespace {
-
-constexpr int kBK = 64;          // int8 bytes of K per tile: two mma k-steps
-constexpr int kRow = kBK + 16;   // shared-memory row pitch in bytes
-constexpr int kStages = 3;
-constexpr int kSMs = 132;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -87,177 +88,285 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0,
-                                       float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
+// ---------------------------------------------------------------------
+// dynamic mode: TMA, mbarriers, wgmma s8
+// ---------------------------------------------------------------------
 
-// One k-tile of a BM x 64 (or BN x 64) int8 operand into shared memory:
-// 16-byte chunks, rows past `rows` and bytes past K zero-filled.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(int8_t* s, const int8_t* g,
-                                          long long ld, int row0, int rows,
-                                          int k0, int K) {
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * 4; c += THREADS) {
-    const int r = c >> 2, kc = (c & 3) * 16;
-    const int gr = row0 + r, k = k0 + kc;
-    int bytes = K - k;
-    bytes = bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes);
-    if (gr >= rows) bytes = 0;
-    const int8_t* src = bytes ? g + (long long)gr * ld + k : g;
-    cp_async16(s + r * kRow + kc, src, bytes);
-  }
+namespace sm90 {
+
+constexpr int kBK = 128;           // int8 bytes of K a k-tile
+constexpr int kMaxStages = 8;
+constexpr int kMaxThreads = 2 * 128 + 32;   // two consumer warpgroups + one
+                                            // producer warp
+constexpr int kSmemLimit = 232448; // dynamic shared memory a block may have
+constexpr int kBarBytes = 256;     // mbarriers and the tickets' flags
+
+// The dynamic shared memory of a plan (the Python plan computes the same):
+// 1,024 bytes of slack to align the swizzled tiles, the ring of x and w
+// k-tiles, a 64-row output staging tile a consumer warpgroup, mbarriers.
+constexpr int smem_bytes(int bm, int bn, int stages, int elt) {
+  return 1024 + stages * (bm + bn) * kBK + (bm / 64) * 64 * bn * elt
+         + kBarBytes;
 }
 
-// Dynamic mode: x [M, K] int8 (row pitch lda), w [N, K] int8 (row pitch
-// ldb), scale [N] f32 (x_scale * w_scale), out [M, N] OT.  A warp owns a
-// 64 x 32 output tile: 4 x 4 mma tiles of 16 x 8.
-template <int BM, int BN, typename OT>
-__global__ void __launch_bounds__((BM / 64) * (BN / 32) * 32)
-int8_mm_dyn(const int8_t* __restrict__ x, long long lda,
-            const int8_t* __restrict__ w, long long ldb,
-            const float* __restrict__ scale, OT* __restrict__ out, int M,
-            int N, int K) {
-  constexpr int WN = BN / 32;
-  constexpr int THREADS = (BM / 64) * WN * 32;
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* As = smem;                            // [kStages][BM][kRow]
-  int8_t* Bs = smem + kStages * BM * kRow;      // [kStages][BN][kRow]
+struct Params {
+  const float* scale;   // [N] f32: x_scale * w_scale
+  void* out;            // [M, N] f32 or bf16, contiguous
+  int* ws;              // split > 1: [M, N] int32 sums, then the tickets
+  int M, N;
+  int tiles_m, tiles_n, split, k_tiles, items;
+  int wgs;              // consumer warpgroups: block_m / 64
+  int stages;
+  int tma_store;
+};
 
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane >> 2, t = lane & 3;
+// Item i: N tile fastest, then M tile, then split.  Split s takes k-tiles
+// [s * k_tiles / split, (s + 1) * k_tiles / split): never empty while
+// split <= k_tiles, and each k-tile once.
+struct Item {
+  int m0, n0;     // first row and column
+  int tile;       // (M tile, N tile): the ticket's index
+  int kb0, kb1;   // k-tiles [kb0, kb1)
+};
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+template <int BN>
+__device__ __forceinline__ Item item_of(const Params& p, int i) {
+  Item w;
+  const int nt = i % p.tiles_n, r = i / p.tiles_n;
+  const int mt = r % p.tiles_m, s = r / p.tiles_m;
+  w.m0 = mt * 64 * p.wgs;
+  w.n0 = nt * BN;
+  w.tile = mt * p.tiles_n + nt;
+  w.kb0 = (int)((long long)s * p.k_tiles / p.split);
+  w.kb1 = (int)((long long)(s + 1) * p.k_tiles / p.split);
+  return w;
+}
 
-  const int ktiles = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) {
-      load_tile<BM, THREADS>(As + s * BM * kRow, x, lda, m0, M, s * kBK, K);
-      load_tile<BN, THREADS>(Bs + s * BN * kRow, w, ldb, n0, N, s * kBK, K);
+// Byte offset of (row r, column c) in a warpgroup's 64 x BN output
+// staging tile: 128-byte panels of 64 rows, each row's 16-byte chunks
+// swizzled by r % 8 (the layout of a 128-byte-swizzle TMA store box)
+template <typename OT>
+__device__ __forceinline__ uint32_t staged(int r, int c) {
+  const int b = c * (int)sizeof(OT);
+  return (b / 128) * (64 * 128) + r * 128
+         + ((((b % 128) / 16) ^ (r % 8)) * 16) + b % 16;
+}
+
+template <int BN, typename OT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
+             const __grid_constant__ CUtensorMap tw,
+             const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int kAcc = BN / 2;                           // s32 a thread
+  constexpr int kOutBytes = 64 * BN * (int)sizeof(OT);  // a warpgroup's
+  constexpr int kPanelCols = 128 / (int)sizeof(OT);     // staging tile
+  extern __shared__ __align__(128) unsigned char smem_i8[];
+  // swizzled tiles need 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_i8) + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_i8 + (base - smem_u32(smem_i8));
+  const uint32_t a_bytes = p.wgs * 64 * kBK;             // x's k-tile
+  const uint32_t stage_bytes = a_bytes + BN * kBK;      // + w's
+  const uint32_t sOut = base + p.stages * stage_bytes;  // [warpgroup]
+  const uint32_t bar_full = sOut + p.wgs * kOutBytes;   // [stage]
+  const uint32_t bar_empty = bar_full + 8 * kMaxStages; // [stage]
+  // [warpgroup]: this item's split was the tile half's last
+  volatile int* const last = reinterpret_cast<volatile int*>(
+      gbase + (bar_empty + 8 * kMaxStages - base));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * p.wgs);
     }
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // tile kt landed; everyone is done with kt - 1
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) {
-      const int s = nk % kStages;
-      load_tile<BM, THREADS>(As + s * BM * kRow, x, lda, m0, M, nk * kBK, K);
-      load_tile<BN, THREADS>(Bs + s * BN * kRow, w, ldb, n0, N, nk * kBK, K);
-    }
-    cp_async_commit();
-
-    const int8_t* a_s = As + (kt % kStages) * BM * kRow;
-    const int8_t* b_s = Bs + (kt % kStages) * BN * kRow;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* p = a_s + (wm * 64 + i * 16 + g) * kRow + kk + t * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kRow);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = b_s + (wn * 32 + j * 8 + g) * kRow + kk + t * 4;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
-  const bool pairs = (N & 1) == 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn * 32 + j * 8 + t * 2;
-    if (col >= N) continue;
-    const float s0 = scale[col];
-    const float s1 = col + 1 < N ? scale[col + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        const float v0 = __int2float_rn(acc[i][j][2 * h]) * s0;
-        const float v1 = __int2float_rn(acc[i][j][2 * h + 1]) * s1;
-        OT* o = out + (long long)row * N + col;
-        if (pairs) {
-          store2(o, v0, v1);
-        } else {
-          store(o, v0);
-          if (col + 1 < N) store(o + 1, v1);
+  if (warp == 4 * p.wgs) {
+    // ---- producer warp: one thread issues every load ----
+    if (lane == 0) {
+      int s = 0, ph = 0;   // ring slot and the parity of its phase
+      for (int i = blockIdx.x; i < p.items; i += gridDim.x) {
+        const Item w = item_of<BN>(p, i);
+        for (int kb = w.kb0; kb < w.kb1; ++kb) {
+          const uint32_t dst = base + s * stage_bytes;
+          // the slot's previous tile released (passes at once at first)
+          mbar_wait(bar_empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, stage_bytes);
+          tma_load_2d(dst, &tx, bar_full + 8 * s, kb * kBK, w.m0);
+          tma_load_2d(dst + a_bytes, &tw, bar_full + 8 * s, kb * kBK, w.n0);
+          if (++s == p.stages) {
+            s = 0;
+            ph ^= 1;
+          }
         }
       }
     }
+    return;
   }
+
+  // ---- consumer warpgroups: 64 rows each ----
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const int g = lane / 4;                        // accumulator row group
+  const int t = lane % 4;                        // thread in the quad
+  const int lr_a = (warp % 4) * 16 + g;          // local rows lr_a, lr_a + 8
+  const uint32_t so = sOut + wg * kOutBytes;     // its staging tile
+  OT* const out = static_cast<OT*>(p.out);
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * slot);
+  };
+  int acc[kAcc];
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) acc[r] = 0;
+  int s = 0, ph = 0, prev = 0;
+  for (int i = blockIdx.x; i < p.items; i += gridDim.x) {
+    const Item w = item_of<BN>(p, i);
+    for (int kb = w.kb0; kb < w.kb1; ++kb) {
+      const uint32_t a = base + s * stage_bytes;
+      const uint64_t da = sw128_desc(a + wg * 64 * kBK, 16, 1024);
+      const uint64_t db = sw128_desc(a + a_bytes, 16, 1024);
+      mbar_wait(bar_full + 8 * s, ph);
+      wgmma_fence();
+      // four k32 steps, 32 bytes apart; the item's first overwrites acc
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        wgmma_s8_ss(acc, da + 2 * kk, db + 2 * kk, kb > w.kb0 || kk > 0);
+      wgmma_commit();
+      fence_regs(acc);
+      if (kb > w.kb0) {
+        // the previous k-tile's group has retired: release its stage
+        wgmma_wait<1>();
+        fence_regs(acc);
+        release(prev);
+      }
+      prev = s;
+      if (++s == p.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(prev);
+
+    // accumulator element r: local row lr_a (+8 if bit 1 of r), local
+    // column 8 * (r / 4) + 2 * t + (r & 1)
+    const int row0 = w.m0 + wg * 64;
+    if (p.split > 1) {
+      // add this split's sums into the workspace; the last split of the
+      // tile half to take its ticket reads the whole sums back
+#pragma unroll
+      for (int r = 0; r < kAcc; ++r) {
+        const int row = row0 + lr_a + ((r & 2) ? 8 : 0);
+        const int col = w.n0 + 8 * (r / 4) + 2 * t + (r & 1);
+        if (row < p.M && col < p.N)
+          atomicAdd(p.ws + (long long)row * p.N + col, acc[r]);
+      }
+      // the warpgroup's adds, then one thread's ticket: an acq_rel add at
+      // GPU scope releases the adds the barrier ordered before it, and
+      // acquires those of the splits that took their tickets earlier
+      named_sync<128>(1 + wg);
+      if (tid == 0) {
+        int* const ticket = p.ws + (long long)p.M * p.N + w.tile * p.wgs + wg;
+        int prev;
+        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                     : "=r"(prev) : "l"(ticket) : "memory");
+        last[wg] = prev == p.split - 1;
+      }
+      named_sync<128>(1 + wg);
+      if (!last[wg]) continue;
+      // read the sums and leave zeros (and the ticket at 0): the
+      // workspace is zero again when the launch ends, for the next one
+#pragma unroll
+      for (int r = 0; r < kAcc; ++r) {
+        const int row = row0 + lr_a + ((r & 2) ? 8 : 0);
+        const int col = w.n0 + 8 * (r / 4) + 2 * t + (r & 1);
+        if (row < p.M && col < p.N) {
+          int* const q = p.ws + (long long)row * p.N + col;
+          acc[r] = __ldcg(q);
+          __stcg(q, 0);
+        }
+      }
+      if (tid == 0) p.ws[(long long)p.M * p.N + w.tile * p.wgs + wg] = 0;
+    }
+
+    // rescale and round into the staging tile, once the previous item's
+    // TMA store has read it
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync<128>(1 + wg);
+#pragma unroll
+    for (int r = 0; r < kAcc; r += 2) {
+      const int c = 8 * (r / 4) + 2 * t;
+      const int col = w.n0 + c;
+      const float s0 = col < p.N ? __ldg(p.scale + col) : 0.f;
+      const float s1 = col + 1 < p.N ? __ldg(p.scale + col + 1) : 0.f;
+      const float v0 = __int2float_rn(acc[r]) * s0;
+      const float v1 = __int2float_rn(acc[r + 1]) * s1;
+      const uint32_t addr = so + staged<OT>(lr_a + ((r & 2) ? 8 : 0), c);
+      if constexpr (sizeof(OT) == 2) {
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(addr), "r"(pack_bf16x2(v0, v1)) : "memory");
+      } else {
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+                     :: "r"(addr), "f"(v0), "f"(v1) : "memory");
+      }
+    }
+    // the writes must be visible to the async proxy before TMA reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync<128>(1 + wg);
+    if (row0 >= p.M) continue;
+    if (p.tma_store) {
+      if (tid == 0) {
+        for (int c = 0; c < BN && w.n0 + c < p.N; c += kPanelCols)
+          tma_store_2d(&to, so + (c / kPanelCols) * (64 * 128), w.n0 + c,
+                       row0);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    } else {
+      // consecutive threads take consecutive columns of a row
+      const unsigned char* const sp = gbase + (so - base);
+      for (int e = tid; e < 64 * BN; e += 128) {
+        const int r = e / BN, c = e % BN;
+        const int row = row0 + r, col = w.n0 + c;
+        if (row < p.M && col < p.N)
+          out[(long long)row * p.N + col] =
+              *reinterpret_cast<const OT*>(sp + staged<OT>(r, c));
+      }
+    }
+  }
+  // the last TMA store has read its staging tile before the block exits
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int BM, int BN, typename OT>
-cudaError_t run_dyn(const int8_t* x, long long lda, const int8_t* w,
-                    long long ldb, const float* scale, void* out, int M,
-                    int N, int K, cudaStream_t stream) {
-  constexpr int threads = (BM / 64) * (BN / 32) * 32;
-  const int smem = kStages * (BM + BN) * kRow;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_mm_dyn<BM, BN, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+// The kernel's shared-memory limit is raised once a device, to the most
+// any plan takes: setting it to each launch's own size every time costs
+// the host far more than the launch (plans alternate between sizes)
+template <int BN, typename OT>
+cudaError_t launch_dyn(const CUtensorMap (&maps)[3], const Params& p,
+                       const int* plan, cudaStream_t stream) {
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  int8_mm_dyn<BM, BN, OT><<<grid, threads, smem, stream>>>(
-      x, lda, w, ldb, scale, static_cast<OT*>(out), M, N, K);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(int8_mm_sm90<BN, OT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  int8_mm_sm90<BN, OT><<<plan[6], plan[4], plan[5], stream>>>(
+      maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
-template <typename OT>
-cudaError_t pick_dyn(const int8_t* x, long long lda, const int8_t* w,
-                     long long ldb, const float* scale, void* out, int M,
-                     int N, int K, cudaStream_t stream) {
-  // the narrowest tile that is not mostly padding along N; 64-row tiles
-  // when 128-row ones would leave SMs idle
-  const bool narrow = N <= 64;
-  const long long tiles128 =
-      (long long)((M + 127) / 128) * ((N + (narrow ? 63 : 127)) /
-                                      (narrow ? 64 : 128));
-  const bool short_m = tiles128 < 2 * kSMs;
-  if (narrow)
-    return short_m ? run_dyn<64, 64, OT>(x, lda, w, ldb, scale, out, M, N,
-                                         K, stream)
-                   : run_dyn<128, 64, OT>(x, lda, w, ldb, scale, out, M, N,
-                                          K, stream);
-  return short_m ? run_dyn<64, 128, OT>(x, lda, w, ldb, scale, out, M, N, K,
-                                        stream)
-                 : run_dyn<128, 128, OT>(x, lda, w, ldb, scale, out, M, N,
-                                         K, stream);
-}
+}  // namespace sm90
 
 // Weight-only mode: x [M, K] (row pitch ldx), w [N, K] int8 (row pitch
 // ldw), scale [N] f32, out [M, N] in x's dtype.  A 64 x 64 output tile a
@@ -383,28 +492,88 @@ int8_mm_wonly_f32(const float* __restrict__ x, long long ldx,
 extern "C" {
 
 const char* kernel_error_string(int err) {
+  static char buf[160];
+  if (err == kErrPlan)
+    return "the launch plan is not one this library can run";
+  if (err == kErrNoEncode)
+    return "cuTensorMapEncodeTiled not found through the CUDA runtime";
+  if (err >= kErrEncode) {
+    const int which = (err - kErrEncode) % 16;
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed for %s "
+             "(CUresult %d)", which == 0 ? "x" : which == 1 ? "w" : "out",
+             (err - kErrEncode) / 16);
+    return buf;
+  }
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // Dynamic mode.  x: [M, K] int8 with row pitch lda; w: [N, K] int8 with
-// row pitch ldb (both pointers and pitches multiples of 16 bytes); scale:
-// [N] f32; out: [M, N] contiguous, f32 or bf16 (out_bf16).  Returns the
-// CUDA error of the launch (0 on success).
+// row pitch ldb (both pointers and pitches multiples of 16 bytes), and
+// zero in its bytes from K to the next multiple of 16 (x's may hold
+// anything there); scale: [N] f32; out: [M, N] contiguous, f32 or bf16
+// (out_bf16).  `plan`: block_m, block_n, K splits, ring stages, threads,
+// shared-memory bytes, grid and TMA store (0 or 1), as `int8_mm_plan`
+// computed them; the entry refuses a plan it cannot run.  `ws`: with
+// more than one split, at least M * N + tickets int32, zero (M * N sums,
+// then one ticket per 64-row half of each tile); the launch leaves it
+// zero.  Returns the CUDA error of the launch (0 on success) or one of
+// this library's codes.
 int int8_matmul_dynamic(const void* x, long long lda, const void* w,
                         long long ldb, const void* scale, void* out, int M,
-                        int N, int K, int out_bf16, void* stream) {
+                        int N, int K, int out_bf16, const int* plan,
+                        void* ws, void* stream) {
+  using namespace sm90;
   if (M <= 0 || N <= 0 || K <= 0 || lda < K || ldb < K || lda % 16 != 0 ||
       ldb % 16 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(w) & 15) != 0 || N > 65535 * 64)
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* sp = static_cast<const float*>(scale);
+  const int bm = plan[0], bn = plan[1], split = plan[2], stages = plan[3];
+  const int elt = out_bf16 ? 2 : 4;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const long long tiles_m = (M + bm - 1) / bm, tiles_n = (N + bn - 1) / bn;
+  const long long items = tiles_m * tiles_n * split;
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || split < 1 ||
+      split > k_tiles || stages < 2 || stages > kMaxStages ||
+      plan[4] != 2 * bm + 32 || plan[5] != smem_bytes(bm, bn, stages, elt) ||
+      plan[5] > kSmemLimit || plan[6] < 1 || plan[6] > items ||
+      items > INT_MAX || (plan[7] != 0 && plan[7] != 1) ||
+      (plan[7] && (((long long)N * elt) % 16 != 0 ||
+                   (reinterpret_cast<uintptr_t>(out) & 15) != 0)) ||
+      (split > 1 && ws == nullptr))
+    return kErrPlan;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  // both maps end K at a multiple of 16 (within the pitches): a box that
+  // crosses the end of a row off a 16-byte boundary loads several times
+  // slower.  w's bytes past K are zero, so x's there add nothing
+  const long long kext = (K + 15) / 16 * 16;
+  CUtensorMap maps[3] = {};
+  int rc = encode_map_2d(fn, &maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, x,
+                         kext, M, lda, kBK, bm);
+  if (rc != 0) return kErrEncode + rc * 16;
+  rc = encode_map_2d(fn, &maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kext,
+                     N, ldb, kBK, bn);
+  if (rc != 0) return kErrEncode + rc * 16 + 1;
+  if (plan[7]) {
+    // 128-byte boxes of a warpgroup's 64 rows
+    rc = encode_map_2d(fn, &maps[2],
+                       out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       out, N, M, (long long)N * elt, 128 / elt, 64);
+    if (rc != 0) return kErrEncode + rc * 16 + 2;
+  }
+  const Params p{static_cast<const float*>(scale), out, static_cast<int*>(ws),
+                 M, N, (int)tiles_m, (int)tiles_n, split, k_tiles,
+                 (int)items, bm / 64, stages, plan[7]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(out_bf16
-                   ? pick_dyn<__nv_bfloat16>(xp, lda, wp, ldb, sp, out, M, N,
-                                             K, s)
-                   : pick_dyn<float>(xp, lda, wp, ldb, sp, out, M, N, K, s));
+  cudaError_t err;
+  if (bn == 64)
+    err = out_bf16 ? launch_dyn<64, __nv_bfloat16>(maps, p, plan, s)
+                   : launch_dyn<64, float>(maps, p, plan, s);
+  else
+    err = out_bf16 ? launch_dyn<128, __nv_bfloat16>(maps, p, plan, s)
+                   : launch_dyn<128, float>(maps, p, plan, s);
+  return (int)err;
 }
 
 // Weight-only mode.  x: [M, K] f32 or bf16 (is_bf16) with row pitch ldx;

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarrier and TMA
-// wrappers, 128-byte-swizzle shared-memory descriptors, the wgmma shapes
-// both use (m64n128k16 and m64n64k16 with both operands in shared memory,
-// m64n128k16 with A from registers), operand fences, ex2, named barriers,
-// and on the host the lookup of cuTensorMapEncodeTiled and the 4-D
-// (D, S, heads, B) bf16 tensor maps.  Everything sits in the including
-// file's anonymous namespace: each library keeps its own copy.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the int8 matmul
+// (int8_matmul.cu): mbarrier and TMA wrappers (4-D and 2-D), 128-byte-
+// swizzle shared-memory descriptors, the wgmma shapes they use (bf16
+// m64n128k16 and m64n64k16 with both operands in shared memory,
+// m64n128k16 with A from registers; s8 m64n64k32 and m64n128k32 with
+// both operands in shared memory), operand fences, ex2, named barriers,
+// and on the host the lookup of cuTensorMapEncodeTiled, the 4-D
+// (D, S, heads, B) bf16 tensor maps and 2-D row-major maps of any type.
+// Everything sits in the including file's anonymous namespace: each
+// library keeps its own copy.
 
 #pragma once
 
@@ -67,6 +70,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 2-D box at (c0 along the contiguous dimension, c1 along rows)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // shared -> global through a tensor map, tracked by the issuing thread's
 // bulk groups
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
@@ -80,12 +95,24 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle.  A tile is stored as
 // 64-column panels of 128-byte rows.  K-major operands (rows of 64
 // contiguous bf16 along the contraction, as Q and K in Q.K^T) take
 // sbo = 1024 (8-row groups) and no lbo; an MN-major B (the contraction
 // runs down the rows, as V in P.V) takes lbo = the bytes between its two
-// 64-column panels and sbo = 1024 between 8-row groups.
+// 64-column panels and sbo = 1024 between 8-row groups.  The int8 layout
+// is the same bytes: a 128-byte row holds 128 int8 of the contraction,
+// and a k32 step advances the start address by 32 bytes, as a bf16 k16
+// step does.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
@@ -132,6 +159,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[32]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_regs(int (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_regs(int (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -255,6 +292,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
 }
 
 
+// D[64 x 64] (+)= A[64 x 32] . B[32 x 64]^T, s8 x s8 -> s32, A and B
+// K-major in shared memory (the only layout 8-bit wgmma takes)
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] . B[32 x 128]^T, s8 x s8 -> s32, A and B
+// K-major in shared memory (the only layout 8-bit wgmma takes)
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -314,6 +415,26 @@ int encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int S,
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                  const_cast<void*>(ptr), dims, strides, box, elem,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a 2-D row-major map: `inner` elements of type `dtype` a row (the
+// contiguous dimension), `outer` rows `pitch` bytes apart; box
+// (`box_inner`, `box_outer`), 128-byte swizzle (box_inner * element
+// size must be at most 128 bytes), zero fill past the ends (loads) or
+// clipping there (stores)
+int encode_map_2d(EncodeTiledFn fn, CUtensorMap* map,
+                  CUtensorMapDataType dtype, const void* ptr,
+                  long long inner, long long outer, long long pitch,
+                  int box_inner, int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box,
+                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

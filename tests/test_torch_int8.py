@@ -43,10 +43,12 @@ from paddle_tpu_torch.framework.io import load_jax_state_dict
 from paddle_tpu_torch.nn import Conv2D, Linear
 from paddle_tpu_torch.nn.layer import ColumnParallelLinear, RowParallelLinear
 from paddle_tpu_torch.ops.kernels import registry
+from paddle_tpu_torch.ops.kernels import int8_matmul as im
 from paddle_tpu_torch.ops.kernels.int8_matmul import CARD_TOL, int8_matmul
 from paddle_tpu_torch.quantization import (
     Int8InferenceConv2D, Int8InferenceLinear, convert_to_int8_inference,
     set_kernel_mode)
+from paddle_tpu_torch.vision.models import resnet50
 
 # the package re-exports functions under the module names
 jim = importlib.import_module("paddle_tpu.ops.pallas.int8_matmul")
@@ -329,3 +331,189 @@ def test_convert_swaps_linear_and_conv_only():
             "1.bias"} <= keys
     assert not any("_w_rows" in k for k in keys)
     assert set(jm.state_dict()) == keys - {"3.weight", "3.bias"}
+
+
+# ---------------------------------------------------------------------
+# the dynamic kernel's launch plan
+# ---------------------------------------------------------------------
+
+# (rows a 224x224 image, K, N, calls a forward): every int8_matmul call of
+# the int8 ResNet-50 (53 convolutions and the classifier), as
+# test_recorded_resnet50_gemms finds them; at batch b the rows are b times
+_RESNET50_GEMMS = [
+    (12544, 147, 64, 1),                          # stem 7x7/2
+    (3136, 64, 64, 1), (3136, 576, 64, 3), (3136, 64, 256, 4),
+    (3136, 256, 64, 2), (3136, 256, 128, 1),      # layer1, layer2's conv1
+    (784, 1152, 128, 4), (784, 128, 512, 4), (784, 256, 512, 1),
+    (784, 512, 128, 3), (784, 512, 256, 1),       # layer2, layer3's conv1
+    (196, 2304, 256, 6), (196, 256, 1024, 6), (196, 512, 1024, 1),
+    (196, 1024, 256, 5), (196, 1024, 512, 1),     # layer3, layer4's conv1
+    (49, 4608, 512, 3), (49, 512, 2048, 3), (49, 1024, 2048, 1),
+    (49, 2048, 512, 2),                           # layer4
+    (1, 2048, 1000, 1)]                           # classifier
+
+
+def test_recorded_resnet50_gemms():
+    """The int8 ResNet-50 at 224x224 sends exactly these GEMMs, 54 a
+    forward, all dynamic with bf16 output (``recorded_shapes``, which
+    chip_smoke.py reads the card's shape list from)."""
+    gen = torch.Generator().manual_seed(0)
+    model = convert_to_int8_inference(
+        resnet50(num_classes=1000, device="cpu", generator=gen))
+    with torch.no_grad(), im.recorded_shapes() as shapes:
+        y = model(torch.randn(1, 3, 224, 224, generator=gen))
+    assert y.shape == (1, 1000)
+    assert dict(shapes) == {(m, k, n, torch.bfloat16, True): c
+                            for m, k, n, c in _RESNET50_GEMMS}
+    assert sum(shapes.values()) == 54
+    assert registry.spec("int8_matmul").torch_ref_calls == 54
+
+
+def test_recorded_shapes_counts_only_inside_the_block():
+    x = torch.zeros(2, 3, 40, dtype=torch.int8)
+    w = torch.zeros(8, 40, dtype=torch.int8)
+    int8_matmul(x, w, torch.ones(8), x_scale=0.5)
+    with im.recorded_shapes() as outer:
+        with im.recorded_shapes() as inner:
+            int8_matmul(x, w, torch.ones(8), x_scale=0.5)
+        int8_matmul(x.float(), w, torch.ones(8), compute_dtype="float32")
+    int8_matmul(x, w, torch.ones(8), x_scale=0.5)
+    assert inner == {(6, 40, 8, torch.bfloat16, True): 1}
+    assert outer == {(6, 40, 8, torch.bfloat16, True): 1,
+                     (6, 40, 8, torch.float32, False): 1}
+
+
+def _check_plan(p, M, N, K, sms, out_bytes):
+    """What the C entry checks of a plan, and what the plan promises."""
+    bm, bn = p.block_m, p.block_n
+    tiles_n = -(-N // bn)
+    tiles = -(-M // bm) * tiles_n
+    assert bm in (64, 128) and bn in (64, 128)
+    assert bn == (64 if N <= 64 else 128)
+
+    # the tile height whose blocks walk the fewer rows; 128 on a tie
+    def rows_walked(h):
+        return -(-(-(-M // h) * tiles_n) // sms) * h
+
+    assert bm == (128 if rows_walked(128) <= rows_walked(64) else 64)
+    assert p.k_tiles == -(-K // 128) and 1 <= p.split <= p.k_tiles
+    # the splits cover the k-tiles exactly once, none empty
+    ranges = [p.k_range(s) for s in range(p.split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == p.k_tiles
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0]
+               for i in range(p.split - 1))
+    # a split only where fewer tiles than SMs would each walk 48 k-tiles
+    # or more; then as many as fill the SMs, 8 k-tiles or more each
+    if tiles >= sms or p.k_tiles < 48:
+        assert p.split == 1
+    else:
+        assert p.split == min(p.k_tiles // 8, sms // tiles) > 1
+        assert all(b - a >= 8 for a, b in ranges)
+    # the grid: one block an SM at most, every SM busy where the work
+    # allows
+    assert p.grid == min(tiles * p.split, sms)
+    # the zero workspace a split needs: the sums and a ticket per 64-row
+    # half of each tile
+    assert p.workspace == (M * N + tiles * (bm // 64) if p.split > 1
+                           else 0)
+    assert p.threads == 128 * (bm // 64) + 32
+    staging = (bm // 64) * 64 * bn * out_bytes
+    assert 2 <= p.stages <= 8
+    assert p.smem_bytes == 1280 + p.stages * (bm + bn) * 128 + staging
+    assert p.smem_bytes <= 232_448
+    assert p.smem_bytes + (bm + bn) * 128 > 232_448 or p.stages == 8
+    # TMA stores need rows a multiple of 16 bytes; else plain stores
+    assert p.tma_store == ((N * out_bytes) % 16 == 0)
+    assert p.launch() == (bm, bn, p.split, p.stages, p.threads,
+                          p.smem_bytes, p.grid, int(p.tma_store))
+
+
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("gemm", _RESNET50_GEMMS,
+                         ids=[f"{m}x{k}x{n}" for m, k, n, _ in
+                              _RESNET50_GEMMS])
+def test_int8_mm_plan_at_resnet50_shapes(gemm, batch):
+    m1, K, N, _ = gemm
+    M = batch * m1
+    for out_bytes in (2, 4):
+        _check_plan(im.int8_mm_plan(M, N, K, 132, out_bytes), M, N, K, 132,
+                    out_bytes)
+
+
+@pytest.mark.parametrize("M,N,K,sms,want", [
+    # layer4's 3x3 at batch 1: 4 tiles walk K = 4,608 (36 k-tiles) unsplit
+    (49, 512, 4608, 132, (64, 128, 1, 4)),
+    # layer4's 3x3 at batch 32: 100 tiles of 64 rows (52 of 128 would
+    # leave each block 128 rows to walk)
+    (1568, 512, 4608, 132, (64, 128, 1, 100)),
+    # layer3's 3x3 at batch 32: 98 tiles of 128 rows in one wave, as few
+    # rows a block as 196 tiles of 64 in two
+    (6272, 256, 2304, 132, (128, 128, 1, 98)),
+    # the stem at batch 32: 3,136 tiles walked by 132 blocks
+    (401408, 64, 147, 132, (128, 64, 1, 132)),
+    # the classifier at batch 1 and 32: 8 tiles, 16 k-tiles, no split
+    (1, 1000, 2048, 132, (64, 128, 1, 8)),
+    (32, 1000, 2048, 132, (64, 128, 1, 8)),
+    # long K on few tiles: 64 k-tiles split 8 ways, 8 k-tiles each
+    (8, 1024, 8192, 132, (64, 128, 8, 64)),
+    # 128 k-tiles on 32 tiles: as many splits as fill the SMs
+    (1, 4096, 16384, 132, (64, 128, 4, 128)),
+    # K = 128 is one k-tile, K below one k-tile, K = 100, K = 147, N = 33
+    (1, 8, 128, 132, (64, 64, 1, 1)),
+    (5, 33, 16, 132, (64, 64, 1, 1)),
+    (130, 70, 100, 132, (64, 128, 1, 3)),
+    (5, 33, 147, 132, (64, 64, 1, 1)),
+    # fewer SMs: the same shapes tile otherwise
+    (1568, 512, 4608, 66, (128, 128, 1, 52)),
+    (8, 1024, 8192, 4, (64, 128, 1, 4))])
+def test_int8_mm_plan_edge_shapes(M, N, K, sms, want):
+    for out_bytes in (2, 4):
+        p = im.int8_mm_plan(M, N, K, sms, out_bytes)
+        assert (p.block_m, p.block_n, p.split, p.grid) == want
+        _check_plan(p, M, N, K, sms, out_bytes)
+
+
+@pytest.mark.parametrize("M,N,K,split,grid", [
+    (49, 512, 4608, 9, 36), (5, 33, 147, 2, 2), (1, 1000, 2048, 16, 128),
+    (3000, 64, 147, 2, 94)])
+def test_int8_mm_plan_forced_split(M, N, K, split, grid):
+    """A forced split (the card's measurements of the split trade): the
+    splits cover the k-tiles once and the workspace holds the sums and
+    the tickets; a split beyond the k-tiles is refused."""
+    p = im.int8_mm_plan(M, N, K, split=split)
+    assert (p.split, p.grid) == (split, grid)
+    ranges = [p.k_range(s) for s in range(split)]
+    assert [a for a, _ in ranges[1:]] == [b for _, b in ranges[:-1]]
+    assert ranges[0][0] == 0 and ranges[-1][1] == p.k_tiles
+    assert all(a < b for a, b in ranges)
+    tiles = -(-M // p.block_m) * -(-N // p.block_n)
+    assert p.workspace == M * N + tiles * (p.block_m // 64)
+    with pytest.raises(ValueError, match="split"):
+        im.int8_mm_plan(M, N, K, split=p.k_tiles + 1)
+    with pytest.raises(ValueError, match="split"):
+        im.int8_mm_plan(M, N, K, split=0)
+
+
+def test_int8_mm_plan_store_paths_and_errors():
+    # N = 33 at bf16 (66-byte rows) and N = 70 at f32 (280) take plain
+    # stores; N = 1000 at f32 (4,000 bytes) and bf16 (2,000) take TMA
+    assert not im.int8_mm_plan(5, 33, 147, out_bytes=2).tma_store
+    assert not im.int8_mm_plan(5, 70, 147, out_bytes=4).tma_store
+    assert im.int8_mm_plan(32, 1000, 2048, out_bytes=4).tma_store
+    assert im.int8_mm_plan(32, 1000, 2048, out_bytes=2).tma_store
+    for bad in ((0, 8, 8), (8, 0, 8), (8, 8, 0)):
+        with pytest.raises(ValueError, match="int8_mm_plan"):
+            im.int8_mm_plan(*bad)
+    with pytest.raises(ValueError, match="out_bytes"):
+        im.int8_mm_plan(8, 8, 8, out_bytes=8)
+
+
+def test_zero_padded_rows():
+    w = torch.arange(5 * 147, dtype=torch.int32).remainder(255).sub(127).to(
+        torch.int8).view(5, 147)
+    rows = im._zero_padded_rows(w)
+    assert torch.equal(rows, w) and rows.stride() == (160, 1)
+    assert rows.data_ptr() % 16 == 0
+    full = rows.as_strided((5, 160), (160, 1))
+    assert not full[:, 147:].any()
