@@ -177,15 +177,14 @@ Every profiled phase (6, 9, 12, 16, 19, 23, 28) prints the idle share
 
 Phase 3 also holds ``int8_matmul`` against its plain version at every
 GEMM shape the int8 ResNet-50 sends at batch 1 and at batch 32 (recorded
-from the model by ``recorded_shapes``: 21 shapes each, 54 launches a
+from the model by ``recorded_int8_shapes``: 21 shapes each, 54 launches a
 forward) with the model's bf16 output (the stem also with f32 output):
 dynamic mode bitwise and bitwise on a rerun, weight-only (at the
 classifier's shape) within the module's ``CARD_TOL``; each is timed
 queued beside its bound, its plain version and ``torch._int_mm`` plus
 its scale pass, which compute the same function and which the port
 never calls, with the launch-weighted sums a forward; the kernel's
-launch plan (``int8_mm_plan``) is printed beside each shape, and the
-split-K trade is timed at two shapes (every split bitwise).  It holds
+launch plan (``int8_mm_plan``) is printed beside each shape.  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
 200,000; integer gradients; n = 1; dim 13; the hard cases of the
@@ -228,6 +227,8 @@ result, without a CUDA device or without the package.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -771,12 +772,38 @@ def _int_mm_library(x, w_nk, scale, cdt):
     return lambda: (torch._int_mm(x, wt).float() * scale).to(cdt)
 
 
+@contextlib.contextmanager
+def recorded_int8_shapes():
+    """Count the int8 layers' ``int8_matmul`` calls made inside the block:
+    yields a ``Counter`` of ``(M, K, N, compute dtype, dynamic)`` (M the
+    rows after leading dims are collapsed), filled as the calls come.
+    The layers call the name ``paddle_tpu_torch.quantization.int8_matmul``,
+    which is wrapped for the block's length."""
+    import paddle_tpu_torch.quantization as q
+    from paddle_tpu_torch.framework.dtype import to_torch
+    inner = q.int8_matmul
+    counts = collections.Counter()
+
+    def record(x, w_nk, w_scale, x_scale=None, compute_dtype=None, **kw):
+        cdt = (torch.bfloat16 if compute_dtype is None
+               else to_torch(compute_dtype))
+        counts[(math.prod(x.shape[:-1]), x.shape[-1], w_nk.shape[0], cdt,
+                x_scale is not None)] += 1
+        return inner(x, w_nk, w_scale, x_scale, compute_dtype, **kw)
+
+    q.int8_matmul = record
+    try:
+        yield counts
+    finally:
+        q.int8_matmul = inner
+
+
 def resnet_int8_gemms(dev):
     """Every distinct ``(M, K, N, compute dtype, dynamic)`` that one
     forward of phase 10's int8 ResNet-50 (224x224) sends to
     ``int8_matmul`` at batch 1 and at batch 32, with its calls a forward:
-    recorded from the model (``recorded_shapes``), nothing typed here."""
-    from paddle_tpu_torch.ops.kernels.int8_matmul import recorded_shapes
+    recorded from the model (``recorded_int8_shapes``), nothing typed
+    here."""
     from paddle_tpu_torch.quantization import convert_to_int8_inference
     from paddle_tpu_torch.vision.models import resnet50
     model = _cast_bf16(convert_to_int8_inference(resnet50(
@@ -785,7 +812,7 @@ def resnet_int8_gemms(dev):
     shapes = {}
     with torch.no_grad():
         for b in (1, 32):
-            with recorded_shapes() as got:
+            with recorded_int8_shapes() as got:
                 model(_images(dev, b))
             if sum(got.values()) != RESNET_GEMMS:
                 fail(f"int8 resnet50 batch {b}: {sum(got.values())} "
@@ -809,8 +836,10 @@ def _int8_case(dev, g, label, M, K, N, cdt, dyn):
     ``torch._int_mm`` + scale timed queued.  Returns the numbers."""
     from paddle_tpu_torch.ops.kernels import int8_matmul as im
     from paddle_tpu_torch.ops.kernels.flash_attention import _sm_count
-    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
-                      generator=g)
+    # in the rows the int8 layers keep (weight_rows(): a 16-byte pitch,
+    # zero past K), made once and not on every call
+    w = im.kernel_rows(torch.randint(-127, 128, (N, K), device=dev,
+                                     dtype=torch.int8, generator=g))
     ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
     if dyn:
         # in rows of a 16-byte pitch, as the int8 convolutions gather them
@@ -842,8 +871,8 @@ def _int8_case(dev, g, label, M, K, N, cdt, dyn):
         err, verdict = 0.0, "bitwise equal to the plain version and on a rerun"
         plan = im.int8_mm_plan(M, N, K, _sm_count(x.device),
                                got.element_size())
-        verdict += (f"; plan {plan.block_m}x{plan.block_n} tiles, split "
-                    f"{plan.split}, grid {plan.grid}, {plan.stages} stages, "
+        verdict += (f"; plan {plan.block_m}x{plan.block_n} tiles, grid "
+                    f"{plan.grid}, {plan.stages} stages, "
                     + ("TMA" if plan.tma_store else "plain") + " stores")
     else:
         err, share = check_close(f"int8_matmul {shape}", got, ref,
@@ -871,44 +900,6 @@ def _int8_case(dev, g, label, M, K, N, cdt, dyn):
            f"{lib:.4f} (kernel / library {ms / lib:.3f})"))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
-
-
-def _split_trade(dev, g, M, K, N, splits):
-    """The dynamic kernel at one shape with K split each of ``splits``
-    ways (a forced plan), bitwise against the plain version on two runs
-    (the workspace is left zero between launches), timed queued: the
-    measurement behind ``int8_mm_plan``'s split rule."""
-    from paddle_tpu_torch.ops.kernels import int8_matmul as im
-    from paddle_tpu_torch.ops.kernels.flash_attention import _sm_count
-    x = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8,
-                      generator=g)
-    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
-                      generator=g)
-    ws = torch.rand(N, device=dev, generator=g) * 1e-2 + 1e-4
-    ref = im.int8_matmul(x, w, ws, x_scale=0.0123, mode="torch_ref")
-    scale = torch.as_tensor(0.0123, dtype=torch.float32, device=dev) * ws
-    x2, wk = im.kernel_rows(x), im.kernel_rows(w)
-    sms = _sm_count(dev)
-    parts = []
-    for split in splits:
-        plan = im.int8_mm_plan(M, N, K, sms, 2, split=split)
-        out = torch.empty_like(ref)
-
-        def run():
-            im._launch_dynamic(x2, wk, scale, out, plan)
-
-        for _ in range(2):
-            out.zero_()
-            run()
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                fail(f"int8_matmul M={M} K={K} N={N} split {split}: not "
-                     "bitwise equal to the plain version")
-        parts.append(f"{split}: {queued_ms(run):.4f}")
-    log(f"int8_matmul split trade M={M} K={K} N={N} bfloat16 (the plan "
-        f"splits {im.int8_mm_plan(M, N, K, sms).split}): kernel_ms by "
-        f"splits {'; '.join(parts)}; every split bitwise equal to the plain "
-        "version on two runs")
 
 
 def int8_cases(dev):
@@ -944,10 +935,6 @@ def int8_cases(dev):
             f"_int_mm + scale {lib:.4f} ms over the {RESNET_GEMMS - no_lib} "
             f"launches where it runs (M > 16), the kernel {kern_lib:.4f} "
             f"on those (kernel / library {kern_lib / lib:.3f})")
-    # K split across blocks: layer4's 3x3 at batch 1 (the plan walks its
-    # 36 k-tiles unsplit) and a K of 64 k-tiles (the plan splits 8 ways)
-    _split_trade(dev, g, 49, 4608, 512, (1, 2, 4, 8, 9))
-    _split_trade(dev, g, 8, 8192, 1024, (1, 2, 4, 8))
     for label, M, K, N, cdt, dyn in (
             ("conv1 7x7/2 b32", 401408, 147, 64, torch.float32, True),
             ("fc b32 weight-only", 32, 2048, 1000, torch.bfloat16, False),

@@ -20,7 +20,7 @@
 // `int8_matmul_dynamic`):
 // - a launch plan from Python (`int8_mm_plan`, from the card's SM count)
 //   gives the tile (64 or 128 rows: one or two consumer warpgroups; 64 or
-//   128 columns), the number of K splits, the ring depth and the grid;
+//   128 columns), the ring depth and the grid;
 // - x [M, K] and w [N, K] (both K-major, the only layout 8-bit wgmma
 //   takes) are loaded by TMA through 2-D tensor maps in 128-byte k-tiles
 //   (one 128-byte swizzle row), into a ring in shared memory with full
@@ -37,16 +37,9 @@
 // - persistent: at most one block an SM walks its items (i, i + grid,
 //   ...), N tiles fastest so that neighbouring blocks share x's rows in
 //   L2; the next item's loads run under the current item's products and
-//   epilogue;
-// - split-K where few tiles would each walk a long K: each split takes
-//   a run of k-tiles, adds its int32 sums with atomics into a zero
-//   [M, N] workspace, then takes a ticket (one acq_rel atomic a
-//   warpgroup, after a barrier over its adds); the last split
-//   of a warpgroup's 64-row half reads the sums back, leaves zeros and
-//   resets the ticket (the workspace stays zero between launches, so no
-//   launch needs a memset first), and runs the epilogue.  Integer
-//   addition is exact and does not depend on its order, so the result
-//   is bitwise the plain version's at any split;
+//   epilogue.  Each tile walks all of K: no split of K (a reduction of
+//   split sums across blocks cost more than it saved at every GEMM of
+//   the int8 ResNet-50, PERF.md section 6);
 // - epilogue: __int2float_rn(acc) * scale[n] (one f32 rounding, as the
 //   reference's f32 product), rounded to nearest even to bf16 or f32,
 //   staged in shared memory in the 128-byte swizzle (conflict-free) and
@@ -54,9 +47,9 @@
 //   output whose row pitch is not a multiple of 16 bytes (TMA's rule; N =
 //   33 at bf16) is copied out of the staging tile row by row with
 //   coalesced stores instead.
-// ptxas -v (nvcc 12.9, sm_90a): 168 registers with 128 columns a tile,
-// 124 (f32) and 111 (bf16) with 64, no spill; up to 230,656 bytes of
-// dynamic shared memory.
+// ptxas -v (nvcc 12.9, sm_90a): 164 (f32) and 168 (bf16) registers with
+// 128 columns a tile, 108 and 106 with 64, no spill; up to 230,528 bytes
+// of dynamic shared memory.
 //
 // Weight-only mode dequantises the int8 weight tile into shared memory as
 // the reference's compute dtype holds it and never writes it to device
@@ -74,6 +67,8 @@
 #include <limits.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <mutex>
 
 #include "sm90.cuh"
 
@@ -99,7 +94,7 @@ constexpr int kMaxStages = 8;
 constexpr int kMaxThreads = 2 * 128 + 32;   // two consumer warpgroups + one
                                             // producer warp
 constexpr int kSmemLimit = 232448; // dynamic shared memory a block may have
-constexpr int kBarBytes = 256;     // mbarriers and the tickets' flags
+constexpr int kBarBytes = 2 * 8 * kMaxStages;   // full and empty mbarriers
 
 // The dynamic shared memory of a plan (the Python plan computes the same):
 // 1,024 bytes of slack to align the swizzled tiles, the ring of x and w
@@ -112,34 +107,22 @@ constexpr int smem_bytes(int bm, int bn, int stages, int elt) {
 struct Params {
   const float* scale;   // [N] f32: x_scale * w_scale
   void* out;            // [M, N] f32 or bf16, contiguous
-  int* ws;              // split > 1: [M, N] int32 sums, then the tickets
   int M, N;
-  int tiles_m, tiles_n, split, k_tiles, items;
+  int tiles_n, k_tiles, items;
   int wgs;              // consumer warpgroups: block_m / 64
   int stages;
   int tma_store;
 };
 
-// Item i: N tile fastest, then M tile, then split.  Split s takes k-tiles
-// [s * k_tiles / split, (s + 1) * k_tiles / split): never empty while
-// split <= k_tiles, and each k-tile once.
+// Item i: the output tile (i / tiles_n, i % tiles_n), N tile fastest;
+// its first row and column
 struct Item {
-  int m0, n0;     // first row and column
-  int tile;       // (M tile, N tile): the ticket's index
-  int kb0, kb1;   // k-tiles [kb0, kb1)
+  int m0, n0;
 };
 
 template <int BN>
 __device__ __forceinline__ Item item_of(const Params& p, int i) {
-  Item w;
-  const int nt = i % p.tiles_n, r = i / p.tiles_n;
-  const int mt = r % p.tiles_m, s = r / p.tiles_m;
-  w.m0 = mt * 64 * p.wgs;
-  w.n0 = nt * BN;
-  w.tile = mt * p.tiles_n + nt;
-  w.kb0 = (int)((long long)s * p.k_tiles / p.split);
-  w.kb1 = (int)((long long)(s + 1) * p.k_tiles / p.split);
-  return w;
+  return Item{(i / p.tiles_n) * 64 * p.wgs, (i % p.tiles_n) * BN};
 }
 
 // Byte offset of (row r, column c) in a warpgroup's 64 x BN output
@@ -169,9 +152,6 @@ int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
   const uint32_t sOut = base + p.stages * stage_bytes;  // [warpgroup]
   const uint32_t bar_full = sOut + p.wgs * kOutBytes;   // [stage]
   const uint32_t bar_empty = bar_full + 8 * kMaxStages; // [stage]
-  // [warpgroup]: this item's split was the tile half's last
-  volatile int* const last = reinterpret_cast<volatile int*>(
-      gbase + (bar_empty + 8 * kMaxStages - base));
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -190,7 +170,7 @@ int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
       int s = 0, ph = 0;   // ring slot and the parity of its phase
       for (int i = blockIdx.x; i < p.items; i += gridDim.x) {
         const Item w = item_of<BN>(p, i);
-        for (int kb = w.kb0; kb < w.kb1; ++kb) {
+        for (int kb = 0; kb < p.k_tiles; ++kb) {
           const uint32_t dst = base + s * stage_bytes;
           // the slot's previous tile released (passes at once at first)
           mbar_wait(bar_empty + 8 * s, ph ^ 1);
@@ -225,7 +205,7 @@ int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
   int s = 0, ph = 0, prev = 0;
   for (int i = blockIdx.x; i < p.items; i += gridDim.x) {
     const Item w = item_of<BN>(p, i);
-    for (int kb = w.kb0; kb < w.kb1; ++kb) {
+    for (int kb = 0; kb < p.k_tiles; ++kb) {
       const uint32_t a = base + s * stage_bytes;
       const uint64_t da = sw128_desc(a + wg * 64 * kBK, 16, 1024);
       const uint64_t db = sw128_desc(a + a_bytes, 16, 1024);
@@ -234,10 +214,10 @@ int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
       // four k32 steps, 32 bytes apart; the item's first overwrites acc
 #pragma unroll
       for (int kk = 0; kk < kBK / 32; ++kk)
-        wgmma_s8_ss(acc, da + 2 * kk, db + 2 * kk, kb > w.kb0 || kk > 0);
+        wgmma_s8_ss(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);
       wgmma_commit();
       fence_regs(acc);
-      if (kb > w.kb0) {
+      if (kb > 0) {
         // the previous k-tile's group has retired: release its stage
         wgmma_wait<1>();
         fence_regs(acc);
@@ -256,43 +236,6 @@ int8_mm_sm90(const __grid_constant__ CUtensorMap tx,
     // accumulator element r: local row lr_a (+8 if bit 1 of r), local
     // column 8 * (r / 4) + 2 * t + (r & 1)
     const int row0 = w.m0 + wg * 64;
-    if (p.split > 1) {
-      // add this split's sums into the workspace; the last split of the
-      // tile half to take its ticket reads the whole sums back
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int row = row0 + lr_a + ((r & 2) ? 8 : 0);
-        const int col = w.n0 + 8 * (r / 4) + 2 * t + (r & 1);
-        if (row < p.M && col < p.N)
-          atomicAdd(p.ws + (long long)row * p.N + col, acc[r]);
-      }
-      // the warpgroup's adds, then one thread's ticket: an acq_rel add at
-      // GPU scope releases the adds the barrier ordered before it, and
-      // acquires those of the splits that took their tickets earlier
-      named_sync<128>(1 + wg);
-      if (tid == 0) {
-        int* const ticket = p.ws + (long long)p.M * p.N + w.tile * p.wgs + wg;
-        int prev;
-        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                     : "=r"(prev) : "l"(ticket) : "memory");
-        last[wg] = prev == p.split - 1;
-      }
-      named_sync<128>(1 + wg);
-      if (!last[wg]) continue;
-      // read the sums and leave zeros (and the ticket at 0): the
-      // workspace is zero again when the launch ends, for the next one
-#pragma unroll
-      for (int r = 0; r < kAcc; ++r) {
-        const int row = row0 + lr_a + ((r & 2) ? 8 : 0);
-        const int col = w.n0 + 8 * (r / 4) + 2 * t + (r & 1);
-        if (row < p.M && col < p.N) {
-          int* const q = p.ws + (long long)row * p.N + col;
-          acc[r] = __ldcg(q);
-          __stcg(q, 0);
-        }
-      }
-      if (tid == 0) p.ws[(long long)p.M * p.N + w.tile * p.wgs + wg] = 0;
-    }
 
     // rescale and round into the staging tile, once the previous item's
     // TMA store has read it
@@ -361,12 +304,67 @@ cudaError_t launch_dyn(const CUtensorMap (&maps)[3], const Params& p,
     if (err != cudaSuccess) return err;
     raised[dev] = true;
   }
-  int8_mm_sm90<BN, OT><<<plan[6], plan[4], plan[5], stream>>>(
+  int8_mm_sm90<BN, OT><<<plan[5], plan[3], plan[4], stream>>>(
       maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
 }  // namespace sm90
+
+// The tensor maps of recent launches, by everything encoded into them: a
+// map holds an address and a geometry, nothing of the allocation, so an
+// equal key gives an equal map.  A forward sends the same weights, and
+// the caching allocator gives each layer the same activation and output
+// buffers forward after forward, so in a steady run a launch encodes
+// nothing (an int8 forward at batch 1 is bound by the host's time a
+// launch).
+struct MapKey {
+  const void* ptr;
+  long long inner, outer, pitch;
+  int dtype, box_inner, box_outer;
+
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
+           pitch == o.pitch && dtype == o.dtype && box_inner == o.box_inner &&
+           box_outer == o.box_outer;
+  }
+};
+
+int cached_map_2d(EncodeTiledFn fn, CUtensorMap* map,
+                  CUtensorMapDataType dtype, const void* ptr,
+                  long long inner, long long outer, long long pitch,
+                  int box_inner, int box_outer) {
+  struct Slot {
+    MapKey key;
+    CUtensorMap map;
+    bool used;
+  };
+  constexpr uint64_t kSlots = 256;
+  static Slot slots[kSlots];
+  static std::mutex mu;
+  const MapKey key{ptr, inner, outer, pitch, (int)dtype, box_inner,
+                   box_outer};
+  uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
+  h = (h ^ (uint64_t)outer * 0x9E3779B97F4A7C15ull ^ (uint64_t)inner ^
+       (uint64_t)box_outer << 32) * 0xC2B2AE3D27D4EB4Full;
+  Slot& slot = slots[(h >> 32) % kSlots];
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (slot.used && slot.key == key) {
+      *map = slot.map;
+      return 0;
+    }
+  }
+  const int rc = encode_map_2d(fn, map, dtype, ptr, inner, outer, pitch,
+                               box_inner, box_outer);
+  if (rc == 0) {
+    std::lock_guard<std::mutex> lock(mu);
+    slot.key = key;
+    slot.map = *map;
+    slot.used = true;
+  }
+  return rc;
+}
 
 // Weight-only mode: x [M, K] (row pitch ldx), w [N, K] int8 (row pitch
 // ldw), scale [N] f32, out [M, N] in x's dtype.  A 64 x 64 output tile a
@@ -511,35 +509,31 @@ const char* kernel_error_string(int err) {
 // row pitch ldb (both pointers and pitches multiples of 16 bytes), and
 // zero in its bytes from K to the next multiple of 16 (x's may hold
 // anything there); scale: [N] f32; out: [M, N] contiguous, f32 or bf16
-// (out_bf16).  `plan`: block_m, block_n, K splits, ring stages, threads,
+// (out_bf16).  `plan`: block_m, block_n, ring stages, threads,
 // shared-memory bytes, grid and TMA store (0 or 1), as `int8_mm_plan`
-// computed them; the entry refuses a plan it cannot run.  `ws`: with
-// more than one split, at least M * N + tickets int32, zero (M * N sums,
-// then one ticket per 64-row half of each tile); the launch leaves it
-// zero.  Returns the CUDA error of the launch (0 on success) or one of
-// this library's codes.
+// computed them; the entry refuses a plan it cannot run.  Returns the
+// CUDA error of the launch (0 on success) or one of this library's codes.
 int int8_matmul_dynamic(const void* x, long long lda, const void* w,
                         long long ldb, const void* scale, void* out, int M,
                         int N, int K, int out_bf16, const int* plan,
-                        void* ws, void* stream) {
+                        void* stream) {
   using namespace sm90;
   if (M <= 0 || N <= 0 || K <= 0 || lda < K || ldb < K || lda % 16 != 0 ||
       ldb % 16 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(w) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const int bm = plan[0], bn = plan[1], split = plan[2], stages = plan[3];
+  const int bm = plan[0], bn = plan[1], stages = plan[2];
   const int elt = out_bf16 ? 2 : 4;
   const int k_tiles = (K + kBK - 1) / kBK;
   const long long tiles_m = (M + bm - 1) / bm, tiles_n = (N + bn - 1) / bn;
-  const long long items = tiles_m * tiles_n * split;
-  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || split < 1 ||
-      split > k_tiles || stages < 2 || stages > kMaxStages ||
-      plan[4] != 2 * bm + 32 || plan[5] != smem_bytes(bm, bn, stages, elt) ||
-      plan[5] > kSmemLimit || plan[6] < 1 || plan[6] > items ||
-      items > INT_MAX || (plan[7] != 0 && plan[7] != 1) ||
-      (plan[7] && (((long long)N * elt) % 16 != 0 ||
-                   (reinterpret_cast<uintptr_t>(out) & 15) != 0)) ||
-      (split > 1 && ws == nullptr))
+  const long long items = tiles_m * tiles_n;
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || stages < 2 ||
+      stages > kMaxStages || plan[3] != 2 * bm + 32 ||
+      plan[4] != smem_bytes(bm, bn, stages, elt) || plan[4] > kSmemLimit ||
+      plan[5] < 1 || plan[5] > items || items > INT_MAX ||
+      (plan[6] != 0 && plan[6] != 1) ||
+      (plan[6] && (((long long)N * elt) % 16 != 0 ||
+                   (reinterpret_cast<uintptr_t>(out) & 15) != 0)))
     return kErrPlan;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return kErrNoEncode;
@@ -548,23 +542,22 @@ int int8_matmul_dynamic(const void* x, long long lda, const void* w,
   // slower.  w's bytes past K are zero, so x's there add nothing
   const long long kext = (K + 15) / 16 * 16;
   CUtensorMap maps[3] = {};
-  int rc = encode_map_2d(fn, &maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, x,
+  int rc = cached_map_2d(fn, &maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, x,
                          kext, M, lda, kBK, bm);
   if (rc != 0) return kErrEncode + rc * 16;
-  rc = encode_map_2d(fn, &maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kext,
+  rc = cached_map_2d(fn, &maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kext,
                      N, ldb, kBK, bn);
   if (rc != 0) return kErrEncode + rc * 16 + 1;
-  if (plan[7]) {
+  if (plan[6]) {
     // 128-byte boxes of a warpgroup's 64 rows
-    rc = encode_map_2d(fn, &maps[2],
+    rc = cached_map_2d(fn, &maps[2],
                        out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                        out, N, M, (long long)N * elt, 128 / elt, 64);
     if (rc != 0) return kErrEncode + rc * 16 + 2;
   }
-  const Params p{static_cast<const float*>(scale), out, static_cast<int*>(ws),
-                 M, N, (int)tiles_m, (int)tiles_n, split, k_tiles,
-                 (int)items, bm / 64, stages, plan[7]};
+  const Params p{static_cast<const float*>(scale), out, M, N, (int)tiles_n,
+                 k_tiles, (int)items, bm / 64, stages, plan[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bn == 64)

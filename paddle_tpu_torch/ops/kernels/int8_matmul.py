@@ -23,11 +23,14 @@ for B.  A conv's OIHW weight flattened over (kh, kw, I) is already that;
 The CUDA kernels (``csrc/int8_matmul.cu``) need int8 rows that start
 on 16 bytes (the dynamic kernel reads them through TMA tensor maps);
 :func:`aligned_rows` makes such a buffer, and the wrapper copies into
-one when a caller's rows are not aligned.  Any M, N and K (TMA fills the
-K tail and the M and N edges with zeros); leading batch dims of ``x``
-are collapsed to rows.  Dynamic mode launches on a plan from
-:func:`int8_mm_plan`: tile, K splits, ring depth and grid, from the
-card's SM count.
+one (:func:`kernel_rows`) when a caller's rows are not aligned.  The
+dynamic kernel reads both operands up to the next multiple of 16 of K,
+so a weight whose K is not one must be zero there: :func:`kernel_rows`'
+copies are, and so is ``weight_rows()`` of the int8 layers, which
+builds them once.  Any M, N and K (TMA fills the K tail and the M and N
+edges with zeros); leading batch dims of ``x`` are collapsed to rows.
+Dynamic mode launches on a plan from :func:`int8_mm_plan`: tile, ring
+depth and grid, from the card's SM count.
 
 The plain version multiplies the int8 operands in f64 (exact: every
 partial sum is an integer below 2^53) and casts to int32; f32 would not
@@ -35,11 +38,8 @@ be exact beyond K ~ 1040.  Weight-only uses the reference's expressions.
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
@@ -49,7 +49,7 @@ from . import _build, registry
 from .flash_attention import H100_SMS, _sm_count
 
 __all__ = ["int8_matmul", "aligned_rows", "kernel_rows", "CARD_TOL",
-           "int8_mm_plan", "Int8MmPlan", "recorded_shapes"]
+           "int8_mm_plan", "Int8MmPlan"]
 
 _SOURCE = "int8_matmul.cu"
 # Weight-only mode on the card against the plain version, as (atol, rtol,
@@ -70,12 +70,15 @@ def aligned_rows(m: int, k: int, device) -> torch.Tensor:
 
 def kernel_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` [m, k] itself when its rows start on 16 bytes with unit
-    stride along k, else an int8 copy into :func:`aligned_rows`."""
+    stride along k, else an int8 copy into rows of that layout that are
+    zero from k to the next multiple of 16 (as the dynamic kernel needs
+    its weight)."""
     m, k = t.shape
     if (t.stride(-1) == 1 and t.stride(0) % 16 == 0 and t.stride(0) >= k
             and t.data_ptr() % 16 == 0):
         return t
-    rows = aligned_rows(m, k, t.device)
+    kp = -(-k // 16) * 16
+    rows = torch.zeros((m, kp), dtype=torch.int8, device=t.device)[:, :k]
     rows.copy_(t)
     return rows
 
@@ -83,11 +86,8 @@ def kernel_rows(t: torch.Tensor) -> torch.Tensor:
 # The dynamic kernel's constants (csrc/int8_matmul.cu): int8 bytes of K a
 # k-tile (one 128-byte swizzle row), the deepest ring, the dynamic shared
 # memory a block may have, and the kernel's own share of it (1,024 bytes
-# to align the swizzled tiles, 256 for mbarriers and ticket flags)
-_BK, _MAX_STAGES, _SMEM_LIMIT, _SMEM_FIXED = 128, 8, 232_448, 1024 + 256
-# split K only where a tile's K walk is at least this many k-tiles, each
-# split taking at least _SPLIT_KTILES (int8_mm_plan)
-_SPLIT_MIN_KTILES, _SPLIT_KTILES = 48, 8
+# to align the swizzled tiles, 128 for the ring's mbarriers)
+_BK, _MAX_STAGES, _SMEM_LIMIT, _SMEM_FIXED = 128, 8, 232_448, 1024 + 128
 
 
 class Int8MmPlan(NamedTuple):
@@ -96,38 +96,21 @@ class Int8MmPlan(NamedTuple):
     block_m: int      # rows a tile: 64 or 128 (one or two consumer
                       # warpgroups of 64 rows)
     block_n: int      # columns a tile: 64 or 128
-    split: int        # K splits (1: none)
-    k_tiles: int      # 128-byte k-tiles of K
+    k_tiles: int      # 128-byte k-tiles of K, each tile walks them all
     stages: int       # k-tiles in the shared-memory ring
     threads: int      # the consumer warpgroups and one producer warp
     smem_bytes: int   # dynamic shared memory a block
-    grid: int         # blocks: at most one an SM, each walks its items
+    grid: int         # blocks: at most one an SM, each walks its tiles
     tma_store: bool   # output rows a multiple of 16 bytes: TMA stores
-    workspace: int    # int32 of zero workspace a launch needs (0 without
-                      # a split): M x N sums, a ticket per 64-row half
-
-    def k_range(self, s: int) -> tuple:
-        """The k-tiles [first, end) of split ``s``, as the kernel takes
-        them."""
-        return (s * self.k_tiles // self.split,
-                (s + 1) * self.k_tiles // self.split)
 
     def launch(self) -> tuple:
-        """The eight ints the C entry takes."""
-        return (self.block_m, self.block_n, self.split, self.stages,
-                self.threads, self.smem_bytes, self.grid,
-                int(self.tma_store))
+        """The seven ints the C entry takes."""
+        return (self.block_m, self.block_n, self.stages, self.threads,
+                self.smem_bytes, self.grid, int(self.tma_store))
 
 
-@functools.lru_cache(maxsize=4096)
-def _launch_ints(plan: Int8MmPlan):
-    # the C entry only reads it, so each plan's array is built once
-    return (ctypes.c_int * 8)(*plan.launch())
-
-
-@functools.lru_cache(maxsize=4096)
 def int8_mm_plan(M: int, N: int, K: int, sm_count: int = H100_SMS,
-                 out_bytes: int = 2, split: int | None = None) -> Int8MmPlan:
+                 out_bytes: int = 2) -> Int8MmPlan:
     """The dynamic kernel's launch plan for x [M, K] times w [N, K] into
     an [M, N] output of ``out_bytes`` a value, on a card of ``sm_count``
     SMs (at most one block an SM: the ring takes most of its shared
@@ -139,15 +122,10 @@ def int8_mm_plan(M: int, N: int, K: int, sm_count: int = H100_SMS,
       a tie (fewer epilogues, w reloaded less often).
     - The grid is at most one block an SM; where tiles outnumber the SMs
       each block walks its tiles in turn.
-    - K is split only where few tiles (fewer than the SMs) would each
-      walk a long K: at least ``_SPLIT_MIN_KTILES`` k-tiles, each split
-      taking ``_SPLIT_KTILES`` or more.  On an H100 a split's reduction
-      (atomic adds into the workspace, the ticket, the read-back) costs
-      microseconds: at layer4's 3x3 at batch 1 (36 k-tiles on 4 tiles)
-      no split count beats none, at 64 k-tiles on 8 tiles 8 splits do
-      (chip_smoke.py phase 3, PERF.md section 6), so no ResNet-50 GEMM
-      splits.  ``split`` forces a count (at most the k-tiles), as those
-      measurements do.
+    - Each tile walks all of K.  No GEMM of the int8 ResNet-50 gained
+      from splitting K across blocks on an H100 (PERF.md section 6: at
+      layer4's 3x3 at batch 1, 36 k-tiles on 4 tiles, no split count
+      beat none), so no path here sends one.
     - The ring holds as many k-tiles as fit beside the output's staging
       tile, at most 8.
 
@@ -164,70 +142,15 @@ def int8_mm_plan(M: int, N: int, K: int, sm_count: int = H100_SMS,
 
     bm = 128 if rows_walked(128) <= rows_walked(64) else 64
     tiles = -(-M // bm) * tiles_n
-    k_tiles = -(-K // _BK)
-    if split is None:
-        split = 1
-        if tiles < sm_count and k_tiles >= _SPLIT_MIN_KTILES:
-            split = min(k_tiles // _SPLIT_KTILES, sm_count // tiles)
-    elif not 1 <= split <= k_tiles:
-        raise ValueError(f"int8_mm_plan: split {split} of {k_tiles} "
-                         "k-tiles")
     wgs = bm // 64
     staging = wgs * 64 * bn * out_bytes
     stages = min(_MAX_STAGES,
                  (_SMEM_LIMIT - _SMEM_FIXED - staging) // ((bm + bn) * _BK))
     return Int8MmPlan(
-        block_m=bm, block_n=bn, split=split, k_tiles=k_tiles, stages=stages,
+        block_m=bm, block_n=bn, k_tiles=-(-K // _BK), stages=stages,
         threads=128 * wgs + 32,
         smem_bytes=_SMEM_FIXED + stages * (bm + bn) * _BK + staging,
-        grid=min(tiles * split, sm_count),
-        tma_store=(N * out_bytes) % 16 == 0,
-        workspace=M * N + tiles * wgs if split > 1 else 0)
-
-
-# the Counters of the recorded_shapes() blocks that are open
-_RECORDING: list = []
-
-# (device index, stream) -> a zero int32 workspace for split launches on
-# that stream; each launch leaves it zero, so it is reused without a
-# memset and only replaced by a larger one
-_WORKSPACES: dict = {}
-_ws_lock = threading.Lock()
-
-
-def _workspace(n: int, device, stream) -> torch.Tensor:
-    key = (device.index, stream)
-    with _ws_lock:
-        ws = _WORKSPACES.get(key)
-        if ws is None or ws.numel() < n:
-            ws = torch.zeros(n, dtype=torch.int32, device=device)
-            _WORKSPACES[key] = ws
-        return ws
-
-
-def _zero_padded_rows(w: torch.Tensor) -> torch.Tensor:
-    """``w`` [n, k] in rows of a 16-byte pitch whose bytes past k are
-    zero, as the dynamic kernel needs its weight (it reads k up to the
-    next multiple of 16 in both operands)."""
-    n, k = w.shape
-    kp = -(-k // 16) * 16
-    rows = torch.zeros((n, kp), dtype=torch.int8, device=w.device)
-    rows[:, :k].copy_(w)
-    return rows[:, :k]
-
-
-@contextlib.contextmanager
-def recorded_shapes():
-    """Count every :func:`int8_matmul` call made inside the block:
-    yields a ``Counter`` of ``(M, K, N, compute dtype, dynamic)`` (M the
-    rows after leading dims are collapsed), filled as the calls come."""
-    counts = collections.Counter()
-    _RECORDING.append(counts)
-    try:
-        yield counts
-    finally:
-        # by identity: an inner block's Counter may equal an outer one's
-        _RECORDING[:] = [c for c in _RECORDING if c is not counts]
+        grid=min(tiles, sm_count), tma_store=(N * out_bytes) % 16 == 0)
 
 
 def _int8_matmul_plain(x2, w_nk, scale, dynamic, cdt):
@@ -259,29 +182,36 @@ def _eligible(x2, w_nk, scale, dynamic, cdt):
     return None
 
 
-def _launch_dynamic(x2, w, scale, out, plan) -> None:
-    """Launch the dynamic kernel on ``plan``: x2 [M, K] and w [N, K]
-    int8 in 16-byte rows (w zero from K to the next multiple of 16),
-    scale [N] f32, out [M, N] contiguous f32 or bf16."""
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(m, n, k, out_bytes, device):
+    """The plan of a shape on a card and its seven ints as the C entry
+    takes them (which it only reads), made once a shape: at batch 1 an
+    int8 forward is bound by the host's time a launch."""
+    plan = int8_mm_plan(m, n, k, _sm_count(device), out_bytes)
+    return plan, (ctypes.c_int * 7)(*plan.launch())
+
+
+def _launch_dynamic(x2, w, scale, out) -> None:
+    """Launch the dynamic kernel: x2 [M, K] and w [N, K] int8 in 16-byte
+    rows (w zero from K to the next multiple of 16), scale [N] f32, out
+    [M, N] contiguous f32 or bf16."""
     m, k = x2.shape
     n = w.shape[0]
+    dev = x2.device
+    plan, ints = _launch_plan(m, n, k, out.element_size(), dev)
     lib = _build.load(_SOURCE)
     fn = lib.int8_matmul_dynamic
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
                         ctypes.c_void_p, ctypes.c_longlong]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-                          ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        ws = (_workspace(plan.workspace, x2.device, stream).data_ptr()
-              if plan.workspace else None)
+    with torch.cuda.device(dev):
         rc = fn(x2.data_ptr(), x2.stride(0), w.data_ptr(), w.stride(0),
                 scale.data_ptr(), out.data_ptr(), m, n, k,
-                int(out.dtype == torch.bfloat16), _launch_ints(plan), ws,
-                stream)
+                int(out.dtype == torch.bfloat16), ints,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         _build.check(lib, rc, f"int8_matmul_dynamic M={m} N={n} K={k} "
                               f"{out.dtype} {plan}")
@@ -294,14 +224,10 @@ def _int8_matmul_cuda(x2, w_nk, scale, dynamic, cdt):
     out = torch.empty((m, n), dtype=cdt, device=x2.device)
     if m == 0:
         return out
-    scale = scale.contiguous()
+    scale, w = scale.contiguous(), kernel_rows(w_nk)
     if dynamic:
-        x2 = kernel_rows(x2)
-        w = kernel_rows(w_nk) if k % 16 == 0 else _zero_padded_rows(w_nk)
-        _launch_dynamic(x2, w, scale, out, int8_mm_plan(
-            m, n, k, _sm_count(x2.device), out.element_size()))
+        _launch_dynamic(kernel_rows(x2), w, scale, out)
         return out
-    w = kernel_rows(w_nk)
     x2 = x2.to(cdt)
     if x2.stride(-1) != 1 or (m > 1 and x2.stride(0) < k):
         x2 = x2.contiguous()
@@ -335,8 +261,8 @@ _SPEC = registry.register(
     eligible=_eligible,
     source="paddle_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
     replaces="paddle_tpu/ops/pallas/int8_matmul.py:62",
-    doc="int8 x int8 -> int32 by wgmma on TMA-loaded tiles (split-K, "
-        "persistent blocks) with the folded per-column rescale in the "
+    doc="int8 x int8 -> int32 by wgmma on TMA-loaded tiles (persistent "
+        "blocks) with the folded per-column rescale in the "
         "epilogue; weight-only dequantises in shared memory: no "
         "dequantised weight tensor is written",
 )
@@ -347,12 +273,13 @@ def int8_matmul(x, w_nk, w_scale, x_scale=None, compute_dtype=None, *,
     """``x`` [..., K] (int8 codes when ``x_scale`` is given, else float),
     ``w_nk`` [N, K] int8, ``w_scale`` [N] f32, ``x_scale`` a scalar (0-dim
     tensor or number) or None.  Returns [..., N] in ``compute_dtype``
-    (default bfloat16).  See the module docstring."""
+    (default bfloat16).  Where ``w_nk``'s rows already start on 16 bytes
+    and K is not a multiple of 16, its bytes from K to the next multiple
+    of 16 must be zero (:func:`kernel_rows` gives such rows).  See the
+    module docstring."""
     cdt = torch.bfloat16 if compute_dtype is None else to_torch(compute_dtype)
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
-    for counts in _RECORDING:
-        counts[(x2.shape[0], k, w_nk.shape[0], cdt, x_scale is not None)] += 1
     if x_scale is None:
         scale = w_scale.float()
     else:

@@ -97,8 +97,9 @@ class _Int8Layer(nn.Module):
 
     def weight_rows(self) -> torch.Tensor:
         """The kernel's [N, K] int8 weight (K contiguous, rows on 16
-        bytes), derived from ``qweight`` (a view of it where it already
-        has that layout, as a 1x1 convolution's has)."""
+        bytes, zero from K to the next multiple of 16), derived from
+        ``qweight`` once (a view of it where it already has that layout,
+        as a 1x1 convolution's has)."""
         src = (self.qweight.data_ptr(), self.qweight._version)
         if self._w_rows is None or self._w_src != src:
             self._w_rows = kernel_rows(self._rows_from_qweight())

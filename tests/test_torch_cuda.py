@@ -173,9 +173,10 @@ def test_backward_kernels_match_plain_on_card():
 
 # (M, K, N, compute dtype): ResNet-50 GEMMs (stem K = 147, the classifier
 # N = 1000 at batch 1 and 32, layer4 at batch 1) and odd sizes.  On an
-# H100 (int8_mm_plan): K split 8 ways at K = 8,192 (N = 33: plain
-# stores, no TMA); tiles walked in turn by persistent blocks, 128 rows a
-# tile (M 20,000 and 17,000); N = 70 and 33 take plain stores
+# H100 (int8_mm_plan): 64 k-tiles walked by each of a few tiles at K =
+# 8,192 (N = 33: plain stores, no TMA); tiles walked in turn by
+# persistent blocks, 128 rows a tile (M 20,000 and 17,000); N = 70 and
+# 33 take plain stores
 _INT8_MM_CASES = [(1, 2048, 1000, torch.bfloat16), (32, 2048, 1000, torch.bfloat16),
                   (49, 4608, 512, torch.float32), (3000, 147, 64, torch.float32),
                   (1000, 576, 64, torch.bfloat16), (300, 2304, 256, torch.float32),
@@ -185,15 +186,6 @@ _INT8_MM_CASES = [(1, 2048, 1000, torch.bfloat16), (32, 2048, 1000, torch.bfloat
                   (20000, 200, 96, torch.bfloat16),
                   (17000, 576, 64, torch.float32),
                   (8, 8192, 1024, torch.bfloat16), (3, 8192, 33, torch.float32)]
-# (M, K, N, compute dtype, K splits) launched on a plan with the split
-# forced: the tickets and the workspace's read-back at shapes the plan
-# leaves unsplit, plain stores (N = 33), and splits of persistent items
-# (M 20,000: 314 items on the SMs)
-_INT8_MM_SPLITS = [(49, 4608, 512, torch.bfloat16, 9),
-                   (5, 147, 33, torch.bfloat16, 2),
-                   (3000, 147, 64, torch.float32, 2),
-                   (20000, 200, 96, torch.bfloat16, 2),
-                   (32, 2048, 1000, torch.float32, 16)]
 
 
 def _int8_mm_case(seed, M, K, N, dev):
@@ -208,8 +200,8 @@ def _int8_mm_case(seed, M, K, N, dev):
 @pytest.mark.cuda
 def test_int8_matmul_matches_plain_on_card():
     """Dynamic mode bitwise equal to the plain version (integer sums are
-    order-free) and to itself on a rerun (the split-K tickets);
-    weight-only within CARD_TOL (the registered rtol)."""
+    order-free) and to itself on a rerun; weight-only within CARD_TOL
+    (the registered rtol)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the ResNet-50 shapes")
@@ -249,26 +241,26 @@ def test_int8_matmul_matches_plain_on_card():
         ref = im.int8_matmul(xt, w, ws, compute_dtype=wdt, mode="torch_ref")
         torch.cuda.synchronize()
         _assert_within(got, ref, im.CARD_TOL[wdt])
-    # splits forced on the plan, each run twice (the workspace is left
-    # zero for the rerun)
-    for i, (M, K, N, cdt, split) in enumerate(_INT8_MM_SPLITS):
-        xq, w, ws, _ = _int8_mm_case(60 + i, M, K, N, dev)
-        # folded as int8_matmul folds it
-        scale = torch.as_tensor(0.0123, dtype=torch.float32,
-                                device=dev) * ws
-        ref = im.int8_matmul(xq, w, ws, x_scale=0.0123, compute_dtype=cdt,
-                             mode="torch_ref")
-        x2 = im.kernel_rows(xq)
-        wk = im.kernel_rows(w) if K % 16 == 0 else im._zero_padded_rows(w)
-        plan = im.int8_mm_plan(M, N, K, fa._sm_count(dev),
-                               ref.element_size(), split=split)
-        for _ in range(2):
-            got = torch.empty_like(ref)
-            im._launch_dynamic(x2, wk, scale, got, plan)
-            torch.cuda.synchronize()
-            assert torch.equal(got, ref), (M, K, N, cdt, split)
+    # the stem's layer on its cached weight rows (K = 147 in a 160-byte
+    # pitch, zero past K) and patch rows whose pad bytes are not zero
+    from paddle_tpu_torch.nn import Conv2D
+    from paddle_tpu_torch.quantization import (Int8InferenceConv2D,
+                                               set_kernel_mode)
+    stem = Int8InferenceConv2D(Conv2D(
+        3, 64, 7, stride=2, padding=3, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(42)))
+    img = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (2, 3, 64, 64)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        # leave non-zero bytes in the allocator's free blocks
+        torch.full((1 << 22,), 77, dtype=torch.int8, device=dev)
+        got = stem(img)
+        set_kernel_mode(stem, "torch_ref")
+        ref = stem(img)
+    assert stem.weight_rows().stride() == (160, 1)
+    assert torch.equal(got, ref)
     assert registry.launch_counts()["int8_matmul"] == (
-        4 * len(_INT8_MM_CASES) + 3 + 2 * len(_INT8_MM_SPLITS))
+        4 * len(_INT8_MM_CASES) + 4)
 
 
 def _zipf_inverse(seed, n, vocab=20_000):

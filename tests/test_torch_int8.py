@@ -21,6 +21,7 @@ marked ``cuda``; ``chip_smoke.py`` runs it at the ResNet-50 shapes).
 """
 import importlib
 
+import chip_smoke
 import numpy as np
 import pytest
 
@@ -355,12 +356,13 @@ _RESNET50_GEMMS = [
 
 def test_recorded_resnet50_gemms():
     """The int8 ResNet-50 at 224x224 sends exactly these GEMMs, 54 a
-    forward, all dynamic with bf16 output (``recorded_shapes``, which
-    chip_smoke.py reads the card's shape list from)."""
+    forward, all dynamic with bf16 output (as chip_smoke.py's
+    ``recorded_int8_shapes`` finds them, which its phase 3 reads the
+    card's shape list from)."""
     gen = torch.Generator().manual_seed(0)
     model = convert_to_int8_inference(
         resnet50(num_classes=1000, device="cpu", generator=gen))
-    with torch.no_grad(), im.recorded_shapes() as shapes:
+    with torch.no_grad(), chip_smoke.recorded_int8_shapes() as shapes:
         y = model(torch.randn(1, 3, 224, 224, generator=gen))
     assert y.shape == (1, 1000)
     assert dict(shapes) == {(m, k, n, torch.bfloat16, True): c
@@ -370,17 +372,26 @@ def test_recorded_resnet50_gemms():
 
 
 def test_recorded_shapes_counts_only_inside_the_block():
-    x = torch.zeros(2, 3, 40, dtype=torch.int8)
-    w = torch.zeros(8, 40, dtype=torch.int8)
-    int8_matmul(x, w, torch.ones(8), x_scale=0.5)
-    with im.recorded_shapes() as outer:
-        with im.recorded_shapes() as inner:
-            int8_matmul(x, w, torch.ones(8), x_scale=0.5)
-        int8_matmul(x.float(), w, torch.ones(8), compute_dtype="float32")
-    int8_matmul(x, w, torch.ones(8), x_scale=0.5)
+    """chip_smoke.py's recorder counts the int8 layers' calls made inside
+    its block (nested blocks each theirs) and leaves the layers calling
+    ``int8_matmul`` itself after it."""
+    import paddle_tpu_torch.quantization as q
+    torch.manual_seed(3)
+    dyn = Int8InferenceLinear(Linear(40, 8, device="cpu"))
+    wonly = Int8InferenceLinear(Linear(40, 8, device="cpu"),
+                                compute_dtype="float32", act_quant=None)
+    x = torch.randn(2, 3, 40)
+    dyn(x)
+    with chip_smoke.recorded_int8_shapes() as outer:
+        with chip_smoke.recorded_int8_shapes() as inner:
+            dyn(x)
+        wonly(x)
+    dyn(x)
+    assert q.int8_matmul is int8_matmul
     assert inner == {(6, 40, 8, torch.bfloat16, True): 1}
     assert outer == {(6, 40, 8, torch.bfloat16, True): 1,
                      (6, 40, 8, torch.float32, False): 1}
+    assert registry.spec("int8_matmul").torch_ref_calls == 4
 
 
 def _check_plan(p, M, N, K, sms, out_bytes):
@@ -396,37 +407,21 @@ def _check_plan(p, M, N, K, sms, out_bytes):
         return -(-(-(-M // h) * tiles_n) // sms) * h
 
     assert bm == (128 if rows_walked(128) <= rows_walked(64) else 64)
-    assert p.k_tiles == -(-K // 128) and 1 <= p.split <= p.k_tiles
-    # the splits cover the k-tiles exactly once, none empty
-    ranges = [p.k_range(s) for s in range(p.split)]
-    assert ranges[0][0] == 0 and ranges[-1][1] == p.k_tiles
-    assert all(a < b for a, b in ranges)
-    assert all(ranges[i][1] == ranges[i + 1][0]
-               for i in range(p.split - 1))
-    # a split only where fewer tiles than SMs would each walk 48 k-tiles
-    # or more; then as many as fill the SMs, 8 k-tiles or more each
-    if tiles >= sms or p.k_tiles < 48:
-        assert p.split == 1
-    else:
-        assert p.split == min(p.k_tiles // 8, sms // tiles) > 1
-        assert all(b - a >= 8 for a, b in ranges)
-    # the grid: one block an SM at most, every SM busy where the work
-    # allows
-    assert p.grid == min(tiles * p.split, sms)
-    # the zero workspace a split needs: the sums and a ticket per 64-row
-    # half of each tile
-    assert p.workspace == (M * N + tiles * (bm // 64) if p.split > 1
-                           else 0)
+    # each tile walks K once, in whole 128-byte k-tiles: none empty
+    assert (p.k_tiles - 1) * 128 < K <= p.k_tiles * 128
+    # the grid: one block an SM at most, every SM busy where the tiles
+    # allow
+    assert p.grid == min(tiles, sms)
     assert p.threads == 128 * (bm // 64) + 32
     staging = (bm // 64) * 64 * bn * out_bytes
     assert 2 <= p.stages <= 8
-    assert p.smem_bytes == 1280 + p.stages * (bm + bn) * 128 + staging
+    assert p.smem_bytes == 1152 + p.stages * (bm + bn) * 128 + staging
     assert p.smem_bytes <= 232_448
     assert p.smem_bytes + (bm + bn) * 128 > 232_448 or p.stages == 8
     # TMA stores need rows a multiple of 16 bytes; else plain stores
     assert p.tma_store == ((N * out_bytes) % 16 == 0)
-    assert p.launch() == (bm, bn, p.split, p.stages, p.threads,
-                          p.smem_bytes, p.grid, int(p.tma_store))
+    assert p.launch() == (bm, bn, p.stages, p.threads, p.smem_bytes,
+                          p.grid, int(p.tma_store))
 
 
 @pytest.mark.parametrize("batch", [1, 32, 128])
@@ -442,57 +437,35 @@ def test_int8_mm_plan_at_resnet50_shapes(gemm, batch):
 
 
 @pytest.mark.parametrize("M,N,K,sms,want", [
-    # layer4's 3x3 at batch 1: 4 tiles walk K = 4,608 (36 k-tiles) unsplit
-    (49, 512, 4608, 132, (64, 128, 1, 4)),
+    # layer4's 3x3 at batch 1: 4 tiles walk K = 4,608 (36 k-tiles)
+    (49, 512, 4608, 132, (64, 128, 4)),
     # layer4's 3x3 at batch 32: 100 tiles of 64 rows (52 of 128 would
     # leave each block 128 rows to walk)
-    (1568, 512, 4608, 132, (64, 128, 1, 100)),
+    (1568, 512, 4608, 132, (64, 128, 100)),
     # layer3's 3x3 at batch 32: 98 tiles of 128 rows in one wave, as few
     # rows a block as 196 tiles of 64 in two
-    (6272, 256, 2304, 132, (128, 128, 1, 98)),
+    (6272, 256, 2304, 132, (128, 128, 98)),
     # the stem at batch 32: 3,136 tiles walked by 132 blocks
-    (401408, 64, 147, 132, (128, 64, 1, 132)),
-    # the classifier at batch 1 and 32: 8 tiles, 16 k-tiles, no split
-    (1, 1000, 2048, 132, (64, 128, 1, 8)),
-    (32, 1000, 2048, 132, (64, 128, 1, 8)),
-    # long K on few tiles: 64 k-tiles split 8 ways, 8 k-tiles each
-    (8, 1024, 8192, 132, (64, 128, 8, 64)),
-    # 128 k-tiles on 32 tiles: as many splits as fill the SMs
-    (1, 4096, 16384, 132, (64, 128, 4, 128)),
+    (401408, 64, 147, 132, (128, 64, 132)),
+    # the classifier at batch 1 and 32: 8 tiles, 16 k-tiles
+    (1, 1000, 2048, 132, (64, 128, 8)),
+    (32, 1000, 2048, 132, (64, 128, 8)),
+    # long K on few tiles: 8 tiles each walk 64 k-tiles, 32 walk 128
+    (8, 1024, 8192, 132, (64, 128, 8)),
+    (1, 4096, 16384, 132, (64, 128, 32)),
     # K = 128 is one k-tile, K below one k-tile, K = 100, K = 147, N = 33
-    (1, 8, 128, 132, (64, 64, 1, 1)),
-    (5, 33, 16, 132, (64, 64, 1, 1)),
-    (130, 70, 100, 132, (64, 128, 1, 3)),
-    (5, 33, 147, 132, (64, 64, 1, 1)),
+    (1, 8, 128, 132, (64, 64, 1)),
+    (5, 33, 16, 132, (64, 64, 1)),
+    (130, 70, 100, 132, (64, 128, 3)),
+    (5, 33, 147, 132, (64, 64, 1)),
     # fewer SMs: the same shapes tile otherwise
-    (1568, 512, 4608, 66, (128, 128, 1, 52)),
-    (8, 1024, 8192, 4, (64, 128, 1, 4))])
+    (1568, 512, 4608, 66, (128, 128, 52)),
+    (8, 1024, 8192, 4, (64, 128, 4))])
 def test_int8_mm_plan_edge_shapes(M, N, K, sms, want):
     for out_bytes in (2, 4):
         p = im.int8_mm_plan(M, N, K, sms, out_bytes)
-        assert (p.block_m, p.block_n, p.split, p.grid) == want
+        assert (p.block_m, p.block_n, p.grid) == want
         _check_plan(p, M, N, K, sms, out_bytes)
-
-
-@pytest.mark.parametrize("M,N,K,split,grid", [
-    (49, 512, 4608, 9, 36), (5, 33, 147, 2, 2), (1, 1000, 2048, 16, 128),
-    (3000, 64, 147, 2, 94)])
-def test_int8_mm_plan_forced_split(M, N, K, split, grid):
-    """A forced split (the card's measurements of the split trade): the
-    splits cover the k-tiles once and the workspace holds the sums and
-    the tickets; a split beyond the k-tiles is refused."""
-    p = im.int8_mm_plan(M, N, K, split=split)
-    assert (p.split, p.grid) == (split, grid)
-    ranges = [p.k_range(s) for s in range(split)]
-    assert [a for a, _ in ranges[1:]] == [b for _, b in ranges[:-1]]
-    assert ranges[0][0] == 0 and ranges[-1][1] == p.k_tiles
-    assert all(a < b for a, b in ranges)
-    tiles = -(-M // p.block_m) * -(-N // p.block_n)
-    assert p.workspace == M * N + tiles * (p.block_m // 64)
-    with pytest.raises(ValueError, match="split"):
-        im.int8_mm_plan(M, N, K, split=p.k_tiles + 1)
-    with pytest.raises(ValueError, match="split"):
-        im.int8_mm_plan(M, N, K, split=0)
 
 
 def test_int8_mm_plan_store_paths_and_errors():
@@ -509,11 +482,65 @@ def test_int8_mm_plan_store_paths_and_errors():
         im.int8_mm_plan(8, 8, 8, out_bytes=8)
 
 
-def test_zero_padded_rows():
-    w = torch.arange(5 * 147, dtype=torch.int32).remainder(255).sub(127).to(
-        torch.int8).view(5, 147)
-    rows = im._zero_padded_rows(w)
-    assert torch.equal(rows, w) and rows.stride() == (160, 1)
+@pytest.mark.parametrize("k", [1, 16, 100, 147, 2048])
+def test_kernel_rows_copies_are_zero_past_k(k):
+    """A copy by kernel_rows starts each row on 16 bytes and is zero from
+    k to the next multiple of 16 (the dynamic kernel reads the weight
+    there); rows already in that layout are returned as they are."""
+    w = torch.arange(5 * k, dtype=torch.int32).remainder(255).sub(127).to(
+        torch.int8).view(5, k)
+    rows = im.kernel_rows(w)
+    kp = -(-k // 16) * 16
+    assert torch.equal(rows, w) and rows.stride() == (kp, 1)
     assert rows.data_ptr() % 16 == 0
-    full = rows.as_strided((5, 160), (160, 1))
-    assert not full[:, 147:].any()
+    assert (rows is w) == (k % 16 == 0)
+    full = rows.as_strided((5, kp), (kp, 1))
+    assert not full[:, k:].any()
+
+
+def test_weight_rows_are_zero_past_k_and_built_once():
+    """The stem's weight (K = 7 * 7 * 3 = 147): the layer's kernel rows
+    come in a 160-byte pitch, zero past K, and are built once."""
+    torch.manual_seed(5)
+    tq = Int8InferenceConv2D(Conv2D(3, 8, 7, stride=2, padding=3,
+                                    device="cpu"))
+    rows = tq.weight_rows()
+    assert rows.shape == (8, 147) and rows.stride() == (160, 1)
+    assert torch.equal(rows, tq.qweight.permute(0, 2, 3, 1).reshape(8, -1))
+    assert not rows.as_strided((8, 160), (160, 1))[:, 147:].any()
+    assert tq.weight_rows() is rows
+
+
+def test_int8_forward_ab_pairs_runs_against_the_first_tree(monkeypatch,
+                                                           capsys):
+    """The A/B script's arithmetic, on made-up runs (it times only on a
+    card): each pair as the other tree's numbers minus the first tree's,
+    whichever ran first, and the summary's medians, quartiles and the
+    pairs where the other tree was lower."""
+    import json
+    import types
+    from paddle_tpu_torch.tools import int8_forward_ab as ab
+    runs = iter([("P", 10.0, 1.0), ("C", 8.0, 1.5), ("C", 9.0, 0.5),
+                 ("P", 12.0, 1.0)])
+
+    def fake_run(cmd, **kw):
+        if cmd[0] == "nvidia-smi":
+            return types.SimpleNamespace(stdout="H100, 700.00 W\n")
+        tree, ms, us = next(runs)
+        assert cmd[-2:] == ["--one", tree]
+        return types.SimpleNamespace(stdout="noise\nAB " + json.dumps(
+            {"tree": tree, "package": "x", "b1_int8_ms": ms,
+             "call_host_us": us}) + "\n")
+
+    monkeypatch.setattr(ab.subprocess, "run", fake_run)
+    assert ab.main(["P", "C", "C", "P"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "H100, 700.00 W" and len(out) == 7
+    pairs = json.loads(out[5].removeprefix("AB pairs "))
+    assert pairs == [{"tree": "C", "b1_int8_ms": -2.0, "call_host_us": 0.5},
+                     {"tree": "C", "b1_int8_ms": -3.0, "call_host_us": -0.5}]
+    summary = json.loads(out[6].removeprefix("AB summary "))
+    assert summary["b1_int8_ms"] == dict(
+        first=11.0, other=8.5, first_quartiles=[9.5, 11.0, 12.5],
+        other_lower=2, pairs=2)
+    assert summary["call_host_us"]["other_lower"] == 1

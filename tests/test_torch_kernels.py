@@ -866,52 +866,42 @@ def test_segment_launchers_pass_the_tile_plan(fake_flash_lib, offset):
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("M,K,N,cdt", [
-    (8, 8192, 1024, torch.bfloat16),     # split: a zero workspace
-    (3000, 147, 64, torch.float32),      # no split; K % 16 != 0
-    (3, 8192, 33, torch.float32)])       # split, plain stores
-def test_int8_dynamic_launch_passes_the_plan_and_workspace(
-        fake_flash_lib, monkeypatch, M, K, N, cdt):
+    (8, 8192, 1024, torch.bfloat16),     # long K on 8 tiles
+    (3000, 147, 64, torch.float32),      # K % 16 != 0
+    (3, 8192, 33, torch.float32)])       # plain stores
+def test_int8_dynamic_launch_passes_the_plan(fake_flash_lib, M, K, N,
+                                             cdt):
     """Two calls reach ``int8_matmul_dynamic`` with the pointers, pitches
-    (16-byte rows: K = 147 goes through aligned_rows for x and a
-    zero-padded copy for w), sizes and ``int8_mm_plan``'s plan, and
-    share one zero workspace where the plan splits K."""
-    monkeypatch.setattr(im, "_WORKSPACES", {})
+    (16-byte rows: K = 147 goes through kernel_rows' zero-padded copies),
+    sizes, ``int8_mm_plan``'s plan as seven ints (one array a shape) and
+    the stream."""
     x = torch.ones(M, K, dtype=torch.int8)
     w = torch.ones(N, K, dtype=torch.int8)
     for _ in range(2):
         out = im._int8_matmul_cuda(x, w, torch.ones(N), True, cdt)
     plan = im.int8_mm_plan(M, N, K, 132, out.element_size())
     kp = -(-K // 16) * 16
+    (_, first), (_, second) = fake_flash_lib.calls
+    assert first[10] is second[10]
     for name, args in fake_flash_lib.calls:
         assert name == "int8_matmul_dynamic"
         assert args[1] == args[3] == kp
         assert args[0] % 16 == 0 and args[2] % 16 == 0
         assert args[6:10] == (M, N, K, int(cdt == torch.bfloat16))
         assert tuple(args[10]) == plan.launch()
-        assert args[12] == 0 and len(args) == 13
+        assert args[11] == 0 and len(args) == 12
         assert len(fake_flash_lib.int8_matmul_dynamic.argtypes) == len(args)
-    ws = im._WORKSPACES.get((None, 0))
-    if plan.split > 1:
-        assert ws.dtype == torch.int32 and ws.numel() == plan.workspace
-        assert [a[11] for _, a in fake_flash_lib.calls] == [ws.data_ptr()] * 2
-        assert not ws.any()
-    else:
-        assert ws is None
-        assert [a[11] for _, a in fake_flash_lib.calls] == [None] * 2
     assert out.shape == (M, N) and out.dtype == cdt
     assert registry.launch_counts()["int8_matmul"] == 2
 
 
-def test_int8_weight_only_launch_keeps_its_entry(fake_flash_lib,
-                                                 monkeypatch):
-    monkeypatch.setattr(im, "_WORKSPACES", {})
+def test_int8_weight_only_launch_keeps_its_entry(fake_flash_lib):
     im._int8_matmul_cuda(torch.ones(4, 64), torch.ones(8, 64, dtype=torch.int8),
                          torch.ones(8), False, torch.float32)
     ((name, args),) = fake_flash_lib.calls
     assert name == "int8_matmul_weight_only"
     assert args[6:10] == (4, 8, 64, 0) and len(args) == 11
     assert len(fake_flash_lib.int8_matmul_weight_only.argtypes) == len(args)
-    assert im._WORKSPACES == {}
 
 
 def _plain_cases():
