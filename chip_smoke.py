@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    memory, tiles and stages of the Hopper flash forward and backward); a
    spill in ``segment_sum.cu`` (kernels 7 and 8), in the two sm90
    entries of ``flash_attention_bwd.cu`` (kernels 2 and 3) or in the
-   four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6), or a
-   wgmma that ptxas serialised there, fails;
+   four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
+   six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
+   4), or a wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -32,7 +33,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (device time), with the kernel / SDPA ratio beside that of the first
    (``mma.sync``) kernel; the backward kernels also run twice on the
    same inputs and must agree bitwise, and at the proxy they,
-   ``attention_delta`` and SDPA's backward are timed the same way;
+   ``attention_delta`` and SDPA's backward are timed the same way; the
+   int8 paged attention (kernel 4) is also bitwise equal to itself on a
+   rerun in every case, a sequence alone at batch 1 through a narrower
+   table is bitwise its row in the serving mix's batch of 8, and the 7B
+   decode (B 8, 2,048 tokens), the serving mix (phase 6's lengths) and
+   batch 1 at 2,048 tokens are timed queued beside their byte bounds at
+   chunk targets of 128, 256 and 512 slots and at 1, 2 and 4 chunks a
+   block (which must leave every bit as it is);
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
    mixed prompt lengths, 32 new tokens each; the kernel launch counts of
@@ -42,8 +50,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and with their plain versions (``mode="torch_ref"``): the logits must
    agree within the bf16 bound stated below;
 6. ``torch.profiler`` over 5 steady decode steps of the same model:
-   device busy time against wall time, the top device kernels, and
-   kernel 1's device ms per step (0: decode runs no flash forward);
+   device busy time against wall time, the top device kernels, kernel
+   1's device ms per step (0: decode runs no flash forward) and kernel
+   4's device ms and launches per step;
 7. train the Llama proxy of the reference's headline training bench
    (hidden 2048, 8 layers, 16 heads, head_dim 128, vocab 32000, seq
    2048, batch 4, stacked layers with per-layer remat; f32 weights from
@@ -182,9 +191,11 @@ forward) with the model's bf16 output (the stem also with f32 output):
 dynamic mode bitwise and bitwise on a rerun, weight-only (at the
 classifier's shape) within the module's ``CARD_TOL``; each is timed
 queued beside its bound, its plain version and ``torch._int_mm`` plus
-its scale pass, which compute the same function and which the port
-never calls, with the launch-weighted sums a forward; the kernel's
-launch plan (``int8_mm_plan``) is printed beside each shape.  It holds
+its scale pass (weight-only: ``torch._weight_int8pack_mm``, or a logged
+line where the card's torch has no CUDA kernel for it), which compute
+the same function and which the port never calls, with the
+launch-weighted sums a forward; the kernel's launch plan
+(``int8_mm_plan``) is printed beside each shape.  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
 200,000; integer gradients; n = 1; dim 13; the hard cases of the
@@ -689,7 +700,11 @@ def bwd_cases(dev):
     return rows
 
 
-def kv_case(dev, B, S, H, KH, D, bs, M, dt, trash_rows=0, full=True):
+def kv_case(dev, B, S, H, KH, D, bs, M, dt, trash_rows=0, full=True,
+            last=None):
+    """Int8 pools, scales, a table of distinct random blocks and queries;
+    the sequences' last query positions are ``last`` where given, else the
+    table's end (``full``) or random."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     nb = B * M + 1
     kpool = torch.randint(-127, 128, (nb, bs, KH, D), device=dev,
@@ -701,7 +716,9 @@ def kv_case(dev, B, S, H, KH, D, bs, M, dt, trash_rows=0, full=True):
     perm = torch.randperm(nb - 1, device=dev, generator=g) + 1
     tbl = perm[:B * M].reshape(B, M).to(torch.int32)
     T = M * bs
-    if full:
+    if last is not None:
+        last = torch.tensor(last, device=dev) - (S - 1)
+    elif full:
         last = torch.full((B,), T - S, device=dev)
     else:
         last = torch.randint(0, T - S + 1, (B,), device=dev, generator=g)
@@ -713,9 +730,40 @@ def kv_case(dev, B, S, H, KH, D, bs, M, dt, trash_rows=0, full=True):
     return qh, kpool, vpool, ks, vs, tbl, pos, KH
 
 
+def kv_bound(args):
+    """Kernel 4's least time for one call on these inputs: the bytes of
+    each valid token's int8 K and V rows (every kv head) and its two f32
+    scales, the live table entries and the positions read, q read and the
+    output written once, over the HBM rate; against its 4 D flops a valid
+    token and query row at the f32 rate (CUDA cores)."""
+    qh, kpool, _, _, _, tbl, pos, KH = args
+    B, S, H, D = qh.shape
+    bs = kpool.shape[1]
+    last = pos.max(dim=1).values.clamp(min=0) + 1
+    valid = int(last.sum().item())                           # tokens
+    blocks = int(torch.clamp((last + bs - 1) // bs, max=tbl.shape[1])
+                 .sum().item())
+    nbytes = (valid * KH * D * 2 + valid * 4 * 2 + blocks * 4
+              + pos.numel() * 4 + 2 * qh.numel() * qh.element_size())
+    return bound_ms(4 * D * H * S * valid, PEAK_F32_FLOPS, nbytes)
+
+
+# phase 6's decode batch: the serve phase's prompt lengths + 16 new
+# tokens, in a 128-block table of 16-slot blocks
+SERVING_MIX_LENS = (1900, 1500, 1024, 700, 333, 128, 64, 17)
+
+
 def kv_cases(dev):
+    """Phase 3 for kernel 4: six cases within CARD_TOL of the plain
+    version and bitwise equal on a rerun; a sequence alone at batch 1
+    through a narrower table bitwise equal to its row in the serving mix;
+    the 7B decode, the serving mix and batch 1 at 2,048 tokens timed
+    queued beside their bounds at every chunk target of 128, 256 and 512
+    slots (each checked against the plain version too) and at 1, 2 and 4
+    chunks a block (each bitwise the default's)."""
+    from paddle_tpu_torch.ops.kernels import kv_attention as kva
     from paddle_tpu_torch.ops.kernels.kv_attention import (
-        CARD_TOL, int8_paged_attention)
+        CARD_TOL, KV_CHUNK_SLOTS, int8_paged_attention)
     row = None
     cases = [  # (B, S, H, KH, D, bs, M, dtype, trash); first = 7B decode
         (8, 1, 32, 32, 128, 16, 128, torch.bfloat16, 0),
@@ -728,6 +776,7 @@ def kv_cases(dev):
     for i, (B, S, H, KH, D, bs, M, dt, trash) in enumerate(cases):
         args = kv_case(dev, B, S, H, KH, D, bs, M, dt, trash, full=(i == 0))
         got = int8_paged_attention(*args)
+        again = int8_paged_attention(*args)
         ref = int8_paged_attention(*args, mode="torch_ref")
         torch.cuda.synchronize()
         dname = str(dt).replace("torch.", "")
@@ -735,26 +784,79 @@ def kv_cases(dev):
                  f"{dname} trash_rows={trash}")
         err, share = check_close(f"int8_kv_attention {shape}", got, ref,
                                  CARD_TOL[dt])
+        if not torch.equal(got, again):
+            fail(f"int8_kv_attention {shape}: a rerun is not bitwise equal")
         log(f"int8_kv_attention {shape}: max_err {err:.3g}, {share:.3g} of "
-            f"its limit; median |o| "
+            f"its limit, bitwise equal on a rerun; median |o| "
             f"{ref.float().abs().median().item():.3g}")
         if i == 0:
-            ms = cuda_ms(lambda: int8_paged_attention(*args))
-            plain = cuda_ms(lambda: int8_paged_attention(
-                *args, mode="torch_ref"))
-            pos = args[6]
-            valid = int((pos.max(dim=1).values + 1).sum().item())  # tokens
-            nbytes = (valid * KH * D * 2            # int8 K and V rows
-                      + valid * 4 * 2               # their f32 scales
-                      + 2 * args[0].numel() * args[0].element_size()
-                      + args[5].numel() * 4 + pos.numel() * 4)
-            flops = 4 * D * H * S * valid           # q.k and p.v per row
-            bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                       bound_by=by, library_ms=None)
-            log(f"int8_kv_attention 7B decode shape: kernel_ms {ms:.4f} "
-                f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}) "
-                f"library_ms n/a (no single PyTorch call)")
+            row = dict(max_abs_err=err)
+    bf = torch.bfloat16
+    mix = [n + 16 for n in SERVING_MIX_LENS]
+    shapes = {
+        "7B decode (B 8, T 2048)": kv_case(dev, 8, 1, 32, 32, 128, 16, 128,
+                                           bf, full=True),
+        "serving mix (phase 6's lengths)": kv_case(
+            dev, 8, 1, 32, 32, 128, 16, 128, bf, last=mix),
+        "batch 1 (T 2048)": kv_case(dev, 1, 1, 32, 32, 128, 16, 128, bf,
+                                    full=True),
+    }
+    # batch invariance: a sequence alone through a table just wide enough
+    args = shapes["serving mix (phase 6's lengths)"]
+    qh, kp, vp, ks, vs, tbl, pos, KH = args
+    full = int8_paged_attention(*args)
+    for i in (0, 4, 7):
+        m = mix[i] // 16 + 2
+        alone = int8_paged_attention(qh[i:i + 1].clone(), kp, vp, ks, vs,
+                                     tbl[i:i + 1, :m].clone(),
+                                     pos[i:i + 1].clone(), KH)
+        torch.cuda.synchronize()
+        if not torch.equal(alone[0], full[i]):
+            fail(f"int8_kv_attention: sequence {i} ({mix[i]} tokens) alone "
+                 f"at batch 1 through {m} table blocks is not bitwise its "
+                 "row in the batch of 8")
+    log("int8_kv_attention: sequences 0, 4 and 7 of the serving mix alone "
+        "at batch 1 (narrower tables) bitwise equal to their rows in the "
+        "batch of 8")
+    for label, args in shapes.items():
+        ref = int8_paged_attention(*args, mode="torch_ref")
+        bms, by = kv_bound(args)
+        times, by_k = {}, {}
+        for c0 in (128, 256, 512):
+            got = kva._int8_kv_cuda(*args, chunk_target=c0)
+            check_close(f"int8_kv_attention {label} C0={c0}", got, ref,
+                        CARD_TOL[bf])
+            times[c0] = queued_ms(lambda: kva._int8_kv_cuda(
+                *args, chunk_target=c0))
+        # the chunks a block, which must not change a bit
+        base = int8_paged_attention(*args)
+        for k in (1, 2, 4):
+            if not torch.equal(kva._int8_kv_cuda(*args, chunks_a_block=k),
+                               base):
+                fail(f"int8_kv_attention {label}: {k} chunks a block "
+                     "change the result's bits")
+            by_k[k] = queued_ms(lambda: kva._int8_kv_cuda(
+                *args, chunks_a_block=k))
+        ms = times[KV_CHUNK_SLOTS]
+        plain = queued_ms(lambda: int8_paged_attention(*args,
+                                                       mode="torch_ref"))
+        events = cuda_ms(lambda: int8_paged_attention(*args))
+        plan = kva.int8_kv_plan(*args[0].shape[:3], args[7], args[0].shape[3],
+                                args[1].shape[1], args[5].shape[1])
+        log(f"int8_kv_attention {label}: kernel_ms {ms:.4f} (C0 "
+            f"{KV_CHUNK_SLOTS}; events around one call {events:.4f}) "
+            f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}; kernel / bound "
+            f"{ms / bms:.2f}) library_ms n/a (no single PyTorch call); "
+            f"C0 128 / 256 / 512: " + " / ".join(
+                f"{times[c]:.4f}" for c in (128, 256, 512))
+            + "; chunks a block 1 / 2 / 4: " + " / ".join(
+                f"{by_k[k]:.4f}" for k in (1, 2, 4))
+            + f"; plan chunk {plan.chunk} slots, {plan.chunks_a_block} "
+            f"a block, grid {plan.grid}, {plan.warps} warps, {plan.stages} "
+            f"stages, {plan.smem_bytes} B")
+        if label.startswith("7B"):
+            row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       library_ms=None)
     return row
 
 
@@ -770,6 +872,30 @@ def _int_mm_library(x, w_nk, scale, cdt):
         w_nk = torch.nn.functional.pad(w_nk, (0, pad))
     x, wt = x.contiguous(), w_nk.contiguous().t()
     return lambda: (torch._int_mm(x, wt).float() * scale).to(cdt)
+
+
+def _weight_only_library(x, w_nk, w_scale, cdt, ref, shape):
+    """``torch._weight_int8pack_mm(x, w, scale)``: x @ (w * scale)^T with
+    the scale in the compute dtype, the reference's weight-only expression
+    (``int8_matmul_ref``); the yardstick, never called by the port.  Its
+    queued ms, or None (logged) where the card's torch has no CUDA
+    implementation of it."""
+    w, s = w_nk.contiguous(), w_scale.to(cdt)
+
+    def lib_fn():
+        return torch._weight_int8pack_mm(x, w, s)
+
+    try:
+        out = lib_fn()
+        torch.cuda.synchronize()
+    except (NotImplementedError, RuntimeError) as e:
+        log(f"int8_matmul {shape}: torch._weight_int8pack_mm does not run "
+            f"on this card's torch: {str(e).splitlines()[0][:160]}")
+        return None
+    d = (out.float() - ref.float()).abs().max().item()
+    log(f"int8_matmul {shape}: torch._weight_int8pack_mm max |diff| from "
+        f"the plain version {d:.3g} (it rounds differently; timed only)")
+    return queued_ms(lib_fn)
 
 
 @contextlib.contextmanager
@@ -893,9 +1019,12 @@ def _int8_case(dev, g, label, M, K, N, cdt, dyn):
             fail(f"int8_matmul {shape}: torch._int_mm's product differs "
                  "from the plain version")
         lib = queued_ms(lib_fn)
+    elif not dyn:
+        lib = _weight_only_library(x, w, ws, cdt, ref, shape)
     log(f"int8_matmul {shape} {'dynamic' if dyn else 'weight-only'}: "
         f"{verdict}; kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-        f"{bms:.4f} ({by}) library_ms(_int_mm + scale) "
+        f"{bms:.4f} ({by}) library_ms("
+        + ("_int_mm + scale" if dyn else "_weight_int8pack_mm") + ") "
         + ("n/a" if lib is None else
            f"{lib:.4f} (kernel / library {ms / lib:.3f})"))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -1103,6 +1232,12 @@ def profile_decode(dev, model, steps: int = 5):
     # a decode step attends through the int8 kernel; prefill alone runs
     # kernel 1, so this reads 0
     log_flash_fwd("profile decode", kern, steps)
+    mine = [e for e in kern if "int8_kv_attn" in e.key]
+    k4 = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+    n4 = sum(e.count for e in mine) / steps
+    log(f"profile decode: kernel 4 (int8_kv_attn) {k4:.3f} device ms/step "
+        f"over {n4:g} launches/step ({k4 / max(n4, 1):.4f} ms a launch), "
+        f"{k4 / busy_ms:.3f} of the device busy time")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
@@ -3375,6 +3510,13 @@ def main() -> int:
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
+    # kernel 4 keeps its scores and q slices in registers: six entries
+    # (head_dim 64, 128, 256; f32 or bf16 queries)
+    kv = check_ptxas("int8_kv_attention.cu", "int8_kv_attn_sm90", entries=6)
+    for name, (regs, _, _) in sorted(kv.items()):
+        q, d = re.search(r"sm90I(f|13__nv_bfloat16)Li(\d+)E", name).groups()
+        log(f"  int8_kv_attn_sm90 ({'f32' if q == 'f' else 'bf16'} q, "
+            f"head_dim {d}): {regs} registers, no spill")
     for name, (regs, _, _) in sorted(mm.items()):
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import (

@@ -111,6 +111,102 @@ def test_kernels_match_plain_on_card():
     assert counts["flash_attention"] > 0 and counts["int8_kv_attention"] > 0
 
 
+def _kv_batch(seed, last, S, G, R, D, bs, M, dt, dev, nb=None):
+    """Sequences whose S queries end at positions ``last`` (-1: an idle
+    decode slot, all-zero table and position 0), each over distinct
+    random blocks of one int8 pool pair."""
+    rng = np.random.default_rng(seed)
+    B = len(last)
+    nb = nb or B * M + 1
+    kpool = rng.integers(-127, 128, (nb, bs, G, D)).astype(np.int8)
+    vpool = rng.integers(-127, 128, (nb, bs, G, D)).astype(np.int8)
+    ks = (rng.random((nb, bs)) * 0.01 + 1e-3).astype(np.float32)
+    vs = (rng.random((nb, bs)) * 0.01 + 1e-3).astype(np.float32)
+    tbl = (rng.permutation(nb - 1)[:B * M] + 1).reshape(B, M).astype(np.int32)
+    pos = np.zeros((B, S), np.int32)
+    for i, n in enumerate(last):
+        if n < 0:
+            tbl[i] = 0
+        else:
+            pos[i] = np.arange(n - S + 1, n + 1)
+    qh = torch.from_numpy(rng.standard_normal((B, S, G * R, D)).astype(
+        np.float32)).to(dev, dt)
+    return [qh] + [torch.from_numpy(a).to(dev) for a in
+                   (kpool, vpool, ks, vs, tbl, pos)], G
+
+
+@pytest.mark.cuda
+def test_int8_kv_chunks_match_plain_on_card():
+    """The split kernel at chunk boundaries: a sequence of exactly one
+    chunk, a verify block whose first row lies before the second chunk
+    (that row's chunk is fully masked), three full chunks, an idle slot;
+    GQA; every head dim, both dtypes, block sizes 16, 8 (a 128-slot chunk
+    target) and 72 (two TMA boxes a block).  Within CARD_TOL of the plain
+    version and of the split oracle, and bitwise equal on a rerun."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the serving shapes")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    runs = 0
+    cases = [(D, dt, 16, 40, kva.KV_CHUNK_SLOTS) for D in (64, 128, 256)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(128, torch.float32, 8, 80, 128),
+              (64, torch.bfloat16, 72, 9, kva.KV_CHUNK_SLOTS)]
+    for D, dt, bs, M, target in cases:
+        T = bs * M
+        C = -(-target // bs) * bs
+        args, G = _kv_batch(30 + D + bs, [C - 1, C + 1, T - 1, -1], 3, 2, 2,
+                            D, bs, M, dt, dev)
+        got = kva._int8_kv_cuda(*args, G, chunk_target=target)
+        again = kva._int8_kv_cuda(*args, G, chunk_target=target)
+        ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
+        split = kva.paged_attention_split_ref(*args, G, chunk_target=target)
+        torch.cuda.synchronize()
+        runs += 2
+        assert bool(torch.isfinite(got.float()).all()), (D, dt, bs)
+        assert torch.equal(got, again), (D, dt, bs)
+        _assert_within(got, ref, kva.CARD_TOL[dt])
+        _assert_within(got, split, kva.CARD_TOL[dt])
+    # 64 query rows a kv head at head_dim 256: one warp, a ring refilled
+    # within each chunk
+    args, G = _kv_batch(60, [255, 300, 639], 8, 2, 8, 256, 16, 40,
+                        torch.float32, dev)
+    plan = kva.int8_kv_plan(3, 8, 16, 2, 256, 16, 40)
+    assert plan.warps == 1 and plan.stages < plan.tiles
+    got = kva.int8_paged_attention(*args, G)
+    again = kva.int8_paged_attention(*args, G)
+    ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
+    torch.cuda.synchronize()
+    runs += 2
+    assert torch.equal(got, again)
+    _assert_within(got, ref, kva.CARD_TOL[torch.float32])
+    assert registry.launch_counts()["int8_kv_attention"] == runs
+
+
+@pytest.mark.cuda
+def test_int8_kv_batch_invariant_on_card():
+    """A sequence's output bits do not depend on its batch: alone at
+    batch 1 through a table just wide enough, and inside a batch of 8
+    through a 128-block table (the serving mix's lengths), the kernel
+    gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    last = [1915, 1515, 1039, 715, 348, 143, 79, 32]
+    for dt, S in ((torch.bfloat16, 1), (torch.float32, 2)):
+        args, G = _kv_batch(50, last, S, 4, 2, 128, 16, 128, dt, dev)
+        qh, kp, vp, ks, vs, tbl, pos = args
+        full = kva.int8_paged_attention(*args, G)
+        for i in (0, 3, 7):
+            m = last[i] // 16 + 3
+            alone = kva.int8_paged_attention(
+                qh[i:i + 1].clone(), kp, vp, ks, vs,
+                tbl[i:i + 1, :m].clone(), pos[i:i + 1].clone(), G)
+            torch.cuda.synchronize()
+            assert torch.equal(alone[0], full[i]), (dt, i)
+
+
 # (dtype, B, H, Hkv, S, D): every head dim in f32 and bf16, then the
 # Hopper route's own cases (bf16, head_dim 128): GQA and ragged, one key
 # past a tile, not causal over two batches, a single work item, and more
