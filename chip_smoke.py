@@ -757,13 +757,11 @@ def kv_cases(dev):
     """Phase 3 for kernel 4: six cases within CARD_TOL of the plain
     version and bitwise equal on a rerun; a sequence alone at batch 1
     through a narrower table bitwise equal to its row in the serving mix;
-    the 7B decode, the serving mix and batch 1 at 2,048 tokens timed
-    queued beside their bounds at every chunk target of 128, 256 and 512
-    slots (each checked against the plain version too) and at 1, 2 and 4
-    chunks a block (each bitwise the default's)."""
+    the 7B decode, the serving mix and batch 1 at 2,048 tokens checked
+    against the plain version and timed queued beside their bounds."""
     from paddle_tpu_torch.ops.kernels import kv_attention as kva
     from paddle_tpu_torch.ops.kernels.kv_attention import (
-        CARD_TOL, KV_CHUNK_SLOTS, int8_paged_attention)
+        CARD_TOL, int8_paged_attention)
     row = None
     cases = [  # (B, S, H, KH, D, bs, M, dtype, trash); first = 7B decode
         (8, 1, 32, 32, 128, 16, 128, torch.bfloat16, 0),
@@ -821,39 +819,20 @@ def kv_cases(dev):
     for label, args in shapes.items():
         ref = int8_paged_attention(*args, mode="torch_ref")
         bms, by = kv_bound(args)
-        times, by_k = {}, {}
-        for c0 in (128, 256, 512):
-            got = kva._int8_kv_cuda(*args, chunk_target=c0)
-            check_close(f"int8_kv_attention {label} C0={c0}", got, ref,
-                        CARD_TOL[bf])
-            times[c0] = queued_ms(lambda: kva._int8_kv_cuda(
-                *args, chunk_target=c0))
-        # the chunks a block, which must not change a bit
-        base = int8_paged_attention(*args)
-        for k in (1, 2, 4):
-            if not torch.equal(kva._int8_kv_cuda(*args, chunks_a_block=k),
-                               base):
-                fail(f"int8_kv_attention {label}: {k} chunks a block "
-                     "change the result's bits")
-            by_k[k] = queued_ms(lambda: kva._int8_kv_cuda(
-                *args, chunks_a_block=k))
-        ms = times[KV_CHUNK_SLOTS]
+        check_close(f"int8_kv_attention {label}", int8_paged_attention(*args),
+                    ref, CARD_TOL[bf])
+        ms = queued_ms(lambda: int8_paged_attention(*args))
         plain = queued_ms(lambda: int8_paged_attention(*args,
                                                        mode="torch_ref"))
         events = cuda_ms(lambda: int8_paged_attention(*args))
         plan = kva.int8_kv_plan(*args[0].shape[:3], args[7], args[0].shape[3],
                                 args[1].shape[1], args[5].shape[1])
-        log(f"int8_kv_attention {label}: kernel_ms {ms:.4f} (C0 "
-            f"{KV_CHUNK_SLOTS}; events around one call {events:.4f}) "
-            f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}; kernel / bound "
-            f"{ms / bms:.2f}) library_ms n/a (no single PyTorch call); "
-            f"C0 128 / 256 / 512: " + " / ".join(
-                f"{times[c]:.4f}" for c in (128, 256, 512))
-            + "; chunks a block 1 / 2 / 4: " + " / ".join(
-                f"{by_k[k]:.4f}" for k in (1, 2, 4))
-            + f"; plan chunk {plan.chunk} slots, {plan.chunks_a_block} "
-            f"a block, grid {plan.grid}, {plan.warps} warps, {plan.stages} "
-            f"stages, {plan.smem_bytes} B")
+        log(f"int8_kv_attention {label}: kernel_ms {ms:.4f} (events "
+            f"around one call {events:.4f}) plain_ms {plain:.4f} bound_ms "
+            f"{bms:.4f} ({by}; kernel / bound {ms / bms:.2f}) library_ms "
+            f"n/a (no single PyTorch call); plan chunk {plan.chunk} slots, "
+            f"{plan.chunks_a_block} a block, grid {plan.grid}, "
+            f"{plan.warps} warps, {plan.stages} stages, {plan.smem_bytes} B")
         if label.startswith("7B"):
             row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                        library_ms=None)
@@ -1086,7 +1065,7 @@ def serve(dev, model):
     srv.start()          # one warm-up prefill + decode (kernels built)
     log(f"serve: server started in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
-    lens = [1900, 1500, 1024, 700, 333, 128, 64, 17]
+    lens = SERVING_MIX_LENS
     prompts = [rng.integers(1, model.config.vocab_size, n).astype(np.int32)
                for n in lens]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1200,7 +1179,7 @@ def profile_decode(dev, model, steps: int = 5):
     against wall time, and the top device ops."""
     from torch.profiler import ProfilerActivity, profile
     bs, M, B = 16, 128, 8
-    lens = np.array([1900, 1500, 1024, 700, 333, 128, 64, 17]) + 16
+    lens = np.array(SERVING_MIX_LENS) + 16
     tbl = np.arange(1, B * M + 1, dtype=np.int32).reshape(B, M)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     pools = model.init_paged_cache(B * M + 1, bs)

@@ -104,20 +104,17 @@ def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
 
 
 def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
-                 chunk_target: int = KV_CHUNK_SLOTS,
-                 sm_count: int = H100_SMS,
-                 chunks_a_block: int = None) -> KvPlan:
+                 sm_count: int = H100_SMS) -> KvPlan:
     """The kernel's launch plan for queries [B, S, H, D] over pools of
     block size ``bs`` and kv heads ``KH`` through a table of ``M`` blocks
     a sequence.
 
-    - A chunk is ``ceil(chunk_target / bs)`` whole blocks.
+    - A chunk is ``ceil(KV_CHUNK_SLOTS / bs)`` whole blocks.
     - A block runs K consecutive chunks of one (sequence, kv head): 2
       where the chunks outnumber the blocks resident on ``sm_count`` SMs
       at once, else 1 (small batches, where the chunks are the card's
       parallelism).  More would serialise a long sequence behind its own
-      chunks (PERF.md section 6).  ``chunks_a_block`` sets K (at most
-      the chunks) for a measurement.  The grid is (ceil(chunks / K), KH,
+      chunks (PERF.md section 6).  The grid is (ceil(chunks / K), KH,
       B).  Each chunk is computed the same whatever K is.
     - A TMA box is one block (``bs <= 32``) or 32 slots of one; a tile is
       as many boxes as fit in 32 slots (at least one).
@@ -131,13 +128,13 @@ def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
     What fixes the kernel's order of operations (the chunk, tiles, warps)
     depends on ``bs``, ``D``, ``S * H / KH`` and the target alone, never
     on B, M or the card.  Pure arithmetic: it runs without a card."""
-    if min(B, S, H, KH, M, bs, chunk_target) < 1 or bs % 8 or H % KH or \
+    if min(B, S, H, KH, M, bs) < 1 or bs % 8 or H % KH or \
             D not in _HEAD_DIMS:
         raise ValueError(
             f"int8_kv_plan: B {B}, S {S}, H {H}, KH {KH}, D {D}, bs {bs}, "
-            f"M {M}, chunk target {chunk_target} (needs positive sizes, "
-            f"bs % 8 == 0, H % KH == 0, D in {_HEAD_DIMS})")
-    chunk = -(-chunk_target // bs) * bs
+            f"M {M} (needs positive sizes, bs % 8 == 0, H % KH == 0, D in "
+            f"{_HEAD_DIMS})")
+    chunk = -(-KV_CHUNK_SLOTS // bs) * bs
     cb = chunk // bs
     bx = min(bs, _BOX_SLOTS)
     ppb = -(-bs // bx)
@@ -167,10 +164,7 @@ def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
     threads = 32 * (warps + 1)
     resident = sm_count * max(1, min(_SM_SMEM // (smem + 1024),
                                      2048 // threads, _BLOCKS_AN_SM))
-    if chunks_a_block is None:
-        K = 2 if chunks > 1 and chunks * KH * B >= resident else 1
-    else:
-        K = max(1, min(chunks_a_block, chunks))
+    K = 2 if chunks > 1 and chunks * KH * B >= resident else 1
     return KvPlan(
         chunk=chunk, chunk_blocks=cb, box_slots=bx, boxes_a_block=ppb,
         tile_slots=ts, tiles=tiles, warps=warps, stages=stages,
@@ -216,12 +210,15 @@ _NEG = -1e30
 def paged_attention_split_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
                               kv_heads, chunk_target=KV_CHUNK_SLOTS):
     """The kernel's split in plain PyTorch, an oracle for it: each
-    sequence's live chunks (``int8_kv_plan``'s chunk, up to the block
+    sequence's live chunks (``ceil(chunk_target / bs)`` whole blocks, as
+    ``int8_kv_plan`` cuts them at the default target, up to the block
     holding its largest position) give (m, l, acc) as the online softmax
     leaves them (masked scores -1e30, masked p exactly 0), merged in chunk
     order as M = max m_c, l = sum l_c exp(m_c - M), acc = sum acc_c
-    exp(m_c - M); out = acc / max(l, 1e-30).  Same arguments and result
-    as :func:`paged_attention_ref` (int8 pools with their scales)."""
+    exp(m_c - M); out = acc / max(l, 1e-30).  A smaller ``chunk_target``
+    puts chunk boundaries inside the short sequences of a test.  Same
+    arguments and result as :func:`paged_attention_ref` (int8 pools with
+    their scales)."""
     B, S, H, D = qh.shape
     bs = kpool.shape[1]
     M = tbl.shape[1]
@@ -296,11 +293,10 @@ def _eligible(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
 
 
 @functools.lru_cache(maxsize=1024)
-def _launch_plan(B, S, H, KH, D, bs, M, chunk_target, device, K):
+def _launch_plan(B, S, H, KH, D, bs, M, device):
     """The plan of a shape on a card and its seven ints as the C entry
     takes them (which it only reads), made once a shape."""
-    plan = int8_kv_plan(B, S, H, KH, D, bs, M, chunk_target,
-                        _sm_count(device), K)
+    plan = int8_kv_plan(B, S, H, KH, D, bs, M, _sm_count(device))
     return plan, (ctypes.c_int * 7)(*plan.launch())
 
 
@@ -329,13 +325,11 @@ def _on_16_bytes(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads,
-                  chunk_target=KV_CHUNK_SLOTS, chunks_a_block=None):
+def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
     B, S, H, D = qh.shape
     nb, bs, KH, _ = kpool.shape
     M = tbl.shape[1]
-    plan, ints = _launch_plan(B, S, H, KH, D, bs, M, chunk_target,
-                              qh.device, chunks_a_block)
+    plan, ints = _launch_plan(B, S, H, KH, D, bs, M, qh.device)
     if qh.stride(-1) != 1:
         qh = qh.contiguous()
     kpool, vpool, kscale, vscale = (_on_16_bytes(t) for t in

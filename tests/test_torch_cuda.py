@@ -140,8 +140,8 @@ def test_int8_kv_chunks_match_plain_on_card():
     """The split kernel at chunk boundaries: a sequence of exactly one
     chunk, a verify block whose first row lies before the second chunk
     (that row's chunk is fully masked), three full chunks, an idle slot;
-    GQA; every head dim, both dtypes, block sizes 16, 8 (a 128-slot chunk
-    target) and 72 (two TMA boxes a block).  Within CARD_TOL of the plain
+    GQA; every head dim, both dtypes, block sizes 16, 8 (32 blocks a
+    chunk) and 72 (two TMA boxes a block).  Within CARD_TOL of the plain
     version and of the split oracle, and bitwise equal on a rerun."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
@@ -149,19 +149,18 @@ def test_int8_kv_chunks_match_plain_on_card():
     registry.reset_counts()
     dev = torch.device("cuda")
     runs = 0
-    cases = [(D, dt, 16, 40, kva.KV_CHUNK_SLOTS) for D in (64, 128, 256)
+    cases = [(D, dt, 16, 40) for D in (64, 128, 256)
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(128, torch.float32, 8, 80, 128),
-              (64, torch.bfloat16, 72, 9, kva.KV_CHUNK_SLOTS)]
-    for D, dt, bs, M, target in cases:
+    cases += [(128, torch.float32, 8, 80), (64, torch.bfloat16, 72, 9)]
+    for D, dt, bs, M in cases:
         T = bs * M
-        C = -(-target // bs) * bs
+        C = kva.int8_kv_plan(4, 3, 4, 2, D, bs, M).chunk
         args, G = _kv_batch(30 + D + bs, [C - 1, C + 1, T - 1, -1], 3, 2, 2,
                             D, bs, M, dt, dev)
-        got = kva._int8_kv_cuda(*args, G, chunk_target=target)
-        again = kva._int8_kv_cuda(*args, G, chunk_target=target)
+        got = kva.int8_paged_attention(*args, G)
+        again = kva.int8_paged_attention(*args, G)
         ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
-        split = kva.paged_attention_split_ref(*args, G, chunk_target=target)
+        split = kva.paged_attention_split_ref(*args, G)
         torch.cuda.synchronize()
         runs += 2
         assert bool(torch.isfinite(got.float()).all()), (D, dt, bs)

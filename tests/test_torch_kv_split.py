@@ -79,13 +79,14 @@ def test_split_ref_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), xref, atol=ATOL, rtol=RTOL)
 
 
-def test_split_ref_splits_where_the_plan_does():
+def test_split_ref_splits_where_the_plan_does(monkeypatch):
     """The oracle's chunks are the plan's: with a target below one block
     a chunk is one block, and the result still agrees with the unsplit
     plain version."""
     args, G = _case(4, [31, 12], 1, 2, 2, 64, 8, 4)
     t = [torch.from_numpy(a) for a in args]
-    assert kva.int8_kv_plan(2, 1, 4, 2, 64, 8, 4, 3).chunk == 8
+    monkeypatch.setattr(kva, "KV_CHUNK_SLOTS", 3)
+    assert kva.int8_kv_plan(2, 1, 4, 2, 64, 8, 4).chunk == 8
     got = kva.paged_attention_split_ref(*t, G, chunk_target=3)
     ref = kva.paged_attention_ref(*t, G)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL,
@@ -112,9 +113,11 @@ def test_split_ref_is_batch_invariant():
 
 @pytest.mark.parametrize("target", [128, 256, 512])
 @pytest.mark.parametrize("bs", [8, 16, 24, 40, 64, 72, 128, 256])
-def test_plan_chunk_is_whole_blocks(bs, target):
+def test_plan_chunk_is_whole_blocks(bs, target, monkeypatch):
+    """At each chunk target the constant was chosen from."""
     B, S, H, KH, D, M = 3, 2, 8, 4, 128, 50
-    p = kva.int8_kv_plan(B, S, H, KH, D, bs, M, target)
+    monkeypatch.setattr(kva, "KV_CHUNK_SLOTS", target)
+    p = kva.int8_kv_plan(B, S, H, KH, D, bs, M)
     assert p.chunk % bs == 0 and target <= p.chunk < target + bs
     assert p.chunk_blocks == p.chunk // bs
     assert p.chunks == -(-M // p.chunk_blocks)
@@ -173,11 +176,6 @@ def test_plan_of_a_sequence_ignores_batch_and_table_width(S, H, KH, D):
     assert same[0] == same[1] == same[2]
     assert [p.chunks for p in plans] == [1, 8, 19]
     assert plans[0].ws_floats == 0 and plans[2].chunks_a_block == 2
-    # a measurement may set the chunks a block; nothing else moves
-    three = kva.int8_kv_plan(8, S, H, KH, D, 16, 128, chunks_a_block=3)
-    assert (three.chunks_a_block, three.grid) == (3, (3, KH, 8))
-    assert three._replace(chunks_a_block=plans[1].chunks_a_block,
-                          grid=plans[1].grid) == plans[1]
 
 
 def test_plan_trades_warps_and_stages_for_many_query_rows():
