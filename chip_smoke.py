@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    entries of ``flash_attention_bwd.cu`` (kernels 2 and 3) or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
    six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
-   4), or a wgmma that ptxas serialised there, fails;
+   4) or the ten ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's
+   weight-only mode), or a wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -38,9 +39,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    rerun in every case, a sequence alone at batch 1 through a narrower
    table is bitwise its row in the serving mix's batch of 8, and the 7B
    decode (B 8, 2,048 tokens), the serving mix (phase 6's lengths) and
-   batch 1 at 2,048 tokens are timed queued beside their byte bounds at
-   chunk targets of 128, 256 and 512 slots and at 1, 2 and 4 chunks a
-   block (which must leave every bit as it is);
+   batch 1 at 2,048 tokens are timed queued beside their byte bounds, at
+   the plan's chunk; an empty kernel is timed queued the same way (at 1
+   and at 128 blocks): the fixed device cost of a launch;
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
    mixed prompt lengths, 32 new tokens each; the kernel launch counts of
@@ -76,16 +77,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``w_scale`` to bf16), on bf16 NCHW images at batch 1, 32 and 128:
     per-forward ms (median of 20 CUDA-event timings), images/s and peak
     memory, the same for the bf16 model (cuDNN convolutions) and their
-    ratio (the bench's ``int8_speedup``); the launch counts prove every
-    int8 forward went through ``int8_matmul`` exactly 54 times (53
-    convolutions and the classifier);
+    ratio (the bench's ``int8_speedup``), and the same for the
+    weight-only conversion (``act_quant=None``: its 53 convolutions
+    dequantise and convolve, its classifier runs the kernel's
+    weight-only mode); the launch counts prove every int8 forward went
+    through ``int8_matmul`` exactly 54 times (53 convolutions and the
+    classifier) and every weight-only forward exactly once, in
+    weight-only mode;
 11. the int8 model's batch-32 logits with the kernel and with its plain
     version (``set_kernel_mode(model, "torch_ref")``) must be bitwise
-    equal (integer sums are order-free); for information, the top-1
-    agreement of the int8 and the bf16 model;
+    equal (integer sums are order-free); the weight-only model's within
+    ``CARD_TOL[bf16]`` of its plain version's and bitwise on a rerun; for
+    information, the top-1 agreement of each with the bf16 model;
 12. ``torch.profiler`` over 3 batch-32 int8 forwards: device busy time
     against wall time, the top device kernels, and the int8 GEMMs'
-    device ms a forward beside the first (``mma.sync``) kernel's;
+    device ms a forward beside the first (``mma.sync``) kernel's; then
+    over 3 weight-only forwards: busy, idle share and the weight-only
+    kernel's device ms a forward;
 13. train the reference bench's wide&deep (``bench.py:618-624``, nothing
     cut: 26 fields of 16-wide embeddings over 20,000 Zipf(1.3) ids each,
     13 dense features, hidden 256, batch 1,024; ``RandomState(0)`` draws
@@ -188,14 +196,19 @@ Phase 3 also holds ``int8_matmul`` against its plain version at every
 GEMM shape the int8 ResNet-50 sends at batch 1 and at batch 32 (recorded
 from the model by ``recorded_int8_shapes``: 21 shapes each, 54 launches a
 forward) with the model's bf16 output (the stem also with f32 output):
-dynamic mode bitwise and bitwise on a rerun, weight-only (at the
-classifier's shape) within the module's ``CARD_TOL``; each is timed
-queued beside its bound, its plain version and ``torch._int_mm`` plus
-its scale pass (weight-only: ``torch._weight_int8pack_mm``, or a logged
-line where the card's torch has no CUDA kernel for it), which compute
-the same function and which the port never calls, with the
-launch-weighted sums a forward; the kernel's launch plan
-(``int8_mm_plan``) is printed beside each shape.  It holds
+dynamic mode bitwise and bitwise on a rerun; each is timed queued beside
+its bound, its plain version and ``torch._int_mm`` plus its scale pass,
+which compute the same function and which the port never calls, with
+the launch-weighted sums a forward; the kernel's launch plan
+(``int8_mm_plan``) is printed beside each shape.  Weight-only mode runs
+at the weight-only model's classifier (M = 1, 32 and 128, K = 2,048, N =
+1,000), at BERT-base's FFN at batch 128 x 128 (16,384 x 768 x 3,072) and
+at split edges (K not a multiple of the split, M past a block's rows),
+in bf16 and f32: within ``CARD_TOL`` of the plain version and bitwise
+equal to itself on a rerun, the first two timed queued beside the bound,
+the plain version and ``torch._weight_int8pack_mm`` (or a logged line
+where the card's torch has no CUDA kernel for it), with its plan
+(``int8_wonly_plan``).  It holds
 ``segment_sum_sorted`` bitwise against its plain version (the first
 wide&deep batch's merge, 26,624 x 16 into 6,242 segments; 256 x 16 into
 200,000; integer gradients; n = 1; dim 13; the hard cases of the
@@ -934,11 +947,13 @@ def resnet_int8_gemms(dev):
 INT8_MMA_SYNC_GEMM_MS = 2.05
 
 
-def _int8_case(dev, g, label, M, K, N, cdt, dyn):
+def _int8_case(dev, g, label, M, K, N, cdt, dyn, timed=True):
     """One ``int8_matmul`` shape on the card: dynamic mode bitwise equal
-    to the plain version and to itself on a rerun, weight-only within
-    ``CARD_TOL``; the kernel, the plain version and (dynamic, M > 16)
-    ``torch._int_mm`` + scale timed queued.  Returns the numbers."""
+    to the plain version, weight-only within ``CARD_TOL``, both bitwise
+    equal to themselves on a rerun; the kernel, the plain version and
+    (dynamic, M > 16) ``torch._int_mm`` + scale or (weight-only)
+    ``torch._weight_int8pack_mm`` timed queued.  Returns the numbers (None
+    untimed)."""
     from paddle_tpu_torch.ops.kernels import int8_matmul as im
     from paddle_tpu_torch.ops.kernels.flash_attention import _sm_count
     # in the rows the int8 layers keep (weight_rows(): a 16-byte pitch,
@@ -982,7 +997,18 @@ def _int8_case(dev, g, label, M, K, N, cdt, dyn):
     else:
         err, share = check_close(f"int8_matmul {shape}", got, ref,
                                  im.CARD_TOL[cdt])
-        verdict = f"max_err {err:.3g}, {share:.3g} of its limit"
+        if not torch.equal(again, got):
+            fail(f"int8_matmul {shape} weight-only: a rerun is not bitwise "
+                 "equal (the partials must merge in split order)")
+        plan = im.int8_wonly_plan(M, N, K, cdt, _sm_count(x.device))
+        verdict = (f"max_err {err:.3g}, {share:.3g} of its limit, bitwise "
+                   f"on a rerun; plan {plan.route} {plan.block_m} rows of "
+                   f"x x 64, {plan.tiles_n * plan.tiles_m} tiles x "
+                   f"{plan.splits} splits of {plan.chunks_a_split} chunks, "
+                   f"grid {plan.grid}")
+    if not timed:
+        log(f"int8_matmul {shape} weight-only: {verdict}")
+        return None
     ms = queued_ms(run)
     plain = queued_ms(lambda: run("torch_ref"))
     out_b = M * N * got.element_size()
@@ -1043,12 +1069,53 @@ def int8_cases(dev):
             f"_int_mm + scale {lib:.4f} ms over the {RESNET_GEMMS - no_lib} "
             f"launches where it runs (M > 16), the kernel {kern_lib:.4f} "
             f"on those (kernel / library {kern_lib / lib:.3f})")
-    for label, M, K, N, cdt, dyn in (
-            ("conv1 7x7/2 b32", 401408, 147, 64, torch.float32, True),
-            ("fc b32 weight-only", 32, 2048, 1000, torch.bfloat16, False),
-            ("fc b32 weight-only", 32, 2048, 1000, torch.float32, False)):
-        _int8_case(dev, g, label, M, K, N, cdt, dyn)
+    _int8_case(dev, g, "conv1 7x7/2 b32", 401408, 147, 64, torch.float32,
+               True)
+    for cdt in (torch.bfloat16, torch.float32):
+        for M in RESNET_BATCHES:
+            _int8_case(dev, g, f"weight-only fc b{M}", M, 2048, 1000, cdt,
+                       False)
+        _int8_case(dev, g, "weight-only BERT-base FFN b128 s128",
+                   *WONLY_LARGE, cdt, False)
+        for label, M, K, N in WONLY_EDGES:
+            _int8_case(dev, g, f"weight-only {label}", M, K, N, cdt, False,
+                       timed=False)
     return row
+
+
+# weight-only int8_matmul beyond the classifier: BERT-base's FFN at batch
+# 128 x 128 (M, K, N), which a weight-only BERT would send; and split
+# edges (K not a multiple of the split, N not a multiple of 64, M past a
+# block's rows, K below a chunk), checked and not timed
+WONLY_LARGE = (16384, 768, 3072)
+WONLY_EDGES = (("K 2,100 in 7 splits", 32, 2100, 1000),
+               ("K 2,000, M 5", 5, 2000, 1000),
+               ("M 129 past a block", 129, 2048, 1000),
+               ("N 70, K 300", 33, 300, 70),
+               ("K 17", 1, 17, 5))
+
+
+def launch_floor(dev):
+    """An empty kernel (``csrc/empty_kernel.cu``) queued behind the spin
+    kernel as the port's kernels are: the least device time of a launch,
+    at 1 block of 32 threads and at 128 blocks of 128 (the weight-only
+    kernel's grid at the classifier).  Returns {grid: ms}."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    lib = _build.load("empty_kernel.cu")
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {}
+    for grid, threads in ((1, 32), (128, 128)):
+        def run():
+            _build.check(lib, lib.empty_launch(grid, threads, stream),
+                         "empty_launch")
+        res[grid] = queued_ms(run)
+        log(f"empty kernel ({grid} x {threads} threads) queued: "
+            f"{res[grid]:.4f} ms a launch: the fixed device cost of one "
+            "launch")
+    return res
 
 
 # ---------------------------------------------------------------------
@@ -1433,8 +1500,9 @@ def _cast_bf16(model):
 
 
 def resnet_models(dev):
-    """The bf16 ResNet-50 and its int8 conversion, both from the same f32
-    weights drawn from the seed (the bench draws both from one seed)."""
+    """The bf16 ResNet-50, its int8 conversion and its weight-only int8
+    conversion (``act_quant=None``), all from the same f32 weights drawn
+    from the seed (the bench draws them from one seed)."""
     from paddle_tpu_torch.quantization import convert_to_int8_inference
     from paddle_tpu_torch.vision.models import resnet50
 
@@ -1444,7 +1512,8 @@ def resnet_models(dev):
                         .manual_seed(SEED))
 
     return (_cast_bf16(make().eval()),
-            _cast_bf16(convert_to_int8_inference(make())))
+            _cast_bf16(convert_to_int8_inference(make())),
+            _cast_bf16(convert_to_int8_inference(make(), act_quant=None)))
 
 
 def _images(dev, b):
@@ -1453,26 +1522,32 @@ def _images(dev, b):
         torch.bfloat16)
 
 
-def resnet_serve(dev, bf16_model, int8_model):
-    """Phase 10: per-forward latency, images/s and peak memory of both
-    models at each batch; every int8 forward must launch the kernel
-    exactly RESNET_GEMMS times."""
+def resnet_serve(dev, bf16_model, int8_model, wonly_model):
+    """Phase 10: per-forward latency, images/s and peak memory of the
+    three models at each batch; every int8 forward must launch the kernel
+    exactly RESNET_GEMMS times in dynamic mode, every weight-only forward
+    exactly once in weight-only mode."""
     from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.ops.kernels.int8_matmul import MODE_LAUNCHES
     torch.backends.cudnn.benchmark = True     # the bf16 yardstick's best
-    forwards = 0
+    forwards = collections.Counter()
 
-    def int8_fwd(x):
-        nonlocal forwards
-        forwards += 1
-        return int8_model(x)
+    def counted(name, model):
+        def fwd(x):
+            forwards[name] += 1
+            return model(x)
+        return fwd
 
     res = []
     registry.reset_counts()                  # the main path starts here
+    modes0 = dict(MODE_LAUNCHES)
     with torch.no_grad():
         for b in RESNET_BATCHES:
             x = _images(dev, b)
             row = dict(batch=b)
-            for name, fn in (("int8", int8_fwd), ("bf16", bf16_model)):
+            for name, fn in (("int8", counted("int8", int8_model)),
+                             ("wonly", counted("wonly", wonly_model)),
+                             ("bf16", bf16_model)):
                 y = fn(x)
                 torch.cuda.synchronize()
                 if y.shape != (b, 1000) or not bool(
@@ -1490,23 +1565,30 @@ def resnet_serve(dev, bf16_model, int8_model):
                 row[f"{name}_device_busy_ms"] = profile_calls(
                     lambda: fn(x))[1]
             row["int8_speedup"] = row["bf16_ms"] / row["int8_ms"]
+            row["wonly_speedup"] = row["bf16_ms"] / row["wonly_ms"]
             res.append(row)
             log("resnet50 serve: " + json.dumps(row))
     counts = registry.launch_counts()        # ... and ends here
+    modes = {k: MODE_LAUNCHES[k] - modes0[k] for k in MODE_LAUNCHES}
     want = dict.fromkeys(counts, 0)
-    want["int8_matmul"] = RESNET_GEMMS * forwards
-    log(f"resnet50 serve: {forwards} int8 forwards, launches {counts} "
-        f"(want {want})")
-    if counts != want:
-        fail(f"resnet50 serve: launches {counts}, want {want}")
+    want["int8_matmul"] = RESNET_GEMMS * forwards["int8"] + forwards["wonly"]
+    want_modes = {"dynamic": RESNET_GEMMS * forwards["int8"],
+                  "weight_only": forwards["wonly"]}
+    log(f"resnet50 serve: {forwards['int8']} int8 and {forwards['wonly']} "
+        f"weight-only forwards, launches {counts} (want {want}), "
+        f"int8_matmul by mode {modes} (want {want_modes})")
+    if counts != want or modes != want_modes:
+        fail(f"resnet50 serve: launches {counts} by mode {modes}, want "
+             f"{want} by mode {want_modes}")
     torch.backends.cudnn.benchmark = False
     return counts, res
 
 
-def resnet_end_to_end(dev, bf16_model, int8_model):
+def resnet_end_to_end(dev, bf16_model, int8_model, wonly_model):
     """Phase 11: the int8 logits with the kernel and with its plain
-    version must be bitwise equal; top-1 agreement with the bf16 model
-    for information."""
+    version must be bitwise equal, the weight-only logits within
+    CARD_TOL[bf16] of the plain version's and bitwise on a rerun; top-1
+    agreement with the bf16 model for information."""
     from paddle_tpu_torch.quantization import set_kernel_mode
     x = _images(dev, 32)
     with torch.no_grad():
@@ -1530,8 +1612,35 @@ def resnet_end_to_end(dev, bf16_model, int8_model):
         d = (ker.float() - plain.float()).abs().max().item()
         fail(f"resnet50 end to end: int8 logits with the kernel differ "
              f"from the plain version's by up to {d:.4g}")
+    from paddle_tpu_torch.ops.kernels.int8_matmul import CARD_TOL
+    # deterministic convolutions: a rerun then differs only where the
+    # weight-only kernel would
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            wk = wonly_model(x)
+            again = wonly_model(x)
+            set_kernel_mode(wonly_model, "torch_ref")
+            try:
+                wplain = wonly_model(x)
+            finally:
+                set_kernel_mode(wonly_model, None)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err, share = check_close("resnet50 weight-only end to end (batch 32)",
+                             wk, wplain, CARD_TOL[torch.bfloat16])
+    if not torch.equal(again, wk):
+        fail("resnet50 weight-only end to end: a rerun's logits are not "
+             "bitwise equal")
+    wagree = (wk.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"resnet50 weight-only end to end (batch 32): logits with the "
+        f"kernel within CARD_TOL[bf16] of the plain version's (max |diff| "
+        f"{err:.4g}, {share:.3g} of the limit), bitwise on a rerun; top-1 "
+        f"agreement with the bf16 model {wagree:.4f}")
     return dict(bitwise_equal=equal, top1_agreement=agree,
-                rel_dist_to_bf16=dist)
+                rel_dist_to_bf16=dist, wonly_share_of_limit=share,
+                wonly_top1_agreement=wagree)
 
 
 def profile_calls(fn, calls: int = 3):
@@ -1553,8 +1662,9 @@ def profile_calls(fn, calls: int = 3):
     return wall_ms, busy_ms, kern
 
 
-def profile_resnet(dev, int8_model, forwards: int = 3):
-    """Phase 12: torch.profiler over batch-32 int8 forwards."""
+def profile_resnet(dev, int8_model, wonly_model, forwards: int = 3):
+    """Phase 12: torch.profiler over batch-32 int8 forwards, then over
+    batch-32 weight-only forwards."""
     x = _images(dev, 32)
     with torch.no_grad():
         wall_ms, busy_ms, kern = profile_calls(lambda: int8_model(x),
@@ -1572,6 +1682,25 @@ def profile_resnet(dev, int8_model, forwards: int = 3):
         f"{INT8_MMA_SYNC_GEMM_MS})")
     check_busy("profile resnet50 (phase 12)", busy_ms, wall_ms)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / forwards:8.3f}"
+            f" ms/forward  x{e.count // forwards}")
+    with torch.no_grad():
+        wall_ms, busy_ms, kern = profile_calls(lambda: wonly_model(x),
+                                               forwards)
+    wk = [e for e in kern if "int8_wonly" in e.key]
+    wk_ms = sum(e.self_device_time_total for e in wk) / 1e3 / forwards
+    launches = sum(e.count for e in wk) // forwards
+    log(f"profile resnet50 weight-only batch 32: wall {wall_ms:.2f} "
+        f"ms/forward, device busy {busy_ms:.2f} ms/forward, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kern) // forwards} kernels/forward; the "
+        f"weight-only kernel (int8_wonly) {wk_ms:.4f} device ms/forward in "
+        f"{launches} launch(es)")
+    check_busy("profile resnet50 weight-only (phase 12)", busy_ms, wall_ms)
+    if launches != 1:
+        fail(f"profile resnet50 weight-only: {launches} int8_wonly launches "
+             "a forward in the trace, want 1")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / forwards:8.3f}"
             f" ms/forward  x{e.count // forwards}")
 
@@ -3489,6 +3618,11 @@ def main() -> int:
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
+    # its weight-only mode keeps mma.sync fragments or FMA tiles in
+    # registers: ten entries (8 to 128 rows of x; bf16 or f32)
+    wo = check_ptxas("int8_matmul.cu", "int8_wonly", entries=10)
+    for name, (regs, _, _) in sorted(wo.items()):
+        log(f"  int8_wonly ({name[-36:]}): {regs} registers, no spill")
     # kernel 4 keeps its scores and q slices in registers: six entries
     # (head_dim 64, 128, 256; f32 or bf16 queries)
     kv = check_ptxas("int8_kv_attention.cu", "int8_kv_attn_sm90", entries=6)
@@ -3528,6 +3662,11 @@ def main() -> int:
     rows.update(sorted_cases(dev, wd_batches))
     rows.update(opt_cases(dev))
     rows["conv_bn_stats"] = conv_bn_cases(dev)
+    floor = launch_floor(dev)
+    for name, r in rows.items():
+        log(f"{name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, "
+            f"an empty kernel's launch {floor[1]:.4f} (1 block) / "
+            f"{floor[128]:.4f} (128 blocks) ms")
 
     # 4. serve the 7B slice
     t0 = time.perf_counter()
@@ -3563,16 +3702,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. serve int8 ResNet-50
-    bf16_model, int8_model = resnet_models(dev)
-    resnet_counts, _ = resnet_serve(dev, bf16_model, int8_model)
+    # 10. serve int8 ResNet-50, dynamic and weight-only
+    bf16_model, int8_model, wonly_model = resnet_models(dev)
+    resnet_counts, _ = resnet_serve(dev, bf16_model, int8_model, wonly_model)
 
     # 11. the int8 logits against the plain version's
-    resnet_end_to_end(dev, bf16_model, int8_model)
+    resnet_end_to_end(dev, bf16_model, int8_model, wonly_model)
 
     # 12. where an int8 forward's time goes
-    profile_resnet(dev, int8_model)
-    del bf16_model, int8_model
+    profile_resnet(dev, int8_model, wonly_model)
+    del bf16_model, int8_model, wonly_model
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -32,6 +32,8 @@ from .sampler import BatchSampler
 __all__ = ["DataLoader", "default_collate_fn", "get_worker_info"]
 
 _worker_info = threading.local()
+# how long closing an iterator waits for its prefetch thread to end
+_FEEDER_JOIN_S = 30.0
 
 
 def get_worker_info():
@@ -274,7 +276,10 @@ class DataLoader:
         # prefetch pipeline (double buffering). The feeder checks
         # ``abandoned`` around every blocking put so an early `break` in the
         # consumer releases the thread (and closes the worker pool) instead
-        # of leaking it.
+        # of leaking it; closing the iterator then waits for the feeder to
+        # end (a daemon thread still inside torch when the interpreter
+        # exits aborts the process: "terminate called without an active
+        # exception").
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_factor)
         stop = object()
         abandoned = threading.Event()
@@ -338,6 +343,9 @@ class DataLoader:
                     q.get_nowait()
             except queue.Empty:
                 pass
+            # the feeder ends after the batch it is making; bounded, for a
+            # dataset whose next item never comes
+            t.join(timeout=_FEEDER_JOIN_S)
 
     # reference-compat constructors
     @staticmethod

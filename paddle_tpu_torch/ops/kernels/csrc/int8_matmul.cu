@@ -51,15 +51,40 @@
 // 128 columns a tile, 108 and 106 with 64, no spill; up to 230,528 bytes
 // of dynamic shared memory.
 //
-// Weight-only mode dequantises the int8 weight tile into shared memory as
-// the reference's compute dtype holds it and never writes it to device
-// memory: for bf16, bf16(q) * bf16(scale) (one rounding, as XLA gives)
-// feeding mma.sync m16n8k16 bf16 -> f32 on a 64 x 64 tile per block; for
-// f32, f32(q) * scale feeding a tiled FMA kernel (4 x 4 outputs a
-// thread; the tensor cores have no exact f32 product).  Both sum in f32
-// and round the output to the compute dtype.  Plain element loads, no
-// pipelining: this mode is not on the int8 ResNet path; it serves
-// Int8InferenceLinear(act_quant=None).
+// Weight-only mode (`int8_wonly`, entry `int8_matmul_weight_only`): x is
+// float, the weight int8; out = x @ cdt(cdt(q) * cdt(scale))^T with f32
+// sums, rounded once to the compute dtype, as the reference.  At the
+// weight-only ResNet-50's classifier (M = batch 1-128, K = 2,048, N =
+// 1,000) the 2 MB of int8 weight bounds it (bytes; f32 at M = 128 is
+// bound by its FMAs), and one 64-row tile of N alone leaves 16 blocks for
+// 132 SMs.  What the design does about it:
+// - a plan from Python (`int8_wonly_plan`) splits K into whole 64-wide
+//   chunks across the blocks of a cluster (at most 8), so that tiles x
+//   splits fill the card (16 x 8 = 128 blocks at the classifier); a block
+//   is 64 weight rows by 8-128 rows of x (more rows of x: more tiles);
+// - each block streams its weight rows (16-byte pieces) and its rows of x
+//   through a cp.async ring (8 chunks deep at up to 16 rows of x, else 4),
+//   zero-filling past M, N and K;
+// - bf16: the weight is dequantised in registers straight into mma.sync
+//   m16n8k16 A fragments (the weight as A, x as B: out^T = W x^T, so N
+//   takes the 16-row side and M the 8-wide one), K permuted alike in both
+//   operands so that each thread reads 16 consecutive weight bytes: no
+//   dequantised weight reaches shared or device memory;
+// - f32: each chunk's weight is dequantised once into shared memory and
+//   summed by FMA (up to 16 rows of x: dequantised in registers as bf16's
+//   fragments, each quad of threads adding its four sums at the end; 32 to
+//   128: dequantised once into shared memory, 8 x 2-8 outputs a thread, k
+//   in order; no TF32: the registered tolerance is rtol 1e-5);
+// - each block leaves its f32 partial tile in shared memory, the cluster
+//   meets, and each block adds a slice of the tile across the cluster's
+//   partials (distributed shared memory) in split order and writes it:
+//   bitwise the same on a rerun, no float atomics and no workspace in
+//   device memory (a ticket and one merging block took 5x as long at 128
+//   rows of x and 8 splits on an H100: that block read the partials
+//   alone).
+// ptxas -v (nvcc 12.9, sm_90a): 64-149 registers (bf16, 8-128 rows of x)
+// and 80-168 (f32), no spill; up to 103,424 bytes of dynamic shared
+// memory on the plan's blocks.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -366,124 +391,515 @@ int cached_map_2d(EncodeTiledFn fn, CUtensorMap* map,
   return rc;
 }
 
-// Weight-only mode: x [M, K] (row pitch ldx), w [N, K] int8 (row pitch
-// ldw), scale [N] f32, out [M, N] in x's dtype.  A 64 x 64 output tile a
-// block, K in steps of 32.
-constexpr int kWT = 64, kWK = 32;
 
-// bf16: 4 warps, each a 32 x 32 tile of 2 x 4 mma tiles of 16 x 8; x and
-// the dequantised weights as bf16 in shared memory, rows padded to 40
-// (80 bytes) so a warp's 32-bit fragment loads hit 32 banks.
-__global__ void __launch_bounds__(128)
-int8_mm_wonly_bf16(const __nv_bfloat16* __restrict__ x, long long ldx,
-                   const int8_t* __restrict__ w, long long ldw,
-                   const float* __restrict__ scale,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  constexpr int kP = kWK + 8;
-  __shared__ __align__(16) __nv_bfloat16 xs[kWT][kP];
-  __shared__ __align__(16) __nv_bfloat16 ws[kWT][kP];
-  const int m0 = blockIdx.x * kWT, n0 = blockIdx.y * kWT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
+// ---------------------------------------------------------------------
+// weight-only mode: K split across the blocks of a cluster, int8 rows by
+// cp.async, dequantised in registers, partials merged in split order
+// through distributed shared memory
+// ---------------------------------------------------------------------
+
+namespace wonly {
+
+constexpr int kBN = 64;             // weight rows (output columns) a block
+constexpr int kKC = 64;             // K a chunk
+constexpr int kThreads = 128;       // four warps
+constexpr int kWBytes = kBN * kKC;  // a chunk of int8 weight rows (pitch 64)
+constexpr int kCP = kBN + 4;        // f32 pitch of the epilogue's tile and
+                                    // of the f32 route's dequantised chunk
+constexpr int kMaxSplits = 8;       // a portable cluster
+constexpr int kSmemLimit = 232448;
+
+// x's pitch in shared memory: a chunk's row and 16 bytes, so that eight
+// rows' 16-byte pieces at one k fall on distinct banks (f32: kCP floats)
+template <typename T>
+__host__ __device__ constexpr int x_pitch() {
+  return kKC * (int)sizeof(T) + 16;
+}
+
+// chunks in the cp.async ring: 8 for blocks of at most 16 rows of x (a
+// split's whole slab in flight at the classifier), else 4
+__host__ __device__ constexpr int stages_of(int bm) { return bm <= 16 ? 8 : 4; }
+
+// The dynamic shared memory of a block of `bm` rows of x (the Python plan
+// computes the same): the ring of weight and x chunks and, for f32 at 32
+// rows of x or more, the dequantised weight chunk.  The epilogue's f32
+// tile [bm][kCP] reuses the ring.
+template <typename T>
+__host__ __device__ constexpr int smem_bytes(int bm) {
+  return stages_of(bm) * (kWBytes + bm * x_pitch<T>()) +
+         (sizeof(T) == 4 && bm > 16 ? kBN * kCP * 4 : 0);
+}
+
+struct Params {
+  const void* x;        // [M, K] f32 or bf16, row pitch ldx
+  long long ldx;
+  const int8_t* w;      // [N, K] int8, row pitch ldw
+  long long ldw;
+  const float* scale;   // [N] f32
+  void* out;            // [M, N] contiguous, x's dtype
+  int M, N, K;
+  int tiles_n, splits, cps, chunks;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  // `bytes` < 16 fills the rest of the 16 with zeros (0: reads nothing)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// every thread of every block of the cluster; orders shared-memory writes
+// before the barrier with reads after it, cluster-wide
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of this block's shared `addr` in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// Byte i of `u` (a word of int8 codes xor 0x80808080) as an f32 code,
+// exactly: the float with bits 0x4B0000uu is 2^23 + uu, uu = q + 128
+__device__ __forceinline__ float code(uint32_t u, int i) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+         8388736.f;
+}
+
+// Start chunk c's loads into ring slot `slot`: the weight's 64 rows x 4
+// pieces of 16 bytes (rows past N, and pieces at or past K, zero-filled:
+// a piece that starts before K ends within the row's pitch, a multiple of
+// 16 at least K) and x's bm rows x 64 values (rows past M and values past
+// K zero-filled, so the weight's bytes there multiply zeros)
+template <typename T, int BM>
+__device__ __forceinline__ void load_chunk(const Params& p, uint32_t base,
+                                           int slot, int n0, int m0, int c,
+                                           int tid) {
+  constexpr int kE = 16 / (int)sizeof(T);   // values a piece
+  constexpr int kPR = kKC / kE;             // pieces a row of x
+  constexpr int S = stages_of(BM);
+  const uint32_t sw = base + slot * kWBytes;
+  const uint32_t sx = base + S * kWBytes + slot * BM * x_pitch<T>();
+  const int k0 = c * kKC;
+  for (int e = tid; e < kBN * 4; e += kThreads) {
+    const int r = e >> 2, q = e & 3;
+    const int n = n0 + r, k = k0 + 16 * q;
+    const bool ok = n < p.N && k < p.K;
+    cp_async16(sw + r * kKC + 16 * q,
+               p.w + (ok ? (long long)n * p.ldw + k : 0), ok ? 16 : 0);
+  }
+  const T* const x = static_cast<const T*>(p.x);
+  for (int e = tid; e < BM * kPR; e += kThreads) {
+    const int r = e / kPR, q = e % kPR;
+    const int m = m0 + r, k = k0 + q * kE;
+    const int valid = m < p.M ? max(0, min(p.K - k, kE)) : 0;
+    cp_async16(sx + r * x_pitch<T>() + 16 * q,
+               x + (valid ? (long long)m * p.ldx + k : 0),
+               valid * (int)sizeof(T));
+  }
+}
+
+// The ring: before chunk i is used, every thread waits for its own copies
+// of it and the block meets (so all copies have landed and the slot that
+// the next load refills was read by everyone); then chunk i + S - 1 is
+// started.  One commit group an iteration, empty or not.
+template <typename T, int BM>
+__device__ __forceinline__ void ring_step(const Params& p, uint32_t base,
+                                          int n0, int m0, int c0, int nc,
+                                          int i) {
+  constexpr int S = stages_of(BM);
+  cp_async_wait<S - 2>();
+  __syncthreads();
+  if (i + S - 1 < nc)
+    load_chunk<T, BM>(p, base, (i + S - 1) % S, n0, m0, c0 + i + S - 1,
+                      threadIdx.x);
+  cp_async_commit();
+}
+
+// bf16: each warp multiplies 16 weight rows by the block's bm rows of x
+// with mma.sync m16n8k16 (weight as A, x as B: out^T = W x^T).  Both
+// operands come from registers, so K may be permuted as long as A and B
+// agree: the thread of quad index t loads the 16 consecutive bytes
+// 16t..16t+15 of a row's 64-byte chunk, and in k16 step j its fragment
+// slots (columns 2t, 2t+1, 2t+8, 2t+9) take bytes 4j..4j+3 of them; its
+// B fragment takes x at the same 16t + 4j + 0..3.  Sums run in f32 as the
+// reference's.
+template <int BM>
+__device__ __forceinline__ void mainloop_bf16(const Params& p,
+                                              unsigned char* smem, int n0,
+                                              int m0, int c0, int nc,
+                                              float (&acc)[BM / 8][4]) {
+  constexpr int S = stages_of(BM);
+  constexpr int XP = x_pitch<__nv_bfloat16>();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kWK) {
-    for (int e = threadIdx.x; e < kWT * kWK; e += 128) {
-      const int r = e / kWK, k = e % kWK;
-      const int gm = m0 + r, gn = n0 + r, gk = k0 + k;
-      xs[r][k] = (gm < M && gk < K) ? x[(long long)gm * ldx + gk] : zero;
-      ws[r][k] = (gn < N && gk < K)
-          ? __float2bfloat16_rn(
-                (float)w[(long long)gn * ldw + gk] *
-                __bfloat162float(__float2bfloat16_rn(scale[gn])))
-          : zero;
-    }
-    __syncthreads();
+  const int ra = 16 * warp + g;   // local weight rows ra and ra + 8
+  const uint32_t base = sm90::smem_u32(smem);
+  // the reference's weight: bf16(bf16(q) * bf16(scale)); f32(q) * bf16
+  // scale is exact in f32, so one rounding to bf16 gives it
+  float s[2];
 #pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      uint32_t af[2][4], bf[4][2];
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + ra + 8 * h;
+    s[h] = n < p.N ? __bfloat162float(__float2bfloat16_rn(__ldg(p.scale + n)))
+                   : 0.f;
+  }
+  for (int i = 0; i < nc; ++i) {
+    ring_step<__nv_bfloat16, BM>(p, base, n0, m0, c0, nc, i);
+    const int slot = i % S;
+    const unsigned char* const ws = smem + slot * kWBytes;
+    uint32_t a[4][4];   // [k16 step][fragment register]
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm * 32 + i * 16 + g;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 2 * t]);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 2 * t]);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 2 * t + 8]);
-        af[i][3] =
-            *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 2 * t + 8]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          ws + (ra + 8 * h) * kKC + 16 * t);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + g;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + 2 * t]);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + 2 * t + 8]);
+        const uint32_t u = words[j] ^ 0x80808080u;
+        a[j][h] = sm90::pack_bf16x2(code(u, 0) * s[h], code(u, 1) * s[h]);
+        a[j][2 + h] = sm90::pack_bf16x2(code(u, 2) * s[h],
+                                        code(u, 3) * s[h]);
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
     }
-    __syncthreads();
-  }
+    // x row 8b + g, values 16t + 8h .. 16t + 8h + 7: one 16-byte read
+    // feeds steps 2h and 2h + 1, and the products of one half-chunk run
+    // over every accumulator before the next half's
+    const unsigned char* const xs =
+        smem + S * kWBytes + slot * BM * XP + g * XP + 32 * t;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + i * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + j * 8 + t * 2 + (e & 1);
-        if (row < M && col < N)
-          out[(long long)row * N + col] = __float2bfloat16_rn(acc[i][j][e]);
+      for (int b = 0; b < BM / 8; ++b) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            xs + 8 * b * XP + 16 * h);
+        const uint32_t b0[2] = {v.x, v.y}, b1[2] = {v.z, v.w};
+        mma_bf16(acc[b], a[2 * h], b0);
+        mma_bf16(acc[b], a[2 * h + 1], b1);
       }
+  }
 }
 
-// f32: 16 x 16 threads, 4 x 4 outputs each, FMA.
-__global__ void __launch_bounds__(256)
-int8_mm_wonly_f32(const float* __restrict__ x, long long ldx,
-                  const int8_t* __restrict__ w, long long ldw,
-                  const float* __restrict__ scale, float* __restrict__ out,
-                  int M, int N, int K) {
-  __shared__ float xs[kWK][kWT + 1];
-  __shared__ float ws[kWK][kWT + 1];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.x * kWT, n0 = blockIdx.y * kWT;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kWK) {
-    for (int e = threadIdx.x; e < kWT * kWK; e += 256) {
-      const int r = e / kWK, k = e % kWK;
-      const int gm = m0 + r, gn = n0 + r, gk = k0 + k;
-      xs[k][r] = (gm < M && gk < K) ? x[(long long)gm * ldx + gk] : 0.f;
-      ws[k][r] = (gn < N && gk < K)
-                     ? (float)w[(long long)gn * ldw + gk] * scale[gn]
-                     : 0.f;
-    }
-    __syncthreads();
+// f32 at up to 16 rows of x: as bf16, each quad of threads reads two
+// weight rows' 64-byte chunk 16 bytes a thread and dequantises it in
+// registers (f32(q) * scale, the reference's f32 product); each thread
+// sums its 16 values of k a chunk against every row of x with FMA, and
+// the quad adds its four sums once, at the end (no tensor cores: they
+// have no f32 product)
+template <int BM>
+__device__ __forceinline__ void mainloop_f32q(const Params& p,
+                                              unsigned char* smem, int n0,
+                                              int m0, int c0, int nc,
+                                              float (&acc)[2][BM]) {
+  constexpr int S = stages_of(BM);
+  constexpr int MB = 4;                 // rows of x a step
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g;   // local weight rows ra and ra + 8
+  const uint32_t base = sm90::smem_u32(smem);
+  float s[2];
 #pragma unroll
-    for (int k = 0; k < kWK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + ra + 8 * h;
+    s[h] = n < p.N ? __ldg(p.scale + n) : 0.f;
   }
+  for (int i = 0; i < nc; ++i) {
+    ring_step<float, BM>(p, base, n0, m0, c0, nc, i);
+    const int slot = i % S;
+    float wv[2][16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
+    for (int h = 0; h < 2; ++h) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          smem + slot * kWBytes + (ra + 8 * h) * kKC + 16 * t);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < N) out[(long long)row * N + col] = acc[i][j];
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t u = words[j] ^ 0x80808080u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wv[h][4 * j + c] = code(u, c) * s[h];
+      }
+    }
+    const float* const xs = reinterpret_cast<const float*>(
+        smem + S * kWBytes + slot * BM * x_pitch<float>()) + 16 * t;
+#pragma unroll
+    for (int m0s = 0; m0s < BM; m0s += MB) {
+      float xv[MB][16];
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<float4*>(&xv[mm][4 * c]) =
+              *reinterpret_cast<const float4*>(xs + (m0s + mm) * kCP +
+                                               4 * c);
+      // k in order for each sum; consecutive FMAs on distinct sums
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int mm = 0; mm < MB; ++mm)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            acc[h][m0s + mm] = fmaf(wv[h][c], xv[mm][c], acc[h][m0s + mm]);
     }
   }
 }
+
+// f32 at 32 to 128 rows of x: the chunk's weight is dequantised once
+// into shared memory (f32(q) * scale, the reference's f32 product), then
+// each thread sums a tile of RN weight rows x RM rows of x with FMA, k in
+// order
+template <int BM>
+struct FmaTile {
+  static constexpr int TM = BM < 16 ? BM : 16;   // threads along x's rows
+  static constexpr int TN = kThreads / TM;       // threads along weight rows
+  static constexpr int RN = kBN / TN;
+  static constexpr int RM = BM / TM;
+};
+
+template <int BM>
+__device__ __forceinline__ void mainloop_f32(
+    const Params& p, unsigned char* smem, int n0, int m0, int c0, int nc,
+    float (&acc)[FmaTile<BM>::RN][FmaTile<BM>::RM]) {
+  using F = FmaTile<BM>;
+  constexpr int S = stages_of(BM);
+  const int tid = threadIdx.x;
+  const int tm = tid % F::TM, tn = tid / F::TM;
+  const uint32_t base = sm90::smem_u32(smem);
+  float* const wf = reinterpret_cast<float*>(
+      smem + S * (kWBytes + BM * x_pitch<float>()));
+  // the dequant pass: word tid + 128u of a chunk is row tid / 16 + 8u
+  float s[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int n = n0 + (tid >> 4) + 8 * u;
+    s[u] = n < p.N ? __ldg(p.scale + n) : 0.f;
+  }
+  for (int i = 0; i < nc; ++i) {
+    ring_step<float, BM>(p, base, n0, m0, c0, nc, i);
+    const int slot = i % S;
+    const unsigned char* const ws = smem + slot * kWBytes;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = tid + kThreads * u, r = idx >> 4, q = idx & 15;
+      const uint32_t v =
+          *reinterpret_cast<const uint32_t*>(ws + r * kKC + 4 * q) ^
+          0x80808080u;
+      *reinterpret_cast<float4*>(wf + r * kCP + 4 * q) =
+          make_float4(code(v, 0) * s[u], code(v, 1) * s[u],
+                      code(v, 2) * s[u], code(v, 3) * s[u]);
+    }
+    __syncthreads();
+    const float* const xs = reinterpret_cast<const float*>(
+        smem + S * kWBytes + slot * BM * x_pitch<float>());
+#pragma unroll 2
+    for (int q = 0; q < kKC / 4; ++q) {
+      float4 wv[F::RN], xv[F::RM];
+#pragma unroll
+      for (int a = 0; a < F::RN; ++a)
+        wv[a] = *reinterpret_cast<const float4*>(
+            wf + (tn + F::TN * a) * kCP + 4 * q);
+#pragma unroll
+      for (int b = 0; b < F::RM; ++b)
+        xv[b] = *reinterpret_cast<const float4*>(
+            xs + (tm + F::TM * b) * kCP + 4 * q);
+      // k in order for each sum; consecutive FMAs on distinct sums
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int a = 0; a < F::RN; ++a)
+#pragma unroll
+          for (int b = 0; b < F::RM; ++b)
+            acc[a][b] = fmaf(reinterpret_cast<const float*>(&wv[a])[kk],
+                             reinterpret_cast<const float*>(&xv[b])[kk],
+                             acc[a][b]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// Block b: split b % splits (its rank in a cluster of `splits` blocks),
+// which sums chunks [split * cps, split * cps + cps) of K, of tile b /
+// splits: weight rows 64 * (tile % tiles_n), rows of x BM * (tile /
+// tiles_n).  Each block leaves its f32 partial tile in its shared memory;
+// after the cluster meets, block r adds every r-th group of four values
+// across the cluster's partials in split order and writes them (bitwise
+// the same on a rerun), and the cluster meets again before any block
+// leaves.
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+int8_wonly(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x % p.splits, tile = blockIdx.x / p.splits;
+  const int n0 = (tile % p.tiles_n) * kBN, m0 = (tile / p.tiles_n) * BM;
+  const int c0 = split * p.cps;
+  const int nc = min(p.cps, p.chunks - c0);
+  const uint32_t base = sm90::smem_u32(smem_w);
+
+  for (int s = 0; s < stages_of(BM) - 1; ++s) {
+    if (s < nc) load_chunk<T, BM>(p, base, s, n0, m0, c0 + s, tid);
+    cp_async_commit();
+  }
+  float* const C = reinterpret_cast<float*>(smem_w);   // [BM][kCP]
+  if constexpr (sizeof(T) == 2) {
+    float acc[BM / 8][4] = {};
+    mainloop_bf16<BM>(p, smem_w, n0, m0, c0, nc, acc);
+    cp_async_wait<0>();
+    __syncthreads();
+    // accumulator b: rows ra (c0, c1) and ra + 8 (c2, c3), x rows 8b + 2t
+    // and 8b + 2t + 1
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int ra = 16 * (tid >> 5) + g;
+#pragma unroll
+    for (int b = 0; b < BM / 8; ++b) {
+      const int m = 8 * b + 2 * t;
+      C[m * kCP + ra] = acc[b][0];
+      C[(m + 1) * kCP + ra] = acc[b][1];
+      C[m * kCP + ra + 8] = acc[b][2];
+      C[(m + 1) * kCP + ra + 8] = acc[b][3];
+    }
+  } else if constexpr (BM <= 16) {
+    float acc[2][BM] = {};
+    mainloop_f32q<BM>(p, smem_w, n0, m0, c0, nc, acc);
+    cp_async_wait<0>();
+    __syncthreads();
+    // the quad's four sums of each (row, x row), (t0 + t1) + (t2 + t3) in
+    // every lane; lane t writes the x rows m with m % 4 == t
+    const int lane = tid & 31, t = lane & 3;
+    const int ra = 16 * (tid >> 5) + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        float v = acc[h][m];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if ((m & 3) == t) C[m * kCP + ra + 8 * h] = v;
+      }
+  } else {
+    using F = FmaTile<BM>;
+    float acc[F::RN][F::RM] = {};
+    mainloop_f32<BM>(p, smem_w, n0, m0, c0, nc, acc);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int tm = tid % F::TM, tn = tid / F::TM;
+#pragma unroll
+    for (int a = 0; a < F::RN; ++a)
+#pragma unroll
+      for (int b = 0; b < F::RM; ++b)
+        C[(tm + F::TM * b) * kCP + tn + F::TN * a] = acc[a][b];
+  }
+  if (p.splits > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  const int mv = min(BM, p.M - m0);   // rows of x that exist
+  T* const out = static_cast<T*>(p.out);
+  // each block's partial in the cluster's shared-memory window (its own
+  // at its own address: with one split there is no cluster)
+  uint32_t src[kMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    src[s] = s == split ? base : s < p.splits ? map_rank(base, s) : 0u;
+  for (int gi = split * kThreads + tid; gi < mv * (kBN / 4);
+       gi += p.splits * kThreads) {
+    const int m = gi / (kBN / 4), q = gi % (kBN / 4);
+    const uint32_t off = (m * kCP + 4 * q) * 4;
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < p.splits) v[s] = ld_cluster(src[s] + off);
+    float4 r = v[0];
+#pragma unroll
+    for (int s = 1; s < kMaxSplits; ++s)
+      if (s < p.splits) {
+        r.x += v[s].x;
+        r.y += v[s].y;
+        r.z += v[s].z;
+        r.w += v[s].w;
+      }
+    const float rv[4] = {r.x, r.y, r.z, r.w};
+    T* const o = out + (long long)(m0 + m) * p.N + n0 + 4 * q;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n0 + 4 * q + c < p.N) store_out(o + c, rv[c]);
+  }
+  // no block's partial may go before every block has read it
+  if (p.splits > 1) cluster_sync();
+}
+
+// The kernel's shared-memory limit is raised once a device (as the
+// dynamic mode's launch_dyn does); several splits launch as clusters of
+// `splits` blocks
+template <typename T, int BM>
+cudaError_t launch(const Params& p, int grid, int smem, cudaStream_t stream) {
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(int8_wonly<T, BM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, int8_wonly<T, BM>, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bm(int bm, const Params& p, int grid, int smem,
+                      cudaStream_t stream) {
+  switch (bm) {
+    case 8: return launch<T, 8>(p, grid, smem, stream);
+    case 16: return launch<T, 16>(p, grid, smem, stream);
+    case 32: return launch<T, 32>(p, grid, smem, stream);
+    case 64: return launch<T, 64>(p, grid, smem, stream);
+    default: return launch<T, 128>(p, grid, smem, stream);
+  }
+}
+
+}  // namespace wonly
 
 }  // namespace
 
@@ -569,28 +985,44 @@ int int8_matmul_dynamic(const void* x, long long lda, const void* w,
   return (int)err;
 }
 
-// Weight-only mode.  x: [M, K] f32 or bf16 (is_bf16) with row pitch ldx;
-// w: [N, K] int8 with row pitch ldw; scale: [N] f32 (w_scale); out: [M, N]
-// contiguous in x's dtype.
+// Weight-only mode.  x: [M, K] f32 or bf16 (is_bf16) with row pitch ldx
+// (any for M = 1), 16-byte aligned, rows a multiple of 16 bytes apart; w:
+// [N, K] int8 with row pitch ldw (a multiple of 16, 16-byte aligned);
+// scale: [N] f32 (w_scale); out: [M, N] contiguous in x's dtype.  `plan`:
+// block_m, splits, chunks a split, stages, threads, shared-memory bytes
+// and grid, as `int8_wonly_plan` computed them; the entry refuses a plan
+// it cannot run.  Returns the CUDA error of the launch (0 on success) or
+// one of this library's codes.
 int int8_matmul_weight_only(const void* x, long long ldx, const void* w,
                             long long ldw, const void* scale, void* out,
-                            int M, int N, int K, int is_bf16, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldw < K ||
-      (N + kWT - 1) / kWT > 65535)
+                            int M, int N, int K, int is_bf16,
+                            const int* plan, void* stream) {
+  using namespace wonly;
+  const int elt = is_bf16 ? 2 : 4;
+  if (M <= 0 || N <= 0 || K <= 0 || ldw < K || ldw % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (M > 1 && (ldx < K || (ldx * elt) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* sp = static_cast<const float*>(scale);
+  const int bm = plan[0], splits = plan[1], cps = plan[2];
+  if (bm != 8 && bm != 16 && bm != 32 && bm != 64 && bm != 128)
+    return kErrPlan;
+  const int chunks = (K + kKC - 1) / kKC;
+  const long long tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + bm - 1) / bm;
+  const int smem = is_bf16 ? smem_bytes<__nv_bfloat16>(bm)
+                           : smem_bytes<float>(bm);
+  if (cps < 1 || splits < 1 || splits > kMaxSplits ||
+      splits != (chunks + cps - 1) / cps || plan[3] != stages_of(bm) ||
+      plan[4] != kThreads || plan[5] != smem ||
+      tiles_n * tiles_m * splits > INT_MAX ||
+      plan[6] != tiles_n * tiles_m * splits)
+    return kErrPlan;
+  const Params p{x, M > 1 ? ldx : K, static_cast<const int8_t*>(w), ldw,
+                 static_cast<const float*>(scale), out, M, N, K,
+                 (int)tiles_n, splits, cps, chunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((M + kWT - 1) / kWT, (N + kWT - 1) / kWT);
-  if (is_bf16)
-    int8_mm_wonly_bf16<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), ldx, wp, ldw, sp,
-        static_cast<__nv_bfloat16*>(out), M, N, K);
-  else
-    int8_mm_wonly_f32<<<grid, 256, 0, s>>>(static_cast<const float*>(x), ldx,
-                                           wp, ldw, sp,
-                                           static_cast<float*>(out), M, N, K);
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch_bm<__nv_bfloat16>(bm, p, plan[6], smem, s)
+                       : launch_bm<float>(bm, p, plan[6], smem, s));
 }
 
 }  // extern "C"

@@ -13,7 +13,9 @@ Counterpart of ``paddle_tpu/ops/pallas/int8_matmul.py`` (kernel 6,
 - **weight-only** (``x_scale=None``): ``x`` is float; the int8 weight is
   dequantised as ``compute_dtype(q) * compute_dtype(w_scale)`` and the
   product summed in f32.  Held to the registered rtol (2e-2 at bf16,
-  1e-5 at f32).
+  1e-5 at f32).  The kernel splits K across the blocks of a cluster on a plan
+  from :func:`int8_wonly_plan` and adds the f32 partials in split order
+  in the same launch: :func:`int8_matmul_wonly_split_ref` sums in that order.
 
 The weight operand is ``w_nk`` [N, K]: the transpose of the reference's
 [K, N] ``qw``, K contiguous, which is the layout the tensor cores take
@@ -30,7 +32,8 @@ copies are, and so is ``weight_rows()`` of the int8 layers, which
 builds them once.  Any M, N and K (TMA fills the K tail and the M and N
 edges with zeros); leading batch dims of ``x`` are collapsed to rows.
 Dynamic mode launches on a plan from :func:`int8_mm_plan`: tile, ring
-depth and grid, from the card's SM count.
+depth and grid, from the card's SM count.  Weight-only mode also needs x's
+rows on 16 bytes; the wrapper copies x into such rows where they are not.
 
 The plain version multiplies the int8 operands in f64 (exact: every
 partial sum is an integer below 2^53) and casts to int32; f32 would not
@@ -49,7 +52,8 @@ from . import _build, registry
 from .flash_attention import H100_SMS, _sm_count
 
 __all__ = ["int8_matmul", "aligned_rows", "kernel_rows", "CARD_TOL",
-           "int8_mm_plan", "Int8MmPlan"]
+           "int8_mm_plan", "Int8MmPlan", "int8_wonly_plan", "Int8WonlyPlan",
+           "int8_matmul_wonly_split_ref", "MODE_LAUNCHES"]
 
 _SOURCE = "int8_matmul.cu"
 # Weight-only mode on the card against the plain version, as (atol, rtol,
@@ -153,12 +157,141 @@ def int8_mm_plan(M: int, N: int, K: int, sm_count: int = H100_SMS,
         grid=min(tiles, sm_count), tma_store=(N * out_bytes) % 16 == 0)
 
 
+# The weight-only kernel's constants (csrc/int8_matmul.cu, namespace
+# wonly): weight rows a block, K a chunk, threads, the rows of x a block
+# may take, the most splits (a portable cluster), and the f32 pitch of its
+# dequantised chunk
+_WBN, _WKC, _WTHREADS, _WMAX_SPLITS = 64, 64, 128, 8
+_WBMS = (8, 16, 32, 64, 128)
+_WCP = _WBN + 4
+
+
+def _wonly_stages(block_m: int) -> int:
+    """Chunks in the kernel's cp.async ring."""
+    return 8 if block_m <= 16 else 4
+
+
+def _wonly_smem(block_m: int, elt: int) -> int:
+    """The weight-only kernel's dynamic shared memory (the C entry checks
+    the same): the ring of weight and x chunks (x rows padded by 16
+    bytes) and, for f32 at 32 rows of x or more, the dequantised chunk."""
+    return (_wonly_stages(block_m) * (_WBN * _WKC
+                                      + block_m * (_WKC * elt + 16))
+            + (_WBN * _WCP * 4 if elt == 4 and block_m > 16 else 0))
+
+
+class Int8WonlyPlan(NamedTuple):
+    """How the weight-only kernel runs one [M, K] x [N, K] product."""
+
+    route: str         # "mma_bf16" (mma.sync on the dequantised weight)
+                       # or "fma_f32" (CUDA-core FMA)
+    block_m: int       # rows of x a block: 8, 16, 32, 64 or 128
+    tiles_n: int       # 64-row tiles of the weight
+    tiles_m: int       # block_m-row tiles of x
+    splits: int        # blocks of a cluster that share a tile, each a
+                       # range of K
+    chunks_a_split: int  # 64-wide chunks of K a split (the last may have
+                         # fewer)
+    stages: int        # chunks in the cp.async ring
+    threads: int
+    smem_bytes: int    # dynamic shared memory a block
+    grid: int          # tiles_n * tiles_m * splits blocks
+
+    def launch(self) -> tuple:
+        """The seven ints the C entry takes."""
+        return (self.block_m, self.splits, self.chunks_a_split, self.stages,
+                self.threads, self.smem_bytes, self.grid)
+
+    def k_bounds(self, K: int) -> list:
+        """The [k0, k1) range of K each split sums, in split order."""
+        step = self.chunks_a_split * _WKC
+        return [(s * step, min(K, (s + 1) * step))
+                for s in range(self.splits)]
+
+
+def _wonly_plan_for(M, N, K, dt, block_m, want) -> Int8WonlyPlan:
+    """The plan of ``block_m`` rows of x a block and ``want`` splits (cut
+    to whole chunks)."""
+    chunks = -(-K // _WKC)
+    tiles_n, tiles_m = -(-N // _WBN), -(-M // block_m)
+    cps = -(-chunks // max(1, min(want, chunks, _WMAX_SPLITS)))
+    splits = -(-chunks // cps)
+    grid = tiles_n * tiles_m * splits
+    if grid > 2**31 - 1:
+        raise ValueError(
+            f"int8_wonly_plan: M {M}, N {N}, K {K}: {grid} blocks, over "
+            "the 2^31 - 1 a launch may have")
+    return Int8WonlyPlan(
+        route="mma_bf16" if dt == torch.bfloat16 else "fma_f32",
+        block_m=block_m, tiles_n=tiles_n, tiles_m=tiles_m, splits=splits,
+        chunks_a_split=cps, stages=_wonly_stages(block_m),
+        threads=_WTHREADS, smem_bytes=_wonly_smem(block_m, dt.itemsize),
+        grid=grid)
+
+
+def int8_wonly_plan(M: int, N: int, K: int, dtype,
+                    sm_count: int = H100_SMS) -> Int8WonlyPlan:
+    """The weight-only kernel's launch plan for x [M, K] (``dtype``, the
+    compute dtype: float32 or bfloat16) times w [N, K] on a card of
+    ``sm_count`` SMs.
+
+    - A block takes 64 weight rows and ``block_m`` rows of x: the least of
+      8, 16, 32, 64, 128 that holds M (bf16) or of 8, 16, 32, 64 (f32,
+      whose FMA tiles ran no faster at 128 rows: PERF.md section 6), and
+      the largest above that (more rows of x run in more tiles).
+    - K is cut into 64-wide chunks, and the chunks into ``splits`` equal
+      runs (the last may be shorter) so that tiles x splits give each SM
+      two blocks: ``2 * sm_count // tiles`` splits, at least 1, at most 8
+      (a cluster) and at most one a chunk.  The splits of a tile run as
+      one cluster and add their f32 partials in split order.
+    - bf16 runs mma.sync on the dequantised weight; f32 runs FMA on CUDA
+      cores.
+
+    What fixes the order of the sums (block_m and the splits) depends on
+    M, N, K and the SM count alone.  Pure arithmetic: it runs without a
+    card."""
+    dt = dtype if isinstance(dtype, torch.dtype) else to_torch(dtype)
+    if min(M, N, K, sm_count) < 1 or dt not in (torch.float32,
+                                                 torch.bfloat16):
+        raise ValueError(
+            f"int8_wonly_plan: M {M}, N {N}, K {K}, {dt}, sm_count "
+            f"{sm_count} (needs positive sizes and float32 or bfloat16)")
+    heights = _WBMS if dt == torch.bfloat16 else _WBMS[:-1]
+    bm = next((b for b in heights if b >= M), heights[-1])
+    tiles = -(-N // _WBN) * -(-M // bm)
+    return _wonly_plan_for(M, N, K, dt, bm, 2 * sm_count // tiles)
+
+
+def _wonly_weight(w_nk, scale, cdt):
+    """The reference's dequantised weight: cdt(q) * cdt(scale)."""
+    return w_nk.to(cdt) * scale.to(cdt)[:, None]
+
+
 def _int8_matmul_plain(x2, w_nk, scale, dynamic, cdt):
     if dynamic:
         acc = (x2.double() @ w_nk.double().t()).to(torch.int32)
         return (acc.float() * scale).to(cdt)
-    w = w_nk.to(cdt) * scale.to(cdt)[:, None]
-    return x2.to(cdt) @ w.t()
+    return x2.to(cdt) @ _wonly_weight(w_nk, scale, cdt).t()
+
+
+def int8_matmul_wonly_split_ref(x, w_nk, w_scale, compute_dtype=None,
+                                plan=None):
+    """Weight-only ``int8_matmul`` summed in the kernel's order: the
+    reference's dequantised weight, one f32 product a split of K
+    (``plan.k_bounds``; default ``int8_wonly_plan`` on an H100), the
+    partials added in split order, one rounding to the compute dtype.
+    ``x`` [..., K] float, ``w_nk`` [N, K] int8, ``w_scale`` [N] f32."""
+    cdt = torch.bfloat16 if compute_dtype is None else to_torch(compute_dtype)
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k).to(cdt)
+    if plan is None:
+        plan = int8_wonly_plan(x2.shape[0], w_nk.shape[0], k, cdt)
+    w = _wonly_weight(w_nk, w_scale.float(), cdt)
+    acc = None
+    for k0, k1 in plan.k_bounds(k):
+        part = x2[:, k0:k1].float() @ w[:, k0:k1].float().t()
+        acc = part if acc is None else acc + part
+    return acc.to(cdt).reshape(*x.shape[:-1], w_nk.shape[0])
 
 
 def _eligible(x2, w_nk, scale, dynamic, cdt):
@@ -216,6 +349,64 @@ def _launch_dynamic(x2, w, scale, out) -> None:
         _build.check(lib, rc, f"int8_matmul_dynamic M={m} N={n} K={k} "
                               f"{out.dtype} {plan}")
     _SPEC.launches += 1
+    MODE_LAUNCHES["dynamic"] += 1
+
+
+@functools.lru_cache(maxsize=4096)
+def _wonly_launch_plan(m, n, k, cdt, device):
+    """The weight-only plan of a shape on a card and its seven ints."""
+    plan = int8_wonly_plan(m, n, k, cdt, _sm_count(device))
+    return plan, (ctypes.c_int * 7)(*plan.launch())
+
+
+def _float_rows(x2):
+    """``x2`` [m, k] float itself when it starts on 16 bytes with unit
+    stride along k and (m > 1) rows a multiple of 16 bytes apart, else a
+    copy in such rows (the weight-only kernel reads x by 16-byte copies)."""
+    m, k = x2.shape
+    elt = x2.element_size()
+    if (x2.stride(-1) == 1 and x2.data_ptr() % 16 == 0
+            and (m == 1 or (x2.stride(0) >= k
+                            and (x2.stride(0) * elt) % 16 == 0))):
+        return x2
+    kp = -(-k * elt // 16) * 16 // elt
+    rows = torch.empty((m, kp), dtype=x2.dtype, device=x2.device)[:, :k]
+    rows.copy_(x2)
+    return rows
+
+
+# launches of the kernel by mode (the registry counts both together)
+MODE_LAUNCHES = {"dynamic": 0, "weight_only": 0}
+
+
+def _launch_wonly(x2, w, scale, out, plan, ints=None) -> None:
+    """Launch the weight-only kernel on ``plan``: x2 [M, K] float in the
+    rows :func:`_float_rows` gives, w [N, K] int8 in 16-byte rows, scale
+    [N] f32, out [M, N] contiguous in x2's dtype."""
+    m, k = x2.shape
+    n = w.shape[0]
+    dev = x2.device
+    lib = _build.load(_SOURCE)
+    fn = lib.int8_matmul_weight_only
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    if ints is None:
+        ints = (ctypes.c_int * 7)(*plan.launch())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # a one-row tensor's row stride is never used and may be anything
+        rc = fn(x2.data_ptr(), x2.stride(0) if m > 1 else k, w.data_ptr(),
+                w.stride(0), scale.data_ptr(), out.data_ptr(), m, n, k,
+                int(x2.dtype == torch.bfloat16), ints, stream)
+    if rc:
+        _build.check(lib, rc, f"int8_matmul_weight_only M={m} N={n} K={k} "
+                              f"{x2.dtype} {plan}")
+    _SPEC.launches += 1
+    MODE_LAUNCHES["weight_only"] += 1
 
 
 def _int8_matmul_cuda(x2, w_nk, scale, dynamic, cdt):
@@ -228,26 +419,8 @@ def _int8_matmul_cuda(x2, w_nk, scale, dynamic, cdt):
     if dynamic:
         _launch_dynamic(kernel_rows(x2), w, scale, out)
         return out
-    x2 = x2.to(cdt)
-    if x2.stride(-1) != 1 or (m > 1 and x2.stride(0) < k):
-        x2 = x2.contiguous()
-    lib = _build.load(_SOURCE)
-    fn = lib.int8_matmul_weight_only
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        # a one-row tensor's row stride is never used and may be anything
-        rc = fn(x2.data_ptr(), x2.stride(0) if m > 1 else k, w.data_ptr(),
-                w.stride(0), scale.data_ptr(), out.data_ptr(), m, n, k,
-                int(cdt == torch.bfloat16), stream)
-    _build.check(lib, rc, f"int8_matmul_weight_only M={m} N={n} K={k} "
-                          f"{cdt}")
-    _SPEC.launches += 1
+    plan, ints = _wonly_launch_plan(m, n, k, cdt, x2.device)
+    _launch_wonly(_float_rows(x2.to(cdt)), w, scale, out, plan, ints)
     return out
 
 
@@ -263,7 +436,9 @@ _SPEC = registry.register(
     replaces="paddle_tpu/ops/pallas/int8_matmul.py:62",
     doc="int8 x int8 -> int32 by wgmma on TMA-loaded tiles (persistent "
         "blocks) with the folded per-column rescale in the "
-        "epilogue; weight-only dequantises in shared memory: no "
+        "epilogue; weight-only splits K across a cluster's blocks and "
+        "dequantises into mma.sync fragments (bf16) or shared memory "
+        "(f32), the partials merged in split order in the launch: no "
         "dequantised weight tensor is written",
 )
 

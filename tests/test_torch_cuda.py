@@ -358,6 +358,47 @@ def test_int8_matmul_matches_plain_on_card():
         4 * len(_INT8_MM_CASES) + 4)
 
 
+# (M, K, N): weight-only at the weight-only ResNet-50's classifier (batch
+# 1, 32, 128: 8 splits of K), its split edges (K = 2,000 and 2,100 not a
+# multiple of the split, N = 1,000 and 70 not a multiple of 64, M = 33
+# and 129 past a block's rows) and M of 1,024 and 4,100 (one split, tiles
+# of 128 rows of x)
+_WONLY_CASES = [(1, 2048, 1000), (32, 2048, 1000), (128, 2048, 1000),
+                (5, 2000, 1000), (32, 2100, 70), (33, 300, 200),
+                (129, 2048, 1000), (1, 17, 5), (1024, 768, 3072),
+                (4100, 1000, 130)]
+
+
+@pytest.mark.cuda
+def test_int8_matmul_weight_only_split_on_card():
+    """The weight-only kernel at the path's shapes, the split edges and
+    M >= 1,024: within CARD_TOL of the plain version and bitwise equal to
+    itself on a rerun (the partials merge in split order), one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the path's shapes")
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    runs = 0
+    for i, (M, K, N) in enumerate(_WONLY_CASES):
+        _, w, ws, xf = _int8_mm_case(60 + i, M, K, N, dev)
+        for wdt in (torch.float32, torch.bfloat16):
+            x = xf.to(wdt)
+            got = im.int8_matmul(x, w, ws, compute_dtype=wdt)
+            again = im.int8_matmul(x, w, ws, compute_dtype=wdt)
+            ref = im.int8_matmul(x, w, ws, compute_dtype=wdt,
+                                 mode="torch_ref")
+            torch.cuda.synchronize()
+            runs += 2
+            assert got.dtype == wdt and got.shape == (M, N)
+            assert bool(torch.isfinite(got.float()).all())
+            _assert_within(got, ref, im.CARD_TOL[wdt])
+            assert torch.equal(again, got), (M, K, N, wdt)
+    assert registry.launch_counts()["int8_matmul"] == runs
+
+
 def _zipf_inverse(seed, n, vocab=20_000):
     """An embedding push's inverse: Zipf(1.3) ids deduplicated; returns
     (inverse, number of unique ids)."""

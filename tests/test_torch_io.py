@@ -12,6 +12,8 @@ package's.
   package restores the other's directory, ranged reads included.
 """
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -233,6 +235,30 @@ def test_unbounded_stream_resume_replays_nothing_under_prefetch():
     assert np.array_equal(next(it2).numpy().reshape(-1),
                           np.asarray([10.0, 11.0], np.float32))
     it2.close()
+
+
+class _SlowUnbounded(IterableDataset):
+    """An endless feed whose items take a while to make, so the prefetch
+    thread is mid-item when its consumer stops."""
+
+    def __iter__(self):
+        i = 0
+        while True:
+            time.sleep(0.05)
+            yield np.asarray([i], np.float32)
+            i += 1
+
+
+def test_closing_an_iterator_ends_its_prefetch_thread():
+    """Closing the iterator (a `break` or `return` out of the loop) waits
+    for the prefetch thread: a daemon thread left inside torch when the
+    interpreter exits aborts the process."""
+    before = set(threading.enumerate())
+    loader = DataLoader(_SlowUnbounded(), batch_size=1)
+    for i, _ in enumerate(loader):
+        if i == 2:
+            break
+    assert set(threading.enumerate()) == before
 
 
 def test_legacy_unseeded_behaviour_untouched():

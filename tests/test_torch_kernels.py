@@ -896,11 +896,15 @@ def test_int8_dynamic_launch_passes_the_plan(fake_flash_lib, M, K, N,
 
 
 def test_int8_weight_only_launch_keeps_its_entry(fake_flash_lib):
+    """Weight-only mode reaches ``int8_matmul_weight_only`` with the sizes,
+    ``int8_wonly_plan``'s plan as seven ints and the stream."""
     im._int8_matmul_cuda(torch.ones(4, 64), torch.ones(8, 64, dtype=torch.int8),
                          torch.ones(8), False, torch.float32)
     ((name, args),) = fake_flash_lib.calls
     assert name == "int8_matmul_weight_only"
-    assert args[6:10] == (4, 8, 64, 0) and len(args) == 11
+    assert args[6:10] == (4, 8, 64, 0) and len(args) == 12
+    assert tuple(args[10]) == im.int8_wonly_plan(4, 8, 64, torch.float32,
+                                                 132).launch()
     assert len(fake_flash_lib.int8_matmul_weight_only.argtypes) == len(args)
 
 

@@ -541,9 +541,11 @@ def step(batch, pull):
     ids = np.asarray(batch["ids"]).reshape(-1)
     return ids, np.full((ids.size, 4), -1.0, np.float32)
 
-cli = PSClient([cfg["ep"]], mode="sync", connect_timeout=2.0,
-               rpc_timeout=2.0, max_retries=6, backoff_base=0.02,
-               rpc_deadline=20.0)
+# timeouts far above a loaded host's stalls: a push retried after a late
+# ack would count as one more duplicate
+cli = PSClient([cfg["ep"]], mode="sync", connect_timeout=10.0,
+               rpc_timeout=30.0, max_retries=6, backoff_base=0.02,
+               rpc_deadline=120.0)
 tr = StreamingTrainer(DataLoader(Feed(), batch_size=1, collate_fn=collate),
                       cli, "emb", step, src="stream-acc",
                       state_path=cfg["state"], ckpt_every=7)
@@ -572,7 +574,8 @@ def test_trainer_sigkill_resume_exactly_once(tmp_path):
                            json.dumps(cfg)], env=env,
                           stdout=subprocess.DEVNULL)
     try:
-        assert _wait(lambda: os.path.exists(marker), timeout=30.0), \
+        # a subprocess that imports torch and the port under a loaded host
+        assert _wait(lambda: os.path.exists(marker), timeout=180.0), \
             "the first trainer never reached batch 18"
         os.kill(p1.pid, signal.SIGKILL)
         p1.wait(timeout=10)
@@ -583,7 +586,7 @@ def test_trainer_sigkill_resume_exactly_once(tmp_path):
         out = subprocess.run(
             [sys.executable, "-c", _TRAINER_PROC_SRC, _REPO,
              json.dumps(dict(cfg, hang_at=None))], env=env,
-            capture_output=True, text=True, timeout=30)
+            capture_output=True, text=True, timeout=180)
         assert out.returncode == 0, out.stderr
         res = json.loads(out.stdout.strip().splitlines()[-1])
         assert res["seq"] == until and res["dups"] == 3
