@@ -17,7 +17,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    entries of ``flash_attention_bwd.cu`` (kernels 2 and 3) or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
    six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
-   4) or the ten ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's
+   4) or the nine ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's
    weight-only mode), or a wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
@@ -1528,7 +1528,6 @@ def resnet_serve(dev, bf16_model, int8_model, wonly_model):
     exactly RESNET_GEMMS times in dynamic mode, every weight-only forward
     exactly once in weight-only mode."""
     from paddle_tpu_torch.ops.kernels import registry
-    from paddle_tpu_torch.ops.kernels.int8_matmul import MODE_LAUNCHES
     torch.backends.cudnn.benchmark = True     # the bf16 yardstick's best
     forwards = collections.Counter()
 
@@ -1540,7 +1539,6 @@ def resnet_serve(dev, bf16_model, int8_model, wonly_model):
 
     res = []
     registry.reset_counts()                  # the main path starts here
-    modes0 = dict(MODE_LAUNCHES)
     with torch.no_grad():
         for b in RESNET_BATCHES:
             x = _images(dev, b)
@@ -1569,7 +1567,8 @@ def resnet_serve(dev, bf16_model, int8_model, wonly_model):
             res.append(row)
             log("resnet50 serve: " + json.dumps(row))
     counts = registry.launch_counts()        # ... and ends here
-    modes = {k: MODE_LAUNCHES[k] - modes0[k] for k in MODE_LAUNCHES}
+    by_mode = registry.spec("int8_matmul").mode_launches
+    modes = {k: by_mode.get(k, 0) for k in ("dynamic", "weight_only")}
     want = dict.fromkeys(counts, 0)
     want["int8_matmul"] = RESNET_GEMMS * forwards["int8"] + forwards["wonly"]
     want_modes = {"dynamic": RESNET_GEMMS * forwards["int8"],
@@ -3618,9 +3617,9 @@ def main() -> int:
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
-    # its weight-only mode keeps mma.sync fragments or FMA tiles in
-    # registers: ten entries (8 to 128 rows of x; bf16 or f32)
-    wo = check_ptxas("int8_matmul.cu", "int8_wonly", entries=10)
+    # its weight-only mode keeps mma.sync or wgmma fragments or FMA tiles
+    # in registers: nine entries (bf16 at 8 to 128 rows of x, f32 at 8 to 64)
+    wo = check_ptxas("int8_matmul.cu", "int8_wonly", entries=9)
     for name, (regs, _, _) in sorted(wo.items()):
         log(f"  int8_wonly ({name[-36:]}): {regs} registers, no spill")
     # kernel 4 keeps its scores and q slices in registers: six entries

@@ -61,20 +61,24 @@
 // - a plan from Python (`int8_wonly_plan`) splits K into whole 64-wide
 //   chunks across the blocks of a cluster (at most 8), so that tiles x
 //   splits fill the card (16 x 8 = 128 blocks at the classifier); a block
-//   is 64 weight rows by 8-128 rows of x (more rows of x: more tiles);
+//   is 64 weight rows by 8-128 rows of x (f32: 8-64; more rows of x:
+//   more tiles);
 // - each block streams its weight rows (16-byte pieces) and its rows of x
 //   through a cp.async ring (8 chunks deep at up to 16 rows of x, else 4),
 //   zero-filling past M, N and K;
-// - bf16: the weight is dequantised in registers straight into mma.sync
-//   m16n8k16 A fragments (the weight as A, x as B: out^T = W x^T, so N
-//   takes the 16-row side and M the 8-wide one), K permuted alike in both
-//   operands so that each thread reads 16 consecutive weight bytes: no
-//   dequantised weight reaches shared or device memory;
+// - bf16: the weight is dequantised in registers straight into the
+//   tensor cores' A fragments (the weight as A, x as B: out^T = W x^T),
+//   so no dequantised weight reaches shared or device memory.  At 8-64
+//   rows of x by mma.sync m16n8k16 (N takes the 16-row side, M the 8-wide
+//   one), K permuted alike in both operands so that each thread reads 16
+//   consecutive weight bytes; at 128 by wgmma m64n128k16 with x as a
+//   K-major B in 128-byte swizzled shared memory (1.11x faster than
+//   mma.sync there on an H100);
 // - f32: each chunk's weight is dequantised once into shared memory and
 //   summed by FMA (up to 16 rows of x: dequantised in registers as bf16's
-//   fragments, each quad of threads adding its four sums at the end; 32 to
-//   128: dequantised once into shared memory, 8 x 2-8 outputs a thread, k
-//   in order; no TF32: the registered tolerance is rtol 1e-5);
+//   fragments, each quad of threads adding its four sums at the end; 32
+//   and 64: dequantised once into shared memory, 8 x 2-4 outputs a
+//   thread, k in order; no TF32: the registered tolerance is rtol 1e-5);
 // - each block leaves its f32 partial tile in shared memory, the cluster
 //   meets, and each block adds a slice of the tile across the cluster's
 //   partials (distributed shared memory) in split order and writes it:
@@ -82,8 +86,8 @@
 //   device memory (a ticket and one merging block took 5x as long at 128
 //   rows of x and 8 splits on an H100: that block read the partials
 //   alone).
-// ptxas -v (nvcc 12.9, sm_90a): 64-149 registers (bf16, 8-128 rows of x)
-// and 80-168 (f32), no spill; up to 103,424 bytes of dynamic shared
+// ptxas -v (nvcc 12.9, sm_90a): 64-128 registers (bf16, 8-128 rows of x)
+// and 80-128 (f32, 8-64), no spill; up to 103,424 bytes of dynamic shared
 // memory on the plan's blocks.
 
 #include <cuda.h>
@@ -416,16 +420,36 @@ __host__ __device__ constexpr int x_pitch() {
   return kKC * (int)sizeof(T) + 16;
 }
 
+// bf16 at 128 rows of x multiplies by wgmma (mainloop_wgmma): x's rows
+// are 128 bytes in the 128-byte swizzle that wgmma's descriptor reads, the
+// weight's rows 80 bytes apart so that eight rows' 16-byte reads at one k
+// fall on distinct banks; the tile starts on 1,024 bytes
+template <typename T, int BM>
+__host__ __device__ constexpr bool uses_wgmma() {
+  return sizeof(T) == 2 && BM == 128;
+}
+template <typename T, int BM>
+__host__ __device__ constexpr int w_pitch() {
+  return uses_wgmma<T, BM>() ? 80 : kKC;
+}
+template <typename T, int BM>
+__host__ __device__ constexpr int x_row() {
+  return uses_wgmma<T, BM>() ? 128 : x_pitch<T>();
+}
+
 // chunks in the cp.async ring: 8 for blocks of at most 16 rows of x (a
 // split's whole slab in flight at the classifier), else 4
 __host__ __device__ constexpr int stages_of(int bm) { return bm <= 16 ? 8 : 4; }
 
 // The dynamic shared memory of a block of `bm` rows of x (the Python plan
 // computes the same): the ring of weight and x chunks and, for f32 at 32
-// rows of x or more, the dequantised weight chunk.  The epilogue's f32
-// tile [bm][kCP] reuses the ring.
+// rows of x or more, the dequantised weight chunk (wgmma: 80-byte weight
+// rows, 128-byte x rows and 1,024 bytes to align the tile).  The
+// epilogue's f32 tile [bm][kCP] reuses the ring.
 template <typename T>
 __host__ __device__ constexpr int smem_bytes(int bm) {
+  if (sizeof(T) == 2 && bm == 128)
+    return 1024 + stages_of(bm) * (kBN * 80 + bm * 128);
   return stages_of(bm) * (kWBytes + bm * x_pitch<T>()) +
          (sizeof(T) == 4 && bm > 16 ? kBN * kCP * 4 : 0);
 }
@@ -491,7 +515,8 @@ __device__ __forceinline__ float code(uint32_t u, int i) {
 // pieces of 16 bytes (rows past N, and pieces at or past K, zero-filled:
 // a piece that starts before K ends within the row's pitch, a multiple of
 // 16 at least K) and x's bm rows x 64 values (rows past M and values past
-// K zero-filled, so the weight's bytes there multiply zeros)
+// K zero-filled, so the weight's bytes there multiply zeros; for wgmma
+// piece q of row r goes to place q ^ (r % 8) of the row)
 template <typename T, int BM>
 __device__ __forceinline__ void load_chunk(const Params& p, uint32_t base,
                                            int slot, int n0, int m0, int c,
@@ -499,14 +524,15 @@ __device__ __forceinline__ void load_chunk(const Params& p, uint32_t base,
   constexpr int kE = 16 / (int)sizeof(T);   // values a piece
   constexpr int kPR = kKC / kE;             // pieces a row of x
   constexpr int S = stages_of(BM);
-  const uint32_t sw = base + slot * kWBytes;
-  const uint32_t sx = base + S * kWBytes + slot * BM * x_pitch<T>();
+  constexpr int WS = kBN * w_pitch<T, BM>();
+  const uint32_t sw = base + slot * WS;
+  const uint32_t sx = base + S * WS + slot * BM * x_row<T, BM>();
   const int k0 = c * kKC;
   for (int e = tid; e < kBN * 4; e += kThreads) {
     const int r = e >> 2, q = e & 3;
     const int n = n0 + r, k = k0 + 16 * q;
     const bool ok = n < p.N && k < p.K;
-    cp_async16(sw + r * kKC + 16 * q,
+    cp_async16(sw + r * w_pitch<T, BM>() + 16 * q,
                p.w + (ok ? (long long)n * p.ldw + k : 0), ok ? 16 : 0);
   }
   const T* const x = static_cast<const T*>(p.x);
@@ -514,22 +540,26 @@ __device__ __forceinline__ void load_chunk(const Params& p, uint32_t base,
     const int r = e / kPR, q = e % kPR;
     const int m = m0 + r, k = k0 + q * kE;
     const int valid = m < p.M ? max(0, min(p.K - k, kE)) : 0;
-    cp_async16(sx + r * x_pitch<T>() + 16 * q,
+    cp_async16(sx + r * x_row<T, BM>() +
+                   16 * (uses_wgmma<T, BM>() ? q ^ (r & 7) : q),
                x + (valid ? (long long)m * p.ldx + k : 0),
                valid * (int)sizeof(T));
   }
 }
 
 // The ring: before chunk i is used, every thread waits for its own copies
-// of it and the block meets (so all copies have landed and the slot that
-// the next load refills was read by everyone); then chunk i + S - 1 is
-// started.  One commit group an iteration, empty or not.
+// of it (and, for wgmma, makes them visible to the async proxy that reads
+// the operands) and the block meets (so all copies have landed and the
+// slot that the next load refills was read by everyone); then chunk i + S
+// - 1 is started.  One commit group an iteration, empty or not.
 template <typename T, int BM>
 __device__ __forceinline__ void ring_step(const Params& p, uint32_t base,
                                           int n0, int m0, int c0, int nc,
                                           int i) {
   constexpr int S = stages_of(BM);
   cp_async_wait<S - 2>();
+  if constexpr (uses_wgmma<T, BM>())
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   if (i + S - 1 < nc)
     load_chunk<T, BM>(p, base, (i + S - 1) % S, n0, m0, c0 + i + S - 1,
@@ -601,6 +631,104 @@ __device__ __forceinline__ void mainloop_bf16(const Params& p,
   }
 }
 
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (each warp
+// holds the m16n8k16 A fragment of its 16 rows), B K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[64],
+                                                const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// bf16 at 128 rows of x: the warpgroup multiplies the 64 weight rows by
+// the 128 rows of x with wgmma m64n128k16 (out^T = W x^T), the
+// dequantised weight as A from registers and x as a K-major B in shared
+// memory.  B fixes K's order, so A's is the standard one: in k16 step j
+// each thread reads the step's 16 weight bytes and keeps bytes 2t, 2t+1,
+// 2t+8, 2t+9.  The accumulators are laid out as mainloop_bf16's acc[b]
+// (d[4b..4b+3]).  1.11x faster than mma.sync at this height on an H100
+// (PERF.md section 6).
+__device__ __forceinline__ void mainloop_wgmma(const Params& p,
+                                               unsigned char* smem, int n0,
+                                               int m0, int c0, int nc,
+                                               float (&acc)[64]) {
+  constexpr int BM = 128;
+  constexpr int S = stages_of(BM);
+  constexpr int WP = w_pitch<__nv_bfloat16, BM>(), WS = kBN * WP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g;   // local weight rows ra and ra + 8
+  const uint32_t base = sm90::smem_u32(smem);
+  // bytes 2t, 2t+1 of the step's words 0-1 and 2t+8, 2t+9 of words 2-3
+  const uint32_t pick = (t & 1) ? 0x7632u : 0x5410u;
+  float s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + ra + 8 * h;
+    s[h] = n < p.N ? __bfloat162float(__float2bfloat16_rn(__ldg(p.scale + n)))
+                   : 0.f;
+  }
+  for (int i = 0; i < nc; ++i) {
+    ring_step<__nv_bfloat16, BM>(p, base, n0, m0, c0, nc, i);
+    const int slot = i % S;
+    const unsigned char* const ws = smem + slot * WS;
+    uint32_t a[4][4];   // [k16 step][fragment register]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            ws + (ra + 8 * h) * WP + 16 * j);
+        const uint32_t lo = (t >> 1) ? v.y : v.x;
+        const uint32_t hi = (t >> 1) ? v.w : v.z;
+        const uint32_t u = __byte_perm(lo, hi, pick) ^ 0x80808080u;
+        a[j][h] = sm90::pack_bf16x2(code(u, 0) * s[h], code(u, 1) * s[h]);
+        a[j][2 + h] = sm90::pack_bf16x2(code(u, 2) * s[h],
+                                        code(u, 3) * s[h]);
+      }
+    const uint32_t sx = base + S * WS + slot * BM * 128;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs_kmajor(acc, a[j], sm90::sw128_desc(sx + 32 * j, 0, 1024));
+    sm90::wgmma_commit();
+    // the next ring step refills a slot this chunk's products may read
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+  }
+}
+
 // f32 at up to 16 rows of x: as bf16, each quad of threads reads two
 // weight rows' 64-byte chunk 16 bytes a thread and dequantises it in
 // registers (f32(q) * scale, the reference's f32 product); each thread
@@ -664,7 +792,7 @@ __device__ __forceinline__ void mainloop_f32q(const Params& p,
   }
 }
 
-// f32 at 32 to 128 rows of x: the chunk's weight is dequantised once
+// f32 at 32 and 64 rows of x: the chunk's weight is dequantised once
 // into shared memory (f32(q) * scale, the reference's f32 product), then
 // each thread sums a tile of RN weight rows x RM rows of x with FMA, k in
 // order
@@ -752,7 +880,13 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 int8_wonly(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_w[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // wgmma's swizzled x tiles start on 1,024 bytes (smem_bytes counts the
+  // slack)
+  unsigned char* const smem_w =
+      uses_wgmma<T, BM>()
+          ? smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u)
+          : smem_raw;
   const int tid = threadIdx.x;
   const int split = blockIdx.x % p.splits, tile = blockIdx.x / p.splits;
   const int n0 = (tile % p.tiles_n) * kBN, m0 = (tile / p.tiles_n) * BM;
@@ -767,7 +901,11 @@ int8_wonly(const Params p) {
   float* const C = reinterpret_cast<float*>(smem_w);   // [BM][kCP]
   if constexpr (sizeof(T) == 2) {
     float acc[BM / 8][4] = {};
-    mainloop_bf16<BM>(p, smem_w, n0, m0, c0, nc, acc);
+    if constexpr (uses_wgmma<T, BM>())
+      mainloop_wgmma(p, smem_w, n0, m0, c0, nc,
+                     *reinterpret_cast<float(*)[64]>(&acc[0][0]));
+    else
+      mainloop_bf16<BM>(p, smem_w, n0, m0, c0, nc, acc);
     cp_async_wait<0>();
     __syncthreads();
     // accumulator b: rows ra (c0, c1) and ra + 8 (c2, c3), x rows 8b + 2t
@@ -895,8 +1033,12 @@ cudaError_t launch_bm(int bm, const Params& p, int grid, int smem,
     case 16: return launch<T, 16>(p, grid, smem, stream);
     case 32: return launch<T, 32>(p, grid, smem, stream);
     case 64: return launch<T, 64>(p, grid, smem, stream);
-    default: return launch<T, 128>(p, grid, smem, stream);
   }
+  // 128 rows of x: bf16 only (the plan gives f32 at most 64)
+  if constexpr (sizeof(T) == 2)
+    return launch<T, 128>(p, grid, smem, stream);
+  else
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace wonly
@@ -1005,7 +1147,8 @@ int int8_matmul_weight_only(const void* x, long long ldx, const void* w,
       (M > 1 && (ldx < K || (ldx * elt) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const int bm = plan[0], splits = plan[1], cps = plan[2];
-  if (bm != 8 && bm != 16 && bm != 32 && bm != 64 && bm != 128)
+  if ((bm != 8 && bm != 16 && bm != 32 && bm != 64 && bm != 128) ||
+      (bm == 128 && !is_bf16))
     return kErrPlan;
   const int chunks = (K + kKC - 1) / kKC;
   const long long tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + bm - 1) / bm;

@@ -53,7 +53,7 @@ from .flash_attention import H100_SMS, _sm_count
 
 __all__ = ["int8_matmul", "aligned_rows", "kernel_rows", "CARD_TOL",
            "int8_mm_plan", "Int8MmPlan", "int8_wonly_plan", "Int8WonlyPlan",
-           "int8_matmul_wonly_split_ref", "MODE_LAUNCHES"]
+           "int8_matmul_wonly_split_ref"]
 
 _SOURCE = "int8_matmul.cu"
 # Weight-only mode on the card against the plain version, as (atol, rtol,
@@ -174,7 +174,11 @@ def _wonly_stages(block_m: int) -> int:
 def _wonly_smem(block_m: int, elt: int) -> int:
     """The weight-only kernel's dynamic shared memory (the C entry checks
     the same): the ring of weight and x chunks (x rows padded by 16
-    bytes) and, for f32 at 32 rows of x or more, the dequantised chunk."""
+    bytes) and, for f32 at 32 rows of x or more, the dequantised chunk;
+    wgmma's ring (bf16 at 128 rows) has 80-byte weight rows, 128-byte x
+    rows and 1,024 bytes to align it."""
+    if elt == 2 and block_m == 128:
+        return 1024 + _wonly_stages(block_m) * (_WBN * 80 + block_m * 128)
     return (_wonly_stages(block_m) * (_WBN * _WKC
                                       + block_m * (_WKC * elt + 16))
             + (_WBN * _WCP * 4 if elt == 4 and block_m > 16 else 0))
@@ -183,9 +187,10 @@ def _wonly_smem(block_m: int, elt: int) -> int:
 class Int8WonlyPlan(NamedTuple):
     """How the weight-only kernel runs one [M, K] x [N, K] product."""
 
-    route: str         # "mma_bf16" (mma.sync on the dequantised weight)
-                       # or "fma_f32" (CUDA-core FMA)
-    block_m: int       # rows of x a block: 8, 16, 32, 64 or 128
+    route: str         # "mma_bf16" (mma.sync on the dequantised weight),
+                       # "wgmma_bf16" (wgmma, at 128 rows of x) or
+                       # "fma_f32" (CUDA-core FMA)
+    block_m: int       # rows of x a block: 8, 16, 32, 64 or (bf16) 128
     tiles_n: int       # 64-row tiles of the weight
     tiles_m: int       # block_m-row tiles of x
     splits: int        # blocks of a cluster that share a tile, each a
@@ -209,26 +214,6 @@ class Int8WonlyPlan(NamedTuple):
                 for s in range(self.splits)]
 
 
-def _wonly_plan_for(M, N, K, dt, block_m, want) -> Int8WonlyPlan:
-    """The plan of ``block_m`` rows of x a block and ``want`` splits (cut
-    to whole chunks)."""
-    chunks = -(-K // _WKC)
-    tiles_n, tiles_m = -(-N // _WBN), -(-M // block_m)
-    cps = -(-chunks // max(1, min(want, chunks, _WMAX_SPLITS)))
-    splits = -(-chunks // cps)
-    grid = tiles_n * tiles_m * splits
-    if grid > 2**31 - 1:
-        raise ValueError(
-            f"int8_wonly_plan: M {M}, N {N}, K {K}: {grid} blocks, over "
-            "the 2^31 - 1 a launch may have")
-    return Int8WonlyPlan(
-        route="mma_bf16" if dt == torch.bfloat16 else "fma_f32",
-        block_m=block_m, tiles_n=tiles_n, tiles_m=tiles_m, splits=splits,
-        chunks_a_split=cps, stages=_wonly_stages(block_m),
-        threads=_WTHREADS, smem_bytes=_wonly_smem(block_m, dt.itemsize),
-        grid=grid)
-
-
 def int8_wonly_plan(M: int, N: int, K: int, dtype,
                     sm_count: int = H100_SMS) -> Int8WonlyPlan:
     """The weight-only kernel's launch plan for x [M, K] (``dtype``, the
@@ -244,7 +229,8 @@ def int8_wonly_plan(M: int, N: int, K: int, dtype,
       two blocks: ``2 * sm_count // tiles`` splits, at least 1, at most 8
       (a cluster) and at most one a chunk.  The splits of a tile run as
       one cluster and add their f32 partials in split order.
-    - bf16 runs mma.sync on the dequantised weight; f32 runs FMA on CUDA
+    - bf16 runs mma.sync on the dequantised weight, or wgmma at 128 rows
+      of x (faster there: PERF.md section 6); f32 runs FMA on CUDA
       cores.
 
     What fixes the order of the sums (block_m and the splits) depends on
@@ -258,8 +244,23 @@ def int8_wonly_plan(M: int, N: int, K: int, dtype,
             f"{sm_count} (needs positive sizes and float32 or bfloat16)")
     heights = _WBMS if dt == torch.bfloat16 else _WBMS[:-1]
     bm = next((b for b in heights if b >= M), heights[-1])
-    tiles = -(-N // _WBN) * -(-M // bm)
-    return _wonly_plan_for(M, N, K, dt, bm, 2 * sm_count // tiles)
+    chunks = -(-K // _WKC)
+    tiles_n, tiles_m = -(-N // _WBN), -(-M // bm)
+    want = 2 * sm_count // (tiles_n * tiles_m)
+    cps = -(-chunks // max(1, min(want, chunks, _WMAX_SPLITS)))
+    splits = -(-chunks // cps)
+    grid = tiles_n * tiles_m * splits
+    if grid > 2**31 - 1:
+        raise ValueError(
+            f"int8_wonly_plan: M {M}, N {N}, K {K}: {grid} blocks, over "
+            "the 2^31 - 1 a launch may have")
+    route = ("fma_f32" if dt == torch.float32
+             else "wgmma_bf16" if bm == 128 else "mma_bf16")
+    return Int8WonlyPlan(
+        route=route,
+        block_m=bm, tiles_n=tiles_n, tiles_m=tiles_m, splits=splits,
+        chunks_a_split=cps, stages=_wonly_stages(bm), threads=_WTHREADS,
+        smem_bytes=_wonly_smem(bm, dt.itemsize), grid=grid)
 
 
 def _wonly_weight(w_nk, scale, cdt):
@@ -348,8 +349,7 @@ def _launch_dynamic(x2, w, scale, out) -> None:
     if rc:
         _build.check(lib, rc, f"int8_matmul_dynamic M={m} N={n} K={k} "
                               f"{out.dtype} {plan}")
-    _SPEC.launches += 1
-    MODE_LAUNCHES["dynamic"] += 1
+    registry.note_launch(_SPEC, "dynamic")
 
 
 @functools.lru_cache(maxsize=4096)
@@ -375,17 +375,14 @@ def _float_rows(x2):
     return rows
 
 
-# launches of the kernel by mode (the registry counts both together)
-MODE_LAUNCHES = {"dynamic": 0, "weight_only": 0}
-
-
-def _launch_wonly(x2, w, scale, out, plan, ints=None) -> None:
-    """Launch the weight-only kernel on ``plan``: x2 [M, K] float in the
+def _launch_wonly(x2, w, scale, out) -> None:
+    """Launch the weight-only kernel on its plan: x2 [M, K] float in the
     rows :func:`_float_rows` gives, w [N, K] int8 in 16-byte rows, scale
     [N] f32, out [M, N] contiguous in x2's dtype."""
     m, k = x2.shape
     n = w.shape[0]
     dev = x2.device
+    plan, ints = _wonly_launch_plan(m, n, k, x2.dtype, dev)
     lib = _build.load(_SOURCE)
     fn = lib.int8_matmul_weight_only
     if fn.argtypes is None:
@@ -394,8 +391,6 @@ def _launch_wonly(x2, w, scale, out, plan, ints=None) -> None:
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    if ints is None:
-        ints = (ctypes.c_int * 7)(*plan.launch())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         # a one-row tensor's row stride is never used and may be anything
@@ -405,8 +400,7 @@ def _launch_wonly(x2, w, scale, out, plan, ints=None) -> None:
     if rc:
         _build.check(lib, rc, f"int8_matmul_weight_only M={m} N={n} K={k} "
                               f"{x2.dtype} {plan}")
-    _SPEC.launches += 1
-    MODE_LAUNCHES["weight_only"] += 1
+    registry.note_launch(_SPEC, "weight_only")
 
 
 def _int8_matmul_cuda(x2, w_nk, scale, dynamic, cdt):
@@ -419,8 +413,7 @@ def _int8_matmul_cuda(x2, w_nk, scale, dynamic, cdt):
     if dynamic:
         _launch_dynamic(kernel_rows(x2), w, scale, out)
         return out
-    plan, ints = _wonly_launch_plan(m, n, k, cdt, x2.device)
-    _launch_wonly(_float_rows(x2.to(cdt)), w, scale, out, plan, ints)
+    _launch_wonly(_float_rows(x2.to(cdt)), w, scale, out)
     return out
 
 
@@ -437,7 +430,8 @@ _SPEC = registry.register(
     doc="int8 x int8 -> int32 by wgmma on TMA-loaded tiles (persistent "
         "blocks) with the folded per-column rescale in the "
         "epilogue; weight-only splits K across a cluster's blocks and "
-        "dequantises into mma.sync fragments (bf16) or shared memory "
+        "dequantises into mma.sync or (128 rows of x) wgmma fragments "
+        "(bf16) or shared memory "
         "(f32), the partials merged in split order in the launch: no "
         "dequantised weight tensor is written",
 )

@@ -22,7 +22,7 @@ no silent fallback.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 import torch
@@ -48,6 +48,9 @@ class KernelSpec:
     doc: str = ""
     launches: int = 0         # kernel launches (bumped by the wrapper)
     torch_ref_calls: int = 0  # plain-version runs
+    # launches by mode, for a wrapper that runs several kernels under one
+    # name (bumped with ``launches`` by :func:`note_launch`)
+    mode_launches: Dict[str, int] = field(default_factory=dict)
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}
@@ -127,11 +130,14 @@ def card_error(got: torch.Tensor, ref: torch.Tensor, tol) -> tuple:
     return err.max().item(), share.max().item()
 
 
-def note_launch(s: KernelSpec) -> None:
-    """Count one launch of ``s``'s kernel; safe when several threads
-    launch the same kernel (the elastic trainers of one process)."""
+def note_launch(s: KernelSpec, mode: Optional[str] = None) -> None:
+    """Count one launch of ``s``'s kernel (and of its ``mode``, where the
+    wrapper names one); safe when several threads launch the same kernel
+    (the elastic trainers of one process)."""
     with _lock:
         s.launches += 1
+        if mode is not None:
+            s.mode_launches[mode] = s.mode_launches.get(mode, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -144,3 +150,4 @@ def reset_counts() -> None:
         for s in _REGISTRY.values():
             s.launches = 0
             s.torch_ref_calls = 0
+            s.mode_launches.clear()

@@ -4,7 +4,7 @@ on the card.
 Run from the root of a checkout, with another checkout unpacked into a
 directory of it (``git archive <commit> | tar -x -C _parent``)::
 
-    python3 paddle_tpu_torch/tools/int8_wonly_times.py _parent . [--sweep]
+    python3 paddle_tpu_torch/tools/int8_wonly_times.py _parent .
 
 Each tree named runs in a process of its own, with its
 ``paddle_tpu_torch`` and its ``chip_smoke.py`` first on the path, and
@@ -15,13 +15,8 @@ bf16 and f32: the calls queued behind a spinning kernel
 (``chip_smoke.queued_ms``), each checked against the tree's plain
 version within its ``CARD_TOL``.  It prints one line ``T {json}`` a
 shape, with the bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s
-bf16 / 67 TFLOP/s f32, whichever is larger).
-
-``--sweep``, for a tree whose module has ``int8_wonly_plan``: at each
-shape it also times every other block height and (below 1,024 rows of
-x) every split count the kernel can run (``SWEEP {json}`` lines, each checked as
-above), so that the plan's rule can be judged against the alternatives.
-Without a card it raises.
+bf16 / 67 TFLOP/s f32, whichever is larger) and, for a tree whose module
+has ``int8_wonly_plan``, the plan.  Without a card it raises.
 """
 from __future__ import annotations
 
@@ -57,34 +52,7 @@ def _check(torch, registry, im, got, ref, cdt):
     return share
 
 
-def _sweep(torch, cs, registry, im, dev, M, K, N, cdt, x, w, ws, ref):
-    """Every (block_m, splits) the kernel takes at this shape, timed."""
-    base = im.int8_wonly_plan(M, N, K, cdt)
-    w_rows = im.kernel_rows(w)
-    out = torch.empty(M, N, dtype=cdt, device=dev)
-    for bm in (8, 16, 32, 64, 128):
-        seen = set()
-        for want in (1, 2, 4, 8) if M < 1024 else (1,):
-            plan = im._wonly_plan_for(M, N, K, cdt, bm, want)
-            if plan.splits in seen:
-                continue
-            seen.add(plan.splits)
-
-            def run():
-                im._launch_wonly(x, w_rows, ws, out, plan)
-                return out
-
-            share = _check(torch, registry, im, run().clone(), ref, cdt)
-            ms = cs.queued_ms(run, iters=20 if M < 1024 else 5)
-            print("SWEEP " + json.dumps(dict(
-                M=M, K=K, N=N, dtype=str(cdt).replace("torch.", ""),
-                block_m=bm, splits=plan.splits, grid=plan.grid, ms=ms,
-                share_of_limit=share,
-                plan=(bm, plan.splits) == (base.block_m, base.splits))),
-                flush=True)
-
-
-def run_one(tree: str, sweep: bool) -> None:
+def run_one(tree: str) -> None:
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     import torch
     import chip_smoke as cs
@@ -112,14 +80,9 @@ def run_one(tree: str, sweep: bool) -> None:
                 row["plan"] = dict(block_m=p.block_m, splits=p.splits,
                                    grid=p.grid)
             print("T " + json.dumps(row), flush=True)
-            if sweep and hasattr(im, "int8_wonly_plan"):
-                _sweep(torch, cs, registry, im, dev, M, K, N, cdt, x, w, ws,
-                       ref)
 
 
-def main(argv) -> int:
-    sweep = "--sweep" in argv
-    trees = [a for a in argv if a != "--sweep"]
+def main(trees) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -127,8 +90,7 @@ def main(argv) -> int:
     print(smi, flush=True)
     for tree in trees:
         out = subprocess.run(
-            [sys.executable, __file__, "--one", tree]
-            + (["--sweep"] if sweep else []),
+            [sys.executable, __file__, "--one", tree],
             capture_output=True, text=True)
         sys.stdout.write(out.stdout)
         if out.returncode:
@@ -139,6 +101,6 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], "--sweep" in sys.argv[3:])
+        run_one(sys.argv[2])
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))

@@ -68,7 +68,8 @@ def _check_wplan(p, M, N, K, dt, sms):
     heights = (8, 16, 32, 64, 128) if dt == torch.bfloat16 else (8, 16, 32,
                                                                  64)
     assert bm == min([b for b in heights if b >= M] or [heights[-1]])
-    assert p.route == ("mma_bf16" if dt == torch.bfloat16 else "fma_f32")
+    assert p.route == ("fma_f32" if dt == torch.float32 else
+                       "wgmma_bf16" if bm == 128 else "mma_bf16")
     chunks = -(-K // 64)
     assert (p.tiles_n, p.tiles_m) == (-(-N // 64), -(-M // bm))
     tiles = p.tiles_n * p.tiles_m
@@ -90,8 +91,13 @@ def _check_wplan(p, M, N, K, dt, sms):
     elt = dt.itemsize
     stages = 8 if bm <= 16 else 4
     assert p.stages == stages and p.threads == 128
-    assert p.smem_bytes == (stages * (64 * 64 + bm * (64 * elt + 16))
-                            + (64 * 68 * 4 if elt == 4 and bm > 16 else 0))
+    if p.route == "wgmma_bf16":
+        # 80-byte weight rows, 128-byte swizzled x rows, 1,024 to align
+        assert p.smem_bytes == 1024 + stages * (64 * 80 + bm * 128)
+    else:
+        assert p.smem_bytes == (stages * (64 * 64 + bm * (64 * elt + 16))
+                                + (64 * 68 * 4 if elt == 4 and bm > 16
+                                   else 0))
     assert p.smem_bytes <= 232_448
     assert p.launch() == (bm, p.splits, p.chunks_a_split, stages, 128,
                           p.smem_bytes, p.grid)
