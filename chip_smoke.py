@@ -187,9 +187,43 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 28. ``torch.profiler`` over 2 ResNet-50 training steps: device busy time
     against wall time, the top device kernels, device time by kernel
     class and under the batch-norm, convolution, loss, pooling and
-    optimizer ranges, and the largest allocations.
+    optimizer ranges, and the largest allocations;
+29. train the reference bench's BERT-base pretraining
+    (``bench.py:366-418``, nothing cut: ``BertForPretraining(bert_base())``
+    with dropout 0.1, f32 weights from a seed, batch 128 x seq 128, 19
+    masked positions a sequence, ids, sorted positions and MLM and NSP
+    labels drawn by ``RandomState(0)`` in the bench's order) with
+    ``BertPretrainingCriterion`` and ``AdamW(1e-4)`` through the bf16-AMP
+    ``DistributedTrainStep``: 20 steps, every loss finite, the first
+    within 0.5 of ln(30,522) + ln(2); ms/step (median of steps 3-20),
+    tokens/s, model TFLOP/s and MFU from the bench's analytic count, peak
+    memory; the launch counts of this run are 0 for every registered
+    kernel (at seq 128 the reference runs no Pallas kernel);
+30. at batch 16 with dropout off, one bf16-AMP step against the same
+    step from the f32 weights in f32: the loss within 2 %, the gradients'
+    cosine printed beside a control (the f32 step on bf16-rounded
+    weights) and required positive; then dropout on 2^24 elements at p =
+    0.1: the keep rate within 0.9 +- 0.001, the output bitwise the kept
+    values divided by f32(0.9) (the mask replayed from the generator),
+    the same seed the same mask, another seed another;
+32. (run right after phase 30, on phase 29's model, which is then freed)
+    ``torch.profiler`` over 2 BERT training steps: device busy time
+    against wall time, the top device kernels, device time by kernel
+    class and under the ``layer_norm``, ``dropout``, ``attention``,
+    ``gelu``, ``mlm_decode``, ``loss`` and ``optimizer`` ranges, and the
+    largest allocations;
+31. serve the reference inference bench's BERT arm
+    (``bench.py:1684-1714``): ``BertModel(bert_base())`` cast to bf16 and
+    its int8 conversion (only the pooler is a ``Linear``) cast the same
+    way, on ids of seq 128 at batch 1, 8, 32 and 128: per-forward ms
+    (median of 20 CUDA-event timings), sequences/s, device busy ms, peak
+    memory and the bench's ``int8_speedup``; the launch counts prove every
+    int8 forward launched ``int8_matmul`` exactly once, in dynamic mode,
+    and no bf16 forward any kernel; at batch 32 the int8 pooled output is
+    bitwise the plain version's (``set_kernel_mode(model, "torch_ref")``),
+    and its largest distance from the bf16 model's is printed.
 
-Every profiled phase (6, 9, 12, 16, 19, 23, 28) prints the idle share
+Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at every
@@ -200,7 +234,8 @@ dynamic mode bitwise and bitwise on a rerun; each is timed queued beside
 its bound, its plain version and ``torch._int_mm`` plus its scale pass,
 which compute the same function and which the port never calls, with
 the launch-weighted sums a forward; the kernel's launch plan
-(``int8_mm_plan``) is printed beside each shape.  Weight-only mode runs
+(``int8_mm_plan``) is printed beside each shape.  The same holds at the
+int8 BERT-base's pooler (M = 1, 8, 32, 128; K = N = 768; bf16 output).  Weight-only mode runs
 at the weight-only model's classifier (M = 1, 32 and 128, K = 2,048, N =
 1,000), at BERT-base's FFN at batch 128 x 128 (16,384 x 768 x 3,072) and
 at split edges (K not a multiple of the split, M past a block's rows),
@@ -239,14 +274,16 @@ ResNet-50 batch-256 bottleneck 1x1 shapes and two tails, bitwise over
 two runs, timed beside its bound, ``matmul_then_stats`` (its library
 yardstick) and ``torch.matmul`` alone.
 
-The 7B serving model is freed before phase 7, and the training model
-before phase 10, and the peak-memory counter reset, so each workload
-reports its own peak.  Before the last line it prints one JSON object
+The 7B serving model is freed before phase 7, the training model
+before phase 10, the ResNet-50 training model before phase 29 and the
+BERT training model before phase 31, and the peak-memory counter reset,
+so each workload reports its own peak.  Before the last line it prints one JSON object
 ``{"kernels": [...]}`` (launches summed over the serving run of phase 4,
 the training run of phase 7, the ResNet run of phase 10, the wide&deep
 run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
 of phases 17 and 18, the online run of phase 20, the ResNet training
-of phase 24 and the A/B of phase 27); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+of phase 24, the A/B of phase 27, the BERT training of phase 29 and the
+BERT serving run of phase 31); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or without the package.
 """
 from __future__ import annotations
@@ -320,6 +357,21 @@ RESNET_TRAIN_FLOPS = 3 * 4.1e9
 RESNET_TRAIN_F32_BATCH = 64
 E2E_AMP_LOSS_REL = 0.02
 E2E_AMP_STATS_RRMS = 0.02
+# the reference bench's BERT pretraining (bench.py:366-418, non-smoke):
+# bert_base, batch 128, seq 128, int(128 * 0.15) = 19 masked positions a
+# sequence, AdamW(1e-4), bf16 AMP, 20 steps (timed over steps 3-20)
+BERT_TRAIN = dict(batch=128, seq=128, steps=20, lr=1e-4)
+# the first loss: ln(vocab) + ln(2) (MLM and NSP at chance) within this
+# distance (the initial logits' spread adds ~0.15)
+BERT_FIRST_LOSS_TOL = 0.5
+# phase 30: the bf16-AMP step against f32 at this batch, dropout off
+BERT_F32_BATCH = 16
+# phase 30's dropout check: elements, probability, keep-rate tolerance
+BERT_DROPOUT = dict(numel=1 << 24, p=0.1, rate_tol=1e-3)
+# the reference inference bench's BERT arm (bench.py:1684-1714): batches
+# 1, 8, 32, 128 of seq 128; one int8_matmul (the pooler) a forward
+BERT_INFER_BATCHES = (1, 8, 32, 128)
+BERT_INFER_SEQ = 128
 
 
 def log(msg: str) -> None:
@@ -377,9 +429,11 @@ def bound_ms(flops: float, peak_flops: float, nbytes: float):
 
 
 # the port's ``record_function`` ranges (batch norm in training, the
-# step's optimizer update); the profiler also lists their device-side
-# spans, which cover kernels and must not be counted as kernels
-ANNOTATIONS = ("batch_norm", "optimizer")
+# step's optimizer update, BERT's layer norm, dropout, attention, GELU,
+# MLM decode and loss); the profiler also lists their device-side spans,
+# which cover kernels and must not be counted as kernels
+ANNOTATIONS = ("batch_norm", "optimizer", "layer_norm", "dropout",
+               "attention", "gelu", "mlm_decode", "loss")
 
 
 def device_kernels(avgs):
@@ -1041,7 +1095,8 @@ def int8_cases(dev):
     batch 1 and at batch 32 (``resnet_int8_gemms``), with each shape's
     calls a forward and the launch-weighted sums a forward of the
     kernel's, the library's and the bound's times; the stem also with f32
-    output (as the reference's convolution calls its kernel) and
+    output (as the reference's convolution calls its kernel), the int8
+    BERT-base's pooler (M = 1, 8, 32, 128; K = N = 768; bf16) and
     weight-only mode at the classifier's shape."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     row = None
@@ -1071,6 +1126,10 @@ def int8_cases(dev):
             f"on those (kernel / library {kern_lib / lib:.3f})")
     _int8_case(dev, g, "conv1 7x7/2 b32", 401408, 147, 64, torch.float32,
                True)
+    # the int8 BERT-base's one int8_matmul a forward: the pooler (phase 31)
+    for M in BERT_INFER_BATCHES:
+        _int8_case(dev, g, f"BERT-base pooler b{M} (1 a forward)", M, 768,
+                   768, torch.bfloat16, True)
     for cdt in (torch.bfloat16, torch.float32):
         for M in RESNET_BATCHES:
             _int8_case(dev, g, f"weight-only fc b{M}", M, 2048, 1000, cdt,
@@ -3422,6 +3481,7 @@ def conv_bn_ab():
 
 
 def _train_class(name: str) -> str:
+    """A device kernel's class in the training profiles (phases 28, 32)."""
     n = name.lower()
     if "dgrad" in n:
         return "conv dgrad"
@@ -3429,14 +3489,22 @@ def _train_class(name: str) -> str:
         return "conv wgrad"
     if "fprop" in n or "conv" in n or "implicit" in n or "winograd" in n:
         return "conv fprop"
-    if "gemm" in n or "cutlass" in n:
+    if any(k in n for k in ("gemm", "cutlass", "nvjet", "xmma")):
         return "gemm"
+    if "softmax" in n:
+        return "softmax"
     if "reduce" in n:
         return "reductions"
     if "pool" in n:
         return "pooling"
     if "nchw" in n or "nhwc" in n or "transpose" in n:
         return "layout"
+    if "philox" in n or "distribution" in n:
+        return "random"
+    if "index" in n or "gather" in n or "scatter" in n or "embedding" in n:
+        return "gather/scatter"
+    if "copy" in n:
+        return "copy/cast"
     if "elementwise" in n or "unrolled" in n or "vectorized" in n:
         return "elementwise"
     return "other"
@@ -3513,6 +3581,380 @@ def profile_resnet_train(dev, step, img, label, steps: int = 2):
             f"  x{e.count // steps}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_class=by_class,
                 ranges=shares)
+
+
+# ---------------------------------------------------------------------
+# phases 29-32: BERT-base pretraining and inference
+# ---------------------------------------------------------------------
+
+def _bert_batch(dev, vocab, batch, seq):
+    """The bench's pretraining batch (``bench.py:392-399``):
+    ``RandomState(0)`` draws the ids, the sorted masked positions (19 a
+    sequence at seq 128), the MLM labels and the NSP labels, in that
+    order."""
+    rng = np.random.RandomState(0)
+    n_mask = max(1, int(seq * 0.15))
+    ids = rng.randint(0, vocab, (batch, seq)).astype("int32")
+    pos = np.sort(rng.randint(0, seq, (batch, n_mask)), axis=1).astype(
+        "int32")
+    mlm = rng.randint(0, vocab, (batch, n_mask)).astype("int64")
+    nsp = rng.randint(0, 2, (batch,)).astype("int64")
+    return tuple(torch.from_numpy(a).to(dev) for a in (ids, pos, mlm, nsp))
+
+
+def _bert_train_step(dev, amp=True, bf16_weights=False, **cfg_kw):
+    """``BertForPretraining(bert_base(**cfg_kw))`` with f32 weights from
+    the seed (dropout masks from the seed + 1) and the bench's step over
+    it: ``BertPretrainingCriterion``, ``AdamW(1e-4)``, bf16 AMP unless
+    ``amp`` is False.  ``bf16_weights`` rounds the f32 weights to bf16
+    values first."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.text.models import (BertForPretraining,
+                                              BertPretrainingCriterion,
+                                              bert_base)
+    cfg = bert_base(**cfg_kw)
+    model = BertForPretraining(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED),
+        dropout_generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    if bf16_weights:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+    strategy = DistributedStrategy()
+    if amp:
+        strategy.amp = True
+        strategy.amp_configs = {"dtype": "bfloat16"}
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    opt = pt.optimizer.AdamW(learning_rate=BERT_TRAIN["lr"],
+                             parameters=list(model.parameters()))
+
+    def loss_fn(ids, pos, mlm, nsp):
+        mlm_logits, nsp_logits = model(ids, masked_positions=pos)
+        return crit(mlm_logits, nsp_logits, mlm, nsp)
+
+    return model, cfg, DistributedTrainStep(model, loss_fn, opt, strategy)
+
+
+def bert_train(dev):
+    """Phase 29: the bench's BERT-base pretraining at batch 128 x seq 128,
+    dropout on: every loss finite, the first within BERT_FIRST_LOSS_TOL
+    of ln(vocab) + ln(2); ms/step (median of steps 3-20), tokens/s, model
+    TFLOP/s and MFU from the bench's analytic count, peak memory; every
+    registered kernel's launch count 0 (the reference runs no Pallas
+    kernel at seq 128: its flash kernel needs 1,024 positions)."""
+    from paddle_tpu_torch.ops.kernels import registry
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, cfg, step = _bert_train_step(dev)
+    b, s = BERT_TRAIN["batch"], BERT_TRAIN["seq"]
+    batch = _bert_batch(dev, cfg.vocab_size, b, s)
+    n_mask = batch[1].shape[1]
+    nparams = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"bert train: model and batch built in "
+        f"{time.perf_counter() - t0:.1f} s ({nparams / 1e6:.2f} M params, "
+        f"{n_mask} masked positions a sequence)")
+    registry.reset_counts()                  # the main path starts here
+    losses, times = [], []
+    for _ in range(BERT_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = registry.launch_counts()        # ... and ends here
+    plain = {k: sp.torch_ref_calls for k, sp in registry.kernels().items()}
+    log("bert train: losses " + " ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"bert train: non-finite loss in {losses}")
+    want = math.log(cfg.vocab_size) + math.log(2.0)
+    if not abs(losses[0] - want) <= BERT_FIRST_LOSS_TOL:
+        fail(f"bert train: first loss {losses[0]:.4f}, want {want:.4f} +- "
+             f"{BERT_FIRST_LOSS_TOL}")
+    ms = statistics.median(times[2:])
+    vh = cfg.vocab_size * cfg.hidden_size
+    flops = 6.0 * (nparams - vh) * b * s + 6.0 * vh * b * n_mask
+    tflops = flops / (ms / 1e3) / 1e12
+    row = dict(batch=b, seq=s, masked=n_mask, steps=len(losses),
+               ms_per_step=ms, first_step_ms=times[0],
+               tokens_per_s=b * s / (ms / 1e3), analytic_tflop=flops / 1e12,
+               model_tflops=tflops, mfu=tflops * 1e12 / PEAK_BF16_FLOPS,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                   dev) / 1e9, first_loss=losses[0], first_loss_want=want,
+               last_loss=losses[-1])
+    log("bert train: " + json.dumps(row))
+    log(f"bert train: launches {counts}, plain-version calls {plain} (all 0 "
+        "by design: at seq 128 the reference runs no Pallas kernel)")
+    if any(counts.values()) or any(plain.values()):
+        fail(f"bert train: kernels ran on the training path: {counts} "
+             f"{plain}")
+    return model, step, batch, counts
+
+
+def bert_train_vs_f32(dev, batch):
+    """Phase 30 (a): one bf16-AMP step against the same step from the f32
+    weights in f32 (TF32 off) at batch ``BERT_F32_BATCH``, dropout off:
+    the loss within ``E2E_AMP_LOSS_REL``, the global gradient's cosine
+    printed beside a control (the f32 step on bf16-rounded weights) and
+    required positive."""
+    n = BERT_F32_BATCH
+    args = tuple(t[:n].contiguous() for t in batch)
+    res = {}
+    for name, amp, rnd in (("amp", True, False), ("f32", False, False),
+                           ("f32 on bf16 weights", False, True)):
+        model, _, step = _bert_train_step(
+            dev, amp=amp, bf16_weights=rnd, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+        loss, grads = step.loss_and_grads(*args)
+        res[name] = (float(loss), torch.cat([g.flatten().double()
+                                             for g in grads]))
+        del model, step, grads
+        torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    f32 = res["f32"]
+    out = {}
+    for name in ("amp", "f32 on bf16 weights"):
+        r = res[name]
+        out[name] = dict(loss=r[0], loss_f32=f32[0],
+                         loss_rel=abs(r[0] - f32[0]) / abs(f32[0]),
+                         grad_cos=cos(r[1], f32[1]),
+                         grad_norm_ratio=float(r[1].norm() / f32[1].norm()))
+        log(f"bert train vs f32 (batch {n}), {name}: "
+            + json.dumps(out[name]))
+    a = out["amp"]
+    if not a["loss_rel"] <= E2E_AMP_LOSS_REL:
+        fail(f"bert train vs f32: loss {a['loss']} against {a['loss_f32']} "
+             f"(relative {a['loss_rel']:.4g} > {E2E_AMP_LOSS_REL})")
+    if not a["grad_cos"] > 0:
+        fail(f"bert train vs f32: the bf16 gradient is not a descent "
+             f"direction of the f32 loss (cosine {a['grad_cos']:.4g})")
+    return out
+
+
+def dropout_on_card(dev):
+    """Phase 30 (b): ``nn.functional.dropout`` on 2^24 f32 elements at p =
+    0.1 on the card: the keep rate within 0.9 +- 0.001; the output
+    bitwise ``where(keep, x / f32(0.9), 0)`` with the mask replayed from
+    the generator and the quotient correctly rounded (f64, rounded once);
+    the same seed gives the same mask, another seed another."""
+    from paddle_tpu_torch.nn.functional import dropout
+    n, p = BERT_DROPOUT["numel"], BERT_DROPOUT["p"]
+    x = torch.randn(n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 7))
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    y, again, other = (dropout(x, p, generator=gen(sd))
+                       for sd in (SEED, SEED, SEED + 1))
+    keep = torch.rand(n, generator=gen(SEED), device=dev) < 1.0 - p
+    div = (x.double() / float(np.float32(1.0 - p))).float()
+    want = torch.where(keep, div, torch.zeros((), device=dev))
+    recip = x * float(np.float32(1.0) / np.float32(1.0 - p))
+    rate = float(keep.double().mean())
+    row = dict(numel=n, p=p, keep_rate=rate,
+               bitwise_divided=bool(torch.equal(y, want)),
+               same_seed_same_mask=bool(torch.equal(y, again)),
+               other_seed_other_mask=not bool(torch.equal(y, other)),
+               kept_values_a_reciprocal_multiply_would_change=int(
+                   (keep & (recip != div)).sum()),
+               ms=cuda_ms(lambda: dropout(x, p, generator=gen(SEED))))
+    log("dropout on the card: " + json.dumps(row))
+    if not abs(rate - (1.0 - p)) <= BERT_DROPOUT["rate_tol"]:
+        fail(f"dropout: keep rate {rate:.6f}, want {1 - p} +- "
+             f"{BERT_DROPOUT['rate_tol']}")
+    if not (row["bitwise_divided"] and row["same_seed_same_mask"]
+            and row["other_seed_other_mask"]):
+        fail(f"dropout: {row}")
+    return row
+
+
+def bert_models(dev):
+    """The reference inference bench's BERT pair (``bench.py:1690-1696``):
+    ``BertModel(bert_base())`` cast to bf16, and a second copy from the
+    same f32 weights converted with ``convert_to_int8_inference`` (dynamic:
+    only the pooler is a ``Linear``) and cast the same way."""
+    from paddle_tpu_torch.quantization import convert_to_int8_inference
+    from paddle_tpu_torch.text.models import BertModel, bert_base
+
+    def make():
+        return BertModel(bert_base(), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED))
+
+    return (_cast_bf16(make().eval()),
+            _cast_bf16(convert_to_int8_inference(make())))
+
+
+def _bert_ids(rng, b):
+    return torch.from_numpy(rng.randint(0, 30522, (b, BERT_INFER_SEQ))
+                            .astype(np.int32))
+
+
+def bert_serve(dev, bf16_model, int8_model):
+    """Phase 31: per-forward ms (median of 20 CUDA-event timings),
+    sequences/s, device busy ms and peak memory of the bf16 and the int8
+    BERT-base at each batch, and the bench's ``int8_speedup``; every int8
+    forward must launch ``int8_matmul`` exactly once in dynamic mode, no
+    bf16 forward any kernel.  Then, at batch 32, the int8 pooled output
+    bitwise against the plain version's (``set_kernel_mode(model,
+    "torch_ref")``) and, for information, its largest distance from the
+    bf16 model's."""
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.quantization import set_kernel_mode
+    forwards = collections.Counter()
+
+    def counted(name, model):
+        def fwd(ids):
+            forwards[name] += 1
+            return model(ids)
+        return fwd
+
+    # a fresh RandomState(0), batch by batch (the bench's shares its
+    # generator with the ResNet sweep before it)
+    rng = np.random.RandomState(0)
+    res = []
+    registry.reset_counts()                  # the main path starts here
+    with torch.no_grad():
+        for b in BERT_INFER_BATCHES:
+            ids = _bert_ids(rng, b).to(dev)
+            row = dict(batch=b, seq=BERT_INFER_SEQ)
+            for name, fn in (("int8", counted("int8", int8_model)),
+                             ("bf16", counted("bf16", bf16_model))):
+                seq, pooled = fn(ids)
+                torch.cuda.synchronize()
+                ok = (tuple(seq.shape) == (b, BERT_INFER_SEQ, 768)
+                      and tuple(pooled.shape) == (b, 768)
+                      and bool(torch.isfinite(seq.float()).all())
+                      and bool(torch.isfinite(pooled.float()).all()))
+                if not ok:
+                    fail(f"bert {name} batch {b}: outputs "
+                         f"{tuple(seq.shape)} {tuple(pooled.shape)} not "
+                         "of the expected shape or not finite")
+                del seq, pooled
+                torch.cuda.reset_peak_memory_stats(dev)
+                ms = cuda_ms(lambda: fn(ids))
+                row[f"{name}_ms"] = ms
+                row[f"{name}_sequences_per_s"] = b / (ms / 1e3)
+                row[f"{name}_max_memory_allocated_gb"] = (
+                    torch.cuda.max_memory_allocated(dev) / 1e9)
+                row[f"{name}_device_busy_ms"] = profile_calls(
+                    lambda: fn(ids))[1]
+            row["int8_speedup"] = row["bf16_ms"] / row["int8_ms"]
+            res.append(row)
+            log("bert serve: " + json.dumps(row))
+    counts = registry.launch_counts()        # ... and ends here
+    by_mode = registry.spec("int8_matmul").mode_launches
+    modes = {k: by_mode.get(k, 0) for k in ("dynamic", "weight_only")}
+    want = dict.fromkeys(counts, 0)
+    want["int8_matmul"] = forwards["int8"]
+    want_modes = {"dynamic": forwards["int8"], "weight_only": 0}
+    log(f"bert serve: {forwards['int8']} int8 and {forwards['bf16']} bf16 "
+        f"forwards, launches {counts} (want {want}), int8_matmul by mode "
+        f"{modes} (want {want_modes})")
+    if counts != want or modes != want_modes:
+        fail(f"bert serve: launches {counts} by mode {modes}, want {want} "
+             f"by mode {want_modes}")
+    # the pooler alone (host and device, between events): where the int8
+    # forward's wall time differs from the bf16 forward's
+    with torch.no_grad():
+        for row in res:
+            h0 = torch.randn(row["batch"], 768, device=dev).to(torch.bfloat16)
+            for name, model in (("int8", int8_model), ("bf16", bf16_model)):
+                row[f"{name}_pooler_ms"] = cuda_ms(lambda: model.pooler(h0))
+            log(f"bert serve: the pooler alone at batch {row['batch']}: "
+                f"int8 {row['int8_pooler_ms']:.4f} ms, bf16 "
+                f"{row['bf16_pooler_ms']:.4f} ms a call")
+    ids = _bert_ids(np.random.RandomState(1), 32).to(dev)
+    with torch.no_grad():
+        ker = int8_model(ids)[1]
+        set_kernel_mode(int8_model, "torch_ref")
+        try:
+            plain = int8_model(ids)[1]
+        finally:
+            set_kernel_mode(int8_model, None)
+        ref = bf16_model(ids)[1]
+    torch.cuda.synchronize()
+    equal = torch.equal(ker, plain)
+    dist = float((ker.float() - ref.float()).abs().max())
+    log(f"bert end to end (batch 32): the int8 pooled output with the "
+        f"kernel {'bitwise equal to' if equal else 'DIFFERS from'} the "
+        f"plain version's; max |int8 - bf16| pooled {dist:.4g}")
+    if not equal:
+        d = float((ker.float() - plain.float()).abs().max())
+        fail(f"bert end to end: the int8 pooled output differs from the "
+             f"plain version's by up to {d:.4g}")
+    return counts, res
+
+
+def profile_bert_train(dev, step, batch, steps: int = 2):
+    """Phase 32: ``torch.profiler`` over 2 training steps of phase 29's
+    model: device busy time against wall time, the top device kernels,
+    device time by kernel class and under the forward's ``layer_norm``,
+    ``dropout``, ``attention``, ``gelu``, ``mlm_decode`` and ``loss``
+    ranges and the ``optimizer`` range, and the largest allocations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    avgs = prof.key_averages()
+    kern = device_kernels(avgs)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    n_kern = sum(e.count for e in kern) // steps
+    log(f"profile bert train: wall {wall_ms:.2f} ms/step, device busy "
+        f"{busy_ms:.2f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{n_kern} kernels/step")
+    check_busy("profile bert train (phase 32)", busy_ms, wall_ms)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/step  x{e.count // steps}")
+    by_class = {}
+    for e in kern:
+        c = _train_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total
+    log("profile bert train: device ms/step by kernel class (forward and "
+        "backward):")
+    for c, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"  {c:14s} {t / 1e3 / steps:8.3f} ms/step "
+            f"({t / 1e3 / steps / busy_ms:.3f} of busy)")
+    cpu = {e.key: e for e in avgs if e.device_type == DeviceType.CPU}
+    log("profile bert train: device ms/step under each range (inclusive; "
+        "the forward's ranges hold no backward kernel; attention holds "
+        "its dropout):")
+    ranges = {}
+    for name in ("layer_norm", "dropout", "attention", "gelu", "mlm_decode",
+                 "loss", "optimizer"):
+        t = cpu[name].device_time_total if name in cpu else 0.0
+        ranges[name] = t / 1e3 / steps
+        log(f"  {name:12s} {ranges[name]:8.3f} ms/step "
+            f"({ranges[name] / busy_ms:.3f} of busy)  "
+            f"x{(cpu[name].count if name in cpu else 0) // steps}")
+
+    def mem(e):
+        return getattr(e, "self_device_memory_usage", 0) or 0
+
+    log("profile bert train: device memory allocated by op itself "
+        "(GB/step):")
+    for e in sorted(avgs, key=lambda e: -mem(e))[:8]:
+        log(f"  {e.key[:60]:60s} {mem(e) / 1e9 / steps:8.3f} GB/step"
+            f"  x{e.count // steps}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_class=by_class,
+                ranges=ranges)
 
 
 def check_ptxas(source, match, entries=None):
@@ -3768,13 +4210,37 @@ def main() -> int:
     # 28. where a ResNet-50 training step's time goes
     profile_resnet_train(dev, rn_step, rn_img, rn_label)
     del rn_model, rn_step, rn_img, rn_label
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 29. BERT-base pretraining at the bench's configuration
+    bt_model, bt_step, bt_batch, bt_counts = bert_train(dev)
+
+    # 30. the bf16-AMP step against f32, and dropout on the card
+    bert_train_vs_f32(dev, bt_batch)
+    dropout_on_card(dev)
+
+    # 32. where a BERT training step's time goes (before phase 31 frees
+    # the training model)
+    profile_bert_train(dev, bt_step, bt_batch)
+    del bt_model, bt_step, bt_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 31. serve bf16 and int8 BERT-base
+    bert_bf16, bert_int8 = bert_models(dev)
+    bs_counts, _ = bert_serve(dev, bert_bf16, bert_int8)
+    del bert_bf16, bert_int8
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, s in registry.kernels().items():
         launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
                                          wd_counts, q8_counts, el_counts,
                                          el2_counts, online_counts,
-                                         rn_counts, ab_counts))
+                                         rn_counts, ab_counts, bt_counts,
+                                         bs_counts))
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name]))

@@ -19,7 +19,10 @@ state through the step uncast.  A layer that updates a buffer in its
 forward does so once per step: the recomputation under
 ``strategy.recompute`` runs with every buffer restored afterwards to the
 value the step's forward left, as the reference's functional
-``jax.checkpoint`` updates it once.
+``jax.checkpoint`` updates it once.  The recomputation also replays the
+model's dropout generators (every ``torch.Generator`` held as a
+module's ``generator``) from their state at the forward's start, so it
+draws the masks the forward drew.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
 queue item 4): float16 loss scaling, ZeRO sharding, DGC, gradient
@@ -29,7 +32,7 @@ than one device.
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -110,6 +113,9 @@ class DistributedTrainStep:
             self._names.append(n)
         self._params = list(optimizer._parameter_list)
         self._wrapper = _LossModule(model, loss_fn)
+        gens = (getattr(m, "generator", None) for m in model.modules())
+        self._generators = list({id(g): g for g in gens
+                                 if isinstance(g, torch.Generator)}.values())
 
     def _amp_cast(self, t):
         if (self._amp and isinstance(t, torch.Tensor)
@@ -130,6 +136,32 @@ class DistributedTrainStep:
                 for b, v in zip(bufs, saved):
                     b.copy_(v)
 
+    def _recompute_contexts(self):
+        """The (forward, recomputation) contexts of ``checkpoint``: the
+        recomputation starts the dropout generators where the forward
+        started them, and leaves them and every buffer as the forward
+        left them."""
+        start = []
+
+        @contextmanager
+        def forward():
+            start[:] = [g.get_state() for g in self._generators]
+            yield
+
+        @contextmanager
+        def recompute():
+            after = [g.get_state() for g in self._generators]
+            for g, st in zip(self._generators, start):
+                g.set_state(st)
+            try:
+                with self._buffers_kept():
+                    yield
+            finally:
+                for g, st in zip(self._generators, after):
+                    g.set_state(st)
+
+        return forward(), recompute()
+
     def loss_and_grads(self, *args):
         """The f32 loss of ``loss_fn(*args)`` and the gradients of the
         optimizer's parameters (f32 for f32 masters), without a parameter
@@ -146,8 +178,7 @@ class DistributedTrainStep:
 
         if self._recompute:
             loss = checkpoint(run, *cast, use_reentrant=False,
-                              context_fn=lambda: (nullcontext(),
-                                                  self._buffers_kept()))
+                              context_fn=self._recompute_contexts)
         else:
             loss = run(*cast)
         loss = loss.float()

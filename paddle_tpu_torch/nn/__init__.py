@@ -1,3 +1,4 @@
 from . import functional, layer  # noqa: F401
 from .layer import (  # noqa: F401
-    AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU)
+    GELU, AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Embedding,
+    LayerNorm, Linear, MaxPool2D, ReLU, Tanh)

@@ -3,23 +3,25 @@
 
 Inputs in paddle layout (B, S, H, D).  The causal mask is aligned to the
 bottom-right corner (``tril(ones(Sq, Sk), Sk - Sq)``) as the reference
-has it; masked logits are -1e30, not -inf.  The Llama prefill and
-training forward go through
+has it; masked logits are -1e30, not -inf.  ``mask`` is added to the
+logits.  With ``dropout_p > 0`` and a ``generator`` the softmax weights
+go through :func:`.common.dropout` (kept weights divided by ``1 - p``),
+as the reference drops them when given a ``dropout_key``; without a
+generator no dropout is applied, as the reference without a key.  The
+Llama prefill and training forward go through
 :func:`..ops.kernels.flash_attention.flash_attention` at flash-eligible
-shapes; this is the attention of the others.
+shapes; this is the attention of the others and of BERT.
 """
 from __future__ import annotations
 
 import torch
 
+from .common import dropout
+
 __all__ = ["_sdpa_ref"]
 
 
-def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout arrives with the BERT slice (ROADMAP queue "
-            "item 7)")
+def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale, generator=None):
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     s = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
@@ -33,4 +35,6 @@ def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
     if mask is not None:
         logits = logits + mask
     w = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0 and generator is not None:
+        w = dropout(w, dropout_p, generator=generator)
     return torch.matmul(w, vh).transpose(1, 2)

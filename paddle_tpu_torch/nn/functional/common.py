@@ -1,5 +1,5 @@
-"""linear / embedding / silu / relu / flatten / batch_norm with the
-reference's dtype behaviour.
+"""linear / embedding / silu / relu / flatten / batch_norm / layer_norm /
+dropout with the reference's dtype behaviour.
 
 ``linear`` promotes like ``jnp.matmul`` (see :func:`..framework.dtype.
 promote`): a bf16 activation times an f32 weight computes and returns
@@ -9,17 +9,30 @@ f32, which is what the JAX model's residual stream relies on.
 (``paddle_tpu/nn/functional/common.py:287-410``): f32 two-pass moments
 and a closed-form backward.  The reference left it to XLA with no Pallas
 kernel, so plain PyTorch is the port.
+
+``layer_norm`` is the reference's closed form (``common.py:413-439``):
+f32 moments whatever the input dtype, the scale and shift in f32, one
+cast back to the input's dtype.  The reference routes the scale and shift
+through a custom vjp (``_scale_shift``) only to steer XLA's fusion; plain
+autograd of the same expression gives the same gradients.
+
+``dropout`` draws its keep mask from an explicit ``torch.Generator`` on
+the tensor's device, never from torch's global generator, and divides
+the kept values by ``1 - p`` (a 0-dim tensor on the data's device: a
+Python scalar would make PyTorch's CUDA division multiply by the
+reciprocal).  The masks have no bit parity with ``jax.random``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as tF
 
 from ...framework.dtype import promote
 
 __all__ = ["linear", "embedding", "silu", "relu", "flatten", "batch_norm",
-           "BatchNormTrain"]
+           "BatchNormTrain", "layer_norm", "dropout"]
 
 
 def linear(x, weight, bias=None):
@@ -31,9 +44,82 @@ def linear(x, weight, bias=None):
     return out
 
 
-def embedding(ids, weight):
-    """Row gather ``weight[ids]``."""
-    return weight[ids.long()]
+def embedding(ids, weight, padding_idx=None, sparse=False):
+    """Row gather ``weight[ids]``; rows of ``padding_idx`` come out zero
+    (and so pass no gradient), as the reference's dense path.  The gather
+    is ``torch.nn.functional.embedding``, whose backward sums each row's
+    duplicates in parallel segments: the backward of an indexing
+    ``weight[ids]`` walks a row's duplicates one after another, which on
+    the card took 14.1 ms of a BERT-base step for its three embeddings
+    (the token-type table has two rows for 16,384 ids; PERF.md section
+    6)."""
+    if sparse:
+        raise NotImplementedError(
+            "embedding(sparse=True), the eager SelectedRows gradient, is "
+            "not ported yet (ROADMAP queue item 4); use the dense path")
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.long()
+    out = tF.embedding(ids, weight)
+    if padding_idx is not None:
+        out = torch.where((ids == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype, device=out.device),
+                          out)
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """Normalise over the trailing ``normalized_shape`` dims: f32 mean and
+    biased variance, ``(x - m) * rsqrt(var + eps)``, then ``* weight +
+    bias`` in f32, cast back to ``x``'s dtype (the module docstring)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    with torch.profiler.record_function("layer_norm"):
+        vf = x.float()
+        d = vf - torch.mean(vf, dim=dims, keepdim=True)
+        out = d * torch.rsqrt(torch.mean(d * d, dim=dims, keepdim=True)
+                              + epsilon)
+        if weight is not None:
+            out = out * weight.float() + bias.float()
+        return out.to(x.dtype)
+
+
+_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """The reference's ``dropout``: in training, keep each element (or, with
+    ``axis``, each slice along those axes) with probability ``1 - p``;
+    ``upscale_in_train`` divides the kept values by ``1 - p``,
+    ``downscale_in_infer`` keeps them as they are.  ``training=False`` or
+    ``p == 0`` returns ``x`` itself, in either mode (as the reference).
+    ``generator`` (a ``torch.Generator`` on ``x``'s device) draws the
+    mask and is required whenever one is drawn."""
+    if mode not in _DROPOUT_MODES:
+        raise ValueError(f"dropout mode must be one of {_DROPOUT_MODES}, "
+                         f"got {mode!r}")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout p must be in [0, 1], got {p}")
+    if not training or p == 0:
+        return x
+    if generator is None:
+        raise ValueError("dropout draws its mask from an explicit "
+                         "torch.Generator on the tensor's device; pass "
+                         "generator=")
+    if axis is None:
+        shape = x.shape
+    else:
+        axes = {a % x.dim() for a in (axis if isinstance(axis, (list, tuple))
+                                      else [axis])}
+        shape = tuple(n if i in axes else 1 for i, n in enumerate(x.shape))
+    with torch.profiler.record_function("dropout"):
+        keep = torch.rand(shape, generator=generator,
+                          device=x.device) < 1.0 - p
+        if mode == "upscale_in_train":
+            x = x / torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
 
 
 def silu(x):

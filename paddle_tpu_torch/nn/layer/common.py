@@ -1,4 +1,5 @@
-"""Single-device linear and embedding layers, and the initializers.
+"""Single-device linear and embedding layers, dropout, and the
+initializers.
 
 Counterparts of ``distributed/meta_parallel.py``'s
 ``ColumnParallelLinear``, ``RowParallelLinear`` and
@@ -8,6 +9,14 @@ Counterparts of ``distributed/meta_parallel.py``'s
 ``state_dict`` loads without transposes.  Weights are created directly on
 ``device`` in ``dtype`` and drawn from an explicit ``torch.Generator``
 (``None``: PyTorch's default generator).
+
+``Embedding`` is the reference's plain embedding (``nn/layer/common.py:
+62``: N(0, 1) weights, ``padding_idx``).  ``Dropout`` (``:122``) draws
+its masks from the ``torch.Generator`` it holds: the one it is given, or
+one on ``device`` seeded from the global seed (see
+:func:`paddle_tpu_torch.make_generator`).  Layers that should draw
+different masks share one generator (the BERT model passes its own to
+every dropout).
 
 ``Linear`` is not a base of the parallel layers:
 ``quantization.convert_to_int8_inference`` swaps every ``Linear`` and,
@@ -21,12 +30,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ... import resolve_device
+from ... import make_generator, resolve_device
 from ..functional import common as F
 
 __all__ = ["Normal", "Constant", "XavierNormal", "KaimingNormal", "Linear",
            "ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "Embedding", "Dropout"]
 
 
 class Normal:
@@ -122,3 +131,36 @@ class VocabParallelEmbedding(nn.Module):
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx=None, sparse: bool = False, weight_attr=None,
+                 *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._padding_idx = padding_idx
+        self._sparse = sparse
+        self.weight = _param((num_embeddings, embedding_dim),
+                             weight_attr or Normal(0.0, 1.0),
+                             resolve_device(device), dtype, generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self.generator = (generator if generator is not None
+                          else make_generator(device))
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"

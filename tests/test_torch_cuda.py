@@ -684,3 +684,91 @@ def test_resnet50_training_step_on_card():
     assert m.bn1._mean.dtype == torch.float32
     assert bool(m.bn1._mean.abs().sum() > 0)
     assert all(v == 0 for v in registry.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_int8_matmul_at_the_bert_pooler_on_card():
+    """Dynamic mode at the int8 BERT-base's pooler (M = 1, 8, 32, 128;
+    K = N = 768; bf16 output): bitwise equal to the plain version and to
+    itself on a rerun."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py phase 3 runs the same shapes")
+    from paddle_tpu_torch.ops.kernels import int8_matmul as im
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    for i, M in enumerate((1, 8, 32, 128)):
+        xq, w, ws, _ = _int8_mm_case(60 + i, M, 768, 768, dev)
+        xs = torch.tensor(0.0071, device=dev)
+        got, again = (im.int8_matmul(xq, w, ws, x_scale=xs)
+                      for _ in range(2))
+        ref = im.int8_matmul(xq, w, ws, x_scale=xs, mode="torch_ref")
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (M, 768)
+        assert torch.equal(got, ref), M
+        assert torch.equal(again, got), M
+    assert registry.launch_counts()["int8_matmul"] == 8
+
+
+@pytest.mark.cuda
+def test_bert_training_step_and_int8_pooler_on_card():
+    """One bf16-AMP AdamW step of a 2-layer BERT-base-wide pretraining
+    model at batch 4 x seq 128 with dropout on: a finite f32 loss near
+    ln(vocab) + ln(2), f32 masters, the tied word embedding one parameter,
+    and no kernel launched (the reference runs none at seq 128).  Then
+    the int8 BertModel from the same weights: one dynamic
+    ``int8_matmul`` launch a forward, its pooled output bitwise the plain
+    version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py phases 29-31 run "
+                    "BERT-base at the bench's sizes")
+    import math
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.quantization import (convert_to_int8_inference,
+                                               set_kernel_mode)
+    from paddle_tpu_torch.text.models import (BertForPretraining, BertModel,
+                                              BertPretrainingCriterion,
+                                              bert_base)
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    cfg = bert_base(num_hidden_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    m = BertForPretraining(cfg, device=dev, generator=gen)
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "bfloat16"}
+
+    def loss_fn(ids, pos, mlm, nsp):
+        lg, ns = m(ids, masked_positions=pos)
+        return crit(lg, ns, mlm, nsp)
+
+    step = DistributedTrainStep(m, loss_fn, pt.optimizer.AdamW(
+        1e-4, parameters=list(m.parameters())), s)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), device=dev,
+                        generator=gen, dtype=torch.int32)
+    pos = torch.randint(0, 128, (4, 19), device=dev, generator=gen).sort(
+        dim=1).values.int()
+    mlm = torch.randint(0, cfg.vocab_size, (4, 19), device=dev, generator=gen)
+    nsp = torch.randint(0, 2, (4,), device=dev, generator=gen)
+    loss = step(ids, pos, mlm, nsp)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert abs(loss.item() - math.log(cfg.vocab_size) - math.log(2)) < 0.5
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    names = [n for n, _ in m.named_parameters()]
+    assert "bert.embeddings.word_embeddings.weight" in names
+    assert not any("decoder" in n for n in names)
+    assert all(v == 0 for v in registry.launch_counts().values())
+    q = BertModel(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(5))
+    convert_to_int8_inference(q)
+    with torch.no_grad():
+        pooled = q(ids)[1]
+        assert registry.launch_counts()["int8_matmul"] == 1
+        assert registry.spec("int8_matmul").mode_launches["dynamic"] == 1
+        set_kernel_mode(q, "torch_ref")
+        plain = q(ids)[1]
+    assert torch.equal(pooled, plain)
