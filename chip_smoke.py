@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and the registers/shared memory ptxas reports (and the dynamic shared
    memory, tiles and stages of the Hopper flash forward and backward); a
    spill in ``segment_sum.cu`` (kernels 7 and 8), in the two sm90
-   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3) or in the
+   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3), in the
+   option entries (bias row, dropout) of both flash sources or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
    six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
    4) or the nine ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's
@@ -223,7 +224,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     bitwise the plain version's (``set_kernel_mode(model, "torch_ref")``),
     and its largest distance from the bf16 model's is printed.
 
-Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32) prints the idle share
+33. kernels 1-3's options against their plain versions: the keep mask
+    of ``csrc/dropout.cuh`` (its debug entry) bitwise against
+    ``dropout_keep_mask`` at phase 34's and 35's attention shapes, the
+    keep rate within 5 sigma of 1 - p; kernel 1 with the bias row at the
+    translation encoder's shape (B 8, H 8, S 1,024, D 64, seeded padding)
+    in f32 and bf16 and at head_dim 128 in bf16; kernels 1-3 with dropout
+    (p 0.1) at ERNIE's shape (B 8, H 12, S 2,048, D 64), bf16 and f32,
+    causal and not; each within ``CARD_TOL`` / ``CARD_TOL_BWD`` of its
+    plain version with the same seed and bitwise on a rerun, timed queued
+    beside its bound (operations at 989 / 67 TFLOP/s), its plain version
+    and SDPA with the same float mask or with ``dropout_p`` (yardsticks
+    only: their masks differ);
+34. train ERNIE-3.0-base (``bert_base(vocab_size=40000,
+    max_position_embeddings=2048, type_vocab_size=4)``, dropout 0.1) at
+    batch 8 x seq 2,048 with bf16 AMP and AdamW 1e-4, 307 masked
+    positions a sequence, no padding mask: ms/step, tokens/s, MFU, peak
+    memory; kernels 1-3 launch 12 times a step each, all with dropout;
+    one step with the kernels against one with their plain versions from
+    the same weights and generator state (the same masks), bf16 AMP and
+    f32: the loss and each attention parameter's gradient within
+    ``ERNIE_E2E``, which two planted faults (a different mask, a
+    backward's mask unlike its forward's) must break; ``torch.profiler``
+    over 2 steps: kernels 1-3's device ms a step and the idle share;
+35. ``transformer_base(max_len=1024)`` (f32 weights from the seed)
+    translating 8 sources of seeded lengths 512-1,024: the encoder memory
+    with kernel 1's bias row against the plain versions, then
+    ``greedy_translate`` and ``beam_translate`` (4 beams) of 32 tokens:
+    ms per call and 6 launches of kernel 1 a call, each with the bias
+    row.
+
+Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
 Phase 3 also holds ``int8_matmul`` against its plain version at every
@@ -282,9 +313,13 @@ so each workload reports its own peak.  Before the last line it prints one JSON 
 the training run of phase 7, the ResNet run of phase 10, the wide&deep
 run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
 of phases 17 and 18, the online run of phase 20, the ResNet training
-of phase 24, the A/B of phase 27, the BERT training of phase 29 and the
-BERT serving run of phase 31); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, without a CUDA device or without the package.
+of phase 24, the A/B of phase 27, the BERT training of phase 29, the
+BERT serving run of phase 31, the ERNIE training of phase 34 and the
+translation calls of phase 35; kernels 1-3 also carry their launches by
+mode, ``bias`` or ``dropout``, of phases 34 and 35, and their options'
+phase-33 numbers); the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, without a CUDA device or without
+the package.
 """
 from __future__ import annotations
 
@@ -1647,7 +1682,7 @@ def resnet_end_to_end(dev, bf16_model, int8_model, wonly_model):
     version must be bitwise equal, the weight-only logits within
     CARD_TOL[bf16] of the plain version's and bitwise on a rerun; top-1
     agreement with the bf16 model for information."""
-    from paddle_tpu_torch.quantization import set_kernel_mode
+    from paddle_tpu_torch.ops.kernels.registry import set_kernel_mode
     x = _images(dev, 32)
     with torch.no_grad():
         ker = int8_model(x)
@@ -3499,6 +3534,8 @@ def _train_class(name: str) -> str:
         return "pooling"
     if "nchw" in n or "nhwc" in n or "transpose" in n:
         return "layout"
+    if "flash_" in n:
+        return "flash kernels"
     if "philox" in n or "distribution" in n:
         return "random"
     if "index" in n or "gather" in n or "scatter" in n or "embedding" in n:
@@ -3809,7 +3846,7 @@ def bert_serve(dev, bf16_model, int8_model):
     "torch_ref")``) and, for information, its largest distance from the
     bf16 model's."""
     from paddle_tpu_torch.ops.kernels import registry
-    from paddle_tpu_torch.quantization import set_kernel_mode
+    from paddle_tpu_torch.ops.kernels.registry import set_kernel_mode
     forwards = collections.Counter()
 
     def counted(name, model):
@@ -3957,6 +3994,589 @@ def profile_bert_train(dev, step, batch, steps: int = 2):
                 ranges=ranges)
 
 
+# ---------------------------------------------------------------------
+# phases 33-35: the flash kernels' options, ERNIE-3.0-base pretraining
+# at 2,048 positions, Transformer-base translation of 1,024-token sources
+# ---------------------------------------------------------------------
+
+# ERNIE 3.0 base (PaddleNLP's ernie-3.0-base-zh): BERT-base geometry
+# (hidden 768, 12 layers, 12 heads of 64, FFN 3,072, dropout 0.1) with a
+# 40,000-id vocabulary, 2,048 learned positions and 4 token types,
+# trained as the bench trains BERT (bench.py:366-418: AdamW 1e-4, bf16
+# AMP, 15 % masked positions, no padding mask) at batch 8 x seq 2,048:
+# the bench's 16,384 tokens a step, int(2048 * 0.15) = 307 masked a
+# sequence.  Left out: ERNIE 3.0's task-type embedding (use_task_id),
+# which the reference's BertConfig has no table for.
+ERNIE_CFG = dict(vocab_size=40000, max_position_embeddings=2048,
+                 type_vocab_size=4)
+ERNIE_TRAIN = dict(batch=8, seq=2048, steps=6)
+# phase 34's kernels-against-plain step, per precision: the loss's
+# relative distance and the worst attention leaf's relative L2 distance
+# at most these.  Each limit lies between the sound step's reading and
+# the planted faults' (this function in my chip call 5, PR 15, NVIDIA
+# H100 80GB HBM3, 700 W; a rerun agreed to 1e-3 of each reading), near
+# their geometric mean:
+# bf16 AMP, where the kernels round P to bf16 per 64-key tile and the
+# plain versions do not, read loss 6.1e-5 and worst leaf 0.0144 sound
+# against 1.4e-4 (the forward's fault) and 0.0252-0.0262 faulty; f32
+# read loss 0 and worst leaf 1.8e-6 sound against 6.6e-5 and 0.0204-0.0211
+ERNIE_E2E = {"bf16": dict(loss_rel=9e-5, attn_grad_rel=0.019),
+             "f32": dict(loss_rel=1e-6, attn_grad_rel=2e-4)}
+# the repo's WMT Transformer base (text/models/transformer.py) with a
+# 1,024-position table (sinusoidal: no weight changes): 8 sources of
+# seeded lengths 512-1,024 padded with pad id 0; greedy and 4-beam
+# decoding of 32 tokens, f32 (the reference's dtype for this model)
+MT_SRC = dict(batch=8, seq=1024, min_len=512, decode=32, beam=4)
+# phase 35: the encoder memory with kernels against plain versions, at
+# most this share of the memory's largest |value| apart (f32 kernels
+# within 1e-4 of the plain attention, through 6 pre-norm layers)
+MT_MEMORY_TOL = 1e-4
+# phase 33's dropout probability and the keep rate's band in sigmas
+OPT_P, OPT_SIGMAS = 0.1, 5.0
+
+
+def _pad_bias(dev, B, S, dt, seed):
+    """The translation encoder's padding row: 0 on each source's seeded
+    length (MT_SRC's range), -1e9 on its pads, [B, 1, 1, S] in ``dt``."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(MT_SRC["min_len"], S + 1, B)
+    row = np.where(np.arange(S)[None, :] < lens[:, None], 0.0, -1e9)
+    return torch.from_numpy(row.astype(np.float32)[:, None, None, :]).to(
+        dev, dt)
+
+
+def _turns(calls, rounds=2):
+    """Each call queued behind a spinning kernel, in turns, ``rounds``
+    times; the lower of each kept."""
+    runs = [{n: queued_ms(f) for n, f in calls.items()}
+            for _ in range(rounds)]
+    return {n: min(r[n] for r in runs) for n in calls}
+
+
+def keep_mask_cases(dev):
+    """Phase 33 (a): the device header's keep mask (its debug entry, one
+    element a thread) bitwise against ``dropout_keep_mask`` at both paths'
+    full shapes (ERNIE's B 8 x H 12 x 2,048^2 and the translation
+    encoder's B 8 x H 8 x 1,024^2) and at an odd block; the keep rate
+    within OPT_SIGMAS sigma of 1 - p."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        dropout_keep_mask, dropout_keep_mask_cuda, dropout_seed)
+    seed = dropout_seed(torch.Generator(device=dev).manual_seed(SEED + 33))
+    eb, es = ERNIE_TRAIN["batch"], ERNIE_TRAIN["seq"]
+    mb, ms = MT_SRC["batch"], MT_SRC["seq"]
+    out = {}
+    for label, shape in (("ernie", (eb, 12, es, es, 0, 0)),
+                         ("translation", (mb, 8, ms, ms, 0, 0)),
+                         ("odd block", (2, 3, 33, 65, 7, 1021))):
+        got = dropout_keep_mask_cuda(seed, *shape[:4], OPT_P, *shape[4:])
+        want = dropout_keep_mask(seed, *shape[:4], OPT_P, *shape[4:])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"keep mask {label} {shape}: the device header's mask "
+                 f"differs from dropout_keep_mask at "
+                 f"{int((got != want).sum())} elements")
+        n = got.numel()
+        rate = got.double().mean().item()
+        sigma = math.sqrt(OPT_P * (1 - OPT_P) / n)
+        out[label] = dict(elements=n, keep_rate=rate,
+                          sigmas=(rate - (1 - OPT_P)) / sigma)
+        if abs(rate - (1 - OPT_P)) > OPT_SIGMAS * sigma:
+            fail(f"keep mask {label}: keep rate {rate:.6f} more than "
+                 f"{OPT_SIGMAS} sigma from {1 - OPT_P}")
+        del got, want
+    log("keep mask (device header vs dropout_keep_mask, p = "
+        f"{OPT_P}): bitwise; " + json.dumps(out))
+    return out
+
+
+def bias_cases(dev):
+    """Phase 33 (b): kernel 1 with the bias row at the translation
+    encoder's shape (B 8, H 8, S 1,024, D 64; seeded padding) in bf16 and
+    f32, and at head_dim 128 in bf16 (the mma.sync route): within
+    ``CARD_TOL`` of the plain versions (bf16: the blockwise one at the
+    kernel's key tile), bitwise on a rerun; timed queued beside its bound
+    (operations at 989 / 67 TFLOP/s), its plain version and SDPA with the
+    same float [B, 1, 1, S] mask (a yardstick only).  Returns the rows by
+    label."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        CARD_TOL, flash_attention_bhsd, flash_attention_blockwise_ref,
+        flash_attention_ref, flash_fwd_plan)
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    B, S = MT_SRC["batch"], MT_SRC["seq"]
+    rows = {}
+    for dt, H, D in ((torch.float32, 8, 64), (torch.bfloat16, 8, 64),
+                     (torch.bfloat16, 8, 128)):
+        q, k, v = (torch.randn(B, H, S, D, device=dev, dtype=dt,
+                               generator=g) for _ in range(3))
+        bias = _pad_bias(dev, B, S, dt, SEED + 35)
+        plan = flash_fwd_plan(q, k, v, bias=bias)
+        with torch.no_grad():
+            o = flash_attention_bhsd(q, k, v, bias=bias)
+            again = flash_attention_bhsd(q, k, v, bias=bias)
+            ref = (flash_attention_blockwise_ref(q, k, v, bias=bias,
+                                                 block_k=plan.block_k)
+                   if dt == torch.bfloat16
+                   else flash_attention_ref(q, k, v, bias=bias))
+            torch.cuda.synchronize()
+            dname = str(dt).replace("torch.", "")
+            label = f"bias {dname} D={D}"
+            if not torch.equal(o, again):
+                fail(f"flash_attention {label}: a rerun is not bitwise")
+            err, share = check_close(f"flash_attention {label}", o, ref,
+                                     CARD_TOL[dt])
+            t = _turns({
+                "kernel": lambda: flash_attention_bhsd(q, k, v, bias=bias),
+                "sdpa": lambda: tF.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias)})
+            plain = cuda_ms(lambda: flash_attention_bhsd(
+                q, k, v, bias=bias, mode="torch_ref"), iters=3, warmup=1)
+        flops = 4 * D * B * H * S * S
+        bms, by = bound_ms(flops, PEAK_BF16_FLOPS if dt == torch.bfloat16
+                           else PEAK_F32_FLOPS,
+                           4 * B * H * S * D * q.element_size()
+                           + B * S * q.element_size())
+        rows[label] = dict(ms=t["kernel"], plain_ms=plain, bound_ms=bms,
+                           bound_by=by, library_ms=t["sdpa"],
+                           max_abs_err=err)
+        log(f"flash_attention {label} (B={B} H={H} S={S}, seeded padding "
+            f"rows): route {plan.route}, {plan.block_q} x {plan.block_k} "
+            f"tiles, {plan.smem_bytes} B shared memory; max_err {err:.3g} "
+            f"({share:.3g} of its limit), rerun bitwise; device ms "
+            f"(queued): kernel {t['kernel']:.4f} plain {plain:.4f} bound "
+            f"{bms:.4f} ({by}) library(sdpa, float mask) {t['sdpa']:.4f}; "
+            f"kernel / sdpa {t['kernel'] / t['sdpa']:.3f}; "
+            f"{flops / t['kernel'] / 1e9:.1f} TFLOP/s")
+        del q, k, v, o, again, ref
+    return rows
+
+
+def dropout_cases(dev):
+    """Phase 33 (c): kernels 1-3 with in-kernel dropout (p = OPT_P, one
+    seed) through the autograd Function at ERNIE's shape (B 8, H 12, S
+    2,048, D 64), bf16 and f32, causal and not: the forward and the three
+    gradients within ``CARD_TOL`` / ``CARD_TOL_BWD`` of the plain versions
+    with the same seed (bf16: the blockwise ones), bitwise on a rerun.
+    The path's own case (bf16, not causal) is timed queued: the forward
+    with its LSE, each backward kernel, beside their bounds (operations),
+    their plain versions and SDPA with ``dropout_p`` (its forward, and its
+    backward for dq + dk + dv; a yardstick only, its masks differ).
+    Returns the rows by kernel name."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    B, S, H, D = ERNIE_TRAIN["batch"], ERNIE_TRAIN["seq"], 12, 64
+    seed = fa.dropout_seed(gen)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn(B, H, S, D, device=dev, dtype=dt,
+                                   generator=gen) for _ in range(4))
+        for causal in (False, True):
+            kw = dict(causal=causal, dropout_p=OPT_P, seed=seed)
+            outs = []
+            for _ in range(2):
+                qq, kk, vv = (t.detach().requires_grad_()
+                              for t in (q, k, v))
+                o = fa.flash_attention_bhsd(qq, kk, vv, **kw)
+                outs.append((o.detach(), *torch.autograd.grad(
+                    o, (qq, kk, vv), do)))
+            dname = str(dt).replace("torch.", "")
+            label = f"dropout {dname} causal={causal}"
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                fail(f"flash {label}: a rerun is not bitwise")
+            with torch.no_grad():
+                ro, lse = fa.flash_attention_ref(q, k, v, return_lse=True,
+                                                 **kw)
+                if dt == torch.bfloat16:
+                    ro = fa.flash_attention_blockwise_ref(q, k, v, **kw)
+                delta = fa.attention_delta(outs[0][0], do)
+                args = (q, k, v, do, lse, delta)
+                ref = (fa.flash_attention_bwd_blockwise_ref(*args, **kw)
+                       if dt == torch.bfloat16 else
+                       (fa.flash_attention_bwd_dq_ref(*args, **kw),
+                        *fa.flash_attention_bwd_dkv_ref(*args, **kw)))
+            torch.cuda.synchronize()
+            errs = [check_close(f"flash_attention {label}", outs[0][0], ro,
+                                fa.CARD_TOL[dt])]
+            for name, got, want in zip(("dq", "dk", "dv"), outs[0][1:],
+                                       ref):
+                errs.append(check_close(f"flash {name} {label}", got, want,
+                                        fa.CARD_TOL_BWD[dt]))
+            log(f"flash {label} (B={B} H={H} S={S} D={D}): route "
+                f"{fa.flash_fwd_plan(q, k, v, dropout_p=OPT_P).route}; "
+                "max_err (share of its limit) o / dq / dk / dv: "
+                + " / ".join(f"{e:.3g} ({s:.3g})" for e, s in errs)
+                + "; rerun bitwise")
+            if dt == torch.bfloat16 and not causal:
+                rows = _dropout_timing(q, k, v, do, lse, delta, kw, errs)
+            del outs, ro, lse, delta, ref
+        del q, k, v, do
+    return rows
+
+
+def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
+    """Phase 33 (c)'s timing of the path's own case: kernels 1-3 (the
+    forward with its LSE), their plain versions and SDPA with
+    ``dropout_p`` (forward, and backward for dq + dk + dv), each kernel
+    beside its bound (operations).  Returns the rows by kernel name."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import registry
+    B, H, S, D = q.shape
+    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    args = (q, k, v, do, lse, delta)
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = tF.scaled_dot_product_attention(q2, k2, v2, dropout_p=OPT_P)
+    with torch.no_grad():
+        t = _turns({
+            "flash_attention": lambda: fa.flash_attention_bhsd(
+                q, k, v, return_lse=True, **kw),
+            names[0]: lambda: registry.dispatch(names[0], *args, **kw),
+            names[1]: lambda: registry.dispatch(names[1], *args, **kw),
+            "sdpa": lambda: tF.scaled_dot_product_attention(
+                q, k, v, dropout_p=OPT_P)})
+    t["sdpa backward"] = _turns({"b": lambda: torch.autograd.grad(
+        out, (q2, k2, v2), do, retain_graph=True)})["b"]
+    with torch.no_grad():
+        plain = {"flash_attention": cuda_ms(lambda: fa.flash_attention_bhsd(
+            q, k, v, return_lse=True, mode="torch_ref", **kw), iters=3,
+            warmup=1)}
+        for n in names:
+            plain[n] = cuda_ms(lambda n=n: registry.dispatch(
+                n, *args, mode="torch_ref", **kw), iters=3, warmup=1)
+    pairs = B * H * S * S
+    row_bytes = B * H * S * D * q.element_size()
+    rows = {}
+    for name, flops, nbytes, lib, err in (
+            ("flash_attention", 4 * D * pairs, 4 * row_bytes + B * H * S * 4,
+             t["sdpa"], errs[0][0]),
+            (names[0], 8 * D * pairs, 6 * row_bytes + 2 * B * H * S * 4,
+             t["sdpa backward"], max(errs[2][0], errs[3][0])),
+            (names[1], 6 * D * pairs, 5 * row_bytes + 2 * B * H * S * 4,
+             t["sdpa backward"], errs[1][0])):
+        bms, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+        rows[name] = dict(ms=t[name], plain_ms=plain[name], bound_ms=bms,
+                          bound_by=by, library_ms=lib, max_abs_err=err)
+        log(f"{name} dropout p={OPT_P} (B={B} H={H} S={S} D={D} bf16, not "
+            f"causal): device ms (queued): kernel {t[name]:.4f} plain "
+            f"{plain[name]:.4f} bound {bms:.4f} ({by}) library "
+            f"{lib:.4f}; {flops / t[name] / 1e9:.1f} TFLOP/s")
+    fwd_bwd = sum(t[n] for n in ("flash_attention",) + names)
+    lib = t["sdpa"] + t["sdpa backward"]
+    log(f"flash dropout (ERNIE shape): kernels 1-3 {fwd_bwd:.4f} ms against "
+        f"SDPA forward + backward with dropout_p {lib:.4f} ms: "
+        f"{fwd_bwd / lib:.3f}x")
+    del out, q2, k2, v2
+    return rows
+
+
+def _mode_counts():
+    from paddle_tpu_torch.ops.kernels import registry
+    return {n: dict(s.mode_launches) for n, s in registry.kernels().items()
+            if s.mode_launches}
+
+
+FLASH_NAMES = ("flash_attention", "flash_attention_bwd_dkv",
+               "flash_attention_bwd_dq")
+
+
+def ernie_train(dev):
+    """Phase 34: ERNIE-3.0-base pretraining at batch 8 x seq 2,048 (no
+    padding mask, so every layer's training attention takes kernels 1-3
+    with in-kernel dropout): every loss finite, the first within
+    BERT_FIRST_LOSS_TOL of ln(vocab) + ln(2); ms/step (median of steps
+    3 on), tokens/s, model TFLOP/s and MFU (the bench's analytic count,
+    and with the attention's score products added), peak memory; the
+    launches of kernels 1-3, each 12 a step and every one in ``dropout``
+    mode."""
+    from paddle_tpu_torch.ops.kernels import registry
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, cfg, step = _bert_train_step(dev, **ERNIE_CFG)
+    b, s = ERNIE_TRAIN["batch"], ERNIE_TRAIN["seq"]
+    batch = _bert_batch(dev, cfg.vocab_size, b, s)
+    n_mask = batch[1].shape[1]
+    nparams = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"ernie train: model and batch built in "
+        f"{time.perf_counter() - t0:.1f} s ({nparams / 1e6:.2f} M params, "
+        f"{n_mask} masked positions a sequence)")
+    registry.reset_counts()                  # the main path starts here
+    losses, times = [], []
+    for _ in range(ERNIE_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = registry.launch_counts()        # ... and ends here
+    modes = _mode_counts()
+    log("ernie train: losses " + " ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ernie train: non-finite loss in {losses}")
+    want = math.log(cfg.vocab_size) + math.log(2.0)
+    if not abs(losses[0] - want) <= BERT_FIRST_LOSS_TOL:
+        fail(f"ernie train: first loss {losses[0]:.4f}, want {want:.4f} +- "
+             f"{BERT_FIRST_LOSS_TOL}")
+    ms = statistics.median(times[2:])
+    vh = cfg.vocab_size * cfg.hidden_size
+    flops = 6.0 * (nparams - vh) * b * s + 6.0 * vh * b * n_mask
+    # the score products a step: forward 4 D, backward 8 D + 6 D a pair
+    attn = 18.0 * cfg.head_dim * b * cfg.num_attention_heads * s * s \
+        * cfg.num_hidden_layers
+    tflops = flops / (ms / 1e3) / 1e12
+    row = dict(batch=b, seq=s, masked=n_mask, steps=len(losses),
+               ms_per_step=ms, first_step_ms=times[0],
+               tokens_per_s=b * s / (ms / 1e3), analytic_tflop=flops / 1e12,
+               attention_tflop=attn / 1e12, model_tflops=tflops,
+               mfu=tflops * 1e12 / PEAK_BF16_FLOPS,
+               mfu_with_attention=(flops + attn) / (ms / 1e3)
+               / PEAK_BF16_FLOPS,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                   dev) / 1e9, first_loss=losses[0], first_loss_want=want,
+               last_loss=losses[-1])
+    log("ernie train: " + json.dumps(row))
+    log(f"ernie train: launches {counts}, by mode {modes}")
+    n = ERNIE_TRAIN["steps"] * cfg.num_hidden_layers
+    for name in FLASH_NAMES:
+        if counts[name] != n or modes.get(name) != {"dropout": n}:
+            fail(f"ernie train: {name} launched {counts[name]} times "
+                 f"({modes.get(name)}), want {n}, all with dropout")
+    others = {k: c for k, c in counts.items() if c and k not in FLASH_NAMES}
+    if others:
+        fail(f"ernie train: other kernels ran on the path: {others}")
+    return model, step, batch, counts, modes
+
+
+def _attention_grad_rel(named_k, named_p):
+    """||g_k - g_p|| / ||g_p|| of each attention parameter (every layer's
+    qkv_proj and out_proj, weight and bias), in f64."""
+    return {n: float((gk.double() - gp.double()).norm()
+                     / gp.double().norm())
+            for (n, gk), (_, gp) in zip(named_k, named_p)
+            if ".attention." in n}
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """A planted fault for phase 34 (b), None for none: ``"seed"`` moves
+    every attention seed by one (each layer's masks differ from the
+    plain run's, forward and backward alike); ``"bwd_seed"`` moves the
+    seed only where the backward kernels regenerate the mask (the
+    backward's masks differ from the forward's)."""
+    import paddle_tpu_torch.text.models.bert as bert_mod
+    from paddle_tpu_torch.ops.kernels import registry
+    seed_fn, dispatch = bert_mod.dropout_seed, registry.dispatch
+
+    def bwd_shifted(name, *args, **kw):
+        if name.startswith("flash_attention_bwd"):
+            kw["seed"] = kw["seed"] + 1
+        return dispatch(name, *args, **kw)
+
+    if fault == "seed":
+        bert_mod.dropout_seed = lambda g: seed_fn(g) + 1
+    elif fault == "bwd_seed":
+        registry.dispatch = bwd_shifted
+    try:
+        yield
+    finally:
+        bert_mod.dropout_seed, registry.dispatch = seed_fn, dispatch
+
+
+def ernie_kernels_vs_plain(dev, batch):
+    """Phase 34 (b): one step with kernels 1-3 against the same step with
+    their plain versions, from the same weights and the same dropout
+    generator state (the same seeds, so the same masks), with bf16 AMP
+    (the path's ``mma.sync`` route) and in f32 (the FMA route, where the
+    rounding is no longer in the way): the loss, and each attention
+    parameter's gradient (48 leaves: qkv_proj and out_proj of 12 layers)
+    by its relative L2 distance, the worst leaf within ERNIE_E2E.  Each precision also runs the kernels' step
+    with each planted fault (:func:`_planted`), which must break its
+    gradient limit: the limits see a wrong mask."""
+    from paddle_tpu_torch.ops.kernels.registry import set_kernel_mode
+    row = {}
+    for prec in ("bf16", "f32"):
+        runs = {}
+        for name, mode, fault in (("plain", "torch_ref", None),
+                                  ("kernels", None, None),
+                                  ("fault_seed", None, "seed"),
+                                  ("fault_bwd_seed", None, "bwd_seed")):
+            model, cfg, step = _bert_train_step(dev, amp=prec == "bf16",
+                                                **ERNIE_CFG)
+            set_kernel_mode(model, mode)
+            with _planted(fault):
+                loss, grads = step.loss_and_grads(*batch)
+            runs[name] = (float(loss), list(zip(
+                (n for n, _ in model.named_parameters()), grads)))
+            del model, step, grads
+            torch.cuda.empty_cache()
+        lp, gp = runs.pop("plain")
+        row[prec] = {"loss_plain": lp}
+        for name, (lk, gk) in runs.items():
+            rel = _attention_grad_rel(gk, gp)
+            worst = max(rel, key=rel.get)
+            row[prec][name] = dict(
+                loss_rel=abs(lk - lp) / abs(lp), attn_grad_rel_max=rel[worst],
+                worst_leaf=worst, attn_grad_rel_median=statistics.median(
+                    rel.values()), leaves=len(rel))
+        del runs, gp
+        log(f"ernie train, {prec}: kernels vs plain versions (one step, "
+            f"the same masks), and the planted faults: "
+            + json.dumps(row[prec]))
+        lim, ok = ERNIE_E2E[prec], row[prec]["kernels"]
+        if not (ok["leaves"] == 4 * cfg.num_hidden_layers
+                and ok["loss_rel"] <= lim["loss_rel"]
+                and ok["attn_grad_rel_max"] <= lim["attn_grad_rel"]):
+            fail(f"ernie train, {prec}: kernels and plain versions disagree "
+                 f"beyond {lim}: {ok}")
+        for name in ("fault_seed", "fault_bwd_seed"):
+            if not row[prec][name]["attn_grad_rel_max"] > lim["attn_grad_rel"]:
+                fail(f"ernie train, {prec}: the planted fault {name} stays "
+                     f"within {lim}: the check cannot see a wrong mask: "
+                     f"{row[prec][name]}")
+    return row
+
+
+def profile_ernie_train(dev, step, batch, steps: int = 2):
+    """Phase 34 (c): ``torch.profiler`` over 2 ERNIE training steps:
+    device busy time against wall time (the idle share), kernels 1-3's
+    device ms and launches a step, and the top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kern = device_kernels(prof.key_averages())
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    log(f"profile ernie train: wall {wall_ms:.2f} ms/step, device busy "
+        f"{busy_ms:.2f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kern) // steps} kernels/step")
+    check_busy("profile ernie train (phase 34)", busy_ms, wall_ms)
+    log_flash_fwd("profile ernie train", kern, steps)
+    log_flash_bwd("profile ernie train", kern, steps)
+    flash = sum(e.self_device_time_total for e in kern
+                if "flash_" in e.key) / 1e3 / steps
+    log(f"profile ernie train: kernels 1-3 {flash:.3f} device ms/step "
+        f"({flash / max(busy_ms, 1e-9):.3f} of busy)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/step  x{e.count // steps}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, flash_ms=flash)
+
+
+def _mt_sources(dev, vocab, pad_id):
+    rng = np.random.RandomState(SEED + 37)
+    B, S = MT_SRC["batch"], MT_SRC["seq"]
+    lens = rng.randint(MT_SRC["min_len"], S + 1, B)
+    ids = rng.randint(4, vocab, (B, S)).astype(np.int64)
+    ids[np.arange(S)[None, :] >= lens[:, None]] = pad_id
+    return torch.from_numpy(ids).to(dev), lens
+
+
+def mt_translate(dev):
+    """Phase 35: ``TransformerModel(transformer_base(max_len=1024))``
+    (f32 weights from the seed) translating 8 sources of seeded lengths
+    512-1,024: the encoder memory with kernel 1's bias row against the
+    plain versions (within MT_MEMORY_TOL of its largest |value|), then
+    ``greedy_translate`` and ``beam_translate`` (4 beams), 32 tokens:
+    ms per call, and 6 launches of kernel 1 per call, each with the bias
+    row (one an encoder layer; the decoder's one-token steps take the
+    plain attention)."""
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.ops.kernels.registry import set_kernel_mode
+    from paddle_tpu_torch.text.models import (TransformerModel,
+                                              beam_translate,
+                                              greedy_translate,
+                                              transformer_base)
+    cfg = transformer_base(max_len=MT_SRC["seq"])
+    t0 = time.perf_counter()
+    model = TransformerModel(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED),
+        dropout_generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    model.eval()
+    src, lens = _mt_sources(dev, cfg.src_vocab_size, cfg.pad_id)
+    torch.cuda.synchronize()
+    log(f"translate: transformer_base(max_len={cfg.max_len}) built in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"params); source lengths {sorted(lens.tolist())}")
+
+    def memory():
+        with torch.no_grad():
+            return model.transformer.encoder(
+                model._embed(model.src_embed, src), model._pad_mask(src))
+
+    registry.reset_counts()
+    got = memory()
+    set_kernel_mode(model, "torch_ref")
+    ref = memory()
+    set_kernel_mode(model, None)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"translate: encoder memory, kernels vs plain versions: max |err| "
+        f"{err:.3g} at a largest |value| {scale:.3g} (limit "
+        f"{MT_MEMORY_TOL} of it)")
+    if not (bool(torch.isfinite(got).all()) and err <= MT_MEMORY_TOL * scale):
+        fail(f"translate: encoder memory {err:.3g} from the plain "
+             f"versions' (limit {MT_MEMORY_TOL * scale:.3g})")
+    row = dict(memory_max_abs_err=err, memory_max_abs=scale)
+    total, modes = {}, {}
+    for name, fn in (("greedy", lambda: greedy_translate(
+            model, src, max_len=MT_SRC["decode"])),
+                     ("beam", lambda: beam_translate(
+                         model, src, beam_size=MT_SRC["beam"],
+                         max_len=MT_SRC["decode"]))):
+        fn()                                 # warm-up
+        times = []
+        for _ in range(3):
+            registry.reset_counts()          # the main path starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = registry.launch_counts()    # ... and ends here
+            mode = _mode_counts()
+            if counts["flash_attention"] != cfg.num_encoder_layers or \
+                    mode.get("flash_attention") != {
+                        "bias": cfg.num_encoder_layers}:
+                fail(f"translate {name}: kernel 1 launched "
+                     f"{counts['flash_attention']} times "
+                     f"({mode.get('flash_attention')}), want "
+                     f"{cfg.num_encoder_layers} with the bias row")
+            others = {k: c for k, c in counts.items()
+                      if c and k != "flash_attention"}
+            if others:
+                fail(f"translate {name}: other kernels ran: {others}")
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+            for k, m in mode.items():
+                for kk, c in m.items():
+                    modes.setdefault(k, {})[kk] = modes.get(k, {}).get(
+                        kk, 0) + c
+        if out.shape[0] != MT_SRC["batch"] or out.shape[1] > MT_SRC[
+                "decode"] or not ((out >= 0) & (out < cfg.trg_vocab_size)
+                                  ).all():
+            fail(f"translate {name}: output {out.shape} out of range")
+        row[f"{name}_ms"] = statistics.median(times)
+        log(f"translate {name}: {statistics.median(times):.2f} ms a call "
+            f"(median of 3: {[round(x, 2) for x in times]}), "
+            f"{out.shape[1]} tokens, kernel 1 {cfg.num_encoder_layers} "
+            f"launches a call, all with the bias row")
+    log("translate: " + json.dumps(row))
+    del model
+    return total, modes, row
+
+
 def check_ptxas(source, match, entries=None):
     """Phase 2's check of one source's ``ptxas -v`` log (kept beside a
     cached library): fails without a log, on a spill in an entry whose
@@ -4087,6 +4707,15 @@ def main() -> int:
             f"{bplan.threads} threads, {bplan.smem_bytes} B dynamic shared "
             f"memory, {bplan.block_res} resident rows, {bplan.block_str}-row "
             f"streamed tiles, {bplan.stages} stages")
+    # kernels 1-3's option instantiations (bias row, dropout: template
+    # argument kOpt true) keep their Philox state and fragments in
+    # registers: a spill would put them in local memory
+    for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        for name, (regs, _, _) in sorted(check_ptxas(src, "Lb1E").items()):
+            if "sm90" not in name:
+                short = re.search(r"\d(flash_[a-z0-9_]+I.*?)EEv", name)
+                log(f"  {short.group(1) if short else name}: {regs} "
+                    "registers, no spill")
     plan = flash_fwd_plan(meta, meta, meta)
     log(f"  flash_fwd_sm90: {plan.threads} threads (a producer warpgroup "
         f"at 40 registers, two consumer warpgroups at 232), "
@@ -4234,16 +4863,65 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 33. kernels 1-3's options (bias row, in-kernel dropout) against
+    # their plain versions, and the keep mask against its plain version
+    t0 = time.perf_counter()
+    keep_mask_cases(dev)
+    bias_rows = bias_cases(dev)
+    drop_rows = dropout_cases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 33: {time.perf_counter() - t0:.1f} s")
+
+    # 34. ERNIE-3.0-base pretraining at 2,048 positions: kernels 1-3 with
+    # dropout on every layer; a step against the plain versions; profile
+    t0 = time.perf_counter()
+    er_model, er_step, er_batch, er_counts, er_modes = ernie_train(dev)
+    profile_ernie_train(dev, er_step, er_batch)
+    del er_model, er_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ernie_kernels_vs_plain(dev, er_batch)
+    del er_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 34: {time.perf_counter() - t0:.1f} s")
+
+    # 35. Transformer-base translation of 1,024-token sources: kernel 1's
+    # bias row in every encoder layer
+    t0 = time.perf_counter()
+    mt_counts, mt_modes, _ = mt_translate(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 35: {time.perf_counter() - t0:.1f} s")
+
+    options = {
+        "flash_attention": {
+            "bias": bias_rows["bias float32 D=64"],
+            "bias bf16": bias_rows["bias bfloat16 D=64"],
+            "bias bf16 D=128": bias_rows["bias bfloat16 D=128"],
+            "dropout": drop_rows["flash_attention"]},
+        "flash_attention_bwd_dkv": {
+            "dropout": drop_rows["flash_attention_bwd_dkv"]},
+        "flash_attention_bwd_dq": {
+            "dropout": drop_rows["flash_attention_bwd_dq"]}}
     kernels = []
     for name, s in registry.kernels().items():
         launches = sum(c[name] for c in (counts, train_counts, resnet_counts,
                                          wd_counts, q8_counts, el_counts,
                                          el2_counts, online_counts,
                                          rn_counts, ab_counts, bt_counts,
-                                         bs_counts))
+                                         bs_counts, er_counts, mt_counts))
+        by_mode = {}
+        for m in (er_modes, mt_modes):
+            for k, c in m.get(name, {}).items():
+                by_mode[k] = by_mode.get(k, 0) + c
+        extra = dict(launches_by_mode=by_mode) if by_mode else {}
+        if name in options:
+            extra["options"] = options[name]
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
-                            **rows[name]))
+                            **rows[name], **extra))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

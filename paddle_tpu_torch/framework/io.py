@@ -10,6 +10,11 @@ tensor it lands in: bf16 arrays arrive as float32 numpy (this package
 cannot import ``ml_dtypes``), int8 stays int8, and an f32 ``w_scale``
 stays f32 in a bf16 model.
 
+Tied parameters (one tensor under several names, as the translation
+model's shared embedding ``src_embed.weight`` / ``trg_embed.weight``)
+load from whichever of their names ``arrays`` holds: the reference's
+``state_dict`` lists a tied parameter once.
+
 Optimizer state is keyed by the parameter's name in the model
 (``{name: {slot: array}}``, e.g. ``{"conv1.weight": {"velocity": ...}}``
 for ``Momentum``), since both packages key it by parameter object.
@@ -29,13 +34,18 @@ def load_jax_state_dict(model: torch.nn.Module,
                         arrays: Mapping[str, np.ndarray]) -> None:
     """Copy ``arrays`` into ``model``'s parameters and persistent buffers
     in place.  Raises on any missing, extra or mis-shaped key, before
-    anything is copied."""
+    anything is copied; a tied parameter needs one of its names."""
     own = model.state_dict(keep_vars=True)
-    missing = sorted(set(own) - set(arrays))
+    names = {}
+    for name, t in own.items():
+        names.setdefault(id(t), []).append(name)
+    missing = sorted(n for n in set(own) - set(arrays)
+                     if not any(a in arrays for a in names[id(own[n])]))
     extra = sorted(set(arrays) - set(own))
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing={missing} "
                        f"extra={extra}")
+    own = {n: p for n, p in own.items() if n in arrays}
     for name, p in own.items():
         shape = tuple(np.shape(arrays[name]))
         if shape != tuple(p.shape):

@@ -1,4 +1,6 @@
 from . import functional, layer  # noqa: F401
 from .layer import (  # noqa: F401
     GELU, AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Embedding,
-    LayerNorm, Linear, MaxPool2D, ReLU, Tanh)
+    LayerNorm, Linear, MaxPool2D, MultiHeadAttention, ReLU, Tanh,
+    Transformer, TransformerDecoder, TransformerDecoderLayer,
+    TransformerEncoder, TransformerEncoderLayer)

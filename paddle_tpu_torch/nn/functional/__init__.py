@@ -1,6 +1,6 @@
 from . import activation, conv, loss, pooling  # noqa: F401
 from .activation import gelu, tanh  # noqa: F401
-from .attention import _sdpa_ref  # noqa: F401
+from .attention import _sdpa_ref, scaled_dot_product_attention  # noqa: F401
 from .common import (  # noqa: F401
     batch_norm, dropout, embedding, flatten, layer_norm, linear, relu, silu)
 from .conv import conv2d  # noqa: F401

@@ -5,3 +5,6 @@ from .common import (  # noqa: F401
 from .conv import Conv2D  # noqa: F401
 from .norm import BatchNorm2D, LayerNorm  # noqa: F401
 from .pooling import AdaptiveAvgPool2D, MaxPool2D  # noqa: F401
+from .transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)

@@ -70,7 +70,12 @@
 // warps share a 16-key row group and split the output columns, so a
 // block holds 32 keys) or 32-key tile (f32); dQ (query tiles, H, B), one
 // block per 64-row (bf16) or 32-row (f32) query tile, heavy (late) tiles
-// first.
+// first.  Dropout runs only on these routes, in their <..., true>
+// instantiations (bf16 at head_dim 128 too, dK/dV then with 64 keys a
+// block): both kernels regenerate the forward's keep bits (dropout.cuh)
+// from the same int64 seed in device memory; dV += (P keep / (1 - p))^T dO,
+// dP is dropped alike (dP keep / (1 - p)) and dS = P (dP - delta) scale
+// keeps the undropped P; the keep bits ride in one 32-bit mask a thread.
 // Numerics follow the Pallas kernels: s = (q.k)*scale in f32, masked
 // pairs have p = 0, p = exp(s - lse), dp = dO.v in f32,
 // dS = p * (dp - delta) * scale, with P and dS rounded to bf16 before
@@ -85,6 +90,7 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "dropout.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -109,6 +115,7 @@ struct Params {
   long long st[kNumT][3];
   int causal;
   float scale;
+  Dropout drop;   // the <..., true> kernels only (drop.seed null: none)
 };
 
 // ---------------------------------------------------------------------
@@ -206,9 +213,28 @@ __device__ __forceinline__ void mma_pv(float (*out)[4], float (*pf)[4],
   }
 }
 
+// As mma_pv, with P dropped first: element (j, e) of `pf` is kept (and
+// divided by 1 - p) iff bit 4j + e of `keep` is set, else it is 0
+template <int D, int kNT>
+__device__ __forceinline__ void mma_pv_dropped(float (*out)[4],
+                                               float (*pf)[4],
+                                               const __nv_bfloat16* rows,
+                                               int col0, int g, int t,
+                                               uint32_t keep,
+                                               const Dropout& d) {
+  float dr[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dr[j][e] = (keep >> (4 * j + e)) & 1u ? pf[j][e] / d.keep_p : 0.f;
+  mma_pv<D, kNT>(out, dr, rows, col0, g, t);
+}
+
 // dK/dV: one block per (key tile, kv head, batch).  CS warps share a row
-// group of 16 keys and split the D output columns CS ways.
-template <int D, int CS>
+// group of 16 keys and split the D output columns CS ways.  kOpt: the
+// instantiation that takes dropout.
+template <int D, int CS, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16(Params p) {
   constexpr int kS = D + kPad;
@@ -253,6 +279,9 @@ flash_bwd_dkv_bf16(Params p) {
   const __nv_bfloat16* vw = Vs + rg * 16 * kS;
   const int qt0 = p.causal ? k0 / kBQ : 0;
   const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  const bool dropping = kOpt && p.drop.seed != nullptr;
+  PhiloxKey key{0u, 0u};
+  if (dropping) key = philox_key(p.drop.seed);
 
   for (int r = 0; r < R; ++r) {
     const int h = hk * R + r;
@@ -292,8 +321,15 @@ flash_bwd_dkv_bf16(Params p) {
           sacc[j][e] = live ? expf(sacc[j][e] * p.scale - Ls[qi]) : 0.f;
         }
       }
-      // dV += bf16(P^T) dO
-      mma_pv<D, kNT>(dv, sacc, Os, col0, g, t);
+      // dV += bf16(P^T) dO, P dropped: (P keep / (1 - p))^T dO
+      uint32_t keep = 0;
+      if (dropping) {
+        keep = keep_bits_mma(key, b, h, key_a, q0, g, t, false,
+                             p.drop.thresh);
+        mma_pv_dropped<D, kNT>(dv, sacc, Os, col0, g, t, keep, p.drop);
+      } else {
+        mma_pv<D, kNT>(dv, sacc, Os, col0, g, t);
+      }
 
       // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
       float pacc[8][4];
@@ -306,7 +342,11 @@ flash_bwd_dkv_bf16(Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = j * 8 + 2 * t + (e & 1);
-          sacc[j][e] = sacc[j][e] * (pacc[j][e] - Dl[qi]) * p.scale;
+          // with dropout dP is dropped too: dP keep / (1 - p)
+          const float dp = !dropping ? pacc[j][e]
+                           : (keep >> (4 * j + e)) & 1u
+                               ? pacc[j][e] / p.drop.keep_p : 0.f;
+          sacc[j][e] = sacc[j][e] * (dp - Dl[qi]) * p.scale;
         }
       }
       // dK += bf16(dS^T) Q
@@ -337,7 +377,7 @@ flash_bwd_dkv_bf16(Params p) {
 }
 
 // dQ: one block per (query tile, head, batch), 16 query rows per warp
-template <int D>
+template <int D, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16(Params p) {
   constexpr int kS = D + kPad;
@@ -387,6 +427,9 @@ flash_bwd_dq_bf16(Params p) {
   const int n_tiles = (kv_end + kBK - 1) / kBK;
   const __nv_bfloat16* qw = Qs + warp * 16 * kS;
   const __nv_bfloat16* ow = Os + warp * 16 * kS;
+  const bool dropping = kOpt && p.drop.seed != nullptr;
+  PhiloxKey key{0u, 0u};
+  if (dropping) key = philox_key(p.drop.seed);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
@@ -417,11 +460,19 @@ flash_bwd_dq_bf16(Params p) {
     for (int j = 0; j < 8; ++j)
       pacc[j][0] = pacc[j][1] = pacc[j][2] = pacc[j][3] = 0.f;
     mma_abt<D>(pacc, ow, Vs, g, t);
+    // with dropout dP is dropped: dP keep / (1 - p)
+    const uint32_t keep = dropping ? keep_bits_mma(key, b, h, row_a, k0, g,
+                                                   t, true, p.drop.thresh)
+                                   : 0u;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sacc[j][e] = sacc[j][e] * (pacc[j][e] - del_r[e >> 1]) * p.scale;
+      for (int e = 0; e < 4; ++e) {
+        const float dp = !dropping ? pacc[j][e]
+                         : (keep >> (4 * j + e)) & 1u
+                             ? pacc[j][e] / p.drop.keep_p : 0.f;
+        sacc[j][e] = sacc[j][e] * (dp - del_r[e >> 1]) * p.scale;
+      }
     // dQ += bf16(dS) K
     mma_pv<D, kNT>(dq, sacc, Ks, 0, g, t);
   }
@@ -463,7 +514,7 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int ld,
 
 // dK/dV: 8 keys per warp (32 per block); lane = query for the scores,
 // lane = output column for the accumulation
-template <int D>
+template <int D, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -503,6 +554,9 @@ flash_bwd_dkv_f32(Params p) {
   float* sw = Sw + warp * kRowsF * kLaneF;
   const int qt0 = p.causal ? k0 / kLaneF : 0;
   const int n_qt = (p.Sq + kLaneF - 1) / kLaneF;
+  const bool dropping = kOpt && p.drop.seed != nullptr;
+  PhiloxKey key{0u, 0u};
+  if (dropping) key = philox_key(p.drop.seed);
 
   for (int rh = 0; rh < R; ++rh) {
     const int h = hk * R + rh;
@@ -538,13 +592,25 @@ flash_bwd_dkv_f32(Params p) {
         }
       }
       const int qp = q0 + lane;
+      const uint32_t keep = dropping ? keep_bits_fma(key, b, h, key0, qp,
+                                                     lane, false,
+                                                     p.drop.thresh)
+                                     : 0u;
 #pragma unroll
       for (int r = 0; r < kRowsF; ++r) {
         const int kp = key0 + r;
         const bool live = qp < p.Sq && kp < p.Sk && !(p.causal && kp > qp);
         const float pe = live ? expf(s[r] * p.scale - Ls[lane]) : 0.f;
-        pw[r * kLaneF + lane] = pe;
-        sw[r * kLaneF + lane] = pe * (dp[r] - Dl[lane]) * p.scale;
+        if (dropping) {
+          // dV takes P keep / (1 - p); dS = P (dP keep / (1 - p) - delta)
+          const bool kept = (keep >> r) & 1u;
+          pw[r * kLaneF + lane] = kept ? pe / p.drop.keep_p : 0.f;
+          const float dpd = kept ? dp[r] / p.drop.keep_p : 0.f;
+          sw[r * kLaneF + lane] = pe * (dpd - Dl[lane]) * p.scale;
+        } else {
+          pw[r * kLaneF + lane] = pe;
+          sw[r * kLaneF + lane] = pe * (dp[r] - Dl[lane]) * p.scale;
+        }
       }
       __syncwarp();
 #pragma unroll
@@ -581,7 +647,7 @@ flash_bwd_dkv_f32(Params p) {
 
 // dQ: 8 query rows per warp (32 per block); lane = key for the scores,
 // lane = output column for the accumulation
-template <int D>
+template <int D, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -631,6 +697,9 @@ flash_bwd_dq_f32(Params p) {
   const float* qr = Qs + warp * kRowsF * D;
   const float* orr = Os + warp * kRowsF * D;
   float* sw = Sw + warp * kRowsF * kLaneF;
+  const bool dropping = kOpt && p.drop.seed != nullptr;
+  PhiloxKey key{0u, 0u};
+  if (dropping) key = philox_key(p.drop.seed);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kLaneF;
@@ -653,12 +722,18 @@ flash_bwd_dq_f32(Params p) {
       }
     }
     const int kp = k0 + lane;
+    const uint32_t keep = dropping ? keep_bits_fma(key, b, h, row0, kp, lane,
+                                                   true, p.drop.thresh)
+                                   : 0u;
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
       const int qp = row0 + r;
       const bool live = qp < p.Sq && kp < p.Sk && !(p.causal && kp > qp);
       const float pe = live ? expf(s[r] * p.scale - lse_r[r]) : 0.f;
-      sw[r * kLaneF + lane] = pe * (dp[r] - del_r[r]) * p.scale;
+      // with dropout dS = P (dP keep / (1 - p) - delta)
+      const float dpd = !dropping ? dp[r]
+                        : (keep >> r) & 1u ? dp[r] / p.drop.keep_p : 0.f;
+      sw[r * kLaneF + lane] = pe * (dpd - del_r[r]) * p.scale;
     }
     __syncwarp();
 #pragma unroll
@@ -695,44 +770,52 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
+// `opt`: dropout, taken by the <..., true> kernels (bf16 at head_dim 128
+// without it is the sm90 route's)
 template <int D>
-cudaError_t run_dkv(const Params& p, int B, int is_bf16, cudaStream_t s) {
+cudaError_t run_dkv(const Params& p, int B, int is_bf16, bool opt,
+                    cudaStream_t s) {
   if (is_bf16) {
+    constexpr int CS = D > 128 ? 2 : 1;
+    constexpr int BK = 16 * kWarps / CS;
+    const size_t smem = (size_t)(2 * BK + 2 * kBQ) * (D + kPad)
+                            * sizeof(__nv_bfloat16)
+                        + 2 * kBQ * sizeof(float);
+    dim3 grid((p.Sk + BK - 1) / BK, p.Hkv, B);
+    if (opt) return launch(flash_bwd_dkv_bf16<D, CS, true>, grid, smem, s, p);
     if constexpr (D == 128) {
-      return cudaErrorInvalidValue;   // the sm90 route's
+      return cudaErrorInvalidValue;
     } else {
-      constexpr int CS = D > 128 ? 2 : 1;
-      constexpr int BK = 16 * kWarps / CS;
-      const size_t smem = (size_t)(2 * BK + 2 * kBQ) * (D + kPad)
-                              * sizeof(__nv_bfloat16)
-                          + 2 * kBQ * sizeof(float);
-      dim3 grid((p.Sk + BK - 1) / BK, p.Hkv, B);
-      return launch(flash_bwd_dkv_bf16<D, CS>, grid, smem, s, p);
+      return launch(flash_bwd_dkv_bf16<D, CS, false>, grid, smem, s, p);
     }
   }
   const size_t smem = (size_t)(2 * kBF * D + 2 * kLaneF * (D + 1)
                                + 2 * kWarps * kRowsF * kLaneF + 2 * kLaneF)
                       * sizeof(float);
   dim3 grid((p.Sk + kBF - 1) / kBF, p.Hkv, B);
-  return launch(flash_bwd_dkv_f32<D>, grid, smem, s, p);
+  if (opt) return launch(flash_bwd_dkv_f32<D, true>, grid, smem, s, p);
+  return launch(flash_bwd_dkv_f32<D, false>, grid, smem, s, p);
 }
 
 template <int D>
-cudaError_t run_dq(const Params& p, int B, int is_bf16, cudaStream_t s) {
+cudaError_t run_dq(const Params& p, int B, int is_bf16, bool opt,
+                   cudaStream_t s) {
   if (is_bf16) {
+    const size_t smem = (size_t)(2 * kBQ + 2 * 64) * (D + kPad)
+                        * sizeof(__nv_bfloat16);
+    dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+    if (opt) return launch(flash_bwd_dq_bf16<D, true>, grid, smem, s, p);
     if constexpr (D == 128) {
-      return cudaErrorInvalidValue;   // the sm90 route's
+      return cudaErrorInvalidValue;
     } else {
-      const size_t smem = (size_t)(2 * kBQ + 2 * 64) * (D + kPad)
-                          * sizeof(__nv_bfloat16);
-      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-      return launch(flash_bwd_dq_bf16<D>, grid, smem, s, p);
+      return launch(flash_bwd_dq_bf16<D, false>, grid, smem, s, p);
     }
   }
   const size_t smem = (size_t)(2 * kBF * D + 2 * kLaneF * (D + 1)
                                + kWarps * kRowsF * kLaneF) * sizeof(float);
   dim3 grid((p.Sq + kBF - 1) / kBF, p.H, B);
-  return launch(flash_bwd_dq_f32<D>, grid, smem, s, p);
+  if (opt) return launch(flash_bwd_dq_f32<D, true>, grid, smem, s, p);
+  return launch(flash_bwd_dq_f32<D, false>, grid, smem, s, p);
 }
 
 // ---------------------------------------------------------------------
@@ -1209,9 +1292,12 @@ bool make_params(Params* p, const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, int B, int H, int Hkv,
                  int Sq, int Sk, const long long* strides, int causal,
-                 float scale) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0)
+                 float scale, const void* seed, unsigned int thresh,
+                 float keep_p) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
+      || (seed != nullptr && !(keep_p > 0.f && keep_p <= 1.f)))
     return false;
+  p->drop = Dropout{static_cast<const long long*>(seed), thresh, keep_p};
   p->q = q;
   p->k = k;
   p->v = v;
@@ -1253,10 +1339,13 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The mma.sync and FMA routes (bf16 at head_dim 128 is the sm90
-// route's): q/dout: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) views with unit
-// stride on D; dk/dv outputs shaped like k/v.  lse/delta: contiguous
-// (B, H, Sq) f32.
+// The mma.sync and FMA routes: q/dout: (B, H, Sq, D), k/v: (B, Hkv, Sk,
+// D) views with unit stride on D; dk/dv outputs shaped like k/v.
+// lse/delta: contiguous (B, H, Sq) f32 (delta from the dropped output).
+// Dropout: `seed`, an int64 in device memory, or null; the forward's
+// mask is regenerated (kept iff the Philox bits are >= `thresh`, kept
+// values divided by `keep_p` = f32(1 - p)).  bf16 at head_dim 128 is
+// taken here only with dropout (without it, the sm90 route's).
 // strides: 21 element strides, (batch, head, seq) of q, k, v, dout, dq,
 // dk, dv in that order (the dq entries are unused here).  Returns the
 // CUDA error of the launch (0 on success).
@@ -1264,17 +1353,22 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int B,
                             int H, int Hkv, int Sq, int Sk, int D,
-                            const long long* strides, int causal,
-                            float scale, int is_bf16, void* stream) {
+                            const void* seed, unsigned int thresh,
+                            float keep_p, const long long* strides,
+                            int causal, float scale, int is_bf16,
+                            void* stream) {
   Params p;
+  const bool opt = seed != nullptr;
   if (!make_params(&p, q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
-                   Hkv, Sq, Sk, strides, causal, scale))
+                   Hkv, Sq, Sk, strides, causal, scale, seed, thresh,
+                   keep_p)
+      || (is_bf16 && D == 128 && !opt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)run_dkv<64>(p, B, is_bf16, s);
-    case 128: return (int)run_dkv<128>(p, B, is_bf16, s);
-    case 256: return (int)run_dkv<256>(p, B, is_bf16, s);
+    case 64: return (int)run_dkv<64>(p, B, is_bf16, opt, s);
+    case 128: return (int)run_dkv<128>(p, B, is_bf16, opt, s);
+    case 256: return (int)run_dkv<256>(p, B, is_bf16, opt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1283,18 +1377,22 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int B, int H,
-                           int Hkv, int Sq, int Sk, int D,
+                           int Hkv, int Sq, int Sk, int D, const void* seed,
+                           unsigned int thresh, float keep_p,
                            const long long* strides, int causal, float scale,
                            int is_bf16, void* stream) {
   Params p;
+  const bool opt = seed != nullptr;
   if (!make_params(&p, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B,
-                   H, Hkv, Sq, Sk, strides, causal, scale))
+                   H, Hkv, Sq, Sk, strides, causal, scale, seed, thresh,
+                   keep_p)
+      || (is_bf16 && D == 128 && !opt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)run_dq<64>(p, B, is_bf16, s);
-    case 128: return (int)run_dq<128>(p, B, is_bf16, s);
-    case 256: return (int)run_dq<256>(p, B, is_bf16, s);
+    case 64: return (int)run_dq<64>(p, B, is_bf16, opt, s);
+    case 128: return (int)run_dq<128>(p, B, is_bf16, opt, s);
+    case 256: return (int)run_dq<256>(p, B, is_bf16, opt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

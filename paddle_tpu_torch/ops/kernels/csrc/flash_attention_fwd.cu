@@ -56,6 +56,21 @@
 // memory, P re-packed in registers, 64-row query tiles of 4 warps), and
 // f32 on a plain FMA kernel (the tensor cores have no exact f32 product).
 //
+// The reference's two options run only on these routes, in their <D,
+// true> instantiations (bf16 at head_dim 128 too; the sm90 route takes
+// none, and the option-free instantiations are the code they were):
+// - an additive [B, 1, 1, Sk] bias row (padding masks), in q's dtype,
+//   added in f32 to the scaled scores before the causal mask: a tile's
+//   64 (or, FMA, each lane's one) values are staged with K and V;
+// - dropout of the normalised weights: the denominator and the LSE keep
+//   the undropped P, and P * keep / (1 - p) (rounded to bf16 on the bf16
+//   route) multiplies V.  The keep bits are Philox4x32-10 of (seed, b, h,
+//   q, k) (dropout.cuh), the seed an int64 read from device memory, so the
+//   backward and a recomputed forward regenerate the same mask.  At
+//   dropout the route does ~25 integer operations (Philox) and one f32
+//   division a score beside its 4 D flops, so it is bound by the integer
+//   and special-function units, not by the tensor cores.
+//
 // Numerics follow the Pallas kernel: s = (q.k)*scale in f32, masked
 // scores -1e30, running max/denominator in f32, probabilities rounded to
 // bf16 for the P.V product (against the running max of each key tile:
@@ -69,6 +84,9 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <algorithm>
+
+#include "dropout.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -90,6 +108,12 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int causal;
   float scale;
+  // the options (the <D, true> kernels only): an additive [B, 1, 1, Sk]
+  // bias row in q's dtype (null: none; bias_sb its batch stride), and
+  // dropout (drop.seed null: none)
+  const void* bias;
+  long long bias_sb;
+  Dropout drop;
 };
 
 // ---------------------------------------------------------------------
@@ -135,13 +159,16 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+// kOpt: the instantiation that takes the bias row and dropout (the
+// option-free one keeps the first kernel's code as it was)
+template <int D, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBQ * (D + kPad);
   __nv_bfloat16* Vs = Ks + kBK * (D + kPad);
+  float* Bs = reinterpret_cast<float*>(Vs + kBK * (D + kPad));   // bias
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
   const int h = blockIdx.y;
@@ -175,12 +202,20 @@ flash_fwd_bf16(Params p) {
   const int kv_end = p.causal ? min(p.Sk, q0 + kBQ) : p.Sk;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
   const __nv_bfloat16* qw = Qs + (warp * 16) * (D + kPad);
+  const __nv_bfloat16* bg = reinterpret_cast<const __nv_bfloat16*>(p.bias)
+                            + b * p.bias_sb;
+  PhiloxKey key{0u, 0u};
+  if (kOpt && p.drop.seed != nullptr) key = philox_key(p.drop.seed);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // previous tile fully consumed
     load_tile_bf16<D>(Ks, kg, p.k_ss, k0, kBK, p.Sk);
     load_tile_bf16<D>(Vs, vg, p.v_ss, k0, kBK, p.Sk);
+    if (kOpt && p.bias != nullptr) {
+      for (int i = threadIdx.x; i < kBK; i += kThreads)
+        Bs[i] = k0 + i < p.Sk ? __bfloat162float(bg[k0 + i]) : 0.f;
+    }
     __syncthreads();
 
     // S = Q K^T : 16 x 64 per warp, 8 n-tiles of 8 keys
@@ -215,6 +250,7 @@ flash_fwd_bf16(Params p) {
         const int kp = k0 + j * 8 + 2 * t + (e & 1);
         const int qp = (e < 2) ? row_a : row_b;
         float s = sacc[j][e] * p.scale;
+        if (kOpt && p.bias != nullptr) s += Bs[j * 8 + 2 * t + (e & 1)];
         if (kp >= p.Sk || (p.causal && kp > qp)) s = kNegInf;
         sacc[j][e] = s;
         mx[e >> 1] = fmaxf(mx[e >> 1], s);
@@ -237,6 +273,17 @@ flash_fwd_bf16(Params p) {
         sacc[j][e] = pe;
         l_r[e >> 1] += pe;
       }
+    }
+    if (kOpt && p.drop.seed != nullptr) {
+      // the denominator keeps the undropped P; P.V takes P * keep / (1-p)
+      const uint32_t keep = keep_bits_mma(key, b, h, row_a, k0, g, t, true,
+                                          p.drop.thresh);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sacc[j][e] = (keep >> (4 * j + e)) & 1u
+                           ? sacc[j][e] / p.drop.keep_p : 0.f;
     }
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
@@ -303,7 +350,7 @@ constexpr int kRowsF = 8;               // query rows per warp
 constexpr int kBQF = kWarps * kRowsF;   // 32 query rows per block
 constexpr int kBKF = 32;                // keys per tile: one per lane
 
-template <int D>
+template <int D, bool kOpt>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -346,6 +393,9 @@ flash_fwd_f32(Params p) {
   const int kv_end = p.causal ? min(p.Sk, q0 + kBQF) : p.Sk;
   const int n_tiles = (kv_end + kBKF - 1) / kBKF;
   float* Pw = Ps + warp * kRowsF * kBKF;
+  const float* bg = reinterpret_cast<const float*>(p.bias) + b * p.bias_sb;
+  PhiloxKey key{0u, 0u};
+  if (kOpt && p.drop.seed != nullptr) key = philox_key(p.drop.seed);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBKF;
@@ -370,10 +420,18 @@ flash_fwd_f32(Params p) {
         s[r] = fmaf(Qs[(warp * kRowsF + r) * D + d], kv, s[r]);
     }
     const int kp = k0 + lane;
+    float bv = 0.f;
+    if (kOpt && p.bias != nullptr && kp < p.Sk) bv = bg[kp];
+    // dropout: bit r for row row0 + r at this lane's key
+    const uint32_t keep = (kOpt && p.drop.seed != nullptr)
+                              ? keep_bits_fma(key, b, h, row0, kp, lane,
+                                              true, p.drop.thresh)
+                              : 0u;
     float alpha[kRowsF];
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
       float sv = s[r] * p.scale;
+      if (kOpt) sv += bv;
       if (kp >= p.Sk || (p.causal && kp > row0 + r)) sv = kNegInf;
       float mx = sv;
 #pragma unroll
@@ -388,7 +446,9 @@ flash_fwd_f32(Params p) {
       alpha[r] = expf(m_r[r] - m_new);
       l_r[r] = l_r[r] * alpha[r] + sum;
       m_r[r] = m_new;
-      Pw[r * kBKF + lane] = pe;
+      // the denominator keeps the undropped P; P.V takes P * keep / (1-p)
+      Pw[r * kBKF + lane] = !(kOpt && p.drop.seed != nullptr) ? pe
+                            : (keep >> r) & 1u ? pe / p.drop.keep_p : 0.f;
     }
     __syncwarp();
 #pragma unroll
@@ -433,22 +493,28 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
+// `opt`: a bias row or dropout, taken by the <D, true> kernels (bf16 at
+// head_dim 128 without options is the sm90 route's)
 template <int D>
-cudaError_t run(const Params& p, int B, int is_bf16, cudaStream_t stream) {
+cudaError_t run(const Params& p, int B, int is_bf16, bool opt,
+                cudaStream_t stream) {
   if (is_bf16) {
+    const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + kPad)
+                            * sizeof(__nv_bfloat16)
+                        + (opt ? kBK * sizeof(float) : 0);
+    dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+    if (opt) return launch(flash_fwd_bf16<D, true>, grid, smem, stream, p);
     if constexpr (D == 128) {
-      return cudaErrorInvalidValue;   // the sm90 route's
+      return cudaErrorInvalidValue;
     } else {
-      const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + kPad)
-                          * sizeof(__nv_bfloat16);
-      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-      return launch(flash_fwd_bf16<D>, grid, smem, stream, p);
+      return launch(flash_fwd_bf16<D, false>, grid, smem, stream, p);
     }
   }
   const size_t smem = (size_t)(kBQF * D + kBKF * (D + 1) + kBKF * D
                                + kWarps * kRowsF * kBKF) * sizeof(float);
   dim3 grid((p.Sq + kBQF - 1) / kBQF, p.H, B);
-  return launch(flash_fwd_f32<D>, grid, smem, stream, p);
+  if (opt) return launch(flash_fwd_f32<D, true>, grid, smem, stream, p);
+  return launch(flash_fwd_f32<D, false>, grid, smem, stream, p);
 }
 
 // ---------------------------------------------------------------------
@@ -847,29 +913,58 @@ const char* kernel_error_string(int err) {
 
 // The mma.sync and FMA routes: q/k/v/o (B, H, S, D) views with unit
 // stride on D; strides in elements.  lse: contiguous (B, H, Sq) f32, or
-// null.  bf16 at head_dim 128 is not taken here (that is the sm90
-// route's).  Returns the CUDA error of the launch (0 on success).
+// null.  The options: `bias`, a [B, 1, 1, Sk] row in q's dtype with unit
+// stride on Sk and batch stride `bias_sb` (elements), added to the scaled
+// scores, or null; `seed`, an int64 in device memory, or null: with it
+// each probability is kept iff its Philox bits are >= `thresh` (floor(p *
+// 2^32)) and a kept one divided by `keep_p` (f32(1 - p)) before P.V,
+// while the denominator and the LSE keep the undropped P.  bf16 at
+// head_dim 128 is taken here only with an option (without one it is the
+// sm90 route's).  Returns the CUDA error of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, void* lse, int B, int H, int Hkv, int Sq,
-                        int Sk, int D, long long q_sb, long long q_sh,
+                        int Sk, int D, const void* bias, long long bias_sb,
+                        const void* seed, unsigned int thresh, float keep_p,
+                        long long q_sb, long long q_sh,
                         long long q_ss, long long k_sb, long long k_sh,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, long long o_sb, long long o_sh,
                         long long o_ss, int causal, float scale, int is_bf16,
                         void* stream) {
+  const bool opt = bias != nullptr || seed != nullptr;
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
-      || (is_bf16 && D == 128))
+      || (is_bf16 && D == 128 && !opt)
+      || (seed != nullptr && !(keep_p > 0.f && keep_p <= 1.f)))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, static_cast<float*>(lse), H, Hkv, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           o_sb, o_sh, o_ss, causal, scale};
+           o_sb, o_sh, o_ss, causal, scale, bias, bias_sb,
+           Dropout{static_cast<const long long*>(seed), thresh, keep_p}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)run<64>(p, B, is_bf16, s);
-    case 128: return (int)run<128>(p, B, is_bf16, s);
-    case 256: return (int)run<256>(p, B, is_bf16, s);
+    case 64: return (int)run<64>(p, B, is_bf16, opt, s);
+    case 128: return (int)run<128>(p, B, is_bf16, opt, s);
+    case 256: return (int)run<256>(p, B, is_bf16, opt, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The keep mask as the kernels define it (dropout.cuh), one element a
+// thread: out[b, h, i, j] (uint8, contiguous [B, H, Sq, Sk]) = 1 iff
+// score (q0 + i, k0 + j) of head h in batch b is kept at `thresh`.  A
+// debug entry: chip_smoke.py holds it bitwise against the plain version.
+int flash_dropout_keep_mask(const void* seed, int B, int H, int Sq, int Sk,
+                            int q0, int k0, unsigned int thresh, void* out,
+                            void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || q0 < 0 || k0 < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * H * Sq * Sk;
+  const int blocks = (int)std::min<long long>((n + 255) / 256, 132 * 16);
+  dropout_keep_mask_kernel<<<blocks, 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(seed), B, H, Sq, Sk, q0, k0, thresh,
+      static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
 }
 
 // The sm90 route: bf16, head_dim 128.  q/k/v: (B, H, S, 128) views with

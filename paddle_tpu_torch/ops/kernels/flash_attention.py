@@ -52,7 +52,36 @@ its forward dispatches the forward with the LSE, its backward the two
 backward kernels, all through the registry (kernels for CUDA tensors,
 plain versions for CPU tensors or where ``mode`` says so).
 
-Bias and dropout are not ported (no Llama path uses them).
+The reference's two options run on the first kernels (``mma.sync``
+for bf16 at every head dim, FMA for f32); the Hopper route takes
+neither, so a bf16 head_dim-128 call with an option goes to the
+``mma.sync`` route (``flash_fwd_plan`` / ``flash_bwd_plan`` record it):
+
+- **bias**: an additive row in q's dtype (padding masks) that
+  broadcasts to [B, 1, 1, Sk] (a row shared by the batch is read with
+  batch stride 0), added in f32 to the scaled scores, forward only.
+  With a bias the backward is plain PyTorch, the chunked backward from
+  the saved LSE (the reference's is the vjp of its XLA
+  ``_ref_chunked``, no Pallas kernel), which also returns the bias's
+  gradient;
+- **dropout** of the normalised weights, inside kernels 1-3: the
+  denominator and the LSE keep the undropped P, P * keep / (1 - p) (P
+  rounded after the division on the bf16 path) multiplies V, and the
+  backward drops dP alike; delta comes from the dropped output.  The
+  keep mask is Philox4x32-10 of (seed, b, h, q, k) (``csrc/dropout.cuh``;
+  plain version :func:`dropout_keep_mask`), not of a tile, so the
+  backward kernels, whose tiles differ from the forward's, and a
+  recomputed forward regenerate it; the seed is an int64 tensor on the
+  device (:func:`dropout_seed` draws it from a generator, no host sync).
+  The TPU's bits cannot be matched: parity with the reference goes
+  through its injected ``test_mask``, which the plain versions take too.
+
+The reference's checks are ported as they are (``_check_dropout_args``,
+``_dropout_blocks_ok``, ``_resolve_blocks``, the full
+:func:`flash_eligible`), so dispatch takes the kernels on the calls
+where the reference takes its Pallas kernel.  Launches with an option
+are counted by mode (``registry.spec(name).mode_launches["bias"]`` or
+``["dropout"]``).
 """
 from __future__ import annotations
 
@@ -69,8 +98,10 @@ __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
            "flash_attention_blockwise_ref", "flash_fwd_plan", "FwdPlan",
            "flash_bwd_plan", "BwdPlan", "BwdKernelPlan",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq_ref",
-           "flash_attention_bwd_blockwise_ref", "attention_delta",
-           "flash_eligible", "CARD_TOL", "CARD_TOL_BWD", "NEG_INF"]
+           "flash_attention_bwd_blockwise_ref",
+           "attention_delta", "flash_eligible", "dropout_seed",
+           "dropout_keep_mask", "dropout_keep_mask_cuda", "philox4x32_10",
+           "CARD_TOL", "CARD_TOL_BWD", "NEG_INF"]
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd.cu"
@@ -107,18 +138,198 @@ CARD_TOL_BWD = {torch.float32: (1e-4, 1e-4, 0.0),
                 torch.bfloat16: (0.0, 8e-3, 0.02, 1e-3)}
 
 
-def flash_eligible(seq_len: int, head_dim: int) -> bool:
-    """Whether the Llama attention takes the flash kernels: head_dim 64,
-    128 or 256 and at least ``FLASH_MIN_SEQ`` positions (the reference's
-    rule without its TPU-backend test -- the registry routes by device --
-    and without its environment override)."""
-    return head_dim in _HEAD_DIMS and seq_len >= FLASH_MIN_SEQ
+# ---------------------------------------------------------------------
+# the options: the reference's checks, and the dropout keep mask
+# ---------------------------------------------------------------------
+
+def _blocks_ok(sq, sk, block_q, block_k):
+    return (sq % min(block_q, sq) == 0 and sk % min(block_k, sk) == 0)
 
 
-def flash_attention_ref(q, k, v, causal=False, scale=None, return_lse=False,
-                        chunk=512):
+def _dropout_blocks_ok(sq, sk, block_q, block_k):
+    """Shapes the reference's dropout path takes: block-divisible lengths
+    and at most 256 blocks a side (its generator packs block coordinates
+    into 8 bits).  The port's keep mask has no such limit; the predicate
+    is kept so that dispatch and the entry points take exactly the calls
+    the reference takes (copied from the reference)."""
+    if not _blocks_ok(sq, sk, block_q, block_k):
+        return False
+    return max(sq // min(block_q, sq), sk // min(block_k, sk)) <= 256
+
+
+def _resolve_blocks(sq, sk, block_q, block_k):
+    """The reference's ``block_q=block_k=None`` defaults: 512, 256 from
+    8,192 positions; an explicit size is kept (copied from the reference;
+    the port's kernels pick their own tiles, so its default blocks only
+    feed :func:`_dropout_blocks_ok`)."""
+    if block_q is None:
+        block_q = 256 if sq >= 8192 else 512
+    if block_k is None:
+        block_k = 256 if sk >= 8192 else 512
+    return block_q, block_k
+
+
+def _check_dropout_args(dropout_p, seed, test_mask, sq, sk, block_q,
+                        block_k, bias=None):
+    """The reference's checks of a dropout call."""
+    if dropout_p > 0.0:
+        if bias is not None:
+            raise ValueError(
+                "flash attention dropout does not compose with an "
+                "additive bias (the fused backward has no dbias path "
+                "and the fallback backward would silently ignore the "
+                "dropout)")
+        if seed is None and test_mask is None:
+            raise ValueError(
+                "flash attention dropout needs a seed (an int64 [1] tensor, "
+                "see dropout_seed) or an injected test mask")
+        if not _dropout_blocks_ok(sq, sk, block_q, block_k):
+            raise ValueError(
+                "flash attention dropout requires block-divisible "
+                "sequence lengths with <=256 blocks per side (the "
+                f"reference's rule), got sq={sq} sk={sk} "
+                f"blocks=({block_q},{block_k})")
+
+
+def flash_eligible(seq_len: int, head_dim: int, *, has_mask: bool = False,
+                   dropout: float = 0.0, mask_shape=None, mask_dtype=None,
+                   kv_seq_len=None) -> bool:
+    """Whether attention takes the flash kernels (the reference's rule):
+    head_dim 64, 128 or 256 and at least ``FLASH_MIN_SEQ`` positions; with
+    dropout only without a mask and at shapes :func:`_dropout_blocks_ok`
+    takes; with a mask only a vettable [B, 1, 1, S] floating row
+    (``mask_shape``, ``mask_dtype``: a torch dtype).  Without the
+    reference's TPU-backend test (the registry routes by device) and its
+    environment override."""
+    if not (head_dim in _HEAD_DIMS and seq_len >= FLASH_MIN_SEQ):
+        return False
+    if dropout > 0.0:
+        if has_mask or mask_shape is not None:
+            return False
+        sk = kv_seq_len if kv_seq_len is not None else seq_len
+        return _dropout_blocks_ok(seq_len, sk,
+                                  *_resolve_blocks(seq_len, sk, None, None))
+    if not has_mask and mask_shape is None:
+        return True
+    if mask_shape is None:      # a mask that cannot be vetted
+        return False
+    return (len(mask_shape) == 4 and mask_shape[1] == 1
+            and mask_shape[2] == 1
+            and (mask_dtype is None or mask_dtype.is_floating_point))
+
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit halves of ``a * m`` for an int64 tensor ``a`` of
+    32-bit values and a 32-bit constant ``m``: ``m`` is split into 16-bit
+    halves, so no product passes 2^48."""
+    lo_p, hi_p = a * (m & 0xFFFF), a * (m >> 16)
+    lo = (lo_p + ((hi_p & 0xFFFF) << 16)) & _M32
+    return (hi_p + (lo_p >> 16)) >> 16, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Random123's Philox4x32-10 on int64 tensors (or ints) holding 32-bit
+    words, which broadcast; key words ``k0``, ``k1`` are Python ints.
+    Returns the four output words."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _threshold(p):
+    """The keep threshold: kept iff the 32 bits are >= floor(p * 2^32)
+    (the reference's ``_keep_mask``)."""
+    return int(p * float(2 ** 32)) & _M32
+
+
+def _seed_int(seed) -> int:
+    return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+# 2 x 2 groups of scores the plain mask computes at once
+_MASK_GROUPS = 1 << 22
+
+
+def dropout_keep_mask(seed, B, H, Sq, Sk, p, q0=0, k0=0, device=None):
+    """The kernels' keep mask in plain PyTorch: bool [B, H, Sq, Sk], True
+    where score (q0 + i, k0 + j) of head h in batch b is kept.  Its bits
+    are Philox4x32-10 with key (seed & 0xffffffff, seed >> 32), counter
+    (k >> 1, q >> 1, h, b) and word 2 (q & 1) + (k & 1); kept iff bits >=
+    floor(p * 2^32).  ``seed``: an int or an int64 tensor (read on the
+    host); ``q0``, ``k0`` select a block, which equals the same slice of
+    the whole mask.  Computed in int64, a block of rows at a time."""
+    s = _seed_int(seed)
+    if device is None:
+        device = seed.device if torch.is_tensor(seed) else "cpu"
+    key = (s & _M32, (s >> 32) & _M32)
+    th = _threshold(p)
+    qa, ka = q0 >> 1, k0 >> 1
+    nq, nk = ((q0 + Sq + 1) >> 1) - qa, ((k0 + Sk + 1) >> 1) - ka
+    c0 = torch.arange(ka, ka + nk, device=device, dtype=torch.int64)
+    c2 = torch.arange(H, device=device, dtype=torch.int64)[:, None, None]
+    rows = max(1, _MASK_GROUPS // (H * nk))
+    out = []
+    for b in range(B):
+        blocks = []        # [H, 2 * rows, 2 * nk] each
+        for r0 in range(0, nq, rows):
+            c1 = torch.arange(qa + r0, qa + min(nq, r0 + rows),
+                              device=device, dtype=torch.int64)[:, None]
+            x, y, z, w = philox4x32_10(c0, c1, c2, b, *key)
+            even = torch.stack((x, y), dim=-1).flatten(-2)    # q even
+            odd = torch.stack((z, w), dim=-1).flatten(-2)     # q odd
+            blocks.append(torch.stack((even, odd), dim=-2).flatten(-3, -2)
+                          >= th)
+        out.append(torch.cat(blocks, dim=1))
+    full = torch.stack(out)
+    i0, j0 = q0 & 1, k0 & 1
+    return full[:, :, i0:i0 + Sq, j0:j0 + Sk]
+
+
+def dropout_seed(generator: torch.Generator) -> torch.Tensor:
+    """The kernels' seed: one int64 drawn from ``generator``, a [1] tensor
+    on the generator's device (no host sync; a generator restored to the
+    same state draws the same seed).  The counterpart of the reference's
+    ``dropout_seed(key)``."""
+    return torch.randint(0, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                         generator=generator, device=generator.device)
+
+
+def _keep_block(dropout_p, seed, test_mask, B, H, q0, nq, k0, nk, device):
+    """The keep mask of queries q0 .. q0 + nq and keys k0 .. k0 + nk: the
+    injected ``test_mask`` (nonzero keeps) or the generated one; None
+    without dropout."""
+    if not dropout_p > 0.0:
+        return None
+    if test_mask is not None:
+        return test_mask[:, :, q0:q0 + nq, k0:k0 + nk].to(device) != 0
+    return dropout_keep_mask(seed, B, H, nq, nk, dropout_p, q0=q0, k0=k0,
+                             device=device)
+
+
+def _keep_p(dropout_p, device):
+    """f32(1 - p) as a 0-d tensor on ``device``: kept values are divided
+    by it, correctly rounded as the kernels divide (PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal)."""
+    return torch.full((), 1.0 - dropout_p, dtype=torch.float32,
+                      device=device)
+
+
+def flash_attention_ref(q, k, v, bias=None, causal=False, scale=None,
+                        return_lse=False, chunk=512, dropout_p=0.0,
+                        seed=None, test_mask=None):
     """Plain attention on (B, H, S, D) tensors, queries in chunks of
-    ``chunk`` rows so the score block stays [B, H, chunk, Sk]."""
+    ``chunk`` rows so the score block stays [B, H, chunk, Sk].  ``bias``
+    ([B, 1, 1, Sk]) is added to the scaled scores; with ``dropout_p`` the
+    normalised weights are dropped (the LSE keeps the undropped ones)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -131,18 +342,26 @@ def flash_attention_ref(q, k, v, causal=False, scale=None, return_lse=False,
     for q0 in range(0, Sq, chunk):
         qc = q[:, :, q0:q0 + chunk].float()
         s = torch.matmul(qc * sc, kf.transpose(-1, -2))
+        if bias is not None:
+            s = s + bias.float()
         if causal:
             qpos = torch.arange(q0, q0 + qc.shape[2], device=q.device)
             s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
         if return_lse:
             lses.append(torch.logsumexp(s, dim=-1))
-        outs.append(torch.matmul(torch.softmax(s, dim=-1), vf))
+        w = torch.softmax(s, dim=-1)
+        keep = _keep_block(dropout_p, seed, test_mask, B, H, q0,
+                           qc.shape[2], 0, Sk, q.device)
+        if keep is not None:
+            w = torch.where(keep, w / _keep_p(dropout_p, q.device), 0.0)
+        outs.append(torch.matmul(w, vf))
     o = torch.cat(outs, dim=2).to(q.dtype)
     return (o, torch.cat(lses, dim=2)) if return_lse else o
 
 
-def flash_attention_blockwise_ref(q, k, v, causal=False, scale=None,
-                                  block_k=64):
+def flash_attention_blockwise_ref(q, k, v, bias=None, causal=False,
+                                  scale=None, block_k=64, dropout_p=0.0,
+                                  seed=None, test_mask=None):
     """The Pallas kernel's online softmax in plain PyTorch, on (B, H, S, D)
     tensors: keys in blocks of ``block_k``, scores ``(q . k) * scale`` in
     f32, running max and denominator in f32, and the probabilities cast to
@@ -151,7 +370,9 @@ def flash_attention_blockwise_ref(q, k, v, causal=False, scale=None,
     kernel's key tile (``flash_fwd_plan(q, k, v).block_k``: 128 at
     head_dim 128, 64 otherwise), so the bf16 kernel is held to this
     version; with f32 inputs it equals :func:`flash_attention_ref` up to
-    summation order."""
+    summation order.  The options as in the kernels: the bias added to
+    the scaled scores, and P * keep / (1 - p) cast before P.V while the
+    denominator keeps the undropped P."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -166,6 +387,8 @@ def flash_attention_blockwise_ref(q, k, v, causal=False, scale=None,
     for k0 in range(0, Sk, block_k):
         kb, vb = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
         s = torch.matmul(qf, kb.float().transpose(-1, -2)) * sc
+        if bias is not None:
+            s = s + bias[..., k0:k0 + block_k].float()
         if causal:
             kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
             s = s.masked_fill(qpos < kpos[None, :], NEG_INF)
@@ -173,13 +396,38 @@ def flash_attention_blockwise_ref(q, k, v, causal=False, scale=None,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
+        keep = _keep_block(dropout_p, seed, test_mask, B, H, 0, Sq, k0,
+                           kb.shape[2], q.device)
+        if keep is not None:
+            p = torch.where(keep, p / _keep_p(dropout_p, q.device), 0.0)
         acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
                                                     vb.float())
         m = m_new
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _eligible(q, k, v, causal=False, scale=None, return_lse=False):
+def _options_eligible(q, k, bias, dropout_p, seed, test_mask):
+    """Why the kernels do not take these options on CUDA tensors, or
+    None."""
+    if bias is not None:
+        if (not bias.is_cuda or bias.dtype != q.dtype
+                or tuple(bias.shape) != (q.shape[0], 1, 1, k.shape[2])):
+            return (f"bias must be a CUDA {q.dtype} [B, 1, 1, Sk] row, got "
+                    f"{tuple(bias.shape)} {bias.dtype}")
+    if dropout_p > 0.0:
+        if not dropout_p < 1.0:
+            return f"dropout_p {dropout_p} (takes 0 <= p < 1)"
+        if test_mask is not None:
+            return "an injected test_mask is for the plain version only"
+        if (not torch.is_tensor(seed) or seed.device != q.device
+                or seed.dtype != torch.int64 or seed.numel() != 1):
+            return ("dropout needs its seed as an int64 [1] tensor on q's "
+                    "device (dropout_seed)")
+    return None
+
+
+def _eligible(q, k, v, bias=None, causal=False, scale=None,
+              return_lse=False, dropout_p=0.0, seed=None, test_mask=None):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         return "q, k and v must all be CUDA tensors"
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -196,7 +444,7 @@ def _eligible(q, k, v, causal=False, scale=None, return_lse=False):
                 f"q {tuple(q.shape)}")
     if H % k.shape[1]:
         return f"query heads {H} not a multiple of kv heads {k.shape[1]}"
-    return None
+    return _options_eligible(q, k, bias, dropout_p, seed, test_mask)
 
 
 def _takes_as_is(t):
@@ -240,7 +488,8 @@ def _sm_count(device):
 class FwdPlan:
     """How the forward kernel runs on given q, k, v (B, H, S, D)."""
 
-    route: str          # "tma_wgmma" (bf16, D=128), "mma_sync" or "fma"
+    route: str          # "tma_wgmma" (bf16, D=128, no option),
+                        # "mma_sync" (other bf16) or "fma" (f32)
     block_q: int        # query rows per block
     block_k: int        # keys per tile: the rounding tile of P
     stages: int         # K/V tiles in flight (1: loaded synchronously)
@@ -265,16 +514,18 @@ def _tma_strides(t):
                  for i in (2, 1, 0))
 
 
-def flash_fwd_plan(q, k, v):
+def flash_fwd_plan(q, k, v, bias=None, dropout_p=0.0):
     """The launch plan of the forward kernel for (B, H, S, D) q, k, v:
     the route, tiles, grid and, on the Hopper route, the TMA strides.
-    bf16 at head_dim 128 always takes the Hopper route; a tensor it
-    cannot take as is (``as_is`` False) is made row-major by
-    :func:`_rowmajor` first, never sent to the other kernel.  Pure shape
-    arithmetic: it runs on CPU tensors too."""
+    bf16 at head_dim 128 takes the Hopper route unless a bias or dropout
+    is asked for (the ``mma.sync`` route takes those); a tensor it cannot
+    take as is (``as_is`` False) is made row-major by :func:`_rowmajor`
+    first, never sent to the other kernel.  Pure shape arithmetic: it runs
+    on CPU tensors too."""
     B, H, Sq, D = q.shape
+    opts = bias is not None or dropout_p > 0.0
     as_is = {n: _takes_as_is(t) for n, t in (("q", q), ("k", k), ("v", v))}
-    if q.dtype == torch.bfloat16 and D == 128:
+    if q.dtype == torch.bfloat16 and D == 128 and not opts:
         route, bq, bk, stages, threads, smem = (
             "tma_wgmma", _SM90["block_q"], _SM90["block_k"],
             _SM90["stages"], _SM90["threads"], _SM90["smem_bytes"])
@@ -283,7 +534,8 @@ def flash_fwd_plan(q, k, v):
             H * D * 2, D * 2, Sq * H * D * 2)
     elif q.dtype == torch.bfloat16:
         route, bq, bk, stages, threads = "mma_sync", 64, 64, 1, 128
-        smem = (bq + 2 * bk) * (D + 8) * 2
+        # with an option: the tile's bias row, f32
+        smem = (bq + 2 * bk) * (D + 8) * 2 + (bk * 4 if opts else 0)
         tma = ()
     else:
         route, bq, bk, stages, threads = "fma", 32, 32, 1, 128
@@ -297,9 +549,21 @@ def flash_fwd_plan(q, k, v):
     return FwdPlan(route, bq, bk, stages, threads, smem, grid, tma, as_is)
 
 
-def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
+def _option_args(dropout_p, seed):
+    """The C entries' dropout arguments: seed pointer (None: no
+    dropout), keep threshold, f32(1 - p)."""
+    if not dropout_p > 0.0:
+        return None, 0, 1.0
+    return seed.data_ptr(), _threshold(dropout_p), 1.0 - dropout_p
+
+
+def _flash_fwd_cuda(q, k, v, bias=None, causal=False, scale=None,
+                    return_lse=False, dropout_p=0.0, seed=None,
+                    test_mask=None):
     q, k, v = _rowmajor(q), _rowmajor(k), _rowmajor(v)
-    plan = flash_fwd_plan(q, k, v)
+    if bias is not None and bias.stride(-1) != 1:
+        bias = bias.contiguous()
+    plan = flash_fwd_plan(q, k, v, bias=bias, dropout_p=dropout_p)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -329,12 +593,21 @@ def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
         else:
             fn = lib.flash_attention_fwd
             if fn.argtypes is None:
+                # q, k, v, o, lse; B, H, Hkv, Sq, Sk, D; bias and its batch
+                # stride; seed, threshold, 1 - p; strides; causal, scale,
+                # is_bf16, stream
                 fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_void_p, ctypes.c_uint,
+                                  ctypes.c_float]
                                + [ctypes.c_longlong] * 12
                                + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p])
                 fn.restype = ctypes.c_int
             rc = fn(*ptrs, B, H, Hkv, Sq, Sk, D,
+                    bias.data_ptr() if bias is not None else None,
+                    bias.stride(0) if bias is not None else 0,
+                    *_option_args(dropout_p, seed),
                     q.stride(0), q.stride(1), q.stride(2),
                     k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
@@ -343,8 +616,40 @@ def _flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
                     int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, rc, f"flash_attention_fwd ({plan.route}) "
                           f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
-    _SPEC.launches += 1
+    registry.note_launch(_SPEC, _launch_mode(bias, dropout_p))
     return (o, lse) if return_lse else o
+
+
+def _launch_mode(bias, dropout_p):
+    """The mode a launch is counted under: "bias", "dropout" or None."""
+    return ("bias" if bias is not None
+            else "dropout" if dropout_p > 0.0 else None)
+
+
+def dropout_keep_mask_cuda(seed, B, H, Sq, Sk, p, q0=0, k0=0):
+    """The kernels' keep mask from the device header's debug entry
+    (``flash_dropout_keep_mask`` in ``csrc/flash_attention_fwd.cu``), one
+    element a thread: bool [B, H, Sq, Sk] on ``seed``'s card.  Not on a
+    model's path: the card checks hold it bitwise against
+    :func:`dropout_keep_mask`."""
+    if not (torch.is_tensor(seed) and seed.is_cuda
+            and seed.dtype == torch.int64 and seed.numel() == 1):
+        raise ValueError("dropout_keep_mask_cuda needs an int64 [1] CUDA "
+                         "seed tensor")
+    out = torch.empty((B, H, Sq, Sk), dtype=torch.uint8, device=seed.device)
+    lib = _build.load(_SOURCE)
+    fn = lib.flash_dropout_keep_mask
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(seed.device):
+        stream = torch.cuda.current_stream(seed.device).cuda_stream
+        rc = fn(seed.data_ptr(), B, H, Sq, Sk, q0, k0, _threshold(p),
+                out.data_ptr(), stream)
+    _build.check(lib, rc, f"flash_dropout_keep_mask B={B} H={H} Sq={Sq} "
+                          f"Sk={Sk}")
+    return out.bool()
 
 
 # copied from the reference's registration (its one flash entry covers
@@ -360,7 +665,8 @@ _SPEC = registry.register(
     source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
     replaces="paddle_tpu/ops/pallas/flash_attention.py:72",
     doc="blockwise flash attention forward (+ optional LSE), causal or "
-        "not, GQA by head index",
+        "not, GQA by head index; optional [B, 1, 1, Sk] bias row or "
+        "in-kernel dropout",
 )
 
 
@@ -375,14 +681,20 @@ def attention_delta(o, do):
 
 
 def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
-                 chunk=512):
+                 chunk=512, dropout_p=0.0, seed=None, test_mask=None,
+                 bias=None):
     """FlashAttention-2's backward from the saved LSE, queries in chunks
     of ``chunk`` rows against all keys, in f32.  ``round_p`` rounds P and
     dS to the input dtype before their products, as the kernels do (the
     rounding is per element against the final LSE, so the chunking does
-    not change what is rounded).  Returns the f32 gradients named in
-    ``want`` ("dq", "dk", "dv"), dk/dv summed over each kv head's group
-    of query heads."""
+    not change what is rounded).  With dropout the forward's mask is
+    regenerated: dV takes P * keep / (1 - p), dP is dropped alike, and
+    dS = P (dP - delta) scale keeps the undropped P.  ``bias`` (a row
+    that broadcasts to [B, 1, 1, Sk]) is added to the scaled scores, as
+    the forward added it (its LSE includes it).  Returns the f32
+    gradients named in ``want`` ("dq", "dk", "dv", "dbias"), dk/dv summed
+    over each kv head's group of query heads, dbias ([B, 1, 1, Sk]: the
+    sum of P (dP - delta) over heads and queries) over nothing else."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     R = H // Hkv
@@ -400,20 +712,35 @@ def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
     dqs = []
     dk = torch.zeros((B, H, Sk, D), device=dev) if "dk" in want else None
     dv = torch.zeros((B, H, Sk, D), device=dev) if "dv" in want else None
+    db = (torch.zeros((B, 1, 1, Sk), device=dev) if "dbias" in want
+          else None)
     for q0 in range(0, Sq, chunk):
         qc = q[:, :, q0:q0 + chunk].float()
         doc = do[:, :, q0:q0 + chunk].float()
         s = torch.matmul(qc, kf.transpose(-1, -2)) * sc
+        if bias is not None:
+            s = s + bias.float()
         if causal:
             qpos = torch.arange(q0, q0 + qc.shape[2], device=dev)
             s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
         p = torch.exp(s - lse[:, :, q0:q0 + chunk, None])
         del s
+        keep = _keep_block(dropout_p, seed, test_mask, B, H, q0,
+                           qc.shape[2], 0, Sk, dev)
+        if keep is not None:
+            kp = _keep_p(dropout_p, dev)
         if dv is not None:
-            dv += torch.matmul(rnd(p).transpose(-1, -2), doc)
+            pd = p if keep is None else torch.where(keep, p / kp, 0.0)
+            dv += torch.matmul(rnd(pd).transpose(-1, -2), doc)
+            del pd
         dp = torch.matmul(doc, vf.transpose(-1, -2))
-        ds = rnd(p * (dp - delta[:, :, q0:q0 + chunk, None]) * sc)
+        if keep is not None:
+            dp = torch.where(keep, dp / kp, 0.0)
+        ds = p * (dp - delta[:, :, q0:q0 + chunk, None])
         del p, dp
+        if db is not None:
+            db += ds.sum(dim=(1, 2), keepdim=True)
+        ds = rnd(ds * sc)
         if "dq" in want:
             dqs.append(torch.matmul(ds, kf))
         if dk is not None:
@@ -421,6 +748,8 @@ def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
     out = {}
     if dqs:
         out["dq"] = torch.cat(dqs, dim=2)
+    if db is not None:
+        out["dbias"] = db
     for name, g in (("dk", dk), ("dv", dv)):
         if g is not None:
             out[name] = g.view(B, Hkv, R, Sk, D).sum(dim=2) if R != 1 else g
@@ -428,31 +757,37 @@ def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
 
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False,
-                                scale=None):
+                                scale=None, dropout_p=0.0, seed=None,
+                                test_mask=None):
     """Plain dK, dV (input dtype) from the saved LSE and ``delta``:
     chunked f32, P and dS unrounded."""
     g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dk", "dv"),
-                     round_p=False)
+                     round_p=False, dropout_p=dropout_p, seed=seed,
+                     test_mask=test_mask)
     return g["dk"].to(k.dtype), g["dv"].to(v.dtype)
 
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=False,
-                               scale=None):
+                               scale=None, dropout_p=0.0, seed=None,
+                               test_mask=None):
     """Plain dQ (input dtype) from the saved LSE and ``delta``: chunked
     f32, P and dS unrounded."""
     g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dq",),
-                     round_p=False)
+                     round_p=False, dropout_p=dropout_p, seed=seed,
+                     test_mask=test_mask)
     return g["dq"].to(q.dtype)
 
 
 def flash_attention_bwd_blockwise_ref(q, k, v, do, lse, delta, causal=False,
-                                      scale=None):
+                                      scale=None, dropout_p=0.0, seed=None,
+                                      test_mask=None):
     """The Pallas backward kernels' arithmetic in plain PyTorch: P and dS
     rounded to the input dtype before their products, f32 sums.  With
     bf16 inputs the bf16 kernels are held to this version; with f32
     inputs it equals the chunked plain versions.  Returns (dq, dk, dv)."""
     g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale,
-                     ("dq", "dk", "dv"), round_p=True)
+                     ("dq", "dk", "dv"), round_p=True, dropout_p=dropout_p,
+                     seed=seed, test_mask=test_mask)
     return g["dq"].to(q.dtype), g["dk"].to(k.dtype), g["dv"].to(v.dtype)
 
 
@@ -460,8 +795,10 @@ def flash_attention_bwd_blockwise_ref(q, k, v, do, lse, delta, causal=False,
 # backward: kernels
 # ---------------------------------------------------------------------
 
-def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None):
-    reason = _eligible(q, k, v)
+def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None,
+                  dropout_p=0.0, seed=None, test_mask=None):
+    reason = _eligible(q, k, v, dropout_p=dropout_p, seed=seed,
+                       test_mask=test_mask)
     if reason:
         return reason
     if not do.is_cuda or do.shape != q.shape or do.dtype != q.dtype:
@@ -509,7 +846,8 @@ class BwdKernelPlan:
 class BwdPlan:
     """How the backward kernels run on given q, k, v, dO (B, H, S, D)."""
 
-    route: str          # "tma_wgmma" (bf16, D=128), "mma_sync" or "fma"
+    route: str          # "tma_wgmma" (bf16, D=128, no dropout),
+                        # "mma_sync" (other bf16) or "fma" (f32)
     dkv: BwdKernelPlan
     dq: BwdKernelPlan
     # per tensor: taken where it lies (else _rowmajor copies it first)
@@ -534,13 +872,14 @@ def _bwd_tiles(n_res, block_res, block_str, n_other, causal, dkv, heads,
     return tiles * heads * B
 
 
-def flash_bwd_plan(q, k, v, do, causal=False):
+def flash_bwd_plan(q, k, v, do, causal=False, dropout_p=0.0):
     """The launch plans of both backward kernels for (B, H, S, D) q, k,
     v, dO: the route, tiles, stages, grid, work and, on the Hopper route,
-    the TMA strides.  bf16 at head_dim 128 always takes the Hopper route;
-    a tensor it cannot take as is (``as_is`` False) is made row-major by
-    :func:`_rowmajor` first, never sent to the other kernels.  Pure shape
-    arithmetic: it runs on CPU tensors too."""
+    the TMA strides.  bf16 at head_dim 128 takes the Hopper route unless
+    there is dropout (the ``mma.sync`` route takes it, dK/dV with 64 keys
+    a block); a tensor it cannot take as is (``as_is`` False) is made
+    row-major by :func:`_rowmajor` first, never sent to the other kernels.
+    Pure shape arithmetic: it runs on CPU tensors too."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     R = H // Hkv
@@ -551,7 +890,7 @@ def flash_bwd_plan(q, k, v, do, causal=False):
     for name, n_res, heads, n_other in (("dkv", Sk, Hkv, Sq),
                                          ("dq", Sq, H, Sk)):
         dkv = name == "dkv"
-        if q.dtype == torch.bfloat16 and D == 128:
+        if q.dtype == torch.bfloat16 and D == 128 and not dropout_p > 0.0:
             route = "tma_wgmma"
             br, bs, stages, threads, smem = (
                 _SM90_BWD["block_res"], _SM90_BWD["block_str"],
@@ -586,14 +925,15 @@ def flash_bwd_plan(q, k, v, do, causal=False):
     return BwdPlan(route, plans["dkv"], plans["dq"], as_is)
 
 
-def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale):
+def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale,
+                dropout_p=0.0, seed=None):
     """Launch backward ``kernel`` ("dkv" or "dq") on row-major q, k, v,
     dO (:func:`_rowmajor`) and contiguous lse, delta, into ``outs``:
     (dk, dv) or (dq,)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
-    plan = flash_bwd_plan(q, k, v, do, causal)
+    plan = flash_bwd_plan(q, k, v, do, causal, dropout_p=dropout_p)
     kplan = getattr(plan, kernel)
     lib = _build.load(_BWD_SOURCE)
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta) + tuple(outs)]
@@ -620,9 +960,11 @@ def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale):
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk, D;
-            # strides; causal, scale, is_bf16, stream
+            # seed, threshold, 1 - p; strides; causal, scale, is_bf16,
+            # stream
             fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
                            + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
                            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -631,14 +973,15 @@ def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale):
         strides = []
         for t in (q, k, v, do) + full:
             strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
-        args = (B, H, Hkv, Sq, Sk, D, (ctypes.c_longlong * 21)(*strides),
+        args = (B, H, Hkv, Sq, Sk, D, *_option_args(dropout_p, seed),
+                (ctypes.c_longlong * 21)(*strides),
                 int(bool(causal)), float(sc), int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, *args, stream)
     _build.check(lib, rc, f"{entry} q={tuple(q.shape)} k={tuple(k.shape)} "
                           f"{q.dtype}")
-    spec.launches += 1
+    registry.note_launch(spec, _launch_mode(None, dropout_p))
 
 
 def _like_bshd(t):
@@ -650,19 +993,21 @@ def _like_bshd(t):
                        device=t.device).transpose(1, 2)
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                  dropout_p=0.0, seed=None, test_mask=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dk, dv = _like_bshd(k), _like_bshd(v)
     _bwd_launch("dkv", _DKV_SPEC, q, k, v, do, lse.contiguous(),
-                delta.contiguous(), (dk, dv), causal, scale)
+                delta.contiguous(), (dk, dv), causal, scale, dropout_p, seed)
     return dk, dv
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None):
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                 dropout_p=0.0, seed=None, test_mask=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dq = _like_bshd(q)
     _bwd_launch("dq", _DQ_SPEC, q, k, v, do, lse.contiguous(),
-                delta.contiguous(), (dq,), causal, scale)
+                delta.contiguous(), (dq,), causal, scale, dropout_p, seed)
     return dq
 
 
@@ -673,7 +1018,8 @@ _DKV_SPEC = registry.register(
     source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
     replaces="paddle_tpu/ops/pallas/flash_attention.py:208",
     doc="flash attention backward dK, dV from the saved LSE and delta; "
-        "GQA sums the group's query heads in the kernel",
+        "GQA sums the group's query heads in the kernel; optional "
+        "in-kernel dropout (the forward's mask regenerated)",
 )
 
 _DQ_SPEC = registry.register(
@@ -682,55 +1028,103 @@ _DQ_SPEC = registry.register(
     eligible=_bwd_eligible,
     source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
     replaces="paddle_tpu/ops/pallas/flash_attention.py:258",
-    doc="flash attention backward dQ from the saved LSE and delta",
+    doc="flash attention backward dQ from the saved LSE and delta; "
+        "optional in-kernel dropout (the forward's mask regenerated)",
 )
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with the FlashAttention-2 backward (counterpart of
     the reference's ``_fa_impl`` custom vjp).  The forward keeps q, k,
-    v, o and the LSE; under activation checkpointing the recompute's
-    forward saves them anew, and the backward reads those."""
+    v, o, the LSE and the options (the dropout seed, not a mask); under
+    activation checkpointing the recompute's forward saves them anew, and
+    the backward reads those.  With a bias the backward is the plain
+    chunked one from the saved LSE (:func:`_bwd_chunked`, which also
+    gives the bias's gradient), as the reference's is the vjp of its XLA
+    composition."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, mode):
-        o, lse = registry.dispatch("flash_attention", q, k, v,
+    def forward(ctx, q, k, v, bias, seed, test_mask, causal, scale,
+                dropout_p, mode):
+        opts = dict(dropout_p=dropout_p, seed=seed, test_mask=test_mask)
+        o, lse = registry.dispatch("flash_attention", q, k, v, bias=bias,
                                    causal=causal, scale=scale,
-                                   return_lse=True, mode=mode)
-        ctx.save_for_backward(q, k, v, o, lse)
+                                   return_lse=True, mode=mode, **opts)
+        ctx.save_for_backward(q, k, v, o, lse, bias, seed, test_mask)
         ctx.causal, ctx.scale, ctx.mode = causal, scale, mode
+        ctx.dropout_p = dropout_p
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, bias, seed, test_mask = ctx.saved_tensors
         delta = attention_delta(o, do)
-        kw = dict(causal=ctx.causal, scale=ctx.scale, mode=ctx.mode)
+        if bias is not None:
+            want = ("dq", "dk", "dv") + (
+                ("dbias",) if ctx.needs_input_grad[3] else ())
+            g = _bwd_chunked(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
+                             want, round_p=False, bias=bias)
+            db = g.get("dbias")
+            return (g["dq"].to(q.dtype), g["dk"].to(k.dtype),
+                    g["dv"].to(v.dtype),
+                    db.to(bias.dtype) if db is not None else None,
+                    None, None, None, None, None, None)
+        kw = dict(causal=ctx.causal, scale=ctx.scale, mode=ctx.mode,
+                  dropout_p=ctx.dropout_p, seed=seed, test_mask=test_mask)
         dk, dv = registry.dispatch("flash_attention_bwd_dkv", q, k, v, do,
                                    lse, delta, **kw)
         dq = registry.dispatch("flash_attention_bwd_dq", q, k, v, do, lse,
                                delta, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def flash_attention_bhsd(q, k, v, causal=False, scale=None,
+def flash_attention_bhsd(q, k, v, bias=None, seed=None, test_mask=None,
+                         causal=False, scale=None, dropout_p=0.0,
                          return_lse=False, mode=None):
     """Flash attention on (B, H, S, D) tensors (k/v may have fewer heads:
     grouped-query attention).  Returns ``o`` or ``(o, lse)``.
-    Differentiable in q, k and v (through :class:`_FlashAttention`)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        o, lse = _FlashAttention.apply(q, k, v, causal, scale, mode)
+    Differentiable in q, k, v and ``bias`` (through
+    :class:`_FlashAttention`).
+
+    ``bias``: an additive row (padding masks) that broadcasts to [B, 1, 1,
+    Sk], in q's dtype on the kernel path; a row shared by the batch is
+    read in place (batch stride 0).  ``dropout_p`` drops the normalised weights inside
+    the kernels, the keep mask regenerated from ``seed`` (an int64 [1]
+    tensor, :func:`dropout_seed`); ``test_mask`` (a full [B, H, Sq, Sk]
+    keep mask) replaces the generated one in the plain versions, for
+    parity with the reference.  Dropout is taken at the shapes the
+    reference's default blocks take (:func:`_check_dropout_args`)."""
+    sq, sk = q.shape[2], k.shape[2]
+    _check_dropout_args(dropout_p, seed, test_mask, sq, sk,
+                        *_resolve_blocks(sq, sk, None, None), bias)
+    if bias is not None:
+        try:
+            bias = bias.expand(q.shape[0], 1, 1, sk)
+        except RuntimeError:
+            raise ValueError(
+                f"flash attention takes a bias row that broadcasts to "
+                f"[B, 1, 1, Sk], got {tuple(bias.shape)} for q "
+                f"{tuple(q.shape)}") from None
+    opts = dict(bias=bias, dropout_p=dropout_p, seed=seed,
+                test_mask=test_mask)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        o, lse = _FlashAttention.apply(q, k, v, bias, seed, test_mask,
+                                       causal, scale, dropout_p, mode)
         return (o, lse) if return_lse else o
     return registry.dispatch("flash_attention", q, k, v, causal=causal,
-                             scale=scale, return_lse=return_lse, mode=mode)
+                             scale=scale, return_lse=return_lse, mode=mode,
+                             **opts)
 
 
-def flash_attention(q, k, v, causal=False, scale=None, mode=None):
-    """Flash attention on paddle-layout (B, S, H, D) tensors."""
+def flash_attention(q, k, v, bias=None, causal=False, scale=None,
+                    mode=None, dropout_p=0.0, seed=None):
+    """Flash attention on paddle-layout (B, S, H, D) tensors; ``bias``
+    stays [B, 1, 1, Sk]."""
     o = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal, scale=scale,
+                             v.transpose(1, 2), bias=bias, seed=seed,
+                             causal=causal, scale=scale, dropout_p=dropout_p,
                              mode=mode)
     return o.transpose(1, 2)

@@ -29,7 +29,7 @@ import torch
 
 __all__ = ["KernelSpec", "register", "kernels", "spec", "dispatch",
            "card_error", "launch_counts", "note_launch", "reset_counts",
-           "MODES"]
+           "set_kernel_mode", "MODES"]
 
 MODES = ("cuda", "torch_ref")
 
@@ -108,6 +108,21 @@ def dispatch(name: str, *args, mode: Optional[str] = None, **kwargs):
             raise ValueError(f"{name}: the CUDA kernel does not take this "
                              f"call: {reason}")
     return s.kernel_fn(*args, **kwargs)
+
+
+def set_kernel_mode(model: torch.nn.Module, mode: Optional[str]):
+    """Route every layer of ``model`` that dispatches a kernel (each has
+    a ``kernel_mode`` attribute: the int8 layers, BERT's self-attention,
+    ``MultiHeadAttention``) by ``mode``: ``None`` (the kernel for CUDA
+    tensors, the plain version for CPU ones), ``"torch_ref"`` (the plain
+    version) or ``"cuda"`` (the kernel, or raise).  Returns ``model``."""
+    if mode is not None and mode not in MODES:
+        raise ValueError(f"mode must be None or one of {MODES}, got "
+                         f"{mode!r}")
+    for m in model.modules():
+        if hasattr(m, "kernel_mode"):
+            m.kernel_mode = mode
+    return model
 
 
 def card_error(got: torch.Tensor, ref: torch.Tensor, tol) -> tuple:

@@ -25,7 +25,8 @@ returned as a channels-last NCHW view, which the layers that follow keep.
 
 Each int8 layer routes its kernel by ``kernel_mode`` (``None``: by the
 tensor's device, as everywhere in the port; ``"torch_ref"``: the plain
-version, to compare against; see :func:`set_kernel_mode`).
+version, to compare against; ``set_kernel_mode``, from the kernel
+registry, routes a whole model).
 
 Fake-quant, QAT and PTQ are not ported (see ROADMAP.md).
 """
@@ -39,6 +40,7 @@ from ..framework.dtype import to_torch
 from ..nn.functional import conv as Fconv
 from ..nn.layer import Conv2D, Linear
 from ..ops.kernels.int8_matmul import aligned_rows, int8_matmul, kernel_rows
+from ..ops.kernels.registry import set_kernel_mode
 
 __all__ = ["Int8InferenceLinear", "Int8InferenceConv2D",
            "convert_to_int8_inference", "set_kernel_mode"]
@@ -238,14 +240,3 @@ def convert_to_int8_inference(model: nn.Module, compute_dtype=torch.bfloat16,
         else:
             convert_to_int8_inference(sub, compute_dtype, act_quant)
     return model.eval()
-
-
-def set_kernel_mode(model: nn.Module, mode) -> nn.Module:
-    """Route every int8 layer of ``model`` by ``mode``: ``None`` (the
-    kernel for CUDA tensors, the plain version for CPU ones),
-    ``"torch_ref"`` (the plain version) or ``"cuda"`` (the kernel, or
-    raise)."""
-    for m in model.modules():
-        if isinstance(m, _Int8Layer):
-            m.kernel_mode = mode
-    return model

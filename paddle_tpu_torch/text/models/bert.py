@@ -14,12 +14,17 @@ moments and casts back to its input's dtype, ``linear`` promotes like
 in the attention's dtype, and the criterion computes in f32 (as XLA
 computes the reference's bf16 expression: see the criterion).
 
-Attention follows the reference's branch (``bert.py:147-160``): with a
+Attention follows the reference's branch (``bert.py:146-163``): with a
 padding mask, or below the flash kernels' length, the plain attention
 (``_sdpa_ref``, with dropout on the softmax weights in training); with
-no mask at flash-eligible shapes the flash forward (kernel 1) without
-dropout.  The reference drops inside that kernel in training; the port
-has not ported in-kernel dropout and raises there.
+no mask at flash-eligible shapes the flash kernels, which in training
+drop the attention weights inside kernels 1-3 from a seed drawn from the
+model's dropout generator (one int64 a layer, on the device), so that
+``DistributedTrainStep``'s generator replay under ``recompute`` redraws
+the same seed and the recomputed forward the same mask.
+``kernel_mode`` (None, or ``"torch_ref"``: the plain versions) on an
+attention layer forwards to the flash kernels' dispatch
+(``registry.set_kernel_mode`` sets it on every layer of a model).
 
 Dropout masks come from one ``torch.Generator`` on the model's device
 (``dropout_generator``, default: the global seed + 1), shared by every
@@ -30,7 +35,7 @@ so the [B, S, V] logits never exist, and decodes with the word embedding
 itself: one parameter, whose gradient sums both uses.
 
 Not ported: tensor-parallel sharding of the parallel linears (they run
-at world 1) and the flash kernels' in-kernel dropout (ROADMAP queue 2a).
+at world 1).
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ from ...nn import functional as F
 from ...nn.layer import (ColumnParallelLinear, Dropout, Embedding, LayerNorm,
                          Linear, Normal, RowParallelLinear, Tanh,
                          VocabParallelEmbedding)
-from ...ops.kernels.flash_attention import flash_attention, flash_eligible
+from ...ops.kernels.flash_attention import (dropout_seed, flash_attention,
+                                            flash_eligible)
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
            "BertPretrainingCriterion", "bert_base", "bert_large",
@@ -100,13 +106,6 @@ def ernie_base(**kw) -> BertConfig:
     return BertConfig(**d)
 
 
-_NO_FLASH_DROPOUT = (
-    "BERT attention with dropout and no padding mask at a flash-eligible "
-    "length runs the flash kernel's in-kernel dropout in the reference; "
-    "that is not ported yet (ROADMAP queue 2a). Pass an attention_mask, "
-    "call eval(), or set attention_probs_dropout_prob=0")
-
-
 class BertEmbeddings(nn.Module):
     """word + position + token-type embeddings -> LayerNorm -> dropout."""
 
@@ -155,6 +154,7 @@ class BertSelfAttention(nn.Module):
             **kw)
         self.dropout_p = c.attention_probs_dropout_prob
         self.generator = drop_gen
+        self.kernel_mode = None
 
     def forward(self, hidden, attention_mask=None):
         c = self.config
@@ -165,10 +165,12 @@ class BertSelfAttention(nn.Module):
                    for t in qkv.split(c.hidden_size, dim=-1))
         drop_p = self.dropout_p if self.training else 0.0
         with torch.profiler.record_function("attention"):
-            if attention_mask is None and flash_eligible(S, D):
-                if drop_p > 0.0:
-                    raise NotImplementedError(_NO_FLASH_DROPOUT)
-                o = flash_attention(q, k, v, causal=False)
+            if attention_mask is None and flash_eligible(S, D,
+                                                         dropout=drop_p):
+                seed = (dropout_seed(self.generator) if drop_p > 0.0
+                        else None)
+                o = flash_attention(q, k, v, causal=False, dropout_p=drop_p,
+                                    seed=seed, mode=self.kernel_mode)
             else:
                 m = None
                 if attention_mask is not None:

@@ -45,6 +45,7 @@ from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
                                                 DistributedTrainStep)
 from paddle_tpu_torch.framework.io import load_jax_state_dict
 from paddle_tpu_torch.nn import Dropout, LayerNorm
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import registry
 from paddle_tpu_torch.ops.kernels.int8_matmul import int8_mm_plan
 from paddle_tpu_torch.optimizer import AdamW
@@ -561,12 +562,18 @@ def test_recompute_replays_the_dropout_masks(pretrain, batch):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
 
 
-def test_flash_route_at_1024_and_its_dropout_refused(pretrain):
-    """With no padding mask at S = 1,024 (head_dim 64) the port's
-    attention takes kernel 1's entry point (its plain version on the
-    CPU) where the reference on the CPU takes ``_sdpa_ref``: the same
-    exact attention, rtol/atol 1e-5.  In training with attention dropout
-    the reference would drop inside the kernel; the port raises."""
+def test_flash_route_at_1024_and_its_dropout_refused(pretrain, monkeypatch):
+    """(The port used to refuse attention dropout on the flash route; it
+    now drops inside kernels 1-3, as the reference does.)  With no padding
+    mask at S = 1,024 (head_dim 64) the port's attention takes kernel 1's
+    entry point (its plain version on the CPU) where the reference on the
+    CPU takes ``_sdpa_ref``: the same exact attention, rtol/atol 1e-5.  In
+    training with attention dropout it takes the flash entry with a seed
+    drawn from the model's dropout generator: a layer's output is
+    ``_sdpa_ref``'s composition with that seed's ``dropout_keep_mask``
+    applied to the weights (atol 1e-5), and a step under ``recompute``
+    redraws each layer's seed (the same masks, bitwise) and gives the
+    loss and gradients of the step without it, bitwise."""
     kw = dict(max_position_embeddings=1024)
     paddle.seed(2)
     jm = jb.BertModel(jb.bert_tiny(**kw, **NO_DROP))
@@ -578,12 +585,71 @@ def test_flash_route_at_1024_and_its_dropout_refused(pretrain):
     tseq, _ = tm(torch.from_numpy(ids))
     np.testing.assert_allclose(_np(tseq), _jnp(jseq), rtol=1e-5, atol=1e-5)
     assert registry.spec("flash_attention").torch_ref_calls == 2
+
+    # training: in-kernel dropout from a seed the layer draws
     train = _port(arrays, tb.BertModel, max_position_embeddings=1024,
                   attention_probs_dropout_prob=0.1)
-    with pytest.raises(NotImplementedError, match="queue 2a"):
-        train(torch.from_numpy(ids))
-    # a padding mask takes the plain attention, dropout and all
-    train(torch.from_numpy(ids), attention_mask=torch.ones(1, 1024))
+    att = train.layers[0].attention
+    hidden = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (1, 1024, 128)).astype(np.float32))
+    state = att.generator.get_state()
+    registry.reset_counts()
+    got = att(hidden)
+    assert registry.spec("flash_attention").torch_ref_calls == 1
+    att.generator.set_state(state)
+    seed = fa.dropout_seed(att.generator)
+    with torch.no_grad():
+        q, k, v = (t.reshape(1, 1024, 2, 64).transpose(1, 2) for t in
+                   att.qkv_proj(hidden).split(128, dim=-1))
+        w = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1)
+        keep = fa.dropout_keep_mask(seed, 1, 2, 1024, 1024, 0.1)
+        w = torch.where(keep, w / torch.tensor(0.9), 0.0)
+        want = att.out_proj((w @ v).transpose(1, 2).reshape(1, 1024, 128))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+    # recompute replays the seeds, so the masks, bitwise
+    seeds = []
+    real = tb.dropout_seed
+
+    def logged(gen):
+        s = real(gen)
+        seeds.append(int(s))
+        return s
+
+    monkeypatch.setattr(tb, "dropout_seed", logged)
+    out, drawn = [], []
+    pos = np.sort(np.random.RandomState(5).randint(0, 1024, (1, 4)),
+                  axis=1).astype("int32")
+    args = [torch.from_numpy(a) for a in (
+        ids, pos, np.array([[1, 2, 3, 4]], np.int64), np.array([1]))]
+    for recompute in (False, True):
+        pm = tb.BertForPretraining(
+            tb.bert_tiny(max_position_embeddings=1024,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.1), device="cpu",
+            generator=torch.Generator().manual_seed(0),
+            dropout_generator=torch.Generator().manual_seed(5))
+        s = DistributedStrategy()
+        s.recompute = recompute
+        crit = tb.BertPretrainingCriterion(V)
+
+        def loss_fn(ids_, pos_, mlm, nsp, pm=pm):
+            lg, ns = pm(ids_, masked_positions=pos_)
+            return crit(lg, ns, mlm, nsp)
+
+        seeds.clear()
+        step = DistributedTrainStep(pm, loss_fn, AdamW(
+            LR, parameters=pm.parameters()), s)
+        out.append(step.loss_and_grads(*args))
+        drawn.append(list(seeds))
+    # one seed a layer; under recompute each drawn again, the same
+    assert len(set(drawn[0])) == len(drawn[0]) == 2
+    assert sorted(drawn[1]) == sorted(drawn[0] * 2)
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l1, l0)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    assert registry.spec("flash_attention_bwd_dkv").torch_ref_calls == 4
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

@@ -266,6 +266,160 @@ def test_backward_kernels_match_plain_on_card():
     assert counts["flash_attention_bwd_dq"] == 2 * runs
 
 
+def _bias_row(seed, B, S, dt, dev):
+    """A [B, 1, 1, S] padding row: 0 on each sequence's first keys (at
+    least half), -1e9 on the rest, plus small finite values at the
+    start (a bias is not only a mask)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(S // 2, S + 1, B)
+    row = np.where(np.arange(S)[None, :] < n[:, None], 0.0, -1e9)
+    row[:, :5] += rng.standard_normal((B, 5))
+    return torch.from_numpy(row.astype(np.float32)[:, None, None, :]).to(
+        dev, dt)
+
+
+@pytest.mark.cuda
+def test_dropout_keep_mask_bitwise_on_card():
+    """The device header's keep mask (its debug entry, one element a
+    thread) bitwise against the plain ``dropout_keep_mask`` on blocks at
+    even and odd offsets; the keep rate within 5 sigma of 1 - p."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    seed = torch.tensor([2 ** 41 + 3], dtype=torch.int64, device=dev)
+    for B, H, Sq, Sk, q0, k0, p in ((2, 3, 64, 64, 0, 0, 0.1),
+                                    (1, 2, 33, 65, 7, 3, 0.3),
+                                    (8, 12, 16, 2048, 2040, 0, 0.1)):
+        got = fa.dropout_keep_mask_cuda(seed, B, H, Sq, Sk, p, q0, k0)
+        want = fa.dropout_keep_mask(seed, B, H, Sq, Sk, p, q0, k0)
+        assert torch.equal(got, want)
+    m = fa.dropout_keep_mask_cuda(seed, 4, 4, 512, 512, 0.1)
+    sigma = (0.1 * 0.9 / m.numel()) ** 0.5
+    assert abs(m.double().mean().item() - 0.9) <= 5 * sigma
+
+
+@pytest.mark.cuda
+def test_flash_bias_row_matches_plain_on_card():
+    """Kernel 1 with a [B, 1, 1, S] bias row on the first kernels (bf16
+    ``mma.sync`` at head_dim 64, 128 and 256; f32 FMA), causal or not,
+    GQA and a ragged length, against the plain versions at the kernel's
+    key tile; a rerun bitwise equal; each launch counted as ``bias``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the translation shape")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    runs = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for D in (64, 128, 256):
+            q, k, v = (torch.from_numpy(a).to(dev, dt)
+                       for a in _qkv(15, B=2, H=4, Hkv=2, S=300, D=D))
+            bias = _bias_row(16, 2, 300, dt, dev)
+            plan = fa.flash_fwd_plan(q, k, v, bias=bias)
+            assert plan.route == ("mma_sync" if dt == torch.bfloat16
+                                  else "fma")
+            for causal in (True, False):
+                o = fa.flash_attention_bhsd(q, k, v, bias=bias,
+                                            causal=causal)
+                again = fa.flash_attention_bhsd(q, k, v, bias=bias,
+                                                causal=causal)
+                ro = (fa.flash_attention_blockwise_ref(
+                    q, k, v, bias=bias, causal=causal, block_k=plan.block_k)
+                    if dt == torch.bfloat16 else fa.flash_attention_ref(
+                        q, k, v, bias=bias, causal=causal))
+                torch.cuda.synchronize()
+                assert torch.equal(o, again)
+                assert bool(torch.isfinite(o.float()).all())
+                _assert_within(o, ro, fa.CARD_TOL[dt])
+                runs += 2
+    spec = registry.spec("flash_attention")
+    assert spec.launches == runs and spec.mode_launches == {"bias": runs}
+
+
+@pytest.mark.cuda
+def test_flash_bias_row_shared_by_the_batch_on_card():
+    """A [1, 1, 1, S] bias row under a batch of 3 (what a padding mask
+    shared by the batch gives): kernel 1 reads it with batch stride 0 and
+    equals, bitwise, the launch with the row copied to every batch entry;
+    its gradient is the batch's sum of the copied rows' (bf16 and f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(a).to(dev, dt)
+                   for a in _qkv(19, B=3, H=4, S=300, D=64))
+        row = _bias_row(20, 1, 300, dt, dev)
+        full = row.expand(3, 1, 1, 300).contiguous()
+        o = fa.flash_attention_bhsd(q, k, v, bias=row)
+        want = fa.flash_attention_bhsd(q, k, v, bias=full)
+        torch.cuda.synchronize()
+        assert torch.equal(o, want)
+        g = torch.ones_like(o)
+        b1, b3 = row.clone().requires_grad_(), full.clone().requires_grad_()
+        (d1,) = torch.autograd.grad(
+            fa.flash_attention_bhsd(q, k, v, bias=b1), b1, g)
+        (d3,) = torch.autograd.grad(
+            fa.flash_attention_bhsd(q, k, v, bias=b3), b3, g)
+        assert d1.shape == row.shape
+        # f32: the same sums in another order; bf16: two roundings to bf16
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        torch.testing.assert_close(d1.float(), d3.float().sum(0, True),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_dropout_matches_plain_on_card():
+    """Kernels 1-3 with in-kernel dropout through the autograd Function
+    (p = 0.1, one seed): every head dim in bf16 (``mma.sync``, head_dim
+    128 included) and f32 (FMA), causal or not, GQA; the forward and the
+    three gradients against the plain versions with the same seed (bf16:
+    the blockwise ones); a rerun bitwise equal; each launch counted as
+    ``dropout``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the pretraining shape")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    seed = torch.tensor([12345], dtype=torch.int64, device=dev)
+    runs = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for D in (64, 128, 256):
+            q, k, v = (torch.from_numpy(a).to(dev, dt)
+                       for a in _qkv(17, B=2, H=4, Hkv=2, S=256, D=D))
+            g = torch.from_numpy(_qkv(18, B=2, H=4, S=256, D=D)[0]).to(
+                dev, dt)
+            for causal in (True, False):
+                outs = []
+                for _ in range(2):
+                    qq, kk, vv = (t.detach().requires_grad_()
+                                  for t in (q, k, v))
+                    o = fa.flash_attention_bhsd(qq, kk, vv, causal=causal,
+                                                dropout_p=0.1, seed=seed)
+                    outs.append((o, *torch.autograd.grad(o, (qq, kk, vv),
+                                                         g)))
+                runs += 2
+                assert all(torch.equal(a, b) for a, b in zip(*outs))
+                kw = dict(causal=causal, dropout_p=0.1, seed=seed)
+                ro, lse = fa.flash_attention_ref(q, k, v, return_lse=True,
+                                                 **kw)
+                if dt == torch.bfloat16:
+                    ro = fa.flash_attention_blockwise_ref(q, k, v, **kw)
+                delta = fa.attention_delta(outs[0][0].detach(), g)
+                args = (q, k, v, g, lse, delta)
+                ref = (fa.flash_attention_bwd_blockwise_ref(*args, **kw)
+                       if dt == torch.bfloat16 else
+                       (fa.flash_attention_bwd_dq_ref(*args, **kw),
+                        *fa.flash_attention_bwd_dkv_ref(*args, **kw)))
+                torch.cuda.synchronize()
+                _assert_within(outs[0][0], ro, fa.CARD_TOL[dt])
+                for got, want in zip(outs[0][1:], ref):
+                    assert bool(torch.isfinite(got.float()).all())
+                    _assert_within(got, want, fa.CARD_TOL_BWD[dt])
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert registry.spec(name).mode_launches == {"dropout": runs}
+
+
 # (M, K, N, compute dtype): ResNet-50 GEMMs (stem K = 147, the classifier
 # N = 1000 at batch 1 and 32, layer4 at batch 1) and odd sizes.  On an
 # H100 (int8_mm_plan): 64 k-tiles walked by each of a few tiles at K =

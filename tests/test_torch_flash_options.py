@@ -1,0 +1,536 @@
+"""The flash kernels' two options in the port -- the [B, 1, 1, Sk] bias row
+of kernel 1 and in-kernel dropout in kernels 1-3 -- against the JAX
+reference, and the port's keep mask by itself.
+
+On the CPU the port's entry points run the kernels' plain versions
+(the tensors lie on the CPU), so these tests hold the plain versions to
+the reference's Pallas kernels in interpret mode, mirroring the
+reference's own tests (``tests/test_flash_attention.py:67-92`` for the
+bias, ``:125-160`` for dropout, which injects a full keep mask:
+``test_mask``, which the port's plain versions take too).  Tolerances,
+each no looser than the reference's own (2e-3 forward, 3e-3 gradients):
+
+- bias: forward and q/k/v/bias gradients rtol/atol 2e-3 (the
+  reference's; the two sides agree to ~1e-6 at f32);
+- dropout: forward and q/k/v gradients rtol/atol 3e-3;
+- the keep mask: bitwise (Random123's known answers; blocks against the
+  whole); its keep rate within 5 sigma of 1 - p.
+
+The launchers are checked with the CUDA library replaced by a recorder
+(no card here); the kernels themselves are held to these plain versions
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 33).
+"""
+import contextlib
+import importlib
+import math
+import types
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import _build, registry
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+
+
+@pytest.fixture(autouse=True)
+def _counts():
+    registry.reset_counts()
+    yield
+    registry.reset_counts()
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a)).requires_grad_()
+
+
+# ---------------------------------------------------------------------
+# the bias row (kernel 1)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bias_plain_matches_jax_kernel(causal):
+    """The reference's bias test (interpret mode, 64-row blocks): forward
+    and the gradients of q, k, v and the bias row, the port's backward
+    being its plain chunked recompute."""
+    rng = np.random.RandomState(3)
+    q, k, v, g = (_rand(rng, 2, 2, 128, 64) for _ in range(4))
+    keep = rng.rand(2, 128) > 0.3
+    bias = np.where(keep, 0.0, -1e30).astype(np.float32)[:, None, None, :]
+    bias[:, :, :, :3] += rng.standard_normal((2, 1, 1, 3)) \
+        .astype(np.float32)
+
+    def jloss(q_, k_, v_, b_):
+        o = jfa.flash_attention_bhsd(q_, k_, v_, bias=b_, causal=causal,
+                                     block_q=64, block_k=64, interpret=True)
+        return (o * jnp.asarray(g)).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                     has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v, bias)))
+    ts = [_t(a) for a in (q, k, v, bias)]
+    o = fa.flash_attention_bhsd(ts[0], ts[1], ts[2], bias=ts[3],
+                                causal=causal)
+    tg = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               rtol=2e-3, atol=2e-3)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
+                                   atol=2e-3)
+    assert registry.spec("flash_attention").torch_ref_calls == 1
+
+
+def test_bias_backward_matches_dense_autograd_with_gqa():
+    """The bias path's backward (the chunked backward from the forward's
+    LSE, with the bias added and its gradient asked for) against autograd
+    of the dense composition, grouped-query (4 query heads on 2 kv
+    heads), ragged length, causal, in 64-row chunks: atol 1e-5 (the same
+    f32 math in chunks)."""
+    rng = np.random.RandomState(4)
+    B, H, Hkv, S, D = 2, 4, 2, 200, 64
+    q, g = _rand(rng, B, H, S, D), _rand(rng, B, H, S, D)
+    k, v = _rand(rng, B, Hkv, S, D), _rand(rng, B, Hkv, S, D)
+    bias = (_rand(rng, B, 1, 1, S) * 2).astype(np.float32)
+    tq, tk, tv, tb, tg = (torch.from_numpy(a) for a in (q, k, v, bias, g))
+    o, lse = fa.flash_attention_ref(tq, tk, tv, bias=tb, causal=True,
+                                    return_lse=True)
+    got = fa._bwd_chunked(tq, tk, tv, tg, lse, fa.attention_delta(o, tg),
+                          True, None, ("dq", "dk", "dv", "dbias"),
+                          round_p=False, chunk=64, bias=tb)
+    ts = [_t(a) for a in (q, k, v, bias)]
+    kk, vv = (t.repeat_interleave(H // Hkv, dim=1) for t in ts[1:3])
+    s = ts[0] @ kk.transpose(-1, -2) / math.sqrt(D) + ts[3]
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    o = torch.softmax(s, -1) @ vv
+    want = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    for name, b in zip(("dq", "dk", "dv", "dbias"), want):
+        np.testing.assert_allclose(got[name].numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 128), (2, 1, 1, 1), (128,)])
+def test_bias_that_broadcasts_matches_jax(shape):
+    """A bias that broadcasts to [B, 1, 1, Sk] without being that shape (a
+    padding row shared by the batch, a per-batch constant, a bare row):
+    the reference takes it on its chunked XLA version, the port expands
+    it (on the card the kernel reads a shared row with batch stride 0);
+    forward and the gradients of q, k, v and the bias, whose gradient
+    keeps the bias's shape, at the reference's 2e-3."""
+    rng = np.random.RandomState(5)
+    q, k, v, g = (_rand(rng, 2, 2, 128, 64) for _ in range(4))
+    bias = rng.standard_normal(shape).astype(np.float32)
+    if shape[-1] == 128:
+        bias[..., 90:] = -1e30
+
+    def jloss(q_, k_, v_, b_):
+        o = jfa.flash_attention_bhsd(q_, k_, v_, bias=b_, block_q=64,
+                                     block_k=64, interpret=True)
+        return (o * jnp.asarray(g)).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                     has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v, bias)))
+    ts = [_t(a) for a in (q, k, v, bias)]
+    o = fa.flash_attention_bhsd(ts[0], ts[1], ts[2], bias=ts[3])
+    tg = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               rtol=2e-3, atol=2e-3)
+    assert tg[3].shape == shape
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
+                                   atol=2e-3)
+    assert registry.spec("flash_attention").torch_ref_calls == 1
+
+
+def test_bias_shape_and_dropout_with_bias_are_refused():
+    q = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(ValueError, match=r"\[B, 1, 1, Sk\]"):
+        fa.flash_attention_bhsd(q, q, q, bias=torch.zeros(1, 2, 64, 64))
+    with pytest.raises(ValueError, match="does not compose"):
+        fa.flash_attention_bhsd(q, q, q, bias=torch.zeros(1, 1, 1, 64),
+                                dropout_p=0.1, seed=torch.zeros(1).long())
+    with pytest.raises(ValueError, match="needs a seed"):
+        fa.flash_attention_bhsd(q, q, q, dropout_p=0.1)
+
+
+# ---------------------------------------------------------------------
+# dropout (kernels 1-3)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_plain_matches_jax_kernels(causal):
+    """The reference's fused-dropout test: an injected keep mask at p =
+    0.3, forward and all three gradients, the reference's Pallas forward
+    and backward kernels in interpret mode against the port's plain
+    versions through its autograd Function."""
+    rng = np.random.RandomState(9)
+    B, H, S, D, p = 2, 2, 128, 64, 0.3
+    q, k, v, g = (_rand(rng, B, H, S, D) for _ in range(4))
+    keep = (rng.rand(B, H, S, S) > p).astype(np.uint8)
+
+    def jflash(q_, k_, v_):
+        return jfa.flash_attention_bhsd(q_, k_, v_, test_mask=jnp.asarray(
+            keep), causal=causal, block_q=64, block_k=64, interpret=True,
+            dropout_p=p)
+
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    jo = jflash(*args)
+    jg = jax.grad(lambda *a: (jflash(*a) * jnp.asarray(g)).sum(),
+                  argnums=(0, 1, 2))(*args)
+    ts = [_t(a) for a in (q, k, v)]
+    o = fa.flash_attention_bhsd(*ts, test_mask=torch.from_numpy(keep),
+                                causal=causal, dropout_p=p)
+    tg = torch.autograd.grad(o, ts, torch.from_numpy(g))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               rtol=3e-3, atol=3e-3)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-3,
+                                   atol=3e-3)
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert registry.spec(name).torch_ref_calls == 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_blockwise_plain_matches_chunked(causal):
+    """The blockwise plain version (the bf16 kernels' oracle) and the
+    chunked one agree at f32 with a generated mask and GQA, forward and
+    backward: atol 1e-5 (the same f32 math in another order); the
+    generated mask injected as ``test_mask`` gives the same output."""
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(_rand(rng, 2, 4, 192, 64))
+    k, v = (torch.from_numpy(_rand(rng, 2, 2, 192, 64)) for _ in range(2))
+    do = torch.from_numpy(_rand(rng, 2, 4, 192, 64))
+    seed = torch.tensor([12345], dtype=torch.int64)
+    kw = dict(causal=causal, dropout_p=0.2, seed=seed)
+    o, lse = fa.flash_attention_ref(q, k, v, return_lse=True, chunk=64, **kw)
+    ob = fa.flash_attention_blockwise_ref(q, k, v, block_k=64, **kw)
+    np.testing.assert_allclose(ob.numpy(), o.numpy(), atol=1e-5)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    chunked = (fa.flash_attention_bwd_dq_ref(*args, **kw),
+               *fa.flash_attention_bwd_dkv_ref(*args, **kw))
+    for a, b in zip(fa.flash_attention_bwd_blockwise_ref(*args, **kw),
+                    chunked):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    # the generated mask is the test_mask path's with that mask injected
+    keep = fa.dropout_keep_mask(seed, 2, 4, 192, 192, 0.2).to(torch.uint8)
+    o2 = fa.flash_attention_ref(q, k, v, causal=causal, dropout_p=0.2,
+                                test_mask=keep)
+    assert torch.equal(o2, fa.flash_attention_ref(q, k, v, **kw))
+
+
+def test_dropout_forward_is_softmax_dropped_then_v():
+    """The forward's arithmetic: softmax(q k^T / sqrt(D)) * keep / (1 - p)
+    then times V, the keep mask :func:`dropout_keep_mask`'s; the LSE is
+    the undropped one.  atol 1e-5."""
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 96, 64)) for _ in range(3))
+    seed = torch.tensor([-7], dtype=torch.int64)
+    o, lse = fa.flash_attention_bhsd(q, k, v, dropout_p=0.25, seed=seed,
+                                     return_lse=True)
+    s = q @ k.transpose(-1, -2) / 8.0
+    keep = fa.dropout_keep_mask(seed, 1, 2, 96, 96, 0.25)
+    w = torch.where(keep, torch.softmax(s, -1) / torch.tensor(0.75), 0.0)
+    np.testing.assert_allclose(o.numpy(), (w @ v).numpy(), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# the keep mask
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))])
+def test_philox_known_answers(ctr, key, want):
+    """Random123's known-answer vectors for philox4x32_10 (int64
+    arithmetic with the multipliers split into 16-bit halves)."""
+    got = fa.philox4x32_10(*(torch.tensor([c], dtype=torch.int64)
+                             for c in ctr), *key)
+    assert tuple(int(w) for w in got) == want
+
+
+@pytest.mark.parametrize("p,want", [(0.5, [[0, 1], [1, 1]]),
+                                    (0.7, [[0, 1], [1, 0]]),
+                                    (0.0, [[1, 1], [1, 1]])])
+def test_keep_mask_of_the_zero_key_and_counter(p, want):
+    """Seed 0, batch 0, head 0, queries and keys 0-1: the group of counter
+    (0, 0, 0, 0) under key (0, 0), whose words 6627e8d5 e169c58d bc57ac4c
+    9b00dbd8 are (q, k) = (0, 0), (0, 1), (1, 0), (1, 1); kept iff a word
+    is >= floor(p * 2^32)."""
+    got = fa.dropout_keep_mask(0, 1, 1, 2, 2, p)
+    assert got[0, 0].tolist() == [[bool(x) for x in row] for row in want]
+
+
+def test_keep_mask_elements_are_their_definition():
+    """Elements of the mask at several (b, h, q, k) against Philox of
+    their own counter, word and threshold, one at a time (the layout
+    of the batch, head, query and key axes)."""
+    seed = (1 << 41) + 3
+    p = 0.3
+    mask = fa.dropout_keep_mask(torch.tensor([seed]), 3, 4, 50, 70, p)
+    rng = np.random.RandomState(7)
+    for b, h, q, k in zip(*(rng.randint(0, n, 40) for n in (3, 4, 50, 70))):
+        words = fa.philox4x32_10(k >> 1, q >> 1, int(h), int(b),
+                                 seed & 0xFFFFFFFF, seed >> 32)
+        bits = int(words[2 * (q & 1) + (k & 1)])
+        assert bool(mask[b, h, q, k]) == (bits >= int(p * 2 ** 32))
+
+
+@pytest.mark.parametrize("q0,nq,k0,nk", [(0, 64, 0, 64), (1, 7, 3, 33),
+                                         (64, 64, 128, 64), (5, 1, 0, 130),
+                                         (31, 33, 63, 65)])
+def test_keep_mask_does_not_depend_on_tiles(q0, nq, k0, nk):
+    """A block of the mask (any offsets, odd ones too: a route's tile, a
+    row chunk of a plain version) is the same slice of the whole mask."""
+    seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64)
+    whole = fa.dropout_keep_mask(seed, 2, 3, 200, 200, 0.1)
+    block = fa.dropout_keep_mask(seed, 2, 3, nq, nk, 0.1, q0=q0, k0=k0)
+    assert torch.equal(block, whole[:, :, q0:q0 + nq, k0:k0 + nk])
+
+
+def test_keep_mask_rows_in_blocks_match(monkeypatch):
+    """The plain mask computes a block of rows at a time; the blocks'
+    size does not change it."""
+    seed = torch.tensor([99], dtype=torch.int64)
+    whole = fa.dropout_keep_mask(seed, 2, 3, 64, 50, 0.3)
+    monkeypatch.setattr(fa, "_MASK_GROUPS", 7)
+    assert torch.equal(fa.dropout_keep_mask(seed, 2, 3, 64, 50, 0.3), whole)
+
+
+def test_keep_mask_seed_head_batch_and_rate():
+    """Another seed, head or batch gives another mask; the keep rate is
+    1 - p within 5 sigma over 2^20 scores, at several p."""
+    a = fa.dropout_keep_mask(1, 2, 2, 128, 128, 0.1)
+    b = fa.dropout_keep_mask(2, 2, 2, 128, 128, 0.1)
+    assert not torch.equal(a, b)
+    assert not torch.equal(a[0, 0], a[0, 1])
+    assert not torch.equal(a[0, 0], a[1, 0])
+    for p in (0.1, 0.3, 0.5):
+        m = fa.dropout_keep_mask(3, 4, 4, 256, 256, p)
+        n = m.numel()
+        sigma = math.sqrt(p * (1 - p) / n)
+        assert abs(m.double().mean().item() - (1 - p)) <= 5 * sigma
+
+
+def test_dropout_seed_replays_with_the_generator():
+    g = torch.Generator().manual_seed(5)
+    state = g.get_state()
+    s1 = fa.dropout_seed(g)
+    g.set_state(state)
+    assert torch.equal(fa.dropout_seed(g), s1)
+    assert s1.dtype == torch.int64 and s1.shape == (1,)
+    assert not torch.equal(fa.dropout_seed(g), s1)
+
+
+# ---------------------------------------------------------------------
+# the reference's dispatch checks, ported
+# ---------------------------------------------------------------------
+
+_FLOAT_ROW = ((2, 1, 1, None), "float32")
+_ELIGIBLE_CASES = [
+    # (seq, head_dim, mask (shape with None for seq, dtype), dropout, kv)
+    (512, 64, None, 0.0, None), (1024, 64, None, 0.0, None),
+    (1024, 32, None, 0.0, None), (2048, 128, None, 0.0, None),
+    (1280, 64, None, 0.0, None), (4096, 256, None, 0.0, None),
+    (1024, 64, _FLOAT_ROW, 0.0, None), (2048, 128, _FLOAT_ROW, 0.0, None),
+    (1024, 64, ((2, 1, 1, None), "bfloat16"), 0.0, None),
+    (1024, 64, ((2, 1, 1, None), "bool"), 0.0, None),
+    (1024, 64, ((2, 1, None, None), "float32"), 0.0, None),
+    (1024, 64, ((2, 4, 1, None), "float32"), 0.0, None),
+    (1024, 64, ((1, None), "float32"), 0.0, None),
+    (1024, 64, None, 0.1, None), (2048, 64, None, 0.1, None),
+    (1280, 64, None, 0.1, None), (512 * 300, 64, None, 0.1, None),
+    (512 * 300, 64, None, 0.0, None), (8192, 64, None, 0.1, None),
+    (2048, 64, None, 0.1, 1024), (2048, 64, None, 0.1, 1000),
+    (2048, 64, _FLOAT_ROW, 0.1, None), (512, 64, None, 0.1, None),
+    (2048, 64, "unvetted", 0.0, None), (2048, 64, "unvetted", 0.1, None),
+]
+
+
+@pytest.mark.parametrize("seq,d,mask,drop,kv", _ELIGIBLE_CASES)
+def test_flash_eligible_agrees_with_the_reference(monkeypatch, seq, d, mask,
+                                                  drop, kv):
+    """The port's ``flash_eligible`` against the reference's on the TPU
+    backend it tests for (the port routes by device instead)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.delenv("PADDLE_TPU_FLASH_MIN_SEQ", raising=False)
+    jkw, tkw = dict(dropout=drop, kv_seq_len=kv), dict(dropout=drop,
+                                                       kv_seq_len=kv)
+    if mask == "unvetted":
+        jkw["has_mask"] = tkw["has_mask"] = True
+    elif mask is not None:
+        shape = tuple(seq if n is None else n for n in mask[0])
+        jkw.update(has_mask=True, mask_shape=shape,
+                   mask_dtype=jnp.dtype(mask[1]) if mask[1] != "bfloat16"
+                   else jnp.bfloat16)
+        tkw.update(has_mask=True, mask_shape=shape,
+                   mask_dtype=getattr(torch, mask[1]))
+    assert fa.flash_eligible(seq, d, **tkw) == jfa.flash_eligible(seq, d,
+                                                                  **jkw)
+
+
+_CHECK_CASES = [
+    # (p, seed, test_mask, sq, sk, block_q, block_k, bias)
+    (0.0, False, False, 100, 100, 64, 64, True),
+    (0.1, True, False, 1024, 1024, 512, 512, False),
+    (0.1, False, True, 128, 128, 64, 64, False),
+    (0.1, False, False, 1024, 1024, 512, 512, False),
+    (0.1, True, False, 1024, 1024, 512, 512, True),
+    (0.1, True, False, 1000, 1000, 512, 512, False),
+    (0.1, True, False, 1024, 1000, 512, 512, False),
+    (0.1, True, False, 512 * 300, 512, 512, 512, False),
+    (0.1, True, False, 256 * 256, 256, 256, 256, False),
+    (0.1, True, False, 100, 100, 512, 512, False),
+]
+
+
+@pytest.mark.parametrize("p,seed,tmask,sq,sk,bq,bk,bias", _CHECK_CASES)
+def test_check_dropout_args_agrees_with_the_reference(p, seed, tmask, sq, sk,
+                                                      bq, bk, bias):
+    """``_check_dropout_args`` raises exactly where the reference's does,
+    with the same reason."""
+    def outcome(fn, s, m, b):
+        try:
+            fn(p, s, m, sq, sk, bq, bk, b)
+        except ValueError as e:
+            return str(e).split(" (")[0].split(",")[0][:40]
+        return None
+
+    j = outcome(jfa._check_dropout_args, jnp.zeros(1) if seed else None,
+                jnp.zeros(1) if tmask else None,
+                jnp.zeros(1) if bias else None)
+    t = outcome(fa._check_dropout_args, torch.zeros(1) if seed else None,
+                torch.zeros(1) if tmask else None,
+                torch.zeros(1) if bias else None)
+    assert t == j
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk", [(2048, 2048, None, None),
+                                         (8192, 2048, None, None),
+                                         (8192, 8192, 512, 512),
+                                         (1024, 1024, 128, 64)])
+def test_resolve_blocks_agrees_with_the_reference(sq, sk, bq, bk):
+    assert fa._resolve_blocks(sq, sk, bq, bk) == \
+        jfa._resolve_blocks(sq, sk, bq, bk)
+
+
+# ---------------------------------------------------------------------
+# routes and launchers (the CUDA library replaced by a recorder)
+# ---------------------------------------------------------------------
+
+class _Fn:
+    def __init__(self, calls, name):
+        self.calls, self.name, self.argtypes = calls, name, None
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return 0
+
+
+class _Lib:
+    def __init__(self):
+        self.calls = []
+        for name in ("flash_attention_fwd", "flash_attention_fwd_sm90",
+                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv_sm90",
+                     "flash_attention_bwd_dq_sm90",
+                     "flash_dropout_keep_mask"):
+            setattr(self, name, _Fn(self.calls, name))
+
+
+@pytest.fixture
+def lib(monkeypatch):
+    fake = _Lib()
+    monkeypatch.setattr(_build, "load", lambda source: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    return fake
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("opt", ["bias", "dropout"])
+def test_options_take_the_mma_sync_route(D, opt):
+    """bf16 with an option takes the ``mma.sync`` route at every head dim
+    (the Hopper route takes none); f32 the FMA route; without an option
+    bf16 at head_dim 128 stays on the Hopper route."""
+    q = torch.zeros(2, 4, 300, D, dtype=torch.bfloat16)
+    kw = (dict(bias=torch.zeros(2, 1, 1, 300, dtype=torch.bfloat16))
+          if opt == "bias" else dict(dropout_p=0.1))
+    plan = fa.flash_fwd_plan(q, q, q, **kw)
+    assert (plan.route, plan.block_q, plan.block_k) == ("mma_sync", 64, 64)
+    # the tile's bias row (f32) beside Q, K and V
+    assert plan.smem_bytes == 3 * 64 * (D + 8) * 2 + 64 * 4
+    assert fa.flash_fwd_plan(q.float(), q.float(), q.float(),
+                             **kw).route == "fma"
+    if opt == "dropout":
+        bplan = fa.flash_bwd_plan(q, q, q, q, dropout_p=0.1)
+        assert bplan.route == "mma_sync"
+        assert bplan.dkv.block_res == (64 if D <= 128 else 32)
+        assert bplan.dq.block_res == 64
+    base = "tma_wgmma" if D == 128 else "mma_sync"
+    assert fa.flash_fwd_plan(q, q, q).route == base
+    assert fa.flash_bwd_plan(q, q, q, q).route == base
+
+
+def test_bias_launch_passes_the_row_and_counts_its_mode(lib):
+    B, H, S, D = 2, 4, 300, 128
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    bias = torch.zeros(B, 1, 1, S, dtype=torch.bfloat16)
+    o = fa._flash_fwd_cuda(q, q, q, bias=bias)
+    ((name, args),) = lib.calls
+    assert name == "flash_attention_fwd"
+    # after the 5 pointers and B, H, Hkv, Sq, Sk, D: the bias row and its
+    # batch stride, then no dropout (null seed, threshold 0, 1 - p = 1)
+    assert args[5:11] == (B, H, H, S, S, D)
+    assert args[11:16] == (bias.data_ptr(), S, None, 0, 1.0)
+    assert o.shape == q.shape
+    spec = registry.spec("flash_attention")
+    assert spec.launches == 1 and spec.mode_launches == {"bias": 1}
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 64)])
+def test_dropout_launches_pass_the_seed_and_count_their_mode(lib, dtype, D):
+    B, H, S = 1, 2, 256
+    q = torch.zeros(B, H, S, D, dtype=dtype)
+    seed = torch.tensor([3], dtype=torch.int64)
+    lse = torch.zeros(B, H, S)
+    fa._flash_fwd_cuda(q, q, q, return_lse=True, dropout_p=0.1, seed=seed)
+    fa._bwd_dkv_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed)
+    fa._bwd_dq_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed)
+    (n1, a1), (n2, a2), (n3, a3) = lib.calls
+    assert (n1, n2, n3) == ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq")
+    want = (seed.data_ptr(), int(0.1 * 2 ** 32), 0.9)
+    assert a1[13:16] == want                  # after the bias and stride
+    assert a2[14:17] == a3[13:16] == want     # after D
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert registry.spec(name).mode_launches == {"dropout": 1}
+
+
+def test_debug_mask_entry_refuses_a_host_seed(lib):
+    seed = torch.tensor([1], dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA seed"):
+        fa.dropout_keep_mask_cuda(seed, 1, 1, 4, 4, 0.1)
+    assert lib.calls == []

@@ -1236,8 +1236,9 @@ def test_build_keeps_the_ptxas_log_beside_a_cached_library(monkeypatch,
 
 def test_build_target_follows_the_included_header(monkeypatch, tmp_path):
     """A library's name hashes the source and every ``csrc/`` header it
-    includes, so an edit to the shared sm90 header rebuilds both flash
-    sources; system headers are not followed."""
+    includes, so an edit to the shared sm90 header or to the dropout
+    header rebuilds both flash sources; system headers are not
+    followed."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     (csrc / "a.cu").write_text('#include <stdint.h>\n#include "h.cuh"\n'
@@ -1252,8 +1253,10 @@ def test_build_target_follows_the_included_header(monkeypatch, tmp_path):
     monkeypatch.undo()
     for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
         assert '#include "sm90.cuh"' in (_build.CSRC / src).read_text()
+        assert '#include "dropout.cuh"' in (_build.CSRC / src).read_text()
         assert (_build._source_bytes(src)
                 == (_build.CSRC / src).read_bytes()
+                + (_build.CSRC / "dropout.cuh").read_bytes()
                 + (_build.CSRC / "sm90.cuh").read_bytes())
 
 
