@@ -233,9 +233,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (p 0.1) at ERNIE's shape (B 8, H 12, S 2,048, D 64), bf16 and f32,
     causal and not; each within ``CARD_TOL`` / ``CARD_TOL_BWD`` of its
     plain version with the same seed and bitwise on a rerun, timed queued
-    beside its bound (operations at 989 / 67 TFLOP/s), its plain version
-    and SDPA with the same float mask or with ``dropout_p`` (yardsticks
-    only: their masks differ);
+    beside its bound (operations at 989 / 67 TFLOP/s; for dK/dV with
+    dropout also the keep mask's integer instructions from its SASS), its
+    plain version and SDPA with the same float mask or with ``dropout_p``
+    (yardsticks only: their masks differ); kernels 2 and 3 also without
+    dropout;
 34. train ERNIE-3.0-base (``bert_base(vocab_size=40000,
     max_position_embeddings=2048, type_vocab_size=4)``, dropout 0.1) at
     batch 8 x seq 2,048 with bf16 AMP and AdamW 1e-4, 307 masked
@@ -493,17 +495,24 @@ def log_flash_fwd(label, kern, steps):
 
 def log_flash_bwd(label, kern, steps):
     """Kernels 2 and 3's device ms and launches per step in a profile
-    (the Hopper route's ``flash_bwd_sm90<true>`` / ``<false>``, the first
-    kernels' ``flash_bwd_dkv_*`` / ``flash_bwd_dq_*``)."""
-    for which, keys in (("kernel 2 (dK/dV)", ("flash_bwd_sm90<true>",
-                                                "flash_bwd_dkv")),
-                        ("kernel 3 (dQ)", ("flash_bwd_sm90<false>",
-                                           "flash_bwd_dq"))):
+    (the Hopper route's ``flash_bwd_sm90<true, D, drop>`` / ``<false,
+    ...>``, the first kernels' ``flash_bwd_dkv_*`` / ``flash_bwd_dq_*``);
+    returns {"dkv": ms, "dq": ms}."""
+    out = {}
+    for short, which, keys in (
+            ("dkv", "kernel 2 (dK/dV)", ("flash_bwd_sm90<true",
+                                         "flash_bwd_dkv")),
+            ("dq", "kernel 3 (dQ)", ("flash_bwd_sm90<false",
+                                     "flash_bwd_dq"))):
         mine = [e for e in kern if any(k in e.key for k in keys)]
         ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
         n = sum(e.count for e in mine) / steps
+        out[short] = ms
+        names = {re.search(r"flash_\w+(<[^>]*>)?", e.key).group(0)
+                 for e in mine}
         log(f"{label}: {which} {ms:.3f} device ms/step over {n:g} "
-            f"launches/step")
+            f"launches/step " + ", ".join(sorted(names)))
+    return out
 
 
 def check_busy(label, busy_ms, wall_ms):
@@ -4159,8 +4168,9 @@ def dropout_cases(dev):
     gradients within ``CARD_TOL`` / ``CARD_TOL_BWD`` of the plain versions
     with the same seed (bf16: the blockwise ones), bitwise on a rerun.
     The path's own case (bf16, not causal) is timed queued: the forward
-    with its LSE, each backward kernel, beside their bounds (operations),
-    their plain versions and SDPA with ``dropout_p`` (its forward, and its
+    with its LSE, each backward kernel (with dropout and without),
+    beside their bounds (the products and, for dK/dV, the keep mask's
+    integer work), their plain versions and SDPA with ``dropout_p`` (its forward, and its
     backward for dq + dk + dv; a yardstick only, its masks differ).
     Returns the rows by kernel name."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -4214,30 +4224,107 @@ def dropout_cases(dev):
     return rows
 
 
+# The keep mask's integer bound on an H100 SM, a clock: 64 results on
+# each integer pipe (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0: 32-bit add, compare, bitwise,
+# shift and multiply-add each 64), IMAD / IMUL on the FMA pipe and the
+# rest on the ALU (Nsight Compute's kernel profiling guide, "Pipelines"),
+# and at most 128 thread-instructions issued (four schedulers, one warp
+# instruction a clock each; NVIDIA H100 Tensor Core GPU Architecture);
+# at the card's maximum SM clock
+INT_PIPE_PER_CLOCK_SM = 64
+ISSUE_PER_CLOCK_SM = 128
+# the kernel that runs Philox at ERNIE's shape (kernel 2, which writes
+# the keep bits kernel 3 reads) with dropout and the same kernel without
+# it, as substrings of their mangled names, and the scores a consumer
+# thread makes keep bits for in one pass of its loop body (8 Philox calls
+# of 4 scores, keep_groups_mma): the keep mask's integer instructions are
+# the difference (paddle_tpu_torch/tools/sass_counts.py).  Kernel 1's
+# only dropout instantiation also holds the bias row's code, so its row
+# keeps the products' bound until its own redesign.
+KEEP_MASK_SASS = {
+    "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
+                                "flash_bwd_sm90ILb1ELi64ELi1E",
+                                "flash_bwd_sm90ILb1ELi64ELi0E", 32)}
+
+
+def keep_mask_bound_ms(name, dev, scores):
+    """The least time the card needs for kernel ``name``'s keep mask:
+    ``scores`` x the integer instructions a score costs in the kernel's
+    SASS, on the busier of the two integer pipes or, if it binds, the
+    issue slots, over the SMs at the maximum SM clock.  Returns (ms, the
+    counts)."""
+    from paddle_tpu_torch.tools import sass_counts
+    counts = sass_counts.keep_mask_int_ops(*KEEP_MASK_SASS[name])
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ps = counts["per_score"]
+    clocks = max(ps["fma"] / INT_PIPE_PER_CLOCK_SM,
+                 ps["alu"] / INT_PIPE_PER_CLOCK_SM,
+                 (ps["fma"] + ps["alu"]) / ISSUE_PER_CLOCK_SM)
+    counts.update(clocks_per_score_sm=clocks, sm_clock_mhz=mhz, sms=sms)
+    return scores * clocks / (sms * mhz * 1e6) * 1e3, counts
+
+
+def backward_times(args, kw):
+    """Kernels 2 and 3 on ``args`` (q, k, v, dO, LSE, delta), queued in
+    turns (:func:`_turns`), with dropout (``kw``: causal, dropout_p,
+    seed) and without it, each as the autograd backward launches it: on
+    the Hopper route dK/dV writes the keep bits dQ reads.  Also run by
+    ``paddle_tpu_torch/tools/flash_bwd_times.py`` on other checkouts'
+    packages, so it passes the keep bits only where the package has
+    them.  Returns (ms with dropout, ms without) by kernel name, and the
+    keep bits (None off the Hopper route)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import registry
+    bits, extra = None, ({}, {})
+    if hasattr(fa, "keep_bits_buffer"):
+        bits = fa.keep_bits_buffer(*args[:4], kw["causal"], kw["dropout_p"],
+                                    kw["seed"], None)
+        extra = (dict(keep_bits_out=bits), dict(keep_bits=bits))
+    with torch.no_grad():
+        registry.dispatch(FLASH_NAMES[1], *args, **extra[0], **kw)
+        t = _turns({n: lambda n=n, e=e: registry.dispatch(
+            n, *args, **e, **kw) for n, e in zip(FLASH_NAMES[1:], extra)})
+        t0 = _turns({n: lambda n=n: registry.dispatch(
+            n, *args, causal=kw["causal"]) for n in FLASH_NAMES[1:]})
+    return t, t0, bits
+
+
 def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
     """Phase 33 (c)'s timing of the path's own case: kernels 1-3 (the
-    forward with its LSE), their plain versions and SDPA with
-    ``dropout_p`` (forward, and backward for dq + dk + dv), each kernel
-    beside its bound (operations).  Returns the rows by kernel name."""
+    forward with its LSE; the backward by :func:`backward_times`), their
+    plain versions and SDPA with ``dropout_p`` (forward, and backward for
+    dq + dk + dv), each kernel beside its bound: the larger of its score
+    products' (989 TFLOP/s) and, for dK/dV, its keep mask's integer work
+    (:func:`keep_mask_bound_ms`).  Kernels 2 and 3 are also timed without
+    dropout, beside SDPA's backward without it.  Returns the rows by
+    kernel name."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import registry
     B, H, S, D = q.shape
-    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    names = FLASH_NAMES[1:]
     args = (q, k, v, do, lse, delta)
-    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    t, t0, bits = backward_times(args, kw)
+    q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
     out = tF.scaled_dot_product_attention(q2, k2, v2, dropout_p=OPT_P)
+    q3, k3, v3 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out3 = tF.scaled_dot_product_attention(q3, k3, v3)
     with torch.no_grad():
-        t = _turns({
+        t.update(_turns({
             "flash_attention": lambda: fa.flash_attention_bhsd(
                 q, k, v, return_lse=True, **kw),
-            names[0]: lambda: registry.dispatch(names[0], *args, **kw),
-            names[1]: lambda: registry.dispatch(names[1], *args, **kw),
             "sdpa": lambda: tF.scaled_dot_product_attention(
-                q, k, v, dropout_p=OPT_P)})
+                q, k, v, dropout_p=OPT_P)}))
     t["sdpa backward"] = _turns({"b": lambda: torch.autograd.grad(
         out, (q2, k2, v2), do, retain_graph=True)})["b"]
+    t0["sdpa backward"] = _turns({"b": lambda: torch.autograd.grad(
+        out3, (q3, k3, v3), do, retain_graph=True)})["b"]
     with torch.no_grad():
         plain = {"flash_attention": cuda_ms(lambda: fa.flash_attention_bhsd(
             q, k, v, return_lse=True, mode="torch_ref", **kw), iters=3,
@@ -4245,29 +4332,72 @@ def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
         for n in names:
             plain[n] = cuda_ms(lambda n=n: registry.dispatch(
                 n, *args, mode="torch_ref", **kw), iters=3, warmup=1)
+    plan = fa.flash_bwd_plan(q, k, v, do, dropout_p=OPT_P)
+    plan0 = fa.flash_bwd_plan(q, k, v, do)
+    log(f"flash backward (ERNIE shape): route {plan.route} with dropout, "
+        f"{plan0.route} without; dK/dV {plan.dkv.block_res} resident x "
+        f"{plan.dkv.block_str} streamed rows, {plan.dkv.stages} stages, "
+        f"grid {plan.dkv.grid}; dQ {plan.dq.block_res} x "
+        f"{plan.dq.block_str}, grid {plan.dq.grid}")
     pairs = B * H * S * S
     row_bytes = B * H * S * D * q.element_size()
+    # the keep bits dK/dV writes and dQ reads (none off the Hopper route)
+    bits_bytes = 0 if bits is None else bits.numel() * 4
     rows = {}
     for name, flops, nbytes, lib, err in (
             ("flash_attention", 4 * D * pairs, 4 * row_bytes + B * H * S * 4,
              t["sdpa"], errs[0][0]),
-            (names[0], 8 * D * pairs, 6 * row_bytes + 2 * B * H * S * 4,
+            (names[0], 8 * D * pairs,
+             6 * row_bytes + 2 * B * H * S * 4 + bits_bytes,
              t["sdpa backward"], max(errs[2][0], errs[3][0])),
-            (names[1], 6 * D * pairs, 5 * row_bytes + 2 * B * H * S * 4,
+            (names[1], 6 * D * pairs,
+             5 * row_bytes + 2 * B * H * S * 4 + bits_bytes,
              t["sdpa backward"], errs[1][0])):
-        bms, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
-        rows[name] = dict(ms=t[name], plain_ms=plain[name], bound_ms=bms,
-                          bound_by=by, library_ms=lib, max_abs_err=err)
+        pms, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+        rows[name] = dict(ms=t[name], plain_ms=plain[name], bound_ms=pms,
+                          bound_by=by, library_ms=lib, max_abs_err=err,
+                          bound_products_ms=pms)
+        if name in KEEP_MASK_SASS:
+            # the keep mask's integer work bounds the kernel too
+            ims, c = keep_mask_bound_ms(name, q.device, pairs)
+            if ims > pms:
+                by = "operations"
+            rows[name].update(bound_ms=max(pms, ims), bound_by=by,
+                              bound_keep_mask_ms=ims,
+                              keep_mask_int_per_score=c["per_score"])
+            ps = c["per_score"]
+            log(f"{name} keep mask: {c['extra']['fma']} FMA-pipe and "
+                f"{c['extra']['alu']} ALU-pipe integer instructions over "
+                f"the kernel without dropout in SASS, for {c['scores']} "
+                f"scores a thread: {ps['fma']:.3f} + {ps['alu']:.3f} a "
+                f"score, max({ps['fma']:.3f} / {INT_PIPE_PER_CLOCK_SM}, "
+                f"{ps['alu']:.3f} / {INT_PIPE_PER_CLOCK_SM}, "
+                f"{ps['fma'] + ps['alu']:.3f} / {ISSUE_PER_CLOCK_SM}) = "
+                f"{c['clocks_per_score_sm']:.4f} SM clocks a score; "
+                f"{pairs} scores / ({c['sms']} SMs x "
+                f"{c['sm_clock_mhz']:g} MHz) = {ims:.4f} ms against the "
+                f"products' {pms:.4f} ms")
+        bms = rows[name]["bound_ms"]
+        extra = ""
+        if name in t0:
+            rows[name].update(ms_no_dropout=t0[name],
+                              library_ms_no_dropout=t0["sdpa backward"])
+            extra = (f"; without dropout: kernel {t0[name]:.4f} (bound "
+                     f"{pms:.4f}), SDPA backward {t0['sdpa backward']:.4f};"
+                     f" the keep mask's share {1 - t0[name] / t[name]:.3f}")
         log(f"{name} dropout p={OPT_P} (B={B} H={H} S={S} D={D} bf16, not "
             f"causal): device ms (queued): kernel {t[name]:.4f} plain "
             f"{plain[name]:.4f} bound {bms:.4f} ({by}) library "
-            f"{lib:.4f}; {flops / t[name] / 1e9:.1f} TFLOP/s")
-    fwd_bwd = sum(t[n] for n in ("flash_attention",) + names)
+            f"{lib:.4f}; {flops / t[name] / 1e9:.1f} TFLOP/s" + extra)
+    fwd_bwd = sum(t[n] for n in FLASH_NAMES)
     lib = t["sdpa"] + t["sdpa backward"]
     log(f"flash dropout (ERNIE shape): kernels 1-3 {fwd_bwd:.4f} ms against "
         f"SDPA forward + backward with dropout_p {lib:.4f} ms: "
-        f"{fwd_bwd / lib:.3f}x")
-    del out, q2, k2, v2
+        f"{fwd_bwd / lib:.3f}x; kernels 2 + 3 {t[names[0]] + t[names[1]]:.4f}"
+        f" ms ({t0[names[0]] + t0[names[1]]:.4f} without dropout) against "
+        f"SDPA's backward {t['sdpa backward']:.4f} "
+        f"({t0['sdpa backward']:.4f})")
+    del out, q2, k2, v2, out3, q3, k3, v3
     return rows
 
 
@@ -4442,7 +4572,8 @@ def ernie_kernels_vs_plain(dev, batch):
 def profile_ernie_train(dev, step, batch, steps: int = 2):
     """Phase 34 (c): ``torch.profiler`` over 2 ERNIE training steps:
     device busy time against wall time (the idle share), kernels 1-3's
-    device ms and launches a step, and the top device kernels."""
+    device ms and launches a step (kernels 2 and 3 each), and the top
+    device kernels."""
     from torch.profiler import ProfilerActivity, profile
     step(*batch)
     torch.cuda.synchronize()
@@ -4460,15 +4591,18 @@ def profile_ernie_train(dev, step, batch, steps: int = 2):
         f"{sum(e.count for e in kern) // steps} kernels/step")
     check_busy("profile ernie train (phase 34)", busy_ms, wall_ms)
     log_flash_fwd("profile ernie train", kern, steps)
-    log_flash_bwd("profile ernie train", kern, steps)
+    bwd = log_flash_bwd("profile ernie train", kern, steps)
     flash = sum(e.self_device_time_total for e in kern
                 if "flash_" in e.key) / 1e3 / steps
     log(f"profile ernie train: kernels 1-3 {flash:.3f} device ms/step "
-        f"({flash / max(busy_ms, 1e-9):.3f} of busy)")
+        f"({flash / max(busy_ms, 1e-9):.3f} of busy); kernels 2-3 "
+        f"{bwd['dkv'] + bwd['dq']:.3f} device ms/step "
+        f"({(bwd['dkv'] + bwd['dq']) / max(busy_ms, 1e-9):.3f} of busy)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, flash_ms=flash)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, flash_ms=flash,
+                flash_bwd_ms=bwd)
 
 
 def _mt_sources(dev, vocab, pad_id):
@@ -4577,6 +4711,34 @@ def mt_translate(dev):
     return total, modes, row
 
 
+def log_bwd_entries(bwd):
+    """Phase 2's line for each sm90 backward entry (``check_ptxas``'s
+    {mangled name: [registers, spill bytes]}): its kernel, head_dim and
+    dropout (the template's third argument: 0 none, 1 Philox, 2 the keep
+    bits dK/dV wrote), registers and plan.  The shared memory is dynamic
+    (ptxas does not see it), and the warps run at the registers
+    setmaxnreg gives them, not at the count ptxas prints for the
+    launch."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
+    for name, (regs, _, _) in sorted(bwd.items()):
+        dkv, hd, drop = re.search(r"sm90ILb([01])ELi(\d+)ELi(\d)E",
+                                  name).groups()
+        m = torch.empty(1, 1, 2048, int(hd), dtype=torch.bfloat16,
+                        device="meta")
+        bplan = flash_bwd_plan(m, m, m, m, causal=True,
+                               dropout_p=0.1 if drop != "0" else 0.0).dkv
+        how = {"0": "", "1": ", dropout (Philox, writes the keep bits)",
+               "2": ", dropout (reads the keep bits)"}[drop]
+        warps = ("every warp at 168, no setmaxnreg" if drop == "2" else
+                 "a producer warpgroup at 40 by setmaxnreg, two consumer "
+                 "warpgroups at 232")
+        log(f"  flash_bwd_sm90 ({'dK/dV' if dkv == '1' else 'dQ'}, head_dim "
+            f"{hd}{how}): {regs} registers at launch ({warps}), no spill; "
+            f"{bplan.threads} threads, {bplan.smem_bytes} B dynamic shared "
+            f"memory, {bplan.block_res} resident rows, {bplan.block_str}-row "
+            f"streamed tiles, {bplan.stages} stages")
+
+
 def check_ptxas(source, match, entries=None):
     """Phase 2's check of one source's ``ptxas -v`` log (kept beside a
     cached library): fails without a log, on a spill in an entry whose
@@ -4675,7 +4837,9 @@ def main() -> int:
     # registers: a spill would put them back in memory.  A cached library
     # is checked on the log kept beside it
     check_ptxas("segment_sum.cu", "")
-    bwd = check_ptxas("flash_attention_bwd.cu", "flash_bwd_sm90", entries=2)
+    # six sm90 backward entries: dK/dV and dQ at head_dim 128 without
+    # dropout, at head_dim 64 with and without it
+    bwd = check_ptxas("flash_attention_bwd.cu", "flash_bwd_sm90", entries=6)
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
@@ -4693,20 +4857,9 @@ def main() -> int:
             f"head_dim {d}): {regs} registers, no spill")
     for name, (regs, _, _) in sorted(mm.items()):
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
-    from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_bwd_plan, flash_fwd_plan)
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
     meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
-    bplan = flash_bwd_plan(meta, meta, meta, meta, causal=True).dkv
-    # the sm90 flash kernels' shared memory is dynamic (ptxas does not
-    # see it) and their consumers run at the register count setmaxnreg
-    # gives them, not at the count ptxas prints for the launch
-    for name, (regs, _, _) in sorted(bwd.items()):
-        log(f"  flash_bwd_sm90 ({'dK/dV' if 'ILb1E' in name else 'dQ'}): "
-            f"{regs} registers at launch (a producer warpgroup at 40 by "
-            f"setmaxnreg, two consumer warpgroups at 232), no spill; "
-            f"{bplan.threads} threads, {bplan.smem_bytes} B dynamic shared "
-            f"memory, {bplan.block_res} resident rows, {bplan.block_str}-row "
-            f"streamed tiles, {bplan.stages} stages")
+    log_bwd_entries(bwd)
     # kernels 1-3's option instantiations (bias row, dropout: template
     # argument kOpt true) keep their Philox state and fragments in
     # registers: a spill would put them in local memory

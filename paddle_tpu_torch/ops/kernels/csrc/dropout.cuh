@@ -135,6 +135,58 @@ __device__ __forceinline__ uint32_t keep_bits_mma(PhiloxKey key, int b, int h,
   return keep;
 }
 
+// The keep bits of a 2 x 2 group from its Philox words: bit 0 (q even,
+// k even), 1 (q even, k odd), 2 (q odd, k even), 3 (q odd, k odd)
+__device__ __forceinline__ uint32_t keep_nibble(uint4 r, uint32_t thresh) {
+  return (r.x >= thresh ? 1u : 0u) | (r.y >= thresh ? 2u : 0u)
+         | (r.z >= thresh ? 4u : 0u) | (r.w >= thresh ? 8u : 0u);
+}
+
+// The groups a lane computes for the 32 elements of an mma / wgmma
+// fragment (rows row_a, row_a + 8, columns c0 + 8j + 2t and + 1, as
+// keep_bits_mma), one a column pair: nibble j is the group of n-tile j
+// at the lower lane's row row_a (rows row_a, row_a + 1) or at the upper
+// lane's row row_a + 8 (rows row_a + 7, row_a + 8).  Rows are queries if
+// `rows_q`, else keys.  The Hopper backward route keeps this word (dK/dV
+// writes it for dQ); keep_bits_of_groups turns it into the lane's bits.
+__device__ __forceinline__ uint32_t keep_groups_mma(PhiloxKey key, int b,
+                                                    int h, int row_a, int c0,
+                                                    int g, int t, bool rows_q,
+                                                    uint32_t thresh) {
+  const int row = (g & 1) == 0 ? row_a : row_a + 8;
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + j * 8 + 2 * t;
+    w |= keep_nibble(rows_q ? keep_group(key, b, h, row, c)
+                            : keep_group(key, b, h, c, row), thresh)
+         << (4 * j);
+  }
+  return w;
+}
+
+// A lane's keep bits (bit 4j + e for element e of n-tile j, as
+// keep_bits_mma gives them) from its group word and its partner's (lane
+// ^ 4, one shuffle): with rows of queries the lower lane holds the q-even
+// halves (bits 0, 1) of its group (row g) and of the partner's (row
+// g + 8), the upper lane the q-odd halves (bits 2, 3) of the partner's
+// (row g) and of its own (row g + 8); with rows of keys the k-even halves
+// (bits 0, 2) and the k-odd halves (bits 1, 3) alike.  All 32 lanes must
+// call it.
+__device__ __forceinline__ uint32_t keep_bits_of_groups(uint32_t mine, int g,
+                                                        bool rows_q) {
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
+  const bool lower = (g & 1) == 0;
+  if (rows_q)
+    return lower ? (mine & 0x33333333u) | ((other & 0x33333333u) << 2)
+                 : ((other >> 2) & 0x33333333u) | (mine & 0xCCCCCCCCu);
+  return lower ? (mine & 0x11111111u) | ((mine >> 1) & 0x22222222u)
+                     | ((other << 2) & 0x44444444u)
+                     | ((other << 1) & 0x88888888u)
+               : ((other >> 1) & 0x11111111u) | ((other >> 2) & 0x22222222u)
+                     | ((mine << 1) & 0x44444444u) | (mine & 0x88888888u);
+}
+
 // The keep bits of an FMA warp's 8 rows r0 + i (even r0) at its lane's
 // column c (lane-parity = c-parity): rows are queries if `rows_q` (keys,
 // lanes queries, otherwise); bit i for row r0 + i

@@ -6,45 +6,78 @@
 // (launched by `_pallas_backward`, the custom-vjp backward `_fa_bwd`):
 // FlashAttention-2 backward on (B, H, S, D), causal block skip.
 //
-// What bounds it on this card: at the training shape (S=2048, D=128) the
-// dK/dV kernel does 8*D flops and the dQ kernel 6*D flops per unmasked
-// (query, key) pair against 6 and 5 rows of S*D elements moved per head,
-// about 1000 flops per byte -- far above the H100's ~295 bf16 flops per
-// byte, so both are bound by tensor-core operations, not memory.  Only
-// wgmma reaches the card's 989 TFLOP/s.  Inside a block the limit is
-// registers: a consumer thread holds dK and dV (64 f32 each at 64 keys x
-// 128 columns a warpgroup), or dQ, for its whole work item, plus the 32
-// f32 each of S^T and dP^T (S and dP) at 64-row streamed tiles.
+// What bounds it on this card.  The dK/dV kernel does 8*D flops and the
+// dQ kernel 6*D flops per unmasked (query, key) pair against 6 and 5
+// rows of S*D elements moved per head: hundreds of flops per byte, far
+// above the H100's ~295 bf16 flops per byte, so the tensor cores, not
+// memory, bound the products, and only wgmma reaches 989 TFLOP/s.  Per
+// score each kernel also issues an FFMA and an ex2 (P), dS's three
+// f32 operations and the bf16 packing on the CUDA cores, which at
+// head_dim 64 weigh twice as much against the products as at 128.  With
+// dropout the keep mask adds Philox4x32-10 (dropout.cuh): 10 rounds of
+// two 32 x 32 -> 64-bit multiplies and two three-way XORs for 4 scores,
+// about 10 integer instructions a score in dK/dV's SASS, split between
+// the FMA pipe (IMAD) and the ALU pipe (the rest), 64 results a clock an
+// SM each; at ERNIE's shape (B 8, H 12, S 2,048, D 64) that work alone
+// takes about as long as the products (PERF.md §6 has the count and
+// both bounds), and it takes issue slots from the same consumer warps.
+// Inside a block the limits are registers (ptxas keeps every warp
+// within the 168 the launch gives 384 threads) and the issue port each
+// sub-partition's consumer warps share.
 //
-// What the design does about it, on the bf16 head_dim-128 route
-// (`flash_bwd_sm90<true>` for dK/dV, `<false>` for dQ: one template, the
-// route of training):
+// What the design does about it: one template, flash_bwd_sm90<kDKV, D,
+// kDrop>, for bf16 at head_dim 128 without dropout (<true, 128, 0> /
+// <false, 128, 0>, the first sm90 kernels) and at head_dim 64 with or
+// without it (<true, 64, 0 or 1>, <false, 64, 0 or 2>):
 // - a work item keeps 128 "resident" rows in shared memory -- K and V of
-//   128 keys (dK/dV) or Q and dO of 128 query rows (dQ), 32 KB a tile --
-//   one consumer warpgroup a 64-row half, and streams 64-row tiles of
-//   the other pair (Q and dO with their LSE and delta rows; K and V)
-//   through a 2-stage ring.  Under grouped-query attention a dK/dV item
-//   streams the query tiles of every head of its group;
-// - three warpgroups: a producer (setmaxnreg.dec to 40) whose warp 0
-//   loads the LSE (times log2 e, once a row) and delta rows and whose
-//   lane 0 issues every TMA load, and two consumer warpgroups
-//   (setmaxnreg.inc to 232); full and empty mbarriers for the ring and
+//   128 keys (dK/dV) or Q and dO of 128 query rows (dQ) -- one consumer
+//   warpgroup a 64-row half, and streams 64-row tiles of the other pair
+//   (Q and dO with their LSE and delta rows; K and V) through a ring of
+//   2 stages (head_dim 128) or 4 (head_dim 64, whose tiles are half the
+//   size; both fit one block to an SM).  Under grouped-query attention a
+//   dK/dV item streams the query tiles of every head of its group;
+// - three warpgroups: a producer whose warp 0 loads the LSE (times log2
+//   e, once a row) and delta rows and whose lane 0 issues every TMA
+//   load, and two consumer warpgroups (setmaxnreg 40 / 232, except for
+//   dQ with dropout, below); full and empty mbarriers for the ring and
 //   for two resident buffers, so the next item's resident tiles load
 //   under the current item's last streamed tiles.  The tensor maps are
 //   4-D (D, S, H, B) with the caller's byte strides, so the model's
 //   (B, S, H, D) views and autograd's dO need no copy; TMA zero-fills
 //   rows past a ragged end; tiles past the causal diagonal are never
-//   loaded, and the mask runs only on diagonal and ragged tiles;
+//   loaded, and the mask runs only on diagonal and ragged tiles.  A
+//   64-column bf16 panel is one 128-byte swizzle row;
 // - every product is a wgmma: S^T = K.Q^T and dP^T = V.dO^T (dQ: S =
 //   Q.K^T, dP = dO.V^T) are m64n64k16 with both operands in shared
-//   memory; dV += P^T.dO and dK += dS^T.Q (dQ += dS.K) are m64n128k16
-//   with P and dS packed to bf16 in registers as the A operand (the
-//   accumulator layout is the A layout) and the streamed tile read
-//   MN-major (the transpose bit).  P is one FFMA and one ex2 a score
-//   with scale * log2(e) folded in, against the saved LSE;
+//   memory (D / 16 steps); dV += P^T.dO and dK += dS^T.Q (dQ += dS.K)
+//   are m64nDk16 with P and dS packed to bf16 in registers as the A
+//   operand (the accumulator layout is the A layout) and the streamed
+//   tile read MN-major (the transpose bit).  P is one FFMA and one ex2
+//   a score with scale * log2(e) folded in, against the saved LSE;
 // - the two consumer warpgroups ping-pong (named barriers): they take
 //   turns to issue their products, so one warpgroup's exponentials and
 //   dS run under the other's products;
+// - dropout, dK/dV: between the issue of S^T, dP^T and the wait for
+//   them each consumer thread forms its tile's keep mask with Philox on
+//   the CUDA cores, one call a 2 x 2 group (keep_groups_mma: 8 calls, a
+//   nibble each, in one 32-bit group word), and one shuffle with its
+//   lane pair gives its 32 fragment elements' bits (keep_bits_of_groups:
+//   the wgmma accumulator holds rows g and g + 8 of a warp's 16, columns
+//   8j + 2t and + 1, the mma.sync layout).  It stores the group word, one
+//   coalesced 4-byte store a thread a tile, into `bits` (B H S^2 / 8
+//   bytes, allocated by the wrapper for the one backward);
+// - dropout, dQ: no Philox.  The producer warps gather each stage's 256
+//   group words (8 nibbles each, a 64 x 64 block's words written by
+//   dK/dV's threads) into shared memory beside the tile and arrive on
+//   the stage's barrier; a consumer reads its word and shuffles as
+//   dK/dV does.  The producer keeps its 168 registers here (no
+//   setmaxnreg), so its loads stay in flight;
+// - kept values are multiplied by f32(1 / f32(1 - p)) where the plain
+//   versions divide by f32(1 - p): a correctly rounded division costs
+//   three instructions a value on issue-bound consumers, 11 % of dK/dV's
+//   time at ERNIE-3.0-base's shape on an H100; the product differs from
+//   the quotient by at most an f32 ulp before the bf16 rounding, within
+//   CARD_TOL_BWD (PERF.md §6);
 // - persistent blocks, at most one per SM, walk the items in a snake
 //   order, heaviest causal items first (low key tiles for dK/dV, high
 //   query tiles for dQ);
@@ -53,29 +86,32 @@
 //   retired) and stores them with TMA, which clips rows past the end.
 // No atomics: the two kernels write disjoint outputs and every sum runs
 // in a fixed order, so a rerun is bitwise equal.
-// ptxas -v (nvcc 12.9, sm_90a), both entries: 168 registers (the count
-// at entry, 65,536 / 384), 0 bytes of spills; 199,744 bytes of dynamic
-// shared memory.  The split of registers is tight (128 x producer +
-// 256 x consumer <= 168 x 384): at 24 / 240 the producer spills; at
-// 40 / 232 dK/dV's consumer fits only if P and dS are packed after both
-// are formed (no packed operand in flight while dS is computed); every
-// register-A wgmma needs its own wgmma.fence (else ptxas injects one).
+// ptxas -v (nvcc 12.9, sm_90a), all six entries: 168 registers (the
+// count at entry, 65,536 / 384), 0 bytes of spills; dynamic shared
+// memory 199,744 bytes at head_dim 128 and 138,336 at 64 (4 KB of it
+// the mask words).  The split of registers is tight at head_dim 128
+// (128 x producer + 256 x consumer <= 168 x 384): at 24 / 240 the
+// producer spills; at 40 / 232 dK/dV's consumer fits only if P and dS
+// are packed after both are formed (no packed operand in flight while
+// dS is computed); every register-A wgmma needs its own wgmma.fence
+// (else ptxas injects one).  With the producer at 40 registers its
+// Philox spilled (32 bytes) and ran slower than in the consumers.
 //
-// The other routes keep the first design: bf16 at head_dim 64 and 256 on
-// mma.sync m16n8k16 (operands staged synchronously through padded
-// shared memory, P^T and dS^T re-packed in registers, one block per
-// 64-key or 64-query tile), and f32 on a plain FMA kernel (the tensor
-// cores have no exact f32 product).  Grids: dK/dV (key tiles, Hkv, B),
-// one block of 4 warps per 64-key tile (bf16, D = 64; at D = 256 two
-// warps share a 16-key row group and split the output columns, so a
-// block holds 32 keys) or 32-key tile (f32); dQ (query tiles, H, B), one
-// block per 64-row (bf16) or 32-row (f32) query tile, heavy (late) tiles
-// first.  Dropout runs only on these routes, in their <..., true>
-// instantiations (bf16 at head_dim 128 too, dK/dV then with 64 keys a
-// block): both kernels regenerate the forward's keep bits (dropout.cuh)
-// from the same int64 seed in device memory; dV += (P keep / (1 - p))^T dO,
-// dP is dropped alike (dP keep / (1 - p)) and dS = P (dP - delta) scale
-// keeps the undropped P; the keep bits ride in one 32-bit mask a thread.
+// The other routes keep the first design: bf16 at head_dim 256, and at
+// 128 with dropout, on mma.sync m16n8k16 (operands staged synchronously
+// through padded shared memory, P^T and dS^T re-packed in registers, one
+// block per 64-key or 64-query tile), and f32 on a plain FMA kernel (the
+// tensor cores have no exact f32 product).  Grids: dK/dV (key tiles,
+// Hkv, B), one block of 4 warps per 64-key tile (bf16, D = 128; at D =
+// 256 two warps share a 16-key row group and split the output columns,
+// so a block holds 32 keys) or 32-key tile (f32); dQ (query tiles, H,
+// B), one block per 64-row (bf16) or 32-row (f32) query tile, heavy
+// (late) tiles first.  Their dropout runs in <..., true> instantiations:
+// both kernels regenerate the forward's keep bits (dropout.cuh,
+// keep_bits_mma) from the same int64 seed in device memory; dV += (P keep
+// / (1 - p))^T dO, dP is dropped alike (dP keep / (1 - p)) and dS = P (dP
+// - delta) scale keeps the undropped P; the keep bits ride in one 32-bit
+// mask a thread.
 // Numerics follow the Pallas kernels: s = (q.k)*scale in f32, masked
 // pairs have p = 0, p = exp(s - lse), dp = dO.v in f32,
 // dS = p * (dp - delta) * scale, with P and dS rounded to bf16 before
@@ -770,23 +806,26 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-// `opt`: dropout, taken by the <..., true> kernels (bf16 at head_dim 128
-// without it is the sm90 route's)
+// `opt`: dropout, taken by the <..., true> kernels (bf16 at head_dim 64,
+// and at 128 without it, is the sm90 route's)
 template <int D>
 cudaError_t run_dkv(const Params& p, int B, int is_bf16, bool opt,
                     cudaStream_t s) {
-  if (is_bf16) {
-    constexpr int CS = D > 128 ? 2 : 1;
-    constexpr int BK = 16 * kWarps / CS;
-    const size_t smem = (size_t)(2 * BK + 2 * kBQ) * (D + kPad)
-                            * sizeof(__nv_bfloat16)
-                        + 2 * kBQ * sizeof(float);
-    dim3 grid((p.Sk + BK - 1) / BK, p.Hkv, B);
-    if (opt) return launch(flash_bwd_dkv_bf16<D, CS, true>, grid, smem, s, p);
-    if constexpr (D == 128) {
-      return cudaErrorInvalidValue;
-    } else {
-      return launch(flash_bwd_dkv_bf16<D, CS, false>, grid, smem, s, p);
+  if constexpr (D != 64) {   // the entries refuse bf16 at head_dim 64
+    if (is_bf16) {
+      constexpr int CS = D > 128 ? 2 : 1;
+      constexpr int BK = 16 * kWarps / CS;
+      const size_t smem = (size_t)(2 * BK + 2 * kBQ) * (D + kPad)
+                              * sizeof(__nv_bfloat16)
+                          + 2 * kBQ * sizeof(float);
+      dim3 grid((p.Sk + BK - 1) / BK, p.Hkv, B);
+      if (opt)
+        return launch(flash_bwd_dkv_bf16<D, CS, true>, grid, smem, s, p);
+      if constexpr (D == 128) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch(flash_bwd_dkv_bf16<D, CS, false>, grid, smem, s, p);
+      }
     }
   }
   const size_t smem = (size_t)(2 * kBF * D + 2 * kLaneF * (D + 1)
@@ -800,15 +839,17 @@ cudaError_t run_dkv(const Params& p, int B, int is_bf16, bool opt,
 template <int D>
 cudaError_t run_dq(const Params& p, int B, int is_bf16, bool opt,
                    cudaStream_t s) {
-  if (is_bf16) {
-    const size_t smem = (size_t)(2 * kBQ + 2 * 64) * (D + kPad)
-                        * sizeof(__nv_bfloat16);
-    dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-    if (opt) return launch(flash_bwd_dq_bf16<D, true>, grid, smem, s, p);
-    if constexpr (D == 128) {
-      return cudaErrorInvalidValue;
-    } else {
-      return launch(flash_bwd_dq_bf16<D, false>, grid, smem, s, p);
+  if constexpr (D != 64) {   // the entries refuse bf16 at head_dim 64
+    if (is_bf16) {
+      const size_t smem = (size_t)(2 * kBQ + 2 * 64) * (D + kPad)
+                          * sizeof(__nv_bfloat16);
+      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+      if (opt) return launch(flash_bwd_dq_bf16<D, true>, grid, smem, s, p);
+      if constexpr (D == 128) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch(flash_bwd_dq_bf16<D, false>, grid, smem, s, p);
+      }
     }
   }
   const size_t smem = (size_t)(2 * kBF * D + 2 * kLaneF * (D + 1)
@@ -819,37 +860,56 @@ cudaError_t run_dq(const Params& p, int B, int is_bf16, bool opt,
 }
 
 // ---------------------------------------------------------------------
-// bf16 head_dim-128 route for sm_90a: TMA, mbarriers, wgmma
+// bf16 Hopper route (sm_90a): TMA, mbarriers, wgmma; head_dim 128
+// without dropout, head_dim 64 with or without it
 // ---------------------------------------------------------------------
 
 namespace sm90 {
 
-// Both kernels are one template.  A work item holds kRes rows of a
-// "resident" pair of tiles in shared memory (dK/dV: K and V of 128 keys;
-// dQ: Q and dO of 128 query rows), one consumer warpgroup a 64-row half,
-// and streams kStr-row tiles of the other pair (dK/dV: Q and dO; dQ: K
-// and V) through a kStages ring.  Per streamed tile a warpgroup computes
+// Both kernels are one template over (kDKV, D, kDrop).  A work item
+// holds kRes rows of a "resident" pair of tiles in shared memory (dK/dV:
+// K and V of 128 keys; dQ: Q and dO of 128 query rows), one consumer
+// warpgroup a 64-row half, and streams kStr-row tiles of the other pair
+// (dK/dV: Q and dO; dQ: K and V) through a ring of Tiles<D>::kStages.
+// Per streamed tile a warpgroup computes
 //   X = A0 B0^T, Y = A1 B1^T      (wgmma m64n64k16, both in shared memory)
 // which are S^T, dP^T (dK/dV) or S, dP (dQ); then P from X and the saved
 // LSE, dS = P (Y - delta) scale, and
 //   acc0 += bf16(dS) B0 [dK or dQ],  acc1 += bf16(P) B1 [dV, dK/dV only]
-// (wgmma m64n128k16, A from registers, B0/B1 MN-major).
+// (wgmma m64nDk16, A from registers, B0/B1 MN-major).  With dropout the
+// tile's keep bits are formed between the issue of X, Y and the wait for
+// them; Y is dropped (dP keep / (1 - p)) before dS, and dV takes P keep /
+// (1 - p).  kDrop: 0 none; 1 the keep mask from Philox in the
+// consumers (dK/dV, which also writes each thread's group word,
+// keep_groups_mma, to `bits` when given); 2 the group words dK/dV wrote,
+// gathered by the producer warps (dQ).
 constexpr int kRes = 128;          // resident rows per work item
 constexpr int kStr = 64;           // streamed rows per tile
-constexpr int kStages = 2;         // streamed ring depth
 constexpr int kThreads = 384;      // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kResPanel = kRes * 128;    // one 64-column panel: 16 KB
-constexpr int kResTile = 2 * kResPanel;  // 128 rows x 128 columns
 constexpr int kStrPanel = kStr * 128;    // 8 KB
-constexpr int kStrTile = 2 * kStrPanel;  // 64 rows x 128 columns
 constexpr int kStatBytes = 2048;         // LSE * log2(e) and delta rows
-constexpr int kSmemBytes = 1024                       // alignment slack
-                           + 2 * 2 * kResTile         // resident, 2 buffers
-                           + kStages * 2 * kStrTile   // streamed ring
-                           + kStatBytes
-                           + 8 * (4 + 2 * kStages);   // mbarriers
-static_assert(kSmemBytes <= 232448, "a block's shared memory");
+
+template <int D>
+struct Tiles {
+  static constexpr int kPanels = D / kPanel;
+  // the streamed ring: 2 stages at head_dim 128, 4 at head_dim 64,
+  // whose tiles are half the size
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kResTile = kPanels * kResPanel;   // 128 x D
+  static constexpr int kStrTile = kPanels * kStrPanel;   // 64 x D
+  // the keep mask's group words, 256 a stage (head_dim 64 only: the
+  // route that takes dropout)
+  static constexpr int kBitsBytes = D == 64 ? kStages * 256 * 4 : 0;
+  static constexpr int kSmemBytes = 1024                     // alignment
+                                    + 2 * 2 * kResTile       // resident
+                                    + kStages * 2 * kStrTile // ring
+                                    + kStatBytes + kBitsBytes
+                                    + 8 * (4 + 2 * kStages); // mbarriers
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+  static_assert(kStages * 2 * kStr * 4 <= kStatBytes, "dK/dV's stat rows");
+};
 
 struct BwdParams {
   const float* lse;     // (B, H, Sq) contiguous
@@ -860,6 +920,16 @@ struct BwdParams {
   int causal;
   float scale;
   float scale_log2;     // scale * log2(e), for the exponentials
+  // dropout (kDrop only): the int64 seed in device memory, the keep
+  // threshold and f32(1 / f32(1 - p)): kept values are multiplied by it
+  const long long* seed;
+  uint32_t thresh;
+  float inv_keep_p;
+  // the keep mask's group words, 128 a 64 x 64 (query block, key block)
+  // of each (batch, query head): [B][H][nqb][nkb][128], word i the group
+  // word of dK/dV's thread i of the warpgroup that formed the block
+  uint32_t* bits;
+  int nqb, nkb;         // 64-row query and key blocks
 };
 
 // the tensor maps: q, k, v, dO, then the outputs (dK, dV or dQ)
@@ -903,11 +973,12 @@ __device__ __forceinline__ bool item_of(const BwdParams& p, int round,
 }
 
 // X = A.B^T for this warpgroup's 64 resident rows against a streamed
-// tile, 8 steps of 16 over head_dim (the first overwrites X)
+// tile, D / 16 steps of 16 over head_dim (the first overwrites X)
+template <int D>
 __device__ __forceinline__ void issue_x(float (&x)[32], uint64_t da,
                                         uint64_t db) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t oa = ((kk / 4) * kResPanel + (kk % 4) * 32) >> 4;
     const uint64_t ob = ((kk / 4) * kStrPanel + (kk % 4) * 32) >> 4;
     wgmma_ss_n64(x, da + oa, db + ob, kk > 0);
@@ -915,8 +986,10 @@ __device__ __forceinline__ void issue_x(float (&x)[32], uint64_t da,
 }
 
 // acc += A.B, A the packed bf16 registers of a 64 x 64 accumulator, B a
-// streamed tile read MN-major: 4 steps of 16 streamed rows
-__device__ __forceinline__ void issue_acc(float (&acc)[64],
+// streamed tile read MN-major: 4 steps of 16 streamed rows; acc is
+// 64 x D (N = D / 2 floats a thread)
+template <int N>
+__device__ __forceinline__ void issue_acc(float (&acc)[N],
                                           const uint32_t (&a)[16],
                                           uint64_t db) {
 #pragma unroll
@@ -930,14 +1003,15 @@ __device__ __forceinline__ void pack16(const float (&x)[32],
   for (int i = 0; i < 16; ++i) a[i] = pack_bf16x2(x[2 * i], x[2 * i + 1]);
 }
 
-// A warpgroup's 64 x 128 accumulator as bf16 into its 64 rows of a
-// resident tile (two 64-column panels, 128-byte swizzle: the layout the
-// store map reads)
-__device__ __forceinline__ void stage_acc(const float (&acc)[64],
+// A warpgroup's 64 x D accumulator (N = D / 2 floats a thread) as bf16
+// into its 64 rows of a resident tile (64-column panels, 128-byte
+// swizzle: the layout the store map reads)
+template <int N>
+__device__ __forceinline__ void stage_acc(const float (&acc)[N],
                                           uint32_t dst, int lr_a, int lr_b,
                                           int t) {
 #pragma unroll
-  for (int r = 0; r < 64; r += 2) {
+  for (int r = 0; r < N; r += 2) {
     const int col = 8 * (r / 4) + 2 * t;
     const int lr = (r & 2) ? lr_b : lr_a;
     const int chunk = (col % kPanel) / 8;
@@ -949,15 +1023,22 @@ __device__ __forceinline__ void stage_acc(const float (&acc)[64],
   }
 }
 
-template <bool kDKV>
+template <bool kDKV, int D, int kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
+  static_assert(kDrop == 0 || (kDKV ? kDrop == 1 : kDrop == 2),
+                "dK/dV forms the keep mask, dQ reads it");
+  using T = Tiles<D>;
+  constexpr int kStages = T::kStages;
+  constexpr int kResTile = T::kResTile;
+  constexpr int kStrTile = T::kStrTile;
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   // swizzled tiles need 1024-byte alignment
   const uint32_t sRes = (smem_u32(smem_bwd) + 1023u) & ~1023u;
   const uint32_t sStr = sRes + 2 * 2 * kResTile;     // [stage][B0, B1]
   const uint32_t sStat = sStr + kStages * 2 * kStrTile;
-  const uint32_t bar_rf = sStat + kStatBytes;        // resident full [2]
+  const uint32_t sBits = sStat + kStatBytes;         // mask words [stage]
+  const uint32_t bar_rf = sBits + T::kBitsBytes;     // resident full [2]
   const uint32_t bar_re = bar_rf + 16;               // resident empty [2]
   const uint32_t bar_sf = bar_re + 16;               // streamed full [stage]
   const uint32_t bar_se = bar_sf + 8 * kStages;      // streamed empty
@@ -966,6 +1047,10 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
   // its 128 rows' at stat[256 rb], delta at stat[256 rb + 128]
   float* stat = reinterpret_cast<float*>(smem_bwd
                                          + (sStat - smem_u32(smem_bwd)));
+  // with dropout: each stage's 256 keep-mask group words, word 128 cw +
+  // i for consumer warpgroup cw's thread i
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(
+      smem_bwd + (sBits - smem_u32(smem_bwd)));
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int R = p.H / p.Hkv;
@@ -977,7 +1062,9 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
       mbar_init(bar_re + 8 * i, 2);   // one store per consumer warpgroup
     }
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_sf + 8 * s, kDKV ? 2 : 1);
+      // the expected bytes (warp 0's lane 0), then dK/dV's stats (warp
+      // 0) or dQ's keep-mask words (each producer warp)
+      mbar_init(bar_sf + 8 * s, 1 + (kDrop == 2 ? 4 : (kDKV ? 1 : 0)));
       mbar_init(bar_se + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -985,10 +1072,17 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
   __syncthreads();
 
   if (warp < 4) {
-    // ---- producer: warp 0's lane 0 issues every TMA load; the warp
-    // loads the LSE and delta rows beside them ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (warp == 0) {
+    // ---- producer warpgroup: warp 0's lane 0 issues every TMA load and
+    // warp 0 loads the LSE and delta rows beside them.  dQ with dropout:
+    // all four warps then gather each streamed tile's keep-mask group
+    // words from the bits dK/dV wrote, one a consumer thread, into
+    // shared memory beside the tile (their loads' latency stays off the
+    // consumers' path) ----
+    // (there the producer keeps its 168 registers for its loads in
+    // flight: the consumers' code stays within 168 anyway)
+    if constexpr (kDrop != 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 0 || kDrop == 2) {
       const CUtensorMap* a0 = &maps.m[kDKV ? kMapK : kMapQ];
       const CUtensorMap* a1 = &maps.m[kDKV ? kMapV : kMapDO];
       const CUtensorMap* b0 = &maps.m[kDKV ? kMapQ : kMapK];
@@ -999,27 +1093,31 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         const int rb = round & 1;
         const uint32_t dst = sRes + rb * 2 * kResTile;
         const uint32_t full = bar_rf + 8 * rb;
-        // the buffer's item of two rounds ago stored (passes at once at
-        // first)
-        mbar_wait(bar_re + 8 * rb, ((round >> 1) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(full, 2 * kResTile);
-          tma_load(dst, a0, full, 0, it.r0, it.hh, it.b);
-          tma_load(dst + kResPanel, a0, full, kPanel, it.r0, it.hh, it.b);
-          tma_load(dst + kResTile, a1, full, 0, it.r0, it.hh, it.b);
-          tma_load(dst + kResTile + kResPanel, a1, full, kPanel, it.r0,
-                   it.hh, it.b);
-        }
-        if constexpr (!kDKV) {
-          float* st = stat + rb * 2 * kRes;
-          const long long off = ((long long)it.b * p.H + it.hh) * p.Sq;
-          for (int i = lane; i < kRes; i += 32) {
-            const bool in = it.r0 + i < p.Sq;
-            st[i] = in ? p.lse[off + it.r0 + i] * kLog2e : 0.f;
-            st[kRes + i] = in ? p.delta[off + it.r0 + i] : 0.f;
+        if (warp == 0) {
+          // the buffer's item of two rounds ago stored (passes at once at
+          // first)
+          mbar_wait(bar_re + 8 * rb, ((round >> 1) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full, 2 * kResTile);
+#pragma unroll
+            for (int c = 0; c < T::kPanels; ++c) {
+              tma_load(dst + c * kResPanel, a0, full, c * kPanel, it.r0,
+                       it.hh, it.b);
+              tma_load(dst + kResTile + c * kResPanel, a1, full,
+                       c * kPanel, it.r0, it.hh, it.b);
+            }
           }
-          __syncwarp();
-          if (lane == 0) mbar_arrive(full);
+          if constexpr (!kDKV) {
+            float* st = stat + rb * 2 * kRes;
+            const long long off = ((long long)it.b * p.H + it.hh) * p.Sq;
+            for (int i = lane; i < kRes; i += 32) {
+              const bool in = it.r0 + i < p.Sq;
+              st[i] = in ? p.lse[off + it.r0 + i] * kLog2e : 0.f;
+              st[kRes + i] = in ? p.delta[off + it.r0 + i] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(full);
+          }
         }
         for (int j = 0; j < it.n; ++j, ++str_it) {
           const int s = str_it % kStages;
@@ -1029,22 +1127,55 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
           const int h = kDKV ? it.hh * R + j / it.nq : it.hh / R;
           const int s0 = kDKV ? (it.qt0 + j % it.nq) * kStr : j * kStr;
           mbar_wait(bar_se + 8 * s, ((str_it / kStages) & 1) ^ 1);
-          if (lane == 0) {
+          if (warp == 0 && lane == 0) {
             mbar_expect_tx(sfull, 2 * kStrTile);
-            tma_load(sd, b0, sfull, 0, s0, h, it.b);
-            tma_load(sd + kStrPanel, b0, sfull, kPanel, s0, h, it.b);
-            tma_load(sd + kStrTile, b1, sfull, 0, s0, h, it.b);
-            tma_load(sd + kStrTile + kStrPanel, b1, sfull, kPanel, s0, h,
-                     it.b);
+#pragma unroll
+            for (int c = 0; c < T::kPanels; ++c) {
+              tma_load(sd + c * kStrPanel, b0, sfull, c * kPanel, s0, h,
+                       it.b);
+              tma_load(sd + kStrTile + c * kStrPanel, b1, sfull, c * kPanel,
+                       s0, h, it.b);
+            }
           }
           if constexpr (kDKV) {
-            float* st = stat + s * 2 * kStr;
-            const long long off = ((long long)it.b * p.H + h) * p.Sq;
-            for (int i = lane; i < kStr; i += 32) {
-              const bool in = s0 + i < p.Sq;
-              st[i] = in ? p.lse[off + s0 + i] * kLog2e : 0.f;
-              st[kStr + i] = in ? p.delta[off + s0 + i] : 0.f;
+            if (warp == 0) {
+              float* st = stat + s * 2 * kStr;
+              const long long off = ((long long)it.b * p.H + h) * p.Sq;
+              for (int i = lane; i < kStr; i += 32) {
+                const bool in = s0 + i < p.Sq;
+                st[i] = in ? p.lse[off + s0 + i] * kLog2e : 0.f;
+                st[kStr + i] = in ? p.delta[off + s0 + i] : 0.f;
+              }
             }
+          }
+          if constexpr (kDrop == 2) {
+            // word i for consumer warpgroup i / 128's thread i % 128: the
+            // groups keep_groups_mma gives that thread (rows are queries),
+            // formed by dK/dV's thread of the key group's row and the
+            // query group: query group qg of the block (the row, halved)
+            // and key group 4 jj + t are in word (jj / 2) * 32 + 4 (2 t +
+            // jj % 2) + qg % 4 of the 64 x 64 block, nibble qg / 4
+            uint32_t* words = kbits + s * 256;
+            for (int i = threadIdx.x; i < 256; i += 128) {
+              const int ct = i & 127, g = (ct & 31) >> 2, t = ct & 3;
+              const int w0 = it.r0 + (i >> 7) * 64;
+              const int lr_a = (ct >> 5) * 16 + g;
+              const int qg = ((g & 1) ? lr_a + 8 : lr_a) >> 1;
+              uint32_t grp = 0;
+              if (w0 < p.Sq) {
+                const uint32_t* src =
+                    p.bits + ((((long long)it.b * p.H + it.hh) * p.nqb
+                               + w0 / 64) * p.nkb + s0 / 64) * 128
+                    + 8 * t + (qg & 3);
+#pragma unroll
+                for (int jj = 0; jj < 8; ++jj)
+                  grp |= ((__ldg(src + (jj >> 1) * 32 + 4 * (jj & 1))
+                           >> (4 * (qg >> 2))) & 0xFu) << (4 * jj);
+              }
+              words[i] = grp;
+            }
+          }
+          if (kDKV || kDrop == 2) {
             __syncwarp();
             if (lane == 0) mbar_arrive(sfull);
           }
@@ -1053,7 +1184,8 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
     }
   } else {
     // ---- consumer warpgroups: 64 resident rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (kDrop != 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int cw = warp / 4 - 1;          // consumer warpgroup 0 or 1
     const int wl = warp % 4;              // warp within it: 16 rows
     const int g = lane / 4;               // accumulator row group
@@ -1061,6 +1193,14 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
     const int tid = threadIdx.x % 128;
     const int lr_a = wl * 16 + g, lr_b = lr_a + 8;   // rows in the half
     const float c = p.scale_log2;
+    // with dropout the scale and the dropout factor in registers
+    // (pinned: otherwise ptxas reloads them from the constant bank at
+    // every use)
+    float scale = p.scale, inv_keep_p = p.inv_keep_p;
+    if constexpr (kDrop != 0)
+      asm volatile("" : "+f"(scale), "+f"(inv_keep_p));
+    PhiloxKey key{0u, 0u};
+    if constexpr (kDrop == 1) key = philox_key(p.seed);
     auto release = [&](uint32_t bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -1106,9 +1246,9 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         del_a = st[kRes + lr_a];
         del_b = st[kRes + lr_b];
       }
-      float acc0[64], acc1[64];
+      float acc0[D / 2], acc1[D / 2];
 #pragma unroll
-      for (int r = 0; r < 64; ++r) acc0[r] = acc1[r] = 0.f;
+      for (int r = 0; r < D / 2; ++r) acc0[r] = acc1[r] = 0.f;
 
       for (int j = 0; j < it.n; ++j, ++str_it) {
         const int s = str_it % kStages;
@@ -1121,13 +1261,31 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
         mbar_wait(bar_sf + 8 * s, (str_it / kStages) & 1);
         turn_wait();
         wgmma_fence();
-        issue_x(x, da0, sw128_desc(sb0, 16, 1024));
+        issue_x<D>(x, da0, sw128_desc(sb0, 16, 1024));
         wgmma_commit();
-        issue_x(y, da1, sw128_desc(sb1, 16, 1024));
+        issue_x<D>(y, da1, sw128_desc(sb1, 16, 1024));
         wgmma_commit();
         fence_regs(x);
         fence_regs(y);
         turn_pass();
+        // the keep bits of this thread's 32 scores of the tile (bit r
+        // for element r: the mma.sync fragment's layout), on the CUDA
+        // cores while the tensor cores form X and Y: dK/dV from Philox
+        // (rows are keys; its group word goes to `bits` for dQ), dQ from
+        // the group word the producer warps gathered with the tile
+        uint32_t keep = 0;
+        if constexpr (kDrop == 1) {
+          const int h = it.hh * R + j / it.nq;   // the query head
+          const uint32_t grp = keep_groups_mma(key, it.b, h, w0 + lr_a, s0,
+                                               g, t, false, p.thresh);
+          if (p.bits != nullptr && w0 < p.Sk)
+            p.bits[((((long long)it.b * p.H + h) * p.nqb + s0 / 64) * p.nkb
+                    + w0 / 64) * 128 + tid] = grp;
+          keep = keep_bits_of_groups(grp, g, false);
+        } else if constexpr (kDrop == 2) {
+          keep = keep_bits_of_groups(kbits[s * 256 + cw * 128 + tid], g,
+                                     true);
+        }
         wgmma_wait<1>();
         fence_regs(x);
 
@@ -1158,19 +1316,21 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
           for (int r = 0; r < 32; ++r) {
             const int row = w0 + ((r & 2) ? lr_b : lr_a);
             const int col = s0 + 8 * (r / 4) + 2 * t + (r & 1);
-            const int key = kDKV ? row : col;
+            const int key_i = kDKV ? row : col;
             const int query = kDKV ? col : row;
-            if (key >= p.Sk || query >= p.Sq || (p.causal && key > query))
+            if (key_i >= p.Sk || query >= p.Sq
+                || (p.causal && key_i > query))
               x[r] = 0.f;
           }
         }
         wgmma_wait<0>();
         fence_regs(y);
 
-        // dS = P (dP - delta) scale in y; then P and dS in bf16 as the
-        // register A operands (packed only now: no packed operand is in
-        // flight while dS is formed, which keeps the consumer within its
-        // registers)
+        // dS = P (dP - delta) scale in y, dP dropped first with dropout
+        // (dP keep / (1 - p)); then P (dropped alike for dV) and dS in
+        // bf16 as the register A operands (packed only now: no packed
+        // operand is in flight while dS is formed, which keeps the
+        // consumer within its registers)
 #pragma unroll
         for (int c4 = 0; c4 < 8; ++c4) {
           float2 d2 = make_float2(0.f, 0.f);
@@ -1181,10 +1341,20 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
             const int r = 4 * c4 + e;
             const float d = kDKV ? ((e & 1) ? d2.y : d2.x)
                                  : ((e & 2) ? del_b : del_a);
-            y[r] = x[r] * (y[r] - d) * p.scale;
+            float dp = y[r];
+            if constexpr (kDrop != 0)
+              dp = (keep >> r) & 1u ? __fmul_rn(dp, inv_keep_p) : 0.f;
+            y[r] = x[r] * (dp - d) * scale;
           }
         }
-        if constexpr (kDKV) pack16(x, pa);
+        if constexpr (kDKV) {
+          if constexpr (kDrop != 0) {
+#pragma unroll
+            for (int r = 0; r < 32; ++r)
+              x[r] = (keep >> r) & 1u ? __fmul_rn(x[r], inv_keep_p) : 0.f;
+          }
+          pack16(x, pa);
+        }
         pack16(y, pd);
         // dK += bf16(dS^T) Q and dV += bf16(P^T) dO, or dQ += bf16(dS) K
         turn_wait();
@@ -1223,12 +1393,14 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
       named_sync<128>(1 + cw);
       if (tid == 0) {
         const CUtensorMap* o0 = &maps.m[kMapOut0];
-        tma_store(o0, ra0, 0, w0, cur.hh, cur.b);
-        tma_store(o0, ra0 + kResPanel, kPanel, w0, cur.hh, cur.b);
-        if constexpr (kDKV) {
-          const CUtensorMap* o1 = &maps.m[kMapOut1];
-          tma_store(o1, ra1, 0, w0, cur.hh, cur.b);
-          tma_store(o1, ra1 + kResPanel, kPanel, w0, cur.hh, cur.b);
+        const CUtensorMap* o1 = &maps.m[kMapOut1];
+#pragma unroll
+        for (int pc = 0; pc < T::kPanels; ++pc) {
+          tma_store(o0, ra0 + pc * kResPanel, pc * kPanel, w0, cur.hh,
+                    cur.b);
+          if constexpr (kDKV)
+            tma_store(o1, ra1 + pc * kResPanel, pc * kPanel, w0, cur.hh,
+                      cur.b);
         }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -1241,22 +1413,27 @@ flash_bwd_sm90(const __grid_constant__ Maps maps, const BwdParams p) {
 
 }  // namespace sm90
 
+// the sm90 route has no instantiation for the head_dim and option asked
+constexpr int kErrRoute = 99998;
+// dQ with dropout on the sm90 route was given no keep bits to read
+constexpr int kErrBits = 99997;
+
 // the sm90 route's launch: tensor maps from the caller's byte strides,
 // the plan checked against the tiles compiled here
-template <bool kDKV>
+template <bool kDKV, int D, int kDrop>
 int run_sm90(const void* const* ptrs, const void* lse, const void* delta,
              int B, int H, int Hkv, int Sq, int Sk,
              const long long* tma_strides, const int* plan, int causal,
-             float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0)
-    return (int)cudaErrorInvalidValue;
+             float scale, const void* seed, unsigned int thresh,
+             float keep_p, void* bits, void* stream) {
+  using T = sm90::Tiles<D>;
   const int n_res = ((kDKV ? Sk : Sq) + sm90::kRes - 1) / sm90::kRes;
   const int items = n_res * (kDKV ? Hkv : H) * B;
   // plan: resident rows, streamed rows, stages, threads, shared memory,
   // and the grid (blocks, 1, 1): at most one block per work item
   if (plan[0] != sm90::kRes || plan[1] != sm90::kStr
-      || plan[2] != sm90::kStages || plan[3] != sm90::kThreads
-      || plan[4] != sm90::kSmemBytes || plan[5] < 1 || plan[5] > items
+      || plan[2] != T::kStages || plan[3] != sm90::kThreads
+      || plan[4] != T::kSmemBytes || plan[5] < 1 || plan[5] > items
       || plan[6] != 1 || plan[7] != 1)
     return kErrPlan;
   EncodeTiledFn fn = encode_fn();
@@ -1272,20 +1449,57 @@ int run_sm90(const void* const* ptrs, const void* lse, const void* delta,
   sm90::Maps maps{};
   for (int i = 0; i < n_maps; ++i) {
     const int rc = encode_map(fn, &maps.m[i], ptrs[i], seqs[i], heads[i], B,
-                              tma_strides + 3 * i, rows[i]);
+                              tma_strides + 3 * i, rows[i], D);
     if (rc != 0) return kErrEncode + rc * 16 + i;
   }
+  const auto kernel = sm90::flash_bwd_sm90<kDKV, D, kDrop>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sm90::flash_bwd_sm90<kDKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sm90::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const sm90::BwdParams p{static_cast<const float*>(lse),
                           static_cast<const float*>(delta), B, H, Hkv, Sq,
                           Sk, n_res, (Sq + sm90::kStr - 1) / sm90::kStr,
-                          causal, scale, scale * sm90::kLog2e};
-  sm90::flash_bwd_sm90<kDKV><<<plan[5], sm90::kThreads, sm90::kSmemBytes,
-                               static_cast<cudaStream_t>(stream)>>>(maps, p);
+                          causal, scale, scale * sm90::kLog2e,
+                          static_cast<const long long*>(seed), thresh,
+                          1.0f / keep_p,
+                          static_cast<uint32_t*>(bits), (Sq + 63) / 64,
+                          (Sk + 63) / 64};
+  kernel<<<plan[5], sm90::kThreads, T::kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
+}
+
+// the sm90 route's instantiations: head_dim 128 without dropout,
+// head_dim 64 with or without it (dK/dV writes the keep mask's
+// group words to `bits` when given; dQ with dropout reads them)
+template <bool kDKV>
+int run_sm90_route(const void* const* ptrs, const void* lse,
+                   const void* delta, int B, int H, int Hkv, int Sq, int Sk,
+                   const long long* tma_strides, const int* plan, int causal,
+                   float scale, int D, const void* seed, unsigned int thresh,
+                   float keep_p, void* bits, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
+      || (seed != nullptr && !(keep_p > 0.f && keep_p <= 1.f)))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128 && seed == nullptr)
+    return run_sm90<kDKV, 128, 0>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                                  tma_strides, plan, causal, scale, nullptr,
+                                  0u, 1.f, nullptr, stream);
+  if (D != 64) return kErrRoute;
+  if (seed == nullptr)
+    return run_sm90<kDKV, 64, 0>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                                 tma_strides, plan, causal, scale, nullptr,
+                                 0u, 1.f, nullptr, stream);
+  if constexpr (kDKV) {
+    return run_sm90<true, 64, 1>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                                 tma_strides, plan, causal, scale, seed,
+                                 thresh, keep_p, bits, stream);
+  } else {
+    if (bits == nullptr) return kErrBits;
+    return run_sm90<false, 64, 2>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                                  tma_strides, plan, causal, scale, seed,
+                                  thresh, keep_p, bits, stream);
+  }
 }
 
 bool make_params(Params* p, const void* q, const void* k, const void* v,
@@ -1326,6 +1540,12 @@ const char* kernel_error_string(int err) {
   static char buf[160];
   if (err == kErrPlan)
     return "the launch plan names tiles this library was not built with";
+  if (err == kErrRoute)
+    return "the sm90 route has no kernel for this head_dim and option "
+           "(head_dim 128 without dropout, head_dim 64 with or without)";
+  if (err == kErrBits)
+    return "dQ with dropout on the sm90 route reads the keep bits dK/dV "
+           "wrote: none were given";
   if (err == kErrNoEncode)
     return "cuTensorMapEncodeTiled not found through the CUDA runtime";
   if (err >= kErrEncode) {
@@ -1345,7 +1565,8 @@ const char* kernel_error_string(int err) {
 // Dropout: `seed`, an int64 in device memory, or null; the forward's
 // mask is regenerated (kept iff the Philox bits are >= `thresh`, kept
 // values divided by `keep_p` = f32(1 - p)).  bf16 at head_dim 128 is
-// taken here only with dropout (without it, the sm90 route's).
+// taken here only with dropout (without it, the sm90 route's), bf16 at
+// head_dim 64 never (the sm90 route's, with or without).
 // strides: 21 element strides, (batch, head, seq) of q, k, v, dout, dq,
 // dk, dv in that order (the dq entries are unused here).  Returns the
 // CUDA error of the launch (0 on success).
@@ -1362,7 +1583,7 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   if (!make_params(&p, q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
                    Hkv, Sq, Sk, strides, causal, scale, seed, thresh,
                    keep_p)
-      || (is_bf16 && D == 128 && !opt))
+      || (is_bf16 && (D == 64 || (D == 128 && !opt))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -1386,7 +1607,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (!make_params(&p, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B,
                    H, Hkv, Sq, Sk, strides, causal, scale, seed, thresh,
                    keep_p)
-      || (is_bf16 && D == 128 && !opt))
+      || (is_bf16 && (D == 64 || (D == 128 && !opt))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -1397,38 +1618,50 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// The sm90 route: bf16, head_dim 128.  q/dout: (B, H, Sq, 128) and k/v:
-// (B, Hkv, Sk, 128) views with unit stride on D, 16-byte aligned; dk/dv:
-// outputs shaped like k/v, same rules.  `tma_strides`: the byte strides
-// (seq, head, batch) of q, k, v, dout, dk and dv, 18 values, multiples of
-// 16.  lse/delta: contiguous (B, H, Sq) f32.  `plan`: resident rows,
-// streamed rows, stages, threads, shared-memory bytes and the grid
-// (blocks, 1, 1) as the Python launch plan computed them.  Returns the
-// CUDA error of the launch (0 on success).
+// The sm90 route: bf16 at head_dim 128 without dropout, at head_dim 64
+// with or without it.  q/dout: (B, H, Sq, D) and k/v: (B, Hkv, Sk, D)
+// views with unit stride on D, 16-byte aligned; dk/dv: outputs shaped
+// like k/v, same rules.  `tma_strides`: the byte strides (seq, head,
+// batch) of q, k, v, dout, dk and dv, 18 values, multiples of 16.
+// lse/delta: contiguous (B, H, Sq) f32 (delta from the dropped output).
+// `plan`: resident rows, streamed rows, stages, threads, shared-memory
+// bytes and the grid (blocks, 1, 1) as the Python launch plan computed
+// them.  Dropout: `seed`, an int64 in device memory, or null; the
+// forward's mask is regenerated (kept iff the Philox bits are >=
+// `thresh`, kept values multiplied by f32(1 / `keep_p`), `keep_p` =
+// f32(1 - p)) and, where `keep_bits` is given, written there as group
+// words (uint32 [B][H][ceil(Sq / 64)][ceil(Sk / 64)][128]) for dQ.
+// Returns the CUDA error of the launch (0 on success).
 int flash_attention_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
                                  int B, int H, int Hkv, int Sq, int Sk,
                                  const long long* tma_strides,
                                  const int* plan, int causal, float scale,
-                                 void* stream) {
+                                 int D, const void* seed,
+                                 unsigned int thresh, float keep_p,
+                                 void* keep_bits, void* stream) {
   const void* ptrs[6] = {q, k, v, dout, dk, dv};
-  return run_sm90<true>(ptrs, lse, delta, B, H, Hkv, Sq, Sk, tma_strides,
-                        plan, causal, scale, stream);
+  return run_sm90_route<true>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                              tma_strides, plan, causal, scale, D, seed,
+                              thresh, keep_p, keep_bits, stream);
 }
 
 // As above for dQ (shaped like q); `tma_strides`: 15 values, those of q,
-// k, v, dout and dq.
+// k, v, dout and dq.  With dropout `keep_bits` is required: dQ reads the
+// mask dK/dV wrote there.
 int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int B, int H,
                                 int Hkv, int Sq, int Sk,
                                 const long long* tma_strides,
                                 const int* plan, int causal, float scale,
-                                void* stream) {
+                                int D, const void* seed, unsigned int thresh,
+                                float keep_p, void* keep_bits, void* stream) {
   const void* ptrs[6] = {q, k, v, dout, dq, nullptr};
-  return run_sm90<false>(ptrs, lse, delta, B, H, Hkv, Sq, Sk, tma_strides,
-                         plan, causal, scale, stream);
+  return run_sm90_route<false>(ptrs, lse, delta, B, H, Hkv, Sq, Sk,
+                               tma_strides, plan, causal, scale, D, seed,
+                               thresh, keep_p, keep_bits, stream);
 }
 
 }  // extern "C"

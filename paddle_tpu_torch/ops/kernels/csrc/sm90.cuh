@@ -3,10 +3,11 @@
 // (int8_matmul.cu): mbarrier and TMA wrappers (4-D and 2-D), 128-byte-
 // swizzle shared-memory descriptors, the wgmma shapes they use (bf16
 // m64n128k16 and m64n64k16 with both operands in shared memory,
-// m64n128k16 with A from registers; s8 m64n64k32 and m64n128k32 with
-// both operands in shared memory), operand fences, ex2, named barriers,
-// and on the host the lookup of cuTensorMapEncodeTiled, the 4-D
-// (D, S, heads, B) bf16 tensor maps and 2-D row-major maps of any type.
+// m64n128k16 and m64n64k16 with A from registers; s8 m64n64k32 and
+// m64n128k32 with both operands in shared memory), operand fences, ex2,
+// named barriers, and on the host the lookup of cuTensorMapEncodeTiled,
+// the 4-D (D, S, heads, B) bf16 tensor maps and 2-D row-major maps of
+// any type.
 // Everything sits in the including file's anonymous namespace: each
 // library keeps its own copy.
 
@@ -291,6 +292,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (each warp
+// holds the m16n8k16 A fragment of its 16 rows), B MN-major in shared
+// memory (the transpose bit): the head_dim-64 accumulations
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // D[64 x 64] (+)= A[64 x 32] . B[32 x 64]^T, s8 x s8 -> s32, A and B
 // K-major in shared memory (the only layout 8-bit wgmma takes)
@@ -401,10 +428,12 @@ EncodeTiledFn encode_fn() {
 
 // a 4-D (D, S, heads, B) map of bf16 with byte strides (seq, head,
 // batch), box (64 columns, `rows` rows), 128-byte swizzle, zero fill
-// past the ends (loads) or clipping there (stores)
+// past the ends (loads) or clipping there (stores); head_dim `D` (a
+// multiple of 64) is the forward's 128 unless given
 int encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int S,
-               int heads, int B, const long long* byte_strides, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)sm90::kD, (cuuint64_t)S,
+               int heads, int B, const long long* byte_strides, int rows,
+               int D = sm90::kD) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)byte_strides[0],
                                  (cuuint64_t)byte_strides[1],

@@ -25,12 +25,12 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
   Both recompute P from the saved LSE; ``delta = rowsum(dO * O)`` is
   plain PyTorch, as the reference computes it in plain XLA.  No atomics:
   bitwise the same gradients from run to run.  bf16 at head_dim 128
-  takes the Hopper kernels (128 resident keys or query rows an item in
-  two consumer warpgroups, 64-row tiles streamed by TMA through a
-  2-stage ring, every product a ``wgmma``, persistent blocks); the
-  other dtypes and head dims take the first kernels (one block per
-  item).  :func:`flash_bwd_plan` computes both kernels' plans in
-  Python.
+  without dropout and at head_dim 64 with or without it takes the
+  Hopper kernels (128 resident keys or query rows an item in two
+  consumer warpgroups, 64-row tiles streamed by TMA through a ring of 2
+  or 4 stages, every product a ``wgmma``, persistent blocks); the other
+  dtypes and head dims take the first kernels (one block per item).
+  :func:`flash_bwd_plan` computes both kernels' plans in Python.
 
 Numerics follow the Pallas kernels: scores ``(q . k) * scale`` in f32,
 masked scores -1e30 (probability 0), online max/denominator in f32, the
@@ -52,10 +52,11 @@ its forward dispatches the forward with the LSE, its backward the two
 backward kernels, all through the registry (kernels for CUDA tensors,
 plain versions for CPU tensors or where ``mode`` says so).
 
-The reference's two options run on the first kernels (``mma.sync``
-for bf16 at every head dim, FMA for f32); the Hopper route takes
-neither, so a bf16 head_dim-128 call with an option goes to the
-``mma.sync`` route (``flash_fwd_plan`` / ``flash_bwd_plan`` record it):
+The reference's two options run in the forward on the first kernels
+(``mma.sync`` for bf16 at every head dim, FMA for f32), whose Hopper
+route takes neither; the backward's dropout runs on the Hopper route at
+bf16 head_dim 64 and on the first kernels otherwise (``flash_fwd_plan``
+/ ``flash_bwd_plan`` record the route):
 
 - **bias**: an additive row in q's dtype (padding masks) that
   broadcasts to [B, 1, 1, Sk] (a row shared by the batch is read with
@@ -71,8 +72,10 @@ neither, so a bf16 head_dim-128 call with an option goes to the
   keep mask is Philox4x32-10 of (seed, b, h, q, k) (``csrc/dropout.cuh``;
   plain version :func:`dropout_keep_mask`), not of a tile, so the
   backward kernels, whose tiles differ from the forward's, and a
-  recomputed forward regenerate it; the seed is an int64 tensor on the
-  device (:func:`dropout_seed` draws it from a generator, no host sync).
+  recomputed forward regenerate it (on the Hopper route dK/dV writes it
+  for dQ to read: :func:`keep_bits_buffer`); the seed is an int64
+  tensor on the device (:func:`dropout_seed` draws it from a generator,
+  no host sync).
   The TPU's bits cannot be matched: parity with the reference goes
   through its injected ``test_mask``, which the plain versions take too.
 
@@ -96,7 +99,8 @@ from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
            "flash_attention_blockwise_ref", "flash_fwd_plan", "FwdPlan",
-           "flash_bwd_plan", "BwdPlan", "BwdKernelPlan",
+           "flash_bwd_plan", "BwdPlan", "BwdKernelPlan", "keep_bits_numel",
+           "keep_bits_buffer",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq_ref",
            "flash_attention_bwd_blockwise_ref",
            "attention_delta", "flash_eligible", "dropout_seed",
@@ -758,9 +762,11 @@ def _bwd_chunked(q, k, v, do, lse, delta, causal, scale, want, round_p,
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False,
                                 scale=None, dropout_p=0.0, seed=None,
-                                test_mask=None):
+                                test_mask=None, keep_bits_out=None):
     """Plain dK, dV (input dtype) from the saved LSE and ``delta``:
-    chunked f32, P and dS unrounded."""
+    chunked f32, P and dS unrounded.  ``keep_bits_out`` (the kernel's
+    output of its keep mask for dQ) is not written: the plain versions
+    regenerate the mask."""
     g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dk", "dv"),
                      round_p=False, dropout_p=dropout_p, seed=seed,
                      test_mask=test_mask)
@@ -769,9 +775,10 @@ def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False,
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=False,
                                scale=None, dropout_p=0.0, seed=None,
-                               test_mask=None):
+                               test_mask=None, keep_bits=None):
     """Plain dQ (input dtype) from the saved LSE and ``delta``: chunked
-    f32, P and dS unrounded."""
+    f32, P and dS unrounded.  ``keep_bits`` (the mask dK/dV's kernel
+    wrote) is not read: the plain version regenerates the mask."""
     g = _bwd_chunked(q, k, v, do, lse, delta, causal, scale, ("dq",),
                      round_p=False, dropout_p=dropout_p, seed=seed,
                      test_mask=test_mask)
@@ -796,11 +803,19 @@ def flash_attention_bwd_blockwise_ref(q, k, v, do, lse, delta, causal=False,
 # ---------------------------------------------------------------------
 
 def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None,
-                  dropout_p=0.0, seed=None, test_mask=None):
+                  dropout_p=0.0, seed=None, test_mask=None, keep_bits=None,
+                  keep_bits_out=None):
     reason = _eligible(q, k, v, dropout_p=dropout_p, seed=seed,
                        test_mask=test_mask)
     if reason:
         return reason
+    for bits in (keep_bits, keep_bits_out):
+        if bits is not None and (
+                bits.device != q.device or bits.dtype != torch.int32
+                or bits.numel() != keep_bits_numel(q, k)):
+            return (f"keep bits must be a {keep_bits_numel(q, k)}-element "
+                    f"int32 tensor on {q.device} (keep_bits_numel), got "
+                    f"{bits.numel()} {bits.dtype} on {bits.device}")
     if not do.is_cuda or do.shape != q.shape or do.dtype != q.dtype:
         return (f"dO {tuple(do.shape)} {do.dtype} does not match q "
                 f"{tuple(q.shape)} {q.dtype}")
@@ -814,15 +829,24 @@ def _bwd_eligible(q, k, v, do, lse, delta, causal=False, scale=None,
 
 
 # the backward's Hopper route, as compiled in csrc/flash_attention_bwd.cu
-# (namespace sm90): a work item holds 128 resident rows (keys for dK/dV,
-# query rows for dQ) in two consumer warpgroups of 64 and streams 64-row
-# tiles of the other pair through a 2-stage ring, 384 threads; shared
-# memory is 1024 bytes of alignment slack, two buffers of the resident
-# pair (32 KB a tile), both stages of the streamed pair (16 KB a tile),
-# 2 KB of LSE and delta rows and 8 mbarriers.
-_SM90_BWD = dict(block_res=128, block_str=64, stages=2, threads=384,
-                 smem_bytes=1024 + 4 * 32768 + 2 * 2 * 16384 + 2048
-                 + 8 * (4 + 2 * 2))
+# (namespace sm90, Tiles<D>): a work item holds 128 resident rows (keys
+# for dK/dV, query rows for dQ) in two consumer warpgroups of 64 and
+# streams 64-row tiles of the other pair through a ring of 2 stages at
+# head_dim 128, 4 at head_dim 64, 384 threads; shared memory is 1024
+# bytes of alignment slack, two buffers of the resident pair (128 x D
+# bf16 a tile), every stage of the streamed pair (64 x D a tile), 2 KB
+# of LSE and delta rows, at head_dim 64 the keep mask's 256 group words
+# a stage, and the mbarriers (8 bytes each: 4 for the resident buffers,
+# 2 a stage).
+_SM90_BWD_STAGES = {128: 2, 64: 4}
+
+
+def _sm90_bwd(D):
+    stages = _SM90_BWD_STAGES[D]
+    return dict(block_res=128, block_str=64, stages=stages, threads=384,
+                smem_bytes=1024 + 4 * 128 * D * 2 + stages * 2 * 64 * D * 2
+                + 2048 + (stages * 1024 if D == 64 else 0)
+                + 8 * (4 + 2 * stages))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -846,8 +870,8 @@ class BwdKernelPlan:
 class BwdPlan:
     """How the backward kernels run on given q, k, v, dO (B, H, S, D)."""
 
-    route: str          # "tma_wgmma" (bf16, D=128, no dropout),
-                        # "mma_sync" (other bf16) or "fma" (f32)
+    route: str          # "tma_wgmma" (bf16: D=64, D=128 without
+                        # dropout), "mma_sync" (other bf16) or "fma" (f32)
     dkv: BwdKernelPlan
     dq: BwdKernelPlan
     # per tensor: taken where it lies (else _rowmajor copies it first)
@@ -875,11 +899,13 @@ def _bwd_tiles(n_res, block_res, block_str, n_other, causal, dkv, heads,
 def flash_bwd_plan(q, k, v, do, causal=False, dropout_p=0.0):
     """The launch plans of both backward kernels for (B, H, S, D) q, k,
     v, dO: the route, tiles, stages, grid, work and, on the Hopper route,
-    the TMA strides.  bf16 at head_dim 128 takes the Hopper route unless
-    there is dropout (the ``mma.sync`` route takes it, dK/dV with 64 keys
-    a block); a tensor it cannot take as is (``as_is`` False) is made
-    row-major by :func:`_rowmajor` first, never sent to the other kernels.
-    Pure shape arithmetic: it runs on CPU tensors too."""
+    the TMA strides.  bf16 takes the Hopper route at head_dim 64, with
+    or without dropout, and at head_dim 128 without it (with dropout the
+    ``mma.sync`` route takes head_dim 128, dK/dV with 64 keys a block,
+    and head_dim 256 always); a tensor it cannot take as is (``as_is``
+    False) is made row-major by :func:`_rowmajor` first, never sent to
+    the other kernels.  Pure shape arithmetic: it runs on CPU tensors
+    too."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     R = H // Hkv
@@ -890,12 +916,13 @@ def flash_bwd_plan(q, k, v, do, causal=False, dropout_p=0.0):
     for name, n_res, heads, n_other in (("dkv", Sk, Hkv, Sq),
                                          ("dq", Sq, H, Sk)):
         dkv = name == "dkv"
-        if q.dtype == torch.bfloat16 and D == 128 and not dropout_p > 0.0:
+        if q.dtype == torch.bfloat16 and (
+                D == 64 or (D == 128 and not dropout_p > 0.0)):
             route = "tma_wgmma"
+            t = _sm90_bwd(D)
             br, bs, stages, threads, smem = (
-                _SM90_BWD["block_res"], _SM90_BWD["block_str"],
-                _SM90_BWD["stages"], _SM90_BWD["threads"],
-                _SM90_BWD["smem_bytes"])
+                t["block_res"], t["block_str"], t["stages"], t["threads"],
+                t["smem_bytes"])
             # q, k, v, dO as given; the outputs as the wrappers allocate
             # them, (B, S, heads, D)
             outs = ((Sk, Hkv), (Sk, Hkv)) if dkv else ((Sq, H),)
@@ -925,11 +952,36 @@ def flash_bwd_plan(q, k, v, do, causal=False, dropout_p=0.0):
     return BwdPlan(route, plans["dkv"], plans["dq"], as_is)
 
 
+def keep_bits_numel(q, k):
+    """int32 words of the keep mask dK/dV's Hopper kernel writes for dQ
+    (``keep_bits_out`` / ``keep_bits``): 128 group words for each 64 x 64
+    (query block, key block) of each (batch, query head), B H Sq Sk / 32
+    at multiples of 64."""
+    B, H, Sq = q.shape[:3]
+    Sk = k.shape[2]
+    return B * H * -(-Sq // 64) * -(-Sk // 64) * 128
+
+
+def keep_bits_buffer(q, k, v, do, causal, dropout_p, seed, mode):
+    """The keep-mask buffer a backward with dropout on the Hopper route
+    passes from dK/dV to dQ (dQ then reads the mask instead of
+    regenerating it), or None: no dropout, CPU tensors, the plain
+    versions, or another route."""
+    if (not dropout_p > 0.0 or seed is None or not q.is_cuda
+            or mode == "torch_ref"
+            or flash_bwd_plan(q, k, v, do, causal,
+                              dropout_p=dropout_p).route != "tma_wgmma"):
+        return None
+    return torch.empty(keep_bits_numel(q, k), dtype=torch.int32,
+                       device=q.device)
+
+
 def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale,
-                dropout_p=0.0, seed=None):
+                dropout_p=0.0, seed=None, keep_bits=None):
     """Launch backward ``kernel`` ("dkv" or "dq") on row-major q, k, v,
     dO (:func:`_rowmajor`) and contiguous lse, delta, into ``outs``:
-    (dk, dv) or (dq,)."""
+    (dk, dv) or (dq,).  ``keep_bits``: on the Hopper route with dropout,
+    the keep mask dK/dV writes (optional) and dQ reads (required)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -938,23 +990,34 @@ def _bwd_launch(kernel, spec, q, k, v, do, lse, delta, outs, causal, scale,
     lib = _build.load(_BWD_SOURCE)
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta) + tuple(outs)]
     if plan.route == "tma_wgmma":
+        if kernel == "dq" and dropout_p > 0.0 and keep_bits is None:
+            raise ValueError(
+                f"flash_attention_bwd_dq q={tuple(q.shape)} {q.dtype} with "
+                f"dropout on the Hopper route reads the keep mask "
+                f"flash_attention_bwd_dkv wrote: pass keep_bits")
         entry = f"flash_attention_bwd_{kernel}_sm90"
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             # q, k, v, dO, lse, delta, the outputs; B, H, Hkv, Sq, Sk;
-            # TMA strides; plan; causal, scale, stream
+            # TMA strides; plan; causal, scale, D; seed, threshold,
+            # 1 - p; keep bits; stream
             fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
                            + [ctypes.c_int] * 5
                            + [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                              ctypes.c_float, ctypes.c_void_p])
+                              ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
         launch = (kplan.block_res, kplan.block_str, kplan.stages,
                   kplan.threads, kplan.smem_bytes, *kplan.grid)
         args = (B, H, Hkv, Sq, Sk,
                 (ctypes.c_longlong * len(kplan.tma_strides))(
                     *kplan.tma_strides),
-                (ctypes.c_int * 8)(*launch), int(bool(causal)), float(sc))
+                (ctypes.c_int * 8)(*launch), int(bool(causal)), float(sc),
+                D, *_option_args(dropout_p, seed),
+                keep_bits.data_ptr() if keep_bits is not None
+                and dropout_p > 0.0 else None)
     else:
         entry = f"flash_attention_bwd_{kernel}"
         fn = getattr(lib, entry)
@@ -994,20 +1057,23 @@ def _like_bshd(t):
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
-                  dropout_p=0.0, seed=None, test_mask=None):
+                  dropout_p=0.0, seed=None, test_mask=None,
+                  keep_bits_out=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dk, dv = _like_bshd(k), _like_bshd(v)
     _bwd_launch("dkv", _DKV_SPEC, q, k, v, do, lse.contiguous(),
-                delta.contiguous(), (dk, dv), causal, scale, dropout_p, seed)
+                delta.contiguous(), (dk, dv), causal, scale, dropout_p, seed,
+                keep_bits_out)
     return dk, dv
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
-                 dropout_p=0.0, seed=None, test_mask=None):
+                 dropout_p=0.0, seed=None, test_mask=None, keep_bits=None):
     q, k, v, do = (_rowmajor(t) for t in (q, k, v, do))
     dq = _like_bshd(q)
     _bwd_launch("dq", _DQ_SPEC, q, k, v, do, lse.contiguous(),
-                delta.contiguous(), (dq,), causal, scale, dropout_p, seed)
+                delta.contiguous(), (dq,), causal, scale, dropout_p, seed,
+                keep_bits)
     return dq
 
 
@@ -1073,10 +1139,14 @@ class _FlashAttention(torch.autograd.Function):
                     None, None, None, None, None, None)
         kw = dict(causal=ctx.causal, scale=ctx.scale, mode=ctx.mode,
                   dropout_p=ctx.dropout_p, seed=seed, test_mask=test_mask)
+        # with dropout on the Hopper route dK/dV writes its keep mask and
+        # dQ reads it; the buffer lives for this backward only
+        bits = (None if test_mask is not None else keep_bits_buffer(
+            q, k, v, do, ctx.causal, ctx.dropout_p, seed, ctx.mode))
         dk, dv = registry.dispatch("flash_attention_bwd_dkv", q, k, v, do,
-                                   lse, delta, **kw)
+                                   lse, delta, keep_bits_out=bits, **kw)
         dq = registry.dispatch("flash_attention_bwd_dq", q, k, v, do, lse,
-                               delta, **kw)
+                               delta, keep_bits=bits, **kw)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 

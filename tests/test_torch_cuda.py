@@ -266,6 +266,69 @@ def test_backward_kernels_match_plain_on_card():
     assert counts["flash_attention_bwd_dq"] == 2 * runs
 
 
+# (B, H, Hkv, S, causal, p): the bf16 head_dim-64 Hopper route of kernels
+# 2 and 3, with and without dropout, causal and not; ragged lengths (300
+# and 130 take dropout under the reference's block rule, 1000 does not);
+# GQA 12 over 4; and 288 or 432 work items against 132 SMs (not a
+# multiple).  Every forward here runs kernel 1's mma.sync route, so the
+# backward's regenerated keep bits must be the forward's.
+_BWD_D64_CASES = [(2, 12, 12, 256, False, 0.0), (2, 12, 12, 256, True, 0.0),
+                  (2, 12, 12, 256, False, 0.1), (2, 12, 12, 256, True, 0.1),
+                  (1, 12, 4, 300, True, 0.1), (1, 12, 4, 300, False, 0.0),
+                  (1, 4, 4, 130, True, 0.1), (3, 12, 12, 1000, True, 0.0),
+                  (3, 12, 12, 1536, False, 0.1)]
+
+
+@pytest.mark.cuda
+def test_backward_d64_hopper_route_matches_plain_on_card():
+    """Kernels 2 and 3 on the bf16 head_dim-64 Hopper route (TMA,
+    ``wgmma``, the keep mask under the products) through the autograd
+    Function on (B, S, H, D) views: dQ, dK and dV within
+    ``CARD_TOL_BWD`` of the blockwise plain version with the same seed,
+    a rerun bitwise equal, each launch counted (``dropout`` mode with
+    dropout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at ERNIE's shape")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    seed = torch.tensor([2 ** 40 + 77], dtype=torch.int64, device=dev)
+    tol = fa.CARD_TOL_BWD[torch.bfloat16]
+    drops = 0
+    for B, H, Hkv, S, causal, p in _BWD_D64_CASES:
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   .transpose(1, 2).contiguous()
+                   for a in _qkv(21, B=B, H=H, Hkv=Hkv, S=S, D=64))
+        g = torch.from_numpy(_qkv(22, B=B, H=H, S=S, D=64)[0]).to(
+            dev, torch.bfloat16)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(dropout_p=p, seed=seed) if p else {}
+        assert fa.flash_bwd_plan(qh, kh, vh, g, causal, **(
+            dict(dropout_p=p) if p else {})).route == "tma_wgmma"
+        assert fa.flash_fwd_plan(qh, kh, vh, dropout_p=p).route == "mma_sync"
+        grads = []
+        for _ in range(2):
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            o = fa.flash_attention(qq, kk, vv, causal=causal, **kw)
+            grads.append(torch.autograd.grad(o, (qq, kk, vv),
+                                             g.transpose(1, 2)))
+        drops += 2 if p else 0
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), (B, S, p)
+        o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=causal,
+                                         return_lse=True, **kw)
+        delta = fa.attention_delta(o, g)
+        ref = fa.flash_attention_bwd_blockwise_ref(
+            qh, kh, vh, g, lse, delta, causal=causal, **kw)
+        torch.cuda.synchronize()
+        for got, want in zip(grads[0], ref):
+            assert bool(torch.isfinite(got.float()).all())
+            _assert_within(got.transpose(1, 2), want, tol)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        spec = registry.spec(name)
+        assert spec.launches == 2 * len(_BWD_D64_CASES)
+        assert spec.mode_launches == {"dropout": drops}
+
+
 def _bias_row(seed, B, S, dt, dev):
     """A [B, 1, 1, S] padding row: 0 on each sequence's first keys (at
     least half), -1e9 on the rest, plus small finite values at the

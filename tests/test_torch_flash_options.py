@@ -305,6 +305,137 @@ def test_keep_mask_does_not_depend_on_tiles(q0, nq, k0, nk):
     assert torch.equal(block, whole[:, :, q0:q0 + nq, k0:k0 + nk])
 
 
+def _groups_model(seed, b, h, row_base, c0, rows_q, p):
+    """A numpy model of ``keep_groups_mma`` (``csrc/dropout.cuh``) for
+    each thread of a warpgroup on the Hopper backward route: its group
+    word [warp, lane], nibble j the 2 x 2 group it computes for n-tile j
+    (bit 0 (q even, k even), 1 (q even, k odd), 2 (q odd, k even), 3 (q
+    odd, k odd)): the lower lane of a row pair at its row row_base + 16
+    warp + g, the upper lane at its row + 8; columns c0 + 8 j + 2 t.
+    Rows are queries if ``rows_q``, else keys."""
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    th = int(p * 2 ** 32)
+    words = np.zeros((4, 32), np.int64)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            row = row_base + 16 * w + g + (0 if g % 2 == 0 else 8)
+            for j in range(8):
+                c = c0 + 8 * j + 2 * t
+                q, k = (row, c) if rows_q else (c, row)
+                r = fa.philox4x32_10(k >> 1, q >> 1, h, b, *key)
+                nib = sum(int(int(x) >= th) << i for i, x in enumerate(r))
+                words[w, lane] |= nib << (4 * j)
+    return words
+
+
+def _bits_of_groups_model(words, rows_q):
+    """``keep_bits_of_groups``: each lane's keep bits (bit 4 j + e for
+    element e of n-tile j) from its group word and its partner's (lane ^
+    4)."""
+    bits = np.zeros_like(words)
+    for lane in range(32):
+        mine, other = words[:, lane], words[:, lane ^ 4]
+        lower = (lane >> 2) % 2 == 0
+        if rows_q:
+            bits[:, lane] = ((mine & 0x33333333) | ((other & 0x33333333) << 2)
+                             if lower else ((other >> 2) & 0x33333333)
+                             | (mine & 0xCCCCCCCC))
+        elif lower:
+            bits[:, lane] = ((mine & 0x11111111) | ((mine >> 1) & 0x22222222)
+                             | ((other << 2) & 0x44444444)
+                             | ((other << 1) & 0x88888888))
+        else:
+            bits[:, lane] = (((other >> 1) & 0x11111111)
+                             | ((other >> 2) & 0x22222222)
+                             | ((mine << 1) & 0x44444444)
+                             | (mine & 0x88888888))
+    return bits
+
+
+def _dq_gather_model(block):
+    """dQ's gather of its group words from the 128 words dK/dV's
+    warpgroup wrote for a 64 x 64 (query block, key block) (word i:
+    thread i's group word): the lane's query group qg (its row, halved)
+    and key groups 4 jj + t, word (jj / 2) 32 + 8 t + 4 (jj % 2) + qg % 4,
+    nibble qg / 4."""
+    words = np.zeros((4, 32), np.int64)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            lr_a = 16 * w + g
+            qg = ((lr_a + 8) if g & 1 else lr_a) >> 1
+            for jj in range(8):
+                word = int(block[(jj >> 1) * 32 + 8 * t + 4 * (jj & 1)
+                                 + (qg & 3)])
+                words[w, lane] |= ((word >> (4 * (qg >> 2))) & 0xF) \
+                    << (4 * jj)
+    return words
+
+
+# the second consumer warpgroup's 64 rows of an odd resident tile, an odd
+# streamed tile, head and batch not 0
+_SEED, _P, _QB, _KB, _B, _H = 2 ** 40 + 77, 0.1, 7, 7, 1, 2
+
+
+def _mask_block():
+    return fa.dropout_keep_mask(torch.tensor([_SEED]), 2, 3, 64, 64, _P,
+                                q0=64 * _QB, k0=64 * _KB)[_B, _H]
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_keep_bits_of_the_wgmma_fragment_are_the_mask(kernel):
+    """The Hopper backward route's keep bits, thread by thread, are
+    ``dropout_keep_mask``'s at the rows and columns that thread's
+    ``wgmma`` m64n64 fragment holds: dK/dV (rows are keys, columns
+    queries) from its Philox groups, dQ (rows queries, columns keys)
+    from the group words dK/dV wrote, each through the lane-pair swap."""
+    mask = _mask_block()                    # [query, key] of the block
+    dkv_words = _groups_model(_SEED, _B, _H, 64 * _KB, 64 * _QB, False, _P)
+    if kernel == "dkv":
+        bits, rows_q = _bits_of_groups_model(dkv_words, False), False
+    else:
+        words = _dq_gather_model(dkv_words.reshape(-1))
+        # the words dQ gathers are the groups it would compute itself
+        assert np.array_equal(words, _groups_model(
+            _SEED, _B, _H, 64 * _QB, 64 * _KB, True, _P))
+        bits, rows_q = _bits_of_groups_model(words, True), True
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in range(32):
+                row = 16 * w + g + 8 * ((r >> 1) & 1)
+                col = 8 * (r >> 2) + 2 * t + (r & 1)
+                q, k = (row, col) if rows_q else (col, row)
+                assert ((int(bits[w, lane]) >> r) & 1) == int(mask[q, k]), \
+                    (kernel, w, lane, r)
+
+
+def test_keep_bits_buffer_packing_order():
+    """The words dK/dV writes for a 64 x 64 block (``keep_bits_out``):
+    word 32 w + lane, nibble j holds the 2 x 2 group of queries 2 (4 j +
+    t) + {0, 1} and keys 2 kg + {0, 1}, kg = 8 w + g / 2 for the lower
+    lane of a row pair (g even), 8 w + 4 + (g - 1) / 2 for the upper;
+    bit 2 (q & 1) + (k & 1).  The buffer holds one such block for each
+    (batch, query head, query block, key block): ``keep_bits_numel``."""
+    mask = _mask_block()
+    words = _groups_model(_SEED, _B, _H, 64 * _KB, 64 * _QB, False,
+                          _P).reshape(-1)
+    for i in range(128):
+        w, lane = divmod(i, 32)
+        g, t = lane >> 2, lane & 3
+        kg = 8 * w + (g // 2 if g % 2 == 0 else 4 + (g - 1) // 2)
+        for j in range(8):
+            for bit in range(4):
+                q, k = 2 * (4 * j + t) + (bit >> 1), 2 * kg + (bit & 1)
+                assert ((int(words[i]) >> (4 * j + bit)) & 1) == \
+                    int(mask[q, k]), (i, j, bit)
+    q = torch.zeros(8, 12, 2048, 64)
+    assert fa.keep_bits_numel(q, q) * 4 == 8 * 12 * 2048 * 2048 // 8
+    assert fa.keep_bits_numel(q[:, :, :300], q[:, :4, :130]) == \
+        8 * 12 * 5 * 3 * 128
+
+
 def test_keep_mask_rows_in_blocks_match(monkeypatch):
     """The plain mask computes a block of rows at a time; the blocks'
     size does not change it."""
@@ -469,9 +600,11 @@ def lib(monkeypatch):
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("opt", ["bias", "dropout"])
 def test_options_take_the_mma_sync_route(D, opt):
-    """bf16 with an option takes the ``mma.sync`` route at every head dim
-    (the Hopper route takes none); f32 the FMA route; without an option
-    bf16 at head_dim 128 stays on the Hopper route."""
+    """bf16 with an option takes the forward's ``mma.sync`` route at every
+    head dim (its Hopper route takes none); f32 the FMA route.  The
+    backward's dropout takes the Hopper route at head_dim 64 and
+    ``mma.sync`` at 128 and 256.  Without an option the forward's Hopper
+    route takes bf16 at head_dim 128, the backward's at 64 and 128."""
     q = torch.zeros(2, 4, 300, D, dtype=torch.bfloat16)
     kw = (dict(bias=torch.zeros(2, 1, 1, 300, dtype=torch.bfloat16))
           if opt == "bias" else dict(dropout_p=0.1))
@@ -483,12 +616,17 @@ def test_options_take_the_mma_sync_route(D, opt):
                              **kw).route == "fma"
     if opt == "dropout":
         bplan = fa.flash_bwd_plan(q, q, q, q, dropout_p=0.1)
-        assert bplan.route == "mma_sync"
-        assert bplan.dkv.block_res == (64 if D <= 128 else 32)
-        assert bplan.dq.block_res == 64
-    base = "tma_wgmma" if D == 128 else "mma_sync"
-    assert fa.flash_fwd_plan(q, q, q).route == base
-    assert fa.flash_bwd_plan(q, q, q, q).route == base
+        if D == 64:
+            assert bplan.route == "tma_wgmma"
+            assert bplan.dkv.block_res == bplan.dq.block_res == 128
+        else:
+            assert bplan.route == "mma_sync"
+            assert bplan.dkv.block_res == (64 if D == 128 else 32)
+            assert bplan.dq.block_res == 64
+    assert fa.flash_fwd_plan(q, q, q).route == (
+        "tma_wgmma" if D == 128 else "mma_sync")
+    assert fa.flash_bwd_plan(q, q, q, q).route == (
+        "mma_sync" if D == 256 else "tma_wgmma")
 
 
 def test_bias_launch_passes_the_row_and_counts_its_mode(lib):
@@ -515,18 +653,52 @@ def test_dropout_launches_pass_the_seed_and_count_their_mode(lib, dtype, D):
     q = torch.zeros(B, H, S, D, dtype=dtype)
     seed = torch.tensor([3], dtype=torch.int64)
     lse = torch.zeros(B, H, S)
+    # bf16 at head_dim 64: the backward's Hopper entries, dK/dV writing
+    # its keep mask for dQ to read
+    sm90 = "_sm90" if (dtype, D) == (torch.bfloat16, 64) else ""
+    bits = (torch.empty(fa.keep_bits_numel(q, q), dtype=torch.int32)
+            if sm90 else None)
     fa._flash_fwd_cuda(q, q, q, return_lse=True, dropout_p=0.1, seed=seed)
-    fa._bwd_dkv_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed)
-    fa._bwd_dq_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed)
+    fa._bwd_dkv_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed,
+                     keep_bits_out=bits)
+    fa._bwd_dq_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed,
+                    keep_bits=bits)
     (n1, a1), (n2, a2), (n3, a3) = lib.calls
-    assert (n1, n2, n3) == ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                            "flash_attention_bwd_dq")
+    assert (n1, n2, n3) == ("flash_attention_fwd",
+                            "flash_attention_bwd_dkv" + sm90,
+                            "flash_attention_bwd_dq" + sm90)
     want = (seed.data_ptr(), int(0.1 * 2 ** 32), 0.9)
     assert a1[13:16] == want                  # after the bias and stride
-    assert a2[14:17] == a3[13:16] == want     # after D
+    if sm90:
+        # after causal, scale and D; then the keep bits and the stream
+        assert a2[-5:-2] == a3[-5:-2] == want
+        assert a2[-6] == a3[-6] == D
+        assert a2[-2] == a3[-2] == bits.data_ptr()
+    else:
+        assert a2[14:17] == a3[13:16] == want     # after D
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         assert registry.spec(name).mode_launches == {"dropout": 1}
+
+
+def test_hopper_dq_with_dropout_needs_the_keep_bits(lib):
+    """dQ with dropout on the Hopper route reads the mask dK/dV wrote:
+    without it the wrapper raises, naming the shape, and launches
+    nothing; without dropout the sm90 entries get a null seed and no
+    bits."""
+    q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 256)
+    seed = torch.tensor([3], dtype=torch.int64)
+    with pytest.raises(ValueError, match=r"q=\(1, 2, 256, 64\)"):
+        fa._bwd_dq_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed)
+    assert lib.calls == []
+    fa._bwd_dkv_cuda(q, q, q, q, lse, lse)
+    fa._bwd_dq_cuda(q, q, q, q, lse, lse)
+    (n1, a1), (n2, a2) = lib.calls
+    assert (n1, n2) == ("flash_attention_bwd_dkv_sm90",
+                        "flash_attention_bwd_dq_sm90")
+    assert a1[-6:-1] == a2[-6:-1] == (64, None, 0, 1.0, None)
+    assert registry.spec("flash_attention_bwd_dq").mode_launches == {}
 
 
 def test_debug_mask_entry_refuses_a_host_seed(lib):

@@ -334,28 +334,34 @@ def test_flash_first_kernel_takes_bf16_d64(fake_flash_lib):
 
 @pytest.mark.parametrize("dtype,D,route,dkv_rows,dq_rows,streamed", [
     (torch.bfloat16, 128, "tma_wgmma", 128, 128, 64),
-    (torch.bfloat16, 64, "mma_sync", 64, 64, 64),
+    (torch.bfloat16, 64, "tma_wgmma", 128, 128, 64),
     (torch.bfloat16, 256, "mma_sync", 32, 64, 64),
     (torch.float32, 128, "fma", 32, 32, 32)])
 def test_flash_bwd_plan_route_by_dtype_and_head_dim(dtype, D, route,
                                                     dkv_rows, dq_rows,
                                                     streamed):
-    """bf16 at head_dim 128 takes the Hopper kernels (128 resident rows
-    an item, 64-row streamed tiles, persistent blocks); the other dtypes
-    and head dims keep the first kernels' tiles and one block an item."""
+    """bf16 at head_dim 128 and 64 takes the Hopper kernels (128 resident
+    rows an item, 64-row streamed tiles, persistent blocks); the other
+    dtypes and head dims keep the first kernels' tiles and one block an
+    item."""
     q = torch.zeros(1, 2, 300, D, dtype=dtype)
     plan = flash_bwd_plan(q, q, q, q, causal=True)
     assert plan.route == route
     assert (plan.dkv.block_res, plan.dq.block_res) == (dkv_rows, dq_rows)
     assert plan.dkv.block_str == plan.dq.block_str == streamed
     if route == "tma_wgmma":
+        # the streamed ring: 2 stages at head_dim 128, 4 at 64
+        stages = 2 if D == 128 else 4
         for kp in (plan.dkv, plan.dq):
-            assert (kp.stages, kp.threads) == (2, 384)
-            # two buffers of the resident pair, two stages of the streamed
-            # pair, LSE/delta rows, 8 mbarriers, alignment slack: within a
-            # block's 227 KB
-            assert kp.smem_bytes == (1024 + 4 * 32768 + 4 * 16384 + 2048
-                                     + 64) <= 232448
+            assert (kp.stages, kp.threads) == (stages, 384)
+            # two buffers of the resident pair (128 x D bf16 a tile), every
+            # stage of the streamed pair (64 x D), LSE/delta rows, at
+            # head_dim 64 the keep mask's words (1 KB a stage), the
+            # mbarriers, alignment slack: within a block's 227 KB
+            words = stages * 1024 if D == 64 else 0
+            assert kp.smem_bytes == (1024 + 4 * 256 * D + stages * 256 * D
+                                     + 2048 + words
+                                     + 8 * (4 + 2 * stages)) <= 232448
             assert kp.grid == (kp.items, 1, 1) == (3 * 2, 1, 1)
     else:
         assert plan.dkv.tma_strides == plan.dq.tma_strides == ()
@@ -395,6 +401,31 @@ def test_flash_bwd_plan_counts_items_and_streamed_tiles(H, Hkv, S, causal,
     n_rt = -(-S // 128)
     assert plan.dkv.items == n_rt * Hkv * B
     assert plan.dq.items == n_rt * H * B
+    assert (plan.dkv.tiles, plan.dq.tiles) == (dkv_tiles, dq_tiles)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("H,Hkv,S,causal,dkv_tiles,dq_tiles", [
+    (16, 16, 2048, True, 272 * 64, 272 * 64),
+    (16, 16, 2048, False, 16 * 32 * 64, 16 * 32 * 64),
+    (8, 2, 777, True, (13 + 11 + 9 + 7 + 5 + 3 + 1) * 4 * 2,
+     (2 + 4 + 6 + 8 + 10 + 12 + 13) * 8),
+    (8, 2, 777, False, 7 * 13 * 4 * 2, 7 * 13 * 8)])
+def test_flash_bwd_plan_at_head_dim_64_counts_tiles_and_fills_the_sms(
+        H, Hkv, S, causal, dkv_tiles, dq_tiles, dropout_p):
+    """bf16 at head_dim 64, with dropout or without, takes the Hopper
+    route with head_dim 128's items and streamed tiles (the tile
+    arithmetic does not depend on head_dim), at most one persistent
+    block an SM, within a block's shared memory."""
+    B = 4 if S == 2048 else 1
+    q, kv = _bf16(B, H, S, 64), _bf16(B, Hkv, S, 64)
+    plan = flash_bwd_plan(q, kv, kv, q, causal=causal, dropout_p=dropout_p)
+    assert plan.route == "tma_wgmma"
+    n_rt = -(-S // 128)
+    for kp, items in ((plan.dkv, n_rt * Hkv * B), (plan.dq, n_rt * H * B)):
+        assert kp.items == items
+        assert kp.grid == (min(items, 132), 1, 1)
+        assert kp.smem_bytes <= 232448
     assert (plan.dkv.tiles, plan.dq.tiles) == (dkv_tiles, dq_tiles)
 
 
@@ -461,7 +492,8 @@ def test_flash_bwd_bf16_d128_launches_the_sm90_entries(fake_flash_lib,
 
 
 def test_flash_bwd_other_routes_launch_the_first_kernels(fake_flash_lib):
-    for dtype, D in ((torch.bfloat16, 64), (torch.float32, 128)):
+    # bf16 at head_dim 256 (head_dim 64 takes the Hopper route), f32
+    for dtype, D in ((torch.bfloat16, 256), (torch.float32, 128)):
         fake_flash_lib.calls.clear()
         q = torch.zeros(1, 2, 300, D, dtype=dtype)
         lse = torch.zeros(1, 2, 300)
