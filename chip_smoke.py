@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (one ``nvcc`` per source, started together) and print the seconds
    and the registers/shared memory ptxas reports (and the dynamic shared
    memory, tiles and stages of the Hopper flash forward and backward); a
-   spill in ``segment_sum.cu`` (kernels 7 and 8), in the two sm90
-   entries of ``flash_attention_bwd.cu`` (kernels 2 and 3), in the
+   spill in ``segment_sum.cu`` (kernels 7 and 8), in the four sm90
+   entries of ``flash_attention_fwd.cu`` (kernel 1: head_dim 128; head
+   dim 64 without options, with the bias row, with dropout) or the six
+   of ``flash_attention_bwd.cu`` (kernels 2 and 3), in the
    option entries (bias row, dropout) of both flash sources or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
    six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
@@ -229,15 +231,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``dropout_keep_mask`` at phase 34's and 35's attention shapes, the
     keep rate within 5 sigma of 1 - p; kernel 1 with the bias row at the
     translation encoder's shape (B 8, H 8, S 1,024, D 64, seeded padding)
-    in f32 and bf16 and at head_dim 128 in bf16; kernels 1-3 with dropout
+    in f32 and bf16 (the Hopper route; a row shared by the batch too)
+    and at head_dim 128 in bf16 (``mma.sync``); kernels 1-3 with dropout
     (p 0.1) at ERNIE's shape (B 8, H 12, S 2,048, D 64), bf16 and f32,
     causal and not; each within ``CARD_TOL`` / ``CARD_TOL_BWD`` of its
-    plain version with the same seed and bitwise on a rerun, timed queued
-    beside its bound (operations at 989 / 67 TFLOP/s; for dK/dV with
-    dropout also the keep mask's integer instructions from its SASS), its
-    plain version and SDPA with the same float mask or with ``dropout_p``
-    (yardsticks only: their masks differ); kernels 2 and 3 also without
-    dropout;
+    plain version with the same seed (bf16: the blockwise one at the
+    kernel's key tile) and bitwise on a rerun, timed queued beside its
+    bound (operations at 989 / 67 TFLOP/s; for kernel 1 also its
+    exponentials, for kernels 1 and 2 with dropout also the keep mask's
+    integer instructions from their SASS), its plain version and SDPA
+    with the same float mask or with ``dropout_p`` (yardsticks only:
+    their masks differ); kernels 1-3 also without dropout;
 34. train ERNIE-3.0-base (``bert_base(vocab_size=40000,
     max_position_embeddings=2048, type_vocab_size=4)``, dropout 0.1) at
     batch 8 x seq 2,048 with bf16 AMP and AdamW 1e-4, 307 masked
@@ -4101,14 +4105,14 @@ def keep_mask_cases(dev):
 def bias_cases(dev):
     """Phase 33 (b): kernel 1 with the bias row at the translation
     encoder's shape (B 8, H 8, S 1,024, D 64; seeded padding) in bf16 and
-    f32, and at head_dim 128 in bf16 (the mma.sync route): within
-    ``CARD_TOL`` of the plain versions (bf16: the blockwise one at the
-    kernel's key tile), bitwise on a rerun; timed queued beside its bound
+    f32 (bf16 on the Hopper route), and at head_dim 128 in bf16 (the
+    mma.sync route): within ``CARD_TOL`` of the plain versions (bf16: the
+    blockwise one at the kernel's key tile), bitwise on a rerun; a row
+    shared by the batch (batch stride 0) bitwise equal to the same row
+    copied to every sequence; timed queued beside its bound
     (operations at 989 / 67 TFLOP/s), its plain version and SDPA with the
     same float [B, 1, 1, S] mask (a yardstick only).  Returns the rows by
     label."""
-    import torch.nn.functional as tF
-
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         CARD_TOL, flash_attention_bhsd, flash_attention_blockwise_ref,
         flash_attention_ref, flash_fwd_plan)
@@ -4135,10 +4139,18 @@ def bias_cases(dev):
                 fail(f"flash_attention {label}: a rerun is not bitwise")
             err, share = check_close(f"flash_attention {label}", o, ref,
                                      CARD_TOL[dt])
-            t = _turns({
-                "kernel": lambda: flash_attention_bhsd(q, k, v, bias=bias),
-                "sdpa": lambda: tF.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias)})
+            # one row for the whole batch (a [1, 1, 1, S] row, read with
+            # batch stride 0) against that row copied to every sequence
+            row = bias[:1]
+            shared = flash_attention_bhsd(q, k, v, bias=row)
+            copied = flash_attention_bhsd(
+                q, k, v, bias=row.expand(B, 1, 1, S).contiguous())
+            torch.cuda.synchronize()
+            if not torch.equal(shared, copied):
+                fail(f"flash_attention {label}: a row shared by the batch "
+                     "differs from the row copied to every sequence")
+            del shared, copied
+            t = bias_times(q, k, v, bias)
             plain = cuda_ms(lambda: flash_attention_bhsd(
                 q, k, v, bias=bias, mode="torch_ref"), iters=3, warmup=1)
         flops = 4 * D * B * H * S * S
@@ -4152,7 +4164,8 @@ def bias_cases(dev):
         log(f"flash_attention {label} (B={B} H={H} S={S}, seeded padding "
             f"rows): route {plan.route}, {plan.block_q} x {plan.block_k} "
             f"tiles, {plan.smem_bytes} B shared memory; max_err {err:.3g} "
-            f"({share:.3g} of its limit), rerun bitwise; device ms "
+            f"({share:.3g} of its limit), rerun bitwise, a shared row "
+            f"bitwise its copies; device ms "
             f"(queued): kernel {t['kernel']:.4f} plain {plain:.4f} bound "
             f"{bms:.4f} ({by}) library(sdpa, float mask) {t['sdpa']:.4f}; "
             f"kernel / sdpa {t['kernel'] / t['sdpa']:.3f}; "
@@ -4169,9 +4182,9 @@ def dropout_cases(dev):
     with the same seed (bf16: the blockwise ones), bitwise on a rerun.
     The path's own case (bf16, not causal) is timed queued: the forward
     with its LSE, each backward kernel (with dropout and without),
-    beside their bounds (the products and, for dK/dV, the keep mask's
-    integer work), their plain versions and SDPA with ``dropout_p`` (its forward, and its
-    backward for dq + dk + dv; a yardstick only, its masks differ).
+    beside their bounds (:func:`_dropout_timing`), their plain versions
+    and SDPA with ``dropout_p`` (its forward, and its backward for dq +
+    dk + dv; a yardstick only, its masks differ).
     Returns the rows by kernel name."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 36)
@@ -4198,7 +4211,9 @@ def dropout_cases(dev):
                 ro, lse = fa.flash_attention_ref(q, k, v, return_lse=True,
                                                  **kw)
                 if dt == torch.bfloat16:
-                    ro = fa.flash_attention_blockwise_ref(q, k, v, **kw)
+                    ro = fa.flash_attention_blockwise_ref(
+                        q, k, v, block_k=fa.flash_fwd_plan(
+                            q, k, v, dropout_p=OPT_P).block_k, **kw)
                 delta = fa.attention_delta(outs[0][0], do)
                 args = (q, k, v, do, lse, delta)
                 ref = (fa.flash_attention_bwd_blockwise_ref(*args, **kw)
@@ -4234,18 +4249,40 @@ def dropout_cases(dev):
 # at the card's maximum SM clock
 INT_PIPE_PER_CLOCK_SM = 64
 ISSUE_PER_CLOCK_SM = 128
-# the kernel that runs Philox at ERNIE's shape (kernel 2, which writes
-# the keep bits kernel 3 reads) with dropout and the same kernel without
-# it, as substrings of their mangled names, and the scores a consumer
-# thread makes keep bits for in one pass of its loop body (8 Philox calls
-# of 4 scores, keep_groups_mma): the keep mask's integer instructions are
-# the difference (paddle_tpu_torch/tools/sass_counts.py).  Kernel 1's
-# only dropout instantiation also holds the bias row's code, so its row
-# keeps the products' bound until its own redesign.
+# ex2 on the special-function units: 16 results a clock an SM (the same
+# throughput table: base-2 exponential)
+MUFU_PER_CLOCK_SM = 16
+# the kernels that run Philox at ERNIE's shape -- kernel 1 (the forward)
+# and kernel 2 (dK/dV, which writes the keep bits kernel 3 reads) -- with
+# dropout and the same kernel without it, as substrings of their mangled
+# names, and the scores whose keep bits the kernel's code forms once
+# (keep_groups_mma: 8 Philox calls of 4 scores for 32 scores).  Kernel
+# 2's consumer loop body forms one 64 x 64 tile's bits, 32 a thread.
+# Kernel 1 splits a 128 x 128 tile's between its producer warps (64 a
+# thread, once in their loop) and its consumer threads (32 a thread, in
+# the loop body and again for the item's first tile, which the pipeline
+# issues before the loop); the 128 producer and 256 consumer threads
+# run that code once a tile, so the static difference over 64 + 2 x 32
+# = 128 scores is the integer work a score.  The keep mask's integer
+# instructions are the difference (paddle_tpu_torch/tools/sass_counts.py).
+# That difference holds each design's own overhead (stores and loads of
+# the keep words, per-item arithmetic) beside the mask's work, so every
+# kernel that runs Philox is bounded by the least count a score of any
+# kernel here, which is the least that the mask is known to need.
 KEEP_MASK_SASS = {
+    "flash_attention": ("flash_attention_fwd.cu",
+                        "flash_fwd_sm90ILi64ELb0ELb1E",
+                        "flash_fwd_sm90ILi64ELb0ELb0E", 128),
     "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
                                 "flash_bwd_sm90ILb1ELi64ELi1E",
                                 "flash_bwd_sm90ILb1ELi64ELi0E", 32)}
+
+
+def max_sm_clock_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
 
 
 def keep_mask_bound_ms(name, dev, scores):
@@ -4256,10 +4293,7 @@ def keep_mask_bound_ms(name, dev, scores):
     counts)."""
     from paddle_tpu_torch.tools import sass_counts
     counts = sass_counts.keep_mask_int_ops(*KEEP_MASK_SASS[name])
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
+    mhz = max_sm_clock_mhz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ps = counts["per_score"]
     clocks = max(ps["fma"] / INT_PIPE_PER_CLOCK_SM,
@@ -4269,12 +4303,62 @@ def keep_mask_bound_ms(name, dev, scores):
     return scores * clocks / (sms * mhz * 1e6) * 1e3, counts
 
 
+def exp_bound_ms(dev, scores):
+    """The least time the card needs for ``scores`` exponentials, one
+    ex2 each at MUFU_PER_CLOCK_SM a clock an SM over the SMs at the
+    maximum SM clock.  Returns (ms, the clock and SMs)."""
+    mhz = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return (scores / (MUFU_PER_CLOCK_SM * sms * mhz * 1e6) * 1e3,
+            dict(sm_clock_mhz=mhz, sms=sms))
+
+
+def forward_times(q, k, v, kw):
+    """Kernel 1 on q, k, v (its forward with the LSE, as training
+    launches it) and SDPA, queued in turns (:func:`_turns`), each with
+    dropout (``kw``: causal, dropout_p, seed; SDPA with ``dropout_p``, a
+    yardstick only, its masks differ) and without it.  Also run by
+    ``paddle_tpu_torch/tools/flash_times.py`` on other checkouts'
+    packages.  Returns ms by name: "flash_attention", "flash_attention
+    no option", "sdpa", "sdpa no dropout"."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    causal, p = kw["causal"], kw["dropout_p"]
+    with torch.no_grad():
+        return _turns({
+            "flash_attention": lambda: fa.flash_attention_bhsd(
+                q, k, v, return_lse=True, **kw),
+            "flash_attention no option": lambda: fa.flash_attention_bhsd(
+                q, k, v, return_lse=True, causal=causal),
+            "sdpa": lambda: tF.scaled_dot_product_attention(
+                q, k, v, dropout_p=p, is_causal=causal),
+            "sdpa no dropout": lambda: tF.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)})
+
+
+def bias_times(q, k, v, bias):
+    """Kernel 1 with the bias row on q, k, v and SDPA with the same float
+    [B, 1, 1, S] mask (a yardstick only), queued in turns.  Also run by
+    ``paddle_tpu_torch/tools/flash_times.py``.  Returns ms by name:
+    "kernel", "sdpa"."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bhsd)
+    with torch.no_grad():
+        return _turns({
+            "kernel": lambda: flash_attention_bhsd(q, k, v, bias=bias),
+            "sdpa": lambda: tF.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias)})
+
+
 def backward_times(args, kw):
     """Kernels 2 and 3 on ``args`` (q, k, v, dO, LSE, delta), queued in
     turns (:func:`_turns`), with dropout (``kw``: causal, dropout_p,
     seed) and without it, each as the autograd backward launches it: on
     the Hopper route dK/dV writes the keep bits dQ reads.  Also run by
-    ``paddle_tpu_torch/tools/flash_bwd_times.py`` on other checkouts'
+    ``paddle_tpu_torch/tools/flash_times.py`` on other checkouts'
     packages, so it passes the keep bits only where the package has
     them.  Returns (ms with dropout, ms without) by kernel name, and the
     keep bits (None off the Hopper route)."""
@@ -4296,13 +4380,15 @@ def backward_times(args, kw):
 
 def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
     """Phase 33 (c)'s timing of the path's own case: kernels 1-3 (the
-    forward with its LSE; the backward by :func:`backward_times`), their
-    plain versions and SDPA with ``dropout_p`` (forward, and backward for
-    dq + dk + dv), each kernel beside its bound: the larger of its score
-    products' (989 TFLOP/s) and, for dK/dV, its keep mask's integer work
-    (:func:`keep_mask_bound_ms`).  Kernels 2 and 3 are also timed without
-    dropout, beside SDPA's backward without it.  Returns the rows by
-    kernel name."""
+    forward with its LSE, :func:`forward_times`; the backward,
+    :func:`backward_times`), their plain versions and SDPA with
+    ``dropout_p`` (forward, and backward for dq + dk + dv), each kernel
+    beside its bound: the larger of its score products' (989 TFLOP/s),
+    for kernel 1 its exponentials' (:func:`exp_bound_ms`) and, for the
+    kernels that run Philox, the keep mask's integer work at the least
+    count a score among them (:func:`keep_mask_bound_ms`).  Each kernel
+    is also timed without dropout, beside SDPA's forward or backward
+    without it.  Returns the rows by kernel name."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -4311,16 +4397,14 @@ def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
     names = FLASH_NAMES[1:]
     args = (q, k, v, do, lse, delta)
     t, t0, bits = backward_times(args, kw)
+    tf = forward_times(q, k, v, kw)
+    t.update({"flash_attention": tf["flash_attention"], "sdpa": tf["sdpa"]})
+    t0.update({"flash_attention": tf["flash_attention no option"],
+               "sdpa": tf["sdpa no dropout"]})
     q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
     out = tF.scaled_dot_product_attention(q2, k2, v2, dropout_p=OPT_P)
     q3, k3, v3 = (x.detach().clone().requires_grad_() for x in (q, k, v))
     out3 = tF.scaled_dot_product_attention(q3, k3, v3)
-    with torch.no_grad():
-        t.update(_turns({
-            "flash_attention": lambda: fa.flash_attention_bhsd(
-                q, k, v, return_lse=True, **kw),
-            "sdpa": lambda: tF.scaled_dot_product_attention(
-                q, k, v, dropout_p=OPT_P)}))
     t["sdpa backward"] = _turns({"b": lambda: torch.autograd.grad(
         out, (q2, k2, v2), do, retain_graph=True)})["b"]
     t0["sdpa backward"] = _turns({"b": lambda: torch.autograd.grad(
@@ -4332,8 +4416,13 @@ def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
         for n in names:
             plain[n] = cuda_ms(lambda n=n: registry.dispatch(
                 n, *args, mode="torch_ref", **kw), iters=3, warmup=1)
+    fplan = fa.flash_fwd_plan(q, k, v, dropout_p=OPT_P)
     plan = fa.flash_bwd_plan(q, k, v, do, dropout_p=OPT_P)
     plan0 = fa.flash_bwd_plan(q, k, v, do)
+    log(f"flash forward (ERNIE shape): route {fplan.route} with dropout, "
+        f"{fa.flash_fwd_plan(q, k, v).route} without; {fplan.block_q} "
+        f"query rows x {fplan.block_k} keys, {fplan.stages} stages, "
+        f"{fplan.smem_bytes} B shared memory, grid {fplan.grid}")
     log(f"flash backward (ERNIE shape): route {plan.route} with dropout, "
         f"{plan0.route} without; dK/dV {plan.dkv.block_res} resident x "
         f"{plan.dkv.block_str} streamed rows, {plan.dkv.stages} stages, "
@@ -4343,28 +4432,45 @@ def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
     row_bytes = B * H * S * D * q.element_size()
     # the keep bits dK/dV writes and dQ reads (none off the Hopper route)
     bits_bytes = 0 if bits is None else bits.numel() * 4
+    keep = {n: keep_mask_bound_ms(n, q.device, pairs)
+            for n in KEEP_MASK_SASS}
+    least_name = min(keep, key=lambda n: keep[n][0])
+    least = keep[least_name]
     rows = {}
-    for name, flops, nbytes, lib, err in (
+    for name, flops, nbytes, lib, lib_name, err in (
             ("flash_attention", 4 * D * pairs, 4 * row_bytes + B * H * S * 4,
-             t["sdpa"], errs[0][0]),
+             "sdpa", "SDPA forward", errs[0][0]),
             (names[0], 8 * D * pairs,
              6 * row_bytes + 2 * B * H * S * 4 + bits_bytes,
-             t["sdpa backward"], max(errs[2][0], errs[3][0])),
+             "sdpa backward", "SDPA backward", max(errs[2][0], errs[3][0])),
             (names[1], 6 * D * pairs,
              5 * row_bytes + 2 * B * H * S * 4 + bits_bytes,
-             t["sdpa backward"], errs[1][0])):
+             "sdpa backward", "SDPA backward", errs[1][0])):
         pms, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+        b0 = pms            # the bound without the keep mask
         rows[name] = dict(ms=t[name], plain_ms=plain[name], bound_ms=pms,
-                          bound_by=by, library_ms=lib, max_abs_err=err,
+                          bound_by=by, library_ms=t[lib], max_abs_err=err,
                           bound_products_ms=pms)
+        parts = [f"products {pms:.4f}"]
+        if name == "flash_attention":
+            # one ex2 a score on the special-function units
+            ems, c = exp_bound_ms(q.device, pairs)
+            rows[name]["bound_exp_ms"] = ems
+            parts.append(f"exponentials {ems:.4f}")
+            if ems > b0:
+                b0, by = ems, "operations"
+        bms = b0
         if name in KEEP_MASK_SASS:
-            # the keep mask's integer work bounds the kernel too
-            ims, c = keep_mask_bound_ms(name, q.device, pairs)
-            if ims > pms:
-                by = "operations"
-            rows[name].update(bound_ms=max(pms, ims), bound_by=by,
-                              bound_keep_mask_ms=ims,
-                              keep_mask_int_per_score=c["per_score"])
+            # the keep mask's integer work bounds the kernel too, at the
+            # least count a score of the kernels that run it
+            c = keep[name][1]
+            rows[name].update(bound_keep_mask_ms=least[0],
+                              bound_keep_mask_from=least_name,
+                              keep_mask_int_per_score=c["per_score"],
+                              keep_mask_own_ms=keep[name][0])
+            parts.append(f"keep mask {least[0]:.4f}")
+            if least[0] > bms:
+                bms, by = least[0], "operations"
             ps = c["per_score"]
             log(f"{name} keep mask: {c['extra']['fma']} FMA-pipe and "
                 f"{c['extra']['alu']} ALU-pipe integer instructions over "
@@ -4375,26 +4481,30 @@ def _dropout_timing(q, k, v, do, lse, delta, kw, errs):
                 f"{ps['fma'] + ps['alu']:.3f} / {ISSUE_PER_CLOCK_SM}) = "
                 f"{c['clocks_per_score_sm']:.4f} SM clocks a score; "
                 f"{pairs} scores / ({c['sms']} SMs x "
-                f"{c['sm_clock_mhz']:g} MHz) = {ims:.4f} ms against the "
-                f"products' {pms:.4f} ms")
-        bms = rows[name]["bound_ms"]
-        extra = ""
-        if name in t0:
-            rows[name].update(ms_no_dropout=t0[name],
-                              library_ms_no_dropout=t0["sdpa backward"])
-            extra = (f"; without dropout: kernel {t0[name]:.4f} (bound "
-                     f"{pms:.4f}), SDPA backward {t0['sdpa backward']:.4f};"
-                     f" the keep mask's share {1 - t0[name] / t[name]:.3f}")
+                f"{c['sm_clock_mhz']:g} MHz) = {keep[name][0]:.4f} ms; "
+                f"bounded at the least of the kernels, {least_name}'s "
+                f"{least[0]:.4f} ms, against the products' {pms:.4f} ms")
+        rows[name].update(bound_ms=bms, bound_by=by)
+        rows[name].update(ms_no_dropout=t0[name],
+                          library_ms_no_dropout=t0[lib])
         log(f"{name} dropout p={OPT_P} (B={B} H={H} S={S} D={D} bf16, not "
             f"causal): device ms (queued): kernel {t[name]:.4f} plain "
-            f"{plain[name]:.4f} bound {bms:.4f} ({by}) library "
-            f"{lib:.4f}; {flops / t[name] / 1e9:.1f} TFLOP/s" + extra)
+            f"{plain[name]:.4f} bound {bms:.4f} ({by}: "
+            f"{', '.join(parts)}) library ({lib_name}) {t[lib]:.4f}; "
+            f"kernel / library {t[name] / t[lib]:.3f}; "
+            f"{flops / t[name] / 1e9:.1f} TFLOP/s; without dropout: kernel "
+            f"{t0[name]:.4f} (bound {b0:.4f}), "
+            f"{lib_name} {t0[lib]:.4f}; the keep mask's share "
+            f"{1 - t0[name] / t[name]:.3f}")
     fwd_bwd = sum(t[n] for n in FLASH_NAMES)
     lib = t["sdpa"] + t["sdpa backward"]
     log(f"flash dropout (ERNIE shape): kernels 1-3 {fwd_bwd:.4f} ms against "
         f"SDPA forward + backward with dropout_p {lib:.4f} ms: "
-        f"{fwd_bwd / lib:.3f}x; kernels 2 + 3 {t[names[0]] + t[names[1]]:.4f}"
-        f" ms ({t0[names[0]] + t0[names[1]]:.4f} without dropout) against "
+        f"{fwd_bwd / lib:.3f}x; kernel 1 {t['flash_attention']:.4f} ms "
+        f"({t0['flash_attention']:.4f} without dropout) against SDPA's "
+        f"forward {t['sdpa']:.4f} ({t0['sdpa']:.4f}); kernels 2 + 3 "
+        f"{t[names[0]] + t[names[1]]:.4f} ms "
+        f"({t0[names[0]] + t0[names[1]]:.4f} without dropout) against "
         f"SDPA's backward {t['sdpa backward']:.4f} "
         f"({t0['sdpa backward']:.4f})")
     del out, q2, k2, v2, out3, q3, k3, v3
@@ -4519,7 +4629,7 @@ def ernie_kernels_vs_plain(dev, batch):
     """Phase 34 (b): one step with kernels 1-3 against the same step with
     their plain versions, from the same weights and the same dropout
     generator state (the same seeds, so the same masks), with bf16 AMP
-    (the path's ``mma.sync`` route) and in f32 (the FMA route, where the
+    (the path's Hopper route) and in f32 (the FMA route, where the
     rounding is no longer in the way): the loss, and each attention
     parameter's gradient (48 leaves: qkv_proj and out_proj of 12 layers)
     by its relative L2 distance, the worst leaf within ERNIE_E2E.  Each precision also runs the kernels' step
@@ -4739,16 +4849,14 @@ def log_bwd_entries(bwd):
             f"streamed tiles, {bplan.stages} stages")
 
 
-def check_ptxas(source, match, entries=None):
-    """Phase 2's check of one source's ``ptxas -v`` log (kept beside a
-    cached library): fails without a log, on a spill in an entry whose
-    name contains ``match``, or on a wgmma that ptxas serialised; with
-    ``entries``, unless that many entries match.  Returns the matching
-    entries' [registers, spill-store bytes, spill-load bytes]."""
+def ptxas_entries(source, match):
+    """{mangled name: [registers, spill-store bytes, spill-load bytes]} of
+    the entries whose name contains ``match`` in ``source``'s ``ptxas
+    -v`` log (kept beside a cached library; empty without one).  Also
+    read by ``paddle_tpu_torch/tools/flash_times.py``."""
     from paddle_tpu_torch.ops.kernels import _build
-    text = _build.build_logs.get(source) or ""
     found, cur = {}, None
-    for line in text.splitlines():
+    for line in (_build.build_logs.get(source) or "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = (found.setdefault(m.group(1), [0, 0, 0])
@@ -4761,6 +4869,19 @@ def check_ptxas(source, match, entries=None):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 cur[0] = int(m.group(1))
+    return found
+
+
+def check_ptxas(source, match, entries=None):
+    """Phase 2's check of one source's ``ptxas -v`` log (kept beside a
+    cached library, :func:`ptxas_entries`): fails without a log, on a
+    spill in an entry whose name contains ``match``, or on a wgmma that
+    ptxas serialised; with ``entries``, unless that many entries match.
+    Returns the matching entries' [registers, spill-store bytes,
+    spill-load bytes]."""
+    from paddle_tpu_torch.ops.kernels import _build
+    text = _build.build_logs.get(source) or ""
+    found = ptxas_entries(source, match)
     if not found or (entries is not None and len(found) != entries):
         fail(f"build {source}: no ptxas -v log of its entries to check for "
              "spills (a library cached without its log: empty the build "
@@ -4840,6 +4961,10 @@ def main() -> int:
     # six sm90 backward entries: dK/dV and dQ at head_dim 128 without
     # dropout, at head_dim 64 with and without it
     bwd = check_ptxas("flash_attention_bwd.cu", "flash_bwd_sm90", entries=6)
+    # four sm90 forward entries, whose consumers keep S, O and P (and the
+    # keep bits) in registers: head_dim 128 without options, head_dim 64
+    # without them, with the bias row and with dropout
+    fwd = check_ptxas("flash_attention_fwd.cu", "flash_fwd_sm90", entries=4)
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
@@ -4858,7 +4983,6 @@ def main() -> int:
     for name, (regs, _, _) in sorted(mm.items()):
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
-    meta = torch.empty(1, 1, 2048, 128, dtype=torch.bfloat16, device="meta")
     log_bwd_entries(bwd)
     # kernels 1-3's option instantiations (bias row, dropout: template
     # argument kOpt true) keep their Philox state and fragments in
@@ -4869,11 +4993,22 @@ def main() -> int:
                 short = re.search(r"\d(flash_[a-z0-9_]+I.*?)EEv", name)
                 log(f"  {short.group(1) if short else name}: {regs} "
                     "registers, no spill")
-    plan = flash_fwd_plan(meta, meta, meta)
-    log(f"  flash_fwd_sm90: {plan.threads} threads (a producer warpgroup "
-        f"at 40 registers, two consumer warpgroups at 232), "
-        f"{plan.smem_bytes} B dynamic shared memory, {plan.block_q} query "
-        f"rows x {plan.block_k} keys, {plan.stages} K/V stages")
+    for name, (regs, _, _) in sorted(fwd.items()):
+        hd, bias, drop = re.search(r"sm90ILi(\d+)ELb([01])ELb([01])E",
+                                   name).groups()
+        m = torch.empty(1, 1, 2048, int(hd), dtype=torch.bfloat16,
+                        device="meta")
+        plan = flash_fwd_plan(m, m, m, bias=(
+            torch.empty(1, 1, 1, 2048, dtype=torch.bfloat16, device="meta")
+            if bias == "1" else None), dropout_p=0.1 if drop == "1" else 0.0)
+        how = (", the bias row" if bias == "1" else ", dropout (Philox in "
+               "the producer and the consumers)" if drop == "1" else "")
+        log(f"  flash_fwd_sm90 (head_dim {hd}{how}): {regs} registers at "
+            f"launch (setmaxnreg splits them between the producer and "
+            f"consumer warpgroups), no spill; {plan.threads} "
+            f"threads, {plan.smem_bytes} B dynamic shared memory, "
+            f"{plan.block_q} query rows x {plan.block_k} keys, "
+            f"{plan.stages} K/V stages")
 
     # 3. kernels against their plain versions
     rows = {"flash_attention": flash_cases(dev),

@@ -2,17 +2,28 @@
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py:72 `_fwd_kernel`
 // (launched by `_pallas_forward`, entry `_fa_impl`): blockwise online-
-// softmax attention on (B, H, S, D), causal block skip, optional LSE.
+// softmax attention on (B, H, S, D), causal block skip, optional LSE, an
+// optional additive bias row (`:110-114`) and optional dropout of the
+// normalised weights (`:119-131`, its mask `_keep_mask` `:53`).
 //
-// What bounds it on this card: a long causal prefill does 2*S^2*D*H
-// flops against 4*S*H*D*2 bytes of Q/K/V/O, about 1000 flops per byte at
-// S=2048, D=128 -- far above the H100's ~295 bf16 flops per byte, so it
-// is bound by tensor-core operations, not memory.  Only `wgmma` reaches
-// the card's 989 TFLOP/s; after the products, the exponentials (one per
-// score, 16 a clock per SM) are the next limit.
+// What bounds it on this card: a long prefill does 4*S^2*D*H flops (2
+// for S = Q.K^T, 2 for P.V) against 4*S*H*D*2 bytes of Q/K/V/O, about
+// 500 flops per byte at S = 2048, D = 64 -- far above the H100's ~295
+// bf16 flops per byte, so it is bound by operations, not memory.  Only
+// `wgmma` reaches the card's 989 TFLOP/s.  The exponentials (one ex2 a
+// score, 16 a clock per SM) take about as long as the products at head
+// dim 64 (ERNIE-3.0-base's shape: 0.096 ms against 0.104, PERF.md §6),
+// so the CUDA cores' work per score -- one FFMA, one ex2, the running
+// max and sum, the bf16 packing -- must overlap the tensor cores'.  With
+// dropout the keep mask adds Philox4x32-10 (dropout.cuh), about 12.6
+// integer instructions a score on the FMA and ALU pipes in this kernel's
+// SASS, which alone bound it above the products.
 //
-// What the design does about it, on the bf16 head_dim-128 route
-// (`flash_fwd_sm90`, the route of both main paths):
+// What the design does about it, on the bf16 routes of both main paths:
+// one template, flash_fwd_sm90<D, kBias, kDrop> -- head_dim 128 without
+// options (the prefill and the proxy's training; the first Hopper
+// kernel, its code unchanged), head_dim 64 without options, with the
+// bias row or with dropout (ERNIE-3.0-base pretraining):
 // - work items of (128 query rows, head, batch), heaviest causal items
 //   first, at most one block per SM, each block walking its items in a
 //   snake order; so the next item's Q and K/V loads run under the
@@ -20,63 +31,88 @@
 // - three warpgroups: a producer (registers lowered with setmaxnreg.dec)
 //   whose one thread issues every TMA load, and two consumer warpgroups
 //   (setmaxnreg.inc) of 64 query rows each;
-// - Q (128 x 128 bf16, 32 KB) is loaded once an item; K and V tiles of
-//   128 keys (32 KB each) stream through a 2-stage ring in shared memory
-//   with full and empty mbarriers, K and V released separately.  The
-//   tensor maps are 4-D (D, S, H, B) with the caller's byte strides: the
-//   server's (B, S, H, D) views need no copy, and TMA zero-fills rows
-//   past the ragged end.  128-byte swizzle, as wgmma's shared-memory
-//   descriptors expect; tiles past the causal diagonal are never loaded;
-// - S = Q.K^T is wgmma m64n128k16 with both operands in shared memory (8
-//   steps over D); the online softmax runs on the f32 accumulator in
+// - Q (128 x D bf16) is loaded once an item; K and V tiles of 128 keys
+//   stream through a ring in shared memory (2 stages at head_dim 128, 4
+//   at 64; 2 and 4 time the same at 64, PERF.md §6) with full and empty
+//   mbarriers, K and V released separately.  The tensor maps are 4-D (D,
+//   S, H, B) with the caller's byte strides: the server's (B, S, H, D)
+//   views need no copy, and TMA zero-fills rows past the ragged end.
+//   128-byte swizzle, as wgmma's shared-memory descriptors expect (a
+//   64-column bf16 panel is one swizzle row); tiles past the causal
+//   diagonal are never loaded;
+// - S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
+//   (D / 16 steps); the online softmax runs on the f32 accumulator in
 //   registers (rows reduce over the 4 threads of a quad), one FFMA and
 //   one ex2 per score with scale * log2(e) folded in, the mask only on
 //   the diagonal tile and the ragged last tile;
-// - O += P.V is wgmma m64n128k16 with A from registers: P is packed to
+// - O += P.V is wgmma m64nDk16 with A from registers: P is packed to
 //   bf16 in place (the accumulator layout is the register A layout) and
 //   V is read as an MN-major B operand (the transpose bit), so P never
-//   touches shared memory;
-// - both overlaps are done: a warpgroup issues S(j) and P(j-1).V(j-1)
-//   together and runs the softmax of S(j) while P(j-1).V(j-1) is on the
-//   tensor cores, and the two warpgroups ping-pong (named barriers) so
-//   that one's softmax runs under the other's products.  A consumer
-//   releases a K or V stage as soon as the wgmma that read it retires;
+//   touches shared memory; at head_dim 64 O is 32 floats a thread;
+// - a warpgroup issues S(j) and P(j-1).V(j-1) together, and the two
+//   warpgroups ping-pong (named barriers) so that one's softmax runs
+//   under the other's products.  ptxas places the wait for P(j-1).V(j-1)
+//   before the softmax's exponentials in every entry; forcing them
+//   under it (a branch between them) made every entry slower (PERF.md
+//   §6).  A consumer releases a K or V stage as soon as the wgmma that
+//   read it retires;
+// - the bias row: producer warp 0 stages each K tile's 128 values (f32,
+//   times log2 e) beside it in the ring with ordinary loads -- a row
+//   shared by the batch has batch stride 0, which a tensor map cannot
+//   step -- and arrives on the stage's full barrier; the consumers form
+//   S c + bias log2 e (one FFMA) before the mask, as the reference adds
+//   the bias to the scaled scores, and release K after the softmax has
+//   read the row;
+// - dropout: each tile's 4,096 Philox calls (one a 2 x 2 group of
+//   scores, keep_groups_mma: rows are queries) are split between the
+//   warpgroups.  The producer's 128 threads form the group words of keys
+//   64..127 (16 calls each) once the tile's loads are out, write them
+//   beside K and arrive on K's full barrier; each consumer thread forms
+//   its own word of keys 0..63 (8 calls) once its products are issued,
+//   reads the other, and one shuffle with its lane pair gives each word's
+//   fragment bits (keep_bits_of_groups).  Philox left to the consumers
+//   alone did not overlap their products (their two warps a
+//   sub-partition are latency-bound: ptxas schedules it before the wgmma
+//   issue, or after the wait), and left to the producer's one warp a
+//   sub-partition it was slower still; the split runs on all three
+//   (setmaxnreg 56 / 224: other splits spill).  The denominator and the
+//   LSE keep the undropped P; kept values are multiplied by f32(1 /
+//   f32(1 - p)), not divided (as the backward, at most an f32 ulp apart
+//   before the bf16 rounding), and P.V takes them in bf16;
 // - the epilogue normalises, stages O through shared memory in the
-//   swizzled layout and stores it with one TMA store a warpgroup (rows
-//   past Sq clipped); one thread a row writes the LSE.
-// ptxas -v (nvcc 12.9, sm_90a): 168 registers (the count at entry,
-// 65,536 / 384), 0 bytes of spills; 197,712 bytes of dynamic shared
-// memory.  Registers are what limit the design: the in-flight S, O and P
-// fragments take 160 of them, and ptxas serialises the wgmmas (C7512,
+//   swizzled layout and stores it with one TMA store a 64-column panel
+//   and warpgroup (rows past Sq clipped); one thread a row writes the
+//   LSE.
+// ptxas -v (nvcc 12.9, sm_90a), all four entries: 168 registers (the
+// count at entry, 65,536 / 384), 0 bytes of spills; dynamic shared
+// memory 197,712 bytes at head_dim 128, 165,008 at 64 (167,056 with the
+// bias rows, 169,104 with the mask words).  Registers are what limit
+// the design: the in-flight S, O and P fragments take 160 of them at
+// head_dim 128 (128 at 64), and ptxas serialises the wgmmas (C7512,
 // "insufficient register resources") unless each commit is followed by
 // operand fences.
 //
-// The other routes keep the first design: bf16 at head_dim 64 and 256 on
-// mma.sync m16n8k16 (K/V staged synchronously through padded shared
-// memory, P re-packed in registers, 64-row query tiles of 4 warps), and
-// f32 on a plain FMA kernel (the tensor cores have no exact f32 product).
+// The other routes keep the first design: bf16 at head_dim 256, and at
+// 128 with an option, on mma.sync m16n8k16 (K/V staged synchronously
+// through padded shared memory, P re-packed in registers, 64-row query
+// tiles of 4 warps), and f32 on a plain FMA kernel (the tensor cores
+// have no exact f32 product).  Their options run in <D, true>
+// instantiations (the option-free ones are the code they were): the
+// bias row in q's dtype, a tile's 64 (or, FMA, each lane's one) values
+// staged with K and V; dropout from the same keep mask, kept values
+// divided by f32(1 - p).
 //
-// The reference's two options run only on these routes, in their <D,
-// true> instantiations (bf16 at head_dim 128 too; the sm90 route takes
-// none, and the option-free instantiations are the code they were):
-// - an additive [B, 1, 1, Sk] bias row (padding masks), in q's dtype,
-//   added in f32 to the scaled scores before the causal mask: a tile's
-//   64 (or, FMA, each lane's one) values are staged with K and V;
-// - dropout of the normalised weights: the denominator and the LSE keep
-//   the undropped P, and P * keep / (1 - p) (rounded to bf16 on the bf16
-//   route) multiplies V.  The keep bits are Philox4x32-10 of (seed, b, h,
-//   q, k) (dropout.cuh), the seed an int64 read from device memory, so the
-//   backward and a recomputed forward regenerate the same mask.  At
-//   dropout the route does ~25 integer operations (Philox) and one f32
-//   division a score beside its 4 D flops, so it is bound by the integer
-//   and special-function units, not by the tensor cores.
+// The keep mask is Philox4x32-10 of (seed, b, h, q, k) (dropout.cuh),
+// the seed an int64 read from device memory, so the backward and a
+// recomputed forward regenerate the same mask on any route.
 //
-// Numerics follow the Pallas kernel: s = (q.k)*scale in f32, masked
-// scores -1e30, running max/denominator in f32, probabilities rounded to
-// bf16 for the P.V product (against the running max of each key tile:
-// 128 keys on the sm90 route, 64 on the mma.sync route),
-// out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).  Ragged
-// sequence ends are masked here; no length needs to divide the tiles.
+// Numerics follow the Pallas kernel: s = (q.k)*scale in f32 (+ the bias
+// row), masked scores -1e30, running max/denominator in f32,
+// probabilities rounded to bf16 for the P.V product (against the running
+// max of each key tile: 128 keys on the sm90 route, 64 on the mma.sync
+// route), out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+// Ragged sequence ends are masked here; no length needs to divide the
+// tiles.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -117,7 +153,7 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------
-// bf16 mma.sync route (head_dim 64 and 256)
+// bf16 mma.sync route (head_dim 256, and 128 with an option)
 // ---------------------------------------------------------------------
 
 constexpr int kBQ = 64;   // query rows per block: 4 warps x 16
@@ -493,21 +529,25 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-// `opt`: a bias row or dropout, taken by the <D, true> kernels (bf16 at
-// head_dim 128 without options is the sm90 route's)
+// `opt`: a bias row or dropout, taken by the <D, true> kernels.  bf16 at
+// head_dim 64, and at 128 without options, is the sm90 route's
 template <int D>
 cudaError_t run(const Params& p, int B, int is_bf16, bool opt,
                 cudaStream_t stream) {
   if (is_bf16) {
-    const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + kPad)
-                            * sizeof(__nv_bfloat16)
-                        + (opt ? kBK * sizeof(float) : 0);
-    dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-    if (opt) return launch(flash_fwd_bf16<D, true>, grid, smem, stream, p);
-    if constexpr (D == 128) {
+    if constexpr (D == 64) {
       return cudaErrorInvalidValue;
     } else {
-      return launch(flash_fwd_bf16<D, false>, grid, smem, stream, p);
+      const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + kPad)
+                              * sizeof(__nv_bfloat16)
+                          + (opt ? kBK * sizeof(float) : 0);
+      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+      if (opt) return launch(flash_fwd_bf16<D, true>, grid, smem, stream, p);
+      if constexpr (D == 128) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch(flash_fwd_bf16<D, false>, grid, smem, stream, p);
+      }
     }
   }
   const size_t smem = (size_t)(kBQF * D + kBKF * (D + 1) + kBKF * D
@@ -518,23 +558,38 @@ cudaError_t run(const Params& p, int B, int is_bf16, bool opt,
 }
 
 // ---------------------------------------------------------------------
-// bf16 head_dim-128 route for sm_90a: TMA, mbarriers, wgmma
+// bf16 Hopper route (sm_90a): TMA, mbarriers, wgmma; head_dim 128
+// without options, head_dim 64 with or without them
 // ---------------------------------------------------------------------
 
 namespace sm90 {
 
 constexpr int kBQ = 128;          // query rows per work item
 constexpr int kBK = 128;          // keys per K/V tile
-constexpr int kStages = 2;        // K/V ring depth
 constexpr int kThreads = 384;     // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kPanelBytes = 128 * kPanel * 2;   // 128 rows x 128 B
-constexpr int kTileBytes = 2 * kPanelBytes;     // 128 rows x 128 cols
-constexpr int kSmemBytes = 1024                 // alignment slack
-                           + kTileBytes         // Q
-                           + 2 * kStages * kTileBytes   // K, V ring
-                           + kTileBytes         // O staging
-                           + 8 * (2 + 4 * kStages);    // mbarriers
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The route's shared memory at head_dim D (128 rows of D bf16 a tile):
+// Q, a ring of kStages K and V stages (2 at head_dim 128; 4 at 64, whose
+// tiles are half the size), the O staging tile, beside each K stage
+// either the bias row's 128 values (f32, times log2 e) or half the keep
+// mask's group words (dropout: 256), and the mbarriers.
+template <int D, bool kBias, bool kDrop>
+struct Tiles {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kSideBytes = kBias ? kBK * 4 : kDrop ? 256 * 4 : 0;
+  static constexpr int kSmemBytes = 1024                 // alignment slack
+                                    + kTileBytes         // Q
+                                    + 2 * kStages * kTileBytes   // K, V
+                                    + kTileBytes         // O staging
+                                    + kStages * kSideBytes
+                                    + 8 * (2 + 4 * kStages);   // mbarriers
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
 
 struct Params {
   float* lse;
@@ -543,23 +598,34 @@ struct Params {
   int causal;
   float scale;        // for the LSE
   float scale_log2;   // scale * log2(e), for the exponentials
+  // the options (head_dim 64 only): the bias row, bf16 [B, 1, 1, Sk]
+  // with batch stride bias_sb (elements; 0: one row for the batch), and
+  // dropout: the int64 seed in device memory, the keep threshold and
+  // f32(1 / f32(1 - p)), by which kept values are multiplied
+  const __nv_bfloat16* bias;
+  long long bias_sb;
+  const long long* seed;
+  uint32_t thresh;
+  float inv_keep_p;
 };
 
-// S = Q K^T for this warpgroup's 64 rows against a 128-key tile, 8 steps
-// of 16 over head_dim (the first step overwrites S).  Descriptors of
-// step 0; step kk adds (kk / 4) panels and (kk % 4) 32-byte columns.
+// S = Q K^T for this warpgroup's 64 rows against a 128-key tile, D / 16
+// steps of 16 over head_dim (the first step overwrites S).  Descriptors
+// of step 0; step kk adds (kk / 4) panels and (kk % 4) 32-byte columns.
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t dq,
                                          uint64_t dk) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t off = ((kk / 4) * kPanelBytes + (kk % 4) * 32) >> 4;
     wgmma_ss(sc, dq + off, dk + off, kk > 0);
   }
 }
 
 // O += P V, 8 steps of 16 keys; P in registers, V MN-major; step kk adds
-// 16 key rows of 128 bytes
-__device__ __forceinline__ void issue_pv(float (&o)[64],
+// 16 key rows of 128 bytes.  O is 64 x D: N = D / 2 floats a thread
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N],
                                          const uint32_t (&pa)[32],
                                          uint64_t dv) {
 #pragma unroll
@@ -570,15 +636,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[64],
 // Accumulator element r of a thread: row row_a (+8 if bit 1 of r),
 // column 8 * (r / 4) + 2 * t + (r & 1), t = lane % 4.
 struct RowState {
-  float m_a, m_b;   // running max, raw q.k units
+  float m_a, m_b;   // running max, raw q.k units (log2 units with a bias)
   float l_a, l_b;   // the thread's partial sums of P
 };
 
-// One key tile's online softmax on the raw scores `sc`: masks where
-// `mask` says (the diagonal or ragged tile), updates the running max and
-// the thread's partial sums, returns each row's rescale factor and
-// leaves P (f32) in `sc`.  One FFMA and one ex2 a score: the scale and
-// log2(e) are folded into c.
+// One key tile's online softmax on the scores `sc`: masks where `mask`
+// says (the diagonal or ragged tile), updates the running max and the
+// thread's partial sums, returns each row's rescale factor and leaves P
+// (f32) in `sc`.  One FFMA and one ex2 a score: the scale and log2(e)
+// are folded into c (1 for scores already in log2 units).
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
                                              float& alpha_a, float& alpha_b,
                                              float c, bool mask, int k0,
@@ -651,23 +717,39 @@ __device__ __forceinline__ bool item_of(const Params& p, int round,
   return true;
 }
 
+// The route's one template: head_dim 128 without options (the first
+// Hopper kernel), head_dim 64 without options, with the bias row or
+// with dropout (not both: the reference refuses dropout with a bias).
+template <int D, bool kBias, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, const Params p) {
+  static_assert(!(kBias && kDrop), "dropout does not take a bias");
+  static_assert(D == 64 || !(kBias || kDrop), "options at head_dim 64");
+  using T = Tiles<D, kBias, kDrop>;
+  constexpr int kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes;
   extern __shared__ __align__(128) unsigned char smem_sm90[];
   // swizzled tiles need 1024-byte alignment
   const uint32_t sQ = (smem_u32(smem_sm90) + 1023u) & ~1023u;
   const uint32_t sK = sQ + kTileBytes;                // [stage]
   const uint32_t sV = sK + kStages * kTileBytes;      // [stage]
   const uint32_t sO = sV + kStages * kTileBytes;      // [warpgroup]
-  const uint32_t bar_q = sO + kTileBytes;             // Q full
+  const uint32_t sB = sO + kTileBytes;    // bias rows or mask [stage]
+  const uint32_t bar_q = sB + kStages * T::kSideBytes;   // Q full
   const uint32_t bar_qe = bar_q + 8;                  // Q empty
   const uint32_t bar_k = bar_qe + 8;                  // K full, [stage]
   const uint32_t bar_v = bar_k + 8 * kStages;         // V full, [stage]
   const uint32_t bar_ek = bar_v + 8 * kStages;        // K empty, [stage]
   const uint32_t bar_ev = bar_ek + 8 * kStages;       // V empty, [stage]
+  // with the bias row: stage s's 128 values (f32, times log2 e); with
+  // dropout: stage s's 256 keep-mask group words of its keys k0 + 64 ..
+  // k0 + 127, word 128 cw + i for consumer warpgroup cw's thread i
+  float* brow = reinterpret_cast<float*>(smem_sm90
+                                         + (sB - smem_u32(smem_sm90)));
+  uint32_t* mwords = reinterpret_cast<uint32_t*>(brow);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -675,7 +757,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     mbar_init(bar_q, 1);
     mbar_init(bar_qe, kConsumerWarps);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_k + 8 * s, 1);
+      // with the bias row K's stage also waits for producer warp 0's
+      // arrival after it has staged the row, with dropout for the four
+      // producer warps' after they have written their half of the mask
+      mbar_init(bar_k + 8 * s, kBias ? 2 : kDrop ? 5 : 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_ek + 8 * s, kConsumerWarps);
       mbar_init(bar_ev + 8 * s, kConsumerWarps);
@@ -685,19 +770,33 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (warp < 4) {
-    // ---- producer warpgroup: one thread issues every load ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (warp == 0 && lane == 0) {
+    // ---- producer warpgroup: one thread issues every load; with the
+    // bias row all of warp 0 walks the tiles and stages each tile's row
+    // beside K; with dropout all four warps walk them and form half of
+    // each tile's keep mask beside K (56 registers, the consumers 224:
+    // the consumers' own Philox spills at 216, the producer's at 56 with
+    // all of the mask) ----
+    if constexpr (kDrop)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    PhiloxKey key{0u, 0u};
+    if constexpr (kDrop) key = philox_key(p.seed);
+    if (kDrop || (warp == 0 && (kBias || lane == 0))) {
+      const bool issue = (!kBias && !kDrop) || (warp == 0 && lane == 0);
       int kv_it = 0;   // K/V tiles loaded so far: the ring's position
       Item it;
       for (int round = 0; item_of(p, round, it); ++round) {
         const int hk = it.h / (p.H / p.Hkv);
         // Q's previous item released (passes at once on the first)
         mbar_wait(bar_qe, (round & 1) ^ 1);
-        mbar_expect_tx(bar_q, kTileBytes);
-        tma_load(sQ, &tq, bar_q, 0, it.qt * kBQ, it.h, it.b);
-        tma_load(sQ + kPanelBytes, &tq, bar_q, kPanel, it.qt * kBQ, it.h,
-                 it.b);
+        if (issue) {
+          mbar_expect_tx(bar_q, kTileBytes);
+#pragma unroll
+          for (int c = 0; c < T::kPanels; ++c)
+            tma_load(sQ + c * kPanelBytes, &tq, bar_q, c * kPanel,
+                     it.qt * kBQ, it.h, it.b);
+        }
         for (int j = 0; j < it.n_tiles; ++j, ++kv_it) {
           const int s = kv_it % kStages;
           // the slot's previous tile released (passes at once at first)
@@ -706,27 +805,69 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
           const uint32_t dk = sK + s * kTileBytes;
           const uint32_t dv = sV + s * kTileBytes;
           mbar_wait(bar_ek + 8 * s, par);
-          mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-          tma_load(dk, &tk, bar_k + 8 * s, 0, k0, hk, it.b);
-          tma_load(dk + kPanelBytes, &tk, bar_k + 8 * s, kPanel, k0, hk,
-                   it.b);
+          if (issue) {
+            mbar_expect_tx(bar_k + 8 * s, kTileBytes);
+#pragma unroll
+            for (int c = 0; c < T::kPanels; ++c)
+              tma_load(dk + c * kPanelBytes, &tk, bar_k + 8 * s, c * kPanel,
+                       k0, hk, it.b);
+          }
+          if constexpr (kBias) {
+            // ordinary loads: a row shared by the batch has batch stride
+            // 0, which a tensor map cannot step; keys past Sk get 0
+            // (their scores are masked)
+            const __nv_bfloat16* row = p.bias + it.b * p.bias_sb;
+            float* dst = brow + s * kBK;
+            for (int i = lane; i < kBK; i += 32)
+              dst[i] = k0 + i < p.Sk
+                           ? __bfloat162float(row[k0 + i]) * kLog2e : 0.f;
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_k + 8 * s);
+          }
           mbar_wait(bar_ev + 8 * s, par);
-          mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-          tma_load(dv, &tv, bar_v + 8 * s, 0, k0, hk, it.b);
-          tma_load(dv + kPanelBytes, &tv, bar_v + 8 * s, kPanel, k0, hk,
-                   it.b);
+          if (issue) {
+            mbar_expect_tx(bar_v + 8 * s, kTileBytes);
+#pragma unroll
+            for (int c = 0; c < T::kPanels; ++c)
+              tma_load(dv + c * kPanelBytes, &tv, bar_v + 8 * s, c * kPanel,
+                       k0, hk, it.b);
+          }
+          if constexpr (kDrop) {
+            // the tile's keep mask for keys k0 + 64 .. k0 + 127, once its
+            // loads are out: producer thread i forms the group word
+            // (keep_groups_mma, rows are queries) of consumer thread i of
+            // each warpgroup; the consumers form the other half
+            const int i = threadIdx.x, gi = (i % 32) / 4, ti = i % 4;
+#pragma unroll
+            for (int cw = 0; cw < 2; ++cw)
+              mwords[s * 256 + 128 * cw + i] = keep_groups_mma(
+                  key, it.b, it.h,
+                  it.qt * kBQ + cw * 64 + (i / 32) * 16 + gi, k0 + 64, gi,
+                  ti, true, p.thresh);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_k + 8 * s);
+          }
         }
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (kDrop)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int kO = D / 2;             // O's floats a thread
     const int cw = warp / 4 - 1;          // consumer warpgroup 0 or 1
     const int wl = warp % 4;              // warp within it: 16 rows
     const int g = lane / 4;               // accumulator row group
     const int t = lane % 4;               // thread in the quad
     const int tid = threadIdx.x % 128;
-    const float c = p.scale_log2;
+    // with the bias row the scores are formed in log2 units first (S c +
+    // bias log2 e), so the softmax's factor is 1 and the LSE's ln 2
+    const float c = kBias ? 1.f : p.scale_log2;
+    const float lse_scale = kBias ? kLn2 : p.scale;
+    PhiloxKey key{0u, 0u};
+    if constexpr (kDrop) key = philox_key(p.seed);
     const uint64_t dq = sw128_desc(sQ + cw * 64 * 128, 16, 1024);
     const uint32_t oa = sO + cw * (kTileBytes / 2);   // its O staging
     auto k_desc = [&](int s) {
@@ -758,40 +899,87 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       const int wg_row0 = it.qt * kBQ + cw * 64;
       const int row_a = wg_row0 + wl * 16 + g;   // rows row_a, row_a + 8
       const int row_b = row_a + 8;
-      // the diagonal tile and the ragged last tile need the mask
+      // the keep bits of tile j's 64 scores of this thread (bit r of
+      // keep[r / 32] for element r), a group word a half and one shuffle
+      // with the lane pair: keys k0 .. k0 + 63 from this thread's own
+      // Philox (keep_groups_mma, rows are queries), k0 + 64 .. from the
+      // word the producer warps wrote beside K in stage s.  Formed once
+      // the products are issued (ptxas schedules the Philox before the
+      // issue; formed a tile ahead, after the softmax, it spilled and ran
+      // no faster: PERF.md §6)
+      auto own_word = [&](int j) {
+        return keep_groups_mma(key, it.b, it.h, row_a, j * kBK, g, t, true,
+                               p.thresh);
+      };
+      auto keep_bits = [&](uint32_t (&keep)[2], uint32_t own, int s) {
+        keep[0] = keep_bits_of_groups(own, g, true);
+        keep[1] = keep_bits_of_groups(mwords[s * 256 + 128 * cw + tid], g,
+                                      true);
+      };
+      // the diagonal tile and the ragged last tile need the mask; with
+      // the bias row the scores take their tile's values first (K's stage
+      // is released only after this, so its row stays)
       auto softmax = [&](float (&sc)[64], RowState& st, float& alpha_a,
-                         float& alpha_b, int j) {
+                         float& alpha_b, int j, int s) {
         const int k0 = j * kBK;
+        if constexpr (kBias) {
+          const float* bl = brow + s * kBK + 2 * t;
+#pragma unroll
+          for (int c8 = 0; c8 < 16; ++c8) {
+            const float2 b2 = *reinterpret_cast<const float2*>(bl + 8 * c8);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 4 * c8 + e;
+              sc[r] = fmaf(sc[r], p.scale_log2, (e & 1) ? b2.y : b2.x);
+            }
+          }
+        }
         softmax_tile(sc, st, alpha_a, alpha_b, c,
                      k0 + kBK > p.Sk || (p.causal && k0 + kBK - 1 > wg_row0),
                      k0, p.Sk, p.causal, row_a, t);
       };
-      float o[64], sc[64];
+      // the denominator and the LSE keep the undropped P; P.V takes P
+      // keep / (1 - p)
+      auto drop = [&](float (&sc)[64], const uint32_t (&keep)[2]) {
 #pragma unroll
-      for (int r = 0; r < 64; ++r) o[r] = sc[r] = 0.f;
+        for (int r = 0; r < 64; ++r) {
+          const float kept = __fmul_rn(sc[r], p.inv_keep_p);
+          sc[r] = (keep[r / 32] >> (r % 32)) & 1u ? kept : 0.f;
+        }
+      };
+      float o[kO], sc[64];
+#pragma unroll
+      for (int r = 0; r < 64; ++r) sc[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < kO; ++r) o[r] = 0.f;
       uint32_t pa[32];
+      uint32_t keep[2] = {0u, 0u};   // with dropout: the tile's keep bits
       RowState st{kNegInf, kNegInf, 0.f, 0.f};
       float alpha_a, alpha_b;
 
       // S(j) and P(j-1).V(j-1) are issued together; the softmax of S(j)
       // runs while P(j-1).V(j-1) is on the tensor cores.  A consumer
-      // releases K(j) once S(j) has retired, V(j-1) once P(j-1).V(j-1)
-      // has, and Q after the item's last S.
+      // releases K(j) once S(j) has retired (with the bias row: once its
+      // softmax has read the row), V(j-1) once P(j-1).V(j-1) has, and Q
+      // after the item's last S.
       mbar_wait(bar_q, round & 1);
       turn_wait();
       {
         const int s = kv_it % kStages;
         mbar_wait(bar_k + 8 * s, (kv_it / kStages) & 1);
         wgmma_fence();
-        issue_qk(sc, dq, k_desc(s));
+        issue_qk<D>(sc, dq, k_desc(s));
         wgmma_commit();
         fence_regs(sc);
         turn_pass();
+        if constexpr (kDrop) keep_bits(keep, own_word(0), s);
         wgmma_wait<0>();
         fence_regs(sc);
-        release(bar_ek + 8 * s);
+        if constexpr (!kBias) release(bar_ek + 8 * s);
         if (n == 1) release(bar_qe);
-        softmax(sc, st, alpha_a, alpha_b, 0);
+        softmax(sc, st, alpha_a, alpha_b, 0, s);
+        if constexpr (kBias) release(bar_ek + 8 * s);
+        if constexpr (kDrop) drop(sc, keep);
         pack_p(sc, pa);
       }
       for (int j = 1; j < n; ++j) {
@@ -801,7 +989,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar_k + 8 * s, ((kv_it + j) / kStages) & 1);
         mbar_wait(bar_v + 8 * sp, ((kv_it + j - 1) / kStages) & 1);
         wgmma_fence();
-        issue_qk(sc, dq, k_desc(s));
+        issue_qk<D>(sc, dq, k_desc(s));
         wgmma_commit();
         issue_pv(o, pa, v_desc(sp));
         wgmma_commit();
@@ -809,17 +997,20 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         fence_regs(o);
         fence_regs(pa);
         turn_pass();
+        if constexpr (kDrop) keep_bits(keep, own_word(j), s);
         wgmma_wait<1>();
         fence_regs(sc);
-        release(bar_ek + 8 * s);
+        if constexpr (!kBias) release(bar_ek + 8 * s);
         if (j == n - 1) release(bar_qe);
-        softmax(sc, st, alpha_a, alpha_b, j);
+        softmax(sc, st, alpha_a, alpha_b, j, s);
+        if constexpr (kBias) release(bar_ek + 8 * s);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
         release(bar_ev + 8 * sp);
 #pragma unroll
-        for (int r = 0; r < 64; ++r) o[r] *= (r & 2) ? alpha_b : alpha_a;
+        for (int r = 0; r < kO; ++r) o[r] *= (r & 2) ? alpha_b : alpha_a;
+        if constexpr (kDrop) drop(sc, keep);
         pack_p(sc, pa);
       }
       {
@@ -850,20 +1041,20 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
       if (p.lse != nullptr && t == 0) {
         float* lg = p.lse + ((long long)cur.b * p.H + cur.h) * p.Sq;
-        if (row_a < p.Sq) lg[row_a] = st.m_a * p.scale + logf(l_a);
-        if (row_b < p.Sq) lg[row_b] = st.m_b * p.scale + logf(l_b);
+        if (row_a < p.Sq) lg[row_a] = st.m_a * lse_scale + logf(l_a);
+        if (row_b < p.Sq) lg[row_b] = st.m_b * lse_scale + logf(l_b);
       }
 
-      // O (bf16) to this warpgroup's staging tile, two 64-column panels
-      // in the 128-byte swizzle (conflict-free, and the layout the store
-      // map reads), once the previous item's store has read it; then one
-      // TMA store, which clips rows past Sq
+      // O (bf16) to this warpgroup's staging tile, 64-column panels in
+      // the 128-byte swizzle (conflict-free, and the layout the store map
+      // reads), once the previous item's store has read it; then one TMA
+      // store a panel, which clips rows past Sq
       if (tid == 0)
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       named_sync<128>(1 + cw);
       const int lr_a = wl * 16 + g, lr_b = lr_a + 8;   // local rows
 #pragma unroll
-      for (int r = 0; r < 64; r += 2) {
+      for (int r = 0; r < kO; r += 2) {
         const int col = 8 * (r / 4) + 2 * t;
         const int lr = (r & 2) ? lr_b : lr_a;
         const float inv = (r & 2) ? inv_b : inv_a;
@@ -879,8 +1070,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync<128>(1 + cw);
       if (tid == 0) {
-        tma_store(&to, oa, 0, wg_row0, cur.h, cur.b);
-        tma_store(&to, oa + kTileBytes / 4, kPanel, wg_row0, cur.h, cur.b);
+#pragma unroll
+        for (int pc = 0; pc < T::kPanels; ++pc)
+          tma_store(&to, oa + pc * (kTileBytes / 4), pc * kPanel, wg_row0,
+                    cur.h, cur.b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         if (!more)
           asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -891,6 +1084,64 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace sm90
 
+// the sm90 route has no instantiation for the head_dim and options asked
+constexpr int kErrRoute = 99998;
+
+// the sm90 entry's arguments, as its launch takes them
+struct FwdArgs {
+  const void* const* ptrs;   // q, k, v, o
+  float* lse;
+  int B, H, Hkv, Sq, Sk;
+  const long long* tma_strides;
+  const int* plan;
+  int causal;
+  float scale;
+  const __nv_bfloat16* bias;
+  long long bias_sb;
+  const long long* seed;
+  unsigned int thresh;
+  float inv_keep_p;
+  cudaStream_t stream;
+};
+
+// the sm90 route's launch: tensor maps from the caller's byte strides,
+// the plan checked against the instantiation's tiles
+template <int D, bool kBias, bool kDrop>
+int run_sm90(const FwdArgs& a) {
+  using T = sm90::Tiles<D, kBias, kDrop>;
+  const int n_qt = (a.Sq + sm90::kBQ - 1) / sm90::kBQ;
+  // plan: block_q, block_k, stages, threads, shared memory, and the grid
+  // (blocks, 1, 1): one block per work item, or fewer that loop
+  const int* plan = a.plan;
+  if (plan[0] != sm90::kBQ || plan[1] != sm90::kBK
+      || plan[2] != T::kStages || plan[3] != sm90::kThreads
+      || plan[4] != T::kSmemBytes || plan[5] < 1
+      || plan[5] > n_qt * a.H * a.B || plan[6] != 1 || plan[7] != 1)
+    return kErrPlan;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  CUtensorMap maps[4];
+  const int seqs[4] = {a.Sq, a.Sk, a.Sk, a.Sq};
+  const int heads[4] = {a.H, a.Hkv, a.Hkv, a.H};
+  for (int i = 0; i < 4; ++i) {
+    // loads take 128-row boxes, the store a warpgroup's 64 rows
+    const int rc = encode_map(fn, &maps[i], a.ptrs[i], seqs[i], heads[i],
+                              a.B, a.tma_strides + 3 * i,
+                              i < 3 ? sm90::kBK : 64, D);
+    if (rc != 0) return kErrEncode + rc * 16 + i;
+  }
+  const auto kernel = sm90::flash_fwd_sm90<D, kBias, kDrop>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const sm90::Params p{a.lse, a.B, a.H, a.Hkv, a.Sq, a.Sk, n_qt, a.causal,
+                       a.scale, a.scale * sm90::kLog2e, a.bias, a.bias_sb,
+                       a.seed, a.thresh, a.inv_keep_p};
+  kernel<<<plan[5], sm90::kThreads, T::kSmemBytes, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -899,6 +1150,10 @@ const char* kernel_error_string(int err) {
   static char buf[160];
   if (err == kErrPlan)
     return "the launch plan names tiles this library was not built with";
+  if (err == kErrRoute)
+    return "the sm90 route has no kernel for this head_dim and these "
+           "options (head_dim 128 takes none; head_dim 64 takes the bias "
+           "row or dropout, not both)";
   if (err == kErrNoEncode)
     return "cuTensorMapEncodeTiled not found through the CUDA runtime";
   if (err >= kErrEncode) {
@@ -918,9 +1173,10 @@ const char* kernel_error_string(int err) {
 // scores, or null; `seed`, an int64 in device memory, or null: with it
 // each probability is kept iff its Philox bits are >= `thresh` (floor(p *
 // 2^32)) and a kept one divided by `keep_p` (f32(1 - p)) before P.V,
-// while the denominator and the LSE keep the undropped P.  bf16 at
-// head_dim 128 is taken here only with an option (without one it is the
-// sm90 route's).  Returns the CUDA error of the launch (0 on success).
+// while the denominator and the LSE keep the undropped P.  bf16 is
+// taken here at head_dim 256, and at 128 only with an option: head_dim
+// 64, and 128 without options, are the sm90 route's.  Returns the CUDA
+// error of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, void* lse, int B, int H, int Hkv, int Sq,
                         int Sk, int D, const void* bias, long long bias_sb,
@@ -933,7 +1189,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* stream) {
   const bool opt = bias != nullptr || seed != nullptr;
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
-      || (is_bf16 && D == 128 && !opt)
+      || (is_bf16 && (D == 64 || (D == 128 && !opt)))
       || (seed != nullptr && !(keep_p > 0.f && keep_p <= 1.f)))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, static_cast<float*>(lse), H, Hkv, Sq, Sk,
@@ -967,51 +1223,48 @@ int flash_dropout_keep_mask(const void* seed, int B, int H, int Sq, int Sk,
   return (int)cudaGetLastError();
 }
 
-// The sm90 route: bf16, head_dim 128.  q/k/v: (B, H, S, 128) views with
-// unit stride on D, 16-byte aligned; o: the (B, H, Sq, 128) output, same
-// rules.  `tma_strides`: the byte strides (seq, head, batch) of q, k, v
-// and o, 12 values, multiples of 16.  lse: contiguous (B, H, Sq) f32, or
-// null.  `plan`: block_q, block_k, stages, threads, shared-memory bytes
-// and the grid (blocks, 1, 1) as the Python launch plan computed them;
-// the tiles must be the ones compiled here, and the blocks at most the
-// work items.  Returns the CUDA error of the launch (0 on success).
+// The sm90 route: bf16 at head_dim 128 without options, and at head_dim
+// 64 without options, with the bias row or with dropout.  q/k/v: (B, H,
+// S, D) views with unit stride on D, 16-byte aligned; o: the (B, H, Sq,
+// D) output, same rules.  `tma_strides`: the byte strides (seq, head,
+// batch) of q, k, v and o, 12 values, multiples of 16.  lse: contiguous
+// (B, H, Sq) f32, or null.  `plan`: block_q, block_k, stages, threads,
+// shared-memory bytes and the grid (blocks, 1, 1) as the Python launch
+// plan computed them; the tiles must be those of the instantiation
+// launched, and the blocks at most the work items.  The options: `bias`,
+// a bf16 [B, 1, 1, Sk] row with unit stride on Sk and batch stride
+// `bias_sb` (elements; 0 for one row shared by the batch), added to the
+// scaled scores, or null; `seed`, an int64 in device memory, or null:
+// with it a probability is kept iff its Philox bits are >= `thresh`
+// (floor(p * 2^32)) and a kept one multiplied by `inv_keep_p` (f32(1 /
+// f32(1 - p))) before P.V, while the denominator and the LSE keep the
+// undropped P.  Not both.  Returns the CUDA error of the launch (0 on
+// success), kErrPlan for another plan, kErrRoute for a head_dim and
+// options this route has no kernel for.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Hkv,
                              int Sq, int Sk, const long long* tma_strides,
-                             const int* plan, int causal, float scale,
-                             void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0)
+                             const int* plan, int causal, float scale, int D,
+                             const void* bias, long long bias_sb,
+                             const void* seed, unsigned int thresh,
+                             float inv_keep_p, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
+      || bias_sb < 0
+      || (seed != nullptr && !(inv_keep_p >= 1.f && inv_keep_p < 1e30f)))
     return (int)cudaErrorInvalidValue;
-  const int n_qt = (Sq + sm90::kBQ - 1) / sm90::kBQ;
-  // plan: block_q, block_k, stages, threads, shared memory, and the grid
-  // (blocks, 1, 1): one block per work item, or fewer that loop
-  if (plan[0] != sm90::kBQ || plan[1] != sm90::kBK
-      || plan[2] != sm90::kStages || plan[3] != sm90::kThreads
-      || plan[4] != sm90::kSmemBytes || plan[5] < 1
-      || plan[5] > n_qt * H * B || plan[6] != 1 || plan[7] != 1)
-    return kErrPlan;
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return kErrNoEncode;
-  CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, o};
-  const int seqs[4] = {Sq, Sk, Sk, Sq};
-  const int heads[4] = {H, Hkv, Hkv, H};
-  for (int i = 0; i < 4; ++i) {
-    // loads take 128-row boxes, the store a warpgroup's 64 rows
-    const int rc = encode_map(fn, &maps[i], ptrs[i], seqs[i], heads[i], B,
-                              tma_strides + 3 * i, i < 3 ? sm90::kBK : 64);
-    if (rc != 0) return kErrEncode + rc * 16 + i;
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      sm90::flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sm90::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  sm90::Params p{static_cast<float*>(lse), B, H, Hkv, Sq, Sk, n_qt,
-                 causal, scale, scale * sm90::kLog2e};
-  sm90::flash_fwd_sm90<<<plan[5], sm90::kThreads, sm90::kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
-  return (int)cudaGetLastError();
+  const FwdArgs a{ptrs, static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
+                  tma_strides, plan, causal, scale,
+                  static_cast<const __nv_bfloat16*>(bias), bias_sb,
+                  static_cast<const long long*>(seed), thresh, inv_keep_p,
+                  static_cast<cudaStream_t>(stream)};
+  if (bias != nullptr && seed != nullptr) return kErrRoute;
+  if (D == 128 && bias == nullptr && seed == nullptr)
+    return run_sm90<128, false, false>(a);
+  if (D != 64) return kErrRoute;
+  if (bias != nullptr) return run_sm90<64, true, false>(a);
+  if (seed != nullptr) return run_sm90<64, false, true>(a);
+  return run_sm90<64, false, false>(a);
 }
 
 }  // extern "C"

@@ -10,14 +10,16 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
   any sequence length.  Grouped-query attention indexes kv head
   ``h // (H // Hkv)`` instead of materialising the repeat.  It can also
   emit the per-row logsumexp (LSE) [B, H, Sq] f32 for the backward.
-  bf16 at head_dim 128 -- the route of the serving prefill and of
-  training -- takes the Hopper kernel (TMA loads into a 2-stage ring,
-  ``wgmma`` for both products, a producer warp and two consumer
-  warpgroups, 128-row query and 128-key tiles); the other dtypes and
-  head dims take the first kernel (``mma.sync`` or FMA, 64- or 32-row
-  tiles).  :func:`flash_fwd_plan` computes the route, tiles, grid and
-  TMA strides in Python, and the wrapper passes them to the C entry
-  point.
+  bf16 at head_dim 128 without options -- the route of the serving
+  prefill and of the proxy's training -- and at head_dim 64 with or
+  without them -- ERNIE-3.0-base pretraining, the translation encoder's
+  bias row in bf16 -- takes the Hopper kernel (TMA loads into a ring of
+  2 or 4 stages, ``wgmma`` for both products, a producer warp and two
+  consumer warpgroups, 128-row query and 128-key tiles); the other
+  dtypes and head dims take the first kernel (``mma.sync`` or FMA, 64-
+  or 32-row tiles).  :func:`flash_fwd_plan` computes the route, tiles,
+  grid and TMA strides in Python, and the wrapper passes them to the C
+  entry point.
 - The backward (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's:
   a dK/dV kernel, whose work item is (key tile, kv head, batch) looping
   over the query tiles of every head of its group, and a dQ kernel,
@@ -52,11 +54,10 @@ its forward dispatches the forward with the LSE, its backward the two
 backward kernels, all through the registry (kernels for CUDA tensors,
 plain versions for CPU tensors or where ``mode`` says so).
 
-The reference's two options run in the forward on the first kernels
-(``mma.sync`` for bf16 at every head dim, FMA for f32), whose Hopper
-route takes neither; the backward's dropout runs on the Hopper route at
-bf16 head_dim 64 and on the first kernels otherwise (``flash_fwd_plan``
-/ ``flash_bwd_plan`` record the route):
+The reference's two options run on the Hopper routes at bf16 head_dim
+64 (forward and backward) and on the first kernels otherwise
+(``mma.sync`` for bf16 at head_dim 128 and 256, FMA for f32;
+``flash_fwd_plan`` / ``flash_bwd_plan`` record the route):
 
 - **bias**: an additive row in q's dtype (padding masks) that
   broadcasts to [B, 1, 1, Sk] (a row shared by the batch is read with
@@ -67,7 +68,8 @@ bf16 head_dim 64 and on the first kernels otherwise (``flash_fwd_plan``
   gradient;
 - **dropout** of the normalised weights, inside kernels 1-3: the
   denominator and the LSE keep the undropped P, P * keep / (1 - p) (P
-  rounded after the division on the bf16 path) multiplies V, and the
+  rounded after the division on the bf16 path; the Hopper routes
+  multiply by f32(1 / f32(1 - p)) instead) multiplies V, and the
   backward drops dP alike; delta comes from the dropped output.  The
   keep mask is Philox4x32-10 of (seed, b, h, q, k) (``csrc/dropout.cuh``;
   plain version :func:`dropout_keep_mask`), not of a tile, so the
@@ -371,8 +373,8 @@ def flash_attention_blockwise_ref(q, k, v, bias=None, causal=False,
     f32, running max and denominator in f32, and the probabilities cast to
     the value dtype against the running max before P.V.  With bf16 inputs
     that cast rounds P as the kernel does when ``block_k`` is the
-    kernel's key tile (``flash_fwd_plan(q, k, v).block_k``: 128 at
-    head_dim 128, 64 otherwise), so the bf16 kernel is held to this
+    kernel's key tile (``flash_fwd_plan(q, k, v).block_k``: 128 on the
+    Hopper route, 64 on ``mma.sync``), so the bf16 kernel is held to this
     version; with f32 inputs it equals :func:`flash_attention_ref` up to
     summation order.  The options as in the kernels: the bias added to
     the scaled scores, and P * keep / (1 - p) cast before P.V while the
@@ -469,15 +471,28 @@ def _rowmajor(t):
     return t if _takes_as_is(t) else t.contiguous()
 
 
-# the Hopper route's tiles, as compiled in csrc/flash_attention_fwd.cu
-# (namespace sm90): 128 query rows (two consumer warpgroups of 64) and
-# 128-key K/V tiles in a 2-stage ring, 384 threads; shared memory is
-# 1024 bytes of alignment slack, Q, both stages of K and V and the O
-# staging tile (32 KB each) and 10 mbarriers.  The grid is one block per
-# SM at most; each block loops over its share of the (query tile, head,
-# batch) work items.
-_SM90 = dict(block_q=128, block_k=128, stages=2, threads=384,
-             smem_bytes=1024 + 32768 * (2 + 2 * 2) + 8 * (2 + 4 * 2))
+# the forward's Hopper route, as compiled in csrc/flash_attention_fwd.cu
+# (namespace sm90, Tiles<D, bias, dropout>): 128 query rows (two
+# consumer warpgroups of 64) and 128-key K/V tiles in a ring of 2 stages
+# at head_dim 128, 4 at head_dim 64, 384 threads; shared memory is 1024
+# bytes of alignment slack, Q, every stage of K and V and the O staging
+# tile (128 x D bf16 each), beside each K stage the bias row's 128 f32
+# values or half the keep mask's group words (256), and the mbarriers (8
+# bytes each: 2 for Q, 4 a stage).  The grid is one block per SM at
+# most; each block loops over its share of the (query tile, head, batch)
+# work items.
+_SM90_FWD_STAGES = {128: 2, 64: 4}
+
+
+def _sm90_fwd(D, bias=False, dropout=False):
+    stages = _SM90_FWD_STAGES[D]
+    tile = 128 * D * 2
+    side = 128 * 4 if bias else 256 * 4 if dropout else 0
+    return dict(block_q=128, block_k=128, stages=stages, threads=384,
+                smem_bytes=1024 + tile * (2 + 2 * stages) + stages * side
+                + 8 * (2 + 4 * stages))
+
+
 # SMs of an H100 SXM: the grid's bound where no card is at hand to ask
 H100_SMS = 132
 
@@ -492,8 +507,8 @@ def _sm_count(device):
 class FwdPlan:
     """How the forward kernel runs on given q, k, v (B, H, S, D)."""
 
-    route: str          # "tma_wgmma" (bf16, D=128, no option),
-                        # "mma_sync" (other bf16) or "fma" (f32)
+    route: str          # "tma_wgmma" (bf16: D=64, D=128 without an
+                        # option), "mma_sync" (other bf16) or "fma" (f32)
     block_q: int        # query rows per block
     block_k: int        # keys per tile: the rounding tile of P
     stages: int         # K/V tiles in flight (1: loaded synchronously)
@@ -521,18 +536,20 @@ def _tma_strides(t):
 def flash_fwd_plan(q, k, v, bias=None, dropout_p=0.0):
     """The launch plan of the forward kernel for (B, H, S, D) q, k, v:
     the route, tiles, grid and, on the Hopper route, the TMA strides.
-    bf16 at head_dim 128 takes the Hopper route unless a bias or dropout
-    is asked for (the ``mma.sync`` route takes those); a tensor it cannot
-    take as is (``as_is`` False) is made row-major by :func:`_rowmajor`
-    first, never sent to the other kernel.  Pure shape arithmetic: it runs
-    on CPU tensors too."""
+    bf16 takes the Hopper route at head_dim 64, with or without the bias
+    row or dropout, and at head_dim 128 without them (with one the
+    ``mma.sync`` route takes head_dim 128, and head_dim 256 always); f32
+    the FMA route.  A tensor it cannot take as is (``as_is`` False) is
+    made row-major by :func:`_rowmajor` first, never sent to the other
+    kernel.  Pure shape arithmetic: it runs on CPU tensors too."""
     B, H, Sq, D = q.shape
     opts = bias is not None or dropout_p > 0.0
     as_is = {n: _takes_as_is(t) for n, t in (("q", q), ("k", k), ("v", v))}
-    if q.dtype == torch.bfloat16 and D == 128 and not opts:
+    if q.dtype == torch.bfloat16 and (D == 64 or (D == 128 and not opts)):
+        cfg = _sm90_fwd(D, bias is not None, dropout_p > 0.0)
         route, bq, bk, stages, threads, smem = (
-            "tma_wgmma", _SM90["block_q"], _SM90["block_k"],
-            _SM90["stages"], _SM90["threads"], _SM90["smem_bytes"])
+            "tma_wgmma", cfg["block_q"], cfg["block_k"], cfg["stages"],
+            cfg["threads"], cfg["smem_bytes"])
         # q, k, v as given; o as the wrapper allocates it, (B, Sq, H, D)
         tma = tuple(x for t in (q, k, v) for x in _tma_strides(t)) + (
             H * D * 2, D * 2, Sq * H * D * 2)
@@ -561,6 +578,15 @@ def _option_args(dropout_p, seed):
     return seed.data_ptr(), _threshold(dropout_p), 1.0 - dropout_p
 
 
+def _inv_keep_p(dropout_p):
+    """f32(1 / f32(1 - p)), the factor the forward's Hopper route
+    multiplies kept values by (1 without dropout)."""
+    if not dropout_p > 0.0:
+        return 1.0
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.full((), 1.0 - dropout_p, dtype=torch.float32))
+
+
 def _flash_fwd_cuda(q, k, v, bias=None, causal=False, scale=None,
                     return_lse=False, dropout_p=0.0, seed=None,
                     test_mask=None):
@@ -583,17 +609,27 @@ def _flash_fwd_cuda(q, k, v, bias=None, causal=False, scale=None,
         if plan.route == "tma_wgmma":
             fn = lib.flash_attention_fwd_sm90
             if fn.argtypes is None:
+                # q, k, v, o, lse; B, H, Hkv, Sq, Sk; TMA strides; plan;
+                # causal, scale, D; bias and its batch stride; seed,
+                # threshold, 1 / (1 - p); stream
                 fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                + [ctypes.POINTER(ctypes.c_longlong),
                                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_void_p, ctypes.c_uint,
                                   ctypes.c_float, ctypes.c_void_p])
                 fn.restype = ctypes.c_int
             launch = (plan.block_q, plan.block_k, plan.stages, plan.threads,
                       plan.smem_bytes, *plan.grid)
+            seed_ptr, thresh, _ = _option_args(dropout_p, seed)
             rc = fn(*ptrs, B, H, Hkv, Sq, Sk,
                     (ctypes.c_longlong * 12)(*plan.tma_strides),
                     (ctypes.c_int * 8)(*launch), int(bool(causal)),
-                    float(sc), stream)
+                    float(sc), D,
+                    bias.data_ptr() if bias is not None else None,
+                    bias.stride(0) if bias is not None else 0,
+                    seed_ptr, thresh, _inv_keep_p(dropout_p), stream)
         else:
             fn = lib.flash_attention_fwd
             if fn.argtypes is None:

@@ -270,7 +270,7 @@ def test_backward_kernels_match_plain_on_card():
 # 2 and 3, with and without dropout, causal and not; ragged lengths (300
 # and 130 take dropout under the reference's block rule, 1000 does not);
 # GQA 12 over 4; and 288 or 432 work items against 132 SMs (not a
-# multiple).  Every forward here runs kernel 1's mma.sync route, so the
+# multiple).  Every forward here runs kernel 1's Hopper route, so the
 # backward's regenerated keep bits must be the forward's.
 _BWD_D64_CASES = [(2, 12, 12, 256, False, 0.0), (2, 12, 12, 256, True, 0.0),
                   (2, 12, 12, 256, False, 0.1), (2, 12, 12, 256, True, 0.1),
@@ -305,7 +305,8 @@ def test_backward_d64_hopper_route_matches_plain_on_card():
         kw = dict(dropout_p=p, seed=seed) if p else {}
         assert fa.flash_bwd_plan(qh, kh, vh, g, causal, **(
             dict(dropout_p=p) if p else {})).route == "tma_wgmma"
-        assert fa.flash_fwd_plan(qh, kh, vh, dropout_p=p).route == "mma_sync"
+        assert fa.flash_fwd_plan(qh, kh, vh, dropout_p=p).route == \
+            "tma_wgmma"
         grads = []
         for _ in range(2):
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -363,8 +364,8 @@ def test_dropout_keep_mask_bitwise_on_card():
 
 @pytest.mark.cuda
 def test_flash_bias_row_matches_plain_on_card():
-    """Kernel 1 with a [B, 1, 1, S] bias row on the first kernels (bf16
-    ``mma.sync`` at head_dim 64, 128 and 256; f32 FMA), causal or not,
+    """Kernel 1 with a [B, 1, 1, S] bias row (bf16 on the Hopper route at
+    head_dim 64, on ``mma.sync`` at 128 and 256; f32 FMA), causal or not,
     GQA and a ragged length, against the plain versions at the kernel's
     key tile; a rerun bitwise equal; each launch counted as ``bias``."""
     if not torch.cuda.is_available():
@@ -379,8 +380,9 @@ def test_flash_bias_row_matches_plain_on_card():
                        for a in _qkv(15, B=2, H=4, Hkv=2, S=300, D=D))
             bias = _bias_row(16, 2, 300, dt, dev)
             plan = fa.flash_fwd_plan(q, k, v, bias=bias)
-            assert plan.route == ("mma_sync" if dt == torch.bfloat16
-                                  else "fma")
+            assert plan.route == (
+                "fma" if dt == torch.float32 else "tma_wgmma" if D == 64
+                else "mma_sync")
             for causal in (True, False):
                 o = fa.flash_attention_bhsd(q, k, v, bias=bias,
                                             causal=causal)
@@ -433,11 +435,12 @@ def test_flash_bias_row_shared_by_the_batch_on_card():
 @pytest.mark.cuda
 def test_flash_dropout_matches_plain_on_card():
     """Kernels 1-3 with in-kernel dropout through the autograd Function
-    (p = 0.1, one seed): every head dim in bf16 (``mma.sync``, head_dim
-    128 included) and f32 (FMA), causal or not, GQA; the forward and the
-    three gradients against the plain versions with the same seed (bf16:
-    the blockwise ones); a rerun bitwise equal; each launch counted as
-    ``dropout``."""
+    (p = 0.1, one seed): every head dim in bf16 (the forward's Hopper
+    route at head_dim 64, ``mma.sync`` at 128 and 256) and f32 (FMA),
+    causal or not, GQA; the forward and the three gradients against the
+    plain versions with the same seed (bf16: the blockwise ones, the
+    forward's at its key tile); a rerun bitwise equal; each launch
+    counted as ``dropout``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the pretraining shape")
@@ -466,7 +469,9 @@ def test_flash_dropout_matches_plain_on_card():
                 ro, lse = fa.flash_attention_ref(q, k, v, return_lse=True,
                                                  **kw)
                 if dt == torch.bfloat16:
-                    ro = fa.flash_attention_blockwise_ref(q, k, v, **kw)
+                    ro = fa.flash_attention_blockwise_ref(
+                        q, k, v, block_k=fa.flash_fwd_plan(
+                            q, k, v, dropout_p=0.1).block_k, **kw)
                 delta = fa.attention_delta(outs[0][0].detach(), g)
                 args = (q, k, v, g, lse, delta)
                 ref = (fa.flash_attention_bwd_blockwise_ref(*args, **kw)
@@ -481,6 +486,41 @@ def test_flash_dropout_matches_plain_on_card():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         assert registry.spec(name).mode_launches == {"dropout": runs}
+
+
+@pytest.mark.cuda
+def test_flash_forward_d64_dropout_gqa_ragged_on_card():
+    """Kernel 1 on the bf16 head_dim-64 Hopper route with dropout, causal,
+    grouped-query (12 query heads over 4) at a ragged length (1,000: the
+    last 128-row query tile and key tile are cut): within
+    ``CARD_TOL[bf16]`` of the blockwise plain version at the plan's key
+    tile with the same seed, its LSE within 1e-3 of the plain version's,
+    and bitwise on a rerun.  Called through the registry: the model entry
+    takes dropout only at lengths the reference's blocks divide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs kernel 1 at ERNIE's shape")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    seed = torch.tensor([2 ** 42 + 5], dtype=torch.int64, device=dev)
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _qkv(23, B=2, H=12, Hkv=4, S=1000, D=64))
+    kw = dict(causal=True, dropout_p=0.1, seed=seed)
+    plan = fa.flash_fwd_plan(q, k, v, dropout_p=0.1)
+    assert (plan.route, plan.block_k) == ("tma_wgmma", 128)
+    o, lse = registry.dispatch("flash_attention", q, k, v, return_lse=True,
+                               **kw)
+    again = registry.dispatch("flash_attention", q, k, v, **kw)
+    ro = fa.flash_attention_blockwise_ref(q, k, v, block_k=plan.block_k,
+                                          **kw)
+    _, rl = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+    assert bool(torch.isfinite(o.float()).all())
+    _assert_within(o, ro, fa.CARD_TOL[torch.bfloat16])
+    assert (lse - rl).abs().max() <= 1e-3
+    spec = registry.spec("flash_attention")
+    assert spec.launches == 2 and spec.mode_launches == {"dropout": 2}
 
 
 # (M, K, N, compute dtype): ResNet-50 GEMMs (stem K = 147, the classifier

@@ -383,13 +383,34 @@ def _mask_block():
                                 q0=64 * _QB, k0=64 * _KB)[_B, _H]
 
 
-@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("kernel", ["dkv", "dq", "fwd"])
 def test_keep_bits_of_the_wgmma_fragment_are_the_mask(kernel):
-    """The Hopper backward route's keep bits, thread by thread, are
+    """The Hopper routes' keep bits, thread by thread, are
     ``dropout_keep_mask``'s at the rows and columns that thread's
-    ``wgmma`` m64n64 fragment holds: dK/dV (rows are keys, columns
-    queries) from its Philox groups, dQ (rows queries, columns keys)
-    from the group words dK/dV wrote, each through the lane-pair swap."""
+    ``wgmma`` fragment holds: dK/dV (an m64n64 fragment, rows are keys,
+    columns queries) from its Philox groups, dQ (rows queries, columns
+    keys) from the group words dK/dV wrote, and the forward (an m64n128
+    S fragment, rows queries, columns keys: its two 64-key halves, bits
+    ``keep[r / 32]``) from its own Philox groups, each through the
+    lane-pair swap."""
+    if kernel == "fwd":
+        # the second consumer warpgroup's 64 query rows of query tile 3
+        # against key tile 5 (128 keys)
+        q0, k0 = 128 * 3 + 64, 128 * 5
+        mask = fa.dropout_keep_mask(torch.tensor([_SEED]), 2, 3, 64, 128,
+                                    _P, q0=q0, k0=k0)[_B, _H]
+        halves = [_bits_of_groups_model(_groups_model(
+            _SEED, _B, _H, q0, k0 + 64 * hh, True, _P), True)
+            for hh in range(2)]
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for r in range(64):
+                    q = 16 * w + g + 8 * ((r >> 1) & 1)
+                    k = 8 * (r >> 2) + 2 * t + (r & 1)
+                    bit = (int(halves[r // 32][w, lane]) >> (r % 32)) & 1
+                    assert bit == int(mask[q, k]), (kernel, w, lane, r)
+        return
     mask = _mask_block()                    # [query, key] of the block
     dkv_words = _groups_model(_SEED, _B, _H, 64 * _KB, 64 * _QB, False, _P)
     if kernel == "dkv":
@@ -599,19 +620,34 @@ def lib(monkeypatch):
 
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("opt", ["bias", "dropout"])
-def test_options_take_the_mma_sync_route(D, opt):
-    """bf16 with an option takes the forward's ``mma.sync`` route at every
-    head dim (its Hopper route takes none); f32 the FMA route.  The
-    backward's dropout takes the Hopper route at head_dim 64 and
-    ``mma.sync`` at 128 and 256.  Without an option the forward's Hopper
-    route takes bf16 at head_dim 128, the backward's at 64 and 128."""
+def test_options_take_the_hopper_route_at_d64_else_mma_sync(D, opt):
+    """bf16 with an option takes the forward's Hopper route at head_dim
+    64 (128 x 128 tiles, a 4-stage ring, beside each K stage the bias
+    row's 128 f32 values or half the keep mask's 256 group words) and its
+    ``mma.sync`` route at 128 and 256; f32 the
+    FMA route.  The backward's dropout takes the Hopper route at
+    head_dim 64 and ``mma.sync`` at 128 and 256.  Without an option the
+    forward's Hopper route takes bf16 at head_dim 64 and 128, the
+    backward's too."""
     q = torch.zeros(2, 4, 300, D, dtype=torch.bfloat16)
     kw = (dict(bias=torch.zeros(2, 1, 1, 300, dtype=torch.bfloat16))
           if opt == "bias" else dict(dropout_p=0.1))
     plan = fa.flash_fwd_plan(q, q, q, **kw)
-    assert (plan.route, plan.block_q, plan.block_k) == ("mma_sync", 64, 64)
-    # the tile's bias row (f32) beside Q, K and V
-    assert plan.smem_bytes == 3 * 64 * (D + 8) * 2 + 64 * 4
+    if D == 64:
+        assert (plan.route, plan.block_q, plan.block_k, plan.stages,
+                plan.threads) == ("tma_wgmma", 128, 128, 4, 384)
+        # Q, 4 stages of K and V, the O staging tile (16 KB each), beside
+        # each K stage the bias row's 128 f32 values or half the keep
+        # mask's group words (256), alignment slack and 18 mbarriers
+        assert plan.smem_bytes == 1024 + 10 * 16384 + 4 * (
+            512 if opt == "bias" else 1024) + 8 * 18
+        # 3 query tiles x 4 heads x 2 sequences: a block each
+        assert plan.grid == (24, 1, 1) and len(plan.tma_strides) == 12
+    else:
+        assert (plan.route, plan.block_q, plan.block_k) == (
+            "mma_sync", 64, 64)
+        # the tile's bias row (f32) beside Q, K and V
+        assert plan.smem_bytes == 3 * 64 * (D + 8) * 2 + 64 * 4
     assert fa.flash_fwd_plan(q.float(), q.float(), q.float(),
                              **kw).route == "fma"
     if opt == "dropout":
@@ -624,9 +660,29 @@ def test_options_take_the_mma_sync_route(D, opt):
             assert bplan.dkv.block_res == (64 if D == 128 else 32)
             assert bplan.dq.block_res == 64
     assert fa.flash_fwd_plan(q, q, q).route == (
-        "tma_wgmma" if D == 128 else "mma_sync")
+        "mma_sync" if D == 256 else "tma_wgmma")
     assert fa.flash_bwd_plan(q, q, q, q).route == (
         "mma_sync" if D == 256 else "tma_wgmma")
+
+
+@pytest.mark.parametrize("shape", [(8, 12, 12, 2048), (8, 8, 8, 1024),
+                                   (1, 12, 4, 1000), (1, 1, 1, 17)])
+@pytest.mark.parametrize("opt", ["none", "bias", "dropout"])
+def test_hopper_d64_plan_fits_a_block_and_the_card(shape, opt):
+    """The forward's head_dim-64 Hopper plan: its shared memory within a
+    block's 227 KB (232,448 bytes), its grid no more blocks than the
+    work items (128-row query tiles x heads x batch) or the SMs."""
+    B, H, Hkv, S = shape
+    q = torch.zeros(B, H, S, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(B, Hkv, S, 64, dtype=torch.bfloat16)
+    kw = dict(bias=torch.zeros(B, 1, 1, S, dtype=torch.bfloat16)) \
+        if opt == "bias" else dict(dropout_p=0.1) if opt == "dropout" \
+        else {}
+    plan = fa.flash_fwd_plan(q, kv, kv, **kw)
+    assert plan.route == "tma_wgmma"
+    assert plan.smem_bytes <= 232448
+    items = -(-S // plan.block_q) * H * B
+    assert plan.grid == (min(items, fa.H100_SMS), 1, 1)
 
 
 def test_bias_launch_passes_the_row_and_counts_its_mode(lib):
@@ -645,6 +701,31 @@ def test_bias_launch_passes_the_row_and_counts_its_mode(lib):
     assert spec.launches == 1 and spec.mode_launches == {"bias": 1}
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_hopper_bias_launch_passes_the_row_and_its_batch_stride(lib,
+                                                                 shared):
+    """bf16 at head_dim 64 with the bias row reaches the forward's sm90
+    entry with head_dim 64, the row's pointer and its batch stride in
+    elements (0 for one row shared by the batch, read in place), no
+    dropout (a null seed, threshold 0, factor 1), and the plan with the
+    stages' bias rows; it counts as a ``bias`` launch."""
+    B, H, S, D = 3, 4, 300, 64
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    row = torch.zeros(1 if shared else B, 1, 1, S, dtype=torch.bfloat16)
+    bias = row.expand(B, 1, 1, S)
+    o = fa._flash_fwd_cuda(q, q, q, bias=bias, causal=True)
+    ((name, args),) = lib.calls
+    assert name == "flash_attention_fwd_sm90"
+    plan = fa.flash_fwd_plan(q, q, q, bias=bias)
+    assert tuple(args[11]) == (128, 128, 4, 384, plan.smem_bytes) + plan.grid
+    assert args[12] == 1 and args[14] == D
+    assert args[15:17] == (row.data_ptr(), 0 if shared else S)
+    assert args[17:20] == (None, 0, 1.0)
+    assert o.shape == q.shape
+    spec = registry.spec("flash_attention")
+    assert spec.launches == 1 and spec.mode_launches == {"bias": 1}
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
                                      (torch.float32, 64)])
@@ -653,8 +734,8 @@ def test_dropout_launches_pass_the_seed_and_count_their_mode(lib, dtype, D):
     q = torch.zeros(B, H, S, D, dtype=dtype)
     seed = torch.tensor([3], dtype=torch.int64)
     lse = torch.zeros(B, H, S)
-    # bf16 at head_dim 64: the backward's Hopper entries, dK/dV writing
-    # its keep mask for dQ to read
+    # bf16 at head_dim 64: the Hopper entries, the forward's and the
+    # backward's, dK/dV writing its keep mask for dQ to read
     sm90 = "_sm90" if (dtype, D) == (torch.bfloat16, 64) else ""
     bits = (torch.empty(fa.keep_bits_numel(q, q), dtype=torch.int32)
             if sm90 else None)
@@ -664,11 +745,18 @@ def test_dropout_launches_pass_the_seed_and_count_their_mode(lib, dtype, D):
     fa._bwd_dq_cuda(q, q, q, q, lse, lse, dropout_p=0.1, seed=seed,
                     keep_bits=bits)
     (n1, a1), (n2, a2), (n3, a3) = lib.calls
-    assert (n1, n2, n3) == ("flash_attention_fwd",
+    assert (n1, n2, n3) == ("flash_attention_fwd" + sm90,
                             "flash_attention_bwd_dkv" + sm90,
                             "flash_attention_bwd_dq" + sm90)
     want = (seed.data_ptr(), int(0.1 * 2 ** 32), 0.9)
-    assert a1[13:16] == want                  # after the bias and stride
+    if sm90:
+        # after causal, scale, D and no bias (null, batch stride 0): the
+        # seed, the threshold and f32(1 / f32(1 - p)), then the stream
+        assert a1[12:17] == (0, 1 / D ** 0.5, D, None, 0)
+        assert a1[-4:-1] == (seed.data_ptr(), int(0.1 * 2 ** 32),
+                             float(torch.tensor(1.0) / torch.tensor(0.9)))
+    else:
+        assert a1[13:16] == want              # after the bias and stride
     if sm90:
         # after causal, scale and D; then the keep bits and the stream
         assert a2[-5:-2] == a3[-5:-2] == want

@@ -220,7 +220,7 @@ def test_flash_plan_gqa_and_ragged():
 
 
 @pytest.mark.parametrize("dtype,D,route,tile", [
-    (torch.bfloat16, 64, "mma_sync", 64),
+    (torch.float32, 64, "fma", 32),
     (torch.bfloat16, 256, "mma_sync", 64),
     (torch.float32, 128, "fma", 32)])
 def test_flash_plan_other_routes_keep_the_first_kernel(dtype, D, route,
@@ -321,11 +321,22 @@ def test_flash_stride_tma_cannot_take_is_copied_not_rerouted(fake_flash_lib):
         assert tuple(args[10])[:3] == (256, 200 * 256, 2 * 200 * 256)
 
 
-def test_flash_first_kernel_takes_bf16_d64(fake_flash_lib):
+def test_flash_bf16_d64_takes_the_hopper_entry(fake_flash_lib):
+    """bf16 at head_dim 64 without options reaches the sm90 entry with
+    head_dim 64, its plan (a 4-stage ring) and no options; bf16 at
+    head_dim 256 still the first kernel's entry."""
     q = _bf16(1, 2, 300, 64)
     _flash_fwd_cuda(q, q, q, causal=True)
     ((name, args),) = fake_flash_lib.calls
-    assert name == "flash_attention_fwd" and args[10] == 64
+    plan = flash_fwd_plan(q, q, q)
+    assert name == "flash_attention_fwd_sm90" and args[14] == 64
+    assert tuple(args[11]) == (128, 128, 4, 384, plan.smem_bytes) + plan.grid
+    assert args[15:20] == (None, 0, None, 0, 1.0)
+    fake_flash_lib.calls.clear()
+    q = _bf16(1, 2, 300, 256)
+    _flash_fwd_cuda(q, q, q, causal=True)
+    ((name, args),) = fake_flash_lib.calls
+    assert name == "flash_attention_fwd" and args[10] == 256
 
 
 # ---------------------------------------------------------------------
