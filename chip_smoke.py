@@ -349,10 +349,11 @@ import numpy as np
 import torch
 
 SEED = 1234
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
-# outside the tensor cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor
+# cores, f32 outside the tensor cores, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # end to end (phases 5 and 8): the bf16 logits (serving) or loss and
@@ -4110,9 +4111,11 @@ def bias_cases(dev):
     blockwise one at the kernel's key tile), bitwise on a rerun; a row
     shared by the batch (batch stride 0) bitwise equal to the same row
     copied to every sequence; timed queued beside its bound
-    (operations at 989 / 67 TFLOP/s), its plain version and SDPA with the
-    same float [B, 1, 1, S] mask (a yardstick only).  Returns the rows by
-    label."""
+    (operations at 989 TFLOP/s bf16), its plain version and SDPA with the
+    same float [B, 1, 1, S] mask (a yardstick only).  f32 (the 3xTF32
+    route) is bounded by three TF32 products for each product at 495
+    TFLOP/s and by its exponentials; the same products on the FMA pipe
+    (67 TFLOP/s) are reported beside.  Returns the rows by label."""
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         CARD_TOL, flash_attention_bhsd, flash_attention_blockwise_ref,
         flash_attention_ref, flash_fwd_plan)
@@ -4154,13 +4157,30 @@ def bias_cases(dev):
             plain = cuda_ms(lambda: flash_attention_bhsd(
                 q, k, v, bias=bias, mode="torch_ref"), iters=3, warmup=1)
         flops = 4 * D * B * H * S * S
-        bms, by = bound_ms(flops, PEAK_BF16_FLOPS if dt == torch.bfloat16
-                           else PEAK_F32_FLOPS,
-                           4 * B * H * S * D * q.element_size()
-                           + B * S * q.element_size())
+        nbytes = (4 * B * H * S * D * q.element_size()
+                  + B * S * q.element_size())
+        extra, why = {}, ""
+        if dt == torch.bfloat16:
+            bms, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+        else:
+            # f32-accurate products on the tensor cores: three TF32
+            # products each (3xTF32), beside the exponentials (one a
+            # score); the same products on the FMA pipe, the bound of the
+            # route before it, are reported beside it
+            tc_ms, by = bound_ms(3 * flops, PEAK_TF32_FLOPS, nbytes)
+            ex_ms, _ = exp_bound_ms(dev, B * H * S * S)
+            bms = max(tc_ms, ex_ms)
+            fma_ms, _ = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+            extra = dict(bound_tf32x3_ms=tc_ms, bound_exp_ms=ex_ms,
+                         bound_fma_ms=fma_ms)
+            why = (f"; the kernel is measured against 3xTF32 at "
+                   f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s {tc_ms:.4f} "
+                   f"(exponentials {ex_ms:.4f}); the products on the FMA "
+                   f"pipe at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
+                   f"{fma_ms:.4f}, kernel / that {t['kernel'] / fma_ms:.3f}")
         rows[label] = dict(ms=t["kernel"], plain_ms=plain, bound_ms=bms,
                            bound_by=by, library_ms=t["sdpa"],
-                           max_abs_err=err)
+                           max_abs_err=err, **extra)
         log(f"flash_attention {label} (B={B} H={H} S={S}, seeded padding "
             f"rows): route {plan.route}, {plan.block_q} x {plan.block_k} "
             f"tiles, {plan.smem_bytes} B shared memory; max_err {err:.3g} "
@@ -4168,8 +4188,10 @@ def bias_cases(dev):
             f"bitwise its copies; device ms "
             f"(queued): kernel {t['kernel']:.4f} plain {plain:.4f} bound "
             f"{bms:.4f} ({by}) library(sdpa, float mask) {t['sdpa']:.4f}; "
-            f"kernel / sdpa {t['kernel'] / t['sdpa']:.3f}; "
-            f"{flops / t['kernel'] / 1e9:.1f} TFLOP/s")
+            f"kernel / sdpa {t['kernel'] / t['sdpa']:.3f}, kernel / plain "
+            f"{t['kernel'] / plain:.3f}, kernel / bound "
+            f"{t['kernel'] / bms:.3f}; {flops / t['kernel'] / 1e9:.1f} "
+            f"TFLOP/s{why}")
         del q, k, v, o, again, ref
     return rows
 
@@ -4629,8 +4651,9 @@ def ernie_kernels_vs_plain(dev, batch):
     """Phase 34 (b): one step with kernels 1-3 against the same step with
     their plain versions, from the same weights and the same dropout
     generator state (the same seeds, so the same masks), with bf16 AMP
-    (the path's Hopper route) and in f32 (the FMA route, where the
-    rounding is no longer in the way): the loss, and each attention
+    (the path's Hopper route) and in f32 (the 3xTF32 forward and the FMA
+    backward, where the rounding is no longer in the way): the loss, and
+    each attention
     parameter's gradient (48 leaves: qkv_proj and out_proj of 12 layers)
     by its relative L2 distance, the worst leaf within ERNIE_E2E.  Each precision also runs the kernels' step
     with each planted fault (:func:`_planted`), which must break its
@@ -4849,6 +4872,27 @@ def log_bwd_entries(bwd):
             f"streamed tiles, {bplan.stages} stages")
 
 
+def log_tf32_entries(tf):
+    """Phase 2's line for each f32 forward entry (``check_ptxas``'s
+    {mangled name: [registers, spill bytes]}): head_dim, option,
+    registers and plan (the shared memory is dynamic: ptxas does not see
+    it)."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
+    for name, (regs, _, _) in sorted(tf.items()):
+        hd, bias, drop = re.search(r"tf32x3ILi(\d+)ELb([01])ELb([01])E",
+                                   name).groups()
+        m = torch.empty(1, 1, 2048, int(hd), device="meta")
+        plan = flash_fwd_plan(m, m, m, bias=(
+            torch.empty(1, 1, 1, 2048, device="meta") if bias == "1"
+            else None), dropout_p=0.1 if drop == "1" else 0.0)
+        how = (", the bias row" if bias == "1" else ", dropout"
+               if drop == "1" else "")
+        log(f"  flash_fwd_tf32x3 (f32, head_dim {hd}{how}): {regs} "
+            f"registers, no spill; {plan.threads} threads, "
+            f"{plan.smem_bytes} B dynamic shared memory, {plan.block_q} "
+            f"query rows x {plan.block_k} keys, {plan.stages} K/V stages")
+
+
 def ptxas_entries(source, match):
     """{mangled name: [registers, spill-store bytes, spill-load bytes]} of
     the entries whose name contains ``match`` in ``source``'s ``ptxas
@@ -4965,6 +5009,11 @@ def main() -> int:
     # keep bits) in registers: head_dim 128 without options, head_dim 64
     # without them, with the bias row and with dropout
     fwd = check_ptxas("flash_attention_fwd.cu", "flash_fwd_sm90", entries=4)
+    # nine f32 forward entries (head_dim 64, 128, 256; without an
+    # option, with the bias row, with dropout), which keep S, O and, at
+    # head_dim 64, Q's split fragments in registers
+    tf = check_ptxas("flash_attention_fwd.cu", "flash_fwd_tf32x3",
+                     entries=9)
     # kernel 6's dynamic mode keeps its s32 sums in registers for a whole
     # item: four instantiations (64 or 128 columns, bf16 or f32 output)
     mm = check_ptxas("int8_matmul.cu", "int8_mm_sm90", entries=4)
@@ -4984,12 +5033,13 @@ def main() -> int:
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
     log_bwd_entries(bwd)
+    log_tf32_entries(tf)
     # kernels 1-3's option instantiations (bias row, dropout: template
     # argument kOpt true) keep their Philox state and fragments in
     # registers: a spill would put them in local memory
     for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
         for name, (regs, _, _) in sorted(check_ptxas(src, "Lb1E").items()):
-            if "sm90" not in name:
+            if "sm90" not in name and "tf32x3" not in name:
                 short = re.search(r"\d(flash_[a-z0-9_]+I.*?)EEv", name)
                 log(f"  {short.group(1) if short else name}: {regs} "
                     "registers, no spill")

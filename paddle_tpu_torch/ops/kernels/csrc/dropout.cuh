@@ -110,18 +110,20 @@ __device__ __forceinline__ uint4 keep_pair(uint4 mine, bool lower,
   return make_uint4(own0, own1, got0, got1);
 }
 
-// The keep bits of a thread's 32 fragment elements (bit 4j + e for
+// The keep bits of a thread's 4 kNT fragment elements (bit 4j + e for
 // element e of n-tile j): rows row_a and row_a + 8 (queries if `rows_q`,
 // else keys), columns c0 + 8j + 2t and + 1 (keys, else queries)
+template <int kNT = 8>
 __device__ __forceinline__ uint32_t keep_bits_mma(PhiloxKey key, int b, int h,
                                                   int row_a, int c0, int g,
                                                   int t, bool rows_q,
                                                   uint32_t thresh) {
+  static_assert(kNT <= 8, "32 bits");
   const bool lower = (g & 1) == 0;
   const int row = lower ? row_a : row_a + 8;
   uint32_t keep = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kNT; ++j) {
     const int c = c0 + j * 8 + 2 * t;
     const uint4 r = keep_pair(rows_q ? keep_group(key, b, h, row, c)
                                      : keep_group(key, b, h, c, row),

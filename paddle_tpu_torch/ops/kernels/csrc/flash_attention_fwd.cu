@@ -92,25 +92,60 @@
 // "insufficient register resources") unless each commit is followed by
 // operand fences.
 //
-// The other routes keep the first design: bf16 at head_dim 256, and at
-// 128 with an option, on mma.sync m16n8k16 (K/V staged synchronously
-// through padded shared memory, P re-packed in registers, 64-row query
-// tiles of 4 warps), and f32 on a plain FMA kernel (the tensor cores
-// have no exact f32 product).  Their options run in <D, true>
-// instantiations (the option-free ones are the code they were): the
-// bias row in q's dtype, a tile's 64 (or, FMA, each lane's one) values
-// staged with K and V; dropout from the same keep mask, kept values
-// divided by f32(1 - p).
+// f32, at every head_dim, with or without an option, takes both
+// products to the tensor cores as 3xTF32: flash_fwd_tf32x3<D, kBias,
+// kDrop>.  A TF32 product keeps 10 of f32's 23 mantissa bits (about 3
+// decimal digits, beyond the f32 limit of 1e-4), so each operand x is
+// split into hi = rna_tf32(x) and lo = x - hi (read as TF32), and a.b is
+// formed as lo_a hi_b + hi_a lo_b + hi_a hi_b with f32 accumulation
+// (about 21 bits; lo_a lo_b falls below f32's last bit of the product).
+// The FMA kernel it replaces ran at 0.19 of an H100's 67 TFLOP/s of f32
+// FMA, held by shared-memory instruction throughput: a K or V load and 8
+// broadcast loads for every 8 FMAs.  Three TF32 products at 495 TFLOP/s
+// bound the translation encoder's shape (B 8, H 8, S 1,024, D 64) at
+// 0.104 ms, against 0.256 for the products on the FMA pipe.  The design:
+// - mma.sync m16n8k8: its f32 accumulator has the layout of the bf16
+//   route's m16n8k16, so keep_bits_mma gives a fragment's dropout bits
+//   unchanged (wgmma takes tf32 only K-major: V would have to be
+//   transposed and split in shared memory);
+// - blocks of 64 query rows (4 warps of 16) against key tiles of 64 at
+//   head_dim 64 (2 blocks an SM) and 32 above (the shared memory), which
+//   stream through a 2-stage cp.async ring; rows are padded so that
+//   every fragment load is free of bank conflicts;
+// - head_dim is permuted within each 16-column chunk, so that a
+//   thread's Q and K values of two k-steps are one 16-byte load; Q is
+//   split once a block (at head_dim 64 its split fragments stay in
+//   registers, above it Q stays in shared memory and is split as read),
+//   each K and V value once a tile by the warp that reads it, P in
+//   registers;
+// - S stays in registers: an n-tile of S (8 keys) is one k-step of P.V
+//   with its keys permuted (fragment columns t and t + 4 are keys 2t and
+//   2t + 1), so S's accumulator is P's A fragment as it stands, and V's B
+//   fragment reads keys 2t and 2t + 1 of column g;
+// - the online softmax in log2 units: one FFMA and one ex2 a score (the
+//   bias row staged beside each K tile, times log2 e), the row max and
+//   sum reduced over the quad, the mask only on the diagonal and ragged
+//   tiles; dropout's bits from keep_bits_mma, kept values divided by
+//   f32(1 - p) as the reference divides.
+//
+// The other bf16 routes keep the first design: head_dim 256, and 128
+// with an option, on mma.sync m16n8k16 (K/V staged synchronously through
+// padded shared memory, P re-packed in registers, 64-row query tiles of
+// 4 warps).  Their options run in <D, true> instantiations (the
+// option-free ones are the code they were): the bias row in q's dtype, a
+// tile's 64 values staged with K and V; dropout from the same keep mask,
+// kept values divided by f32(1 - p).
 //
 // The keep mask is Philox4x32-10 of (seed, b, h, q, k) (dropout.cuh),
 // the seed an int64 read from device memory, so the backward and a
 // recomputed forward regenerate the same mask on any route.
 //
 // Numerics follow the Pallas kernel: s = (q.k)*scale in f32 (+ the bias
-// row), masked scores -1e30, running max/denominator in f32,
-// probabilities rounded to bf16 for the P.V product (against the running
-// max of each key tile: 128 keys on the sm90 route, 64 on the mma.sync
-// route), out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+// row), masked scores -1e30, running max/denominator in f32, on the bf16
+// routes probabilities rounded to bf16 for the P.V product (against the
+// running max of each key tile: 128 keys on the sm90 route, 64 on the
+// mma.sync route), out = acc / max(l, 1e-30), lse = m + log(max(l,
+// 1e-30)).
 // Ragged sequence ends are masked here; no length needs to divide the
 // tiles.
 
@@ -379,29 +414,138 @@ flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------
-// f32 FMA path
+// f32 route: both products on the tensor cores as 3xTF32 (mma.sync)
 // ---------------------------------------------------------------------
 
-constexpr int kRowsF = 8;               // query rows per warp
-constexpr int kBQF = kWarps * kRowsF;   // 32 query rows per block
-constexpr int kBKF = 32;                // keys per tile: one per lane
+namespace tf32 {
 
-template <int D, bool kOpt>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(Params p) {
+constexpr int kBQ = 16 * kWarps;   // query rows per block: 16 a warp
+constexpr int kStages = 2;         // K/V tiles in flight (cp.async)
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The route's tiles at head_dim D.  Keys come in tiles of 64 at head_dim
+// 64 and of 32 above it (the ring's shared memory).  At head_dim 64 Q's
+// split fragments stay in registers for the whole block; above it Q is
+// staged once in shared memory and split as it is read.  Row pitches
+// (floats) keep every fragment load free of bank conflicts: K and Q are
+// read 16 bytes a thread, rows g and g + 1 of a quarter warp 16 banks
+// apart (D + 16); V 4 bytes a thread at keys 2t, 2t + 1 and column g,
+// the two keys 8 banks apart (D + 4).
+template <int D>
+struct Tiles {
+  static constexpr int kBK = D == 64 ? 64 : 32;     // keys per tile
+  static constexpr int kNT = kBK / 8;               // S's n-tiles
+  static constexpr bool kQRegs = D == 64;
+  static constexpr int kKPitch = D + 16;
+  static constexpr int kVPitch = D + 4;
+  static constexpr int kQPitch = D + 16;
+  static constexpr int kQFloats = kQRegs ? 0 : kBQ * kQPitch;
+  static constexpr int kStageFloats = kBK * (kKPitch + kVPitch);
+  // blocks an SM holds: 2 below head_dim 256 (shared memory would take 3
+  // at 64, but 3 cap the registers at 168, where the options spill and
+  // every entry ran slower: PERF.md section 6), 1 at 256
+  static constexpr int kMinBlocks = D == 256 ? 1 : 2;
+  // Q (above head_dim 64), the ring's K and V stages and, with the bias
+  // row, each stage's kBK values (f32, times log2 e)
+  static constexpr int kSmemBytes = 4 * (kQFloats + kStages * kStageFloats);
+  static constexpr int kSmemBiasBytes = kSmemBytes + 4 * kStages * kBK;
+  static_assert(kSmemBiasBytes <= 232448, "a block's shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  // `bytes` < 16 fills the rest of the 16 with zeros (0: reads nothing)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest,
+// ties away: the bits plus half the last kept bit, the low 13 cleared),
+// lo = x - hi exactly, of which the tensor cores read the top 19 bits
+// (TF32 truncation).  The add and the mask are two integer instructions;
+// cvt.rna.tf32.f32 is no single instruction on sm_90a: ptxas expands
+// each into about three (a compare, a select, integer arithmetic), and
+// with it for hi and lo the kernel ran 1.28x slower (PERF.md section 6)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_1688(float (&c)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: lo.hi + hi.lo + hi.hi, the small terms first (the
+// dropped lo.lo is below f32's last bit of the product)
+__device__ __forceinline__ void mma_3x(float (&c)[4], const uint32_t* ah,
+                                       const uint32_t* al, uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0,
+                                       uint32_t bl1) {
+  mma_1688(c, al, bh0, bh1);
+  mma_1688(c, ah, bl0, bl1);
+  mma_1688(c, ah, bh0, bh1);
+}
+
+// A k-step pair's split A fragments of Q from rows g (qa) and g + 8 (qb),
+// columns 4t .. 4t + 3 of a 16-column chunk: head_dim is permuted within
+// the chunk so that step s's fragment columns t and t + 4 are columns
+// 4t + 2s and 4t + 2s + 1 (K's B fragments are read the same way), which
+// makes a thread's four columns one 16-byte load.  A fragment order:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+__device__ __forceinline__ void split_q(float4 qa, float4 qb,
+                                        uint32_t (&hi)[2][4],
+                                        uint32_t (&lo)[2][4]) {
+  split_tf32(qa.x, hi[0][0], lo[0][0]);
+  split_tf32(qb.x, hi[0][1], lo[0][1]);
+  split_tf32(qa.y, hi[0][2], lo[0][2]);
+  split_tf32(qb.y, hi[0][3], lo[0][3]);
+  split_tf32(qa.z, hi[1][0], lo[1][0]);
+  split_tf32(qb.z, hi[1][1], lo[1][1]);
+  split_tf32(qa.w, hi[1][2], lo[1][2]);
+  split_tf32(qb.w, hi[1][3], lo[1][3]);
+}
+
+// One block: 64 query rows of one (head, batch), 16 a warp, against the
+// key tiles of the causal range (kBias: the bias row; kDrop: dropout).
+template <int D, bool kBias, bool kDrop>
+__global__ void __launch_bounds__(kThreads, Tiles<D>::kMinBlocks)
+flash_fwd_tf32x3(Params p) {
+  static_assert(!(kBias && kDrop), "dropout does not take a bias");
+  using T = Tiles<D>;
+  constexpr int kBK = T::kBK, kNT = T::kNT, kOT = D / 8, kChunks = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);     // [kBQF][D]
-  float* Ks = Qs + kBQF * D;                          // [kBKF][D+1]
-  float* Vs = Ks + kBKF * (D + 1);                    // [kBKF][D]
-  float* Ps = Vs + kBKF * D;                          // [kWarps][kRowsF][kBKF]
+  float* Qs = reinterpret_cast<float*>(smem_raw);    // [kBQ][kQPitch]
+  float* Ks = Qs + T::kQFloats;                      // [stage][kBK][kKPitch]
+  float* Vs = Ks + kStages * kBK * T::kKPitch;       // [stage][kBK][kVPitch]
+  float* Bs = Vs + kStages * kBK * T::kVPitch;       // [stage][kBK]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = qt * kBQF;
+  const int q0 = qt * kBQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;       // fragment row group
+  const int t = lane % 4;       // thread in the quad
+  const int wrow0 = q0 + warp * 16;
+  const int row_a = wrow0 + g;  // this thread's rows row_a, row_a + 8
+  const int row_b = row_a + 8;
 
   const float* qg = reinterpret_cast<const float*>(p.q) + b * p.q_sb
                     + h * p.q_sh;
@@ -409,115 +553,247 @@ flash_fwd_f32(Params p) {
                     + hk * p.k_sh;
   const float* vg = reinterpret_cast<const float*>(p.v) + b * p.v_sb
                     + hk * p.v_sh;
-
-  for (int e = threadIdx.x; e < kBQF * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    Qs[e] = (q0 + r < p.Sq) ? qg[(long long)(q0 + r) * p.q_ss + d] : 0.f;
-  }
-
-  constexpr int kCols = D / 32;   // output columns per lane
-  float acc[kRowsF][kCols];
-  float m_r[kRowsF], l_r[kRowsF];
-#pragma unroll
-  for (int r = 0; r < kRowsF; ++r) {
-    m_r[r] = kNegInf;
-    l_r[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-  const int row0 = q0 + warp * kRowsF;
-  const int kv_end = p.causal ? min(p.Sk, q0 + kBQF) : p.Sk;
-  const int n_tiles = (kv_end + kBKF - 1) / kBKF;
-  float* Pw = Ps + warp * kRowsF * kBKF;
   const float* bg = reinterpret_cast<const float*>(p.bias) + b * p.bias_sb;
+  const int kv_end = p.causal ? min(p.Sk, q0 + kBQ) : p.Sk;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  // tile kt's K and V rows into stage kt % kStages (rows past Sk read
+  // nothing and are zero), and with the bias row its values times log2 e
+  // (ordinary loads: a row shared by the batch has batch stride 0)
+  auto load_tile = [&](int kt) {
+    const int s = kt % kStages, k0 = kt * kBK;
+    float* kd = Ks + s * kBK * T::kKPitch;
+    float* vd = Vs + s * kBK * T::kVPitch;
+    for (int c = threadIdx.x; c < kBK * (D / 4); c += kThreads) {
+      const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+      const bool ok = k0 + r < p.Sk;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(sm90::smem_u32(kd + r * T::kKPitch + c4),
+                 kg + row * p.k_ss + c4, ok ? 16 : 0);
+      cp_async16(sm90::smem_u32(vd + r * T::kVPitch + c4),
+                 vg + row * p.v_ss + c4, ok ? 16 : 0);
+    }
+    if constexpr (kBias) {
+      for (int i = threadIdx.x; i < kBK; i += kThreads)
+        Bs[s * kBK + i] = k0 + i < p.Sk ? bg[k0 + i] * sm90::kLog2e : 0.f;
+    }
+  };
+
+  // Q: at head_dim 64 each thread loads its own fragments' values from
+  // device memory and keeps them split for the whole block; above it the
+  // block stages Q in shared memory with tile 0, split as it is read
+  uint32_t qh[T::kQRegs ? kChunks : 1][2][4];
+  uint32_t ql[T::kQRegs ? kChunks : 1][2][4];
+  if constexpr (!T::kQRegs) {
+    for (int c = threadIdx.x; c < kBQ * (D / 4); c += kThreads) {
+      const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+      const bool ok = q0 + r < p.Sq;
+      cp_async16(sm90::smem_u32(Qs + r * T::kQPitch + c4),
+                 qg + (ok ? (long long)(q0 + r) : 0) * p.q_ss + c4,
+                 ok ? 16 : 0);
+    }
+  }
+  // the ring's first kStages - 1 tiles (a group each, Q's in the first)
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < n_tiles) load_tile(kt);
+    cp_async_commit();
+  }
+  if constexpr (T::kQRegs) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = 16 * c + 4 * t;
+      const float4 qa = row_a < p.Sq ? __ldg(reinterpret_cast<const float4*>(
+                            qg + (long long)row_a * p.q_ss + col)) : zero;
+      const float4 qb = row_b < p.Sq ? __ldg(reinterpret_cast<const float4*>(
+                            qg + (long long)row_b * p.q_ss + col)) : zero;
+      split_q(qa, qb, qh[c], ql[c]);
+    }
+  }
+
+  float o[kOT][4];
+#pragma unroll
+  for (int n = 0; n < kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf;   // running max (log2 units with a bias)
+  float l_a = 0.f, l_b = 0.f;           // the thread's partial sums of P
+  // the softmax's factor: scores with the bias row are formed in log2
+  // units first (S scale log2 e + bias log2 e), so theirs is 1
+  const float scale_log2 = p.scale * sm90::kLog2e;
+  const float cf = kBias ? 1.f : scale_log2;
   PhiloxKey key{0u, 0u};
-  if (kOpt && p.drop.seed != nullptr) key = philox_key(p.drop.seed);
+  if constexpr (kDrop) key = philox_key(p.drop.seed);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBKF;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kBKF * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      const bool ok = k0 + r < p.Sk;
-      Ks[r * (D + 1) + d] = ok ? kg[(long long)(k0 + r) * p.k_ss + d] : 0.f;
-      Vs[r * D + d] = ok ? vg[(long long)(k0 + r) * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
+    // tile kt + kStages - 1 into the stage tile kt - 1 left
+    if (kt + kStages - 1 < n_tiles) load_tile(kt + kStages - 1);
+    cp_async_commit();         // (empty past the last tile)
+    cp_async_wait<kStages - 1>();   // tile kt (and Q) landed here
+    __syncthreads();           // ... and for every thread
+    const int s = kt % kStages, k0 = kt * kBK;
+    // a warp whose 16 rows precede every key of the tile skips it
+    if (!(p.causal && k0 > wrow0 + 15)) {
+      const float* kt_s = Ks + s * kBK * T::kKPitch;
+      const float* vt_s = Vs + s * kBK * T::kVPitch;
 
-    // lane = key column
-    float s[kRowsF];
+      // S = Q K^T: 16 x kBK a warp, kNT n-tiles of 8 keys; each chunk of
+      // 16 head_dim columns is two k-steps (columns permuted, split_q)
+      float sc[kNT][4];
 #pragma unroll
-    for (int r = 0; r < kRowsF; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * (D + 1);
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d];
+      for (int j = 0; j < kNT; ++j)
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      // one chunk's two k-steps against every n-tile
+      auto qk_chunk = [&](int c, const uint32_t (&ah)[2][4],
+                          const uint32_t (&al)[2][4]) {
 #pragma unroll
-      for (int r = 0; r < kRowsF; ++r)
-        s[r] = fmaf(Qs[(warp * kRowsF + r) * D + d], kv, s[r]);
-    }
-    const int kp = k0 + lane;
-    float bv = 0.f;
-    if (kOpt && p.bias != nullptr && kp < p.Sk) bv = bg[kp];
-    // dropout: bit r for row row0 + r at this lane's key
-    const uint32_t keep = (kOpt && p.drop.seed != nullptr)
-                              ? keep_bits_fma(key, b, h, row0, kp, lane,
-                                              true, p.drop.thresh)
-                              : 0u;
-    float alpha[kRowsF];
+        for (int j = 0; j < kNT; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              kt_s + (j * 8 + g) * T::kKPitch + 16 * c + 4 * t);
+          uint32_t bh[4], bl[4];
+          split_tf32(kv.x, bh[0], bl[0]);
+          split_tf32(kv.y, bh[1], bl[1]);
+          split_tf32(kv.z, bh[2], bl[2]);
+          split_tf32(kv.w, bh[3], bl[3]);
+          mma_3x(sc[j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+          mma_3x(sc[j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+        }
+      };
 #pragma unroll
-    for (int r = 0; r < kRowsF; ++r) {
-      float sv = s[r] * p.scale;
-      if (kOpt) sv += bv;
-      if (kp >= p.Sk || (p.causal && kp > row0 + r)) sv = kNegInf;
-      float mx = sv;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float pe = expf(sv - m_new);
-      float sum = pe;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      alpha[r] = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha[r] + sum;
-      m_r[r] = m_new;
-      // the denominator keeps the undropped P; P.V takes P * keep / (1-p)
-      Pw[r * kBKF + lane] = !(kOpt && p.drop.seed != nullptr) ? pe
-                            : (keep >> r) & 1u ? pe / p.drop.keep_p : 0.f;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      float pv[kRowsF];
-#pragma unroll
-      for (int r = 0; r < kRowsF; ++r) pv[r] = 0.f;
-      for (int n = 0; n < kBKF; ++n) {
-        const float vv = Vs[n * D + lane + 32 * c];
-#pragma unroll
-        for (int r = 0; r < kRowsF; ++r)
-          pv[r] = fmaf(Pw[r * kBKF + n], vv, pv[r]);
+      for (int c = 0; c < kChunks; ++c) {
+        if constexpr (T::kQRegs) {
+          qk_chunk(c, qh[c], ql[c]);
+        } else {
+          const float* qw = Qs + (warp * 16 + g) * T::kQPitch + 16 * c
+                            + 4 * t;
+          uint32_t ah[2][4], al[2][4];
+          split_q(*reinterpret_cast<const float4*>(qw),
+                  *reinterpret_cast<const float4*>(qw + 8 * T::kQPitch),
+                  ah, al);
+          qk_chunk(c, ah, al);
+        }
       }
+
+      // the online softmax: element e of n-tile j is row row_a (+8 if e
+      // > 1), key k0 + 8j + 2t + (e & 1); rows reduce over the quad
+      if constexpr (kBias) {
+        const float* brow = Bs + s * kBK + 2 * t;
 #pragma unroll
-      for (int r = 0; r < kRowsF; ++r)
-        acc[r][c] = acc[r][c] * alpha[r] + pv[r];
+        for (int j = 0; j < kNT; ++j) {
+          const float2 b2 = *reinterpret_cast<const float2*>(brow + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[j][e] = fmaf(sc[j][e], scale_log2, (e & 1) ? b2.y : b2.x);
+        }
+      }
+      if (k0 + kBK > p.Sk || (p.causal && k0 + kBK - 1 > wrow0)) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = k0 + 8 * j + 2 * t + (e & 1);
+            if (kp >= p.Sk || (p.causal && kp > (e < 2 ? row_a : row_b)))
+              sc[j][e] = kNegInf;
+          }
+      }
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      // exactly 1 where the running max did not move
+      const float alpha_a = sm90::ex2((m_a - mx_a) * cf);
+      const float alpha_b = sm90::ex2((m_b - mx_b) * cf);
+      m_a = mx_a;
+      m_b = mx_b;
+      const float mc_a = mx_a * cf, mc_b = mx_b * cf;
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = sm90::ex2(fmaf(sc[j][e], cf, e < 2 ? -mc_a : -mc_b));
+          sc[j][e] = pe;
+          if (e < 2) rs_a += pe;
+          else rs_b += pe;
+        }
+      }
+      l_a = l_a * alpha_a + rs_a;
+      l_b = l_b * alpha_b + rs_b;
+#pragma unroll
+      for (int n = 0; n < kOT; ++n) {
+        o[n][0] *= alpha_a;
+        o[n][1] *= alpha_a;
+        o[n][2] *= alpha_b;
+        o[n][3] *= alpha_b;
+      }
+      if constexpr (kDrop) {
+        // the denominator and the LSE keep the undropped P; P.V takes P
+        // keep / (1 - p)
+        const uint32_t keep = keep_bits_mma<kNT>(key, b, h, row_a, k0, g, t,
+                                                 true, p.drop.thresh);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[j][e] = (keep >> (4 * j + e)) & 1u
+                           ? sc[j][e] / p.drop.keep_p : 0.f;
+      }
+
+      // O += P V: n-tile j of S (8 keys) is one k-step, its keys permuted
+      // so that S's accumulator is P's A fragment: fragment columns t and
+      // t + 4 are keys 2t and 2t + 1, V's B fragment rows alike
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[j][0], ph[0], pl[0]);
+        split_tf32(sc[j][2], ph[1], pl[1]);
+        split_tf32(sc[j][1], ph[2], pl[2]);
+        split_tf32(sc[j][3], ph[3], pl[3]);
+        const float* vr = vt_s + (8 * j + 2 * t) * T::kVPitch + g;
+#pragma unroll
+        for (int n = 0; n < kOT; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[8 * n], bh0, bl0);
+          split_tf32(vr[T::kVPitch + 8 * n], bh1, bl1);
+          mma_3x(o[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
     }
-    __syncwarp();
+    __syncthreads();           // stage s read before it is refilled
   }
 
+  // full row sums, normalise, store (rows past Sq are not written)
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
   float* og = reinterpret_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int r = 0; r < kRowsF; ++r) {
-    const int row = row0 + r;
-    if (row >= p.Sq) continue;
-    const float l = fmaxf(l_r[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      og[(long long)row * p.o_ss + lane + 32 * c] = acc[r][c] / l;
-    if (p.lse != nullptr && lane == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + row] = m_r[r] + logf(l);
+  for (int n = 0; n < kOT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (row_a < p.Sq)
+      *reinterpret_cast<float2*>(og + (long long)row_a * p.o_ss + col) =
+          make_float2(o[n][0] / l_a, o[n][1] / l_a);
+    if (row_b < p.Sq)
+      *reinterpret_cast<float2*>(og + (long long)row_b * p.o_ss + col) =
+          make_float2(o[n][2] / l_b, o[n][3] / l_b);
+  }
+  if (p.lse != nullptr && t == 0) {
+    const float ls = kBias ? kLn2 : p.scale;
+    float* lg = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (row_a < p.Sq) lg[row_a] = m_a * ls + logf(l_a);
+    if (row_b < p.Sq) lg[row_b] = m_b * ls + logf(l_b);
   }
 }
+
+}  // namespace tf32
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
@@ -529,8 +805,9 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-// `opt`: a bias row or dropout, taken by the <D, true> kernels.  bf16 at
-// head_dim 64, and at 128 without options, is the sm90 route's
+// `opt`: a bias row or dropout, taken by the bf16 <D, true> kernels (bf16
+// at head_dim 64, and at 128 without options, is the sm90 route's); f32
+// takes the 3xTF32 kernel of its option
 template <int D>
 cudaError_t run(const Params& p, int B, int is_bf16, bool opt,
                 cudaStream_t stream) {
@@ -550,11 +827,18 @@ cudaError_t run(const Params& p, int B, int is_bf16, bool opt,
       }
     }
   }
-  const size_t smem = (size_t)(kBQF * D + kBKF * (D + 1) + kBKF * D
-                               + kWarps * kRowsF * kBKF) * sizeof(float);
-  dim3 grid((p.Sq + kBQF - 1) / kBQF, p.H, B);
-  if (opt) return launch(flash_fwd_f32<D, true>, grid, smem, stream, p);
-  return launch(flash_fwd_f32<D, false>, grid, smem, stream, p);
+  using T = tf32::Tiles<D>;
+  dim3 grid((p.Sq + tf32::kBQ - 1) / tf32::kBQ, p.H, B);
+  if (p.bias != nullptr && p.drop.seed != nullptr)
+    return cudaErrorInvalidValue;   // the reference refuses both
+  if (p.bias != nullptr)
+    return launch(tf32::flash_fwd_tf32x3<D, true, false>, grid,
+                  T::kSmemBiasBytes, stream, p);
+  if (p.drop.seed != nullptr)
+    return launch(tf32::flash_fwd_tf32x3<D, false, true>, grid,
+                  T::kSmemBytes, stream, p);
+  return launch(tf32::flash_fwd_tf32x3<D, false, false>, grid,
+                T::kSmemBytes, stream, p);
 }
 
 // ---------------------------------------------------------------------
@@ -1166,17 +1450,18 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The mma.sync and FMA routes: q/k/v/o (B, H, S, D) views with unit
-// stride on D; strides in elements.  lse: contiguous (B, H, Sq) f32, or
-// null.  The options: `bias`, a [B, 1, 1, Sk] row in q's dtype with unit
-// stride on Sk and batch stride `bias_sb` (elements), added to the scaled
-// scores, or null; `seed`, an int64 in device memory, or null: with it
-// each probability is kept iff its Philox bits are >= `thresh` (floor(p *
-// 2^32)) and a kept one divided by `keep_p` (f32(1 - p)) before P.V,
-// while the denominator and the LSE keep the undropped P.  bf16 is
-// taken here at head_dim 256, and at 128 only with an option: head_dim
-// 64, and 128 without options, are the sm90 route's.  Returns the CUDA
-// error of the launch (0 on success).
+// The mma.sync and 3xTF32 routes: q/k/v/o (B, H, S, D) views with unit
+// stride on D, 16-byte aligned rows; strides in elements.  lse:
+// contiguous (B, H, Sq) f32, or null.  The options: `bias`, a [B, 1, 1,
+// Sk] row in q's dtype with unit stride on Sk and batch stride `bias_sb`
+// (elements), added to the scaled scores, or null; `seed`, an int64 in
+// device memory, or null: with it each probability is kept iff its
+// Philox bits are >= `thresh` (floor(p * 2^32)) and a kept one divided
+// by `keep_p` (f32(1 - p)) before P.V, while the denominator and the LSE
+// keep the undropped P.  f32 takes one option at most.  bf16 is taken
+// here at head_dim 256, and at 128 only with an option: head_dim 64, and
+// 128 without options, are the sm90 route's.  Returns the CUDA error of
+// the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, void* lse, int B, int H, int Hkv, int Sq,
                         int Sk, int D, const void* bias, long long bias_sb,
@@ -1188,8 +1473,21 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long o_ss, int causal, float scale, int is_bf16,
                         void* stream) {
   const bool opt = bias != nullptr || seed != nullptr;
+  // f32 rows of 16 bytes (the 3xTF32 kernel's cp.async and vector
+  // loads): the start aligned, the stride of a dimension longer than one
+  // a multiple of 4 floats
+  auto rows16 = [&](const void* ptr, long long sb, long long sh,
+                    long long ss, int h, int s) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0
+           && (B == 1 || sb % 4 == 0) && (h == 1 || sh % 4 == 0)
+           && (s == 1 || ss % 4 == 0);
+  };
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0
       || (is_bf16 && (D == 64 || (D == 128 && !opt)))
+      || (!is_bf16 && ((bias != nullptr && seed != nullptr)
+                       || !rows16(q, q_sb, q_sh, q_ss, H, Sq)
+                       || !rows16(k, k_sb, k_sh, k_ss, Hkv, Sk)
+                       || !rows16(v, v_sb, v_sh, v_ss, Hkv, Sk)))
       || (seed != nullptr && !(keep_p > 0.f && keep_p <= 1.f)))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, static_cast<float*>(lse), H, Hkv, Sq, Sk,

@@ -15,11 +15,13 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: kernel 1
   without them -- ERNIE-3.0-base pretraining, the translation encoder's
   bias row in bf16 -- takes the Hopper kernel (TMA loads into a ring of
   2 or 4 stages, ``wgmma`` for both products, a producer warp and two
-  consumer warpgroups, 128-row query and 128-key tiles); the other
-  dtypes and head dims take the first kernel (``mma.sync`` or FMA, 64-
-  or 32-row tiles).  :func:`flash_fwd_plan` computes the route, tiles,
-  grid and TMA strides in Python, and the wrapper passes them to the C
-  entry point.
+  consumer warpgroups, 128-row query and 128-key tiles); other bf16
+  head dims take the first kernel (``mma.sync``, 64-row tiles); f32
+  takes both products on the tensor cores as 3xTF32 (each operand split
+  into two TF32 parts, three ``mma.sync`` products summed in f32; 64-row
+  query tiles, a ``cp.async`` ring of key tiles).  :func:`flash_fwd_plan`
+  computes the route, tiles, grid and TMA strides in Python, and the
+  wrapper passes them to the C entry point.
 - The backward (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's:
   a dK/dV kernel, whose work item is (key tile, kv head, batch) looping
   over the query tiles of every head of its group, and a dQ kernel,
@@ -55,9 +57,10 @@ backward kernels, all through the registry (kernels for CUDA tensors,
 plain versions for CPU tensors or where ``mode`` says so).
 
 The reference's two options run on the Hopper routes at bf16 head_dim
-64 (forward and backward) and on the first kernels otherwise
-(``mma.sync`` for bf16 at head_dim 128 and 256, FMA for f32;
-``flash_fwd_plan`` / ``flash_bwd_plan`` record the route):
+64 (forward and backward), on the 3xTF32 forward for f32, and on the
+first kernels otherwise (``mma.sync`` for bf16 at head_dim 128 and 256,
+FMA for the f32 backward; ``flash_fwd_plan`` / ``flash_bwd_plan`` record
+the route):
 
 - **bias**: an additive row in q's dtype (padding masks) that
   broadcasts to [B, 1, 1, Sk] (a row shared by the batch is read with
@@ -493,6 +496,21 @@ def _sm90_fwd(D, bias=False, dropout=False):
                 + 8 * (2 + 4 * stages))
 
 
+# the forward's f32 route, as compiled in csrc/flash_attention_fwd.cu
+# (namespace tf32, Tiles<D>): 64 query rows (four warps of 16) against
+# key tiles of 64 at head_dim 64 and 32 above, in a ring of 2 stages
+# filled by cp.async; 128 threads.  Shared memory (f32): above head_dim
+# 64 Q (64 rows of D + 16; at 64 Q's fragments stay in registers), then
+# each stage's K (rows of D + 16), V (rows of D + 4) and, with the bias
+# row, its key tile's values.  One block per (query tile, head, batch).
+def _tf32x3_fwd(D, bias=False):
+    bk = 64 if D == 64 else 32
+    q = 0 if D == 64 else 64 * (D + 16)
+    stage = bk * ((D + 16) + (D + 4)) + (bk if bias else 0)
+    return dict(block_q=64, block_k=bk, stages=2, threads=128,
+                smem_bytes=4 * (q + 2 * stage))
+
+
 # SMs of an H100 SXM: the grid's bound where no card is at hand to ask
 H100_SMS = 132
 
@@ -508,7 +526,8 @@ class FwdPlan:
     """How the forward kernel runs on given q, k, v (B, H, S, D)."""
 
     route: str          # "tma_wgmma" (bf16: D=64, D=128 without an
-                        # option), "mma_sync" (other bf16) or "fma" (f32)
+                        # option), "mma_sync" (other bf16) or "tf32x3"
+                        # (f32)
     block_q: int        # query rows per block
     block_k: int        # keys per tile: the rounding tile of P
     stages: int         # K/V tiles in flight (1: loaded synchronously)
@@ -539,7 +558,7 @@ def flash_fwd_plan(q, k, v, bias=None, dropout_p=0.0):
     bf16 takes the Hopper route at head_dim 64, with or without the bias
     row or dropout, and at head_dim 128 without them (with one the
     ``mma.sync`` route takes head_dim 128, and head_dim 256 always); f32
-    the FMA route.  A tensor it cannot take as is (``as_is`` False) is
+    the 3xTF32 route.  A tensor it cannot take as is (``as_is`` False) is
     made row-major by :func:`_rowmajor` first, never sent to the other
     kernel.  Pure shape arithmetic: it runs on CPU tensors too."""
     B, H, Sq, D = q.shape
@@ -559,8 +578,10 @@ def flash_fwd_plan(q, k, v, bias=None, dropout_p=0.0):
         smem = (bq + 2 * bk) * (D + 8) * 2 + (bk * 4 if opts else 0)
         tma = ()
     else:
-        route, bq, bk, stages, threads = "fma", 32, 32, 1, 128
-        smem = (bq * D + bk * (D + 1) + bk * D + 4 * 8 * bk) * 4
+        cfg = _tf32x3_fwd(D, bias is not None)
+        route, bq, bk, stages, threads, smem = (
+            "tf32x3", cfg["block_q"], cfg["block_k"], cfg["stages"],
+            cfg["threads"], cfg["smem_bytes"])
         tma = ()
     n_qt = -(-Sq // bq)
     if route == "tma_wgmma":

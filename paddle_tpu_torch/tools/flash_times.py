@@ -25,11 +25,16 @@ queued, in turns with SDPA:
   version within ``CARD_TOL_BWD``;
 - kernel 1 at row 1's shapes (the 7B prefill, B 1, H 32, and the
   proxy's forward with its LSE, B 4, H 16; S 2,048, D 128, causal), in
-  turns with SDPA, held alike.
+  turns with SDPA, held alike;
+- kernel 1 in f32: with the bias row at the translation shape
+  (``f32_bias``, the translation path's route) and at ERNIE's shape with
+  dropout p = 0.1 and without an option (``f32_fwd``), held to the
+  chunked plain version within ``CARD_TOL``.
 
 It prints one line ``T {json}`` a tree, with the registers and spills
-``ptxas -v`` reported for the tree's sm90 forward entries
-(``chip_smoke.ptxas_entries``); without a card it raises.
+``ptxas -v`` reported for the tree's sm90 forward entries and its f32
+forward entries (``chip_smoke.ptxas_entries``); without a card it
+raises.
 """
 from __future__ import annotations
 
@@ -131,6 +136,32 @@ def run_one(tree: str) -> None:
     res.update(bias=cs.bias_times(qb, kb, vb, bias), fwd_route=fplan.route,
                bias_route=bplan.route, ptxas=cs.ptxas_entries(
                    "flash_attention_fwd.cu", "flash_fwd_sm90"))
+    # f32: the bias row at the translation shape, then dropout and no
+    # option at ERNIE's shape
+    f32 = torch.float32
+    qf, kf, vf = (t.float() for t in (qb, kb, vb))
+    del qb, kb, vb
+    bias = cs._pad_bias(dev, B, S, f32, cs.SEED + 35)
+    with torch.no_grad():
+        cs.check_close(f"{tree} f32 o with the bias row",
+                       fa.flash_attention_bhsd(qf, kf, vf, bias=bias),
+                       fa.flash_attention_ref(qf, kf, vf, bias=bias),
+                       fa.CARD_TOL[f32])
+    res.update(f32_bias=cs.bias_times(qf, kf, vf, bias),
+               f32_route=fa.flash_fwd_plan(qf, kf, vf, bias=bias).route)
+    del qf, kf, vf, bias
+    q, k, v = (torch.randn(cs.ERNIE_TRAIN["batch"], 12, cs.ERNIE_TRAIN["seq"],
+                           64, device=dev, dtype=f32, generator=gen)
+               for _ in range(3))
+    with torch.no_grad():
+        cs.check_close(f"{tree} f32 o with dropout",
+                       fa.flash_attention_bhsd(q, k, v, **kw),
+                       fa.flash_attention_ref(q, k, v, **kw),
+                       fa.CARD_TOL[f32])
+    res.update(f32_fwd=cs.forward_times(q, k, v, kw),
+               ptxas_f32={n: e for m in ("flash_fwd_tf32x3", "flash_fwd_f32")
+                          for n, e in cs.ptxas_entries(
+                              "flash_attention_fwd.cu", m).items()})
     print("T " + json.dumps(res), flush=True)
 
 

@@ -12,6 +12,11 @@ of the bits).  The few instructions the compiler hoists out of the loop
 (the key, the counter words fixed for the thread) are counted as if
 they ran every tile, so the count errs by those few upward.
 
+From the command line, ``python -m paddle_tpu_torch.tools.sass_counts
+SOURCE MATCH`` builds SOURCE from the checkout's ``csrc/`` and prints,
+for each kernel whose mangled name contains MATCH, its SASS instruction
+total, its integer instructions by pipe and its commonest opcodes.
+
 The difference is split by pipe: IMAD and IMUL issue to the FMA pipe,
 the other integer instructions to the ALU pipe (Nsight Compute's kernel
 profiling guide, "Pipelines"; CUDA C++ Programming Guide, arithmetic
@@ -24,6 +29,7 @@ import collections
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 # opcodes that issue to the integer pipes: everything but floating
@@ -103,3 +109,19 @@ def keep_mask_int_ops(source: str, with_drop: str, without: str,
     extra = {p: a[p] - b[p] for p in a}
     return dict(with_dropout=a, without=b, extra=extra, scores=scores,
                 per_score={p: n / scores for p, n in extra.items()})
+
+
+def main(argv) -> int:
+    from paddle_tpu_torch.ops.kernels import _build
+    source, match = argv
+    (lib,) = _build.build([source])
+    for name, ops in sorted(sass_opcodes(lib).items()):
+        if match in name:
+            print(name, "total", sum(ops.values()), "pipes", pipes(ops))
+            print("   ", ", ".join(f"{o}:{c}"
+                                   for o, c in ops.most_common(30)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -365,7 +365,7 @@ def test_dropout_keep_mask_bitwise_on_card():
 @pytest.mark.cuda
 def test_flash_bias_row_matches_plain_on_card():
     """Kernel 1 with a [B, 1, 1, S] bias row (bf16 on the Hopper route at
-    head_dim 64, on ``mma.sync`` at 128 and 256; f32 FMA), causal or not,
+    head_dim 64, on ``mma.sync`` at 128 and 256; f32 3xTF32), causal or not,
     GQA and a ragged length, against the plain versions at the kernel's
     key tile; a rerun bitwise equal; each launch counted as ``bias``."""
     if not torch.cuda.is_available():
@@ -381,7 +381,7 @@ def test_flash_bias_row_matches_plain_on_card():
             bias = _bias_row(16, 2, 300, dt, dev)
             plan = fa.flash_fwd_plan(q, k, v, bias=bias)
             assert plan.route == (
-                "fma" if dt == torch.float32 else "tma_wgmma" if D == 64
+                "tf32x3" if dt == torch.float32 else "tma_wgmma" if D == 64
                 else "mma_sync")
             for causal in (True, False):
                 o = fa.flash_attention_bhsd(q, k, v, bias=bias,
@@ -436,7 +436,8 @@ def test_flash_bias_row_shared_by_the_batch_on_card():
 def test_flash_dropout_matches_plain_on_card():
     """Kernels 1-3 with in-kernel dropout through the autograd Function
     (p = 0.1, one seed): every head dim in bf16 (the forward's Hopper
-    route at head_dim 64, ``mma.sync`` at 128 and 256) and f32 (FMA),
+    route at head_dim 64, ``mma.sync`` at 128 and 256) and f32 (3xTF32
+    forward, FMA backward),
     causal or not, GQA; the forward and the three gradients against the
     plain versions with the same seed (bf16: the blockwise ones, the
     forward's at its key tile); a rerun bitwise equal; each launch
@@ -486,6 +487,86 @@ def test_flash_dropout_matches_plain_on_card():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         assert registry.spec(name).mode_launches == {"dropout": runs}
+
+
+@pytest.mark.cuda
+def test_flash_f32_tf32x3_route_on_card():
+    """Kernel 1's f32 route (3xTF32 on the tensor cores) at head_dim 64,
+    128 and 256, causal or not, grouped-query (4 heads over 2), a ragged
+    length (300: the last query and key tiles cut), without an option and
+    with a bias row, also one row shared by the batch: within
+    ``CARD_TOL[f32]`` of the chunked plain version, its LSE within 1e-4,
+    bitwise on a rerun, the shared row bitwise its copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the translation shape")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    runs = biased = 0
+    for D in (64, 128, 256):
+        q, k, v = (torch.from_numpy(a).to(dev)
+                   for a in _qkv(24, B=3, H=4, Hkv=2, S=300, D=D))
+        row = _bias_row(25, 3, 300, torch.float32, dev)
+        plan = fa.flash_fwd_plan(q, k, v, bias=row)
+        assert (plan.route, plan.block_q, plan.block_k) == (
+            "tf32x3", 64, 64 if D == 64 else 32)
+        for causal in (True, False):
+            for bias in (None, row, row[:1]):
+                o, lse = fa.flash_attention_bhsd(q, k, v, bias=bias,
+                                                 causal=causal,
+                                                 return_lse=True)
+                again = fa.flash_attention_bhsd(q, k, v, bias=bias,
+                                                causal=causal)
+                ro, rl = fa.flash_attention_ref(q, k, v, bias=bias,
+                                                causal=causal,
+                                                return_lse=True)
+                torch.cuda.synchronize()
+                assert torch.equal(o, again)
+                _assert_within(o, ro, fa.CARD_TOL[torch.float32])
+                assert (lse - rl).abs().max() <= 1e-4
+                runs += 2
+                biased += 0 if bias is None else 2
+            shared = fa.flash_attention_bhsd(q, k, v, bias=row[:1],
+                                             causal=causal)
+            copied = fa.flash_attention_bhsd(
+                q, k, v, bias=row[:1].expand(3, 1, 1, 300).contiguous(),
+                causal=causal)
+            torch.cuda.synchronize()
+            assert torch.equal(shared, copied)
+            runs += 2
+            biased += 2
+    spec = registry.spec("flash_attention")
+    assert spec.launches == runs and spec.mode_launches == {"bias": biased}
+
+
+@pytest.mark.cuda
+def test_flash_f32_dropout_keeps_the_backward_set_on_card():
+    """Kernel 1's f32 route with dropout keeps exactly the scores the f32
+    backward (kernels 2 and 3, FMA) keeps, from the same seed, and both
+    the keep mask's: with S = head_dim and V the identity, the forward's
+    output is the dropped weights (zero where dropped), and with dO the
+    identity dV is their transpose; at head_dim 64 and 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    seed = torch.tensor([2 ** 40 + 9], dtype=torch.int64, device=dev)
+    for D in (64, 128):
+        B, H = 2, 4
+        q, k, _ = (torch.from_numpy(a).to(dev) * 0.5
+                   for a in _qkv(26, B=B, H=H, S=D, D=D))
+        eye = torch.eye(D, device=dev).expand(B, H, D, D).contiguous()
+        v = eye.clone().requires_grad_()
+        assert fa.flash_fwd_plan(q, k, v, dropout_p=0.1).route == "tf32x3"
+        assert fa.flash_bwd_plan(q, k, v, eye, dropout_p=0.1).route == "fma"
+        o = fa.flash_attention_bhsd(q, k, v, dropout_p=0.1, seed=seed)
+        (dv,) = torch.autograd.grad(o, (v,), eye)
+        want = fa.dropout_keep_mask(seed, B, H, D, D, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(o != 0, want)
+        assert torch.equal(dv.transpose(-1, -2) != 0, want)
+    for name in ("flash_attention", "flash_attention_bwd_dkv"):
+        assert registry.spec(name).mode_launches == {"dropout": 2}
 
 
 @pytest.mark.cuda

@@ -248,6 +248,156 @@ def test_dropout_forward_is_softmax_dropped_then_v():
 
 
 # ---------------------------------------------------------------------
+# the f32 forward's arithmetic: 3xTF32 products on the tensor cores
+# ---------------------------------------------------------------------
+
+def _tf32(x):
+    """``x`` rounded to TF32 as the kernel rounds its hi part: the f32
+    bits plus 0x1000, the low 13 bits cleared (10 mantissa bits, to
+    nearest, ties away from zero: ``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """``x`` as the tensor cores read an f32 operand of a TF32 product:
+    its top 19 bits (the low 13 cleared)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """hi = x rounded to TF32, lo = x - hi (exact) as read by the tensor
+    cores."""
+    hi = _tf32(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel forms it: lo.hi + hi.lo + hi.hi of the split
+    operands, f32 sums (lo.lo dropped)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32x3_forward(q, k, v, bias, causal, keep, p, block_k):
+    """The f32 kernel's forward in plain PyTorch: key tiles of
+    ``block_k``, both products in 3xTF32, the online softmax in log2
+    units (scale log2 e folded into one multiply-add, the bias row
+    pre-scaled by log2 e), masked scores -1e30, kept probabilities divided
+    by f32(1 - p) for P.V while the denominator keeps them all, out = acc
+    / max(l, 1e-30), lse = m ln 2 (or m scale) + log(max(l, 1e-30))."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    k = k.repeat_interleave(H // k.shape[1], dim=1)
+    v = v.repeat_interleave(H // v.shape[1], dim=1)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    scale_log2 = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32) \
+        * log2e
+    cf = 1.0 if bias is not None else scale_log2
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, block_k):
+        s = _mm_3xtf32(q, k[:, :, k0:k0 + block_k].transpose(-1, -2))
+        if bias is not None:
+            s = s * scale_log2 + bias[..., k0:k0 + block_k] * log2e
+        if causal:
+            kpos = torch.arange(k0, min(k0 + block_k, Sk))
+            s = s.masked_fill(qpos < kpos[None, :], -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2((m - m_new) * cf)
+        pe = torch.exp2(s * cf - (m_new * cf)[..., None])
+        l = l * alpha + pe.sum(dim=-1)
+        if keep is not None:
+            pe = torch.where(keep[..., k0:k0 + block_k], pe
+                             / torch.tensor(1.0 - p, dtype=torch.float32),
+                             0.0)
+        acc = acc * alpha[..., None] + _mm_3xtf32(
+            pe, v[:, :, k0:k0 + block_k])
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    ls = math.log(2.0) if bias is not None else 1.0 / math.sqrt(D)
+    return acc / lc[..., None], m * ls + torch.log(lc)
+
+
+def test_tf32_split_rounds_to_nearest_away_and_keeps_21_bits():
+    """hi: 10 mantissa bits, ties away from zero (1 + 2^-11 goes up, as
+    does its negative's magnitude); lo as the tensor cores read it: hi +
+    lo within 2^-21 of x."""
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12])
+    assert _tf32(tie).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]
+    x = torch.from_numpy(_rand(np.random.RandomState(21), 4096)) * 1e3
+    hi, lo = _split(x)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
+    rel = ((hi.double() + lo.double() - x.double()).abs() / x.double().abs())
+    assert rel.max().item() <= 2 ** -21
+
+
+@pytest.mark.parametrize("case", ["plain", "causal", "gqa_ragged_causal",
+                                  "bias", "bias_ragged_causal", "dropout",
+                                  "dropout_causal", "d128_causal"])
+def test_tf32x3_arithmetic_matches_jax_kernel(case):
+    """The f32 kernel's arithmetic (3xTF32 products of hi = x rounded to
+    TF32 and lo = x - hi truncated to TF32, the online softmax in log2
+    units, at the plan's key tile) in plain PyTorch against the
+    reference's forward at f32 -- its Pallas kernel in interpret mode
+    (64-row blocks; its chunked XLA version where a ragged length leaves
+    the blocks), K and V repeated for grouped-query heads, dropout through
+    its injected ``test_mask`` -- within ``CARD_TOL[f32]``, the limit the
+    kernel is held to on the card; the LSE within 1e-5 of the port's
+    chunked plain version's.  The split keeps about 21 of f32's 24 bits:
+    one TF32 product (11 bits) would be off by about 1e-3."""
+    rng = np.random.RandomState(22)
+    D = 128 if case.startswith("d128") else 64
+    S = 200 if "ragged" in case else 128
+    B, H = 2, 4
+    Hkv = 2 if "gqa" in case else H
+    causal = "causal" in case
+    q = _rand(rng, B, H, S, D)
+    k, v = _rand(rng, B, Hkv, S, D), _rand(rng, B, Hkv, S, D)
+    bias = keep = None
+    p = 0.0
+    if case.startswith("bias"):
+        bias = np.where(rng.rand(B, S) > 0.3, 0.0, -1e9).astype(
+            np.float32)[:, None, None, :]
+        bias[..., :4] += _rand(rng, B, 1, 1, 4)
+    if case.startswith("dropout"):
+        p = 0.2
+        keep = (rng.rand(B, H, S, S) > p).astype(np.uint8)
+    tq = torch.from_numpy(q)
+    block_k = fa.flash_fwd_plan(tq, tq, tq).block_k
+    assert block_k == (64 if D == 64 else 32)
+    got, lse = _tf32x3_forward(
+        tq, torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias), causal,
+        None if keep is None else torch.from_numpy(keep).bool(), p, block_k)
+    rep = H // Hkv
+    jo = jfa.flash_attention_bhsd(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=1)),
+        jnp.asarray(np.repeat(v, rep, axis=1)),
+        bias=None if bias is None else jnp.asarray(bias),
+        test_mask=None if keep is None else jnp.asarray(keep),
+        dropout_p=p, causal=causal, block_q=64, block_k=64, interpret=True)
+    want = torch.from_numpy(np.array(jo))
+    err, share = registry.card_error(got, want, fa.CARD_TOL[torch.float32])
+    assert share <= 1.0, err
+    # the same products in one TF32 pass miss the limit
+    one_pass = torch.softmax(
+        _tf32(tq) @ _tf32(torch.from_numpy(np.repeat(k, rep, axis=1)))
+        .transpose(-1, -2) / math.sqrt(D), -1)
+    full = torch.softmax(tq @ torch.from_numpy(np.repeat(k, rep, axis=1))
+                         .transpose(-1, -2) / math.sqrt(D), -1)
+    assert (one_pass - full).abs().max().item() > 10 * err
+    _, rl = fa.flash_attention_ref(
+        tq, torch.from_numpy(k), torch.from_numpy(v),
+        bias=None if bias is None else torch.from_numpy(bias),
+        causal=causal, return_lse=True)
+    assert (lse - rl).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------
 # the keep mask
 # ---------------------------------------------------------------------
 
@@ -624,8 +774,10 @@ def test_options_take_the_hopper_route_at_d64_else_mma_sync(D, opt):
     """bf16 with an option takes the forward's Hopper route at head_dim
     64 (128 x 128 tiles, a 4-stage ring, beside each K stage the bias
     row's 128 f32 values or half the keep mask's 256 group words) and its
-    ``mma.sync`` route at 128 and 256; f32 the
-    FMA route.  The backward's dropout takes the Hopper route at
+    ``mma.sync`` route at 128 and 256; f32 the 3xTF32 route (64 query
+    rows, key tiles of 64 at head_dim 64 and 32 above, with the bias row
+    its f32 values beside each of the 2 stages; dropout adds nothing to
+    shared memory).  The backward's dropout takes the Hopper route at
     head_dim 64 and ``mma.sync`` at 128 and 256.  Without an option the
     forward's Hopper route takes bf16 at head_dim 64 and 128, the
     backward's too."""
@@ -648,8 +800,17 @@ def test_options_take_the_hopper_route_at_d64_else_mma_sync(D, opt):
             "mma_sync", 64, 64)
         # the tile's bias row (f32) beside Q, K and V
         assert plan.smem_bytes == 3 * 64 * (D + 8) * 2 + 64 * 4
-    assert fa.flash_fwd_plan(q.float(), q.float(), q.float(),
-                             **kw).route == "fma"
+    fplan = fa.flash_fwd_plan(q.float(), q.float(), q.float(), **kw)
+    bk = 64 if D == 64 else 32
+    assert (fplan.route, fplan.block_q, fplan.block_k, fplan.stages,
+            fplan.threads) == ("tf32x3", 64, bk, 2, 128)
+    # Q above head_dim 64 (rows of D + 16), each stage's K (D + 16) and V
+    # (D + 4) rows, with the bias row its bk values
+    assert fplan.smem_bytes == 4 * ((0 if D == 64 else 64 * (D + 16))
+                                    + 2 * bk * (2 * D + 20)
+                                    + (2 * bk if opt == "bias" else 0))
+    # 5 query tiles of 64 x 4 heads x 2 sequences
+    assert fplan.grid == (5, 4, 2) and fplan.tma_strides == ()
     if opt == "dropout":
         bplan = fa.flash_bwd_plan(q, q, q, q, dropout_p=0.1)
         if D == 64:

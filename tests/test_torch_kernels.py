@@ -219,16 +219,31 @@ def test_flash_plan_gqa_and_ragged():
     assert plan.tma_strides[3:6] == (256, 777 * 256, 2 * 777 * 256)
 
 
-@pytest.mark.parametrize("dtype,D,route,tile", [
-    (torch.float32, 64, "fma", 32),
-    (torch.bfloat16, 256, "mma_sync", 64),
-    (torch.float32, 128, "fma", 32)])
+@pytest.mark.parametrize("dtype,D,route,block_q,block_k,smem", [
+    # f32 on the 3xTF32 route: 64 query rows, a 2-stage cp.async ring of
+    # key tiles (64 keys at head_dim 64, 32 above), f32 rows padded to
+    # D + 16 (K; Q above head_dim 64) and D + 4 (V)
+    (torch.float32, 64, "tf32x3", 64, 64, 4 * 2 * 64 * (80 + 68)),
+    (torch.bfloat16, 256, "mma_sync", 64, 64, 3 * 64 * 264 * 2),
+    (torch.float32, 128, "tf32x3", 64, 32,
+     4 * (64 * 144 + 2 * 32 * (144 + 132))),
+    (torch.float32, 256, "tf32x3", 64, 32,
+     4 * (64 * 272 + 2 * 32 * (272 + 260)))])
 def test_flash_plan_other_routes_keep_the_first_kernel(dtype, D, route,
-                                                       tile):
+                                                       block_q, block_k,
+                                                       smem):
+    """bf16 at head_dim 256 keeps the first kernel (``mma.sync``); f32
+    takes the 3xTF32 route at every head_dim.  Both run one block of 128
+    threads per (64-row query tile, head, batch) and take q, k, v through
+    no tensor map; the shared memory fits a block's 227 KB."""
     q = torch.zeros(1, 2, 300, D, dtype=dtype)
     plan = flash_fwd_plan(q, q, q)
-    assert (plan.route, plan.block_q, plan.block_k) == (route, tile, tile)
-    assert plan.grid == (-(-300 // tile), 2, 1) and plan.tma_strides == ()
+    assert (plan.route, plan.block_q, plan.block_k) == (route, block_q,
+                                                        block_k)
+    assert (plan.threads, plan.smem_bytes) == (128, smem)
+    assert plan.smem_bytes <= 232448
+    assert plan.stages == (2 if route == "tf32x3" else 1)
+    assert plan.grid == (-(-300 // block_q), 2, 1) and plan.tma_strides == ()
 
 
 class _FakeFn:
