@@ -19,9 +19,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    of ``flash_attention_bwd.cu`` (kernels 2 and 3), in the
    option entries (bias row, dropout) of both flash sources or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
-   six ``int8_kv_attn_sm90`` entries of ``int8_kv_attention.cu`` (kernel
-   4) or the nine ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's
-   weight-only mode), or a wgmma that ptxas serialised there, fails;
+   six ``int8_kv_attn_sm90`` and sixteen ``int8_kv_rows`` entries of
+   ``int8_kv_attention.cu`` (kernel 4's two routes) or the nine
+   ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's weight-only
+   mode), or a wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes and a few more (dtypes, head dims, GQA,
    ragged lengths, the (B, S, H, D) layouts the models pass, verify
@@ -258,7 +259,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     with kernel 1's bias row against the plain versions, then
     ``greedy_translate`` and ``beam_translate`` (4 beams) of 32 tokens:
     ms per call and 6 launches of kernel 1 a call, each with the bias
-    row.
+    row;
+36. the served 7B's serving tier (the reference gateway bench's
+    workload, ``bench.py:2056-2133``, at phase 4's width): (a) kernel
+    4's many-row route (every S > 1 call) at a cold prefill (B 1, S
+    2,048), a warm suffix (B 4, S 256 from position 1,536) and a verify
+    block (B 8, S 5) within ``CARD_TOL`` of its plain version, bitwise on
+    a rerun, the cold call's rows bitwise the warm call's where they
+    overlap, timed queued beside its bound (4 D flops a valid pair and
+    head at 989 TFLOP/s against the int8 K/V and scale bytes); (b) the
+    decode route's plan unchanged at S = 1; then ``llama_7b(
+    kv_cache_dtype="int8")`` with its decoder-layer weights damped by
+    0.15 and a one-layer draft sharing its embeddings, head and first
+    layer, 8 streams of a seeded 1,536-token system prompt and 17-384
+    token tails, a cold and a warm wave of 32 greedy tokens through
+    three arms (plain; prefix sharing; prefix + speculation, ``spec_k``
+    4) and two prompts through ``generate()``: TTFT, decode ms/step,
+    accept rate, the target's iteration speedup; (c) each arm's warm
+    wave bitwise its cold one, every emitted token the argmax of its
+    arm's own arithmetic (teacher-forced), two arms' logits within
+    ``LOGIT_DIST_LIMIT`` wherever they computed from the same tokens (a
+    stream's first difference is named with its top-2 margin), and every
+    projection and the head bitwise at each row count a server issues
+    under the row floor; (d) kernel 4's
+    launches by route (rows for prefix-server prefills and verify
+    blocks, decode for decode and draft steps, no flash launch on the
+    prefix arms); (e) wave 2 hits the prefix cache, every block free
+    after ``flush_prefix_cache``; (f) a stream exported mid-decode and
+    imported into a second server, and one resubmitted with
+    ``replay_tokens``, token-identical to the plain arm; (g) a prefix +
+    speculation server whose draft is the target itself accepts
+    proposals and gives the speculation arm's streams.
 
 Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
@@ -320,10 +351,13 @@ the training run of phase 7, the ResNet run of phase 10, the wide&deep
 run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
 of phases 17 and 18, the online run of phase 20, the ResNet training
 of phase 24, the A/B of phase 27, the BERT training of phase 29, the
-BERT serving run of phase 31, the ERNIE training of phase 34 and the
-translation calls of phase 35; kernels 1-3 also carry their launches by
-mode, ``bias`` or ``dropout``, of phases 34 and 35, and their options'
-phase-33 numbers); the last line is ``{"ok": true, "device": {...}}``.
+BERT serving run of phase 31, the ERNIE training of phase 34, the
+translation calls of phase 35 and the three serving arms of phase 36;
+kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
+of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
+phase-36 launches by route, ``decode`` or ``rows``, and the many-row
+route's phase-36 (a) numbers); the last line is ``{"ok": true,
+"device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or without
 the package.
 """
@@ -4844,6 +4878,621 @@ def mt_translate(dev):
     return total, modes, row
 
 
+# ---------------------------------------------------------------------
+# phase 36: the served 7B's prefix sharing, speculation, replay,
+# migration and generate(); kernel 4's many-row route
+# ---------------------------------------------------------------------
+
+# the reference gateway bench's workload at the 7B serving width
+# (bench.py:2056-2133): a shared system prompt, per-stream tails, two
+# waves (cold, warm), greedy; the target's decoder-layer weights damped
+# by 0.15 (not the layer norms) and a one-layer draft sharing the
+# target's embeddings, head and first layer
+GATEWAY = dict(streams=8, system=1536, tail=(17, 384), new=32, spec_k=4,
+               damp=0.15, slots=8, block_size=16, max_len=2048)
+
+
+def gateway_models(dev):
+    """The damped 7B target (bf16 weights from the seed, int8 pools) and
+    its one-layer draft, whose embeddings, first layer, final norm and
+    head are the target's own modules."""
+    from paddle_tpu_torch.text.models import LlamaForCausalLM, llama_7b
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(llama_7b(kv_cache_dtype="int8"), device=dev,
+                             dtype="bfloat16", generator=gen)
+    model.eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".layers." in name and "layernorm" not in name:
+                p.mul_(GATEWAY["damp"])
+    draft = LlamaForCausalLM(
+        llama_7b(kv_cache_dtype="int8", num_hidden_layers=1), device=dev,
+        dtype="bfloat16", generator=torch.Generator(device=dev).manual_seed(
+            SEED + 36))
+    draft.eval()
+    draft.model.embed_tokens = model.model.embed_tokens
+    draft.model.layers[0] = model.model.layers[0]
+    draft.model.norm = model.model.norm
+    draft.lm_head = model.lm_head
+    torch.cuda.synchronize()
+    return model, draft
+
+
+def gateway_prompts(vocab):
+    rng = np.random.default_rng(SEED + 36)
+    system = rng.integers(1, vocab, GATEWAY["system"]).astype(np.int32)
+    lo, hi = GATEWAY["tail"]
+    tails = rng.integers(lo, hi + 1, GATEWAY["streams"])
+    return [np.concatenate([system, rng.integers(1, vocab, n).astype(
+        np.int32)]) for n in tails]
+
+
+def _gateway_server(model, **kw):
+    from paddle_tpu_torch.inference import GenerationServer
+    g = GATEWAY
+    return GenerationServer(model, num_slots=g["slots"],
+                            block_size=g["block_size"],
+                            max_model_len=g["max_len"],
+                            request_timeout_s=900.0, **kw)
+
+
+def gateway_arm(name, model, prompts, **kw):
+    """One arm: a fresh server, a cold and a warm wave of the prompts
+    (32 greedy tokens each), the launch counts of the two waves by
+    kernel 4's route, the prefix cache flushed after them."""
+    from paddle_tpu_torch.ops.kernels import registry
+    srv = _gateway_server(model, **kw)
+    srv.start()
+    waves = []
+    registry.reset_counts()                  # the main path starts here
+    for w in range(2):
+        hit0 = srv.stats()["prefix_hit_tokens"]
+        t0 = time.perf_counter()
+        streams = [srv.submit(p, max_new_tokens=GATEWAY["new"])
+                   for p in prompts]
+        outs = [s.result(timeout=900) for s in streams]
+        wall = time.perf_counter() - t0
+        ttft = sorted(s.ttft_s * 1e3 for s in streams)
+        waves.append(dict(outs=outs, wall_s=wall,
+                          ttft_ms_median=statistics.median(ttft),
+                          ttft_ms_max=ttft[-1],
+                          hit_tokens=srv.stats()["prefix_hit_tokens"]
+                          - hit0))
+    counts = registry.launch_counts()        # ... and ends here
+    modes = dict(registry.spec("int8_kv_attention").mode_launches)
+    st = srv.stats()
+    srv.flush_prefix_cache()
+    flushed = srv.stats()
+    res = dict(arm=name, waves=waves, counts=counts, modes=modes, stats=st,
+               server=srv)
+    if flushed["free_blocks"] != flushed["total_blocks"] or \
+            flushed["cached_blocks"] or flushed["prefix_entries"]:
+        fail(f"phase 36 {name}: after flush_prefix_cache "
+             f"{flushed['free_blocks']} of {flushed['total_blocks']} "
+             f"blocks free, {flushed['cached_blocks']} cached")
+    ds = max(st["decode_steps"], 1)
+    log(f"phase 36 {name}: wave 1 TTFT median {waves[0]['ttft_ms_median']:.1f}"
+        f" / max {waves[0]['ttft_ms_max']:.1f} ms, wave 2 "
+        f"{waves[1]['ttft_ms_median']:.1f} / {waves[1]['ttft_ms_max']:.1f} "
+        f"ms; walls {waves[0]['wall_s']:.2f} / {waves[1]['wall_s']:.2f} s; "
+        f"{st['prefill_batches']} prefill dispatches, {st['decode_steps']} "
+        f"decode or verify steps ({st['decode_ms'] / ds:.2f} ms each), "
+        f"{st['draft_steps']} draft steps, accept rate "
+        f"{st['spec_accept_rate']:.4f}; prefix hit tokens wave 2 "
+        f"{waves[1]['hit_tokens']}, skipped {st['prefill_tokens_skipped']};"
+        f" launches flash {counts['flash_attention']}, kernel 4 by route "
+        f"{modes}")
+    return res
+
+
+def _first_difference(ref, got):
+    for i, (a, b) in enumerate(zip(ref, got)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return i, j
+        if len(a) != len(b):
+            return i, min(len(a), len(b))
+    return None
+
+
+# the row counts a server issues a projection or the head with: a decode
+# step (8 slots), 16, a verify block (8 x 5), and prefills of up to 4
+# sequences padded to power-of-two buckets (up to 4 x 2,048)
+GEMM_ROWS = (8, 16, 40, 64, 256, 512, 1024, 2048, 4096, 8192)
+# the largest logit distance phase 36 (c) accepts between two arms'
+# arithmetics at a position both computed from the same tokens: three
+# times the largest read over every such position of the eight streams
+# (plain / prefix 0.1011, prefix / speculation 0.04822, plain /
+# generate() 0.05605, of logits up to 5.02; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+LOGIT_DIST_LIMIT = {"plain/prefix": 0.30, "prefix/spec": 0.15,
+                    "plain/generate": 0.17}
+
+
+def gemm_rows_follow_m(model):
+    """Which of the 7B's row-wise operations give a row other bits when
+    the call has another number of rows: the first layer's norm, its q,
+    k, v and o projections, the MLP's gate, up and down projections, the
+    final norm and the f32 head, each over the ``GEMM_ROWS`` counts
+    against the same rows of a 2,048-row call, issued as they are (a
+    plain server) and with the row floor (``ROW_FLOOR``) that a prefix or
+    speculative server puts under every projection and the head.
+    Returns two {operation: [row counts whose bits differ]}."""
+    from paddle_tpu_torch.inference.generation_server import ROW_FLOOR
+    from paddle_tpu_torch.text.models.llama import _rows
+    c, dev = model.config, model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    x = (torch.randn(max(GEMM_ROWS), c.hidden_size, generator=g,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    xi = (torch.randn(max(GEMM_ROWS), c.intermediate_size, generator=g,
+                      device=dev) * 0.1).to(torch.bfloat16)
+    layer = model.model.layers[0]
+    att, mlp = layer.self_attn, layer.mlp
+    ops = {"input_layernorm": (layer.input_layernorm, x),
+           "q_proj": (att.q_proj, x), "k_proj": (att.k_proj, x),
+           "v_proj": (att.v_proj, x), "o_proj": (att.o_proj, x),
+           "gate_proj": (mlp.gate_proj, x), "up_proj": (mlp.up_proj, x),
+           "down_proj": (mlp.down_proj, xi), "norm": (model.model.norm, x),
+           "f32 head": (model._logits, x)}
+    raw, floored = {}, {}
+    with torch.no_grad():
+        for name, (fn, inp) in ops.items():
+            base = fn(inp[:2048].clone())
+            for n in GEMM_ROWS:
+                k = min(n, 2048)
+                if not torch.equal(fn(inp[:n].clone())[:k], base[:k]):
+                    raw.setdefault(name, []).append(n)
+                if not torch.equal(_rows(fn, inp[:n].clone(),
+                                         ROW_FLOOR)[:k], base[:k]):
+                    floored.setdefault(name, []).append(n)
+            del base
+    return raw, floored
+
+
+def teacher_forced(model, prompts, streams, family):
+    """The f32 logits [n, V] that emit each token of each stream after
+    its prompt, teacher-forced through one arm's arithmetic (row j scores
+    token j):
+
+    - ``plain``: each prompt prefilled alone by flash attention over its
+      own bf16 K/V, padded to its bucket (a plain server's prefill), then
+      decode steps through the int8 pools (kernel 4's decode route);
+    - ``prefix``: each prompt through kernel 4's many-row route over the
+      int8 pools (a prefix server's prefill), then the same decode steps,
+      every projection and the head under the row floor;
+    - ``spec``: prompt and stream in one many-row forward under the row
+      floor (a speculative server computes every position in a verify
+      block, and neither kernel 4's rows nor a floored GEMM's depend on
+      the block a position lands in);
+    - ``generate``: ``generate()``'s dense bf16 cache, one prompt at a
+      time.
+
+    The paged decode steps carry every stream at once, one slot each, at
+    the serving width (8 slots), so every GEMM has a server's shape."""
+    from paddle_tpu_torch.inference.generation_server import ROW_FLOOR
+    from paddle_tpu_torch.text.models.llama import _rows
+    dev, g = model.device, GATEWAY
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    V = model.config.vocab_size
+    rows = [[] for _ in prompts]
+    with torch.no_grad():
+        if family == "generate":
+            for p, toks, out in zip(prompts, streams, rows):
+                L = len(p)
+                caches = model.init_cache(1, L + g["new"])
+                lg, caches = model.forward_with_cache(
+                    T(p[None]), T(np.arange(L, dtype=np.int32)[None]),
+                    caches, last_logits_only=True)
+                out.append(lg[0, -1].float())
+                for i, t in enumerate(toks[:-1]):
+                    lg, caches = model.forward_with_cache(
+                        T(np.array([[t]], np.int32)),
+                        T(np.array([[L + i]], np.int32)), caches)
+                    out.append(lg[0, -1].float())
+            return [torch.stack(r) for r in rows]
+        bs, B = g["block_size"], g["slots"]
+        M = -(-g["max_len"] // bs)
+        floor = None if family == "plain" else ROW_FLOOR
+        pools = model.init_paged_cache(B * M + 1, bs)
+        tbl = np.zeros((B, M), np.int32)
+        for s in range(len(prompts)):
+            tbl[s] = 1 + s * M + np.arange(M)
+        for s, (p, toks) in enumerate(zip(prompts, streams)):
+            seq = p if family != "spec" else np.concatenate(
+                [p, np.asarray(toks[:-1], np.int32)])
+            n = len(seq)
+            Lb = min(max(8, 1 << (n - 1).bit_length()), g["max_len"])
+            ids = np.zeros((1, Lb), np.int32)
+            ids[0, :n] = seq
+            pos = np.arange(Lb, dtype=np.int32)[None]
+            hidden, _ = model.model.forward_paged(
+                T(ids), T(pos), pools, T(tbl[s:s + 1]), T(pos < n),
+                verify_mode=family != "plain", min_rows=floor)
+            at = np.arange(len(p) - 1, n)
+            rows[s].append(_rows(model._logits, hidden[:, T(at)],
+                                 floor)[0].float())
+        if family != "spec":
+            for j in range(max(len(t) for t in streams) - 1):
+                tok = np.zeros((B, 1), np.int32)
+                pos = np.zeros((B, 1), np.int32)
+                wm = np.zeros((B, 1), bool)
+                live = [s for s, t in enumerate(streams) if j + 1 < len(t)]
+                for s in live:
+                    tok[s, 0] = streams[s][j]
+                    pos[s, 0] = len(prompts[s]) + j
+                    wm[s, 0] = True
+                lg, _ = model.forward_paged(T(tok), T(pos), pools, T(tbl),
+                                            T(wm), min_rows=floor)
+                for s in live:
+                    rows[s].append(lg[s, -1:].float())
+        del pools
+    return [torch.cat(r).reshape(-1, V) for r in rows]
+
+
+def gateway_streams(model, prompts, arms, gen_outs):
+    """Phase 36 (c).  Bitwise where the design makes streams bitwise:
+    each arm's warm wave is its cold wave (kernel 4's routes give a row
+    the same bits whatever S, batch or suffix start, and under the row
+    floor of a prefix or speculative server neither do the projections
+    nor the head: checked here at the row counts a server issues, and
+    printed without the floor).  Every token of every stream of every
+    arm, and of ``generate()``, is the argmax of that arm's own
+    arithmetic, teacher-forced (``teacher_forced``): the server emits
+    what the model computes.  Across arms whose arithmetic differs by
+    design -- flash prefill over the prompt's bf16 K/V against the gather
+    over its int8 codes (plain / prefix), the decode route against a
+    verify block's many-row route (prefix / speculative), the dense bf16
+    cache against the int8 pools (plain / ``generate()``) -- the two
+    arithmetics' logits stay within ``LOGIT_DIST_LIMIT`` at every
+    position both computed from the same tokens (up to and including a
+    stream's first difference, which is named with its top-2 margin).
+    Anything else fails as a fault."""
+    raw, floored = gemm_rows_follow_m(model)
+    log(f"phase 36 (c): row counts {list(GEMM_ROWS)} against 2,048, "
+        f"issued as they are: a row's bits follow the call's rows for "
+        f"{raw or 'no operation'}; with the row floor: {floored or 'for none'}")
+    if floored:
+        fail("phase 36 (c): with the row floor a row's bits still follow "
+             f"the call's rows: {floored}")
+    for arm in arms:
+        a, b = arm["waves"][0]["outs"], arm["waves"][1]["outs"]
+        d = _first_difference(a, b)
+        if d is not None:
+            i, j = d
+            fail(f"phase 36 (c): the {arm['arm']} arm's warm stream {i} "
+                 f"differs from its cold one at token {j} ({a[i][j]} vs "
+                 f"{b[i][j]})")
+    log("phase 36 (c): every arm's warm wave is bitwise its cold wave")
+    plain, prefix, spec = arms
+    outs = {"plain": plain["waves"][0]["outs"],
+            "prefix": prefix["waves"][0]["outs"],
+            "spec": spec["waves"][0]["outs"], "generate": gen_outs}
+    tf = {}
+    for fam, streams in outs.items():
+        t0 = time.perf_counter()
+        tf[fam] = lg = teacher_forced(model, prompts[:len(streams)],
+                                      streams, fam)
+        for i, toks in enumerate(streams):
+            t = torch.as_tensor(toks, device=lg[i].device)
+            got = lg[i].gather(1, t[:, None])[:, 0]
+            top = lg[i].max(dim=1)
+            bad = (got < top.values).nonzero()
+            if bad.numel():
+                j = int(bad[0, 0])
+                fail(f"phase 36 (c): the {fam} arm's stream {i} emitted "
+                     f"{toks[j]} at token {j}, its own arithmetic's argmax"
+                     f" is {int(top.indices[j])} (logits "
+                     f"{float(got[j]):.6g} vs {float(top.values[j]):.6g})")
+        log(f"phase 36 (c): each of the {sum(len(s) for s in streams)} "
+            f"tokens of the {fam} streams is the argmax of its own "
+            f"arithmetic, teacher-forced ({time.perf_counter() - t0:.1f} s)")
+    found = []
+    for fa, fb in (("plain", "prefix"), ("prefix", "spec"),
+                   ("plain", "generate")):
+        worst, npos, same = 0.0, 0, 0
+        for i, (sa, sb) in enumerate(zip(outs[fa], outs[fb])):
+            d = _first_difference([sa], [sb])
+            j = d[1] if d else min(len(sa), len(sb))
+            upto = min(j + 1, len(sa), len(sb))
+            dist = (tf[fa][i][:upto] - tf[fb][i][:upto]).abs().amax(dim=1)
+            worst = max(worst, float(dist.max()))
+            npos += upto
+            if d is None:
+                same += 1
+                continue
+            top = torch.topk(tf[fa][i][j], 2).values
+            margin = float(top[0] - top[1])
+            log(f"phase 36 (c): {fa} and {fb} streams first differ at "
+                f"stream {i} token {j} ({sa[j]} vs {sb[j]}); top-2 logit "
+                f"margin there {margin:.4g} under {fa}, the two "
+                f"arithmetics' logit distance there {float(dist[j]):.4g} "
+                f"(max |logit| {float(tf[fa][i][j].abs().max()):.4g})")
+            found.append(dict(pair=f"{fa}/{fb}", stream=i, token=j,
+                              margin=margin, distance=float(dist[j])))
+        log(f"phase 36 (c): {fa} and {fb}: {same} of "
+            f"{min(len(outs[fa]), len(outs[fb]))} streams identical; "
+            f"largest logit distance over the {npos} positions both "
+            f"computed from the same tokens {worst:.4g} (limit "
+            f"{LOGIT_DIST_LIMIT[f'{fa}/{fb}']})")
+        if worst > LOGIT_DIST_LIMIT[f"{fa}/{fb}"]:
+            fail(f"phase 36 (c): {fa} and {fb} logits {worst:.4g} apart "
+                 f"(limit {LOGIT_DIST_LIMIT[f'{fa}/{fb}']})")
+    del tf
+    return found
+
+
+def self_draft(model, prompts, spec_outs):
+    """Phase 36 (g): the speculative path that emits more than one token
+    a verify step.  A prefix + speculation server whose draft is the
+    target itself proposes the target's decode-route tokens, so the
+    verify block accepts all but those parted by a near-tie between the
+    two routes.  Two waves (cold, warm) of the prompts must give the
+    prefix + speculation arm's streams token for token, with accepted
+    proposals, fewer verify steps than tokens, and a withheld index tail
+    of at least the last token of every finished stream (the draft never
+    consumes it) and at most ``spec_k`` + 3 a stream (the two tokens the
+    draft can lag behind the stream into the last verify step, and the
+    ``spec_k`` + 1 that step emits)."""
+    k = GATEWAY["spec_k"]
+    srv = _gateway_server(model, prefix_cache=True, max_prefill_batch=4,
+                          draft_model=model, spec_k=k).start()
+    waves = []
+    try:
+        for _ in range(2):
+            streams = [srv.submit(p, max_new_tokens=GATEWAY["new"])
+                       for p in prompts]
+            waves.append([s.result(timeout=900) for s in streams])
+        st = srv.stats()
+    finally:
+        srv.stop()
+    n = 2 * len(prompts)
+    held = st["spec_index_withheld_tokens"]
+    msg = (f"accept rate {st['spec_accept_rate']:.4f} ({st['spec_accepted']}"
+           f" of {st['spec_proposed']} proposals), {st['spec_verify_steps']}"
+           f" verify steps for {st['tokens_generated']} tokens, "
+           f"{st['draft_steps']} draft steps, {held} index tokens withheld "
+           f"from {n} streams")
+    for w, outs in enumerate(waves):
+        d = _first_difference(spec_outs, outs)
+        if d is not None:
+            fail(f"phase 36 (g): wave {w + 1} of the self-draft server "
+                 f"differs from the prefix + speculation arm at stream "
+                 f"{d[0]} token {d[1]}; {msg}")
+    if not (st["spec_accepted"] > 0 and st["spec_verify_steps"]
+            < st["tokens_generated"] and n <= held <= n * (k + 3)):
+        fail(f"phase 36 (g): {msg}")
+    log(f"phase 36 (g): with the target as its own draft: {msg}; both "
+        "waves token-identical to the prefix + speculation arm")
+    return dict(accept_rate=st["spec_accept_rate"],
+                verify_steps=st["spec_verify_steps"],
+                tokens=st["tokens_generated"], withheld=held)
+
+
+def rows_bound(args):
+    """Kernel 4's many-row route's least time for one call: 4 D flops a
+    valid (query row, slot) pair and query head at the bf16 tensor-core
+    rate, against the valid tokens' int8 K and V (every kv head) and
+    their two f32 scales at the HBM rate."""
+    qh, kpool, _, _, _, _, pos, KH = args
+    B, S, H, D = qh.shape
+    valid_pairs = int((pos.long().clamp(min=0) + 1).sum().item())
+    tokens = int((pos.max(dim=1).values.long().clamp(min=0) + 1).sum()
+                 .item())
+    nbytes = tokens * (KH * D * 2 + 8)
+    return bound_ms(4 * D * H * valid_pairs, PEAK_BF16_FLOPS, nbytes)
+
+
+def rows_cases(dev):
+    """Phase 36 (a): the many-row route at the three 7B shapes -- a cold
+    prefill (B 1, S 2,048), a warm suffix (B 4, S 256 from position
+    1,536), a verify block (B 8, S 5 at the serving mix's lengths) --
+    within CARD_TOL of the plain version, bitwise on a rerun, timed
+    queued beside its bound; the cold call's rows bitwise the warm
+    call's at the positions they share.  (b) S = 1 keeps the decode
+    route's plan."""
+    from paddle_tpu_torch.ops.kernels import kv_attention as kva
+    from paddle_tpu_torch.ops.kernels.kv_attention import (
+        CARD_TOL, int8_paged_attention)
+    bf = torch.bfloat16
+    warm_args = kv_case(dev, 4, 2048, 32, 32, 128, 16, 128, bf, full=True)
+    qh, kp, vp, ks, vs, tbl, pos, KH = warm_args
+    shapes = {
+        "cold prefill (B 1, S 2048)": (qh[:1].clone(), kp, vp, ks, vs,
+                                       tbl[:1].clone(), pos[:1].clone(), KH),
+        "warm suffix (B 4, S 256 from 1536)": (
+            qh[:, 1536:1792].clone(), kp, vp, ks, vs, tbl,
+            pos[:, 1536:1792].clone(), KH),
+        "verify (B 8, S 5)": kv_case(
+            dev, 8, 5, 32, 32, 128, 16, 128, bf,
+            last=[n + 16 for n in SERVING_MIX_LENS]),
+    }
+    outs, rows = {}, {}
+    for label, args in shapes.items():
+        plan = kva.int8_kv_plan(*args[0].shape[:3], args[7],
+                                args[0].shape[3], 16, args[5].shape[1])
+        if plan.route != "rows":
+            fail(f"phase 36 (a) {label}: planned route {plan.route}")
+        got = int8_paged_attention(*args)
+        again = int8_paged_attention(*args)
+        ref = int8_paged_attention(*args, mode="torch_ref")
+        torch.cuda.synchronize()
+        err, share = check_close(f"phase 36 (a) {label}", got, ref,
+                                 CARD_TOL[bf])
+        if not torch.equal(got, again):
+            fail(f"phase 36 (a) {label}: a rerun is not bitwise equal")
+        del ref
+        ms = queued_ms(lambda: int8_paged_attention(*args))
+        plain = queued_ms(lambda: int8_paged_attention(*args,
+                                                       mode="torch_ref"),
+                          iters=3, warmup=1)
+        bms, by = rows_bound(args)
+        outs[label] = got
+        rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                           max_abs_err=err)
+        log(f"phase 36 (a) int8_kv_attention rows {label}: kernel_ms "
+            f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}; "
+            f"kernel / bound {ms / bms:.2f}) library_ms n/a (no single "
+            f"PyTorch call); max_err {err:.3g} ({share:.3g} of its limit), "
+            f"bitwise on a rerun; plan {plan.q_tile} rows a block, grid "
+            f"{plan.grid}, {plan.smem_bytes} B")
+        gc.collect()
+        torch.cuda.empty_cache()
+    cold = outs["cold prefill (B 1, S 2048)"]
+    warm = outs["warm suffix (B 4, S 256 from 1536)"]
+    if not torch.equal(cold[0, 1536:1792], warm[0]):
+        fail("phase 36 (a): the cold prefill's rows at positions "
+             "1,536-1,791 are not bitwise the warm suffix's")
+    log("phase 36 (a): positions 1,536-1,791 bitwise equal between the "
+        "cold prefill (S 2,048) and the warm suffix (S 256)")
+    p = kva.int8_kv_plan(8, 1, 32, 32, 128, 16, 128)
+    if p.route != "decode" or tuple(p) != (
+            256, 16, 16, 1, 32, 8, 4, 4, 160, 39224, 8, 2, (4, 32, 8),
+            266240, 256):
+        fail(f"phase 36 (b): the 7B decode's plan changed: {p}")
+    log("phase 36 (b): S = 1 keeps the decode route's plan (7B decode "
+        f"{tuple(p)}); phase 3 times its rows 4")
+    return rows
+
+
+def gateway(dev):
+    """Phase 36: kernel 4's many-row route (a, b); then the damped 7B and
+    its draft through three arms (plain; prefix; prefix + speculation),
+    generate() on two prompts, a migration and a replay (c-f), and a
+    prefix + speculation server whose draft is the target (g)."""
+    from paddle_tpu_torch.inference import export_sequence, import_sequence
+    rows = rows_cases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, draft = gateway_models(dev)
+    log(f"phase 36: damped llama_7b and its one-layer draft built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    L = model.config.num_hidden_layers
+    prompts = gateway_prompts(model.config.vocab_size)
+    log(f"phase 36: {len(prompts)} prompts of "
+        f"{sorted(len(p) for p in prompts)} tokens (a {GATEWAY['system']}-"
+        f"token system prompt shared)")
+    plain = gateway_arm("plain", model, prompts, max_prefill_batch=1)
+    srv_a = plain.pop("server")
+    # (f) migration and replay against the plain arm, on its server
+    ref = plain["waves"][0]["outs"]
+    srv_b = _gateway_server(model).start()
+    s = srv_a.submit(prompts[0], max_new_tokens=GATEWAY["new"])
+    it = iter(s)
+    head = [next(it) for _ in range(8)]
+    blob = export_sequence(srv_a, s.request_id)
+    if blob is None or blob["kv"] is None:
+        fail("phase 36 (f): the stream finished or lost its KV before its "
+             "export")
+    moved = import_sequence(srv_b, blob)
+    migrated = blob["generated"] + moved.result(timeout=900)
+    cut = 10
+    rest = srv_a.submit(prompts[1], max_new_tokens=GATEWAY["new"],
+                        replay_tokens=ref[1][:cut]).result(timeout=900)
+    if migrated[:8] != head or migrated != ref[0]:
+        fail(f"phase 36 (f): the stream exported after {len(blob['generated'])}"
+             f" tokens and imported ({blob['n_blocks']} blocks of KV) "
+             f"differs from the plain arm's: first difference "
+             f"{_first_difference([ref[0]], [migrated])}")
+    if ref[1][:cut] + rest != ref[1]:
+        fail("phase 36 (f): the stream resubmitted with replay_tokens "
+             "differs from the plain arm's")
+    log(f"phase 36 (f): a stream exported after {len(blob['generated'])} "
+        f"tokens with {blob['n_blocks']} blocks of KV and imported into a "
+        "second server, and one resubmitted with 10 replay_tokens, finish "
+        "token-identical to the plain arm")
+    srv_a.stop()
+    srv_b.stop()
+    del srv_a, srv_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = gateway_arm("prefix", model, prompts, prefix_cache=True,
+                         max_prefill_batch=4)
+    prefix.pop("server").stop()
+    spec = gateway_arm("prefix + speculation", model, prompts,
+                       prefix_cache=True, max_prefill_batch=4,
+                       draft_model=draft, spec_k=GATEWAY["spec_k"])
+    spec.pop("server").stop()
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (g) accepted proposals on the card: the target as its own draft
+    accepting = self_draft(model, prompts, spec["waves"][0]["outs"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # generate() on two prompts, one at a time
+    gen_outs, gen_ms = [], []
+    for p in prompts[:2]:
+        t0 = time.perf_counter()
+        out = model.generate(torch.from_numpy(p)[None],
+                             max_new_tokens=GATEWAY["new"])
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        gen_outs.append(out[0, len(p):].tolist())
+    log(f"phase 36 generate(): {gen_ms[0]:.1f} / {gen_ms[1]:.1f} ms a call "
+        f"(prefill of {len(prompts[0])} / {len(prompts[1])} tokens, 32 "
+        "tokens)")
+    # (c) token streams
+    diffs = gateway_streams(model, prompts, (plain, prefix, spec),
+                            gen_outs)
+    # (d) the routes taken, (e) the cache's accounting
+    for arm in (plain, prefix, spec):
+        st, c, m = arm["stats"], arm["counts"], arm["modes"]
+        pb, ds = st["prefill_batches"], st["decode_steps"]
+        if arm is plain:
+            if c["flash_attention"] < L * pb or m.get("rows", 0) != 0 or \
+                    m.get("decode", 0) < L * ds:
+                fail(f"phase 36 (d) plain: flash {c['flash_attention']} "
+                     f"(>= {L} x {pb}), kernel 4 {m} (rows 0, decode >= "
+                     f"{L} x {ds})")
+            continue
+        if c["flash_attention"] != 0:
+            fail(f"phase 36 (d) {arm['arm']}: {c['flash_attention']} flash "
+                 "launches (a prefix server prefills through kernel 4)")
+        if arm["waves"][1]["hit_tokens"] <= 0:
+            fail(f"phase 36 (e) {arm['arm']}: no prefix hit tokens in "
+                 "wave 2")
+        if arm is prefix:
+            need_rows, need_dec = L * pb, L * ds
+        else:
+            need_rows = L * (pb + st["spec_verify_steps"]) + pb
+            need_dec = 1 * st["draft_steps"]
+        if m.get("rows", 0) < need_rows or m.get("decode", 0) < need_dec:
+            fail(f"phase 36 (d) {arm['arm']}: kernel 4 by route {m}; needs "
+                 f"rows >= {need_rows}, decode >= {need_dec}")
+    log("phase 36 (d): kernel 4's many-row route took every prefix-server "
+        "prefill and every verify block, its decode route every decode and "
+        "draft step; no flash launch on the prefix arms; (e) wave 2 hit "
+        "the prefix cache and every block was free after the flush")
+    sst = spec["stats"]
+    speedup = plain["stats"]["decode_steps"] / max(
+        sst["spec_verify_steps"], 1)
+    res = dict(
+        ttft_ms={a["arm"]: [[w["ttft_ms_median"], w["ttft_ms_max"]]
+                            for w in a["waves"]]
+                 for a in (plain, prefix, spec)},
+        decode_ms_per_step={a["arm"]: a["stats"]["decode_ms"]
+                            / max(a["stats"]["decode_steps"], 1)
+                            for a in (plain, prefix, spec)},
+        accept_rate=sst["spec_accept_rate"],
+        target_iteration_speedup=speedup,
+        launches_by_route={a["arm"]: a["modes"]
+                           for a in (plain, prefix, spec)},
+        generate_ms=gen_ms, differences_by_design=diffs,
+        self_draft=accepting)
+    log("phase 36: " + json.dumps(res))
+    counts = {k: sum(a["counts"][k] for a in (plain, prefix, spec))
+              for k in plain["counts"]}
+    modes = {}
+    for a in (plain, prefix, spec):
+        for k, v in a["modes"].items():
+            modes[k] = modes.get(k, 0) + v
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, modes, rows, res
+
+
 def log_bwd_entries(bwd):
     """Phase 2's line for each sm90 backward entry (``check_ptxas``'s
     {mangled name: [registers, spill bytes]}): its kernel, head_dim and
@@ -5023,12 +5672,20 @@ def main() -> int:
     for name, (regs, _, _) in sorted(wo.items()):
         log(f"  int8_wonly ({name[-36:]}): {regs} registers, no spill")
     # kernel 4 keeps its scores and q slices in registers: six entries
-    # (head_dim 64, 128, 256; f32 or bf16 queries)
+    # (head_dim 64, 128, 256; f32 or bf16 queries); its many-row route
+    # keeps scores and accumulators there too: sixteen entries (rows a
+    # thread 1, 2, 4 at head_dim 64 and 128, 1 and 2 at 256; both dtypes)
     kv = check_ptxas("int8_kv_attention.cu", "int8_kv_attn_sm90", entries=6)
     for name, (regs, _, _) in sorted(kv.items()):
         q, d = re.search(r"sm90I(f|13__nv_bfloat16)Li(\d+)E", name).groups()
         log(f"  int8_kv_attn_sm90 ({'f32' if q == 'f' else 'bf16'} q, "
             f"head_dim {d}): {regs} registers, no spill")
+    kvr = check_ptxas("int8_kv_attention.cu", "int8_kv_rows", entries=16)
+    for name, (regs, _, _) in sorted(kvr.items()):
+        q, d, rm = re.search(r"rowsI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
+                             name).groups()
+        log(f"  int8_kv_rows ({'f32' if q == 'f' else 'bf16'} q, head_dim "
+            f"{d}, {rm} rows a thread): {regs} registers, no spill")
     for name, (regs, _, _) in sorted(mm.items()):
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan
@@ -5233,6 +5890,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 35: {time.perf_counter() - t0:.1f} s")
 
+    # 36. the served 7B's prefix sharing, speculation, migration, replay
+    # and generate(): kernel 4's many-row route on verify blocks and
+    # suffix prefills
+    t0 = time.perf_counter()
+    gw_counts, gw_modes, kv_rows, _ = gateway(dev)
+    log(f"phase 36: {time.perf_counter() - t0:.1f} s")
+
     options = {
         "flash_attention": {
             "bias": bias_rows["bias float32 D=64"],
@@ -5249,14 +5913,17 @@ def main() -> int:
                                          wd_counts, q8_counts, el_counts,
                                          el2_counts, online_counts,
                                          rn_counts, ab_counts, bt_counts,
-                                         bs_counts, er_counts, mt_counts))
+                                         bs_counts, er_counts, mt_counts,
+                                         gw_counts))
         by_mode = {}
-        for m in (er_modes, mt_modes):
+        for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes}):
             for k, c in m.get(name, {}).items():
                 by_mode[k] = by_mode.get(k, 0) + c
         extra = dict(launches_by_mode=by_mode) if by_mode else {}
         if name in options:
             extra["options"] = options[name]
+        if name == "int8_kv_attention":
+            extra["rows_route"] = kv_rows
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name], **extra))

@@ -1,9 +1,13 @@
+from . import migration  # noqa: F401
 from .generation_server import GenerationServer, GenerationStream  # noqa: F401
+from .migration import (  # noqa: F401
+    MigrationUnsupported, export_sequence, import_sequence)
 from .prefix_cache import PrefixCache  # noqa: F401
 from .serving import (  # noqa: F401
     RequestTimeout, ServeError, ServerClosed, ServerDraining,
     ServerOverloaded)
 
 __all__ = ["GenerationServer", "GenerationStream", "PrefixCache",
+           "MigrationUnsupported", "export_sequence", "import_sequence",
            "ServeError", "ServerOverloaded", "ServerClosed",
            "ServerDraining", "RequestTimeout"]

@@ -1,5 +1,6 @@
-"""Continuous-batching LLM serving over a block-paged KV cache
-(counterpart of the reference's ``inference/generation_server.py``).
+"""Continuous-batching LLM serving over a block-paged KV cache, with
+copy-on-write prefix sharing and speculative decoding (counterpart of
+the reference's ``inference/generation_server.py``).
 
 What is ported, with the reference's semantics:
 
@@ -8,34 +9,61 @@ What is ported, with the reference's semantics:
   sequence owns a list of physical blocks and reads its cache through
   its block table.  Block 0 is the trash block: never allocated, the
   target of masked writes, never read.
-- **batched prefill**: prompts are grouped by power-of-two length bucket
-  and prefilled up to ``max_prefill_batch`` at a time; padding rows write
-  only to the trash block.  On the card every fresh prefill runs the
-  hand-written flash-attention kernel.
+- **copy-on-write prefix sharing** (``prefix_cache=True``): a
+  content-hash chain index over the pools (``prefix_cache.py``) maps full
+  blocks of token prefix to physical blocks; a new prompt's cached
+  prefix blocks are aliased (refcounted) instead of re-prefilled, and
+  prefill runs only the uncached suffix.  A write into a shared block
+  forks it first (allocate, copy every pool tensor's row, remap the
+  table).  Every prefill of a prefix-sharing server attends through the
+  cache gather (``verify_mode``), so a cold prompt and a warm suffix run
+  the same arithmetic a position: on int8 pools both take kernel 4's
+  many-row route, whose rows' bits depend on nothing but their own q,
+  position and blocks; and every projection is issued with at least
+  ``ROW_FLOOR`` rows, so the GEMM library sums a row alike in a call of
+  any size.
+- **batched prefill**: prompts (or suffixes) are grouped by power-of-two
+  length bucket and prefilled up to ``max_prefill_batch`` at a time;
+  padding rows write only to the trash block.  Fresh prefills of a
+  server without prefix sharing run the flash-attention kernel.
+- **speculative decoding** (``draft_model=``): the draft rides the same
+  block tables with its own pools and proposes up to ``spec_k`` tokens
+  an iteration (its decode steps: kernel 4's decode route); the target
+  scores them in one verify forward of ``spec_k + 1`` positions (kernel
+  4's many-row route), sampling its own token at every position from the
+  positional stream plain decode uses; a proposal is accepted iff it
+  equals that token, so the output is what plain decode emits, token
+  for token wherever the two attention routes round alike (always on
+  the CPU; on the card they may part at a near-tie, a difference by
+  design recorded in ROADMAP.md).  Blocks past the draft's valid KV are
+  withheld from the index.
 - **fixed-width decode**: one decode step covers all ``num_slots``
   slots, live or idle (idle slots attend the trash block at position 0
   and their output is discarded).  On int8 pools every decode step runs
-  the hand-written int8 paged-attention kernel.
+  the int8 paged-attention kernel.
 - **iteration-level scheduling**: admission and eviction every step;
   when a running sequence needs a block and the pool is dry the
   lowest-priority sequence is evicted and later re-admitted, re-running
-  its prompt and replaying its emitted tokens (``check_replay`` asserts
-  each replayed token).
+  its prompt (the cached prefix aliased back) and replaying its emitted
+  tokens (``check_replay`` asserts each replayed token).
+  ``submit(replay_tokens=...)`` takes the same path for a stream that
+  emitted those tokens elsewhere (failover).
 - **position-pure sampling**: exact ``argmax`` for greedy rows; for
   sampling rows the temperature / top-k / top-p filter of the reference
   and a Gumbel-max draw whose noise for token j is a pure function of
   (request seed, j) -- a CPU ``torch.Generator`` seeded from a
-  splitmix64 hash of the pair -- so replay after eviction redraws the
-  same token.  The bits differ from ``jax.random``'s by construction.
+  splitmix64 hash of the pair -- so replay after eviction and
+  verification redraw the same token.  The bits differ from
+  ``jax.random``'s by construction.
 - typed shed semantics (:class:`ServerOverloaded`,
   :class:`RequestTimeout`, :class:`ServerDraining`,
-  :class:`ServerClosed`) and ``cancel``.
+  :class:`ServerClosed`), ``cancel``, and the scheduler command queue that
+  ``inference/migration.py`` exports and imports sequences through.
 
 PyTorch runs eagerly: there is nothing to compile, so the reference's
-compile counters are not reported.  Prefix sharing, speculative decode,
-failover replay, tracing/flight-recorder/metrics hooks and the gateway
-come with later slices (ROADMAP.md queue 1, item 2) and raise
-``NotImplementedError`` if asked for.
+compile counters are not reported.  The tracing, flight-recorder and
+metrics hooks and the gateway come with a later slice (ROADMAP.md queue
+1, item 2).
 """
 from __future__ import annotations
 
@@ -55,9 +83,19 @@ __all__ = ["GenerationServer", "GenerationStream", "ServeError",
            "ServerOverloaded", "ServerClosed", "ServerDraining",
            "RequestTimeout"]
 
-_LATER = "ROADMAP.md queue 1, item 2 (the rest of the serving tier)"
 _END = object()
 _MASK64 = (1 << 64) - 1
+# A prefix-sharing or speculative server issues every projection and the
+# head with at least this many rows (``LlamaForCausalLM.forward_paged``'s
+# ``min_rows``): on the H100 cuBLAS gives a row of the 7B's GEMMs other
+# bits at 64 rows or fewer (the MLP's down projection and the f32 head)
+# and at 16 (the attention projections), the same bits at every count
+# from 256 to 8,192, so a cold prompt and a warm suffix, a decode step
+# and a verify block, compute a position's projections alike.  The value
+# is verified for the 7B's widths only, by ``chip_smoke.py`` phase 36
+# (c) on every run (every projection and the head at the row counts a
+# server issues); another model's widths may need another floor
+ROW_FLOOR = 256
 
 
 class GenerationStream:
@@ -132,7 +170,7 @@ class _GenSeq:
         "rid", "prompt", "L", "max_new", "eos", "do_sample", "temp",
         "top_k", "top_p", "seed", "priority", "arrival", "deadline",
         "stream", "generated", "decoded", "blocks", "slot", "evictions",
-        "t_submit", "t_first_tok", "cached")
+        "t_submit", "t_first_tok", "cached", "draft_decoded")
 
     def __init__(self, rid, prompt, max_new, eos, do_sample, temp,
                  top_k, top_p, seed, priority, arrival, deadline):
@@ -157,7 +195,8 @@ class _GenSeq:
         self.evictions = 0
         self.t_submit = time.monotonic()
         self.t_first_tok: Optional[float] = None
-        self.cached = 0           # prefix tokens aliased (always 0 here)
+        self.cached = 0           # prefix tokens aliased at admission
+        self.draft_decoded = 0    # generated tokens the draft consumed
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -219,6 +258,8 @@ def _sample(lg, seeds, steps, temp, top_k, top_p, do_sample) -> np.ndarray:
     return out.cpu().numpy().astype(np.int32)
 
 
+
+
 class GenerationServer:
     """Continuous-batching generative server over a causal LM with a
     block-paged cache (``init_paged_cache`` / ``forward_paged``).
@@ -226,7 +267,8 @@ class GenerationServer:
     Usage::
 
         server = GenerationServer(model, num_slots=8, block_size=16,
-                                  max_model_len=2048)
+                                  max_model_len=2048, prefix_cache=True,
+                                  draft_model=small_lm, spec_k=4)
         server.start()                    # builds the kernels (warm-up)
         stream = server.submit(prompt_ids, max_new_tokens=64)
         for tok in stream:                # tokens stream per step
@@ -235,8 +277,8 @@ class GenerationServer:
 
     Knobs (as in the reference):
 
-    - ``num_slots``: decode batch width; every decode step covers this
-      many slots, live or idle.
+    - ``num_slots``: decode batch width; every decode (or verify) step
+      covers this many slots, live or idle.
     - ``block_size`` / ``num_blocks``: KV pool geometry.  Block 0 is
       the trash block, so ``num_blocks - 1`` blocks are allocatable; the
       default sizes the pool for ``num_slots`` full-length sequences.
@@ -251,7 +293,12 @@ class GenerationServer:
     - ``request_timeout_s``: deadline enforced while a request waits.
     - ``check_replay``: assert that every replayed (post-eviction) step
       reproduces the stored token.
-    - ``prefix_cache`` / ``draft_model``: not ported yet (raise).
+    - ``prefix_cache``: copy-on-write prefix sharing.  Finished
+      conversations' full blocks stay cached (recyclable under
+      pressure), and every prefill attends through the cache gather.
+    - ``draft_model`` / ``spec_k``: speculative decoding; the draft
+      (same vocabulary, KV-cache capable) proposes up to ``spec_k``
+      tokens an iteration, verified in one target forward.
     """
 
     def __init__(self, model, num_slots: int = 8, block_size: int = 16,
@@ -264,10 +311,6 @@ class GenerationServer:
                  max_prefill_batch: int = 4,
                  prefix_cache: bool = False,
                  draft_model=None, spec_k: int = 4):
-        if prefix_cache:
-            raise NotImplementedError(f"prefix sharing: {_LATER}")
-        if draft_model is not None:
-            raise NotImplementedError(f"speculative decoding: {_LATER}")
         if not bool(getattr(model, "supports_kv_cache", lambda: False)()):
             raise ServeError(
                 "GenerationServer requires a KV-cache-capable model "
@@ -277,6 +320,21 @@ class GenerationServer:
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         self._model = model
+        self._draft = draft_model
+        self._spec = draft_model is not None
+        self._k = int(spec_k)
+        if self._spec:
+            if self._k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if not bool(getattr(draft_model, "supports_kv_cache",
+                                lambda: False)()):
+                raise ServeError(
+                    "draft_model must be KV-cache-capable "
+                    "(supports_kv_cache() is False)")
+            if (getattr(draft_model.config, "vocab_size", None)
+                    != getattr(model.config, "vocab_size", None)):
+                raise ValueError(
+                    "draft_model vocab_size must match the target's")
         self._device = model.device
         self._num_slots = int(num_slots)
         self._bs = int(block_size)
@@ -307,6 +365,9 @@ class GenerationServer:
         self._timeout_s = float(request_timeout_s)
         self._seed = int(seed)
         self._check_replay = bool(check_replay)
+        self._prefix_on = bool(prefix_cache)
+        self._min_rows = ROW_FLOOR if (self._prefix_on or self._spec) \
+            else None
 
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -316,12 +377,13 @@ class GenerationServer:
         # blocks 1..num_blocks-1 are allocatable (0 is trash); with the
         # index disabled the PrefixCache is the plain free list
         self._cache = PrefixCache(self._num_blocks - 1, self._bs,
-                                  index_enabled=False, first_block=1)
+                                  index_enabled=self._prefix_on,
+                                  first_block=1)
         self._running = False
         self._draining = False
         self._thread: Optional[threading.Thread] = None
-        # cancel runs ON the scheduler thread between steps: sequence and
-        # slot state is only coherent there
+        # cancel, export and import run ON the scheduler thread between
+        # steps: sequence and slot state is only coherent there
         self._cmds: _queue.Queue = _queue.Queue()
         self._rid = 0
         self._arrival = 0
@@ -340,38 +402,70 @@ class GenerationServer:
             "cancelled": 0,
             "prefill_bucket_hits": {b: 0 for b in self._buckets},
         }
-        self._pools = None   # built by start()
+        self._pools = None    # built by start()
+        self._dpools: list = []
 
     # -- device steps ------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
 
-    def _prefill_fn(self, prompt, start, length, tables, seeds, temp,
-                    top_k, top_p, do_sample) -> np.ndarray:
-        """One batched prefill; returns each row's first token."""
+    def _prefill_fn(self, model, pools, prompt, start, length, tables,
+                    seeds, temp, top_k, top_p, do_sample) -> np.ndarray:
+        """One batched prefill of ``model`` into ``pools``; returns each
+        row's first token.  A prefix-sharing server attends through the
+        cache gather (cold prompts too), the same arithmetic as a warm
+        suffix."""
         B, Lb = prompt.shape
         ar = np.arange(Lb, dtype=np.int32)[None, :]
         pos = start[:, None] + ar
         wm = ar < length[:, None]
         gather_at = np.clip(length - 1, 0, Lb - 1)
         with torch.no_grad():
-            logits, _ = self._model.forward_paged(
-                self._dev(prompt), self._dev(pos), self._pools,
+            logits, _ = model.forward_paged(
+                self._dev(prompt), self._dev(pos), pools,
                 self._dev(tables), self._dev(wm),
-                gather_at=self._dev(gather_at))
+                gather_at=self._dev(gather_at), verify_mode=self._prefix_on,
+                min_rows=self._min_rows)
             return _sample(logits[:, -1, :].float(), seeds,
                            np.zeros((B,), np.int64), temp, top_k, top_p,
                            do_sample)
 
-    def _decode_fn(self, tokens, positions, tables, wm, seeds, rng_steps,
-                   temp, top_k, top_p, do_sample) -> np.ndarray:
+    def _decode_fn(self, model, pools, tokens, positions, tables, wm, seeds,
+                   rng_steps, temp, top_k, top_p, do_sample) -> np.ndarray:
         """One fixed-width decode step; returns each slot's next token."""
+        with torch.no_grad():
+            logits, _ = model.forward_paged(
+                self._dev(tokens), self._dev(positions), pools,
+                self._dev(tables), self._dev(wm), min_rows=self._min_rows)
+            return _sample(logits[:, -1, :].float(), seeds, rng_steps,
+                           temp, top_k, top_p, do_sample)
+
+    def _verify_fn(self, tokens, positions, tables, wm, seeds, rng_steps,
+                   temp, top_k, top_p, do_sample) -> np.ndarray:
+        """Score S = spec_k + 1 fed tokens a slot in one target forward
+        and sample the target's own token at every position from its
+        positional stream: [B, S] tokens."""
+        B, S = tokens.shape
         with torch.no_grad():
             logits, _ = self._model.forward_paged(
                 self._dev(tokens), self._dev(positions), self._pools,
-                self._dev(tables), self._dev(wm))
-            return _sample(logits[:, -1, :].float(), seeds, rng_steps,
-                           temp, top_k, top_p, do_sample)
+                self._dev(tables), self._dev(wm), verify_mode=True,
+                min_rows=self._min_rows)
+            rep = lambda a: np.repeat(a, S, axis=0)   # noqa: E731
+            out = _sample(logits.float().reshape(B * S, -1), rep(seeds),
+                          rng_steps.reshape(B * S), rep(temp), rep(top_k),
+                          rep(top_p), rep(do_sample))
+        return out.reshape(B, S)
+
+    def _fork_fn(self, src: int, dst: int):
+        """Copy-on-write fork: duplicate one physical block across every
+        pool tensor (target and draft, K/V and int8 scales).  Physical
+        ids never enter the attention math, so remapping the table to the
+        copy is invisible to the stream."""
+        with torch.no_grad():
+            for d in list(self._pools) + list(self._dpools):
+                for t in d.values():
+                    t[dst] = t[src]
 
     # -- lifecycle ---------------------------------------------------
     def start(self) -> "GenerationServer":
@@ -381,6 +475,9 @@ class GenerationServer:
             with torch.no_grad():
                 self._pools = self._model.init_paged_cache(
                     self._num_blocks, self._bs)
+                if self._spec:
+                    self._dpools = self._draft.init_paged_cache(
+                        self._num_blocks, self._bs)
             self._prewarm()
         self._draining = False
         self._running = True
@@ -391,24 +488,37 @@ class GenerationServer:
         return self
 
     def _prewarm(self):
-        """One smallest-bucket prefill and one decode step before
+        """One smallest-bucket prefill and one decode step (and, with a
+        draft, its prefill and decode and one verify step) before
         traffic, so the kernels are built and the libraries loaded
-        outside any request's latency.  Every write mask is False:
-        only the trash block is touched."""
+        outside any request's latency.  Every write mask is False: only
+        the trash block is touched."""
         b = self._buckets[0]
-        self._prefill_fn(np.zeros((1, b), np.int32), np.zeros((1,), np.int32),
-                         np.zeros((1,), np.int32),
-                         np.zeros((1, self._M), np.int32),
-                         np.zeros((1,), np.int64), np.ones((1,), np.float32),
-                         np.zeros((1,), np.int32), np.ones((1,), np.float32),
-                         np.zeros((1,), bool))
+        pre = (np.zeros((1, b), np.int32), np.zeros((1,), np.int32),
+               np.zeros((1,), np.int32), np.zeros((1, self._M), np.int32),
+               np.zeros((1,), np.int64), np.ones((1,), np.float32),
+               np.zeros((1,), np.int32), np.ones((1,), np.float32),
+               np.zeros((1,), bool))
         B = self._num_slots
-        self._decode_fn(np.zeros((B, 1), np.int32), np.zeros((B, 1), np.int32),
-                        np.zeros((B, self._M), np.int32),
-                        np.zeros((B, 1), bool), np.zeros((B,), np.int64),
-                        np.zeros((B,), np.int64), np.ones((B,), np.float32),
-                        np.zeros((B,), np.int32), np.ones((B,), np.float32),
-                        np.zeros((B,), bool))
+        dec = (np.zeros((B, 1), np.int32), np.zeros((B, 1), np.int32),
+               np.zeros((B, self._M), np.int32), np.zeros((B, 1), bool),
+               np.zeros((B,), np.int64), np.zeros((B,), np.int64),
+               np.ones((B,), np.float32), np.zeros((B,), np.int32),
+               np.ones((B,), np.float32), np.zeros((B,), bool))
+        self._prefill_fn(self._model, self._pools, *pre)
+        self._decode_fn(self._model, self._pools, *dec)
+        if self._spec:
+            self._prefill_fn(self._draft, self._dpools, *pre)
+            self._decode_fn(self._draft, self._dpools, *dec)
+            S = self._k + 1
+            self._verify_fn(np.zeros((B, S), np.int32),
+                            np.zeros((B, S), np.int32),
+                            np.zeros((B, self._M), np.int32),
+                            np.zeros((B, S), bool), np.zeros((B,), np.int64),
+                            np.zeros((B, S), np.int64),
+                            np.ones((B,), np.float32),
+                            np.zeros((B,), np.int32),
+                            np.ones((B,), np.float32), np.zeros((B,), bool))
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
@@ -525,9 +635,14 @@ class GenerationServer:
         from the server seed and the request id).  Raises
         :class:`ServerOverloaded` at the waiting-queue cap,
         :class:`ServerDraining` on a draining server and
-        :class:`ServerClosed` on a stopped one."""
-        if replay_tokens:
-            raise NotImplementedError(f"failover replay_tokens: {_LATER}")
+        :class:`ServerClosed` on a stopped one.
+
+        ``replay_tokens`` (failover): tokens this request's stream
+        already emitted elsewhere.  Admission re-runs the prompt, then
+        replays them through the decode (or verify) path without
+        re-emitting (``check_replay`` asserts each), and new tokens
+        continue the stream.  Pass the original request's explicit
+        ``seed`` for a sampled stream to stay the same stream."""
         p = np.asarray(prompt.cpu().numpy() if hasattr(prompt, "cpu")
                        else prompt).astype(np.int32).reshape(-1)
         if p.size < 1:
@@ -538,6 +653,12 @@ class GenerationServer:
             raise ValueError(
                 f"prompt ({p.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds max_model_len={self._max_len}")
+        replay = [int(t) for t in replay_tokens] if replay_tokens else []
+        if len(replay) >= max_new_tokens:
+            raise ValueError(
+                f"replay_tokens ({len(replay)}) must be shorter than "
+                f"max_new_tokens ({max_new_tokens}) — that stream is "
+                "already complete")
         if do_sample and float(temperature) == 0.0:
             do_sample = False      # temperature 0.0 IS greedy (exact)
         to = self._timeout_s if timeout_s is None else float(timeout_s)
@@ -563,6 +684,8 @@ class GenerationServer:
             seq = _GenSeq(self._rid, p, max_new_tokens, eos_token_id,
                           do_sample, temperature, top_k, top_p, sd,
                           priority, self._arrival, time.monotonic() + to)
+            if replay:
+                seq.generated = list(replay)
             self._waiting.append(seq)
             self._stats["submitted"] += 1
             self._cond.notify_all()
@@ -572,6 +695,12 @@ class GenerationServer:
                       **kw) -> List[int]:
         """Blocking submit + collect."""
         return self.submit(prompt, **kw).result(timeout=timeout)
+
+    def flush_prefix_cache(self):
+        """Drop every prefix-index entry (active sequences keep their
+        references; cached-only blocks return to the free list)."""
+        with self._lock:
+            self._cache.flush()
 
     def stats(self) -> Dict:
         with self._lock:
@@ -595,10 +724,11 @@ class GenerationServer:
         s["total_blocks"] = self._num_blocks - 1   # trash excluded
         s["block_size"] = self._bs
         s["num_slots"] = self._num_slots
-        s["spec_enabled"] = False
-        s["spec_k"] = 0
-        s["spec_accept_rate"] = 0.0
-        s["prefix_cache_enabled"] = False
+        s["spec_enabled"] = self._spec
+        s["spec_k"] = self._k if self._spec else 0
+        s["spec_accept_rate"] = (s["spec_accepted"]
+                                 / max(s["spec_proposed"], 1))
+        s["prefix_cache_enabled"] = self._prefix_on
         s["server"] = "generation"
         return s
 
@@ -617,7 +747,10 @@ class GenerationServer:
                 self._expire_waiting()
                 self._admit()
                 if self._active:
-                    self._decode_once()
+                    if self._spec:
+                        self._spec_once()
+                    else:
+                        self._decode_once()
         except BaseException as e:   # noqa: BLE001 — fail streams loudly
             with self._lock:
                 victims = (list(self._waiting)
@@ -649,31 +782,92 @@ class GenerationServer:
     # -- admission + prefill -----------------------------------------
     def _admit(self):
         """Admit as many waiting sequences as slots + blocks allow, in
-        strict (priority, arrival) order, then prefill them in batches
-        grouped by prompt bucket."""
+        strict (priority, arrival) order: alias each one's cached prefix
+        (pinning the hit blocks, reserving a fork destination for a
+        partial tail the suffix writes into; a miscounted reservation
+        rolls back), then prefill them in batches grouped by suffix
+        bucket."""
         taken: List[_GenSeq] = []
+        forks: List[tuple] = []
         with self._lock:
             while self._waiting and self._free_slots:
                 self._waiting.sort(key=lambda s: (s.priority, s.arrival))
                 seq = self._waiting[0]
+                hit_blocks, matched = self._cache.match(seq.prompt)
+                cached = min(matched, seq.L - 1)
+                a = len(hit_blocks)
                 nb = -(-seq.L // self._bs)
+                fresh = nb - a
                 # +1 headroom when the first decode write lands on a
-                # block boundary
-                need = nb + (1 if seq.L % self._bs == 0 else 0)
-                if self._cache.available() < need:
-                    break   # strict priority: no queue jumping
+                # block boundary; +1 more when the tail alias must fork
+                # before the suffix prefill writes into it
+                w = cached // self._bs
+                fork = bool(a and w < a)
+                need = fresh + (1 if seq.L % self._bs == 0 else 0) \
+                    + (1 if fork else 0)
+                # ref()ing the hits pins exactly the LRU ones out of the
+                # recyclable pool: count only what alloc() can still hand
+                # out afterwards
+                pinned = sum(1 for b in hit_blocks if b in self._cache.lru)
+                if self._cache.available() - pinned < max(need, 0):
+                    # the warm path can need more allocatable blocks than
+                    # a cold admission (which recycles the hit blocks as
+                    # fresh ones): fall back rather than starve
+                    cold = nb + (1 if seq.L % self._bs == 0 else 0)
+                    if self._cache.available() < cold:
+                        break   # strict priority: no queue jumping
+                    hit_blocks, cached = [], 0
+                    fresh, fork = nb, False
                 self._waiting.pop(0)
-                seq.blocks = [self._cache.alloc() for _ in range(nb)]
-                seq.cached = 0
-                self._cache.note_query(seq.L, 0)
+                for b in hit_blocks:
+                    self._cache.ref(b)
+                seq.blocks = list(hit_blocks)
+                # fresh blocks, plus the fork destination reserved under
+                # the admission check's lock
+                grabbed: List[int] = []
+                dst = None
+                for _ in range(fresh):
+                    blk = self._cache.alloc()
+                    if blk is None:
+                        break
+                    grabbed.append(blk)
+                if fork and len(grabbed) == fresh:
+                    dst = self._cache.alloc()
+                if len(grabbed) < fresh or (fork and dst is None):
+                    # the capacity check miscounted: roll back (free the
+                    # grabs, unpin the hits, requeue) so one admission
+                    # never kills the scheduler thread
+                    for b in grabbed:
+                        self._cache.unref(b)
+                    for b in hit_blocks:
+                        self._cache.unref(b)
+                    seq.blocks = []
+                    self._waiting.insert(0, seq)
+                    self._stats["admit_rollbacks"] += 1
+                    break
+                seq.blocks.extend(grabbed)
+                seq.cached = cached
+                self._cache.note_query(seq.L, cached)
+                if fork:
+                    self._cache.stats["cow_forks"] += 1
+                    forks.append((seq, w, seq.blocks[w], dst))
                 seq.slot = self._free_slots.pop()
                 self._active[seq.slot] = seq
                 taken.append(seq)
         if not taken:
             return
+        # fork each aliased tail block the suffix prefill writes into (a
+        # refcount > 1 counts the index entry, so an indexed original is
+        # never clobbered): copy into the reserved block, remap, unpin
+        for seq, w, src, dst in forks:
+            self._fork_fn(src, dst)
+            with self._lock:
+                seq.blocks[w] = dst
+                self._cache.unref(src)
         groups: Dict[int, List[_GenSeq]] = {}
         for seq in taken:
-            groups.setdefault(self._bucket_for(seq.L), []).append(seq)
+            groups.setdefault(self._bucket_for(seq.L - seq.cached),
+                              []).append(seq)
         for bucket, seqs in sorted(groups.items()):
             for i in range(0, len(seqs), self._pbatches[-1]):
                 self._prefill_batch(seqs[i:i + self._pbatches[-1]],
@@ -693,7 +887,8 @@ class GenerationServer:
 
     def _prefill_batch(self, seqs: List[_GenSeq], bucket: int):
         """One prefill for up to max_prefill_batch sequences sharing a
-        bucket; padding rows (length 0) write only trash."""
+        suffix bucket (target, then draft); padding rows (length 0)
+        write only trash."""
         B = self._pbatch_for(len(seqs))
         prompt = np.zeros((B, bucket), np.int32)
         start = np.zeros((B,), np.int32)
@@ -705,17 +900,22 @@ class GenerationServer:
         top_p = np.ones((B,), np.float32)
         do_sample = np.zeros((B,), bool)
         for i, seq in enumerate(seqs):
-            prompt[i, :seq.L] = seq.prompt
-            length[i] = seq.L
+            sfx = seq.prompt[seq.cached:]
+            prompt[i, :sfx.shape[0]] = sfx
+            start[i] = seq.cached
+            length[i] = sfx.shape[0]
             tables[i, :len(seq.blocks)] = seq.blocks
             seeds[i] = seq.seed
             temp[i] = seq.temp
             top_k[i] = seq.top_k
             top_p[i] = seq.top_p
             do_sample[i] = seq.do_sample
+        args = (prompt, start, length, tables, seeds, temp, top_k, top_p,
+                do_sample)
         t0 = time.perf_counter()
-        first = self._prefill_fn(prompt, start, length, tables, seeds,
-                                 temp, top_k, top_p, do_sample)
+        first = self._prefill_fn(self._model, self._pools, *args)
+        if self._spec:
+            self._prefill_fn(self._draft, self._dpools, *args)
         dt_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             self._stats["prefill_ms"] += dt_ms
@@ -723,16 +923,25 @@ class GenerationServer:
             self._stats["prefill_bucket_hits"][bucket] = \
                 self._stats["prefill_bucket_hits"].get(bucket, 0) \
                 + len(seqs)
-            self._stats["prefill_tokens"] += int(sum(s.L for s in seqs))
+            self._stats["prefill_tokens"] += int(
+                sum(s.L - s.cached for s in seqs))
+            self._stats["prefill_tokens_skipped"] += int(
+                sum(s.cached for s in seqs))
         for i, seq in enumerate(seqs):
             self._post_prefill(seq, int(first[i]))
 
     def _post_prefill(self, seq: _GenSeq, first: int):
-        readmit = seq.evictions > 0
+        # a replay-submitted request (generated pre-seeded, no eviction)
+        # takes the re-admission path; "readmitted" counts evictions only
+        readmit = seq.evictions > 0 or bool(seq.generated)
         with self._lock:
             self._stats["admitted"] += 1
-            self._stats["readmitted"] += int(readmit)
+            self._stats["readmitted"] += int(seq.evictions > 0)
+            # index the prompt's full blocks for future sharing (the
+            # aliased ones are indexed already; insert is idempotent)
+            self._cache.insert(seq.prompt.tolist(), seq.blocks)
         seq.decoded = 0
+        seq.draft_decoded = 0
         if readmit:
             # replay: prefill re-derives t1 from the identical inputs;
             # the stored token is authoritative either way
@@ -761,13 +970,29 @@ class GenerationServer:
             self._finish(seq, reason)
 
     def _finish(self, seq: _GenSeq, reason: str):
+        with self._lock:
+            # index the completed full blocks (prompt + generated): the
+            # conversation's next turn aliases them
+            toks = seq.prompt.tolist() + seq.generated
+            if self._spec and self._prefix_on:
+                # the draft pools hold valid KV only through position
+                # L + draft_decoded - 1; indexing past that would hand a
+                # future alias stale draft KV (the output stays exact,
+                # the accept rate sinks): withhold the tail, count it
+                valid = seq.L + seq.draft_decoded
+                self._stats["spec_index_withheld_tokens"] += max(
+                    len(toks) - valid, 0)
+                toks = toks[:valid]
+            self._cache.insert(toks, seq.blocks)
         self._release(seq)
         with self._lock:
             self._stats["finished"] += 1
         seq.stream._end(reason)
 
     def _release(self, seq: _GenSeq):
-        """Drop the sequence's blocks and slot immediately."""
+        """Drop the sequence's block references and slot immediately
+        (shared blocks survive through their other references; indexed
+        blocks stay cached until recycled)."""
         with self._lock:
             for b in seq.blocks:
                 self._cache.unref(b)
@@ -783,19 +1008,24 @@ class GenerationServer:
         admission re-prefills and replays them)."""
         self._release(seq)
         seq.decoded = 0
+        seq.draft_decoded = 0
+        seq.cached = 0
         seq.evictions += 1
         with self._lock:
             self._stats["evicted"] += 1
             self._waiting.append(seq)
 
     def _grow_or_evict(self):
-        """Before a decode step every live sequence must own the block
-        its next K/V write lands in; a dry pool evicts the lowest-
-        priority sequence (highest priority number, then youngest)."""
+        """Before a decode (or verify) step every live sequence must own
+        the blocks its next K/V writes land in (one position for plain
+        decode, up to spec_k + 1 for a speculative iteration); a dry pool
+        evicts the lowest-priority sequence (highest priority number,
+        then youngest)."""
+        ahead = self._k if self._spec else 0
         for seq in sorted(self._active.values(), key=lambda s: s.slot):
             if seq.slot is None:
                 continue      # evicted below us this round
-            p = min(seq.L + seq.decoded, self._max_len - 1)
+            p = min(seq.L + seq.decoded + ahead, self._max_len - 1)
             need = p // self._bs + 1
             while len(seq.blocks) < need and seq.slot is not None:
                 with self._lock:
@@ -807,39 +1037,46 @@ class GenerationServer:
                              key=lambda s: (s.priority, s.arrival))
                 self._evict(victim)
 
-    # -- decode -------------------------------------------------------
+    def _slot_arrays(self, S: int):
+        B = self._num_slots
+        return dict(tokens=np.zeros((B, S), np.int32),
+                    positions=np.zeros((B, S), np.int32),
+                    tables=np.zeros((B, self._M), np.int32),
+                    wm=np.zeros((B, S), bool),
+                    seeds=np.zeros((B,), np.int64),
+                    rng_steps=np.zeros((B, S) if S > 1 else (B,), np.int64),
+                    temp=np.ones((B,), np.float32),
+                    top_k=np.zeros((B,), np.int32),
+                    top_p=np.ones((B,), np.float32),
+                    do_sample=np.zeros((B,), bool))
+
+    @staticmethod
+    def _fill_row(a, seq):
+        s = seq.slot
+        a["tables"][s, :len(seq.blocks)] = seq.blocks
+        a["seeds"][s] = seq.seed
+        a["temp"][s] = seq.temp
+        a["top_k"][s] = seq.top_k
+        a["top_p"][s] = seq.top_p
+        a["do_sample"][s] = seq.do_sample
+
+    # -- plain decode -------------------------------------------------
     def _decode_once(self):
         self._grow_or_evict()
         with self._lock:
             live = sorted(self._active.values(), key=lambda s: s.slot)
         if not live:
             return
-        B, M = self._num_slots, self._M
-        tokens = np.zeros((B, 1), np.int32)
-        positions = np.zeros((B, 1), np.int32)
-        tables = np.zeros((B, M), np.int32)
-        wm = np.zeros((B, 1), bool)
-        seeds = np.zeros((B,), np.int64)
-        rng_steps = np.zeros((B,), np.int64)
-        temp = np.ones((B,), np.float32)
-        top_k = np.zeros((B,), np.int32)
-        top_p = np.ones((B,), np.float32)
-        do_sample = np.zeros((B,), bool)
+        a = self._slot_arrays(1)
         for seq in live:
             s = seq.slot
-            tokens[s, 0] = seq.generated[seq.decoded]
-            positions[s, 0] = seq.L + seq.decoded
-            tables[s, :len(seq.blocks)] = seq.blocks
-            wm[s, 0] = True
-            seeds[s] = seq.seed
-            rng_steps[s] = seq.decoded + 1
-            temp[s] = seq.temp
-            top_k[s] = seq.top_k
-            top_p[s] = seq.top_p
-            do_sample[s] = seq.do_sample
+            a["tokens"][s, 0] = seq.generated[seq.decoded]
+            a["positions"][s, 0] = seq.L + seq.decoded
+            a["wm"][s, 0] = True
+            a["rng_steps"][s] = seq.decoded + 1
+            self._fill_row(a, seq)
         t0 = time.perf_counter()
-        nxt = self._decode_fn(tokens, positions, tables, wm, seeds,
-                              rng_steps, temp, top_k, top_p, do_sample)
+        nxt = self._decode_fn(self._model, self._pools, **a)
         dt_ms = (time.perf_counter() - t0) * 1e3
         replays = 0
         for seq in live:
@@ -857,7 +1094,161 @@ class GenerationServer:
                         "decode is not bit-stable")
             else:
                 self._emit(seq, int(nxt[s]))
+        self._after_step(replays, dt_ms)
+
+    def _after_step(self, replays: int, dt_ms: float):
         with self._lock:
             self._stats["decode_steps"] += 1
             self._stats["replay_steps"] += replays
             self._stats["decode_ms"] += dt_ms
+
+    # -- speculative decode -------------------------------------------
+    def _spec_once(self):
+        """One speculative iteration: up to k batched draft steps
+        propose, one target verify forward scores k + 1 positions, the
+        accepted prefix advances.  The output is plain decode's: every
+        candidate is the target's own positional-stream token, and a
+        proposal is accepted only when it equals that token."""
+        self._grow_or_evict()
+        with self._lock:
+            live = sorted(self._active.values(), key=lambda s: s.slot)
+        if not live:
+            return
+        k = self._k
+        t0 = time.perf_counter()
+
+        # ---- draft phase: per slot the feed is the next token the draft
+        # has not consumed: stored tokens first (catch-up after eviction
+        # or a rejected round), then its own proposal chain; outputs from
+        # the last stored token on are this round's proposals
+        chains: Dict[int, List[int]] = {s.slot: [] for s in live}
+        draft_feeds: Dict[int, List[int]] = {s.slot: [] for s in live}
+        for _ in range(k):
+            a = self._slot_arrays(1)
+            fed_this: Dict[int, tuple] = {}
+            for seq in live:
+                s = seq.slot
+                f = seq.draft_decoded + len(draft_feeds[s])
+                pos = seq.L + f
+                gen, chain = seq.generated, chains[s]
+                # accepting m proposals emits m + 1 tokens, so proposals
+                # past max_new - len(gen) - 1 can never be consumed
+                cap = max(seq.max_new - len(gen) - 1, 0)
+                if f < len(gen):
+                    if f >= len(gen) - 1 and len(chain) >= cap:
+                        continue      # proposal budget spent
+                    tok = gen[f]
+                elif f - len(gen) < len(chain):
+                    if len(chain) >= cap:
+                        continue      # proposal budget spent
+                    tok = chain[f - len(gen)]
+                else:
+                    continue          # chain exhausted (position cap)
+                if pos >= self._max_len:
+                    continue          # context full: the draft idles
+                a["tokens"][s, 0] = tok
+                a["positions"][s, 0] = pos
+                a["wm"][s, 0] = True
+                a["rng_steps"][s] = f + 1
+                self._fill_row(a, seq)
+                fed_this[s] = (f, int(tok))
+            if not fed_this:
+                break
+            nxt = self._decode_fn(self._draft, self._dpools, **a)
+            with self._lock:
+                self._stats["draft_steps"] += 1
+            for seq in live:
+                s = seq.slot
+                if s not in fed_this:
+                    continue
+                f, ftok = fed_this[s]
+                draft_feeds[s].append(ftok)
+                if f >= len(seq.generated) - 1:
+                    chains[s].append(int(nxt[s]))
+
+        # ---- verify phase: one S = k + 1 target forward over [the last
+        # stored suffix ++ proposals] a slot
+        S = k + 1
+        a = self._slot_arrays(S)
+        feeds: Dict[int, List[int]] = {}
+        n_props: Dict[int, int] = {}
+        for seq in live:
+            s = seq.slot
+            f0 = seq.decoded
+            known = seq.generated[f0:]       # >= 1 (the last emitted)
+            fed = (known + chains[s])[:S]
+            cap = self._max_len - (seq.L + f0)   # positions available
+            # candidates past the replay region and the remaining token
+            # budget can never be consumed
+            useful = (len(known) - 1) + max(
+                seq.max_new - len(seq.generated), 0)
+            fed = fed[:max(min(len(fed), cap, useful), 0)]
+            if not fed:
+                continue      # context full: nothing to verify
+            feeds[s] = fed
+            n_props[s] = max(len(fed) - len(known), 0)
+            for o, tok in enumerate(fed):
+                a["tokens"][s, o] = tok
+                a["positions"][s, o] = seq.L + f0 + o
+                a["wm"][s, o] = True
+                a["rng_steps"][s, o] = f0 + o + 1
+            self._fill_row(a, seq)
+        if not feeds:
+            return
+        cand = self._verify_fn(**a)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+
+        # ---- host accept: candidate o realises generated index f0+o+1;
+        # the stored region is a replay, past it the target's token is
+        # emitted and the walk goes on while the next fed proposal
+        # equals it
+        replays = accepted_total = proposed_total = 0
+        for seq in live:
+            s = seq.slot
+            if s not in feeds or seq.slot is None:
+                continue
+            fed = feeds[s]
+            f0 = seq.decoded
+            proposed_total += n_props[s]
+            valid_fed = 0
+            for o in range(len(fed)):
+                if seq.slot is None:
+                    break           # finished mid-verify
+                tok = int(cand[s, o])
+                idx = f0 + o + 1    # 0-based generated index realised
+                if idx < len(seq.generated):
+                    replays += 1
+                    valid_fed += 1
+                    if self._check_replay and tok != seq.generated[idx]:
+                        raise AssertionError(
+                            f"replayed verify step for request "
+                            f"{seq.rid} produced {tok}, stream "
+                            f"already emitted {seq.generated[idx]} — "
+                            "paged verify is not bit-stable")
+                    continue
+                valid_fed += 1      # fed token o was gen[f0 + o]
+                self._emit(seq, tok)
+                if o + 1 < len(fed) and fed[o + 1] == tok:
+                    accepted_total += 1
+                    continue        # the proposal matched: keep going
+                break               # a mismatch, or out of proposals
+            if seq.slot is None:
+                continue            # finished: indexed at its finish
+            seq.decoded = min(f0 + valid_fed, len(seq.generated) - 1)
+            # draft validity: a fed token counts while it matches the
+            # final stream at its index (the draft's KV there is then
+            # right)
+            df0 = seq.draft_decoded
+            nvalid = 0
+            for t, ftok in enumerate(draft_feeds[s]):
+                i2 = df0 + t
+                if i2 < len(seq.generated) and seq.generated[i2] == ftok:
+                    nvalid += 1
+                else:
+                    break
+            seq.draft_decoded = min(df0 + nvalid, len(seq.generated) - 1)
+        with self._lock:
+            self._stats["spec_verify_steps"] += 1
+            self._stats["spec_proposed"] += proposed_total
+            self._stats["spec_accepted"] += accepted_total
+        self._after_step(replays, dt_ms)

@@ -1,5 +1,10 @@
 // Int8 paged decode/verify attention for Hopper (sm_90a), with a plain C
-// interface.
+// interface: two routes.  The decode route (`int8_kv_attn_sm90`, entry
+// `int8_kv_attention`) takes every S = 1 call and is described first;
+// the many-row route (`int8_kv_rows`, entry `int8_kv_attention_rows`,
+// described beside its kernel below) takes every S > 1 call: verify
+// blocks and prefix-sharing suffix prefills of up to max_model_len
+// query rows.
 //
 // Replaces: paddle_tpu/ops/pallas/kv_attention.py:84
 // `_int8_kv_attn_kernel` (launched by `int8_paged_attention`): attention
@@ -616,6 +621,298 @@ int8_kv_attn_sm90(const __grid_constant__ CUtensorMap tk,
 }
 
 // ---------------------------------------------------------------------
+// The many-row route: S > 1 (speculative verify blocks, prefix-sharing
+// suffix prefills), `int8_kv_rows<q type, head_dim, rows a thread>`
+// ---------------------------------------------------------------------
+//
+// A block owns a tile of QT = 16 * RM of the S*R query rows of one (kv
+// head, sequence): blockIdx (row tile, kv head, sequence).  The rows are
+// tiled over the grid, so no shape of S is too large.  Its 128 threads
+// form 16 row groups (ty) of 8 lanes (tx); a thread owns rows ty * RM ..
+// + RM - 1 of the tile.  Keys come in tiles of kRowKeys slots at fixed
+// absolute slots [64 t, 64 t + 64), from slot 0 up to the block that
+// holds the tile's largest position, gathered through the table with
+// plain 16-byte loads (the next tile's bytes are loaded into registers
+// while the current one is scored), their codes converted exactly to
+// f32 in shared memory.  Scores and P.V run on the FMA pipe: a score is
+// q . code in f32 (exact products for bf16 queries; f32 queries keep
+// their bits), so this route has the decode route's numerics:
+// s = (q . code) * k_scale * 1/sqrt(D), masked s = -1e30, masked p
+// exactly 0, l = l * alpha + sum p, acc = acc * alpha + (p * v_scale) *
+// code, out = acc / max(l, 1e-30).  Thread (ty, tx) scores slots
+// tx + 8 i of its rows and owns their output dims tx * D/8 .. + D/8 - 1.
+//
+// Row independence (the bit contract prefix sharing rests on): a row's
+// output depends only on its q, its position and its sequence's blocks.
+// Every operation of a row runs in an order fixed by its own lane
+// position within the row (the dot over d ascending, the 8 lanes' max and
+// sum by xor-shuffle 1, 2, 4, P.V over the tile's slots ascending), the
+// same in every instantiation of RM, and every row walks the key tiles
+// from slot 0 in order.  A key tile past a row's position is fully
+// masked for it and leaves (m, l, acc) bitwise unchanged (max(m, -1e30)
+// = m, alpha = exp(0) = 1, every p an exact 0).  So the row's bits do not
+// depend on S, the suffix's start or the tile it lands in: a cold prefill
+// and a warm suffix prefill give the same bits at the positions they
+// share.  Every product, sum and quotient is an explicit round-to-nearest
+// intrinsic, so no contraction differs between instantiations.
+
+constexpr int kRowKeys = 64;       // slots a key tile
+constexpr int kRowThreads = 128;   // 16 row groups x 8 lanes
+
+// Byte offsets of the many-row route's dynamic shared memory, computed
+// the same way by kv_attention._rows_smem: q [QT][D + 4] f32, K and V
+// codes [64][D + 4] f32 each, p * v_scale [QT][68] f32, the K and V
+// scales [64] f32 each, the block's largest position.
+struct RowsLayout {
+  long long q, k, v, p, ks, vs, maxpos, total;
+};
+
+__host__ __device__ inline RowsLayout rows_layout(int D, int QT) {
+  RowsLayout L;
+  const long long row = 4LL * (D + 4);
+  L.q = 0;
+  L.k = L.q + QT * row;
+  L.v = L.k + kRowKeys * row;
+  L.p = L.v + kRowKeys * row;
+  L.ks = L.p + 4LL * QT * (kRowKeys + 4);
+  L.vs = L.ks + 4LL * kRowKeys;
+  L.maxpos = L.vs + 4LL * kRowKeys;
+  L.total = L.maxpos + 16;
+  return L;
+}
+
+struct RowsParams {
+  const void* q;
+  const int8_t* kpool;
+  const int8_t* vpool;
+  const float* kscale;
+  const float* vscale;
+  const int* tbl;
+  const int* pos;
+  void* out;
+  int B, S, H, G, R, bs, M;
+  long long q_sb, q_ss, q_sh;
+  float scale;
+};
+
+// the 16 codes of a 16-byte piece as exact f32, stored at dst
+__device__ __forceinline__ void store_codes(float* dst, uint4 w) {
+  const uint32_t x[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                         w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 f;
+    f.x = code_f32(x[i], 0);
+    f.y = code_f32(x[i], 1);
+    f.z = code_f32(x[i], 2);
+    f.w = code_f32(x[i], 3);
+    reinterpret_cast<float4*>(dst)[i] = f;
+  }
+}
+
+template <typename QT, int D, int RM>
+__global__ void __launch_bounds__(kRowThreads)
+int8_kv_rows(const RowsParams p) {
+  constexpr int kQT = 16 * RM;            // query rows a block
+  constexpr int kRow = D + 4;             // floats a q / K / V row
+  constexpr int kP = kRowKeys + 4;        // floats a p row
+  constexpr int kParts = D / 16;          // 16-byte pieces a slot row
+  constexpr int kPieces = kRowKeys * kParts / kRowThreads;   // a thread's
+  constexpr int kDims = D / 8;            // output dims a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RowsLayout L = rows_layout(D, kQT);
+  float* const q_s = reinterpret_cast<float*>(smem_raw + L.q);
+  float* const k_s = reinterpret_cast<float*>(smem_raw + L.k);
+  float* const v_s = reinterpret_cast<float*>(smem_raw + L.v);
+  float* const p_s = reinterpret_cast<float*>(smem_raw + L.p);
+  float* const ks_s = reinterpret_cast<float*>(smem_raw + L.ks);
+  float* const vs_s = reinterpret_cast<float*>(smem_raw + L.vs);
+  int* const maxpos_s = reinterpret_cast<int*>(smem_raw + L.maxpos);
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int SR = p.S * p.R;
+  const int row0 = blockIdx.x * kQT;
+
+  // the tile's q rows in f32 (rows past S*R are zero and never stored)
+  if (tid == 0) *maxpos_s = -1;
+  const QT* const qg = static_cast<const QT*>(p.q) + b * p.q_sb;
+  for (int e = tid; e < kQT * D; e += kRowThreads) {
+    const int lr = e / D, d = e % D, j = row0 + lr;
+    q_s[lr * kRow + d] =
+        j < SR ? to_f32(qg[(j / p.R) * p.q_ss + (g * p.R + j % p.R) * p.q_sh
+                           + d])
+               : 0.f;
+  }
+  // this thread's rows' positions (-1: a row past S*R, nothing valid)
+  int qpos[RM];
+  int mine = -1;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int j = row0 + ty * RM + r;
+    qpos[r] = j < SR ? __ldg(p.pos + (long long)b * p.S + j / p.R) : -1;
+    mine = max(mine, qpos[r]);
+  }
+  __syncthreads();
+  if (tx == 0 && mine >= 0) atomicMax(maxpos_s, mine);
+  __syncthreads();
+  const int maxpos = *maxpos_s;
+  // keys up to the table block holding the tile's largest position
+  const int lim = min(p.M, maxpos / p.bs + 1) * p.bs;
+  const int n_tiles = maxpos < 0 ? 0 : (lim + kRowKeys - 1) / kRowKeys;
+
+  // a thread's pieces of a key tile: K and V codes, one scale
+  uint4 kr[kPieces], vr[kPieces];
+  float sc_r = 0.f;
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int n = 0; n < kPieces; ++n) {
+      const int c = tid + n * kRowThreads;
+      const int slot = t * kRowKeys + c / kParts;
+      kr[n] = vr[n] = make_uint4(0u, 0u, 0u, 0u);
+      if (slot < lim) {
+        const long long phys = __ldg(p.tbl + (long long)b * p.M + slot / p.bs);
+        const long long at =
+            ((phys * p.bs + slot % p.bs) * p.G + g) * D + (c % kParts) * 16;
+        kr[n] = __ldg(reinterpret_cast<const uint4*>(p.kpool + at));
+        vr[n] = __ldg(reinterpret_cast<const uint4*>(p.vpool + at));
+      }
+    }
+    const int slot = t * kRowKeys + (tid % kRowKeys);
+    sc_r = 0.f;
+    if (slot < lim) {
+      const long long phys = __ldg(p.tbl + (long long)b * p.M + slot / p.bs);
+      const float* const src = tid < kRowKeys ? p.kscale : p.vscale;
+      sc_r = __ldg(src + phys * p.bs + slot % p.bs);
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int n = 0; n < kPieces; ++n) {
+      const int c = tid + n * kRowThreads;
+      const int off = (c / kParts) * kRow + (c % kParts) * 16;
+      store_codes(k_s + off, kr[n]);
+      store_codes(v_s + off, vr[n]);
+    }
+    (tid < kRowKeys ? ks_s : vs_s)[tid % kRowKeys] = sc_r;
+  };
+
+  float m[RM], l[RM], acc[RM][kDims];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) acc[r][e] = 0.f;
+  }
+  if (n_tiles > 0) fetch(0);
+  for (int t = 0; t < n_tiles; ++t) {
+    __syncthreads();   // the previous tile's K, V and p read
+    stash();
+    __syncthreads();
+    if (t + 1 < n_tiles) fetch(t + 1);   // in flight while this tile runs
+
+    // scores: rows ty * RM + r, slots tx + 8 i
+    float s[RM][8];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[r][i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RM], kv[8];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        qv[r] = *reinterpret_cast<const float4*>(
+            q_s + (ty * RM + r) * kRow + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        kv[i] = *reinterpret_cast<const float4*>(k_s + (tx + 8 * i) * kRow
+                                                 + d);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float a = s[r][i];
+          a = __fmaf_rn(qv[r].x, kv[i].x, a);
+          a = __fmaf_rn(qv[r].y, kv[i].y, a);
+          a = __fmaf_rn(qv[r].z, kv[i].z, a);
+          a = __fmaf_rn(qv[r].w, kv[i].w, a);
+          s[r][i] = a;
+        }
+    }
+    // the online softmax of each row over this tile
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      float mx = kNeg;
+      uint32_t ok = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int sl = tx + 8 * i;
+        const bool valid = t * kRowKeys + sl <= qpos[r];
+        ok |= (uint32_t)valid << i;
+        s[r][i] = valid ? __fmul_rn(__fmul_rn(s[r][i], ks_s[sl]), p.scale)
+                        : kNeg;
+        mx = fmaxf(mx, s[r][i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.f;
+      float* const prow = p_s + (ty * RM + r) * kP;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int sl = tx + 8 * i;
+        const bool valid = (ok >> i) & 1u;
+        // masked slots add an exact 0, never exp of a huge negative
+        const float pe = valid ? expf(__fsub_rn(s[r][i], m_new)) : 0.f;
+        sum = __fadd_rn(sum, pe);
+        prow[sl] = valid ? __fmul_rn(pe, vs_s[sl]) : 0.f;
+      }
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 4));
+      const float alpha = expf(__fsub_rn(m[r], m_new));
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha), sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < kDims; ++e) acc[r][e] = __fmul_rn(acc[r][e], alpha);
+    }
+    __syncwarp();   // a row's p written by the 8 lanes of its group
+    // P.V over the tile's slots in order: (p * v_scale) * code
+#pragma unroll 2
+    for (int sl = 0; sl < kRowKeys; ++sl) {
+      float pr[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) pr[r] = p_s[(ty * RM + r) * kP + sl];
+      const float* const vrow = v_s + sl * kRow + tx * kDims;
+#pragma unroll
+      for (int e4 = 0; e4 < kDims; e4 += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(vrow + e4);
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          acc[r][e4] = __fmaf_rn(pr[r], v.x, acc[r][e4]);
+          acc[r][e4 + 1] = __fmaf_rn(pr[r], v.y, acc[r][e4 + 1]);
+          acc[r][e4 + 2] = __fmaf_rn(pr[r], v.z, acc[r][e4 + 2]);
+          acc[r][e4 + 3] = __fmaf_rn(pr[r], v.w, acc[r][e4 + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int j = row0 + ty * RM + r;
+    if (j >= SR) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    QT* const o = static_cast<QT*>(p.out)
+        + (((long long)b * p.S + j / p.R) * p.H + g * p.R + j % p.R) * D
+        + tx * kDims;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) store(o + e, __fdiv_rn(acc[r][e], den));
+  }
+}
+
+// ---------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------
 
@@ -758,6 +1055,42 @@ cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, int D,
   }
 }
 
+template <typename QT, int D, int RM>
+cudaError_t launch_rows(const RowsParams& p, int grid_x, int smem,
+                        cudaStream_t stream) {
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(int8_kv_rows<QT, D, RM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  int8_kv_rows<QT, D, RM><<<dim3(grid_x, p.G, p.B), kRowThreads, smem,
+                            stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename QT>
+cudaError_t launch_rows_d(const RowsParams& p, int D, int RM, int grid_x,
+                          int smem, cudaStream_t stream) {
+  switch (D * 8 + RM) {
+    case 64 * 8 + 1: return launch_rows<QT, 64, 1>(p, grid_x, smem, stream);
+    case 64 * 8 + 2: return launch_rows<QT, 64, 2>(p, grid_x, smem, stream);
+    case 64 * 8 + 4: return launch_rows<QT, 64, 4>(p, grid_x, smem, stream);
+    case 128 * 8 + 1: return launch_rows<QT, 128, 1>(p, grid_x, smem, stream);
+    case 128 * 8 + 2: return launch_rows<QT, 128, 2>(p, grid_x, smem, stream);
+    case 128 * 8 + 4: return launch_rows<QT, 128, 4>(p, grid_x, smem, stream);
+    case 256 * 8 + 1: return launch_rows<QT, 256, 1>(p, grid_x, smem, stream);
+    case 256 * 8 + 2: return launch_rows<QT, 256, 2>(p, grid_x, smem, stream);
+    default: return (cudaError_t)kErrPlan;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -839,6 +1172,47 @@ int int8_kv_attention(const void* q, const void* kpool, const void* vpool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch_d<__nv_bfloat16>(maps, p, D, plan, s)
                        : launch_d<float>(maps, p, D, plan, s));
+}
+
+// The many-row route (S > 1).  Same tensors and sizes as
+// int8_kv_attention, no workspace.  `plan`: query rows a block, slots a
+// key tile, threads, shared-memory bytes and row tiles, as int8_kv_plan
+// computed them (route "rows"); the entry refuses a plan it cannot run.
+int int8_kv_attention_rows(const void* q, const void* kpool,
+                           const void* vpool, const void* kscale,
+                           const void* vscale, const void* tbl,
+                           const void* pos, void* out, int B, int S, int H,
+                           int G, int D, int bs, int M, long long nb,
+                           long long q_sb, long long q_ss, long long q_sh,
+                           const int* plan, float scale, int is_bf16,
+                           void* stream) {
+  if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || bs <= 0 || bs % 8 != 0
+      || M <= 0 || nb <= 0 || (D != 64 && D != 128 && D != 256))
+    return (int)cudaErrorInvalidValue;
+  for (const void* t : {kpool, vpool})
+    if ((reinterpret_cast<uintptr_t>(t) & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+  const int qt = plan[0], RM = qt / 16;
+  const long long SR = (long long)S * (H / G);
+  const RowsLayout lay = rows_layout(D, qt);
+  if (qt % 16 != 0 || (RM != 1 && RM != 2 && RM != 4) ||
+      (D == 256 && RM == 4) || plan[1] != kRowKeys ||
+      plan[2] != kRowThreads || plan[3] != lay.total ||
+      lay.total > kSmemLimit || plan[4] != (SR + qt - 1) / qt ||
+      plan[4] > INT_MAX || B > 65535 || G > 65535)
+    return kErrPlan;
+  RowsParams p{q, static_cast<const int8_t*>(kpool),
+               static_cast<const int8_t*>(vpool),
+               static_cast<const float*>(kscale),
+               static_cast<const float*>(vscale),
+               static_cast<const int*>(tbl), static_cast<const int*>(pos),
+               out, B, S, H, G, H / G, bs, M, q_sb, q_ss, q_sh, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+                   ? launch_rows_d<__nv_bfloat16>(p, D, RM, plan[4],
+                                                  (int)lay.total, s)
+                   : launch_rows_d<float>(p, D, RM, plan[4], (int)lay.total,
+                                          s));
 }
 
 }  // extern "C"

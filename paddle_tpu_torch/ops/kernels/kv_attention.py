@@ -1,4 +1,4 @@
-"""Int8 paged decode/verify attention: the Hopper kernel and its plain
+"""Int8 paged decode/verify attention: the Hopper kernels and their plain
 version.
 
 Counterpart of ``paddle_tpu/ops/pallas/kv_attention.py`` (kernel 4,
@@ -21,6 +21,20 @@ sequence's output bits do not depend on the batch it is served in.
 :func:`int8_kv_plan` gives the launch's chunk, tiles, ring, grid,
 shared memory and workspace; it is pure arithmetic.
 
+Every call with more than one query position a sequence (S > 1: a
+speculative verify block, a prefix-sharing suffix prefill of up to
+``max_model_len`` rows) takes the source's second kernel, the many-row
+route (``int8_kv_rows``): the S*R query rows of a kv head are tiled over
+the grid, 16, 32 or 64 a block, so no S is too large; keys come in
+64-slot tiles at fixed absolute slots from slot 0, and every operation of
+a row runs in an order fixed by the row alone, so a row's output bits
+depend only on its q, its position and its sequence's blocks -- not on S,
+the suffix's start or the tile it lands in (a cold prefill and a warm
+suffix prefill agree bitwise where they overlap).  Scores and P.V run on
+the FMA pipe with the decode route's numerics.  :func:`int8_kv_plan`
+picks the route by S alone (``KvRowsPlan`` for S > 1), never by whether
+the rows would fit the decode route.
+
 :func:`paged_attention_ref` is a line-for-line port of the reference's
 ``paged_attention_ref`` (the gather/dequant/attend path); it is the
 plain version and the oracle.  :func:`paged_attention_split_ref` runs
@@ -41,8 +55,9 @@ from . import _build, registry
 from .flash_attention import H100_SMS, _sm_count
 
 __all__ = ["paged_attention_ref", "paged_attention_split_ref",
-           "int8_paged_attention", "int8_kv_plan", "KvPlan",
-           "KV_CHUNK_SLOTS", "CARD_TOL"]
+           "paged_attention_rows_ref", "int8_paged_attention",
+           "int8_kv_plan", "KvPlan", "KvRowsPlan", "KV_CHUNK_SLOTS",
+           "KV_ROW_KEYS", "CARD_TOL"]
 
 _SOURCE = "int8_kv_attention.cu"
 _HEAD_DIMS = (64, 128, 256)
@@ -62,6 +77,9 @@ KV_CHUNK_SLOTS = 256
 # for, and the shared memory of an SM (each block also takes 1,024 bytes)
 _TILE_SLOTS, _BOX_SLOTS, _MAX_STAGES, _MAX_WARPS = 32, 32, 4, 4
 _SMEM_LIMIT, _BLOCKS_AN_SM, _SM_SMEM = 232_448, 4, 233_472
+# The many-row route's key tile (slots, at absolute slots 64 t ..) and
+# threads a block (16 row groups of 8 lanes)
+KV_ROW_KEYS, _ROW_THREADS = 64, 128
 
 
 class KvPlan(NamedTuple):
@@ -83,10 +101,54 @@ class KvPlan(NamedTuple):
     ws_floats: int      # f32 partials: B * KH * chunks * S*R * (D + 2)
     tickets: int        # int32 tickets: B * KH
 
+    @property
+    def route(self) -> str:
+        return "decode"
+
     def launch(self) -> tuple:
         """The seven ints the C entry takes."""
         return (self.chunk, self.warps, self.stages, self.threads,
                 self.smem_bytes, self.chunks, self.chunks_a_block)
+
+
+class KvRowsPlan(NamedTuple):
+    """How the many-row route runs one S > 1 call."""
+
+    q_tile: int         # query rows a block: 16 * rows_a_thread
+    rows_a_thread: int  # rows a thread (each of 16 row groups of 8 lanes)
+    key_tile: int       # slots a key tile (KV_ROW_KEYS)
+    threads: int        # 128
+    smem_bytes: int     # dynamic shared memory a block
+    grid: Tuple[int, int, int]   # (row tiles, kv heads, sequences)
+
+    @property
+    def route(self) -> str:
+        return "rows"
+
+    def launch(self) -> tuple:
+        """The five ints ``int8_kv_attention_rows`` takes."""
+        return (self.q_tile, self.key_tile, self.threads, self.smem_bytes,
+                self.grid[0])
+
+
+def _rows_smem(D, q_tile):
+    """``rows_layout(D, q_tile).total`` of the kernel: q, K and V codes
+    as f32 rows of D + 4, p * v_scale rows of 68, two scale rows, the
+    block's largest position."""
+    row = 4 * (D + 4)
+    return (q_tile * row + 2 * KV_ROW_KEYS * row
+            + 4 * q_tile * (KV_ROW_KEYS + 4) + 2 * 4 * KV_ROW_KEYS + 16)
+
+
+def _rows_plan(B, S, H, KH, D):
+    SR = S * (H // KH)
+    rm = 4 if SR >= 64 else 2 if SR >= 32 else 1
+    if D == 256:
+        rm = min(rm, 2)
+    qt = 16 * rm
+    return KvRowsPlan(q_tile=qt, rows_a_thread=rm, key_tile=KV_ROW_KEYS,
+                      threads=_ROW_THREADS, smem_bytes=_rows_smem(D, qt),
+                      grid=(-(-SR // qt), KH, B))
 
 
 def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
@@ -104,10 +166,16 @@ def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
 
 
 def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
-                 sm_count: int = H100_SMS) -> KvPlan:
-    """The kernel's launch plan for queries [B, S, H, D] over pools of
-    block size ``bs`` and kv heads ``KH`` through a table of ``M`` blocks
-    a sequence.
+                 sm_count: int = H100_SMS):
+    """The launch plan for queries [B, S, H, D] over pools of block size
+    ``bs`` and kv heads ``KH`` through a table of ``M`` blocks a
+    sequence.
+
+    S > 1 takes the many-row route (:class:`KvRowsPlan`), whatever S, H
+    and D: row tiles of 64 query rows (32 at head_dim 256; 32 or 16 where
+    the S*R rows of a kv head are fewer), 128 threads, 64-slot key tiles,
+    grid (row tiles, KH, B).  No S raises.  The rest describes the decode
+    route (:class:`KvPlan`), which takes S = 1:
 
     - A chunk is ``ceil(KV_CHUNK_SLOTS / bs)`` whole blocks.
     - A block runs K consecutive chunks of one (sequence, kv head): 2
@@ -134,6 +202,8 @@ def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
             f"int8_kv_plan: B {B}, S {S}, H {H}, KH {KH}, D {D}, bs {bs}, "
             f"M {M} (needs positive sizes, bs % 8 == 0, H % KH == 0, D in "
             f"{_HEAD_DIMS})")
+    if S > 1:
+        return _rows_plan(B, S, H, KH, D)
     chunk = -(-KV_CHUNK_SLOTS // bs) * bs
     cb = chunk // bs
     bx = min(bs, _BOX_SLOTS)
@@ -259,6 +329,73 @@ def paged_attention_split_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
     return out.to(qh.dtype)
 
 
+def paged_attention_rows_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
+                             kv_heads, key_tile=KV_ROW_KEYS):
+    """The many-row route's arithmetic in plain PyTorch, an oracle for it
+    (S > 1 calls): every query row walks key tiles of ``key_tile`` slots
+    at fixed absolute slots from slot 0 up to the table block holding its
+    sequence's largest position, in order, each tile folded into the
+    row's (m, l, acc) as the kernel folds it: the dot over d ascending,
+    s = (dot * k_scale) * 1/sqrt(D), masked s = -1e30; the tile's sum as
+    8 lanes' sums over slots lane + 8 i, i ascending, added in the
+    xor-1, 2, 4 tree; P.V over the tile's slots ascending with (p *
+    v_scale) * code; out = acc / max(l, 1e-30).  Only elementwise
+    operations in a fixed order, so a row's bits depend on its q, its
+    position and its blocks alone, never on S or the other rows (the
+    kernel fuses the multiply-adds the model rounds twice: the model
+    holds the kernel's order, not its bits).  Same arguments and result
+    as :func:`paged_attention_ref` (int8 pools with their scales)."""
+    B, S, H, D = qh.shape
+    bs = kpool.shape[1]
+    M = tbl.shape[1]
+    G = kv_heads
+    R = H // G
+    scale = torch.tensor(1.0 / (D ** 0.5), dtype=torch.float32)
+    lanes = 8
+    out = torch.empty(B, S, G, R, D, dtype=torch.float32, device=qh.device)
+    for b in range(B):
+        q = qh[b].reshape(S, G, R, D).float()
+        p_b = pos[b].long()
+        lim = min(M, max(0, int(p_b.max())) // bs + 1) * bs
+        m = torch.full((S, G, R), _NEG, device=qh.device)
+        l = torch.zeros(S, G, R, device=qh.device)
+        acc = torch.zeros(S, G, R, D, device=qh.device)
+        for t0 in range(0, lim, key_tile):
+            slot = t0 + torch.arange(key_tile, device=qh.device)
+            live = slot < lim
+            sl = torch.where(live, slot, 0)
+            phys = tbl[b].long()[sl // bs]
+            k = torch.where(live[:, None, None],
+                            kpool[phys, sl % bs].float(), 0.0)   # [T, G, D]
+            v = torch.where(live[:, None, None],
+                            vpool[phys, sl % bs].float(), 0.0)
+            ks = torch.where(live, kscale[phys, sl % bs], 0.0)
+            vs = torch.where(live, vscale[phys, sl % bs], 0.0)
+            kt = k.permute(1, 0, 2)                               # [G, T, D]
+            dot = torch.zeros(S, G, R, key_tile, device=qh.device)
+            for d in range(D):
+                dot = dot + q[..., d, None] * kt[None, :, None, :, d]
+            valid = (slot[None, :] <= p_b[:, None])[:, None, None, :]
+            sc = torch.where(valid, dot * ks * scale, _NEG)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            pe = torch.where(valid, torch.exp(sc - m_new[..., None]), 0.0)
+            lane = torch.zeros(S, G, R, lanes, device=qh.device)
+            for i in range(key_tile // lanes):
+                lane = lane + pe[..., i * lanes:(i + 1) * lanes]
+            idx = torch.arange(lanes, device=qh.device)
+            for x in (1, 2, 4):
+                lane = lane + lane[..., idx ^ x]
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + lane[..., 0]
+            m = m_new
+            acc = acc * alpha[..., None]
+            pv = torch.where(valid, pe * vs, 0.0)
+            for j in range(key_tile):
+                acc = acc + pv[..., j, None] * v[j][None, :, None, :]
+        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(qh.dtype)
+
+
 def _eligible(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
     ts = (qh, kpool, vpool, kscale, vscale, tbl, pos)
     if any(t is None for t in ts):
@@ -294,10 +431,11 @@ def _eligible(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
 
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(B, S, H, KH, D, bs, M, device):
-    """The plan of a shape on a card and its seven ints as the C entry
+    """The plan of a shape on a card and its ints as the route's C entry
     takes them (which it only reads), made once a shape."""
     plan = int8_kv_plan(B, S, H, KH, D, bs, M, _sm_count(device))
-    return plan, (ctypes.c_int * 7)(*plan.launch())
+    ints = plan.launch()
+    return plan, (ctypes.c_int * len(ints))(*ints)
 
 
 # (device, stream) -> (f32 partials, int32 tickets).  The tickets are
@@ -338,6 +476,9 @@ def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((B, S, H, D), dtype=qh.dtype, device=qh.device)
     lib = _build.load(_SOURCE)
+    if plan.route == "rows":
+        return _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale,
+                          tbl, pos, out)
     fn = lib.int8_kv_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
@@ -359,7 +500,36 @@ def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
         _build.check(lib, rc, f"int8_kv_attention q={tuple(qh.shape)} "
                               f"pool={tuple(kpool.shape)} "
                               f"table={tuple(tbl.shape)} {plan}")
-    _SPEC.launches += 1
+    registry.note_launch(_SPEC, "decode")
+    return out.view(B, S, KH, H // KH, D)
+
+
+def _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale, tbl, pos,
+               out):
+    """Launch the many-row route (S > 1); no workspace."""
+    B, S, H, D = qh.shape
+    nb, bs, KH, _ = kpool.shape
+    fn = lib.int8_kv_attention_rows
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 4
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    dev = qh.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(qh.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+                kscale.data_ptr(), vscale.data_ptr(), tbl.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), B, S, H, KH, D, bs,
+                tbl.shape[1], nb, qh.stride(0), qh.stride(1), qh.stride(2),
+                ints, 1.0 / (D ** 0.5), int(qh.dtype == torch.bfloat16),
+                stream)
+    if rc:
+        _build.check(lib, rc, f"int8_kv_attention_rows q={tuple(qh.shape)} "
+                              f"pool={tuple(kpool.shape)} "
+                              f"table={tuple(tbl.shape)} {plan}")
+    registry.note_launch(_SPEC, "rows")
     return out.view(B, S, KH, H // KH, D)
 
 
@@ -372,9 +542,11 @@ _SPEC = registry.register(
     source="paddle_tpu_torch/ops/kernels/csrc/int8_kv_attention.cu",
     replaces="paddle_tpu/ops/pallas/kv_attention.py:84",
     doc="paged decode/verify attention reading int8 KV pools once: "
-        "sequences split into fixed chunks loaded by TMA, per-(block,slot) "
-        "scales applied inside the table-driven gather, online softmax, "
-        "chunks merged in order in the same launch",
+        "S = 1 splits sequences into fixed chunks loaded by TMA, "
+        "per-(block,slot) scales applied inside the table-driven gather, "
+        "online softmax, chunks merged in order in the same launch; S > 1 "
+        "tiles the query rows over the grid against 64-slot key tiles at "
+        "fixed absolute slots (launches by route: decode, rows)",
 )
 
 

@@ -22,14 +22,19 @@ weights give the same numbers:
 Prefill (S > 1, not verify) and training attention at flash-eligible
 shapes run the hand-written flash-attention kernels (the training path
 through their autograd Function, so the backward runs the two backward
-kernels); decode/verify over int8 pools runs the int8 paged-attention
-kernel; all route CPU tensors to their plain versions.
+kernels); decode over int8 pools runs the int8 paged-attention kernel's
+decode route, verify blocks and suffix prefills its many-row route; all
+route CPU tensors to their plain versions.
+
+The dense ``[B, Smax]`` cache path (``init_cache`` /
+``forward_with_cache``, which ``generate`` drives) is the reference's:
+a prefill through flash attention where eligible, decode steps in plain
+PyTorch (the reference has no kernel there).
 
 Not ported yet: the chunked LM loss (``_chunked_causal_lm_loss``, which
 the reference engages only above 1.5 GiB of f32 logits), the chunked
 attention for flash-ineligible long sequences (``_sdpa_ref`` runs
-there), pipeline / sequence / context parallelism and the dense
-``[B, Smax]`` cache path.
+there) and pipeline / sequence / context parallelism.
 """
 from __future__ import annotations
 
@@ -127,6 +132,25 @@ class RMSNorm(nn.Module):
         return (h * self.weight).to(x.dtype)
 
 
+def _rows(fn, x, min_rows):
+    """``fn`` over the rows of ``x`` [..., F], issued with at least
+    ``min_rows`` rows (zero rows appended, their results dropped).  A
+    GEMM library picks its algorithm by the row count, and some (split
+    K, GEMV) sum a row in another order, so the same row can get other
+    bits in a call of another size; with a floor on the rows every call
+    of a server runs the algorithms of large calls.  ``None``: ``fn(x)``
+    as it is."""
+    if not min_rows:
+        return fn(x)
+    flat = x.reshape(-1, x.shape[-1])
+    n = flat.shape[0]
+    if n < min_rows:
+        flat = torch.cat([flat, flat.new_zeros(min_rows - n,
+                                               flat.shape[-1])])
+    out = fn(flat)[:n]
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def _rope(x, positions, theta: float):
     """Rotary embedding on (B, S, H, D) over INTERLEAVED pairs
     (x[..., ::2], x[..., 1::2]), restacked pairwise -- not the
@@ -188,8 +212,52 @@ class LlamaAttention(nn.Module):
             o = _sdpa_ref(qh, kh, vh, None, 0.0, True, None)
         return self.o_proj(o.reshape(B, S, H * D))
 
+    def forward_cached(self, hidden, positions, cache, mode=None):
+        """Incremental attention over a dense cache ``{"k", "v"}`` of
+        [B, Smax, KH, D] (slot index == absolute position), updated in
+        place: this call's roped K/V are written at ``positions``, then
+        S > 1 (a prefill into an empty cache) is causal attention over
+        the block (flash where eligible), and S = 1 attends the whole
+        buffer in f32 with the mask slot <= position, query heads grouped
+        by kv head.  Returns (output, cache)."""
+        c = self.config
+        q = self.q_proj(hidden)
+        k = self.k_proj(hidden)
+        v = self.v_proj(hidden)
+        B, S = q.shape[0], q.shape[1]
+        H, KH, D = c.num_attention_heads, c.kv_heads, c.head_dim
+        kbuf, vbuf = cache["k"], cache["v"]
+        qh = _rope(q.reshape(B, S, H, D), positions, c.rope_theta)
+        kh = _rope(k.reshape(B, S, KH, D), positions, c.rope_theta)
+        vh = v.reshape(B, S, KH, D)
+        bidx = torch.arange(B, device=q.device)[:, None]
+        kbuf[bidx, positions.long()] = kh.to(kbuf.dtype)
+        vbuf[bidx, positions.long()] = vh.to(vbuf.dtype)
+        if S > 1:
+            kh2, vh2 = kh, vh
+            if KH != H:
+                kh2 = kh.repeat_interleave(H // KH, dim=2)
+                vh2 = vh.repeat_interleave(H // KH, dim=2)
+            if flash_eligible(S, D):
+                o = flash_attention(qh, kh2, vh2, causal=True, mode=mode)
+            else:
+                o = _sdpa_ref(qh, kh2, vh2, None, 0.0, True, None)
+            return self.o_proj(o.reshape(B, S, H * D)), cache
+        Smax = kbuf.shape[1]
+        R = H // KH
+        qg = qh.reshape(B, S, KH, R, D)
+        logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                              kbuf.float()) * (1.0 / (D ** 0.5))
+        valid = (torch.arange(Smax, device=q.device)[None, None, None, None]
+                 <= positions[:, None, None, :, None])
+        logits = torch.where(valid, logits, float("-inf"))
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bgrst,btgd->bsgrd", w, vbuf.float()).to(q.dtype)
+        return self.o_proj(o.reshape(B, S, H * D)), cache
+
     def forward_paged(self, hidden, positions, cache, block_tables,
-                      write_mask, verify_mode: bool = False, mode=None):
+                      write_mask, verify_mode: bool = False, mode=None,
+                      min_rows=None):
         """Block-paged attention.  K/V live in pools
         ``[num_blocks, block_size, KH, D]`` shared by every sequence; a
         sequence's ``block_tables`` row maps logical block
@@ -203,13 +271,16 @@ class LlamaAttention(nn.Module):
         ``S > 1`` without ``verify_mode`` is a fresh prefill (positions
         from 0): causal attention over the block through the flash
         kernel.  Otherwise the queries attend the cache through the
-        table (int8 pools: the int8 paged-attention kernel).  ``mode``
-        forwards to the kernel dispatch (``"torch_ref"`` runs the plain
-        versions, for comparisons)."""
+        table (int8 pools: the int8 paged-attention kernel, its decode
+        route at S = 1, its many-row route for verify blocks and suffix
+        prefills).  ``mode`` forwards to the kernel dispatch
+        (``"torch_ref"`` runs the plain versions, for comparisons);
+        ``min_rows`` floors the rows of each projection (see
+        :func:`_rows`)."""
         c = self.config
-        q = self.q_proj(hidden)
-        k = self.k_proj(hidden)
-        v = self.v_proj(hidden)
+        q = _rows(self.q_proj, hidden, min_rows)
+        k = _rows(self.k_proj, hidden, min_rows)
+        v = _rows(self.v_proj, hidden, min_rows)
         quant = "k_scale" in cache
         B, S = q.shape[0], q.shape[1]
         H, KH, D = c.num_attention_heads, c.kv_heads, c.head_dim
@@ -253,7 +324,7 @@ class LlamaAttention(nn.Module):
         else:
             o = paged_attention_ref(qh, kpool, vpool, None, None,
                                     block_tables, positions, KH)
-        return self.o_proj(o.reshape(B, S, H * D)), cache
+        return _rows(self.o_proj, o.reshape(B, S, H * D), min_rows), cache
 
 
 class LlamaMLP(nn.Module):
@@ -293,13 +364,22 @@ class LlamaDecoderLayer(nn.Module):
                                     mode=mode)
         return h + self.mlp(self.post_attention_layernorm(h))
 
-    def forward_paged(self, hidden, positions, cache, block_tables,
-                      write_mask, verify_mode: bool = False, mode=None):
-        attn_out, cache = self.self_attn.forward_paged(
-            self.input_layernorm(hidden), positions, cache, block_tables,
-            write_mask, verify_mode=verify_mode, mode=mode)
+    def forward_cached(self, hidden, positions, cache, mode=None):
+        attn_out, cache = self.self_attn.forward_cached(
+            self.input_layernorm(hidden), positions, cache, mode=mode)
         h = hidden + attn_out
         return h + self.mlp(self.post_attention_layernorm(h)), cache
+
+    def forward_paged(self, hidden, positions, cache, block_tables,
+                      write_mask, verify_mode: bool = False, mode=None,
+                      min_rows=None):
+        attn_out, cache = self.self_attn.forward_paged(
+            self.input_layernorm(hidden), positions, cache, block_tables,
+            write_mask, verify_mode=verify_mode, mode=mode,
+            min_rows=min_rows)
+        h = hidden + attn_out
+        return h + _rows(self.mlp, self.post_attention_layernorm(h),
+                         min_rows), cache
 
 
 class StackedLlamaDecoder(nn.Module):
@@ -375,9 +455,12 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
 
-    def forward(self, input_ids, positions=None, mode=None):
+    def forward(self, input_ids, positions=None, mode=None, caches=None):
         """Final hidden states [B, S, hidden] of a full-sequence causal
-        forward.  ``positions`` default to ``arange(S)`` per row."""
+        forward.  ``positions`` default to ``arange(S)`` per row.  With
+        ``caches`` (one dense ``{"k", "v"}`` buffer pair a layer, see
+        ``LlamaForCausalLM.init_cache``) the call is incremental and
+        returns (hidden, caches)."""
         c = self.config
         if positions is None:
             S = input_ids.shape[1]
@@ -387,6 +470,13 @@ class LlamaModel(nn.Module):
         hidden = self.embed_tokens(input_ids)
         if c.compute_dtype:
             hidden = hidden.to(to_torch(c.compute_dtype))
+        if caches is not None:
+            if self.decoder is not None:
+                raise NotImplementedError(_SCAN_LAYERS_KV_MSG)
+            for layer, cache in zip(self.layers, caches):
+                hidden, _ = layer.forward_cached(hidden, positions, cache,
+                                                 mode=mode)
+            return self.norm(hidden), caches
         if self.decoder is not None:
             hidden = self.decoder(hidden, positions, mode=mode)
         else:
@@ -399,7 +489,8 @@ class LlamaModel(nn.Module):
         return self.norm(hidden)
 
     def forward_paged(self, input_ids, positions, pools, block_tables,
-                      write_mask, verify_mode: bool = False, mode=None):
+                      write_mask, verify_mode: bool = False, mode=None,
+                      min_rows=None):
         """``pools``: one {"k", "v"} dict per layer (plus ``k_scale`` /
         ``v_scale`` for int8 pools), updated in place.  Returns
         (hidden, pools)."""
@@ -413,7 +504,7 @@ class LlamaModel(nn.Module):
             hidden, _ = layer.forward_paged(hidden, positions, pool,
                                             block_tables, write_mask,
                                             verify_mode=verify_mode,
-                                            mode=mode)
+                                            mode=mode, min_rows=min_rows)
         return self.norm(hidden), pools
 
 
@@ -461,8 +552,37 @@ class LlamaForCausalLM(nn.Module):
             return logits
         return _causal_lm_loss(logits, labels), logits
 
+    def generate(self, input_ids, **kwargs):
+        """Autoregressive decoding (greedy, sampling, beam search): see
+        :func:`paddle_tpu_torch.text.generation.generate`."""
+        from ..generation import generate
+        return generate(self, input_ids, **kwargs)
+
     def supports_kv_cache(self) -> bool:
         return self.model.decoder is None
+
+    def init_cache(self, batch_size: int, max_len: int):
+        """Per-layer dense K/V buffers [B, max_len, KH, D] in the compute
+        dtype on the model's device; slot index == absolute position."""
+        if not self.supports_kv_cache():
+            raise NotImplementedError(_SCAN_LAYERS_KV_MSG)
+        c = self.config
+        dt = to_torch(c.compute_dtype) if c.compute_dtype else torch.float32
+        shape = (int(batch_size), int(max_len), c.kv_heads, c.head_dim)
+        return [{"k": torch.zeros(shape, dtype=dt, device=self.device),
+                 "v": torch.zeros(shape, dtype=dt, device=self.device)}
+                for _ in range(c.num_hidden_layers)]
+
+    def forward_with_cache(self, input_ids, positions, caches,
+                           last_logits_only: bool = False, mode=None):
+        """(logits, caches) for the given token block; the caches advance
+        in place.  ``last_logits_only`` projects only the last position
+        (a prefill needs the last token's logits alone)."""
+        hidden, caches = self.model(input_ids, positions, mode=mode,
+                                    caches=caches)
+        if last_logits_only:
+            hidden = hidden[:, -1:]
+        return self._logits(hidden), caches
 
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Per-layer K/V pools ``[num_blocks, block_size, KH, D]`` on the
@@ -498,19 +618,23 @@ class LlamaForCausalLM(nn.Module):
 
     def forward_paged(self, input_ids, positions, pools, block_tables,
                       write_mask, gather_at=None, verify_mode: bool = False,
-                      mode=None):
+                      mode=None, min_rows=None):
         """(logits, pools) through the block-paged cache (pools updated
         in place).  With ``gather_at`` [B] the hidden states are taken
         at those positions before the vocab projection, so a prefill
-        pays for a [B, 1, V] projection, not [B, S, V]."""
+        pays for a [B, 1, V] projection, not [B, S, V].  ``min_rows``
+        floors the rows of every projection and of the head (see
+        :func:`_rows`): a prefix-sharing or speculative server passes it
+        so a position's bits do not depend on the size of the call that
+        computes it."""
         hidden, pools = self.model.forward_paged(
             input_ids, positions, pools, block_tables, write_mask,
-            verify_mode=verify_mode, mode=mode)
+            verify_mode=verify_mode, mode=mode, min_rows=min_rows)
         if gather_at is not None:
             idx = gather_at.long()[:, None, None].expand(
                 -1, 1, hidden.shape[-1])
             hidden = torch.gather(hidden, 1, idx)
-        return self._logits(hidden), pools
+        return _rows(self._logits, hidden, min_rows), pools
 
 
 def _causal_lm_loss(logits, labels):

@@ -137,12 +137,15 @@ def _kv_batch(seed, last, S, G, R, D, bs, M, dt, dev, nb=None):
 
 @pytest.mark.cuda
 def test_int8_kv_chunks_match_plain_on_card():
-    """The split kernel at chunk boundaries: a sequence of exactly one
-    chunk, a verify block whose first row lies before the second chunk
-    (that row's chunk is fully masked), three full chunks, an idle slot;
-    GQA; every head dim, both dtypes, block sizes 16, 8 (32 blocks a
-    chunk) and 72 (two TMA boxes a block).  Within CARD_TOL of the plain
-    version and of the split oracle, and bitwise equal on a rerun."""
+    """The split kernel (the decode route, S = 1) at chunk boundaries: a
+    sequence of exactly one chunk, one a slot past it, three full chunks,
+    an idle slot; GQA; every head dim, both dtypes, block sizes 16, 8 (32
+    blocks a chunk) and 72 (two TMA boxes a block).  Within CARD_TOL of
+    the plain version and of the split oracle, and bitwise equal on a
+    rerun.  The same batches as verify blocks of 3 (a first row before
+    the second chunk) take the many-row route, within CARD_TOL of both
+    oracles too; so does a block of 64 query rows a kv head at head_dim
+    256, which the decode route could hold only with one warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the serving shapes")
@@ -154,25 +157,27 @@ def test_int8_kv_chunks_match_plain_on_card():
     cases += [(128, torch.float32, 8, 80), (64, torch.bfloat16, 72, 9)]
     for D, dt, bs, M in cases:
         T = bs * M
-        C = kva.int8_kv_plan(4, 3, 4, 2, D, bs, M).chunk
-        args, G = _kv_batch(30 + D + bs, [C - 1, C + 1, T - 1, -1], 3, 2, 2,
-                            D, bs, M, dt, dev)
-        got = kva.int8_paged_attention(*args, G)
-        again = kva.int8_paged_attention(*args, G)
-        ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
-        split = kva.paged_attention_split_ref(*args, G)
-        torch.cuda.synchronize()
-        runs += 2
-        assert bool(torch.isfinite(got.float()).all()), (D, dt, bs)
-        assert torch.equal(got, again), (D, dt, bs)
-        _assert_within(got, ref, kva.CARD_TOL[dt])
-        _assert_within(got, split, kva.CARD_TOL[dt])
-    # 64 query rows a kv head at head_dim 256: one warp, a ring refilled
-    # within each chunk
+        C = kva.int8_kv_plan(4, 1, 4, 2, D, bs, M).chunk
+        for S in (1, 3):
+            assert kva.int8_kv_plan(4, S, 4, 2, D, bs, M).route == (
+                "decode" if S == 1 else "rows")
+            args, G = _kv_batch(30 + D + bs, [C - 1, C + 1, T - 1, -1], S,
+                                2, 2, D, bs, M, dt, dev)
+            got = kva.int8_paged_attention(*args, G)
+            again = kva.int8_paged_attention(*args, G)
+            ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
+            split = kva.paged_attention_split_ref(*args, G)
+            torch.cuda.synchronize()
+            runs += 2
+            assert bool(torch.isfinite(got.float()).all()), (D, dt, bs, S)
+            assert torch.equal(got, again), (D, dt, bs, S)
+            _assert_within(got, ref, kva.CARD_TOL[dt])
+            _assert_within(got, split, kva.CARD_TOL[dt])
+    # 64 query rows a kv head at head_dim 256
     args, G = _kv_batch(60, [255, 300, 639], 8, 2, 8, 256, 16, 40,
                         torch.float32, dev)
     plan = kva.int8_kv_plan(3, 8, 16, 2, 256, 16, 40)
-    assert plan.warps == 1 and plan.stages < plan.tiles
+    assert plan.route == "rows" and plan.q_tile == 32
     got = kva.int8_paged_attention(*args, G)
     again = kva.int8_paged_attention(*args, G)
     ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
@@ -181,6 +186,43 @@ def test_int8_kv_chunks_match_plain_on_card():
     assert torch.equal(got, again)
     _assert_within(got, ref, kva.CARD_TOL[torch.float32])
     assert registry.launch_counts()["int8_kv_attention"] == runs
+
+
+@pytest.mark.cuda
+def test_int8_kv_rows_route_on_card():
+    """The many-row route (S > 1) at every head dim, f32 and bf16, GQA,
+    block sizes 16 and 24 (key tiles crossing blocks): a cold call
+    (positions 0..299), a warm suffix (positions 200..299) and a verify
+    block (295..299) over the same pools and the same q rows, each
+    within CARD_TOL of the plain version and bitwise on a rerun; the
+    positions they share are bitwise equal between the three calls (the
+    row tile and S change the rows' neighbours, never their bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    for D, dt, bs, R in ((64, torch.float32, 16, 2),
+                         (128, torch.bfloat16, 16, 1),
+                         (128, torch.float32, 24, 4),
+                         (256, torch.bfloat16, 16, 2)):
+        M = 320 // bs + 1
+        args, G = _kv_batch(70 + D, [299, 299], 300, 2, R, D, bs, M, dt,
+                            dev)
+        qh, kp, vp, ks, vs, tbl, pos = args
+        outs = {}
+        for name, lo in (("cold", 0), ("warm", 200), ("verify", 295)):
+            a = [qh[:, lo:].clone(), kp, vp, ks, vs, tbl,
+                 pos[:, lo:].clone()]
+            got = kva.int8_paged_attention(*a, G)
+            again = kva.int8_paged_attention(*a, G)
+            ref = kva.int8_paged_attention(*a, G, mode="torch_ref")
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (D, dt, name)
+            _assert_within(got, ref, kva.CARD_TOL[dt])
+            outs[name] = got
+        assert torch.equal(outs["warm"], outs["cold"][:, 200:]), (D, dt)
+        assert torch.equal(outs["verify"], outs["cold"][:, 295:]), (D, dt)
+    assert registry.spec("int8_kv_attention").mode_launches == {"rows": 24}
 
 
 @pytest.mark.cuda

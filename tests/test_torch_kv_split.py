@@ -1,4 +1,5 @@
-"""Kernel 4's split (flash-decoding) in plain PyTorch and its launch plan.
+"""Kernel 4's split (flash-decoding) and many-row route in plain PyTorch,
+and their launch plans.
 
 ``paged_attention_split_ref`` runs the CUDA kernel's chunks and its
 chunk-order merge.  Here it is held to the reference's Pallas kernel
@@ -10,6 +11,13 @@ position lies before a live chunk, idle trash rows, GQA, every head dim.
 ``int8_kv_plan`` is pure arithmetic, and the launcher is checked with a
 recording library in place of the CUDA one.  The kernel itself runs only
 on the card (``tests/test_torch_cuda.py``, marked ``cuda``).
+
+S > 1 calls (verify blocks, prefix-sharing suffix prefills) take the
+many-row route: ``paged_attention_rows_ref`` models its arithmetic (key
+tiles at fixed absolute slots, the lanes' order of sums) and is held to
+the Pallas kernel in interpret mode within ``CARD_TOL[f32]``; a row's
+bits do not depend on S.  The S = 1 plan is compared field by field with
+the plan the decode route had before the many-row route existed.
 """
 import contextlib
 import importlib
@@ -115,7 +123,7 @@ def test_split_ref_is_batch_invariant():
 @pytest.mark.parametrize("bs", [8, 16, 24, 40, 64, 72, 128, 256])
 def test_plan_chunk_is_whole_blocks(bs, target, monkeypatch):
     """At each chunk target the constant was chosen from."""
-    B, S, H, KH, D, M = 3, 2, 8, 4, 128, 50
+    B, S, H, KH, D, M = 3, 1, 8, 4, 128, 50
     monkeypatch.setattr(kva, "KV_CHUNK_SLOTS", target)
     p = kva.int8_kv_plan(B, S, H, KH, D, bs, M)
     assert p.chunk % bs == 0 and target <= p.chunk < target + bs
@@ -168,9 +176,15 @@ def test_plan_of_a_sequence_ignores_batch_and_table_width(S, H, KH, D):
     """Only the chunk count, the chunks a block, the grid and the
     workspace follow B, M and the card: the chunk, tiles, warps and ring
     (which fix the kernel's order of operations) do not, so a sequence's
-    bits do not depend on its batch."""
+    bits do not depend on its batch.  The many-row route (S > 1) follows
+    B in its grid alone."""
     plans = [kva.int8_kv_plan(B, S, H, KH, D, 16, M, sm_count=sms)
              for B, M, sms in ((1, 9, 132), (8, 128, 132), (33, 300, 66))]
+    if S > 1:
+        assert {p.route for p in plans} == {"rows"}
+        assert len({p._replace(grid=None) for p in plans}) == 1
+        assert [p.grid[2] for p in plans] == [1, 8, 33]
+        return
     same = [p._replace(chunks=None, chunks_a_block=None, grid=None,
                        ws_floats=None, tickets=None) for p in plans]
     assert same[0] == same[1] == same[2]
@@ -179,16 +193,121 @@ def test_plan_of_a_sequence_ignores_batch_and_table_width(S, H, KH, D):
 
 
 def test_plan_trades_warps_and_stages_for_many_query_rows():
-    """A wide verify block at head_dim 256 keeps fewer warps or stages so
-    the rows' softmax state fits; one that fits with none raises, naming
-    the shape."""
-    p = kva.int8_kv_plan(2, 8, 64, 8, 256, 16, 64)       # 64 rows a head
+    """The decode route (S = 1) with many query rows a kv head (a wide
+    GQA group) at head_dim 256 keeps fewer warps or stages so the rows'
+    softmax state fits; one that fits with none raises, naming the
+    shape.  The same rows as S > 1 take the many-row route, which no
+    shape overflows."""
+    p = kva.int8_kv_plan(2, 1, 64, 1, 256, 16, 64)       # 64 rows a head
+    assert p.route == "decode"
     assert p.smem_bytes <= 232_448 and (p.warps, p.stages) < (4, 4)
     assert p.stages % p.warps == 0
     with pytest.raises(ValueError, match="query rows a kv head"):
-        kva.int8_kv_plan(2, 64, 64, 8, 256, 16, 64)       # 512 rows
+        kva.int8_kv_plan(2, 1, 512, 1, 256, 16, 64)       # 512 rows
+    for S in (8, 64):
+        r = kva.int8_kv_plan(2, S, 64, 8, 256, 16, 64)
+        assert r.route == "rows" and r.smem_bytes <= 232_448
     with pytest.raises(ValueError, match="bs % 8"):
         kva.int8_kv_plan(2, 1, 8, 8, 128, 12, 64)
+
+
+# (B, S, H, KH, D, bs, M, sm_count) -> the decode route's plan before the
+# many-row route existed, every field
+_S1_PLANS = {
+    (8, 1, 32, 32, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
+                                        39224, 8, 2, (4, 32, 8), 266240, 256),
+    (1, 1, 32, 32, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
+                                        39224, 8, 1, (8, 32, 1), 33280, 32),
+    (8, 1, 32, 8, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
+                                       47008, 8, 1, (8, 8, 8), 266240, 64),
+    (3, 1, 8, 8, 64, 8, 40, 132): (256, 32, 8, 1, 32, 8, 4, 4, 160, 23672,
+                                   2, 1, (2, 8, 3), 3168, 24),
+    (2, 1, 64, 8, 256, 16, 64, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
+                                      110640, 4, 1, (4, 8, 2), 132096, 16),
+    (4, 1, 4, 2, 64, 72, 9, 132): (288, 4, 32, 3, 32, 12, 4, 4, 160, 21800,
+                                   3, 1, (3, 2, 4), 3168, 8),
+    (33, 1, 8, 2, 256, 24, 300, 66): (264, 11, 24, 1, 24, 11, 4, 4, 160,
+                                      72208, 28, 2, (14, 2, 33), 1907136,
+                                      66),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_S1_PLANS))
+def test_s1_plan_is_unchanged_field_by_field(shape):
+    """S = 1 keeps the decode route with exactly its earlier plan (the 7B
+    decode and the serving mix at batch 8 and 1 among the shapes)."""
+    p = kva.int8_kv_plan(*shape)
+    assert isinstance(p, kva.KvPlan) and p.route == "decode"
+    assert p._fields == ("chunk", "chunk_blocks", "box_slots",
+                         "boxes_a_block", "tile_slots", "tiles", "warps",
+                         "stages", "threads", "smem_bytes", "chunks",
+                         "chunks_a_block", "grid", "ws_floats", "tickets")
+    for name, got, want in zip(p._fields, tuple(p), _S1_PLANS[shape]):
+        assert got == want, (name, got, want)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [2, 5, 17, 64, 256, 2048])
+def test_rows_plan_takes_every_s_above_one(S, R, D):
+    """Every S > 1 plans the many-row route: 64 query rows a block (32 at
+    head_dim 256, 16 or 32 for few rows), 128 threads, 64-slot key
+    tiles, a grid that covers the S*R rows of each kv head, and shared
+    memory as the kernel lays it out, within a block's 232,448 bytes."""
+    KH, B, bs, M = 4, 3, 16, 129
+    p = kva.int8_kv_plan(B, S, KH * R, KH, D, bs, M)
+    assert p.route == "rows"
+    SR = S * R
+    rm = 4 if SR >= 64 else 2 if SR >= 32 else 1
+    rm = min(rm, 2) if D == 256 else rm
+    assert (p.q_tile, p.rows_a_thread) == (16 * rm, rm)
+    assert (p.key_tile, p.threads) == (kva.KV_ROW_KEYS, 128) == (64, 128)
+    assert p.grid == (-(-SR // p.q_tile), KH, B)
+    row = 4 * (D + 4)
+    assert p.smem_bytes == (p.q_tile * row + 2 * 64 * row
+                            + 4 * p.q_tile * 68 + 2 * 4 * 64 + 16)
+    assert p.smem_bytes <= 232_448
+    assert p.launch() == (p.q_tile, 64, 128, p.smem_bytes, p.grid[0])
+
+
+# (last positions, S, G, R, D, bs, M): a suffix starting past 0, GQA, a
+# ragged last block, a block size that does not divide the key tile
+_ROWS_CASES = {
+    "suffix_s64_start_above_0": ([150, 100], 64, 2, 1, 64, 16, 12),
+    "gqa_r4": ([77, 40], 16, 1, 4, 64, 8, 12),
+    "ragged_last_block": ([60, 33], 20, 2, 2, 128, 16, 5),
+    "bs24_crosses_key_tiles": ([140, 71], 8, 2, 2, 64, 24, 7),
+    "verify_and_idle_row": ([90, -1], 5, 2, 2, 256, 16, 7),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ROWS_CASES))
+def test_rows_ref_matches_jax(name):
+    last, S, G, R, D, bs, M = _ROWS_CASES[name]
+    args, G = _case(8, last, S, G, R, D, bs, M)
+    jargs = [jnp.asarray(a) for a in args]
+    ker = np.asarray(jkv.int8_paged_attention(*jargs, G, interpret=True))
+    xref = np.asarray(jkv.paged_attention_ref(*jargs, G))
+    got = kva.paged_attention_rows_ref(*[torch.from_numpy(a) for a in args],
+                                       G)
+    atol, rtol, _ = kva.CARD_TOL[torch.float32]
+    assert got.shape == ker.shape
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), ker, atol=atol, rtol=rtol)
+    np.testing.assert_allclose(got.numpy(), xref, atol=atol, rtol=rtol)
+
+
+def test_rows_ref_row_bits_do_not_depend_on_s():
+    """A row gives the same bits whether it comes in a cold call (all
+    positions from 0), a warm suffix or a verify block of 3: the model's
+    key tiles sit at absolute slots and its order is the row's own."""
+    args, G = _case(9, [99, 99], 100, 2, 2, 64, 8, 13)
+    t = [torch.from_numpy(a) for a in args]
+    cold = kva.paged_attention_rows_ref(*t, G)
+    for lo in (40, 97):
+        part = kva.paged_attention_rows_ref(
+            t[0][:, lo:].clone(), *t[1:6], t[6][:, lo:].clone(), G)
+        assert torch.equal(part, cold[:, lo:]), lo
 
 
 # ---------------------------------------------------------------------
@@ -263,3 +382,40 @@ def test_launcher_grows_its_workspace_for_a_wider_table(recording_lib):
     assert a[8] != b[8] and b[8:10] == c[8:10]
     assert kva._workspaces[(torch.device("cpu"), 0)][0].numel() == \
         kva.int8_kv_plan(2, 1, 4, 2, 128, 16, 96).ws_floats
+
+
+def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
+    """A verify block reaches ``int8_kv_attention_rows`` with the tensors,
+    sizes, q's strides and the rows plan's five ints; no workspace is
+    taken; the launch counts under the route ``rows``, an S = 1 call's
+    under ``decode``."""
+    calls = []
+
+    class _Fn:
+        argtypes = None
+
+        def __call__(self, *a):
+            calls.append(a)
+            return 0
+
+    recording_lib.int8_kv_attention_rows = _Fn()
+    args, G = _case(10, [300, 41], 5, 2, 2, 128, 16, 20)
+    t = [torch.from_numpy(a) for a in args]
+    out = kva._int8_kv_cuda(*t, G)
+    B, S, H, D = t[0].shape
+    plan = kva.int8_kv_plan(B, S, H, G, D, 16, 20)
+    (call,) = calls
+    assert len(call) == 23 == len(recording_lib.int8_kv_attention_rows
+                                  .argtypes)
+    assert call[0] == t[0].data_ptr()
+    assert call[8:19] == (B, S, H, G, D, 16, 20, args[1].shape[0],
+                          *t[0].stride()[:3])
+    assert tuple(call[19]) == plan.launch() == (16, 64, 128,
+                                                plan.smem_bytes, 1)
+    assert call[20] == pytest.approx(D ** -0.5) and call[21] == 0
+    assert out.shape == (B, S, G, H // G, D)
+    assert kva._workspaces == {}
+    one, _ = _case(10, [300, 41], 1, 2, 2, 128, 16, 20)
+    kva._int8_kv_cuda(*[torch.from_numpy(a) for a in one], G)
+    assert registry.spec("int8_kv_attention").mode_launches == {
+        "rows": 1, "decode": 1}

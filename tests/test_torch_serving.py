@@ -183,16 +183,26 @@ def test_typed_errors_and_cancel(models):
     srv = GenerationServer(tm, **SERVE)
     with pytest.raises(ServerClosed):
         srv.submit(_prompts()[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationServer(tm, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationServer(tm, draft_model=tm)
+    # prefix sharing and speculation are accepted, with the reference's
+    # typed errors
+    assert GenerationServer(tm, prefix_cache=True, **SERVE).stats()[
+        "prefix_cache_enabled"] is True
+    spec = GenerationServer(tm, draft_model=tm, spec_k=2, **SERVE).stats()
+    assert (spec["spec_enabled"], spec["spec_k"]) == (True, 2)
+    with pytest.raises(ValueError, match="spec_k"):
+        GenerationServer(tm, draft_model=tm, spec_k=0)
     with pytest.raises(ValueError, match="max_model_len"):
         GenerationServer(tm, max_model_len=64, block_size=8, num_blocks=8)
     srv.start()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            srv.submit(_prompts()[0], replay_tokens=[1])
+        with pytest.raises(ValueError, match="replay_tokens"):
+            srv.submit(_prompts()[0], max_new_tokens=2,
+                       replay_tokens=[1, 2])
+        full = srv.submit(_prompts()[0], max_new_tokens=5).result(
+            timeout=60)
+        rest = srv.submit(_prompts()[0], max_new_tokens=5,
+                          replay_tokens=full[:2]).result(timeout=60)
+        assert rest == full[2:]
         with pytest.raises(ValueError, match="exceeds max_model_len"):
             srv.submit(_prompts()[0], max_new_tokens=64)
         s = srv.submit(_prompts()[0], max_new_tokens=40)
