@@ -5282,14 +5282,23 @@ def rows_bound(args):
     return bound_ms(4 * D * H * valid_pairs, PEAK_BF16_FLOPS, nbytes)
 
 
+# kernel 4's many-row route at phase 36 (a)'s shapes in its first design
+# (FMA pipe, no ring, no key split; this script's phase 36 (a) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md section 6), queued device ms
+ROWS_FIRST_DESIGN_MS = {"cold prefill (B 1, S 2048)": 2.6841,
+                        "warm suffix (B 4, S 256 from 1536)": 1.9161,
+                        "verify (B 8, S 5)": 0.4767}
+
+
 def rows_cases(dev):
     """Phase 36 (a): the many-row route at the three 7B shapes -- a cold
     prefill (B 1, S 2,048), a warm suffix (B 4, S 256 from position
-    1,536), a verify block (B 8, S 5 at the serving mix's lengths) --
-    within CARD_TOL of the plain version, bitwise on a rerun, timed
-    queued beside its bound; the cold call's rows bitwise the warm
-    call's at the positions they share.  (b) S = 1 keeps the decode
-    route's plan."""
+    1,536), a verify block (B 8, S 5 at the serving mix's lengths, its
+    keys split over blocks) -- within CARD_TOL of the plain version,
+    bitwise on a rerun, timed queued beside its bound, its plain
+    version and the first design's time (``ROWS_FIRST_DESIGN_MS``); the
+    cold call's rows bitwise the warm call's at the positions they
+    share.  (b) S = 1 keeps the decode route's plan."""
     from paddle_tpu_torch.ops.kernels import kv_attention as kva
     from paddle_tpu_torch.ops.kernels.kv_attention import (
         CARD_TOL, int8_paged_attention)
@@ -5312,6 +5321,10 @@ def rows_cases(dev):
                                 args[0].shape[3], 16, args[5].shape[1])
         if plan.route != "rows":
             fail(f"phase 36 (a) {label}: planned route {plan.route}")
+        if label.startswith("verify") and \
+                plan.chunks_a_block >= plan.chunks:
+            fail(f"phase 36 (a) {label}: the plan does not split the keys "
+                 f"({plan})")
         got = int8_paged_attention(*args)
         again = int8_paged_attention(*args)
         ref = int8_paged_attention(*args, mode="torch_ref")
@@ -5326,14 +5339,18 @@ def rows_cases(dev):
                                                        mode="torch_ref"),
                           iters=3, warmup=1)
         bms, by = rows_bound(args)
+        first = ROWS_FIRST_DESIGN_MS[label]
         outs[label] = got
         rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                           max_abs_err=err)
+                           max_abs_err=err, first_design_ms=first)
         log(f"phase 36 (a) int8_kv_attention rows {label}: kernel_ms "
             f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}; "
             f"kernel / bound {ms / bms:.2f}) library_ms n/a (no single "
-            f"PyTorch call); max_err {err:.3g} ({share:.3g} of its limit), "
-            f"bitwise on a rerun; plan {plan.q_tile} rows a block, grid "
+            f"PyTorch call); the first design {first} ms (now "
+            f"{ms / first:.4f} of it); max_err {err:.3g} ({share:.3g} of "
+            f"its limit), bitwise on a rerun; plan {plan.q_tile} rows a "
+            f"block ({plan.warps} slabs), {plan.stages} stages, "
+            f"{plan.chunks_a_block} of {plan.chunks} chunks a block, grid "
             f"{plan.grid}, {plan.smem_bytes} B")
         gc.collect()
         torch.cuda.empty_cache()
@@ -5352,6 +5369,59 @@ def rows_cases(dev):
     log("phase 36 (b): S = 1 keeps the decode route's plan (7B decode "
         f"{tuple(p)}); phase 3 times its rows 4")
     return rows
+
+
+def profile_rows_route(model, draft, prompt):
+    """Phase 36 (d)'s device time under the many-row route: a fresh
+    prefix + speculation server serves one cold prompt (one prefill
+    dispatch of the target and one of the draft, then verify steps)
+    under torch.profiler.  The route's one-slab entries take the verify
+    blocks (5 rows a kv head), its entries of more slabs the prefills:
+    device ms a prefill dispatch and a verify step, beside the busy
+    device ms of the whole request."""
+    from torch.profiler import ProfilerActivity, profile
+    srv = _gateway_server(model, prefix_cache=True, max_prefill_batch=4,
+                          draft_model=draft, spec_k=GATEWAY["spec_k"])
+    srv.start()
+    # a warm-up request that shares no block with the prompt
+    srv.submit(np.full(24, 5, np.int32), max_new_tokens=4).result(
+        timeout=900)
+    st0 = srv.stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv.submit(prompt, max_new_tokens=min(
+            16, GATEWAY["max_len"] - len(prompt))).result(timeout=900)
+        torch.cuda.synchronize()
+    st = srv.stats()
+    srv.stop()
+    kern = device_kernels(prof.key_averages())
+    by_slabs, busy = {}, 0.0
+    for e in kern:
+        busy += e.self_device_time_total / 1e3
+        m = (re.search(r"int8_kv_rows<[^,]+, *\d+, *(\d)>", e.key)
+             or re.search(r"int8_kv_rows\w*Li\d+ELi(\d)E", e.key))
+        if m:
+            w = "verify" if m.group(1) == "1" else "prefill"
+            ms, n = by_slabs.get(w, (0.0, 0))
+            by_slabs[w] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    pb = st["prefill_batches"] - st0["prefill_batches"]
+    vs = st["spec_verify_steps"] - st0["spec_verify_steps"]
+    pre_ms, pre_n = by_slabs.get("prefill", (0.0, 0))
+    ver_ms, ver_n = by_slabs.get("verify", (0.0, 0))
+    if pb < 1 or vs < 1 or pre_n < pb or ver_n < vs:
+        fail(f"phase 36 (d): the profiled request made {pb} prefill "
+             f"dispatches and {vs} verify steps, the profile holds "
+             f"many-row launches {by_slabs}")
+    res = dict(prefill_dispatch_ms=pre_ms / pb, prefill_launches=pre_n,
+               verify_step_ms=ver_ms / vs, verify_launches=ver_n,
+               prefill_dispatches=pb, verify_steps=vs, busy_ms=busy)
+    log(f"phase 36 (d) profile: kernel 4's many-row route "
+        f"{pre_ms / pb:.4f} device ms a prefix-server prefill dispatch "
+        f"({pre_n} launches over {pb} dispatches of the target and its "
+        f"draft, prompt of {len(prompt)} tokens), {ver_ms / vs:.4f} a "
+        f"verify step ({ver_n} launches over {vs} steps); the request's "
+        f"device busy {busy:.2f} ms")
+    return res
 
 
 def gateway(dev):
@@ -5413,6 +5483,8 @@ def gateway(dev):
                        prefix_cache=True, max_prefill_batch=4,
                        draft_model=draft, spec_k=GATEWAY["spec_k"])
     spec.pop("server").stop()
+    # (d) device time under the many-row route, profiled
+    rows_profile = profile_rows_route(model, draft, prompts[0])
     del draft
     gc.collect()
     torch.cuda.empty_cache()
@@ -5479,7 +5551,7 @@ def gateway(dev):
         launches_by_route={a["arm"]: a["modes"]
                            for a in (plain, prefix, spec)},
         generate_ms=gen_ms, differences_by_design=diffs,
-        self_draft=accepting)
+        self_draft=accepting, rows_route_profile=rows_profile)
     log("phase 36: " + json.dumps(res))
     counts = {k: sum(a["counts"][k] for a in (plain, prefix, spec))
               for k in plain["counts"]}
@@ -5563,6 +5635,19 @@ def ptxas_entries(source, match):
             if m:
                 cur[0] = int(m.group(1))
     return found
+
+
+def rows_hmma_counts():
+    """{mangled name: HMMA instructions in its SASS} of the many-row
+    route's entries (``cuobjdump -sass`` of the built library,
+    ``tools/sass_counts.py``): its scores and P.V run on the tensor
+    cores."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.tools import sass_counts
+    (lib,) = _build.build(["int8_kv_attention.cu"])
+    return {name: sum(c for op, c in ops.items() if op.startswith("HMMA"))
+            for name, ops in sass_counts.sass_opcodes(lib).items()
+            if "int8_kv_rows" in name}
 
 
 def check_ptxas(source, match, entries=None):
@@ -5673,19 +5758,25 @@ def main() -> int:
         log(f"  int8_wonly ({name[-36:]}): {regs} registers, no spill")
     # kernel 4 keeps its scores and q slices in registers: six entries
     # (head_dim 64, 128, 256; f32 or bf16 queries); its many-row route
-    # keeps scores and accumulators there too: sixteen entries (rows a
-    # thread 1, 2, 4 at head_dim 64 and 128, 1 and 2 at 256; both dtypes)
+    # keeps its scores, P and the chunk's acc fragments there too:
+    # twenty entries (1, 2, 4 or 8 slabs at head_dim 64 and 128, 1 and 2
+    # at 256; both dtypes), each with its products on the tensor cores
+    # (HMMA in its SASS)
     kv = check_ptxas("int8_kv_attention.cu", "int8_kv_attn_sm90", entries=6)
     for name, (regs, _, _) in sorted(kv.items()):
         q, d = re.search(r"sm90I(f|13__nv_bfloat16)Li(\d+)E", name).groups()
         log(f"  int8_kv_attn_sm90 ({'f32' if q == 'f' else 'bf16'} q, "
             f"head_dim {d}): {regs} registers, no spill")
-    kvr = check_ptxas("int8_kv_attention.cu", "int8_kv_rows", entries=16)
+    kvr = check_ptxas("int8_kv_attention.cu", "int8_kv_rows", entries=20)
+    hmma = rows_hmma_counts()
     for name, (regs, _, _) in sorted(kvr.items()):
-        q, d, rm = re.search(r"rowsI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
-                             name).groups()
+        q, d, w = re.search(r"rowsI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
+                            name).groups()
+        if hmma.get(name, 0) < 1:
+            fail(f"int8_kv_rows ({name}): no HMMA in its SASS ({hmma})")
         log(f"  int8_kv_rows ({'f32' if q == 'f' else 'bf16'} q, head_dim "
-            f"{d}, {rm} rows a thread): {regs} registers, no spill")
+            f"{d}, {w} slabs): {regs} registers, no spill; "
+            f"{hmma[name]} HMMA instructions in its SASS")
     for name, (regs, _, _) in sorted(mm.items()):
         log(f"  int8_mm_sm90 ({name[-40:]}): {regs} registers, no spill")
     from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_plan

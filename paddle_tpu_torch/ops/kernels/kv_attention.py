@@ -24,22 +24,41 @@ shared memory and workspace; it is pure arithmetic.
 Every call with more than one query position a sequence (S > 1: a
 speculative verify block, a prefix-sharing suffix prefill of up to
 ``max_model_len`` rows) takes the source's second kernel, the many-row
-route (``int8_kv_rows``): the S*R query rows of a kv head are tiled over
-the grid, 16, 32 or 64 a block, so no S is too large; keys come in
-64-slot tiles at fixed absolute slots from slot 0, and every operation of
-a row runs in an order fixed by the row alone, so a row's output bits
-depend only on its q, its position and its sequence's blocks -- not on S,
-the suffix's start or the tile it lands in (a cold prefill and a warm
-suffix prefill agree bitwise where they overlap).  Scores and P.V run on
-the FMA pipe with the decode route's numerics.  :func:`int8_kv_plan`
-picks the route by S alone (``KvRowsPlan`` for S > 1), never by whether
-the rows would fit the decode route.
+route (``int8_kv_rows``).  The S*R query rows of a kv head are tiled
+over the grid in 16-row slabs, 1, 2, 4 or 8 a block, so no S is too
+large.  Keys come in 64-slot tiles at fixed absolute slots from slot 0,
+gathered through the table by ``cp.async`` into a ring of int8 tiles
+and converted once a block into exact bf16 codes in shared memory.
+Scores and P.V run on the tensor cores (``mma.sync`` bf16 with f32
+sums): a bf16 query and a code are exact in bf16; an f32 query is split
+into three bf16 pieces and P * v_scale into two, each piece a product
+of its own.  The keys are cut into chunks of ``KV_ROW_CHUNK`` absolute
+slots (four key tiles).  Each chunk's state (m, l, acc) starts fresh,
+and a row's result is its chunks' states folded in chunk order by one
+formula (:func:`_fold`), in the block that computed them or, where a
+verify block's chunks are spread over blocks (``KvRowsPlan.
+chunks_a_block``), in the last of those blocks, read back from a
+workspace (where a block folds them itself, its running acc lives in
+the workspace too).  What bounds it: the bf16 tensor-core rate at a
+prefill, the int8 K/V's bytes at a verify block; it runs latency-bound,
+each part of a tile's chain (the loads, the conversion, the products)
+adding to its time (``tools/kv_rows_parts.py``, PERF.md section 6).
+The first fold and the fold of a chunk wholly past a row's
+position are exact identities, and every operation of a row runs in an
+order fixed by the fragment layout alone, so a row's output bits depend
+only on its q, its position and its sequence's blocks -- not on S, the
+suffix's start, the row tile it lands in or the split (a cold prefill,
+a warm suffix prefill and a verify block agree bitwise where they
+overlap).  :func:`int8_kv_plan` picks the route by S alone
+(``KvRowsPlan`` for S > 1), never by whether the rows would fit the
+decode route, and the split from the shape alone.
 
 :func:`paged_attention_ref` is a line-for-line port of the reference's
 ``paged_attention_ref`` (the gather/dequant/attend path); it is the
 plain version and the oracle.  :func:`paged_attention_split_ref` runs
 the kernel's chunks and chunk-order merge in plain PyTorch, an oracle for
-the split.  Documented tolerance: atol 2e-5 / rtol 1e-4 (the online
+the split, and :func:`paged_attention_rows_ref` the many-row route's order
+of operations.  Documented tolerance: atol 2e-5 / rtol 1e-4 (the online
 softmax and the merge re-associate the f32 sums; the dequant itself is
 exact).
 """
@@ -57,7 +76,7 @@ from .flash_attention import H100_SMS, _sm_count
 __all__ = ["paged_attention_ref", "paged_attention_split_ref",
            "paged_attention_rows_ref", "int8_paged_attention",
            "int8_kv_plan", "KvPlan", "KvRowsPlan", "KV_CHUNK_SLOTS",
-           "KV_ROW_KEYS", "CARD_TOL"]
+           "KV_ROW_KEYS", "KV_ROW_CHUNK", "CARD_TOL"]
 
 _SOURCE = "int8_kv_attention.cu"
 _HEAD_DIMS = (64, 128, 256)
@@ -78,8 +97,9 @@ KV_CHUNK_SLOTS = 256
 _TILE_SLOTS, _BOX_SLOTS, _MAX_STAGES, _MAX_WARPS = 32, 32, 4, 4
 _SMEM_LIMIT, _BLOCKS_AN_SM, _SM_SMEM = 232_448, 4, 233_472
 # The many-row route's key tile (slots, at absolute slots 64 t ..) and
-# threads a block (16 row groups of 8 lanes)
-KV_ROW_KEYS, _ROW_THREADS = 64, 128
+# its chunk (slots, at absolute slots 256 c ..: four key tiles)
+KV_ROW_KEYS, KV_ROW_CHUNK = 64, 256
+_ROW_THREADS = 128   # threads a block of the many-row route
 
 
 class KvPlan(NamedTuple):
@@ -114,41 +134,81 @@ class KvPlan(NamedTuple):
 class KvRowsPlan(NamedTuple):
     """How the many-row route runs one S > 1 call."""
 
-    q_tile: int         # query rows a block: 16 * rows_a_thread
-    rows_a_thread: int  # rows a thread (each of 16 row groups of 8 lanes)
+    q_tile: int         # query rows a block: 16 a slab
+    warps: int          # 16-row slabs a block, 1, 2, 4 or 8 (a slab's
+    #                     dims split over 4 / warps warps below 8)
     key_tile: int       # slots a key tile (KV_ROW_KEYS)
-    threads: int        # 128
+    chunk: int          # slots a chunk (KV_ROW_CHUNK)
+    q_pieces: int       # bf16 pieces of a query: 1 (bf16), 3 (f32)
+    stages: int         # int8 key tiles in the cp.async ring
+    threads: int        # 256 with 8 slabs, else 128
     smem_bytes: int     # dynamic shared memory a block
-    grid: Tuple[int, int, int]   # (row tiles, kv heads, sequences)
+    chunks: int         # chunks of the table: ceil(M * bs / chunk)
+    chunks_a_block: int  # consecutive chunks of a row tile one block runs
+    grid: Tuple[int, int, int]   # (row tiles * chunk groups, KH, B)
+    ws_floats: int      # f32 chunk states when split, else running accs
+    #                     where the table has more than one chunk
+    tickets: int        # int32 tickets when split (one a row tile), else 0
 
     @property
     def route(self) -> str:
         return "rows"
 
     def launch(self) -> tuple:
-        """The five ints ``int8_kv_attention_rows`` takes."""
-        return (self.q_tile, self.key_tile, self.threads, self.smem_bytes,
-                self.grid[0])
+        """The seven ints ``int8_kv_attention_rows`` takes."""
+        return (self.q_tile, self.stages, self.threads, self.smem_bytes,
+                self.chunks, self.chunks_a_block, self.grid[0])
 
 
-def _rows_smem(D, q_tile):
-    """``rows_layout(D, q_tile).total`` of the kernel: q, K and V codes
-    as f32 rows of D + 4, p * v_scale rows of 68, two scale rows, the
-    block's largest position."""
-    row = 4 * (D + 4)
-    return (q_tile * row + 2 * KV_ROW_KEYS * row
-            + 4 * q_tile * (KV_ROW_KEYS + 4) + 2 * 4 * KV_ROW_KEYS + 16)
+def _rows_smem(D, warps, pieces, stages):
+    """``rows_layout(D, warps, pieces, stages).total`` of the kernel: the
+    ring's stages (K and V codes [64][D] int8, their two scale rows), the
+    converted tile (bf16 K and V [64][D + 8], two scale rows), the
+    queries' bf16 pieces [pieces][16 warps][D + 8] (none where a bf16
+    query of head_dim <= 128 stays in registers) and 16 bytes."""
+    q = 0 if pieces == 1 and D <= 128 else pieces * 32 * warps * (D + 8)
+    return (stages * (2 * KV_ROW_KEYS * D + 8 * KV_ROW_KEYS)
+            + 4 * KV_ROW_KEYS * (D + 8) + 8 * KV_ROW_KEYS + q + 16)
 
 
-def _rows_plan(B, S, H, KH, D):
+def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces):
     SR = S * (H // KH)
-    rm = 4 if SR >= 64 else 2 if SR >= 32 else 1
+    warps = 8 if SR > 64 else 4 if SR > 32 else 2 if SR > 16 else 1
     if D == 256:
-        rm = min(rm, 2)
-    qt = 16 * rm
-    return KvRowsPlan(q_tile=qt, rows_a_thread=rm, key_tile=KV_ROW_KEYS,
-                      threads=_ROW_THREADS, smem_bytes=_rows_smem(D, qt),
-                      grid=(-(-SR // qt), KH, B))
+        warps = min(warps, 2)
+    threads = 2 * _ROW_THREADS if warps == 8 else _ROW_THREADS
+
+    # registers a thread at most, as the kernel's launch bounds allow: a
+    # one-slab block below head_dim 256 asks for three blocks an SM
+    regs = 168 if warps == 1 and D <= 128 else 256
+
+    def per_sm(smem):
+        return min(_SM_SMEM // (smem + 1024), 2048 // threads,
+                   65536 // (regs * threads), 32)
+
+    # the deepest ring that keeps the blocks an SM of a two-stage one
+    fit = per_sm(_rows_smem(D, warps, pieces, 2))
+    stages = max(st for st in (2, 3, 4)
+                 if _rows_smem(D, warps, pieces, st) <= _SMEM_LIMIT
+                 and per_sm(_rows_smem(D, warps, pieces, st)) == fit)
+    smem = _rows_smem(D, warps, pieces, stages)
+    qt = 16 * warps
+    row_tiles = -(-SR // qt)
+    chunks = -(-(M * bs) // KV_ROW_CHUNK)
+    # split the keys only where the row tiles alone leave the card's
+    # resident blocks idle (a verify block): one chunk a block.  A row's
+    # bits do not depend on the split
+    items = row_tiles * KH * B
+    K = chunks if items >= sm_count * fit else 1
+    groups = -(-chunks // K)
+    split = groups > 1
+    return KvRowsPlan(
+        q_tile=qt, warps=warps, key_tile=KV_ROW_KEYS, chunk=KV_ROW_CHUNK,
+        q_pieces=pieces, stages=stages, threads=threads, smem_bytes=smem,
+        chunks=chunks, chunks_a_block=K, grid=(row_tiles * groups, KH, B),
+        ws_floats=(items * chunks * qt * (D + 2) if split
+                   else items * qt * D if chunks > 1 else 0),
+        tickets=items if split else 0)
 
 
 def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
@@ -166,16 +226,24 @@ def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
 
 
 def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
-                 sm_count: int = H100_SMS):
+                 sm_count: int = H100_SMS, q_dtype=torch.bfloat16):
     """The launch plan for queries [B, S, H, D] over pools of block size
     ``bs`` and kv heads ``KH`` through a table of ``M`` blocks a
     sequence.
 
     S > 1 takes the many-row route (:class:`KvRowsPlan`), whatever S, H
-    and D: row tiles of 64 query rows (32 at head_dim 256; 32 or 16 where
-    the S*R rows of a kv head are fewer), 128 threads, 64-slot key tiles,
-    grid (row tiles, KH, B).  No S raises.  The rest describes the decode
-    route (:class:`KvPlan`), which takes S = 1:
+    and D: warps own 16-row slabs of the S*R query rows of a kv head (two
+    warps a slab at head_dim 256), 8 slabs a block above 64 rows (256
+    threads), 4 above 32, 2 above 16, else 1 (128 threads; at most 2 at
+    head_dim 256);
+    64-slot key tiles and 256-slot chunks at fixed absolute slots; the
+    deepest ring (2-4 stages) that keeps a two-stage ring's blocks an SM;
+    a query of ``q_dtype`` float32 in three bf16 pieces, else one.  The
+    keys are split, one chunk a block, where the row tiles alone are
+    fewer than the blocks ``sm_count`` SMs hold at once (a verify block),
+    else a block runs all its row tile's chunks.  Grid (row tiles x chunk
+    groups, KH, B).  No S raises.  The rest describes the decode route
+    (:class:`KvPlan`), which takes S = 1:
 
     - A chunk is ``ceil(KV_CHUNK_SLOTS / bs)`` whole blocks.
     - A block runs K consecutive chunks of one (sequence, kv head): 2
@@ -203,7 +271,8 @@ def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
             f"M {M} (needs positive sizes, bs % 8 == 0, H % KH == 0, D in "
             f"{_HEAD_DIMS})")
     if S > 1:
-        return _rows_plan(B, S, H, KH, D)
+        return _rows_plan(B, S, H, KH, D, bs, M, sm_count,
+                          3 if q_dtype == torch.float32 else 1)
     chunk = -(-KV_CHUNK_SLOTS // bs) * bs
     cb = chunk // bs
     bx = min(bs, _BOX_SLOTS)
@@ -329,70 +398,137 @@ def paged_attention_split_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
     return out.to(qh.dtype)
 
 
+def _bf16_pieces(x, n):
+    """f32 ``x`` as ``n`` bf16 pieces (as f32), the smallest first, as
+    the kernel splits an f32 query (three pieces: their sum is ``x``
+    exactly) and p * v_scale (two): hi = x rounded to bf16, then the
+    rest likewise."""
+    out, rest = [], x
+    for _ in range(n):
+        hi = rest.to(torch.bfloat16).float()
+        out.insert(0, hi)
+        rest = rest - hi
+    return out
+
+
+def _mma_dot(a, b):
+    """One ``mma.sync`` step's sums over the last axis: the products of
+    two bf16 operands are exact, and so (in f64) is their sum over 16
+    terms; rounded to f32 once.  The model's stand-in for the tensor
+    cores' sum, whose bits it does not claim."""
+    return (a.double() * b.double()).sum(dim=-1).float()
+
+
+def _exp(x):
+    """e^x in the model: ``torch.exp``, exp(0) = 1 and exp(-1e30 - m) = 0
+    exactly, as in the kernel, which takes 2^(x log2 e) on the
+    special-function unit (the model holds its order, not its bits).
+    Not ``torch.exp2``: on the CPU its vector and scalar paths give a
+    value different bits by where it sits in a tensor."""
+    return torch.exp(x)
+
+
+def _fold(M, L, A, m, l, acc):
+    """A chunk's state (m, l, acc) folded into the running state (M, L,
+    A) in chunk order: M' = max(M, m), f = exp(M - M'), g = exp(m - M'),
+    L' = L f + l g, A' = A f + acc g (each product and sum rounded).
+    From (-1e30, 0, 0) the first fold gives the chunk's state exactly;
+    a chunk wholly past a row's position (-1e30, 0, 0) leaves the state
+    exactly as it was."""
+    Mn = torch.maximum(M, m)
+    f = _exp(M - Mn)
+    g = _exp(m - Mn)
+    return Mn, L * f + l * g, A * f[..., None] + acc * g[..., None]
+
+
 def paged_attention_rows_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
-                             kv_heads, key_tile=KV_ROW_KEYS):
-    """The many-row route's arithmetic in plain PyTorch, an oracle for it
-    (S > 1 calls): every query row walks key tiles of ``key_tile`` slots
-    at fixed absolute slots from slot 0 up to the table block holding its
-    sequence's largest position, in order, each tile folded into the
-    row's (m, l, acc) as the kernel folds it: the dot over d ascending,
-    s = (dot * k_scale) * 1/sqrt(D), masked s = -1e30; the tile's sum as
-    8 lanes' sums over slots lane + 8 i, i ascending, added in the
-    xor-1, 2, 4 tree; P.V over the tile's slots ascending with (p *
-    v_scale) * code; out = acc / max(l, 1e-30).  Only elementwise
-    operations in a fixed order, so a row's bits depend on its q, its
-    position and its blocks alone, never on S or the other rows (the
-    kernel fuses the multiply-adds the model rounds twice: the model
-    holds the kernel's order, not its bits).  Same arguments and result
-    as :func:`paged_attention_ref` (int8 pools with their scales)."""
+                             kv_heads):
+    """The many-row route's order of operations in plain PyTorch, an
+    oracle for it (S > 1 calls).  Every query row walks its sequence's
+    keys in chunks of ``KV_ROW_CHUNK`` absolute slots, each folded from a
+    fresh state over its 64-slot key tiles:
+
+    - s = sum over 16-dim steps, and in each over the query's bf16
+      pieces smallest first, of the piece . codes (:func:`_mma_dot`);
+      s = (s * k_scale) * 1/sqrt(D); a slot past the row's position
+      (or the table) s = -1e30 and p exactly 0;
+    - m' = max(m, max s), alpha = exp(m - m'), p = exp(s - m') (exp as
+      :func:`_exp`);
+    - l as four lanes' sums (lane t: slots 8 j + 2 t, 8 j + 2 t + 1, j
+      ascending), l_t = l_t * alpha + the tile's sum; a chunk's l is
+      (l_0 + l_1) + (l_2 + l_3);
+    - acc = acc * alpha, then over 16-slot steps the two bf16 pieces of
+      p * v_scale against the codes, the smaller first.
+
+    The chunks' states fold in chunk order by :func:`_fold` from (-1e30,
+    0, 0); out = acc / max(l, 1e-30).  Only elementwise operations and
+    exact sums, so a row's bits depend on its q, its position and its
+    blocks alone, never on S or the other rows.  The model holds the
+    kernel's order, not the tensor cores' bits.  Same arguments and
+    result as :func:`paged_attention_ref` (int8 pools with their
+    scales)."""
     B, S, H, D = qh.shape
     bs = kpool.shape[1]
     M = tbl.shape[1]
     G = kv_heads
     R = H // G
+    T, C = KV_ROW_KEYS, KV_ROW_CHUNK
+    dev = qh.device
     scale = torch.tensor(1.0 / (D ** 0.5), dtype=torch.float32)
-    lanes = 8
-    out = torch.empty(B, S, G, R, D, dtype=torch.float32, device=qh.device)
+    neg = torch.tensor(_NEG)
+    out = torch.empty(B, S, G, R, D, dtype=torch.float32, device=dev)
     for b in range(B):
-        q = qh[b].reshape(S, G, R, D).float()
-        p_b = pos[b].long()
-        lim = min(M, max(0, int(p_b.max())) // bs + 1) * bs
-        m = torch.full((S, G, R), _NEG, device=qh.device)
-        l = torch.zeros(S, G, R, device=qh.device)
-        acc = torch.zeros(S, G, R, D, device=qh.device)
-        for t0 in range(0, lim, key_tile):
-            slot = t0 + torch.arange(key_tile, device=qh.device)
-            live = slot < lim
-            sl = torch.where(live, slot, 0)
-            phys = tbl[b].long()[sl // bs]
-            k = torch.where(live[:, None, None],
-                            kpool[phys, sl % bs].float(), 0.0)   # [T, G, D]
-            v = torch.where(live[:, None, None],
-                            vpool[phys, sl % bs].float(), 0.0)
-            ks = torch.where(live, kscale[phys, sl % bs], 0.0)
-            vs = torch.where(live, vscale[phys, sl % bs], 0.0)
-            kt = k.permute(1, 0, 2)                               # [G, T, D]
-            dot = torch.zeros(S, G, R, key_tile, device=qh.device)
-            for d in range(D):
-                dot = dot + q[..., d, None] * kt[None, :, None, :, d]
-            valid = (slot[None, :] <= p_b[:, None])[:, None, None, :]
-            sc = torch.where(valid, dot * ks * scale, _NEG)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            pe = torch.where(valid, torch.exp(sc - m_new[..., None]), 0.0)
-            lane = torch.zeros(S, G, R, lanes, device=qh.device)
-            for i in range(key_tile // lanes):
-                lane = lane + pe[..., i * lanes:(i + 1) * lanes]
-            idx = torch.arange(lanes, device=qh.device)
-            for x in (1, 2, 4):
-                lane = lane + lane[..., idx ^ x]
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + lane[..., 0]
-            m = m_new
-            acc = acc * alpha[..., None]
-            pv = torch.where(valid, pe * vs, 0.0)
-            for j in range(key_tile):
-                acc = acc + pv[..., j, None] * v[j][None, :, None, :]
-        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+        q = qh[b].reshape(S, G, R, D)
+        qp = _bf16_pieces(q.float(), 3 if q.dtype == torch.float32 else 1)
+        qlim = torch.clamp(pos[b].long(), max=M * bs - 1)[:, None, None,
+                                                          None]
+        lim = min(M, max(0, int(pos[b].max())) // bs + 1) * bs
+        Mr = torch.full((S, G, R), _NEG, device=dev)
+        Lr = torch.zeros(S, G, R, device=dev)
+        Ar = torch.zeros(S, G, R, D, device=dev)
+        for c0 in range(0, lim, C):
+            m = torch.full((S, G, R), _NEG, device=dev)
+            lanes = torch.zeros(S, G, R, 4, device=dev)
+            acc = torch.zeros(S, G, R, D, device=dev)
+            for t0 in range(c0, min(c0 + C, lim), T):
+                slot = t0 + torch.arange(T, device=dev)
+                live = slot < lim
+                sl = torch.where(live, slot, 0)
+                phys = tbl[b].long()[sl // bs]
+                k = torch.where(live[:, None, None],
+                                kpool[phys, sl % bs].float(), 0.0)
+                v = torch.where(live[:, None, None],
+                                vpool[phys, sl % bs].float(), 0.0)
+                ks = torch.where(live, kscale[phys, sl % bs], 0.0)
+                vs = torch.where(live, vscale[phys, sl % bs], 0.0)
+                kt = k.permute(1, 0, 2)[None, :, None]    # [1, G, 1, T, D]
+                s = torch.zeros(S, G, R, T, device=dev)
+                for d0 in range(0, D, 16):
+                    for piece in qp:
+                        s = s + _mma_dot(piece[..., None, d0:d0 + 16],
+                                         kt[..., d0:d0 + 16])
+                valid = slot[None, None, None, :] <= qlim
+                s = torch.where(valid, s * ks * scale, neg)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.where(valid, _exp(s - m_new[..., None]), 0.0)
+                alpha = _exp(m - m_new)
+                rs = torch.zeros_like(lanes)
+                for j in range(0, T, 8):
+                    for e in range(8):
+                        rs[..., e // 2] += p[..., j + e]
+                lanes = lanes * alpha[..., None] + rs
+                m = m_new
+                acc = acc * alpha[..., None]
+                pv = _bf16_pieces(p * vs, 2)
+                vt = v.permute(1, 2, 0)[None, :, None]    # [1, G, 1, D, T]
+                for j0 in range(0, T, 16):
+                    for piece in pv:
+                        acc = acc + _mma_dot(piece[..., None, j0:j0 + 16],
+                                             vt[..., j0:j0 + 16])
+            l_c = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2]
+                                                    + lanes[..., 3])
+            Mr, Lr, Ar = _fold(Mr, Lr, Ar, m, l_c, acc)
+        out[b] = Ar / torch.clamp(Lr, min=1e-30)[..., None]
     return out.to(qh.dtype)
 
 
@@ -430,10 +566,10 @@ def _eligible(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
 
 
 @functools.lru_cache(maxsize=1024)
-def _launch_plan(B, S, H, KH, D, bs, M, device):
+def _launch_plan(B, S, H, KH, D, bs, M, device, q_dtype):
     """The plan of a shape on a card and its ints as the route's C entry
     takes them (which it only reads), made once a shape."""
-    plan = int8_kv_plan(B, S, H, KH, D, bs, M, _sm_count(device))
+    plan = int8_kv_plan(B, S, H, KH, D, bs, M, _sm_count(device), q_dtype)
     ints = plan.launch()
     return plan, (ctypes.c_int * len(ints))(*ints)
 
@@ -467,7 +603,7 @@ def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
     B, S, H, D = qh.shape
     nb, bs, KH, _ = kpool.shape
     M = tbl.shape[1]
-    plan, ints = _launch_plan(B, S, H, KH, D, bs, M, qh.device)
+    plan, ints = _launch_plan(B, S, H, KH, D, bs, M, qh.device, qh.dtype)
     if qh.stride(-1) != 1:
         qh = qh.contiguous()
     kpool, vpool, kscale, vscale = (_on_16_bytes(t) for t in
@@ -506,12 +642,14 @@ def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
 
 def _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale, tbl, pos,
                out):
-    """Launch the many-row route (S > 1); no workspace."""
+    """Launch the many-row route (S > 1); a plan with more than one chunk
+    takes the stream's workspace (chunk states and tickets where it
+    splits, else running accs)."""
     B, S, H, D = qh.shape
     nb, bs, KH, _ = kpool.shape
     fn = lib.int8_kv_attention_rows
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 4
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
                           ctypes.c_int, ctypes.c_void_p])
@@ -519,12 +657,18 @@ def _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale, tbl, pos,
     dev = qh.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = tickets = None
+        if plan.ws_floats:
+            ws, tickets = _workspace(dev, stream, plan.ws_floats,
+                                     plan.tickets)
         rc = fn(qh.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                 kscale.data_ptr(), vscale.data_ptr(), tbl.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), B, S, H, KH, D, bs,
-                tbl.shape[1], nb, qh.stride(0), qh.stride(1), qh.stride(2),
-                ints, 1.0 / (D ** 0.5), int(qh.dtype == torch.bfloat16),
-                stream)
+                pos.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), B, S, H,
+                KH, D, bs, tbl.shape[1], nb, qh.stride(0), qh.stride(1),
+                qh.stride(2), ints, 1.0 / (D ** 0.5),
+                int(qh.dtype == torch.bfloat16), stream)
     if rc:
         _build.check(lib, rc, f"int8_kv_attention_rows q={tuple(qh.shape)} "
                               f"pool={tuple(kpool.shape)} "
@@ -546,7 +690,9 @@ _SPEC = registry.register(
         "per-(block,slot) scales applied inside the table-driven gather, "
         "online softmax, chunks merged in order in the same launch; S > 1 "
         "tiles the query rows over the grid against 64-slot key tiles at "
-        "fixed absolute slots (launches by route: decode, rows)",
+        "fixed absolute slots, scores and P.V on the tensor cores, 256-slot "
+        "chunks folded in order (split over blocks for verify blocks) "
+        "(launches by route: decode, rows)",
 )
 
 

@@ -192,25 +192,30 @@ def test_int8_kv_chunks_match_plain_on_card():
 def test_int8_kv_rows_route_on_card():
     """The many-row route (S > 1) at every head dim, f32 and bf16, GQA,
     block sizes 16 and 24 (key tiles crossing blocks): a cold call
-    (positions 0..299), a warm suffix (positions 200..299) and a verify
-    block (295..299) over the same pools and the same q rows, each
-    within CARD_TOL of the plain version and bitwise on a rerun; the
-    positions they share are bitwise equal between the three calls (the
-    row tile and S change the rows' neighbours, never their bits)."""
+    (positions 0..599, three 256-slot chunks), a warm suffix (positions
+    300..599) and a verify block (595..599, a plan that splits the keys
+    over blocks, one chunk a block) over the same pools and the same q
+    rows, each within CARD_TOL of the plain version and bitwise on a
+    rerun; the positions they share are bitwise equal between the three
+    calls (the row tile, S and the split change the rows' neighbours and
+    where their chunks are folded, never their bits)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     registry.reset_counts()
     dev = torch.device("cuda")
-    for D, dt, bs, R in ((64, torch.float32, 16, 2),
-                         (128, torch.bfloat16, 16, 1),
-                         (128, torch.float32, 24, 4),
-                         (256, torch.bfloat16, 16, 2)):
-        M = 320 // bs + 1
-        args, G = _kv_batch(70 + D, [299, 299], 300, 2, R, D, bs, M, dt,
+    cases = [(64, torch.float32, 16, 2), (64, torch.bfloat16, 16, 1),
+             (128, torch.bfloat16, 16, 1), (128, torch.float32, 24, 4),
+             (128, torch.float32, 16, 1), (256, torch.bfloat16, 16, 2),
+             (256, torch.float32, 16, 1)]
+    for D, dt, bs, R in cases:
+        M = 620 // bs + 1
+        args, G = _kv_batch(70 + D, [599, 599], 600, 2, R, D, bs, M, dt,
                             dev)
         qh, kp, vp, ks, vs, tbl, pos = args
+        plan = kva.int8_kv_plan(2, 5, 2 * R, 2, D, bs, M, q_dtype=dt)
+        assert plan.chunks == 3 and plan.chunks_a_block == 1, plan
         outs = {}
-        for name, lo in (("cold", 0), ("warm", 200), ("verify", 295)):
+        for name, lo in (("cold", 0), ("warm", 300), ("verify", 595)):
             a = [qh[:, lo:].clone(), kp, vp, ks, vs, tbl,
                  pos[:, lo:].clone()]
             got = kva.int8_paged_attention(*a, G)
@@ -220,9 +225,10 @@ def test_int8_kv_rows_route_on_card():
             assert torch.equal(got, again), (D, dt, name)
             _assert_within(got, ref, kva.CARD_TOL[dt])
             outs[name] = got
-        assert torch.equal(outs["warm"], outs["cold"][:, 200:]), (D, dt)
-        assert torch.equal(outs["verify"], outs["cold"][:, 295:]), (D, dt)
-    assert registry.spec("int8_kv_attention").mode_launches == {"rows": 24}
+        assert torch.equal(outs["warm"], outs["cold"][:, 300:]), (D, dt)
+        assert torch.equal(outs["verify"], outs["cold"][:, 595:]), (D, dt)
+    assert registry.spec("int8_kv_attention").mode_launches == {
+        "rows": 6 * len(cases)}
 
 
 @pytest.mark.cuda

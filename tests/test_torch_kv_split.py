@@ -13,11 +13,16 @@ recording library in place of the CUDA one.  The kernel itself runs only
 on the card (``tests/test_torch_cuda.py``, marked ``cuda``).
 
 S > 1 calls (verify blocks, prefix-sharing suffix prefills) take the
-many-row route: ``paged_attention_rows_ref`` models its arithmetic (key
-tiles at fixed absolute slots, the lanes' order of sums) and is held to
-the Pallas kernel in interpret mode within ``CARD_TOL[f32]``; a row's
-bits do not depend on S.  The S = 1 plan is compared field by field with
-the plan the decode route had before the many-row route existed.
+many-row route: ``paged_attention_rows_ref`` models its order of
+operations (256-slot chunks, each folded from a fresh state over 64-slot
+key tiles at fixed absolute slots, then folded in chunk order; the
+query's and p * v_scale's bf16 pieces as f32 sums of their products; the
+quad lanes' order of sums) and is held to the Pallas kernel in interpret
+mode within ``CARD_TOL[f32]``, rows crossing chunk boundaries and verify
+blocks whose plan splits the keys over blocks included; a row's bits do
+not depend on S.  The split is picked from the shape alone, and the
+S = 1 plan is compared field by field with the plan the decode route had
+before the many-row route existed.
 """
 import contextlib
 import importlib
@@ -177,13 +182,17 @@ def test_plan_of_a_sequence_ignores_batch_and_table_width(S, H, KH, D):
     workspace follow B, M and the card: the chunk, tiles, warps and ring
     (which fix the kernel's order of operations) do not, so a sequence's
     bits do not depend on its batch.  The many-row route (S > 1) follows
-    B in its grid alone."""
+    B, M and the card in the same fields alone (its tiles, chunk, warps
+    and ring do not)."""
     plans = [kva.int8_kv_plan(B, S, H, KH, D, 16, M, sm_count=sms)
              for B, M, sms in ((1, 9, 132), (8, 128, 132), (33, 300, 66))]
     if S > 1:
         assert {p.route for p in plans} == {"rows"}
-        assert len({p._replace(grid=None) for p in plans}) == 1
-        assert [p.grid[2] for p in plans] == [1, 8, 33]
+        assert len({p._replace(chunks=None, chunks_a_block=None, grid=None,
+                               ws_floats=None, tickets=None)
+                    for p in plans}) == 1
+        assert [p.grid[1:] for p in plans] == [(KH, 1), (KH, 8), (KH, 33)]
+        assert [p.chunks for p in plans] == [1, 8, 19]
         return
     same = [p._replace(chunks=None, chunks_a_block=None, grid=None,
                        ws_floats=None, tickets=None) for p in plans]
@@ -250,30 +259,81 @@ def test_s1_plan_is_unchanged_field_by_field(shape):
 @pytest.mark.parametrize("R", [1, 2, 4, 8])
 @pytest.mark.parametrize("S", [2, 5, 17, 64, 256, 2048])
 def test_rows_plan_takes_every_s_above_one(S, R, D):
-    """Every S > 1 plans the many-row route: 64 query rows a block (32 at
-    head_dim 256, 16 or 32 for few rows), 128 threads, 64-slot key
-    tiles, a grid that covers the S*R rows of each kv head, and shared
-    memory as the kernel lays it out, within a block's 232,448 bytes."""
+    """Every S > 1 plans the many-row route: a 16-row slab a warp (two
+    at head_dim 256), 8 slabs a block above 64 query rows a kv head (256
+    threads), 4 above 32, 2 above 16, else 1 (128 threads; at most 2 at
+    head_dim 256); 64-slot key tiles, 256-slot chunks; a grid that
+    covers the S*R rows of each kv head once for every chunk group;
+    shared memory as the kernel lays it out, within a block's 232,448
+    bytes, for bf16 queries (one piece, in registers up to head_dim 128)
+    and f32 (three pieces in shared memory)."""
     KH, B, bs, M = 4, 3, 16, 129
-    p = kva.int8_kv_plan(B, S, KH * R, KH, D, bs, M)
-    assert p.route == "rows"
     SR = S * R
-    rm = 4 if SR >= 64 else 2 if SR >= 32 else 1
-    rm = min(rm, 2) if D == 256 else rm
-    assert (p.q_tile, p.rows_a_thread) == (16 * rm, rm)
-    assert (p.key_tile, p.threads) == (kva.KV_ROW_KEYS, 128) == (64, 128)
-    assert p.grid == (-(-SR // p.q_tile), KH, B)
-    row = 4 * (D + 4)
-    assert p.smem_bytes == (p.q_tile * row + 2 * 64 * row
-                            + 4 * p.q_tile * 68 + 2 * 4 * 64 + 16)
-    assert p.smem_bytes <= 232_448
-    assert p.launch() == (p.q_tile, 64, 128, p.smem_bytes, p.grid[0])
+    for dt, pieces in ((torch.bfloat16, 1), (torch.float32, 3)):
+        w = 8 if SR > 64 else 4 if SR > 32 else 2 if SR > 16 else 1
+        w = min(w, 2) if D == 256 else w
+        p = kva.int8_kv_plan(B, S, KH * R, KH, D, bs, M, q_dtype=dt)
+        assert p.route == "rows"
+        assert (p.q_tile, p.warps, p.threads, p.q_pieces) == (
+            16 * w, w, 256 if w == 8 else 128, pieces)
+        assert (p.key_tile, p.chunk) == (kva.KV_ROW_KEYS, kva.KV_ROW_CHUNK) \
+            == (64, 256)
+        assert p.chunks == -(-(M * bs) // 256) == 9
+        groups = -(-p.chunks // p.chunks_a_block)
+        assert p.chunks_a_block in (1, p.chunks)
+        assert p.grid == (-(-SR // p.q_tile) * groups, KH, B)
+        q = 0 if pieces == 1 and D <= 128 else pieces * 32 * w * (D + 8)
+        assert 2 <= p.stages <= 4
+        assert p.smem_bytes == (p.stages * (128 * D + 512)
+                                + 256 * (D + 8) + 512 + q + 16)
+        assert p.smem_bytes <= 232_448
+        assert p.launch() == (p.q_tile, p.stages, p.threads, p.smem_bytes,
+                              9, p.chunks_a_block, p.grid[0])
+
+
+def test_rows_plan_splits_verify_blocks_from_the_shape_alone():
+    """The split is pure arithmetic on the shape: the 7B's verify block
+    (B 8, S 5: 256 row tiles, fewer than the 396 blocks three an SM fill)
+    runs one chunk a block over a workspace of chunk states and a ticket
+    a row tile; its cold prefill (B 1, S 2,048) and warm suffix (B 4, S
+    256) run every chunk of a row tile in one block, with no workspace.
+    At head_dim 128 a bf16 prefill block of 8 slabs (one an SM: its
+    registers) takes a four-stage ring and 102,928 bytes; a verify block
+    of one slab a two-stage ring and 69,136 bytes (three an SM, at most
+    168 registers a thread); a row tile of more than one chunk keeps its
+    running acc in the workspace."""
+    verify = kva.int8_kv_plan(8, 5, 32, 32, 128, 16, 128)
+    assert (verify.q_tile, verify.warps, verify.stages) == (16, 1, 2)
+    assert verify.smem_bytes == 69_136
+    assert (verify.chunks, verify.chunks_a_block) == (8, 1)
+    assert verify.grid == (8, 32, 8)
+    assert verify.ws_floats == 8 * 32 * 8 * 16 * 130
+    assert verify.tickets == 8 * 32
+    cold = kva.int8_kv_plan(1, 2048, 32, 32, 128, 16, 128)
+    assert (cold.q_tile, cold.threads, cold.stages, cold.smem_bytes) == (
+        128, 256, 4, 102_928)
+    assert (cold.chunks, cold.chunks_a_block, cold.grid) == (8, 8,
+                                                             (16, 32, 1))
+    assert (cold.ws_floats, cold.tickets) == (16 * 32 * 128 * 128, 0)
+    warm = kva.int8_kv_plan(4, 256, 32, 32, 128, 16, 128)
+    assert (warm.chunks_a_block, warm.grid, warm.ws_floats) == (
+        8, (2, 32, 4), 2 * 32 * 4 * 128 * 128)
+    # the same shapes plan the same whatever the data: the function
+    # takes no positions, and a card of fewer SMs splits sooner
+    assert kva.int8_kv_plan(8, 5, 32, 32, 128, 16, 128) == verify
+    small = kva.int8_kv_plan(4, 256, 32, 32, 128, 16, 128, sm_count=600)
+    assert small.chunks_a_block == 1 and small.grid == (16, 32, 4)
+    assert small._replace(chunks_a_block=None, grid=None, ws_floats=None,
+                          tickets=None) == warm._replace(
+        chunks_a_block=None, grid=None, ws_floats=None, tickets=None)
 
 
 # (last positions, S, G, R, D, bs, M): a suffix starting past 0, GQA, a
 # ragged last block, a block size that does not divide the key tile
 _ROWS_CASES = {
     "suffix_s64_start_above_0": ([150, 100], 64, 2, 1, 64, 16, 12),
+    "rows_cross_chunk_boundaries": ([530, 600], 48, 2, 1, 64, 16, 40),
+    "verify_block_split_over_blocks": ([700, 300], 5, 2, 1, 128, 16, 48),
     "gqa_r4": ([77, 40], 16, 1, 4, 64, 8, 12),
     "ragged_last_block": ([60, 33], 20, 2, 2, 128, 16, 5),
     "bs24_crosses_key_tiles": ([140, 71], 8, 2, 2, 64, 24, 7),
@@ -285,6 +345,12 @@ _ROWS_CASES = {
 def test_rows_ref_matches_jax(name):
     last, S, G, R, D, bs, M = _ROWS_CASES[name]
     args, G = _case(8, last, S, G, R, D, bs, M)
+    plan = kva.int8_kv_plan(len(last), S, G * R, G, D, bs, M,
+                            q_dtype=torch.float32)
+    if name == "verify_block_split_over_blocks":
+        assert plan.chunks == 3 and plan.chunks_a_block == 1
+    if name == "rows_cross_chunk_boundaries":
+        assert last[0] - S + 1 < 512 < last[0]
     jargs = [jnp.asarray(a) for a in args]
     ker = np.asarray(jkv.int8_paged_attention(*jargs, G, interpret=True))
     xref = np.asarray(jkv.paged_attention_ref(*jargs, G))
@@ -299,15 +365,25 @@ def test_rows_ref_matches_jax(name):
 
 def test_rows_ref_row_bits_do_not_depend_on_s():
     """A row gives the same bits whether it comes in a cold call (all
-    positions from 0), a warm suffix or a verify block of 3: the model's
-    key tiles sit at absolute slots and its order is the row's own."""
-    args, G = _case(9, [99, 99], 100, 2, 2, 64, 8, 13)
-    t = [torch.from_numpy(a) for a in args]
-    cold = kva.paged_attention_rows_ref(*t, G)
-    for lo in (40, 97):
-        part = kva.paged_attention_rows_ref(
-            t[0][:, lo:].clone(), *t[1:6], t[6][:, lo:].clone(), G)
-        assert torch.equal(part, cold[:, lo:]), lo
+    positions from 0), a warm suffix or a verify block: the model's
+    chunks and key tiles sit at absolute slots and its order is the
+    row's own.  The second case's rows reach into a third chunk, and its
+    verify block of 5 is one the plan splits over blocks (one chunk a
+    block)."""
+    for seed, S, M, los in ((9, 100, 13, (40, 97)),
+                            (11, 560, 72, (300, 555))):
+        args, G = _case(seed, [S - 1, S - 1], S, 2, 2 if S == 100 else 1,
+                        64, 8, M)
+        t = [torch.from_numpy(a) for a in args]
+        cold = kva.paged_attention_rows_ref(*t, G)
+        for lo in los:
+            if S - lo == 5:
+                plan = kva.int8_kv_plan(2, 5, 2, 2, 64, 8, M,
+                                        q_dtype=torch.float32)
+                assert plan.chunks == 3 and plan.chunks_a_block == 1
+            part = kva.paged_attention_rows_ref(
+                t[0][:, lo:].clone(), *t[1:6], t[6][:, lo:].clone(), G)
+            assert torch.equal(part, cold[:, lo:]), (S, lo)
 
 
 # ---------------------------------------------------------------------
@@ -386,9 +462,11 @@ def test_launcher_grows_its_workspace_for_a_wider_table(recording_lib):
 
 def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
     """A verify block reaches ``int8_kv_attention_rows`` with the tensors,
-    sizes, q's strides and the rows plan's five ints; no workspace is
-    taken; the launch counts under the route ``rows``, an S = 1 call's
-    under ``decode``."""
+    the stream's workspace (its plan splits the keys: chunk states and
+    tickets), sizes, q's strides and the rows plan's seven ints; a cold
+    call of the same sequences takes the workspace for its running accs
+    and no ticket.  The launches count
+    under the route ``rows``, an S = 1 call's under ``decode``."""
     calls = []
 
     class _Fn:
@@ -403,19 +481,47 @@ def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
     t = [torch.from_numpy(a) for a in args]
     out = kva._int8_kv_cuda(*t, G)
     B, S, H, D = t[0].shape
-    plan = kva.int8_kv_plan(B, S, H, G, D, 16, 20)
+    plan = kva.int8_kv_plan(B, S, H, G, D, 16, 20, q_dtype=torch.float32)
     (call,) = calls
-    assert len(call) == 23 == len(recording_lib.int8_kv_attention_rows
+    assert len(call) == 25 == len(recording_lib.int8_kv_attention_rows
                                   .argtypes)
     assert call[0] == t[0].data_ptr()
-    assert call[8:19] == (B, S, H, G, D, 16, 20, args[1].shape[0],
-                          *t[0].stride()[:3])
-    assert tuple(call[19]) == plan.launch() == (16, 64, 128,
-                                                plan.smem_bytes, 1)
-    assert call[20] == pytest.approx(D ** -0.5) and call[21] == 0
+    ws, tickets = kva._workspaces[(t[0].device, 0)]
+    assert call[8:10] == (ws.data_ptr(), tickets.data_ptr())
+    assert ws.numel() == plan.ws_floats == B * G * 2 * 16 * 130
+    assert tickets.numel() == plan.tickets == B * G and not tickets.any()
+    assert call[10:21] == (B, S, H, G, D, 16, 20, args[1].shape[0],
+                           *t[0].stride()[:3])
+    assert tuple(call[21]) == plan.launch() == (16, plan.stages, 128,
+                                                plan.smem_bytes, 2, 1, 2)
+    assert call[22] == pytest.approx(D ** -0.5) and call[23] == 0
     assert out.shape == (B, S, G, H // G, D)
-    assert kva._workspaces == {}
+    # 5 row tiles x 32 kv heads x 2 sequences fill the card's 132
+    cold, G = _case(10, [700, 650], 600, 32, 1, 128, 16, 50)
+    cold[0] = torch.from_numpy(cold[0]).to(torch.bfloat16)
+    kva._int8_kv_cuda(*[a if torch.is_tensor(a) else torch.from_numpy(a)
+                        for a in cold], G)
+    cplan = kva.int8_kv_plan(2, 600, 32, 32, 128, 16, 50)
+    assert cplan.tickets == 0 and cplan.q_pieces == 1
+    assert cplan.ws_floats == 2 * 32 * 5 * 128 * 128
+    ws, _ = kva._workspaces[(t[0].device, 0)]
+    assert calls[1][8] == ws.data_ptr() and ws.numel() >= cplan.ws_floats
+    assert tuple(calls[1][21]) == cplan.launch() and calls[1][23] == 1
     one, _ = _case(10, [300, 41], 1, 2, 2, 128, 16, 20)
     kva._int8_kv_cuda(*[torch.from_numpy(a) for a in one], G)
     assert registry.spec("int8_kv_attention").mode_launches == {
-        "rows": 1, "decode": 1}
+        "rows": 2, "decode": 1}
+
+
+def test_parts_tool_finds_every_part_in_the_source():
+    """``tools/kv_rows_parts.py`` times the many-row route with one part
+    of its tile taken out; each variant's lines must still be in the
+    source (else the tool would time something else), and each variant
+    must change it."""
+    from paddle_tpu_torch.tools import kv_rows_parts
+    src = (_build.CSRC / "int8_kv_attention.cu").read_text()
+    for name, pairs in kv_rows_parts.VARIANTS.items():
+        out = kv_rows_parts.variant_source(src, pairs)
+        assert (out == src) == (name == "as is"), name
+    with pytest.raises(RuntimeError, match="has no"):
+        kv_rows_parts.variant_source("", [("x", "")])
