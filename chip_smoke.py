@@ -5263,9 +5263,67 @@ def self_draft(model, prompts, spec_outs):
         fail(f"phase 36 (g): {msg}")
     log(f"phase 36 (g): with the target as its own draft: {msg}; both "
         "waves token-identical to the prefix + speculation arm")
+    parted = routes_part(model, prompts, spec_outs)
+    unaccepted = st["spec_proposed"] - st["spec_accepted"]
+    log(f"phase 36 (g): {unaccepted} proposals went unaccepted over the "
+        f"two waves ({unaccepted / 2:g} a wave); the draft's arithmetic "
+        f"parts from the target's at {len(parted)} positions of the "
+        "streams, and each parting ends its verify block's walk with the "
+        "block's later proposals")
     return dict(accept_rate=st["spec_accept_rate"],
                 verify_steps=st["spec_verify_steps"],
-                tokens=st["tokens_generated"], withheld=held)
+                tokens=st["tokens_generated"], withheld=held,
+                unaccepted=unaccepted, parted=parted)
+
+
+def routes_part(model, prompts, streams):
+    """Phase 36 (g): where a self-draft's proposal can be rejected.  The
+    streams teacher-forced through the draft's arithmetic (kernel 4's
+    decode route after a many-row prefill: the prefix arm's) and the
+    target's (a verify block's many-row route: the speculation arm's);
+    at each token after the first whose draft argmax is not the emitted
+    token, the logged top-2 margin under the target, the gap between
+    the two tokens under each arithmetic and the two arithmetics' logit
+    distance there.  Fails if such a distance passes the prefix /
+    speculation limit of ``LOGIT_DIST_LIMIT``."""
+    limit = LOGIT_DIST_LIMIT["prefix/spec"]
+    drafts = teacher_forced(model, prompts, streams, "prefix")
+    targets = teacher_forced(model, prompts, streams, "spec")
+    parted, dists, ties = [], [], 0
+    for i, toks in enumerate(streams):
+        dl, tl = drafts[i], targets[i]
+        dist = (dl - tl).abs().amax(dim=1)
+        dists.append(dist)
+        top2 = torch.topk(tl, 2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+        ties += int((margin[1:] <= dist[1:]).sum())
+        darg = dl.argmax(dim=1).tolist()
+        for j in range(1, len(toks)):
+            t, d = toks[j], darg[j]
+            if d == t:
+                continue
+            row = dict(stream=i, token=j, target_token=t, draft_token=d,
+                       margin=float(margin[j]),
+                       target_gap=float(tl[j, t] - tl[j, d]),
+                       draft_gap=float(dl[j, d] - dl[j, t]),
+                       distance=float(dist[j]))
+            parted.append(row)
+            log(f"phase 36 (g): stream {i} token {j}: the draft's argmax "
+                f"{d}, the target's {t}; top-2 margin under the target "
+                f"{row['margin']:.4g}, the two tokens' gap "
+                f"{row['target_gap']:.4g} under the target and "
+                f"{row['draft_gap']:.4g} under the draft, logit distance "
+                f"{row['distance']:.4g} (limit {limit})")
+            if row["distance"] > limit:
+                fail(f"phase 36 (g): the draft's and the target's logits "
+                     f"{row['distance']:.4g} apart at stream {i} token {j} "
+                     f"(limit {limit})")
+    every = torch.cat([x[1:] for x in dists])
+    log(f"phase 36 (g): over the {every.numel()} tokens after the first, "
+        f"the two arithmetics' logit distance is {float(every.median()):.4g}"
+        f" median, {float(every.max()):.4g} max; at {ties} the target's "
+        "top-2 margin is within that distance")
+    return parted
 
 
 def rows_bound(args):
@@ -5290,6 +5348,31 @@ ROWS_FIRST_DESIGN_MS = {"cold prefill (B 1, S 2048)": 2.6841,
                         "verify (B 8, S 5)": 0.4767}
 
 
+def rows_other_fold(args, plan):
+    """The many-row route on ``args`` with the chunks folded the other
+    way than ``plan`` folds them: split over blocks (one chunk a block)
+    where the plan runs a row tile's chunks in one block, else in one
+    block.  Returns that plan and a function that launches it and
+    returns its output."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import kv_attention as kva
+    qh, kp, vp, ks, vs, tbl, pos, KH = args
+    B, S, H, D = qh.shape
+    other = kva._rows_plan(
+        B, S, H, KH, D, kp.shape[1], tbl.shape[1], kva._sm_count(qh.device),
+        plan.q_pieces, chunks_a_block=(1 if plan.chunks_a_block > 1
+                                       else plan.chunks))
+    lib = _build.load(kva._SOURCE)
+    ints = (ctypes.c_int * 7)(*other.launch())
+    tbl32 = tbl.to(torch.int32).contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    q = qh.contiguous()
+    return other, lambda: kva._rows_cuda(lib, other, ints, q, kp, vp, ks,
+                                         vs, tbl32, pos32,
+                                         torch.empty_like(q))
+
+
 def rows_cases(dev):
     """Phase 36 (a): the many-row route at the three 7B shapes -- a cold
     prefill (B 1, S 2,048), a warm suffix (B 4, S 256 from position
@@ -5298,7 +5381,9 @@ def rows_cases(dev):
     bitwise on a rerun, timed queued beside its bound, its plain
     version and the first design's time (``ROWS_FIRST_DESIGN_MS``); the
     cold call's rows bitwise the warm call's at the positions they
-    share.  (b) S = 1 keeps the decode route's plan."""
+    share.  Each shape also runs with its chunks folded the other way
+    (``rows_other_fold``), which must give the same bits, timed beside
+    the plan's fold.  (b) S = 1 keeps the decode route's plan."""
     from paddle_tpu_torch.ops.kernels import kv_attention as kva
     from paddle_tpu_torch.ops.kernels.kv_attention import (
         CARD_TOL, int8_paged_attention)
@@ -5334,7 +5419,16 @@ def rows_cases(dev):
         if not torch.equal(got, again):
             fail(f"phase 36 (a) {label}: a rerun is not bitwise equal")
         del ref
+        other, run_other = rows_other_fold(args, plan)
+        alt = run_other()
+        torch.cuda.synchronize()
+        if not torch.equal(got, alt):
+            fail(f"phase 36 (a) {label}: {other.chunks_a_block} of "
+                 f"{other.chunks} chunks a block does not give the bits of "
+                 f"{plan.chunks_a_block} of {plan.chunks}")
+        del alt
         ms = queued_ms(lambda: int8_paged_attention(*args))
+        other_ms = queued_ms(run_other)
         plain = queued_ms(lambda: int8_paged_attention(*args,
                                                        mode="torch_ref"),
                           iters=3, warmup=1)
@@ -5342,7 +5436,7 @@ def rows_cases(dev):
         first = ROWS_FIRST_DESIGN_MS[label]
         outs[label] = got
         rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                           max_abs_err=err, first_design_ms=first)
+                           max_abs_err=err, other_fold_ms=other_ms)
         log(f"phase 36 (a) int8_kv_attention rows {label}: kernel_ms "
             f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}; "
             f"kernel / bound {ms / bms:.2f}) library_ms n/a (no single "
@@ -5351,7 +5445,10 @@ def rows_cases(dev):
             f"its limit), bitwise on a rerun; plan {plan.q_tile} rows a "
             f"block ({plan.warps} slabs), {plan.stages} stages, "
             f"{plan.chunks_a_block} of {plan.chunks} chunks a block, grid "
-            f"{plan.grid}, {plan.smem_bytes} B")
+            f"{plan.grid}, {plan.smem_bytes} B; {other.chunks_a_block} "
+            f"of {other.chunks} chunks a block instead (grid {other.grid}):"
+            f" the same bits in {other_ms:.4f} ms ({other_ms / ms:.3f} of "
+            "the plan's)")
         gc.collect()
         torch.cuda.empty_cache()
     cold = outs["cold prefill (B 1, S 2048)"]

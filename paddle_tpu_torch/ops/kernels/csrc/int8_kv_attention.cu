@@ -663,8 +663,8 @@ int8_kv_attn_sm90(const __grid_constant__ CUtensorMap tk,
 //   per slot in f32.  P.V: P' = p * v_scale in f32, split into two bf16
 //   pieces (hi, then lo = P' - hi rounded), two products against the
 //   codes, the smaller first; S's accumulator is P's A fragment.  (P
-//   rounded once to bf16 misses CARD_TOL[bf16] 16.6-fold at the cold
-//   prefill: tools/kv_rows_parts.py.)
+//   rounded once to bf16 missed CARD_TOL[bf16] many times over at the
+//   cold prefill on an H100: PERF.md section 6.)
 // - Chunks and the split.  The keys are cut into chunks of
 //   kChunkTiles = 4 key tiles (256 absolute slots).  A chunk's state (m,
 //   l, acc) starts fresh at (-1e30, 0, 0) and folds its key tiles as an
@@ -679,11 +679,17 @@ int8_kv_attn_sm90(const __grid_constant__ CUtensorMap tk,
 //   states to the workspace, takes a ticket (every thread fences, one
 //   acq_rel atomic at GPU scope) and the last block of the row tile
 //   folds them all in chunk order with the same two functions, writes
-//   the output and resets the ticket.
+//   the output and resets the ticket.  Both folds give a row the same
+//   bits.  On an H100 the split over blocks takes 1.8x as long as the
+//   in-block fold at a cold 2,048-row prefill and 2.4x at a warm suffix
+//   (one chunk's ring fill and state write a block), and the in-block
+//   fold 1.6x as long as the split at a verify block (256 blocks for
+//   132 SMs, each walking its whole sequence): phase 36 (a) of
+//   chip_smoke.py times the plan's fold and the other one.
 // - Occupancy.  The route is latency-bound: no one part of a tile (the
-//   conversion, the loads, the QK or the P.V products) takes more than a
-//   fifth of its time, and verify blocks at two an SM instead of three
-//   take 18 % longer (tools/kv_rows_parts.py, PERF.md section 6).  So a
+//   conversion, the loads, the QK or the P.V products) takes most of its
+//   time, and verify blocks at two an SM instead of three take longer
+//   (PERF.md section 6).  So a
 //   prefill block of 8 slabs fills an SM's registers alone, 4 slabs take
 //   two blocks an SM, and a verify block (one slab, 69,136 bytes at
 //   head_dim 128) is held to 168 registers for three.

@@ -42,7 +42,7 @@ workspace (where a block folds them itself, its running acc lives in
 the workspace too).  What bounds it: the bf16 tensor-core rate at a
 prefill, the int8 K/V's bytes at a verify block; it runs latency-bound,
 each part of a tile's chain (the loads, the conversion, the products)
-adding to its time (``tools/kv_rows_parts.py``, PERF.md section 6).
+adding to its time (PERF.md section 6).
 The first fold and the fold of a chunk wholly past a row's
 position are exact identities, and every operation of a row runs in an
 order fixed by the fragment layout alone, so a row's output bits depend
@@ -171,7 +171,8 @@ def _rows_smem(D, warps, pieces, stages):
             + 4 * KV_ROW_KEYS * (D + 8) + 8 * KV_ROW_KEYS + q + 16)
 
 
-def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces):
+def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces,
+               chunks_a_block=None):
     SR = S * (H // KH)
     warps = 8 if SR > 64 else 4 if SR > 32 else 2 if SR > 16 else 1
     if D == 256:
@@ -197,9 +198,10 @@ def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces):
     chunks = -(-(M * bs) // KV_ROW_CHUNK)
     # split the keys only where the row tiles alone leave the card's
     # resident blocks idle (a verify block): one chunk a block.  A row's
-    # bits do not depend on the split
+    # bits do not depend on the split; ``chunks_a_block`` forces it (phase
+    # 36 (a) of chip_smoke.py times the other fold beside the plan's)
     items = row_tiles * KH * B
-    K = chunks if items >= sm_count * fit else 1
+    K = chunks_a_block or (chunks if items >= sm_count * fit else 1)
     groups = -(-chunks // K)
     split = groups > 1
     return KvRowsPlan(

@@ -328,6 +328,30 @@ def test_rows_plan_splits_verify_blocks_from_the_shape_alone():
         chunks_a_block=None, grid=None, ws_floats=None, tickets=None)
 
 
+
+@pytest.mark.parametrize("B,S", [(8, 5), (1, 2048), (4, 256)])
+def test_rows_plan_other_fold_changes_only_the_split(B, S):
+    """``_rows_plan``'s ``chunks_a_block`` (phase 36 (a) times the fold
+    the plan does not pick): forced to the plan's own value it gives the
+    plan; forced the other way it changes the chunks a block, the grid,
+    the workspace and the tickets, and nothing else."""
+    plan = kva.int8_kv_plan(B, S, 32, 32, 128, 16, 128)
+    args = (B, S, 32, 32, 128, 16, 128, kva.H100_SMS, 1)
+    assert kva._rows_plan(*args, chunks_a_block=plan.chunks_a_block) == plan
+    K = 1 if plan.chunks_a_block > 1 else plan.chunks
+    other = kva._rows_plan(*args, chunks_a_block=K)
+    row_tiles = -(-S // plan.q_tile)
+    items = row_tiles * 32 * B
+    assert other.chunks_a_block == K
+    assert other.grid == (row_tiles * -(-plan.chunks // K), 32, B)
+    split = K < plan.chunks
+    assert other.tickets == (items if split else 0)
+    assert other.ws_floats == (items * plan.chunks * plan.q_tile * 130
+                               if split else items * plan.q_tile * 128)
+    assert other._replace(chunks_a_block=None, grid=None, ws_floats=None,
+                          tickets=None) == plan._replace(
+        chunks_a_block=None, grid=None, ws_floats=None, tickets=None)
+
 # (last positions, S, G, R, D, bs, M): a suffix starting past 0, GQA, a
 # ragged last block, a block size that does not divide the key tile
 _ROWS_CASES = {
@@ -512,16 +536,3 @@ def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
     assert registry.spec("int8_kv_attention").mode_launches == {
         "rows": 2, "decode": 1}
 
-
-def test_parts_tool_finds_every_part_in_the_source():
-    """``tools/kv_rows_parts.py`` times the many-row route with one part
-    of its tile taken out; each variant's lines must still be in the
-    source (else the tool would time something else), and each variant
-    must change it."""
-    from paddle_tpu_torch.tools import kv_rows_parts
-    src = (_build.CSRC / "int8_kv_attention.cu").read_text()
-    for name, pairs in kv_rows_parts.VARIANTS.items():
-        out = kv_rows_parts.variant_source(src, pairs)
-        assert (out == src) == (name == "as is"), name
-    with pytest.raises(RuntimeError, match="has no"):
-        kv_rows_parts.variant_source("", [("x", "")])
