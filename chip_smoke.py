@@ -19,8 +19,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    of ``flash_attention_bwd.cu`` (kernels 2 and 3), in the
    option entries (bias row, dropout) of both flash sources or in the
    four ``int8_mm_sm90`` entries of ``int8_matmul.cu`` (kernel 6) or the
-   six ``int8_kv_attn_sm90`` and sixteen ``int8_kv_rows`` entries of
-   ``int8_kv_attention.cu`` (kernel 4's two routes) or the nine
+   twenty ``int8_kv_rows`` entries of ``int8_kv_attention.cu`` (kernel 4,
+   one kernel for every S) or the nine
    ``int8_wonly`` entries of ``int8_matmul.cu`` (kernel 6's weight-only
    mode), or a wgmma that ptxas serialised there, fails;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -43,8 +43,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    rerun in every case, a sequence alone at batch 1 through a narrower
    table is bitwise its row in the serving mix's batch of 8, and the 7B
    decode (B 8, 2,048 tokens), the serving mix (phase 6's lengths) and
-   batch 1 at 2,048 tokens are timed queued beside their byte bounds, at
-   the plan's chunk; an empty kernel is timed queued the same way (at 1
+   batch 1 at 2,048 tokens (S = 1) are timed queued beside their byte
+   bounds, with the plan's split; an empty kernel is timed queued the same way (at 1
    and at 128 blocks): the fixed device cost of a launch;
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
@@ -262,13 +262,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     row;
 36. the served 7B's serving tier (the reference gateway bench's
     workload, ``bench.py:2056-2133``, at phase 4's width): (a) kernel
-    4's many-row route (every S > 1 call) at a cold prefill (B 1, S
+    4 at S > 1 at a cold prefill (B 1, S
     2,048), a warm suffix (B 4, S 256 from position 1,536) and a verify
     block (B 8, S 5) within ``CARD_TOL`` of its plain version, bitwise on
     a rerun, the cold call's rows bitwise the warm call's where they
     overlap, timed queued beside its bound (4 D flops a valid pair and
-    head at 989 TFLOP/s against the int8 K/V and scale bytes); (b) the
-    decode route's plan unchanged at S = 1; then ``llama_7b(
+    head at 989 TFLOP/s against the int8 K/V and scale bytes); (b) S = 1
+    plans the kernel every S takes (the 7B decode's plan is its verify
+    block's); then ``llama_7b(
     kv_cache_dtype="int8")`` with its decoder-layer weights damped by
     0.15 and a one-layer draft sharing its embeddings, head and first
     layer, 8 streams of a seeded 1,536-token system prompt and 17-384
@@ -277,19 +278,47 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     4) and two prompts through ``generate()``: TTFT, decode ms/step,
     accept rate, the target's iteration speedup; (c) each arm's warm
     wave bitwise its cold one, every emitted token the argmax of its
-    arm's own arithmetic (teacher-forced), two arms' logits within
+    arm's own arithmetic (teacher-forced), the prefix arm and the prefix
+    + speculation arm bitwise equal in every token of both waves and in
+    every teacher-forced logit, the other pairs' logits within
     ``LOGIT_DIST_LIMIT`` wherever they computed from the same tokens (a
     stream's first difference is named with its top-2 margin), and every
-    projection and the head bitwise at each row count a server issues
-    under the row floor; (d) kernel 4's
-    launches by route (rows for prefix-server prefills and verify
+    projection, norm (and an RMS norm's f32 mean of squares) and the head
+    bitwise at each row count a server issues and at the first and last
+    rows of a 2,048-row call, under the row floor; (d) kernel 4's
+    launches by call (rows for prefix-server prefills and verify
     blocks, decode for decode and draft steps, no flash launch on the
     prefix arms); (e) wave 2 hits the prefix cache, every block free
     after ``flush_prefix_cache``; (f) a stream exported mid-decode and
     imported into a second server, and one resubmitted with
     ``replay_tokens``, token-identical to the plain arm; (g) a prefix +
-    speculation server whose draft is the target itself accepts
-    proposals and gives the speculation arm's streams.
+    speculation server whose draft is the target itself accepts every
+    proposal (accept rate exactly 1.0), gives the speculation arm's
+    streams, and its draft's teacher-forced logits are the target's,
+    bitwise (no position parts); (h) the gateway bench's own
+    configuration (``bench.py:2101-2133``: hidden 1,024, 8 layers, 16
+    heads, 8 kv heads, intermediate 2,816, vocab 32,000, int8 pools,
+    decoder weights damped by 0.15, the bench's one-layer draft): 8
+    streams of a 24-token system prompt and 8-token tails, two waves of
+    64 tokens through the plain, prefix and gateway (prefix +
+    speculation, ``spec_k`` 3) arms, the gateway arm's cold and warm
+    streams the prefix arm's, a same-weights draft accepting 1.0, the
+    accept rate and target-iteration speedup printed, and the GEMM row
+    check at this width;
+37. the served 7B (phase 36's damped model, int8 pools, prefix sharing)
+    behind ``GatewayRouter`` over three ``LocalReplica``s sharing the
+    model: phase 36's 8 streams and 8 under a second system prompt, even
+    streams greedy, odd ones seeded sampling, against one fault-free
+    server: (a) ``route_owner`` agrees with where each stream ran; (b) a
+    replica killed mid-decode, every stream token-identical, at least one
+    failover; (c) a surviving replica drained mid-traffic, at least one
+    sequence migrated, every stream token-identical; (d) the tenant
+    budget and the deadline-ordered shed raise ``ServerOverloaded``; (e)
+    a ``GenerationRpcServer`` on loopback through a ``RemoteReplica``,
+    token-identical; (f) ``python -m paddle_tpu_torch.tools.chaos_gateway
+    --config bench`` (subprocess replicas on the card, one SIGKILLed by
+    its chaos plan, then a drain) exits 0.  TTFT median and max, failover
+    ms and kernel 4's launches by call are logged.
 
 Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
@@ -352,11 +381,13 @@ run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
 of phases 17 and 18, the online run of phase 20, the ResNet training
 of phase 24, the A/B of phase 27, the BERT training of phase 29, the
 BERT serving run of phase 31, the ERNIE training of phase 34, the
-translation calls of phase 35 and the three serving arms of phase 36;
+translation calls of phase 35, the three serving arms of phase 36 and
+the gateway waves of phase 37;
 kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
 of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
-phase-36 launches by route, ``decode`` or ``rows``, and the many-row
-route's phase-36 (a) numbers); the last line is ``{"ok": true,
+phase-36 and phase-37 launches by call, ``decode`` (S = 1) or ``rows``
+(S > 1), and its phase-36 (a) numbers at S > 1); the last line is
+``{"ok": true,
 "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or without
 the package.
@@ -448,6 +479,10 @@ BERT_DROPOUT = dict(numel=1 << 24, p=0.1, rate_tol=1e-3)
 # 1, 8, 32, 128 of seq 128; one int8_matmul (the pooler) a forward
 BERT_INFER_BATCHES = (1, 8, 32, 128)
 BERT_INFER_SEQ = 128
+
+
+# the card's name and power limit, as nvidia-smi reports them (phase 1)
+_CARD = ["not read"]
 
 
 def log(msg: str) -> None:
@@ -885,7 +920,8 @@ def kv_bound(args):
     each valid token's int8 K and V rows (every kv head) and its two f32
     scales, the live table entries and the positions read, q read and the
     output written once, over the HBM rate; against its 4 D flops a valid
-    token and query row at the f32 rate (CUDA cores)."""
+    token and query row at the bf16 tensor-core rate (the products run on
+    the tensor cores)."""
     qh, kpool, _, _, _, tbl, pos, KH = args
     B, S, H, D = qh.shape
     bs = kpool.shape[1]
@@ -895,7 +931,7 @@ def kv_bound(args):
                  .sum().item())
     nbytes = (valid * KH * D * 2 + valid * 4 * 2 + blocks * 4
               + pos.numel() * 4 + 2 * qh.numel() * qh.element_size())
-    return bound_ms(4 * D * H * S * valid, PEAK_F32_FLOPS, nbytes)
+    return bound_ms(4 * D * H * S * valid, PEAK_BF16_FLOPS, nbytes)
 
 
 # phase 6's decode batch: the serve phase's prompt lengths + 16 new
@@ -980,9 +1016,9 @@ def kv_cases(dev):
         log(f"int8_kv_attention {label}: kernel_ms {ms:.4f} (events "
             f"around one call {events:.4f}) plain_ms {plain:.4f} bound_ms "
             f"{bms:.4f} ({by}; kernel / bound {ms / bms:.2f}) library_ms "
-            f"n/a (no single PyTorch call); plan chunk {plan.chunk} slots, "
-            f"{plan.chunks_a_block} a block, grid {plan.grid}, "
-            f"{plan.warps} warps, {plan.stages} stages, {plan.smem_bytes} B")
+            f"n/a (no single PyTorch call); plan {plan.q_tile} rows a "
+            f"block, {plan.chunks_a_block} of {plan.chunks} chunks a block, "
+            f"grid {plan.grid}, {plan.stages} stages, {plan.smem_bytes} B")
         if label.startswith("7B"):
             row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                        library_ms=None)
@@ -1420,16 +1456,19 @@ def profile_decode(dev, model, steps: int = 5):
     # a decode step attends through the int8 kernel; prefill alone runs
     # kernel 1, so this reads 0
     log_flash_fwd("profile decode", kern, steps)
-    mine = [e for e in kern if "int8_kv_attn" in e.key]
+    # the kernel's name in this tree (int8_kv_rows) or an older one's
+    mine = [e for e in kern if "int8_kv_" in e.key]
     k4 = sum(e.self_device_time_total for e in mine) / 1e3 / steps
     n4 = sum(e.count for e in mine) / steps
-    log(f"profile decode: kernel 4 (int8_kv_attn) {k4:.3f} device ms/step "
+    log(f"profile decode: kernel 4 (int8_kv_rows) {k4:.3f} device ms/step "
         f"over {n4:g} launches/step ({k4 / max(n4, 1):.4f} ms a launch), "
         f"{k4 / busy_ms:.3f} of the device busy time")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / steps:8.3f}"
             f" ms/step  x{e.count // steps}")
     check_busy("profile decode (phase 6)", busy_ms, wall_ms)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel4_ms=k4,
+                kernel4_launches=n4)
 
 
 # ---------------------------------------------------------------------
@@ -4927,28 +4966,30 @@ def gateway_prompts(vocab):
         np.int32)]) for n in tails]
 
 
-def _gateway_server(model, **kw):
+def _gateway_server(model, cfg=None, **kw):
     from paddle_tpu_torch.inference import GenerationServer
-    g = GATEWAY
+    g = cfg or GATEWAY
     return GenerationServer(model, num_slots=g["slots"],
                             block_size=g["block_size"],
                             max_model_len=g["max_len"],
                             request_timeout_s=900.0, **kw)
 
 
-def gateway_arm(name, model, prompts, **kw):
+def gateway_arm(name, model, prompts, cfg=None, **kw):
     """One arm: a fresh server, a cold and a warm wave of the prompts
-    (32 greedy tokens each), the launch counts of the two waves by
-    kernel 4's route, the prefix cache flushed after them."""
+    (``cfg["new"]`` greedy tokens each; ``cfg`` defaults to
+    ``GATEWAY``), the launch counts of the two waves by kernel 4's
+    calls, the prefix cache flushed after them."""
     from paddle_tpu_torch.ops.kernels import registry
-    srv = _gateway_server(model, **kw)
+    cfg = cfg or GATEWAY
+    srv = _gateway_server(model, cfg, **kw)
     srv.start()
     waves = []
     registry.reset_counts()                  # the main path starts here
     for w in range(2):
         hit0 = srv.stats()["prefix_hit_tokens"]
         t0 = time.perf_counter()
-        streams = [srv.submit(p, max_new_tokens=GATEWAY["new"])
+        streams = [srv.submit(p, max_new_tokens=cfg["new"])
                    for p in prompts]
         outs = [s.result(timeout=900) for s in streams]
         wall = time.perf_counter() - t0
@@ -5002,22 +5043,25 @@ GEMM_ROWS = (8, 16, 40, 64, 256, 512, 1024, 2048, 4096, 8192)
 # the largest logit distance phase 36 (c) accepts between two arms'
 # arithmetics at a position both computed from the same tokens: three
 # times the largest read over every such position of the eight streams
-# (plain / prefix 0.1011, prefix / speculation 0.04822, plain /
-# generate() 0.05605, of logits up to 5.02; NVIDIA H100 80GB HBM3,
-# 700.00 W)
-LOGIT_DIST_LIMIT = {"plain/prefix": 0.30, "prefix/spec": 0.15,
-                    "plain/generate": 0.17}
+# (plain / prefix 0.1011, plain / generate() 0.05605, of logits up to
+# 5.02; NVIDIA H100 80GB HBM3, 700.00 W).  The prefix and the prefix +
+# speculation arms share one arithmetic a position and are held bitwise
+LOGIT_DIST_LIMIT = {"plain/prefix": 0.30, "plain/generate": 0.17}
 
 
 def gemm_rows_follow_m(model):
-    """Which of the 7B's row-wise operations give a row other bits when
-    the call has another number of rows: the first layer's norm, its q,
-    k, v and o projections, the MLP's gate, up and down projections, the
-    final norm and the f32 head, each over the ``GEMM_ROWS`` counts
-    against the same rows of a 2,048-row call, issued as they are (a
-    plain server) and with the row floor (``ROW_FLOOR``) that a prefix or
-    speculative server puts under every projection and the head.
-    Returns two {operation: [row counts whose bits differ]}."""
+    """Which of the model's row-wise operations give a row other bits
+    when the call has another number of rows or puts the row at another
+    index: the first layer's norm, its q, k, v and o projections, the
+    MLP's gate, up and down projections, the final norm, the f32 head and
+    an RMS norm's f32 mean of squares (the norm's one reduction, seen
+    before its bf16 output rounds most differences away), each over the
+    ``GEMM_ROWS`` counts, at the first and the last rows of a 2,048-row
+    call (rows 0..n and 2,048 - n..2,048), against the same rows of that
+    call, issued as they are (the model's other paths) and with the row
+    floor (``ROW_FLOOR``) that every server puts under every projection,
+    norm and the head.  Returns two {operation: [row counts whose bits
+    differ]}."""
     from paddle_tpu_torch.inference.generation_server import ROW_FLOOR
     from paddle_tpu_torch.text.models.llama import _rows
     c, dev = model.config, model.device
@@ -5028,25 +5072,35 @@ def gemm_rows_follow_m(model):
                       device=dev) * 0.1).to(torch.bfloat16)
     layer = model.model.layers[0]
     att, mlp = layer.self_attn, layer.mlp
+
+    def mean_sq(t):
+        t = t.float()
+        return torch.mean(t * t, dim=-1, keepdim=True)
+
     ops = {"input_layernorm": (layer.input_layernorm, x),
            "q_proj": (att.q_proj, x), "k_proj": (att.k_proj, x),
            "v_proj": (att.v_proj, x), "o_proj": (att.o_proj, x),
            "gate_proj": (mlp.gate_proj, x), "up_proj": (mlp.up_proj, x),
            "down_proj": (mlp.down_proj, xi), "norm": (model.model.norm, x),
-           "f32 head": (model._logits, x)}
+           "f32 head": (model._logits, x), "rms mean of squares": (mean_sq,
+                                                                   x)}
     raw, floored = {}, {}
     with torch.no_grad():
         for name, (fn, inp) in ops.items():
             base = fn(inp[:2048].clone())
             for n in GEMM_ROWS:
                 k = min(n, 2048)
-                if not torch.equal(fn(inp[:n].clone())[:k], base[:k]):
-                    raw.setdefault(name, []).append(n)
-                if not torch.equal(_rows(fn, inp[:n].clone(),
-                                         ROW_FLOOR)[:k], base[:k]):
-                    floored.setdefault(name, []).append(n)
+                starts = (0,) if n >= 2048 else (0, 2048 - n)
+                for r in starts:
+                    rows = inp[r:r + n].clone()
+                    if not torch.equal(fn(rows)[:k], base[r:r + k]):
+                        raw.setdefault(name, []).append(n)
+                    if not torch.equal(_rows(fn, rows, ROW_FLOOR)[:k],
+                                       base[r:r + k]):
+                        floored.setdefault(name, []).append(n)
             del base
-    return raw, floored
+    return ({k: sorted(set(v)) for k, v in raw.items()},
+            {k: sorted(set(v)) for k, v in floored.items()})
 
 
 def teacher_forced(model, prompts, streams, family):
@@ -5056,14 +5110,14 @@ def teacher_forced(model, prompts, streams, family):
 
     - ``plain``: each prompt prefilled alone by flash attention over its
       own bf16 K/V, padded to its bucket (a plain server's prefill), then
-      decode steps through the int8 pools (kernel 4's decode route);
-    - ``prefix``: each prompt through kernel 4's many-row route over the
-      int8 pools (a prefix server's prefill), then the same decode steps,
-      every projection and the head under the row floor;
-    - ``spec``: prompt and stream in one many-row forward under the row
+      decode steps through the int8 pools (kernel 4 at S = 1), every
+      projection and the head under the row floor;
+    - ``prefix``: each prompt through kernel 4 over the int8 pools (a
+      prefix server's prefill), then the same decode steps;
+    - ``spec``: prompt and stream in one S > 1 forward under the row
       floor (a speculative server computes every position in a verify
       block, and neither kernel 4's rows nor a floored GEMM's depend on
-      the block a position lands in);
+      the call a position lands in);
     - ``generate``: ``generate()``'s dense bf16 cache, one prompt at a
       time.
 
@@ -5092,7 +5146,7 @@ def teacher_forced(model, prompts, streams, family):
             return [torch.stack(r) for r in rows]
         bs, B = g["block_size"], g["slots"]
         M = -(-g["max_len"] // bs)
-        floor = None if family == "plain" else ROW_FLOOR
+        floor = ROW_FLOOR
         pools = model.init_paged_cache(B * M + 1, bs)
         tbl = np.zeros((B, M), np.int32)
         for s in range(len(prompts)):
@@ -5131,22 +5185,25 @@ def teacher_forced(model, prompts, streams, family):
 
 def gateway_streams(model, prompts, arms, gen_outs):
     """Phase 36 (c).  Bitwise where the design makes streams bitwise:
-    each arm's warm wave is its cold wave (kernel 4's routes give a row
-    the same bits whatever S, batch or suffix start, and under the row
-    floor of a prefix or speculative server neither do the projections
-    nor the head: checked here at the row counts a server issues, and
-    printed without the floor).  Every token of every stream of every
-    arm, and of ``generate()``, is the argmax of that arm's own
-    arithmetic, teacher-forced (``teacher_forced``): the server emits
-    what the model computes.  Across arms whose arithmetic differs by
-    design -- flash prefill over the prompt's bf16 K/V against the gather
-    over its int8 codes (plain / prefix), the decode route against a
-    verify block's many-row route (prefix / speculative), the dense bf16
-    cache against the int8 pools (plain / ``generate()``) -- the two
-    arithmetics' logits stay within ``LOGIT_DIST_LIMIT`` at every
-    position both computed from the same tokens (up to and including a
-    stream's first difference, which is named with its top-2 margin).
-    Anything else fails as a fault."""
+    each arm's warm wave is its cold wave, and the prefix + speculation
+    arm's streams are the prefix arm's in every token of both waves
+    (kernel 4 gives a row the same bits whatever S, batch or suffix
+    start, and under the row floor every server puts under its
+    projections and head neither do the GEMMs: checked here at the row
+    counts a server issues, and printed without the floor).  Every token
+    of every stream of every arm, and of ``generate()``, is the argmax of
+    that arm's own arithmetic, teacher-forced (``teacher_forced``): the
+    server emits what the model computes; and the prefix and speculation
+    arithmetics' teacher-forced logits are bitwise equal.  Across arms
+    whose arithmetic differs by design -- flash prefill over the prompt's
+    bf16 K/V against the gather over its int8 codes (plain / prefix),
+    the dense bf16 cache against the int8 pools (plain /
+    ``generate()``) -- the two arithmetics' logits stay within
+    ``LOGIT_DIST_LIMIT`` at every position both computed from the same
+    tokens (up to and including a stream's first difference, which is
+    named with its top-2 margin).  Anything else fails as a fault.
+    Returns the differences by design and the prefix and speculation
+    arithmetics' teacher-forced logits."""
     raw, floored = gemm_rows_follow_m(model)
     log(f"phase 36 (c): row counts {list(GEMM_ROWS)} against 2,048, "
         f"issued as they are: a row's bits follow the call's rows for "
@@ -5164,6 +5221,15 @@ def gateway_streams(model, prompts, arms, gen_outs):
                  f"{b[i][j]})")
     log("phase 36 (c): every arm's warm wave is bitwise its cold wave")
     plain, prefix, spec = arms
+    for w in range(2):
+        d = _first_difference(prefix["waves"][w]["outs"],
+                              spec["waves"][w]["outs"])
+        if d is not None:
+            i, j = d
+            fail(f"phase 36 (c): wave {w + 1}'s prefix + speculation stream "
+                 f"{i} differs from the prefix arm's at token {j}")
+    log("phase 36 (c): the prefix + speculation arm's streams are the "
+        "prefix arm's, token for token, in both waves")
     outs = {"plain": plain["waves"][0]["outs"],
             "prefix": prefix["waves"][0]["outs"],
             "spec": spec["waves"][0]["outs"], "generate": gen_outs}
@@ -5186,9 +5252,18 @@ def gateway_streams(model, prompts, arms, gen_outs):
         log(f"phase 36 (c): each of the {sum(len(s) for s in streams)} "
             f"tokens of the {fam} streams is the argmax of its own "
             f"arithmetic, teacher-forced ({time.perf_counter() - t0:.1f} s)")
+    bad = [i for i, (a, b) in enumerate(zip(tf["prefix"], tf["spec"]))
+           if not torch.equal(a, b)]
+    if bad:
+        i = bad[0]
+        fail(f"phase 36 (c): the prefix and speculation arithmetics' "
+             f"teacher-forced logits differ in streams {bad}: stream {i} "
+             f"by up to {float((tf['prefix'][i] - tf['spec'][i]).abs().max()):.4g}")
+    log(f"phase 36 (c): the prefix and speculation arithmetics' teacher-"
+        f"forced logits are bitwise equal at all "
+        f"{sum(x.shape[0] for x in tf['spec'])} positions")
     found = []
-    for fa, fb in (("plain", "prefix"), ("prefix", "spec"),
-                   ("plain", "generate")):
+    for fa, fb in (("plain", "prefix"), ("plain", "generate")):
         worst, npos, same = 0.0, 0, 0
         for i, (sa, sb) in enumerate(zip(outs[fa], outs[fb])):
             d = _first_difference([sa], [sb])
@@ -5217,18 +5292,18 @@ def gateway_streams(model, prompts, arms, gen_outs):
         if worst > LOGIT_DIST_LIMIT[f"{fa}/{fb}"]:
             fail(f"phase 36 (c): {fa} and {fb} logits {worst:.4g} apart "
                  f"(limit {LOGIT_DIST_LIMIT[f'{fa}/{fb}']})")
-    del tf
-    return found
+    return found, tf["prefix"], tf["spec"]
 
 
-def self_draft(model, prompts, spec_outs):
+def self_draft(model, prompts, spec_outs, drafts, targets):
     """Phase 36 (g): the speculative path that emits more than one token
     a verify step.  A prefix + speculation server whose draft is the
-    target itself proposes the target's decode-route tokens, so the
-    verify block accepts all but those parted by a near-tie between the
-    two routes.  Two waves (cold, warm) of the prompts must give the
-    prefix + speculation arm's streams token for token, with accepted
-    proposals, fewer verify steps than tokens, and a withheld index tail
+    target itself proposes the target's own tokens (a draft step and a
+    verify block compute a position alike), so the verify block accepts
+    every proposal: accept rate exactly 1.0.  Two waves (cold, warm) of
+    the prompts must give the prefix + speculation arm's streams token
+    for token, with fewer verify steps than tokens, and a withheld index
+    tail
     of at least the last token of every finished stream (the draft never
     consumes it) and at most ``spec_k`` + 3 a stream (the two tokens the
     draft can lag behind the stream into the last verify step, and the
@@ -5258,71 +5333,53 @@ def self_draft(model, prompts, spec_outs):
             fail(f"phase 36 (g): wave {w + 1} of the self-draft server "
                  f"differs from the prefix + speculation arm at stream "
                  f"{d[0]} token {d[1]}; {msg}")
-    if not (st["spec_accepted"] > 0 and st["spec_verify_steps"]
-            < st["tokens_generated"] and n <= held <= n * (k + 3)):
+    if not (st["spec_accepted"] > 0 and st["spec_accept_rate"] == 1.0
+            and st["spec_verify_steps"] < st["tokens_generated"]
+            and n <= held <= n * (k + 3)):
         fail(f"phase 36 (g): {msg}")
     log(f"phase 36 (g): with the target as its own draft: {msg}; both "
         "waves token-identical to the prefix + speculation arm")
-    parted = routes_part(model, prompts, spec_outs)
+    parted = routes_part(spec_outs, drafts, targets)
     unaccepted = st["spec_proposed"] - st["spec_accepted"]
-    log(f"phase 36 (g): {unaccepted} proposals went unaccepted over the "
-        f"two waves ({unaccepted / 2:g} a wave); the draft's arithmetic "
-        f"parts from the target's at {len(parted)} positions of the "
-        "streams, and each parting ends its verify block's walk with the "
-        "block's later proposals")
+    if parted or unaccepted:
+        fail(f"phase 36 (g): {unaccepted} proposals unaccepted, the "
+             f"draft's arithmetic parts from the target's at {len(parted)}"
+             " positions")
+    log("phase 36 (g): no proposal went unaccepted and the draft's "
+        "arithmetic parts from the target's at no position")
     return dict(accept_rate=st["spec_accept_rate"],
                 verify_steps=st["spec_verify_steps"],
                 tokens=st["tokens_generated"], withheld=held,
                 unaccepted=unaccepted, parted=parted)
 
 
-def routes_part(model, prompts, streams):
-    """Phase 36 (g): where a self-draft's proposal can be rejected.  The
-    streams teacher-forced through the draft's arithmetic (kernel 4's
-    decode route after a many-row prefill: the prefix arm's) and the
-    target's (a verify block's many-row route: the speculation arm's);
-    at each token after the first whose draft argmax is not the emitted
-    token, the logged top-2 margin under the target, the gap between
-    the two tokens under each arithmetic and the two arithmetics' logit
-    distance there.  Fails if such a distance passes the prefix /
-    speculation limit of ``LOGIT_DIST_LIMIT``."""
-    limit = LOGIT_DIST_LIMIT["prefix/spec"]
-    drafts = teacher_forced(model, prompts, streams, "prefix")
-    targets = teacher_forced(model, prompts, streams, "spec")
-    parted, dists, ties = [], [], 0
+def routes_part(streams, drafts, targets):
+    """Phase 36 (g): where a self-draft's proposal could be rejected.
+    ``drafts``: the streams teacher-forced through the draft's arithmetic
+    (S = 1 steps after a prefix server's prefill: ``teacher_forced``'s
+    ``prefix`` family); ``targets``: through the target's (a verify
+    block: its ``spec`` family).  Returns every token after the first
+    whose draft argmax is not the emitted token, or whose two logit rows
+    are not bitwise equal, with the two arithmetics' logit distance
+    there; each is logged."""
+    parted, n = [], 0
     for i, toks in enumerate(streams):
         dl, tl = drafts[i], targets[i]
-        dist = (dl - tl).abs().amax(dim=1)
-        dists.append(dist)
-        top2 = torch.topk(tl, 2, dim=1).values
-        margin = top2[:, 0] - top2[:, 1]
-        ties += int((margin[1:] <= dist[1:]).sum())
         darg = dl.argmax(dim=1).tolist()
+        same = (dl == tl).all(dim=1).tolist()
         for j in range(1, len(toks)):
-            t, d = toks[j], darg[j]
-            if d == t:
+            n += 1
+            if darg[j] == toks[j] and same[j]:
                 continue
-            row = dict(stream=i, token=j, target_token=t, draft_token=d,
-                       margin=float(margin[j]),
-                       target_gap=float(tl[j, t] - tl[j, d]),
-                       draft_gap=float(dl[j, d] - dl[j, t]),
-                       distance=float(dist[j]))
+            row = dict(stream=i, token=j, target_token=toks[j],
+                       draft_token=darg[j],
+                       distance=float((dl[j] - tl[j]).abs().max()))
             parted.append(row)
             log(f"phase 36 (g): stream {i} token {j}: the draft's argmax "
-                f"{d}, the target's {t}; top-2 margin under the target "
-                f"{row['margin']:.4g}, the two tokens' gap "
-                f"{row['target_gap']:.4g} under the target and "
-                f"{row['draft_gap']:.4g} under the draft, logit distance "
-                f"{row['distance']:.4g} (limit {limit})")
-            if row["distance"] > limit:
-                fail(f"phase 36 (g): the draft's and the target's logits "
-                     f"{row['distance']:.4g} apart at stream {i} token {j} "
-                     f"(limit {limit})")
-    every = torch.cat([x[1:] for x in dists])
-    log(f"phase 36 (g): over the {every.numel()} tokens after the first, "
-        f"the two arithmetics' logit distance is {float(every.median()):.4g}"
-        f" median, {float(every.max()):.4g} max; at {ties} the target's "
-        "top-2 margin is within that distance")
+                f"{darg[j]}, the target's {toks[j]}; logit distance "
+                f"{row['distance']:.4g}")
+    log(f"phase 36 (g): {len(parted)} of the {n} tokens after the first "
+        "part the draft's arithmetic from the target's")
     return parted
 
 
@@ -5383,7 +5440,8 @@ def rows_cases(dev):
     cold call's rows bitwise the warm call's at the positions they
     share.  Each shape also runs with its chunks folded the other way
     (``rows_other_fold``), which must give the same bits, timed beside
-    the plan's fold.  (b) S = 1 keeps the decode route's plan."""
+    the plan's fold.  (b) S = 1 plans the kernel every S takes: the 7B
+    decode's plan is its verify block's."""
     from paddle_tpu_torch.ops.kernels import kv_attention as kva
     from paddle_tpu_torch.ops.kernels.kv_attention import (
         CARD_TOL, int8_paged_attention)
@@ -5459,12 +5517,13 @@ def rows_cases(dev):
     log("phase 36 (a): positions 1,536-1,791 bitwise equal between the "
         "cold prefill (S 2,048) and the warm suffix (S 256)")
     p = kva.int8_kv_plan(8, 1, 32, 32, 128, 16, 128)
-    if p.route != "decode" or tuple(p) != (
-            256, 16, 16, 1, 32, 8, 4, 4, 160, 39224, 8, 2, (4, 32, 8),
-            266240, 256):
-        fail(f"phase 36 (b): the 7B decode's plan changed: {p}")
-    log("phase 36 (b): S = 1 keeps the decode route's plan (7B decode "
-        f"{tuple(p)}); phase 3 times its rows 4")
+    if p.route != "rows" or p != kva.int8_kv_plan(8, 5, 32, 32, 128, 16,
+                                                   128):
+        fail(f"phase 36 (b): the 7B decode's plan is not its verify "
+             f"block's: {p}")
+    log("phase 36 (b): S = 1 plans the kernel every S takes (the 7B "
+        f"decode's plan {tuple(p)} is its verify block's); phase 3 times "
+        "its rows 4")
     return rows
 
 
@@ -5472,10 +5531,11 @@ def profile_rows_route(model, draft, prompt):
     """Phase 36 (d)'s device time under the many-row route: a fresh
     prefix + speculation server serves one cold prompt (one prefill
     dispatch of the target and one of the draft, then verify steps)
-    under torch.profiler.  The route's one-slab entries take the verify
-    blocks (5 rows a kv head), its entries of more slabs the prefills:
-    device ms a prefill dispatch and a verify step, beside the busy
-    device ms of the whole request."""
+    under torch.profiler.  Kernel 4's one-slab entries take the verify
+    blocks (5 rows a kv head) and the draft's decode steps, its entries of
+    more slabs the prefills: device ms a prefill dispatch and a verify
+    step with its draft steps, beside the busy device ms of the whole
+    request."""
     from torch.profiler import ProfilerActivity, profile
     srv = _gateway_server(model, prefix_cache=True, max_prefill_batch=4,
                           draft_model=draft, spec_k=GATEWAY["spec_k"])
@@ -5516,7 +5576,8 @@ def profile_rows_route(model, draft, prompt):
         f"{pre_ms / pb:.4f} device ms a prefix-server prefill dispatch "
         f"({pre_n} launches over {pb} dispatches of the target and its "
         f"draft, prompt of {len(prompt)} tokens), {ver_ms / vs:.4f} a "
-        f"verify step ({ver_n} launches over {vs} steps); the request's "
+        f"verify step with its draft steps ({ver_n} launches over {vs} "
+        f"steps); the request's "
         f"device busy {busy:.2f} ms")
     return res
 
@@ -5585,10 +5646,6 @@ def gateway(dev):
     del draft
     gc.collect()
     torch.cuda.empty_cache()
-    # (g) accepted proposals on the card: the target as its own draft
-    accepting = self_draft(model, prompts, spec["waves"][0]["outs"])
-    gc.collect()
-    torch.cuda.empty_cache()
     # generate() on two prompts, one at a time
     gen_outs, gen_ms = [], []
     for p in prompts[:2]:
@@ -5602,8 +5659,14 @@ def gateway(dev):
         f"(prefill of {len(prompts[0])} / {len(prompts[1])} tokens, 32 "
         "tokens)")
     # (c) token streams
-    diffs = gateway_streams(model, prompts, (plain, prefix, spec),
-                            gen_outs)
+    diffs, tf_prefix, tf_spec = gateway_streams(
+        model, prompts, (plain, prefix, spec), gen_outs)
+    # (g) every proposal accepted on the card: the target as its own draft
+    accepting = self_draft(model, prompts, spec["waves"][0]["outs"],
+                           tf_prefix, tf_spec)
+    del tf_prefix, tf_spec
+    gc.collect()
+    torch.cuda.empty_cache()
     # (d) the routes taken, (e) the cache's accounting
     for arm in (plain, prefix, spec):
         st, c, m = arm["stats"], arm["counts"], arm["modes"]
@@ -5630,7 +5693,7 @@ def gateway(dev):
             fail(f"phase 36 (d) {arm['arm']}: kernel 4 by route {m}; needs "
                  f"rows >= {need_rows}, decode >= {need_dec}")
     log("phase 36 (d): kernel 4's many-row route took every prefix-server "
-        "prefill and every verify block, its decode route every decode and "
+        "prefill and every verify block, its S = 1 calls every decode and "
         "draft step; no flash launch on the prefix arms; (e) wave 2 hit "
         "the prefix cache and every block was free after the flush")
     sst = spec["stats"]
@@ -5656,10 +5719,338 @@ def gateway(dev):
     for a in (plain, prefix, spec):
         for k, v in a["modes"].items():
             modes[k] = modes.get(k, 0) + v
-    del model
+    return counts, modes, rows, res, model
+
+
+# phase 36 (h): the reference gateway bench's own configuration
+# (bench.py:2101-2133; the model in paddle_tpu_torch/tools/chaos_gateway
+# .py, ``build_model("bench", ...)``): 8 streams of a 24-token system
+# prompt and 8-token tails, two waves of 64 new tokens, block size 16,
+# max_model_len 96, spec_k 3, the bench's one-layer draft
+GATEWAY_BENCH = dict(streams=8, system=24, tail=8, new=64, spec_k=3,
+                     slots=8, block_size=16, max_len=96)
+
+
+def gateway_bench_models(dev):
+    """The bench's damped target (``chaos_gateway.build_model("bench")``,
+    bf16 weights from the seed, int8 pools) and its one-layer draft,
+    whose embeddings, first layer, final norm and head are the target's
+    own modules (the bench copies them into the draft)."""
+    from paddle_tpu_torch.text.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.tools import chaos_gateway as cg
+    model = cg.build_model("bench", dev, SEED)
+    draft = LlamaForCausalLM(
+        llama_tiny(**dict(cg.BENCH_MODEL, num_hidden_layers=1)), device=dev,
+        dtype="bfloat16", generator=torch.Generator(device=dev).manual_seed(
+            SEED + 38))
+    draft.eval()
+    draft.model.embed_tokens = model.model.embed_tokens
+    draft.model.layers[0] = model.model.layers[0]
+    draft.model.norm = model.model.norm
+    draft.lm_head = model.lm_head
+    torch.cuda.synchronize()
+    return model, draft
+
+
+def gateway_bench(dev):
+    """Phase 36 (h): the gateway bench's configuration through its three
+    arms (plain; prefix; gateway = prefix + speculation with the bench's
+    draft), a cold and a warm wave each.  The gateway arm's cold and warm
+    streams must be the prefix arm's (``bench.py:2184-2185``); a prefix +
+    speculation server whose draft is the target itself must give them
+    too and accept exactly 1.0; the accept rate of the bench's draft and
+    the target-iteration speedup (plain decode steps / gateway verify
+    steps) are printed with the card; and the GEMM row floor is checked
+    at this width (``gemm_rows_follow_m``).  Returns the three arms'
+    launch counts and kernel 4's launches by call."""
+    from paddle_tpu_torch.inference.generation_server import ROW_FLOOR
+    g = GATEWAY_BENCH
+    t0 = time.perf_counter()
+    model, draft = gateway_bench_models(dev)
+    V = model.config.vocab_size
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, V, (g["system"],)).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(1, V, (g["tail"],))
+                               .astype(np.int32)])
+               for _ in range(g["streams"])]
+    log(f"phase 36 (h): the gateway bench's model and draft built in "
+        f"{time.perf_counter() - t0:.1f} s; {len(prompts)} prompts of "
+        f"{g['system']} + {g['tail']} tokens, {g['new']} new")
+    plain = gateway_arm("(h) plain", model, prompts, g, max_prefill_batch=1)
+    plain.pop("server").stop()
+    prefix = gateway_arm("(h) prefix", model, prompts, g, prefix_cache=True,
+                         max_prefill_batch=4)
+    prefix.pop("server").stop()
+    gw = gateway_arm("(h) gateway", model, prompts, g, prefix_cache=True,
+                     max_prefill_batch=4, draft_model=draft,
+                     spec_k=g["spec_k"])
+    gw.pop("server").stop()
+    for w, wave in enumerate(("cold", "warm")):
+        d = _first_difference(prefix["waves"][w]["outs"],
+                              gw["waves"][w]["outs"])
+        if d is not None:
+            fail(f"phase 36 (h): the gateway arm's {wave} stream {d[0]} "
+                 f"differs from the prefix arm's at token {d[1]}")
+    same = sum(a == b for a, b in zip(plain["waves"][0]["outs"],
+                                      prefix["waves"][0]["outs"]))
+    self_arm = gateway_arm("(h) self-draft", model, prompts, g,
+                           prefix_cache=True, max_prefill_batch=4,
+                           draft_model=model, spec_k=g["spec_k"])
+    self_arm.pop("server").stop()
+    sst = self_arm["stats"]
+    for w in range(2):
+        d = _first_difference(prefix["waves"][w]["outs"],
+                              self_arm["waves"][w]["outs"])
+        if d is not None:
+            fail(f"phase 36 (h): the self-draft server's wave {w + 1} "
+                 f"stream {d[0]} differs from the prefix arm's at token "
+                 f"{d[1]}")
+    if sst["spec_accept_rate"] != 1.0 or not sst["spec_proposed"]:
+        fail(f"phase 36 (h): a same-weights draft accepted "
+             f"{sst['spec_accepted']} of {sst['spec_proposed']} proposals")
+    raw, floored = gemm_rows_follow_m(model)
+    log(f"phase 36 (h): row counts {list(GEMM_ROWS)} against 2,048 at "
+        f"hidden {model.config.hidden_size}, intermediate "
+        f"{model.config.intermediate_size}, vocab {V}: a row's bits follow "
+        f"the call's rows for {raw or 'no operation'}; with the row floor "
+        f"({ROW_FLOOR}): {floored or 'for none'}")
+    if floored:
+        fail("phase 36 (h): with the row floor a row's bits still follow "
+             f"the call's rows: {floored}")
+    gst = gw["stats"]
+    speedup = plain["stats"]["decode_steps"] / max(
+        gst["spec_verify_steps"], 1)
+    log(f"phase 36 (h): {_CARD[0]}: the bench's draft accepts "
+        f"{gst['spec_accept_rate']:.4f} ({gst['spec_accepted']} of "
+        f"{gst['spec_proposed']}); target-iteration speedup {speedup:.3f} "
+        f"({plain['stats']['decode_steps']} plain decode steps / "
+        f"{gst['spec_verify_steps']} verify steps); the gateway arm's cold "
+        f"and warm streams are the prefix arm's; a same-weights draft "
+        f"accepts {sst['spec_accept_rate']:.4f} ({sst['spec_accepted']} of "
+        f"{sst['spec_proposed']}); plain and prefix arms' cold streams "
+        f"identical in {same} of {len(prompts)} (flash prefill against the "
+        "gather, by design)")
+    res = dict(accept_rate=gst["spec_accept_rate"],
+               target_iteration_speedup=speedup,
+               self_draft_accept_rate=sst["spec_accept_rate"],
+               ttft_ms={a["arm"]: [[w["ttft_ms_median"], w["ttft_ms_max"]]
+                                   for w in a["waves"]]
+                        for a in (plain, prefix, gw)},
+               tokens_per_s={a["arm"]: 2 * g["streams"] * g["new"] / sum(
+                   w["wall_s"] for w in a["waves"])
+                   for a in (plain, prefix, gw)})
+    log("phase 36 (h): " + json.dumps(res))
+    arms = (plain, prefix, gw, self_arm)
+    counts = {k: sum(a["counts"][k] for a in arms) for k in plain["counts"]}
+    modes = {}
+    for a in arms:
+        for k, v in a["modes"].items():
+            modes[k] = modes.get(k, 0) + v
+    del model, draft
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, modes, rows, res
+    return counts, modes
+
+
+def _wait_tokens(stream, n, timeout_s=300.0):
+    deadline = time.monotonic() + timeout_s
+    while len(stream.tokens) < n:
+        if time.monotonic() > deadline:
+            fail(f"phase 37: a stream emitted {len(stream.tokens)} tokens "
+                 f"in {timeout_s} s")
+        time.sleep(0.005)
+
+
+def gateway_fleet(dev, model):
+    """Phase 37: the served 7B behind ``GatewayRouter`` (see the module
+    docstring).  Returns the gateway waves' launch counts and kernel 4's
+    launches by call."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.inference import (
+        GatewayRouter, GenerationRpcServer, LocalReplica, RemoteReplica,
+        ServerOverloaded)
+    from paddle_tpu_torch.observability import flight_recorder
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.tools.chaos_gateway import owner_probe
+    g = GATEWAY
+    t_phase = time.perf_counter()
+    V = model.config.vocab_size
+    names = ["r0", "r1", "r2"]
+    route_owner = owner_probe(names, g["block_size"], SEED)
+    first = gateway_prompts(V)
+    owner0 = route_owner(first[0])
+    rng = np.random.default_rng(SEED + 37)
+    for _ in range(1000):
+        sys2 = rng.integers(1, V, g["system"]).astype(np.int32)
+        if route_owner(sys2) != owner0:
+            break
+    else:
+        fail("phase 37: no second system prompt routes to another replica")
+    lo, hi = g["tail"]
+    prompts = first + [np.concatenate([sys2, rng.integers(1, V, n).astype(
+        np.int32)]) for n in rng.integers(lo, hi + 1, len(first))]
+    kws = [dict(max_new_tokens=g["new"], seed=5000 + i,
+                **({"do_sample": True, "temperature": 0.9, "top_k": 8}
+                   if i % 2 else {})) for i in range(len(prompts))]
+    skw = dict(prefix_cache=True, max_prefill_batch=4, check_replay=True)
+    oracle = _gateway_server(model, **skw).start()
+    t0 = time.perf_counter()
+    ref = [s.result(timeout=900) for s in
+           [oracle.submit(p, **kw) for p, kw in zip(prompts, kws)]]
+    oracle_s = time.perf_counter() - t0
+    oracle.stop()
+    del oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    owners = [route_owner(p) for p in prompts]
+    log(f"phase 37: {len(prompts)} streams (8 greedy, 8 seeded sampling) "
+        f"of {min(len(p) for p in prompts)}-{max(len(p) for p in prompts)}"
+        f" prompt tokens, {g['new']} new; the oracle served them in "
+        f"{oracle_s:.2f} s; route owners {collections.Counter(owners)}")
+
+    def check(label, outs):
+        d = _first_difference(ref, outs)
+        if d is not None:
+            fail(f"phase 37 {label}: stream {d[0]} differs from the oracle "
+                 f"at token {d[1]}")
+
+    monitor.enable_metrics(True)
+    monitor.metrics_reset()
+    flight_recorder.clear()
+    servers = [_gateway_server(model, **skw).start() for _ in names]
+    registry.reset_counts()                  # the main path starts here
+    router = GatewayRouter([LocalReplica(n, s) for n, s in
+                            zip(names, servers)],
+                           block_size=g["block_size"], seed=SEED,
+                           request_timeout_s=900.0).start()
+    try:
+        # (b) a replica killed mid-decode
+        t0 = time.perf_counter()
+        streams = [router.submit(p, **kw) for p, kw in zip(prompts, kws)]
+        _wait_tokens(streams[0], 4)
+        router._replicas[owner0].kill()
+        outs = [s.result(timeout=900) for s in streams]
+        kill_s = time.perf_counter() - t0
+        check("(b) kill", outs)
+        st = router.stats()
+        if st["failovers"] < 1 or monitor.stat_get("gw_failovers") < 1:
+            fail(f"phase 37 (b): {st['failovers']} failovers")
+        ttft = sorted(s.ttft_s * 1e3 for s in streams)
+        fo = monitor.get_histogram("gw_failover_ms")
+        if fo is None or fo.count < 1:
+            fail("phase 37 (b): no failover time observed")
+        log(f"phase 37 (b): {owner0} killed after stream 0's 4th token; "
+            f"all {len(streams)} streams token-identical to the oracle in "
+            f"{kill_s:.2f} s; {st['failovers']} failovers (gw_failover_ms "
+            f"mean {fo.sum / fo.count:.2f} over {fo.count} re-placements, "
+            f"median in its buckets {fo.percentile(50):.2f}); TTFT median "
+            f"{statistics.median(ttft):.1f} / max {ttft[-1]:.1f} ms; routed "
+            f"{st['routed']}")
+        # (a) affinity: each stream's first placement is its route owner
+        placed = {e["grid"]: e["replica"] for e in flight_recorder.events()
+                  if e.get("kind") == "gw.route" and e.get("failovers") == 0}
+        ran = [placed.get(i + 1) for i in range(len(prompts))]
+        if ran != owners or len(set(ran)) < 2:
+            fail(f"phase 37 (a): first placements {ran}, route owners "
+                 f"{owners}")
+        log(f"phase 37 (a): every stream's first placement is its "
+            f"route_owner ({len(set(ran))} replicas took traffic)")
+        # (c) a surviving replica drained mid-traffic
+        survivors = [n for n in names if n != owner0]
+        t0 = time.perf_counter()
+        streams = [router.submit(p, **kw) for p, kw in zip(prompts, kws)]
+        _wait_tokens(streams[0], 4)
+        with router._lock:
+            homes = collections.Counter(
+                r.replica for r in router._reqs.values() if not r.done)
+        victim = max(survivors, key=lambda n: homes.get(n, 0))
+        moved = router.drain(victim)
+        outs = [s.result(timeout=900) for s in streams]
+        drain_s = time.perf_counter() - t0
+        check("(c) drain", outs)
+        st = router.stats()
+        if st["migrated"] < 1 or monitor.stat_get("gw_migrated_seqs") < 1:
+            fail(f"phase 37 (c): drain({victim}) migrated {st['migrated']}")
+        ttft2 = sorted(s.ttft_s * 1e3 for s in streams)
+        log(f"phase 37 (c): drain({victim}) mid-traffic moved {moved} live "
+            f"sequences ({st['migrated']} migrated); all streams "
+            f"token-identical to the oracle in {drain_s:.2f} s; TTFT median "
+            f"{statistics.median(ttft2):.1f} / max {ttft2[-1]:.1f} ms")
+    finally:
+        router.stop()
+    counts = registry.launch_counts()        # ... and ends here
+    modes = dict(registry.spec("int8_kv_attention").mode_launches)
+    log(f"phase 37: kernel 4's launches by call over waves (b) and (c): "
+        f"{modes}; flash {counts['flash_attention']}")
+    live = next(s for n, s in zip(names, servers)
+                if n not in (owner0, victim))
+    # (d) typed sheds: a tenant over its budget, then deadline order
+    short = prompts[0][:64]
+    r2 = GatewayRouter([LocalReplica("s", live, owns_server=False)],
+                       block_size=g["block_size"], seed=SEED,
+                       tenant_budgets={"t": 100}, max_pending=1,
+                       request_timeout_s=900.0).start()
+    try:
+        a = r2.submit(short, max_new_tokens=8, tenant="t", timeout_s=300.0)
+        try:
+            r2.submit(short, max_new_tokens=8, tenant="t")
+            fail("phase 37 (d): a tenant over its budget was not shed")
+        except ServerOverloaded:
+            pass
+        b = r2.submit(short, max_new_tokens=8, timeout_s=60.0)
+        try:
+            a.result(timeout=300)
+            fail("phase 37 (d): the slacker request kept its slot")
+        except ServerOverloaded:
+            pass
+        b.result(timeout=300)
+        sheds = r2.stats()["sheds"]
+        if sheds.get("tenant_budget") != 1 or sheds.get("pressure") != 1:
+            fail(f"phase 37 (d): sheds {sheds}")
+    finally:
+        r2.stop()
+    log(f"phase 37 (d): the tenant budget and the deadline-ordered shed "
+        f"raised ServerOverloaded ({sheds})")
+    # (e) a replica over loopback RPC
+    rpc = GenerationRpcServer(live)
+    r3 = GatewayRouter([RemoteReplica("w", "127.0.0.1", rpc.port,
+                                      rpc_timeout=900.0)],
+                       block_size=g["block_size"], seed=SEED,
+                       request_timeout_s=900.0).start()
+    try:
+        sub = list(range(0, len(prompts), 4))
+        outs = [s.result(timeout=900) for s in
+                [r3.submit(prompts[i], **kws[i]) for i in sub]]
+        if outs != [ref[i] for i in sub]:
+            fail("phase 37 (e): the RPC replica's streams differ from the "
+                 "oracle's")
+    finally:
+        r3.stop()
+        rpc.stop()
+    log(f"phase 37 (e): {len(sub)} streams through a GenerationRpcServer "
+        "on loopback and a RemoteReplica token-identical to the oracle")
+    for srv in servers:
+        srv.stop()
+    del servers, live
+    monitor.enable_metrics(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f) the chaos tool at the gateway bench's configuration
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_gateway",
+         "--config", "bench", "--device", "cuda", "--timeout", "300"],
+        capture_output=True, text=True, timeout=900)
+    for line in out.stdout.strip().splitlines():
+        log("  chaos_gateway: " + line)
+    if out.returncode:
+        log(out.stderr[-4000:])
+        fail(f"phase 37 (f): chaos_gateway --config bench exited "
+             f"{out.returncode}")
+    log(f"phase 37 (f): python -m paddle_tpu_torch.tools.chaos_gateway "
+        f"--config bench exited 0 in {time.perf_counter() - t0:.1f} s; "
+        f"phase 37 {time.perf_counter() - t_phase:.1f} s")
+    return counts, {"int8_kv_attention": modes}
 
 
 def log_bwd_entries(bwd):
@@ -5806,6 +6197,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    _CARD[0] = smi
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -5853,17 +6245,10 @@ def main() -> int:
     wo = check_ptxas("int8_matmul.cu", "int8_wonly", entries=9)
     for name, (regs, _, _) in sorted(wo.items()):
         log(f"  int8_wonly ({name[-36:]}): {regs} registers, no spill")
-    # kernel 4 keeps its scores and q slices in registers: six entries
-    # (head_dim 64, 128, 256; f32 or bf16 queries); its many-row route
-    # keeps its scores, P and the chunk's acc fragments there too:
-    # twenty entries (1, 2, 4 or 8 slabs at head_dim 64 and 128, 1 and 2
-    # at 256; both dtypes), each with its products on the tensor cores
-    # (HMMA in its SASS)
-    kv = check_ptxas("int8_kv_attention.cu", "int8_kv_attn_sm90", entries=6)
-    for name, (regs, _, _) in sorted(kv.items()):
-        q, d = re.search(r"sm90I(f|13__nv_bfloat16)Li(\d+)E", name).groups()
-        log(f"  int8_kv_attn_sm90 ({'f32' if q == 'f' else 'bf16'} q, "
-            f"head_dim {d}): {regs} registers, no spill")
+    # kernel 4 (every S) keeps its scores, P and the chunk's acc fragments
+    # in registers: twenty entries (1, 2, 4 or 8 slabs at head_dim 64 and
+    # 128, 1 and 2 at 256; both dtypes), each with its products on the
+    # tensor cores (HMMA in its SASS)
     kvr = check_ptxas("int8_kv_attention.cu", "int8_kv_rows", entries=20)
     hmma = rows_hmma_counts()
     for name, (regs, _, _) in sorted(kvr.items()):
@@ -6082,8 +6467,18 @@ def main() -> int:
     # and generate(): kernel 4's many-row route on verify blocks and
     # suffix prefills
     t0 = time.perf_counter()
-    gw_counts, gw_modes, kv_rows, _ = gateway(dev)
+    gw_counts, gw_modes, kv_rows, _, gw_model = gateway(dev)
+    gh_counts, gh_modes = gateway_bench(dev)
     log(f"phase 36: {time.perf_counter() - t0:.1f} s")
+
+    # 37. the served 7B behind the gateway: replicas, a kill, a drain,
+    # typed sheds, an RPC replica and the chaos tool
+    t0 = time.perf_counter()
+    fleet_counts, fleet_modes = gateway_fleet(dev, gw_model)
+    del gw_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 37: {time.perf_counter() - t0:.1f} s")
 
     options = {
         "flash_attention": {
@@ -6102,9 +6497,11 @@ def main() -> int:
                                          el2_counts, online_counts,
                                          rn_counts, ab_counts, bt_counts,
                                          bs_counts, er_counts, mt_counts,
-                                         gw_counts))
+                                         gw_counts, gh_counts,
+                                         fleet_counts))
         by_mode = {}
-        for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes}):
+        for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes},
+                  {"int8_kv_attention": gh_modes}, fleet_modes):
             for k, c in m.get(name, {}).items():
                 by_mode[k] = by_mode.get(k, 0) + c
         extra = dict(launches_by_mode=by_mode) if by_mode else {}

@@ -1,6 +1,6 @@
 """Deterministic fault injection (counterpart of
-``paddle_tpu/distributed/fleet/chaos.py``): the PS wire sites and the
-elastic site.
+``paddle_tpu/distributed/fleet/chaos.py``): the PS wire sites, the
+elastic site and the gateway site.
 
 A seedable :class:`FaultPlan` wraps the ``_send_msg`` / ``_recv_msg``
 framing layer of :mod:`.ps_service` and injects faults at exact,
@@ -27,11 +27,18 @@ Fault kinds (``Fault.kind``):
           counter advances once per executed step of this process, so
           ``kill:worker:every=K`` kills each incarnation after K steps).
           Fired by :func:`maybe_kill_worker` from the elastic step loop.
+          With any other ``op`` (``gen_step``) the same kind targets the
+          gateway site: the generation scheduler calls
+          :func:`maybe_kill_replica` once per decode or verify step, so
+          ``kill:gen_step:first=N`` SIGKILLs a serving replica
+          mid-decode at its step N.  Cut / slow / drop on the gateway's
+          RPC link need no site of their own: the gateway protocol
+          (``gen_submit`` / ``gen_poll`` / ...) rides the PS framing
+          layer, so the send and connect sites match its ops.
 
-The reference's other sites wait for the slices that run them: ``kill``
-on a serving replica (the gateway, ROADMAP queue item 2) and the
-numeric ``nan`` / ``inf`` streams (queue item 4).  A plan naming one
-raises ``NotImplementedError``.
+The reference's numeric ``nan`` / ``inf`` streams wait for the slice
+that runs them (ROADMAP queue item 4); a plan naming one raises
+``NotImplementedError``.
 
 Matching: every fault names an ``op`` (the request header's ``op``;
 reply frames match ``<op>_reply``, or ``reply`` as a catch-all; ``*``
@@ -61,13 +68,13 @@ from typing import List, Optional
 from ...observability import flight_recorder as _flight
 
 __all__ = ["Fault", "FaultPlan", "install", "uninstall", "active",
-           "named_plan", "plan_from_spec", "maybe_kill_worker"]
+           "named_plan", "plan_from_spec", "maybe_kill_worker",
+           "maybe_kill_replica"]
 
 # frames the protocol never answers: safe to duplicate on the wire
 _ONE_WAY_OPS = {"heartbeat"}
 
-_LATER = {"gateway": "the gateway's replica kill (ROADMAP queue item 2)",
-          "numeric": "the numeric nan/inf streams (ROADMAP queue item 4)"}
+_LATER = {"numeric": "the numeric nan/inf streams (ROADMAP queue item 4)"}
 
 
 def _one_way(obj) -> bool:
@@ -242,6 +249,16 @@ class FaultPlan:
             return f
         return None
 
+    def match_gateway(self, op: str = "gen_step") -> Optional[Fault]:
+        """Gateway-site hook (:func:`maybe_kill_replica`): consulted
+        once per decode or verify step of this replica's scheduler, so
+        ``first=N`` fires at step N.  Returns the firing ``kill`` fault
+        or None; the caller delivers the signal."""
+        f = self._match("gateway", op)
+        if f is not None and f.kind == "kill":
+            return f
+        return None
+
     def on_serve(self, msg):
         """Server-side hook, called once per received request."""
         op = msg.get("op", "?") if isinstance(msg, dict) else "?"
@@ -261,8 +278,8 @@ class FaultPlan:
 # -- named plans --------------------------------------------------------
 
 def named_plan(name: str, seed: int = 0) -> FaultPlan:
-    """Prebuilt schedules: ``flaky``, ``dup``, ``lost_ack``, ``crash@N``
-    and ``kill_worker@every=K``."""
+    """Prebuilt schedules: ``flaky``, ``dup``, ``lost_ack``, ``crash@N``,
+    ``kill_worker@every=K``, ``gw_kill@N`` and ``gw_flaky``."""
     if name == "flaky":
         # survivable background noise: slow frames, duplicated async
         # pushes, a lost push ack (the idempotent retry path), one
@@ -290,16 +307,28 @@ def named_plan(name: str, seed: int = 0) -> FaultPlan:
         # because checkpoints land more often than kills)
         k = int(name[len("kill_worker@every="):])
         faults = [Fault("kill", op="worker", first=k, every=k, times=0)]
-    elif name.startswith(("gw_kill@", "gw_flaky")):
-        raise NotImplementedError(
-            f"chaos plan {name!r} is not ported yet: {_LATER['gateway']}")
+    elif name.startswith("gw_kill@"):
+        # SIGKILL this serving replica mid-decode at scheduler step N:
+        # the router must finish every affected stream token-identical
+        # by re-prefill and replay on a surviving replica
+        faults = [Fault("kill", op="gen_step", first=int(name[8:]))]
+    elif name == "gw_flaky":
+        # survivable gateway-link noise: slow poll frames and periodic
+        # mid-frame cuts on the poll stream, which the router's one-shot
+        # RPC must absorb without a client-visible error
+        faults = [
+            Fault("delay", op="gen_poll", first=3, every=5, times=0,
+                  arg=0.002),
+            Fault("cut", op="gen_poll", first=7, every=11, times=0),
+        ]
     elif name.startswith(("nan_grad@", "inf_grad@", "nan_batch@",
                           "diverge@")):
         raise NotImplementedError(
             f"chaos plan {name!r} is not ported yet: {_LATER['numeric']}")
     else:
         raise ValueError(f"unknown chaos plan {name!r} (flaky, dup, "
-                         f"lost_ack, crash@N, kill_worker@every=K)")
+                         f"lost_ack, crash@N, kill_worker@every=K, "
+                         f"gw_kill@N, gw_flaky)")
     return FaultPlan(faults, seed=seed, name=name)
 
 
@@ -312,6 +341,18 @@ def maybe_kill_worker(op: str = "worker"):
     if plan is None:
         return
     if plan.match_elastic(op) is not None:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_kill_replica(op: str = "gen_step"):
+    """Generation-scheduler hook: SIGKILL the current serving replica
+    when the active plan schedules a ``kill`` fault for this decode
+    step, so the gateway sees what a machine-level replica loss
+    delivers (a dead socket mid-stream), not an orderly shutdown."""
+    plan = active()
+    if plan is None:
+        return
+    if plan.match_gateway(op) is not None:
         os.kill(os.getpid(), signal.SIGKILL)
 
 

@@ -17,25 +17,29 @@ What is ported, with the reference's semantics:
   forks it first (allocate, copy every pool tensor's row, remap the
   table).  Every prefill of a prefix-sharing server attends through the
   cache gather (``verify_mode``), so a cold prompt and a warm suffix run
-  the same arithmetic a position: on int8 pools both take kernel 4's
-  many-row route, whose rows' bits depend on nothing but their own q,
-  position and blocks; and every projection is issued with at least
-  ``ROW_FLOOR`` rows, so the GEMM library sums a row alike in a call of
-  any size.
+  the same arithmetic a position: on int8 pools both take kernel 4,
+  whose rows' bits depend on nothing but their own q, position and
+  blocks.
+- **one arithmetic a position**: kernel 4 computes a query row the same
+  way at S = 1 (decode and draft steps) and S > 1 (verify blocks,
+  suffix prefills), and every server issues every projection, norm and
+  the head -- the target's and the draft's -- with at least
+  ``ROW_FLOOR`` rows, so the GEMM library and the norms' reductions sum
+  a row alike in a call of any size.
 - **batched prefill**: prompts (or suffixes) are grouped by power-of-two
   length bucket and prefilled up to ``max_prefill_batch`` at a time;
   padding rows write only to the trash block.  Fresh prefills of a
   server without prefix sharing run the flash-attention kernel.
 - **speculative decoding** (``draft_model=``): the draft rides the same
   block tables with its own pools and proposes up to ``spec_k`` tokens
-  an iteration (its decode steps: kernel 4's decode route); the target
-  scores them in one verify forward of ``spec_k + 1`` positions (kernel
-  4's many-row route), sampling its own token at every position from the
-  positional stream plain decode uses; a proposal is accepted iff it
-  equals that token, so the output is what plain decode emits, token
-  for token wherever the two attention routes round alike (always on
-  the CPU; on the card they may part at a near-tie, a difference by
-  design recorded in ROADMAP.md).  Blocks past the draft's valid KV are
+  an iteration (its decode steps); the target scores them in one verify
+  forward of ``spec_k + 1`` positions, sampling its own token at every
+  position from the positional stream plain decode uses; a proposal is
+  accepted iff it equals that token.  A verify block computes each
+  position with the bits a decode step gives it (one arithmetic a
+  position, above), so the output is what plain decode emits, token for
+  token, on the CPU and on the card, and a draft with the target's
+  weights accepts every proposal.  Blocks past the draft's valid KV are
   withheld from the index.
 - **fixed-width decode**: one decode step covers all ``num_slots``
   slots, live or idle (idle slots attend the trash block at position 0
@@ -59,11 +63,28 @@ What is ported, with the reference's semantics:
   :class:`RequestTimeout`, :class:`ServerDraining`,
   :class:`ServerClosed`), ``cancel``, and the scheduler command queue that
   ``inference/migration.py`` exports and imports sequences through.
+- observability, as the reference: serve histograms
+  (``decode_step_ms`` / ``prefill_ms`` / ``serve_ttft_ms``, on when
+  metrics are), always-on counters (``serve_prefix_hits``,
+  ``serve_cow_forks``, ``serve_spec_proposed`` / ``_accepted``,
+  ``serve_admit_rollbacks``, ``serve_spec_index_withheld_tokens``,
+  ``serve_shed_<reason>``, ...) and flight events (``serve.admit`` /
+  ``serve.evict`` / ``serve.shed`` / ``serve.stream_end`` / sampled
+  ``serve.decode`` and ``serve.spec_verify``, ...).  ``submit(tenant=)``
+  tags a request for usage accounting: labeled counters
+  ``serve_tenant_tokens_in/out``, ``serve_tenant_sheds``,
+  ``serve_tenant_prefix_hit_tokens`` and the ``serve_tenant_queue_ms``
+  gauge, beside the untagged ``serve_tokens_in/out`` totals the tenant
+  series sum to.  With tracing on every request gets its own span lane
+  (:mod:`~paddle_tpu_torch.observability.request_trace`), whose
+  ``first_token`` span carries the ``ttft_ms`` that ``serve_ttft_ms``
+  observes.
+- the gateway's chaos site: every decode or verify step calls
+  ``chaos.maybe_kill_replica()``, so a seeded ``gw_kill@N`` plan
+  SIGKILLs a replica process mid-decode.
 
 PyTorch runs eagerly: there is nothing to compile, so the reference's
-compile counters are not reported.  The tracing, flight-recorder and
-metrics hooks and the gateway come with a later slice (ROADMAP.md queue
-1, item 2).
+compile counters are not reported.
 """
 from __future__ import annotations
 
@@ -75,6 +96,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..distributed.fleet import chaos as _chaos
+from ..framework import monitor as _monitor
+from ..observability import flight_recorder as _flight
+from ..observability import trace as _trace
+from ..observability.request_trace import RequestTrace
 from .prefix_cache import PrefixCache
 from .serving import (RequestTimeout, ServeError, ServerClosed,
                       ServerDraining, ServerOverloaded)
@@ -85,16 +111,24 @@ __all__ = ["GenerationServer", "GenerationStream", "ServeError",
 
 _END = object()
 _MASK64 = (1 << 64) - 1
-# A prefix-sharing or speculative server issues every projection and the
-# head with at least this many rows (``LlamaForCausalLM.forward_paged``'s
+# one serve.decode flight event every this many decode steps (the ring is
+# postmortem context, not a per-token log; progress() ticks every step);
+# serve.spec_verify samples on the same cadence, its first step included
+_FLIGHT_DECODE_EVERY = 32
+# Every server issues every projection, every norm and the head -- the
+# target's and the draft's, at prefill, decode, draft and verify steps --
+# with at least this many rows (``LlamaForCausalLM.forward_paged``'s
 # ``min_rows``): on the H100 cuBLAS gives a row of the 7B's GEMMs other
 # bits at 64 rows or fewer (the MLP's down projection and the f32 head)
-# and at 16 (the attention projections), the same bits at every count
-# from 256 to 8,192, so a cold prompt and a warm suffix, a decode step
-# and a verify block, compute a position's projections alike.  The value
-# is verified for the 7B's widths only, by ``chip_smoke.py`` phase 36
-# (c) on every run (every projection and the head at the row counts a
-# server issues); another model's widths may need another floor
+# and at 16 (the attention projections), and an RMS norm's mean of
+# squares sums a row in another order over 8 rows than over 2,048; at
+# every count from 256 to 8,192 a row gets the same bits.  So a cold
+# prompt and a warm suffix, a decode step and a verify block, a server
+# with a draft and one without, compute a position alike.
+# ``chip_smoke.py`` checks the value on every run at the 7B's widths
+# (phase 36 (c)) and at the gateway bench's (hidden 1,024, intermediate
+# 2,816, vocab 32,000; phase 36 (h)): every projection, norm and the
+# head at the row counts a server issues
 ROW_FLOOR = 256
 
 
@@ -170,10 +204,12 @@ class _GenSeq:
         "rid", "prompt", "L", "max_new", "eos", "do_sample", "temp",
         "top_k", "top_p", "seed", "priority", "arrival", "deadline",
         "stream", "generated", "decoded", "blocks", "slot", "evictions",
-        "t_submit", "t_first_tok", "cached", "draft_decoded")
+        "t_submit", "t_first_tok", "cached", "draft_decoded", "tenant",
+        "rt")
 
     def __init__(self, rid, prompt, max_new, eos, do_sample, temp,
-                 top_k, top_p, seed, priority, arrival, deadline):
+                 top_k, top_p, seed, priority, arrival, deadline,
+                 tenant=None):
         self.rid = rid
         self.prompt = prompt                  # np.int32 [L]
         self.L = int(prompt.shape[0])
@@ -197,6 +233,8 @@ class _GenSeq:
         self.t_first_tok: Optional[float] = None
         self.cached = 0           # prefix tokens aliased at admission
         self.draft_decoded = 0    # generated tokens the draft consumed
+        self.tenant = tenant      # usage-accounting tag
+        self.rt: Optional[RequestTrace] = None   # span lane (tracing on)
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -366,8 +404,7 @@ class GenerationServer:
         self._seed = int(seed)
         self._check_replay = bool(check_replay)
         self._prefix_on = bool(prefix_cache)
-        self._min_rows = ROW_FLOOR if (self._prefix_on or self._spec) \
-            else None
+        self._min_rows = ROW_FLOOR
 
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -546,6 +583,8 @@ class GenerationServer:
             self._waiting.clear()
         for seq in leftovers:
             self._release(seq)
+            if seq.rt is not None:
+                seq.rt.finish("server_stopped")
             seq.stream._fail(ServerClosed("server stopped"))
 
     def drain_begin(self):
@@ -609,6 +648,8 @@ class GenerationServer:
             self._release(seq)
             with self._lock:
                 self._stats["cancelled"] += 1
+            if seq.rt is not None:
+                seq.rt.finish(reason, tokens=len(seq.generated))
             seq.stream._end(reason)
             return True
         return self._run_on_scheduler(_do)
@@ -626,16 +667,23 @@ class GenerationServer:
                eos_token_id: Optional[int] = None,
                seed: Optional[int] = None, priority: int = 0,
                timeout_s: Optional[float] = None,
+               tenant: Optional[str] = None,
                replay_tokens: Optional[Sequence[int]] = None,
                ) -> GenerationStream:
         """Enqueue one generation request; returns a
         :class:`GenerationStream` that yields tokens as decode steps
         complete.  ``priority``: lower = more important (evicted last).
         ``seed`` fixes the request's sampling stream (default: derived
-        from the server seed and the request id).  Raises
+        from the server seed and the request id).  ``tenant`` tags the
+        request for usage accounting (``serve_tenant_tokens_in/out``,
+        ``serve_tenant_sheds``, ``serve_tenant_prefix_hit_tokens``, the
+        ``serve_tenant_queue_ms`` gauge); tagged or not, it counts into
+        the untagged ``serve_tokens_in/out`` totals.  Raises
         :class:`ServerOverloaded` at the waiting-queue cap,
         :class:`ServerDraining` on a draining server and
-        :class:`ServerClosed` on a stopped one.
+        :class:`ServerClosed` on a stopped one, all from under the
+        scheduler's lock, so a submit racing ``stop()`` never enqueues a
+        stream that would never start.
 
         ``replay_tokens`` (failover): tokens this request's stream
         already emitted elsewhere.  Admission re-runs the prompt, then
@@ -669,26 +717,49 @@ class GenerationServer:
                     "could never start)")
             if self._draining:
                 self._stats["shed_draining"] += 1
+                shed = ("draining", len(self._waiting))
+            elif len(self._waiting) >= self._max_waiting:
+                self._stats["shed_overload"] += 1
+                shed = ("overload", len(self._waiting))
+            else:
+                self._rid += 1
+                self._arrival += 1
+                sd = (self._seed * 1000003 + self._rid if seed is None
+                      else int(seed))
+                seq = _GenSeq(self._rid, p, max_new_tokens, eos_token_id,
+                              do_sample, temperature, top_k, top_p, sd,
+                              priority, self._arrival,
+                              time.monotonic() + to, tenant=tenant)
+                if replay:
+                    seq.generated = list(replay)
+                if _trace.enabled():
+                    seq.rt = RequestTrace("gen", seq.rid, tenant)
+                    seq.rt.instant("submit", prompt_len=seq.L,
+                                   max_new=seq.max_new)
+                    seq.rt.begin("queue")
+                self._waiting.append(seq)
+                self._stats["submitted"] += 1
+                self._cond.notify_all()
+                shed = None
+        if shed is not None:
+            reason, depth = shed
+            _monitor.stat_add("serve_shed_" + reason)
+            if tenant is not None:
+                _monitor.stat_add("serve_tenant_sheds",
+                                  labels={"tenant": tenant,
+                                          "reason": reason})
+            _flight.record("serve.shed", reason=reason, depth=depth,
+                           server="generation")
+            if reason == "draining":
                 raise ServerDraining(
                     "server is draining — submit this request to "
-                    "another replica")
-            if len(self._waiting) >= self._max_waiting:
-                self._stats["shed_overload"] += 1
-                raise ServerOverloaded(
-                    f"waiting-queue cap {self._max_waiting} reached; "
-                    "request shed — back off and retry")
-            self._rid += 1
-            self._arrival += 1
-            sd = (self._seed * 1000003 + self._rid if seed is None
-                  else int(seed))
-            seq = _GenSeq(self._rid, p, max_new_tokens, eos_token_id,
-                          do_sample, temperature, top_k, top_p, sd,
-                          priority, self._arrival, time.monotonic() + to)
-            if replay:
-                seq.generated = list(replay)
-            self._waiting.append(seq)
-            self._stats["submitted"] += 1
-            self._cond.notify_all()
+                    "another replica") from None
+            _flight.maybe_dump("ServerOverloaded")
+            raise ServerOverloaded(
+                f"waiting-queue cap {self._max_waiting} reached; "
+                "request shed — back off and retry") from None
+        if _monitor.metrics_enabled():
+            _monitor.gauge_set("serve_gen_waiting", len(self._waiting))
         return seq.stream
 
     def generate_sync(self, prompt, timeout: Optional[float] = None,
@@ -759,6 +830,8 @@ class GenerationServer:
                 self._active.clear()
                 self._running = False
             for seq in victims:
+                if seq.rt is not None:
+                    seq.rt.finish("scheduler_error")
                 seq.stream._fail(ServeError(
                     f"generation scheduler died: {e!r}"))
             raise
@@ -773,6 +846,18 @@ class GenerationServer:
                              if now <= s.deadline]
             self._stats["shed_timeout"] += len(expired)
         for s in expired:
+            _monitor.stat_add("serve_shed_timeout")
+            if s.tenant is not None:
+                _monitor.stat_add("serve_tenant_sheds",
+                                  labels={"tenant": s.tenant,
+                                          "reason": "timeout"})
+            _flight.record("serve.shed", reason="timeout", rid=s.rid,
+                           waited_ms=round((now - s.t_submit) * 1e3, 1),
+                           evictions=s.evictions, server="generation")
+            _flight.record("serve.stream_end", rid=s.rid,
+                           reason="timeout", tokens=len(s.generated))
+            if s.rt is not None:
+                s.rt.finish("shed_timeout", tokens=len(s.generated))
             s.stream._fail(RequestTimeout(
                 f"request {s.rid} spent its whole deadline "
                 + ("evicted and waiting for re-admission"
@@ -789,6 +874,7 @@ class GenerationServer:
         bucket."""
         taken: List[_GenSeq] = []
         forks: List[tuple] = []
+        rollback: Optional[_GenSeq] = None
         with self._lock:
             while self._waiting and self._free_slots:
                 self._waiting.sort(key=lambda s: (s.priority, s.arrival))
@@ -844,6 +930,7 @@ class GenerationServer:
                     seq.blocks = []
                     self._waiting.insert(0, seq)
                     self._stats["admit_rollbacks"] += 1
+                    rollback = seq
                     break
                 seq.blocks.extend(grabbed)
                 seq.cached = cached
@@ -854,6 +941,38 @@ class GenerationServer:
                 seq.slot = self._free_slots.pop()
                 self._active[seq.slot] = seq
                 taken.append(seq)
+        if rollback is not None:
+            # the capacity check miscounted and one admission was rolled
+            # back: an always-on counter and a flight event
+            _monitor.stat_add("serve_admit_rollbacks")
+            _flight.record("serve.admit_rollback", rid=rollback.rid,
+                           prompt_len=rollback.L,
+                           available=self._cache.available())
+            if rollback.rt is not None:
+                rollback.rt.instant("admit_rollback")
+        for seq in taken:
+            # usage accounting at admission: queue age a wait, prompt
+            # tokens once a request (a re-admission re-aliases, it does
+            # not ingest again)
+            queue_ms = (time.monotonic() - seq.t_submit) * 1e3
+            if seq.evictions == 0:
+                _monitor.stat_add("serve_tokens_in", seq.L)
+            if seq.tenant is not None:
+                lab = {"tenant": seq.tenant}
+                if seq.evictions == 0:
+                    _monitor.stat_add("serve_tenant_tokens_in", seq.L,
+                                      labels=lab)
+                    _monitor.gauge_add("serve_tenant_queue_ms",
+                                       queue_ms, labels=lab)
+                if seq.cached:
+                    _monitor.stat_add("serve_tenant_prefix_hit_tokens",
+                                      seq.cached, labels=lab)
+            if seq.rt is not None:
+                seq.rt.end("queue", evictions=seq.evictions)
+                kind = ("readmit" if seq.evictions
+                        else "prefix-hit" if seq.cached else "cold")
+                seq.rt.instant("admit", kind=kind, cached=seq.cached,
+                               blocks=len(seq.blocks), slot=seq.slot)
         if not taken:
             return
         # fork each aliased tail block the suffix prefill writes into (a
@@ -864,6 +983,9 @@ class GenerationServer:
             with self._lock:
                 seq.blocks[w] = dst
                 self._cache.unref(src)
+            _monitor.stat_add("serve_cow_forks")
+            _flight.record("serve.cow_fork", rid=seq.rid, src=src, dst=dst,
+                           logical=w)
         groups: Dict[int, List[_GenSeq]] = {}
         for seq in taken:
             groups.setdefault(self._bucket_for(seq.L - seq.cached),
@@ -910,6 +1032,8 @@ class GenerationServer:
             top_k[i] = seq.top_k
             top_p[i] = seq.top_p
             do_sample[i] = seq.do_sample
+            if seq.rt is not None:
+                seq.rt.begin("prefill")
         args = (prompt, start, length, tables, seeds, temp, top_k, top_p,
                 do_sample)
         t0 = time.perf_counter()
@@ -927,10 +1051,16 @@ class GenerationServer:
                 sum(s.L - s.cached for s in seqs))
             self._stats["prefill_tokens_skipped"] += int(
                 sum(s.cached for s in seqs))
+        if _monitor.metrics_enabled():
+            _monitor.hist_observe("prefill_ms", dt_ms)
+        for seq in seqs:
+            if seq.rt is not None:
+                seq.rt.end("prefill", bucket=bucket, batch=len(seqs),
+                           suffix=seq.L - seq.cached)
         for i, seq in enumerate(seqs):
-            self._post_prefill(seq, int(first[i]))
+            self._post_prefill(seq, int(first[i]), bucket)
 
-    def _post_prefill(self, seq: _GenSeq, first: int):
+    def _post_prefill(self, seq: _GenSeq, first: int, bucket: int):
         # a replay-submitted request (generated pre-seeded, no eviction)
         # takes the re-admission path; "readmitted" counts evictions only
         readmit = seq.evictions > 0 or bool(seq.generated)
@@ -940,6 +1070,24 @@ class GenerationServer:
             # index the prompt's full blocks for future sharing (the
             # aliased ones are indexed already; insert is idempotent)
             self._cache.insert(seq.prompt.tolist(), seq.blocks)
+        _monitor.stat_add("serve_gen_admitted")
+        _flight.record("serve.admit", rid=seq.rid, prompt_len=seq.L,
+                       bucket=bucket, blocks=len(seq.blocks), slot=seq.slot,
+                       readmit=readmit, priority=seq.priority,
+                       cached=seq.cached)
+        if seq.cached:
+            _monitor.stat_add("serve_prefix_hits")
+            _monitor.stat_add("serve_prefix_hit_tokens", seq.cached)
+            _flight.record("serve.prefix_hit", rid=seq.rid,
+                           cached_tokens=seq.cached, prompt_len=seq.L)
+        if _monitor.metrics_enabled():
+            _monitor.gauge_set("serve_gen_active", len(self._active))
+            _monitor.gauge_set("serve_gen_free_blocks",
+                               self._cache.available())
+            st = self._cache.stats
+            _monitor.gauge_set("serve_prefix_hit_rate",
+                               st["hit_tokens"]
+                               / max(st["query_tokens"], 1))
         seq.decoded = 0
         seq.draft_decoded = 0
         if readmit:
@@ -960,6 +1108,13 @@ class GenerationServer:
         if seq.t_first_tok is None:
             seq.t_first_tok = time.monotonic()
             seq.stream.ttft_s = seq.t_first_tok - seq.t_submit
+            # one ttft value feeds the histogram and the span lane, so
+            # the two agree exactly
+            ttft_ms = seq.stream.ttft_s * 1e3
+            if _monitor.metrics_enabled():
+                _monitor.hist_observe("serve_ttft_ms", ttft_ms)
+            if seq.rt is not None:
+                seq.rt.instant("first_token", ttft_ms=ttft_ms)
         seq.stream._emit(tok)
         with self._lock:
             self._stats["tokens_generated"] += 1
@@ -970,6 +1125,7 @@ class GenerationServer:
             self._finish(seq, reason)
 
     def _finish(self, seq: _GenSeq, reason: str):
+        withheld = 0
         with self._lock:
             # index the completed full blocks (prompt + generated): the
             # conversation's next turn aliases them
@@ -980,13 +1136,25 @@ class GenerationServer:
                 # future alias stale draft KV (the output stays exact,
                 # the accept rate sinks): withhold the tail, count it
                 valid = seq.L + seq.draft_decoded
-                self._stats["spec_index_withheld_tokens"] += max(
-                    len(toks) - valid, 0)
+                withheld = max(len(toks) - valid, 0)
+                self._stats["spec_index_withheld_tokens"] += withheld
                 toks = toks[:valid]
             self._cache.insert(toks, seq.blocks)
         self._release(seq)
         with self._lock:
             self._stats["finished"] += 1
+        if withheld:
+            _monitor.stat_add("serve_spec_index_withheld_tokens", withheld)
+        _monitor.stat_add("serve_gen_finished")
+        _monitor.stat_add("serve_tokens_out", len(seq.generated))
+        if seq.tenant is not None:
+            _monitor.stat_add("serve_tenant_tokens_out", len(seq.generated),
+                              labels={"tenant": seq.tenant})
+        _flight.record("serve.stream_end", rid=seq.rid, reason=reason,
+                       tokens=len(seq.generated), evictions=seq.evictions)
+        if seq.rt is not None:
+            seq.rt.finish(reason, tokens=len(seq.generated),
+                          evictions=seq.evictions)
         seq.stream._end(reason)
 
     def _release(self, seq: _GenSeq):
@@ -1006,6 +1174,7 @@ class GenerationServer:
         """Block-pool exhaustion: free the victim's blocks and send it
         back to the waiting queue (its generated tokens are kept; re-
         admission re-prefills and replays them)."""
+        freed = len(seq.blocks)
         self._release(seq)
         seq.decoded = 0
         seq.draft_decoded = 0
@@ -1014,6 +1183,14 @@ class GenerationServer:
         with self._lock:
             self._stats["evicted"] += 1
             self._waiting.append(seq)
+        _monitor.stat_add("serve_gen_evicted")
+        _flight.record("serve.evict", rid=seq.rid, reason="pool_exhausted",
+                       freed_blocks=freed, tokens_so_far=len(seq.generated),
+                       priority=seq.priority, evictions=seq.evictions)
+        if seq.rt is not None:
+            seq.rt.instant("evict", tokens=len(seq.generated))
+            seq.rt.begin("queue")   # waiting for re-admission
+        _flight.maybe_dump("BlockPoolExhausted")
 
     def _grow_or_evict(self):
         """Before a decode (or verify) step every live sequence must own
@@ -1079,9 +1256,12 @@ class GenerationServer:
         nxt = self._decode_fn(self._model, self._pools, **a)
         dt_ms = (time.perf_counter() - t0) * 1e3
         replays = 0
+        every = _trace.trace_every()
         for seq in live:
             s = seq.slot
             seq.decoded += 1
+            if seq.rt is not None and seq.decoded % every == 0:
+                seq.rt.span_at("decode", dt_ms, step=seq.decoded)
             j = seq.decoded + 1          # 1-based index produced
             if j <= len(seq.generated):
                 replays += 1             # catching up after eviction
@@ -1094,13 +1274,27 @@ class GenerationServer:
                         "decode is not bit-stable")
             else:
                 self._emit(seq, int(nxt[s]))
-        self._after_step(replays, dt_ms)
+        self._after_step(len(live), replays, dt_ms)
 
-    def _after_step(self, replays: int, dt_ms: float):
+    def _after_step(self, n_live: int, replays: int, dt_ms: float):
         with self._lock:
             self._stats["decode_steps"] += 1
             self._stats["replay_steps"] += replays
             self._stats["decode_ms"] += dt_ms
+            n_steps = self._stats["decode_steps"]
+            free_now = self._cache.available()
+        _flight.progress("serve.decode")
+        if n_steps % _FLIGHT_DECODE_EVERY == 0:
+            _flight.record("serve.decode", steps=n_steps, live=n_live,
+                           free_blocks=free_now, ms=round(dt_ms, 3))
+        if _monitor.metrics_enabled():
+            _monitor.hist_observe("decode_step_ms", dt_ms)
+            _monitor.gauge_set("serve_gen_active", len(self._active))
+            _monitor.gauge_set("serve_gen_free_blocks", free_now)
+        # the gateway's chaos site: a seeded ``kill:gen_step`` plan
+        # SIGKILLs this replica at an exact decode step (no plan: one
+        # call that returns at once)
+        _chaos.maybe_kill_replica()
 
     # -- speculative decode -------------------------------------------
     def _spec_once(self):
@@ -1235,6 +1429,10 @@ class GenerationServer:
             if seq.slot is None:
                 continue            # finished: indexed at its finish
             seq.decoded = min(f0 + valid_fed, len(seq.generated) - 1)
+            if seq.rt is not None \
+                    and seq.decoded % _trace.trace_every() == 0:
+                seq.rt.span_at("decode", dt_ms, step=seq.decoded,
+                               spec=True)
             # draft validity: a fed token counts while it matches the
             # final stream at its index (the draft's KV there is then
             # right)
@@ -1251,4 +1449,16 @@ class GenerationServer:
             self._stats["spec_verify_steps"] += 1
             self._stats["spec_proposed"] += proposed_total
             self._stats["spec_accepted"] += accepted_total
-        self._after_step(replays, dt_ms)
+            n_verify = self._stats["spec_verify_steps"]
+            p_tot = self._stats["spec_proposed"]
+            a_tot = self._stats["spec_accepted"]
+        _monitor.stat_add("serve_spec_proposed", proposed_total)
+        _monitor.stat_add("serve_spec_accepted", accepted_total)
+        if _monitor.metrics_enabled():
+            _monitor.gauge_set("serve_spec_accept_rate",
+                               a_tot / max(p_tot, 1))
+        if n_verify % _FLIGHT_DECODE_EVERY == 1:
+            _flight.record("serve.spec_verify", steps=n_verify,
+                           proposed=proposed_total, accepted=accepted_total,
+                           accept_rate=round(a_tot / max(p_tot, 1), 3))
+        self._after_step(len(live), replays, dt_ms)

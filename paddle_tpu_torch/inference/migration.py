@@ -7,7 +7,8 @@ of the reference's ``inference/migration.py``).
   table points at go into a blob, and the target rebuilds it at fresh
   blocks with the same bytes.  Physical block ids never enter the
   attention math and every pool tensor round-trips through numpy at its
-  own dtype, so the continuation is the one the source would have
+  own dtype (bf16 as its bits, in int16), so the continuation is the one
+  the source would have
   produced: the target's next decode step reads exactly the K/V the
   source would have read.
 - **token replay** (the fallback when the target lacks capacity, the
@@ -46,6 +47,11 @@ class MigrationUnsupported(ServeError):
     the caller falls back to token replay."""
 
 
+def _bits(t):
+    """``t`` as numpy can hold it: bf16 viewed as its int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
 def export_sequence(server, request_id: int) -> Optional[dict]:
     """Serialize one live request off ``server`` and remove it there (its
     stream ends with ``finish_reason="migrated"``).  Returns the blob, or
@@ -80,6 +86,7 @@ def export_sequence(server, request_id: int) -> Optional[dict]:
             "top_p": seq.top_p,
             "seed": int(seq.seed),
             "priority": seq.priority,
+            "tenant": seq.tenant,
             "evictions": seq.evictions,
             "deadline_remaining": max(seq.deadline - time.monotonic(), 0.0),
             "block_size": server._bs,
@@ -90,13 +97,15 @@ def export_sequence(server, request_id: int) -> Optional[dict]:
             # block is recyclable the moment another admission wants it
             idx = torch.as_tensor(seq.blocks, dtype=torch.long,
                                   device=server._device)
-            blob["kv"] = [{k: v[idx].cpu().numpy()
+            blob["kv"] = [{k: _bits(v[idx]).cpu().numpy()
                            for k, v in layer.items()}
                           for layer in server._pools]
             blob["n_blocks"] = len(seq.blocks)
         server._release(seq)
         with server._lock:
             server._stats["migrated_out"] += 1
+        if seq.rt is not None:
+            seq.rt.finish("migrated", tokens=len(seq.generated))
         seq.stream._end("migrated")
         return blob
     return server._run_on_scheduler(_do)
@@ -160,14 +169,17 @@ def import_sequence(server, blob: dict):
         with torch.no_grad():
             for layer, rows in zip(server._pools, kv):
                 for k, v in layer.items():
-                    v[idx] = torch.from_numpy(np.asarray(rows[k])).to(
-                        v.device)
+                    src = torch.from_numpy(np.asarray(rows[k]))
+                    if src.dtype != v.dtype:
+                        src = src.view(v.dtype)   # bf16 shipped as bits
+                    v[idx] = src.to(v.device)
         now = time.monotonic()
         prompt = np.asarray(blob["prompt"], np.int32)
         seq = _GenSeq(rid, prompt, blob["max_new"], blob["eos"],
                       blob["do_sample"], blob["temp"], blob["top_k"],
                       blob["top_p"], int(blob["seed"]), blob["priority"],
-                      arrival, now + float(blob["deadline_remaining"]))
+                      arrival, now + float(blob["deadline_remaining"]),
+                      tenant=blob.get("tenant"))
         seq.generated = list(blob["generated"])
         seq.decoded = int(blob["decoded"])
         seq.evictions = int(blob.get("evictions", 0))

@@ -1,4 +1,4 @@
-"""Int8 paged decode/verify attention: the Hopper kernels and their plain
+"""Int8 paged decode/verify attention: the Hopper kernel and its plain
 version.
 
 Counterpart of ``paddle_tpu/ops/pallas/kv_attention.py`` (kernel 4,
@@ -7,60 +7,47 @@ per-(block, slot) f32 scales [nb, bs]; each sequence's block table row
 maps logical block ``pos // bs`` to a physical pool block.  A slot is
 valid iff ``slot <= position``; a masked slot adds an exact 0.
 
-The CUDA kernel (``csrc/int8_kv_attention.cu``) splits each sequence into
-chunks of ``C = ceil(KV_CHUNK_SLOTS / bs) * bs`` slots (flash-decoding):
-one thread block per (chunk, kv head, sequence) streams its chunk's int8
-blocks through shared memory by TMA, dequantises with the stored scales
-and folds them into an f32 online softmax over the S*R query rows that
-share the kv head; a chunk past the sequence's largest position exits at
-once.  The last live chunk of a (sequence, kv head) merges the chunks'
-partial states in chunk order in the same launch, through a workspace
-the wrapper keeps per device and stream (grown, never shrunk: a steady
-decode step allocates nothing).  C depends on nothing but ``bs``, so a
-sequence's output bits do not depend on the batch it is served in.
-:func:`int8_kv_plan` gives the launch's chunk, tiles, ring, grid,
-shared memory and workspace; it is pure arithmetic.
-
-Every call with more than one query position a sequence (S > 1: a
-speculative verify block, a prefix-sharing suffix prefill of up to
-``max_model_len`` rows) takes the source's second kernel, the many-row
-route (``int8_kv_rows``).  The S*R query rows of a kv head are tiled
-over the grid in 16-row slabs, 1, 2, 4 or 8 a block, so no S is too
-large.  Keys come in 64-slot tiles at fixed absolute slots from slot 0,
-gathered through the table by ``cp.async`` into a ring of int8 tiles
-and converted once a block into exact bf16 codes in shared memory.
-Scores and P.V run on the tensor cores (``mma.sync`` bf16 with f32
-sums): a bf16 query and a code are exact in bf16; an f32 query is split
-into three bf16 pieces and P * v_scale into two, each piece a product
-of its own.  The keys are cut into chunks of ``KV_ROW_CHUNK`` absolute
-slots (four key tiles).  Each chunk's state (m, l, acc) starts fresh,
-and a row's result is its chunks' states folded in chunk order by one
-formula (:func:`_fold`), in the block that computed them or, where a
-verify block's chunks are spread over blocks (``KvRowsPlan.
-chunks_a_block``), in the last of those blocks, read back from a
-workspace (where a block folds them itself, its running acc lives in
-the workspace too).  What bounds it: the bf16 tensor-core rate at a
-prefill, the int8 K/V's bytes at a verify block; it runs latency-bound,
-each part of a tile's chain (the loads, the conversion, the products)
-adding to its time (PERF.md section 6).
-The first fold and the fold of a chunk wholly past a row's
-position are exact identities, and every operation of a row runs in an
-order fixed by the fragment layout alone, so a row's output bits depend
-only on its q, its position and its sequence's blocks -- not on S, the
-suffix's start, the row tile it lands in or the split (a cold prefill,
-a warm suffix prefill and a verify block agree bitwise where they
-overlap).  :func:`int8_kv_plan` picks the route by S alone
-(``KvRowsPlan`` for S > 1), never by whether the rows would fit the
-decode route, and the split from the shape alone.
+Every call, whatever S -- a decode or draft step (S = 1), a speculative
+verify block, a prefix-sharing suffix prefill of up to
+``max_model_len`` rows -- takes one kernel (``csrc/int8_kv_attention.cu``,
+``int8_kv_rows``), so a query row has one arithmetic.  The S*R query
+rows of a kv head are tiled over the grid in 16-row slabs, 1, 2, 4 or 8
+a block, so no S is too large.  Keys come in 64-slot tiles at fixed
+absolute slots from slot 0, gathered through the table by ``cp.async``
+into a ring of int8 tiles and converted once a block into exact bf16
+codes in shared memory.  Scores and P.V run on the tensor cores
+(``mma.sync`` bf16 with f32 sums): a bf16 query and a code are exact in
+bf16; an f32 query is split into three bf16 pieces and P * v_scale into
+two, each piece a product of its own.  The keys are cut into chunks of
+``KV_ROW_CHUNK`` absolute slots (four key tiles).  Each chunk's state
+(m, l, acc) starts fresh, and a row's result is its chunks' states
+folded in chunk order by one formula (:func:`_fold`), in the block that
+computed them or, where a row tile's chunks are spread over blocks
+(``KvRowsPlan.chunks_a_block``: decode steps and verify blocks), in the
+last of those blocks, read back from a workspace the wrapper keeps per
+device and stream (grown, never shrunk: a steady decode step allocates
+nothing; where a block folds its chunks itself, its running acc lives
+in the workspace too).  What bounds it: the bf16 tensor-core rate at a
+prefill, the int8 K/V's bytes at a verify block or a decode step; it
+runs latency-bound, each part of a tile's chain (the loads, the
+conversion, the products) adding to its time (PERF.md section 6).
+The first fold and the fold of a chunk wholly past a row's position are
+exact identities, and every operation of a row runs in an order fixed
+by the fragment layout alone, so a row's output bits depend only on its
+q, its position and its sequence's blocks -- not on S, the batch, the
+suffix's start, the row tile it lands in or the split (a decode step, a
+cold prefill, a warm suffix prefill and a verify block agree bitwise
+where they overlap, and speculative decoding emits what plain decode
+emits).  :func:`int8_kv_plan` gives the launch's tiles, ring, split,
+grid, shared memory and workspace from the shape alone; it is pure
+arithmetic.
 
 :func:`paged_attention_ref` is a line-for-line port of the reference's
 ``paged_attention_ref`` (the gather/dequant/attend path); it is the
-plain version and the oracle.  :func:`paged_attention_split_ref` runs
-the kernel's chunks and chunk-order merge in plain PyTorch, an oracle for
-the split, and :func:`paged_attention_rows_ref` the many-row route's order
-of operations.  Documented tolerance: atol 2e-5 / rtol 1e-4 (the online
-softmax and the merge re-associate the f32 sums; the dequant itself is
-exact).
+plain version and the oracle.  :func:`paged_attention_rows_ref` runs the
+kernel's order of operations in plain PyTorch.  Documented tolerance:
+atol 2e-5 / rtol 1e-4 (the online softmax and the chunk folds
+re-associate the f32 sums; the dequant itself is exact).
 """
 from __future__ import annotations
 
@@ -73,9 +60,8 @@ import torch
 from . import _build, registry
 from .flash_attention import H100_SMS, _sm_count
 
-__all__ = ["paged_attention_ref", "paged_attention_split_ref",
-           "paged_attention_rows_ref", "int8_paged_attention",
-           "int8_kv_plan", "KvPlan", "KvRowsPlan", "KV_CHUNK_SLOTS",
+__all__ = ["paged_attention_ref", "paged_attention_rows_ref",
+           "int8_paged_attention", "int8_kv_plan", "KvRowsPlan",
            "KV_ROW_KEYS", "KV_ROW_CHUNK", "CARD_TOL"]
 
 _SOURCE = "int8_kv_attention.cu"
@@ -87,52 +73,16 @@ _HEAD_DIMS = (64, 128, 256)
 CARD_TOL = {torch.float32: (2e-5, 1e-4, 0.0),
             torch.bfloat16: (1e-4, 8e-3, 0.0)}
 
-# The chunk's slot target C0, chosen on the card from 128, 256 and 512
-# (PERF.md section 6).  A chunk is the whole table blocks that cover it.
-KV_CHUNK_SLOTS = 256
-# The kernel's constants (csrc/int8_kv_attention.cu): slots a tile and a
-# TMA box at most, ring stages and consumer warps at most, the dynamic
-# shared memory a block may have, the blocks an SM its launch bounds ask
-# for, and the shared memory of an SM (each block also takes 1,024 bytes)
-_TILE_SLOTS, _BOX_SLOTS, _MAX_STAGES, _MAX_WARPS = 32, 32, 4, 4
-_SMEM_LIMIT, _BLOCKS_AN_SM, _SM_SMEM = 232_448, 4, 233_472
-# The many-row route's key tile (slots, at absolute slots 64 t ..) and
-# its chunk (slots, at absolute slots 256 c ..: four key tiles)
+# The kernel's dynamic shared memory a block at most, and the shared
+# memory of an SM (each block also takes 1,024 bytes)
+_SMEM_LIMIT, _SM_SMEM = 232_448, 233_472
+# The key tile (slots, at absolute slots 64 t ..) and its chunk (slots, at absolute slots 256 c ..: four key tiles)
 KV_ROW_KEYS, KV_ROW_CHUNK = 64, 256
-_ROW_THREADS = 128   # threads a block of the many-row route
-
-
-class KvPlan(NamedTuple):
-    """How the kernel runs one call."""
-
-    chunk: int          # slots a chunk: ceil(target / bs) * bs
-    chunk_blocks: int   # table blocks a chunk
-    box_slots: int      # slots a TMA box: a block, or 32 slots of one
-    boxes_a_block: int  # boxes a block (1 while bs <= 32)
-    tile_slots: int     # slots a tile (whole boxes, at most 32)
-    tiles: int          # tiles a whole chunk
-    warps: int          # consumer warps (each folds whole tiles)
-    stages: int         # tiles in the shared-memory ring
-    threads: int        # consumer warps and one producer warp
-    smem_bytes: int     # dynamic shared memory a block
-    chunks: int         # chunks a sequence: ceil(M / chunk_blocks)
-    chunks_a_block: int  # consecutive chunks of a sequence one block runs
-    grid: Tuple[int, int, int]   # (chunk groups, kv heads, sequences)
-    ws_floats: int      # f32 partials: B * KH * chunks * S*R * (D + 2)
-    tickets: int        # int32 tickets: B * KH
-
-    @property
-    def route(self) -> str:
-        return "decode"
-
-    def launch(self) -> tuple:
-        """The seven ints the C entry takes."""
-        return (self.chunk, self.warps, self.stages, self.threads,
-                self.smem_bytes, self.chunks, self.chunks_a_block)
+_ROW_THREADS = 128   # threads a block below 8 slabs
 
 
 class KvRowsPlan(NamedTuple):
-    """How the many-row route runs one S > 1 call."""
+    """How the kernel runs one call."""
 
     q_tile: int         # query rows a block: 16 a slab
     warps: int          # 16-row slabs a block, 1, 2, 4 or 8 (a slab's
@@ -197,9 +147,10 @@ def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces,
     row_tiles = -(-SR // qt)
     chunks = -(-(M * bs) // KV_ROW_CHUNK)
     # split the keys only where the row tiles alone leave the card's
-    # resident blocks idle (a verify block): one chunk a block.  A row's
-    # bits do not depend on the split; ``chunks_a_block`` forces it (phase
-    # 36 (a) of chip_smoke.py times the other fold beside the plan's)
+    # resident blocks idle (a decode step, a verify block): one chunk a
+    # block.  A row's bits do not depend on the split; ``chunks_a_block``
+    # forces it (phase 36 (a) of chip_smoke.py times the other fold
+    # beside the plan's)
     items = row_tiles * KH * B
     K = chunks_a_block or (chunks if items >= sm_count * fit else 1)
     groups = -(-chunks // K)
@@ -213,106 +164,34 @@ def _rows_plan(B, S, H, KH, D, bs, M, sm_count, pieces,
         tickets=items if split else 0)
 
 
-def _smem_bytes(D, SR, warps, stages, tile_units, box_slots, scale_row,
-                tile_slots, chunk_blocks):
-    """The kernel's ``layout_of(...).total``: the ring, q, the warps'
-    acc, p rows, slot rows and (m, l), the rows' positions, the chunk's
-    table entries, the barriers and the ticket's verdict, plus 128 bytes
-    to align the base."""
-    stage = 2 * tile_units * box_slots * D + 2 * tile_units * scale_row
-    o = (stages * stage + 4 * SR * D + 4 * warps * SR * D
-         + 12 * warps * tile_slots + 8 * warps * SR + 4 * SR
-         + 4 * chunk_blocks)
-    o = -(-o // 8) * 8 + 16 * stages + 16
-    return o + 128
-
-
 def int8_kv_plan(B: int, S: int, H: int, KH: int, D: int, bs: int, M: int,
                  sm_count: int = H100_SMS, q_dtype=torch.bfloat16):
-    """The launch plan for queries [B, S, H, D] over pools of block size
-    ``bs`` and kv heads ``KH`` through a table of ``M`` blocks a
-    sequence.
-
-    S > 1 takes the many-row route (:class:`KvRowsPlan`), whatever S, H
-    and D: warps own 16-row slabs of the S*R query rows of a kv head (two
-    warps a slab at head_dim 256), 8 slabs a block above 64 rows (256
-    threads), 4 above 32, 2 above 16, else 1 (128 threads; at most 2 at
-    head_dim 256);
+    """The launch plan (:class:`KvRowsPlan`) for queries [B, S, H, D]
+    over pools of block size ``bs`` and kv heads ``KH`` through a table
+    of ``M`` blocks a sequence, whatever S, H and D: warps own 16-row
+    slabs of the S*R query rows of a kv head (two warps a slab at
+    head_dim 256), 8 slabs a block above 64 rows (256 threads), 4 above
+    32, 2 above 16, else 1 (128 threads; at most 2 at head_dim 256);
     64-slot key tiles and 256-slot chunks at fixed absolute slots; the
-    deepest ring (2-4 stages) that keeps a two-stage ring's blocks an SM;
-    a query of ``q_dtype`` float32 in three bf16 pieces, else one.  The
-    keys are split, one chunk a block, where the row tiles alone are
-    fewer than the blocks ``sm_count`` SMs hold at once (a verify block),
-    else a block runs all its row tile's chunks.  Grid (row tiles x chunk
-    groups, KH, B).  No S raises.  The rest describes the decode route
-    (:class:`KvPlan`), which takes S = 1:
+    deepest ring (2-4 stages) that keeps a two-stage ring's blocks an
+    SM; a query of ``q_dtype`` float32 in three bf16 pieces, else one.
+    The keys are split, one chunk a block, where the row tiles alone are
+    fewer than the blocks ``sm_count`` SMs hold at once (decode steps and
+    verify blocks), else a block runs all its row tile's chunks.  Grid
+    (row tiles x chunk groups, KH, B).  No S raises.
 
-    - A chunk is ``ceil(KV_CHUNK_SLOTS / bs)`` whole blocks.
-    - A block runs K consecutive chunks of one (sequence, kv head): 2
-      where the chunks outnumber the blocks resident on ``sm_count`` SMs
-      at once, else 1 (small batches, where the chunks are the card's
-      parallelism).  More would serialise a long sequence behind its own
-      chunks (PERF.md section 6).  The grid is (ceil(chunks / K), KH,
-      B).  Each chunk is computed the same whatever K is.
-    - A TMA box is one block (``bs <= 32``) or 32 slots of one; a tile is
-      as many boxes as fit in 32 slots (at least one).
-    - Four consumer warps and a ring of four tiles, fewer of either where
-      the S*R query rows' state would not fit beside them; a shape that
-      fits with none raises.  The ring is a multiple of the warps, so
-      each stage serves one warp.
-    - The workspace holds one f32 partial (acc, m, l) a (sequence, kv
-      head, chunk) when a sequence can have more than one chunk.
-
-    What fixes the kernel's order of operations (the chunk, tiles, warps)
-    depends on ``bs``, ``D``, ``S * H / KH`` and the target alone, never
-    on B, M or the card.  Pure arithmetic: it runs without a card."""
+    What fixes a row's order of operations (the key tile, the chunk,
+    the fragment layout) depends on nothing but the kernel's constants;
+    the slabs, ring, split and grid follow the shape and the card and
+    change no row's bits.  Pure arithmetic: it runs without a card."""
     if min(B, S, H, KH, M, bs) < 1 or bs % 8 or H % KH or \
             D not in _HEAD_DIMS:
         raise ValueError(
             f"int8_kv_plan: B {B}, S {S}, H {H}, KH {KH}, D {D}, bs {bs}, "
             f"M {M} (needs positive sizes, bs % 8 == 0, H % KH == 0, D in "
             f"{_HEAD_DIMS})")
-    if S > 1:
-        return _rows_plan(B, S, H, KH, D, bs, M, sm_count,
-                          3 if q_dtype == torch.float32 else 1)
-    chunk = -(-KV_CHUNK_SLOTS // bs) * bs
-    cb = chunk // bs
-    bx = min(bs, _BOX_SLOTS)
-    ppb = -(-bs // bx)
-    tu = _TILE_SLOTS // bx
-    ts = tu * bx
-    sp = -(-bx * 4 // 128) * 128
-    tiles = -(-(cb * ppb) // tu)
-    SR = S * (H // KH)
-    # a stage is always refilled for the warp that emptied it (stages a
-    # multiple of the warps, each chunk's tiles padded to one): a warp
-    # waiting on a stage's second fill before its first landed would pass
-    # the parity wait at once
-    top = min(_MAX_STAGES, -(-tiles // _MAX_WARPS) * _MAX_WARPS)
-    cands = [(w, st) for w in (_MAX_WARPS, 2, 1)
-             for st in range(top, 0, -1) if st % w == 0]
-    for warps, stages in cands:
-        smem = _smem_bytes(D, SR, warps, stages, tu, bx, sp, ts, cb)
-        if smem <= _SMEM_LIMIT:
-            break
-    else:
-        raise ValueError(
-            f"int8_kv_attention: {SR} query rows a kv head (S {S}, H {H}, "
-            f"KH {KH}) at head_dim {D}, block size {bs}: their softmax "
-            f"state needs {smem} bytes of shared memory with one warp and "
-            f"one stage, over the {_SMEM_LIMIT} a block has")
-    chunks = -(-M // cb)
-    threads = 32 * (warps + 1)
-    resident = sm_count * max(1, min(_SM_SMEM // (smem + 1024),
-                                     2048 // threads, _BLOCKS_AN_SM))
-    K = 2 if chunks > 1 and chunks * KH * B >= resident else 1
-    return KvPlan(
-        chunk=chunk, chunk_blocks=cb, box_slots=bx, boxes_a_block=ppb,
-        tile_slots=ts, tiles=tiles, warps=warps, stages=stages,
-        threads=threads, smem_bytes=smem, chunks=chunks, chunks_a_block=K,
-        grid=(-(-chunks // K), KH, B),
-        ws_floats=B * KH * chunks * SR * (D + 2) if chunks > 1 else 0,
-        tickets=B * KH)
+    return _rows_plan(B, S, H, KH, D, bs, M, sm_count,
+                      3 if q_dtype == torch.float32 else 1)
 
 
 def paged_attention_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
@@ -346,58 +225,6 @@ def paged_attention_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
 
 
 _NEG = -1e30
-
-
-def paged_attention_split_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
-                              kv_heads, chunk_target=KV_CHUNK_SLOTS):
-    """The kernel's split in plain PyTorch, an oracle for it: each
-    sequence's live chunks (``ceil(chunk_target / bs)`` whole blocks, as
-    ``int8_kv_plan`` cuts them at the default target, up to the block
-    holding its largest position) give (m, l, acc) as the online softmax
-    leaves them (masked scores -1e30, masked p exactly 0), merged in chunk
-    order as M = max m_c, l = sum l_c exp(m_c - M), acc = sum acc_c
-    exp(m_c - M); out = acc / max(l, 1e-30).  A smaller ``chunk_target``
-    puts chunk boundaries inside the short sequences of a test.  Same
-    arguments and result as :func:`paged_attention_ref` (int8 pools with
-    their scales)."""
-    B, S, H, D = qh.shape
-    bs = kpool.shape[1]
-    M = tbl.shape[1]
-    G = kv_heads
-    R = H // G
-    C = -(-chunk_target // bs) * bs
-    cb = C // bs
-    scale = 1.0 / (D ** 0.5)
-    q = qh.reshape(B, S, G, R, D).float()
-    out = torch.empty(B, S, G, R, D, dtype=torch.float32, device=qh.device)
-    for b in range(B):
-        p_b = pos[b].long()
-        n_blocks = min(M, max(0, int(p_b.max())) // bs + 1)
-        parts = []
-        for c in range(-(-n_blocks // cb)):
-            blk = tbl[b, c * cb:min((c + 1) * cb, n_blocks)].long()
-            k = (kpool[blk].float() * kscale[blk][:, :, None, None]
-                 ).reshape(-1, G, D)                       # [T_c, G, D]
-            v = (vpool[blk].float() * vscale[blk][:, :, None, None]
-                 ).reshape(-1, G, D)
-            slot = c * C + torch.arange(k.shape[0], device=qh.device)
-            valid = slot[None, :] <= p_b[:, None]                 # [S, T_c]
-            s = torch.einsum("sgrd,tgd->sgrt", q[b], k) * scale
-            s = torch.where(valid[:, None, None, :], s, _NEG)
-            m = s.amax(dim=-1)                                    # [S, G, R]
-            p = torch.where(valid[:, None, None, :],
-                            torch.exp(s - m[..., None]), 0.0)
-            parts.append((m, p.sum(dim=-1),
-                          torch.einsum("sgrt,tgd->sgrd", p, v)))
-        m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-        l = torch.zeros_like(m_all)
-        acc = torch.zeros_like(out[b])
-        for m, l_c, acc_c in parts:           # in chunk order
-            f = torch.exp(m - m_all)
-            l = l + l_c * f
-            acc = acc + acc_c * f[..., None]
-        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(qh.dtype)
 
 
 def _bf16_pieces(x, n):
@@ -445,8 +272,8 @@ def _fold(M, L, A, m, l, acc):
 
 def paged_attention_rows_ref(qh, kpool, vpool, kscale, vscale, tbl, pos,
                              kv_heads):
-    """The many-row route's order of operations in plain PyTorch, an
-    oracle for it (S > 1 calls).  Every query row walks its sequence's
+    """The kernel's order of operations in plain PyTorch, an oracle for
+    it (every S).  Every query row walks its sequence's
     keys in chunks of ``KV_ROW_CHUNK`` absolute slots, each folded from a
     fresh state over its 64-slot key tiles:
 
@@ -602,6 +429,10 @@ def _on_16_bytes(t):
 
 
 def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
+    """Launch the kernel; a plan with more than one chunk takes the
+    stream's workspace (chunk states and tickets where it splits, else
+    running accs).  Launches count by call: ``decode`` (S = 1) and
+    ``rows`` (S > 1), one arithmetic."""
     B, S, H, D = qh.shape
     nb, bs, KH, _ = kpool.shape
     M = tbl.shape[1]
@@ -613,40 +444,14 @@ def _int8_kv_cuda(qh, kpool, vpool, kscale, vscale, tbl, pos, kv_heads):
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((B, S, H, D), dtype=qh.dtype, device=qh.device)
-    lib = _build.load(_SOURCE)
-    if plan.route == "rows":
-        return _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale,
-                          tbl, pos, out)
-    fn = lib.int8_kv_attention
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 4
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    dev = qh.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ws, tickets = _workspace(dev, stream, plan.ws_floats, plan.tickets)
-        rc = fn(qh.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-                kscale.data_ptr(), vscale.data_ptr(), tbl.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                tickets.data_ptr(), B, S, H, KH, D, bs, M, nb,
-                qh.stride(0), qh.stride(1), qh.stride(2), ints,
-                1.0 / (D ** 0.5), int(qh.dtype == torch.bfloat16), stream)
-    if rc:
-        _build.check(lib, rc, f"int8_kv_attention q={tuple(qh.shape)} "
-                              f"pool={tuple(kpool.shape)} "
-                              f"table={tuple(tbl.shape)} {plan}")
-    registry.note_launch(_SPEC, "decode")
-    return out.view(B, S, KH, H // KH, D)
+    return _rows_cuda(_build.load(_SOURCE), plan, ints, qh, kpool, vpool,
+                      kscale, vscale, tbl, pos, out)
 
 
 def _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale, tbl, pos,
                out):
-    """Launch the many-row route (S > 1); a plan with more than one chunk
-    takes the stream's workspace (chunk states and tickets where it
-    splits, else running accs)."""
+    """Launch ``plan`` on prepared tensors (contiguous int32 table and
+    positions, pools on 16 bytes) into ``out``."""
     B, S, H, D = qh.shape
     nb, bs, KH, _ = kpool.shape
     fn = lib.int8_kv_attention_rows
@@ -675,7 +480,7 @@ def _rows_cuda(lib, plan, ints, qh, kpool, vpool, kscale, vscale, tbl, pos,
         _build.check(lib, rc, f"int8_kv_attention_rows q={tuple(qh.shape)} "
                               f"pool={tuple(kpool.shape)} "
                               f"table={tuple(tbl.shape)} {plan}")
-    registry.note_launch(_SPEC, "rows")
+    registry.note_launch(_SPEC, "decode" if S == 1 else "rows")
     return out.view(B, S, KH, H // KH, D)
 
 
@@ -687,14 +492,13 @@ _SPEC = registry.register(
     eligible=_eligible,
     source="paddle_tpu_torch/ops/kernels/csrc/int8_kv_attention.cu",
     replaces="paddle_tpu/ops/pallas/kv_attention.py:84",
-    doc="paged decode/verify attention reading int8 KV pools once: "
-        "S = 1 splits sequences into fixed chunks loaded by TMA, "
-        "per-(block,slot) scales applied inside the table-driven gather, "
-        "online softmax, chunks merged in order in the same launch; S > 1 "
-        "tiles the query rows over the grid against 64-slot key tiles at "
-        "fixed absolute slots, scores and P.V on the tensor cores, 256-slot "
-        "chunks folded in order (split over blocks for verify blocks) "
-        "(launches by route: decode, rows)",
+    doc="paged decode/verify attention reading int8 KV pools once, one "
+        "arithmetic for every S: the query rows tiled over the grid "
+        "against 64-slot key tiles at fixed absolute slots gathered "
+        "through the table, per-(block,slot) scales, scores and P.V on "
+        "the tensor cores, 256-slot chunks folded in order (split over "
+        "blocks for decode steps and verify blocks) (launches by call: "
+        "decode for S = 1, rows for S > 1)",
 )
 
 

@@ -136,10 +136,12 @@ def _rows(fn, x, min_rows):
     """``fn`` over the rows of ``x`` [..., F], issued with at least
     ``min_rows`` rows (zero rows appended, their results dropped).  A
     GEMM library picks its algorithm by the row count, and some (split
-    K, GEMV) sum a row in another order, so the same row can get other
-    bits in a call of another size; with a floor on the rows every call
-    of a server runs the algorithms of large calls.  ``None``: ``fn(x)``
-    as it is."""
+    K, GEMV) sum a row in another order, and so does a reduction over
+    the last dim (an RMS norm's mean of squares: with few rows PyTorch
+    splits a row over more threads), so the same row can get other bits
+    in a call of another size; with a floor on the rows every call of a
+    server runs the algorithms of large calls.  ``None``: ``fn(x)`` as it
+    is."""
     if not min_rows:
         return fn(x)
     flat = x.reshape(-1, x.shape[-1])
@@ -276,7 +278,7 @@ class LlamaAttention(nn.Module):
         prefills).  ``mode`` forwards to the kernel dispatch
         (``"torch_ref"`` runs the plain versions, for comparisons);
         ``min_rows`` floors the rows of each projection (see
-        :func:`_rows`)."""
+        :func:`_rows`); the decoder layer floors its norms too."""
         c = self.config
         q = _rows(self.q_proj, hidden, min_rows)
         k = _rows(self.k_proj, hidden, min_rows)
@@ -374,12 +376,12 @@ class LlamaDecoderLayer(nn.Module):
                       write_mask, verify_mode: bool = False, mode=None,
                       min_rows=None):
         attn_out, cache = self.self_attn.forward_paged(
-            self.input_layernorm(hidden), positions, cache, block_tables,
-            write_mask, verify_mode=verify_mode, mode=mode,
+            _rows(self.input_layernorm, hidden, min_rows), positions, cache,
+            block_tables, write_mask, verify_mode=verify_mode, mode=mode,
             min_rows=min_rows)
         h = hidden + attn_out
-        return h + _rows(self.mlp, self.post_attention_layernorm(h),
-                         min_rows), cache
+        return h + _rows(self.mlp, _rows(self.post_attention_layernorm, h,
+                                         min_rows), min_rows), cache
 
 
 class StackedLlamaDecoder(nn.Module):
@@ -505,7 +507,7 @@ class LlamaModel(nn.Module):
                                             block_tables, write_mask,
                                             verify_mode=verify_mode,
                                             mode=mode, min_rows=min_rows)
-        return self.norm(hidden), pools
+        return _rows(self.norm, hidden, min_rows), pools
 
 
 class LlamaForCausalLM(nn.Module):
@@ -623,10 +625,9 @@ class LlamaForCausalLM(nn.Module):
         in place).  With ``gather_at`` [B] the hidden states are taken
         at those positions before the vocab projection, so a prefill
         pays for a [B, 1, V] projection, not [B, S, V].  ``min_rows``
-        floors the rows of every projection and of the head (see
-        :func:`_rows`): a prefix-sharing or speculative server passes it
-        so a position's bits do not depend on the size of the call that
-        computes it."""
+        floors the rows of every projection, every norm and the head (see
+        :func:`_rows`): a server passes it so a position's bits do not
+        depend on the size of the call that computes it."""
         hidden, pools = self.model.forward_paged(
             input_ids, positions, pools, block_tables, write_mask,
             verify_mode=verify_mode, mode=mode, min_rows=min_rows)

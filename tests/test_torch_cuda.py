@@ -137,15 +137,12 @@ def _kv_batch(seed, last, S, G, R, D, bs, M, dt, dev, nb=None):
 
 @pytest.mark.cuda
 def test_int8_kv_chunks_match_plain_on_card():
-    """The split kernel (the decode route, S = 1) at chunk boundaries: a
-    sequence of exactly one chunk, one a slot past it, three full chunks,
-    an idle slot; GQA; every head dim, both dtypes, block sizes 16, 8 (32
-    blocks a chunk) and 72 (two TMA boxes a block).  Within CARD_TOL of
-    the plain version and of the split oracle, and bitwise equal on a
-    rerun.  The same batches as verify blocks of 3 (a first row before
-    the second chunk) take the many-row route, within CARD_TOL of both
-    oracles too; so does a block of 64 query rows a kv head at head_dim
-    256, which the decode route could hold only with one warp."""
+    """Kernel 4 at S = 1 (decode steps) and S = 3 (verify blocks) at
+    256-slot chunk boundaries: a sequence of exactly one chunk, one a
+    slot past it, a full table, an idle slot; GQA; every head dim, both
+    dtypes, block sizes 16, 8 and 72.  Within CARD_TOL of the plain
+    version and bitwise equal on a rerun; so does a block of 64 query
+    rows a kv head at head_dim 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
                     "chip_smoke.py runs this at the serving shapes")
@@ -157,22 +154,19 @@ def test_int8_kv_chunks_match_plain_on_card():
     cases += [(128, torch.float32, 8, 80), (64, torch.bfloat16, 72, 9)]
     for D, dt, bs, M in cases:
         T = bs * M
-        C = kva.int8_kv_plan(4, 1, 4, 2, D, bs, M).chunk
+        C = kva.KV_ROW_CHUNK
         for S in (1, 3):
-            assert kva.int8_kv_plan(4, S, 4, 2, D, bs, M).route == (
-                "decode" if S == 1 else "rows")
+            assert kva.int8_kv_plan(4, S, 4, 2, D, bs, M).route == "rows"
             args, G = _kv_batch(30 + D + bs, [C - 1, C + 1, T - 1, -1], S,
                                 2, 2, D, bs, M, dt, dev)
             got = kva.int8_paged_attention(*args, G)
             again = kva.int8_paged_attention(*args, G)
             ref = kva.int8_paged_attention(*args, G, mode="torch_ref")
-            split = kva.paged_attention_split_ref(*args, G)
             torch.cuda.synchronize()
             runs += 2
             assert bool(torch.isfinite(got.float()).all()), (D, dt, bs, S)
             assert torch.equal(got, again), (D, dt, bs, S)
             _assert_within(got, ref, kva.CARD_TOL[dt])
-            _assert_within(got, split, kva.CARD_TOL[dt])
     # 64 query rows a kv head at head_dim 256
     args, G = _kv_batch(60, [255, 300, 639], 8, 2, 8, 256, 16, 40,
                         torch.float32, dev)
@@ -186,6 +180,96 @@ def test_int8_kv_chunks_match_plain_on_card():
     assert torch.equal(got, again)
     _assert_within(got, ref, kva.CARD_TOL[torch.float32])
     assert registry.launch_counts()["int8_kv_attention"] == runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_int8_kv_s1_rows_are_their_verify_rows_on_card(D, dt):
+    """The invariant speculative decoding rests on: a decode step's row
+    (S = 1) is bitwise the row at the same position of a verify block
+    of S = k + 1 (k = 1, 4, 7), whichever of the block's rows it is, at
+    short and long sequences (one chunk; several, split over blocks) and
+    at batch 1 and 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    bs, M = 16, 48
+    for B, last in ((8, [700, 40, 255, 256, 300, 17, 600, 760]),
+                    (1, [500])):
+        for S in (2, 5, 8):
+            args, G = _kv_batch(90 + D + S, last, S, 2, 2, D, bs, M, dt,
+                                dev)
+            qh, kp, vp, ks, vs, tbl, pos = args
+            block = kva.int8_paged_attention(*args, G)
+            for j in range(S):
+                one = kva.int8_paged_attention(
+                    qh[:, j:j + 1].clone(), kp, vp, ks, vs, tbl,
+                    pos[:, j:j + 1].clone(), G)
+                torch.cuda.synchronize()
+                assert torch.equal(one[:, 0], block[:, j]), (B, S, j)
+
+
+def _card_llama(seed, layers=2):
+    from paddle_tpu_torch.text.models import LlamaForCausalLM, llama_tiny
+    dev = torch.device("cuda")
+    m = LlamaForCausalLM(
+        llama_tiny(vocab_size=512, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=layers, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=512,
+                   kv_cache_dtype="int8", initializer_range=0.1),
+        device=dev, dtype="bfloat16",
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    m.eval()
+    return m
+
+
+def _card_streams(model, draft, prefix, sample, **kw):
+    from paddle_tpu_torch.inference import GenerationServer
+    rng = np.random.default_rng(7)
+    system = rng.integers(1, 512, 40)
+    prompts = [np.concatenate([system, rng.integers(1, 512, n)]).astype(
+        np.int32) for n in (3, 17, 60, 101, 9, 33)]
+    srv = GenerationServer(model, num_slots=4, block_size=16,
+                           max_model_len=256, max_prefill_batch=2,
+                           prefix_cache=prefix, draft_model=draft,
+                           check_replay=True, request_timeout_s=300.0,
+                           **kw).start()
+    try:
+        outs = []
+        for _ in range(2):                       # cold, then warm
+            streams = [srv.submit(
+                p, max_new_tokens=40, seed=100 + i,
+                **({"do_sample": True, "temperature": 0.9, "top_k": 8}
+                   if sample else {})) for i, p in enumerate(prompts)]
+            outs.append([s.result(timeout=300) for s in streams])
+        return outs, srv.stats()
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("sample", [False, True])
+def test_speculative_server_is_plain_decode_on_card(prefix, sample):
+    """The reference's contract (``tests/test_spec_decode.py``) on the
+    card: a speculative server's greedy and seeded-sampling streams are
+    those of the same server without a draft, token for token, with
+    prefix sharing on and off; with the target as its own draft every
+    proposal is accepted (accept rate exactly 1.0); a one-layer draft of
+    other weights changes the accept rate, never a token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    target, other = _card_llama(3), _card_llama(4, layers=1)
+    plain, _ = _card_streams(target, None, prefix, sample)
+    assert plain[0] == plain[1]
+    same, st = _card_streams(target, target, prefix, sample, spec_k=4)
+    assert same == plain
+    assert st["spec_accept_rate"] == 1.0 and st["spec_proposed"] > 0
+    assert st["spec_verify_steps"] < st["tokens_generated"]
+    diff, st2 = _card_streams(target, other, prefix, sample, spec_k=3)
+    assert diff == plain
+    assert st2["spec_accept_rate"] < 1.0
 
 
 @pytest.mark.cuda

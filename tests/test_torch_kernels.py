@@ -807,6 +807,18 @@ def test_segment_sum_plain_integer_grads_bitwise_jax(inv_type):
                                              8)))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test whose plain version is a loop of
+    tiny torch ops: in a parallel run their parallel regions spin
+    against the other test processes (the same sums, in the same order)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("n,dim,nseg", [(1, 16, 1), (50, 13, 64), (0, 4, 3),
                                         (300, 16, 8)])
 def test_segment_sum_plain_adds_in_row_order(n, dim, nseg):
@@ -985,6 +997,7 @@ def _plain_cases():
 _PLAIN_CASES = _plain_cases()
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kernel", [7, 8])
 @pytest.mark.parametrize("case", range(len(_PLAIN_CASES)),
                          ids=[c[0] for c in _PLAIN_CASES])

@@ -1,28 +1,25 @@
-"""Kernel 4's split (flash-decoding) and many-row route in plain PyTorch,
-and their launch plans.
+"""Kernel 4 (int8 paged attention) in plain PyTorch, and its launch
+plan.
 
-``paged_attention_split_ref`` runs the CUDA kernel's chunks and its
-chunk-order merge.  Here it is held to the reference's Pallas kernel
+Every call, S = 1 (decode and draft steps) or S > 1 (verify blocks,
+prefix-sharing suffix prefills), takes one CUDA kernel with one
+arithmetic, whose order of operations ``paged_attention_rows_ref``
+models: 256-slot chunks, each folded from a fresh state over 64-slot key
+tiles at fixed absolute slots, then folded in chunk order; the query's
+and p * v_scale's bf16 pieces as f32 sums of their products; the quad
+lanes' order of sums.  Here it is held to the reference's Pallas kernel
 (``_int8_kv_attn_kernel``, interpret mode) and to the reference's XLA
-``paged_attention_ref`` at the registered tolerance, atol 2e-5 / rtol
-1e-4, on the cases the split makes hard: a chunk boundary inside a
-sequence, sequences of one chunk and of several, a verify row whose
-position lies before a live chunk, idle trash rows, GQA, every head dim.
-``int8_kv_plan`` is pure arithmetic, and the launcher is checked with a
-recording library in place of the CUDA one.  The kernel itself runs only
-on the card (``tests/test_torch_cuda.py``, marked ``cuda``).
-
-S > 1 calls (verify blocks, prefix-sharing suffix prefills) take the
-many-row route: ``paged_attention_rows_ref`` models its order of
-operations (256-slot chunks, each folded from a fresh state over 64-slot
-key tiles at fixed absolute slots, then folded in chunk order; the
-query's and p * v_scale's bf16 pieces as f32 sums of their products; the
-quad lanes' order of sums) and is held to the Pallas kernel in interpret
-mode within ``CARD_TOL[f32]``, rows crossing chunk boundaries and verify
-blocks whose plan splits the keys over blocks included; a row's bits do
-not depend on S.  The split is picked from the shape alone, and the
-S = 1 plan is compared field by field with the plan the decode route had
-before the many-row route existed.
+``paged_attention_ref`` within ``CARD_TOL[f32]`` on the cases the
+chunks make hard -- a chunk boundary inside a sequence, sequences of one
+chunk and of several, a verify row whose position lies before a live
+chunk, idle trash rows, GQA, every head dim, decode steps among them --
+and a row's bits are held not to depend on S, on the batch or on the
+table's width: a decode step's row is bitwise the same row of a verify
+block.  ``int8_kv_plan`` is pure arithmetic (the S = 1 plan is checked
+field by field at the 7B decode and the serving shapes), and the
+launcher is checked with a recording library in place of the CUDA one.
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
+marked ``cuda``).
 """
 import contextlib
 import importlib
@@ -40,6 +37,18 @@ from paddle_tpu_torch.ops.kernels import kv_attention as kva
 jkv = importlib.import_module("paddle_tpu.ops.pallas.kv_attention")
 
 ATOL, RTOL = 2e-5, 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain models here are loops of tiny torch ops: one intra-op
+    thread keeps them from spinning against the other test processes of
+    a parallel run (each op's parallel region waits on descheduled
+    threads), without changing what they compute."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _case(seed, last, S, G, R, D, bs, M):
@@ -63,156 +72,159 @@ def _case(seed, last, S, G, R, D, bs, M):
     return [qh, kpool, vpool, ks, vs, tbl, pos], G
 
 
-# (last positions, S, G, R, D, bs, M, chunk target): with bs 8 and a
-# target of 16 a chunk is two blocks, 16 slots
-_SPLIT_CASES = {
-    "boundary_inside_a_sequence": ([20, 40], 1, 2, 2, 64, 8, 6, 16),
-    "one_chunk_and_several": ([15, 47], 1, 2, 2, 64, 8, 6, 16),
-    "verify_row_masked_in_a_live_chunk": ([16, 33], 3, 2, 1, 64, 8, 6, 16),
-    "trash_rows": ([30, -1, -1], 3, 2, 2, 64, 8, 6, 16),
-    "gqa_r4": ([23, 9], 1, 1, 4, 64, 8, 5, 16),
-    "d128": ([40, 17], 2, 2, 2, 128, 16, 4, 32),
-    "d256": ([25, 3], 1, 1, 2, 256, 8, 4, 24),
-    "chunk_target_not_a_multiple": ([44, 30], 2, 2, 1, 64, 24, 2, 40),
+# (last positions, S, G, R, D, bs, M): decode steps (S = 1) and short
+# verify blocks over a few blocks of 8 or 16 slots; the second
+# sequence's rows and the first's reach past a 256-slot chunk where
+# their positions do
+_DECODE_CASES = {
+    "boundary_inside_a_sequence": ([260, 40], 1, 2, 2, 64, 8, 36),
+    "one_chunk_and_several": ([15, 530], 1, 2, 2, 64, 8, 70),
+    "verify_row_masked_in_a_live_chunk": ([256, 33], 3, 2, 1, 64, 8, 36),
+    "trash_rows": ([30, -1, -1], 1, 2, 2, 64, 8, 6),
+    "gqa_r4": ([23, 9], 1, 1, 4, 64, 8, 5),
+    "d128": ([300, 17], 1, 2, 2, 128, 16, 20),
+    "d256": ([25, 3], 1, 1, 2, 256, 8, 4),
+    "bs_40": ([44, 30], 2, 2, 1, 64, 40, 2),
 }
 
 
-@pytest.mark.parametrize("name", sorted(_SPLIT_CASES))
-def test_split_ref_matches_jax(name):
-    last, S, G, R, D, bs, M, target = _SPLIT_CASES[name]
+@pytest.mark.parametrize("name", sorted(_DECODE_CASES))
+def test_rows_ref_matches_jax_at_decode_shapes(name):
+    last, S, G, R, D, bs, M = _DECODE_CASES[name]
     args, G = _case(3, last, S, G, R, D, bs, M)
     jargs = [jnp.asarray(a) for a in args]
     ker = np.asarray(jkv.int8_paged_attention(*jargs, G, interpret=True))
     xref = np.asarray(jkv.paged_attention_ref(*jargs, G))
-    got = kva.paged_attention_split_ref(*[torch.from_numpy(a) for a in args],
-                                        G, chunk_target=target)
+    got = kva.paged_attention_rows_ref(*[torch.from_numpy(a) for a in args],
+                                       G)
+    atol, rtol, _ = kva.CARD_TOL[torch.float32]
     assert got.shape == ker.shape
     assert np.isfinite(got.numpy()).all()
-    np.testing.assert_allclose(got.numpy(), ker, atol=ATOL, rtol=RTOL)
-    np.testing.assert_allclose(got.numpy(), xref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), ker, atol=atol, rtol=rtol)
+    np.testing.assert_allclose(got.numpy(), xref, atol=atol, rtol=rtol)
 
 
-def test_split_ref_splits_where_the_plan_does(monkeypatch):
-    """The oracle's chunks are the plan's: with a target below one block
-    a chunk is one block, and the result still agrees with the unsplit
-    plain version."""
-    args, G = _case(4, [31, 12], 1, 2, 2, 64, 8, 4)
-    t = [torch.from_numpy(a) for a in args]
-    monkeypatch.setattr(kva, "KV_CHUNK_SLOTS", 3)
-    assert kva.int8_kv_plan(2, 1, 4, 2, 64, 8, 4).chunk == 8
-    got = kva.paged_attention_split_ref(*t, G, chunk_target=3)
-    ref = kva.paged_attention_ref(*t, G)
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL,
-                               rtol=RTOL)
-
-
-def test_split_ref_is_batch_invariant():
+def test_rows_ref_is_batch_invariant():
     """A sequence's result does not depend on its batch or on the table's
     width: alone through a table just wide enough, it is bitwise equal to
-    its row inside the batch."""
-    args, G = _case(5, [60, 17, 33], 2, 2, 2, 64, 8, 10)
+    its row inside the batch, at S = 1 and S = 2."""
+    for S in (1, 2):
+        args, G = _case(5, [300, 17, 33], S, 2, 2, 64, 8, 40)
+        t = [torch.from_numpy(a) for a in args]
+        full = kva.paged_attention_rows_ref(*t, G)
+        for i, m in ((0, 38), (1, 3), (2, 5)):
+            alone = kva.paged_attention_rows_ref(
+                t[0][i:i + 1], t[1], t[2], t[3], t[4], t[5][i:i + 1, :m],
+                t[6][i:i + 1], G)
+            assert torch.equal(alone[0], full[i]), (S, i)
+
+
+# (last position, G, R, D, bs, M): a decode step's row and the same
+# position inside a verify block of 5 (as the row's first, middle or
+# last position) must have the same bits
+_S1_IN_BLOCK = {
+    "7b_like_r1_bf16": (300, 2, 1, 128, 16, 24, torch.bfloat16),
+    "gqa_r4_f32": (530, 1, 4, 64, 8, 70, torch.float32),
+    "d256_f32": (70, 1, 2, 256, 16, 6, torch.float32),
+    "first_chunk_only_bf16": (40, 2, 2, 64, 8, 8, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_S1_IN_BLOCK))
+def test_rows_ref_s1_row_is_its_row_in_a_verify_block(name):
+    """The repaired fault's contract in the model: a row computed alone
+    (S = 1, a decode or draft step) is bitwise the row at that position
+    of an S = 5 verify block (the verify block's rows at other positions
+    change nothing).  The kernel takes every S through one plan family,
+    so the card holds the same (``tests/test_torch_cuda.py``)."""
+    last, G, R, D, bs, M, dt = _S1_IN_BLOCK[name]
+    args, G = _case(13, [last, last - 7], 5, G, R, D, bs, M)
     t = [torch.from_numpy(a) for a in args]
-    full = kva.paged_attention_split_ref(*t, G, chunk_target=16)
-    for i, m in ((0, 8), (1, 3), (2, 5)):
-        alone = kva.paged_attention_split_ref(
-            t[0][i:i + 1], t[1], t[2], t[3], t[4], t[5][i:i + 1, :m],
-            t[6][i:i + 1], G, chunk_target=16)
-        assert torch.equal(alone[0], full[i])
+    t[0] = t[0].to(dt)
+    block = kva.paged_attention_rows_ref(*t, G)
+    for j in range(5):
+        one = kva.paged_attention_rows_ref(
+            t[0][:, j:j + 1].clone(), *t[1:6], t[6][:, j:j + 1].clone(), G)
+        assert torch.equal(one[:, 0], block[:, j]), (name, j)
+        assert kva.int8_kv_plan(2, 1, G * R, G, D, bs, M,
+                                q_dtype=dt).route == "rows"
 
 
 # ---------------------------------------------------------------------
 # the launch plan
 # ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("target", [128, 256, 512])
+@pytest.mark.parametrize("R", [1, 4, 8])
 @pytest.mark.parametrize("bs", [8, 16, 24, 40, 64, 72, 128, 256])
-def test_plan_chunk_is_whole_blocks(bs, target, monkeypatch):
-    """At each chunk target the constant was chosen from."""
-    B, S, H, KH, D, M = 3, 1, 8, 4, 128, 50
-    monkeypatch.setattr(kva, "KV_CHUNK_SLOTS", target)
-    p = kva.int8_kv_plan(B, S, H, KH, D, bs, M)
-    assert p.chunk % bs == 0 and target <= p.chunk < target + bs
-    assert p.chunk_blocks == p.chunk // bs
-    assert p.chunks == -(-M // p.chunk_blocks)
-    assert p.grid == (-(-p.chunks // p.chunks_a_block), KH, B)
-    assert p.box_slots == min(bs, 32)
-    assert p.boxes_a_block * p.box_slots >= bs
-    assert p.tile_slots <= 32 and p.tile_slots % p.box_slots == 0
-    assert p.tiles * p.tile_slots >= p.chunk_blocks * p.boxes_a_block \
-        * p.box_slots
-    # a stage always serves one warp
-    assert 1 <= p.stages <= 4 and 1 <= p.warps <= 4
-    assert p.stages % p.warps == 0
-    assert p.threads == 32 * (p.warps + 1)
-    assert p.smem_bytes <= 232_448
-    SR = S * H // KH
-    want = B * KH * p.chunks * SR * (D + 2) if p.chunks > 1 else 0
-    assert (p.ws_floats, p.tickets) == (want, B * KH)
-    assert p.launch() == (p.chunk, p.warps, p.stages, p.threads,
-                          p.smem_bytes, p.chunks, p.chunks_a_block)
+def test_s1_plan_takes_the_rows_kernel(bs, R):
+    """S = 1 plans the one kernel every S takes (the card plan is pure
+    Python): one 16-row slab (R live rows), 64-slot key tiles and
+    256-slot chunks whatever the block size, the table's slots cut into
+    ceil(M bs / 256) chunks; the same plan as the rows of an S > 1 call
+    of R rows or fewer a kv head, and the keys split one chunk a block
+    where the row tiles leave the card idle."""
+    B, H, KH, D, M = 3, 8 * R, 8, 128, 50
+    for dt in (torch.bfloat16, torch.float32):
+        p = kva.int8_kv_plan(B, 1, H, KH, D, bs, M, q_dtype=dt)
+        assert isinstance(p, kva.KvRowsPlan) and p.route == "rows"
+        assert (p.q_tile, p.warps, p.key_tile, p.chunk) == (16, 1, 64, 256)
+        assert p.chunks == -(-(M * bs) // 256)
+        assert p.chunks_a_block == 1 and p.grid == (p.chunks, KH, B)
+        assert p.tickets == B * KH
+        assert p.ws_floats == B * KH * p.chunks * 16 * (D + 2)
+        if R == 1:
+            block = kva.int8_kv_plan(B, 16, H, KH, D, bs, M, q_dtype=dt)
+            assert block._replace(grid=None) == p._replace(grid=None)
 
 
 def test_plan_at_the_7b_decode():
     """B 8, one query, 32 heads and kv heads, head_dim 128, bs 16, a
-    2,048-token table: 8 chunks of 16 blocks, two a block (the 2,048
-    chunks outnumber the 4 x 132 resident blocks); eight 32-slot tiles
-    each through a four-stage ring, four consumer warps (each stage
-    serves one warp); the shared memory counted by hand from the
-    kernel's layout.  At batch 1 a block runs one chunk."""
+    2,048-token table: one 16-row slab a block (one live row), a
+    two-stage ring, 69,136 bytes (three blocks an SM), the keys split
+    one 256-slot chunk a block (the 256 row tiles are fewer than the
+    396 blocks three an SM fill) over chunk states and a ticket a row
+    tile: the plan of the 7B's verify block but for nothing.  At batch 1
+    likewise, over 32 row tiles."""
     p = kva.int8_kv_plan(8, 1, 32, 32, 128, 16, 128)
-    assert kva.KV_CHUNK_SLOTS == 256
-    assert (p.chunk, p.chunk_blocks, p.box_slots, p.tile_slots, p.tiles) \
-        == (256, 16, 16, 32, 8)
-    assert (p.warps, p.stages, p.threads) == (4, 4, 160)
-    assert (p.chunks, p.chunks_a_block, p.grid) == (8, 2, (4, 32, 8))
-    ring = 4 * (2 * 32 * 128 + 2 * 2 * 128)      # K, V, 2 scale rows a side
-    rest = (4 * 128 + 4 * 4 * 128 + 4 * 4 * 32 + 4 * 2 * 4 * 32 + 8 * 4
-            + 4 + 4 * 16)       # q, acc, p rows, slot rows, (m, l), ...
-    aligned = -(-(ring + rest) // 8) * 8            # the barriers' 8 bytes
-    assert p.smem_bytes == aligned + 4 * 16 + 16 + 128 == 39224
-    assert (p.ws_floats, p.tickets) == (8 * 32 * 8 * 130, 256)
+    verify = kva.int8_kv_plan(8, 5, 32, 32, 128, 16, 128)
+    assert p == verify
+    assert (p.q_tile, p.warps, p.stages, p.threads) == (16, 1, 2, 128)
+    assert p.smem_bytes == 2 * (2 * 64 * 128 + 8 * 64) \
+        + 4 * 64 * (128 + 8) + 8 * 64 + 16 == 69_136
+    assert (p.chunks, p.chunks_a_block, p.grid) == (8, 1, (8, 32, 8))
+    assert (p.ws_floats, p.tickets) == (8 * 32 * 8 * 16 * 130, 256)
     one = kva.int8_kv_plan(1, 1, 32, 32, 128, 16, 128)
-    assert (one.chunks_a_block, one.grid) == (1, (8, 32, 1))
+    assert (one.chunks_a_block, one.grid, one.tickets) == (1, (8, 32, 1),
+                                                           32)
 
 
 @pytest.mark.parametrize("S,H,KH,D", [(1, 32, 32, 128), (4, 32, 8, 128),
                                       (3, 8, 2, 256), (1, 8, 8, 64)])
 def test_plan_of_a_sequence_ignores_batch_and_table_width(S, H, KH, D):
     """Only the chunk count, the chunks a block, the grid and the
-    workspace follow B, M and the card: the chunk, tiles, warps and ring
-    (which fix the kernel's order of operations) do not, so a sequence's
-    bits do not depend on its batch.  The many-row route (S > 1) follows
-    B, M and the card in the same fields alone (its tiles, chunk, warps
-    and ring do not)."""
+    workspace follow B, M and the card: the tiles, chunk, slabs and ring
+    do not (and no field changes a row's bits)."""
     plans = [kva.int8_kv_plan(B, S, H, KH, D, 16, M, sm_count=sms)
              for B, M, sms in ((1, 9, 132), (8, 128, 132), (33, 300, 66))]
-    if S > 1:
-        assert {p.route for p in plans} == {"rows"}
-        assert len({p._replace(chunks=None, chunks_a_block=None, grid=None,
-                               ws_floats=None, tickets=None)
-                    for p in plans}) == 1
-        assert [p.grid[1:] for p in plans] == [(KH, 1), (KH, 8), (KH, 33)]
-        assert [p.chunks for p in plans] == [1, 8, 19]
-        return
-    same = [p._replace(chunks=None, chunks_a_block=None, grid=None,
-                       ws_floats=None, tickets=None) for p in plans]
-    assert same[0] == same[1] == same[2]
+    assert {p.route for p in plans} == {"rows"}
+    assert len({p._replace(chunks=None, chunks_a_block=None, grid=None,
+                           ws_floats=None, tickets=None)
+                for p in plans}) == 1
+    assert [p.grid[1:] for p in plans] == [(KH, 1), (KH, 8), (KH, 33)]
     assert [p.chunks for p in plans] == [1, 8, 19]
-    assert plans[0].ws_floats == 0 and plans[2].chunks_a_block == 2
 
 
 def test_plan_trades_warps_and_stages_for_many_query_rows():
-    """The decode route (S = 1) with many query rows a kv head (a wide
-    GQA group) at head_dim 256 keeps fewer warps or stages so the rows'
-    softmax state fits; one that fits with none raises, naming the
-    shape.  The same rows as S > 1 take the many-row route, which no
-    shape overflows."""
-    p = kva.int8_kv_plan(2, 1, 64, 1, 256, 16, 64)       # 64 rows a head
-    assert p.route == "decode"
-    assert p.smem_bytes <= 232_448 and (p.warps, p.stages) < (4, 4)
-    assert p.stages % p.warps == 0
-    with pytest.raises(ValueError, match="query rows a kv head"):
-        kva.int8_kv_plan(2, 1, 512, 1, 256, 16, 64)       # 512 rows
+    """Many query rows a kv head (a wide GQA group) at head_dim 256 take
+    more slabs a block (two at most at head_dim 256) and the deepest ring
+    that keeps the blocks an SM, within a block's shared memory, at S = 1
+    as at S > 1: no shape raises.  A block size off the multiple of 8
+    does."""
+    for H in (64, 512):
+        p = kva.int8_kv_plan(2, 1, H, 1, 256, 16, 64)
+        assert p.route == "rows" and p.warps == 2 and p.q_tile == 32
+        assert p.smem_bytes <= 232_448 and 2 <= p.stages <= 4
+        assert p.grid[0] == -(-H // 32) * -(-p.chunks // p.chunks_a_block)
     for S in (8, 64):
         r = kva.int8_kv_plan(2, S, 64, 8, 256, 16, 64)
         assert r.route == "rows" and r.smem_bytes <= 232_448
@@ -220,37 +232,37 @@ def test_plan_trades_warps_and_stages_for_many_query_rows():
         kva.int8_kv_plan(2, 1, 8, 8, 128, 12, 64)
 
 
-# (B, S, H, KH, D, bs, M, sm_count) -> the decode route's plan before the
-# many-row route existed, every field
+# (B, S, H, KH, D, bs, M, sm_count) -> the S = 1 plan, every field (the
+# 7B decode and the serving mix at batch 8 and 1 among the shapes)
 _S1_PLANS = {
-    (8, 1, 32, 32, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
-                                        39224, 8, 2, (4, 32, 8), 266240, 256),
-    (1, 1, 32, 32, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
-                                        39224, 8, 1, (8, 32, 1), 33280, 32),
-    (8, 1, 32, 8, 128, 16, 128, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
-                                       47008, 8, 1, (8, 8, 8), 266240, 64),
-    (3, 1, 8, 8, 64, 8, 40, 132): (256, 32, 8, 1, 32, 8, 4, 4, 160, 23672,
-                                   2, 1, (2, 8, 3), 3168, 24),
-    (2, 1, 64, 8, 256, 16, 64, 132): (256, 16, 16, 1, 32, 8, 4, 4, 160,
-                                      110640, 4, 1, (4, 8, 2), 132096, 16),
-    (4, 1, 4, 2, 64, 72, 9, 132): (288, 4, 32, 3, 32, 12, 4, 4, 160, 21800,
-                                   3, 1, (3, 2, 4), 3168, 8),
-    (33, 1, 8, 2, 256, 24, 300, 66): (264, 11, 24, 1, 24, 11, 4, 4, 160,
-                                      72208, 28, 2, (14, 2, 33), 1907136,
-                                      66),
+    (8, 1, 32, 32, 128, 16, 128, 132): (16, 1, 64, 256, 1, 2, 128, 69136,
+                                        8, 1, (8, 32, 8), 4259840, 256),
+    (1, 1, 32, 32, 128, 16, 128, 132): (16, 1, 64, 256, 1, 2, 128, 69136,
+                                        8, 1, (8, 32, 1), 532480, 32),
+    (8, 1, 32, 8, 128, 16, 128, 132): (16, 1, 64, 256, 1, 2, 128, 69136,
+                                       8, 1, (8, 8, 8), 1064960, 64),
+    (3, 1, 8, 8, 64, 8, 40, 132): (16, 1, 64, 256, 1, 4, 128, 53776, 2, 1,
+                                   (2, 8, 3), 50688, 24),
+    (2, 1, 64, 8, 256, 16, 64, 132): (16, 1, 64, 256, 1, 4, 128, 209680,
+                                      4, 1, (4, 8, 2), 264192, 16),
+    (4, 1, 4, 2, 64, 72, 9, 132): (16, 1, 64, 256, 1, 4, 128, 53776, 3, 1,
+                                   (3, 2, 4), 25344, 8),
+    (33, 1, 8, 2, 256, 24, 300, 66): (16, 1, 64, 256, 1, 4, 128, 209680,
+                                      29, 29, (1, 2, 33), 270336, 0),
 }
 
 
 @pytest.mark.parametrize("shape", sorted(_S1_PLANS))
-def test_s1_plan_is_unchanged_field_by_field(shape):
-    """S = 1 keeps the decode route with exactly its earlier plan (the 7B
-    decode and the serving mix at batch 8 and 1 among the shapes)."""
+def test_s1_plan_field_by_field(shape):
+    """S = 1 plans the one kernel with exactly these fields: one slab, a
+    ring of 2-4 stages, the keys split one chunk a block except where the
+    row tiles fill the card (the last shape: 66 SMs, 33 sequences)."""
     p = kva.int8_kv_plan(*shape)
-    assert isinstance(p, kva.KvPlan) and p.route == "decode"
-    assert p._fields == ("chunk", "chunk_blocks", "box_slots",
-                         "boxes_a_block", "tile_slots", "tiles", "warps",
-                         "stages", "threads", "smem_bytes", "chunks",
-                         "chunks_a_block", "grid", "ws_floats", "tickets")
+    assert isinstance(p, kva.KvRowsPlan) and p.route == "rows"
+    assert p._fields == ("q_tile", "warps", "key_tile", "chunk",
+                         "q_pieces", "stages", "threads", "smem_bytes",
+                         "chunks", "chunks_a_block", "grid", "ws_floats",
+                         "tickets")
     for name, got, want in zip(p._fields, tuple(p), _S1_PLANS[shape]):
         assert got == want, (name, got, want)
 
@@ -426,7 +438,7 @@ class _RecordingLib:
                 outer.calls.append(args)
                 return 0
 
-        self.int8_kv_attention = _Fn()
+        self.int8_kv_attention_rows = _Fn()
 
 
 @pytest.fixture
@@ -443,34 +455,35 @@ def recording_lib(monkeypatch):
 
 
 def test_launcher_passes_the_plan_and_keeps_its_workspace(recording_lib):
-    """Each call reaches ``int8_kv_attention`` with the tensors, sizes,
-    q's strides, the plan's six ints (one array a shape) and one
-    workspace a stream: a second call of the shape allocates none; its
-    tickets start at zero."""
+    """Each S = 1 call reaches ``int8_kv_attention_rows`` with the
+    tensors, sizes, q's strides, the plan's seven ints (one array a
+    shape) and one workspace a stream: a second call of the shape
+    allocates none; its tickets start at zero."""
     args, G = _case(6, [600, 40, -1], 1, 2, 2, 128, 16, 40)
     t = [torch.from_numpy(a) for a in args]
     t[0] = t[0].transpose(1, 2).contiguous().transpose(1, 2)   # strided q
     B, S, H, D = t[0].shape
     outs = [kva._int8_kv_cuda(*t, G) for _ in range(2)]
-    plan = kva.int8_kv_plan(B, S, H, G, D, 16, 40)
+    plan = kva.int8_kv_plan(B, S, H, G, D, 16, 40, q_dtype=torch.float32)
     first, second = recording_lib.calls
     assert first[21] is second[21]
-    assert tuple(first[21]) == plan.launch() == (256, 4, 4, 160,
-                                                 plan.smem_bytes, 3, 1)
+    assert tuple(first[21]) == plan.launch() == (16, plan.stages, 128,
+                                                 plan.smem_bytes, 3, 1, 3)
     assert first[8:10] == second[8:10]           # the same workspace
     ws, tickets = kva._workspaces[(t[0].device, 0)]
     assert (ws.data_ptr(), tickets.data_ptr()) == first[8:10]
-    assert ws.numel() == plan.ws_floats == B * G * 3 * 2 * 130
+    assert ws.numel() == plan.ws_floats == B * G * 3 * 16 * 130
     assert tickets.numel() == B * G and not tickets.any()
     for call in recording_lib.calls:
         assert len(call) == 25
-        assert len(recording_lib.int8_kv_attention.argtypes) == 25
+        assert len(recording_lib.int8_kv_attention_rows.argtypes) == 25
         assert call[10:18] == (B, S, H, G, D, 16, 40, args[1].shape[0])
         assert call[18:21] == t[0].stride()[:3]
         assert call[22] == pytest.approx(D ** -0.5) and call[23] == 0
         assert call[0] == t[0].data_ptr()
     assert outs[0].shape == (B, S, G, H // G, D)
     assert registry.launch_counts()["int8_kv_attention"] == 2
+    assert registry.spec("int8_kv_attention").mode_launches == {"decode": 2}
 
 
 def test_launcher_grows_its_workspace_for_a_wider_table(recording_lib):
@@ -481,7 +494,8 @@ def test_launcher_grows_its_workspace_for_a_wider_table(recording_lib):
     a, b, c = recording_lib.calls
     assert a[8] != b[8] and b[8:10] == c[8:10]
     assert kva._workspaces[(torch.device("cpu"), 0)][0].numel() == \
-        kva.int8_kv_plan(2, 1, 4, 2, 128, 16, 96).ws_floats
+        kva.int8_kv_plan(2, 1, 4, 2, 128, 16, 96,
+                         q_dtype=torch.float32).ws_floats
 
 
 def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
@@ -489,18 +503,9 @@ def test_launcher_sends_s_above_one_to_the_rows_entry(recording_lib):
     the stream's workspace (its plan splits the keys: chunk states and
     tickets), sizes, q's strides and the rows plan's seven ints; a cold
     call of the same sequences takes the workspace for its running accs
-    and no ticket.  The launches count
-    under the route ``rows``, an S = 1 call's under ``decode``."""
-    calls = []
-
-    class _Fn:
-        argtypes = None
-
-        def __call__(self, *a):
-            calls.append(a)
-            return 0
-
-    recording_lib.int8_kv_attention_rows = _Fn()
+    and no ticket.  The launches count under ``rows``, an S = 1 call's
+    (the same entry) under ``decode``."""
+    calls = recording_lib.calls
     args, G = _case(10, [300, 41], 5, 2, 2, 128, 16, 20)
     t = [torch.from_numpy(a) for a in args]
     out = kva._int8_kv_cuda(*t, G)
