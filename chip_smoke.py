@@ -319,6 +319,51 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     --config bench`` (subprocess replicas on the card, one SIGKILLed by
     its chaos plan, then a drain) exits 0.  TTFT median and max, failover
     ms and kernel 4's launches by call are logged.
+38. the geo-replicated online loop at full width (the reference bench's
+    ``_bench_online`` geo half and ``tests/test_online_loop.py:291``):
+    site a in this process (a primary with ``geo_site="a"``, its hot
+    standby, a read replica), site b as ``python -m
+    paddle_tpu_torch.tools.ps_site`` subprocesses (a primary and a
+    standby started through ``fleet.init`` -> ``fleet.init_server()`` ->
+    ``fleet.run_server()`` from a ``PaddleCloudRoleMaker`` environment,
+    and a read replica of their group), each site a ``SparseTable(16,
+    sgd, lr=0.05)``, a ``FeatureLifecycle`` sweeper and a
+    ``FreshnessWatch``; site a's ``StreamingTrainer(device_merge=True)``
+    streams phase 13's 22 batches and site b's (its client from
+    ``fleet.init_worker()``) 22 batches of the same generator under seed
+    1, both at once on the card with phase 13's tower, a ``GeoPusher``
+    each way (additive): (a) 44 launches of ``segment_sum_sorted`` and no
+    plain call; (b) after both pushers drain (each drain bounded by 60 s)
+    the two primaries' values bitwise equal and every replica bitwise its
+    primary (values, optimizer state, version); (c) the chaos acceptance:
+    site a's primary a subprocess SIGKILLed before batch 8, one pusher
+    (a -> b, as in the reference) riding its standby under the
+    reference's seeded lossy, delayed and cut plan (site b's primary
+    drops replies under the same plan), the
+    sign of the tower's gradients pushed (integers): both sites bitwise a
+    numpy replay of every acknowledged push on the initial rows (0 lost,
+    0 double-applied rows), 22 batches applied once, no bounded read
+    failed, site b deduplicating at least one retried frame; (d) the same
+    sites under ``geo_policy="lww"``: every id holds, at both sites, the
+    row of its greatest ``(lamport seq, site)`` stamp, bitwise, and each
+    replica its primary's state; (e) ``ps_freshness_ms`` p50 / p99 at
+    each site's replicas, events/s of each site, every ``FreshnessWatch``
+    objective ok once the sites are quiet, and the host ms of pull, dense
+    step, merge and push as phase 23 prints them;
+39. the tiered table at ``_bench_ps_scale``'s configuration
+    (``bench.py:1109-1262``): ``SparseTable(64, sgd, lr=0.1, init_std=
+    0.05, seed=11)`` with spill on, ``clamp(2.2 RSS / 268, 1.5 M, 6 M)``
+    rows built by admission and demotion in chunks of 100,000,
+    ``recover_spill`` into a fresh table (probe rows bitwise), 2 x 300
+    paired zc / row pulls of 2,048 Zipf(1.3) ids over 50,000 hot ids
+    with 10 % cold (p50 / p99, pulls/s on each wire, the q8 wire's egress
+    reduction); then a ``DeviceCachedTable(RemoteTable(client, "emb",
+    64), capacity=50_000, wire="q8")`` on the card serves the same 600
+    batches: one ``pull_dequant`` launch for every miss fill, no plain
+    call, every batch's rows bitwise the numpy dequant of the table's q8
+    pull and a ``kernel_mode="torch_ref"`` cache's; fails if the RSS
+    growth over the build reaches the spill bytes; the spill directory
+    (``tempfile.mkdtemp``) is removed whether the phase passes or fails.
 
 Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
@@ -381,8 +426,9 @@ run (b) of phase 13, the q8 serving run of phase 15, the elastic runs
 of phases 17 and 18, the online run of phase 20, the ResNet training
 of phase 24, the A/B of phase 27, the BERT training of phase 29, the
 BERT serving run of phase 31, the ERNIE training of phase 34, the
-translation calls of phase 35, the three serving arms of phase 36 and
-the gateway waves of phase 37;
+translation calls of phase 35, the three serving arms of phase 36,
+the gateway waves of phase 37, the two sites' streams of phase 38 (a) and
+the q8 cache's run of phase 39;
 kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
 of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
 phase-36 and phase-37 launches by call, ``decode`` (S = 1) or ``rows``
@@ -403,6 +449,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1893,15 +1940,16 @@ def _bucket(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def wide_deep_data(extra_batches: int = 0):
+def wide_deep_data(extra_batches: int = 0, seed: int = 0):
     """The reference bench's wide&deep draws (``bench.py:662-714``, full
-    size) with ``RandomState(0)`` in its order: w1, w2, wide_w, the Zipf
-    ids of every batch, then each batch's dense features and labels.
-    ``extra_batches`` more batches of the same distribution follow from
-    the same generator (the serving phase's fresh traffic).  Returns
-    (params as numpy [w1, b1, w2, wide_w], batches, extra batches)."""
+    size) with ``RandomState(seed)`` (the bench's 0) in its order: w1,
+    w2, wide_w, the Zipf ids of every batch, then each batch's dense
+    features and labels.  ``extra_batches`` more batches of the same
+    distribution follow from the same generator (the serving phase's
+    fresh traffic).  Returns (params as numpy [w1, b1, w2, wide_w],
+    batches, extra batches)."""
     W = WIDE_DEEP
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     w1 = (rng.randn(W["n_slots"] * W["dim"] + W["n_dense"], W["hidden"])
           * 0.05).astype(np.float32)
     w2 = (rng.randn(W["hidden"], 1) * 0.05).astype(np.float32)
@@ -3239,21 +3287,8 @@ def online_exactly_once(dev, params, batches, state):
         "bitwise at phase 20's table")
 
 
-def profile_online(dev, params, batches, steps: int = 3):
-    """Phase 23: ``torch.profiler`` over 3 streaming batches after one
-    warm-up: device busy time against wall time, the idle share, the
-    ``segment_sum_sorted`` kernels in the trace, and the host ms of the
-    pull RPC, the dense step, the merge and the push RPC."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from paddle_tpu_torch.online import StreamingTrainer
-    prim, _, cli = _online_primary()
-    tower = WideDeepTower(params, dev)
-    timers = dict.fromkeys(("pull RPC", "dense step", "merge", "push RPC"),
-                           0.0)
-    loader, _ = _online_loader(batches)
-    tr = StreamingTrainer(loader, cli, "emb", _online_step(tower, timers),
-                          device_merge=True, device=dev)
+def _time_parts(tr, cli, timers):
+    """Phase 23's host timers on ``tr``'s merge and ``cli``'s push."""
     merge, push = tr._merge_batch, cli.push_stamped
 
     def timed_merge(ids, grads):
@@ -3271,6 +3306,24 @@ def profile_online(dev, params, batches, steps: int = 3):
             timers["push RPC"] += (time.perf_counter() - t0) * 1e3
 
     tr._merge_batch, cli.push_stamped = timed_merge, timed_push
+
+
+def profile_online(dev, params, batches, steps: int = 3):
+    """Phase 23: ``torch.profiler`` over 3 streaming batches after one
+    warm-up: device busy time against wall time, the idle share, the
+    ``segment_sum_sorted`` kernels in the trace, and the host ms of the
+    pull RPC, the dense step, the merge and the push RPC."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.online import StreamingTrainer
+    prim, _, cli = _online_primary()
+    tower = WideDeepTower(params, dev)
+    timers = dict.fromkeys(("pull RPC", "dense step", "merge", "push RPC"),
+                           0.0)
+    loader, _ = _online_loader(batches)
+    tr = StreamingTrainer(loader, cli, "emb", _online_step(tower, timers),
+                          device_merge=True, device=dev)
+    _time_parts(tr, cli, timers)
     tr.run(max_batches=1)
     torch.cuda.synchronize()
     timers.update(dict.fromkeys(timers, 0.0))
@@ -6053,6 +6106,878 @@ def gateway_fleet(dev, model):
     return counts, {"int8_kv_attention": modes}
 
 
+# ---------------------------------------------------------------------
+# phases 38-39: the geo-replicated online loop, the tiered table
+# ---------------------------------------------------------------------
+
+# phase 38: the geo pushers' links (the port's ps_site tool uses the
+# same), the chaos run's kill batch and its seeded lossy geo plan (the
+# reference acceptance's, tests/test_online_loop.py:291)
+GEO_CLIENT = dict(connect_timeout=2.0, rpc_timeout=2.0, max_retries=8,
+                  backoff_base=0.02, rpc_deadline=30.0)
+GEO_KILL_AT = 8
+GEO_CHAOS = ("seed=13;delay:push_delta:first=1:every=3:times=0:arg=0.002;"
+             "drop:push_delta_reply:first=2:every=4:times=0;"
+             "cut:push_delta:first=9:every=13:times=0")
+GEO_DRAIN_S = 60.0
+GEO_READ_MAX_LAG = 64
+
+
+def _free_ports(n):
+    """``n`` loopback ports free at the time of the call (a replica group
+    lists its members' ports before they start)."""
+    import socket
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class _SiteProc:
+    """One ``python -m paddle_tpu_torch.tools.ps_site`` server: its first
+    stdout line (port, pid, role, site), then one JSON command a line.
+    Its stderr goes to a file beside the phase's tables, logged on a
+    failure."""
+
+    def __init__(self, label, env, args, logdir):
+        self.label = label
+        full = dict(os.environ)
+        full.pop("PADDLE_CHAOS", None)
+        full.update(env)
+        self._err = open(os.path.join(logdir, f"{label}.err"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.ps_site", *args],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err,
+            text=True, env=full, cwd=str(pathlib.Path(__file__).parent))
+        self.info = None
+
+    def _line(self, timeout):
+        import select
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self._err.flush()
+            with open(self._err.name) as f:
+                log(f"{self.label} stderr: {f.read()[-3000:]}")
+            fail(f"phase 38: ps_site {self.label} gave no answer within "
+                 f"{timeout:.0f} s (exit code {self.proc.poll()})")
+        return json.loads(line)
+
+    def ready(self, timeout=120.0):
+        self.info = self._line(timeout)
+        return self
+
+    def ask(self, cmd, wait=120.0, **fields):
+        self.proc.stdin.write(json.dumps({"cmd": cmd, **fields}) + "\n")
+        self.proc.stdin.flush()
+        reply = self._line(wait)
+        if "error" in reply:
+            fail(f"phase 38: ps_site {self.label} {cmd}: {reply['error']}")
+        return reply
+
+    def stop(self):
+        """Stop the server, and kill it if it does not exit in 10 s."""
+        try:
+            if self.proc.poll() is None:
+                self.proc.stdin.write(json.dumps({"cmd": "stop"}) + "\n")
+                self.proc.stdin.flush()
+                self.proc.wait(timeout=10)
+        except (OSError, ValueError, subprocess.TimeoutExpired):
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+            self._err.close()
+
+
+def _geo_table(policy):
+    from paddle_tpu_torch.distributed.fleet import SparseTable
+    return SparseTable(WIDE_DEEP["dim"], optimizer="sgd", lr=0.05,
+                       geo_policy=policy)
+
+
+def _geo_site_b(root, peer, policy, procs, chaos=None, interval=0.05):
+    """Site b: a primary (with its sweeper and, unless ``peer`` is None,
+    its geo pusher to ``peer``) and a hot standby started through
+    ``fleet.init`` /
+    ``init_server`` / ``run_server`` from a ``PaddleCloudRoleMaker``
+    environment, and a read replica of their group, each a ps_site
+    subprocess (appended to ``procs`` as it starts).  Returns the
+    group."""
+    tdir = os.path.join(root, f"tables_{policy}")
+    if not os.path.isdir(tdir):
+        os.makedirs(tdir)
+        _geo_table(policy).save(os.path.join(tdir, "emb"))
+    p1, p2, p3 = _free_ports(3)
+    group = f"127.0.0.1:{p1}|127.0.0.1:{p2}"
+    env = {"TRAINING_ROLE": "PSERVER", "POD_IP": "127.0.0.1",
+           "PADDLE_PSERVERS_IP_PORT_LIST": group, "PADDLE_TRAINERS_NUM": "1"}
+    prim_env = {**env, "PADDLE_PORT": str(p1)}
+    if chaos:
+        prim_env["PADDLE_CHAOS"] = chaos
+    n = len(procs)
+    geo = [] if peer is None else ["--geo-peer", peer, "--geo-interval",
+                                   str(interval)]
+    procs.append(_SiteProc(f"b{n}_primary", prim_env, [
+        "--tables", tdir, "--ttl", "3600", "--site", "b", *geo], root))
+    procs.append(_SiteProc(f"b{n}_standby", {**env, "PADDLE_PORT": str(p2)},
+                           ["--tables", tdir], root))
+    procs.append(_SiteProc(f"b{n}_read", {"PADDLE_PORT": str(p3)},
+                           ["--tables", tdir, "--read-replica-of", group],
+                           root))
+    for p in procs[n:]:
+        p.ready()
+    return group
+
+
+def _geo_site_a(policy, primary_port=None, standby_port=0):
+    """Site a in this process: a primary (``geo_site="a"``, unless
+    ``primary_port`` names a primary running elsewhere), its hot standby
+    and a read replica of the group.  Returns (primary or None, standby,
+    replica, group)."""
+    from paddle_tpu_torch.distributed.fleet import PSServer
+    prim = None
+    if primary_port is None:
+        prim = PSServer({"emb": _geo_table(policy)}, host="127.0.0.1",
+                        geo_site="a")
+        prim.start()
+        primary_port = prim.port
+    pep = f"127.0.0.1:{primary_port}"
+    stby = PSServer({"emb": _geo_table(policy)}, host="127.0.0.1",
+                    port=standby_port, replica_of=pep, geo_site="a")
+    stby.start()
+    group = f"{pep}|127.0.0.1:{stby.port}"
+    rep = PSServer({"emb": _geo_table(policy)}, host="127.0.0.1",
+                   replica_of=group, replica_mode="read", wm_interval_s=0.05)
+    rep.start()
+    for r in (stby, rep):
+        if not r.replica_ready.wait(60.0):
+            fail("phase 38: a replica of site a never attached")
+    return prim, stby, rep, group
+
+
+@contextlib.contextmanager
+def _environ(**env):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fleet_trainer_client(group):
+    """Site b's trainer reaches its servers as a user's trainer does:
+    ``fleet.init()`` over the launcher's environment, then
+    ``fleet.init_worker()``."""
+    from paddle_tpu_torch.distributed import fleet
+    with _environ(TRAINING_ROLE="TRAINER", PADDLE_TRAINER_ID="0",
+                  PADDLE_TRAINERS_NUM="1",
+                  PADDLE_PSERVERS_IP_PORT_LIST=group):
+        fleet.init()
+        return fleet.init_worker()
+
+
+def _geo_trainer(dev, params, batches, cli, src, timers=None, step=None):
+    """A streaming trainer of the online phases on the card, timed from
+    its first timed batch (the third): returns (trainer, tower, window)."""
+    from paddle_tpu_torch.online import StreamingTrainer
+    tower = WideDeepTower(params, dev)
+    loader, _ = _online_loader(batches)
+    inner = (step or _online_step)(tower, timers)
+    window, calls = {}, [0]
+
+    def timed(batch, pull):
+        calls[0] += 1
+        if calls[0] == 3:
+            torch.cuda.synchronize()
+            window["t0"] = time.perf_counter()
+        return inner(batch, pull)
+
+    tr = StreamingTrainer(loader, cli, "emb", timed, device_merge=True,
+                          device=dev, src=src)
+    return tr, tower, window
+
+
+def _run_both(trainers):
+    """Both sites' trainers at once, each on its own thread; re-raises
+    the first failure."""
+    import threading
+    errs = []
+
+    def run(tr):
+        try:
+            tr.run()
+        except BaseException as e:   # noqa: BLE001 - re-raised below
+            errs.append(e)
+    ts = [threading.Thread(target=run, args=(tr,)) for tr in trainers]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        fail("phase 38: a site's trainer did not finish in 600 s")
+
+
+def _replica_caught_up(rep, prim_applied, timeout=30.0):
+    return _wait_for(lambda: rep._stats()["watermark"] >= prim_applied,
+                     timeout)
+
+
+def _b_digests(procs, n0):
+    """(primary, standby, read replica) digests of site b's servers
+    ``procs[n0:n0 + 3]``, once the replicas hold the primary's state
+    (bounded wait)."""
+    deadline = time.monotonic() + 30.0
+    while True:
+        d = [p.ask("digest") for p in procs[n0:n0 + 3]]
+        full = [x["tables"]["emb"]["full"] for x in d]
+        if full[1] == full[0] == full[2] or time.monotonic() > deadline:
+            return d
+        time.sleep(0.1)
+
+
+def _drain_sites(gp_a, proc_b, rounds=6):
+    """Drain both pushers in turns until a round moves nothing (the
+    authority's residual verify pass included), each drain bounded by
+    ``GEO_DRAIN_S``.  Returns (site b's last drain reply, ids moved a
+    round as (a -> b, b -> a))."""
+    moved, last_b = [], 0
+    for _ in range(rounds):
+        before = gp_a.pushed_ids + gp_a.corrected_ids
+        gp_a.drain(timeout=GEO_DRAIN_S)
+        rb = proc_b.ask("drain", wait=GEO_DRAIN_S + 30, timeout=GEO_DRAIN_S)
+        b_now = rb["pushed_ids"] + rb["corrected_ids"]
+        moved.append((gp_a.pushed_ids + gp_a.corrected_ids - before,
+                      b_now - last_b))
+        last_b = b_now
+        if moved[-1] == (0, 0) and gp_a.backlog() == 0 and \
+                rb["backlog"] == 0:
+            break
+    return rb, moved
+
+
+def geo_online(dev, params, batches):
+    """Phase 38: the geo-replicated online loop at full width (the
+    reference's ``_bench_online`` geo half and its acceptance test).  Two
+    sites: site a in this process (a primary with ``geo_site="a"``, its
+    hot standby and a read replica), site b as ps_site subprocesses (a
+    primary and a standby through ``fleet.init`` / ``init_server`` /
+    ``run_server`` from a ``PaddleCloudRoleMaker`` environment, and a
+    read replica); each site a ``SparseTable(16, sgd, lr=0.05)``, a
+    ``FeatureLifecycle`` sweeper and a ``FreshnessWatch``.  Site a's
+    trainer streams phase 13's 22 batches, site b's (a client from
+    ``fleet.init_worker()``) 22 batches of the same generator under seed
+    1, both ``StreamingTrainer(device_merge=True)`` on the card with
+    phase 13's tower, both at once; a ``GeoPusher`` runs each way
+    (additive).  (a) 44 launches of ``segment_sum_sorted``, no plain
+    call; (b) after both pushers drain the primaries' values are bitwise
+    equal and each replica bitwise its primary; (e) freshness at each
+    site's replica and every ``FreshnessWatch`` objective ok; the host
+    ms of pull, dense step, merge and push.  Then (c) the chaos
+    acceptance and (d) last-writer-wins (``_geo_chaos``, ``_geo_lww``).
+    Returns (the launch counts of (a), results)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import GeoPusher, PSClient
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.online import FeatureLifecycle, FreshnessWatch
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.tools.ps_site import table_digest
+    t_phase = time.perf_counter()
+    W = WIDE_DEEP
+    b_batches = wide_deep_data(seed=1)[1]
+    root = tempfile.mkdtemp(prefix="geo_sites_")
+    procs, res = [], {}
+    prim = stby = rep = gp = sweeper = handle = cli_a = None
+    try:
+        monitor.enable_metrics(True)
+        monitor.metrics_reset()
+        prim, stby, rep, group_a = _geo_site_a("add")
+        group_b = _geo_site_b(root, group_a, "add", procs)
+        log(f"phase 38: site a {group_a} (this process), site b {group_b} "
+            f"(ps_site: {[p.info['role'] for p in procs]}, site "
+            f"{procs[0].info['site']!r}) up in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        sweeper = FeatureLifecycle(prim, ttl_s=3600.0, interval_s=0.25).start()
+        watch = FreshnessWatch()
+        handle = watch.run_every(0.25)
+        gp = GeoPusher(prim, [group_b], interval_s=0.05,
+                       **GEO_CLIENT).start()
+        cli_a = PSClient([group_a])
+        cli_b = _fleet_trainer_client(group_b)
+        timers = dict.fromkeys(("pull RPC", "dense step", "merge",
+                                "push RPC"), 0.0)
+        tr_a, tower_a, win_a = _geo_trainer(dev, params, batches, cli_a,
+                                            "stream-a", timers)
+        tr_b, tower_b, win_b = _geo_trainer(dev, params, b_batches, cli_b,
+                                            "stream-b")
+        _time_parts(tr_a, cli_a, timers)
+        registry.reset_counts()              # the main path starts here
+        _run_both([tr_a, tr_b])
+        t_end = time.perf_counter()
+        counts = registry.launch_counts()    # ... and ends here
+        plain = {k: s.torch_ref_calls for k, s in registry.kernels().items()}
+        fleet.stop_worker()
+        n = tr_a.batches
+        if (tr_a.batches, tr_b.batches) != (22, 22):
+            fail(f"phase 38: batches a {tr_a.batches}, b {tr_b.batches}")
+        want = dict.fromkeys(counts, 0)
+        want["segment_sum_sorted"] = 44       # one merge a batch, each site
+        if counts != want or plain["segment_sum_sorted"] or \
+                plain["segment_sum"]:
+            fail(f"phase 38 (a): launches {counts} (want {want}), plain "
+                 f"calls {plain}")
+        log("phase 38 (a): segment_sum_sorted launched 44 times (22 "
+            "batches a site, one merge each), no plain call")
+        losses = [t.fetch() for t in (tower_a, tower_b)]
+        for s, l in zip("ab", losses):
+            if not np.isfinite(l).all() or not l[-1] < l[2]:
+                fail(f"phase 38: site {s}'s losses {l.tolist()}")
+        # (b) the additive fixed point
+        t0 = time.perf_counter()
+        rb, moved = _drain_sites(gp, procs[0])
+        drain_s = time.perf_counter() - t0
+        if not _replica_caught_up(rep, prim.applied) or \
+                not _replica_caught_up(stby, prim.applied):
+            fail("phase 38 (b): site a's replicas never caught up")
+        t_a = prim._tables["emb"]
+        da = (table_digest(t_a, False), table_digest(t_a, True))
+        for r, name in ((stby, "standby"), (rep, "read replica")):
+            if table_digest(r._tables["emb"], True) != da[1]:
+                fail(f"phase 38 (b): site a's {name} is not bitwise its "
+                     "primary")
+        db = _b_digests(procs, 0)
+        fb = [x["tables"]["emb"] for x in db]
+        if not fb[0]["full"] == fb[1]["full"] == fb[2]["full"]:
+            fail("phase 38 (b): a replica of site b is not bitwise its "
+                 "primary")
+        if fb[0]["vals"] != da[0]:
+            fail(f"phase 38 (b): the primaries' tables differ after the "
+                 f"drains (a {len(t_a)} rows, b {fb[0]['rows']}; drains "
+                 f"moved {moved})")
+        log(f"phase 38 (b): after {len(moved)} drain rounds ({drain_s:.2f} "
+            f"s; ids moved a->b, b->a: {moved}) both primaries hold the "
+            f"same {len(t_a)} rows bitwise, each replica bitwise its "
+            f"primary; pusher a pushed {gp.pushed_ids} ids in "
+            f"{gp.flushes} flushes, {gp.push_failures} failures; pusher b "
+            f"{rb}")
+        # (e) freshness and the host parts
+        handle.stop()
+        handle = None
+        st_a = watch.evaluate()
+        h = monitor.get_histogram("ps_freshness_ms")
+        fr_b = procs[2].ask("freshness")
+        ev = 20 * W["batch"] * W["n_slots"]
+        res = dict(
+            events_per_s={"a": ev / (t_end - win_a["t0"]),
+                          "b": ev / (t_end - win_b["t0"])},
+            freshness_a=dict(p50_ms=h.percentile(50), p99_ms=h.percentile(99),
+                             count=h.count),
+            freshness_b={k: fr_b[k] for k in ("p50_ms", "p99_ms", "count")},
+            objectives_a={s["slo"]: s["ok"] for s in st_a},
+            objectives_b=fr_b["objectives"], breaches_a=watch.breaches,
+            host_ms={k: v / n for k, v in timers.items()},
+            rows=len(t_a), drain_s=drain_s, launches=counts)
+        log("phase 38 (e): " + json.dumps(res))
+        if not all(res["objectives_a"].values()) or \
+                not all(res["objectives_b"].values()):
+            fail(f"phase 38 (e): a freshness objective is not ok at "
+                 f"steady state: a {res['objectives_a']}, b "
+                 f"{res['objectives_b']}")
+        if h.count < n or fr_b["count"] < n:
+            fail(f"phase 38 (e): ps_freshness_ms counted {h.count} (a), "
+                 f"{fr_b['count']} (b) of {n} batches a site")
+        for name, ms in res["host_ms"].items():
+            log(f"  host {name}: {ms:.2f} ms/batch (site a)")
+    finally:
+        if handle is not None:
+            handle.stop()
+        if gp is not None:
+            gp.stop(drain=False)
+        if sweeper is not None:
+            sweeper.stop()
+        if cli_a is not None:
+            cli_a.close()
+        fleet.stop_worker()
+        monitor.enable_metrics(False)
+        for p in procs:
+            p.stop()
+        for s in (rep, stby, prim):
+            if s is not None:
+                s.stop()
+    try:
+        res["chaos"] = _geo_chaos(dev, params, batches, root)
+        res["lww"] = _geo_lww(dev, params, batches, b_batches, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 38: {time.perf_counter() - t_phase:.1f} s")
+    return counts, res
+
+
+def _geo_chaos(dev, params, batches, root):
+    """Phase 38 (c): the reference's chaos acceptance at full width.  Site
+    a's primary is a ps_site subprocess, SIGKILLed before batch
+    ``GEO_KILL_AT``; its in-process standby promotes, a read replica
+    serves bounded reads (``max_lag``) throughout, and the one geo pusher
+    (a -> b, as in the reference) rides the standby under ``GEO_CHAOS``
+    (delays and cuts on its sends here, dropped replies at site b's
+    primary, where the same plan is installed).  Integer-valued
+    gradients (the sign of the tower's) make a numpy replay of every
+    acknowledged push on the initial rows exact:
+    both sites must hold it bitwise (zero lost, zero double-applied rows),
+    the standby must have applied each batch once, and no read failed."""
+    import signal
+    import threading
+
+    from paddle_tpu_torch.distributed.fleet import (GeoPusher, PSClient,
+                                                    SparseTable, chaos)
+    t0 = time.perf_counter()
+    tdir = os.path.join(root, "tables_add")
+    pa, pb = _free_ports(2)
+    procs, gp, stby, rep, cli, rd_err = [], None, None, None, None, []
+    stop = threading.Event()
+    try:
+        procs.append(_SiteProc("a_primary", {
+            "TRAINING_ROLE": "PSERVER", "POD_IP": "127.0.0.1",
+            "PADDLE_PORT": str(pa), "PADDLE_TRAINERS_NUM": "1",
+            "PADDLE_PSERVERS_IP_PORT_LIST":
+                f"127.0.0.1:{pa}|127.0.0.1:{pb}"},
+            ["--tables", tdir, "--site", "a"], root).ready())
+        _, stby, rep, group_a = _geo_site_a("add", primary_port=pa,
+                                            standby_port=pb)
+        # one pusher, a -> b, as in the reference's acceptance: site b has
+        # no local writes (a pusher there would run the authority's
+        # verify pass against rows site a has not shipped yet)
+        group_b = _geo_site_b(root, None, "add", procs, chaos=GEO_CHAOS)
+        chaos.install(chaos.plan_from_spec(GEO_CHAOS))
+        gp = GeoPusher(stby, [group_b], interval_s=0.02,
+                       **GEO_CLIENT).start()
+        probe = np.unique(batches[0][0].reshape(-1))[:4096]
+        reads = [0]
+
+        def reader():
+            rd = PSClient([group_a], mode="read", max_lag=GEO_READ_MAX_LAG,
+                          read_replicas=[f"127.0.0.1:{rep.port}"],
+                          **GEO_CLIENT)
+            try:
+                while not stop.is_set():
+                    rd.pull("emb", probe)
+                    reads[0] += 1
+                    time.sleep(0.002)
+            except Exception as e:   # noqa: BLE001 - reported below
+                rd_err.append(repr(e))
+            finally:
+                rd.close()
+        rth = threading.Thread(target=reader, daemon=True)
+        rth.start()
+        cli = PSClient([group_a], **GEO_CLIENT)
+        acked = []
+        push = cli.push_stamped
+
+        def recorded(table, ids, grads, **kw):
+            out = push(table, ids, grads, **kw)
+            acked.append((np.array(ids, np.int64), np.array(grads)))
+            return out
+        cli.push_stamped = recorded
+        calls = [0]
+
+        def step(tower, timers=None):
+            inner = _online_step(tower, timers)
+
+            def int_step(batch, pull):
+                calls[0] += 1
+                if calls[0] == GEO_KILL_AT:
+                    os.kill(procs[0].proc.pid, signal.SIGKILL)
+                    procs[0].proc.wait(timeout=30)
+                ids, g = inner(batch, pull)
+                return ids, torch.sign(g)
+            return int_step
+        tr, _, _ = _geo_trainer(dev, params, batches, cli, "stream-chaos",
+                                step=step)
+        tr.run()
+        torch.cuda.synchronize()
+        if not _wait_for(lambda: stby.promoted, 30.0):
+            fail("phase 38 (c): site a's standby never promoted")
+        if not _replica_caught_up(rep, stby.applied):
+            fail("phase 38 (c): site a's read replica never caught up")
+        stop.set()
+        rth.join(timeout=30)
+        gp.drain(timeout=GEO_DRAIN_S)
+        st = chaos.active().stats_dict()
+        chaos.uninstall()
+        # the oracle: the initial rows plus every acknowledged push, in
+        # the native core's arithmetic (v -= lr * g, float32, unfused)
+        every = np.unique(np.concatenate([b[0].reshape(-1)
+                                          for b in batches]))
+        rows = SparseTable(WIDE_DEEP["dim"], optimizer="sgd",
+                           lr=0.05).pull(every)
+        for ids, g in acked:
+            k = np.searchsorted(every, ids)
+            rows[k] = rows[k] - np.float32(0.05) * g
+        got_a = stby._tables["emb"].pull(every)
+        # a row whose delta was never non-zero was never shipped: site
+        # b's pull materialises it from the same seeded init
+        cli_b = PSClient([group_b], **GEO_CLIENT)
+        got_b = cli_b.pull("emb", every)
+        cli_b.close()
+        dig = procs[1].ask("digest")
+        bad_a = int(np.any(got_a != rows, axis=1).sum())
+        bad_b = int(np.any(got_b != rows, axis=1).sum())
+        out = dict(batches=tr.batches, acked=len(acked),
+                   standby_applied=stby.applied, promoted=stby.promoted,
+                   reads=reads[0], read_errors=len(rd_err),
+                   rows=int(every.size), rows_off_a=bad_a, rows_off_b=bad_b,
+                   dup_acks_b=dig["dup_acks"], dup_acks_a=stby.dup_acks,
+                   faults=st, pushed_ids=gp.pushed_ids,
+                   push_failures=gp.push_failures,
+                   seconds=time.perf_counter() - t0)
+        log("phase 38 (c): " + json.dumps(out))
+        if rd_err:
+            fail(f"phase 38 (c): bounded reads failed: {rd_err[:3]}")
+        if tr.batches != 22 or len(acked) != 22 or stby.applied != 22:
+            fail(f"phase 38 (c): {tr.batches} batches, {len(acked)} acked, "
+                 f"the promoted standby applied {stby.applied}; want 22")
+        if bad_a or bad_b:
+            fail(f"phase 38 (c): rows off the exact oracle: site a "
+                 f"{bad_a}, site b {bad_b} of {every.size}")
+        if not any(k.startswith(("drop", "delay", "cut")) for k in st) or \
+                dig["dup_acks"] < 1:
+            fail(f"phase 38 (c): the link was not hostile enough: faults "
+                 f"{st}, site b's duplicate acks {dig['dup_acks']}")
+        log(f"phase 38 (c): primary SIGKILLed before batch {GEO_KILL_AT}; "
+            f"22 batches, 0 lost and 0 double-applied rows of "
+            f"{every.size} at both sites against the exact oracle; "
+            f"{reads[0]} bounded reads, none failed; site b deduplicated "
+            f"{dig['dup_acks']} retried frames")
+        return out
+    finally:
+        stop.set()
+        chaos.uninstall()
+        if gp is not None:
+            gp.stop(drain=False)
+        if cli is not None:
+            cli.close()
+        for p in procs:
+            p.stop()
+        for s in (rep, stby):
+            if s is not None:
+                s.stop()
+
+
+def _geo_lww(dev, params, batches, b_batches, root):
+    """Phase 38 (d): the two sites under ``geo_policy="lww"``.  Both
+    trainers stream with the pushers idle; the oracle takes each id's
+    row from the site whose ``(lamport seq, site)`` stamp is greater;
+    then both pushers drain and both sites (and their replicas) must
+    hold the oracle's rows and stamps bitwise."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import GeoPusher, PSClient
+    from paddle_tpu_torch.tools.ps_site import table_digest
+    t0 = time.perf_counter()
+    procs, gp, prim, stby, rep, cli_a = [], None, None, None, None, None
+    try:
+        prim, stby, rep, group_a = _geo_site_a("lww")
+        group_b = _geo_site_b(root, group_a, "lww", procs, interval=3600.0)
+        gp = GeoPusher(prim, [group_b], interval_s=3600.0, **GEO_CLIENT)
+        cli_a = PSClient([group_a])
+        cli_b = _fleet_trainer_client(group_b)
+        tr_a, _, _ = _geo_trainer(dev, params, batches, cli_a, "lww-a")
+        tr_b, _, _ = _geo_trainer(dev, params, b_batches, cli_b, "lww-b")
+        _run_both([tr_a, tr_b])
+        fleet.stop_worker()
+
+        def state(site):
+            if site == "a":
+                t = prim._tables["emb"]
+                d = t._snapshot_arrays()
+                gi, gs, gsi = t.geo_export()
+                st = {int(k): (int(s), prim._site_name(int(x)))
+                      for k, s, x in zip(gi, gs, gsi)}
+                return d["ids"], d["vals"], st
+            path = os.path.join(root, f"lww_b_{time.monotonic_ns()}.npz")
+            procs[0].ask("dump", path=path)
+            with np.load(path) as d:
+                st = {int(k): (int(s), str(x)) for k, s, x in zip(
+                    d["emb.geo_ids"], d["emb.geo_seqs"], d["emb.geo_sites"])}
+                return d["emb.ids"], d["emb.vals"], st
+
+        before = {s: state(s) for s in "ab"}
+        rows, stamps = {}, {}
+        for s in "ab":
+            ids, vals, st = before[s]
+            for k, v in zip(ids.tolist(), vals):
+                cand = st.get(k, (-1, ""))
+                if k not in stamps or cand > stamps[k]:
+                    rows[k], stamps[k] = v, cand
+        rb, moved = _drain_sites(gp, procs[0])
+        after = {s: state(s) for s in "ab"}
+        keys = np.asarray(sorted(rows), np.int64)
+        want = np.stack([rows[k] for k in keys.tolist()])
+        off = {}
+        for s in "ab":
+            ids, vals, st = after[s]
+            o = np.argsort(ids)
+            same_ids = np.array_equal(ids[o], keys)
+            off[s] = int(np.any(vals[o] != want, axis=1).sum()) \
+                if same_ids else -1
+            if st != stamps:
+                fail(f"phase 38 (d): site {s}'s stamps are not the "
+                     "greatest of each id's")
+        if not _replica_caught_up(rep, prim.applied) or \
+                not _replica_caught_up(stby, prim.applied):
+            fail("phase 38 (d): site a's replicas never caught up")
+        full = table_digest(prim._tables["emb"], True)
+        if any(table_digest(r._tables["emb"], True) != full
+               for r in (stby, rep)):
+            fail("phase 38 (d): a replica of site a is not bitwise its "
+                 "primary")
+        fb = [x["tables"]["emb"]["full"] for x in _b_digests(procs, 0)]
+        if not fb[0] == fb[1] == fb[2]:
+            fail("phase 38 (d): a replica of site b is not bitwise its "
+                 "primary")
+        wins = collections.Counter(s for _, s in stamps.values())
+        out = dict(rows=int(keys.size), rows_off=off, winners=dict(wins),
+                   drains=moved, pushed_ids_a=gp.pushed_ids,
+                   pushed_ids_b=rb["pushed_ids"],
+                   seconds=time.perf_counter() - t0)
+        log("phase 38 (d): " + json.dumps(out))
+        if off != {"a": 0, "b": 0}:
+            fail(f"phase 38 (d): rows off the greatest stamp's row: {off}")
+        log(f"phase 38 (d): every one of {keys.size} ids holds the row of "
+            f"its greatest (lamport seq, site) stamp at both sites, bitwise "
+            f"(winning sites {dict(wins)}); each replica bitwise its primary")
+        return out
+    finally:
+        if gp is not None:
+            gp.stop(drain=False)
+        if cli_a is not None:
+            cli_a.close()
+        fleet.stop_worker()
+        for p in procs:
+            p.stop()
+        for s in (rep, stby, prim):
+            if s is not None:
+                s.stop()
+
+
+# phase 39: the reference bench's tiered table (bench.py:1109-1262, full
+# configuration): 64-wide rows, pulls of 2,048 Zipf(1.3) ids over 50,000
+# hot ids with 10 % cold, 300 paired pulls a pass, two passes, rows sized
+# beyond this process's resident set (clamped to 1.5-6 M) and built by
+# admission and demotion in chunks of 100,000; a q8 cache of 50,000 rows
+# on the card serves the same batches
+PS_SCALE = dict(dim=64, batch=2048, steps=300, reps=2, hot_n=50_000,
+                chunk=100_000, rows_min=1_500_000, rows_max=6_000_000,
+                capacity=50_000)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def ps_scale(dev):
+    """Phase 39: the tiered table at ``_bench_ps_scale``'s configuration:
+    ``SparseTable(64, sgd, lr=0.1, init_std=0.05, seed=11)`` with spill
+    on, ``n_rows = clamp(2.2 RSS / 268, 1.5 M, 6 M)`` rows built by
+    admission and demotion in chunks of 100,000; ``recover_spill`` into a
+    fresh table (probe rows bitwise); 2 x 300 paired zc / row pulls of
+    2,048 ids over the PS socket (p50 / p99, pulls/s); then a
+    ``DeviceCachedTable(RemoteTable(client, "emb", 64), 50,000,
+    wire="q8")`` on the card serves the same batches, every miss fill
+    launching ``pull_dequant``, its rows bitwise the numpy dequant of the
+    table's q8 pull and a ``kernel_mode="torch_ref"`` cache's.  Fails if
+    the RSS growth over the build reaches the spill bytes.  The spill
+    directory (``tempfile.mkdtemp``) is removed whether the phase passes
+    or fails.  Returns (the launch counts of the q8 cache's run,
+    results)."""
+    import glob
+
+    from paddle_tpu_torch.distributed.fleet import (DeviceCachedTable,
+                                                    PSClient, PSServer,
+                                                    RemoteTable, SparseTable)
+    from paddle_tpu_torch.distributed.fleet.ps import dequantize_rows_q8
+    from paddle_tpu_torch.distributed.fleet.ps_service import _frame_bytes
+    from paddle_tpu_torch.ops.kernels import registry
+    t_phase = time.perf_counter()
+    P = PS_SCALE
+    dim = P["dim"]
+    base_rss = _rss_bytes()
+    rec = 8 + (dim + 1) * 4              # id + row and step, pre-align
+    n_rows = int(min(max(2.2 * base_rss / rec, P["rows_min"]),
+                     P["rows_max"]))
+    kw = dict(optimizer="sgd", lr=0.1, init_std=0.05, seed=11)
+    sdir = tempfile.mkdtemp(prefix="ps_scale_spill_")
+    srv = None
+    clients = []
+    try:
+        t = SparseTable(dim, **kw)
+        if not t.enable_spill(sdir):
+            fail("phase 39: enable_spill refused")
+        rss0 = _rss_bytes()
+        t0 = time.perf_counter()
+        ids_all = np.arange(n_rows, dtype=np.int64)
+        for lo in range(0, n_rows, P["chunk"]):
+            t.pull(ids_all[lo:lo + P["chunk"]])          # admission
+            t.spill_sweep(int(time.time() * 1000) + 10_000)  # demote all
+        t.spill_advise()
+        build_s = time.perf_counter() - t0
+        spill_bytes = sum(os.path.getsize(p) for p in
+                          glob.glob(os.path.join(sdir, "*.spill")))
+        growth = _rss_bytes() - rss0
+        stats = t.spill_stats()
+        t2 = SparseTable(dim, **kw)
+        t0 = time.perf_counter()
+        recovered = t2.recover_spill(sdir)
+        recovery_s = time.perf_counter() - t0
+        probe = np.asarray([0, n_rows // 2, n_rows - 1], np.int64)
+        if recovered != n_rows or \
+                not np.array_equal(t.pull(probe), t2.pull(probe)):
+            fail(f"phase 39: recovery gave {recovered} of {n_rows} rows, "
+                 "or probe rows unlike the source's")
+        del t2
+        rng = np.random.RandomState(7)
+        hot_ids = rng.choice(n_rows, P["hot_n"], replace=False).astype(
+            np.int64)
+
+        def make_batches():
+            r = np.random.RandomState(1234)
+            out = []
+            for _ in range(P["steps"]):
+                hot = hot_ids[np.minimum(r.zipf(1.3, P["batch"]) - 1,
+                                         P["hot_n"] - 1)]
+                n_cold = max(P["batch"] // 10, 1)
+                hot[:n_cold] = r.randint(0, n_rows, n_cold)
+                out.append(np.ascontiguousarray(hot))
+            return out
+        batches = [b for _ in range(P["reps"]) for b in make_batches()]
+        srv = PSServer({"emb": t}, host="127.0.0.1")
+        srv.start()
+        ep = f"127.0.0.1:{srv.port}"
+        # the bench's tier state: all demoted, pages dropped, the hot set
+        # promoted
+        t.spill_sweep(int(time.time() * 1000) + 10_000)
+        t.spill_advise()
+        t.pull(hot_ids)
+        cli = {w: PSClient([ep], pull_wire=w) for w in ("zc", "row")}
+        clients += list(cli.values())
+        for c in cli.values():
+            c.pull("emb", batches[0])
+        samples = {"zc": [], "row": []}
+        for i, b in enumerate(batches):
+            for w in (("zc", "row") if i % 2 == 0 else ("row", "zc")):
+                a = time.perf_counter()
+                cli[w].pull("emb", b)
+                samples[w].append(time.perf_counter() - a)
+        wires = {}
+        for w, ts in samples.items():
+            pool = np.asarray(ts)
+            wires[w] = dict(p50_ms=float(np.percentile(pool, 50) * 1e3),
+                            p99_ms=float(np.percentile(pool, 99) * 1e3),
+                            pulls_per_s=len(pool) / float(pool.sum()))
+        uniq = np.unique(batches[0])
+        f32_bytes = len(_frame_bytes({"vals": t.pull(batches[0])}))
+        codes, scales = t.pull_q8(uniq)
+        q8_bytes = len(_frame_bytes({
+            "inv": np.searchsorted(uniq, batches[0]).astype(np.int32),
+            "codes": codes, "scales": scales}))
+        # the q8 cache on the card, and its plain twin, over the batches
+        out = {}
+        for arm in ("cuda", "torch_ref"):
+            c = PSClient([ep])
+            clients.append(c)
+            cache = DeviceCachedTable(
+                RemoteTable(c, "emb", dim), capacity=P["capacity"],
+                wire="q8", device=dev,
+                kernel_mode=None if arm == "cuda" else "torch_ref")
+            fills = [0]
+            fill = cache._fill_rows
+
+            def counted(miss_ids, nsp, fill=fill, fills=fills):
+                fills[0] += 1
+                return fill(miss_ids, nsp)
+            cache._fill_rows = counted
+            registry.reset_counts()          # the main path starts here
+            t0 = time.perf_counter()
+            rows = [cache.pull(b) for b in batches]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = registry.launch_counts()  # ... and ends here
+            plain = registry.kernels()["pull_dequant"].torch_ref_calls
+            out[arm] = (rows, counts, plain, fills[0], dt, cache)
+        rows, counts, plain, fills, dt, cache = out["cuda"]
+        ref_rows, ref_counts, ref_plain, ref_fills = out["torch_ref"][:4]
+        off = [i for i, (a, b) in enumerate(zip(rows, ref_rows))
+               if not torch.equal(a, b)]
+        off_np = []
+        for i, (b, r) in enumerate(zip(batches, rows)):
+            want = dequantize_rows_q8(*t.pull_q8(b))
+            if not np.array_equal(r.cpu().numpy(), want):
+                off_np.append(i)
+        res = dict(rows_total=n_rows, base_rss_mb=base_rss / 2**20,
+                   build_s=build_s, spill_mb=spill_bytes / 2**20,
+                   rss_growth_mb=growth / 2**20, hot_rows=stats["hot"],
+                   cold_rows=stats["cold"], recovery_s=recovery_s,
+                   recovered_rows=int(recovered), wires=wires,
+                   zc_over_row_paired=float(np.median(
+                       np.asarray(samples["row"])
+                       / np.asarray(samples["zc"]))),
+                   q8_egress_ratio=f32_bytes / q8_bytes,
+                   q8_cache=dict(ms_per_batch=dt * 1e3 / len(batches),
+                                 fills=fills, hits=cache.hits,
+                                 misses=cache.misses,
+                                 evictions=cache.evictions,
+                                 launches=counts["pull_dequant"],
+                                 plain_calls=plain),
+                   seconds=time.perf_counter() - t_phase)
+        log("phase 39: " + json.dumps(res))
+        if growth >= spill_bytes:
+            fail(f"phase 39: RSS grew {growth} bytes over the build, not "
+                 f"below the {spill_bytes} spill bytes")
+        want = dict.fromkeys(counts, 0)
+        want["pull_dequant"] = fills
+        if counts != want or plain or fills < 1:
+            fail(f"phase 39: launches {counts} (want {want}: one "
+                 f"pull_dequant a miss fill), plain calls {plain}")
+        if ref_fills != fills or ref_plain != ref_fills or \
+                any(ref_counts.values()):
+            fail(f"phase 39: the plain arm filled {ref_fills} times with "
+                 f"{ref_plain} plain calls and launches {ref_counts}")
+        if off or off_np:
+            fail(f"phase 39: the q8 cache's rows differ from the plain "
+                 f"arm's at batches {off[:5]}, from the numpy dequant at "
+                 f"{off_np[:5]}")
+        log(f"phase 39: {n_rows} rows, {spill_bytes / 2**20:.1f} MiB "
+            f"spilled, RSS grew {growth / 2**20:.1f} MiB over the build; "
+            f"recovery bitwise; pull_dequant launched once for each of "
+            f"{fills} miss fills, every batch's rows bitwise the plain arm's "
+            f"and the numpy dequant of the q8 pull; q8 egress "
+            f"{f32_bytes / q8_bytes:.2f}x below f32")
+        return counts, res
+    finally:
+        for c in clients:
+            c.close()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(sdir, ignore_errors=True)
+
+
 def log_bwd_entries(bwd):
     """Phase 2's line for each sm90 backward entry (``check_ptxas``'s
     {mangled name: [registers, spill bytes]}): its kernel, head_dim and
@@ -6480,6 +7405,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 37: {time.perf_counter() - t0:.1f} s")
 
+    # 38. the geo-replicated online loop: two sites, geo pushers both ways,
+    # chaos, last-writer-wins, freshness
+    geo_counts, _ = geo_online(dev, wd_params, wd_batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 39. the tiered table beyond RAM, its wires and a q8 cache on the card
+    t0 = time.perf_counter()
+    scale_counts, _ = ps_scale(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 39: {time.perf_counter() - t0:.1f} s")
+
     options = {
         "flash_attention": {
             "bias": bias_rows["bias float32 D=64"],
@@ -6498,7 +7436,8 @@ def main() -> int:
                                          rn_counts, ab_counts, bt_counts,
                                          bs_counts, er_counts, mt_counts,
                                          gw_counts, gh_counts,
-                                         fleet_counts))
+                                         fleet_counts, geo_counts,
+                                         scale_counts))
         by_mode = {}
         for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes},
                   {"int8_kv_attention": gh_modes}, fleet_modes):

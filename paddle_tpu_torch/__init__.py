@@ -17,7 +17,8 @@ inference (``quantization.convert_to_int8_inference`` over
 ``vision.models.resnet50`` and its family), parameter-server training
 (``distributed.fleet.HeterTrainer``), the elastic data plane
 (``distributed.fleet.ElasticTrainer``), the online loop
-(``online.StreamingTrainer`` over ``distributed.fleet.PSServer``) and
+(``online.StreamingTrainer`` over ``distributed.fleet.PSServer``, with
+geo replication, the tiered table and the fleet PS entry points) and
 ResNet training (``optimizer.Momentum``, ``nn.functional.cross_entropy``
 and batch norm with batch statistics under the same step).  The
 subpackages are imported on first attribute access, so

@@ -13,6 +13,8 @@ other's server.  Client modes:
   sync       push blocks until applied
   half_async push enqueues; a drain thread sends the queue
   async      the same queue, no barrier coupling
+  geo        pushes accumulate locally as raw deltas and flush to the
+             servers' ``push_delta`` every ``geo_k_steps`` pushes
   read       pull-only, fanned out over read replicas (below)
 
 Fault tolerance:
@@ -72,10 +74,17 @@ barriers.  ``worker_barrier`` is a rendezvous across live workers:
 under ``on_dead="evict"`` it completes without the dead, under
 ``on_dead="fail"`` it raises on the survivors.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md
-item 6): the ``geo`` client mode, ``geo_set`` and the geo stamps
-(``geo_site``), commit listeners, and replica-side read coalescing
-(``read_coalesce_ms > 0``).
+Geo tier: commit listeners (``add_commit_listener``: every committed
+mutation record, called under the apply lock) feed
+:class:`~.geo.GeoPusher`; a table with ``geo_policy="lww"`` gets a
+``(lamport seq, site)`` stamp on every local write, minted on the server
+(``geo_site``), and the ``geo_set`` op replaces a row iff its incoming
+stamp beats the stored one; the stamp directory rides the attach
+snapshot and forwarded records, so standbys and read replicas decide
+conflicts as the primary does.  ``PSClient(mode="geo")`` accumulates
+local deltas and flushes them every ``geo_k_steps`` pushes.  A read
+replica may coalesce concurrent pulls within ``read_coalesce_ms`` into
+one gather (:class:`_ReadCoalescer`).
 """
 from __future__ import annotations
 
@@ -104,7 +113,6 @@ __all__ = ["PSServer", "PSClient", "PSError", "PSConnectError",
            "PSUnavailable"]
 
 _HDR = struct.Struct("!I")
-_ITEM6 = "not ported yet (ROADMAP.md item 6: PS, recsys, online tier)"
 # pre-pickled pull2 reply headers keyed by (n_ids, n_unique, dim)
 _PULL2_HDR_CACHE = {}
 
@@ -163,7 +171,7 @@ class _ReplicaDown(PSError):
 
 # RPCs with server-side effects: they carry (src, seq) so a retry can be
 # acked without re-applying (additive pushes would double-apply;
-# geo_set, which the port refuses, stays listed for the wire's sake)
+# geo_set must not re-run its stamp comparisons against its own result)
 _MUTATING_OPS = ("push", "push_delta", "geo_set", "register", "barrier")
 
 # RPCs an un-promoted standby must refuse: serving pulls would return
@@ -494,6 +502,99 @@ class HeartBeatMonitor:
                     self.cond.notify_all()
 
 
+class _ReadCoalescer:
+    """Replica-side pull coalescing.  Concurrent pulls arriving within
+    ``window_s`` merge into one table gather over the union of their
+    ids; each reader's
+    rows are sliced back out of the union result, bit-equal to an
+    uncoalesced pull of the same snapshot (a gather of a gather is the
+    same gather).
+
+    The first arriving reader becomes the LEADER: it waits out the
+    window, drains the pending set, executes one ``pull(unique_ids)``
+    per table, and scatters rows to every rider via
+    ``searchsorted(unique_ids, ids)`` (np.unique returns sorted ids,
+    so the mapping is exact, duplicates included).  Riders block on an
+    event.  A failed gather propagates the SAME exception to every
+    rider — nobody hangs.
+
+    The window is a CEILING, not a floor: the leader's wait is an
+    Event it abandons early once ``flush_at`` pulls are pending
+    (amortization achieved — waiting longer only adds latency), and a
+    leader elected on a QUIET replica (no flush within the last
+    window, so there is no evidence of concurrency to wait for)
+    skips the wait entirely — a solitary low-rate pull pays ~zero
+    added latency instead of the whole window.
+
+    ``_lock`` only guards the pending list (append/drain) and the
+    leader-election state; the gather itself runs outside it, and no
+    other ps_service lock is taken while holding it — the coalescer
+    lock is a leaf.
+    """
+
+    def __init__(self, table_fn, window_s: float, flush_at: int = 64):
+        self._table_fn = table_fn
+        self._window = float(window_s)
+        self._flush_at = max(int(flush_at), 1)
+        self._lock = threading.Lock()
+        self._pending: List[dict] = []
+        self._leading = False
+        self._wake = threading.Event()
+        self._last_flush = -float("inf")
+
+    def pull(self, table: str, ids):
+        req = {"table": table, "ids": ids,
+               "ev": threading.Event(), "vals": None, "err": None}
+        with self._lock:
+            self._pending.append(req)
+            lead = not self._leading
+            if lead:
+                self._leading = True
+                self._wake = threading.Event()
+                quiet = (time.monotonic() - self._last_flush
+                         > self._window)
+            elif len(self._pending) >= self._flush_at:
+                self._wake.set()
+        if not lead:
+            req["ev"].wait()
+            if req["err"] is not None:
+                raise req["err"]
+            return req["vals"]
+        if not quiet and len(self._pending) < self._flush_at:
+            self._wake.wait(self._window)
+        with self._lock:
+            batch, self._pending = self._pending, []
+            self._leading = False
+            self._last_flush = time.monotonic()
+        self._execute(batch)
+        if req["err"] is not None:
+            raise req["err"]
+        return req["vals"]
+
+    def _execute(self, batch: List[dict]):
+        groups: Dict[str, List[dict]] = {}
+        for r in batch:
+            groups.setdefault(r["table"], []).append(r)
+        for name, reqs in groups.items():
+            try:
+                t = self._table_fn(name)
+                flat = [np.asarray(r["ids"]).reshape(-1) for r in reqs]
+                uniq = np.unique(np.concatenate(flat))
+                rows = t.pull(uniq)
+                for r, ids in zip(reqs, flat):
+                    r["vals"] = rows[np.searchsorted(uniq, ids)]
+            except Exception as e:   # propagate, never strand a rider
+                for r in reqs:
+                    r["err"] = e
+            finally:
+                for r in reqs:
+                    r["ev"].set()
+        _monitor.stat_add("ps_read_coalesce_batches", len(groups))
+        _monitor.stat_add("ps_read_coalesced_pulls", len(batch))
+        if _monitor.metrics_enabled():
+            _monitor.hist_observe("ps_read_coalesce_size", len(batch))
+
+
 class PSServer:
     """Serves SparseTable pull/push (parity: brpc_ps_server.cc).
 
@@ -530,11 +631,6 @@ class PSServer:
                  read_coalesce_ms: float = 0.0,
                  read_coalesce_batch: int = 64,
                  geo_site: Optional[str] = None):
-        if read_coalesce_ms > 0:
-            raise NotImplementedError(
-                f"PSServer(read_coalesce_ms>0): read coalescing {_ITEM6}")
-        if geo_site is not None:
-            raise NotImplementedError(f"PSServer(geo_site=...): {_ITEM6}")
         if on_dead not in ("evict", "fail"):
             raise ValueError(f"on_dead must be 'evict' or 'fail', "
                              f"got {on_dead!r}")
@@ -606,10 +702,40 @@ class PSServer:
         # applied here — pushes stamped with ``iwm`` feed the
         # event-ingested -> servable freshness histogram on replicas
         self._ingest_wm = 0.0
+        # geo conflict-policy state: per-(table, id) LWW stamps
+        # ``(lamport seq, site)`` for tables declaring geo_policy="lww";
+        # local writes mint fresh stamps, incoming geo_set records
+        # compare against them.  Replicated: forwarded records carry
+        # their stamp (``gst``) and the attach snapshot header carries
+        # the whole directory, so a promoted standby keeps deciding
+        # conflicts exactly like the dead primary.
+        self.geo_site = geo_site or f"site-{os.getpid()}-{self.port}"
+        self._geo_clock = 0
+        # the stamps live in the tables (a vocabulary-scale directory in
+        # ps_core.cc beside the slots); the server keeps only a
+        # site-name intern pool (native slots store an int32 site index)
+        # and the set of tables that ever minted a stamp;
+        # ``_geo_stamps`` materialises them for tests and debugging
+        self._geo_sites: List[str] = []
+        self._geo_site_idx: Dict[str, int] = {}
+        self._geo_tables: set = set()
         # admitted-churn publication cursor (PSServer.ttl_sweep)
         self._admitted_published: Dict[str, int] = {}
+        # commit listeners (geo tier): fn(record) called under the apply
+        # lock after each committed mutation; keep them fast
+        self._commit_listeners: List = []
+        # replica-side read coalescing: concurrent pulls landing within
+        # the window merge into one gather over the union of their ids;
+        # off by default (it trades up to the window in latency for
+        # gather amortisation; quiet replicas and full batches skip the
+        # wait, see _ReadCoalescer)
+        self._coalescer = (_ReadCoalescer(self._table,
+                                          read_coalesce_ms / 1e3,
+                                          flush_at=read_coalesce_batch)
+                           if read_coalesce_ms > 0 else None)
         if replica_of is None:
             self.replica_ready.set()
+
     def start(self, block: bool = False):
         self.monitor.start()
         t = threading.Thread(target=self._accept_loop, daemon=True)
@@ -719,6 +845,9 @@ class PSServer:
                             self._send_pull2(conn, msg)
                         elif op == "pull_q8":
                             self._send_pull_q8(conn, msg)
+                        elif self._coalescer is not None:
+                            _send_msg(conn, {"vals": self._coalescer.pull(
+                                msg["table"], msg["ids"])})
                         else:
                             t = self._table(msg["table"])
                             _send_msg(conn, {"vals": t.pull(msg["ids"])})
@@ -897,6 +1026,45 @@ class PSServer:
                          "codes": codes, "scales": scales})
         _monitor.stat_add("ps_server_pull_q8")
 
+    # -- geo stamp directory (native, vocabulary-scale) -----------------
+    def _site_idx(self, site: str) -> int:
+        """Intern a site name -> stable int32 index (native slots store
+        the index; the wire and tests speak site STRINGS)."""
+        i = self._geo_site_idx.get(site)
+        if i is None:
+            i = len(self._geo_sites)
+            self._geo_sites.append(site)
+            self._geo_site_idx[site] = i
+        return i
+
+    def _site_name(self, idx: int) -> str:
+        return self._geo_sites[idx] if 0 <= idx < len(self._geo_sites) \
+            else ""
+
+    @property
+    def _geo_stamps(self) -> Dict[str, Dict[int, Tuple[int, str]]]:
+        """Materialise the per-table LWW stamp directories out of the
+        tables (a read-only snapshot; the live stamps are ps_core.cc slot
+        metadata) for ``server._geo_stamps[table][id]`` lookups."""
+        out: Dict[str, Dict[int, Tuple[int, str]]] = {}
+        for name in self._geo_tables:
+            t = self._tables.get(name)
+            if t is None:
+                continue
+            ids, seqs, sites = t.geo_export()
+            out[name] = {int(k): (int(s), self._site_name(int(si)))
+                         for k, s, si in zip(ids, seqs, sites)}
+        return out
+
+    def _geo_stamp_ids(self, t, name: str, ids, gst: Tuple[int, str]):
+        """Stamp ``ids`` of table ``name`` with one (seq, site) pair."""
+        ids = np.ascontiguousarray(np.asarray(ids).reshape(-1), np.int64)
+        t.geo_put(ids,
+                  np.full(ids.size, int(gst[0]), np.int64),
+                  np.full(ids.size, self._site_idx(str(gst[1])),
+                          np.int32))
+        self._geo_tables.add(name)
+
     # -- idempotency + replication --------------------------------------
     def _record_seq(self, msg) -> bool:
         """Record (src, seq) of a non-table mutating RPC (register /
@@ -921,10 +1089,6 @@ class PSServer:
         all under the apply lock, BEFORE the client is acked.  Returns
         False when the seq was already applied (retry: ack only)."""
         src, seq = msg.get("src"), msg.get("seq")
-        op = msg["op"]
-        if op not in ("push", "push_delta", "evict"):
-            # refused before the seq is recorded: a refusal is no apply
-            raise NotImplementedError(f"PS op {op!r}: {_ITEM6}")
         with self._apply_lock:
             if src is not None and seq is not None:
                 w = self._seqs.get(src)
@@ -935,14 +1099,33 @@ class PSServer:
                     _monitor.stat_add("ps_server_dup_acks")
                     return False
             t = self._table(msg["table"])
+            op = msg["op"]
             if op == "push":
                 t.push(msg["ids"], msg["grads"])
             elif op == "push_delta":
                 t.push_delta(msg["ids"], msg["deltas"])
-            else:
-                # evict: a replica's replay of a primary TTL sweep (it
-                # only ever arrives on the replication stream)
+            elif op == "evict":
+                # replica-side replay of a primary TTL sweep (only ever
+                # arrives on the replication stream)
                 t.evict_ids(msg["ids"])
+            else:  # geo_set: LWW conflict resolution, winning subset
+                msg = self._apply_geo_set(t, msg)
+            # LWW stamp minting: every LOCAL write to an lww table
+            # stamps its ids (lamport clock, this site); a replica
+            # applying the forwarded record reuses the primary's stamp
+            # (``gst``) so both sides' stamp directories stay identical
+            if op in ("push", "push_delta") \
+                    and getattr(t, "geo_policy", "add") == "lww":
+                g = msg.get("gst")
+                if g is not None:
+                    gst = (int(g[0]), str(g[1]))
+                else:
+                    self._geo_clock += 1
+                    gst = (self._geo_clock, self.geo_site)
+                    msg["gst"] = [gst[0], gst[1]]
+                if gst[0] > self._geo_clock:
+                    self._geo_clock = gst[0]
+                self._geo_stamp_ids(t, msg["table"], msg["ids"], gst)
             self.applied += 1
             # ingest watermark: a push stamped with the
             # event's ingest time makes end-to-end freshness measurable
@@ -971,12 +1154,78 @@ class PSServer:
             _flight.record("ps.apply", op=op,
                            table=msg.get("table"), src=src, seq=seq,
                            applied=self.applied)
+            for fn in self._commit_listeners:
+                # geo tier hook: runs under the apply lock — listeners
+                # must only buffer (a failing listener must not fail or
+                # slow the commit).  Listeners receive the WHOLE record
+                # (op/table/ids/payload/src) so a bidirectional geo
+                # pusher can tell a peer's delta from a local write.
+                try:
+                    fn(msg)
+                except Exception:
+                    pass
             if self._replicas:
                 self._forward(msg)
         return True
 
+    def _apply_geo_set(self, t, msg) -> dict:
+        """Resolve one LWW geo_set record: ids whose incoming stamp
+        ``(seq, site)`` is strictly greater than the stored stamp WIN —
+        their rows are replaced wholesale and their stamps advance; the
+        rest are skipped (the local write is newer).  Returns the
+        record filtered to the winning subset — that is what gets
+        forwarded to replicas (they apply it blindly, so a replica
+        never needs to re-decide a conflict it did not see the loser
+        of) and what commit listeners observe."""
+        ids = np.asarray(msg["ids"]).reshape(-1).astype(np.int64)
+        # explicit dims: reshape(0, -1) cannot infer on empty payloads
+        vals = np.asarray(msg["vals"], np.float32).reshape(
+            ids.size, int(t.dim))
+        seqs = np.asarray(msg["seqs"]).reshape(-1).astype(np.int64)
+        sites = [str(s) for s in (msg.get("sites") or [])]
+        # stored stamps come from the table's native directory; the
+        # tiebreak is the (seq, site-string) tuple compare
+        cur_sq, cur_si = t.geo_get(ids)
+        win = []
+        for i, k in enumerate(ids.tolist()):
+            stamp = (int(seqs[i]), sites[i])
+            if stamp[0] > self._geo_clock:
+                self._geo_clock = stamp[0]
+            cur = (int(cur_sq[i]), self._site_name(int(cur_si[i]))) \
+                if cur_sq[i] >= 0 else (-1, "")
+            if stamp > cur:
+                win.append(i)
+        if win:
+            site_idx = np.asarray([self._site_idx(sites[i])
+                                   for i in win], np.int32)
+            t.geo_put(np.ascontiguousarray(ids[win]),
+                      np.ascontiguousarray(seqs[win]), site_idx)
+            self._geo_tables.add(msg["table"])
+        wi = np.asarray(win, np.int64)
+        out = dict(msg)
+        out["ids"] = np.ascontiguousarray(ids[wi])
+        out["vals"] = np.ascontiguousarray(vals[wi]) if wi.size \
+            else np.zeros((0, vals.shape[1]), np.float32)
+        out["seqs"] = np.ascontiguousarray(seqs[wi])
+        out["sites"] = [sites[i] for i in win]
+        # applied even when empty: version must tick identically on the
+        # replica replaying this record
+        t.set_vals(out["ids"], out["vals"])
+        return out
+
     def add_commit_listener(self, fn):
-        raise NotImplementedError(f"PSServer.add_commit_listener: {_ITEM6}")
+        """Subscribe ``fn(record)`` to every committed mutation (called
+        under the apply lock — buffer, don't block; the geo delta
+        pusher's dirty-id feed).  ``record`` is the full mutation dict
+        (op/table/ids/payload/src/seq) so a bidirectional geo pusher
+        can distinguish a peer's replicated write from a local one."""
+        with self._apply_lock:
+            self._commit_listeners.append(fn)
+
+    def remove_commit_listener(self, fn):
+        with self._apply_lock:
+            if fn in self._commit_listeners:
+                self._commit_listeners.remove(fn)
 
     def _forward(self, msg):
         """Stream one committed mutation to every replica (called under
@@ -989,7 +1238,8 @@ class PSServer:
         (this server's applied count) the replicas' staleness bound is
         measured in."""
         rec = {k: msg[k] for k in ("op", "table", "ids", "grads",
-                                   "deltas", "iwm", "src", "seq")
+                                   "deltas", "vals", "seqs", "sites",
+                                   "gst", "iwm", "src", "seq")
                if k in msg}
         rec["cs"] = self.applied
         # primary commit wall clock ``ts`` + head clock ``hts``: the
@@ -1053,12 +1303,26 @@ class PSServer:
             blobs = [(n, self._tables[n].state_bytes()) for n in names]
             seqs = {s: w.export() for s, w in self._seqs.items()}
             head = self.applied
+            geo = None
+            if self._geo_tables or self._geo_clock:
+                # site strings on the wire (the int32 intern indices
+                # are a local encoding)
+                stamps = {}
+                for n in sorted(self._geo_tables):
+                    t = self._tables.get(n)
+                    if t is None:
+                        continue
+                    gi, gs, gsi = t.geo_export()
+                    stamps[n] = [[int(k), int(s),
+                                  self._site_name(int(si))]
+                                 for k, s, si in zip(gi, gs, gsi)]
+                geo = {"clock": self._geo_clock, "stamps": stamps}
             rep["lock"].acquire()
             self._replicas.append(rep)
         try:
             conn.settimeout(30.0)
             _send_msg_raw(conn, {"op": "snapshot", "tables": names,
-                                 "seqs": seqs, "head": head, "geo": None,
+                                 "seqs": seqs, "head": head, "geo": geo,
                                  "srv_us": time.time_ns() // 1000,
                                  "srv_sink": _trace.sink_id()})
             for n, b in blobs:
@@ -1263,15 +1527,28 @@ class PSServer:
                     return False
                 self._load_snapshot_table(fr["table"],
                                           fr["blob"].tobytes())
-            if head.get("geo"):
-                # a primary holding geo stamps: this replica could not
-                # decide conflicts as it does, so it must never serve
-                self.replica_error = NotImplementedError(
-                    f"replicating geo stamps: {_ITEM6}")
-                return False
             with self._apply_lock:
                 self._seqs = {s: _SeqWindow.from_export(x)
                               for s, x in head.get("seqs", {}).items()}
+                g = head.get("geo")
+                if g:
+                    # LWW stamp directory: a standby that later promotes
+                    # must decide conflicts exactly like the primary did
+                    self._geo_clock = max(self._geo_clock,
+                                          int(g.get("clock", 0)))
+                    # restore into the tables' native stamp directories
+                    # (tables were already restored above, so stamping
+                    # after the pts_clear-based table load is safe)
+                    for n, rows in g.get("stamps", {}).items():
+                        t = self._tables.get(n)
+                        if t is None or not rows:
+                            continue
+                        t.geo_put(
+                            np.asarray([r[0] for r in rows], np.int64),
+                            np.asarray([r[1] for r in rows], np.int64),
+                            np.asarray([self._site_idx(str(r[2]))
+                                        for r in rows], np.int32))
+                        self._geo_tables.add(n)
             self._watermark = self._head = int(head.get("head", 0))
             self._last_stream = time.monotonic()
             # snapshot == caught up as of the primary's clock in the
@@ -1468,6 +1745,20 @@ class PSServer:
             if t is None or not hasattr(t, "ttl_sweep"):
                 continue
             t.set_clock(int(now * 1000.0))
+            if getattr(t, "spill_enabled", False):
+                # tiered table: the lifecycle tick is the
+                # temperature signal — cold rows DEMOTE to the mmap
+                # spill tier instead of evicting.  Demotion is local
+                # placement (rows stay pullable, values unchanged), so
+                # no version tick and no replicated ``evict`` record.
+                with self._apply_lock:
+                    d = t.spill_sweep(int(float(cutoff) * 1000.0))
+                if d:
+                    _monitor.stat_add("ps_feature_demoted", d)
+                _flight.record("ps.spill_sweep", table=name, demoted=d,
+                               cutoff=float(cutoff), rows=len(t))
+                out[name] = 0
+                continue
             with self._apply_lock:
                 ev = t.ttl_sweep(int(float(cutoff) * 1000.0))
                 n = int(ev.size)
@@ -1647,7 +1938,7 @@ class PSClient:
     server even for additive pushes; exhausting the budget raises
     :class:`PSUnavailable` naming the shard's endpoints.
 
-    Delivery semantics by mode: sync pushes are acked
+    Delivery semantics by mode: sync (and geo flush) pushes are acked
     before returning — exactly-once.  Async/half-async pushes are
     one-way frames, at-most-once in flight; :meth:`barrier` then
     confirms every sent seq against the server's applied-seq window
@@ -1669,7 +1960,7 @@ class PSClient:
     """
 
     def __init__(self, endpoints, mode: str = "sync", send_queue_size=16,
-                 worker_id: Optional[str] = None,
+                 geo_k_steps: int = 100, worker_id: Optional[str] = None,
                  heartbeat_interval: float = 0.0,
                  connect_timeout: Optional[float] = None,
                  rpc_timeout: Optional[float] = None,
@@ -1678,8 +1969,6 @@ class PSClient:
                  rpc_deadline: Optional[float] = None,
                  read_replicas=None, max_lag: Optional[int] = None,
                  pull_wire: Optional[str] = None):
-        if mode == "geo":
-            raise NotImplementedError(f"PSClient(mode='geo'): {_ITEM6}")
         self._ep_lists: List[List[Tuple[str, int]]] = []
         for e in endpoints:
             if isinstance(e, (list, tuple)):
@@ -1752,6 +2041,12 @@ class PSClient:
                     target=self._beat, args=(heartbeat_interval,),
                     daemon=True)
                 self._beater.start()
+        # geo mode: deltas accumulate locally and flush to the servers'
+        # push_delta every k pushes (the trainer trains a local mirror;
+        # only step deltas travel)
+        self._geo_k = geo_k_steps
+        self._geo_acc: Dict[str, Dict[int, np.ndarray]] = {}
+        self._geo_pushes = 0
         # pull wire format: "row" = classic per-request f32
         # rows; "zc" = deduped {inv, vals_uniq} answered by the
         # server's zero-copy scatter-gather path; "q8" = deduped int8
@@ -2135,6 +2430,17 @@ class PSClient:
             raise PSError("read-mode PSClient is pull-only")
         ids = np.asarray(ids).reshape(-1)
         grads = np.asarray(grads, np.float32)
+        if self._mode == "geo":
+            acc = self._geo_acc.setdefault(table, {})
+            for i, g in zip(ids.tolist(), grads):
+                if i in acc:
+                    acc[i] = acc[i] + g
+                else:
+                    acc[i] = g.copy()
+            self._geo_pushes += 1
+            if self._geo_pushes % self._geo_k == 0:
+                self.flush_deltas()
+            return
         if self._mode in ("async", "half_async"):
             self._q.put((table, ids, grads))
             return
@@ -2212,7 +2518,60 @@ class PSClient:
         return applied
 
     def geo_set(self, table: str, ids, vals, seqs, sites):
-        raise NotImplementedError(f"PSClient.geo_set: {_ITEM6}")
+        """LWW geo row shipment: each id carries its origin stamp
+        ``(lamport seq, site)``; the receiving server replaces the row
+        iff the stamp beats its stored one (``PSServer._apply_geo_set``).
+        Rides the idempotent ``(src, seq)`` retry layer, so a lossy geo
+        link cannot replay a conflict decision."""
+        if self._mode == "read":
+            raise PSError("read-mode PSClient is pull-only")
+        ids = np.ascontiguousarray(np.asarray(ids).reshape(-1), np.int64)
+        if ids.size == 0:
+            return
+        vals = np.ascontiguousarray(
+            np.asarray(vals, np.float32).reshape(ids.size, -1))
+        seqs = np.ascontiguousarray(np.asarray(seqs).reshape(-1),
+                                    np.int64)
+        sites = [str(s) for s in sites]
+        if len(self._socks) == 1:
+            self._rpc(0, {"op": "geo_set", "table": table, "ids": ids,
+                          "vals": vals, "seqs": seqs, "sites": sites,
+                          "sync": True}, reply=True)
+            return
+        shard = self._shard(ids)
+        for r in range(len(self._socks)):
+            m = shard == r
+            if not m.any():
+                continue
+            sel = np.flatnonzero(m)
+            self._rpc(r, {"op": "geo_set", "table": table,
+                          "ids": np.ascontiguousarray(ids[m]),
+                          "vals": np.ascontiguousarray(vals[m]),
+                          "seqs": np.ascontiguousarray(seqs[m]),
+                          "sites": [sites[int(i)] for i in sel],
+                          "sync": True}, reply=True)
+
+    def flush_deltas(self):
+        """Send accumulated geo deltas to the servers (push_delta adds
+        them raw — no server-side optimizer)."""
+        for table, acc in self._geo_acc.items():
+            if not acc:
+                continue
+            ids = np.fromiter(acc.keys(), np.int64, len(acc))
+            deltas = np.stack([acc[i] for i in ids.tolist()])
+            if len(self._socks) == 1:
+                self._rpc(0, {"op": "push_delta", "table": table,
+                              "ids": ids, "deltas": deltas, "sync": True},
+                          reply=True)
+            else:
+                shard = self._shard(ids)
+                for r in range(len(self._socks)):
+                    m = shard == r
+                    if m.any():
+                        self._rpc(r, {"op": "push_delta", "table": table,
+                                      "ids": ids[m], "deltas": deltas[m],
+                                      "sync": True}, reply=True)
+            acc.clear()
 
     def _push_now(self, table, ids, grads, sync):
         if len(self._socks) == 1:
@@ -2268,6 +2627,8 @@ class PSClient:
         # flush the async queue (join waits for task_done, so in-flight
         # pushes count — q.empty() would race the drainer) then round-trip
         # every server
+        if self._mode == "geo":
+            self.flush_deltas()
         self._q.join()
         if self._push_err is not None:
             err, self._push_err = self._push_err, None

@@ -6,6 +6,8 @@ name, so a strategy written for the reference builds here.  The port's
 :class:`~.dist_step.DistributedTrainStep` runs ``amp`` (bf16 compute
 over f32 master weights) and ``recompute``; it refuses every other
 toggle that is on, and float16 AMP, with ``NotImplementedError``.
+The parameter-server modes read ``a_sync`` and ``a_sync_configs``
+(``PSRuntime.init_worker``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,18 @@ _DEFAULT_CONFIGS = {
     "gradient_merge_configs": dict(k_steps=1, avg=True),
     "dgc_configs": dict(rampup_begin_step=0, rampup_step=1,
                         sparsity=[0.999], momentum=0.9),
+    "lamb_configs": dict(lamb_weight_decay=0.01, exclude_from_weight_decay=[]),
+    "lars_configs": dict(lars_coeff=0.001, lars_weight_decay=0.0005,
+                         epsilon=0.0, exclude_from_weight_decay=[]),
+    # the parameter-server modes (``PSRuntime.init_worker``: sync, async
+    # or geo) and worker liveness
+    "a_sync_configs": dict(k_steps=-1, max_merge_var_num=1,
+                           send_queue_size=16, independent_recv_thread=False,
+                           min_send_grad_num_before_recv=1, thread_pool_size=1,
+                           send_wait_times=1, runtime_split_send_recv=False,
+                           launch_barrier=True, geo_sgd_mode=False,
+                           geo_sgd_need_push_nums=100,
+                           heartbeat_timeout=10.0, on_dead="evict"),
     "hybrid_configs": dict(dp_degree=-1, mp_degree=1, pp_degree=1,
                            sharding_degree=1, sep_degree=1),
 }
@@ -76,6 +90,18 @@ class DistributedStrategy:
     def enabled(self):
         """Names of the toggles that are on."""
         return [k for k, v in self._flags.items() if v]
+
+    def mesh_degrees(self):
+        """Mesh axis sizes the strategy asks for (unset axes 1; dp -1
+        absorbs the remainder), as the reference derives them."""
+        h = self._configs["hybrid_configs"]
+        fsdp = max(self._configs["sharding_configs"]["sharding_degree"],
+                   h.get("sharding_degree", 1)) if self.sharding else \
+            h.get("sharding_degree", 1)
+        return {"dp": h.get("dp_degree", -1), "fsdp": max(1, fsdp),
+                "tp": max(1, h.get("mp_degree", 1)),
+                "pp": max(1, h.get("pp_degree", 1)),
+                "sp": max(1, h.get("sep_degree", 1))}
 
     def __repr__(self):
         return f"DistributedStrategy(on={self.enabled()})"

@@ -2,7 +2,8 @@
 
 The counterpart of ``paddle_tpu/native``: ``ps_core.cc`` (the sparse
 table: sharded directory, pull, fused push, q8 pull, checkpoint export,
-TTL lifecycle, the zero-copy pull wire)
+TTL lifecycle, feature admission, the mmap spill tier, the geo stamp
+directory, the zero-copy pull wire)
 and ``cache_dir.cc`` (the device cache's directory: id -> slot, LRU, pins,
 admission planning) are copies of the reference's sources, the same code
 line for line (only comments differ), compiled with the same flags
@@ -76,8 +77,8 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def ps_core() -> ctypes.CDLL:
-    """The sparse-table core with argtypes declared for the symbols the
-    port calls."""
+    """The sparse-table core with argtypes declared for every ``pts_*``
+    symbol the port calls (the set the reference's wrapper declares)."""
     lib = load_library("ps_core")
     if getattr(lib, "_pts_ready", False):
         return lib
@@ -133,5 +134,35 @@ def ps_core() -> ctypes.CDLL:
     lib.pts_sendv_addrs.argtypes = [
         c.c_int, u64p, c.c_int64, c.c_int64, c.c_void_p, c.c_int64,
         c.c_void_p, c.c_int64, c.c_int64]
+    lib.pts_resolve.argtypes = [c.c_void_p, i64p, c.c_int64, u64p]
+    # feature admission, learning rate, LWW row replacement
+    lib.pts_set_lr.argtypes = [c.c_void_p, c.c_float]
+    lib.pts_set_entry.argtypes = [c.c_void_p, c.c_int, c.c_double]
+    lib.pts_entry_export.restype = c.c_int64
+    lib.pts_entry_export.argtypes = [c.c_void_p, c.c_int, i64p, i64p,
+                                     c.c_int64]
+    lib.pts_entry_import.argtypes = [c.c_void_p, i64p, c.c_int64, i64p,
+                                     i64p, c.c_int64]
+    lib.pts_set_vals.argtypes = [c.c_void_p, i64p, c.c_int64, f32p]
+    # the SIMD toggle of the fused push
+    lib.pts_simd_available.restype = c.c_int
+    lib.pts_simd_available.argtypes = []
+    lib.pts_set_simd.argtypes = [c.c_int]
+    # the mmap spill tier
+    lib.pts_enable_spill.restype = c.c_int
+    lib.pts_enable_spill.argtypes = [c.c_void_p, c.c_char_p]
+    lib.pts_spill_enabled.restype = c.c_int
+    lib.pts_spill_enabled.argtypes = [c.c_void_p]
+    lib.pts_spill_sweep.restype = c.c_int64
+    lib.pts_spill_sweep.argtypes = [c.c_void_p, c.c_uint64]
+    lib.pts_spill_recover.restype = c.c_int64
+    lib.pts_spill_recover.argtypes = [c.c_void_p, c.c_char_p]
+    lib.pts_spill_stats.argtypes = [c.c_void_p, u64p]
+    lib.pts_spill_advise.argtypes = [c.c_void_p]
+    # the geo LWW stamp directory
+    lib.pts_geo_get.argtypes = [c.c_void_p, i64p, c.c_int64, i64p, i32p]
+    lib.pts_geo_put.argtypes = [c.c_void_p, i64p, c.c_int64, i64p, i32p]
+    lib.pts_geo_export.restype = c.c_int64
+    lib.pts_geo_export.argtypes = [c.c_void_p, i64p, i64p, i32p, c.c_int64]
     lib._pts_ready = True
     return lib

@@ -1,7 +1,9 @@
 """The online loop of the port (``paddle_tpu_torch/online``) against the
 JAX package: the sorted segment-sum's plain version and
 ``merge_segments``, the streaming trainer's pushes, and the whole loop
-(primary, read replica, TTL sweeper) on a seeded stream.
+(primary, read replica, TTL sweeper) on a seeded stream; the reference's
+chaos acceptance across geo (a primary SIGKILLed, a lossy geo link into
+a JAX-package remote) and its freshness-breach postmortem.
 
 Tolerances: ``segment_sum_sorted``'s registered one (atol 1e-6, "bit-
 exact for integer-valued grads"); the merge, the trainer's pushes and
@@ -15,12 +17,14 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.distributed.fleet import chaos as jchaos
 from paddle_tpu.distributed.fleet.ps import SparseTable as JTable
 from paddle_tpu.distributed.fleet.ps_service import PSServer as JServer
 from paddle_tpu.framework import monitor as jmonitor
@@ -29,11 +33,13 @@ from paddle_tpu.io.dataset import IterableDataset as JIterable
 from paddle_tpu.online import FeatureLifecycle as JLifecycle
 from paddle_tpu.online import StreamingTrainer as JTrainer
 from paddle_tpu_torch.distributed.fleet import (PSClient, PSServer,
-                                                SparseTable)
+                                                SparseTable, chaos)
+from paddle_tpu_torch.distributed.fleet.geo import GeoPusher
 from paddle_tpu_torch.framework import monitor
 from paddle_tpu_torch.io import DataLoader, IterableDataset
 from paddle_tpu_torch.observability import flight_recorder
-from paddle_tpu_torch.online import FeatureLifecycle, StreamingTrainer
+from paddle_tpu_torch.online import (FeatureLifecycle, FreshnessWatch,
+                                     StreamingTrainer)
 from paddle_tpu_torch.ops.kernels import registry
 from paddle_tpu_torch.ops.kernels.segment_sum import (
     SORTED_NSEG_MIN, merge_segments, segment_sum, segment_sum_sorted,
@@ -267,8 +273,10 @@ def test_device_merge_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamingTrainer(None, _Sink(4), "emb", _seeded_grads,
                          device_merge=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        from paddle_tpu_torch.online import FreshnessWatch  # noqa: F401
+    # the freshness SLO is ported beside the trainer
+    from paddle_tpu_torch.online import FreshnessWatch
+    assert [s["ok"] for s in FreshnessWatch().evaluate(snapshot={})] == \
+        [True, True]
 
 
 # ---------------------------------------------------------------------------
@@ -598,3 +606,233 @@ def test_trainer_sigkill_resume_exactly_once(tmp_path):
             p1.kill()
             p1.wait(timeout=10)
         prim.stop()
+
+
+# ---------------------------------------------------------------------------
+# the chaos acceptance across geo, and the freshness breach
+# ---------------------------------------------------------------------------
+
+_SERVER_PROC_SRC = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+cfg = json.loads(sys.argv[2])
+from paddle_tpu_torch.distributed.fleet.ps import SparseTable
+from paddle_tpu_torch.distributed.fleet.ps_service import PSServer
+srv = PSServer({"emb": SparseTable(**cfg["spec"])}, host="127.0.0.1")
+srv.start()
+print(json.dumps({"port": srv.port, "pid": os.getpid()}), flush=True)
+srv._stop.wait()
+"""
+
+
+def test_chaos_primary_sigkill_lossy_geo_acceptance(_metrics):
+    """The reference's chaos acceptance on the port: the primary
+    SIGKILLed mid-stream, the geo pusher riding the standby over a
+    seeded lossy, delayed and cut link into a remote cluster of the JAX
+    package: 0 lost / 0 double-applied rows (the counting table reads
+    the applied count), the remote bitwise the promoted standby, no
+    failed or over-stale read through the failover."""
+    steps, kill_at = 60, 20
+    max_lag, stale_after = 8, 1.0
+    ids = np.arange(32, dtype=np.int64)
+    env = dict(os.environ)
+    env.pop("PADDLE_CHAOS", None)
+    prim_proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVER_PROC_SRC, _REPO,
+         json.dumps({"spec": _COUNT})], env=env,
+        stdout=subprocess.PIPE, text=True)
+    prim_ep = (f"127.0.0.1:"
+               f"{json.loads(prim_proc.stdout.readline())['port']}")
+    stby = PSServer({"emb": SparseTable(**_COUNT)}, host="127.0.0.1",
+                    replica_of=prim_ep)
+    stby.start()
+    group = f"{prim_ep}|127.0.0.1:{stby.port}"
+    rep = PSServer({"emb": SparseTable(**_COUNT)}, host="127.0.0.1",
+                   replica_of=group, replica_mode="read",
+                   stale_after_s=stale_after, wm_interval_s=0.05)
+    rep.start()
+    remote = JServer({"emb": JTable(**_COUNT)}, host="127.0.0.1")
+    remote.start()
+    gp = None
+    try:
+        assert stby.replica_ready.wait(15.0)
+        assert rep.replica_ready.wait(15.0)
+        # the geo pusher rides the STANDBY (applies the primary's
+        # stream -> its commit listener sees every mutation; after
+        # promotion it keeps feeding from direct writes) over a seeded
+        # lossy/delayed/cut link
+        # the plan runs in each package's frames: the port's pusher
+        # sends (delay, cut) and the JAX remote's replies (drop)
+        spec = ("seed=13;delay:push_delta:first=1:every=3:times=0:"
+                "arg=0.002;drop:push_delta_reply:first=2:every=4:times=0;"
+                "cut:push_delta:first=9:every=13:times=0")
+        chaos.install(chaos.plan_from_spec(spec))
+        jchaos.install(jchaos.plan_from_spec(spec))
+        gp = GeoPusher(stby, [f"127.0.0.1:{remote.port}"],
+                       interval_s=0.02, **_FAST).start()
+
+        # bounded readers hammer the replica throughout the failover;
+        # acked history (ts, count) comes from the trainer's progress
+        acked = [(time.monotonic(), 0)]
+        read_errors, violations = [], []
+        stop = threading.Event()
+
+        def reader():
+            rd = PSClient([group], mode="read", max_lag=max_lag,
+                          read_replicas=[f"127.0.0.1:{rep.port}"],
+                          **_FAST)
+            try:
+                while not stop.is_set():
+                    t0 = time.monotonic()
+                    try:
+                        vals = rd.pull("emb", ids)
+                    except Exception as e:      # noqa: BLE001
+                        read_errors.append(repr(e))
+                        return
+                    a_old = 0
+                    for ts, cnt in acked:
+                        if ts <= t0 - stale_after:
+                            a_old = cnt
+                    vmin = float(vals.min())    # row value == applied count
+                    if vmin < a_old - max_lag:
+                        violations.append((vmin, a_old))
+                    time.sleep(0.002)
+            finally:
+                rd.close()
+
+        rth = threading.Thread(target=reader, daemon=True)
+        rth.start()
+
+        cli = PSClient([group], mode="sync", **_FAST)
+        killed = False
+
+        def step(batch, pull):
+            time.sleep(0.004)
+            return _count_step(batch, pull)
+
+        tr = StreamingTrainer(
+            DataLoader(_Feed(), batch_size=1, collate_fn=_count_collate),
+            cli, "emb", step, src="stream-chaos")
+        th = threading.Thread(target=tr.run,
+                              kwargs={"max_batches": steps},
+                              daemon=True)
+        th.start()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            acked.append((time.monotonic(), tr.batches))
+            if not killed and tr.batches >= kill_at:
+                os.kill(prim_proc.pid, signal.SIGKILL)  # mid-stream
+                prim_proc.wait(timeout=10)
+                killed = True
+            if not th.is_alive():
+                break
+            time.sleep(0.01)
+        th.join(timeout=10)
+        assert not th.is_alive() and tr.batches == steps
+        assert killed and stby.promoted
+        acked.append((time.monotonic(), tr.batches))
+
+        # replica converges on the promoted standby's stream
+        deadline = time.monotonic() + 20.0
+        while time.monotonic() < deadline \
+                and rep._stats()["watermark"] < steps:
+            time.sleep(0.05)
+        time.sleep(3 * 0.002 + 0.1)
+        stop.set()
+        rth.join(timeout=10)
+
+        # geo: drain over the hostile link, then verify exact delivery
+        gp.drain(timeout=60.0)
+        st = {**chaos.active().stats_dict(),
+              **jchaos.active().stats_dict()}
+        assert any(k.startswith(("drop", "delay", "cut"))
+                   for k in st), st
+        chaos.uninstall()
+        jchaos.uninstall()
+
+        # 0 lost / 0 double-applied, three ways: the promoted
+        # standby's applied count, the exact row values, and the
+        # remote cluster's bit-equality after the lossy link
+        assert stby.applied == steps
+        local = stby._tables["emb"].pull(ids)
+        assert np.all(local == float(steps)), local[:, 0]
+        remote_rows = remote._tables["emb"].pull(ids)
+        assert np.array_equal(remote_rows, local)
+        assert remote.dup_acks >= 1      # the dedup really fired
+        # bounded-staleness contract held through the failover
+        assert not read_errors, read_errors
+        assert not violations, violations[:5]
+        # freshness flowed end to end (iwm-stamped records applied at
+        # the read replica)
+        h = monitor.metrics_snapshot()["histograms"]["ps_freshness_ms"]
+        assert h["count"] >= 1
+        cli.close()
+    finally:
+        chaos.uninstall()
+        jchaos.uninstall()
+        if gp is not None:
+            gp.stop(drain=False)
+        prim_proc.kill()
+        prim_proc.wait(timeout=15)
+        rep.stop()
+        stby.stop()
+        remote.stop()
+
+
+class _SlowTable(SparseTable):
+    """A table whose apply stalls — the injected replica stall."""
+
+    def push(self, ids, grads):
+        time.sleep(0.25)
+        super().push(ids, grads)
+
+
+def test_freshness_breach_bundle_and_postmortem(tmp_path, monkeypatch,
+                                                _metrics):
+    monkeypatch.setenv("PADDLE_TRACE_DIR", str(tmp_path))
+    monkeypatch.setattr(flight_recorder, "_dumps_on", True)
+    prim = PSServer({"emb": SparseTable(**_COUNT)}, host="127.0.0.1")
+    prim.start()
+    pep = f"127.0.0.1:{prim.port}"
+    rep = PSServer({"emb": _SlowTable(**_COUNT)}, host="127.0.0.1",
+                   replica_of=pep, replica_mode="read",
+                   wm_interval_s=0.05)
+    rep.start()
+    cli = PSClient([pep], mode="sync", **_FAST)
+    try:
+        assert rep.replica_ready.wait(10.0)
+        n0 = len(flight_recorder.bundle_paths())
+        tr = StreamingTrainer(
+            DataLoader(_Feed(), batch_size=1, collate_fn=_count_collate),
+            cli, "emb", _count_step)
+        tr.run(max_batches=25)   # the slow replica builds real lag
+        watch = FreshnessWatch(max_lag_seq=4, max_lag_seconds=0.5)
+        breached = False
+        deadline = time.monotonic() + 20.0
+        while time.monotonic() < deadline and not breached:
+            breached = any(not s["ok"] for s in watch.evaluate())
+            time.sleep(0.1)
+        assert breached, "the stalled replica never breached the SLO"
+        # latched: slo.breach + the online marker, plus a bundle
+        kinds = [e.get("kind") for e in flight_recorder.events()]
+        assert "slo.breach" in kinds
+        assert "online.freshness_breach" in kinds
+        assert len(flight_recorder.bundle_paths()) > n0
+    finally:
+        cli.close()
+        rep.stop()
+        prim.stop()
+    # postmortem renders the breach sorted FIRST among the bad events
+    out = tmp_path / "pm.json"
+    rep_txt = tmp_path / "pm.txt"
+    r = subprocess.run(
+        [sys.executable, os.path.join(_REPO, "tools", "postmortem.py"),
+         "--dir", str(tmp_path), "-o", str(out),
+         "--report", str(rep_txt)],
+        capture_output=True, text=True, cwd=_REPO)
+    assert r.returncode == 0, r.stderr
+    txt = rep_txt.read_text()
+    assert "slo.breach" in txt
+    bad = [ln for ln in txt.splitlines() if "<-- BAD" in ln]
+    assert bad, "no BAD-marked events in the postmortem report"
+    assert any("breach" in ln for ln in bad), bad[:5]

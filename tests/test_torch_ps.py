@@ -148,20 +148,54 @@ def test_load_rejects_mismatched_layouts():
         SparseTable(8, optimizer="sgd").load_state_bytes(j.state_bytes())
 
 
-@pytest.mark.parametrize("kw", [dict(entry=object()),
-                                dict(initializer=lambda: None),
+class _AdmitEven:
+    """A custom admission entry (the Python path over native rows)."""
+    needs_count = True
+
+    def admit(self, id_, seen_count):
+        return id_ % 2 == 0
+
+
+@pytest.mark.parametrize("kw", [dict(entry=_AdmitEven()),
+                                dict(initializer=lambda: np.full(
+                                    4, 0.25, np.float32)),
                                 dict(backend="python"),
                                 dict(use_native=False),
                                 dict(geo_policy="lww")])
 def test_unported_options_raise_naming_the_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        SparseTable(4, **kw)
+    """These options were refused until the rest of the online tier was
+    ported; each now builds the reference's table: the same rows for
+    the same pulls and pushes."""
+    j, t = jps.SparseTable(4, **kw), SparseTable(4, **kw)
+    assert t.is_native == j.is_native
+    for ids, g in _batches(6, n_batches=3, dim=4):
+        assert np.array_equal(t.pull(ids), j.pull(ids))
+        t.push(ids, g)
+        j.push(ids, g)
+    every = np.arange(60, dtype=np.int64)
+    assert np.array_equal(t.pull(every), j.pull(every))
 
 
 @pytest.mark.parametrize("method", ["enable_spill", "geo_get"])
-def test_unported_methods_raise_naming_the_roadmap(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        getattr(SparseTable(4), method)(0)
+def test_unported_methods_raise_naming_the_roadmap(method, tmp_path):
+    """Spill and the geo stamps were refused until the rest of the
+    online tier was ported; both now run as the reference's do."""
+    j, t = jps.SparseTable(4), SparseTable(4)
+    ids = np.arange(10, dtype=np.int64)
+    if method == "enable_spill":
+        assert t.enable_spill(str(tmp_path / "p"))
+        assert j.enable_spill(str(tmp_path / "j"))
+        for s in (j, t):
+            s.pull(ids)
+            assert s.spill_sweep(2 ** 62) == ids.size
+        assert t.spill_stats() == j.spill_stats()
+        assert np.array_equal(t.pull(ids), j.pull(ids))
+    else:
+        for s in (j, t):
+            s.geo_put(ids[:3], np.array([1, 2, 3], np.int64),
+                      np.zeros(3, np.int32))
+        for a, b in zip(t.geo_get(ids), j.geo_get(ids)):
+            assert np.array_equal(a, b)
 
 
 def _lifecycle(t, method):

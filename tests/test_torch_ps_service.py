@@ -554,26 +554,36 @@ def test_chaos_crash_fault_kills_subprocess_server():
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        PSServer({}, host="127.0.0.1", read_coalesce_ms=5.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        PSServer({}, host="127.0.0.1", geo_site="a")
-    srv, ep = _server()
+    """Read coalescing, geo sites, the geo client mode, ``geo_set`` and
+    commit listeners were refused until the rest of the online tier was
+    ported; each now works, and a reference client's ``geo_set`` is
+    applied as the reference's server applies it."""
+    PSServer({}, host="127.0.0.1", read_coalesce_ms=5.0).stop()
+    srv = PSServer({"emb": SparseTable(4, optimizer="sgd", lr=0.5, seed=7,
+                                       geo_policy="lww")},
+                   host="127.0.0.1", geo_site="a")
+    srv.start()
+    ep = f"127.0.0.1:{srv.port}"
+    seen = []
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-            PSClient([ep], mode="geo")
+        srv.add_commit_listener(lambda rec: seen.append(rec["op"]))
+        geo = PSClient([ep], mode="geo", geo_k_steps=2, **_FAST)
+        geo.push("emb", [1], [[1.0] * 4])
+        assert seen == []                  # accumulated, not sent
+        geo.push("emb", [1], [[1.0] * 4])
+        assert seen == ["push_delta"]      # the k-th push flushed
         cli = PSClient([ep], **_FAST)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-            cli.geo_set("emb", [1], [[0.0] * 4], [1], ["a"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-            srv.add_commit_listener(lambda rec: None)
-        # a reference client's geo_set is refused, not applied
+        cli.geo_set("emb", [2], [[0.5] * 4], [7], ["b"])
         jc = JClient([ep], **_FAST)
-        with pytest.raises(Exception, match="geo_set"):
-            jc.geo_set("emb", [1], [[0.0] * 4], [1], ["a"])
-        assert srv.applied == 0
+        jc.geo_set("emb", [3], [[0.25] * 4], [9], ["b"])
+        assert seen == ["push_delta", "geo_set", "geo_set"]
+        assert srv.applied == 3
+        assert srv._geo_stamps["emb"][2] == (7, "b")
+        assert srv._geo_stamps["emb"][3] == (9, "b")
+        assert np.all(cli.pull("emb", [3]) == 0.25)
         jc.close()
         cli.close()
+        geo.close()
     finally:
         srv.stop()
 
