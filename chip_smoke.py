@@ -365,6 +365,45 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     growth over the build reaches the spill bytes; the spill directory
     (``tempfile.mkdtemp``) is removed whether the phase passes or fails.
 
+40. the long-context proxy (the reference bench's ``_bench_llama_long``
+    and ``_bench_llama_8k``, ``bench.py:517-587``): ``proxy_config`` at
+    seq 4,096, batch 2 and seq 8,192, batch 1 (remat, AdamW 1e-4, bf16
+    AMP, seed weights): kernels 1-3 at the proxy's attention there (B,
+    16, S, 128) against their blockwise plain versions within
+    ``CARD_TOL`` / ``CARD_TOL_BWD``, reruns bitwise, timed queued beside
+    their bounds, plain versions and SDPA; then at each length a flash
+    arm and a chunked arm (flash turned off as the bench turns it off:
+    ``flash_eligible`` patched on the Llama module and restored) from the
+    same weights, ``LONG_STEPS`` steps each: 16 / 8 / 8 launches of
+    kernels 1 / 2 / 3 a step on the flash arm and none on the chunked
+    arm, the first-step losses within ``LONG_FIRST_LOSS_TOL``, ms/step
+    (median after the first), tokens/s, MFU (``_llama_analytic``), peak
+    memory and ``flash_speedup_vs_chunked``;
+41. the chunked LM loss: the proxy at seq 4,096, batch 4 (f32 logits of
+    2.10 GB, over the 1.5 GiB threshold): the train step's loss and
+    gradients with the chunked loss and, the threshold raised for that
+    run only, with the plain loss: the loss within ``CHUNKED_LOSS_REL``,
+    the global gradient within ``CHUNKED_GRAD_REL``, the chunked run's
+    peak memory lower;
+42. the guard on the proxy at 2,048 x 4 (``bench.py:158-210``,
+    ``_guard_ab``): the clean-path A/B of ``guard_health`` +
+    ``TrainGuard(min_history=10**9)`` against the plain step (median of
+    3 runs of ``GUARD_STEPS`` steps; the overhead against the reference's
+    < 1 % target, read and not gated; one host fetch a guarded step, 0
+    skips); an eager ``TrainGuard.step`` loop under the chaos plan
+    ``nan:grad:step=3`` (that step skipped, the parameters and AdamW
+    state bitwise unchanged across it); a k = 2 gradient merge with the
+    health vector folding over the window; ``LinearWarmup(
+    CosineAnnealingDecay)`` with ``ClipGradByGlobalNorm(1.0)`` (the lr
+    applied is the schedule's, the clipped norm at most 1);
+43. BERT-base at ``_bench_bert``'s configuration (``bench.py:366-418``)
+    in float16: the train step with ``amp_configs={"dtype": "float16"}``
+    and the eager ``auto_cast(dtype="float16")`` + ``GradScaler`` loop,
+    ``FP16_STEPS`` steps each, their losses within ``E2E_AMP_LOSS_REL``
+    of the f32 step's, the scale histories; a planted ``inf:grad`` on two
+    steps in a row skips both (bitwise) and halves the scale after the
+    second; no kernel launch.
+
 Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
 
@@ -427,12 +466,14 @@ of phases 17 and 18, the online run of phase 20, the ResNet training
 of phase 24, the A/B of phase 27, the BERT training of phase 29, the
 BERT serving run of phase 31, the ERNIE training of phase 34, the
 translation calls of phase 35, the three serving arms of phase 36,
-the gateway waves of phase 37, the two sites' streams of phase 38 (a) and
-the q8 cache's run of phase 39;
+the gateway waves of phase 37, the two sites' streams of phase 38 (a),
+the q8 cache's run of phase 39, the flash arms of phase 40, the two runs
+of phase 41 and the A/B of phase 42;
 kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
 of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
 phase-36 and phase-37 launches by call, ``decode`` (S = 1) or ``rows``
-(S > 1), and its phase-36 (a) numbers at S > 1); the last line is
+(S > 1), and its phase-36 (a) numbers at S > 1; kernels 1-3 also their
+phase-40 numbers at S = 4,096 and 8,192); the last line is
 ``{"ok": true,
 "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or without
@@ -705,7 +746,7 @@ def flash_timing(label, q, k, v, return_lse):
         f"memory, grid {plan.grid}; device ms (queued): kernel {ms:.4f} "
         f"plain {plain:.4f} bound {bms:.4f} ({by}) library(sdpa) "
         f"{lib_ms:.4f}; kernel / sdpa {ms / lib_ms:.3f} (the mma.sync "
-        f"kernel's {FLASH_MMA_SYNC_SDPA_RATIO[label]}); "
+        f"kernel's {FLASH_MMA_SYNC_SDPA_RATIO.get(label, 'not measured')}); "
         f"{4 * D * pairs / ms / 1e9:.1f} "
         f"TFLOP/s")
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -6978,6 +7019,586 @@ def ps_scale(dev):
         shutil.rmtree(sdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------
+# phases 40-43: the one-device training step, whole
+# ---------------------------------------------------------------------
+
+# the reference bench's long-context A/B (bench.py:517-587, non-smoke):
+# the proxy at (seq, batch) 4,096 x 2 and 8,192 x 1, each trained once on
+# the flash kernels and once with flash off (query-chunked attention);
+# steps a training run here (the first is a warm-up, not timed)
+LONG_CONTEXT = ((4096, 2), (8192, 1))
+LONG_STEPS = 6
+# the two arms' first-step losses (bf16 AMP, same weights and ids): the
+# attention's arithmetic differs (flash: P rounded to bf16 per key tile;
+# chunked: bf16 scores and softmax), so the losses part by rounding
+LONG_FIRST_LOSS_TOL = 0.01
+# phase 41: the proxy at 4,096 x 4 (f32 logits 2.10 GB >= 1.5 GiB), one
+# step with the chunked loss and one with the plain loss: the loss within
+# CHUNKED_LOSS_REL; the global gradient within CHUNKED_GRAD_REL.  The
+# chunked backward rounds the head's cotangent to bf16 before its
+# products (2^-9 an element), where the plain path rounds only their
+# results; the sums over tokens cancel, so the gradients part by more
+# than 2^-9 (6.8e-3 on the CPU at hidden 128, vocab 512)
+CHUNKED_LOSS_BATCH = 4
+CHUNKED_LOSS_REL = 1e-4
+CHUNKED_GRAD_REL = 3e-2
+# phase 42: the guard A/B (bench.py:158-210): median of 3 runs of
+# GUARD_STEPS steps each side; the reference's target is < 1 % (read, not
+# a gate)
+GUARD_STEPS = 8
+# phase 43: BERT-base at the bench's configuration, float16 against f32:
+# the loss after FP16_STEPS steps within E2E_AMP_LOSS_REL of the f32
+# step's
+FP16_STEPS = 8
+
+
+def _long_kernel_cases(dev, B, S):
+    """Kernels 1-3 at the long-context proxy's attention (B, 16, S, 128),
+    bf16, causal, against their blockwise plain versions (``CARD_TOL``,
+    ``CARD_TOL_BWD``), a rerun bitwise equal, each timed queued beside its
+    bound, its plain version and SDPA.  Returns the rows by kernel name."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    g0 = torch.Generator(device=dev).manual_seed(SEED + 40)
+    H, D = 16, 128
+    q, k, v, g = (torch.randn(B, S, H, D, device=dev, dtype=torch.bfloat16,
+                              generator=g0) for _ in range(4))
+    got = _flash_grads(q, k, v, g, True)
+    again = _flash_grads(q, k, v, g, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"phase 40: kernels 2-3 at B={B} S={S}: a rerun is not "
+             "bitwise equal")
+    qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, g))
+    o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=True,
+                                     return_lse=True)
+    o2 = fa.flash_attention_bhsd(qh, kh, vh, causal=True)
+    if not torch.equal(o, o2):
+        fail(f"phase 40: kernel 1 at B={B} S={S}: a rerun is not bitwise "
+             "equal")
+    plan = fa.flash_fwd_plan(qh, kh, vh)
+    ref = fa.flash_attention_blockwise_ref(qh, kh, vh, causal=True,
+                                           block_k=plan.block_k)
+    shape = f"B={B} H={H} S={S} D={D} bf16 causal"
+    err1, share1 = check_close(f"phase 40: flash_attention {shape}", o, ref,
+                               fa.CARD_TOL[torch.bfloat16])
+    del ref, o2
+    delta = fa.attention_delta(o, gh)
+    args = (qh, kh, vh, gh, lse, delta)
+    bref = fa.flash_attention_bwd_blockwise_ref(*args, causal=True)
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, bref):
+        errs[name], share = check_close(
+            f"phase 40: flash backward {name} {shape}", a.transpose(1, 2),
+            r, fa.CARD_TOL_BWD[torch.bfloat16])
+    del bref
+    torch.cuda.empty_cache()
+    log(f"phase 40: kernels 1-3 at {shape}: forward max_err {err1:.3g} "
+        f"({share1:.3g} of its limit), dq {errs['dq']:.3g} dk "
+        f"{errs['dk']:.3g} dv {errs['dv']:.3g}; reruns bitwise")
+    fwd = flash_timing(f"long S={S}", *(t.detach().contiguous()
+                                        for t in (qh, kh, vh)), True)
+    bwd = bwd_timing(f"long S={S}", args, o, gh)
+    rows = {"flash_attention": dict(max_abs_err=err1, **fwd)}
+    for name, grads in (("flash_attention_bwd_dkv", ("dk", "dv")),
+                        ("flash_attention_bwd_dq", ("dq",))):
+        rows[name] = dict(max_abs_err=max(errs[x] for x in grads),
+                          **bwd[name])
+    del q, k, v, g, got, again, o, lse, delta, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _long_arm(dev, S, B, use_flash):
+    """One training run of the proxy at (B, S) from the seed-0 weights,
+    on the flash kernels or with flash off (as ``bench.py:537-572`` turns
+    it off: ``flash_eligible`` patched on the module that calls it, and
+    restored).  Returns losses, ms, launch counts per step, peak
+    memory."""
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    from paddle_tpu_torch.text.models import llama as llama_mod
+    orig = llama_mod.flash_eligible
+    if not use_flash:
+        llama_mod.flash_eligible = lambda *a, **k: False
+    try:
+        cfg = proxy_config(max_position_embeddings=S)
+        if use_flash and not llama_mod.flash_eligible(S, cfg.head_dim):
+            fail(f"phase 40: flash is not live on the flash arm at S={S}")
+        model = LlamaForCausalLM(cfg, device=dev, dtype="float32",
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        step = _train_step(model)
+        nparams = sum(p.numel() for p in model.parameters())
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (B, S)).astype("int32")).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms = [], []
+        registry.reset_counts()              # the main path starts here
+        for _ in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(ids, ids).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = registry.launch_counts()    # ... and ends here
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        del model, step
+    finally:
+        llama_mod.flash_eligible = orig
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 40: non-finite loss at S={S} "
+             f"({'flash' if use_flash else 'chunked'}): {losses}")
+    step_ms = statistics.median(ms[1:])
+    flops = (6.0 * nparams * B * S + 6.0 * cfg.num_hidden_layers * B * S
+             * S * cfg.hidden_size)          # bench.py _llama_analytic
+    tflops = flops / (step_ms / 1e3) / 1e12
+    return dict(losses=losses, ms_per_step=ms, ms_median=step_ms,
+                tokens_per_s=B * S / (step_ms / 1e3), model_tflops=tflops,
+                mfu=tflops * 1e12 / PEAK_BF16_FLOPS,
+                max_memory_allocated_gb=peak,
+                launches_per_step={n: c / LONG_STEPS
+                                   for n, c in counts.items()},
+                layers=cfg.num_hidden_layers), counts
+
+
+def long_context(dev):
+    """Phase 40: the proxy at 4,096 x 2 and 8,192 x 1 (``bench.py``
+    ``_bench_llama_long`` / ``_bench_llama_8k``): kernels 1-3 at each
+    shape against their plain versions and timed; then a flash arm and a
+    chunked arm from the same weights, ``LONG_STEPS`` steps each: launches
+    a step 16 / 8 / 8 on the flash arm and 0 on the chunked arm, the
+    first-step losses within ``LONG_FIRST_LOSS_TOL``, ms/step, tokens/s,
+    MFU, peak memory and ``flash_speedup_vs_chunked``.  Returns the
+    flash arms' launch counts and the kernel rows at both shapes."""
+    total = collections.Counter()
+    rows = {}
+    for S, B in LONG_CONTEXT:
+        t0 = time.perf_counter()
+        rows[S] = _long_kernel_cases(dev, B, S)
+        flash, fcounts = _long_arm(dev, S, B, True)
+        chunked, ccounts = _long_arm(dev, S, B, False)
+        L = flash.pop("layers")
+        chunked.pop("layers")
+        want = dict.fromkeys(fcounts, 0.0)
+        want.update({"flash_attention": 2.0 * L,
+                     "flash_attention_bwd_dkv": float(L),
+                     "flash_attention_bwd_dq": float(L)})
+        if flash["launches_per_step"] != want:
+            fail(f"phase 40: flash arm at S={S}: launches a step "
+                 f"{flash['launches_per_step']}, want {want}")
+        if any(ccounts.values()):
+            fail(f"phase 40: chunked arm at S={S} launched {ccounts}")
+        d = abs(flash["losses"][0] - chunked["losses"][0])
+        if not d <= LONG_FIRST_LOSS_TOL:
+            fail(f"phase 40: S={S}: first-step losses flash "
+                 f"{flash['losses'][0]:.6f} chunked "
+                 f"{chunked['losses'][0]:.6f} part by {d:.4g} > "
+                 f"{LONG_FIRST_LOSS_TOL}")
+        res = dict(seq=S, batch=B, flash=flash, chunked=chunked,
+                   first_loss_diff=d,
+                   flash_speedup_vs_chunked=chunked["ms_median"]
+                   / flash["ms_median"], card=_CARD[0],
+                   seconds=time.perf_counter() - t0)
+        log(f"phase 40 (S={S}, B={B}): " + json.dumps(res))
+        total.update(fcounts)
+    return dict(total), rows
+
+
+def chunked_loss(dev):
+    """Phase 41: the proxy at 4,096 x 4 (f32 logits 2.10 GB >= 1.5 GiB):
+    the train step's loss and gradients with the chunked LM loss (the
+    step engages it) and with the plain loss (its threshold raised for
+    the second run only), same weights and batch: the loss within
+    ``CHUNKED_LOSS_REL``, the global gradient's distance within
+    ``CHUNKED_GRAD_REL``, and the chunked run's peak memory lower."""
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    from paddle_tpu_torch.text.models import llama as llama_mod
+    S, B = 4096, CHUNKED_LOSS_BATCH
+    cfg = proxy_config(max_position_embeddings=S)
+    model = LlamaForCausalLM(cfg, device=dev, dtype="float32",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    step = _train_step(model)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S)).astype("int32")).to(dev)
+    logits_gb = B * S * cfg.vocab_size * 4 / 1e9
+    if not B * S * cfg.vocab_size * 4 >= llama_mod._CHUNK_BYTES_MIN:
+        fail(f"phase 41: {logits_gb:.2f} GB of logits is under the "
+             "chunked loss's threshold")
+    registry.reset_counts()
+    out = {}
+    orig = llama_mod._CHUNK_BYTES_MIN
+    for name in ("chunked", "plain"):
+        if name == "plain":
+            llama_mod._CHUNK_BYTES_MIN = float("inf")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, grads = step.loss_and_grads(ids, ids)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            llama_mod._CHUNK_BYTES_MIN = orig
+        out[name] = dict(loss=loss.item(), grads=grads, ms=ms,
+                         peak_gb=peak / 1e9,
+                         peak_over_start_gb=(peak - base) / 1e9)
+    counts = registry.launch_counts()
+    gc_, gp = out["chunked"].pop("grads"), out["plain"].pop("grads")
+    num = sum((a - b).double().pow(2).sum() for a, b in zip(gc_, gp))
+    den = sum(b.double().pow(2).sum() for b in gp)
+    grad_rel = math.sqrt(num.item() / den.item())
+    head = [n for n, _ in model.named_parameters()].index("lm_head.weight")
+    head_rel = ((gc_[head] - gp[head]).double().norm()
+                / gp[head].double().norm()).item()
+    del gc_, gp, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    lc, lp = out["chunked"]["loss"], out["plain"]["loss"]
+    res = dict(seq=S, batch=B, logits_gb=logits_gb, chunked=out["chunked"],
+               plain=out["plain"], loss_rel=abs(lc - lp) / abs(lp),
+               grad_rel=grad_rel, lm_head_grad_rel=head_rel,
+               launches=counts, card=_CARD[0])
+    log("phase 41: " + json.dumps(res))
+    if not res["loss_rel"] <= CHUNKED_LOSS_REL:
+        fail(f"phase 41: the chunked loss {lc} against the plain {lp} "
+             f"(relative {res['loss_rel']:.3g} > {CHUNKED_LOSS_REL})")
+    if not grad_rel <= CHUNKED_GRAD_REL:
+        fail(f"phase 41: the chunked loss's global gradient is "
+             f"{grad_rel:.3g} from the plain one's (> {CHUNKED_GRAD_REL})")
+    if not out["chunked"]["peak_gb"] < out["plain"]["peak_gb"]:
+        fail(f"phase 41: the chunked loss's peak memory "
+             f"{out['chunked']['peak_gb']:.3f} GB is not below the plain "
+             f"loss's {out['plain']['peak_gb']:.3f} GB")
+    return counts
+
+
+def _guard_overhead(plain_fn, guarded_fn, steps):
+    """The reference bench's A/B (``bench.py:158-182``): a warm-up call,
+    then the median of 3 timed runs of ``steps`` calls a side."""
+    def loop(fn):
+        fn()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            ts.append((time.perf_counter() - t0) / steps)
+        return sorted(ts)[1]
+    a, b = loop(plain_fn), loop(guarded_fn)
+    return dict(guard_ms_plain=a * 1e3, guard_ms_guarded=b * 1e3,
+                guard_overhead_pct=(b - a) / a * 100.0)
+
+
+def _snapshot(params, opt):
+    return ([p.detach().clone() for p in params],
+            [{k: v.clone() for k, v in s.items()} for s in opt.opt_state()])
+
+
+def _same_state(snap, params, opt):
+    ps, ss = snap
+    return (all(torch.equal(a, p) for a, p in zip(ps, params))
+            and all(torch.equal(s0[k], s1[k])
+                    for s0, s1 in zip(ss, opt.opt_state()) for k in s0))
+
+
+def guard_phase(dev):
+    """Phase 42: the guard on the proxy at 2,048 x 4 (``bench.py``
+    ``_guard_ab``): (a) the clean-path A/B of ``guard_health`` +
+    ``TrainGuard(min_history=10**9).check`` against the plain step (one
+    host fetch a step, 0 skips; the overhead against the reference's < 1
+    % target, read and not gated); (b) an eager ``TrainGuard.step`` loop
+    under ``nan:grad:step=3``: that step skipped, parameters and AdamW
+    state bitwise unchanged across it, the others applied; (c) a k = 2
+    gradient merge with ``guard_health`` on one batch twice: nothing
+    applied on the first call, the health's norm doubled on the second
+    (folded over the window), the parameters moved; (d)
+    ``LinearWarmup(CosineAnnealingDecay)`` + ``ClipGradByGlobalNorm(1.0)``:
+    on a batch the model has not seen: the lr applied at each step is the
+    schedule's, the clip engages at least once, and the clipped
+    gradients' global norm is at most 1 (1 + 1e-6), unchanged where it
+    was under 1.  Returns the launch
+    counts of (a)."""
+    from paddle_tpu_torch import train_guard as tg
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep,
+                                                    chaos)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    cfg = proxy_config()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    model = LlamaForCausalLM(cfg, device=dev, dtype="float32",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    params = list(model.parameters())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S)).astype("int32")).to(dev)
+    strategy = DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs = {"dtype": "bfloat16"}
+    res = dict(card=_CARD[0])
+
+    # (a) the clean-path A/B
+    opt = AdamW(learning_rate=1e-4, parameters=params)
+    step = DistributedTrainStep(model, _loss_fn(model), opt, strategy)
+    gstep = DistributedTrainStep(model, _loss_fn(model), opt, strategy,
+                                 guard_health=True)
+    guard = tg.TrainGuard(min_history=10 ** 9)
+
+    def plain():
+        step(ids, ids)
+        torch.cuda.synchronize()
+
+    def guarded():
+        gstep(ids, ids)
+        guard.check(gstep.last_health)       # the fetch is the sync
+
+    registry.reset_counts()
+    n0 = tg.host_sync_count()
+    res["ab"] = _guard_overhead(plain, guarded, GUARD_STEPS)
+    counts = registry.launch_counts()
+    syncs = tg.host_sync_count() - n0
+    res["ab"].update(host_syncs=syncs, guarded_steps=1 + 3 * GUARD_STEPS,
+                     skips=guard.skips, target_pct=1.0)
+    log("phase 42 (a): " + json.dumps(res["ab"]))
+    if syncs != 1 + 3 * GUARD_STEPS or guard.skips:
+        fail(f"phase 42 (a): {syncs} host fetches over "
+             f"{1 + 3 * GUARD_STEPS} guarded steps, {guard.skips} skips")
+    del step, gstep
+
+    # (b) a planted NaN gradient through the eager guarded loop
+    opt_b = AdamW(learning_rate=1e-4, parameters=params)
+    guard_b = tg.TrainGuard(optimizer=opt_b)
+    chaos.install(chaos.plan_from_spec("nan:grad:step=3"))
+    verdicts = []
+    try:
+        for i in range(4):
+            loss, _ = model(ids, labels=ids)
+            loss.backward()
+            snap = _snapshot(params, opt_b) if i == 2 else None
+            verdicts.append(guard_b.step(loss.detach(), step=i))
+            if snap is not None and not _same_state(snap, params, opt_b):
+                fail("phase 42 (b): the skipped step moved the parameters "
+                     "or the AdamW state")
+            del snap
+        fired = chaos.active().stats_dict()
+    finally:
+        chaos.uninstall()
+    log(f"phase 42 (b): verdicts {verdicts}, skips {guard_b.skips}, chaos "
+        f"{fired}, AdamW global step {opt_b._global_step}")
+    if verdicts != ["ok", "ok", "skip", "ok"] or guard_b.skips != 1 \
+            or fired != {"nan:grad": 1} or opt_b._global_step != 3:
+        fail(f"phase 42 (b): verdicts {verdicts}, chaos {fired}")
+    del opt_b, guard_b
+    torch.cuda.empty_cache()
+
+    # (c) gradient merge, k = 2, with the health vector
+    gm = DistributedStrategy()
+    gm.amp = True
+    gm.amp_configs = {"dtype": "bfloat16"}
+    gm.gradient_merge = True
+    gm.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    opt_c = AdamW(learning_rate=1e-4, parameters=params)
+    mstep = DistributedTrainStep(model, _loss_fn(model), opt_c, gm,
+                                 guard_health=True)
+    before = [p.detach().clone() for p in params]
+    mstep(ids, ids)
+    h1 = mstep.last_health.cpu().numpy()
+    same = all(torch.equal(a, p) for a, p in zip(before, params))
+    mstep(ids, ids)
+    h2 = mstep.last_health.cpu().numpy()
+    moved = not all(torch.equal(a, p) for a, p in zip(before, params))
+    ratio = float(h2[0] / h1[0])
+    log(f"phase 42 (c): health after call 1 {h1.tolist()}, after call 2 "
+        f"{h2.tolist()}, norm ratio {ratio:.6f} (one batch twice: 2); "
+        f"parameters unchanged after call 1: {same}, moved after call 2: "
+        f"{moved}")
+    if not (same and moved and abs(ratio - 2.0) <= 1e-3 and h2[1] == 0):
+        fail(f"phase 42 (c): the merge's health did not fold (ratio "
+             f"{ratio}) or the window applied at the wrong call")
+    del mstep, opt_c, before
+    torch.cuda.empty_cache()
+
+    # (d) a warmup + cosine schedule and the global-norm clip, on a batch
+    # the model has not seen (on the memorised one the norm is far below 1)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (B, S)).astype("int32")).to(dev)
+    sched = LinearWarmup(CosineAnnealingDecay(1e-4, T_max=8), 2, 1e-5, 1e-4)
+    clip = ClipGradByGlobalNorm(1.0)
+    opt_d = AdamW(learning_rate=sched, parameters=params, grad_clip=clip)
+    seen_lr, norms = [], []
+    apply_one = opt_d._apply_one
+
+    def recording_apply(p, g, lr, state, decay=None):
+        seen_lr.append(lr)
+        return apply_one(p, g, lr, state, decay)
+
+    clip_values = clip.apply_values
+
+    def recording_clip(grads):
+        out = clip_values(grads)
+        raw = math.sqrt(sum(float(g.double().pow(2).sum()) for g in grads))
+        cut = math.sqrt(sum(float(g.double().pow(2).sum()) for g in out))
+        norms.append((raw, cut))
+        return out
+
+    opt_d._apply_one = recording_apply
+    clip.apply_values = recording_clip
+    dstep = DistributedTrainStep(model, _loss_fn(model), opt_d, strategy)
+    want_lr = []
+    for _ in range(4):
+        want_lr.append(sched())
+        n = len(seen_lr)
+        dstep(ids, ids)
+        lrs = set(seen_lr[n:])
+        if lrs != {want_lr[-1]}:
+            fail(f"phase 42 (d): the step applied lr {lrs}, the schedule "
+                 f"gives {want_lr[-1]}")
+        sched.step()
+    engaged = sum(raw > 1.0 for raw, _ in norms)
+    log(f"phase 42 (d): lr a step {want_lr}; global norm before / after "
+        f"the clip {norms}; the clip engaged on {engaged} of {len(norms)} "
+        f"steps")
+    # at most 1 after the clip; a norm under 1 passes through unscaled
+    if not engaged or not all(
+            cut <= 1.0 * (1 + 1e-6) and (raw > 1.0 or
+                                         abs(cut - raw) <= 1e-6 * raw)
+            for raw, cut in norms):
+        fail(f"phase 42 (d): clipped norms {norms}")
+    del dstep, opt_d, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 42: guard overhead {res['ab']['guard_overhead_pct']:.3f} % "
+        f"(the reference's target < 1 %, read not gated) on {_CARD[0]}")
+    return counts
+
+
+def bert_fp16(dev):
+    """Phase 43: BERT-base pretraining at the bench's configuration
+    (``bench.py:366-418``: 128 x 128, 19 masked positions, AdamW 1e-4)
+    from the seed's weights and dropout masks: (a) the train step with
+    ``amp_configs={"dtype": "float16"}`` (dynamic loss scaling), (b) the
+    eager ``auto_cast(dtype="float16")`` + ``GradScaler`` loop, and the
+    f32 step, ``FP16_STEPS`` steps each on the bench's batch: both float16
+    losses after the last step within ``E2E_AMP_LOSS_REL`` of the f32
+    step's; the scale history of each; (c) a planted ``inf:grad`` on two
+    steps in a row of the eager loop: both skipped (parameters and AdamW
+    state bitwise), the scale times ``decr_ratio`` after the second
+    (``decr_every_n_nan_or_inf`` = 2).  Every registered kernel's launch
+    count is 0 (seq 128 sends no flash call)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.fleet import chaos
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.train_guard import chaos_corrupt
+    b, s = BERT_TRAIN["batch"], BERT_TRAIN["seq"]
+    registry.reset_counts()
+    res = dict(card=_CARD[0], steps=FP16_STEPS)
+    batch = None
+    for name in ("f32", "fp16 step"):
+        model, cfg, step = _bert_train_step(dev, amp=name != "f32")
+        if name != "f32":
+            step = _bert_fp16_step(model, step)
+        if batch is None:
+            batch = _bert_batch(dev, cfg.vocab_size, b, s)
+        losses, scales, ms = [], [], []
+        for _ in range(FP16_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(*batch).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if step.amp_state is not None:
+                scales.append(step.amp_state[0].item())
+        res[name] = dict(losses=losses, scales=scales,
+                         ms_median=statistics.median(ms[1:]))
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) and (c): the eager auto_cast + GradScaler loop
+    model, cfg, step = _bert_train_step(dev, amp=False)
+    opt = step._opt
+    crit = step._wrapper._loss_fn
+    del step
+    scaler = amp.GradScaler()
+    params = list(model.parameters())
+    losses, scales, skipped = [], [], []
+    n_eager = FP16_STEPS + 2
+    chaos.install(chaos.plan_from_spec(
+        f"inf:grad:step={FP16_STEPS + 1}:every=1:times=2"))
+    try:
+        for i in range(n_eager):
+            with amp.auto_cast(dtype="float16"):
+                loss = crit(*batch)
+            scaler.scale(loss).backward()
+            grads = [p for p in params if p.grad is not None]
+            new, fired = chaos_corrupt("grad", [p.grad for p in grads])
+            if fired:
+                for p, g in zip(grads, new):
+                    p.grad = g
+            snap = _snapshot(params, opt) if fired else None
+            scale0 = scaler.get_loss_scaling()
+            scaler.step(opt)
+            opt.clear_grad()
+            if snap is not None:
+                if not _same_state(snap, params, opt):
+                    fail("phase 43 (c): an overflow step moved the "
+                         "parameters or the AdamW state")
+                skipped.append((i, scale0, scaler.get_loss_scaling()))
+            del snap
+            losses.append(loss.item())
+            scales.append(scaler.get_loss_scaling())
+    finally:
+        chaos.uninstall()
+    counts = registry.launch_counts()
+    res["eager"] = dict(losses=losses, scales=scales, skipped=skipped)
+    del model, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_last = res["f32"]["losses"][-1]
+    for name, last in (("fp16 step", res["fp16 step"]["losses"][-1]),
+                       ("eager", losses[FP16_STEPS - 1])):
+        res[name]["loss_rel_vs_f32"] = abs(last - f32_last) / abs(f32_last)
+    log("phase 43: " + json.dumps(res))
+    for name in ("fp16 step", "eager"):
+        if not res[name]["loss_rel_vs_f32"] <= E2E_AMP_LOSS_REL:
+            fail(f"phase 43: the {name} loss after {FP16_STEPS} steps is "
+                 f"{res[name]['loss_rel_vs_f32']:.4g} from the f32 step's "
+                 f"(> {E2E_AMP_LOSS_REL})")
+    if [i for i, _, _ in skipped] != [FP16_STEPS, FP16_STEPS + 1]:
+        fail(f"phase 43 (c): skipped steps {skipped}")
+    (_, a0, a1), (_, b0, b1) = skipped
+    if not (a1 == a0 and b1 == b0 * 0.5):
+        fail(f"phase 43 (c): scale {a0} -> {a1} -> {b1} over two overflows; "
+             f"want it halved after the second")
+    if any(counts.values()):
+        fail(f"phase 43: kernels launched {counts}")
+    return res
+
+
+def _bert_fp16_step(model, step):
+    """The phase-29 step over the same model, optimizer and loss with
+    ``amp_configs={"dtype": "float16"}`` (the defaults: dynamic scaling
+    from 2**15)."""
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "float16"}
+    return DistributedTrainStep(model, step._wrapper._loss_fn, step._opt, s)
+
+
 def log_bwd_entries(bwd):
     """Phase 2's line for each sm90 backward entry (``check_ptxas``'s
     {mangled name: [registers, spill bytes]}): its kernel, head_dim and
@@ -7418,6 +8039,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 39: {time.perf_counter() - t0:.1f} s")
 
+    # 40. the long-context proxy at 4,096 and 8,192 positions: kernels
+    # 1-3 at both shapes, a flash arm and a chunked arm each
+    t0 = time.perf_counter()
+    long_counts, long_rows = long_context(dev)
+    log(f"phase 40: {time.perf_counter() - t0:.1f} s")
+
+    # 41. the chunked LM loss against the plain loss at 4,096 x 4
+    t0 = time.perf_counter()
+    cl_counts = chunked_loss(dev)
+    log(f"phase 41: {time.perf_counter() - t0:.1f} s")
+
+    # 42. the guard: the clean-path A/B, a planted NaN gradient, gradient
+    # merge with the health vector, a schedule with the global-norm clip
+    t0 = time.perf_counter()
+    guard_counts = guard_phase(dev)
+    log(f"phase 42: {time.perf_counter() - t0:.1f} s")
+
+    # 43. float16 BERT-base: the scaled step and the eager auto_cast +
+    # GradScaler loop against f32, a planted overflow
+    t0 = time.perf_counter()
+    bert_fp16(dev)
+    log(f"phase 43: {time.perf_counter() - t0:.1f} s")
+
     options = {
         "flash_attention": {
             "bias": bias_rows["bias float32 D=64"],
@@ -7437,7 +8081,8 @@ def main() -> int:
                                          bs_counts, er_counts, mt_counts,
                                          gw_counts, gh_counts,
                                          fleet_counts, geo_counts,
-                                         scale_counts))
+                                         scale_counts, long_counts,
+                                         cl_counts, guard_counts))
         by_mode = {}
         for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes},
                   {"int8_kv_attention": gh_modes}, fleet_modes):
@@ -7448,6 +8093,9 @@ def main() -> int:
             extra["options"] = options[name]
         if name == "int8_kv_attention":
             extra["rows_route"] = kv_rows
+        if name in long_rows[4096]:
+            extra["long_context"] = {f"S={S}": r[name]
+                                     for S, r in long_rows.items()}
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name], **extra))

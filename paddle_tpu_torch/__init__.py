@@ -20,7 +20,10 @@ inference (``quantization.convert_to_int8_inference`` over
 (``online.StreamingTrainer`` over ``distributed.fleet.PSServer``, with
 geo replication, the tiered table and the fleet PS entry points) and
 ResNet training (``optimizer.Momentum``, ``nn.functional.cross_entropy``
-and batch norm with batch statistics under the same step).  The
+and batch norm with batch statistics under the same step) and the rest
+of the one-device step (``optimizer.lr``, ``nn.clip``, ``regularizer``,
+the optimizer zoo, ``amp``, ``train_guard.TrainGuard``, float16 loss
+scaling and gradient merge in the step, chunked attention and loss).  The
 subpackages are imported on first attribute access, so
 ``paddle_tpu_torch.optimizer.Momentum`` reads as ``paddle.optimizer.
 Momentum`` does.
@@ -74,9 +77,10 @@ def resolve_device(device=None) -> torch.device:
     return d
 
 
-_SUBPACKAGES = ("distributed", "framework", "inference", "io", "nn",
+_SUBPACKAGES = ("amp", "distributed", "framework", "inference", "io", "nn",
                 "observability", "online", "ops", "optimizer",
-                "quantization", "text", "tools", "vision")
+                "quantization", "regularizer", "text", "tools",
+                "train_guard", "vision")
 
 
 def __getattr__(name):

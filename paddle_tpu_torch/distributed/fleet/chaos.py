@@ -1,6 +1,6 @@
 """Deterministic fault injection (counterpart of
 ``paddle_tpu/distributed/fleet/chaos.py``): the PS wire sites, the
-elastic site and the gateway site.
+elastic site, the gateway site and the numeric site.
 
 A seedable :class:`FaultPlan` wraps the ``_send_msg`` / ``_recv_msg``
 framing layer of :mod:`.ps_service` and injects faults at exact,
@@ -36,9 +36,13 @@ Fault kinds (``Fault.kind``):
           (``gen_submit`` / ``gen_poll`` / ...) rides the PS framing
           layer, so the send and connect sites match its ops.
 
-The reference's numeric ``nan`` / ``inf`` streams wait for the slice
-that runs them (ROADMAP queue item 4); a plan naming one raises
-``NotImplementedError``.
+  nan     the numeric site: NaN into a matching array stream.  ``op``
+          names the stream: ``grad`` (parameter gradients, hooked in
+          ``train_guard``), ``batch`` (input rows, hooked in
+          ``tools/chaos_numerics.py``), ``activation`` or ``loss``.
+          ``arg`` is how many leading rows (or elements) to poison
+          (default 1), so batch blame can name the rows.
+  inf     the same with +inf.
 
 Matching: every fault names an ``op`` (the request header's ``op``;
 reply frames match ``<op>_reply``, or ``reply`` as a catch-all; ``*``
@@ -52,6 +56,11 @@ Activation: ``install(plan)`` / ``uninstall()`` in tests, or the
     PADDLE_CHAOS="seed=3;dup:push:every=2;crash:push:first=50"
     PADDLE_CHAOS="plan=flaky;seed=7"
     PADDLE_CHAOS="plan=kill_worker@every=5"
+    PADDLE_CHAOS="nan:grad:step=50"          # NaN gradients at step 50
+    PADDLE_CHAOS="inf:batch:step=10:times=3" # 3 poisoned batches
+
+``step=N`` is ``first=N`` as it reads at the numeric site, where the
+match counter advances once per training step per stream.
 
 ``plan.stats`` counts every fired fault by ``kind:op``.
 """
@@ -73,8 +82,6 @@ __all__ = ["Fault", "FaultPlan", "install", "uninstall", "active",
 
 # frames the protocol never answers: safe to duplicate on the wire
 _ONE_WAY_OPS = {"heartbeat"}
-
-_LATER = {"numeric": "the numeric nan/inf streams (ROADMAP queue item 4)"}
 
 
 def _one_way(obj) -> bool:
@@ -100,11 +107,6 @@ class Fault:
                              f"one of {self.KINDS}")
         self.kind = kind
         self.op = op
-        site = self._site()
-        if site in _LATER:
-            raise NotImplementedError(
-                f"chaos fault {kind}:{op} is not ported yet: "
-                f"{_LATER[site]}")
         self.first = max(1, int(first))
         self.every = int(every)
         self.times = int(times)
@@ -240,6 +242,18 @@ class FaultPlan:
             raise ConnectionRefusedError(
                 f"chaos: connection refused to {endpoint[0]}:{endpoint[1]}")
 
+    def match_numeric(self, op: str) -> Optional[Fault]:
+        """Numeric-site hook (``train_guard.chaos_corrupt``): consulted
+        once per training step per stream (``grad``, ``batch``,
+        ``activation``, ``loss``), so ``first=N`` (``step=N``) fires at
+        step N, counting from 1.  Returns the firing ``nan`` / ``inf``
+        fault or None; the caller corrupts the arrays and records the
+        stats."""
+        f = self._match("numeric", op)
+        if f is not None and f.kind in ("nan", "inf"):
+            return f
+        return None
+
     def match_elastic(self, op: str = "worker") -> Optional[Fault]:
         """Elastic-site hook (:func:`maybe_kill_worker`): consulted once
         per executed training step.  Returns the firing ``kill`` fault or
@@ -279,7 +293,8 @@ class FaultPlan:
 
 def named_plan(name: str, seed: int = 0) -> FaultPlan:
     """Prebuilt schedules: ``flaky``, ``dup``, ``lost_ack``, ``crash@N``,
-    ``kill_worker@every=K``, ``gw_kill@N`` and ``gw_flaky``."""
+    ``kill_worker@every=K``, ``gw_kill@N``, ``gw_flaky`` and the numeric
+    ``nan_grad@N``, ``inf_grad@N``, ``nan_batch@N`` and ``diverge@N``."""
     if name == "flaky":
         # survivable background noise: slow frames, duplicated async
         # pushes, a lost push ack (the idempotent retry path), one
@@ -321,14 +336,25 @@ def named_plan(name: str, seed: int = 0) -> FaultPlan:
                   arg=0.002),
             Fault("cut", op="gen_poll", first=7, every=11, times=0),
         ]
-    elif name.startswith(("nan_grad@", "inf_grad@", "nan_batch@",
-                          "diverge@")):
-        raise NotImplementedError(
-            f"chaos plan {name!r} is not ported yet: {_LATER['numeric']}")
+    elif name.startswith("nan_grad@"):
+        faults = [Fault("nan", op="grad", first=int(name[9:]))]
+    elif name.startswith("inf_grad@"):
+        faults = [Fault("inf", op="grad", first=int(name[9:]))]
+    elif name.startswith("nan_batch@"):
+        # two poisoned rows of one batch: a skip and batch blame
+        faults = [Fault("nan", op="batch", first=int(name[10:]), arg=2)]
+    elif name.startswith("diverge@"):
+        # a 4-step window of poisoned batches from step N: the skip
+        # streak passes max_consecutive_bad (3) into a rewind, then one
+        # more skip, then the stream heals
+        faults = [Fault("nan", op="batch", first=int(name[8:]),
+                        every=1, times=4, arg=1)]
     else:
         raise ValueError(f"unknown chaos plan {name!r} (flaky, dup, "
-                         f"lost_ack, crash@N, kill_worker@every=K, "
-                         f"gw_kill@N, gw_flaky)")
+                         f"lost_ack, crash@N, gw_kill@N, gw_flaky, "
+                         f"kill_worker@every=K, "
+                         f"nan_grad@N, inf_grad@N, nan_batch@N, "
+                         f"diverge@N)")
     return FaultPlan(faults, seed=seed, name=name)
 
 

@@ -1,17 +1,48 @@
-"""DistributedTrainStep: the one-device plain training step of the
-reference's ``distributed/fleet/dist_step.py``, and the elastic data
-plane's deterministic ZeRO shard math, learning-rate schedules and fused
+"""DistributedTrainStep: the one-device training step of the reference's
+``distributed/fleet/dist_step.py``, and the elastic data plane's
+deterministic ZeRO shard math, learning-rate schedules and fused
 optimizer apply (the module's second half).
 
 One call is one optimizer step: the forward and backward of
 ``loss_fn(*batch)``, then the optimizer's update of every parameter it
-holds.  With ``strategy.amp`` (bfloat16) every f32 master parameter is
-cast to bf16 inside the step, so the model computes in bf16 and the f32
-gradients come out of the cast's backward; float batch tensors are cast
-too, and the loss is taken in f32.  ``strategy.recompute`` recomputes
-the whole forward during the backward (activation checkpointing of the
-step).  The update writes into the parameters and the optimizer state in
-place, one parameter at a time.
+holds (its ``grad_clip`` over all gradients first, then its weight decay
+and rule parameter by parameter; the lr is read from the optimizer, a
+scheduler's current value included).  The update writes into the
+parameters and the optimizer state in place, one parameter at a time.
+
+- ``strategy.amp``: every f32 master parameter is cast to the compute
+  dtype inside the step (bfloat16, or float16 with ``amp_configs
+  dtype="float16"``), so the model computes in it and the f32 gradients
+  come out of the cast's backward; float batch tensors are cast too,
+  and the loss is taken in f32.  float16 always runs the reference's
+  loss scaling (``update_loss_scaling``): the gradients of ``loss *
+  scale`` are divided by the scale; a step with a non-finite gradient
+  leaves the parameters and the optimizer state bitwise as they were;
+  with ``use_dynamic_loss_scaling`` the scale grows by ``incr_ratio``
+  after ``incr_every_n_steps`` finite steps in a row and shrinks by
+  ``decr_ratio`` after ``decr_every_n_nan_or_inf`` bad steps in a row
+  (static scaling keeps ``init_loss_scaling`` and still drops the bad
+  steps).  The state ``(scale, good, bad)`` stays on the device
+  (``amp_state``) and the skip is a device-side select, so the step
+  makes no host sync of its own.
+- ``strategy.recompute`` recomputes the whole forward during the
+  backward (activation checkpointing of the step).
+- ``strategy.gradient_merge`` (``k_steps``, ``avg``): the gradients of
+  ``k_steps`` calls add up in f32 accumulators, and every ``k_steps``-th
+  call applies their sum (or mean, with ``avg``) and zeroes them.
+- ``guard_health=True``: each call leaves ``train_guard``'s fused health
+  vector ``[global_norm, nonfinite, loss]`` (an f32[3] device tensor,
+  no host copy) on ``last_health``, for ``TrainGuard.check``: over the
+  gradients (one pass each) on the plain step, over the unscaled f32
+  gradients with the unscaled loss (masked, with a count) on the
+  float16 step, and over the accumulators after this call's add on the
+  gradient-merge step (the window's folded health; the loss is this
+  call's).
+
+The forward runs under ``framework.step_context.loss_only()``: the step
+keeps only the loss, so a model may skip outputs no one reads (the
+Llama model's chunked LM loss returns no logits there), as the
+reference's traced step drops them.
 
 The model's buffers (batch norm's running statistics) are never cast:
 they stay f32 under AMP, as the reference threads its non-parameter
@@ -24,10 +55,11 @@ model's dropout generators (every ``torch.Generator`` held as a
 module's ``generator``) from their state at the forward's start, so it
 draws the masks the forward drew.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
-queue item 4): float16 loss scaling, ZeRO sharding, DGC, gradient
-merge, the other parallel toggles, ``guard_health`` and a mesh of more
-than one device.
+The reference's refusals stay: float16 loss scaling with gradient merge,
+and DGC with either.  Not ported yet (each raises ``NotImplementedError``
+naming ROADMAP queue item 4): ZeRO sharding, DGC, pipelines and the
+other parallel toggles, ``hybrid_configs`` and a mesh of more than one
+device.
 """
 from __future__ import annotations
 
@@ -41,6 +73,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ... import resolve_device
+from ...framework.step_context import loss_only
 from .strategy import IMPLEMENTED_TOGGLES, DistributedStrategy
 
 __all__ = ["DistributedTrainStep", "LRSchedule", "make_lr_schedule",
@@ -64,6 +97,14 @@ class _LossModule(nn.Module):
         return self._loss_fn(*args)
 
 
+def _select(keep_new, new, old):
+    """``new`` where ``keep_new`` (a 0-d device bool) else ``old``,
+    bitwise, for a tensor or a dict of them."""
+    if isinstance(new, dict):
+        return {k: _select(keep_new, v, old[k]) for k, v in new.items()}
+    return torch.where(keep_new, new, old)
+
+
 class DistributedTrainStep:
     """Compile (model, loss_fn, optimizer, strategy) into one step::
 
@@ -71,35 +112,50 @@ class DistributedTrainStep:
         for x, y in loader:
             loss = step(x, y)
 
-    ``mesh`` may be None or a collection of one device.
+    ``mesh`` may be None or a collection of one device.  ``guard_health``
+    leaves the step's health vector on ``last_health`` (module
+    docstring).
     """
 
     def __init__(self, model, loss_fn, optimizer, strategy=None, mesh=None,
                  guard_health=False):
         strategy = strategy or DistributedStrategy()
+        acfg = strategy.amp_configs
+        self._amp = bool(strategy.amp)
+        self._amp_dtype = (torch.bfloat16 if str(acfg["dtype"]) in
+                           ("bfloat16", "bf16") else torch.float16)
+        # float16 always scales; use_dynamic_loss_scaling only says
+        # whether the scale moves
+        self._use_scaling = self._amp and self._amp_dtype == torch.float16
+        gm = strategy.gradient_merge_configs
+        self._k_steps = int(gm["k_steps"]) if strategy.gradient_merge else 1
+        self._gm_avg = bool(gm["avg"])
+        if strategy.dgc and (self._use_scaling or self._k_steps > 1):
+            raise NotImplementedError(
+                "strategy.dgc cannot combine with float16 loss scaling or "
+                "gradient_merge (the reference treats DGC as its own meta "
+                "optimizer too)")
         refused = [t for t in strategy.enabled()
                    if t not in IMPLEMENTED_TOGGLES]
         if refused:
             raise NotImplementedError(
                 f"strategy toggles {refused}: {_LATER}; the port runs the "
                 f"one-device step with {list(IMPLEMENTED_TOGGLES)}")
-        amp_dtype = str(strategy.amp_configs["dtype"])
-        if strategy.amp and amp_dtype not in ("bfloat16", "bf16"):
+        if self._use_scaling and self._k_steps > 1:
             raise NotImplementedError(
-                f"float16 AMP with loss scaling (amp_configs dtype "
-                f"{amp_dtype!r}) {_LATER}; use dtype='bfloat16'")
+                "float16 loss scaling (dynamic or static) + gradient_merge "
+                "is not supported; use bfloat16 (no scaling needed)")
         hybrid = {k: v for k, v in strategy.hybrid_configs.items()
                   if v not in (1, -1)}
         if hybrid:
             raise NotImplementedError(f"hybrid_configs {hybrid} {_LATER}")
-        if guard_health:
-            raise NotImplementedError(f"guard_health {_LATER}")
         if mesh is not None and len(mesh) > 1:
             raise NotImplementedError(
                 f"a mesh of {len(mesh)} devices {_LATER}")
         self._strategy = strategy
-        self._amp = bool(strategy.amp)
         self._recompute = bool(strategy.recompute)
+        self._guard_health = bool(guard_health)
+        self.last_health = None          # f32[3] device tensor a call
         self._opt = optimizer
         # align with the optimizer's parameter list (its state order)
         id2name = {id(p): n for n, p in model.named_parameters()}
@@ -116,11 +172,15 @@ class DistributedTrainStep:
         gens = (getattr(m, "generator", None) for m in model.modules())
         self._generators = list({id(g): g for g in gens
                                  if isinstance(g, torch.Generator)}.values())
+        self._step_i = 0                 # calls so far (gradient merge)
+        self._accum = None               # gradient-merge accumulators
+        # (loss scale, consecutive finite steps, consecutive bad steps)
+        self.amp_state = None
 
     def _amp_cast(self, t):
         if (self._amp and isinstance(t, torch.Tensor)
                 and t.dtype == torch.float32):
-            return t.to(torch.bfloat16)
+            return t.to(self._amp_dtype)
         return t
 
     @contextmanager
@@ -162,43 +222,142 @@ class DistributedTrainStep:
 
         return forward(), recompute()
 
-    def loss_and_grads(self, *args):
-        """The f32 loss of ``loss_fn(*args)`` and the gradients of the
-        optimizer's parameters (f32 for f32 masters), without a parameter
-        update.  The forward does update the model's buffers (batch
-        norm's running statistics) once, exactly as ``__call__`` does:
-        one call of either moves them by one step."""
+    def _loss(self, *args):
+        """The f32 loss of ``loss_fn(*args)`` on the (cast) parameters,
+        with its graph."""
         cast = [self._amp_cast(p) for p in self._params]
         args = tuple(self._amp_cast(a) for a in args)
         names = ["model." + n for n in self._names]
 
         def run(*params):
-            return torch.func.functional_call(
-                self._wrapper, dict(zip(names, params)), args)
+            with loss_only():
+                return torch.func.functional_call(
+                    self._wrapper, dict(zip(names, params)), args)
 
         if self._recompute:
             loss = checkpoint(run, *cast, use_reentrant=False,
                               context_fn=self._recompute_contexts)
         else:
             loss = run(*cast)
-        loss = loss.float()
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True,
-                                    materialize_grads=True)
-        return loss.detach(), list(grads)
+        return loss.float()
 
-    def __call__(self, *args):
-        loss, grads = self.loss_and_grads(*args)
+    def _grads(self, loss):
+        return list(torch.autograd.grad(loss, self._params,
+                                        allow_unused=True,
+                                        materialize_grads=True))
+
+    def _scaled_grads(self, loss):
+        """float16: the gradients of ``loss * scale`` divided by the scale
+        (f32), and the loss as the reference returns it, ``(loss *
+        scale) / scale``."""
+        scale = self._scale_state()[0]
+        sl = loss * scale
+        return [(g / scale).float() for g in self._grads(sl)], \
+            sl.detach() / scale
+
+    def loss_and_grads(self, *args):
+        """The f32 loss of ``loss_fn(*args)`` and the gradients of the
+        optimizer's parameters (f32 for f32 masters, unscaled), without a
+        parameter update.  The forward does update the model's buffers
+        (batch norm's running statistics) once, exactly as ``__call__``
+        does: one call of either moves them by one step."""
+        loss = self._loss(*args)
+        if self._use_scaling:
+            grads, loss = self._scaled_grads(loss)
+            return loss, grads
+        return loss.detach(), self._grads(loss)
+
+    def _scale_state(self):
+        if self.amp_state is None:
+            dev = self._params[0].device
+            acfg = self._strategy.amp_configs
+            self.amp_state = (
+                torch.tensor(float(acfg["init_loss_scaling"]),
+                             dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+        return self.amp_state
+
+    @torch.no_grad()
+    def _apply(self, grads, finite=None):
+        """The optimizer's update of every parameter, in place; with
+        ``finite`` (a 0-d device bool) only where it holds, the rest
+        bitwise kept.  Empties ``grads`` as it goes, so each gradient is
+        freed once applied."""
         opt = self._opt
         lr = opt.get_lr()
         states = opt.opt_state()
-        with torch.no_grad(), torch.profiler.record_function("optimizer"):
+        if opt._grad_clip is not None:
+            grads[:] = opt._clip_values(grads)
+        with torch.profiler.record_function("optimizer"):
             for i, p in enumerate(self._params):
-                (new_p,), (new_s,) = opt.functional_update(
-                    [p], [grads[i]], [states[i]], lr)
+                new_p, new_s = opt._apply_one(p, grads[i], lr, states[i])
                 grads[i] = None
+                if finite is not None:
+                    new_p = torch.where(finite, new_p, p)
+                    new_s = _select(finite, new_s, states[i])
                 p.copy_(new_p)
                 states[i] = new_s
         opt.load_opt_state(states)
+
+    @torch.no_grad()
+    def _update_scale(self, finite):
+        """The reference's ``update_loss_scaling`` on the device."""
+        scale, good, bad = self.amp_state
+        acfg = self._strategy.amp_configs
+        if not acfg["use_dynamic_loss_scaling"]:
+            return
+        zero = torch.zeros_like(good)
+        good = torch.where(finite, good + 1, zero)
+        bad = torch.where(finite, zero, bad + 1)
+        grow = good >= int(acfg["incr_every_n_steps"])
+        shrink = bad >= int(acfg["decr_every_n_nan_or_inf"])
+        scale = torch.where(grow, scale * float(acfg["incr_ratio"]),
+                            torch.where(shrink,
+                                        scale * float(acfg["decr_ratio"]),
+                                        scale))
+        self.amp_state = (scale, torch.where(grow, zero, good),
+                          torch.where(shrink, zero, bad))
+
+    def __call__(self, *args):
+        from ...train_guard import fused_health
+        self._step_i += 1
+        loss = self._loss(*args)
+        if self._use_scaling:
+            grads, loss = self._scaled_grads(loss)
+            with torch.no_grad():
+                finite = torch.stack([torch.isfinite(g).all()
+                                      for g in grads]).all()
+                if self._guard_health:
+                    self.last_health = fused_health(grads, loss=loss,
+                                                    precise=True)
+            self._apply(grads, finite)
+            self._update_scale(finite)
+            return loss
+        grads = self._grads(loss)
+        loss = loss.detach()
+        if self._k_steps <= 1:
+            if self._guard_health:
+                with torch.no_grad():
+                    self.last_health = fused_health(grads, loss=loss,
+                                                    precise=False)
+            self._apply(grads)
+            return loss
+        with torch.no_grad():
+            if self._accum is None:
+                self._accum = [torch.zeros_like(p) for p in self._params]
+            for a, g in zip(self._accum, grads):
+                a.add_(g)
+            del grads
+            if self._guard_health:
+                self.last_health = fused_health(self._accum, loss=loss,
+                                                precise=False)
+        if self._step_i % self._k_steps == 0:
+            merged = ([a / self._k_steps for a in self._accum]
+                      if self._gm_avg else list(self._accum))
+            self._apply(merged)
+            for a in self._accum:
+                a.zero_()
         return loss
 
 

@@ -4,8 +4,9 @@
 Every toggle and config dict of the reference is accepted under its
 name, so a strategy written for the reference builds here.  The port's
 :class:`~.dist_step.DistributedTrainStep` runs ``amp`` (bf16 compute
-over f32 master weights) and ``recompute``; it refuses every other
-toggle that is on, and float16 AMP, with ``NotImplementedError``.
+over f32 master weights, or float16 with loss scaling),
+``recompute`` and ``gradient_merge``; it refuses every other toggle
+that is on with ``NotImplementedError``.
 The parameter-server modes read ``a_sync`` and ``a_sync_configs``
 (``PSRuntime.init_worker``).
 """
@@ -16,7 +17,7 @@ import copy
 __all__ = ["DistributedStrategy", "IMPLEMENTED_TOGGLES"]
 
 # toggles the port's DistributedTrainStep runs
-IMPLEMENTED_TOGGLES = ("amp", "recompute")
+IMPLEMENTED_TOGGLES = ("amp", "recompute", "gradient_merge")
 
 _BOOL_TOGGLES = [
     "amp", "recompute", "sharding", "pipeline", "tensor_parallel",

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as tF
 
+from ...amp import maybe_cast_inputs
 from ...framework.dtype import promote
 
 __all__ = ["linear", "embedding", "silu", "relu", "flatten", "batch_norm",
@@ -36,7 +37,9 @@ __all__ = ["linear", "embedding", "silu", "relu", "flatten", "batch_norm",
 
 
 def linear(x, weight, bias=None):
-    """y = x @ W + b with W stored [in, out]."""
+    """y = x @ W + b with W stored [in, out]; under ``amp.auto_cast`` the
+    f32 operands in the autocast dtype first."""
+    x, weight = maybe_cast_inputs("linear", x, weight)
     dt = promote(x.dtype, weight.dtype)
     out = torch.matmul(x.to(dt), weight.to(dt))
     if bias is not None:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from ...amp import maybe_cast_inputs
 from ...framework.dtype import promote
 
 __all__ = ["conv2d"]
@@ -78,7 +79,9 @@ def conv_geometry(x_shape, w_shape, stride, padding, dilation, data_format):
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """``x`` NCHW or NHWC, ``weight`` [O, I / groups, kh, kw]; the result in
-    ``data_format``, in the promoted dtype of ``x`` and ``weight``."""
+    ``data_format``, in the promoted dtype of ``x`` and ``weight`` (under
+    ``amp.auto_cast`` the f32 operands in the autocast dtype first)."""
+    x, weight = maybe_cast_inputs("conv2d", x, weight)
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")

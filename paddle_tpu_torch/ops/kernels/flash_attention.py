@@ -43,6 +43,10 @@ in the backward dS) are rounded to bf16 before their products.  The
 causal mask is top-left aligned (query i sees keys 0..i), as the Pallas
 kernels have it.
 
+:func:`chunked_attention` is the reference's memory-efficient attention
+for flash-ineligible long sequences (``_ref_chunked``): plain PyTorch,
+as the reference computes it in XLA with no Pallas kernel.
+
 The plain versions :func:`flash_attention_ref` and
 :func:`flash_attention_bwd_dkv_ref` / :func:`flash_attention_bwd_dq_ref`
 are chunked f32 PyTorch (the counterpart of ``_ref_chunked`` and of its
@@ -103,6 +107,7 @@ from torch.autograd.function import once_differentiable
 from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attention_ref",
+           "chunked_attention",
            "flash_attention_blockwise_ref", "flash_fwd_plan", "FwdPlan",
            "flash_bwd_plan", "BwdPlan", "BwdKernelPlan", "keep_bits_numel",
            "keep_bits_buffer",
@@ -366,6 +371,50 @@ def flash_attention_ref(q, k, v, bias=None, causal=False, scale=None,
         outs.append(torch.matmul(w, vf))
     o = torch.cat(outs, dim=2).to(q.dtype)
     return (o, torch.cat(lses, dim=2)) if return_lse else o
+
+
+def _ref_chunked(q, k, v, bias, causal, scale, chunk=512):
+    """Attention on (B, H, S, D) tensors with the queries in chunks, each
+    chunk under its own ``torch.utils.checkpoint``: neither the forward
+    nor the backward holds more than one chunk's [B, H, chunk, Sk] score
+    block (without the checkpoint autograd would keep every chunk's
+    softmax, as much memory as the whole score matrix).  The chunk
+    divides Sq: the largest divisor up to ``chunk``, or all of Sq when
+    that divisor is under 128.  The products, the masked scores (-1e30)
+    and the softmax in the inputs' dtype, as the reference's einsums and
+    ``jax.nn.softmax``; chunks run one after another."""
+    from torch.utils.checkpoint import checkpoint
+    sq, sk = q.shape[2], k.shape[2]
+    kpos = torch.arange(sk, device=q.device)
+
+    def one_chunk(qc, q0, kk, vv):
+        s = torch.einsum("bhqd,bhkd->bhqk", qc * scale, kk)
+        if bias is not None:
+            s = s + bias.to(s.dtype)
+        if causal:
+            qpos = q0 + torch.arange(qc.shape[2], device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, vv)
+
+    c = min(chunk, sq)
+    while c > 1 and sq % c:
+        c -= 1
+    chunk = c if c >= 128 else sq
+    outs = [checkpoint(one_chunk, q[:, :, q0:q0 + chunk], q0, k, v,
+                       use_reentrant=False) for q0 in range(0, sq, chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def chunked_attention(q, k, v, bias=None, causal=False, scale=None,
+                      chunk=512):
+    """Memory-efficient attention on paddle-layout (B, S, H, D) tensors,
+    the reference's long-sequence path where flash does not run (see
+    :func:`_ref_chunked`).  Plain PyTorch: no kernel, no SDPA."""
+    sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out = _ref_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), bias, causal, sc, chunk=chunk)
+    return out.transpose(1, 2)
 
 
 def flash_attention_blockwise_ref(q, k, v, bias=None, causal=False,

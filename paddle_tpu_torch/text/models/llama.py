@@ -31,10 +31,24 @@ The dense ``[B, Smax]`` cache path (``init_cache`` /
 a prefill through flash attention where eligible, decode steps in plain
 PyTorch (the reference has no kernel there).
 
-Not ported yet: the chunked LM loss (``_chunked_causal_lm_loss``, which
-the reference engages only above 1.5 GiB of f32 logits), the chunked
-attention for flash-ineligible long sequences (``_sdpa_ref`` runs
-there) and pipeline / sequence / context parallelism.
+The reference's two long-sequence memory savers are ported.  Training
+attention at a flash-ineligible length of at least 1,024 positions (or
+with flash turned off) takes ``chunked_attention``: query chunks of 512
+under their own checkpoint, so no more than one [B, H, chunk, S] score
+block is alive (shorter sequences take ``_sdpa_ref``).  The chunked LM
+loss (``_chunked_causal_lm_loss``) streams the next-token cross entropy
+over chunks of 256 positions, each chunk's [B, 256, V] f32 logits
+recomputed in the backward, whose projection (``_ProjChunk``) rounds the
+cotangent to the weights' dtype.  The reference engages it when the
+forward is traced under ``jit`` (where the unused logits are dead
+code), S - 1 >= 512 and the f32 logits would take at least 1.5 GiB.
+The port runs eagerly, so it engages it at the same thresholds inside a
+train step that keeps only the loss (``DistributedTrainStep``, through
+``framework.step_context``), and there ``forward(ids, labels)`` returns
+``(loss, None)``: no logits.  Every other caller gets ``(loss,
+logits)`` from the plain path, as the reference's eager callers do.
+
+Not ported yet: pipeline / sequence / context parallelism.
 """
 from __future__ import annotations
 
@@ -47,10 +61,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ... import make_generator, resolve_device
 from ...framework.dtype import to_torch
+from ...framework.step_context import keeps_loss_only
 from ...nn.functional import _sdpa_ref, silu
 from ...nn.layer import (ColumnParallelLinear, Normal, RowParallelLinear,
                          VocabParallelEmbedding)
-from ...ops.kernels.flash_attention import flash_attention, flash_eligible
+from ...ops.kernels.flash_attention import (chunked_attention,
+                                           flash_attention, flash_eligible)
 from ...ops.kernels.kv_attention import (int8_paged_attention,
                                          paged_attention_ref)
 
@@ -195,7 +211,8 @@ class LlamaAttention(nn.Module):
         full-recompute forward).  Grouped-query K/V are repeated to every
         query head first, as the reference does; flash-eligible shapes
         take the flash kernels (``mode`` forwards to their dispatch),
-        others the plain attention."""
+        other lengths of at least 1,024 ``chunked_attention``, shorter
+        ones the plain attention."""
         c = self.config
         q = self.q_proj(hidden)
         k = self.k_proj(hidden)
@@ -210,6 +227,8 @@ class LlamaAttention(nn.Module):
             vh = vh.repeat_interleave(H // KH, dim=2)
         if flash_eligible(S, D):
             o = flash_attention(qh, kh, vh, causal=True, mode=mode)
+        elif S >= 1024:
+            o = chunked_attention(qh, kh, vh, causal=True)
         else:
             o = _sdpa_ref(qh, kh, vh, None, 0.0, True, None)
         return self.o_proj(o.reshape(B, S, H * D))
@@ -546,12 +565,25 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None, positions=None, mode=None):
         """Logits [B, S, V] (f32), or ``(loss, logits)`` when ``labels``
         are given: next-token cross entropy (the shift is done here,
-        label -100 is ignored, the mean is over valid tokens).  ``mode``
-        forwards to the attention kernels' dispatch."""
+        label -100 is ignored, the mean is over valid tokens).  Inside a
+        train step that keeps only the loss, at long sequences and large
+        logits, the loss is the chunked one and the logits ``None`` (the
+        module docstring).  ``mode`` forwards to the attention kernels'
+        dispatch."""
         hidden = self.model(input_ids, positions, mode=mode)
-        logits = self._logits(hidden)
         if labels is None:
-            return logits
+            return self._logits(hidden)
+        B, S = hidden.shape[0], hidden.shape[1]
+        logits_bytes = B * S * self.config.vocab_size * 4
+        if (keeps_loss_only() and S - 1 >= 2 * _LOSS_CHUNK
+                and logits_bytes >= _CHUNK_BYTES_MIN):
+            if self.lm_head is not None:
+                w, transposed = self.lm_head.weight, False
+            else:
+                w, transposed = self.model.embed_tokens.weight, True
+            return _chunked_causal_lm_loss(hidden, w, labels,
+                                           transposed), None
+        logits = self._logits(hidden)
         return _causal_lm_loss(logits, labels), logits
 
     def generate(self, input_ids, **kwargs):
@@ -649,3 +681,70 @@ def _causal_lm_loss(logits, labels):
     nll = -torch.gather(logp, -1, torch.where(valid, lb, 0)[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+_LOSS_CHUNK = 256    # sequence positions a loss chunk
+# the chunked loss engages only where the full f32 [B, S, V] logits would
+# take this much (the reference's threshold)
+_CHUNK_BYTES_MIN = int(1.5 * 1024 ** 3)
+
+
+class _ProjChunk(torch.autograd.Function):
+    """[B, C, H] @ [H, V] in f32 (the inputs upcast exactly, as
+    :meth:`LlamaForCausalLM._logits` computes them), whose backward rounds
+    the cotangent to the weights' dtype and returns each gradient in its
+    input's dtype: the reference's ``_proj_chunk`` custom vjp."""
+
+    @staticmethod
+    def forward(ctx, hc, wm):
+        ctx.save_for_backward(hc, wm)
+        return torch.matmul(hc.float(), wm.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        hc, wm = ctx.saved_tensors
+        gl = g.to(wm.dtype).float()
+        dhc = torch.matmul(gl, wm.float().t())
+        dwm = torch.matmul(hc.float().reshape(-1, hc.shape[-1]).t(),
+                           gl.reshape(-1, gl.shape[-1]))
+        return dhc.to(hc.dtype), dwm.to(wm.dtype)
+
+
+def _chunk_nll(hc, lc, wm):
+    """One chunk's summed next-token NLL and its count of valid labels."""
+    lg = _ProjChunk.apply(hc, wm)
+    valid = lc >= 0
+    logp = torch.log_softmax(lg, dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, lc, 0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum(), valid.sum()
+
+
+def _chunked_causal_lm_loss(hidden, w, labels, transposed):
+    """Next-token cross entropy streamed over chunks of ``_LOSS_CHUNK``
+    positions: a chunk's f32 logits [B, C, V] are the only vocab-sized
+    temporary, and each chunk runs under its own checkpoint, so the
+    backward recomputes them instead of keeping them.  ``w`` is [H, V]
+    (``lm_head``) or [V, H] with ``transposed`` (the tied embedding).
+    The forward's numbers are :func:`_causal_lm_loss`'s (the same
+    rounding of the inputs, f32 log-softmax, -100 ignored, the sum over
+    the valid count); the projection's cotangents are rounded to the
+    weights' dtype (:class:`_ProjChunk`)."""
+    B, S, H = hidden.shape
+    n = S - 1
+    h = hidden[:, :-1, :]
+    lb = labels[:, 1:].long()
+    C = _LOSS_CHUNK
+    pad = -(-n // C) * C - n
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        lb = torch.nn.functional.pad(lb, (0, pad), value=-100)
+    wm = w.t() if transposed else w          # [H, V], compute dtype
+    s_nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    s_cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, n + pad, C):
+        nll, cnt = checkpoint(_chunk_nll, h[:, c0:c0 + C], lb[:, c0:c0 + C],
+                              wm, use_reentrant=False)
+        s_nll = s_nll + nll
+        s_cnt = s_cnt + cnt
+    return s_nll / s_cnt.clamp_min(1).float()

@@ -1242,3 +1242,98 @@ def test_bert_training_step_and_int8_pooler_on_card():
         set_kernel_mode(q, "torch_ref")
         plain = q(ids)[1]
     assert torch.equal(pooled, plain)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_8192_positions_match_plain_on_card():
+    """Kernels 1-3 at 8,192 positions (B 1, H 2, head_dim 128, bf16,
+    causal: the long-context proxy's length on the Hopper routes): the
+    forward within ``CARD_TOL`` of the blockwise plain version at its key
+    tile, the gradients within ``CARD_TOL_BWD`` of the blockwise backward,
+    a rerun bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py runs this at the proxy's shapes")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(dev, dt).transpose(1, 2).contiguous()
+               for a in _qkv(14, B=1, H=2, S=8192, D=128))
+    g = torch.from_numpy(_qkv(15, B=1, H=2, S=8192, D=128)[0]).to(dev, dt)
+    outs, grads = [], []
+    for _ in range(2):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention(qq, kk, vv, causal=True)
+        outs.append(o.detach())
+        grads.append(torch.autograd.grad(o, (qq, kk, vv),
+                                         g.transpose(1, 2)))
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    plan = fa.flash_fwd_plan(qh, kh, vh)
+    ref = fa.flash_attention_blockwise_ref(qh, kh, vh, causal=True,
+                                           block_k=plan.block_k)
+    _assert_within(outs[0].transpose(1, 2), ref, fa.CARD_TOL[dt])
+    o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=True,
+                                     return_lse=True)
+    delta = fa.attention_delta(o, g)
+    bref = fa.flash_attention_bwd_blockwise_ref(qh, kh, vh, g, lse, delta,
+                                                causal=True)
+    torch.cuda.synchronize()
+    for got, want in zip(grads[0], bref):
+        assert bool(torch.isfinite(got.float()).all())
+        _assert_within(got.transpose(1, 2), want, fa.CARD_TOL_BWD[dt])
+    counts = registry.launch_counts()
+    assert counts["flash_attention"] == 3
+    assert counts["flash_attention_bwd_dkv"] == 2
+    assert counts["flash_attention_bwd_dq"] == 2
+
+
+@pytest.mark.cuda
+def test_float16_scaled_step_on_card():
+    """The train step with float16 AMP on the card: an overflowing batch
+    leaves the parameters and the AdamW state bitwise as they were and
+    the scale follows the dynamic state machine; the other steps are
+    finite and train."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the float16 "
+                    "step on BERT-base")
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.optimizer import AdamW
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = torch.nn.Sequential(tnn.Linear(4, 8, device=dev, generator=gen),
+                              tnn.Tanh(),
+                              tnn.Linear(8, 1, device=dev, generator=gen))
+    opt = AdamW(0.01, parameters=list(net.parameters()))
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "float16", "init_loss_scaling": 1024.0,
+                     "incr_every_n_steps": 2, "decr_every_n_nan_or_inf": 1}
+    step = DistributedTrainStep(
+        net, lambda x, y: torch.mean((net(x) - y) ** 2), opt, s,
+        guard_health=True)
+    rng = np.random.default_rng(0)
+    losses, scales = [], []
+    for i in range(6):
+        x = rng.normal(size=(16, 4)).astype(np.float32)
+        if i == 3:
+            x *= 1000.0                 # (out - y)^2 overflows float16
+        xt = torch.from_numpy(x).to(dev)
+        yt = xt.sum(1, keepdim=True) / 4
+        before = [p.detach().clone() for p in net.parameters()]
+        sbefore = [{k: v.clone() for k, v in st.items()}
+                   for st in opt.opt_state()]
+        losses.append(step(xt, yt).item())
+        scales.append(step.amp_state[0].item())
+        if i == 3:
+            assert all(torch.equal(a, p)
+                       for a, p in zip(before, net.parameters()))
+            for s0, s1 in zip(sbefore, opt.opt_state()):
+                assert all(torch.equal(s0[k], s1[k]) for k in s0)
+            assert step.last_health[1].item() > 0
+    assert scales == [1024.0, 2048.0, 2048.0, 1024.0, 1024.0, 2048.0]
+    good = [x for i, x in enumerate(losses) if i != 3]
+    assert all(np.isfinite(good)) and not np.isfinite(losses[3])

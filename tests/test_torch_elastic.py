@@ -902,6 +902,8 @@ def test_kill_worker_chaos_plan():
     # the PS wire kinds are ported: a delay spec parses
     (d,) = chaos.plan_from_spec("delay:pull:every=2").faults
     assert (d.kind, d.op, d.every) == ("delay", "pull", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chaos.plan_from_spec("nan:grad:step=3")
+    # the numeric kinds are ported: step=N is first=N
+    (f,) = chaos.plan_from_spec("nan:grad:step=3").faults
+    assert (f.kind, f.op, f.first, f._site()) == ("nan", "grad", 3,
+                                                  "numeric")
     chaos.maybe_kill_worker()       # no active plan: a no-op

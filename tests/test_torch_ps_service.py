@@ -846,8 +846,10 @@ def test_named_plans_exist():
     assert chaos.named_plan("crash@7").faults[0].first == 7
     with pytest.raises(ValueError):
         chaos.named_plan("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chaos.named_plan("nan_grad@5")
+    for name in ("nan_grad@5", "inf_grad@2", "nan_batch@3", "diverge@8"):
+        jp = jchaos.named_plan(name, seed=1)
+        p = chaos.named_plan(name, seed=1)
+        assert [repr(f) for f in p.faults] == [repr(f) for f in jp.faults]
 
 
 def test_install_uninstall_roundtrip():
