@@ -402,7 +402,43 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``FP16_STEPS`` steps each, their losses within ``E2E_AMP_LOSS_REL``
     of the f32 step's, the scale histories; a planted ``inf:grad`` on two
     steps in a row skips both (bitwise) and halves the scale after the
-    second; no kernel launch.
+    second; no kernel launch;
+44. collectives on the card: (a) this process joins a world of one rank
+    over NCCL (``init_parallel_env(backend="nccl")``; phases 45 and 47
+    (a) run in it), (b) two rank processes on the one card over gloo
+    (``spawn``, their CUDA tensors staged through host memory): every
+    collective of the collective API and of the named-axis collectives,
+    ``shard_map`` included, exact on integer-valued floats with its
+    results on the card; (c) two ranks on the one card over NCCL, whose
+    refusal is recorded (if NCCL accepts them, (b) runs over NCCL too);
+45. the proxy of phase 7 under ``strategy.sharding`` at world 1 over
+    NCCL: the plain step and stages 1, 2 and 3 with f32 slots,
+    ``ZERO_STAGE_STEPS`` steps each, bitwise phase 7's losses and each
+    other's parameters; stage 1 with bf16 slots, int8 slots and
+    offloaded f32 slots, ``ZERO_ARM_STEPS`` steps each: losses within
+    ``ZERO_LOSS_LIMIT`` of phase 7's (offload: bitwise), the slot bytes
+    on the card as planned (offload: none, every slot pinned), the peak
+    below the f32 arm's by at least half the bytes saved, ms/step;
+    launches 16 / 8 / 8 a step;
+46. the proxy at world 2 on the one card over gloo (two rank processes,
+    batch 2 each of phase 7's batch 4): dp 2, and fsdp 2 at stage 3 with
+    int8 slots, ``ZERO_W2_STEPS`` steps each: the ranks' parameters
+    bitwise equal after every step, the losses within ``ZERO_W2_LIMIT``
+    of the world-1 runs (phase 7; phase 45's int8 arm), each rank holding
+    ``sharded_numel`` of every parameter and slot; ms/step (host-staged,
+    no target); launches 16 / 8 / 8 a step a rank;
+47. DGC on ResNet-50 at the bench's configuration (``DGC_CFG``): (a)
+    world 1 over NCCL, ``DGC_STEPS`` steps: the warm-up steps bitwise
+    phase 24's, then every tensor sends exactly max(1, round(n * 0.001))
+    entries with u and v zero where it sent, finite losses,
+    ``guard_health`` refused; (b) world 2 over gloo, batch 128 a rank,
+    ``DGC_W2_STEPS`` steps: the ranks' parameters, losses and buffers
+    bitwise equal, the losses within ``DGC_W2_LIMIT`` of (a)'s; no kernel
+    launch.
+
+Every rank process's waits are bounded (``COLL_TIMEOUT`` a rendezvous
+or collective, ``RANKS_TIMEOUT`` a phase's ranks); a hung or failed rank
+fails its phase with every rank's log tail.
 
 Every profiled phase (6, 9, 12, 16, 19, 23, 28, 32, 34) prints the idle share
 ``1 - busy / wall`` unclamped and fails when busy exceeds wall.
@@ -468,7 +504,8 @@ BERT serving run of phase 31, the ERNIE training of phase 34, the
 translation calls of phase 35, the three serving arms of phase 36,
 the gateway waves of phase 37, the two sites' streams of phase 38 (a),
 the q8 cache's run of phase 39, the flash arms of phase 40, the two runs
-of phase 41 and the A/B of phase 42;
+of phase 41, the A/B of phase 42, the arms of phase 45 and the ranks of
+phase 46;
 kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
 of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
 phase-36 and phase-37 launches by call, ``decode`` (S = 1) or ``rows``
@@ -571,6 +608,9 @@ BERT_INFER_SEQ = 128
 
 # the card's name and power limit, as nvidia-smi reports them (phase 1)
 _CARD = ["not read"]
+# the losses of phase 7's proxy run and phase 24's ResNet-50 run, which
+# phases 45-47 hold their world-1 steps to
+_LOSSES = {}
 
 
 def log(msg: str) -> None:
@@ -1621,6 +1661,7 @@ def train(dev):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = registry.launch_counts()        # ... and ends here
+    _LOSSES["train"] = list(losses)
     log("train: losses " + " ".join(f"{x:.6f}" for x in losses))
     if not all(math.isfinite(x) for x in losses):
         fail(f"train: non-finite loss in {losses}")
@@ -3465,11 +3506,13 @@ def _resnet_batch(dev, batch):
     return torch.from_numpy(img).to(dev), torch.from_numpy(label).to(dev)
 
 
-def _resnet_train_step(dev, amp=True, bf16_weights=False):
+def _resnet_train_step(dev, amp=True, bf16_weights=False, dgc=None,
+                       guard_health=False):
     """``resnet50(num_classes=1000)`` with f32 weights from the seed, and
     the bench's step over it: ``Momentum(0.1, 0.9)``, ``cross_entropy``,
     bf16 AMP unless ``amp`` is False.  ``bf16_weights`` rounds the f32
-    weights to bf16 values first."""
+    weights to bf16 values first; ``dgc``: the strategy's dgc_configs
+    (DGC on)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
                                                     DistributedTrainStep)
@@ -3484,6 +3527,9 @@ def _resnet_train_step(dev, amp=True, bf16_weights=False):
     if amp:
         strategy.amp = True
         strategy.amp_configs = {"dtype": "bfloat16"}
+    if dgc is not None:
+        strategy.dgc = True
+        strategy.dgc_configs = dgc
     opt = pt.optimizer.Momentum(learning_rate=RESNET_TRAIN["lr"],
                                 momentum=RESNET_TRAIN["momentum"],
                                 parameters=list(model.parameters()))
@@ -3491,7 +3537,8 @@ def _resnet_train_step(dev, amp=True, bf16_weights=False):
     def loss_fn(img, label):
         return pt.nn.functional.cross_entropy(model(img), label).mean()
 
-    return model, DistributedTrainStep(model, loss_fn, opt, strategy)
+    return model, DistributedTrainStep(model, loss_fn, opt, strategy,
+                                       guard_health=guard_health)
 
 
 def resnet_train(dev):
@@ -3519,6 +3566,7 @@ def resnet_train(dev):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     counts = registry.launch_counts()        # ... and ends here
+    _LOSSES["resnet"] = list(losses)
     plain = {k: s.torch_ref_calls for k, s in registry.kernels().items()}
     log("resnet50 train: losses " + " ".join(f"{x:.4f}" for x in losses))
     if not all(math.isfinite(x) for x in losses):
@@ -7440,14 +7488,14 @@ def guard_phase(dev):
     seen_lr, norms = [], []
     apply_one = opt_d._apply_one
 
-    def recording_apply(p, g, lr, state, decay=None):
+    def recording_apply(p, g, lr, state, decay=None, sq_reduce=None):
         seen_lr.append(lr)
-        return apply_one(p, g, lr, state, decay)
+        return apply_one(p, g, lr, state, decay, sq_reduce)
 
     clip_values = clip.apply_values
 
-    def recording_clip(grads):
-        out = clip_values(grads)
+    def recording_clip(grads, sq_reduce=None):
+        out = clip_values(grads, sq_reduce)
         raw = math.sqrt(sum(float(g.double().pow(2).sum()) for g in grads))
         cut = math.sqrt(sum(float(g.double().pow(2).sum()) for g in out))
         norms.append((raw, cut))
@@ -7597,6 +7645,611 @@ def _bert_fp16_step(model, step):
     s.amp = True
     s.amp_configs = {"dtype": "float16"}
     return DistributedTrainStep(model, step._wrapper._loss_fn, step._opt, s)
+
+
+# -- phases 44-47: collective training across ranks -------------------------
+
+# seconds a rendezvous or one collective may wait, and a phase's ranks
+# may run, before the phase fails with the ranks' log tails
+COLL_TIMEOUT = 120
+RANKS_TIMEOUT = 600
+ZERO_STAGE_STEPS = 5          # phase 45: stages 1-3 (f32 slots)
+ZERO_ARM_STEPS = 10           # phase 45: bf16, int8, offload
+ZERO_W2_STEPS = 3             # phase 46
+# phase 45: the largest distance of an arm's losses from the f32 arm's
+# (phase 7's run) over 10 steps, 3x its reading on an NVIDIA H100 80GB
+# HBM3 at 700 W (bf16 1.094e-3, int8 4.539e-2); the offload arm must be
+# bitwise (the same update, its slots moved)
+ZERO_LOSS_LIMIT = {"bfloat16": 3.3e-3, "int8": 0.14, "offload": 0.0}
+# phase 46: the world-2 losses' largest distance from the world-1 run of
+# the same global batches (phase 7's for dp 2, phase 45's int8 arm for
+# fsdp 2 / int8) over 3 steps, 3x its reading on that card (2.298e-4,
+# 1.898e-4)
+ZERO_W2_LIMIT = {"dp2": 7e-4, "fsdp2_int8": 6e-4}
+# phase 47: ResNet-50 with DGC (the bench's configuration)
+DGC_CFG = {"rampup_begin_step": 2, "rampup_step": 1, "sparsity": [0.999]}
+DGC_STEPS = 10
+DGC_W2_STEPS = 4
+# phase 47 (b): world 2's losses against (a)'s first four, 3x its reading
+# on that card (1.5625e-2: the bf16-AMP losses step in 2^-6 there)
+DGC_W2_LIMIT = 0.047
+
+
+def _digest(tensors):
+    """Exact fingerprints of a list of f32 tensors (bit sums, wrapped)."""
+    out = []
+    for t in tensors:
+        b = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        out.append((int(b.sum()), int((b * b).sum()), int(b[::7].sum())))
+    return out
+
+
+def _rank_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.ops.kernels import registry
+    registry.reset_counts()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _coll_rank(_payload):
+    """Every collective of the collective API and the named-axis
+    collectives on this rank's CUDA tensors; each result as numpy."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed import parallel
+    dev = _rank_setup()
+    r, n = dist.get_rank(), dist.get_world_size()
+    got, where = {}, set()
+
+    def keep(name, t):
+        where.add(t.device.type)
+        got[name] = t.detach().cpu().numpy().copy()
+
+    for op in ("SUM", "MAX", "MIN", "PROD"):
+        t = torch.full((4,), float(r + 2), device=dev)
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+        keep(f"all_reduce_{op}", t)
+    t = torch.full((3,), float(r + 1), device=dev)
+    dist.reduce(t, dst=0)
+    keep("reduce", t)
+    lst = []
+    dist.all_gather(lst, torch.arange(3.0, device=dev) + 10 * r)
+    keep("all_gather", torch.stack(lst))
+    keep("reduce_scatter", dist.reduce_scatter(
+        torch.arange(2.0 * n, device=dev) * (r + 1)))
+    t = torch.full((3,), float(r), device=dev)
+    dist.broadcast(t, src=n - 1)
+    keep("broadcast", t)
+    t = torch.zeros(2, device=dev)
+    dist.scatter(t, [torch.full((2,), float(j), device=dev)
+                     for j in range(n)] if r == 0 else None, src=0)
+    keep("scatter", t)
+    lst = []
+    dist.alltoall([torch.full((1,), float(10 * r + j), device=dev)
+                   for j in range(n)], lst)
+    keep("alltoall", torch.cat(lst))
+    if n > 1:
+        t = torch.full((2,), float(r), device=dev)
+        if r == 0:
+            dist.send(torch.full((2,), 42.0, device=dev), dst=1)
+        elif r == 1:
+            dist.recv(t, src=0)
+        keep("send_recv", t)
+    g = dist.new_group(list(range(n)))
+    t = torch.ones(2, device=dev)
+    dist.all_reduce(t, group=g)
+    keep("new_group", dist.wait(t))
+    dist.barrier()
+    mesh_mod.init_mesh({"dp": n})
+    x = torch.tensor([float(r + 1), 2.0 * (r + 1)], device=dev)
+    for name in ("psum", "pmean", "pmax", "pmin", "pprod"):
+        keep(name, getattr(comm, name)(x, "dp"))
+    keep("gather_tiled", comm.all_gather(x, "dp", tiled=True))
+    keep("gather_stacked", comm.all_gather(x, "dp"))
+    keep("rs", comm.reduce_scatter(
+        torch.arange(2.0 * n, device=dev) * (r + 1), "dp"))
+    keep("ppermute", comm.ppermute(x, "dp", [(0, n - 1)]))
+    keep("ring_shift", comm.ring_shift(x, "dp", 1))
+    keep("all_to_all", comm.all_to_all(
+        torch.arange(float(n), device=dev) + 100 * r, "dp", split_dim=0,
+        concat_dim=0))
+    keep("broadcast_from", comm.broadcast_from(x, "dp", root=n - 1))
+    keep("shard_map", dist.shard_map(
+        lambda b: comm.psum(b, "dp") + comm.axis_index("dp"),
+        in_specs=(("dp",),), out_specs=("dp",))(
+            torch.arange(float(n), device=dev)))
+    torch.cuda.synchronize()
+    return dict(rank=r, world=n, backend=parallel.backend(),
+                device=str(dev), axis=(comm.axis_index("dp"),
+                                       comm.axis_size("dp")),
+                where=sorted(where), got=got)
+
+
+def _coll_want(r, n):
+    s = n * (n + 1) / 2
+    x = np.array([r + 1.0, 2.0 * (r + 1)])
+    want = {"all_reduce_SUM": np.full(4, sum(j + 2.0 for j in range(n))),
+            "all_reduce_MAX": np.full(4, n + 1.0),
+            "all_reduce_MIN": np.full(4, 2.0),
+            "all_reduce_PROD": np.full(4, float(math.prod(
+                j + 2 for j in range(n)))),
+            "reduce": np.full(3, s),
+            "all_gather": np.stack([np.arange(3.0) + 10 * j
+                                    for j in range(n)]),
+            "reduce_scatter": (np.arange(2.0 * n) * s)[2 * r:2 * r + 2],
+            "broadcast": np.full(3, n - 1.0), "scatter": np.full(2, r),
+            "alltoall": np.array([10.0 * j + r for j in range(n)]),
+            "new_group": np.full(2, float(n)),
+            "psum": np.array([s, 2 * s]), "pmean": np.array([s, 2 * s]) / n,
+            "pmax": np.array([n, 2.0 * n]), "pmin": np.array([1.0, 2.0]),
+            "pprod": np.array([math.prod(range(1, n + 1)),
+                               math.prod(2.0 * j for j in range(1, n + 1))]),
+            "gather_tiled": np.concatenate([[j + 1.0, 2.0 * (j + 1)]
+                                            for j in range(n)]),
+            "gather_stacked": np.stack([[j + 1.0, 2.0 * (j + 1)]
+                                        for j in range(n)]),
+            "rs": (np.arange(2.0 * n) * s)[2 * r:2 * r + 2],
+            "ppermute": x * 0 + (np.array([1.0, 2.0]) if r == n - 1
+                                 else 0.0),
+            "ring_shift": np.array([(r - 1) % n + 1.0,
+                                    2.0 * ((r - 1) % n + 1)]),
+            "all_to_all": np.array([100.0 * j + r for j in range(n)]),
+            "broadcast_from": np.array([n, 2.0 * n]),
+            "shard_map": np.array([s - n + j for j in range(n)])}
+    if n > 1:
+        want["send_recv"] = np.full(2, 42.0 if r == 1 else float(r))
+    return want
+
+
+def _check_coll(label, results, backend):
+    """Every rank's results exact, computed where the tensors live."""
+    for res in results:
+        r, n = res["rank"], res["world"]
+        if res["backend"] != backend or res["where"] != ["cuda"]:
+            fail(f"phase 44 {label}: rank {r} ran over {res['backend']} "
+                 f"with results on {res['where']}")
+        if tuple(res["axis"]) != (r, n):
+            fail(f"phase 44 {label}: rank {r} axis {res['axis']}")
+        want = _coll_want(r, n)
+        if sorted(want) != sorted(res["got"]):
+            fail(f"phase 44 {label}: collectives {sorted(res['got'])}")
+        for k, w in want.items():
+            if not np.array_equal(res["got"][k].astype(np.float64), w):
+                fail(f"phase 44 {label}: rank {r} {k} {res['got'][k]} "
+                     f"!= {w}")
+
+
+def _nccl_pair(_payload):
+    """Two ranks on one card over NCCL: NCCL's own answer."""
+    import paddle_tpu_torch.distributed as dist
+    dev = _rank_setup()
+    t = torch.ones(4, device=dev)
+    try:
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        return {"accepted": True, "value": t.cpu().tolist()}
+    except RuntimeError as e:           # NCCL's DistBackendError
+        return {"accepted": False, "error": f"{type(e).__name__}: {e}"}
+
+
+def _spawn(fn, payload, nprocs, backend, label):
+    from paddle_tpu_torch.distributed.spawn import spawn
+    logs = os.path.join(tempfile.gettempdir(),
+                        f"chip_smoke_{label}_{os.getpid()}")
+    return spawn(fn, args=(payload,), nprocs=nprocs, backend=backend,
+                 timeout=COLL_TIMEOUT, join_timeout=RANKS_TIMEOUT,
+                 log_dir=logs)
+
+
+def collectives_phase(dev):
+    """Phase 44: (a) world 1 over NCCL in this process, then (b) two ranks
+    on the one card over gloo (their CUDA tensors staged through host
+    memory), every collective of the collective API and the named-axis
+    collectives exact on integer-valued floats; (c) two ranks on the one
+    card over NCCL, whose refusal is recorded (if NCCL accepts the pair,
+    (b) runs over NCCL too)."""
+    from paddle_tpu_torch.distributed import init_parallel_env, parallel
+    t0 = time.perf_counter()
+    init_parallel_env(backend="nccl", timeout=COLL_TIMEOUT)
+    one = _coll_rank(None)
+    _check_coll("(a) world 1", [one], "nccl")
+    ta = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = _spawn(_coll_rank, None, 2, "gloo", "p44b")
+    _check_coll("(b) world 2 gloo", two, "gloo")
+    tb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair = _spawn(_nccl_pair, None, 2, "nccl", "p44c")
+    accepted = all(p["accepted"] for p in pair)
+    extra = {}
+    if accepted:
+        log("phase 44 (c): NCCL accepted two ranks on one card; (b) runs "
+            "over NCCL too")
+        _check_coll("(c) world 2 nccl", _spawn(_coll_rank, None, 2, "nccl",
+                                               "p44c2"), "nccl")
+    else:
+        extra["nccl_refusal"] = [p.get("error", "")[:400] for p in pair]
+    res = dict(world1_backend=parallel.backend(), world1_s=ta,
+               world2_gloo_s=tb, nccl_pair_accepted=accepted,
+               nccl_pair_s=time.perf_counter() - t0,
+               collectives=sorted(one["got"]), card=_CARD[0], **extra)
+    log("phase 44: " + json.dumps(res))
+    return res
+
+
+def _proxy_arm(dev, ids, steps, stage=0, mdt="float32", offload=False):
+    """One arm of phase 45: the proxy from the seed, AdamW(1e-4), bf16
+    AMP, ``stage`` / ``mdt`` / ``offload``; ``steps`` steps on ``ids``."""
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    cfg = proxy_config()
+    model = LlamaForCausalLM(cfg, device=dev, dtype="float32",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "bfloat16"}
+    if stage:
+        s.sharding = True
+        s.sharding_configs = {"stage": stage, "moment_dtype": mdt,
+                              "offload": offload}
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = DistributedTrainStep(model, _loss_fn(model), opt, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    arm = dict(losses=losses, ms_per_step=statistics.median(ms[2:]),
+               first_step_ms=ms[0],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               slot_bytes=step.slot_bytes())
+    return arm, model, step
+
+
+def _slot_plan(model, mdt):
+    """The AdamW slots' bytes a rank holds at world 1: m and v in their
+    at-rest dtype (int8: with a per-row f32 scale), beta1_pow, beta2_pow
+    and the decay flag as f32 scalars, a parameter."""
+    size = {"float32": 4, "bfloat16": 2, "int8": 1}[mdt]
+    total = 0
+    for p in model.parameters():
+        total += 2 * p.numel() * size + 3 * 4
+        if mdt == "int8":
+            total += 2 * (p.numel() // p.shape[-1]) * 4
+    return total
+
+
+def zero_world1(dev):
+    """Phase 45: the proxy (phase 7's configuration) under
+    ``strategy.sharding`` at world 1 over NCCL.  The plain step and stages
+    1, 2 and 3 with f32 slots, ``ZERO_STAGE_STEPS`` steps each: bitwise
+    phase 7's losses and each other's parameters.  Then stage 1 with
+    bf16 and int8 slots and with offloaded f32 slots, ``ZERO_ARM_STEPS``
+    steps each: losses within ``ZERO_LOSS_LIMIT`` of phase 7's (the f32
+    arm), slot bytes on the card as planned (offload: none, every slot
+    pinned host memory), the peak below the f32 arm's by at least half
+    the slots saved; ms/step.  Returns the launches and the int8 arm's
+    losses."""
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.ops.kernels import registry
+    if parallel.backend() != "nccl":
+        fail(f"phase 45: world 1 runs over {parallel.backend()}")
+    cfg = proxy_config()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype("int32")).to(dev)
+    ref = _LOSSES["train"]
+    registry.reset_counts()                  # the main path starts here
+    arms, steps_run, base = {}, 0, None
+    for name, stage in (("plain", 0), ("stage 1", 1), ("stage 2", 2),
+                        ("stage 3", 3)):
+        arm, model, step = _proxy_arm(dev, ids, ZERO_STAGE_STEPS, stage)
+        steps_run += ZERO_STAGE_STEPS
+        if arm["losses"] != ref[:ZERO_STAGE_STEPS]:
+            fail(f"phase 45: {name}: losses {arm['losses']} are not "
+                 f"phase 7's {ref[:ZERO_STAGE_STEPS]} bitwise")
+        params = [p.detach().cpu() for p in model.parameters()]
+        if base is None:
+            base = params
+        elif not all(torch.equal(a, b) for a, b in zip(base, params)):
+            fail(f"phase 45: {name}: parameters are not the plain step's "
+                 "bitwise")
+        arms[name] = arm
+        f32_plan = _slot_plan(model, "float32")
+        del model, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = arms["stage 1"]
+    if f32["slot_bytes"]["device"] != f32_plan:
+        fail(f"phase 45: f32 slots {f32['slot_bytes']} != plan {f32_plan}")
+    for name, mdt, offload in (("bfloat16", "bfloat16", False),
+                               ("int8", "int8", False),
+                               ("offload", "float32", True)):
+        arm, model, step = _proxy_arm(dev, ids, ZERO_ARM_STEPS, 1, mdt,
+                                      offload)
+        steps_run += ZERO_ARM_STEPS
+        plan = _slot_plan(model, mdt)
+        dist_ = max(abs(a - b) for a, b in zip(arm["losses"], ref))
+        arm.update(loss_dist_vs_f32=dist_, limit=ZERO_LOSS_LIMIT[name],
+                   slot_plan=plan)
+        if not all(math.isfinite(x) for x in arm["losses"]):
+            fail(f"phase 45: {name}: non-finite losses {arm['losses']}")
+        if dist_ > ZERO_LOSS_LIMIT[name]:
+            fail(f"phase 45: {name}: losses {dist_:.4g} from f32's, limit "
+                 f"{ZERO_LOSS_LIMIT[name]}")
+        sb = arm["slot_bytes"]
+        if offload:
+            pinned = all(v.device.type == "cpu" and v.is_pinned()
+                         for st in step._opt.opt_state()
+                         for v in st.values())
+            if sb["device"] or sb["host"] or sb["pinned"] != plan \
+                    or not pinned:
+                fail(f"phase 45: offload slots {sb} (plan: 0 on the card, "
+                     f"{plan} pinned; every slot pinned: {pinned})")
+            saved = f32_plan
+        else:
+            if sb["device"] != plan:
+                fail(f"phase 45: {name} slots {sb} != plan {plan}")
+            saved = f32_plan - plan
+        fall = (f32["peak_gb"] - arm["peak_gb"]) * 1e9
+        arm["peak_fall_gb"] = fall / 1e9
+        arm["slots_saved_gb"] = saved / 1e9
+        if fall < saved / 2:
+            fail(f"phase 45: {name}: the peak fell {fall / 1e9:.3f} GB, "
+                 f"less than half the {saved / 1e9:.3f} GB saved")
+        arms[name] = arm
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = registry.launch_counts()        # ... and ends here
+    want = dict.fromkeys(counts, 0.0)
+    want.update({"flash_attention": 2.0 * cfg.num_hidden_layers,
+                 "flash_attention_bwd_dkv": float(cfg.num_hidden_layers),
+                 "flash_attention_bwd_dq": float(cfg.num_hidden_layers)})
+    per_step = {k: c / steps_run for k, c in counts.items()}
+    if per_step != want:
+        fail(f"phase 45: launches a step {per_step}, want {want}")
+    log("phase 45: " + json.dumps(dict(arms=arms, f32_slot_plan=f32_plan,
+                                       launches=counts, card=_CARD[0])))
+    return counts, arms["int8"]["losses"]
+
+
+def _zero_rank(payload):
+    """One rank of phase 46: each arm from the seed on this rank's rows
+    of the global batch; the global loss and the parameters' digests
+    after every step, the rows held against ``sharded_numel``."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.distributed.spec_layout import get_layout
+    from paddle_tpu_torch.ops.kernels import registry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    dev = _rank_setup()
+    cfg = proxy_config()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype("int32")).to(dev)
+    out = {}
+    for name, degrees, stage, mdt in payload["arms"]:
+        mesh = mesh_mod.init_mesh(degrees)
+        model = LlamaForCausalLM(cfg, device=dev, dtype="float32",
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        s = DistributedStrategy()
+        s.amp = True
+        s.amp_configs = {"dtype": "bfloat16"}
+        if stage:
+            s.sharding = True
+            s.sharding_configs = {"stage": stage, "moment_dtype": mdt}
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step = DistributedTrainStep(model, _loss_fn(model), opt, s,
+                                    mesh=mesh)
+        rows = ids[mesh_mod.batch_spec(TRAIN_BATCH, mesh)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        registry.reset_counts()
+        losses, digests, ms = [], [], []
+        for _ in range(payload["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(rows, rows).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            digests.append(_digest(list(step.full_parameters().values())))
+        counts = registry.launch_counts()
+        lay, held = get_layout(), []
+        for n, p, shape in zip(step._names, step._params,
+                               step._full_shapes):
+            want_p = lay.sharded_numel(shape, step.param_specs[n],
+                                       mesh.shape)
+            want_s = lay.sharded_numel(shape, step.slot_specs[n],
+                                       mesh.shape)
+            st = opt._accumulators[id(p)]
+            ok = p.numel() == want_p and st["m"].numel() == want_s \
+                and st["v"].numel() == want_s
+            held.append((n, ok, p.numel(), want_p, st["m"].numel(),
+                         want_s))
+        out[name] = dict(losses=losses, digests=digests, ms=ms,
+                         counts=counts, held=held, rows=str(rows.shape),
+                         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                         slot_bytes=step.slot_bytes())
+        del model, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_world2(dev, int8_losses):
+    """Phase 46: the proxy at world 2 on the one card over gloo, each rank
+    batch 2 of phase 7's global batch 4: dp 2 (no ZeRO) and fsdp 2 at
+    stage 3 with int8 slots, ``ZERO_W2_STEPS`` steps each.  The two ranks'
+    parameters bitwise equal after every step; the losses within
+    ``ZERO_W2_LIMIT`` of the world-1 runs of the same global batches
+    (phase 7, phase 45's int8 arm); under stage 3 each rank holds
+    ``sharded_numel`` of every parameter and slot; ms/step (host-staged,
+    no target).  Returns the ranks' launches."""
+    t0 = time.perf_counter()
+    arms = [("dp2", {"dp": 2}, 0, "float32"),
+            ("fsdp2_int8", {"fsdp": 2}, 3, "int8")]
+    res = _spawn(_zero_rank, {"arms": arms, "steps": ZERO_W2_STEPS}, 2,
+                 "gloo", "p46")
+    total = collections.Counter()
+    summary = {}
+    ref = {"dp2": _LOSSES["train"], "fsdp2_int8": int8_losses}
+    L = proxy_config().num_hidden_layers
+    for name, *_ in arms:
+        a, b = res[0][name], res[1][name]
+        if a["digests"] != b["digests"]:
+            fail(f"phase 46: {name}: the ranks' parameters differ")
+        if a["losses"] != b["losses"]:
+            fail(f"phase 46: {name}: the ranks' losses differ")
+        d = max(abs(x - y) for x, y in zip(a["losses"], ref[name]))
+        if not all(math.isfinite(x) for x in a["losses"]) \
+                or d > ZERO_W2_LIMIT[name]:
+            fail(f"phase 46: {name}: losses {a['losses']} {d:.4g} from "
+                 f"world 1's, limit {ZERO_W2_LIMIT[name]}")
+        bad = [h for r in res for h in r[name]["held"] if not h[1]]
+        if bad:
+            fail(f"phase 46: {name}: rows held != sharded_numel: {bad[:3]}")
+        for r in res:
+            c = r[name]["counts"]
+            want = dict.fromkeys(c, 0)
+            want.update({"flash_attention": 2 * L * ZERO_W2_STEPS,
+                         "flash_attention_bwd_dkv": L * ZERO_W2_STEPS,
+                         "flash_attention_bwd_dq": L * ZERO_W2_STEPS})
+            if c != want:
+                fail(f"phase 46: {name}: launches {c}, want {want}")
+            total.update(c)
+        summary[name] = dict(losses=a["losses"], loss_dist_vs_world1=d,
+                             limit=ZERO_W2_LIMIT[name],
+                             ms_per_step=[statistics.median(r[name]["ms"])
+                                          for r in res],
+                             peak_gb=[r[name]["peak_gb"] for r in res],
+                             slot_bytes=[r[name]["slot_bytes"]
+                                         for r in res],
+                             rows=a["rows"])
+    log("phase 46: " + json.dumps(dict(arms=summary, card=_CARD[0],
+                                       seconds=time.perf_counter() - t0)))
+    return dict(total)
+
+
+def _dgc_rank(payload):
+    """One rank of phase 47 (b): ResNet-50 with DGC on this rank's rows of
+    the bench's batch; the global loss and the parameters' digests after
+    every step."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    dev = _rank_setup()
+    model, step = _resnet_train_step(dev, dgc=payload["dgc"])
+    img, label = _resnet_batch(dev, RESNET_TRAIN["batch"])
+    rows = mesh_mod.batch_spec(RESNET_TRAIN["batch"])
+    img, label = img[rows].contiguous(), label[rows].contiguous()
+    losses, digests, ms = [], [], []
+    for _ in range(payload["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(img, label)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(_digest(list(model.parameters())))
+    return dict(losses=losses, digests=digests, ms=ms,
+                buffers=_digest([b for b in model.buffers()
+                                 if b.is_floating_point()]),
+                batch=int(img.shape[0]))
+
+
+def dgc_phase(dev):
+    """Phase 47: DGC on ResNet-50 at the bench's configuration (batch 256,
+    224x224, Momentum(0.1, 0.9), bf16 AMP, cross entropy) with
+    ``DGC_CFG``.  (a) world 1 over NCCL, ``DGC_STEPS`` steps: steps 0-1
+    bitwise phase 24's dense steps; from step 2 each tensor sends exactly
+    k = max(1, round(n * 0.001)) entries, u and v zero where it sent;
+    losses finite; ``guard_health`` with DGC still raises.  (b) world 2
+    over gloo on the one card, batch 128 a rank, ``DGC_W2_STEPS`` steps:
+    the ranks bitwise equal, the losses within ``DGC_W2_LIMIT`` of (a)'s
+    first steps.  No kernel runs here, in the reference as in the port."""
+    from paddle_tpu_torch.distributed.fleet.dgc import topk_count
+    from paddle_tpu_torch.ops.kernels import registry
+    t0 = time.perf_counter()
+    model, step = _resnet_train_step(dev, dgc=DGC_CFG)
+    img, label = _resnet_batch(dev, RESNET_TRAIN["batch"])
+    registry.reset_counts()
+    losses, ms, sent = [], [], []
+    for i in range(DGC_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(img, label)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        masks = step.last_dgc_masks
+        step.last_dgc_masks = None
+        if i < DGC_CFG["rampup_begin_step"]:
+            if masks is not None:
+                fail(f"phase 47: step {i} compressed during warm-up")
+            continue
+        total = 0
+        for n, p in zip(step._names, step._params):
+            k = topk_count(p.numel(), DGC_CFG["sparsity"][0])
+            m = masks[n]
+            if int(m.sum()) != k:
+                fail(f"phase 47: step {i}: {n} sent {int(m.sum())}, "
+                     f"want {k}")
+            if step._dgc_state["u"][n][m].any() or \
+                    step._dgc_state["v"][n][m].any():
+                fail(f"phase 47: step {i}: {n}: u or v not zero where "
+                     "it sent")
+            total += k
+        sent.append(total)
+    counts = registry.launch_counts()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 47: non-finite losses {losses}")
+    warm = DGC_CFG["rampup_begin_step"]
+    if losses[:warm] != _LOSSES["resnet"][:warm]:
+        fail(f"phase 47: warm-up losses {losses[:warm]} are not phase "
+             f"24's {_LOSSES['resnet'][:warm]} bitwise")
+    if any(counts.values()):
+        fail(f"phase 47: kernels ran: {counts}")
+    nparams = sum(p.numel() for p in step._params)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _resnet_train_step(dev, dgc=DGC_CFG, guard_health=True)
+        fail("phase 47: guard_health with DGC did not raise")
+    except NotImplementedError as e:
+        refused = str(e)[:80]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ta = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = _spawn(_dgc_rank, {"dgc": DGC_CFG, "steps": DGC_W2_STEPS}, 2,
+                 "gloo", "p47")
+    a, b = res
+    if a["digests"] != b["digests"] or a["losses"] != b["losses"] \
+            or a["buffers"] != b["buffers"]:
+        fail("phase 47 (b): the ranks' parameters, losses or buffers "
+             "differ")
+    d = max(abs(x - y) for x, y in zip(a["losses"], losses))
+    if d > DGC_W2_LIMIT:
+        fail(f"phase 47 (b): losses {a['losses']} {d:.4g} from (a)'s, "
+             f"limit {DGC_W2_LIMIT}")
+    out = dict(world1=dict(losses=losses, ms_per_step=statistics.median(
+        ms[2:]), sent_a_step=sent, params=nparams,
+        sent_share=sent[-1] / nparams, guard_refusal=refused, seconds=ta),
+               world2=dict(losses=a["losses"], loss_dist_vs_world1=d,
+                           limit=DGC_W2_LIMIT, batch_a_rank=a["batch"],
+                           ms_per_step=[statistics.median(r["ms"][1:])
+                                        for r in res],
+                           seconds=time.perf_counter() - t0),
+               card=_CARD[0])
+    log("phase 47: " + json.dumps(out))
+    return counts
 
 
 def log_bwd_entries(bwd):
@@ -8061,6 +8714,36 @@ def main() -> int:
     t0 = time.perf_counter()
     bert_fp16(dev)
     log(f"phase 43: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 44. collectives on the card: world 1 over NCCL (this process from
+    # here on), two ranks on the card over gloo, NCCL's refusal of them
+    t0 = time.perf_counter()
+    collectives_phase(dev)
+    log(f"phase 44: {time.perf_counter() - t0:.1f} s")
+
+    # 45. the proxy under ZeRO at world 1 over NCCL: stages 1-3 bitwise
+    # the plain step, bf16 / int8 / offloaded slots
+    t0 = time.perf_counter()
+    zero_counts, int8_losses = zero_world1(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 45: {time.perf_counter() - t0:.1f} s")
+
+    # 46. the proxy at world 2 on the one card over gloo: dp 2, and fsdp 2
+    # at stage 3 with int8 slots
+    t0 = time.perf_counter()
+    w2_counts = zero_world2(dev, int8_losses)
+    log(f"phase 46: {time.perf_counter() - t0:.1f} s")
+
+    # 47. DGC on ResNet-50 at the bench's configuration: world 1 over
+    # NCCL, world 2 over gloo
+    t0 = time.perf_counter()
+    dgc_counts = dgc_phase(dev)
+    import torch.distributed as tdist
+    tdist.destroy_process_group()            # phase 44's world of one
+    log(f"phase 47: {time.perf_counter() - t0:.1f} s")
 
     options = {
         "flash_attention": {
@@ -8082,7 +8765,9 @@ def main() -> int:
                                          gw_counts, gh_counts,
                                          fleet_counts, geo_counts,
                                          scale_counts, long_counts,
-                                         cl_counts, guard_counts))
+                                         cl_counts, guard_counts,
+                                         zero_counts, w2_counts,
+                                         dgc_counts))
         by_mode = {}
         for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes},
                   {"int8_kv_attention": gh_modes}, fleet_modes):

@@ -1,13 +1,32 @@
-"""Distributed training (counterpart of ``paddle_tpu.distributed``):
-``fleet``'s API, its one-device train step, its parameter-server path
-(with geo replication) and its elastic data plane; the feature admission
-entries (``entry``), the checkpoint format (``checkpoint``), the device
-mesh (``mesh``) and the elastic launcher (``launch``)."""
-from . import checkpoint, entry, fleet, mesh  # noqa: F401
+"""Distributed training (counterpart of ``paddle_tpu.distributed``): ranks
+as processes (``init_parallel_env``, ``spawn``, ``launch
+--nproc_per_node``), the mesh over them (``mesh``) with its ZeRO and
+batch spec rules (``spec_layout``), the collective API (``collective``),
+the named-axis collectives (``communication``), ``DataParallel``;
+``fleet``'s API with its train step over dp x fsdp, its
+parameter-server path (with geo replication) and its elastic data
+plane; the feature admission entries (``entry``) and the checkpoint
+format (``checkpoint``)."""
+from . import (checkpoint, collective, communication, entry,  # noqa: F401
+               fleet, mesh, spec_layout)
 from .checkpoint import (CheckpointManager, load_state_dict,  # noqa: F401
                          save_state_dict)
+from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
+                         all_reduce, alltoall, barrier, broadcast, get_group,
+                         new_group, recv, reduce, reduce_scatter, scatter,
+                         send, shard_map, split, wait)
 from .entry import CountFilterEntry, ProbabilityEntry  # noqa: F401
+from .mesh import get_mesh, init_mesh, set_mesh  # noqa: F401
+from .parallel import (DataParallel, ParallelEnv, get_rank,  # noqa: F401
+                       get_world_size, global_batch, init_parallel_env)
+from .spawn import spawn  # noqa: F401
 
-__all__ = ["fleet", "checkpoint", "entry", "mesh", "CheckpointManager",
-           "save_state_dict", "load_state_dict", "CountFilterEntry",
-           "ProbabilityEntry"]
+__all__ = [
+    "init_parallel_env", "get_rank", "get_world_size", "ParallelEnv",
+    "DataParallel", "global_batch", "ReduceOp", "Group", "new_group",
+    "get_group", "all_reduce", "all_gather", "reduce", "reduce_scatter",
+    "broadcast", "scatter", "alltoall", "send", "recv", "barrier", "wait",
+    "split", "shard_map", "init_mesh", "get_mesh", "set_mesh",
+    "communication", "collective", "spec_layout", "fleet", "spawn",
+    "checkpoint", "entry", "mesh", "CheckpointManager", "save_state_dict",
+    "load_state_dict", "CountFilterEntry", "ProbabilityEntry"]

@@ -11,7 +11,7 @@ the PS service: ``PSServer`` with its standby and read replicas,
 the elastic data plane (``ElasticCoordinator``, ``ElasticTrainer`` over
 ``DeviceZeroEngine``, the ZeRO shard math and the fused optimizer
 apply)."""
-from . import geo, metrics  # noqa: F401
+from . import dgc, geo, metrics  # noqa: F401
 from .dist_step import (DistributedTrainStep, LRSchedule,
                         flatten_zero_state, fused_optimizer_apply,
                         make_lr_schedule, unflatten_zero_state,
@@ -33,7 +33,7 @@ from .ps_service import (PSClient, PSConnectError, PSError, PSServer,
                          PSUnavailable)
 from .role_maker import (ElasticRoleMaker, PaddleCloudRoleMaker, Role,
                          RoleMakerBase, UserDefinedRoleMaker, UtilBase)
-from .strategy import DistributedStrategy
+from .strategy import DistributedStrategy, warn_noop_toggles
 
 __all__ = ["init", "is_first_worker", "worker_index", "worker_num",
            "is_worker", "worker_endpoints", "server_num", "server_index",
@@ -51,4 +51,5 @@ __all__ = ["init", "is_first_worker", "worker_index", "worker_num",
            "Role", "RoleMakerBase", "ElasticRoleMaker", "LRSchedule",
            "make_lr_schedule", "zero_shard_ranges", "flatten_zero_state",
            "unflatten_zero_state", "zero_shard", "zero_unshard",
-           "zero_reshard", "fused_optimizer_apply"]
+           "zero_reshard", "fused_optimizer_apply", "dgc",
+           "warn_noop_toggles"]

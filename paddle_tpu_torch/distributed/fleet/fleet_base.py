@@ -11,14 +11,21 @@ start from a directory of ``.npz`` tables, or none) and ``run_server``
 (a primary, or the hot standby of its ``|``-separated replica group's
 primary); a trainer calls ``init_worker`` (a client in the strategy's
 sync, async or geo mode), ``barrier_worker`` and ``stop_worker``.
-``distributed_train_step`` returns the port's one-device
-:class:`~.dist_step.DistributedTrainStep`.
+A collective ``init`` (``is_collective=True``) joins the world's
+process group when the launcher's world has more than one rank
+(``init_parallel_env``) and installs the strategy's ``dp`` x ``fsdp``
+mesh over it; a world of one rank needs no group.
+``distributed_model`` wraps the model in ``DataParallel`` past one
+worker; ``distributed_train_step`` returns a
+:class:`~.dist_step.DistributedTrainStep` over that mesh; the
+``DistributedOptimizer`` of ``distributed_optimizer`` swaps in ``Lamb``
+or ``Lars`` for the strategy's ``lamb`` / ``lars`` toggles, as the
+reference's meta optimizers do.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
-queue item 4): a collective ``init`` whose mesh degrees exceed 1,
-``distributed_model`` in a world of more than one worker, and
-``DistributedOptimizer``'s LAMB / LARS swap (the port has no ``Lamb`` or
-``Lars``).
+Not ported yet (``NotImplementedError`` naming ROADMAP queue item 4):
+mesh degrees above 1 on ``tp``, ``pp`` or ``sp`` (``hybrid_configs``
+``mp_degree`` / ``pp_degree`` / ``sep_degree``, the ``tensor_parallel``
+and ``sequence_parallel`` degrees).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ class Fleet:
 
     def __init__(self):
         self._role_maker = None
+        self._mesh = None
         self._strategy: Optional[DistributedStrategy] = None
         self._ps_runtime = None
         self._util = None
@@ -73,13 +81,29 @@ class Fleet:
         self._role_maker = role_maker or PaddleCloudRoleMaker(
             is_collective=is_collective)
         self._strategy = strategy or DistributedStrategy()
+        self._mesh = None
         if is_collective or getattr(role_maker, "_is_collective", False):
+            from .. import mesh as mesh_mod
+            from ..parallel import ParallelEnv, init_parallel_env, \
+                is_initialized
             degrees = self._strategy.mesh_degrees()
-            wide = {k: v for k, v in degrees.items() if v not in (1, -1)}
-            if wide:
+            model = {k: v for k, v in degrees.items()
+                     if k in ("tp", "pp", "sp") and v > 1}
+            if model:
                 raise NotImplementedError(
-                    f"a collective fleet.init over mesh degrees {wide} "
-                    f"{_LATER}; the port trains on one device")
+                    f"a collective fleet.init over mesh degrees {model} "
+                    f"{_LATER}; the port runs dp x fsdp")
+            if ParallelEnv().world_size > 1 or is_initialized():
+                init_parallel_env()
+                self._mesh = mesh_mod.init_mesh(degrees)
+            else:
+                wide = {k: v for k, v in degrees.items()
+                        if v not in (1, -1)}
+                if wide:
+                    raise ValueError(
+                        f"mesh degrees {wide} need that many ranks; this "
+                        "world has one (start the ranks with launch "
+                        "--nproc_per_node or spawn)")
         return self
 
     # -- role info -----------------------------------------------------
@@ -175,12 +199,11 @@ class Fleet:
                                     self)
 
     def distributed_model(self, model):
-        """Data parallelism over one device is the model itself; a wider
-        world waits for the port's multi-device step."""
+        """``DataParallel`` over the data axes past one worker; the model
+        itself in a world of one."""
         if self._rm().worker_num() > 1:
-            raise NotImplementedError(
-                f"distributed_model over {self._rm().worker_num()} "
-                f"workers (DataParallel) {_LATER}")
+            from ..parallel import DataParallel
+            return DataParallel(model)
         return model
 
     def distributed_train_step(self, model, loss_fn, optimizer,
@@ -190,7 +213,8 @@ class Fleet:
                                                 DistributedOptimizer) \
             else optimizer
         return DistributedTrainStep(model, loss_fn, opt,
-                                    strategy or self._strategy)
+                                    strategy or self._strategy,
+                                    mesh=getattr(self, "_mesh", None))
 
     @property
     def strategy(self):
@@ -198,20 +222,42 @@ class Fleet:
 
 
 class DistributedOptimizer:
-    """Returned by ``fleet.distributed_optimizer``: delegates to the
-    optimizer it wraps; graph-level strategies live in the compiled step
-    (``dist_step.py``).  The reference's LAMB / LARS swap is not ported
-    (the port has neither optimizer)."""
+    """Returned by ``fleet.distributed_optimizer``: swaps in ``Lamb`` /
+    ``Lars`` for the strategy's ``lamb`` / ``lars`` toggles (the
+    reference's meta optimizers, over the wrapped optimizer's lr and
+    parameters) and delegates to the result; graph-level strategies live
+    in the train step (``dist_step.py``)."""
 
     def __init__(self, optimizer, strategy, fleet_obj):
-        for name in ("lamb", "lars"):
-            if getattr(strategy, name):
-                raise NotImplementedError(
-                    f"strategy.{name}: the {name.upper()} optimizer swap "
-                    f"{_LATER}")
+        import warnings
+        from .strategy import warn_noop_toggles
         self.user_defined_strategy = strategy
         self._fleet = fleet_obj
-        self.inner_opt = optimizer
+        self.inner_opt = self._maybe_swap(optimizer, strategy)
+        warn_noop_toggles(strategy)
+        if strategy.dgc:
+            warnings.warn(
+                "strategy.dgc compresses gradients only through the train "
+                "step (fleet.distributed_train_step / "
+                "DistributedTrainStep); a hand-written loop over this "
+                "optimizer is not compressed", UserWarning)
+
+    @staticmethod
+    def _maybe_swap(opt, strategy):
+        from ...optimizer import Lamb, Lars
+        if strategy.lamb:
+            cfg = strategy.lamb_configs
+            return Lamb(learning_rate=opt._learning_rate,
+                        lamb_weight_decay=cfg["lamb_weight_decay"],
+                        parameters=opt._parameter_list)
+        if strategy.lars:
+            cfg = strategy.lars_configs
+            return Lars(learning_rate=opt._learning_rate,
+                        lars_coeff=cfg["lars_coeff"],
+                        lars_weight_decay=cfg["lars_weight_decay"],
+                        epsilon=cfg["epsilon"],
+                        parameters=opt._parameter_list)
+        return opt
 
     def step(self):
         return self.inner_opt.step()

@@ -5,19 +5,37 @@ Every toggle and config dict of the reference is accepted under its
 name, so a strategy written for the reference builds here.  The port's
 :class:`~.dist_step.DistributedTrainStep` runs ``amp`` (bf16 compute
 over f32 master weights, or float16 with loss scaling),
-``recompute`` and ``gradient_merge``; it refuses every other toggle
-that is on with ``NotImplementedError``.
-The parameter-server modes read ``a_sync`` and ``a_sync_configs``
-(``PSRuntime.init_worker``).
+``recompute``, ``gradient_merge``, ``sharding`` (ZeRO stages 1-3,
+``moment_dtype``, ``offload``) and ``dgc`` over a mesh of ``dp`` x
+``fsdp`` ranks (``mesh_degrees``); it refuses every other toggle that is
+on with ``NotImplementedError``.  ``fleet.distributed_optimizer`` swaps
+in ``Lamb`` / ``Lars`` for the ``lamb`` / ``lars`` toggles.
+``warn_noop_toggles`` warns once a strategy about accepted toggles and
+config keys that have no effect (``fp16_allreduce``: gradients already
+cross in their compute dtype).  The parameter-server modes read
+``a_sync`` and ``a_sync_configs`` (``PSRuntime.init_worker``).
 """
 from __future__ import annotations
 
 import copy
 
-__all__ = ["DistributedStrategy", "IMPLEMENTED_TOGGLES"]
+__all__ = ["DistributedStrategy", "IMPLEMENTED_TOGGLES", "NOOP_TOGGLES",
+           "warn_noop_toggles"]
 
 # toggles the port's DistributedTrainStep runs
-IMPLEMENTED_TOGGLES = ("amp", "recompute", "gradient_merge")
+IMPLEMENTED_TOGGLES = ("amp", "recompute", "gradient_merge", "sharding",
+                       "dgc")
+# toggles the step accepts and warns about: they change nothing here
+NOOP_TOGGLES = ("fp16_allreduce",)
+
+# config keys accepted for the reference's sake that change nothing
+_INERT = {
+    "amp_configs": ("use_fp16_guard",),
+    "sharding_configs": ("fuse_broadcast_MB",),
+    "a_sync_configs": ("max_merge_var_num", "independent_recv_thread",
+                       "min_send_grad_num_before_recv", "thread_pool_size",
+                       "send_wait_times", "runtime_split_send_recv"),
+}
 
 _BOOL_TOGGLES = [
     "amp", "recompute", "sharding", "pipeline", "tensor_parallel",
@@ -39,7 +57,14 @@ _DEFAULT_CONFIGS = {
     "sharding_configs": dict(sharding_degree=1, stage=1,
                              fuse_broadcast_MB=32.0, hybrid_dp=False,
                              offload=False, moment_dtype="float32"),
+    "pipeline_configs": dict(micro_batch_size=1, accumulate_steps=1,
+                             schedule_mode="1F1B"),
+    "tensor_parallel_configs": dict(tensor_parallel_degree=1,
+                                    tensor_parallel_seed=0),
+    "sequence_parallel_configs": dict(sequence_parallel_degree=1,
+                                      mode="ring"),
     "gradient_merge_configs": dict(k_steps=1, avg=True),
+    "localsgd_configs": dict(k_steps=1, begin_step=1),
     "dgc_configs": dict(rampup_begin_step=0, rampup_step=1,
                         sparsity=[0.999], momentum=0.9),
     "lamb_configs": dict(lamb_weight_decay=0.01, exclude_from_weight_decay=[]),
@@ -99,10 +124,37 @@ class DistributedStrategy:
         fsdp = max(self._configs["sharding_configs"]["sharding_degree"],
                    h.get("sharding_degree", 1)) if self.sharding else \
             h.get("sharding_degree", 1)
+        tp = max(self._configs["tensor_parallel_configs"]
+                 ["tensor_parallel_degree"], h.get("mp_degree", 1)) \
+            if self.tensor_parallel else h.get("mp_degree", 1)
+        sp = self._configs["sequence_parallel_configs"][
+            "sequence_parallel_degree"] if self.sequence_parallel else \
+            h.get("sep_degree", 1)
         return {"dp": h.get("dp_degree", -1), "fsdp": max(1, fsdp),
-                "tp": max(1, h.get("mp_degree", 1)),
-                "pp": max(1, h.get("pp_degree", 1)),
-                "sp": max(1, h.get("sep_degree", 1))}
+                "tp": max(1, tp), "pp": max(1, h.get("pp_degree", 1)),
+                "sp": max(1, sp)}
 
     def __repr__(self):
         return f"DistributedStrategy(on={self.enabled()})"
+
+
+def warn_noop_toggles(strategy):
+    """Warn once a strategy about accepted toggles and config keys (set
+    away from their defaults) that have no effect in the port."""
+    if getattr(strategy, "_warned_noop", False):
+        return
+    object.__setattr__(strategy, "_warned_noop", True)
+    import warnings
+    if strategy.fp16_allreduce:
+        warnings.warn(
+            "strategy.fp16_allreduce is a no-op: the gradients already "
+            "cross the ranks in the dtype the step computes them in",
+            UserWarning)
+    for cfg_name, keys in _INERT.items():
+        live = strategy._configs.get(cfg_name, {})
+        for key in keys:
+            if live.get(key) != _DEFAULT_CONFIGS[cfg_name][key]:
+                warnings.warn(
+                    f"strategy.{cfg_name}[{key!r}]={live.get(key)!r} is "
+                    "accepted for the reference's sake and has no effect",
+                    UserWarning)

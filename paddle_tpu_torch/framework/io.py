@@ -17,7 +17,14 @@ load from whichever of their names ``arrays`` holds: the reference's
 
 Optimizer state is keyed by the parameter's name in the model
 (``{name: {slot: array}}``, e.g. ``{"conv1.weight": {"velocity": ...}}``
-for ``Momentum``), since both packages key it by parameter object.
+for ``Momentum``), since both packages key it by parameter object.  It
+carries the train step's at-rest slots in every ``moment_dtype``: int8
+codes with their ``"<slot>@scale"`` scales bitwise, bf16 / f16 slots as
+f32 arrays of their values.  Loading int8 codes into an optimizer that
+keeps f32 slots decodes them.  With ``step=`` (a
+``DistributedTrainStep`` under ZeRO) a rank loads the rows of each whole
+array that the spec rules give it, and ``opt_state_arrays`` all-gathers
+the split slots back into whole arrays.
 """
 from __future__ import annotations
 
@@ -83,36 +90,73 @@ def _param_names(optimizer, model):
     return names
 
 
-def opt_state_arrays(optimizer, model: torch.nn.Module):
+def opt_state_arrays(optimizer, model: torch.nn.Module, step=None):
     """The optimizer's per-parameter state as ``{param name: {slot:
-    array}}`` (floats as f32)."""
+    array}}`` (floats as f32, int8 codes as int8); with ``step``, the
+    whole arrays of a ZeRO-split state (a collective: every rank
+    calls it)."""
+    if step is not None:
+        return {n: {k: _numpy(v) for k, v in st.items()}
+                for n, st in step.full_slots().items()}
     return {n: {k: _numpy(v) for k, v in st.items()}
             for n, st in zip(_param_names(optimizer, model),
                              optimizer.opt_state())}
 
 
-def load_jax_opt_state(optimizer, model: torch.nn.Module, states) -> None:
+def _decode_codes(src, own):
+    """int8 codes (with their scales) of slots ``own`` keeps as floats:
+    decoded to f32."""
+    src = dict(src)
+    for k in [k for k in src if k.endswith("@scale")]:
+        base = k[: -len("@scale")]
+        if k in own or base not in own:
+            continue
+        q = np.asarray(src[base])
+        if q.dtype == np.int8 and own[base].dtype != torch.int8:
+            from ..optimizer.slot_codec import _q8_decode
+            src[base] = _q8_decode(torch.from_numpy(q.copy()),
+                                   torch.from_numpy(np.asarray(
+                                       src[k], np.float32).copy())).numpy()
+        del src[k]
+    return src
+
+
+def load_jax_opt_state(optimizer, model: torch.nn.Module, states,
+                       step=None) -> None:
     """Load ``{param name: {slot: array}}`` (the JAX optimizer's state
-    under the parameters' names) into ``optimizer``, each slot cast to
-    the dtype and device of the slot it replaces.  Raises on a missing
-    or extra parameter or slot, or a shape mismatch, before anything is
+    under the parameters' names, in any ``moment_dtype``) into
+    ``optimizer``, each slot cast to the dtype and device of the slot it
+    replaces (int8 codes and their scales bitwise).  With ``step``, each
+    whole array is cut to this rank's rows first.  Raises on a missing or
+    extra parameter or slot, or a shape mismatch, before anything is
     loaded."""
     names = _param_names(optimizer, model)
+    if step is not None and not step._ready:
+        step._prepare()
     own = optimizer.opt_state()
     if sorted(states) != sorted(names):
         raise KeyError(f"optimizer state mismatch: missing "
                        f"{sorted(set(names) - set(states))} extra "
                        f"{sorted(set(states) - set(names))}")
     new = []
-    for n, st in zip(names, own):
-        src = states[n]
+    for i, (n, st) in enumerate(zip(names, own)):
+        src = _decode_codes(states[n], st)
         if sorted(src) != sorted(st):
             raise KeyError(f"{n}: slots {sorted(src)} != {sorted(st)}")
+        if step is not None:
+            j = step._names.index(n)
+            src = {k: step.rows_of(j, np.asarray(a)) for k, a in src.items()}
         for k, t in st.items():
             if tuple(np.shape(src[k])) != tuple(t.shape):
                 raise ValueError(f"{n}.{k}: array shape "
                                  f"{tuple(np.shape(src[k]))} != "
                                  f"{tuple(t.shape)}")
-        new.append({k: torch.from_numpy(np.array(src[k])).to(
-            device=t.device, dtype=t.dtype) for k, t in st.items()})
+        new.append({k: _placed(np.array(src[k]), t) for k, t in st.items()})
     optimizer.load_opt_state(new)
+
+
+def _placed(a, like: torch.Tensor) -> torch.Tensor:
+    t = torch.from_numpy(a).to(dtype=like.dtype)
+    if like.device.type == "cpu" and like.is_pinned():
+        return t.pin_memory()
+    return t.to(device=like.device)

@@ -36,6 +36,11 @@ def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v)).to(like.device)
 
 
+def _is_int8(v) -> bool:
+    return (v.dtype == torch.int8 if isinstance(v, torch.Tensor)
+            else np.asarray(v).dtype == np.int8)
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
@@ -80,18 +85,28 @@ class Optimizer:
             st = self._accumulators[id(p)] = self._create_state(p)
         return st
 
-    def _clip_values(self, grads):
-        """The optimizer's ``grad_clip`` over all gradients at once."""
+    # whether the update rule takes norms of the whole parameter (Lamb,
+    # Lars): its ``_update`` then accepts ``sq_reduce``
+    _whole_norms = False
+
+    def _clip_values(self, grads, sq_reduce=None):
+        """The optimizer's ``grad_clip`` over all gradients at once
+        (``sq_reduce``: :mod:`..nn.clip`'s, for ZeRO-split gradients)."""
         if self._grad_clip is None:
             return list(grads)
-        return self._grad_clip.apply_values(list(grads))
+        return self._grad_clip.apply_values(list(grads), sq_reduce)
 
-    def _apply_one(self, p, g, lr, state, decay=None):
+    def _apply_one(self, p, g, lr, state, decay=None, sq_reduce=None):
         """Weight decay, then the update rule, for one (clipped)
-        gradient."""
+        gradient.  ``sq_reduce``: for a parameter whose other rows other
+        ranks hold (ZeRO), a function that sums a sum of squares (a
+        one-element tensor, in place) over them, so the rule's norms span
+        the whole parameter."""
         decay = decay if decay is not None else self._weight_decay
         if decay is not None:
             g = decay.apply_gradient(p, g)
+        if sq_reduce is not None and self._whole_norms:
+            return self._update(p, g, lr, state, sq_reduce=sq_reduce)
         return self._update(p, g, lr, state)
 
     @torch.no_grad()
@@ -170,8 +185,17 @@ class Optimizer:
             for k in st:
                 v = state_dict.get(f"{self._key(i, p)}.{k}")
                 if v is not None:
-                    st[k] = _as_tensor(v, p).to(st[k].dtype)
+                    dt = torch.int8 if _is_int8(v) else st[k].dtype
+                    st[k] = _as_tensor(v, p).to(dt)
                     found = True
+            # an int8 slot saved from a train step with moment_dtype
+            # "int8" rides with its "<slot>@scale" scales: decoded back to
+            # f32 here, so no other step or the eager step sees raw codes
+            for k in list(st):
+                sc = state_dict.get(f"{self._key(i, p)}.{k}@scale")
+                if sc is not None and st[k].dtype == torch.int8:
+                    from .slot_codec import _q8_decode
+                    st[k] = _q8_decode(st[k], _as_tensor(sc, p).float())
             if found:
                 self._accumulators[id(p)] = st
 

@@ -226,8 +226,13 @@ class RMSProp(Optimizer):
         return (p.float() - mom).to(p.dtype), new_state
 
 
-def _norm(x):
-    return torch.sqrt(torch.sum(x * x))
+def _norm(x, sq_reduce=None):
+    """The 2-norm of ``x``; ``sq_reduce`` sums its square over the ranks
+    holding the parameter's other rows (``Optimizer._apply_one``)."""
+    sq = torch.sum(x * x)
+    if sq_reduce is not None:
+        sq = sq_reduce(sq.reshape(1))[0]
+    return torch.sqrt(sq)
 
 
 class Lamb(Optimizer):
@@ -256,7 +261,9 @@ class Lamb(Optimizer):
                                    * self._lamb_wd, dtype=torch.float32,
                                    device=p.device)}
 
-    def _update(self, p, g, lr, state):
+    _whole_norms = True
+
+    def _update(self, p, g, lr, state, sq_reduce=None):
         g32, p32 = g.float(), p.float()
         m = self._beta1 * state["m"] + (1 - self._beta1) * g32
         v = self._beta2 * state["v"] + (1 - self._beta2) * g32 * g32
@@ -265,7 +272,7 @@ class Lamb(Optimizer):
         m_hat = m / (1 - b1p)
         v_hat = v / (1 - b2p)
         r = m_hat / (torch.sqrt(v_hat) + self._eps) + state["wd"] * p32
-        w_norm, r_norm = _norm(p32), _norm(r)
+        w_norm, r_norm = _norm(p32, sq_reduce), _norm(r, sq_reduce)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm, 1.0)
         return ((p32 - lr * trust * r).to(p.dtype),
                 {"m": m, "v": v, "beta1_pow": b1p, "beta2_pow": b2p,
@@ -289,9 +296,11 @@ class Lars(Optimizer):
     def _create_state(self, p):
         return {"velocity": torch.zeros_like(p)}
 
-    def _update(self, p, g, lr, state):
+    _whole_norms = True
+
+    def _update(self, p, g, lr, state, sq_reduce=None):
         g32, p32 = g.float(), p.float()
-        w_norm, g_norm = _norm(p32), _norm(g32)
+        w_norm, g_norm = _norm(p32, sq_reduce), _norm(g32, sq_reduce)
         local_lr = torch.where(
             (w_norm > 0) & (g_norm > 0),
             self._coeff * w_norm / (g_norm + self._wd * w_norm + self._eps),

@@ -288,7 +288,7 @@ def test_fp16_refusals_keep_the_reference_messages():
         DistributedTrainStep(tnet, _tmse, SGD(0.1, parameters=list(
             tnet.parameters())), s)
     s2 = DistributedStrategy()
-    s2.sharding = True
+    s2.hybrid_configs = {"pp_degree": 2}
     with pytest.raises(NotImplementedError, match="queue item 4"):
         DistributedTrainStep(tnet, _tmse, SGD(0.1, parameters=list(
             tnet.parameters())), s2)

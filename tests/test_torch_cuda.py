@@ -1337,3 +1337,92 @@ def test_float16_scaled_step_on_card():
     assert scales == [1024.0, 2048.0, 2048.0, 1024.0, 1024.0, 2048.0]
     good = [x for i, x in enumerate(losses) if i != 3]
     assert all(np.isfinite(good)) and not np.isfinite(losses[3])
+
+
+@pytest.mark.cuda
+def test_q8_codec_on_card_is_bitwise_its_cpu_version():
+    """The int8 moment codec (signed-sqrt q8) gives the same codes,
+    scales and decoded values on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.optimizer.slot_codec import _q8_decode, _q8_encode
+    rng = np.random.RandomState(0)
+    for x in ((rng.randn(512, 1024) ** 3 * 1e-3).astype(np.float32),
+              (np.abs(rng.randn(300, 77)) ** 4 * 1e-6).astype(np.float32)):
+        for round_up in (False, True):
+            qc, sc = _q8_encode(torch.from_numpy(x), round_up=round_up)
+            qg, sg = _q8_encode(torch.from_numpy(x).cuda(),
+                                round_up=round_up)
+            np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
+            np.testing.assert_array_equal(sg.cpu().numpy(), sc.numpy())
+            np.testing.assert_array_equal(_q8_decode(qg, sg).cpu().numpy(),
+                                          _q8_decode(qc, sc).numpy())
+
+
+@pytest.mark.cuda
+def test_offloaded_step_keeps_pinned_host_slots_on_card():
+    """sharding offload: every slot a pinned CPU tensor, none on the
+    card, and the steps bitwise those of the in-memory slots; the host
+    slots, read right after a step with nothing else waiting on the card,
+    are the in-memory arm's bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def run(offload):
+        torch.manual_seed(0)
+        net = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.Tanh(),
+                                  torch.nn.Linear(256, 8)).cuda()
+        opt = AdamW(learning_rate=1e-3, parameters=list(net.parameters()))
+        s = DistributedStrategy()
+        s.sharding = True
+        s.sharding_configs = {"stage": 1, "offload": offload}
+        step = DistributedTrainStep(
+            net, lambda x, y: torch.mean((net(x) - y) ** 2), opt, s)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(32, 64, device="cuda", generator=g)
+        y = torch.randn(32, 8, device="cuda", generator=g)
+        losses = [float(step(x, y)) for _ in range(3)]
+        last = step(x, y)
+        # no sync before this read: a pinned slot's clone is a host copy
+        slots = [{k: v.clone() if v.device.type == "cpu" else v.cpu()
+                  for k, v in st.items()} for st in opt.opt_state()]
+        losses.append(float(last))
+        return (losses, [p.detach().cpu() for p in net.parameters()], slots,
+                step, opt)
+
+    l0, p0, s0, _, _ = run(False)
+    l1, p1, s1, step, opt = run(True)
+    assert l0 == l1
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
+    for a, b in zip(s0, s1):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for st in opt.opt_state():
+        for v in st.values():
+            assert v.device.type == "cpu" and v.is_pinned()
+    b = step.slot_bytes()
+    assert b["device"] == 0 and b["pinned"] > 0 and b["host"] == 0
+
+
+@pytest.mark.cuda
+def test_world1_nccl_and_world2_gloo_collectives_on_card():
+    """A one-rank NCCL world and a two-rank gloo world on the one card
+    (gloo stages the CUDA tensors through host memory): every collective
+    exact on integer-valued floats, its results on the card
+    (``chip_smoke``'s phase 44 cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from paddle_tpu_torch.distributed.spawn import spawn
+    one = spawn(chip_smoke._coll_rank, args=(None,), nprocs=1,
+                backend="nccl", timeout=60, join_timeout=180)
+    chip_smoke._check_coll("world 1", one, "nccl")
+    two = spawn(chip_smoke._coll_rank, args=(None,), nprocs=2,
+                backend="gloo", timeout=60, join_timeout=180)
+    chip_smoke._check_coll("world 2", two, "gloo")
+    assert [r["device"] for r in two] == ["cuda:0", "cuda:0"]

@@ -626,24 +626,39 @@ def test_ps_runtime_warm_starts_and_saves(tmp_path):
 
 
 def test_fleet_api_surface_and_queue_item_4():
+    """The collective ``init`` takes dp / fsdp degrees (a world of one
+    rank needs no process group; wider degrees need their ranks, which
+    ``tests/test_torch_collective.py`` starts), and tp still raises
+    queue item 4; the LAMB / LARS toggles swap the optimizer."""
     from paddle_tpu.distributed.fleet import fleet_base as jfb
     assert set(jfb.__all__) <= set(fleet.__all__)
     for name in ("PSRuntime", "GeoPusher", "PaddleCloudRoleMaker",
-                 "UserDefinedRoleMaker", "UtilBase", "metrics"):
+                 "UserDefinedRoleMaker", "UtilBase", "metrics", "dgc"):
         assert hasattr(fleet, name), name
     s = DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2}
     with pytest.raises(NotImplementedError, match="queue item 4"):
         Fleet().init(is_collective=True, strategy=s)
-    f = Fleet().init(is_collective=True)
+    s1 = DistributedStrategy()
+    s1.sharding = True
+    s1.sharding_configs = {"stage": 2, "sharding_degree": 1}
+    s1.hybrid_configs = {"dp_degree": 1}
+    f = Fleet().init(is_collective=True, strategy=s1)
     assert f.worker_num() == 1 and f.is_worker()
     s2 = DistributedStrategy()
-    s2.lamb = True
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        f.distributed_optimizer(object(), strategy=s2)
+    s2.hybrid_configs = {"dp_degree": 2}
+    with pytest.raises(ValueError, match="ranks"):
+        Fleet().init(is_collective=True, strategy=s2)
     import torch
+    from paddle_tpu_torch.optimizer import Lamb, Lars, Momentum
     m = torch.nn.Linear(2, 1)
-    from paddle_tpu_torch.optimizer import Momentum
+    for toggle, cls in (("lamb", Lamb), ("lars", Lars)):
+        s3 = DistributedStrategy()
+        setattr(s3, toggle, True)
+        dopt = f.distributed_optimizer(
+            Momentum(0.1, parameters=list(m.parameters())), strategy=s3)
+        assert type(dopt.inner_opt) is cls
+        assert dopt.inner_opt.get_lr() == 0.1
     opt = f.distributed_optimizer(
         Momentum(0.1, parameters=list(m.parameters())),
         strategy=DistributedStrategy())

@@ -288,8 +288,10 @@ _REFERENCE_REFUSALS = ("gradient_merge", "float16")
 
 
 @pytest.mark.parametrize("setup,match", [
-    (lambda s: setattr(s, "sharding", True), "sharding"),
-    (lambda s: setattr(s, "dgc", True), "dgc"),
+    (lambda s: setattr(s, "hybrid_configs", {"pp_degree": 2}), "pp_degree"),
+    (lambda s: setattr(s, "hybrid_configs", {"sep_degree": 2}),
+     "sep_degree"),
+    (lambda s: setattr(s, "tensor_parallel", True), "tensor_parallel"),
     (lambda s: (_fp16(s), setattr(s, "gradient_merge", True),
                 setattr(s, "gradient_merge_configs", {"k_steps": 2})),
      "gradient_merge"),
