@@ -45,7 +45,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    decode (B 8, 2,048 tokens), the serving mix (phase 6's lengths) and
    batch 1 at 2,048 tokens (S = 1) are timed queued beside their byte
    bounds, with the plan's split; an empty kernel is timed queued the same way (at 1
-   and at 128 blocks): the fixed device cost of a launch;
+   and at 128 blocks): the fixed device cost of a launch; kernels 1-3
+   are also held, rerun and timed at the shapes phases 48-51 launch
+   them at (S 2,048: B 4, H 8; B 1, H 16; B 1, H 8);
 4. serve ``llama_7b(kv_cache_dtype="int8")`` (bf16 weights drawn from a
    seed) through the port's ``GenerationServer``: 8 greedy requests of
    mixed prompt lengths, 32 new tokens each; the kernel launch counts of
@@ -434,7 +436,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``guard_health`` refused; (b) world 2 over gloo, batch 128 a rank,
     ``DGC_W2_STEPS`` steps: the ranks' parameters, losses and buffers
     bitwise equal, the losses within ``DGC_W2_LIMIT`` of (a)'s; no kernel
-    launch.
+    launch;
+48. the proxy of phase 7 at tp 2 (two rank processes on the one card over
+    gloo, each holding its blocks of every projection, the embedding and
+    the head), ``MP_STEPS`` steps: the losses within ``TP_W2_LIMIT`` of
+    phase 7's, the blocks two ranks share (the norms) bitwise equal after
+    every step, each rank holding ``sharded_numel`` of every parameter
+    and slot, launches 16 / 8 / 8 a step a rank (kernels 1-3 at B 4, H 8),
+    ms/step (host-staged, no target); this and every arm of 49-51 also
+    holds the norm of its first reduced gradient (``guard_health``)
+    within ``MP_GRAD_NORM_LIMIT`` of phase 7's at the same weights and
+    batch, so that a stray factor of tp, sp or pp in the gradients, which
+    AdamW's steps hide, fails on the card;
+49. the proxy at sp 2, ring and Ulysses attention (``context_parallel``),
+    ``MP_STEPS`` steps each: the losses within ``SP_W2_LIMIT``, the ranks'
+    parameters bitwise equal, no launch of kernels 1-3 (the context-
+    parallel attention is plain PyTorch, as the reference's), ms/step;
+50. the proxy at pp 2 (GPipe, 4 microbatches), ``MP_STEPS`` steps: the
+    losses within ``PP_W2_LIMIT``, each stage holding 4 layers, launches a
+    step a rank as the schedule predicts (4 ticks x 4 layers: 32 / 16 /
+    16, B 1); then ``pipeline_train_1f1b`` on each stage's bf16 layers and
+    the embedded batch against GPipe within ``PP_1F1B_LIMIT``;
+51. world 4 (four rank processes on the one card): tp 2 x pp 2 (4
+    microbatches) and ZeRO-3 over fsdp 2 x pp 2 (2 microbatches of a
+    rank's 2 rows), ``MP_W4_STEPS`` steps each: the losses within
+    ``W4_LIMIT``, the shared blocks bitwise, ``sharded_numel`` held, the
+    AdamW slot bytes a rank equal to the plan, peak memory a rank,
+    ms/step.
 
 Every rank process's waits are bounded (``COLL_TIMEOUT`` a rendezvous
 or collective, ``RANKS_TIMEOUT`` a phase's ranks); a hung or failed rank
@@ -504,13 +532,16 @@ BERT serving run of phase 31, the ERNIE training of phase 34, the
 translation calls of phase 35, the three serving arms of phase 36,
 the gateway waves of phase 37, the two sites' streams of phase 38 (a),
 the q8 cache's run of phase 39, the flash arms of phase 40, the two runs
-of phase 41, the A/B of phase 42, the arms of phase 45 and the ranks of
-phase 46;
+of phase 41, the A/B of phase 42, the arms of phase 45, the ranks of
+phase 46 and the ranks' steps of phases 48-51;
 kernels 1-3 also carry their launches by mode, ``bias`` or ``dropout``,
 of phases 34 and 35, and their options' phase-33 numbers; kernel 4 its
 phase-36 and phase-37 launches by call, ``decode`` (S = 1) or ``rows``
 (S > 1), and its phase-36 (a) numbers at S > 1; kernels 1-3 also their
-phase-40 numbers at S = 4,096 and 8,192); the last line is
+phase-40 numbers at S = 4,096 and 8,192 and their phase-3 numbers at
+the shapes phases 48-51 give them: a tp-2 rank's heads, ``tp_rank``
+(B 4, H 8), a pp-2 microbatch, ``pp_microbatch`` (B 1, H 16), and a
+tp-2 x pp-2 one, ``tp_pp_microbatch`` (B 1, H 8)); the last line is
 ``{"ok": true,
 "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or without
@@ -611,6 +642,9 @@ _CARD = ["not read"]
 # the losses of phase 7's proxy run and phase 24's ResNet-50 run, which
 # phases 45-47 hold their world-1 steps to
 _LOSSES = {}
+# the norm of phase 7's first gradient (world 1, its seed weights and
+# batch), which phases 48-51 hold their first reduced gradient's to
+_GRAD_NORM = {}
 
 
 def log(msg: str) -> None:
@@ -1634,6 +1668,15 @@ def _train_step(model, amp=True):
     return DistributedTrainStep(model, _loss_fn(model), opt, strategy)
 
 
+def _first_grad_norm(step, ids):
+    """The 2-norm of the step's gradient at its present weights, without
+    an update: ``guard_health``'s one-pass norm, the one phases 48-51
+    read from their steps."""
+    from paddle_tpu_torch.train_guard import fused_health
+    _, grads = step.loss_and_grads(ids, ids)
+    return float(fused_health(grads, precise=False)[0])
+
+
 def train(dev):
     """Phase 7: 10 AdamW steps of the proxy with bf16 AMP."""
     from paddle_tpu_torch.ops.kernels import registry
@@ -1651,6 +1694,7 @@ def train(dev):
         f"({nparams / 1e6:.1f} M params)")
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (B, S)).astype("int32")).to(dev)
+    _GRAD_NORM["train"] = _first_grad_norm(step, ids)
     torch.cuda.reset_peak_memory_stats(dev)
     losses, ms = [], []
     registry.reset_counts()                  # the main path starts here
@@ -7101,33 +7145,35 @@ GUARD_STEPS = 8
 FP16_STEPS = 8
 
 
-def _long_kernel_cases(dev, B, S):
-    """Kernels 1-3 at the long-context proxy's attention (B, 16, S, 128),
-    bf16, causal, against their blockwise plain versions (``CARD_TOL``,
+def _long_kernel_cases(dev, B, S, H=16, label="phase 40"):
+    """Kernels 1-3 at the proxy's attention (B, H, S, 128): the long
+    contexts (H 16), a tp-2 rank's heads (B 4, H 8) and the pipeline's
+    microbatches (B 1, H 16 or 8); bf16, causal,
+    against their blockwise plain versions (``CARD_TOL``,
     ``CARD_TOL_BWD``), a rerun bitwise equal, each timed queued beside its
     bound, its plain version and SDPA.  Returns the rows by kernel name."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     g0 = torch.Generator(device=dev).manual_seed(SEED + 40)
-    H, D = 16, 128
+    D = 128
     q, k, v, g = (torch.randn(B, S, H, D, device=dev, dtype=torch.bfloat16,
                               generator=g0) for _ in range(4))
     got = _flash_grads(q, k, v, g, True)
     again = _flash_grads(q, k, v, g, True)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail(f"phase 40: kernels 2-3 at B={B} S={S}: a rerun is not "
+        fail(f"{label}: kernels 2-3 at B={B} S={S}: a rerun is not "
              "bitwise equal")
     qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, g))
     o, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=True,
                                      return_lse=True)
     o2 = fa.flash_attention_bhsd(qh, kh, vh, causal=True)
     if not torch.equal(o, o2):
-        fail(f"phase 40: kernel 1 at B={B} S={S}: a rerun is not bitwise "
+        fail(f"{label}: kernel 1 at B={B} S={S}: a rerun is not bitwise "
              "equal")
     plan = fa.flash_fwd_plan(qh, kh, vh)
     ref = fa.flash_attention_blockwise_ref(qh, kh, vh, causal=True,
                                            block_k=plan.block_k)
     shape = f"B={B} H={H} S={S} D={D} bf16 causal"
-    err1, share1 = check_close(f"phase 40: flash_attention {shape}", o, ref,
+    err1, share1 = check_close(f"{label}: flash_attention {shape}", o, ref,
                                fa.CARD_TOL[torch.bfloat16])
     del ref, o2
     delta = fa.attention_delta(o, gh)
@@ -7136,16 +7182,16 @@ def _long_kernel_cases(dev, B, S):
     errs = {}
     for name, a, r in zip(("dq", "dk", "dv"), got, bref):
         errs[name], share = check_close(
-            f"phase 40: flash backward {name} {shape}", a.transpose(1, 2),
+            f"{label}: flash backward {name} {shape}", a.transpose(1, 2),
             r, fa.CARD_TOL_BWD[torch.bfloat16])
     del bref
     torch.cuda.empty_cache()
-    log(f"phase 40: kernels 1-3 at {shape}: forward max_err {err1:.3g} "
+    log(f"{label}: kernels 1-3 at {shape}: forward max_err {err1:.3g} "
         f"({share1:.3g} of its limit), dq {errs['dq']:.3g} dk "
         f"{errs['dk']:.3g} dv {errs['dv']:.3g}; reruns bitwise")
-    fwd = flash_timing(f"long S={S}", *(t.detach().contiguous()
+    fwd = flash_timing(f"{label} B={B} H={H} S={S}", *(t.detach().contiguous()
                                         for t in (qh, kh, vh)), True)
-    bwd = bwd_timing(f"long S={S}", args, o, gh)
+    bwd = bwd_timing(f"{label} B={B} H={H} S={S}", args, o, gh)
     rows = {"flash_attention": dict(max_abs_err=err1, **fwd)}
     for name, grads in (("flash_attention_bwd_dkv", ("dk", "dv")),
                         ("flash_attention_bwd_dq", ("dq",))):
@@ -7671,7 +7717,10 @@ DGC_CFG = {"rampup_begin_step": 2, "rampup_step": 1, "sparsity": [0.999]}
 DGC_STEPS = 10
 DGC_W2_STEPS = 4
 # phase 47 (b): world 2's losses against (a)'s first four, 3x its reading
-# on that card (1.5625e-2: the bf16-AMP losses step in 2^-6 there)
+# on that card (1.5625e-2: the bf16-AMP losses step in 2^-6 there).  Read
+# again after world 2 came to compress the global gradient: the
+# same 1.5625e-2, already at step 0, before any compression -- each
+# rank's batch norm normalises its own 128 rows
 DGC_W2_LIMIT = 0.047
 
 
@@ -8252,6 +8301,300 @@ def dgc_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------
+# phases 48-51: model parallelism in the step (tp, sp, pp; world 4)
+# ---------------------------------------------------------------------
+
+MP_STEPS = 3                  # phases 48-50: steps an arm
+MP_W4_STEPS = 2               # phase 51
+# the largest distance of an arm's losses from phase 7's (world 1, the
+# same weights and batch, bf16 AMP) over its steps, 3x its first reading
+# on an NVIDIA H100 80GB HBM3 at 700 W (tp 2 1.433e-3: the row-parallel
+# products' bf16 partial sums added across ranks; sp 2 ring 2.437e-3,
+# Ulysses 2.021e-3: f32 attention against the kernel's bf16 P; pp 2
+# 1.450e-4; tp 2 x pp 2 1.363e-3; fsdp 2 x pp 2 1.431e-5)
+TP_W2_LIMIT = 4.3e-3
+SP_W2_LIMIT = {"ring": 7.3e-3, "ulysses": 6.1e-3}
+PP_W2_LIMIT = 4.4e-4
+W4_LIMIT = {"tp2_pp2": 4.1e-3, "fsdp2_pp2": 4.3e-5}
+# the relative distance of an arm's first reduced gradient's norm
+# (``guard_health``) from phase 7's at the same weights and batch, 3x its
+# first reading on that card (tp 2 2.009e-5; ring 1.308e-4, Ulysses
+# 1.123e-4; pp 2 3.381e-6; tp 2 x pp 2 1.814e-5; fsdp 2 x pp 2
+# 1.690e-6): a stray factor of tp, sp or pp in the gradients, which
+# AdamW's steps do not show, moves it by 0.5 or more
+MP_GRAD_NORM_LIMIT = {"tp2": 6.1e-5, "ring": 4.0e-4, "ulysses": 3.4e-4,
+                      "pp2": 1.1e-5, "tp2_pp2": 5.5e-5, "fsdp2_pp2": 5.1e-6}
+# phase 50: 1F1B against GPipe on the same stage weights (bf16) and
+# batch: the loss's relative distance, and each gradient's (this
+# stage's layers, the embedded input's) relative 2-norm distance, 3x the
+# first reading on that card (8.61e-8; 1.164e-2 on stage 0, 5.63e-3 on
+# stage 1: bf16 gradients of one arithmetic in two schedules)
+PP_1F1B_LIMIT = {"loss": 2.6e-7, "grad": 3.5e-2}
+# the arms: (name, mesh degrees, config flags, strategy, steps)
+MP_ARMS = {
+    48: [("tp2", {"tp": 2}, {}, {"tensor_parallel": True}, MP_STEPS)],
+    49: [("ring", {"sp": 2}, {"sequence_parallel": True,
+                              "context_parallel": "ring"},
+          {"sequence_parallel": True}, MP_STEPS),
+         ("ulysses", {"sp": 2}, {"sequence_parallel": True,
+                                 "context_parallel": "ulysses"},
+          {"sequence_parallel": True}, MP_STEPS)],
+    50: [("pp2", {"pp": 2}, {"pp_num_microbatches": 4}, {"pipeline": True},
+          MP_STEPS)],
+    51: [("tp2_pp2", {"tp": 2, "pp": 2}, {"pp_num_microbatches": 4},
+          {"tensor_parallel": True, "pipeline": True}, MP_W4_STEPS),
+         ("fsdp2_pp2", {"fsdp": 2, "pp": 2}, {"pp_num_microbatches": 2},
+          {"pipeline": True, "sharding": True,
+           "sharding_configs": {"stage": 3}}, MP_W4_STEPS)],
+}
+
+
+def _mp_step(dev, degrees, cfg_kw, strat_kw):
+    """The proxy from phase 7's seed built under the mesh (each rank its
+    blocks), AdamW(1e-4), bf16 AMP, the arm's strategy; ``guard_health``
+    leaves each step's norm of the reduced gradient."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    DistributedTrainStep)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+    mesh = mesh_mod.init_mesh(degrees)
+    model = LlamaForCausalLM(proxy_config(**cfg_kw), device=dev,
+                             dtype="float32",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "bfloat16"}
+    for k, v in strat_kw.items():
+        setattr(s, k, v)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    return mesh, model, opt, DistributedTrainStep(
+        model, _loss_fn(model), opt, s, mesh=mesh, guard_health=True)
+
+
+def _mp_held(step, opt, mesh):
+    """Each parameter and AdamW slot this rank holds against
+    ``sharded_numel`` of its spec; the slot bytes the plan gives (m and v
+    in f32, three f32 scalars a parameter)."""
+    from paddle_tpu_torch.distributed.spec_layout import get_layout
+    lay, bad, plan = get_layout(), [], 0
+    for n, p, g in zip(step._names, step._params, step._global_shapes):
+        want_p = lay.sharded_numel(g, step.param_specs[n], mesh.shape)
+        want_s = lay.sharded_numel(g, step.slot_specs[n], mesh.shape)
+        st = opt._accumulators[id(p)]
+        if p.numel() != want_p or st["m"].numel() != want_s \
+                or st["v"].numel() != want_s:
+            bad.append((n, p.numel(), want_p, st["m"].numel(), want_s))
+        plan += 2 * want_s * 4 + 3 * 4
+    return bad, plan
+
+
+def _one_f_one_b(dev, model, ids, M):
+    """Phase 50 (b): GPipe and 1F1B on this stage's stacked decoder
+    (its bf16 layers) and the embedded batch, the head and loss of a
+    microbatch on every stage: the losses, this stage's layer gradients
+    and the input's gradient of both."""
+    from paddle_tpu_torch.distributed import pipeline as pl
+    from paddle_tpu_torch.text.models.llama import _causal_lm_loss
+    dec = model.model.decoder
+    stacked = [getattr(dec, n.replace(".", "__")).detach()
+               .to(torch.bfloat16) for n in dec._names]
+    B, S = ids.shape
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    with torch.no_grad():
+        hidden = model.model.embed_tokens(ids).to(torch.bfloat16)
+
+    def head(h, y):
+        return _causal_lm_loss(model._logits(model.model.norm(h)), y)
+
+    ps = [t.clone().requires_grad_() for t in stacked]
+    h = hidden.clone().requires_grad_()
+    out = pl.pipeline_apply(lambda p, hh, e: dec._stage(p, hh, e, None), ps,
+                            h, pos.expand(B, S), num_microbatches=M)
+    g_loss = head(out, ids)
+    g_grads = torch.autograd.grad(g_loss, ps + [h])
+    f_loss, f_d, f_dx = pl.pipeline_train_1f1b(
+        lambda p, hh: dec._stage(p, hh, pos.expand(B // M, S), None),
+        stacked, hidden, ids, head, num_microbatches=M)
+    rel = [float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+           for a, b in zip(list(f_d) + [f_dx], g_grads)]
+    return dict(gpipe_loss=float(g_loss), f1b_loss=float(f_loss),
+                loss_rel=abs(float(f_loss) - float(g_loss))
+                / abs(float(g_loss)), grad_rel=max(rel),
+                ticks={"gpipe": pl.schedule_ticks(M, 2, "gpipe"),
+                       "1f1b": pl.schedule_ticks(M, 2, "1F1B")},
+                ring_size=pl.ring_size(M, 2))
+
+
+def _mp_rank(payload):
+    """One rank of phases 48-51: each arm from the seed on this rank's
+    rows (the step cuts the sequence under sp), its steps with the global
+    loss, ms, the reduced gradient's norm and every parameter's digest
+    (this rank's block, gathered over fsdp) after each, launches, what it holds against the plan,
+    peak memory; phase 50's 1F1B comparison after its steps."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.ops.kernels import registry
+    dev = _rank_setup()
+    cfg = proxy_config()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype("int32")).to(dev)
+    out = {}
+    for name, degrees, cfg_kw, strat_kw, steps in payload["arms"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh, model, opt, step = _mp_step(dev, degrees, cfg_kw, strat_kw)
+        rows = ids[mesh_mod.batch_spec(TRAIN_BATCH, mesh)]
+        layers = model.model.decoder.input_layernorm__weight.shape[0]
+        registry.reset_counts()
+        losses, digests, ms, norms = [], [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(rows, rows).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(step.last_health[0]))
+            full = step.full_parameters()
+            digests.append({n: _digest([full[n]])[0] for n in full})
+        counts = registry.launch_counts()
+        bad, plan = _mp_held(step, opt, mesh)
+        arm = dict(losses=losses, digests=digests, ms=ms, counts=counts,
+                   grad_norms=norms,
+                   held_bad=bad, slot_plan=plan,
+                   slot_bytes=step.slot_bytes(), layers=layers,
+                   coords=mesh.coords, rows=list(rows.shape),
+                   specs={n: step.param_specs[n] for n in step._names},
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        if payload.get("one_f_one_b"):
+            registry.reset_counts()
+            arm["f1b"] = _one_f_one_b(dev, model, rows,
+                                      cfg_kw["pp_num_microbatches"])
+        out[name] = arm
+        del model, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mp_check(phase, name, res, limit, want_per_step):
+    """The ranks of one arm: finite losses, the same on every rank, within
+    ``limit`` of phase 7's; the first step's gradient norm on every rank
+    within ``MP_GRAD_NORM_LIMIT`` of phase 7's; the blocks two ranks share
+    bitwise equal after every step; every rank holding ``sharded_numel``;
+    launches a step a rank ``want_per_step``.  Returns the arm's
+    summary."""
+    arms = [r[name] for r in res]
+    a = arms[0]
+    for r in arms[1:]:
+        if r["losses"] != a["losses"]:
+            fail(f"phase {phase}: {name}: the ranks' losses differ: "
+                 f"{[x['losses'] for x in arms]}")
+    ref = _LOSSES["train"]
+    d = max(abs(x - y) for x, y in zip(a["losses"], ref))
+    if not all(math.isfinite(x) for x in a["losses"]) or d > limit:
+        fail(f"phase {phase}: {name}: losses {a['losses']} {d:.4g} from "
+             f"phase 7's, limit {limit}")
+    ref_norm = _GRAD_NORM["train"]
+    norms = [r["grad_norms"][0] for r in arms]
+    dn = max(abs(x - ref_norm) / ref_norm for x in norms)
+    if not all(math.isfinite(x) for x in norms) or \
+            dn > MP_GRAD_NORM_LIMIT[name]:
+        fail(f"phase {phase}: {name}: first gradient norms {norms}, "
+             f"{dn:.4g} from phase 7's {ref_norm} (relative), limit "
+             f"{MP_GRAD_NORM_LIMIT[name]}")
+    for i in range(len(a["losses"])):
+        blocks = {}
+        for r in arms:
+            for n, dg in r["digests"][i].items():
+                spec = r["specs"][n]
+                key = (n,) + tuple(r["coords"][ax] for ent in spec
+                                   for ax in ((ent,) if isinstance(ent, str)
+                                              else (ent or ()))
+                                   if ax != "fsdp")
+                if blocks.setdefault(key, dg) != dg:
+                    fail(f"phase {phase}: {name}: step {i}: ranks holding "
+                         f"the same block of {n} differ")
+    bad = [b for r in arms for b in r["held_bad"]]
+    if bad:
+        fail(f"phase {phase}: {name}: held != sharded_numel: {bad[:3]}")
+    for r in arms:
+        c = r["counts"]
+        steps = len(r["losses"])
+        want = dict.fromkeys(c, 0)
+        want.update({k: v * steps for k, v in want_per_step.items()})
+        if c != want:
+            fail(f"phase {phase}: {name}: launches {c}, want {want}")
+    return dict(losses=a["losses"], loss_dist_vs_world1=d, limit=limit,
+                first_grad_norms=norms, world1_grad_norm=ref_norm,
+                grad_norm_rel_dist=dn,
+                grad_norm_limit=MP_GRAD_NORM_LIMIT[name],
+                ms_per_step=[statistics.median(r["ms"][1:] or r["ms"])
+                             for r in arms],
+                first_step_ms=[r["ms"][0] for r in arms],
+                peak_gb=[r["peak_gb"] for r in arms],
+                slot_bytes=[r["slot_bytes"]["device"] for r in arms],
+                slot_plan=[r["slot_plan"] for r in arms],
+                layers_a_rank=[r["layers"] for r in arms],
+                rows=a["rows"], launches_a_rank=arms[0]["counts"])
+
+
+def _flash_want(per_step):
+    return {"flash_attention": 2 * per_step,
+            "flash_attention_bwd_dkv": per_step,
+            "flash_attention_bwd_dq": per_step}
+
+
+def model_parallel(phase):
+    """Phases 48-51 (module docstring): the arms of ``MP_ARMS[phase]`` in
+    rank processes on the one card over gloo, each checked by
+    ``_mp_check``.  Returns the ranks' launches summed."""
+    t0 = time.perf_counter()
+    arms = MP_ARMS[phase]
+    world = math.prod(arms[0][1].values())
+    res = _spawn(_mp_rank, {"arms": arms, "one_f_one_b": phase == 50},
+                 world, "gloo", f"p{phase}")
+    L = proxy_config().num_hidden_layers
+    summary, total = {}, collections.Counter()
+    for name, degrees, cfg_kw, _, _ in arms:
+        pp = degrees.get("pp", 1)
+        M = cfg_kw.get("pp_num_microbatches", 1) if pp > 1 else 1
+        if cfg_kw.get("context_parallel"):
+            per = dict.fromkeys(_flash_want(0), 0)
+            limit = SP_W2_LIMIT[name]
+        else:
+            # a stage computes its M ticks x its L / pp layers: the
+            # forward, its recompute and the backward of each
+            per = _flash_want(M * L // pp)
+            limit = {48: TP_W2_LIMIT, 50: PP_W2_LIMIT}.get(phase) or \
+                W4_LIMIT[name]
+        s = _mp_check(phase, name, res, limit, per)
+        s["launches_predicted_a_step"] = per
+        if pp > 1 and any(r[name]["layers"] != L // pp for r in res):
+            fail(f"phase {phase}: {name}: stages hold "
+                 f"{[r[name]['layers'] for r in res]} layers, not {L // pp}")
+        if phase == 51:
+            if any(r[name]["slot_bytes"]["device"] != r[name]["slot_plan"]
+                   for r in res):
+                fail(f"phase 51: {name}: slot bytes {s['slot_bytes']} != "
+                     f"plan {s['slot_plan']}")
+        for r in res:
+            total.update(r[name]["counts"])
+        if phase == 50:
+            f = [r[name]["f1b"] for r in res]
+            s["one_f_one_b"] = f
+            for x in f:
+                if x["loss_rel"] > PP_1F1B_LIMIT["loss"] or \
+                        x["grad_rel"] > PP_1F1B_LIMIT["grad"]:
+                    fail(f"phase 50: 1F1B against GPipe: {x}, limit "
+                         f"{PP_1F1B_LIMIT}")
+        summary[name] = s
+    log(f"phase {phase}: " + json.dumps(dict(
+        arms=summary, card=_CARD[0], seconds=time.perf_counter() - t0)))
+    return dict(total)
+
+
 def log_bwd_entries(bwd):
     """Phase 2's line for each sm90 backward entry (``check_ptxas``'s
     {mangled name: [registers, spill bytes]}): its kernel, head_dim and
@@ -8499,6 +8842,15 @@ def main() -> int:
     rows.update(sorted_cases(dev, wd_batches))
     rows.update(opt_cases(dev))
     rows["conv_bn_stats"] = conv_bn_cases(dev)
+    # kernels 1-3 at the shapes phases 48-51 give them: a tp-2 rank's
+    # heads of the proxy (phase 48), a pp-2 microbatch (phases 50, 51 at
+    # fsdp 2 x pp 2) and a tp-2 x pp-2 one (phase 51)
+    mp_rows = {"tp_rank": _long_kernel_cases(
+        dev, TRAIN_BATCH, TRAIN_SEQ, H=8, label="phase 3 (tp rank)"),
+        "pp_microbatch": _long_kernel_cases(
+        dev, 1, TRAIN_SEQ, H=16, label="phase 3 (pp microbatch)"),
+        "tp_pp_microbatch": _long_kernel_cases(
+        dev, 1, TRAIN_SEQ, H=8, label="phase 3 (tp x pp microbatch)")}
     floor = launch_floor(dev)
     for name, r in rows.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, "
@@ -8744,6 +9096,17 @@ def main() -> int:
     import torch.distributed as tdist
     tdist.destroy_process_group()            # phase 44's world of one
     log(f"phase 47: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 48-51. model parallelism in the step: tp 2, sp 2 (ring, Ulysses),
+    # pp 2 (GPipe, then 1F1B against it), world 4 (tp 2 x pp 2, fsdp 2 x
+    # pp 2 at ZeRO-3), rank processes on the one card over gloo
+    mp_counts = collections.Counter()
+    for phase in (48, 49, 50, 51):
+        t0 = time.perf_counter()
+        mp_counts.update(model_parallel(phase))
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
 
     options = {
         "flash_attention": {
@@ -8767,7 +9130,7 @@ def main() -> int:
                                          scale_counts, long_counts,
                                          cl_counts, guard_counts,
                                          zero_counts, w2_counts,
-                                         dgc_counts))
+                                         dgc_counts, mp_counts))
         by_mode = {}
         for m in (er_modes, mt_modes, {"int8_kv_attention": gw_modes},
                   {"int8_kv_attention": gh_modes}, fleet_modes):
@@ -8781,6 +9144,9 @@ def main() -> int:
         if name in long_rows[4096]:
             extra["long_context"] = {f"S={S}": r[name]
                                      for S, r in long_rows.items()}
+        for shape, r in mp_rows.items():
+            if name in r:
+                extra[shape] = r[name]
         kernels.append(dict(name=name, route="cuda", source=s.source,
                             replaces=s.replaces, launches=launches,
                             **rows[name], **extra))

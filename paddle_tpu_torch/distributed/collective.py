@@ -28,8 +28,8 @@ named-axis collectives of :mod:`.communication`), and the blocks of each
 output are assembled by ``out_specs`` (all-gathered along every split
 dim), so every rank returns the whole output.
 
-``split`` (the tensor-parallel layers) raises ``NotImplementedError``
-(ROADMAP queue item 4).
+``split`` makes and applies one of the tensor-parallel layers of
+:mod:`.meta_parallel`.
 """
 from __future__ import annotations
 
@@ -346,9 +346,32 @@ def wait(tensor: torch.Tensor, group=None, use_calc_stream: bool = True):
 def split(x, size, operation: str, axis: int = 0, num_partitions: int = 1,
           gather_out: bool = True, weight_attr=None, bias_attr=None,
           name=None):
-    raise NotImplementedError(
-        "distributed.split (the tensor-parallel layers) is not ported yet "
-        "(ROADMAP queue item 4)")
+    """A tensor-parallel layer made and applied to ``x`` (the reference's
+    ``split``): ``"linear"`` with ``axis`` 0 is a ``RowParallelLinear``,
+    with ``axis`` 1 a ``ColumnParallelLinear`` (``gather_out``);
+    ``"embedding"`` a ``VocabParallelEmbedding``; ``size`` is (in, out)
+    or (vocab, dim).  The layer's weights are drawn on ``x``'s device
+    from PyTorch's default generator, whole, and each rank keeps its
+    block over ``tp``."""
+    from .meta_parallel import (ColumnParallelLinear, RowParallelLinear,
+                                VocabParallelEmbedding)
+    dt = x.dtype if x.is_floating_point() else torch.float32
+    kw = dict(device=x.device, dtype=dt)
+    if operation == "linear":
+        in_f, out_f = size
+        if axis == 0:
+            layer = RowParallelLinear(in_f, out_f, weight_attr,
+                                      has_bias=bias_attr is not False, **kw)
+        else:
+            layer = ColumnParallelLinear(in_f, out_f, weight_attr,
+                                         has_bias=bias_attr is not False,
+                                         gather_output=gather_out, **kw)
+    elif operation == "embedding":
+        vocab, emb = size
+        layer = VocabParallelEmbedding(vocab, emb, weight_attr, **kw)
+    else:
+        raise ValueError(f"unsupported split operation {operation!r}")
+    return layer(x)
 
 
 # -- shard_map -------------------------------------------------------------

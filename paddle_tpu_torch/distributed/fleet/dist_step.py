@@ -12,8 +12,9 @@ current value included).  The update writes into the parameters and the
 optimizer state in place, one parameter at a time.
 
 **Ranks.** A rank is a process (``init_parallel_env``); the step runs
-over a :class:`~..mesh.Mesh` of ``dp`` x ``fsdp`` ranks (``mesh=``, or
-the strategy's ``mesh_degrees`` over the world).  Each rank's batch is
+over a :class:`~..mesh.Mesh` of ``dp`` x ``fsdp`` x ``pp`` x ``tp`` x
+``sp`` ranks (``mesh=``, or the strategy's ``mesh_degrees`` over the
+world).  Each rank's batch is
 its shard of the global batch (``mesh.batch_spec``); the loss is the mean
 over its rows, so the mean of the ranks' gradients is the gradient of the
 global mean loss, which the reference's step takes.  The step returns
@@ -27,10 +28,35 @@ floating buffers (the running statistics) are broadcast from the first
 data rank after each step, as PyTorch's DDP does, so every rank holds
 the same model.
 
+**Model axes** (``tensor_parallel``, ``pipeline``, ``sequence_parallel``,
+``hybrid_configs`` ``mp`` / ``pp`` / ``sep``).  A model built under the
+mesh holds its blocks already (each parameter's ``dist_spec``: the
+tensor-parallel layers' over ``tp``, the stacked decoder's layers over
+``pp``; :mod:`..meta_parallel`, :mod:`..pipeline`), and its layers run
+the collectives of the forward and backward themselves.  The step's part:
+
+- a model that splits the sequence (``splits_sequence()``, the Llama
+  model under ``sp`` above 1) gets this rank's block of dim 1 of every
+  batch tensor of two or more dims: the step cuts it over ``sp``;
+- a parameter that is whole on every rank of an axis where each rank
+  computed only part of its gradient has its gradient summed over that
+  axis: every parameter over ``sp`` when the sequence is split (each
+  rank saw its own positions).  Over ``tp`` the region functions already
+  leave equal gradients on the ranks, and over ``pp`` the pipeline sums
+  its input's cotangent and hands the last stage's output cotangent to
+  that stage alone, so the head and the embedding get the whole gradient
+  on every stage;
+- the loss the model returns is the same on every rank of ``tp``,
+  ``pp`` and ``sp``, and the step returns its mean over the data axes;
+- norms over a parameter split over ``tp`` or ``pp`` (and ``fsdp``) sum
+  their squares over those axes (the clips, Lamb, Lars, the guard's
+  health, float16's finite check).
+
 **ZeRO** (``strategy.sharding``, ``sharding_configs.stage``).  Which rows
 a rank holds is the reference's rule a parameter
-(:mod:`..spec_layout`): ``fsdp`` splits the largest dim it divides; a
-parameter with no such dim stays whole on every rank.
+(:mod:`..spec_layout`): the layer's annotation wins per dim, and
+``fsdp`` splits the largest remaining dim it divides (of the whole
+shape); a parameter with no such dim stays whole on every rank.
 
 - stage 1: the gradients are all-reduced over the data axes; each rank
   updates its rows of each parameter with its rows of the optimizer
@@ -61,16 +87,18 @@ merge and DGC, and is ignored without ``strategy.sharding``, as in the
 reference.
 
 **DGC** (``strategy.dgc``, :mod:`.dgc`).  Steps below
-``rampup_begin_step`` take the dense update exactly.  From there each
-rank corrects its own gradient with momentum (DGC's ``u``), accumulates
-it (``v``), sends the top-k of ``|v|`` of each tensor (k =
-``max(1, round(n (1 - sparsity)))``, the sparsity stepped through
-``dgc_configs.sparsity`` by ``rampup_stage_index``) as a masked dense
-tensor all-reduced (mean) over the data axes, keeps the rest as its
-residual, and the step applies SGD (the optimizer's clip and weight
-decay kept) with the exchanged gradient.  DGC needs Momentum or SGD,
-rejects Nesterov, and refuses float16 scaling, gradient merge and
-``guard_health``, as the reference.  ``last_dgc_masks`` holds the last
+``rampup_begin_step`` take the dense update exactly.  From there the
+step compresses the global gradient once, as the reference's step does
+(its data-axis sum is in the backward): the gradients' mean over the data
+axes is corrected with momentum (DGC's ``u``), accumulated (``v``), the
+top-k of ``|v|`` of each tensor kept (k = ``max(1, round(n (1 -
+sparsity)))``, the sparsity stepped through ``dgc_configs.sparsity`` by
+``rampup_stage_index``), the rest left as the residual, and the step
+applies SGD (the optimizer's clip and weight decay kept) with the kept
+entries.  ``u`` and ``v`` are the same on every rank.  DGC needs
+Momentum or SGD, rejects Nesterov, and refuses float16 scaling, gradient
+merge, ``guard_health`` and the model axes, as the reference does the
+first four.  ``last_dgc_masks`` holds the last
 compressed step's masks ({name: bool tensor}).
 
 - ``strategy.amp``: every f32 master parameter is cast to the compute
@@ -116,10 +144,8 @@ recomputation also replays the model's dropout generators (every
 ``torch.Generator`` held as a module's ``generator``) from their state at
 the forward's start, so it draws the masks the forward drew.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP queue
-item 4): pipelines, tensor and sequence parallelism and the other
-toggles, and ``hybrid_configs`` degrees above 1 on ``mp``, ``pp`` or
-``sep``.
+The other toggles of the reference (``localsgd``, ``auto``, ...) raise
+``NotImplementedError`` naming ROADMAP queue item 4.
 """
 from __future__ import annotations
 
@@ -138,7 +164,7 @@ from .. import mesh as mesh_mod
 from ..collective import (ReduceOp, _all_gather, _all_reduce, _broadcast,
                           _reduce_scatter, _world_rank)
 from ...optimizer.slot_codec import _SCALE_SUFFIX, _transform_slots
-from ..spec_layout import get_layout, sharded_dim
+from ..spec_layout import get_layout, sharded_dim, split_axes
 from .strategy import (IMPLEMENTED_TOGGLES, NOOP_TOGGLES,
                        DistributedStrategy, warn_noop_toggles)
 
@@ -244,16 +270,11 @@ class DistributedTrainStep:
         if refused:
             raise NotImplementedError(
                 f"strategy toggles {refused}: {_LATER}; the port runs "
-                f"{list(IMPLEMENTED_TOGGLES)} over dp x fsdp")
+                f"{list(IMPLEMENTED_TOGGLES)}")
         if self._use_scaling and self._k_steps > 1:
             raise NotImplementedError(
                 "float16 loss scaling (dynamic or static) + gradient_merge "
                 "is not supported; use bfloat16 (no scaling needed)")
-        hybrid = {k: v for k, v in strategy.hybrid_configs.items()
-                  if k in ("mp_degree", "pp_degree", "sep_degree")
-                  and v not in (1, -1)}
-        if hybrid:
-            raise NotImplementedError(f"hybrid_configs {hybrid} {_LATER}")
         if guard_health and self._use_dgc:
             raise NotImplementedError(
                 "guard_health covers the plain, fp16-loss-scaling and "
@@ -334,6 +355,7 @@ class DistributedTrainStep:
         m = self._mesh
         self._dist = bool(m is not None and m.distributed)
         g = (lambda ax: m.group(ax)) if self._dist else (lambda ax: None)
+        self._group = g
         self._data_group = g(mesh_mod.DATA)
         self._dp_group = g("dp")
         self._fsdp_group = g("fsdp")
@@ -341,16 +363,40 @@ class DistributedTrainStep:
         self._fsdp = m.shape["fsdp"] if self._dist else 1
         self._fsdp_index = m.coords["fsdp"] if self._dist else 0
         lay = get_layout()
+        seq = lay.act_axis("seq")
+        self._sp = m.shape[seq] if self._dist and any(
+            getattr(mod, "splits_sequence", lambda: False)()
+            for mod in self._model.modules()) else 1
+        self._sp_group = g(seq) if self._sp > 1 else None
         self.param_specs, self.slot_specs, self._dim = {}, {}, []
+        # this rank's block of each parameter (its tp / pp block), the
+        # whole shape and the axes its reduced gradient is split over
         self._full_shapes = [tuple(p.shape) for p in self._params]
-        for n, shape in zip(self._names, self._full_shapes):
-            pspec = (lay.zero3_augment(shape, None, self._fsdp)
-                     if self._stage >= 3 else lay.replicated(len(shape)))
-            sspec = lay.moment_spec(shape, None, pspec, self._stage,
+        self._global_shapes = [tuple(getattr(p, "full_shape", p.shape))
+                               for p in self._params]
+        self._norm_axes = []
+        live = (lambda ax: m.shape[ax] > 1) if self._dist else \
+            (lambda ax: False)
+        for n, p, shape in zip(self._names, self._params,
+                               self._global_shapes):
+            ann = getattr(p, "dist_spec", None)
+            pspec = (lay.zero3_augment(shape, ann, self._fsdp)
+                     if self._stage >= 3 else
+                     tuple(ann) if ann is not None
+                     else lay.replicated(len(shape)))
+            sspec = lay.moment_spec(shape, ann, pspec, self._stage,
                                     self._fsdp)
             self.param_specs[n], self.slot_specs[n] = pspec, sspec
             self._dim.append(sharded_dim(sspec))
+            self._norm_axes.append(tuple(a for a in split_axes(sspec)
+                                         if live(a)))
         self._sharded = [d is not None for d in self._dim]
+        self._sum_fns = {}
+        model_axes = {a for axes in self._norm_axes for a in axes} - {"fsdp"}
+        if self._use_dgc and (model_axes or self._sp > 1):
+            raise NotImplementedError(
+                "strategy.dgc over a model split over tp, pp or sp is not "
+                "ported (ROADMAP queue item 4): DGC runs over dp x fsdp")
 
     def _rows(self, t, d):
         size = t.shape[d] // self._fsdp
@@ -359,10 +405,29 @@ class DistributedTrainStep:
     def _row_max(self, i):
         """The maximum over the ranks that split parameter ``i``'s last
         dim (its int8 rows' scales span them), or None."""
-        d = self._dim[i]
-        if d is None or d != len(self._full_shapes[i]) - 1:
+        last = self.slot_specs[self._names[i]][-1:] or (None,)
+        axes = [a for a in split_axes(last) if a in self._norm_axes[i]]
+        if not axes:
             return None
-        return lambda m: _all_reduce(m, ReduceOp.MAX, self._fsdp_group)
+
+        def mx(t):
+            for a in axes:
+                _all_reduce(t, ReduceOp.MAX, self._group(a))
+            return t
+        return mx
+
+    def _sum_over(self, axes):
+        """The function that sums a tensor in place over ``axes`` (one per
+        set of axes, so a clip groups its norms by it), or None."""
+        if not axes:
+            return None
+        if axes not in self._sum_fns:
+            def f(t, axes=axes):
+                for a in axes:
+                    _all_reduce(t, ReduceOp.SUM, self._group(a))
+                return t
+            self._sum_fns[axes] = f
+        return self._sum_fns[axes]
 
     def _prepare(self):
         """Lay the state out on first use: stage 3 keeps each rank's rows
@@ -606,6 +671,7 @@ class DistributedTrainStep:
         statistics) once, exactly as ``__call__`` does."""
         if not self._ready:
             self._prepare()
+        args = self._cut_sequence(args)
         params = self._gathered()
         loss = self._loss(params, *args)
         if self._use_scaling:
@@ -626,14 +692,17 @@ class DistributedTrainStep:
 
     # -- the collectives -------------------------------------------------
     @torch.no_grad()
-    def _reduce(self, grads):
-        """The gradients' mean over the data axes, in place of ``grads``:
-        a split parameter's becomes its rows (stage 1: cut from the
-        all-reduced gradient; stages 2-3: reduce-scattered over fsdp,
-        then all-reduced over dp)."""
+    def _reduce(self, grads, whole=False):
+        """The gradients' mean over the data axes (after their sum over
+        ``sp`` when the sequence is split), in place of ``grads``: a split
+        parameter's becomes its rows (stage 1: cut from the all-reduced
+        gradient; stages 2-3: reduce-scattered over fsdp, then
+        all-reduced over dp); ``whole``: every gradient whole."""
         n = self._n_data
         for i, g in enumerate(grads):
-            d = self._dim[i]
+            if self._sp_group is not None:
+                _all_reduce(g, ReduceOp.SUM, self._sp_group)
+            d = None if whole else self._dim[i]
             if d is not None and self._stage >= 2:
                 r = _reduce_scatter(g, d, self._fsdp_group)
                 _all_reduce(r, ReduceOp.SUM, self._dp_group)
@@ -662,31 +731,34 @@ class DistributedTrainStep:
             if b.is_floating_point():
                 _broadcast(b, src, self._data_group)
 
-    def _fsdp_sum(self, t):
-        return _all_reduce(t, ReduceOp.SUM, self._fsdp_group)
-
     def _health(self, grads, loss, precise):
         """The health vector over the reduced gradients: a split
-        parameter's squares and bad counts sum over fsdp."""
+        parameter's squares and bad counts sum over the axes it is split
+        over."""
         from ...train_guard import fused_health
-        if not any(self._sharded):
+        if not any(self._norm_axes):
             return fused_health(grads, loss=loss, precise=precise)
-        split = [g for g, s in zip(grads, self._sharded) if s]
-        whole = [g for g, s in zip(grads, self._sharded) if not s] or [
+        groups = {}
+        for g, axes in zip(grads, self._norm_axes):
+            groups.setdefault(axes, []).append(g)
+        whole = groups.pop((), None) or [
             torch.zeros((1,), device=loss.device)]
-        hs = fused_health(split, loss=None, precise=precise)
         hw = fused_health(whole, loss=loss, precise=precise)
-        part = self._fsdp_sum(torch.stack([hs[0] * hs[0], hs[1]]))
-        bad = part[1] + hw[1]
+        sq, bad = hw[0] * hw[0], hw[1]
+        for axes, gs in groups.items():
+            hs = fused_health(gs, loss=None, precise=precise)
+            part = self._sum_over(axes)(torch.stack([hs[0] * hs[0], hs[1]]))
+            sq, bad = sq + part[0], bad + part[1]
         if not precise:
             bad = (bad > 0).float()
-        return torch.stack([torch.sqrt(part[0] + hw[0] * hw[0]), bad,
-                            hw[2]])
+        return torch.stack([torch.sqrt(sq), bad, hw[2]])
 
     def _finite(self, grads):
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        if any(self._sharded):
-            bad = self._fsdp_sum((~finite).float().reshape(1))
+        # every axis some reduced gradient is split over
+        axes = tuple(dict.fromkeys(a for ax in self._norm_axes for a in ax))
+        if axes:
+            bad = self._sum_over(axes)((~finite).float().reshape(1))
             finite = bad[0] == 0
         return finite
 
@@ -701,9 +773,9 @@ class DistributedTrainStep:
         from ...optimizer.optimizers import _scalar
         opt = self._opt
         lr = opt.get_lr()
-        # a norm over a split gradient sums its squares over fsdp
-        reduces = ([self._fsdp_sum if s else None for s in self._sharded]
-                   if any(self._sharded) else None)
+        # a norm over a split gradient sums its squares over its axes
+        reduces = ([self._sum_over(a) for a in self._norm_axes]
+                   if any(self._norm_axes) else None)
         grads[:] = opt._clip_values(grads, reduces)
         with torch.profiler.record_function("optimizer"):
             for i, p in enumerate(self._params):
@@ -721,7 +793,7 @@ class DistributedTrainStep:
                     stored = self._stored_on_device(i)
                     new_p, new_s = opt._apply_one(
                         rows, g, lr, self._decode(i, stored),
-                        sq_reduce=self._fsdp_sum if d is not None else None)
+                        sq_reduce=self._sum_over(self._norm_axes[i]))
                     new_s = self._encode(i, new_s)
                     if finite is not None:
                         new_s = _select(finite, new_s, stored)
@@ -760,8 +832,8 @@ class DistributedTrainStep:
 
     @torch.no_grad()
     def _dgc_exchange(self, grads, i):
-        """Compress each rank's gradients (step ``i``'s sparsity) into the
-        masked tensors the ranks exchange; keeps the residuals."""
+        """Compress the global gradients (step ``i``'s sparsity) into the
+        kept entries, in place of ``grads``; keeps the residuals."""
         from .dgc import dgc_one, rampup_stage_index
         dcfg = self._strategy.dgc_configs
         mom = float(getattr(self._opt, "_momentum",
@@ -786,9 +858,27 @@ class DistributedTrainStep:
         return i < int(self._strategy.dgc_configs.get(
             "rampup_begin_step", 0))
 
+    def _cut_sequence(self, args):
+        """This rank's block of dim 1 of every batch tensor of two or
+        more dims, over ``sp`` (when the model splits the sequence)."""
+        if self._sp <= 1:
+            return args
+        r = self._mesh.axis_index(get_layout().act_axis("seq"))
+
+        def cut(a):
+            if not isinstance(a, torch.Tensor) or a.dim() < 2:
+                return a
+            if a.shape[1] % self._sp:
+                raise ValueError(f"a batch tensor's dim 1 of {a.shape[1]} "
+                                 f"does not split over sp={self._sp}")
+            n = a.shape[1] // self._sp
+            return a[:, r * n:(r + 1) * n]
+        return tuple(cut(a) for a in args)
+
     def __call__(self, *args):
         if not self._ready:
             self._prepare()
+        args = self._cut_sequence(args)
         i = self._step_i
         self._step_i += 1
         params = self._gathered()
@@ -812,8 +902,13 @@ class DistributedTrainStep:
         if self._k_steps <= 1:
             sgd = self._use_dgc and not self._dgc_warm(i)
             if sgd:
-                self._dgc_exchange(grads, i)
-            self._reduce(grads)
+                # the global gradient, compressed once (the same on every
+                # rank), then each rank's rows of it
+                self._dgc_exchange(self._reduce(grads, whole=True), i)
+                grads[:] = [g if d is None else self._rows(g, d)
+                            for g, d in zip(grads, self._dim)]
+            else:
+                self._reduce(grads)
             if self._guard_health:
                 with torch.no_grad():
                     self.last_health = self._health(grads, loss, False)

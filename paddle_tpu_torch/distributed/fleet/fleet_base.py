@@ -13,19 +13,16 @@ primary); a trainer calls ``init_worker`` (a client in the strategy's
 sync, async or geo mode), ``barrier_worker`` and ``stop_worker``.
 A collective ``init`` (``is_collective=True``) joins the world's
 process group when the launcher's world has more than one rank
-(``init_parallel_env``) and installs the strategy's ``dp`` x ``fsdp``
-mesh over it; a world of one rank needs no group.
+(``init_parallel_env``) and installs the strategy's mesh over it (``dp``,
+``fsdp``, ``pp``, ``tp`` and ``sp`` degrees, as
+``DistributedStrategy.mesh_degrees`` maps them); a world of one rank
+needs no group.
 ``distributed_model`` wraps the model in ``DataParallel`` past one
 worker; ``distributed_train_step`` returns a
 :class:`~.dist_step.DistributedTrainStep` over that mesh; the
 ``DistributedOptimizer`` of ``distributed_optimizer`` swaps in ``Lamb``
 or ``Lars`` for the strategy's ``lamb`` / ``lars`` toggles, as the
 reference's meta optimizers do.
-
-Not ported yet (``NotImplementedError`` naming ROADMAP queue item 4):
-mesh degrees above 1 on ``tp``, ``pp`` or ``sp`` (``hybrid_configs``
-``mp_degree`` / ``pp_degree`` / ``sep_degree``, the ``tensor_parallel``
-and ``sequence_parallel`` degrees).
 """
 from __future__ import annotations
 
@@ -41,8 +38,6 @@ __all__ = [
     "init_server", "run_server", "stop_worker", "distributed_optimizer",
     "distributed_model", "distributed_train_step", "DistributedStrategy",
 ]
-
-_LATER = "is not ported yet (ROADMAP queue item 4)"
 
 
 class Fleet:
@@ -87,12 +82,6 @@ class Fleet:
             from ..parallel import ParallelEnv, init_parallel_env, \
                 is_initialized
             degrees = self._strategy.mesh_degrees()
-            model = {k: v for k, v in degrees.items()
-                     if k in ("tp", "pp", "sp") and v > 1}
-            if model:
-                raise NotImplementedError(
-                    f"a collective fleet.init over mesh degrees {model} "
-                    f"{_LATER}; the port runs dp x fsdp")
             if ParallelEnv().world_size > 1 or is_initialized():
                 init_parallel_env()
                 self._mesh = mesh_mod.init_mesh(degrees)

@@ -7,8 +7,17 @@ name, so a strategy written for the reference builds here.  The port's
 over f32 master weights, or float16 with loss scaling),
 ``recompute``, ``gradient_merge``, ``sharding`` (ZeRO stages 1-3,
 ``moment_dtype``, ``offload``) and ``dgc`` over a mesh of ``dp`` x
-``fsdp`` ranks (``mesh_degrees``); it refuses every other toggle that is
-on with ``NotImplementedError``.  ``fleet.distributed_optimizer`` swaps
+``fsdp`` ranks, and ``pipeline``, ``tensor_parallel`` and
+``sequence_parallel`` over ``pp``, ``tp`` and ``sp`` ranks
+(``mesh_degrees``: the ``tensor_parallel_configs`` /
+``sequence_parallel_configs`` degrees and ``hybrid_configs`` ``mp`` /
+``pp`` / ``sep``, as the reference maps them); it refuses every other
+toggle that is on with ``NotImplementedError``.  As in the reference's
+step, the model's config decides the pipeline's schedule and
+microbatches (``LlamaConfig.pp_num_microbatches``) and the attention
+over ``sp`` (``context_parallel``): ``pipeline_configs`` and
+``sequence_parallel_configs["mode"]`` are accepted and read by no
+step.  ``fleet.distributed_optimizer`` swaps
 in ``Lamb`` / ``Lars`` for the ``lamb`` / ``lars`` toggles.
 ``warn_noop_toggles`` warns once a strategy about accepted toggles and
 config keys that have no effect (``fp16_allreduce``: gradients already
@@ -24,7 +33,8 @@ __all__ = ["DistributedStrategy", "IMPLEMENTED_TOGGLES", "NOOP_TOGGLES",
 
 # toggles the port's DistributedTrainStep runs
 IMPLEMENTED_TOGGLES = ("amp", "recompute", "gradient_merge", "sharding",
-                       "dgc")
+                       "dgc", "pipeline", "tensor_parallel",
+                       "sequence_parallel")
 # toggles the step accepts and warns about: they change nothing here
 NOOP_TOGGLES = ("fp16_allreduce",)
 

@@ -20,9 +20,12 @@ A :class:`Mesh` names axis sizes (``AXES``).  It spans one of two things:
 
 ``init_mesh`` builds a mesh from degrees with the reference's arithmetic
 (missing axes get 1, one ``-1`` absorbs the remaining ranks, the rest
-goes to ``dp``).  Degrees above 1 on ``pp``, ``tp``, ``sp`` or ``ep``
-raise ``NotImplementedError`` (ROADMAP queue item 4): this slice runs the
-data axes.  The elastic trainer calls :func:`reform_mesh` on every
+goes to ``dp``).  Every axis but ``ep`` takes degrees above 1: ``tp``
+splits the parallel layers' weights (:mod:`.meta_parallel`), ``sp`` the
+sequence (:mod:`..ops.ring_attention`), ``pp`` the stacked layers
+(:mod:`.pipeline`).  A degree above 1 on ``ep`` raises
+``NotImplementedError`` (ROADMAP queue item 4, part 2c: expert
+parallelism with ``MoELayer``).  The elastic trainer calls :func:`reform_mesh` on every
 membership generation; every hook registered with :func:`on_reform` then
 fires with the new mesh.
 
@@ -48,7 +51,8 @@ __all__ = ["AXES", "Mesh", "visible_devices", "init_mesh", "get_mesh",
 # the key of the data axes' group in ``Mesh.groups``
 DATA = ("dp", "fsdp")
 
-_LATER = "is not ported yet (ROADMAP queue item 4)"
+_LATER = ("is not ported yet (ROADMAP queue item 4, part 2c: expert "
+          "parallelism with MoELayer)")
 
 
 @dataclass(frozen=True)
@@ -172,11 +176,8 @@ def _fire_reform(mesh: Mesh) -> None:
 
 
 def _refuse_model_axes(shape):
-    wide = {a: shape[a] for a in ("pp", "tp", "sp", "ep")
-            if shape.get(a, 1) > 1}
-    if wide:
-        raise NotImplementedError(f"mesh degrees {wide} {_LATER}; this "
-                                  "slice runs the data axes dp and fsdp")
+    if shape.get("ep", 1) > 1:
+        raise NotImplementedError(f"mesh degree ep={shape['ep']} {_LATER}")
 
 
 def _sizes(degrees, n):

@@ -1,7 +1,18 @@
-"""The spec rules of ZeRO and the batch (counterpart of the reference's
-``distributed/planner/spec_layout.py``, the methods the train step
-uses): which dims of a parameter, an optimizer slot and a batch are
-split over which mesh axes, and how many elements a rank then holds.
+"""The spec rules of the mesh (counterpart of the reference's
+``distributed/planner/spec_layout.py``, the methods the train step and
+the parallel layers use): which dims of a parameter, an activation, an
+optimizer slot and a batch are split over which mesh axes, and how many
+elements a rank then holds.
+
+Parameter roles (``param_spec``): ``embedding`` (vocab rows over
+``tp``), ``col_linear`` / ``col_bias`` (output columns over ``tp``),
+``row_linear`` (input rows over ``tp``), the Llama projections'
+``attn_qkv`` / ``attn_out`` / ``mlp_in`` / ``mlp_out`` / ``logits`` and
+the replicated ``norm`` / ``scalar``.  Activation roles (``act_axis``):
+``batch`` over the data axes, ``attn_heads`` / ``kv_heads`` / ``col_out``
+over ``tp``, ``seq`` over ``sp``, ``experts`` over ``ep``.  A layer-stacked
+parameter (``stack``) puts its leading layer dim on ``stack_axis``
+(``pp``), so each pipeline stage holds a contiguous block of layers.
 
 A spec is a plain tuple with one entry per dim: ``None`` (the dim is
 whole on every rank), an axis name, or a tuple of axis names (the dim is
@@ -14,19 +25,85 @@ shapes).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
-__all__ = ["AXES", "SpecLayout", "get_layout", "sharded_dim"]
+__all__ = ["AXES", "PARAM_ROLES", "ACT_ROLES", "STACK_AXIS", "SpecLayout",
+           "get_layout", "sharded_dim", "split_axes"]
 
 # canonical mesh axis order: batch-like axes first, then model axes
 AXES = ("dp", "fsdp", "pp", "tp", "sp", "ep")
+
+# role -> template: axis names or None a dim; dims beyond it are None
+PARAM_ROLES: Dict[str, Tuple] = {
+    "embedding":   ("tp", None),
+    "attn_qkv":    (None, "tp"),
+    "attn_out":    ("tp", None),
+    "mlp_in":      (None, "tp"),
+    "mlp_out":     ("tp", None),
+    "logits":      (None, "tp"),
+    "col_linear":  (None, "tp"),
+    "col_bias":    ("tp",),
+    "row_linear":  ("tp", None),
+    "norm":        (),
+    "scalar":      (),
+}
+
+# activation role -> the axis (or axis tuple) its dim splits over
+ACT_ROLES: Dict[str, Union[str, Tuple[str, ...]]] = {
+    "batch":      ("dp", "fsdp"),
+    "attn_heads": "tp",
+    "kv_heads":   "tp",
+    "col_out":    "tp",
+    "seq":        "sp",
+    "experts":    "ep",
+}
+
+# the layer-stack axis: the stacked decoder's and the pipeline's leading
+# dim
+STACK_AXIS = "pp"
 
 Spec = Tuple
 
 
 class SpecLayout:
-    """The reference's role registry, cut to the rules ZeRO and the batch
-    need; stateless."""
+    """The reference's role registry; stateless."""
+
+    param_roles = PARAM_ROLES
+    act_roles = ACT_ROLES
+    stack_axis = STACK_AXIS
+
+    def param_spec(self, role: str, ndim: Optional[int] = None) -> Spec:
+        """The spec of a parameter role; with ``ndim`` the template is
+        padded with None to that rank."""
+        try:
+            tpl = self.param_roles[role]
+        except KeyError:
+            raise KeyError(f"unknown parameter role {role!r}; registered: "
+                           f"{sorted(self.param_roles)}") from None
+        ent = list(tpl)
+        if ndim is not None:
+            if len(ent) > ndim:
+                raise ValueError(f"role {role!r} template {tpl} needs >= "
+                                 f"{len(ent)} dims, got ndim={ndim}")
+            ent += [None] * (ndim - len(ent))
+        return tuple(ent)
+
+    def act_axis(self, role: str):
+        """The axis (or axis tuple) an activation role's dim splits
+        over."""
+        try:
+            return self.act_roles[role]
+        except KeyError:
+            raise KeyError(f"unknown activation role {role!r}; registered: "
+                           f"{sorted(self.act_roles)}") from None
+
+    def stack(self, inner: Optional[Sequence], ndim: int) -> Spec:
+        """A layer-stacked parameter: the leading dim on ``stack_axis``,
+        the rest the per-layer annotation ``inner`` (padded with None)."""
+        rest = (tuple(inner) if inner is not None
+                else (None,) * (ndim - 1))
+        rest = rest + (None,) * (ndim - 1 - len(rest))
+        return (self.stack_axis,) + rest
 
     def replicated(self, ndim: int = 0) -> Spec:
         """Whole on every rank."""
@@ -90,6 +167,16 @@ def sharded_dim(spec: Spec, axis: str = "fsdp") -> Optional[int]:
         if ax == axis:
             return d
     return None
+
+
+def split_axes(spec: Spec):
+    """Every axis ``spec`` splits a dim over, in dim order."""
+    out = []
+    for ax in spec:
+        for a in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+            if a is not None and a not in out:
+                out.append(a)
+    return tuple(out)
 
 
 _layout = SpecLayout()

@@ -25,6 +25,16 @@ keeps f32 slots decodes them.  With ``step=`` (a
 ``DistributedTrainStep`` under ZeRO) a rank loads the rows of each whole
 array that the spec rules give it, and ``opt_state_arrays`` all-gathers
 the split slots back into whole arrays.
+
+A model built under a mesh over processes holds its block of each
+parameter that a spec splits (``dist_spec``: the tensor-parallel layers'
+over ``tp``, a stacked decoder's layers over ``pp``).
+``load_jax_blocks`` loads a rank's blocks from the whole arrays (layers
+``[s L / pp, (s + 1) L / pp)`` of a stacked parameter, the rank's block
+of a dim split over ``tp``), and ``gather_blocks`` is its inverse: the
+world's blocks of each array (one dict a rank, parameters or gradients)
+assembled into the whole arrays by their specs and the ranks' mesh
+coordinates.
 """
 from __future__ import annotations
 
@@ -34,7 +44,8 @@ import numpy as np
 import torch
 
 __all__ = ["load_jax_state_dict", "state_arrays", "opt_state_arrays",
-           "load_jax_opt_state"]
+           "load_jax_opt_state", "load_jax_blocks", "gather_blocks",
+           "param_specs"]
 
 
 def load_jax_state_dict(model: torch.nn.Module,
@@ -160,3 +171,78 @@ def _placed(a, like: torch.Tensor) -> torch.Tensor:
     if like.device.type == "cpu" and like.is_pinned():
         return t.pin_memory()
     return t.to(device=like.device)
+
+
+def param_specs(model: torch.nn.Module):
+    """Each parameter's spec (``dist_spec``; whole: all None) by name."""
+    return {n: tuple(getattr(p, "dist_spec", None) or (None,) * p.dim())
+            for n, p in model.named_parameters()}
+
+
+def load_jax_blocks(model: torch.nn.Module, arrays: Mapping[str, np.ndarray],
+                    mesh=None) -> None:
+    """:func:`load_jax_state_dict` from whole arrays into a model that
+    holds blocks: each parameter takes its block of its array by its spec
+    on ``mesh`` (default: the installed mesh)."""
+    from ..distributed import mesh as mesh_mod
+    from ..distributed.meta_parallel import block_of
+    mesh = mesh or mesh_mod.get_mesh(create=False)
+    specs = param_specs(model)
+    cut = {}
+    for n, a in arrays.items():
+        a = np.asarray(a)
+        cut[n] = (block_of(a, specs[n], mesh) if n in specs
+                  and mesh is not None and mesh.distributed else a)
+    load_jax_state_dict(model, cut)
+
+
+def gather_blocks(blocks, specs, shape):
+    """The whole arrays from a world's blocks: ``blocks[r]`` is rank r's
+    ``{name: array}``, ``specs`` each name's spec (a dim entry: None, an
+    axis name or a tuple of them), ``shape`` the mesh's axis sizes.  The
+    ranks that hold the same block must agree on it."""
+    from ..distributed.mesh import Mesh
+    world = len(blocks)
+    coords = [Mesh((), dict(shape), r, world).coords for r in range(world)]
+    out = {}
+    for n, spec in specs.items():
+        first = np.asarray(blocks[0][n])
+        spec = tuple(spec) + (None,) * (first.ndim - len(tuple(spec)))
+        size = [first.shape[d] * _axes_size(spec[d], shape)
+                for d in range(first.ndim)]
+        whole, seen = np.zeros(size, first.dtype), {}
+        for r in range(world):
+            blk = np.asarray(blocks[r][n])
+            idx = []
+            for d, ax in enumerate(spec):
+                i = _axes_index(ax, shape, coords[r])
+                idx.append(slice(i * blk.shape[d], (i + 1) * blk.shape[d]))
+            key = tuple((s.start, s.stop) for s in idx)
+            if key in seen:
+                if not np.array_equal(seen[key], blk):
+                    raise ValueError(f"{n}: ranks {r} and another hold "
+                                     "different values of one block")
+                continue
+            seen[key] = blk
+            whole[tuple(idx)] = blk
+        out[n] = whole
+    return out
+
+
+def _axes(ax):
+    return () if ax is None else (tuple(ax) if isinstance(ax, (tuple, list))
+                                  else (ax,))
+
+
+def _axes_size(ax, shape):
+    n = 1
+    for a in _axes(ax):
+        n *= int(shape.get(a, 1))
+    return n
+
+
+def _axes_index(ax, shape, coords):
+    i = 0
+    for a in _axes(ax):
+        i = i * int(shape.get(a, 1)) + coords[a]
+    return i

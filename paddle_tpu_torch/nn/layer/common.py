@@ -1,12 +1,13 @@
 """Single-device linear and embedding layers, dropout, and the
 initializers.
 
-Counterparts of ``distributed/meta_parallel.py``'s
-``ColumnParallelLinear``, ``RowParallelLinear`` and
-``VocabParallelEmbedding`` at tensor-parallel world 1, and of
-``nn/layer/common.py``'s plain ``Linear``: the same parameter names
-(``weight``, ``bias``) and the same [in, out] weight layout, so a JAX
-``state_dict`` loads without transposes.  Weights are created directly on
+The counterpart of ``nn/layer/common.py``'s plain ``Linear``: the same
+parameter names (``weight``, ``bias``) and the same [in, out] weight
+layout, so a JAX ``state_dict`` loads without transposes.  The parallel
+layers ``ColumnParallelLinear``, ``RowParallelLinear`` and
+``VocabParallelEmbedding`` live in :mod:`...distributed.meta_parallel`
+(one set for the models and ``distributed.split``); this module and
+:mod:`.` re-export them.  Weights are created directly on
 ``device`` in ``dtype`` and drawn from an explicit ``torch.Generator``
 (``None``: PyTorch's default generator).
 
@@ -36,6 +37,18 @@ from ..functional import common as F
 __all__ = ["Normal", "Constant", "XavierNormal", "KaimingNormal", "Linear",
            "ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "Embedding", "Dropout"]
+
+_PARALLEL = ("ColumnParallelLinear", "RowParallelLinear",
+             "VocabParallelEmbedding")
+
+
+def __getattr__(name):
+    # the parallel layers import this module, so they are re-exported on
+    # first use rather than at import
+    if name in _PARALLEL:
+        from ...distributed import meta_parallel
+        return getattr(meta_parallel, name)
+    raise AttributeError(name)
 
 
 class Normal:
@@ -110,27 +123,6 @@ class Linear(_Linear):
                          bias_attr is not False,
                          device=resolve_device(device), dtype=dtype,
                          generator=generator)
-
-
-class ColumnParallelLinear(_Linear):
-    """y = x @ W (+ b); the output dim would be sharded over 'tp'."""
-
-
-class RowParallelLinear(_Linear):
-    """y = x @ W (+ b); the contraction dim would be sharded over 'tp'."""
-
-
-class VocabParallelEmbedding(nn.Module):
-    def __init__(self, num_embeddings: int, embedding_dim: int,
-                 weight_attr=None, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.weight = _param((num_embeddings, embedding_dim),
-                             weight_attr or Normal(0.0, 0.02), device,
-                             dtype, generator)
-
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
 
 
 class Embedding(nn.Module):

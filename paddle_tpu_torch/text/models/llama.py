@@ -48,7 +48,25 @@ train step that keeps only the loss (``DistributedTrainStep``, through
 ``(loss, None)``: no logits.  Every other caller gets ``(loss,
 logits)`` from the plain path, as the reference's eager callers do.
 
-Not ported yet: pipeline / sequence / context parallelism.
+**Model parallelism** (the reference's, with explicit collectives: the
+port has no SPMD partitioner).  Every projection is a tensor-parallel
+layer (:mod:`...distributed.meta_parallel`): under a mesh over processes
+with ``tp`` above 1 a rank holds its block of each (its heads of q, k, v
+and o, its columns of the MLP's gate / up and rows of its down, its rows
+of the embedding and columns of the head), the attention runs on its
+heads (the flash kernels at the rank's shape), and the head's logits are
+gathered whole.  With ``sequence_parallel`` or ``context_parallel`` and
+``sp`` above 1 the model takes this rank's block of the sequence (dim 1
+of ``input_ids``; the train step cuts it), its positions start at the
+block's offset, the attention is ring or Ulysses attention over ``sp``
+(``context_parallel``, ring by default), and the loss pairs the block's
+last position with the next block's first label (brought across with
+``ppermute``): each rank sums its positions' losses over the global count
+of labels, and the ranks' sums are added (``reduce_from_region``).  With
+``pp`` above 1 the stacked decoder holds this stage's contiguous block of
+layers and runs them as a GPipe pipeline of ``pp_num_microbatches``
+(:mod:`...distributed.pipeline`); the head and the loss run on every
+stage.  The paged and dense-cache serving paths take whole weights.
 """
 from __future__ import annotations
 
@@ -63,8 +81,14 @@ from ... import make_generator, resolve_device
 from ...framework.dtype import to_torch
 from ...framework.step_context import keeps_loss_only
 from ...nn.functional import _sdpa_ref, silu
-from ...nn.layer import (ColumnParallelLinear, Normal, RowParallelLinear,
-                         VocabParallelEmbedding)
+from ...distributed import communication as comm
+from ...distributed import mesh as mesh_mod
+from ...distributed.meta_parallel import (ColumnParallelLinear,
+                                          RowParallelLinear,
+                                          VocabParallelEmbedding,
+                                          mark_sharding)
+from ...distributed.spec_layout import get_layout
+from ...nn.layer.common import Normal
 from ...ops.kernels.flash_attention import (chunked_attention,
                                            flash_attention, flash_eligible)
 from ...ops.kernels.kv_attention import (int8_paged_attention,
@@ -94,7 +118,13 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     remat: bool = True            # per-layer activation checkpointing
     compute_dtype: str = "bfloat16"
+    # the sequence (dim 1) split over 'sp'; context_parallel: the
+    # attention over it, "ring" or "ulysses" (None: ring when the
+    # sequence is split)
+    sequence_parallel: bool = False
+    context_parallel: Optional[str] = None
     scan_layers: bool = False     # layer-stacked parameters
+    pp_num_microbatches: int = 1  # GPipe microbatches when pp > 1
     # paged-KV pool dtype: None -> compute_dtype; "int8" -> int8 pools
     # with [num_blocks, block_size] f32 scale tensors (symmetric
     # per-token scales, quantised on write); any other value is a plain
@@ -185,6 +215,35 @@ def _rope(x, positions, theta: float):
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def _seq_split(config) -> int:
+    """The ranks the sequence splits over: ``sp`` of the mesh over
+    processes when the config splits it, else 1."""
+    if not (config.sequence_parallel or config.context_parallel):
+        return 1
+    mesh = mesh_mod.get_mesh(create=False)
+    if mesh is None or not mesh.distributed:
+        return 1
+    return mesh.axis_size(get_layout().act_axis("seq"))
+
+
+def _context_parallel(qh, kh, vh, config):
+    """Causal ring or Ulysses attention over ``sp`` on this rank's (B, S /
+    sp, H, D) blocks."""
+    from ...ops.ring_attention import (ring_attention_local,
+                                       ulysses_attention_local)
+    mode = config.context_parallel or "ring"
+    if mode == "ring":
+        fn = ring_attention_local
+    elif mode == "ulysses":
+        fn = ulysses_attention_local
+    else:
+        raise ValueError("context_parallel must be 'ring' or 'ulysses', "
+                         "got %r" % (mode,))
+    o = fn(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+           axis_name=get_layout().act_axis("seq"), causal=True)
+    return o.transpose(1, 2)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None,
                  dtype=torch.float32, generator=None):
@@ -195,16 +254,16 @@ class LlamaAttention(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.q_proj = ColumnParallelLinear(
             c.hidden_size, c.num_attention_heads * c.head_dim,
-            weight_attr=init, has_bias=False, **kw)
+            weight_attr=init, has_bias=False, gather_output=False, **kw)
         self.k_proj = ColumnParallelLinear(
             c.hidden_size, c.kv_heads * c.head_dim, weight_attr=init,
-            has_bias=False, **kw)
+            has_bias=False, gather_output=False, **kw)
         self.v_proj = ColumnParallelLinear(
             c.hidden_size, c.kv_heads * c.head_dim, weight_attr=init,
-            has_bias=False, **kw)
+            has_bias=False, gather_output=False, **kw)
         self.o_proj = RowParallelLinear(
             c.num_attention_heads * c.head_dim, c.hidden_size,
-            weight_attr=init, has_bias=False, **kw)
+            weight_attr=init, has_bias=False, input_is_parallel=True, **kw)
 
     def forward(self, hidden, positions, mode=None):
         """Causal self-attention over the whole sequence (training and
@@ -212,20 +271,27 @@ class LlamaAttention(nn.Module):
         query head first, as the reference does; flash-eligible shapes
         take the flash kernels (``mode`` forwards to their dispatch),
         other lengths of at least 1,024 ``chunked_attention``, shorter
-        ones the plain attention."""
+        ones the plain attention; a sequence split over ``sp`` takes ring
+        or Ulysses attention.  Under ``tp`` the rank's heads (its blocks
+        of the projections) run, and ``o_proj`` sums the ranks' parts."""
         c = self.config
-        q = self.q_proj(hidden)
-        k = self.k_proj(hidden)
-        v = self.v_proj(hidden)
-        B, S = q.shape[0], q.shape[1]
-        H, KH, D = c.num_attention_heads, c.kv_heads, c.head_dim
+        x = hidden
+        if self.q_proj.split():
+            x = comm.copy_to_region(hidden, get_layout().act_axis("col_out"))
+        q = self.q_proj.local(x)
+        k = self.k_proj.local(x)
+        v = self.v_proj.local(x)
+        B, S, D = q.shape[0], q.shape[1], c.head_dim
+        H, KH = q.shape[-1] // D, k.shape[-1] // D
         qh = _rope(q.reshape(B, S, H, D), positions, c.rope_theta)
         kh = _rope(k.reshape(B, S, KH, D), positions, c.rope_theta)
         vh = v.reshape(B, S, KH, D)
         if KH != H:
             kh = kh.repeat_interleave(H // KH, dim=2)
             vh = vh.repeat_interleave(H // KH, dim=2)
-        if flash_eligible(S, D):
+        if _seq_split(c) > 1:
+            o = _context_parallel(qh, kh, vh, c)
+        elif flash_eligible(S, D):
             o = flash_attention(qh, kh, vh, causal=True, mode=mode)
         elif S >= 1024:
             o = chunked_attention(qh, kh, vh, causal=True)
@@ -357,16 +423,19 @@ class LlamaMLP(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.gate_proj = ColumnParallelLinear(
             c.hidden_size, c.intermediate_size, weight_attr=init,
-            has_bias=False, **kw)
+            has_bias=False, gather_output=False, **kw)
         self.up_proj = ColumnParallelLinear(
             c.hidden_size, c.intermediate_size, weight_attr=init,
-            has_bias=False, **kw)
+            has_bias=False, gather_output=False, **kw)
         self.down_proj = RowParallelLinear(
             c.intermediate_size, c.hidden_size, weight_attr=init,
-            has_bias=False, **kw)
+            has_bias=False, input_is_parallel=True, **kw)
 
     def forward(self, x):
-        return self.down_proj(silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.gate_proj.split():
+            x = comm.copy_to_region(x, get_layout().act_axis("col_out"))
+        return self.down_proj(silu(self.gate_proj.local(x))
+                              * self.up_proj.local(x))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -415,6 +484,11 @@ class StackedLlamaDecoder(nn.Module):
     Python loop takes the place of ``lax.scan``.  ``unbind``'s backward
     stacks the L per-layer gradients into one [L, ...] tensor, where L
     ``select``s would each materialise a full-size zero gradient.
+
+    Each stacked parameter's spec is ``SpecLayout.stack`` of its layer's
+    (the leading dim over ``pp``): under ``pp`` above 1 a stage holds
+    layers ``[s L / pp, (s + 1) L / pp)`` and the forward runs them as a
+    GPipe pipeline of ``pp_num_microbatches`` (``pipeline_apply``).
     """
 
     def __init__(self, config: LlamaConfig, *, device=None,
@@ -425,11 +499,15 @@ class StackedLlamaDecoder(nn.Module):
         layers = [LlamaDecoderLayer(config, **kw)
                   for _ in range(config.num_hidden_layers)]
         self._names = [n for n, _ in layers[0].named_parameters()]
+        lay = get_layout()
         for n in self._names:
-            stacked = torch.stack([dict(l.named_parameters())[n].detach()
-                                   for l in layers])
-            self.register_parameter(n.replace(".", "__"),
-                                    nn.Parameter(stacked))
+            per = [dict(l.named_parameters())[n] for l in layers]
+            stacked = nn.Parameter(torch.stack([p.detach() for p in per]))
+            full = (len(per),) + tuple(getattr(per[0], "full_shape",
+                                               per[0].shape))
+            mark_sharding(stacked, lay.stack(
+                getattr(per[0], "dist_spec", None), stacked.dim()), full)
+            self.register_parameter(n.replace(".", "__"), stacked)
         del layers
         # not a registered child: its own parameters are placeholders
         object.__setattr__(self, "_proto", LlamaDecoderLayer(
@@ -440,10 +518,9 @@ class StackedLlamaDecoder(nn.Module):
             self._proto, dict(zip(self._names, params)), (hidden, positions),
             {"mode": mode})
 
-    def forward(self, hidden, positions, mode=None):
-        per_layer = [torch.unbind(getattr(self, n.replace(".", "__")))
-                     for n in self._names]
-        for i in range(self.config.num_hidden_layers):
+    def _stage(self, stacked, hidden, positions, mode):
+        per_layer = [torch.unbind(p) for p in stacked]
+        for i in range(len(per_layer[0])):
             params = [p[i] for p in per_layer]
             if self.config.remat:
                 out = checkpoint(self._layer, hidden, positions, mode,
@@ -454,6 +531,18 @@ class StackedLlamaDecoder(nn.Module):
             # to the carry dtype, as the reference's scan does
             hidden = out.to(hidden.dtype)
         return hidden
+
+    def forward(self, hidden, positions, mode=None):
+        from ...distributed.pipeline import num_stages, pipeline_apply
+        stacked = [getattr(self, n.replace(".", "__")) for n in self._names]
+        mesh = mesh_mod.get_mesh(create=False)
+        if mesh is not None and mesh.distributed and num_stages(mesh) > 1:
+            return pipeline_apply(
+                lambda ps, h, pos: self._stage(ps, h, pos, mode), stacked,
+                hidden, positions,
+                num_microbatches=max(self.config.pp_num_microbatches, 1),
+                mesh=mesh)
+        return self._stage(stacked, hidden, positions, mode)
 
 
 class LlamaModel(nn.Module):
@@ -485,8 +574,10 @@ class LlamaModel(nn.Module):
         c = self.config
         if positions is None:
             S = input_ids.shape[1]
+            start = S * comm.axis_index(get_layout().act_axis("seq")) \
+                if self.splits_sequence() else 0
             positions = torch.arange(
-                S, dtype=torch.int32,
+                start, start + S, dtype=torch.int32,
                 device=input_ids.device)[None, :].expand(input_ids.shape)
         hidden = self.embed_tokens(input_ids)
         if c.compute_dtype:
@@ -508,6 +599,12 @@ class LlamaModel(nn.Module):
                 else:
                     hidden = layer(hidden, positions, mode=mode)
         return self.norm(hidden)
+
+    def splits_sequence(self) -> bool:
+        """Whether the forward takes this rank's block of the sequence
+        (``sequence_parallel`` or ``context_parallel`` under ``sp`` above
+        1): the train step then cuts dim 1 of the batch over ``sp``."""
+        return _seq_split(self.config) > 1
 
     def forward_paged(self, input_ids, positions, pools, block_tables,
                       write_mask, verify_mode: bool = False, mode=None,
@@ -560,7 +657,28 @@ class LlamaForCausalLM(nn.Module):
         h = hidden.float()
         if self.lm_head is not None:
             return self.lm_head(h)
-        return h @ self.model.embed_tokens.weight.float().T
+        emb = self.model.embed_tokens
+        if emb.weight.shape[0] != emb._num_embeddings:
+            # the tied table's rows are split over tp: this rank's vocab
+            # columns, gathered
+            axis = get_layout().param_spec("embedding")[0]
+            part = comm.copy_to_region(h, axis) @ emb.weight.float().T
+            return comm.gather_from_region(part, axis, -1)
+        return h @ emb.weight.float().T
+
+    def _head_weight(self):
+        """The head's weight whole (gathered over tp where split) and
+        whether it is the tied [V, H] table."""
+        if self.lm_head is not None:
+            w, dim, transposed = self.lm_head.weight, 1, False
+            split = self.lm_head.split()
+        else:
+            w, dim, transposed = self.model.embed_tokens.weight, 0, True
+            split = w.shape[0] != self.config.vocab_size
+        if split:
+            axis = get_layout().param_spec("col_linear")[1]
+            w = comm.gather_from_region(w, axis, dim)
+        return w, transposed
 
     def forward(self, input_ids, labels=None, positions=None, mode=None):
         """Logits [B, S, V] (f32), or ``(loss, logits)`` when ``labels``
@@ -575,16 +693,41 @@ class LlamaForCausalLM(nn.Module):
             return self._logits(hidden)
         B, S = hidden.shape[0], hidden.shape[1]
         logits_bytes = B * S * self.config.vocab_size * 4
-        if (keeps_loss_only() and S - 1 >= 2 * _LOSS_CHUNK
-                and logits_bytes >= _CHUNK_BYTES_MIN):
-            if self.lm_head is not None:
-                w, transposed = self.lm_head.weight, False
-            else:
-                w, transposed = self.model.embed_tokens.weight, True
+        chunked = (keeps_loss_only() and S - 1 >= 2 * _LOSS_CHUNK
+                   and logits_bytes >= _CHUNK_BYTES_MIN)
+        if self.model.splits_sequence():
+            return self._split_sequence_loss(hidden, labels, chunked)
+        if chunked:
+            w, transposed = self._head_weight()
             return _chunked_causal_lm_loss(hidden, w, labels,
                                            transposed), None
         logits = self._logits(hidden)
         return _causal_lm_loss(logits, labels), logits
+
+    def _split_sequence_loss(self, hidden, labels, chunked):
+        """The causal LM loss of a sequence split over ``sp``: position i
+        of this block pairs with label i + 1, the block's last position
+        with the next block's first label (none on the last block); each
+        rank sums its positions' losses over the global count of valid
+        labels, and the ranks' sums add up to the loss (identity
+        backward: each rank's part takes the cotangent once)."""
+        axis = get_layout().act_axis("seq")
+        n, r = comm.axis_size(axis), comm.axis_index(axis)
+        lb = labels.long()
+        nxt = comm.ppermute(lb[:, :1].contiguous(), axis,
+                            [(i, i - 1) for i in range(1, n)])
+        if r == n - 1:
+            nxt = torch.full_like(nxt, -100)
+        lb = torch.cat([lb[:, 1:], nxt], dim=1)
+        if chunked:
+            w, transposed = self._head_weight()
+            s_nll, cnt = _chunked_nll(hidden, lb, w, transposed)
+            logits = None
+        else:
+            logits = self._logits(hidden)
+            s_nll, cnt = _nll_sum(logits, lb)
+        total = comm.psum(cnt.float(), axis).clamp_min(1.0)
+        return comm.reduce_from_region(s_nll / total, axis), logits
 
     def generate(self, input_ids, **kwargs):
         """Autoregressive decoding (greedy, sampling, beam search): see
@@ -593,7 +736,11 @@ class LlamaForCausalLM(nn.Module):
         return generate(self, input_ids, **kwargs)
 
     def supports_kv_cache(self) -> bool:
-        return self.model.decoder is None
+        # the stacked decoder and a sequence split over sp (ring /
+        # Ulysses exchange) take the full-recompute path
+        c = self.config
+        return (self.model.decoder is None and not c.context_parallel
+                and not c.sequence_parallel)
 
     def init_cache(self, batch_size: int, max_len: int):
         """Per-layer dense K/V buffers [B, max_len, KH, D] in the compute
@@ -674,13 +821,18 @@ def _causal_lm_loss(logits, labels):
     """Mean next-token negative log-likelihood: f32 log-softmax of
     ``logits[:, :-1]`` against ``labels[:, 1:]``, label < 0 ignored, the
     sum divided by the number of valid labels (at least 1)."""
-    lg = logits[:, :-1, :]
-    lb = labels[:, 1:].long()
+    s_nll, cnt = _nll_sum(logits[:, :-1, :], labels[:, 1:].long())
+    return s_nll / cnt.clamp_min(1)
+
+
+def _nll_sum(logits, lb):
+    """The summed NLL of ``logits`` [B, S, V] against the aligned labels
+    ``lb`` [B, S] (label < 0 ignored) and the count of valid labels."""
     valid = lb >= 0
-    logp = torch.log_softmax(lg.float(), dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, torch.where(valid, lb, 0)[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum(), valid.sum()
 
 
 _LOSS_CHUNK = 256    # sequence positions a loss chunk
@@ -730,21 +882,26 @@ def _chunked_causal_lm_loss(hidden, w, labels, transposed):
     rounding of the inputs, f32 log-softmax, -100 ignored, the sum over
     the valid count); the projection's cotangents are rounded to the
     weights' dtype (:class:`_ProjChunk`)."""
-    B, S, H = hidden.shape
-    n = S - 1
-    h = hidden[:, :-1, :]
-    lb = labels[:, 1:].long()
+    s_nll, s_cnt = _chunked_nll(hidden[:, :-1, :], labels[:, 1:].long(), w,
+                                transposed)
+    return s_nll / s_cnt.clamp_min(1).float()
+
+
+def _chunked_nll(h, lb, w, transposed):
+    """:func:`_chunked_causal_lm_loss`'s sum and count over hidden states
+    ``h`` [B, n, H] and their aligned labels ``lb`` [B, n]."""
+    n = h.shape[1]
     C = _LOSS_CHUNK
     pad = -(-n // C) * C - n
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         lb = torch.nn.functional.pad(lb, (0, pad), value=-100)
     wm = w.t() if transposed else w          # [H, V], compute dtype
-    s_nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    s_cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    s_nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    s_cnt = torch.zeros((), dtype=torch.int64, device=h.device)
     for c0 in range(0, n + pad, C):
         nll, cnt = checkpoint(_chunk_nll, h[:, c0:c0 + C], lb[:, c0:c0 + C],
                               wm, use_reentrant=False)
         s_nll = s_nll + nll
         s_cnt = s_cnt + cnt
-    return s_nll / s_cnt.clamp_min(1).float()
+    return s_nll, s_cnt

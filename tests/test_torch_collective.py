@@ -345,10 +345,16 @@ def worker_port():
 
 
 def test_refusals_name_queue_item_4():
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        tdist.split(None, (8, 16), "linear")
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        tmesh.init_mesh({"tp": 2}, devices=["cpu", "cpu"])
+    """ep still names queue item 4 (part 2c); tp, pp and sp are ported:
+    ``split`` without a mesh is the whole layer, and a one-process mesh
+    takes their degrees over its devices."""
+    with pytest.raises(NotImplementedError, match="queue item 4, part 2c"):
+        tmesh.init_mesh({"ep": 2}, devices=["cpu", "cpu"])
+    torch.manual_seed(0)
+    y = tdist.split(torch.ones(2, 8), (8, 16), "linear", axis=1)
+    assert y.shape == (2, 16)
+    m = tmesh.init_mesh({"tp": 2}, devices=["cpu", "cpu"])
+    assert m.shape["tp"] == 2 and not m.distributed
     with pytest.raises(RuntimeError, match="init_parallel_env"):
         tdist.all_reduce(torch.ones(2))
     # no process group: the mesh is this process's one device

@@ -1290,6 +1290,50 @@ def test_flash_kernels_at_8192_positions_match_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(4, 8), (1, 16), (1, 8)],
+                         ids=["tp_rank", "pp_mb", "tp_pp_mb"])
+def test_flash_kernels_at_the_model_parallel_shapes_on_card(B, H):
+    """Kernels 1-3 at the shapes the proxy's model-parallel steps give
+    them (bf16, S 2,048, head_dim 128, causal): a tp-2 rank's heads (B 4,
+    H 8), a pp-2 microbatch (B 1, H 16) and a tp-2 x pp-2 one (B 1, H 8).  The forward within
+    ``CARD_TOL`` of the blockwise plain version, the gradients within
+    ``CARD_TOL_BWD`` of the blockwise backward (from the kernel's own
+    output and LSE, as the kernels' backward takes them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode); "
+                    "chip_smoke.py phase 3 runs this at each of these "
+                    "shapes")
+    registry.reset_counts()
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(dev, dt).transpose(1, 2).contiguous()
+               .requires_grad_()
+               for a in _qkv(16, B=B, H=H, S=2048, D=128))
+    g = torch.from_numpy(_qkv(17, B=B, H=H, S=2048, D=128)[0]).to(dev, dt)
+    o = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), g.transpose(1, 2))
+    qh, kh, vh = (t.detach().transpose(1, 2) for t in (q, k, v))
+    plan = fa.flash_fwd_plan(qh, kh, vh)
+    ref = fa.flash_attention_blockwise_ref(qh, kh, vh, causal=True,
+                                           block_k=plan.block_k)
+    _assert_within(o.detach().transpose(1, 2), ref, fa.CARD_TOL[dt])
+    o2, lse = fa.flash_attention_bhsd(qh, kh, vh, causal=True,
+                                      return_lse=True)
+    assert torch.equal(o2, o.detach().transpose(1, 2))
+    delta = fa.attention_delta(o2, g)
+    bref = fa.flash_attention_bwd_blockwise_ref(qh, kh, vh, g, lse, delta,
+                                                causal=True)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, bref):
+        assert bool(torch.isfinite(got.float()).all())
+        _assert_within(got.transpose(1, 2), want, fa.CARD_TOL_BWD[dt])
+    counts = registry.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+
+
+@pytest.mark.cuda
 def test_float16_scaled_step_on_card():
     """The train step with float16 AMP on the card: an overflowing batch
     leaves the parameters and the AdamW state bitwise as they were and

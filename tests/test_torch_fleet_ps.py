@@ -626,10 +626,12 @@ def test_ps_runtime_warm_starts_and_saves(tmp_path):
 
 
 def test_fleet_api_surface_and_queue_item_4():
-    """The collective ``init`` takes dp / fsdp degrees (a world of one
-    rank needs no process group; wider degrees need their ranks, which
-    ``tests/test_torch_collective.py`` starts), and tp still raises
-    queue item 4; the LAMB / LARS toggles swap the optimizer."""
+    """The collective ``init`` takes dp / fsdp / tp / pp / sp degrees (a
+    world of one rank needs no process group; wider degrees need their
+    ranks, which ``tests/test_torch_collective.py`` and
+    ``tests/test_torch_hybrid.py`` start: a tp degree of 2 here raises
+    for its ranks, no longer queue item 4); the LAMB / LARS toggles swap
+    the optimizer."""
     from paddle_tpu.distributed.fleet import fleet_base as jfb
     assert set(jfb.__all__) <= set(fleet.__all__)
     for name in ("PSRuntime", "GeoPusher", "PaddleCloudRoleMaker",
@@ -637,7 +639,7 @@ def test_fleet_api_surface_and_queue_item_4():
         assert hasattr(fleet, name), name
     s = DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2}
-    with pytest.raises(NotImplementedError, match="queue item 4"):
+    with pytest.raises(ValueError, match="ranks"):
         Fleet().init(is_collective=True, strategy=s)
     s1 = DistributedStrategy()
     s1.sharding = True

@@ -285,6 +285,10 @@ def _fp16(s):
 # with gradient merge, and DGC with either; every feature still to be
 # ported names ROADMAP queue item 4
 _REFERENCE_REFUSALS = ("gradient_merge", "float16")
+# the model axes, ported: a degree above 1 needs that many ranks (this
+# world has one), a toggle alone at degree 1 builds the step
+_MODEL_AXES = ("pp_degree", "sep_degree", "tensor_parallel", "pipeline",
+               "mp_degree")
 
 
 @pytest.mark.parametrize("setup,match", [
@@ -303,6 +307,15 @@ def test_refused_strategies_raise(setup, match):
     tm = LlamaForCausalLM(llama_tiny(), device="cpu")
     s = DistributedStrategy()
     setup(s)
+    if match in _MODEL_AXES:
+        opt = AdamW(parameters=tm.parameters())
+        if max(s.mesh_degrees().values()) > 1:
+            with pytest.raises(ValueError, match="need that many ranks"):
+                DistributedTrainStep(tm, lambda a: a, opt, s)
+        else:
+            step = DistributedTrainStep(tm, lambda a: a, opt, s)
+            assert step._mesh is None and step._sp == 1
+        return
     with pytest.raises(NotImplementedError, match=match) as e:
         DistributedTrainStep(tm, lambda a: a, AdamW(parameters=tm.parameters()),
                              s)

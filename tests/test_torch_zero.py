@@ -94,6 +94,51 @@ def test_spec_rules_match_spec_layout(which):
     assert port.replicated(2) == (None, None) and port.replicated() == ()
 
 
+def test_model_axis_roles_match_spec_layout():
+    """The roles tp, sp and pp need (``param_spec``, ``act_axis``,
+    ``stack``) and ZeRO-3 over their annotations, entry for entry the
+    reference's ``SpecLayout`` on the proxy's and ``llama_tiny``'s
+    stacked shapes."""
+    from jax.sharding import PartitionSpec as P
+    ref, port = SpecLayout(), get_layout()
+    for role in ref.param_roles:
+        assert sorted(port.param_roles) == sorted(ref.param_roles)
+        for ndim in (None, 2, 3):
+            try:
+                want = ref.param_spec(role, ndim)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    port.param_spec(role, ndim)
+                continue
+            assert P(*port.param_spec(role, ndim)) == want, (role, ndim)
+    with pytest.raises(KeyError):
+        port.param_spec("nope")
+    for role in ref.act_roles:
+        assert port.act_axis(role) == ref.act_axis(role)
+    assert port.stack_axis == ref.stack_axis == "pp"
+    shapes = {(8, 2048, 2048): "attn_qkv", (8, 5504, 2048): "mlp_out",
+              (8, 2048, 5504): "mlp_in", (2, 64, 64): "attn_out",
+              (8, 2048): "norm", (2, 64): "norm"}
+    for shape, role in shapes.items():
+        inner = ref.param_spec(role, len(shape) - 1)
+        want = ref.stack(tuple(inner), len(shape))
+        got = port.stack(port.param_spec(role, len(shape) - 1), len(shape))
+        assert P(*got) == want, shape
+        for fsdp in (1, 2, 4):
+            z = ref.zero3_augment(shape, tuple(want), fsdp)
+            assert P(*port.zero3_augment(shape, got, fsdp)) == z
+            sizes = {"fsdp": fsdp, "tp": 2, "pp": 2}
+            assert port.sharded_numel(shape, tuple(z), sizes) == \
+                ref.sharded_numel(shape, z, sizes)
+    for role in ("embedding", "logits", "col_linear", "row_linear"):
+        shape = (32000, 2048) if role == "embedding" else (2048, 32000)
+        ann = port.param_spec(role, 2)
+        for fsdp in (2, 8):
+            assert P(*port.zero3_augment(shape, ann, fsdp)) == \
+                ref.zero3_augment(shape, tuple(ref.param_spec(role, 2)),
+                                  fsdp)
+
+
 # -- the q8 codec --------------------------------------------------------
 
 def _moments(seed, shape=(64, 128)):

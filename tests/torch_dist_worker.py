@@ -237,3 +237,241 @@ def train_case(case):
 def train_cases(cases):
     return [train_case(c) for c in cases]
 
+
+
+# -- the Llama step over tp, sp and pp -----------------------------------
+
+def llama_case(case):
+    """One layout: the Llama model built under ``case["mesh"]`` holds its
+    blocks of the JAX weights (``load_jax_blocks``); this rank's loss and
+    reduced gradients (summed over sp, the mean over the data axes) at
+    the weights, then ``steps`` steps of the strategy's step, the first
+    one's ``guard_health`` norm of its reduced gradient.  Blocks come
+    back with their specs, for ``gather_blocks``."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed.spec_layout import get_layout
+    from paddle_tpu_torch.framework.io import load_jax_blocks, param_specs
+    from paddle_tpu_torch.text.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.text.models import llama
+    mesh = mesh_mod.init_mesh(case["mesh"])
+    model = LlamaForCausalLM(llama_tiny(**case["cfg"]), device="cpu")
+    load_jax_blocks(model, case["weights"])
+    chunked = []
+    if case.get("chunk_bytes_min") is not None:
+        # the chunked LM loss at a tiny size: its threshold lowered here
+        llama._CHUNK_BYTES_MIN = case["chunk_bytes_min"]
+        plain_nll = llama._chunked_nll
+
+        def counted(*a):
+            chunked.append(tuple(a[2].shape))
+            return plain_nll(*a)
+        llama._chunked_nll = counted
+    opt = getattr(topt, case.get("opt", "AdamW"))(
+        learning_rate=case.get("lr", 1e-3),
+        parameters=list(model.parameters()))
+    s = DistributedStrategy()
+    for k, v in case.get("strategy", {}).items():
+        setattr(s, k, v)
+    step = DistributedTrainStep(model, lambda a, b: model(a, labels=b)[0],
+                                opt, s, mesh=mesh, guard_health=True)
+    ids = case["ids"]
+    x = torch.from_numpy(ids[mesh_mod.batch_spec(len(ids), mesh)])
+    loss, grads = step.loss_and_grads(x, x)
+    grads = step._reduce(list(grads))
+    out = dict(rank=dist.get_rank(), coords=mesh.coords,
+               loss=float(step._mean_loss(loss)),
+               grads={n: _np(g) for n, g in zip(step._names, grads)},
+               grad_specs=dict(step.slot_specs), losses=[])
+    for _ in range(case["steps"]):
+        out["losses"].append(float(step(x, x)))
+        # the first step's: its gradient is the one at the weights
+        out.setdefault("health_norm", float(step.last_health[0]))
+    out["params"] = {n: _np(v) for n, v in step.full_parameters().items()}
+    out["chunked"] = chunked
+    out["param_specs"] = param_specs(model)
+    lay = get_layout()
+    out["held"] = [
+        (n, p.numel() == lay.sharded_numel(g, step.param_specs[n],
+                                           mesh.shape)
+         and all(v.numel() == lay.sharded_numel(g, step.slot_specs[n],
+                                                mesh.shape)
+                 for v in opt._accumulators[id(p)].values()
+                 if v.dim() and tuple(v.shape) == tuple(p.shape)))
+        for n, p, g in zip(step._names, step._params, step._global_shapes)]
+    return out
+
+
+def llama_cases(cases):
+    torch.set_num_threads(1)
+    return [llama_case(c) for c in cases]
+
+
+# -- the tensor-parallel layers, split -------------------------------------
+
+def _blocks(layer, arrays, mesh):
+    from paddle_tpu_torch.distributed.meta_parallel import block_of
+    with torch.no_grad():
+        for n, p in layer.named_parameters():
+            a = arrays[n]
+            spec = getattr(p, "dist_spec", None) or (None,) * a.ndim
+            p.copy_(torch.from_numpy(np.ascontiguousarray(
+                block_of(a, spec, mesh))))
+
+
+def meta_parallel_case(case):
+    """The three layers at ``case["mesh"]``: outputs, and the gradients of
+    sum(y^2) (their blocks, with specs) and of the input."""
+    from paddle_tpu_torch.distributed import meta_parallel as mp
+    from paddle_tpu_torch.framework.io import param_specs
+    mesh = mesh_mod.init_mesh(case["mesh"])
+    gather = case["gather"]
+    col = mp.ColumnParallelLinear(16, 64, gather_output=gather, device="cpu")
+    row = mp.RowParallelLinear(64, 16, input_is_parallel=not gather,
+                               device="cpu")
+    emb = mp.VocabParallelEmbedding(64, 8, device="cpu")
+    for layer, pre in ((col, "col."), (row, "row."), (emb, "emb.")):
+        _blocks(layer, {k[len(pre):]: v for k, v in case["weights"].items()
+                        if k.startswith(pre)}, mesh)
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    y = row(col(x))
+    (y * y).sum().backward()
+    e = emb(torch.from_numpy(case["ids"]))
+    (e * torch.from_numpy(case["e_ct"])).sum().backward()
+    grads, specs = {}, {}
+    for layer, pre in ((col, "col."), (row, "row."), (emb, "emb.")):
+        for n, p in layer.named_parameters():
+            grads[pre + n] = _np(p.grad)
+            specs[pre + n] = param_specs(layer)[n]
+    return dict(rank=dist.get_rank(), coords=mesh.coords, y=_np(y),
+                e=_np(e), x_grad=_np(x.grad), grads=grads, specs=specs,
+                split=(col.split(), row.split()))
+
+
+def split_case(case):
+    """``distributed.split``'s three cases from one seed on every rank."""
+    mesh_mod.init_mesh(case["mesh"])
+    x = torch.from_numpy(case["x"])
+    out = {}
+    for name, kw in (("col", dict(size=(8, 16), operation="linear",
+                                  axis=1, gather_out=True)),
+                     ("row", dict(size=(8, 16), operation="linear",
+                                  axis=0)),
+                     ("emb", dict(size=(64, 8), operation="embedding"))):
+        torch.manual_seed(5)
+        arg = torch.from_numpy(case["ids"]) if name == "emb" else x
+        out[name] = _np(dist.split(arg, num_partitions=2, **kw))
+    return out
+
+
+def fleet_case(case):
+    """A collective ``fleet.init`` over the strategy's tp degree: the mesh
+    it installs."""
+    from paddle_tpu_torch.distributed import fleet
+    s = DistributedStrategy()
+    for k, v in case["strategy"].items():
+        setattr(s, k, v)
+    f = fleet.Fleet().init(is_collective=True, strategy=s)
+    return dict(shape=dict(f._mesh.shape), coords=f._mesh.coords,
+                tp_ranks=f._mesh.axis_ranks("tp"))
+
+
+def meta_parallel_cases(cases):
+    torch.set_num_threads(1)
+    return [{"layers": meta_parallel_case, "split": split_case,
+             "llama": llama_case, "fleet": fleet_case}[c["kind"]](c)
+            for c in cases]
+
+
+# -- ring and Ulysses attention ------------------------------------------
+
+def ring_case(case):
+    """Ring or Ulysses attention on the global (B, S, H, D) arrays: the
+    whole output and this rank's part of the inputs' gradients of
+    sum(out^2) (the ranks' parts sum to the gradient); or the model's
+    logits under context parallelism; or the refusals."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    mesh = mesh_mod.init_mesh(case["mesh"])
+    if case["kind"] == "llama":
+        from paddle_tpu_torch.framework.io import load_jax_blocks
+        from paddle_tpu_torch.text.models import LlamaForCausalLM, llama_tiny
+        model = LlamaForCausalLM(llama_tiny(**case["cfg"]), device="cpu")
+        load_jax_blocks(model, case["weights"])
+        ids = case["ids"]
+        n, r = mesh.shape["sp"], mesh.coords["sp"]
+        blk = ids.shape[1] // n
+        with torch.no_grad():
+            logits = model(torch.from_numpy(
+                ids[:, r * blk:(r + 1) * blk].copy()))
+        return dict(logits=_np(comm.all_gather(logits, "sp", tiled=True,
+                                               gather_dim=1)))
+    if case["kind"] == "refusals":
+        got = {}
+        for name, fn, (b, s, h) in (("ulysses_heads", ra.ulysses_attention,
+                                     (1, 16, 2)),
+                                    ("ring_seq", ra.ring_attention,
+                                     (1, 6, 2))):
+            q = torch.zeros(b, s, h, 4)
+            try:
+                fn(q, q, q)
+                got[name] = None
+            except ValueError as e:
+                got[name] = str(e)
+        return got
+    fn = ra.ring_attention if case["kind"] == "ring" else \
+        ra.ulysses_attention
+    q, k, v = [torch.from_numpy(a).requires_grad_() for a in case["qkv"]]
+    out = fn(q, k, v, causal=case["causal"])
+    (out * out).sum().backward()
+    return dict(out=_np(out), grads=[_np(t.grad) for t in (q, k, v)])
+
+
+def ring_cases(cases):
+    torch.set_num_threads(1)
+    return [ring_case(c) for c in cases]
+
+
+# -- GPipe and 1F1B ------------------------------------------------------
+
+def _tanh_stage(p, h):
+    w, b = p
+    for i in range(w.shape[0]):
+        h = torch.tanh(h @ w[i] + b[i])
+    return h
+
+
+def _mse(h, y):
+    return ((h - y) ** 2).mean()
+
+
+def pipeline_case(case):
+    """The reference's stacked tanh-linear block over ``pp``: GPipe's
+    output, loss and gradients (this stage's layers, the input), then
+    1F1B's loss and gradients, both at ``M`` microbatches."""
+    from paddle_tpu_torch.distributed import pipeline as pl
+    if case["kind"] == "llama":
+        return llama_case(case)
+    mesh = mesh_mod.init_mesh(case["mesh"])
+    S, s = mesh.shape["pp"], mesh.coords["pp"]
+    w, b = case["w"], case["b"]
+    per = w.shape[0] // S
+    wl = torch.from_numpy(w[s * per:(s + 1) * per].copy()).requires_grad_()
+    bl = torch.from_numpy(b[s * per:(s + 1) * per].copy()).requires_grad_()
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    y = torch.from_numpy(case["y"])
+    M = case["M"]
+    out = pl.pipeline_apply(lambda p, h, e: _tanh_stage(p, h), (wl, bl), x,
+                            num_microbatches=M, mesh=mesh)
+    loss = _mse(out, y)
+    loss.backward()
+    loss2, (dw, db), dx = pl.pipeline_train_1f1b(
+        _tanh_stage, (wl.detach(), bl.detach()), x.detach(), y, _mse,
+        num_microbatches=M, mesh=mesh)
+    return dict(stage=s, per=per, out=_np(out), loss=float(loss.detach()),
+                dw=_np(wl.grad), db=_np(bl.grad), dx=_np(x.grad),
+                f_loss=float(loss2), f_dw=_np(dw), f_db=_np(db),
+                f_dx=_np(dx))
+
+
+def pipeline_cases(cases):
+    torch.set_num_threads(1)
+    return [pipeline_case(c) for c in cases]
